@@ -3,11 +3,12 @@
 
 Run from the repository root on a machine with one NVIDIA H100 (``python3
 chip_smoke.py``, no arguments). It builds the port's CUDA kernels from ``csrc/``,
-holds each against its plain PyTorch version, drives the stepdiff main path through
-``driver.run_file`` on the GPU, and checks the result against the analytic erf
-solution of ``tst/stepdiff_common.py``. Every phase raises on failure; the last line
-of standard output is the JSON result, printed only when every phase passed. It
-exits non-zero without a GPU. Nothing here imports jax.
+holds each against its plain PyTorch version, drives the port's paths through
+``driver.run_file`` on the GPU (the stepdiff gate; the inf equilibrium gate; a 2D
+and the 64^3 matter-coupled feedback configurations), and checks each result by
+the repository's own gates. Every phase raises on failure; the last line of
+standard output is the JSON result, printed only when every phase passed. It exits
+non-zero without a GPU. Nothing here imports jax.
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi);
@@ -24,7 +25,30 @@ Phases:
      version (use_pallas = off) for comparison; the kernel and its plain version
      timed on the main path's own ledger;
   6. determinism: the main path again with the same seed gives bitwise-identical
-     tallies.
+     tallies;
+  7. the absorbing census kernel against its plain version in 3D (2^17 particles
+     on a 16^3 periodic mesh in 8^3 blocks, sigma_s = 768, f sigma_a = 256, so
+     p_abs = 0.25) and in 2D: after 8 iterations integer state, alive and absorbed
+     identical and floats within FLOAT_RTOL; after a full census of the last 1 %
+     of a step every live slot at tau = 1, events within 2 %, absorbed counts
+     within 4 binomial sd;
+  8. the inf gate: inputs/inf.in with tst/inf.py's overrides (tlim 2e-11, 2000
+     particles, seed 42), 20 steps through the 3D absorbing kernel; the mean
+     fractional error of the tally against a T0^4 (tst/regression_test.py's
+     "mean" comparison) <= 0.1; then a 2D matter-coupled path (128^2 cells,
+     emission and feedback, 3 steps) through the 2D absorbing kernel;
+  9. the full-width path: bench.py's big_mesh_feedback configuration (64^3 cells
+     in 8^3 blocks, 200k particles, emission and feedback, sigma_a = 3 on
+     sigma_s = 1e3), 3 steps through the 3D absorbing kernel (3 launches): total
+     energy conserved to 1e-2 of the radiation energy, nothing dropped, every
+     census complete, events within 5 % of the JAX package's count; events, step
+     time, events/s and peak device memory; the kernel and its plain version timed
+     on the path's own ledger;
+ 10. determinism of phase 9: a second run gives bitwise-identical tallies and u.
+
+For each kernel the JSON line gives its bound: the larger of the bytes the census
+must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
+tensor cores), from this run's events (see ``census_bound``).
 """
 
 from __future__ import annotations
@@ -32,6 +56,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +84,57 @@ FLOAT_RTOL = 1e-5
 EVENTS_RTOL = 0.02
 MEAN_ATOL = 0.01  # the CPU tests' tolerances (tests/test_pallas.py)
 STD_RTOL = 0.10
+N_SIGMA_BINOMIAL = 4.0
+# kernel vs plain in 2D/3D: the relative error of a float is taken against this
+# floor, so a position or velocity component near 0 does not inflate it
+FLOAT_FLOOR = {"x": 1e-3, "y": 1e-3, "z": 1e-3, "tau": 1e-3,
+               "vx": 1e-3 * 2.99792458e10, "vy": 1e-3 * 2.99792458e10,
+               "vz": 1e-3 * 2.99792458e10}
+
+INF_DECK = os.path.join(ROOT, "inputs", "inf.in")
+INF = {  # tst/inf.py's overrides
+    "parthenon/time/tlim": "2.e-11",
+    "jaybenne/num_particles": 2000,
+    "jaybenne/seed": 42,
+    "parthenon/output0/file_type": "none",
+}
+INF_STEPS = 20
+INF_TOL = 0.1
+# bench.py's big_mesh_feedback row (bench.py:333-364; its specific_heat key is read
+# by neither package, which take the specific heat from mcblock/cv)
+FEEDBACK = {
+    "parthenon/mesh/nx1": 64, "parthenon/mesh/nx2": 64, "parthenon/mesh/nx3": 64,
+    "parthenon/mesh/ix2_bc": "periodic", "parthenon/mesh/ox2_bc": "periodic",
+    "parthenon/mesh/ix3_bc": "periodic", "parthenon/mesh/ox3_bc": "periodic",
+    "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+    "parthenon/meshblock/nx3": 8,
+    "jaybenne/num_particles": 200000,
+    "jaybenne/do_emission": "true",
+    "jaybenne/do_feedback": "true",
+    "mcblock/opacity_model": "constant",
+    "mcblock/opacity_constant_value": 3.0,
+    "mcblock/specific_heat": 30.3,
+    "jaybenne/capacity_factor": 3,
+    "parthenon/output0/file_type": "none",
+}
+FEEDBACK_STEPS = 3
+FEEDBACK_ENERGY_TOL = 1e-2  # bench.py:379-391
+# the JAX package's 3-step event total for the same configuration
+# (BENCH_r05.json, big_mesh_feedback.events_total): a count of the physics
+FEEDBACK_JAX_EVENTS = 871578029
+FEEDBACK_EVENTS_RTOL = 0.05
+# a 2D matter-coupled path: the feedback configuration on a 128^2 mesh in 32^2
+# blocks with 50k particles
+FEEDBACK_2D = {
+    **{k: v for k, v in FEEDBACK.items() if "nx3" not in k and "x3_bc" not in k},
+    "parthenon/mesh/nx1": 128, "parthenon/mesh/nx2": 128,
+    "parthenon/meshblock/nx1": 32, "parthenon/meshblock/nx2": 32,
+    "jaybenne/num_particles": 50000,
+}
+FEEDBACK_2D_STEPS = 3
+# published H100 SXM peaks (NVIDIA's H100 data sheet)
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def phase(name):
@@ -93,22 +170,7 @@ def gate_ledger(dev, n=1 << 17, seed=7):
 
 
 def gate_setup(dev, sigma_s):
-    from jaybenne_tpu_torch import config as cm
-    from jaybenne_tpu_torch.mesh import build_mesh
-    from jaybenne_tpu_torch.ops.transport import TransportCoefs
-    from jaybenne_tpu_torch.step import make_transport_params
-    from jaybenne_tpu_torch.utils.deck import Deck
-
-    cfg = cm.from_deck(Deck.from_file(DECK).update(GATE))
-    mesh = build_mesh(cfg.mesh, device=dev)
-    prm = make_transport_params(cfg, torch.float32)
-    nc = mesh.total_cells
-    coefs = TransportCoefs(
-        sigma_a=torch.zeros(nc, device=dev),
-        sigma_s=torch.full((nc,), sigma_s, device=dev),
-        fleck=torch.ones(nc, device=dev),
-    )
-    return cfg, mesh, prm, coefs
+    return deck_setup(dev, DECK, GATE, 0.0, sigma_s)
 
 
 def weighted_erf_error(sim) -> float:
@@ -130,29 +192,225 @@ def radiation_energy(sim) -> float:
 
 
 def time_census(fn, p0, args, dev, repeats):
-    """ms per census call (CUDA events), each on a fresh copy of ``p0``."""
+    """(ms per census call (CUDA events), events of the last call), each call on a
+    fresh copy of ``p0``. A device sleep queued before the start event keeps the
+    card busy while the host prepares the call, so the interval holds the call's
+    device work (its table set-up and the census) and not the host's latency."""
     times = []
     for _ in range(repeats):
         p = p0.clone()
         torch.cuda.synchronize(dev)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms at 1980 MHz
         start.record()
-        fn(p, *args)
+        _, _, events = fn(p, *args)
         stop.record()
         torch.cuda.synchronize(dev)
         times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    return statistics.median(times), int(events)
 
 
-def max_float_err(a, b):
+def max_float_err(a, b, names=("x", "vx", "vy", "vz", "tau"), floors=None):
     err, rel = 0.0, 0.0
-    for name in ("x", "vx", "vy", "vz", "tau"):
+    for name in names:
         ta, tb = getattr(a, name), getattr(b, name)
         d = (ta - tb).abs()
         err = max(err, float(d.max()))
-        rel = max(rel, float((d / tb.abs().clamp_min(1e-30)).max()))
+        floor = 1e-30 if floors is None else floors[name]
+        rel = max(rel, float((d / tb.abs().clamp_min(floor)).max()))
     return err, rel
+
+
+def sass_counts(lib_path) -> dict:
+    """Per kernel function of the library, from ``cuobjdump -sass``: the SASS
+    instructions (NOPs left out) up to and including its first EXIT, which is the
+    straight-line path a call takes; the rarely taken slow paths of logf and the
+    divide (special operands) are subroutines placed after it."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, name, done = {}, None, True
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name, done = m.group(1), False
+            counts[name] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and name is not None and not done and not m.group(1).startswith("NOP"):
+            counts[name] += 1
+            done = re.search(r"\bEXIT\b", m.group(1)) is not None
+    return counts
+
+
+def probe_costs(counts) -> dict:
+    """Instructions of logf, the IEEE divide and the K2 hash, from the probes of
+    csrc/sass_probes.cu: each probe's count less its baseline's (the same loads
+    and stores with one FADD)."""
+    return {
+        "logf": counts["jb_probe_logf"] - counts["jb_probe_load1"],
+        "div": counts["jb_probe_div"] - counts["jb_probe_load2"] + 1,
+        "hash": counts["jb_probe_hash"] - counts["jb_probe_load2"] + 1,
+    }
+
+
+def ops_per_event(ndim, absorb, cost) -> int:
+    """Operations every census event executes, counted from csrc/transport_kernel.cu
+    (each float or integer arithmetic, compare, min, select and conversion is one;
+    logf, the divide and the hash count as the instructions cuobjdump shows):
+
+      common: exp23's u23 (3) + fmax (1) + negation (1) + x inv_sigt (1)
+        + d_end (2) + d_geom (1) + coll test (1) + census test (1) + d select (1)
+        + tau update (3) + step (1) + loop test (3) + it++ (1) = 20;
+      per axis: face (I2F, f dx, f + 1, (f + 1) dx: 4) + v != 0, v > 0, select,
+        subtract, x c, BIG select (6) + position (multiply, add, crossing select:
+        3) + out-of-range tests (2) = 15, plus one divide;
+      mins for d_push: ndim; crossing tests: 1, 3, 6 in 1D, 2D, 3D; cell index:
+        ndim - 1;
+      absorption: the u23 branch draw (3) + its test (1) and one more hash;
+      one hash (exp23) and one logf.
+
+    The scatter branch (u16, sqrt, the circle's cosf), wall hits and the gather
+    are left out, so the count, and the bound from it, is low."""
+    n = 20 + 15 * ndim + ndim + {1: 1, 2: 3, 3: 6}[ndim] + (ndim - 1)
+    n += cost["logf"] + ndim * cost["div"] + cost["hash"]
+    if absorb:
+        n += 4 + cost["hash"]
+    return n
+
+
+def census_bound(p, ndim, absorb, n_cells, events, cost):
+    """(bound_ms, bound_by) of one census: the larger of its operations over the
+    card's float32 peak and of its bytes over the memory rate. Bytes: each live
+    particle's state read once and written once (position and cell index on the
+    active axes, velocity, tau, alive, and absorbed written when absorbing), one
+    alive byte of each other slot, the pair table read once."""
+    live = int(p.alive.sum())
+    per_particle = 2 * (4 * ndim + 12 + 4 + 4 * ndim + 1) + (1 if absorb else 0)
+    nbytes = live * per_particle + (p.capacity - live) + 8 * n_cells
+    t_ops = events * ops_per_event(ndim, absorb, cost) / PEAK_F32_OPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def deck_setup(dev, deck, mods, sigma_a, sigma_s):
+    """(cfg, mesh, prm, coefs) of a deck with constant coefficients."""
+    from jaybenne_tpu_torch import config as cm
+    from jaybenne_tpu_torch.mesh import build_mesh
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.step import make_transport_params
+    from jaybenne_tpu_torch.utils.deck import Deck
+
+    cfg = cm.from_deck(Deck.from_file(deck).update(mods))
+    mesh = build_mesh(cfg.mesh, device=dev)
+    prm = make_transport_params(cfg, torch.float32)
+    nc = mesh.total_cells
+    coefs = TransportCoefs(
+        sigma_a=torch.full((nc,), sigma_a, device=dev),
+        sigma_s=torch.full((nc,), sigma_s, device=dev),
+        fleck=torch.ones(nc, device=dev),
+    )
+    return cfg, mesh, prm, coefs
+
+
+def binomial_gate(k_a, k_b, n, what):
+    pbar = 0.5 * (k_a + k_b) / n
+    sd = (2.0 * n * pbar * (1.0 - pbar)) ** 0.5
+    if abs(k_a - k_b) > N_SIGMA_BINOMIAL * sd + 1:
+        raise AssertionError(f"{what}: absorbed {k_a} vs {k_b} (sd {sd:.1f})")
+
+
+def compare_absorbing(transport_kernel, dev, ndim, mods, seed):
+    """Phase 7 on one mesh: the absorbing kernel against its plain version.
+    Returns the 8-iteration max_abs_err."""
+    from jaybenne_tpu_torch.particles import uniform_ledger
+    from jaybenne_tpu_torch.utils.constants import CC
+
+    names = ("x", "y", "z", "vx", "vy", "vz", "tau")
+    cfg, mesh, prm, coefs = deck_setup(dev, DECK, mods, 256.0, 768.0)
+    if mesh.ndim != ndim or mesh.n_blocks < 2 or not prm.has_absorption:
+        raise AssertionError(f"phase 7 setup: ndim {mesh.ndim}, {mesh.n_blocks} blocks")
+    dt = cfg.jaybenne.dt
+    p0 = uniform_ledger(mesh, 1 << 17, torch.Generator(device=dev).manual_seed(seed), CC)
+    prm8 = dataclasses.replace(prm, max_iters=8)
+    pk, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, seed, prm8, dt)
+    pp, it_p, ev_p = transport_kernel.transport_plain(p0.clone(), coefs, mesh, seed, prm8, dt)
+    torch.cuda.synchronize()
+    for name in ("i", "j", "k", "block", "alive", "absorbed"):
+        if not torch.equal(getattr(pk, name), getattr(pp, name)):
+            raise AssertionError(f"{ndim}D absorbing, 8 iterations: {name} differs")
+    if int(ev_k) != int(ev_p) or int(it_k) != int(it_p):
+        raise AssertionError(f"{ndim}D absorbing, 8 iterations: stats {ev_k} {ev_p}")
+    err8, rel8 = max_float_err(pk, pp, names, FLOAT_FLOOR)
+    if rel8 > FLOAT_RTOL:
+        raise AssertionError(f"{ndim}D absorbing, 8 iterations: float rel err {rel8}")
+    ev8 = int(ev_k)
+    # the full census starts in the last 1 % of the step (c dt (1 - tau) <= 0.01 cm,
+    # ~5 collisions): from tau = 0 all but ~0.75^1000 of the particles are absorbed
+    pf = p0.clone()
+    pf.tau.copy_(0.99 + 0.01 * torch.rand(pf.capacity, device=dev,
+                                          generator=torch.Generator(dev).manual_seed(seed)))
+    pk, _, ev_k = transport_kernel.transport(pf.clone(), coefs, mesh, seed, prm, dt)
+    pp, _, ev_p = transport_kernel.transport_plain(pf.clone(), coefs, mesh, seed, prm, dt)
+    for out, name in ((pk, "kernel"), (pp, "plain")):
+        if bool((out.tau[out.alive] < 1.0).any()) or bool((out.alive & out.absorbed).any()):
+            raise AssertionError(f"{ndim}D absorbing census ({name}): short of census")
+    ev_k, ev_p = int(ev_k), int(ev_p)
+    if abs(ev_k - ev_p) > EVENTS_RTOL * ev_p:
+        raise AssertionError(f"{ndim}D absorbing census: events {ev_k} vs {ev_p}")
+    ka, kp = int(pk.absorbed.sum()), int(pp.absorbed.sum())
+    binomial_gate(ka, kp, p0.capacity, f"{ndim}D absorbing census")
+    if not 0.05 * p0.capacity < ka < 0.95 * p0.capacity:
+        raise AssertionError(f"{ndim}D absorbing census: {ka} absorbed of {p0.capacity}")
+    print(f"{ndim}D absorbing, {mesh.total_cells} cells in {mesh.n_blocks} blocks: "
+          f"8 iterations: identical integers, {ev8} events, "
+          f"max_abs_err {err8:.3e} max_rel_err {rel8:.3e}; full census events kernel "
+          f"{ev_k} plain {ev_p}, absorbed {ka} / {kp} of {p0.capacity}, "
+          f"bitwise equal: {torch.equal(pk.x, pp.x) and torch.equal(pk.i, pp.i)}",
+          flush=True)
+    return err8
+
+
+def total_energy(sim):
+    """(sum u dV + sum of live weights, sum of live weights), float64."""
+    dv = sim.mesh.block_volume.double()[:, None, None, None]
+    p = sim.state.particles
+    er = float(p.weight.double()[p.alive].sum())
+    return float((sim.state.fields.u.double() * dv).sum()) + er, er
+
+
+def path_census(sim, transport_kernel, dev, seed=12345):
+    """The kernel and its plain version on a path's own ledger after its last step:
+    (kernel ms, plain ms, census events, 8-iteration max_abs_err). One warm-up
+    each, then one timed census each."""
+    from jaybenne_tpu_torch.ops import transport as transport_ops
+    from jaybenne_tpu_torch.step import make_transport_params
+
+    cfg, mesh = sim.cfg, sim.mesh
+    prm = make_transport_params(cfg, torch.float32)
+    m = cfg.mcblock
+    coefs = transport_ops.precompute_coefs(
+        sim.state.fields, mesh, m.build_eos(), m.build_opacity(), m.build_scattering(),
+        False, torch.float32,
+    )
+    p0 = sim.state.particles.clone()
+    dt = cfg.jaybenne.dt
+    args = (coefs, mesh, seed, prm, dt)
+    transport_kernel.transport(p0.clone(), *args)  # warm-up
+    ms, events = time_census(transport_kernel.transport, p0, args, dev, 1)
+    a8 = (coefs, mesh, seed, dataclasses.replace(prm, max_iters=8), dt)
+    transport_kernel.transport_plain(p0.clone(), *a8)  # warm-up
+    plain_ms, _ = time_census(transport_kernel.transport_plain, p0, args, dev, 1)
+    qk = transport_kernel.transport(p0.clone(), *a8)[0]
+    qp = transport_kernel.transport_plain(p0.clone(), *a8)[0]
+    for name in ("i", "j", "k", "block", "alive", "absorbed"):
+        if not torch.equal(getattr(qk, name), getattr(qp, name)):
+            raise AssertionError(f"kernel on the path's ledger: {name} differs")
+    err, rel = max_float_err(qk, qp, ("x", "y", "z", "vx", "vy", "vz", "tau"), FLOAT_FLOOR)
+    if rel > FLOAT_RTOL:
+        raise AssertionError(f"kernel on the path's ledger: float rel err {rel}")
+    return ms, plain_ms, events, err
 
 
 def main() -> int:
@@ -289,8 +547,8 @@ def main() -> int:
     pm = sim.state.particles.clone()
     args = (coefsm, meshm, 12345, prmm, cfgm.jaybenne.dt)
     transport_kernel.transport(pm.clone(), *args)  # warm-up
-    ms = time_census(transport_kernel.transport, pm, args, dev, 5)
-    plain_ms = time_census(transport_kernel.transport_plain, pm, args, dev, 2)
+    ms, census_events = time_census(transport_kernel.transport, pm, args, dev, 5)
+    plain_ms, _ = time_census(transport_kernel.transport_plain, pm, args, dev, 2)
     a8 = dataclasses.replace(prmm, max_iters=8)
     qk = transport_kernel.transport(pm.clone(), coefsm, meshm, 12345, a8, cfgm.jaybenne.dt)[0]
     qp = transport_kernel.transport_plain(pm.clone(), coefsm, meshm, 12345, a8,
@@ -309,18 +567,151 @@ def main() -> int:
         raise AssertionError("determinism: a second run with the same seed differs")
     print("second run with the same seed: tallies bitwise identical", flush=True)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    kernels = [{
-        "name": "transport_1d (K1(a), with K2 inlined)",
-        "route": "cuda",
-        "source": "jaybenne_tpu_torch/csrc/transport_kernel.cu",
-        "replaces": "jaybenne_tpu/ops/pallas_transport.py:382",
-        "launches": launches.get("transport_1d", 0),
-        "max_abs_err": max(err8, err_m),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]
+    sass = sass_counts(lib.path)
+    cost = probe_costs(sass)
+    print(f"SASS instructions on the straight-line path: logf {cost['logf']}, divide "
+          f"{cost['div']}, hash {cost['hash']}", flush=True)
+    bound_1d, by_1d = census_bound(pm, 1, False, meshm.total_cells, census_events, cost)
+    print(f"K1(a) bound on the main-path ledger: {census_events} events x "
+          f"{ops_per_event(1, False, cost)} operations: {bound_1d!r} ms ({by_1d}); "
+          f"kernel at {bound_1d / ms:.3f} of it", flush=True)
+
+    phase("7 absorbing kernel vs plain, 3D and 2D, 2^17 particles")
+    periodic = {f"parthenon/swarm/{s}x{k}_bc": "periodic" for s in "io" for k in "123"}
+    grid3 = {**periodic, "mcblock/opacity_model": "constant",
+             **{f"parthenon/mesh/nx{k}": 16 for k in "123"},
+             **{f"parthenon/meshblock/nx{k}": 8 for k in "123"}}
+    grid2 = {**periodic, "mcblock/opacity_model": "constant",
+             "parthenon/mesh/nx1": 64, "parthenon/mesh/nx2": 64,
+             "parthenon/meshblock/nx1": 32, "parthenon/meshblock/nx2": 32}
+    err3 = compare_absorbing(transport_kernel, dev, 3, grid3, -31337)
+    err2 = compare_absorbing(transport_kernel, dev, 2, grid2, 271828)
+
+    phase("8 inf gate (tst/inf.py overrides) and a 2D matter-coupled path")
+    from jaybenne_tpu_torch.utils.constants import AR
+
+    name3, name2 = transport_kernel.launch_name(3, True), transport_kernel.launch_name(2, True)
+    with tempfile.TemporaryDirectory() as outdir:
+        cuda_lib.LAUNCHES.clear()
+        inf = run_file(INF_DECK, outdir=outdir, modified_inputs=INF, quiet=True,
+                       device="cuda")
+        inf_launches = dict(cuda_lib.LAUNCHES)
+        sim2_0 = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK_2D, quiet=True,
+                          nlim=0, device="cuda")
+        e2_0, er2_0 = total_energy(sim2_0)
+        cuda_lib.LAUNCHES.clear()
+        sim2 = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK_2D, quiet=True,
+                        nlim=FEEDBACK_2D_STEPS, device="cuda")
+        launches_2d = dict(cuda_lib.LAUNCHES)
+    if inf_launches.get(name3, 0) != INF_STEPS or inf.cycle != INF_STEPS:
+        raise AssertionError(f"inf: launches {inf_launches}, cycles {inf.cycle}")
+    var = inf.state.fields.energy_tally.double().cpu().numpy()
+    ur = AR * 1.0**4  # the deck's initial_temperature, pinned with feedback off
+    inf_err = float((np.fabs(ur - var) / np.fabs((ur + var) / 2.0)).mean())
+    if not np.isfinite(var).all() or inf_err > INF_TOL:
+        raise AssertionError(f"inf: mean fractional error {inf_err} > {INF_TOL}")
+    if any(h["dropped"] or h["unfinished"] for h in inf.history):
+        raise AssertionError("inf: particles dropped or a census incomplete")
+    print(f"inf: {inf.cycle} steps, {inf_launches.get(name3, 0)} launches of {name3}, "
+          f"mean tally {float(var.mean())!r} vs a T0^4 {ur!r}, mean fractional error "
+          f"{inf_err!r} (tol {INF_TOL}), events {inf.total_events}", flush=True)
+    e2_1, _ = total_energy(sim2)
+    cons2 = abs(e2_1 - e2_0) / er2_0
+    if (launches_2d.get(name2, 0) != FEEDBACK_2D_STEPS or cons2 > FEEDBACK_ENERGY_TOL
+            or any(h["dropped"] or h["unfinished"] for h in sim2.history)):
+        raise AssertionError(f"2D feedback: launches {launches_2d}, energy {cons2}")
+    ms2, plain_ms2, ev2, err2m = path_census(sim2, transport_kernel, dev)
+    bound_2d, by_2d = census_bound(sim2.state.particles, 2, True, sim2.mesh.total_cells,
+                                   ev2, cost)
+    print(f"2D feedback ({sim2.mesh.total_cells} cells, {FEEDBACK_2D_STEPS} steps): "
+          f"{launches_2d.get(name2, 0)} launches, energy conservation {cons2!r}, events "
+          f"{sim2.total_events}; on its ledger kernel {ms2!r} ms, plain {plain_ms2!r} ms, "
+          f"{ev2} events, bound {bound_2d!r} ms ({by_2d})", flush=True)
+
+    phase("9 full width: big_mesh_feedback, 64^3 cells, 200k particles, 3 steps")
+    with tempfile.TemporaryDirectory() as outdir:
+        fb0 = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK, quiet=True,
+                       nlim=0, device="cuda")
+        e_0, er_0 = total_energy(fb0)
+        del fb0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_lib.LAUNCHES.clear()
+        fb = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK, quiet=True,
+                      nlim=FEEDBACK_STEPS, device="cuda")
+        fb_launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        fb_fields = (fb.state.fields.energy_tally.clone(), fb.state.fields.u.clone())
+        fb_ms, fb_plain_ms, fb_ev, fb_err = path_census(fb, transport_kernel, dev)
+        bound_3d, by_3d = census_bound(fb.state.particles, 3, True, fb.mesh.total_cells,
+                                       fb_ev, cost)
+        phase("10 determinism of phase 9")
+        again_fb = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK, quiet=True,
+                            nlim=FEEDBACK_STEPS, device="cuda")
+    e_1, _ = total_energy(fb)
+    cons = abs(e_1 - e_0) / er_0
+    fb_events = fb.total_events
+    if fb_launches.get(name3, 0) != FEEDBACK_STEPS or fb.cycle != FEEDBACK_STEPS:
+        raise AssertionError(f"feedback: launches {fb_launches}, cycles {fb.cycle}")
+    if any(h["dropped"] or h["unfinished"] for h in fb.history) or fb.state.overflow:
+        raise AssertionError(f"feedback: dropped or unfinished {fb.history}")
+    if not bool(torch.isfinite(fb.state.fields.u).all()) or cons > FEEDBACK_ENERGY_TOL:
+        raise AssertionError(f"feedback: energy conservation {cons} > {FEEDBACK_ENERGY_TOL}")
+    if abs(fb_events - FEEDBACK_JAX_EVENTS) > FEEDBACK_EVENTS_RTOL * FEEDBACK_JAX_EVENTS:
+        raise AssertionError(f"feedback: events {fb_events} vs JAX {FEEDBACK_JAX_EVENTS}")
+    fb_step_s = [h["step_seconds"] for h in fb.history]
+    print(f"feedback: energy conservation {cons!r} of the radiation energy {er_0!r} "
+          f"(tol {FEEDBACK_ENERGY_TOL}); {fb_launches.get(name3, 0)} launches of {name3}; "
+          f"dropped 0, unfinished 0; alive {[h['alive'] for h in fb.history]}", flush=True)
+    print(f"feedback: events {fb_events} (JAX package {FEEDBACK_JAX_EVENTS}, "
+          f"{fb_events / FEEDBACK_JAX_EVENTS - 1.0:+.4f}); step seconds {fb_step_s}; "
+          f"median {statistics.median(fb_step_s) * 1e3!r} ms; "
+          f"{fb_events / sum(fb_step_s)!r} events/s; peak device memory {peak} bytes",
+          flush=True)
+    print(f"feedback ledger ({fb.state.particles.capacity} slots, "
+          f"{int(fb.state.particles.alive.sum())} live): kernel {fb_ms!r} ms, plain "
+          f"{fb_plain_ms!r} ms per census, {fb_ev} events; bound {bound_3d!r} ms "
+          f"({by_3d}), kernel at {bound_3d / fb_ms:.3f} of it; 8-iteration max_abs_err "
+          f"{fb_err:.3e}", flush=True)
+    for got, want, what in zip((again_fb.state.fields.energy_tally, again_fb.state.fields.u),
+                               fb_fields, ("energy_tally", "u")):
+        if not torch.equal(got, want):
+            raise AssertionError(f"determinism: feedback {what} differs on a rerun")
+    print("feedback rerun with the same seed: energy_tally and u bitwise identical",
+          flush=True)
+
+    if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
+    src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
+    kernels = [
+        {
+            "name": "transport_1d (K1(a), with K2 inlined)",
+            "route": "cuda", "source": src,
+            "replaces": "jaybenne_tpu/ops/pallas_transport.py:382",
+            "launches": launches.get("transport_1d", 0),
+            "max_abs_err": max(err8, err_m),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_1d, "bound_by": by_1d,
+            "library_ms": None,
+        },
+        {
+            "name": f"{name2} (K1(b) and gray 2D K1(e), with K2 inlined)",
+            "route": "cuda", "source": src,
+            "replaces": "jaybenne_tpu/ops/pallas_transport.py:382",
+            "launches": launches_2d.get(name2, 0),
+            "max_abs_err": max(err2, err2m),
+            "ms": ms2, "plain_ms": plain_ms2, "bound_ms": bound_2d, "bound_by": by_2d,
+            "library_ms": None,
+        },
+        {
+            "name": f"{name3} (K3 gray IMC at 64^3; K1(b) and gray 3D K1(e) on inf)",
+            "route": "cuda", "source": src,
+            "replaces": "jaybenne_tpu/ops/pallas_grid.py:678",
+            "launches": fb_launches.get(name3, 0),
+            "max_abs_err": max(err3, fb_err),
+            "ms": fb_ms, "plain_ms": fb_plain_ms, "bound_ms": bound_3d, "bound_by": by_3d,
+            "library_ms": None,
+        },
+    ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,38 +1,63 @@
-// Census transport kernel K1(a): single block, gray, IMC, no absorption, 1D.
+// Census transport kernel: gray IMC on a uniform single-level mesh, 1D/2D/3D,
+// with or without absorption. One source, six instantiations
+// (NDIM in {1, 2, 3} x ABSORB in {false, true}).
 //
-// Replaces jaybenne_tpu/ops/pallas_transport.py::_transport_kernel in that
-// configuration (the stepdiff main path). It computes what the JAX kernel
-// computes there, per particle, and does not copy its tile structure:
+// Replaces, in their gray IMC configurations on a uniform (max_level == 0)
+// forest, both census kernels of the JAX package:
+//
+//   * jaybenne_tpu/ops/pallas_transport.py::_transport_kernel (:382; K1), the
+//     VMEM-resident kernel with its has_absorption (K1(b)) and multi_d/three_d
+//     (K1(e), gray part) branches;
+//   * jaybenne_tpu/ops/pallas_grid.py::_grid_kernel (:678; K3), the kernel the
+//     JAX package runs on meshes past K1's 5120-cell VMEM limit.
+//
+// The two exist separately on the TPU only because of VMEM. Here one kernel
+// tracks global cells on the collapsed single block and gathers its per-cell
+// table from global memory: the region slabs, halos, SIGMA_REFRESH stale lanes,
+// pause-and-rebucket rounds, bucket sorts and bf16 pair packing of the TPU
+// kernels are not carried over. It computes what they compute, per particle:
 //
 //   * one thread per ledger slot runs its own history while
 //     alive && tau < 1 && it < max_iters, with its own iteration counter. A lane
-//     of the JAX tile is active from iteration 0 until census, so the thread's
-//     counter equals the tile's for every draw the lane makes, and the variates
-//     (kernel_rng.cuh, keyed by seed, slot, it, tag) are the JAX kernel's
-//     interpret-mode variates;
-//   * per event: d_coll = exp23 * inv_sigt[cell]; d_end = c dt (1 - tau);
-//     d_geom = min(dx, d_end); the face distance c (face - x) / vx; then
-//     collision, else crossing of x, else census when d_end <= dx (tau = 1
-//     exactly); a collision redraws mu = 1 - 2 u16 with vx = c mu,
-//     vy = c sqrt(1 - mu^2), vz = 0 (1D: the azimuth is unobservable);
+//     of the JAX tile is active from iteration 0 until census or absorption, so
+//     the thread's counter equals the tile's for every draw the lane makes, and
+//     the variates (kernel_rng.cuh, keyed by seed, slot, it, tag) are the JAX
+//     kernel's interpret-mode variates. Tags follow the JAX DrawPool's order:
+//     exp23 is tag 0, then the u23 branch draw (ABSORB only), then the u16 word,
+//     then the circle word (multi-D only);
+//   * per event: d_coll = exp23 * inv_sigt[cell]; with ABSORB a u23 branch draw
+//     (a u16 draw must never feed a threshold test); d_end = c dt (1 - tau);
+//     d_geom = min(dmin, d_end); the face distances c (face - x) / v on the
+//     active axes; then, in order, collision (absorb when u23 < p_abs, else
+//     scatter), crossing of x, else y, else z (ties go to the lower axis), else
+//     census when d_end <= dmin (tau = 1 exactly). Absorption clears alive, sets
+//     absorbed and does not scatter. A 1D scatter draws mu = 1 - 2 u16 with
+//     vx = c mu, vy = c sqrt(1 - mu^2), vz = 0 (the azimuth is unobservable); a
+//     multi-D scatter draws the azimuth from the circle word:
+//     (c st cos(phi), c st sin(phi), c mu);
 //   * domain walls use the half-finest-cell tolerant hit test and clip of the
-//     JAX kernel's apply_bc (an exact comparison livelocks); after a wall hit the
-//     cell index is re-derived from the rebased position, every other crossing
-//     updates the integer index;
-//   * the per-cell table holds f32 1/sigma_t (the TPU kernel's bf16 pair packing
-//     only halved its chunk scans); it is a few hundred bytes and stays in L1;
+//     JAX kernel's apply_bc (an exact comparison livelocks). After any wall hit
+//     every active axis's cell is re-derived from the rebased position; every
+//     other crossing updates the integer index;
+//   * the per-cell table holds the f32 pair (p_abs = fleck sigma_a / sigma_t,
+//     1 / sigma_t) in global row-major cell order, one 8-byte float2 per cell
+//     (the TPU kernels' bf16 packing only halved their chunk scans). At the
+//     128-cell stepdiff gate it stays in L1; at the 64^3 feedback mesh it is
+//     2 MB and each event's gather is served from L2;
 //   * events are summed per block and added with one int64 atomicAdd, the
 //     iteration maximum with one int32 atomicMax: integer atomics, so the
 //     statistics repeat exactly.
 //
 // What bounds it on an H100: the latency of a divergent per-thread loop of about
-// a thousand events (a warp runs to its slowest lane) and the throughput of logf
-// and the IEEE divide, not bytes: each particle is read and written once per call.
-// The design keeps every particle in registers for the whole census and reads
-// only the L1-resident table inside the loop.
+// a thousand events (a warp runs to its slowest lane) and the throughput of
+// logf, the IEEE divides and the hash per event, not bytes: each particle is
+// read and written once per call, and the one table gather per event hits L1
+// or L2. The design keeps every particle in registers for the whole census.
 //
 // Built without --use_fast_math and with --fmad=false, so that every operation
-// rounds as the plain PyTorch version's does.
+// rounds as the plain PyTorch version's does. NDIM = 1 without absorption
+// executes the same float operations as the first (1D-only) version of this
+// kernel, so the stepdiff gate reproduces its events and error to every digit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,116 +71,199 @@ constexpr float kBig = 3.0e38f;
 
 enum Bc : int { kPeriodic = 0, kOutflow = 1, kReflecting = 2 };
 
-struct Geom1D {
-  int nx;          // cells in the (collapsed) single block
-  float dx;        // cell size
-  float inv_dx;    // f32(1 / dx)
-  float org;       // block origin (domain lower bound)
-  float lo, hi;    // domain bounds
-  float lo_half;   // lo + half a finest cell
-  float hi_half;   // hi - half a finest cell
-  float span;      // f32(hi - lo)
-  int bc_lo, bc_hi;
-  float c, inv_c;  // speed of light and its f32 reciprocal
-  float cdt;       // c * dt
-  float inv_cdt;   // 1 / (c * dt)
+// Float32 scalars of the event body, each rounded on the host as the JAX
+// kernel rounds it. Per-axis arrays are (x, y, z); only the first NDIM are read.
+struct Geom {
+  int n[3];           // cells per axis of the collapsed single block
+  int bc[6];          // (ix1, ox1, ix2, ox2, ix3, ox3)
   int max_iters;
   uint32_t seed;
+  float dx[3];        // cell size
+  float inv_dx[3];    // f32(1 / dx)
+  float org[3];       // block origin (domain lower bound)
+  float lo[3], hi[3]; // domain bounds
+  float lo_half[3];   // lo + half a finest cell
+  float hi_half[3];   // hi - half a finest cell
+  float span[3];      // f32(hi - lo)
+  float dmin;         // smallest cell size over the active axes
+  float c, inv_c;     // speed of light and its f32 reciprocal
+  float cdt;          // c * dt
+  float inv_cdt;      // 1 / (c * dt)
+};
+constexpr int kGeomInts = 11;
+constexpr int kGeomFloats = 29;
+
+struct Ledger {
+  float* x[3];        // x, y, z
+  float* v[3];        // vx, vy, vz
+  float* tau;
+  int32_t* ci[3];     // i, j, k
+  uint8_t* alive;
+  uint8_t* absorbed;
 };
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+template <int NDIM, bool ABSORB>
 __global__ void __launch_bounds__(kThreads)
-    transport_1d_kernel(float* __restrict__ x, float* __restrict__ vx,
-                        float* __restrict__ vy, float* __restrict__ vz,
-                        float* __restrict__ tau, int32_t* __restrict__ ci,
-                        uint8_t* __restrict__ alive,
-                        const float* __restrict__ inv_sigt, int n, Geom1D g,
-                        unsigned long long* __restrict__ events,
-                        int32_t* __restrict__ iters) {
+    transport_kernel(Ledger L, const float2* __restrict__ table, int n, Geom g,
+                     unsigned long long* __restrict__ events,
+                     int32_t* __restrict__ iters) {
+  constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
+  constexpr uint32_t kTagCircle = kTagU16 + 1u;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   int it = 0;
-  if (s < n && alive[s] != 0 && tau[s] < 1.0f) {
-    float px = x[s], pvx = vx[s], pvy = vy[s], pvz = vz[s], ptau = tau[s];
-    int pci = ci[s];
+  if (s < n && L.alive[s] != 0 && L.tau[s] < 1.0f) {
+    float p[3], v[3];
+    int ci[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      p[a] = a < NDIM ? L.x[a][s] : 0.0f;
+      v[a] = L.v[a][s];
+      ci[a] = a < NDIM ? L.ci[a][s] : 0;
+    }
+    float ptau = L.tau[s];
     bool palive = true;
+    bool pabsorbed = false;
     const uint32_t lane = (uint32_t)s;
     while (palive && ptau < 1.0f && it < g.max_iters) {
+      int cell = ci[0];
+      if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
+      if (NDIM == 3) cell = (ci[2] * g.n[1] + ci[1]) * g.n[0] + ci[0];
+      const float2 tab = __ldg(table + cell);  // (p_abs, 1 / sigma_t)
       const float d_coll =
-          jb_exp23(jb_raw_bits(g.seed, lane, (uint32_t)it, 0u)) * __ldg(inv_sigt + pci);
+          jb_exp23(jb_raw_bits(g.seed, lane, (uint32_t)it, 0u)) * tab.y;
+      float u_branch = 0.0f;
+      if (ABSORB) u_branch = jb_u23(jb_raw_bits(g.seed, lane, (uint32_t)it, 1u));
       const float d_end = g.cdt * (1.0f - ptau);
-      const float d_geom = fminf(g.dx, d_end);
-      const float fi = (float)pci;
-      const float xl = fi * g.dx;
-      const float xu = (fi + 1.0f) * g.dx;
-      const float fxd = pvx != 0.0f ? g.c * ((pvx > 0.0f ? xu : xl) - px) / pvx : kBig;
-      const float d_push = fminf(d_geom, fxd);
+      const float d_geom = fminf(g.dmin, d_end);
+
+      float flo[3], fhi[3], fd[3];
+#pragma unroll
+      for (int a = 0; a < NDIM; ++a) {
+        const float f = (float)ci[a];
+        flo[a] = f * g.dx[a];
+        fhi[a] = (f + 1.0f) * g.dx[a];
+        fd[a] = v[a] != 0.0f ? g.c * ((v[a] > 0.0f ? fhi[a] : flo[a]) - p[a]) / v[a]
+                             : kBig;
+      }
+      float d_push = fminf(d_geom, fd[0]);
+      if (NDIM == 2) d_push = fminf(d_push, fd[1]);
+      if (NDIM == 3) d_push = fminf(d_push, fminf(fd[1], fd[2]));
+
       const bool coll = d_coll < d_push;
-      const bool cross = !coll && fxd <= d_geom;
-      const bool census = !coll && !cross && d_end <= g.dx;
+      const bool absorb = ABSORB && coll && u_branch < tab.x;
+      const bool scatter = coll && !absorb;
+      bool cr[3] = {false, false, false};
+      cr[0] = !coll && fd[0] <= d_geom;
+      if (NDIM >= 2) cr[0] = cr[0] && fd[0] <= fd[1];
+      if (NDIM == 3) cr[0] = cr[0] && fd[0] <= fd[2];
+      if (NDIM >= 2) cr[1] = !coll && !cr[0] && fd[1] <= d_geom;
+      if (NDIM == 3) cr[1] = cr[1] && fd[1] <= fd[2];
+      if (NDIM == 3) cr[2] = !coll && !cr[0] && !cr[1] && fd[2] <= d_geom;
+      const bool census = !coll && !cr[0] && !cr[1] && !cr[2] && d_end <= g.dmin;
       const float d = coll ? d_coll : d_push;
 
       ptau = census ? 1.0f : ptau + d * g.inv_cdt;
-      float nx = px + pvx * (d * g.inv_c);
-      int nci = pci;
-      if (cross) {
-        nx = pvx > 0.0f ? xu : xl;
-        nci += pvx > 0.0f ? 1 : -1;
+      const float step = d * g.inv_c;
+      float np_[3];
+      int nci[3];
+#pragma unroll
+      for (int a = 0; a < NDIM; ++a) {
+        np_[a] = p[a] + v[a] * step;
+        nci[a] = ci[a];
+        if (cr[a]) {
+          np_[a] = v[a] > 0.0f ? fhi[a] : flo[a];
+          nci[a] += v[a] > 0.0f ? 1 : -1;
+        }
       }
-      if (coll) {  // isotropic scatter
+      if (scatter) {  // isotropic scatter
         const float mu =
-            1.0f - 2.0f * jb_u16_lo(jb_raw_bits(g.seed, lane, (uint32_t)it, 1u));
-        pvx = g.c * mu;
-        pvy = g.c * sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
-        pvz = 0.0f;
+            1.0f - 2.0f * jb_u16_lo(jb_raw_bits(g.seed, lane, (uint32_t)it, kTagU16));
+        const float st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+        if (NDIM == 1) {
+          v[0] = g.c * mu;
+          v[1] = g.c * st;
+          v[2] = 0.0f;
+        } else {
+          float cph, sph;
+          jb_circle(jb_raw_bits(g.seed, lane, (uint32_t)it, kTagCircle), &cph, &sph);
+          v[0] = g.c * st * cph;
+          v[1] = g.c * st * sph;
+          v[2] = g.c * mu;
+        }
+      }
+      if (absorb) {
+        palive = false;
+        pabsorbed = true;
       }
 
-      const bool out_lo = nci < 0;
-      const bool out_hi = nci >= g.nx;
-      if (out_lo || out_hi) {  // domain boundary
-        float gx = g.org + nx;
-        const bool hit_lo = out_lo && gx <= g.lo_half;
-        const bool hit_hi = out_hi && gx >= g.hi_half;
-        if (hit_lo) {
-          if (g.bc_lo == kReflecting) {
-            gx = clip(2.0f * g.lo - gx, g.lo, g.hi);
-            pvx = -pvx;
-          } else if (g.bc_lo == kPeriodic) {
-            gx = clip(gx + g.span, g.lo, g.hi);
-          } else {
-            palive = false;
+      bool out_lo[3], out_hi[3];
+      bool any_out = false;
+#pragma unroll
+      for (int a = 0; a < NDIM; ++a) {
+        out_lo[a] = nci[a] < 0;
+        out_hi[a] = nci[a] >= g.n[a];
+        any_out = any_out || out_lo[a] || out_hi[a];
+      }
+      if (any_out) {  // domain boundary
+        float gp[3];
+#pragma unroll
+        for (int a = 0; a < NDIM; ++a) {
+          gp[a] = g.org[a] + np_[a];
+          const bool hit_lo = out_lo[a] && gp[a] <= g.lo_half[a];
+          const bool hit_hi = out_hi[a] && gp[a] >= g.hi_half[a];
+          if (hit_lo) {
+            if (g.bc[2 * a] == kReflecting) {
+              gp[a] = clip(2.0f * g.lo[a] - gp[a], g.lo[a], g.hi[a]);
+              v[a] = -v[a];
+            } else if (g.bc[2 * a] == kPeriodic) {
+              gp[a] = clip(gp[a] + g.span[a], g.lo[a], g.hi[a]);
+            } else {
+              palive = false;
+            }
+          }
+          if (hit_hi) {
+            if (g.bc[2 * a + 1] == kReflecting) {
+              gp[a] = clip(2.0f * g.hi[a] - gp[a], g.lo[a], g.hi[a]);
+              v[a] = -v[a];
+            } else if (g.bc[2 * a + 1] == kPeriodic) {
+              gp[a] = clip(gp[a] - g.span[a], g.lo[a], g.hi[a]);
+            } else {
+              palive = false;
+            }
           }
         }
-        if (hit_hi) {
-          if (g.bc_hi == kReflecting) {
-            gx = clip(2.0f * g.hi - gx, g.lo, g.hi);
-            pvx = -pvx;
-          } else if (g.bc_hi == kPeriodic) {
-            gx = clip(gx - g.span, g.lo, g.hi);
+#pragma unroll
+        for (int a = 0; a < NDIM; ++a) {
+          if (palive) {  // rebase into the block and re-derive every cell
+            np_[a] = gp[a] - g.org[a];
+            nci[a] = min(max((int)(np_[a] * g.inv_dx[a]), 0), g.n[a] - 1);
           } else {
-            palive = false;
+            nci[a] = min(max(nci[a], 0), g.n[a] - 1);
           }
-        }
-        if (palive) {  // rebase into the block and re-derive the cell
-          nx = gx - g.org;
-          nci = min(max((int)(nx * g.inv_dx), 0), g.nx - 1);
-        } else {
-          nci = min(max(nci, 0), g.nx - 1);
         }
       }
-      px = nx;
-      pci = nci;
+#pragma unroll
+      for (int a = 0; a < NDIM; ++a) {
+        p[a] = np_[a];
+        ci[a] = nci[a];
+      }
       ++it;
     }
-    x[s] = px;
-    vx[s] = pvx;
-    vy[s] = pvy;
-    vz[s] = pvz;
-    tau[s] = ptau;
-    ci[s] = pci;
-    alive[s] = palive ? 1 : 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (a < NDIM) {
+        L.x[a][s] = p[a];
+        L.ci[a][s] = ci[a];
+      }
+      L.v[a][s] = v[a];
+    }
+    L.tau[s] = ptau;
+    L.alive[s] = palive ? 1 : 0;
+    if (ABSORB && pabsorbed) L.absorbed[s] = 1;
   }
 
   // block reduction of the per-thread event counts (one event per iteration)
@@ -185,23 +293,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int NDIM, bool ABSORB>
+void launch(const Ledger& L, const float2* table, int n, const Geom& g,
+            unsigned long long* events, int32_t* iters, cudaStream_t stream) {
+  transport_kernel<NDIM, ABSORB><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      L, table, n, g, events, iters);
+}
+
 }  // namespace
 
-extern "C" int jb_transport_1d_launch(
-    void* x, void* vx, void* vy, void* vz, void* tau, void* ci, void* alive,
-    const void* inv_sigt, int n, int nx, float dx, float inv_dx, float org, float lo,
-    float hi, float lo_half, float hi_half, float span, int bc_lo, int bc_hi, float c,
-    float inv_c, float cdt, float inv_cdt, int max_iters, int seed, void* events,
-    void* iters, void* stream) {
-  const Geom1D g{nx,      dx,      inv_dx, org,   lo,    hi,   lo_half,   hi_half,
-                 span,    bc_lo,   bc_hi,  c,     inv_c, cdt,  inv_cdt,   max_iters,
-                 (uint32_t)seed};
+// ptrs: 12 device pointers x y z vx vy vz tau i j k alive absorbed.
+// igeom: n[3] bc[6] max_iters seed; fgeom: dx[3] inv_dx[3] org[3] lo[3] hi[3]
+// lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt (host arrays).
+// Returns cudaGetLastError() after the launch, or -1 for an unknown ndim.
+extern "C" int jb_transport_launch(int ndim, int absorb, void* const* ptrs,
+                                   const void* table, int n, const int* igeom,
+                                   const float* fgeom, void* events, void* iters,
+                                   void* stream) {
+  Ledger L;
+  for (int a = 0; a < 3; ++a) {
+    L.x[a] = (float*)ptrs[a];
+    L.v[a] = (float*)ptrs[3 + a];
+    L.ci[a] = (int32_t*)ptrs[7 + a];
+  }
+  L.tau = (float*)ptrs[6];
+  L.alive = (uint8_t*)ptrs[10];
+  L.absorbed = (uint8_t*)ptrs[11];
+
+  Geom g;
+  const int* ip = igeom;
+  for (int a = 0; a < 3; ++a) g.n[a] = *ip++;
+  for (int a = 0; a < 6; ++a) g.bc[a] = *ip++;
+  g.max_iters = *ip++;
+  g.seed = (uint32_t)*ip++;
+  const float* fp = fgeom;
+  float* dst[8] = {g.dx, g.inv_dx, g.org, g.lo, g.hi, g.lo_half, g.hi_half, g.span};
+  for (int k = 0; k < 8; ++k)
+    for (int a = 0; a < 3; ++a) dst[k][a] = *fp++;
+  g.dmin = *fp++;
+  g.c = *fp++;
+  g.inv_c = *fp++;
+  g.cdt = *fp++;
+  g.inv_cdt = *fp++;
+  static_assert(kGeomInts == 11 && kGeomFloats == 29, "geometry layout");
+
+  if (ndim < 1 || ndim > 3) return -1;
   if (n > 0) {
-    transport_1d_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                          (cudaStream_t)stream>>>(
-        (float*)x, (float*)vx, (float*)vy, (float*)vz, (float*)tau, (int32_t*)ci,
-        (uint8_t*)alive, (const float*)inv_sigt, n, g, (unsigned long long*)events,
-        (int32_t*)iters);
+    const float2* tab = (const float2*)table;
+    auto* ev = (unsigned long long*)events;
+    auto* itp = (int32_t*)iters;
+    auto st = (cudaStream_t)stream;
+    if (ndim == 1 && !absorb) launch<1, false>(L, tab, n, g, ev, itp, st);
+    if (ndim == 1 && absorb) launch<1, true>(L, tab, n, g, ev, itp, st);
+    if (ndim == 2 && !absorb) launch<2, false>(L, tab, n, g, ev, itp, st);
+    if (ndim == 2 && absorb) launch<2, true>(L, tab, n, g, ev, itp, st);
+    if (ndim == 3 && !absorb) launch<3, false>(L, tab, n, g, ev, itp, st);
+    if (ndim == 3 && absorb) launch<3, true>(L, tab, n, g, ev, itp, st);
   }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@ with item 17.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time as _time
@@ -22,6 +23,7 @@ from . import io as io_mod
 from . import state as state_mod
 from .mesh import build_mesh
 from .models.problems import generate_problem
+from .particles import ParticleLedger
 from .step import build_step_core, initialize_radiation
 
 _DUMP_TYPES = ("hdf5", "phdf")
@@ -63,6 +65,27 @@ class Simulation:
         # room for census survivors + one step of births + stochastic slack
         return int(jb.num_particles * jb.capacity_factor) + self.mesh.total_cells + 1024
 
+    def _ensure_headroom(self):
+        """Grow the particle ledger before the next sourcing could overflow it (the
+        JAX driver's ``_ensure_headroom``, the reference's swarm pool growth in
+        ``AddEmptyParticles``). Growth at least doubles capacity and keeps every
+        particle in its slot. It replaces the ledger's tensors, so nothing may hold
+        a pointer or a shape of the old ones across a step."""
+        p = self.state.particles
+        need = (int(p.num_alive()) + self.cfg.jaybenne.num_particles
+                + self.mesh.total_cells + 64)
+        if need <= p.capacity:
+            return
+        new_cap = max(need, 2 * p.capacity)
+        pad = new_cap - p.capacity
+        grown = ParticleLedger(**{
+            f.name: torch.cat([getattr(p, f.name), getattr(p, f.name).new_zeros(pad)])
+            for f in dataclasses.fields(p)
+        })
+        self.state = dataclasses.replace(self.state, particles=grown)
+        if not self.quiet:
+            print(f"ledger grown: capacity {p.capacity} -> {new_cap}", flush=True)
+
     def _maybe_dump(self, force=False):
         outs = [o for o in self.cfg.outputs if o.file_type in _DUMP_TYPES]
         if not outs:
@@ -95,6 +118,8 @@ class Simulation:
                 print(f"walltime limit reached after {self.cycle} cycles; stopping",
                       file=sys.stderr)
                 break
+            if cfg.jaybenne.do_emission:
+                self._ensure_headroom()
             t0 = _time.perf_counter()
             self.state, stats = self.step_fn(self.state, step_dt)
             if self.device.type == "cuda":
@@ -113,6 +138,7 @@ class Simulation:
                     "iterations": iters,
                     "events": ev,
                     "alive": int(stats.n_alive),
+                    "dropped": int(stats.dropped),
                     "unfinished": int(stats.unfinished),
                     "step_seconds": step_s,
                 }
@@ -127,6 +153,12 @@ class Simulation:
                 print(
                     f"WARNING: census incomplete this cycle — "
                     f"{int(stats.unfinished)} particles unfinished",
+                    file=sys.stderr,
+                )
+            if int(stats.dropped) > 0:
+                print(
+                    f"WARNING: particle ledger overflow, dropped {int(stats.dropped)} "
+                    f"sourced particles (raise jaybenne/capacity_factor)",
                     file=sys.stderr,
                 )
             if int(stats.cap_hits) > 0:

@@ -40,17 +40,14 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
-    "jb_transport_1d_launch": (
-        _P, _P, _P, _P, _P, _P, _P,   # x vx vy vz tau ci alive
-        _P, _I,                       # inv_sigt n
-        _I, _F, _F, _F, _F, _F, _F, _F, _F,  # nx dx inv_dx org lo hi lo_half hi_half span
-        _I, _I,                       # bc_lo bc_hi
-        _F, _F, _F, _F,               # c inv_c cdt inv_cdt
-        _I, _I,                       # max_iters seed
-        _P, _P, _P,                   # events iters stream
+    "jb_transport_launch": (
+        _I, _I,          # ndim absorb
+        _P, _P, _I,      # host array of 12 ledger pointers, pair table, n
+        _P, _P,          # host int and float geometry arrays
+        _P, _P, _P,      # events iters stream
     ),
 }
 

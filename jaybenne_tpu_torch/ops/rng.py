@@ -5,6 +5,7 @@ The JAX package folds (cycle, phase) tags into a threefry key. Here each stream 
 ``(run seed, cycle, phase)``:
 
   * ``PHASE_INIT`` — thermal initial radiation (cycle 0);
+  * ``PHASE_SOURCE`` — per-step emission sourcing;
   * ``PHASE_TRANSPORT`` — the census kernel, which draws its own variates from the
     counter hash of ``ops/kernel_rng.py`` and takes only a 32-bit seed, so that
     stream is the hash value itself (``kernel_seed``) and needs no generator.
@@ -22,7 +23,8 @@ import math
 import torch
 
 PHASE_INIT = 0
-PHASE_TRANSPORT = 2  # 1 is kept for per-step sourcing
+PHASE_SOURCE = 1
+PHASE_TRANSPORT = 2
 
 _M64 = (1 << 64) - 1
 

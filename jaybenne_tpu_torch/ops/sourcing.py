@@ -1,14 +1,18 @@
-"""Photon sourcing (port of ``jaybenne_tpu/ops/sourcing.py``, thermal branch).
+"""Photon sourcing (port of ``jaybenne_tpu/ops/sourcing.py``, thermal and emission
+branches).
 
-  1. per cell: source energy ``erad = (4 sb / c) T^4 dV`` and a stochastically
-     rounded particle count ``n = floor(npc) + Bernoulli(npc - floor(npc))`` with
+  1. per cell: source energy ``erad`` -- thermal ``(4 sb / c) T^4 dV`` or emission
+     ``fleck * emis * dV * dt`` -- and a stochastically rounded particle count
+     ``n = floor(npc) + Bernoulli(npc - floor(npc))`` with
      ``npc = num_particles / n_cells`` and per-particle weight ``erad / n``;
   2. a candidate grid ``[n_cells, floor(npc)+1]`` holds every potential birth at a
      uniform in-cell position with an isotropic direction and a Planck energy;
   3. valid candidates go into the ledger's dead slots (``insert_particles``).
 
-The emission branch arrives with slice 2 (ROADMAP Queue 1, item 11) and the external
-source with slice 5 (item 14).
+Emission debits each cell's ``energy_delta`` by the summed birth weights
+``n * ew``, and its births are uniform in the step (``tau ~ U[0, 1)``); thermal
+births start at ``tau = 0``. The external source arrives with slice 5 (ROADMAP
+Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -23,15 +27,15 @@ from . import planck, rng
 
 
 def source_photons(
-    fields, particles, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype
+    fields, particles, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype,
+    opacity=None, dt=0.0,
 ):
     """Returns (fields, particles, n_dropped); the ledger is updated in place.
-    ``gen`` is the stream's ``torch.Generator`` (see ``ops/rng.py``)."""
-    if source_type == "emission":
-        raise not_ported("emission sourcing", "Queue 1, item 11")
+    ``gen`` is the stream's ``torch.Generator`` (see ``ops/rng.py``); emission
+    needs the ``opacity`` model and the step ``dt``."""
     if source_type == "external":
         raise not_ported("the external volume source", "Queue 1, item 14")
-    if source_type != "thermal":
+    if source_type not in ("thermal", "emission"):
         raise ValueError(f"unknown source_type {source_type!r}")
     dev = fields.rho.device
     B, nz, ny, nx = fields.rho.shape
@@ -39,7 +43,10 @@ def source_photons(
 
     temp = eos.temperature_from_density_internal_energy(fields.rho, fields.sie)
     dv = mesh.block_volume[:, None, None, None]
-    erad = (4.0 * sb / c) * temp**4 * dv
+    if source_type == "thermal":
+        erad = (4.0 * sb / c) * temp**4 * dv
+    else:
+        erad = fields.fleck * opacity.emissivity(fields.rho, temp) * dv * dt
 
     npc = float(num_particles) / float(C)
     base = int(npc)
@@ -50,9 +57,8 @@ def source_photons(
     n_cell = torch.where(erad > 0, n_cell, 0)
     n_f = n_cell.to(dtype)
     ew = torch.where(n_cell > 0, erad / n_f.clamp_min(1.0), 0.0).to(dtype)
-    fields = dataclasses.replace(
-        fields, source_num=n_f, source_ew=ew, energy_delta=torch.zeros_like(ew)
-    )
+    debit = -(n_f * ew) if source_type == "emission" else torch.zeros_like(ew)
+    fields = dataclasses.replace(fields, source_num=n_f, source_ew=ew, energy_delta=debit)
 
     # ---- candidate grid ------------------------------------------------------
     K = base + 1  # max births per cell
@@ -71,6 +77,10 @@ def source_photons(
     dxv = mesh.block_dx[b_c.long()]  # [C, 3]
     temp_flat = temp.reshape(C, 1).to(dtype)
     energy = planck.sample_planck_energy(gen, sb, temp_flat, shape, dtype, dev)
+    if source_type == "emission":
+        tau = rng.uniform(gen, shape, dtype, dev)
+    else:
+        tau = torch.zeros(shape, dtype=dtype, device=dev)
 
     cand = dict(
         x=(i_c.to(dtype)[:, None] + ux) * dxv[:, 0:1],
@@ -79,7 +89,7 @@ def source_photons(
         vx=c * ndir[0],
         vy=c * ndir[1],
         vz=c * ndir[2],
-        tau=torch.zeros(shape, dtype=dtype, device=dev),
+        tau=tau,
         weight=ew.reshape(C, 1).expand(shape),
         energy=energy,
         block=b_c[:, None].expand(shape),

@@ -1,14 +1,13 @@
-"""Radiation-energy tally (port of ``jaybenne_tpu/ops/tally.py``).
+"""Tallies and fluid feedback (port of ``jaybenne_tpu/ops/tally.py``): the
+radiation-energy tally, the absorption deposition and the fluid update.
 
 The JAX package sums per-particle ``weight / dV`` into cells with an atomic-free
 ``segment_sum``. On a GPU, ``index_add_`` on floats adds in whatever order the
 atomics land, so two runs differ in the last bits. Here each contribution is first
 quantised to 64-bit fixed point at a power-of-two scale chosen per cell, and the
 quantised values are summed with integer adds. Integer addition is associative, so
-the tally repeats bitwise on any device in any order.
-
-The absorption deposition and the fluid update arrive with slice 2 (ROADMAP
-Queue 1, item 11).
+the tally and the absorption deposition repeat bitwise on any device in any
+order.
 """
 
 from __future__ import annotations
@@ -62,3 +61,20 @@ def evaluate_radiation_energy(fields, particles, mesh):
     return dataclasses.replace(
         fields, energy_tally=tally.reshape(shape).to(fields.energy_tally.dtype)
     )
+
+
+def accumulate_absorption(fields, particles, mesh):
+    """Add the weights of this step's absorbed particles into ``energy_delta``
+    (total energy units)."""
+    cell = mesh.flat_cell(particles.block, particles.k, particles.j, particles.i)
+    contrib = torch.where(particles.absorbed, particles.weight, 0.0)
+    dep = deterministic_segment_sum(contrib, cell, fields.energy_delta.numel())
+    ed = fields.energy_delta
+    return dataclasses.replace(fields, energy_delta=ed + dep.reshape(ed.shape).to(ed.dtype))
+
+
+def update_fluid(fields, mesh):
+    """Apply the net radiation-matter energy exchange to the matter:
+    ``u += energy_delta / dV`` and ``sie = u / rho``."""
+    u = fields.u + fields.energy_delta / mesh.block_volume[:, None, None, None]
+    return dataclasses.replace(fields, u=u, sie=u / fields.rho)

@@ -1,12 +1,17 @@
-"""Census transport K1(a): port of ``jaybenne_tpu/ops/pallas_transport.py::
-_transport_kernel`` in its single-block, gray, IMC, no-absorption, 1D configuration
-(the stepdiff main path).
+"""Census transport: gray IMC on a uniform single-level mesh in 1D, 2D or 3D, with
+or without absorption.
+
+Port of ``jaybenne_tpu/ops/pallas_transport.py::_transport_kernel`` (K1) in its
+gray IMC configurations on uniform forests (K1(a), K1(b) and the gray part of
+K1(e)), and of ``jaybenne_tpu/ops/pallas_grid.py::_grid_kernel`` (K3) in the same
+configurations: the JAX package runs the second on meshes whose tables do not fit
+VMEM, which here is no limit, so one kernel covers both.
 
 ``transport`` runs the census for a ledger: the CUDA kernel
 (``csrc/transport_kernel.cu``) for CUDA tensors, its plain version for CPU tensors.
 ``transport_plain`` is that plain version: a vectorised PyTorch port of the same
 event body in which every lane advances one iteration per loop step, with the same
-K2 draws, as the JAX kernel's lanes do. The tests hold it against the JAX kernel
+K2 draws, as the JAX kernel's lanes do. The tests hold it against the JAX kernels
 under ``interpret=True``, and ``chip_smoke.py`` holds the CUDA kernel against it.
 
 Both update the ledger tensors IN PLACE and return ``(particles, iterations,
@@ -16,14 +21,16 @@ kernel's int32 total wraps past 2^31).
 
 A uniform multi-block forest is first collapsed to one synthetic block, as the JAX
 wrapper does (``_uniform_view``): block-local positions and indices shift to global
-ones before the census and back after it.
+ones before the census and back after it, and the per-cell table is laid out in
+global row-major cell order.
 
-Configurations K1(a) does not take raise ``NotImplementedError`` naming their
+Configurations the kernel does not take raise ``NotImplementedError`` naming their
 ROADMAP item, on every device: nothing falls back to another loop.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -39,34 +46,39 @@ _TINY = 1.0e-37
 
 
 def check_supported(mesh, prm, dtype) -> None:
-    """Raise ``NotImplementedError`` unless K1(a) covers the configuration."""
+    """Raise ``NotImplementedError`` unless the census kernel covers the
+    configuration."""
     if dtype != torch.float32:
         raise not_ported("precision = f64 (the XLA event loop's port)", "Queue 1, item 7")
     if prm.use_ddmc:
         raise not_ported("DDMC in the census kernel", "Queue 2, K1(c)")
-    if prm.has_absorption:
-        raise not_ported("absorption in the census kernel", "Queue 2, K1(b)")
     if mesh.max_level > 0:
         raise not_ported("static mesh refinement in the census kernel", "Queue 2, K1(d)")
-    if prm.ndim != 1:
-        raise not_ported(f"{prm.ndim}D transport in the census kernel", "Queue 2, K1(e)")
+
+
+def launch_name(ndim: int, absorb: bool) -> str:
+    """The ``cuda_lib.LAUNCHES`` key of one kernel instantiation."""
+    return f"transport_{ndim}d" + ("_abs" if absorb else "")
 
 
 @dataclasses.dataclass(frozen=True)
 class _Geom:
-    """Float32 scalars of the event body, each rounded as the JAX kernel rounds it."""
+    """Float32 scalars of the event body, each rounded as the JAX kernel rounds
+    it. Per-axis tuples are (x, y, z); only the first ``ndim`` are used."""
 
-    nx: int
-    dx: np.float32
-    inv_dx: np.float32
-    org: np.float32
-    lo: np.float32
-    hi: np.float32
-    lo_half: np.float32
-    hi_half: np.float32
-    span: np.float32
-    bc_lo: int
-    bc_hi: int
+    ndim: int
+    absorb: bool
+    n: tuple        # cells per axis of the collapsed single block
+    bc: tuple       # six BC codes (ix1, ox1, ix2, ox2, ix3, ox3)
+    dx: tuple
+    inv_dx: tuple
+    org: tuple
+    lo: tuple
+    hi: tuple
+    lo_half: tuple
+    hi_half: tuple
+    span: tuple
+    dmin: np.float32
     c: np.float32
     inv_c: np.float32
     cdt: np.float32
@@ -76,23 +88,26 @@ class _Geom:
 def _geometry(mesh, prm, dt) -> _Geom:
     f32 = np.float32
     b = mesh.bounds
-    nx = mesh.root_grid[2] * mesh.nx  # cells of the collapsed single block
-    dx = (b[1] - b[0]) / nx
+    nrb = mesh.root_grid[::-1]  # root blocks per axis (x, y, z)
+    n = tuple(nrb[a] * (mesh.nx, mesh.ny, mesh.nz)[a] for a in range(3))
+    dx = tuple((b[2 * a + 1] - b[2 * a]) / n[a] for a in range(3))
     c = f32(prm.c)
     cdt = c * f32(dt)
-    half = f32(0.5 * mesh.finest[0])
+    half = [f32(0.5 * mesh.finest[a]) for a in range(3)]
     return _Geom(
-        nx=nx,
-        dx=f32(dx),
-        inv_dx=f32(1.0 / dx),
-        org=f32(b[0]),
-        lo=f32(b[0]),
-        hi=f32(b[1]),
-        lo_half=f32(b[0]) + half,
-        hi_half=f32(b[1]) - half,
-        span=f32(b[1] - b[0]),
-        bc_lo=_BC_CODE[prm.swarm_bc[0]],
-        bc_hi=_BC_CODE[prm.swarm_bc[1]],
+        ndim=prm.ndim,
+        absorb=bool(prm.has_absorption),
+        n=n,
+        bc=tuple(_BC_CODE[v] for v in prm.swarm_bc),
+        dx=tuple(f32(v) for v in dx),
+        inv_dx=tuple(f32(1.0 / v) for v in dx),
+        org=tuple(f32(b[2 * a]) for a in range(3)),
+        lo=tuple(f32(b[2 * a]) for a in range(3)),
+        hi=tuple(f32(b[2 * a + 1]) for a in range(3)),
+        lo_half=tuple(f32(b[2 * a]) + half[a] for a in range(3)),
+        hi_half=tuple(f32(b[2 * a + 1]) - half[a] for a in range(3)),
+        span=tuple(f32(b[2 * a + 1] - b[2 * a]) for a in range(3)),
+        dmin=f32(min(dx[: prm.ndim])),
         c=c,
         inv_c=f32(1.0) / c,
         cdt=cdt,
@@ -100,57 +115,106 @@ def _geometry(mesh, prm, dt) -> _Geom:
     )
 
 
-def _inv_sigt_table(coefs, mesh):
-    """Per-cell 1/sigma_t (f32) in the collapsed block's cell order. Without
-    absorption sigma_t is sigma_s. In a 1D uniform forest block b holds the global
-    cells [b*nx, (b+1)*nx) (block ids run along x), so block cell order already is
-    the collapsed block's order."""
-    return (1.0 / (coefs.sigma_s.to(torch.float32) + _TINY)).contiguous()
+def to_global_cells(vec, mesh):
+    """Per-cell vector in block order ([B * nz*ny*nx], i fastest) -> global
+    row-major cell order of the collapsed block: a reshape and permute, valid
+    because uniform block ids are (z, y, x) row-major (``build_mesh`` sorts by
+    (level, z, y, x)). Port of ``pallas_transport.py::_to_global_cells``."""
+    nrbz, nrby, nrbx = mesh.root_grid
+    return (
+        vec.reshape(nrbz, nrby, nrbx, mesh.nz, mesh.ny, mesh.nx)
+        .permute(0, 3, 1, 4, 2, 5)
+        .reshape(-1)
+    )
+
+
+def _pair_table(coefs, mesh, absorb):
+    """Per-cell f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor in global
+    row-major cell order, from the effective rates ``ea = fleck sigma_a`` and
+    ``es = sigma_s + (1 - fleck) sigma_a``; without absorption ``(0, 1 /
+    sigma_s)``. The JAX kernels hold the same pair packed in bf16."""
+    f32 = torch.float32
+    ss = coefs.sigma_s.to(f32)
+    if absorb:
+        sa, fl = coefs.sigma_a.to(f32), coefs.fleck.to(f32)
+        ea = fl * sa
+        es = ss + (1.0 - fl) * sa
+    else:
+        ea = torch.zeros_like(ss)
+        es = ss
+    inv = 1.0 / (ea + es + _TINY)
+    pair = torch.stack([ea * inv, inv], dim=1)
+    if mesh.n_blocks > 1:
+        pair = torch.stack([to_global_cells(pair[:, k], mesh) for k in range(2)], dim=1)
+    return pair.contiguous()
+
+
+def _block_shifts(mesh):
+    """Per-axis f32 block extents (the collapse shift per block index)."""
+    nrb = mesh.root_grid[::-1]
+    b = mesh.bounds
+    return [float(np.float32((b[2 * a + 1] - b[2 * a]) / nrb[a])) for a in range(3)]
 
 
 def _collapse(p, mesh):
     """Shift block-local state to the single synthetic block (in place)."""
-    nrbx = mesh.root_grid[2]
-    if nrbx == 1:
+    if mesh.n_blocks == 1:
         return
-    Dx = np.float32((mesh.bounds[1] - mesh.bounds[0]) / nrbx)
-    bx = p.block % nrbx
-    p.x += bx.to(torch.float32) * float(Dx)
-    p.i += bx * mesh.nx
+    nrbz, nrby, nrbx = mesh.root_grid
+    D = _block_shifts(mesh)
+    bl = (p.block % nrbx, (p.block // nrbx) % nrby, p.block // (nrbx * nrby))
+    for pos, idx, bk, d, nloc in zip((p.x, p.y, p.z), (p.i, p.j, p.k), bl, D,
+                                     (mesh.nx, mesh.ny, mesh.nz)):
+        pos += bk.to(torch.float32) * d
+        idx += bk * nloc
     p.block.zero_()
 
 
 def _expand(p, mesh):
-    """Inverse of ``_collapse``: recover the owning block from the global index."""
-    nrbx = mesh.root_grid[2]
-    if nrbx == 1:
+    """Inverse of ``_collapse``: recover the owning block from the global indices."""
+    if mesh.n_blocks == 1:
         return
-    Dx = np.float32((mesh.bounds[1] - mesh.bounds[0]) / nrbx)
-    bx = torch.div(p.i, mesh.nx, rounding_mode="floor")
-    p.block.copy_(bx)
-    p.i -= bx * mesh.nx
-    p.x -= bx.to(torch.float32) * float(Dx)
+    nrbz, nrby, nrbx = mesh.root_grid
+    D = _block_shifts(mesh)
+    bl = []
+    for pos, idx, d, nloc in zip((p.x, p.y, p.z), (p.i, p.j, p.k), D,
+                                 (mesh.nx, mesh.ny, mesh.nz)):
+        bk = torch.div(idx, nloc, rounding_mode="floor")
+        idx -= bk * nloc
+        pos -= bk.to(torch.float32) * d
+        bl.append(bk)
+    p.block.copy_((bl[2] * nrby + bl[1]) * nrbx + bl[0])
 
 
-def _census_plain(p, inv_sigt, g: _Geom, seed: int, max_iters: int):
+def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
     """All lanes advance one event per loop step (the JAX kernel's tile loop over
     the whole ledger). Returns (iterations, events) as tensors."""
     dev = p.x.device
     f32 = torch.float32
+    nd = g.ndim
 
     def s(v):
         return torch.tensor(float(v), dtype=f32, device=dev)
 
-    dx, inv_dx, org = s(g.dx), s(g.inv_dx), s(g.org)
-    lo, hi, lo_half, hi_half, span = s(g.lo), s(g.hi), s(g.lo_half), s(g.hi_half), s(g.span)
-    c, inv_c, cdt, inv_cdt = s(g.c), s(g.inv_c), s(g.cdt), s(g.inv_cdt)
+    def axes(vals):
+        return [s(v) for v in vals[:nd]]
+
+    dx, inv_dx, org = axes(g.dx), axes(g.inv_dx), axes(g.org)
+    lo, hi, lo_half, hi_half, span = (axes(v) for v in (g.lo, g.hi, g.lo_half,
+                                                        g.hi_half, g.span))
+    dmin, c, inv_c, cdt, inv_cdt = (s(v) for v in (g.dmin, g.c, g.inv_c, g.cdt,
+                                                   g.inv_cdt))
     one, zero = s(1.0), s(0.0)
     lanes = torch.arange(p.capacity, dtype=torch.int64, device=dev)
+    p_abs_t, inv_sigt_t = table[:, 0], table[:, 1]
 
     def raw(it, tag):
         return raw_bits_plain(seed, lanes, it, tag)
 
-    x, vx, vy, vz, tau, ci, alive = p.x, p.vx, p.vy, p.vz, p.tau, p.i, p.alive
+    pos = [p.x, p.y, p.z][:nd]
+    idx = [p.i, p.j, p.k][:nd]
+    vel = [p.vx, p.vy, p.vz]
+    tau, alive, absorbed = p.tau, p.alive, p.absorbed
     events = torch.zeros((), dtype=torch.int64, device=dev)
     it = 0
     while it < max_iters:
@@ -158,58 +222,95 @@ def _census_plain(p, inv_sigt, g: _Geom, seed: int, max_iters: int):
         if not bool(active.any()):
             break
         pool = DrawPool(raw)
-        d_coll = pool.exp23(it) * inv_sigt[ci.long()]
+        cell = idx[0].long()
+        if nd == 2:
+            cell = idx[1].long() * g.n[0] + cell
+        elif nd == 3:
+            cell = (idx[2].long() * g.n[1] + idx[1].long()) * g.n[0] + cell
+        d_coll = pool.exp23(it) * inv_sigt_t[cell]
+        u_branch = pool.u23(it) if g.absorb else None
         d_end = cdt * (one - tau)
-        d_geom = torch.minimum(dx, d_end)
-        fi = ci.to(f32)
-        xl, xu = fi * dx, (fi + one) * dx
-        tgt = torch.where(vx > 0, xu, xl)
-        fxd = torch.where(vx != 0, c * (tgt - x) / torch.where(vx != 0, vx, one), _BIG)
-        d_push = torch.minimum(d_geom, fxd)
+        d_geom = torch.minimum(dmin, d_end)
+        fl, fu, fd = [], [], []
+        for a in range(nd):
+            fi = idx[a].to(f32)
+            fl.append(fi * dx[a])
+            fu.append((fi + one) * dx[a])
+            v = vel[a]
+            tgt = torch.where(v > 0, fu[a], fl[a])
+            fd.append(torch.where(v != 0, c * (tgt - pos[a]) / torch.where(v != 0, v, one),
+                                  _BIG))
+        d_push = torch.minimum(d_geom, fd[0])
+        for a in range(1, nd):
+            d_push = torch.minimum(d_push, fd[a])
         coll = active & (d_coll < d_push)
+        if g.absorb:
+            i_abs = coll & (u_branch < p_abs_t[cell])
+            i_sc = coll & ~i_abs
+        else:
+            i_abs, i_sc = None, coll
         no_coll = active & ~coll
-        cr_x = no_coll & (fxd <= d_geom)
-        census = no_coll & ~cr_x & (d_end <= dx)
+        # crossing: the nearest face wins, ties to the lower axis
+        cr, taken = [], torch.zeros_like(no_coll)
+        for a in range(nd):
+            m = no_coll & ~taken & (fd[a] <= d_geom)
+            for b in range(a + 1, nd):
+                m = m & (fd[a] <= fd[b])
+            cr.append(m)
+            taken = taken | m
+        census = no_coll & ~taken & (d_end <= dmin)
 
         d = torch.where(active, torch.where(coll, d_coll, d_push), zero)
         ntau = torch.where(census, one, tau + d * inv_cdt)
-        nx_ = x + vx * (d * inv_c)
-        up = vx > 0
-        nx_ = torch.where(cr_x, torch.where(up, xu, xl), nx_)
-        nci = ci + torch.where(cr_x, torch.where(up, 1, -1), 0).to(torch.int32)
+        step = d * inv_c
+        npos, nidx = [], []
+        for a in range(nd):
+            up = vel[a] > 0
+            q = torch.where(cr[a], torch.where(up, fu[a], fl[a]), pos[a] + vel[a] * step)
+            npos.append(q)
+            nidx.append(idx[a] + torch.where(cr[a], torch.where(up, 1, -1), 0).to(torch.int32))
 
         mu = 1.0 - 2.0 * pool.u16(it)
         st = torch.sqrt(torch.clamp_min(1.0 - mu * mu, 0.0))
-        nvx = torch.where(coll, c * mu, vx)
-        nvy = torch.where(coll, c * st, vy)
-        nvz = torch.where(coll, zero, vz)
+        if nd == 1:
+            new_v = (c * mu, c * st, zero)
+        else:
+            cph, sph = pool.circle(it)
+            new_v = (c * st * cph, c * st * sph, c * mu)
+        nvel = [torch.where(i_sc, nv, v) for nv, v in zip(new_v, vel)]
+        nalive = alive if i_abs is None else alive & ~i_abs
 
         # domain boundaries: half-finest-cell tolerant hit test, then clip
-        out_lo, out_hi = nci < 0, nci >= g.nx
-        gx = org + nx_
-        hit_lo = out_lo & (gx <= lo_half)
-        hit_hi = out_hi & (gx >= hi_half)
-        nalive = alive
-        for hit, bc, sgn, wall in ((hit_lo, g.bc_lo, 1.0, lo), (hit_hi, g.bc_hi, -1.0, hi)):
-            if bc == _BC_CODE[BC.reflecting]:
-                gx = torch.where(hit, torch.clamp(2.0 * wall - gx, lo, hi), gx)
-                nvx = torch.where(hit, -nvx, nvx)
-            elif bc == _BC_CODE[BC.periodic]:
-                gx = torch.where(hit, torch.clamp(gx + sgn * span, lo, hi), gx)
-            else:
-                nalive = nalive & ~hit
-        out = (out_lo | out_hi) & nalive
-        lx = gx - org
-        ri = torch.clamp((lx * inv_dx).to(torch.int32), 0, g.nx - 1)
-        nx_ = torch.where(out, lx, nx_)
-        nci = torch.where(out, ri, torch.clamp(nci, 0, g.nx - 1))
-
-        x.copy_(nx_)
-        vx.copy_(nvx)
-        vy.copy_(nvy)
-        vz.copy_(nvz)
+        out_lo = [nidx[a] < 0 for a in range(nd)]
+        out_hi = [nidx[a] >= g.n[a] for a in range(nd)]
+        gp = [org[a] + npos[a] for a in range(nd)]
+        for a in range(nd):
+            hits = ((out_lo[a] & (gp[a] <= lo_half[a]), g.bc[2 * a], 1.0, lo[a]),
+                    (out_hi[a] & (gp[a] >= hi_half[a]), g.bc[2 * a + 1], -1.0, hi[a]))
+            for hit, bc, sgn, wall in hits:
+                if bc == _BC_CODE[BC.reflecting]:
+                    gp[a] = torch.where(hit, torch.clamp(2.0 * wall - gp[a], lo[a], hi[a]),
+                                        gp[a])
+                    nvel[a] = torch.where(hit, -nvel[a], nvel[a])
+                elif bc == _BC_CODE[BC.periodic]:
+                    gp[a] = torch.where(hit, torch.clamp(gp[a] + sgn * span[a], lo[a], hi[a]),
+                                        gp[a])
+                else:
+                    nalive = nalive & ~hit
+        out = out_lo[0] | out_hi[0]
+        for a in range(1, nd):
+            out = out | out_lo[a] | out_hi[a]
+        out = out & nalive
+        for a in range(nd):
+            la = gp[a] - org[a]
+            ra = torch.clamp((la * inv_dx[a]).to(torch.int32), 0, g.n[a] - 1)
+            pos[a].copy_(torch.where(out, la, npos[a]))
+            idx[a].copy_(torch.where(out, ra, torch.clamp(nidx[a], 0, g.n[a] - 1)))
+        for v, nv in zip(vel, nvel):
+            v.copy_(nv)
         tau.copy_(ntau)
-        ci.copy_(nci)
+        if i_abs is not None:
+            absorbed.copy_(absorbed | i_abs)
         alive.copy_(nalive)
         events += active.sum()
         it += 1
@@ -219,43 +320,49 @@ def _census_plain(p, inv_sigt, g: _Geom, seed: int, max_iters: int):
 def _check_cuda_ledger(p, coefs):
     """What the kernel takes, checked before anything touches the ledger."""
     dev = p.x.device
-    floats = (p.x, p.vx, p.vy, p.vz, p.tau)
-    for t in (*floats, p.i, p.block, p.alive, coefs.sigma_s):
+    floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau)
+    ints = (p.i, p.j, p.k, p.block)
+    bools = (p.alive, p.absorbed)
+    cells = (coefs.sigma_a, coefs.sigma_s, coefs.fleck)
+    for t in (*floats, *ints, *bools, *cells):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("transport kernel: ledger tensors must be contiguous on one GPU")
-    if any(t.dtype != torch.float32 for t in floats) or p.i.dtype != torch.int32:
+    if any(t.shape != (p.capacity,) for t in (*floats, *ints, *bools)):
+        raise ValueError("transport kernel: ledger columns differ in length")
+    if any(t.dtype != torch.float32 for t in floats) or any(t.dtype != torch.int32 for t in ints):
         raise ValueError("transport kernel: f32 state and int32 cell indices only")
-    if p.alive.dtype != torch.bool:
-        raise ValueError("transport kernel: the alive mask must be torch.bool")
+    if any(t.dtype != torch.bool for t in bools):
+        raise ValueError("transport kernel: the alive and absorbed masks must be torch.bool")
     if p.capacity >= 2**31:
         raise ValueError("transport kernel: capacity must fit in int32")
 
 
-def _census_cuda(p, inv_sigt, g: _Geom, seed: int, max_iters: int):
+def _census_cuda(p, table, g: _Geom, seed: int, max_iters: int):
     """One launch of the census kernel on PyTorch's current stream (no
     synchronisation); the ledger was checked by ``_check_cuda_ledger``."""
     dev = p.x.device
     events = torch.zeros((), dtype=torch.int64, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
+    cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed)
+    ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in cols))
+    ints = (*g.n, *g.bc, int(max_iters), int(seed))
+    floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
+              g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt)
     cuda_lib.library().call(
-        "jb_transport_1d_launch",
-        p.x.data_ptr(), p.vx.data_ptr(), p.vy.data_ptr(), p.vz.data_ptr(),
-        p.tau.data_ptr(), p.i.data_ptr(), p.alive.data_ptr(),
-        inv_sigt.data_ptr(), p.capacity,
-        g.nx, float(g.dx), float(g.inv_dx), float(g.org), float(g.lo), float(g.hi),
-        float(g.lo_half), float(g.hi_half), float(g.span), g.bc_lo, g.bc_hi,
-        float(g.c), float(g.inv_c), float(g.cdt), float(g.inv_cdt),
-        int(max_iters), int(seed),
+        "jb_transport_launch", g.ndim, int(g.absorb), ptrs, table.data_ptr(), p.capacity,
+        (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * len(floats))(*map(float, floats)),
         events.data_ptr(), iters.data_ptr(), cuda_lib.stream_handle(dev),
     )
-    cuda_lib.LAUNCHES["transport_1d"] += 1
+    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb)] += 1
     return iters, events
 
 
 def _run(census, particles, coefs, mesh, seed, prm, dt):
     check_supported(mesh, prm, particles.x.dtype)
+    if any(t.shape != (mesh.total_cells,) for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck)):
+        raise ValueError("transport: one coefficient per mesh cell expected")
     g = _geometry(mesh, prm, dt)
-    table = _inv_sigt_table(coefs, mesh)
+    table = _pair_table(coefs, mesh, g.absorb)
     _collapse(particles, mesh)
     iters, events = census(particles, table, g, int(seed), prm.max_iters)
     _expand(particles, mesh)

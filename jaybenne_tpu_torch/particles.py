@@ -16,6 +16,7 @@ slot and needs no tile multiple.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -104,3 +105,35 @@ def empty_ledger(capacity: int, dtype=torch.float32, device="cpu") -> ParticleLe
         block=i(), i=i(), j=i(), k=i(),
         alive=b(), absorbed=b(), face=i(),
     )
+
+
+def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float) -> ParticleLedger:
+    """A ledger of ``n`` live particles of unit weight at uniform positions over a
+    uniform (single-level) mesh, with isotropic directions at speed ``c``, drawn
+    from ``generator`` on its device. For kernel checks and timings."""
+    dev = generator.device
+    p = empty_ledger(n, torch.float32, dev)
+    nloc = (mesh.nx, mesh.ny, mesh.nz)
+    nrb = mesh.root_grid[::-1]
+    b = mesh.bounds
+    blocks = []
+    for a, (pos, idx) in enumerate((("x", "i"), ("y", "j"), ("z", "k"))):
+        cells = nloc[a] * nrb[a]
+        gc = torch.randint(0, cells, (n,), generator=generator, device=dev, dtype=torch.int32)
+        blk = torch.div(gc, nloc[a], rounding_mode="floor")
+        getattr(p, idx).copy_(gc - blk * nloc[a])
+        if a < mesh.ndim:
+            dx = (b[2 * a + 1] - b[2 * a]) / cells
+            u = torch.rand(n, generator=generator, device=dev)
+            getattr(p, pos).copy_((getattr(p, idx).float() + u) * dx)
+        blocks.append(blk)
+    p.block.copy_((blocks[2] * nrb[1] + blocks[1]) * nrb[0] + blocks[0])
+    mu = 1.0 - 2.0 * torch.rand(n, generator=generator, device=dev)
+    phi = (2.0 * math.pi) * torch.rand(n, generator=generator, device=dev)
+    st = torch.sqrt(torch.clamp_min(1.0 - mu * mu, 0.0))
+    p.vx.copy_(c * st * torch.cos(phi))
+    p.vy.copy_(c * st * torch.sin(phi))
+    p.vz.copy_(c * mu)
+    p.alive.fill_(True)
+    p.weight.fill_(1.0)
+    return p

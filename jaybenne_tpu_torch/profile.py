@@ -1,0 +1,98 @@
+"""Where a run's step time goes on the GPU: device time by kernel, from a
+``torch.profiler`` trace of steady steps.
+
+    python -m jaybenne_tpu_torch.profile -i DECK [--warm N] [--steps M]
+        [--trace PATH] [block/key=value ...]
+
+Builds the ``Simulation`` on the GPU, runs ``--warm`` steps, times ``--steps`` more
+on the host clock (each step ends in ``torch.cuda.synchronize()``), then restores
+the state from before them and runs the same steps again under
+``torch.profiler`` (the random streams are keyed by seed and cycle, so they are
+the same steps), and sums the trace's device events (kernels, copies, memsets) by
+name. It prints one line per name with its device time per step, the device
+total per step, the median wall time of the unprofiled steps and the device's
+idle share of them, and ``nvidia-smi``'s card name and power limit. ``--trace``
+also writes the Chrome trace. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import copy
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+from . import config as config_mod
+from .driver import Simulation
+from .utils.deck import Deck
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_time_by_name(trace_path: str) -> dict:
+    """Microseconds of device time per event name in a Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = collections.Counter()
+    for e in events:
+        if e.get("cat") in _DEVICE_CATS and "dur" in e:
+            out[e["name"]] += float(e["dur"])
+    return dict(out)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("-i", "--input", required=True)
+    ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--trace", default=None, help="also write the Chrome trace here")
+    ap.add_argument("overrides", nargs="*", metavar="block/key=value")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile: needs a GPU", file=sys.stderr)
+        return 1
+    mods = dict(ov.split("=", 1) for ov in args.overrides)
+    cfg = config_mod.from_deck(Deck.from_file(args.input).update(mods))
+    with tempfile.TemporaryDirectory() as outdir:
+        sim = Simulation(cfg, outdir=outdir, quiet=True, device="cuda")
+        sim.run(nlim=args.warm)
+        n0 = len(sim.history)
+        snapshot = (copy.deepcopy(sim.state), sim.t, sim.cycle)
+        sim.run(nlim=args.steps)
+        wall = [h["step_seconds"] for h in sim.history[n0:]]
+        events = [h["events"] for h in sim.history[n0:]]
+        state, sim.t, sim.cycle = snapshot
+        sim.state = state
+        n1 = len(sim.history)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            sim.run(nlim=args.steps)
+        if [h["events"] for h in sim.history[n1:]] != events:
+            raise RuntimeError("profile: the profiled steps differ from the timed ones")
+        trace = args.trace or os.path.join(outdir, "trace.json")
+        prof.export_chrome_trace(trace)
+        by_name = device_time_by_name(trace)
+    n = args.steps
+    if len(wall) != n:
+        raise RuntimeError(f"profile: ran {len(wall)} timed steps of {n} (tlim reached?)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip())
+    total = sum(by_name.values()) / n
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        print(f"device_ms_per_step {us / n / 1e3!r} {name[:120]}")
+    step_ms = statistics.median(wall) * 1e3
+    print(f"device total {total / 1e3!r} ms per step; unprofiled step wall median "
+          f"{step_ms!r} ms over {n}; device idle share {1.0 - total / 1e3 / step_ms!r}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

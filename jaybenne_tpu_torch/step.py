@@ -1,9 +1,9 @@
 """The radiation step (port of ``jaybenne_tpu/step.py``, single device).
 
-One cycle from t to t + dt: derived fields (Fleck factor), census transport, tally,
-and the per-step reset of ``tau`` and ``absorbed``. Emission sourcing and the fluid
-update arrive with slice 2 (ROADMAP Queue 1, item 11), the external source with
-slice 5 (item 14), and both decompositions with item 17.
+One cycle from t to t + dt: derived fields (Fleck factor), emission sourcing,
+census transport, the absorption deposition, the tally, the fluid update, and the
+per-step reset of ``tau`` and ``absorbed``. The external source arrives with
+slice 5 (ROADMAP Queue 1, item 14), and both decompositions with item 17.
 
 Census selection mirrors the JAX package's ``_pallas_ok``, by configuration and
 never by failure: ``use_pallas = auto`` or ``on`` runs
@@ -31,6 +31,7 @@ class StepStats:
     iterations: torch.Tensor  # census-loop iterations this step (int32)
     events: torch.Tensor      # particle events this step (int64)
     n_alive: torch.Tensor     # live particles after the step
+    dropped: torch.Tensor     # sourced particles dropped (ledger overflow)
     cap_hits: torch.Tensor    # 1 when the census hit max_transport_iterations
     unfinished: torch.Tensor  # live particles short of census after transport
 
@@ -54,10 +55,6 @@ def _check_step_supported(cfg: RunConfig) -> None:
     jb = cfg.jaybenne
     if jb.n_devices != 1 or jb.decomposition == "spatial":
         raise not_ported("multi-device runs and the spatial decomposition", "Queue 1, item 17")
-    if jb.do_emission:
-        raise not_ported("emission sourcing (do_emission = true)", "Queue 1, item 11")
-    if jb.do_feedback:
-        raise not_ported("fluid feedback (do_feedback = true)", "Queue 1, item 11")
     if jb.external_source_q > 0:
         raise not_ported("the external volume source", "Queue 1, item 14")
     if jb.debug_checks:
@@ -71,6 +68,7 @@ def build_step_core(mesh, cfg: RunConfig):
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
+    consts = opacity.get_runtime_physical_constants()
     jb = cfg.jaybenne
     dtype = jb.dtype
     prm = make_transport_params(cfg, dtype)
@@ -81,30 +79,47 @@ def build_step_core(mesh, cfg: RunConfig):
     )
 
     def step(state, dt):
-        f = state.fields
+        f, p = state.fields, state.particles
         f = dataclasses.replace(
-            f,
-            fleck=fleck_ops.fleck_factor(f.rho, f.sie, eos, opacity, dt, dtype),
-            energy_delta=torch.zeros_like(f.energy_delta),
+            f, fleck=fleck_ops.fleck_factor(f.rho, f.sie, eos, opacity, dt, dtype)
         )
+        if jb.do_emission:
+            gen = rng.generator(state.seed, state.cycle, rng.PHASE_SOURCE, mesh.device)
+            f, p, dropped = sourcing.source_photons(
+                f, p, mesh, gen,
+                source_type="emission",
+                eos=eos, opacity=opacity,
+                sb=consts.sb, c=consts.c,
+                num_particles=jb.num_particles,
+                dt=dt, dtype=dtype,
+            )
+        else:
+            f = dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
+            dropped = torch.zeros((), dtype=torch.int64, device=mesh.device)
         coefs = transport_ops.precompute_coefs(
             f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype
         )
         seed = rng.kernel_seed(state.seed, state.cycle)
-        p, iters, events = census(state.particles, coefs, mesh, seed, prm, dt)
+        p, iters, events = census(p, coefs, mesh, seed, prm, dt)
         # survivors still short of end-of-step, before the tau reset below
         unfinished = (p.alive & (p.tau < 1.0)).sum()
+        if prm.has_absorption:
+            f = tally.accumulate_absorption(f, p, mesh)
         f = tally.evaluate_radiation_energy(f, p, mesh)
+        if jb.do_feedback:
+            f = tally.update_fluid(f, mesh)
         # census survivors restart at tau = 0 next cycle
         p.absorbed.zero_()
         p.tau.zero_()
         new_state = dataclasses.replace(
-            state, fields=f, particles=p, t=state.t + dt, cycle=state.cycle + 1
+            state, fields=f, particles=p, t=state.t + dt, cycle=state.cycle + 1,
+            overflow=state.overflow + int(dropped),
         )
         stats = StepStats(
             iterations=iters,
             events=events,
             n_alive=p.num_alive(),
+            dropped=dropped,
             cap_hits=(iters >= prm.max_iters).to(torch.int32),
             unfinished=unfinished,
         )

@@ -124,6 +124,159 @@ def test_census_kernel_rejects_bad_ledgers(gpu):
     wide.i = wide.i.long()
     with pytest.raises(ValueError, match="int32"):
         transport_kernel.transport(wide, coefs, mesh, 1, prm, dt)
+    flags = p.clone()
+    flags.absorbed = flags.absorbed.to(torch.uint8)
+    with pytest.raises(ValueError, match="bool"):
+        transport_kernel.transport(flags, coefs, mesh, 1, prm, dt)
+    short = p.clone()
+    short.k = short.k[:-1].contiguous()
+    with pytest.raises(ValueError, match="length"):
+        transport_kernel.transport(short, coefs, mesh, 1, prm, dt)
+
+
+def _grid_setup(dev, ndim, n=30000, sigma_a=256.0, sigma_s=768.0, seed=5):
+    """A uniform multi-block mesh in 2D (32 x 16 cells in 8 x 8 blocks) or 3D (16^3
+    in 8^3 blocks), reflecting in x, periodic in y and outflow in z, with n
+    particles at uniform positions and isotropic directions. sigma_t = 1024 and
+    p_abs = 0.25 by default."""
+    cells = {2: (32, 16, 1), 3: (16, 16, 16)}[ndim]
+    blocks = {2: (8, 8, 1), 3: (8, 8, 8)}[ndim]
+    mods = {"mcblock/opacity_model": "constant", "parthenon/swarm/ix3_bc": "outflow",
+            "parthenon/swarm/ox3_bc": "outflow"}
+    for a, k in enumerate("123"):
+        mods[f"parthenon/mesh/nx{k}"] = cells[a]
+        mods[f"parthenon/meshblock/nx{k}"] = blocks[a]
+    cfg = cm.from_deck(Deck.from_file(STEPDIFF).update(mods))
+    mesh = build_mesh(cfg.mesh, device=dev)
+    prm = make_transport_params(cfg, torch.float32)
+    assert mesh.ndim == ndim and mesh.n_blocks > 1 and prm.has_absorption
+    rng = np.random.default_rng(seed)
+    p = empty_ledger(n + 777, torch.float32, dev)
+    nloc = (mesh.nx, mesh.ny, mesh.nz)
+    nrb = mesh.root_grid[::-1]
+    g = np.stack([rng.integers(0, cells[a], n) for a in range(3)])
+    bk = g // np.asarray(nloc)[:, None]
+    blk = (bk[2] * nrb[1] + bk[1]) * nrb[0] + bk[0]
+    mu = 1.0 - 2.0 * rng.random(n)
+    phi = 2 * np.pi * rng.random(n)
+    st = np.sqrt(1.0 - mu * mu)
+    v = (st * np.cos(phi), st * np.sin(phi), mu)
+    p.block[:n] = torch.as_tensor(blk, dtype=torch.int32)
+    for a, (pos, idx, vel) in enumerate((("x", "i", "vx"), ("y", "j", "vy"), ("z", "k", "vz"))):
+        loc = g[a] - bk[a] * nloc[a]
+        getattr(p, idx)[:n] = torch.as_tensor(loc, dtype=torch.int32)
+        if a < ndim:
+            dx = 1.0 / cells[a]
+            getattr(p, pos)[:n] = torch.as_tensor((loc + rng.random(n)) * dx, dtype=torch.float32)
+        getattr(p, vel)[:n] = torch.as_tensor(C * v[a], dtype=torch.float32)
+    p.alive[:n] = True
+    p.weight[:n] = 1.0
+    nc = mesh.total_cells
+    coefs = TransportCoefs(sigma_a=torch.full((nc,), sigma_a, device=dev),
+                           sigma_s=torch.full((nc,), sigma_s, device=dev),
+                           fleck=torch.ones(nc, device=dev))
+    return cfg.jaybenne.dt, mesh, prm, p, coefs
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("max_iters", [8, None])
+def test_absorbing_kernel_matches_plain(gpu, ndim, max_iters):
+    dt, mesh, prm, p0, coefs = _grid_setup(gpu, ndim)
+    if max_iters is not None:
+        prm = dataclasses.replace(prm, max_iters=max_iters)
+    name = transport_kernel.launch_name(ndim, True)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, -99, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, -99, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    assert not bool((k.alive & k.absorbed).any())
+    if max_iters is None:  # full census: statistics
+        assert not bool((k.tau[k.alive] < 1.0).any())
+        assert abs(int(ev_k) - int(ev_q)) <= EVENTS_RTOL * int(ev_q)
+        n = int(p0.alive.sum())
+        ka, qa = int(k.absorbed.sum()), int(q.absorbed.sum())
+        pbar = 0.5 * (ka + qa) / n
+        assert abs(ka - qa) <= 4.0 * np.sqrt(2.0 * n * pbar * (1.0 - pbar)) + 1
+        return
+    for name in ("i", "j", "k", "block", "alive", "absorbed"):
+        assert torch.equal(getattr(k, name), getattr(q, name)), name
+    for name in ("x", "y", "z", "vx", "vy", "vz", "tau"):
+        torch.testing.assert_close(getattr(k, name), getattr(q, name), rtol=FLOAT_RTOL,
+                                   atol=1e-7 if name in ("x", "y", "z", "tau") else 1e-6 * C)
+    assert int(ev_k) == int(ev_q) and int(it_k) == int(it_q) == max_iters
+
+
+def test_rare_absorption_unbiased_on_kernel(gpu):
+    """tests/test_pallas.py::test_rare_absorption_unbiased on the kernel: 16000
+    particles, sigma_a / sigma_t ~ 7.5e-6; a u16 branch draw would double the
+    24 expected absorptions."""
+    cfg = cm.from_deck(Deck.from_file(STEPDIFF).update(
+        {"mcblock/opacity_model": "constant", "parthenon/mesh/nx1": 100}))
+    mesh = build_mesh(cfg.mesh, device=gpu)
+    prm = make_transport_params(cfg, torch.float32)
+    n = 16000
+    rng = np.random.default_rng(7)
+    p = empty_ledger(n, torch.float32, gpu)
+    cell = rng.integers(0, 50, n)
+    p.block[:] = torch.as_tensor(rng.integers(0, 2, n), dtype=torch.int32)
+    p.i[:] = torch.as_tensor(cell, dtype=torch.int32)
+    p.x[:] = torch.as_tensor((cell + rng.random(n)) * 0.01, dtype=torch.float32)
+    mu = 1.0 - 2.0 * rng.random(n)
+    p.vx[:] = torch.as_tensor(C * mu, dtype=torch.float32)
+    p.vy[:] = torch.as_tensor(C * np.sqrt(1.0 - mu * mu), dtype=torch.float32)
+    p.alive[:] = True
+    p.weight[:] = 1.0
+    nc = mesh.total_cells
+    coefs = TransportCoefs(sigma_a=torch.full((nc,), 0.0015, device=gpu),
+                           sigma_s=torch.full((nc,), 200.0, device=gpu),
+                           fleck=torch.ones(nc, device=gpu))
+    dt = 3.335641e-11  # c dt = 1 cm
+    out, _, _ = transport_kernel.transport(p, coefs, mesh, 4242, prm, dt)
+    expect = n * (1.0 - np.exp(-0.0015 * C * dt))
+    assert abs(int(out.absorbed.sum()) - expect) < 3.2 * np.sqrt(expect)
+
+
+def test_feedback_path_runs_through_kernel(gpu, tmp_path):
+    """bench.py's feedback configuration at 16^3 cells in 8^3 blocks and 20000
+    particles: emission, absorption and feedback through the 3D absorbing kernel,
+    one launch per step, nothing dropped, total energy conserved, and a rerun with
+    the same seed bitwise identical."""
+    mods = {
+        "parthenon/mesh/nx1": 16, "parthenon/mesh/nx2": 16, "parthenon/mesh/nx3": 16,
+        "parthenon/mesh/ix2_bc": "periodic", "parthenon/mesh/ox2_bc": "periodic",
+        "parthenon/mesh/ix3_bc": "periodic", "parthenon/mesh/ox3_bc": "periodic",
+        "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+        "parthenon/meshblock/nx3": 8,
+        "jaybenne/num_particles": 20000, "jaybenne/do_emission": "true",
+        "jaybenne/do_feedback": "true", "mcblock/opacity_model": "constant",
+        "mcblock/opacity_constant_value": 3.0, "jaybenne/capacity_factor": 3,
+        "parthenon/output0/file_type": "none",
+    }
+    sims, energies = [], []
+    name = transport_kernel.launch_name(3, True)
+    for _ in range(2):
+        sim0 = run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
+                        nlim=0, device="cuda")
+        energies.append(_total_energy(sim0))
+        before = cuda_lib.LAUNCHES[name]
+        sims.append(run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods,
+                             quiet=True, nlim=3, device="cuda"))
+        assert cuda_lib.LAUNCHES[name] == before + 3
+    for sim, (e0, er0) in zip(sims, energies):
+        assert all(h["dropped"] == 0 and h["unfinished"] == 0 for h in sim.history)
+        e1, _ = _total_energy(sim)
+        assert abs(e1 - e0) <= 1e-5 * er0
+    a, b = (s.state.fields for s in sims)
+    assert a.u.is_cuda and torch.equal(a.energy_tally, b.energy_tally)
+    assert torch.equal(a.u, b.u)
+
+
+def _total_energy(sim):
+    """(sum u dV + sum of live weights, sum of live weights) in float64."""
+    dv = sim.mesh.block_volume.double()[:, None, None, None]
+    p = sim.state.particles
+    er = float(p.weight.double()[p.alive].sum())
+    return float((sim.state.fields.u.double() * dv).sum()) + er, er
 
 
 def test_main_path_runs_through_kernel(gpu, tmp_path):
@@ -132,7 +285,7 @@ def test_main_path_runs_through_kernel(gpu, tmp_path):
     cuda_lib.LAUNCHES.clear()
     sims = [run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
                      nlim=3, device="cuda") for _ in range(2)]
-    assert cuda_lib.LAUNCHES["transport_1d"] == 6
+    assert cuda_lib.LAUNCHES["transport_1d"] == 6 and cuda_lib.LAUNCHES["transport_1d_abs"] == 0
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.is_cuda and torch.equal(a, b)  # bitwise deterministic
     f = sims[0].state.fields

@@ -161,11 +161,14 @@ def test_fleck_and_coefs_match_jax(deck, opacity):
         ({"mcblock/opacity_model": "ep_bremss"}, "item 14"),
         ({"mcblock/scattering_model": "thomson"}, "item 14"),
         ({"jaybenne/use_ddmc": "true"}, "K1(c)"),
-        ({"mcblock/opacity_model": "constant", "mcblock/opacity_constant_value": 1.0}, "K1(b)"),
-        ({"jaybenne/do_emission": "true"}, "item 11"),
+        ({"jaybenne/use_ddmc": "true", "mcblock/opacity_model": "constant",
+          "mcblock/opacity_constant_value": 1.0, "jaybenne/do_emission": "true"}, "K1(c)"),
+        ({"jaybenne/external_source": 1.0e10}, "item 14"),
         ({"jaybenne/precision": "f64"}, "item 7"),
         ({"jaybenne/n_devices": 2}, "item 17"),
         ({"parthenon/output0/file_type": "rst"}, "item 16"),
+        ({"jaybenne/decomposition": "spatial"}, "item 17"),
+        ({"jaybenne/debug_checks": "true"}, "item 16"),
     ],
 )
 def test_unported_configurations_raise(mods, where, tmp_path):
@@ -177,7 +180,18 @@ def test_unported_configurations_raise(mods, where, tmp_path):
 
 
 def test_unported_2d_raises():
-    mods = {"parthenon/mesh/nx2": 4, "parthenon/meshblock/nx2": 4}
+    """2D and 3D uniform meshes are ported; a 2D mesh with static refinement is
+    not, and raises when the step is built."""
+    mods = {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
+            "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+            "parthenon/mesh/refinement": "static",
+            "parthenon/static_refinement0/level": 1,
+            "parthenon/static_refinement0/x1min": -0.1,
+            "parthenon/static_refinement0/x1max": 0.1}
     _, tcfg = _configs(mods)
-    with pytest.raises(NotImplementedError, match=r"K1\(e\)"):
-        build_step_core(tbuild_mesh(tcfg.mesh), tcfg)
+    mesh = tbuild_mesh(tcfg.mesh)
+    assert mesh.ndim == 2 and mesh.max_level == 1
+    with pytest.raises(NotImplementedError, match=r"K1\(d\)"):
+        build_step_core(mesh, tcfg)
+    _, uniform = _configs({k: v for k, v in mods.items() if "refine" not in k})
+    build_step_core(tbuild_mesh(uniform.mesh), uniform)  # the same mesh, uniform: ported
