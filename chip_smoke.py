@@ -44,7 +44,34 @@ Phases:
      census complete, events within 5 % of the JAX package's count; events, step
      time, events/s and peak device memory; the kernel and its plain version timed
      on the path's own ledger;
- 10. determinism of phase 9: a second run gives bitwise-identical tallies and u.
+ 10. determinism of phase 9: a second run gives bitwise-identical tallies and u;
+ 11. K1(c): all twelve census instantiations (IMC and DDMC, 1D/2D/3D, with and
+     without absorption) against their plain versions on a hybrid ledger (2^17
+     particles; x-slabs of cells alternate thin, sigma_t = 64, and thick,
+     sigma_t = 1024, so that IMC arrivals at DDMC faces pass or fail the albedo
+     test, DDMC lanes leak into IMC cells and walls, reach census and are
+     absorbed): after 8 iterations integer state, alive, absorbed and face
+     identical and floats within FLOAT_RTOL; after a full census of the last
+     10 % of a step events within 2 % and absorbed counts within 4 binomial sd;
+ 12. the DDMC main path: inputs/stepdiff_ddmc.in with bench.py's ddmc overrides
+     (128 cells, 100k particles), 10 steps through transport_1d_ddmc (10
+     launches): werr <= 0.05, radiation energy conserved to 1e-5, a bitwise
+     rerun, events within 5 % of the JAX package's 11939980 and below a quarter of
+     phase 5's IMC total;
+ 13. the stiff gate: inputs/inf_stiff.in with tst/inf_stiff.py's overrides
+     (400000 particles, seed 42), 10 steps through transport_1d_abs_ddmc: mean
+     fractional error of the tally against a T0^4 <= 0.15;
+ 14. full width in 3D, K3's DDMC function: bench.py's big_mesh configuration
+     (64^3 cells in 8^3 blocks, 200k particles) with use_ddmc, 10 steps through
+     transport_3d_ddmc (10 launches), every cell on the DDMC branch: the
+     volume-weighted x-profile in 64 bins against the erf solution <= 0.1
+     (tst/regression_test.py::profile_comparison), the solution scaled by the
+     share of a T^4 that the thermal source put in (0.76 at 0.76 particles a
+     cell), sum(tally dV) conserved to 1e-5, every census complete, a bitwise
+     rerun.
+
+For phases 12-14 the kernel and its plain version are timed on the inputs of the
+path's last census, recorded as the path ran.
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -132,6 +159,48 @@ FEEDBACK_2D = {
     "jaybenne/num_particles": 50000,
 }
 FEEDBACK_2D_STEPS = 3
+# phase 11: thin (IMC) and thick (DDMC) x-slabs; fleck sigma_a when absorbing
+HYBRID_SIGMA = (64.0, 1024.0)
+HYBRID_SIGMA_A = 2.0
+HYBRID_N = 1 << 17
+DDMC_DECK = os.path.join(ROOT, "inputs", "stepdiff_ddmc.in")
+DDMC_GATE = {  # bench.py's ddmc row (bench.py:235-243)
+    "parthenon/mesh/nx1": 128,
+    "parthenon/meshblock/nx1": 128,
+    "jaybenne/num_particles": 100000,
+    "parthenon/output0/file_type": "none",
+}
+# the JAX package's 10-step event total of the ddmc row (BENCH_r05.json, ddmc
+# events_total): a count of the physics
+DDMC_JAX_EVENTS = 11939980
+DDMC_EVENTS_RTOL = 0.05
+DDMC_IMC_EVENTS_RATIO = 0.25  # tests/test_ddmc.py:80
+STIFF_DECK = os.path.join(ROOT, "inputs", "inf_stiff.in")
+STIFF = {  # tst/inf_stiff.py's overrides
+    "jaybenne/num_particles": 400000,
+    "jaybenne/seed": 42,
+    "parthenon/output0/file_type": "none",
+}
+STIFF_STEPS = 10
+STIFF_TOL = 0.15
+BIG_DDMC = {  # bench.py's big_mesh row (bench.py:265-279) with DDMC
+    "parthenon/mesh/nx1": 64, "parthenon/mesh/nx2": 64, "parthenon/mesh/nx3": 64,
+    "parthenon/mesh/ix2_bc": "periodic", "parthenon/mesh/ox2_bc": "periodic",
+    "parthenon/mesh/ix3_bc": "periodic", "parthenon/mesh/ox3_bc": "periodic",
+    "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+    "parthenon/meshblock/nx3": 8,
+    "jaybenne/num_particles": 200000,
+    "jaybenne/use_ddmc": "true",
+    "parthenon/output0/file_type": "none",
+}
+BIG_DDMC_STEPS = 10
+PROFILE_TOL = 0.1  # tst/stepdiff_smr2.py's tolerance for the x-profile gate
+PROFILE_BINS = 64
+# the step-diffusion solution of tst/stepdiff_common.py, copied: diffusion time
+# [s], the hot side's a T^4 [erg/cm^3], the interface's offset from x = -0.5
+ERF_TAU = 1.000692e-7
+ERF_UR0 = 7.5646e5
+ERF_SHIFT = 0.5
 # published H100 SXM peaks (NVIDIA's H100 data sheet)
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -173,15 +242,22 @@ def gate_setup(dev, sigma_s):
     return deck_setup(dev, DECK, GATE, 0.0, sigma_s)
 
 
+def erf_profile(t, x):
+    """Radiation energy density of step diffusion at time t (the top-hat of height
+    ERF_UR0 on x < 0 spreading as the difference of two error functions)."""
+    from scipy.special import erf
+
+    s = 2.0 * np.sqrt(t / ERF_TAU)
+    xs = x + ERF_SHIFT
+    return 0.5 * ERF_UR0 * (erf((xs + 0.5) / s) - erf((xs - 0.5) / s))
+
+
 def weighted_erf_error(sim) -> float:
     """Weighted-mean fractional error of the tally against the erf solution, as
     tst/regression_test.py::analytic_comparison computes it."""
-    sys.path.insert(0, os.path.join(ROOT, "tst"))
-    from stepdiff_common import erf_profile
-
     var = sim.state.fields.energy_tally.double().cpu().numpy()
-    xc, yc, zc = (a.double().cpu().numpy() for a in sim.mesh.cell_centers())
-    sol = erf_profile(sim.t, xc, yc, zc)
+    xc = sim.mesh.cell_centers()[0].double().cpu().numpy()
+    sol = erf_profile(sim.t, xc)
     frac = np.fabs(sol - var) / np.fabs((sol + var) / 2.0)
     return float((frac * sol).sum() / sol.sum())
 
@@ -280,16 +356,40 @@ def ops_per_event(ndim, absorb, cost) -> int:
     return n
 
 
-def census_bound(p, ndim, absorb, n_cells, events, cost):
+def ops_per_ddmc_event(ndim, absorb, cost) -> int:
+    """Operations every DDMC event executes (a lane on the DDMC branch that is not
+    at a face), counted from csrc/transport_kernel.cu as ``ops_per_event`` counts:
+
+      common: is_ddmc (dmin sigma_t and the compare: 2) + face test (1) + exp23's
+        u23 (3) + fmax (1) + negation (1) + c cdf (1) + cdf's tiny (1) + dt_rem
+        (2) + event test (1) + loop test (3) + it++ (1) = 17;
+      per axis: face (I2F, f dx, f + 1, (f + 1) dx: 4) + the two leak rates (2)
+        + the leak total (2, one fewer overall) + out-of-range tests (2) = 10;
+      cell index: ndim - 1;
+      absorption: ea + es (1) + ea + leak_tot (1);
+      one hash each for the exp23 and the leak/census word, one logf, one divide.
+
+    The outcome (absorption, the leak choice and placement, the census resample,
+    the albedo test at a face) and the table gather are left out, so the count, and
+    the bound from it, is low."""
+    n = 17 + 10 * ndim - 1 + (ndim - 1) + (2 if absorb else 0)
+    return n + cost["logf"] + cost["div"] + 2 * cost["hash"]
+
+
+def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False):
     """(bound_ms, bound_by) of one census: the larger of its operations over the
     card's float32 peak and of its bytes over the memory rate. Bytes: each live
     particle's state read once and written once (position and cell index on the
-    active axes, velocity, tau, alive, and absorbed written when absorbing), one
-    alive byte of each other slot, the pair table read once."""
+    active axes, velocity, tau, alive, absorbed written when absorbing, and the
+    face code with DDMC), one alive byte of each other slot, the cell table read
+    once (8 bytes a cell, 32 with DDMC). With DDMC every event is counted as a
+    DDMC event: the paths that run it have every cell on the DDMC branch."""
     live = int(p.alive.sum())
     per_particle = 2 * (4 * ndim + 12 + 4 + 4 * ndim + 1) + (1 if absorb else 0)
-    nbytes = live * per_particle + (p.capacity - live) + 8 * n_cells
-    t_ops = events * ops_per_event(ndim, absorb, cost) / PEAK_F32_OPS
+    per_particle += 8 if ddmc else 0
+    nbytes = live * per_particle + (p.capacity - live) + (32 if ddmc else 8) * n_cells
+    per_event = (ops_per_ddmc_event if ddmc else ops_per_event)(ndim, absorb, cost)
+    t_ops = events * per_event / PEAK_F32_OPS
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -394,9 +494,15 @@ def path_census(sim, transport_kernel, dev, seed=12345):
         sim.state.fields, mesh, m.build_eos(), m.build_opacity(), m.build_scattering(),
         False, torch.float32,
     )
-    p0 = sim.state.particles.clone()
-    dt = cfg.jaybenne.dt
-    args = (coefs, mesh, seed, prm, dt)
+    return census_compare(transport_kernel, dev, sim.state.particles.clone(),
+                          (coefs, mesh, seed, prm, cfg.jaybenne.dt))
+
+
+def census_compare(transport_kernel, dev, p0, args):
+    """The kernel and its plain version on one census's inputs ``p0`` and ``args``
+    (coefs, mesh, seed, prm, dt): (kernel ms, plain ms, census events, 8-iteration
+    max_abs_err). One warm-up each, then one timed census each."""
+    coefs, mesh, seed, prm, dt = args
     transport_kernel.transport(p0.clone(), *args)  # warm-up
     ms, events = time_census(transport_kernel.transport, p0, args, dev, 1)
     a8 = (coefs, mesh, seed, dataclasses.replace(prm, max_iters=8), dt)
@@ -404,13 +510,182 @@ def path_census(sim, transport_kernel, dev, seed=12345):
     plain_ms, _ = time_census(transport_kernel.transport_plain, p0, args, dev, 1)
     qk = transport_kernel.transport(p0.clone(), *a8)[0]
     qp = transport_kernel.transport_plain(p0.clone(), *a8)[0]
-    for name in ("i", "j", "k", "block", "alive", "absorbed"):
+    for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
         if not torch.equal(getattr(qk, name), getattr(qp, name)):
             raise AssertionError(f"kernel on the path's ledger: {name} differs")
     err, rel = max_float_err(qk, qp, ("x", "y", "z", "vx", "vy", "vz", "tau"), FLOAT_FLOOR)
     if rel > FLOAT_RTOL:
         raise AssertionError(f"kernel on the path's ledger: float rel err {rel}")
     return ms, plain_ms, events, err
+
+
+def hybrid_setup(dev, ndim, absorb, ddmc, seed):
+    """Phase 11's configuration: x-slabs of four cells alternate thin (IMC) and
+    thick (DDMC) sigma_t, reflecting in x, periodic in y, outflow in z, with 2^17
+    particles at uniform positions, a quarter of them on a face of their cell with
+    the face-arrival code set. Returns (dt, mesh, prm, ledger, coefs, gi), gi the
+    global x index of each cell in block order."""
+    from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.particles import place_on_faces, uniform_ledger
+    from jaybenne_tpu_torch.utils.constants import CC
+
+    cells = {1: (128, 1, 1), 2: (64, 64, 1), 3: (16, 16, 16)}[ndim]
+    blocks = {1: (32, 1, 1), 2: (32, 32, 1), 3: (8, 8, 8)}[ndim]
+    mods = {"jaybenne/use_ddmc": "true" if ddmc else "false",
+            "mcblock/opacity_model": "constant" if absorb else "none",
+            "parthenon/swarm/ix3_bc": "outflow", "parthenon/swarm/ox3_bc": "outflow"}
+    for a, k in enumerate("123"):
+        mods[f"parthenon/mesh/nx{k}"] = cells[a]
+        mods[f"parthenon/meshblock/nx{k}"] = blocks[a]
+    cfg, mesh, prm, _ = deck_setup(dev, DECK, mods, 0.0, 0.0)
+    if mesh.ndim != ndim or mesh.n_blocks < 2 or prm.has_absorption != absorb:
+        raise AssertionError(f"phase 11 setup: ndim {mesh.ndim}, {mesh.n_blocks} blocks")
+    nrbx = mesh.root_grid[2]
+    gi = ((torch.arange(mesh.n_blocks, device=dev) % nrbx)[:, None, None, None] * mesh.nx
+          + torch.arange(mesh.nx, device=dev)).expand(mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx)
+    thin, thick = HYBRID_SIGMA
+    sig = torch.where((gi // 4) % 2 == 1, thick, thin)
+    sa = torch.full_like(sig, HYBRID_SIGMA_A if absorb else 0.0)
+    px, py, pz = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags,
+                                 torch.float32)
+    coefs = TransportCoefs(sigma_a=sa.reshape(-1), sigma_s=(sig - sa).reshape(-1),
+                           fleck=torch.ones(mesh.total_cells, device=dev), px=px, py=py, pz=pz)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p0 = uniform_ledger(mesh, HYBRID_N, g, CC)
+    place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=dev) < 0.25, g)
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))  # some reach census soon
+    return cfg.jaybenne.dt, mesh, prm, p0, coefs, gi.reshape(-1)
+
+
+def ddmc_outcomes(p0, p1, mesh, gi, absorb):
+    """Counts of what the first event did on the DDMC branch, from the ledger before
+    and after it: albedo rejections and acceptances at a face, leaks into IMC cells
+    and into walls, census and absorption."""
+    nrbx = mesh.root_grid[2]
+
+    def gx_index(p):
+        return (p.block % nrbx) * mesh.nx + p.i
+
+    def cell_of(p):
+        return (p.block.long() * mesh.nz + p.k) * mesh.ny * mesh.nx + p.j * mesh.nx + p.i
+
+    thick0 = (gx_index(p0) // 4) % 2 == 1
+    dd = p0.alive & thick0
+    at_face = dd & (p0.face != 0)
+    moved = cell_of(p1) != cell_of(p0)
+    rejected = at_face & p1.alive & moved & (p1.tau == p0.tau)
+    steps = dd & ~rejected & (p1.tau > p0.tau)
+    leak = steps & (p1.tau < 1.0) & ~p1.absorbed
+    into_imc = leak & p1.alive & moved & ((gx_index(p1) // 4) % 2 == 0)
+    nrby = mesh.root_grid[1]
+
+    def gy_index(p):
+        return ((p.block // nrbx) % nrby) * mesh.ny + p.j
+
+    wall = ~p1.alive | ((gy_index(p1) - gy_index(p0)).abs() > 1)
+    gx = (p1.block % nrbx).float() / nrbx - 0.5 + p1.x
+    wall = wall | (0.5 - gx.abs() < 2e-2 / (nrbx * mesh.nx))
+    counts = {"rejected": rejected, "accepted": at_face & ~rejected,
+              "leak into IMC": into_imc, "leak into a wall": leak & wall,
+              "census": steps & (p1.tau == 1.0)}
+    if absorb:
+        counts["absorbed"] = dd & p1.absorbed
+    return {k: int(v.sum()) for k, v in counts.items()}
+
+
+def compare_hybrid(transport_kernel, dev, ndim, absorb, ddmc, seed):
+    """Phase 11 on one instantiation: the kernel against its plain version on the
+    hybrid ledger. Returns the 8-iteration max_abs_err."""
+    names = ("x", "y", "z", "vx", "vy", "vz", "tau")
+    dt, mesh, prm, p0, coefs, gi = hybrid_setup(dev, ndim, absorb, ddmc, seed)
+    what = transport_kernel.launch_name(ndim, absorb, ddmc)
+    seen = ""
+    if ddmc:
+        p1 = transport_kernel.transport(p0.clone(), coefs, mesh, seed,
+                                        dataclasses.replace(prm, max_iters=1), dt)[0]
+        counts = ddmc_outcomes(p0, p1, mesh, gi, absorb)
+        if min(counts.values()) == 0:
+            raise AssertionError(f"{what}: a DDMC outcome did not occur: {counts}")
+        seen = f"; first event {counts}"
+    prm8 = dataclasses.replace(prm, max_iters=8)
+    pk, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, seed, prm8, dt)
+    pp, it_p, ev_p = transport_kernel.transport_plain(p0.clone(), coefs, mesh, seed, prm8, dt)
+    torch.cuda.synchronize()
+    for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
+        if not torch.equal(getattr(pk, name), getattr(pp, name)):
+            raise AssertionError(f"{what}, 8 iterations: {name} differs")
+    if int(ev_k) != int(ev_p) or int(it_k) != int(it_p):
+        raise AssertionError(f"{what}, 8 iterations: stats {ev_k} {ev_p}")
+    err8, rel8 = max_float_err(pk, pp, names, FLOAT_FLOOR)
+    if rel8 > FLOAT_RTOL:
+        raise AssertionError(f"{what}, 8 iterations: float rel err {rel8}")
+    ev8 = int(ev_k)
+    # the full census starts in the last 10 % of the step
+    pf = p0.clone()
+    pf.tau.copy_(0.9 + 0.1 * torch.rand(pf.capacity, device=dev,
+                                        generator=torch.Generator(dev).manual_seed(seed)))
+    pk, _, ev_k = transport_kernel.transport(pf.clone(), coefs, mesh, seed, prm, dt)
+    pp, _, ev_p = transport_kernel.transport_plain(pf.clone(), coefs, mesh, seed, prm, dt)
+    for out, name in ((pk, "kernel"), (pp, "plain")):
+        if bool((out.tau[out.alive] < 1.0).any()) or bool((out.alive & out.absorbed).any()):
+            raise AssertionError(f"{what} census ({name}): short of census")
+    ev_k, ev_p = int(ev_k), int(ev_p)
+    if abs(ev_k - ev_p) > EVENTS_RTOL * ev_p:
+        raise AssertionError(f"{what} census: events {ev_k} vs {ev_p}")
+    ka, kp = int(pk.absorbed.sum()), int(pp.absorbed.sum())
+    binomial_gate(ka, kp, p0.capacity, f"{what} census")
+    if absorb and not ka > 0.01 * p0.capacity:
+        raise AssertionError(f"{what} census: {ka} absorbed of {p0.capacity}")
+    print(f"{what}: 8 iterations: identical integers and face codes, {ev8} events, "
+          f"max_abs_err {err8:.3e} max_rel_err {rel8:.3e}; full census events kernel "
+          f"{ev_k} plain {ev_p}, absorbed {ka} / {kp}, bitwise equal: "
+          f"{torch.equal(pk.x, pp.x) and torch.equal(pk.i, pp.i)}{seen}", flush=True)
+    return err8
+
+
+class CensusRecorder:
+    """While active, wraps ``transport_kernel.transport`` so that the steps built
+    meanwhile call it through the wrapper, and keeps a copy of the inputs of its
+    ``keep``-th call (the ledger cloned before the census changes it)."""
+
+    def __init__(self, transport_kernel, keep):
+        self.tk, self.keep, self.calls, self.inputs = transport_kernel, keep, 0, None
+        self.real = transport_kernel.transport
+
+    def __enter__(self):
+        self.tk.transport = self._census
+        return self
+
+    def __exit__(self, *exc):
+        self.tk.transport = self.real
+
+    def _census(self, particles, *args):
+        self.calls += 1
+        if self.calls == self.keep:
+            self.inputs = (particles.clone(), args)
+        return self.real(particles, *args)
+
+
+def profile_error(sim, nbins=PROFILE_BINS, scale=1.0) -> float:
+    """Weighted-mean fractional error of the volume-weighted x-profile of the tally
+    in ``nbins`` uniform x-bins against ``scale`` times the erf solution at the bin
+    centres, as tst/regression_test.py::profile_comparison computes it."""
+    v = sim.state.fields.energy_tally.double().cpu().numpy()
+    xc = sim.mesh.cell_centers()[0].double().cpu().numpy() * np.ones_like(v)
+    vol = sim.mesh.block_volume.double().cpu().numpy()[:, None, None, None] * np.ones_like(v)
+    x1min, x1max = sim.mesh.bounds[0], sim.mesh.bounds[1]
+    width = (x1max - x1min) / nbins
+    bins = np.clip(((xc - x1min) / width).astype(np.int64), 0, nbins - 1).reshape(-1)
+    num = np.bincount(bins, (v * vol).reshape(-1), nbins)
+    den = np.bincount(bins, vol.reshape(-1), nbins)
+    prof = num / np.maximum(den, 1.0e-300)
+    sol = scale * erf_profile(sim.t, x1min + (np.arange(nbins) + 0.5) * width)
+    # a bin where both are exactly 0 (far into the cold side at early times)
+    # contributes nothing; the harness's 0/0 there would make the error NaN
+    both = (sol + prof) > 0.0
+    frac = np.fabs(sol - prof) / np.where(both, np.fabs((sol + prof) / 2.0), 1.0)
+    return float((frac * sol).sum() / sol.sum())
 
 
 def main() -> int:
@@ -680,6 +955,161 @@ def main() -> int:
     print("feedback rerun with the same seed: energy_tally and u bitwise identical",
           flush=True)
 
+    phase("11 K1(c): all twelve instantiations vs plain on a hybrid ledger, 2^17 particles")
+    hybrid_err = {}
+    for ndim, seed in ((1, 1101), (2, 1102), (3, 1103)):
+        for absorb in (False, True):
+            for ddmc in (False, True):
+                name = transport_kernel.launch_name(ndim, absorb, ddmc)
+                hybrid_err[name] = compare_hybrid(transport_kernel, dev, ndim, absorb, ddmc,
+                                                  seed + 10 * absorb)
+
+    phase("12 DDMC main path: stepdiff_ddmc 128 cells, 100k particles, 10 steps")
+    name_dd1 = transport_kernel.launch_name(1, False, True)
+    with tempfile.TemporaryDirectory() as outdir:
+        dd0 = run_file(DDMC_DECK, outdir=outdir, modified_inputs=DDMC_GATE, quiet=True,
+                       nlim=0, device="cuda")
+        e_dd0 = radiation_energy(dd0)
+        with CensusRecorder(transport_kernel, N_STEPS) as rec_dd:
+            cuda_lib.LAUNCHES.clear()
+            dd = run_file(DDMC_DECK, outdir=outdir, modified_inputs=DDMC_GATE, quiet=True,
+                          device="cuda")
+            dd_launches = dict(cuda_lib.LAUNCHES)
+        dd_again = run_file(DDMC_DECK, outdir=outdir, modified_inputs=DDMC_GATE, quiet=True,
+                            device="cuda")
+    if dd_launches.get(name_dd1, 0) != N_STEPS or dd.cycle != N_STEPS:
+        raise AssertionError(f"DDMC main path: launches {dd_launches}, cycles {dd.cycle}")
+    werr_dd = weighted_erf_error(dd)
+    e_dd = radiation_energy(dd)
+    dd_tally = dd.state.fields.energy_tally
+    if dd_tally.shape != (1, 1, 1, 128) or not bool(torch.isfinite(dd_tally).all()):
+        raise AssertionError(f"DDMC main path: tally shape {tuple(dd_tally.shape)}")
+    if werr_dd > WERR_TOL:
+        raise AssertionError(f"DDMC main path: weighted erf error {werr_dd} > {WERR_TOL}")
+    if abs(e_dd - e_dd0) > ENERGY_RTOL * e_dd0:
+        raise AssertionError(f"DDMC main path: energy {e_dd0} -> {e_dd}")
+    if not torch.equal(dd_again.state.fields.energy_tally, dd_tally):
+        raise AssertionError("DDMC main path: a second run with the same seed differs")
+    dd_events = dd.total_events
+    if abs(dd_events - DDMC_JAX_EVENTS) > DDMC_EVENTS_RTOL * DDMC_JAX_EVENTS:
+        raise AssertionError(f"DDMC main path: events {dd_events} vs JAX {DDMC_JAX_EVENTS}")
+    if dd_events >= DDMC_IMC_EVENTS_RATIO * events:
+        raise AssertionError(f"DDMC main path: events {dd_events} vs IMC {events}")
+    if any(h["unfinished"] for h in dd.history):
+        raise AssertionError("DDMC main path: a census incomplete")
+    dd_step_s = [h["step_seconds"] for h in dd.history]
+    p_dd, args_dd = rec_dd.inputs
+    ms_dd1, plain_dd1, ev_dd1, err_dd1 = census_compare(transport_kernel, dev, p_dd, args_dd)
+    bound_dd1, by_dd1 = census_bound(p_dd, 1, False, dd.mesh.total_cells, ev_dd1, cost,
+                                     ddmc=True)
+    print(f"DDMC main path: werr {werr_dd!r} (tol {WERR_TOL}); energy rel "
+          f"{abs(e_dd - e_dd0) / e_dd0:.3e}; {dd_launches.get(name_dd1, 0)} launches of "
+          f"{name_dd1}; rerun bitwise identical", flush=True)
+    print(f"DDMC main path: events {dd_events} (JAX package {DDMC_JAX_EVENTS}, "
+          f"{dd_events / DDMC_JAX_EVENTS - 1.0:+.4f}; IMC gate {events}); step seconds "
+          f"{dd_step_s}; median {statistics.median(dd_step_s) * 1e3!r} ms; "
+          f"{dd_events / sum(dd_step_s)!r} events/s", flush=True)
+    print(f"{name_dd1} on the last census's inputs ({p_dd.capacity} slots, "
+          f"{int(p_dd.alive.sum())} live): kernel {ms_dd1!r} ms, plain {plain_dd1!r} ms, "
+          f"{ev_dd1} events; bound {bound_dd1!r} ms ({by_dd1}; "
+          f"{ops_per_ddmc_event(1, False, cost)} operations an event), kernel at "
+          f"{bound_dd1 / ms_dd1:.3f} of it; 8-iteration max_abs_err {err_dd1:.3e}",
+          flush=True)
+
+    phase("13 stiff gate: inf_stiff (tst/inf_stiff.py overrides), 10 steps")
+    name_dd1a = transport_kernel.launch_name(1, True, True)
+    with tempfile.TemporaryDirectory() as outdir:
+        with CensusRecorder(transport_kernel, STIFF_STEPS) as rec_st:
+            cuda_lib.LAUNCHES.clear()
+            stiff = run_file(STIFF_DECK, outdir=outdir, modified_inputs=STIFF, quiet=True,
+                             device="cuda")
+            stiff_launches = dict(cuda_lib.LAUNCHES)
+    if stiff_launches.get(name_dd1a, 0) != STIFF_STEPS or stiff.cycle != STIFF_STEPS:
+        raise AssertionError(f"inf_stiff: launches {stiff_launches}, cycles {stiff.cycle}")
+    var_st = stiff.state.fields.energy_tally.double().cpu().numpy()
+    ur_st = AR * 1.0**4  # the deck's initial_temperature, pinned with feedback off
+    stiff_err = float((np.fabs(ur_st - var_st) / np.fabs((ur_st + var_st) / 2.0)).mean())
+    if not np.isfinite(var_st).all() or stiff_err > STIFF_TOL:
+        raise AssertionError(f"inf_stiff: mean fractional error {stiff_err} > {STIFF_TOL}")
+    if any(h["dropped"] or h["unfinished"] for h in stiff.history):
+        raise AssertionError("inf_stiff: particles dropped or a census incomplete")
+    p_st, args_st = rec_st.inputs
+    ms_dd1a, plain_dd1a, ev_dd1a, err_dd1a = census_compare(transport_kernel, dev, p_st,
+                                                            args_st)
+    bound_dd1a, by_dd1a = census_bound(p_st, 1, True, stiff.mesh.total_cells, ev_dd1a, cost,
+                                       ddmc=True)
+    print(f"inf_stiff: {stiff.cycle} steps, {stiff_launches.get(name_dd1a, 0)} launches of "
+          f"{name_dd1a}, mean tally {float(var_st.mean())!r} vs a T0^4 {ur_st!r}, mean "
+          f"fractional error {stiff_err!r} (tol {STIFF_TOL}), events {stiff.total_events}, "
+          f"alive {[h['alive'] for h in stiff.history]}", flush=True)
+    print(f"{name_dd1a} on the last census's inputs ({p_st.capacity} slots, "
+          f"{int(p_st.alive.sum())} live): kernel {ms_dd1a!r} ms, plain {plain_dd1a!r} ms, "
+          f"{ev_dd1a} events; bound {bound_dd1a!r} ms ({by_dd1a}), kernel at "
+          f"{bound_dd1a / ms_dd1a:.3f} of it; 8-iteration max_abs_err {err_dd1a:.3e}",
+          flush=True)
+
+    phase("14 full width in 3D: big_mesh with DDMC, 64^3 cells, 200k particles, 10 steps")
+    name_dd3 = transport_kernel.launch_name(3, False, True)
+    with tempfile.TemporaryDirectory() as outdir:
+        big0 = run_file(DECK, outdir=outdir, modified_inputs=BIG_DDMC, quiet=True, nlim=0,
+                        device="cuda")
+        e_big0 = radiation_energy(big0)
+        del big0
+        with CensusRecorder(transport_kernel, BIG_DDMC_STEPS) as rec_big:
+            cuda_lib.LAUNCHES.clear()
+            big = run_file(DECK, outdir=outdir, modified_inputs=BIG_DDMC, quiet=True,
+                           nlim=BIG_DDMC_STEPS, device="cuda")
+            big_launches = dict(cuda_lib.LAUNCHES)
+        big_again = run_file(DECK, outdir=outdir, modified_inputs=BIG_DDMC, quiet=True,
+                             nlim=BIG_DDMC_STEPS, device="cuda")
+    dmin = big.mesh.block_dx[:, : big.mesh.ndim].min(dim=1).values
+    tau_cells = dmin * big.cfg.mcblock.scattering_constant_value
+    if not bool((tau_cells > big.cfg.jaybenne.tau_ddmc).all()):
+        raise AssertionError("big_mesh DDMC: not every cell is on the DDMC branch")
+    if big_launches.get(name_dd3, 0) != BIG_DDMC_STEPS or big.cycle != BIG_DDMC_STEPS:
+        raise AssertionError(f"big_mesh DDMC: launches {big_launches}, cycles {big.cycle}")
+    # The thermal source gives each cell floor(npc) + Bernoulli(frac) particles,
+    # npc = 200k / 64^3 = 0.76, so a quarter of the cells start empty and their
+    # a T^4 is never sourced (the JAX package sources alike). Diffusion is linear,
+    # so the expected tally is the erf solution times the sourced share of the
+    # analytic energy UR0 x (hot volume): the gate holds the profile to that.
+    xc0 = big.mesh.cell_centers()[0]
+    dv = big.mesh.block_volume.double()[:, None, None, None].expand(xc0.shape)
+    e_analytic = float(dv[xc0 < 0.0].sum()) * ERF_UR0
+    sourced = e_big0 / e_analytic
+    prof_err = profile_error(big, scale=sourced)
+    prof_err_unscaled = profile_error(big)
+    e_big = radiation_energy(big)
+    if not bool(torch.isfinite(big.state.fields.energy_tally).all()) or prof_err > PROFILE_TOL:
+        raise AssertionError(f"big_mesh DDMC: x-profile error {prof_err} > {PROFILE_TOL}")
+    if abs(e_big - e_big0) > ENERGY_RTOL * e_big0:
+        raise AssertionError(f"big_mesh DDMC: energy {e_big0} -> {e_big}")
+    if any(h["dropped"] or h["unfinished"] for h in big.history):
+        raise AssertionError("big_mesh DDMC: dropped or a census incomplete")
+    if not torch.equal(big_again.state.fields.energy_tally, big.state.fields.energy_tally):
+        raise AssertionError("big_mesh DDMC: a rerun with the same seed differs")
+    big_step_s = [h["step_seconds"] for h in big.history]
+    p_big, args_big = rec_big.inputs
+    ms_dd3, plain_dd3, ev_dd3, err_dd3 = census_compare(transport_kernel, dev, p_big,
+                                                        args_big)
+    bound_dd3, by_dd3 = census_bound(p_big, 3, False, big.mesh.total_cells, ev_dd3, cost,
+                                     ddmc=True)
+    print(f"big_mesh DDMC: every cell DDMC (sigma dx min {float(tau_cells.min())!r} > "
+          f"{big.cfg.jaybenne.tau_ddmc}); sourced {sourced!r} of a T^4; x-profile error "
+          f"{prof_err!r} against the sourced erf solution (tol {PROFILE_TOL}), "
+          f"{prof_err_unscaled!r} against the unscaled one; "
+          f"energy rel {abs(e_big - e_big0) / e_big0:.3e}; {big_launches.get(name_dd3, 0)} "
+          f"launches of {name_dd3}; rerun bitwise identical", flush=True)
+    print(f"big_mesh DDMC: events {big.total_events}; step seconds {big_step_s}; median "
+          f"{statistics.median(big_step_s) * 1e3!r} ms; "
+          f"{big.total_events / sum(big_step_s)!r} events/s", flush=True)
+    print(f"{name_dd3} on the last census's inputs ({p_big.capacity} slots, "
+          f"{int(p_big.alive.sum())} live): kernel {ms_dd3!r} ms, plain {plain_dd3!r} ms, "
+          f"{ev_dd3} events; bound {bound_dd3!r} ms ({by_dd3}; "
+          f"{ops_per_ddmc_event(3, False, cost)} operations an event), kernel at "
+          f"{bound_dd3 / ms_dd3:.3f} of it; 8-iteration max_abs_err {err_dd3:.3e}",
+          flush=True)
+
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
@@ -709,6 +1139,33 @@ def main() -> int:
             "launches": fb_launches.get(name3, 0),
             "max_abs_err": max(err3, fb_err),
             "ms": fb_ms, "plain_ms": fb_plain_ms, "bound_ms": bound_3d, "bound_by": by_3d,
+            "library_ms": None,
+        },
+        {
+            "name": f"{name_dd1} (K1(c) DDMC, 1D; stepdiff_ddmc)",
+            "route": "cuda", "source": src,
+            "replaces": "jaybenne_tpu/ops/pallas_transport.py:655",
+            "launches": dd_launches.get(name_dd1, 0),
+            "max_abs_err": max(hybrid_err[name_dd1], err_dd1),
+            "ms": ms_dd1, "plain_ms": plain_dd1, "bound_ms": bound_dd1, "bound_by": by_dd1,
+            "library_ms": None,
+        },
+        {
+            "name": f"{name_dd1a} (K1(c) DDMC with absorption, 1D; inf_stiff)",
+            "route": "cuda", "source": src,
+            "replaces": "jaybenne_tpu/ops/pallas_transport.py:655",
+            "launches": stiff_launches.get(name_dd1a, 0),
+            "max_abs_err": max(hybrid_err[name_dd1a], err_dd1a),
+            "ms": ms_dd1a, "plain_ms": plain_dd1a, "bound_ms": bound_dd1a,
+            "bound_by": by_dd1a, "library_ms": None,
+        },
+        {
+            "name": f"{name_dd3} (K3 DDMC at 64^3; K1(c) in 3D)",
+            "route": "cuda", "source": src,
+            "replaces": "jaybenne_tpu/ops/pallas_grid.py:678",
+            "launches": big_launches.get(name_dd3, 0),
+            "max_abs_err": max(hybrid_err[name_dd3], err_dd3),
+            "ms": ms_dd3, "plain_ms": plain_dd3, "bound_ms": bound_dd3, "bound_by": by_dd3,
             "library_ms": None,
         },
     ]

@@ -8,9 +8,10 @@ nested dataclasses, plain Python values for static metadata);
 packages. This module never imports jax: the dicts carry only numpy arrays and
 Python values.
 
-Keys the port has no field for (the JAX ledger's ``leak``, the DDMC face
-probabilities, the PRNG key) are ignored. A ``SimState`` needs an integer ``seed``
-in place of the JAX PRNG key.
+Keys the port has no field for (the JAX ledger's ``leak``, the JAX coefficients'
+``packed`` rows and model objects, the PRNG key) are ignored, and a field with a
+default may be left out. A ``SimState`` needs an integer ``seed`` in place of the
+JAX PRNG key.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ def state_from_numpy(d: dict, device="cpu"):
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:
+            if f.default is not dataclasses.MISSING:
+                continue
             raise KeyError(f"state_from_numpy: {cls.__name__} needs {f.name!r}")
         kwargs[f.name] = _convert(d[f.name], device)
     return cls(**kwargs)

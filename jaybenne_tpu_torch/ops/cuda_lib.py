@@ -44,8 +44,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
     "jb_transport_launch": (
-        _I, _I,          # ndim absorb
-        _P, _P, _I,      # host array of 12 ledger pointers, pair table, n
+        _I, _I, _I,      # ndim absorb ddmc
+        _P, _P, _I,      # host array of 13 ledger pointers, cell table, n
         _P, _P,          # host int and float geometry arrays
         _P, _P, _P,      # events iters stream
     ),

@@ -4,11 +4,32 @@ Fleck factor (Fleck & Cummings 1971), per cell::
 
     f = 1 / (1 + (4 * emis / (rho * cv * T)) * dt)
 
-The DDMC face probabilities (``ddmc_face_probs``) arrive with DDMC (ROADMAP
-Queue 1, item 12).
+DDMC face probability (Habetler-Matkowsky extrapolation, lambda_ext = 0.7104), per
+face between cells l (lower) and u (upper)::
+
+    tau_s = dx * (sigma_s + sigma_a)_s      for side s in {l, u}, dx along the face axis
+    tau_s = tau_s            if tau_s > tau_ddmc
+          = 2 * lambda_ext   otherwise
+    P     = 2 / (3 * (tau_l + tau_u))
+
+A face on the domain boundary takes its outer side from the field boundary
+conditions: the opposite boundary cell on a periodic axis, the cell itself (a
+zero-gradient ghost) otherwise.
+
+The JAX package evaluates each side by locating a point a quarter cell from the
+face in its block forest, which on a uniform forest lands exactly in the index
+neighbour; here the sides are index neighbours on the global grid, which gives the
+same numbers. Static refinement (ROADMAP Queue 2, K1(d)) and the shard-local
+variant of the spatial decomposition (item 17) are not ported.
 """
 
 from __future__ import annotations
+
+import torch
+
+from ..config import not_ported
+from ..utils.constants import LAM_EXT
+from .transport_kernel import to_global_cells
 
 
 def fleck_factor(rho, sie, eos, opacity, dt, dtype):
@@ -17,3 +38,51 @@ def fleck_factor(rho, sie, eos, opacity, dt, dtype):
     cv = eos.specific_heat_from_density_internal_energy(rho, sie)
     emis = opacity.emissivity(rho, temp)
     return (1.0 / (1.0 + (4.0 * emis / (rho * cv * temp)) * dt)).to(dtype)
+
+
+def _block_faces(gface, mesh, axis):
+    """Global face array along ``axis`` -> the per-block face array (each block
+    holds both faces of each of its cells, so blocks share their common faces)."""
+    nrbz, nrby, nrbx = mesh.root_grid
+    dev = gface.device
+    b = torch.arange(mesh.n_blocks, device=dev)
+    bk = (b // (nrbx * nrby), (b // nrbx) % nrby, b % nrbx)  # (z, y, x) block index
+    nloc = (mesh.nz, mesh.ny, mesh.nx)
+    ax = 2 - axis  # (x, y, z) axis -> (z, y, x) dimension
+    idx = []
+    for d in range(3):
+        n = nloc[d] + (1 if d == ax else 0)
+        shape = [mesh.n_blocks, 1, 1, 1]
+        shape[d + 1] = n
+        idx.append((bk[d][:, None] * nloc[d] + torch.arange(n, device=dev)).reshape(shape))
+    return gface[idx[0], idx[1], idx[2]]
+
+
+def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
+    """Face probability arrays (px, py, pz) of shapes ``[B, nz, ny, nx+1]``,
+    ``[B, nz, ny+1, nx]`` and ``[B, nz+1, ny, nx]``; zeros on inactive axes.
+
+    ``sigma_t``: per-cell total interaction coefficient [B, nz, ny, nx].
+    ``periodic_flags``: (x, y, z) bools from the *field* boundary conditions.
+    """
+    if mesh.max_level > 0:
+        raise not_ported("DDMC face probabilities on a refined mesh", "Queue 2, K1(d)")
+    B, nz, ny, nx = sigma_t.shape
+    shapes = ((B, nz, ny, nx + 1), (B, nz, ny + 1, nx), (B, nz + 1, ny, nx))
+    out = []
+    for axis in range(3):
+        if axis >= mesh.ndim:
+            out.append(torch.zeros(shapes[axis], dtype=dtype, device=sigma_t.device))
+            continue
+        tau = (sigma_t * mesh.block_dx[:, axis][:, None, None, None]).to(dtype)
+        nrb = mesh.root_grid
+        tau = to_global_cells(tau.reshape(-1), mesh).reshape(
+            nrb[0] * nz, nrb[1] * ny, nrb[2] * nx).movedim(2 - axis, -1)  # face axis last
+        lower = torch.cat([tau[..., -1:] if periodic_flags[axis] else tau[..., :1], tau], -1)
+        upper = torch.cat([tau, tau[..., :1] if periodic_flags[axis] else tau[..., -1:]], -1)
+        thin = torch.tensor(2.0 * LAM_EXT, dtype=dtype, device=tau.device)
+        lower = torch.where(lower > tau_ddmc, lower, thin)
+        upper = torch.where(upper > tau_ddmc, upper, thin)
+        p = (2.0 / (3.0 * (lower + upper))).to(dtype).movedim(-1, 2 - axis)
+        out.append(_block_faces(p, mesh, axis))
+    return tuple(out)

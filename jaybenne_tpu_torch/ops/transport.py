@@ -2,9 +2,10 @@
 ``jaybenne_tpu/ops/transport.py``).
 
 The census loop itself is ``ops/transport_kernel.py``: the CUDA kernel and, on
-CPU tensors, its plain PyTorch version. The JAX package's XLA event loop
-(``_one_event``/``transport``) draws threefry variates in another structure; its
-port waits for the slices that need it (f64, DDMC, SMR; ROADMAP Queue 1, item 7).
+CPU tensors, its plain PyTorch version, for IMC and DDMC alike. The JAX package's
+XLA event loop (``_one_event``/``transport``) draws threefry variates in another
+structure; its port waits for the slices that need it (f64, SMR; ROADMAP Queue 1,
+item 7).
 """
 
 from __future__ import annotations
@@ -19,11 +20,15 @@ from ..config import not_ported
 @dataclasses.dataclass
 class TransportCoefs:
     """Per-cell gray transport coefficients, computed once per step (the fields do
-    not change during transport). Each is f[NC] in block cell order."""
+    not change during transport). The cell ones are f[NC] in block cell order; the
+    DDMC face probabilities are the fields' face arrays, None without DDMC."""
 
     sigma_a: torch.Tensor  # absorption coefficient
     sigma_s: torch.Tensor  # scattering coefficient
     fleck: torch.Tensor    # Fleck factor
+    px: torch.Tensor | None = None  # [B, nz, ny, nx+1] DDMC face probabilities
+    py: torch.Tensor | None = None  # [B, nz, ny+1, nx]
+    pz: torch.Tensor | None = None  # [B, nz+1, ny, nx]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +55,6 @@ def default_eps(dtype):
 
 
 def precompute_coefs(fields, mesh, eos, opacity, scattering, use_ddmc, dtype):
-    if use_ddmc:
-        raise not_ported("DDMC", "Queue 1, item 12")
     if not (opacity.is_gray and scattering.is_gray):
         raise not_ported("frequency-dependent models", "Queue 1, item 14")
     temp = eos.temperature_from_density_internal_energy(fields.rho, fields.sie)
@@ -64,4 +67,6 @@ def precompute_coefs(fields, mesh, eos, opacity, scattering, use_ddmc, dtype):
         sigma_a=cellwise(opacity.absorption_coefficient(fields.rho, temp)),
         sigma_s=cellwise(scattering.total_scattering_coefficient(fields.rho, temp)),
         fleck=fields.fleck.reshape(-1).to(dtype),
+        **({"px": fields.ddmc_px, "py": fields.ddmc_py, "pz": fields.ddmc_pz}
+           if use_ddmc else {}),
     )

@@ -1,11 +1,11 @@
-"""Census transport: gray IMC on a uniform single-level mesh in 1D, 2D or 3D, with
-or without absorption.
+"""Census transport: gray IMC, or hybrid IMC/DDMC, on a uniform single-level mesh
+in 1D, 2D or 3D, with or without absorption.
 
 Port of ``jaybenne_tpu/ops/pallas_transport.py::_transport_kernel`` (K1) in its
-gray IMC configurations on uniform forests (K1(a), K1(b) and the gray part of
-K1(e)), and of ``jaybenne_tpu/ops/pallas_grid.py::_grid_kernel`` (K3) in the same
-configurations: the JAX package runs the second on meshes whose tables do not fit
-VMEM, which here is no limit, so one kernel covers both.
+gray configurations on uniform forests (K1(a), K1(b), K1(c) DDMC and the gray part
+of K1(e)), and of ``jaybenne_tpu/ops/pallas_grid.py::_grid_kernel`` (K3) in the
+same configurations: the JAX package runs the second on meshes whose tables do not
+fit VMEM, which here is no limit, so one kernel covers both.
 
 ``transport`` runs the census for a ledger: the CUDA kernel
 (``csrc/transport_kernel.cu``) for CUDA tensors, its plain version for CPU tensors.
@@ -22,7 +22,10 @@ kernel's int32 total wraps past 2^31).
 A uniform multi-block forest is first collapsed to one synthetic block, as the JAX
 wrapper does (``_uniform_view``): block-local positions and indices shift to global
 ones before the census and back after it, and the per-cell table is laid out in
-global row-major cell order.
+global row-major cell order. With DDMC the table row of a cell also carries its
+faces' probabilities (``_face_pairs``, the JAX ``_face_pair_vectors``), and the
+ledger's ``face`` column (the face-arrival code of the albedo test) is read and
+written.
 
 Configurations the kernel does not take raise ``NotImplementedError`` naming their
 ROADMAP item, on every device: nothing falls back to another loop.
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..config import BC, not_ported
+from ..utils.constants import LAM_EXT
 from . import cuda_lib
 from .kernel_rng import DrawPool, raw_bits_plain
 
@@ -50,15 +54,13 @@ def check_supported(mesh, prm, dtype) -> None:
     configuration."""
     if dtype != torch.float32:
         raise not_ported("precision = f64 (the XLA event loop's port)", "Queue 1, item 7")
-    if prm.use_ddmc:
-        raise not_ported("DDMC in the census kernel", "Queue 2, K1(c)")
     if mesh.max_level > 0:
         raise not_ported("static mesh refinement in the census kernel", "Queue 2, K1(d)")
 
 
-def launch_name(ndim: int, absorb: bool) -> str:
+def launch_name(ndim: int, absorb: bool, ddmc: bool = False) -> str:
     """The ``cuda_lib.LAUNCHES`` key of one kernel instantiation."""
-    return f"transport_{ndim}d" + ("_abs" if absorb else "")
+    return f"transport_{ndim}d" + ("_abs" if absorb else "") + ("_ddmc" if ddmc else "")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +70,7 @@ class _Geom:
 
     ndim: int
     absorb: bool
+    ddmc: bool
     n: tuple        # cells per axis of the collapsed single block
     bc: tuple       # six BC codes (ix1, ox1, ix2, ox2, ix3, ox3)
     dx: tuple
@@ -83,6 +86,14 @@ class _Geom:
     inv_c: np.float32
     cdt: np.float32
     inv_cdt: np.float32
+    # DDMC only
+    tau_ddmc: np.float32
+    eps_imc: np.float32
+    eps_ddmc: np.float32
+    dt: np.float32
+    inv_dt: np.float32   # f32(1) / f32(dt), as the JAX kernel takes it in f32
+    lam2: np.float32     # 2 lambda_ext
+    pf2_num: np.float32  # the albedo probability's numerator 2 (2 / 3)
 
 
 def _geometry(mesh, prm, dt) -> _Geom:
@@ -97,6 +108,7 @@ def _geometry(mesh, prm, dt) -> _Geom:
     return _Geom(
         ndim=prm.ndim,
         absorb=bool(prm.has_absorption),
+        ddmc=bool(prm.use_ddmc),
         n=n,
         bc=tuple(_BC_CODE[v] for v in prm.swarm_bc),
         dx=tuple(f32(v) for v in dx),
@@ -112,6 +124,13 @@ def _geometry(mesh, prm, dt) -> _Geom:
         inv_c=f32(1.0) / c,
         cdt=cdt,
         inv_cdt=f32(1.0) / cdt,
+        tau_ddmc=f32(prm.tau_ddmc),
+        eps_imc=f32(prm.eps_imc),
+        eps_ddmc=f32(prm.eps_ddmc),
+        dt=f32(dt),
+        inv_dt=f32(1.0) / f32(dt),
+        lam2=f32(2.0 * LAM_EXT),
+        pf2_num=f32(2.0 * (2.0 / 3.0)),
     )
 
 
@@ -128,11 +147,27 @@ def to_global_cells(vec, mesh):
     )
 
 
-def _pair_table(coefs, mesh, absorb):
-    """Per-cell f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor in global
-    row-major cell order, from the effective rates ``ea = fleck sigma_a`` and
-    ``es = sigma_s + (1 - fleck) sigma_a``; without absorption ``(0, 1 /
-    sigma_s)``. The JAX kernels hold the same pair packed in bf16."""
+def _face_pairs(coefs, mesh):
+    """Per-cell f32 ``(P_lower, P_upper)`` of each axis, [NC] each in block cell
+    order, from the fields' face arrays: a port of the JAX
+    ``_face_pair_vectors`` without its bf16 packing."""
+    if coefs.px is None:
+        raise ValueError("transport: DDMC needs the face probabilities in the coefficients")
+    nx, ny, nz = mesh.nx, mesh.ny, mesh.nz
+    px = coefs.px.reshape(-1, nz, ny, nx + 1)
+    py = coefs.py.reshape(-1, nz, ny + 1, nx)
+    pz = coefs.pz.reshape(-1, nz + 1, ny, nx)
+    return [v.reshape(-1) for v in (px[..., :nx], px[..., 1:], py[:, :, :ny], py[:, :, 1:],
+                                    pz[:, :nz], pz[:, 1:])]
+
+
+def _pair_table(coefs, mesh, absorb, ddmc):
+    """The kernel's per-cell table in global row-major cell order, from the
+    effective rates ``ea = fleck sigma_a`` and ``es = sigma_s + (1 - fleck)
+    sigma_a`` (without absorption ``ea = 0``, ``es = sigma_s``): without DDMC the
+    f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor, with DDMC the [NC, 8]
+    rows ``(ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi)``. The JAX kernels
+    switch pairs the same way and hold them packed in bf16."""
     f32 = torch.float32
     ss = coefs.sigma_s.to(f32)
     if absorb:
@@ -142,11 +177,14 @@ def _pair_table(coefs, mesh, absorb):
     else:
         ea = torch.zeros_like(ss)
         es = ss
-    inv = 1.0 / (ea + es + _TINY)
-    pair = torch.stack([ea * inv, inv], dim=1)
+    if ddmc:
+        cols = [ea, es, *(v.to(f32) for v in _face_pairs(coefs, mesh))]
+    else:
+        inv = 1.0 / (ea + es + _TINY)
+        cols = [ea * inv, inv]
     if mesh.n_blocks > 1:
-        pair = torch.stack([to_global_cells(pair[:, k], mesh) for k in range(2)], dim=1)
-    return pair.contiguous()
+        cols = [to_global_cells(v, mesh) for v in cols]
+    return torch.stack(cols, dim=1).contiguous()
 
 
 def _block_shifts(mesh):
@@ -186,6 +224,110 @@ def _expand(p, mesh):
     p.block.copy_((bl[2] * nrby + bl[1]) * nrbx + bl[0])
 
 
+def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, idx, vel,
+                fl, fu):
+    """The DDMC event of the lanes ``is_ddmc`` (pallas_transport.py:655-870), drawing
+    after the IMC event's variates. ``k`` holds the f32 scalars of
+    ``_census_plain``, ``pf`` the [NC]-gathered (P_lower, P_upper) per axis.
+    Returns (positions, index shifts, velocities, tau, absorbed): the values of
+    every lane, of which the caller keeps those of ``is_ddmc``."""
+    nd = g.ndim
+    c, zero, one = k["c"], k["zero"], k["one"]
+    dx, inv_dx = k["dx"], k["inv_dx"]
+    ea_dd = zero if ea is None else ea
+    # albedo test on arrival at a face: +code at the lower face, -code at the upper
+    sel = []
+    for a in range(nd):
+        sel += [is_ddmc & (face == a + 1), is_ddmc & (face == -(a + 1))]
+    at_face = is_ddmc & (face != 0)
+    prob = torch.zeros_like(tau)
+    for a in range(nd):
+        pf2 = k["pf2_num"] / (sig_t * dx[a] + k["lam2"])
+        drift = 1.5 * vel[a] * k["inv_c"]
+        prob = torch.where(sel[2 * a], pf2 * (1.0 + drift), prob)
+        prob = torch.where(sel[2 * a + 1], pf2 * (1.0 - drift), prob)
+    rejected = at_face & (pool.u23(it) > prob)
+
+    def hemisphere():
+        """(mu, nu cos phi, nu sin phi) of a cosine-weighted direction; 1D parks the
+        transverse magnitude in the second slot."""
+        amu = torch.sqrt(pool.u16(it))
+        anu = torch.sqrt(torch.clamp_min(1.0 - amu * amu, 0.0))
+        if nd == 1:
+            return amu, anu, zero
+        cph, sph = pool.circle(it)
+        return amu, anu * cph, anu * sph
+
+    def place(lanes, a, lower, offset, h, new_pos, shift, new_vel):
+        """Move ``lanes`` ``offset`` cells beyond a face of axis ``a`` and give them
+        direction ``h`` out through it; (v1, v2, v3) go to the axes (a, a+1, a+2)."""
+        edge = fl[a] - offset * dx[a] if lower else fu[a] + offset * dx[a]
+        new_pos[a] = torch.where(lanes, edge, new_pos[a])
+        shift[a] = torch.where(lanes, -1 if lower else 1, shift[a])
+        vs = (c * (-1.0 if lower else 1.0) * h[0], c * h[1], c * h[2])
+        for q in range(3):
+            new_vel[(a + q) % 3] = torch.where(lanes, vs[q], new_vel[(a + q) % 3])
+
+    rj_pos, rj_shift, rj_vel = list(pos), [torch.zeros_like(i) for i in idx], list(vel)
+    h = hemisphere()
+    for e in range(2 * nd):
+        place(sel[e], e // 2, e % 2 == 0, k["eps_imc"], h, rj_pos, rj_shift, rj_vel)
+
+    # in-cell step: leak rates P_face / dx, event time against census
+    lk = [pf[e] * inv_dx[e // 2] for e in range(2 * nd)]
+    leak_tot = lk[0] + lk[1]
+    for v in lk[2:]:
+        leak_tot = leak_tot + v
+    cdf = ea_dd + leak_tot + _TINY
+    dt_ev = pool.exp23(it) / (c * cdf)
+    dt_rem = k["dt"] * (1.0 - tau)
+    is_event = dt_ev < dt_rem
+    do_step = is_ddmc & ~rejected
+    dd_tau = torch.where(is_event, tau + dt_ev * k["inv_dt"], one)
+    xi = cdf * pool.u23(it)
+    dd_abs = do_step & is_event & (xi < ea_dd)
+    xim = xi - ea_dd
+    cum = zero
+    leak_sel, leak_any = [], torch.zeros_like(is_event)
+    for v in lk:
+        m = do_step & is_event & ~dd_abs & ~leak_any & (xim < cum + v)
+        leak_sel.append(m)
+        leak_any = leak_any | m
+        cum = cum + v
+    # the numerical fall-through takes the last face
+    leak_sel[-1] = leak_sel[-1] | (do_step & is_event & ~dd_abs & ~leak_any)
+
+    dd_pos, dd_shift, dd_vel = list(pos), [torch.zeros_like(i) for i in idx], list(vel)
+    h = hemisphere()
+    centre = [fl[a] + 0.5 * dx[a] for a in range(nd)]
+    for e in range(2 * nd):
+        a = e // 2
+        for t in range(nd):  # transverse coordinates at the cell centre
+            if t != a:
+                dd_pos[t] = torch.where(leak_sel[e], centre[t], dd_pos[t])
+        place(leak_sel[e], a, e % 2 == 0, k["eps_ddmc"], h, dd_pos, dd_shift, dd_vel)
+
+    # census: uniform position in the cell, isotropic direction
+    dd_census = do_step & ~is_event
+    for a in range(nd):
+        dd_pos[a] = torch.where(dd_census, fl[a] + pool.u16(it) * dx[a], dd_pos[a])
+    cmu = 1.0 - 2.0 * pool.u16(it)
+    cst = torch.sqrt(torch.clamp_min(1.0 - cmu * cmu, 0.0))
+    if nd == 1:
+        cv = (c * cmu, c * cst, zero)
+    else:
+        cph, csh = pool.circle(it)
+        cv = (c * cst * cph, c * cst * csh, c * cmu)
+    dd_vel = [torch.where(dd_census, nv, v) for nv, v in zip(cv, dd_vel)]
+
+    # a rejected lane bounces back, with no time advance
+    dd_pos = [torch.where(rejected, r, v) for r, v in zip(rj_pos, dd_pos)]
+    dd_shift = [torch.where(rejected, r, v) for r, v in zip(rj_shift, dd_shift)]
+    dd_vel = [torch.where(rejected, r, v) for r, v in zip(rj_vel, dd_vel)]
+    dd_tau = torch.where(rejected, tau, dd_tau)
+    return dd_pos, dd_shift, dd_vel, dd_tau, dd_abs
+
+
 def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
     """All lanes advance one event per loop step (the JAX kernel's tile loop over
     the whole ledger). Returns (iterations, events) as tensors."""
@@ -205,8 +347,10 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
     dmin, c, inv_c, cdt, inv_cdt = (s(v) for v in (g.dmin, g.c, g.inv_c, g.cdt,
                                                    g.inv_cdt))
     one, zero = s(1.0), s(0.0)
+    k = dict(c=c, inv_c=inv_c, one=one, zero=zero, dx=dx, inv_dx=inv_dx,
+             **{name: s(getattr(g, name)) for name in ("eps_imc", "eps_ddmc", "dt", "inv_dt",
+                                                       "lam2", "pf2_num")})
     lanes = torch.arange(p.capacity, dtype=torch.int64, device=dev)
-    p_abs_t, inv_sigt_t = table[:, 0], table[:, 1]
 
     def raw(it, tag):
         return raw_bits_plain(seed, lanes, it, tag)
@@ -214,7 +358,7 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
     pos = [p.x, p.y, p.z][:nd]
     idx = [p.i, p.j, p.k][:nd]
     vel = [p.vx, p.vy, p.vz]
-    tau, alive, absorbed = p.tau, p.alive, p.absorbed
+    tau, alive, absorbed, face = p.tau, p.alive, p.absorbed, p.face
     events = torch.zeros((), dtype=torch.int64, device=dev)
     it = 0
     while it < max_iters:
@@ -227,7 +371,16 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
             cell = idx[1].long() * g.n[0] + cell
         elif nd == 3:
             cell = (idx[2].long() * g.n[1] + idx[1].long()) * g.n[0] + cell
-        d_coll = pool.exp23(it) * inv_sigt_t[cell]
+        row = table[cell]
+        if g.ddmc:  # rows (ea, es, P_lower, P_upper per axis)
+            ea = row[:, 0] if g.absorb else None
+            sig_t = row[:, 1] if ea is None else ea + row[:, 1]
+            is_ddmc = active & (dmin * sig_t > s(g.tau_ddmc))
+            act_imc = active & ~is_ddmc
+            d_coll = pool.exp23(it) / (sig_t + _TINY)
+        else:  # rows (p_abs, 1 / sigma_t)
+            act_imc = active
+            d_coll = pool.exp23(it) * row[:, 1]
         u_branch = pool.u23(it) if g.absorb else None
         d_end = cdt * (one - tau)
         d_geom = torch.minimum(dmin, d_end)
@@ -243,13 +396,13 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
         d_push = torch.minimum(d_geom, fd[0])
         for a in range(1, nd):
             d_push = torch.minimum(d_push, fd[a])
-        coll = active & (d_coll < d_push)
+        coll = act_imc & (d_coll < d_push)
         if g.absorb:
-            i_abs = coll & (u_branch < p_abs_t[cell])
+            i_abs = coll & ((u_branch * sig_t < ea) if g.ddmc else (u_branch < row[:, 0]))
             i_sc = coll & ~i_abs
         else:
             i_abs, i_sc = None, coll
-        no_coll = active & ~coll
+        no_coll = act_imc & ~coll
         # crossing: the nearest face wins, ties to the lower axis
         cr, taken = [], torch.zeros_like(no_coll)
         for a in range(nd):
@@ -280,6 +433,22 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
         nvel = [torch.where(i_sc, nv, v) for nv, v in zip(new_v, vel)]
         nalive = alive if i_abs is None else alive & ~i_abs
 
+        if g.ddmc:
+            # face-arrival code: +-(axis + 1) after a crossing, else 0
+            nface = torch.zeros_like(face)
+            for a in range(nd):
+                nface = torch.where(cr[a], torch.where(vel[a] > 0, a + 1, -(a + 1)), nface)
+            pf = [row[:, 2 + e] for e in range(2 * nd)]
+            dd_pos, dd_shift, dd_vel, dd_tau, dd_abs = _ddmc_plain(
+                pool, it, g, k, is_ddmc, ea, sig_t, pf, face, tau, pos, idx, vel, fl, fu)
+            npos = [torch.where(is_ddmc, q, v) for q, v in zip(dd_pos, npos)]
+            nidx = [torch.where(is_ddmc, i + sh, v) for i, sh, v in zip(idx, dd_shift, nidx)]
+            nvel = [torch.where(is_ddmc, q, v) for q, v in zip(dd_vel, nvel)]
+            ntau = torch.where(is_ddmc, dd_tau, ntau)
+            nalive = nalive & ~dd_abs
+            i_abs = dd_abs if i_abs is None else i_abs | dd_abs
+            nface = torch.where(is_ddmc, 0, nface)
+
         # domain boundaries: half-finest-cell tolerant hit test, then clip
         out_lo = [nidx[a] < 0 for a in range(nd)]
         out_hi = [nidx[a] >= g.n[a] for a in range(nd)]
@@ -292,6 +461,8 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
                     gp[a] = torch.where(hit, torch.clamp(2.0 * wall - gp[a], lo[a], hi[a]),
                                         gp[a])
                     nvel[a] = torch.where(hit, -nvel[a], nvel[a])
+                    if g.ddmc:
+                        nface = torch.where(hit, -nface, nface)
                 elif bc == _BC_CODE[BC.periodic]:
                     gp[a] = torch.where(hit, torch.clamp(gp[a] + sgn * span[a], lo[a], hi[a]),
                                         gp[a])
@@ -312,6 +483,8 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
         if i_abs is not None:
             absorbed.copy_(absorbed | i_abs)
         alive.copy_(nalive)
+        if g.ddmc:  # an inactive lane keeps its code
+            face.copy_(torch.where(active, nface, face))
         events += active.sum()
         it += 1
     return torch.tensor(it, dtype=torch.int32, device=dev), events
@@ -321,9 +494,10 @@ def _check_cuda_ledger(p, coefs):
     """What the kernel takes, checked before anything touches the ledger."""
     dev = p.x.device
     floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau)
-    ints = (p.i, p.j, p.k, p.block)
+    ints = (p.i, p.j, p.k, p.block, p.face)
     bools = (p.alive, p.absorbed)
-    cells = (coefs.sigma_a, coefs.sigma_s, coefs.fleck)
+    cells = tuple(t for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck, coefs.px, coefs.py,
+                              coefs.pz) if t is not None)
     for t in (*floats, *ints, *bools, *cells):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("transport kernel: ledger tensors must be contiguous on one GPU")
@@ -343,17 +517,20 @@ def _census_cuda(p, table, g: _Geom, seed: int, max_iters: int):
     dev = p.x.device
     events = torch.zeros((), dtype=torch.int64, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
-    cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed)
-    ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in cols))
+    cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
+            p.face)
+    ptrs = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in cols))
     ints = (*g.n, *g.bc, int(max_iters), int(seed))
     floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
-              g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt)
+              g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt, g.tau_ddmc, g.eps_imc, g.eps_ddmc,
+              g.dt, g.inv_dt, g.lam2, g.pf2_num)
     cuda_lib.library().call(
-        "jb_transport_launch", g.ndim, int(g.absorb), ptrs, table.data_ptr(), p.capacity,
-        (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * len(floats))(*map(float, floats)),
+        "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), ptrs, table.data_ptr(),
+        p.capacity, (ctypes.c_int * len(ints))(*ints),
+        (ctypes.c_float * len(floats))(*map(float, floats)),
         events.data_ptr(), iters.data_ptr(), cuda_lib.stream_handle(dev),
     )
-    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb)] += 1
+    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc)] += 1
     return iters, events
 
 
@@ -362,7 +539,7 @@ def _run(census, particles, coefs, mesh, seed, prm, dt):
     if any(t.shape != (mesh.total_cells,) for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck)):
         raise ValueError("transport: one coefficient per mesh cell expected")
     g = _geometry(mesh, prm, dt)
-    table = _pair_table(coefs, mesh, g.absorb)
+    table = _pair_table(coefs, mesh, g.absorb, g.ddmc)
     _collapse(particles, mesh)
     iters, events = census(particles, table, g, int(seed), prm.max_iters)
     _expand(particles, mesh)

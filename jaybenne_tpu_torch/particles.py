@@ -137,3 +137,30 @@ def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float) -> Partic
     p.alive.fill_(True)
     p.weight.fill_(1.0)
     return p
+
+
+def place_on_faces(p: ParticleLedger, mesh, select: torch.Tensor,
+                   generator: torch.Generator) -> ParticleLedger:
+    """Move the ``select``-ed particles of a uniform-mesh ledger onto a face of their
+    cell as an IMC crossing leaves them (IN PLACE): each on its lower or upper face
+    along a random active axis with probability 1/2, flying into the cell, with the
+    face-arrival code +-(axis + 1) that the DDMC albedo test reads. For kernel
+    checks."""
+    dev = p.x.device
+    n = p.capacity
+    axis = torch.randint(0, mesh.ndim, (n,), generator=generator, device=dev)
+    lower = torch.rand(n, generator=generator, device=dev) < 0.5
+    b = mesh.bounds
+    nrb = mesh.root_grid[::-1]
+    nloc = (mesh.nx, mesh.ny, mesh.nz)
+    for a, (pos, idx, vel) in enumerate((("x", "i", "vx"), ("y", "j", "vy"),
+                                        ("z", "k", "vz"))[: mesh.ndim]):
+        m = select & (axis == a)
+        dx = (b[2 * a + 1] - b[2 * a]) / (nloc[a] * nrb[a])
+        cell = getattr(p, idx).to(torch.float32)
+        face = torch.where(lower, cell, cell + 1.0) * dx
+        getattr(p, pos).copy_(torch.where(m, face, getattr(p, pos)))
+        v = getattr(p, vel).abs()
+        getattr(p, vel).copy_(torch.where(m, torch.where(lower, v, -v), getattr(p, vel)))
+        p.face.copy_(torch.where(m, torch.where(lower, a + 1, -(a + 1)), p.face).to(torch.int32))
+    return p

@@ -11,8 +11,10 @@ the state from before them and runs the same steps again under
 the same steps), and sums the trace's device events (kernels, copies, memsets) by
 name. It prints one line per name with its device time per step, the device
 total per step, the median wall time of the unprofiled steps and the device's
-idle share of them, and ``nvidia-smi``'s card name and power limit. ``--trace``
-also writes the Chrome trace. Needs a GPU.
+idle share of them, the census kernel's launches by instantiation
+(``transport_{1,2,3}d[_abs][_ddmc]``, from ``cuda_lib.LAUNCHES``) in the profiled
+steps, and ``nvidia-smi``'s card name and power limit. ``--trace`` also writes the
+Chrome trace. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from . import config as config_mod
 from .driver import Simulation
+from .ops import cuda_lib
 from .utils.deck import Deck
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -72,8 +75,10 @@ def main(argv=None) -> int:
         sim.state = state
         n1 = len(sim.history)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        before = collections.Counter(cuda_lib.LAUNCHES)
         with torch.profiler.profile(activities=acts) as prof:
             sim.run(nlim=args.steps)
+        launches = dict(collections.Counter(cuda_lib.LAUNCHES) - before)
         if [h["events"] for h in sim.history[n1:]] != events:
             raise RuntimeError("profile: the profiled steps differ from the timed ones")
         trace = args.trace or os.path.join(outdir, "trace.json")
@@ -89,6 +94,7 @@ def main(argv=None) -> int:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
         print(f"device_ms_per_step {us / n / 1e3!r} {name[:120]}")
     step_ms = statistics.median(wall) * 1e3
+    print(f"launches in the profiled steps: {launches}")
     print(f"device total {total / 1e3!r} ms per step; unprofiled step wall median "
           f"{step_ms!r} ms over {n}; device idle share {1.0 - total / 1e3 / step_ms!r}")
     return 0

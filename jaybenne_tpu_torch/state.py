@@ -1,9 +1,11 @@
 """Simulation state (port of ``jaybenne_tpu/state.py``).
 
-Cell arrays are ``[n_blocks, nz, ny, nx]`` tensors on the run's device. The JAX
-state's PRNG key becomes the integer ``seed`` that ``ops.rng`` keys every stream
-with, and the scalar counters are host numbers. The DDMC face-probability fields
-(``ddmc_px/py/pz``) arrive with DDMC (ROADMAP Queue 1, item 12).
+Cell arrays are ``[n_blocks, nz, ny, nx]`` tensors on the run's device; the DDMC
+face-probability fields ``ddmc_px/py/pz`` gain one entry along their axis
+(``[B, nz, ny, nx+1]``, ``[B, nz, ny+1, nx]``, ``[B, nz+1, ny, nx]``) and hold
+zeros on inactive axes and in runs without DDMC. The JAX state's PRNG key becomes
+the integer ``seed`` that ``ops.rng`` keys every stream with, and the scalar
+counters are host numbers.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ class Fields:
     energy_delta: torch.Tensor
     source_ew: torch.Tensor
     source_num: torch.Tensor
+    ddmc_px: torch.Tensor  # [B, nz, ny, nx+1]
+    ddmc_py: torch.Tensor  # [B, nz, ny+1, nx]
+    ddmc_pz: torch.Tensor  # [B, nz+1, ny, nx]
 
 
 @dataclasses.dataclass
@@ -38,13 +43,16 @@ class SimState:
 
 
 def empty_fields(n_blocks, nz, ny, nx, dtype=torch.float32, device="cpu") -> Fields:
-    def c():
-        return torch.zeros((n_blocks, nz, ny, nx), dtype=dtype, device=device)
+    def c(shape=(n_blocks, nz, ny, nx)):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     return Fields(
         rho=c(), sie=c(), u=c(),
         energy_tally=c(), fleck=c(), energy_delta=c(),
         source_ew=c(), source_num=c(),
+        ddmc_px=c((n_blocks, nz, ny, nx + 1)),
+        ddmc_py=c((n_blocks, nz, ny + 1, nx)),
+        ddmc_pz=c((n_blocks, nz + 1, ny, nx)),
     )
 
 

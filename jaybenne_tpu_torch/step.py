@@ -1,6 +1,7 @@
 """The radiation step (port of ``jaybenne_tpu/step.py``, single device).
 
-One cycle from t to t + dt: derived fields (Fleck factor), emission sourcing,
+One cycle from t to t + dt: derived fields (the Fleck factor and, with DDMC, the
+face probabilities), emission sourcing,
 census transport, the absorption deposition, the tally, the fluid update, and the
 per-step reset of ``tau`` and ``absorbed``. The external source arrives with
 slice 5 (ROADMAP Queue 1, item 14), and both decompositions with item 17.
@@ -72,6 +73,7 @@ def build_step_core(mesh, cfg: RunConfig):
     jb = cfg.jaybenne
     dtype = jb.dtype
     prm = make_transport_params(cfg, dtype)
+    periodic = cfg.mesh.periodic_flags
     transport_kernel.check_supported(mesh, prm, dtype)
     census = (
         transport_kernel.transport_plain if jb.use_pallas == "off"
@@ -83,6 +85,14 @@ def build_step_core(mesh, cfg: RunConfig):
         f = dataclasses.replace(
             f, fleck=fleck_ops.fleck_factor(f.rho, f.sie, eos, opacity, dt, dtype)
         )
+        if jb.use_ddmc:
+            temp = eos.temperature_from_density_internal_energy(f.rho, f.sie)
+            sig_t = (opacity.absorption_coefficient(f.rho, temp)
+                     + scattering.total_scattering_coefficient(f.rho, temp))
+            sig_t = torch.as_tensor(sig_t, dtype=dtype, device=f.rho.device).expand(
+                f.rho.shape)
+            px, py, pz = fleck_ops.ddmc_face_probs(mesh, sig_t, jb.tau_ddmc, periodic, dtype)
+            f = dataclasses.replace(f, ddmc_px=px, ddmc_py=py, ddmc_pz=pz)
         if jb.do_emission:
             gen = rng.generator(state.seed, state.cycle, rng.PHASE_SOURCE, mesh.device)
             f, p, dropped = sourcing.source_photons(

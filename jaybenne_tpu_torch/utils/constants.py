@@ -24,3 +24,7 @@ HH = 6.62607015e-27
 # Electron rest mass [g] and Thomson cross section [cm^2]
 ME = 9.1093837015e-28
 SIGMA_THOMSON = 6.6524587321e-25
+
+# DDMC extrapolation distance lambda_ext (Habetler & Matkowsky 1975), in mean free
+# paths: the face probabilities and the albedo test use 2 lambda_ext
+LAM_EXT = 0.7104

@@ -19,7 +19,8 @@ from jaybenne_tpu_torch.driver import run_file
 from jaybenne_tpu_torch.mesh import build_mesh
 from jaybenne_tpu_torch.ops import cuda_lib, kernel_rng, transport_kernel
 from jaybenne_tpu_torch.ops.transport import TransportCoefs
-from jaybenne_tpu_torch.particles import empty_ledger
+from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
+from jaybenne_tpu_torch.particles import empty_ledger, place_on_faces, uniform_ledger
 from jaybenne_tpu_torch.step import make_transport_params
 from jaybenne_tpu_torch.utils.deck import Deck
 
@@ -27,6 +28,7 @@ pytestmark = pytest.mark.cuda
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPDIFF = os.path.join(_ROOT, "inputs", "stepdiff.in")
+STEPDIFF_DDMC = os.path.join(_ROOT, "inputs", "stepdiff_ddmc.in")
 C = 2.99792458e10
 # kernel vs plain: the same float32 operations in the same order (the kernel is
 # built without fast math and without FMA contraction)
@@ -294,3 +296,88 @@ def test_main_path_runs_through_kernel(gpu, tmp_path):
     dv = sims[0].mesh.block_volume.double()[:, None, None, None]
     tallied = float((a.double() * dv).sum())
     assert abs(tallied - sourced) <= 1e-5 * sourced  # no absorption, reflecting walls
+
+
+def _hybrid_setup(dev, ndim, absorb, n=30000, seed=5):
+    """DDMC on the meshes of ``_grid_setup`` (1D: 64 cells in 4 blocks): x-slabs of
+    cells alternate thin (sigma_t = 64, IMC) and thick (sigma_t = 1024, DDMC for
+    tau_ddmc = 5), with f sigma_a = 2 in every cell when absorbing; a quarter of
+    the particles sit on a face of their cell with the face-arrival code set."""
+    cells = {1: (64, 1, 1), 2: (32, 16, 1), 3: (16, 16, 16)}[ndim]
+    blocks = {1: (16, 1, 1), 2: (8, 8, 1), 3: (8, 8, 8)}[ndim]
+    mods = {"jaybenne/use_ddmc": "true", "parthenon/swarm/ix3_bc": "outflow",
+            "parthenon/swarm/ox3_bc": "outflow",
+            "mcblock/opacity_model": "constant" if absorb else "none"}
+    for a, k in enumerate("123"):
+        mods[f"parthenon/mesh/nx{k}"] = cells[a]
+        mods[f"parthenon/meshblock/nx{k}"] = blocks[a]
+    cfg = cm.from_deck(Deck.from_file(STEPDIFF).update(mods))
+    mesh = build_mesh(cfg.mesh, device=dev)
+    prm = make_transport_params(cfg, torch.float32)
+    assert mesh.ndim == ndim and mesh.n_blocks > 1 and prm.use_ddmc
+    nrbx = mesh.root_grid[2]
+    gi = (torch.arange(mesh.n_blocks, device=dev) % nrbx)[:, None, None, None] * mesh.nx \
+        + torch.arange(mesh.nx, device=dev)
+    thick = ((gi // 4) % 2 == 1).expand(mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx)
+    sig = torch.where(thick, 1024.0, 64.0)
+    sa = torch.full_like(sig, 2.0 if absorb else 0.0)
+    px, py, pz = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags,
+                                 torch.float32)
+    coefs = TransportCoefs(sigma_a=sa.reshape(-1), sigma_s=(sig - sa).reshape(-1),
+                           fleck=torch.ones(mesh.total_cells, device=dev), px=px, py=py, pz=pz)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = uniform_ledger(mesh, n, g, C)
+    place_on_faces(p, mesh, torch.rand(n, generator=g, device=dev) < 0.25, g)
+    return cfg.jaybenne.dt, mesh, prm, p, coefs
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("max_iters", [8, None])
+def test_ddmc_kernel_matches_plain(gpu, ndim, absorb, max_iters):
+    dt, mesh, prm, p0, coefs = _hybrid_setup(gpu, ndim, absorb)
+    if max_iters is not None:
+        prm = dataclasses.replace(prm, max_iters=max_iters)
+    name = transport_kernel.launch_name(ndim, absorb, True)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, -99, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, -99, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    assert not bool((k.alive & k.absorbed).any())
+    if max_iters is None:  # full census: statistics
+        assert not bool((k.tau[k.alive] < 1.0).any())
+        assert abs(int(ev_k) - int(ev_q)) <= EVENTS_RTOL * int(ev_q)
+        n = int(p0.alive.sum())
+        for ka, qa in ((int(k.absorbed.sum()), int(q.absorbed.sum())),
+                       (int(k.alive.sum()), int(q.alive.sum()))):
+            pbar = 0.5 * (ka + qa) / n
+            assert abs(ka - qa) <= 4.0 * np.sqrt(2.0 * n * pbar * (1.0 - pbar)) + 1
+        return
+    for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
+        assert torch.equal(getattr(k, name), getattr(q, name)), name
+    for name in ("x", "y", "z", "vx", "vy", "vz", "tau"):
+        torch.testing.assert_close(getattr(k, name), getattr(q, name), rtol=FLOAT_RTOL,
+                                   atol=1e-7 if name in ("x", "y", "z", "tau") else 1e-6 * C)
+    assert int(ev_k) == int(ev_q) and int(it_k) == int(it_q) == max_iters
+
+
+def test_ddmc_main_path_runs_through_kernel(gpu, tmp_path):
+    """stepdiff_ddmc at 64 cells and 20000 particles, 3 steps: one launch of the 1D
+    DDMC kernel per step, the radiation energy conserved, and a rerun with the same
+    seed bitwise identical."""
+    mods = {"parthenon/mesh/nx1": 64, "parthenon/meshblock/nx1": 32,
+            "jaybenne/num_particles": 20000, "parthenon/output0/file_type": "none"}
+    name = transport_kernel.launch_name(1, False, True)
+    sims = []
+    for _ in range(2):
+        before = cuda_lib.LAUNCHES[name]
+        sims.append(run_file(STEPDIFF_DDMC, outdir=str(tmp_path), modified_inputs=mods,
+                             quiet=True, nlim=3, device="cuda"))
+        assert cuda_lib.LAUNCHES[name] == before + 3
+    a, b = (s.state.fields.energy_tally for s in sims)
+    assert a.is_cuda and torch.equal(a, b)
+    f = sims[0].state.fields
+    sourced = float((f.source_num.double() * f.source_ew.double()).sum())
+    dv = sims[0].mesh.block_volume.double()[:, None, None, None]
+    assert abs(float((a.double() * dv).sum()) - sourced) <= 1e-5 * sourced
+    assert all(h["unfinished"] == 0 for h in sims[0].history)

@@ -160,9 +160,12 @@ def test_fleck_and_coefs_match_jax(deck, opacity):
         ({"mcblock/eos_model": "power_law_cv"}, "item 14"),
         ({"mcblock/opacity_model": "ep_bremss"}, "item 14"),
         ({"mcblock/scattering_model": "thomson"}, "item 14"),
-        ({"jaybenne/use_ddmc": "true"}, "K1(c)"),
-        ({"jaybenne/use_ddmc": "true", "mcblock/opacity_model": "constant",
-          "mcblock/opacity_constant_value": 1.0, "jaybenne/do_emission": "true"}, "K1(c)"),
+        ({"jaybenne/use_ddmc": "true", "parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
+          "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+          "parthenon/mesh/refinement": "static", "parthenon/static_refinement0/level": 1,
+          "parthenon/static_refinement0/x1min": -0.1,
+          "parthenon/static_refinement0/x1max": 0.1}, "K1(d)"),
+        ({"jaybenne/use_ddmc": "true", "jaybenne/precision": "f64"}, "item 7"),
         ({"jaybenne/external_source": 1.0e10}, "item 14"),
         ({"jaybenne/precision": "f64"}, "item 7"),
         ({"jaybenne/n_devices": 2}, "item 17"),
