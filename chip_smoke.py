@@ -4,9 +4,10 @@
 Run from the repository root on a machine with one NVIDIA H100 (``python3
 chip_smoke.py``, no arguments). It builds the port's CUDA kernels from ``csrc/``,
 holds each against its plain PyTorch version, drives the port's paths through
-``driver.run_file`` on the GPU (the stepdiff gate; the inf equilibrium gate; a 2D
-and the 64^3 matter-coupled feedback configurations), and checks each result by
-the repository's own gates. Every phase raises on failure; the last line of
+``driver.run_file`` on the GPU (the stepdiff gates with IMC and DDMC; the inf and
+inf_stiff equilibrium gates; a 2D and the 64^3 matter-coupled feedback
+configurations; the 64^3 DDMC mesh; the refined-mesh decks up to the 128x64
+hybrid forest), and checks each result by the repository's own gates. Every phase raises on failure; the last line of
 standard output is the JSON result, printed only when every phase passed. It exits
 non-zero without a GPU. Nothing here imports jax.
 
@@ -68,10 +69,31 @@ Phases:
      (tst/regression_test.py::profile_comparison), the solution scaled by the
      share of a T^4 that the thermal source put in (0.76 at 0.76 particles a
      cell), sum(tally dV) conserved to 1e-5, every census complete, a bitwise
-     rerun.
+     rerun; then the 2D and the absorbing 2D/3D DDMC instantiations, which no path
+     runs, timed on phase 11's ledger;
+ 15. K1(d): all twelve SMR instantiations against their plain versions on a
+     level-1 forest per dimension (2^17 particles; x-slabs of four coarse cells
+     alternate thin and thick, so that IMC crossings change level both ways and
+     coarse-to-fine DDMC leaks resample onto fine subfaces): after 8 iterations
+     integers, blocks, alive, absorbed and face identical and floats within
+     FLOAT_RTOL; after a full census events within 2 % and absorbed counts within
+     4 binomial sd; the resamples of the first event counted (> 0 in 2D/3D DDMC);
+ 16-21. SMR decks through ``driver.run_file``, 10 steps each, every one with one
+     launch a step of its SMR instantiation, every census complete short of the
+     iteration cap, sum(tally dV) conserved to 1e-5 and a bitwise rerun, its lane
+     split (IMC/DDMC blocks) printed: 16 stepdiff_smr (tst/stepdiff_smr.py's 64x32
+     cells in 16^2 blocks, 100k particles; per-cell werr <= 0.3); 17 the same with
+     stepdiff_smr_ddmc.in (<= 0.3); 18 the hybrid gate (bench.py:395-439: tau_ddmc
+     = 10; <= 0.3, events within 5 % of the JAX package's 848178320); 19
+     stepdiff_smr2 (levels 0/1/2): the x-profile <= 0.1 with IMC and with DDMC at
+     tau_ddmc = 2.5, then per-cell werr <= 0.3 at 400k particles; 20 stepdiff_3d
+     (32x16x16 in 8^3 blocks, 500k particles, DDMC; <= 0.3); 21 full width:
+     stepdiff_smr_hybrid.in at its own 128x64 cells in 32^2 blocks, x-profile
+     <= 0.1, per-cell werr printed, events within 5 % of the JAX package's
+     951619492.
 
-For phases 12-14 the kernel and its plain version are timed on the inputs of the
-path's last census, recorded as the path ran.
+For phases 12-14, 16, 20 and 21 the kernel and its plain version are timed on the
+inputs of the path's last census, recorded as the path ran.
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -193,7 +215,45 @@ BIG_DDMC = {  # bench.py's big_mesh row (bench.py:265-279) with DDMC
     "jaybenne/use_ddmc": "true",
     "parthenon/output0/file_type": "none",
 }
-BIG_DDMC_STEPS = 10
+# SMR (phases 15-21): the gate decks of tst/ and bench.py on refined forests
+SMR_DECK = os.path.join(ROOT, "inputs", "stepdiff_smr.in")
+SMR_DDMC_DECK = os.path.join(ROOT, "inputs", "stepdiff_smr_ddmc.in")
+SMR2_DECK = os.path.join(ROOT, "inputs", "stepdiff_smr2.in")
+HYBRID_DECK = os.path.join(ROOT, "inputs", "stepdiff_smr_hybrid.in")
+SMR3D_DECK = os.path.join(ROOT, "inputs", "stepdiff_3d_smr_ddmc.in")
+SMR_GATE = {  # tst/stepdiff_smr.py's mesh overrides (and tst/stepdiff_smr2.py's)
+    "parthenon/mesh/nx1": 64, "parthenon/mesh/nx2": 32,
+    "parthenon/meshblock/nx1": 16, "parthenon/meshblock/nx2": 16,
+    "parthenon/output0/file_type": "none",
+}
+SMR_TOL = 0.3  # tst/stepdiff_smr.py, tst/stepdiff_3d.py
+PATH_STEPS = 10  # phases 12, 14 and 16-21
+HYBRID_GATE = {**SMR_GATE, "jaybenne/tau_ddmc": 10.0,  # bench.py:402-439
+               "jaybenne/num_particles": 100000}
+# the JAX package's 10-step event totals (a count of the physics): the hybrid
+# gate (BENCH_r05.json, hybrid.events_total) and the native 128x64 hybrid deck
+# (tst/logs/r5_hybrid.json)
+HYBRID_JAX_EVENTS = 848178320
+NATIVE_HYBRID_JAX_EVENTS = 951619492
+SMR_EVENTS_RTOL = 0.05
+SMR2_DDMC = {**SMR_GATE, "jaybenne/use_ddmc": "true",  # tst/launch_ci_runner.py:43-45
+             "jaybenne/tau_ddmc": 2.5}
+SMR2_PER_CELL = {**SMR_GATE, "jaybenne/num_particles": 400000}  # :49-50
+SMR3D = {"jaybenne/num_particles": 500000,  # tst/stepdiff_3d.py
+         "parthenon/output0/file_type": "none"}
+NATIVE_HYBRID = {"parthenon/output0/file_type": "none"}
+# phase 15: a level-1 forest per dimension, x-slabs of four coarse cells
+# alternating thin and thick sigma_t by cell centre (HYBRID_SIGMA: IMC and DDMC on
+# both levels in 2D/3D)
+SMR_FORESTS = {
+    1: (DECK, {"parthenon/mesh/nx1": 128, "parthenon/meshblock/nx1": 16,
+               "parthenon/mesh/refinement": "static",
+               "parthenon/static_refinement1/level": 1,
+               "parthenon/static_refinement1/x1min": -0.25,
+               "parthenon/static_refinement1/x1max": 0.25}),
+    2: (SMR_DECK, dict(SMR_GATE)),
+    3: (SMR3D_DECK, {}),
+}
 PROFILE_TOL = 0.1  # tst/stepdiff_smr2.py's tolerance for the x-profile gate
 PROFILE_BINS = 64
 # the step-diffusion solution of tst/stepdiff_common.py, copied: diffusion time
@@ -254,11 +314,14 @@ def erf_profile(t, x):
 
 def weighted_erf_error(sim) -> float:
     """Weighted-mean fractional error of the tally against the erf solution, as
-    tst/regression_test.py::analytic_comparison computes it."""
+    tst/regression_test.py::analytic_comparison computes it, with bench.py's guard
+    (:426-432): a cell where the solution and the tally are both 0 (far into the
+    cold side of a refined far field) adds 0, not 0/0."""
     var = sim.state.fields.energy_tally.double().cpu().numpy()
     xc = sim.mesh.cell_centers()[0].double().cpu().numpy()
     sol = erf_profile(sim.t, xc)
-    frac = np.fabs(sol - var) / np.fabs((sol + var) / 2.0)
+    den = np.fabs((sol + var) / 2.0)
+    frac = np.where(den > 0.0, np.fabs(sol - var) / np.where(den > 0.0, den, 1.0), 0.0)
     return float((frac * sol).sum() / sol.sum())
 
 
@@ -376,20 +439,50 @@ def ops_per_ddmc_event(ndim, absorb, cost) -> int:
     return n + cost["logf"] + cost["div"] + 2 * cost["hash"]
 
 
-def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False):
+def ops_smr_per_event(ndim, ddmc, cost) -> int:
+    """Operations SMR adds to every event (csrc/transport_kernel.cu): the block
+    record's address (2), dmin over the active axes (ndim - 1) and the block term
+    of the cell index (2); with DDMC one IEEE divide per axis for 1 / dx."""
+    return 2 + (ndim - 1) + 2 + (ndim * cost["div"] if ddmc else 0)
+
+
+def ops_per_crossing(ndim, cost) -> int:
+    """Operations of one re-homing by the lookup grid (``rehome``): per axis the
+    probe's sign (3), its nudge (compare, select, two multiplies, add: 5), the tile
+    bin (subtract, floor, convert, clamp: 5) and the rebase into the new block
+    (subtract, floor, convert, clamp: 5), the bin and the rebase each with an IEEE
+    divide; the tile index (2 per axis past the first) and three loads. The
+    subface resample is left out."""
+    return ndim * (18 + 2 * cost["div"]) + 2 * (ndim - 1) + 3
+
+
+def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False, smr=None):
     """(bound_ms, bound_by) of one census: the larger of its operations over the
     card's float32 peak and of its bytes over the memory rate. Bytes: each live
     particle's state read once and written once (position and cell index on the
     active axes, velocity, tau, alive, absorbed written when absorbing, and the
     face code with DDMC), one alive byte of each other slot, the cell table read
-    once (8 bytes a cell, 32 with DDMC). With DDMC every event is counted as a
-    DDMC event: the paths that run it have every cell on the DDMC branch."""
+    once (8 bytes a cell, 32 with DDMC). With DDMC every event is counted at the
+    cheaper of the IMC and the DDMC event, so the bound stays a lower bound where
+    both branches run. ``smr`` is (mesh, block crossings) on a refined forest: the
+    block column is read and written, the block table (32 bytes a block), the
+    levels and the lookup grid read once, every event pays ``ops_smr_per_event``
+    and every crossing ``ops_per_crossing``."""
     live = int(p.alive.sum())
     per_particle = 2 * (4 * ndim + 12 + 4 + 4 * ndim + 1) + (1 if absorb else 0)
     per_particle += 8 if ddmc else 0
     nbytes = live * per_particle + (p.capacity - live) + (32 if ddmc else 8) * n_cells
-    per_event = (ops_per_ddmc_event if ddmc else ops_per_event)(ndim, absorb, cost)
-    t_ops = events * per_event / PEAK_F32_OPS
+    per_event = ops_per_event(ndim, absorb, cost)
+    if ddmc:
+        per_event = min(per_event, ops_per_ddmc_event(ndim, absorb, cost))
+    n_ops = events * per_event
+    if smr is not None:
+        mesh, crossings = smr
+        nt = mesh.tile_shape
+        nbytes += 8 * live + 36 * mesh.n_blocks + 4 * nt[0] * nt[1] * nt[2]
+        n_ops += events * ops_smr_per_event(ndim, ddmc, cost)
+        n_ops += crossings * ops_per_crossing(ndim, cost)
+    t_ops = n_ops / PEAK_F32_OPS
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -594,34 +687,28 @@ def ddmc_outcomes(p0, p1, mesh, gi, absorb):
     return {k: int(v.sum()) for k, v in counts.items()}
 
 
-def compare_hybrid(transport_kernel, dev, ndim, absorb, ddmc, seed):
-    """Phase 11 on one instantiation: the kernel against its plain version on the
-    hybrid ledger. Returns the 8-iteration max_abs_err."""
+def kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed, seen=""):
+    """One instantiation against its plain version on the ledger ``p0``: after 8
+    iterations integer state, blocks, alive, absorbed and face codes identical and
+    floats within FLOAT_RTOL; after a full census of the last 10 % of a step every
+    live slot at census, events within EVENTS_RTOL and absorbed counts within
+    N_SIGMA_BINOMIAL sd. Prints one line (``seen`` appended). Returns (8-iteration
+    max_abs_err, slots the kernel absorbed in the full census)."""
     names = ("x", "y", "z", "vx", "vy", "vz", "tau")
-    dt, mesh, prm, p0, coefs, gi = hybrid_setup(dev, ndim, absorb, ddmc, seed)
-    what = transport_kernel.launch_name(ndim, absorb, ddmc)
-    seen = ""
-    if ddmc:
-        p1 = transport_kernel.transport(p0.clone(), coefs, mesh, seed,
-                                        dataclasses.replace(prm, max_iters=1), dt)[0]
-        counts = ddmc_outcomes(p0, p1, mesh, gi, absorb)
-        if min(counts.values()) == 0:
-            raise AssertionError(f"{what}: a DDMC outcome did not occur: {counts}")
-        seen = f"; first event {counts}"
     prm8 = dataclasses.replace(prm, max_iters=8)
     pk, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, seed, prm8, dt)
     pp, it_p, ev_p = transport_kernel.transport_plain(p0.clone(), coefs, mesh, seed, prm8, dt)
     torch.cuda.synchronize()
     for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
         if not torch.equal(getattr(pk, name), getattr(pp, name)):
-            raise AssertionError(f"{what}, 8 iterations: {name} differs")
+            bad = int((getattr(pk, name) != getattr(pp, name)).sum())
+            raise AssertionError(f"{what}, 8 iterations: {name} differs in {bad} slots")
     if int(ev_k) != int(ev_p) or int(it_k) != int(it_p):
         raise AssertionError(f"{what}, 8 iterations: stats {ev_k} {ev_p}")
     err8, rel8 = max_float_err(pk, pp, names, FLOAT_FLOOR)
     if rel8 > FLOAT_RTOL:
         raise AssertionError(f"{what}, 8 iterations: float rel err {rel8}")
     ev8 = int(ev_k)
-    # the full census starts in the last 10 % of the step
     pf = p0.clone()
     pf.tau.copy_(0.9 + 0.1 * torch.rand(pf.capacity, device=dev,
                                         generator=torch.Generator(dev).manual_seed(seed)))
@@ -635,13 +722,235 @@ def compare_hybrid(transport_kernel, dev, ndim, absorb, ddmc, seed):
         raise AssertionError(f"{what} census: events {ev_k} vs {ev_p}")
     ka, kp = int(pk.absorbed.sum()), int(pp.absorbed.sum())
     binomial_gate(ka, kp, p0.capacity, f"{what} census")
+    same = all(torch.equal(getattr(pk, n), getattr(pp, n)) for n in ("x", "i", "block"))
+    print(f"{what}: 8 iterations: identical integers, blocks and face codes, {ev8} events, "
+          f"max_abs_err {err8:.3e} max_rel_err {rel8:.3e}; full census events kernel "
+          f"{ev_k} plain {ev_p}, absorbed {ka} / {kp}, bitwise equal: {same}{seen}",
+          flush=True)
+    return err8, ka
+
+
+def compare_hybrid(transport_kernel, dev, ndim, absorb, ddmc, seed):
+    """Phase 11 on one instantiation: the kernel against its plain version on the
+    hybrid ledger. Returns the 8-iteration max_abs_err."""
+    dt, mesh, prm, p0, coefs, gi = hybrid_setup(dev, ndim, absorb, ddmc, seed)
+    what = transport_kernel.launch_name(ndim, absorb, ddmc)
+    seen = ""
+    if ddmc:
+        p1 = transport_kernel.transport(p0.clone(), coefs, mesh, seed,
+                                        dataclasses.replace(prm, max_iters=1), dt)[0]
+        counts = ddmc_outcomes(p0, p1, mesh, gi, absorb)
+        if min(counts.values()) == 0:
+            raise AssertionError(f"{what}: a DDMC outcome did not occur: {counts}")
+        seen = f"; first event {counts}"
+    err8, ka = kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed,
+                               seen)
     if absorb and not ka > 0.01 * p0.capacity:
         raise AssertionError(f"{what} census: {ka} absorbed of {p0.capacity}")
-    print(f"{what}: 8 iterations: identical integers and face codes, {ev8} events, "
-          f"max_abs_err {err8:.3e} max_rel_err {rel8:.3e}; full census events kernel "
-          f"{ev_k} plain {ev_p}, absorbed {ka} / {kp}, bitwise equal: "
-          f"{torch.equal(pk.x, pp.x) and torch.equal(pk.i, pp.i)}{seen}", flush=True)
     return err8
+
+
+def hybrid_census_timing(transport_kernel, dev, ndim, absorb, seed, cost):
+    """The DDMC kernel and its plain version timed on phase 11's full-census ledger
+    (the last 10 % of a step): (ms, plain_ms, events, bound_ms, bound_by)."""
+    dt, mesh, prm, p0, coefs, _ = hybrid_setup(dev, ndim, absorb, True, seed)
+    p0.tau.copy_(0.9 + 0.1 * torch.rand(p0.capacity, device=dev,
+                                        generator=torch.Generator(dev).manual_seed(seed)))
+    ms, plain_ms, ev, _ = census_compare(transport_kernel, dev, p0,
+                                         (coefs, mesh, seed, prm, dt))
+    bound, by = census_bound(p0, ndim, absorb, mesh.total_cells, ev, cost, ddmc=True)
+    return ms, plain_ms, ev, bound, by
+
+
+def smr_setup(dev, ndim, absorb, ddmc, seed):
+    """Phase 15's configuration on the level-1 forest of ``ndim``: x-slabs of four
+    coarse cells alternate thin (IMC) and thick (DDMC) sigma_t by cell centre,
+    with 2^17 particles uniform over the forest's cells, a quarter of them on a
+    face of their cell with the face-arrival code set. Returns (dt, mesh, prm,
+    ledger, coefs, thick [NC])."""
+    from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.particles import forest_ledger, place_on_faces
+    from jaybenne_tpu_torch.utils.constants import CC
+
+    deck, base = SMR_FORESTS[ndim]
+    mods = {**base, "jaybenne/use_ddmc": "true" if ddmc else "false",
+            "jaybenne/tau_ddmc": 5.0, "mcblock/opacity_model": "constant" if absorb else "none",
+            "parthenon/output0/file_type": "none"}
+    cfg, mesh, prm, _ = deck_setup(dev, deck, mods, 0.0, 0.0)
+    if mesh.ndim != ndim or mesh.max_level != 1 or prm.has_absorption != absorb:
+        raise AssertionError(f"phase 15 setup: ndim {mesh.ndim}, max_level {mesh.max_level}")
+    xc = mesh.cell_centers()[0]
+    width = 4.0 * float(mesh.block_dx[:, 0].max())
+    thick = torch.floor((xc - mesh.bounds[0]) / width).long() % 2 == 1
+    thin_sig, thick_sig = HYBRID_SIGMA
+    sig = torch.where(thick, thick_sig, thin_sig)
+    sa = torch.full_like(sig, HYBRID_SIGMA_A if absorb else 0.0)
+    faces = {}
+    if ddmc:
+        faces = dict(zip(("px", "py", "pz"), ddmc_face_probs(
+            mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags, torch.float32)))
+    coefs = TransportCoefs(sigma_a=sa.reshape(-1), sigma_s=(sig - sa).reshape(-1),
+                           fleck=torch.ones(mesh.total_cells, device=dev), **faces)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p0 = forest_ledger(mesh, HYBRID_N, g, CC)
+    place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=dev) < 0.25, g)
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
+    return cfg.jaybenne.dt, mesh, prm, p0, coefs, thick.reshape(-1)
+
+
+def smr_outcomes(p0, p1, mesh, thick):
+    """What one event did across blocks, from the ledger before and after it:
+    level-up and level-down block transitions, and DDMC leaks from a thick cell
+    into a finer block (each one a subface resample: off-face, tau advanced short
+    of census)."""
+    lvl = mesh.block_level
+    live = p0.alive & p1.alive
+    moved = live & (p1.block != p0.block)
+    l0, l1 = lvl[p0.block.long()], lvl[p1.block.long()]
+    cell0 = mesh.flat_cell(p0.block.long(), p0.k.long(), p0.j.long(), p0.i.long())
+    up = moved & (l1 > l0)
+    resample = up & thick[cell0] & (p1.face == 0) & (p1.tau > p0.tau) & (p1.tau < 1.0)
+    return {"level up": int(up.sum()), "level down": int((moved & (l1 < l0)).sum()),
+            "resamples": int(resample.sum())}
+
+
+def compare_smr(transport_kernel, dev, ndim, absorb, ddmc, seed):
+    """Phase 15 on one SMR instantiation: the kernel against its plain version on
+    the forest's hybrid ledger. Returns (8-iteration max_abs_err, subface
+    resamples in the first event)."""
+    dt, mesh, prm, p0, coefs, thick = smr_setup(dev, ndim, absorb, ddmc, seed)
+    what = transport_kernel.launch_name(ndim, absorb, ddmc, True)
+    p1 = transport_kernel.transport(p0.clone(), coefs, mesh, seed,
+                                    dataclasses.replace(prm, max_iters=1), dt)[0]
+    seen = smr_outcomes(p0, p1, mesh, thick)
+    if seen["level up"] == 0 or seen["level down"] == 0:
+        raise AssertionError(f"{what}: no block transition of a level: {seen}")
+    if not (ddmc and ndim >= 2):  # only a 2D/3D DDMC leak is resampled
+        seen.pop("resamples")
+    elif seen["resamples"] == 0:
+        raise AssertionError(f"{what}: no subface resample: {seen}")
+    err8, _ = kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed,
+                              f"; {mesh.n_blocks} blocks, {mesh.total_cells} cells; "
+                              f"first event {seen}")
+    return err8, seen.get("resamples", 0)
+
+
+def block_crossings(transport_kernel, p0, args, events, iters=8):
+    """Block crossings of a census, estimated from its first ``iters`` events
+    (one-iteration kernel calls on a copy): the share of events that changed a
+    particle's block, times the census's ``events``. A re-homing that ends in
+    the same block (a reflection at a domain wall) is left out."""
+    coefs, mesh, seed, prm, dt = args
+    p = p0.clone()
+    one = dataclasses.replace(prm, max_iters=1)
+    moved = active = 0
+    for k in range(iters):
+        before = p.block.clone()
+        live = p.alive & (p.tau < 1.0)
+        p = transport_kernel.transport(p, coefs, mesh, seed + k, one, dt)[0]
+        active += int(live.sum())
+        moved += int((live & (p.block != before)).sum())
+    return int(round(events * moved / max(active, 1)))
+
+
+def lane_split(sim) -> dict:
+    """Blocks on each branch, as tst/ddmc_bench.py:84-96 reports them: a block is
+    on DDMC when its smallest cell size times sigma exceeds tau_ddmc."""
+    mesh, cfg = sim.mesh, sim.cfg
+    dmin = mesh.block_dx[:, : mesh.ndim].min(dim=1).values.double()
+    tau = dmin * float(cfg.mcblock.scattering_constant_value)
+    ddmc = int((tau > cfg.jaybenne.tau_ddmc).sum()) if cfg.jaybenne.use_ddmc else 0
+    return {"ddmc_blocks": ddmc, "imc_blocks": mesh.n_blocks - ddmc}
+
+
+def run_path(deck, mods, launch):
+    """A deck through ``driver.run_file`` on the GPU for PATH_STEPS steps: the
+    radiation energy before the first step; the run, with the launch counts set
+    to 0 just before it and read just after; its peak device memory; the inputs
+    of its last census; a rerun with the same seed. Raises unless ``launch`` ran
+    once a step, every census completed short of the iteration cap, nothing was
+    dropped, sum(tally dV) was conserved and the rerun is bitwise identical.
+    Returns (sim, launches, (ledger, args) of the last census, the radiation
+    energy before the first step)."""
+    from jaybenne_tpu_torch.driver import run_file
+    from jaybenne_tpu_torch.ops import cuda_lib, transport_kernel
+
+    with tempfile.TemporaryDirectory() as outdir:
+        sim0 = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=0,
+                        device="cuda")
+        e0 = radiation_energy(sim0)
+        del sim0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with CensusRecorder(transport_kernel, PATH_STEPS) as rec:
+            cuda_lib.LAUNCHES.clear()
+            sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
+                           nlim=PATH_STEPS, device="cuda")
+            launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        again = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
+                         nlim=PATH_STEPS, device="cuda")
+    what = os.path.basename(deck)
+    if launches.get(launch, 0) != PATH_STEPS or sim.cycle != PATH_STEPS:
+        raise AssertionError(f"{what}: launches {launches}, cycles {sim.cycle}")
+    max_iters = sim.cfg.jaybenne.max_transport_iterations
+    if any(h["dropped"] or h["unfinished"] or h["iterations"] >= max_iters
+           for h in sim.history):
+        raise AssertionError(f"{what}: dropped, unfinished or capped: {sim.history}")
+    tally = sim.state.fields.energy_tally
+    if not bool(torch.isfinite(tally).all()):
+        raise AssertionError(f"{what}: tally not finite")
+    e1 = radiation_energy(sim)
+    if abs(e1 - e0) > ENERGY_RTOL * e0:
+        raise AssertionError(f"{what}: energy {e0} -> {e1}")
+    if not torch.equal(again.state.fields.energy_tally, tally):
+        raise AssertionError(f"{what}: a rerun with the same seed differs")
+    step_s = [h["step_seconds"] for h in sim.history]
+    print(f"{what} {sim.mesh.n_blocks} blocks (levels "
+          f"{sorted(set(sim.mesh.block_level.tolist()))}), {sim.mesh.total_cells} cells, "
+          f"lane split {lane_split(sim)}: {launches.get(launch, 0)} launches of {launch}, "
+          f"events {sim.total_events}, energy rel {abs(e1 - e0) / e0:.3e}, iterations "
+          f"{[h['iterations'] for h in sim.history]}, rerun bitwise identical", flush=True)
+    print(f"{what}: step seconds {step_s}; median {statistics.median(step_s) * 1e3!r} ms; "
+          f"{sim.total_events / sum(step_s)!r} events/s; peak device memory {peak} bytes",
+          flush=True)
+    return sim, launches, rec.inputs, e0
+
+
+def gate(value, tol, what):
+    """Raises unless ``value`` is finite and within ``tol``; prints it."""
+    if not np.isfinite(value) or value > tol:
+        raise AssertionError(f"{what}: {value} > {tol}")
+    print(f"{what}: {value!r} (tol {tol})", flush=True)
+    return value
+
+
+def events_gate(events, want, what):
+    """Raises unless ``events`` is within SMR_EVENTS_RTOL of the JAX package's."""
+    if abs(events - want) > SMR_EVENTS_RTOL * want:
+        raise AssertionError(f"{what}: events {events} vs the JAX package's {want}")
+    print(f"{what}: events {events} (JAX package {want}, {events / want - 1.0:+.4f})",
+          flush=True)
+
+
+def path_kernel(transport_kernel, dev, sim, inputs, name, cost):
+    """The kernel ``name`` and its plain version on the inputs of a path's last
+    census, with its bound (on a refined forest with the block crossings of
+    ``block_crossings``): (ms, plain_ms, events, 8-iteration max_abs_err,
+    bound_ms, bound_by)."""
+    p, args = inputs
+    ms, plain_ms, ev, err = census_compare(transport_kernel, dev, p, args)
+    prm, mesh = args[3], sim.mesh
+    smr = (mesh, block_crossings(transport_kernel, p, args, ev)) if mesh.max_level > 0 else None
+    bound, by = census_bound(p, prm.ndim, bool(prm.has_absorption), mesh.total_cells, ev,
+                             cost, ddmc=bool(prm.use_ddmc), smr=smr)
+    print(f"{name} on the last census's inputs ({p.capacity} slots, {int(p.alive.sum())} "
+          f"live): kernel {ms!r} ms, plain {plain_ms!r} ms, {ev} events"
+          + (f", ~{smr[1]} block crossings" if smr else "")
+          + f"; bound {bound!r} ms ({by}), kernel at {bound / ms:.3f} of it; "
+          f"8-iteration max_abs_err {err:.3e}", flush=True)
+    return ms, plain_ms, ev, err, bound, by
 
 
 class CensusRecorder:
@@ -686,6 +995,81 @@ def profile_error(sim, nbins=PROFILE_BINS, scale=1.0) -> float:
     both = (sol + prof) > 0.0
     frac = np.fabs(sol - prof) / np.where(both, np.fabs((sol + prof) / 2.0), 1.0)
     return float((frac * sol).sum() / sol.sum())
+
+
+def smr_phases(transport_kernel, dev, cost, src) -> list:
+    """Phases 15-21 (static mesh refinement). Returns the entries of the
+    ``kernels`` line for the SMR instantiations that the paths run."""
+    phase("15 K1(d): all twelve SMR instantiations vs plain on level-1 forests, 2^17 particles")
+    smr_err, resamples = {}, 0
+    for ndim, seed in ((1, 1501), (2, 1502), (3, 1503)):
+        for absorb in (False, True):
+            for ddmc in (False, True):
+                name = transport_kernel.launch_name(ndim, absorb, ddmc, True)
+                smr_err[name], n_res = compare_smr(transport_kernel, dev, ndim, absorb, ddmc,
+                                                   seed + 10 * absorb)
+                resamples += n_res
+    print(f"coarse-to-fine subface resamples in the first events: {resamples}", flush=True)
+
+    phase("16 SMR main path: stepdiff_smr, 64x32 cells in 16^2 blocks, 100k particles, "
+          "10 steps")
+    name_s2 = transport_kernel.launch_name(2, False, False, True)
+    s2, s2_launches, s2_in, _ = run_path(SMR_DECK, SMR_GATE, name_s2)
+    gate(weighted_erf_error(s2), SMR_TOL, "stepdiff_smr werr")
+    k_s2 = path_kernel(transport_kernel, dev, s2, s2_in, name_s2, cost)
+
+    phase("17 SMR with DDMC: stepdiff_smr_ddmc, 64x32 cells, 10 steps")
+    name_sd2 = transport_kernel.launch_name(2, False, True, True)
+    sd2 = run_path(SMR_DDMC_DECK, SMR_GATE, name_sd2)[0]
+    gate(weighted_erf_error(sd2), SMR_TOL, "stepdiff_smr_ddmc werr")
+
+    phase("18 the hybrid gate: stepdiff_smr_hybrid at 64x32, tau_ddmc = 10, 10 steps")
+    hy = run_path(HYBRID_DECK, HYBRID_GATE, name_sd2)[0]
+    gate(weighted_erf_error(hy), SMR_TOL, "hybrid werr")
+    events_gate(hy.total_events, HYBRID_JAX_EVENTS, "hybrid")
+
+    phase("19 levels 0/1/2: stepdiff_smr2 at 64x32, IMC and DDMC profiles, per-cell at 400k")
+    s22 = run_path(SMR2_DECK, SMR_GATE, name_s2)[0]
+    gate(profile_error(s22), PROFILE_TOL, "stepdiff_smr2 x-profile")
+    s22d = run_path(SMR2_DECK, SMR2_DDMC, name_sd2)[0]
+    gate(profile_error(s22d), PROFILE_TOL, "stepdiff_smr2 DDMC x-profile")
+    s22c = run_path(SMR2_DECK, SMR2_PER_CELL, name_s2)[0]
+    gate(weighted_erf_error(s22c), SMR_TOL, "stepdiff_smr2 per-cell werr at 400k particles")
+
+    phase("20 3D SMR with DDMC: stepdiff_3d, 32x16x16 cells in 8^3 blocks, 500k particles")
+    name_sd3 = transport_kernel.launch_name(3, False, True, True)
+    s3, s3_launches, s3_in, _ = run_path(SMR3D_DECK, SMR3D, name_sd3)
+    gate(weighted_erf_error(s3), SMR_TOL, "stepdiff_3d werr")
+    k_sd3 = path_kernel(transport_kernel, dev, s3, s3_in, name_sd3, cost)
+
+    phase("21 full width: stepdiff_smr_hybrid at 128x64 in 32^2 blocks, 100k particles, "
+          "10 steps")
+    nh, nh_launches, nh_in, _ = run_path(HYBRID_DECK, NATIVE_HYBRID, name_sd2)
+    if nh.mesh.n_blocks != 20 or nh.mesh.total_cells != 20 * 32 * 32:
+        raise AssertionError(f"native hybrid: {nh.mesh.total_cells} cells, "
+                             f"{nh.mesh.n_blocks} blocks")
+    gate(profile_error(nh), PROFILE_TOL, "native hybrid x-profile")
+    print(f"native hybrid per-cell werr (not gated; the JAX package read 0.5052): "
+          f"{weighted_erf_error(nh)!r}", flush=True)
+    events_gate(nh.total_events, NATIVE_HYBRID_JAX_EVENTS, "native hybrid")
+    k_sd2 = path_kernel(transport_kernel, dev, nh, nh_in, name_sd2, cost)
+
+    k1 = "jaybenne_tpu/ops/pallas_transport.py:382"
+    k4 = "jaybenne_tpu/ops/pallas_bucketed.py:221"
+    kernels = []
+    for name, what, replaces, launches_smr, (ms_k, plain_k, _, err_k, bound_k, by_k) in (
+            (name_s2, "K1(d) SMR; stepdiff_smr", k1, s2_launches, k_s2),
+            (name_sd2, "K1(d) SMR with DDMC; K4's gray function at the native 128x64 hybrid",
+             f"{k1}; {k4}", nh_launches, k_sd2),
+            (name_sd3, "K1(d) SMR with DDMC in 3D; K4's gray function on stepdiff_3d",
+             f"{k1}; {k4}", s3_launches, k_sd3)):
+        kernels.append({
+            "name": f"{name} ({what})", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches_smr.get(name, 0), "max_abs_err": max(smr_err[name], err_k),
+            "ms": ms_k, "plain_ms": plain_k, "bound_ms": bound_k, "bound_by": by_k,
+            "library_ms": None,
+        })
+    return kernels
 
 
 def main() -> int:
@@ -963,58 +1347,31 @@ def main() -> int:
                 name = transport_kernel.launch_name(ndim, absorb, ddmc)
                 hybrid_err[name] = compare_hybrid(transport_kernel, dev, ndim, absorb, ddmc,
                                                   seed + 10 * absorb)
+    # the DDMC instantiations that no path runs, timed on this ledger
+    for ndim, absorb, seed in ((2, False, 1102), (2, True, 1112), (3, True, 1113)):
+        name = transport_kernel.launch_name(ndim, absorb, True)
+        ms_h, plain_h, ev_h, bound_h, by_h = hybrid_census_timing(transport_kernel, dev, ndim,
+                                                                  absorb, seed, cost)
+        print(f"{name} on the hybrid ledger's full census: kernel {ms_h!r} ms, plain "
+              f"{plain_h!r} ms, {ev_h} events; bound {bound_h!r} ms ({by_h}), kernel at "
+              f"{bound_h / ms_h:.3f} of it", flush=True)
 
     phase("12 DDMC main path: stepdiff_ddmc 128 cells, 100k particles, 10 steps")
     name_dd1 = transport_kernel.launch_name(1, False, True)
-    with tempfile.TemporaryDirectory() as outdir:
-        dd0 = run_file(DDMC_DECK, outdir=outdir, modified_inputs=DDMC_GATE, quiet=True,
-                       nlim=0, device="cuda")
-        e_dd0 = radiation_energy(dd0)
-        with CensusRecorder(transport_kernel, N_STEPS) as rec_dd:
-            cuda_lib.LAUNCHES.clear()
-            dd = run_file(DDMC_DECK, outdir=outdir, modified_inputs=DDMC_GATE, quiet=True,
-                          device="cuda")
-            dd_launches = dict(cuda_lib.LAUNCHES)
-        dd_again = run_file(DDMC_DECK, outdir=outdir, modified_inputs=DDMC_GATE, quiet=True,
-                            device="cuda")
-    if dd_launches.get(name_dd1, 0) != N_STEPS or dd.cycle != N_STEPS:
-        raise AssertionError(f"DDMC main path: launches {dd_launches}, cycles {dd.cycle}")
-    werr_dd = weighted_erf_error(dd)
-    e_dd = radiation_energy(dd)
+    dd, dd_launches, dd_in, _ = run_path(DDMC_DECK, DDMC_GATE, name_dd1)
     dd_tally = dd.state.fields.energy_tally
-    if dd_tally.shape != (1, 1, 1, 128) or not bool(torch.isfinite(dd_tally).all()):
+    if dd_tally.shape != (1, 1, 1, 128):
         raise AssertionError(f"DDMC main path: tally shape {tuple(dd_tally.shape)}")
-    if werr_dd > WERR_TOL:
-        raise AssertionError(f"DDMC main path: weighted erf error {werr_dd} > {WERR_TOL}")
-    if abs(e_dd - e_dd0) > ENERGY_RTOL * e_dd0:
-        raise AssertionError(f"DDMC main path: energy {e_dd0} -> {e_dd}")
-    if not torch.equal(dd_again.state.fields.energy_tally, dd_tally):
-        raise AssertionError("DDMC main path: a second run with the same seed differs")
+    gate(weighted_erf_error(dd), WERR_TOL, "DDMC main path werr")
     dd_events = dd.total_events
     if abs(dd_events - DDMC_JAX_EVENTS) > DDMC_EVENTS_RTOL * DDMC_JAX_EVENTS:
         raise AssertionError(f"DDMC main path: events {dd_events} vs JAX {DDMC_JAX_EVENTS}")
     if dd_events >= DDMC_IMC_EVENTS_RATIO * events:
         raise AssertionError(f"DDMC main path: events {dd_events} vs IMC {events}")
-    if any(h["unfinished"] for h in dd.history):
-        raise AssertionError("DDMC main path: a census incomplete")
-    dd_step_s = [h["step_seconds"] for h in dd.history]
-    p_dd, args_dd = rec_dd.inputs
-    ms_dd1, plain_dd1, ev_dd1, err_dd1 = census_compare(transport_kernel, dev, p_dd, args_dd)
-    bound_dd1, by_dd1 = census_bound(p_dd, 1, False, dd.mesh.total_cells, ev_dd1, cost,
-                                     ddmc=True)
-    print(f"DDMC main path: werr {werr_dd!r} (tol {WERR_TOL}); energy rel "
-          f"{abs(e_dd - e_dd0) / e_dd0:.3e}; {dd_launches.get(name_dd1, 0)} launches of "
-          f"{name_dd1}; rerun bitwise identical", flush=True)
     print(f"DDMC main path: events {dd_events} (JAX package {DDMC_JAX_EVENTS}, "
-          f"{dd_events / DDMC_JAX_EVENTS - 1.0:+.4f}; IMC gate {events}); step seconds "
-          f"{dd_step_s}; median {statistics.median(dd_step_s) * 1e3!r} ms; "
-          f"{dd_events / sum(dd_step_s)!r} events/s", flush=True)
-    print(f"{name_dd1} on the last census's inputs ({p_dd.capacity} slots, "
-          f"{int(p_dd.alive.sum())} live): kernel {ms_dd1!r} ms, plain {plain_dd1!r} ms, "
-          f"{ev_dd1} events; bound {bound_dd1!r} ms ({by_dd1}; "
-          f"{ops_per_ddmc_event(1, False, cost)} operations an event), kernel at "
-          f"{bound_dd1 / ms_dd1:.3f} of it; 8-iteration max_abs_err {err_dd1:.3e}",
-          flush=True)
+          f"{dd_events / DDMC_JAX_EVENTS - 1.0:+.4f}; IMC gate {events})", flush=True)
+    ms_dd1, plain_dd1, _, err_dd1, bound_dd1, by_dd1 = path_kernel(
+        transport_kernel, dev, dd, dd_in, name_dd1, cost)
 
     phase("13 stiff gate: inf_stiff (tst/inf_stiff.py overrides), 10 steps")
     name_dd1a = transport_kernel.launch_name(1, True, True)
@@ -1033,41 +1390,20 @@ def main() -> int:
         raise AssertionError(f"inf_stiff: mean fractional error {stiff_err} > {STIFF_TOL}")
     if any(h["dropped"] or h["unfinished"] for h in stiff.history):
         raise AssertionError("inf_stiff: particles dropped or a census incomplete")
-    p_st, args_st = rec_st.inputs
-    ms_dd1a, plain_dd1a, ev_dd1a, err_dd1a = census_compare(transport_kernel, dev, p_st,
-                                                            args_st)
-    bound_dd1a, by_dd1a = census_bound(p_st, 1, True, stiff.mesh.total_cells, ev_dd1a, cost,
-                                       ddmc=True)
     print(f"inf_stiff: {stiff.cycle} steps, {stiff_launches.get(name_dd1a, 0)} launches of "
           f"{name_dd1a}, mean tally {float(var_st.mean())!r} vs a T0^4 {ur_st!r}, mean "
           f"fractional error {stiff_err!r} (tol {STIFF_TOL}), events {stiff.total_events}, "
           f"alive {[h['alive'] for h in stiff.history]}", flush=True)
-    print(f"{name_dd1a} on the last census's inputs ({p_st.capacity} slots, "
-          f"{int(p_st.alive.sum())} live): kernel {ms_dd1a!r} ms, plain {plain_dd1a!r} ms, "
-          f"{ev_dd1a} events; bound {bound_dd1a!r} ms ({by_dd1a}), kernel at "
-          f"{bound_dd1a / ms_dd1a:.3f} of it; 8-iteration max_abs_err {err_dd1a:.3e}",
-          flush=True)
+    ms_dd1a, plain_dd1a, _, err_dd1a, bound_dd1a, by_dd1a = path_kernel(
+        transport_kernel, dev, stiff, rec_st.inputs, name_dd1a, cost)
 
     phase("14 full width in 3D: big_mesh with DDMC, 64^3 cells, 200k particles, 10 steps")
     name_dd3 = transport_kernel.launch_name(3, False, True)
-    with tempfile.TemporaryDirectory() as outdir:
-        big0 = run_file(DECK, outdir=outdir, modified_inputs=BIG_DDMC, quiet=True, nlim=0,
-                        device="cuda")
-        e_big0 = radiation_energy(big0)
-        del big0
-        with CensusRecorder(transport_kernel, BIG_DDMC_STEPS) as rec_big:
-            cuda_lib.LAUNCHES.clear()
-            big = run_file(DECK, outdir=outdir, modified_inputs=BIG_DDMC, quiet=True,
-                           nlim=BIG_DDMC_STEPS, device="cuda")
-            big_launches = dict(cuda_lib.LAUNCHES)
-        big_again = run_file(DECK, outdir=outdir, modified_inputs=BIG_DDMC, quiet=True,
-                             nlim=BIG_DDMC_STEPS, device="cuda")
+    big, big_launches, big_in, e_big0 = run_path(DECK, BIG_DDMC, name_dd3)
     dmin = big.mesh.block_dx[:, : big.mesh.ndim].min(dim=1).values
     tau_cells = dmin * big.cfg.mcblock.scattering_constant_value
     if not bool((tau_cells > big.cfg.jaybenne.tau_ddmc).all()):
         raise AssertionError("big_mesh DDMC: not every cell is on the DDMC branch")
-    if big_launches.get(name_dd3, 0) != BIG_DDMC_STEPS or big.cycle != BIG_DDMC_STEPS:
-        raise AssertionError(f"big_mesh DDMC: launches {big_launches}, cycles {big.cycle}")
     # The thermal source gives each cell floor(npc) + Bernoulli(frac) particles,
     # npc = 200k / 64^3 = 0.76, so a quarter of the cells start empty and their
     # a T^4 is never sourced (the JAX package sources alike). Diffusion is linear,
@@ -1079,40 +1415,18 @@ def main() -> int:
     sourced = e_big0 / e_analytic
     prof_err = profile_error(big, scale=sourced)
     prof_err_unscaled = profile_error(big)
-    e_big = radiation_energy(big)
-    if not bool(torch.isfinite(big.state.fields.energy_tally).all()) or prof_err > PROFILE_TOL:
-        raise AssertionError(f"big_mesh DDMC: x-profile error {prof_err} > {PROFILE_TOL}")
-    if abs(e_big - e_big0) > ENERGY_RTOL * e_big0:
-        raise AssertionError(f"big_mesh DDMC: energy {e_big0} -> {e_big}")
-    if any(h["dropped"] or h["unfinished"] for h in big.history):
-        raise AssertionError("big_mesh DDMC: dropped or a census incomplete")
-    if not torch.equal(big_again.state.fields.energy_tally, big.state.fields.energy_tally):
-        raise AssertionError("big_mesh DDMC: a rerun with the same seed differs")
-    big_step_s = [h["step_seconds"] for h in big.history]
-    p_big, args_big = rec_big.inputs
-    ms_dd3, plain_dd3, ev_dd3, err_dd3 = census_compare(transport_kernel, dev, p_big,
-                                                        args_big)
-    bound_dd3, by_dd3 = census_bound(p_big, 3, False, big.mesh.total_cells, ev_dd3, cost,
-                                     ddmc=True)
     print(f"big_mesh DDMC: every cell DDMC (sigma dx min {float(tau_cells.min())!r} > "
-          f"{big.cfg.jaybenne.tau_ddmc}); sourced {sourced!r} of a T^4; x-profile error "
-          f"{prof_err!r} against the sourced erf solution (tol {PROFILE_TOL}), "
-          f"{prof_err_unscaled!r} against the unscaled one; "
-          f"energy rel {abs(e_big - e_big0) / e_big0:.3e}; {big_launches.get(name_dd3, 0)} "
-          f"launches of {name_dd3}; rerun bitwise identical", flush=True)
-    print(f"big_mesh DDMC: events {big.total_events}; step seconds {big_step_s}; median "
-          f"{statistics.median(big_step_s) * 1e3!r} ms; "
-          f"{big.total_events / sum(big_step_s)!r} events/s", flush=True)
-    print(f"{name_dd3} on the last census's inputs ({p_big.capacity} slots, "
-          f"{int(p_big.alive.sum())} live): kernel {ms_dd3!r} ms, plain {plain_dd3!r} ms, "
-          f"{ev_dd3} events; bound {bound_dd3!r} ms ({by_dd3}; "
-          f"{ops_per_ddmc_event(3, False, cost)} operations an event), kernel at "
-          f"{bound_dd3 / ms_dd3:.3f} of it; 8-iteration max_abs_err {err_dd3:.3e}",
-          flush=True)
+          f"{big.cfg.jaybenne.tau_ddmc}); sourced {sourced!r} of a T^4; "
+          f"{prof_err_unscaled!r} against the unscaled solution", flush=True)
+    gate(prof_err, PROFILE_TOL, "big_mesh DDMC x-profile against the sourced solution")
+    ms_dd3, plain_dd3, _, err_dd3, bound_dd3, by_dd3 = path_kernel(
+        transport_kernel, dev, big, big_in, name_dd3, cost)
+
+    src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
+    smr_kernels = smr_phases(transport_kernel, dev, cost, src)
 
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
-    src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
     kernels = [
         {
             "name": "transport_1d (K1(a), with K2 inlined)",
@@ -1169,6 +1483,7 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    kernels += smr_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

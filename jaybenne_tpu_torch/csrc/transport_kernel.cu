@@ -1,21 +1,26 @@
-// Census transport kernel: gray IMC, and hybrid IMC/DDMC, on a uniform
-// single-level mesh, 1D/2D/3D, with or without absorption. One source, twelve
-// instantiations (NDIM in {1, 2, 3} x ABSORB x DDMC).
+// Census transport kernel: gray IMC, and hybrid IMC/DDMC, on a uniform mesh or a
+// statically refined (SMR) block forest, 1D/2D/3D, with or without absorption.
+// One source, twenty-four instantiations (NDIM in {1, 2, 3} x ABSORB x DDMC x
+// SMR).
 //
-// Replaces, in their gray configurations on a uniform (max_level == 0) forest,
-// both census kernels of the JAX package:
+// Replaces, in their gray configurations, the three census kernels of the JAX
+// package:
 //
 //   * jaybenne_tpu/ops/pallas_transport.py::_transport_kernel (:382; K1), the
 //     VMEM-resident kernel with its has_absorption (K1(b)), multi_d/three_d
-//     (K1(e), gray part) and use_ddmc (K1(c)) branches;
+//     (K1(e), gray part), use_ddmc (K1(c)) and multi-block SMR (K1(d)) branches;
 //   * jaybenne_tpu/ops/pallas_grid.py::_grid_kernel (:678; K3), the kernel the
-//     JAX package runs on meshes past K1's 5120-cell VMEM limit.
+//     JAX package runs on uniform meshes past K1's 5120-cell VMEM limit;
+//   * jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel (:221; K4), the one
+//     it runs on refined forests past that limit.
 //
-// The two exist separately on the TPU only because of VMEM. Here one kernel
-// tracks global cells on the collapsed single block and gathers its per-cell
-// table from global memory: the region slabs, halos, SIGMA_REFRESH stale lanes,
-// pause-and-rebucket rounds, bucket sorts and bf16 pair packing of the TPU
-// kernels are not carried over. It computes what they compute, per particle:
+// They exist separately on the TPU only because of VMEM. Here one kernel gathers
+// its tables from global memory: on a uniform forest it tracks global cells on
+// the collapsed single block; on a refined one the ledger stays block-local. The
+// region slabs, halos, parity layouts, SIGMA_REFRESH stale lanes,
+// pause-and-rebucket rounds, pending-leak codes, bucket sorts and bf16 pair
+// packing of the TPU kernels are not carried over. It computes what they
+// compute, per particle:
 //
 //   * one thread per ledger slot runs its own history while
 //     alive && tau < 1 && it < max_iters, with its own iteration counter. A lane
@@ -66,6 +71,26 @@
 //     high half of the IMC scatter's u16 word, exp23, the leak u23, then u16
 //     words for the leak mu, the census position and the census mu, each
 //     followed by a circle word in 2D/3D where the JAX kernel draws one;
+//   * SMR (pallas_transport.py:463-478, 888-891, 973-1151): each event gathers
+//     the lane's block geometry (cell size, origin) from the block table, so
+//     dmin, the face positions and, with DDMC, the reciprocal cell sizes (one
+//     IEEE divide per axis) are per lane, and the cell table row is
+//     block * cells-per-block + local cell. A lane whose index leaves its block
+//     takes the global position origin + local, the domain BCs, and the lookup
+//     probe: half a finest cell along a crossed face's normal (from the out
+//     flags), 0.01 finest v / c along the others, with v the velocity after the
+//     scatter and any reflection; floorf binning into the lookup grid, the new
+//     block's origin subtracted (global - origin, in that order), and the cell
+//     floorf(l / dx) by an IEEE divide, clipped. With DDMC in 2D/3D a leak
+//     (not an albedo bounce) into a block of higher level is resampled onto a
+//     fine subface: e = clip(rint(l / dx), 1, n - 1) on each transverse axis
+//     gives the 2 (2D) or 4 (3D) fine faces around the coarse landing point;
+//     one is picked by the fine block's P_lower (leak in +axis) or P_upper
+//     (-axis), in 2D by u (P_l + P_u) >= P_l, in 3D by cumulative sum against
+//     u (sum + tiny); the transverse position is redrawn uniformly on it and the
+//     direction from a hemisphere into the block in the cyclic axis order. Its
+//     variates continue the DrawPool after the DDMC event's: u_sel, u_t1, u_t2
+//     (3D) and the hemisphere mu are u16 halves, then one circle word;
 //   * events are summed per block and added with one int64 atomicAdd, the
 //     iteration maximum with one int32 atomicMax: integer atomics, so the
 //     statistics repeat exactly.
@@ -75,12 +100,14 @@
 // logf, the IEEE divides and the hash per event, not bytes: each particle is
 // read and written once per call, and the one table gather per event hits L1
 // or L2. The design keeps every particle in registers for the whole census.
+// SMR's block and lookup tables are O(blocks) (at most 32 blocks and 512 tiles
+// on the gate forests) and stay in L1.
 //
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
 // kernel, so the stepdiff gate reproduces its events and error to every digit;
-// every line the DDMC parameter adds is dead code when it is false.
+// every line the DDMC and SMR parameters add is dead code when they are false.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -97,18 +124,18 @@ enum Bc : int { kPeriodic = 0, kOutflow = 1, kReflecting = 2 };
 // Float32 scalars of the event body, each rounded on the host as the JAX
 // kernel rounds it. Per-axis arrays are (x, y, z); only the first NDIM are read.
 struct Geom {
-  int n[3];           // cells per axis of the collapsed single block
+  int n[3];           // cells per axis of the collapsed single block (SMR: a block)
   int bc[6];          // (ix1, ox1, ix2, ox2, ix3, ox3)
   int max_iters;
   uint32_t seed;
-  float dx[3];        // cell size
+  float dx[3];        // cell size (of the collapsed block; SMR gathers it)
   float inv_dx[3];    // f32(1 / dx)
   float org[3];       // block origin (domain lower bound)
   float lo[3], hi[3]; // domain bounds
   float lo_half[3];   // lo + half a finest cell
   float hi_half[3];   // hi - half a finest cell
   float span[3];      // f32(hi - lo)
-  float dmin;         // smallest cell size over the active axes
+  float dmin;         // smallest cell size over the active axes (uniform)
   float c, inv_c;     // speed of light and its f32 reciprocal
   float cdt;          // c * dt
   float inv_cdt;      // 1 / (c * dt)
@@ -120,9 +147,23 @@ struct Geom {
   float inv_dt;       // f32(1) / f32(dt)
   float lam2;         // f32(2 lambda_ext)
   float pf2_num;      // f32(2 (2 / 3))
+  // SMR only
+  int nt[3];          // lookup tiles per axis
+  float tile[3];      // f32 tile edge
+  float nudge_cross[3];  // f32(0.5 finest): the probe along a crossed face's normal
+  float nudge_tilt[3];   // f32(0.01 finest): the probe along the other axes, x v / c
 };
-constexpr int kGeomInts = 11;
-constexpr int kGeomFloats = 36;
+constexpr int kGeomInts = 14;
+constexpr int kGeomFloats = 45;
+
+// A refined forest's tables (SMR instantiations only): per block two float4,
+// (dx, dy, dz, 0) and (ox, oy, oz, 0); the int32 level of each block; the
+// int32 lookup grid, (z, y, x) row-major.
+struct Forest {
+  const float4* block;
+  const int32_t* level;
+  const int32_t* lookup;
+};
 
 struct Ledger {
   float* x[3];        // x, y, z
@@ -132,35 +173,59 @@ struct Ledger {
   uint8_t* alive;
   uint8_t* absorbed;
   int32_t* face;      // face-arrival code (DDMC instantiations only)
+  int32_t* blk;       // owning block (SMR instantiations only)
 };
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// Draw tags of the DDMC event, continuing the IMC event's (the DrawPool's
+// order), and of the SMR subface resample after it.
+template <int NDIM, bool ABSORB>
+struct DdmcTags {
+  static constexpr bool kMultiD = NDIM >= 2;
+  static constexpr uint32_t kU16 = ABSORB ? 2u : 1u;  // the IMC scatter's u16 word
+  static constexpr uint32_t kAlbedo = kU16 + (kMultiD ? 2u : 1u);
+  static constexpr uint32_t kExp = kAlbedo + (kMultiD ? 2u : 1u);
+  static constexpr uint32_t kXi = kExp + 1u;
+  static constexpr uint32_t kW2 = kXi + 1u;  // leak mu (lo), census x (hi)
+  static constexpr uint32_t kW3 = kW2 + (kMultiD ? 2u : 1u);
+  // the resample: in 2D u_sel and u_t1 are the halves of word kRes; in 3D u_sel
+  // is the spare high half of the census mu word (kW3 + 1) and u_t1, u_t2 the
+  // halves of kRes; then the hemisphere mu (kRes + 1, low half), the circle
+  static constexpr uint32_t kRes = kW3 + (NDIM == 3 ? 3u : 2u);
+};
+
 // The DDMC event of one lane (pallas_transport.py:655-870): writes the lane's
 // new position, cell index, velocity, tau and absorption; the face code it
-// leaves is 0. ``pf`` holds the cell's (P_lower, P_upper) of x, y, z.
+// leaves is 0. ``pf`` holds the cell's (P_lower, P_upper) of x, y, z, ``dx``
+// and ``inv_dx`` its cell size and f32 reciprocal. ``leak_code`` is set to
+// -(axis + 1) for a leak through a lower face, +(axis + 1) through an upper
+// one, else 0.
 template <int NDIM, bool ABSORB>
 __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_t it,
                                            int face, float ea, float sig_t,
-                                           const float (&pf)[6], const float (&p)[3],
+                                           const float (&pf)[6], const float (&dx)[3],
+                                           const float (&inv_dx)[3], const float (&p)[3],
                                            const int (&ci)[3], float (&v)[3],
                                            float (&np_)[3], int (&nci)[3], float& ptau,
-                                           bool& palive, bool& pabsorbed) {
-  constexpr bool kMultiD = NDIM >= 2;
-  constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;  // the IMC scatter's u16 word
-  constexpr uint32_t kTagAlbedo = kTagU16 + (kMultiD ? 2u : 1u);
-  constexpr uint32_t kTagExp = kTagAlbedo + (kMultiD ? 2u : 1u);
-  constexpr uint32_t kTagXi = kTagExp + 1u;
-  constexpr uint32_t kTagW2 = kTagXi + 1u;         // leak mu (lo), census x (hi)
-  constexpr uint32_t kTagW3 = kTagW2 + (kMultiD ? 2u : 1u);
+                                           bool& palive, bool& pabsorbed, int& leak_code) {
+  using T = DdmcTags<NDIM, ABSORB>;
+  constexpr bool kMultiD = T::kMultiD;
+  constexpr uint32_t kTagU16 = T::kU16;
+  constexpr uint32_t kTagAlbedo = T::kAlbedo;
+  constexpr uint32_t kTagExp = T::kExp;
+  constexpr uint32_t kTagXi = T::kXi;
+  constexpr uint32_t kTagW2 = T::kW2;
+  constexpr uint32_t kTagW3 = T::kW3;
+  leak_code = 0;
   float flo[3], fhi[3];
 #pragma unroll
   for (int a = 0; a < NDIM; ++a) {
     const float f = (float)ci[a];
-    flo[a] = f * g.dx[a];
-    fhi[a] = (f + 1.0f) * g.dx[a];
+    flo[a] = f * dx[a];
+    fhi[a] = (f + 1.0f) * dx[a];
     np_[a] = p[a];
     nci[a] = ci[a];
   }
@@ -170,7 +235,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
     float prob = 0.0f;
 #pragma unroll
     for (int a = 0; a < NDIM; ++a) {
-      const float pf2 = g.pf2_num / (sig_t * g.dx[a] + g.lam2);
+      const float pf2 = g.pf2_num / (sig_t * dx[a] + g.lam2);
       const float drift = 1.5f * v[a] * g.inv_c;
       if (face == a + 1) prob = pf2 * (1.0f + drift);
       if (face == -(a + 1)) prob = pf2 * (1.0f - drift);
@@ -191,7 +256,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
     for (int a = 0; a < NDIM; ++a) {
       if (face == a + 1 || face == -(a + 1)) {
         const bool lower = face > 0;
-        np_[a] = lower ? flo[a] - g.eps_imc * g.dx[a] : fhi[a] + g.eps_imc * g.dx[a];
+        np_[a] = lower ? flo[a] - g.eps_imc * dx[a] : fhi[a] + g.eps_imc * dx[a];
         nci[a] = ci[a] + (lower ? -1 : 1);
         v[a] = (g.c * (lower ? -1.0f : 1.0f)) * amu;
         v[(a + 1) % 3] = g.c * a2;
@@ -204,8 +269,8 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
   float lk[2 * NDIM];
 #pragma unroll
   for (int a = 0; a < NDIM; ++a) {
-    lk[2 * a] = pf[2 * a] * g.inv_dx[a];
-    lk[2 * a + 1] = pf[2 * a + 1] * g.inv_dx[a];
+    lk[2 * a] = pf[2 * a] * inv_dx[a];
+    lk[2 * a + 1] = pf[2 * a + 1] * inv_dx[a];
   }
   float leak_tot = lk[0] + lk[1];
 #pragma unroll
@@ -247,30 +312,31 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
     for (int a = 0; a < NDIM; ++a) {
       if (leak >> 1 == a) {
         const bool lower = (leak & 1) == 0;
-        np_[a] = lower ? flo[a] - g.eps_ddmc * g.dx[a] : fhi[a] + g.eps_ddmc * g.dx[a];
+        leak_code = lower ? -(a + 1) : a + 1;
+        np_[a] = lower ? flo[a] - g.eps_ddmc * dx[a] : fhi[a] + g.eps_ddmc * dx[a];
         nci[a] = ci[a] + (lower ? -1 : 1);
         v[a] = (g.c * (lower ? -1.0f : 1.0f)) * bmu;
         v[(a + 1) % 3] = g.c * b2;
         v[(a + 2) % 3] = g.c * b3;
       } else {
-        np_[a] = flo[a] + 0.5f * g.dx[a];  // transverse: the cell centre
+        np_[a] = flo[a] + 0.5f * dx[a];  // transverse: the cell centre
       }
     }
     return;
   }
   // census: uniform position in the cell, isotropic direction
   ptau = 1.0f;
-  np_[0] = flo[0] + jb_u16_hi(w2) * g.dx[0];
+  np_[0] = flo[0] + jb_u16_hi(w2) * dx[0];
   const uint32_t w3 = jb_raw_bits(g.seed, lane, it, kTagW3);
   float cmu;
   if constexpr (NDIM == 1) {
     cmu = 1.0f - 2.0f * jb_u16_lo(w3);
   } else {
-    np_[1] = flo[1] + jb_u16_lo(w3) * g.dx[1];
+    np_[1] = flo[1] + jb_u16_lo(w3) * dx[1];
     if constexpr (NDIM == 2) {
       cmu = 1.0f - 2.0f * jb_u16_hi(w3);
     } else {
-      np_[2] = flo[2] + jb_u16_hi(w3) * g.dx[2];
+      np_[2] = flo[2] + jb_u16_hi(w3) * dx[2];
       cmu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(g.seed, lane, it, kTagW3 + 1u));
     }
   }
@@ -288,9 +354,143 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
   }
 }
 
+// The re-homing of a lane that left its block on a refined forest
+// (pallas_transport.py:973-1151): the lookup probe, the rebase into the new
+// block and, with DDMC in 2D/3D, the coarse->fine subface resample of a leak.
+// ``gp`` is the global position after the BCs, ``v`` the velocity after the
+// scatter and any reflection; ``leak`` the DDMC leak code of this event.
 template <int NDIM, bool ABSORB, bool DDMC>
+__device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const float* table,
+                                       uint32_t lane, uint32_t it, int leak,
+                                       const bool (&out_lo)[3], const bool (&out_hi)[3],
+                                       const float (&gp)[3], int& blk, float (&np_)[3],
+                                       int (&nci)[3], float (&v)[3]) {
+  int t[3];
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    const float sg = (out_hi[a] ? 1.0f : 0.0f) - (out_lo[a] ? 1.0f : 0.0f);
+    const float probe =
+        gp[a] + (sg != 0.0f ? g.nudge_cross[a] * sg : g.nudge_tilt[a] * (v[a] * g.inv_c));
+    t[a] = min(max((int)floorf((probe - g.lo[a]) / g.tile[a]), 0), g.nt[a] - 1);
+  }
+  int tidx = t[0];
+  if (NDIM == 2) tidx = t[1] * g.nt[0] + t[0];
+  if (NDIM == 3) tidx = (t[2] * g.nt[1] + t[1]) * g.nt[0] + t[0];
+  const int b_new = __ldg(F.lookup + tidx);
+  const float4 r0 = __ldg(F.block + 2 * b_new);      // (dx, dy, dz, 0)
+  const float4 r1 = __ldg(F.block + 2 * b_new + 1);  // (ox, oy, oz, 0)
+  const float ndx[3] = {r0.x, r0.y, r0.z};
+  const float nbox[3] = {r1.x, r1.y, r1.z};
+  float loc[3];
+  int idx[3] = {0, 0, 0};
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    loc[a] = gp[a] - nbox[a];
+    idx[a] = min(max((int)floorf(loc[a] / ndx[a]), 0), g.n[a] - 1);
+  }
+  if constexpr (DDMC && NDIM >= 2) {
+    if (leak != 0 && __ldg(F.level + b_new) > __ldg(F.level + blk)) {
+      using T = DdmcTags<NDIM, ABSORB>;
+      const int ax = abs(leak) - 1;
+      const float lsgn = leak > 0 ? 1.0f : -1.0f;
+      const int upper = leak < 0 ? 1 : 0;  // a leak in -axis enters the upper face
+      float u_sel, u_t[2] = {0.0f, 0.0f};
+      const uint32_t w = jb_raw_bits(g.seed, lane, it, T::kRes);
+      if constexpr (NDIM == 2) {
+        u_sel = jb_u16_lo(w);
+        u_t[0] = jb_u16_hi(w);
+      } else {
+        u_sel = jb_u16_hi(jb_raw_bits(g.seed, lane, it, T::kW3 + 1u));
+        u_t[0] = jb_u16_lo(w);
+        u_t[1] = jb_u16_hi(w);
+      }
+      const float smu = sqrtf(jb_u16_lo(jb_raw_bits(g.seed, lane, it, T::kRes + 1u)));
+      const float snu = sqrtf(fmaxf(1.0f - smu * smu, 0.0f));
+      float cph, sph;
+      jb_circle(jb_raw_bits(g.seed, lane, it, T::kRes + 2u), &cph, &sph);
+      // the transverse axes t1 < t2 (t2 in 3D only) and the fine edge around the
+      // coarse landing point on each; every array index below is a compile-time
+      // one, so the lane's state stays in registers
+      const int t1 = ax == 0 ? 1 : 0;
+      const int t2 = ax == 2 ? 1 : 2;
+      int f_ax = 0, e1 = 0, e2 = 0;
+      float d1 = 0.0f, d2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < NDIM; ++a) {
+        const int edge = min(max((int)rintf(loc[a] / fmaxf(ndx[a], 1.0e-37f)), 1), g.n[a] - 1);
+        if (a == ax) f_ax = lsgn > 0.0f ? 0 : g.n[a] - 1;
+        if (a == t1) {
+          e1 = edge;
+          d1 = ndx[a];
+        }
+        if (NDIM == 3 && a == t2) {
+          e2 = edge;
+          d2 = ndx[a];
+        }
+      }
+      // the fine block's P_lower (leak in +axis) or P_upper of a candidate face
+      auto face_prob = [&](int c1, int c2) -> float {
+        int flat = b_new;
+#pragma unroll
+        for (int a = NDIM - 1; a >= 0; --a) {
+          const int ia = a == ax ? f_ax : (a == t1 ? c1 : (NDIM == 3 && a == t2 ? c2 : idx[a]));
+          flat = flat * g.n[a] + ia;
+        }
+        return __ldg(table + 8 * (size_t)flat + 2 + 2 * ax + upper);
+      };
+      int s1, s2 = 0;
+      if constexpr (NDIM == 2) {
+        const float p_l = face_prob(e1 - 1, 0);
+        const float p_u = face_prob(e1, 0);
+        s1 = u_sel * (p_l + p_u) >= p_l ? e1 : e1 - 1;
+      } else {
+        const float pr[4] = {face_prob(e1 - 1, e2 - 1), face_prob(e1, e2 - 1),
+                             face_prob(e1 - 1, e2), face_prob(e1, e2)};
+        const float xi = u_sel * (pr[0] + pr[1] + pr[2] + pr[3] + 1.0e-37f);
+        float cum = 0.0f;
+        s1 = e1;  // the numerical fall-through takes the last candidate
+        s2 = e2;
+        bool chosen = false;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (!chosen && xi < cum + pr[q]) {
+            s1 = (q & 1) ? e1 : e1 - 1;
+            s2 = (q & 2) ? e2 : e2 - 1;
+            chosen = true;
+          }
+          cum = cum + pr[q];
+        }
+      }
+      const float l1 = ((float)s1 + u_t[0]) * d1;
+      const float l2 = ((float)s2 + u_t[1]) * d2;
+      // hemisphere direction into the block, in the cyclic axis order
+      const float vs[3] = {(g.c * lsgn) * smu, g.c * (snu * cph), g.c * (snu * sph)};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int q = (a - ax + 3) % 3;
+        v[a] = q == 0 ? vs[0] : (q == 1 ? vs[1] : vs[2]);
+        if (a < NDIM && a == t1) {
+          idx[a] = s1;
+          loc[a] = l1;
+        }
+        if (NDIM == 3 && a == t2) {
+          idx[a] = s2;
+          loc[a] = l2;
+        }
+      }
+    }
+  }
+  blk = b_new;
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    np_[a] = loc[a];
+    nci[a] = idx[a];
+  }
+}
+
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR>
 __global__ void __launch_bounds__(kThreads)
-    transport_kernel(Ledger L, const float* __restrict__ table, int n, Geom g,
+    transport_kernel(Ledger L, const float* __restrict__ table, Forest F, int n, Geom g,
                      unsigned long long* __restrict__ events,
                      int32_t* __restrict__ iters) {
   constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
@@ -310,11 +510,42 @@ __global__ void __launch_bounds__(kThreads)
     bool palive = true;
     bool pabsorbed = false;
     int pface = DDMC ? L.face[s] : 0;
+    int blk = SMR ? L.blk[s] : 0;
     const uint32_t lane = (uint32_t)s;
     while (palive && ptau < 1.0f && it < g.max_iters) {
-      int cell = ci[0];
-      if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
-      if (NDIM == 3) cell = (ci[2] * g.n[1] + ci[1]) * g.n[0] + ci[0];
+      // the cell geometry: the collapsed block's, or with SMR the lane's block's
+      float dx[3], inv_dx[3], box[3];
+      float dmin;
+      int cell;
+      if constexpr (SMR) {
+        const float4 b0 = __ldg(F.block + 2 * blk);      // (dx, dy, dz, 0)
+        const float4 b1 = __ldg(F.block + 2 * blk + 1);  // (ox, oy, oz, 0)
+        dx[0] = b0.x;
+        dx[1] = b0.y;
+        dx[2] = b0.z;
+        box[0] = b1.x;
+        box[1] = b1.y;
+        box[2] = b1.z;
+        dmin = dx[0];
+        if (NDIM >= 2) dmin = fminf(dmin, dx[1]);
+        if (NDIM == 3) dmin = fminf(dmin, dx[2]);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) inv_dx[a] = DDMC ? 1.0f / dx[a] : 0.0f;
+        cell = blk;
+#pragma unroll
+        for (int a = NDIM - 1; a >= 0; --a) cell = cell * g.n[a] + ci[a];
+      } else {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          dx[a] = g.dx[a];
+          inv_dx[a] = g.inv_dx[a];
+          box[a] = g.org[a];
+        }
+        dmin = g.dmin;
+        cell = ci[0];
+        if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
+        if (NDIM == 3) cell = (ci[2] * g.n[1] + ci[1]) * g.n[0] + ci[0];
+      }
       float2 tab;        // (p_abs, 1 / sigma_t) without DDMC
       float ea = 0.0f;   // with DDMC: fleck sigma_a
       float sig_t = 0.0f;
@@ -334,16 +565,17 @@ __global__ void __launch_bounds__(kThreads)
           pf[4] = r1.z;
           pf[5] = r1.w;
         }
-        is_ddmc = g.dmin * sig_t > g.tau_ddmc;
+        is_ddmc = dmin * sig_t > g.tau_ddmc;
       } else {
         tab = __ldg(reinterpret_cast<const float2*>(table) + cell);
       }
       float np_[3];
       int nci[3];
       int nface = 0;
+      int leak = 0;
       if (DDMC && is_ddmc) {
-        ddmc_event<NDIM, ABSORB>(g, lane, (uint32_t)it, pface, ea, sig_t, pf, p, ci, v, np_,
-                                 nci, ptau, palive, pabsorbed);
+        ddmc_event<NDIM, ABSORB>(g, lane, (uint32_t)it, pface, ea, sig_t, pf, dx, inv_dx, p, ci,
+                                 v, np_, nci, ptau, palive, pabsorbed, leak);
       } else {
         float d_coll;
         if constexpr (DDMC) {
@@ -354,14 +586,14 @@ __global__ void __launch_bounds__(kThreads)
         float u_branch = 0.0f;
         if (ABSORB) u_branch = jb_u23(jb_raw_bits(g.seed, lane, (uint32_t)it, 1u));
         const float d_end = g.cdt * (1.0f - ptau);
-        const float d_geom = fminf(g.dmin, d_end);
+        const float d_geom = fminf(dmin, d_end);
 
         float flo[3], fhi[3], fd[3];
 #pragma unroll
         for (int a = 0; a < NDIM; ++a) {
           const float f = (float)ci[a];
-          flo[a] = f * g.dx[a];
-          fhi[a] = (f + 1.0f) * g.dx[a];
+          flo[a] = f * dx[a];
+          fhi[a] = (f + 1.0f) * dx[a];
           fd[a] = v[a] != 0.0f ? g.c * ((v[a] > 0.0f ? fhi[a] : flo[a]) - p[a]) / v[a]
                                : kBig;
         }
@@ -381,7 +613,7 @@ __global__ void __launch_bounds__(kThreads)
         if (NDIM >= 2) cr[1] = !coll && !cr[0] && fd[1] <= d_geom;
         if (NDIM == 3) cr[1] = cr[1] && fd[1] <= fd[2];
         if (NDIM == 3) cr[2] = !coll && !cr[0] && !cr[1] && fd[2] <= d_geom;
-        const bool census = !coll && !cr[0] && !cr[1] && !cr[2] && d_end <= g.dmin;
+        const bool census = !coll && !cr[0] && !cr[1] && !cr[2] && d_end <= dmin;
         const float d = coll ? d_coll : d_push;
 
         ptau = census ? 1.0f : ptau + d * g.inv_cdt;
@@ -426,11 +658,11 @@ __global__ void __launch_bounds__(kThreads)
         out_hi[a] = nci[a] >= g.n[a];
         any_out = any_out || out_lo[a] || out_hi[a];
       }
-      if (any_out) {  // domain boundary
+      if (any_out) {  // a block face: the domain BCs, then the block and cell
         float gp[3];
 #pragma unroll
         for (int a = 0; a < NDIM; ++a) {
-          gp[a] = g.org[a] + np_[a];
+          gp[a] = box[a] + np_[a];
           const bool hit_lo = out_lo[a] && gp[a] <= g.lo_half[a];
           const bool hit_hi = out_hi[a] && gp[a] >= g.hi_half[a];
           if (hit_lo) {
@@ -456,13 +688,18 @@ __global__ void __launch_bounds__(kThreads)
             }
           }
         }
+        if (SMR && palive) {  // re-home by the lookup grid
+          rehome<NDIM, ABSORB, DDMC>(g, F, table, lane, (uint32_t)it, leak, out_lo, out_hi, gp,
+                                     blk, np_, nci, v);
+        } else {
 #pragma unroll
-        for (int a = 0; a < NDIM; ++a) {
-          if (palive) {  // rebase into the block and re-derive every cell
-            np_[a] = gp[a] - g.org[a];
-            nci[a] = min(max((int)(np_[a] * g.inv_dx[a]), 0), g.n[a] - 1);
-          } else {
-            nci[a] = min(max(nci[a], 0), g.n[a] - 1);
+          for (int a = 0; a < NDIM; ++a) {
+            if (palive) {  // rebase into the block and re-derive every cell
+              np_[a] = gp[a] - g.org[a];
+              nci[a] = min(max((int)(np_[a] * g.inv_dx[a]), 0), g.n[a] - 1);
+            } else {
+              nci[a] = min(max(nci[a], 0), g.n[a] - 1);
+            }
           }
         }
       }
@@ -486,6 +723,7 @@ __global__ void __launch_bounds__(kThreads)
     L.alive[s] = palive ? 1 : 0;
     if (ABSORB && pabsorbed) L.absorbed[s] = 1;
     if (DDMC) L.face[s] = pface;
+    if (SMR) L.blk[s] = blk;
   }
 
   // block reduction of the per-thread event counts (one event per iteration)
@@ -515,36 +753,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int NDIM, bool ABSORB, bool DDMC>
-void launch(const Ledger& L, const float* table, int n, const Geom& g,
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR>
+void launch(const Ledger& L, const float* table, const Forest& F, int n, const Geom& g,
             unsigned long long* events, int32_t* iters, cudaStream_t stream) {
-  transport_kernel<NDIM, ABSORB, DDMC>
-      <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, n, g, events, iters);
+  transport_kernel<NDIM, ABSORB, DDMC, SMR>
+      <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, events, iters);
+}
+
+template <int NDIM, bool SMR>
+void launch_mode(bool absorb, bool ddmc, const Ledger& L, const float* table, const Forest& F,
+                 int n, const Geom& g, unsigned long long* events, int32_t* iters,
+                 cudaStream_t stream) {
+  if (!absorb && !ddmc) launch<NDIM, false, false, SMR>(L, table, F, n, g, events, iters, stream);
+  if (absorb && !ddmc) launch<NDIM, true, false, SMR>(L, table, F, n, g, events, iters, stream);
+  if (!absorb && ddmc) launch<NDIM, false, true, SMR>(L, table, F, n, g, events, iters, stream);
+  if (absorb && ddmc) launch<NDIM, true, true, SMR>(L, table, F, n, g, events, iters, stream);
 }
 
 template <int NDIM>
-void launch_dim(bool absorb, bool ddmc, const Ledger& L, const float* table, int n,
-                const Geom& g, unsigned long long* events, int32_t* iters,
-                cudaStream_t stream) {
-  if (!absorb && !ddmc) launch<NDIM, false, false>(L, table, n, g, events, iters, stream);
-  if (absorb && !ddmc) launch<NDIM, true, false>(L, table, n, g, events, iters, stream);
-  if (!absorb && ddmc) launch<NDIM, false, true>(L, table, n, g, events, iters, stream);
-  if (absorb && ddmc) launch<NDIM, true, true>(L, table, n, g, events, iters, stream);
+void launch_dim(bool absorb, bool ddmc, bool smr, const Ledger& L, const float* table,
+                const Forest& F, int n, const Geom& g, unsigned long long* events,
+                int32_t* iters, cudaStream_t stream) {
+  if (smr) {
+    launch_mode<NDIM, true>(absorb, ddmc, L, table, F, n, g, events, iters, stream);
+  } else {
+    launch_mode<NDIM, false>(absorb, ddmc, L, table, F, n, g, events, iters, stream);
+  }
 }
 
 }  // namespace
 
-// ptrs: 13 device pointers x y z vx vy vz tau i j k alive absorbed face.
+// ptrs: 14 device pointers x y z vx vy vz tau i j k alive absorbed face block.
 // table: per cell, the float2 (p_abs, 1 / sigma_t) without DDMC, the 8 floats
-// (ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi) with it (16-byte aligned).
-// igeom: n[3] bc[6] max_iters seed; fgeom: dx[3] inv_dx[3] org[3] lo[3] hi[3]
-// lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc eps_imc eps_ddmc
-// dt inv_dt lam2 pf2_num (host arrays).
-// Returns cudaGetLastError() after the launch, or -1 for an unknown ndim.
-extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, void* const* ptrs,
-                                   const void* table, int n, const int* igeom,
-                                   const float* fgeom, void* events, void* iters,
-                                   void* stream) {
+// (ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi) with it (16-byte aligned);
+// in global row-major cell order on a uniform forest, block cell order with SMR.
+// With smr: block_table (per block the 8 floats dx dy dz 0 ox oy oz 0, 16-byte
+// aligned), levels (int32 per block) and lookup (the int32 lookup grid); null
+// otherwise.
+// igeom: n[3] bc[6] max_iters seed nt[3]; fgeom: dx[3] inv_dx[3] org[3] lo[3]
+// hi[3] lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc eps_imc
+// eps_ddmc dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] (host
+// arrays).
+// Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
+// SMR launch without its tables.
+extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, void* const* ptrs,
+                                   const void* table, const void* block_table,
+                                   const void* levels, const void* lookup, int n,
+                                   const int* igeom, const float* fgeom, void* events,
+                                   void* iters, void* stream) {
   Ledger L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (float*)ptrs[a];
@@ -555,6 +811,11 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, void* const* 
   L.alive = (uint8_t*)ptrs[10];
   L.absorbed = (uint8_t*)ptrs[11];
   L.face = (int32_t*)ptrs[12];
+  L.blk = (int32_t*)ptrs[13];
+  Forest F;
+  F.block = (const float4*)block_table;
+  F.level = (const int32_t*)levels;
+  F.lookup = (const int32_t*)lookup;
 
   Geom g;
   const int* ip = igeom;
@@ -562,6 +823,7 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, void* const* 
   for (int a = 0; a < 6; ++a) g.bc[a] = *ip++;
   g.max_iters = *ip++;
   g.seed = (uint32_t)*ip++;
+  for (int a = 0; a < 3; ++a) g.nt[a] = *ip++;
   const float* fp = fgeom;
   float* dst[8] = {g.dx, g.inv_dx, g.org, g.lo, g.hi, g.lo_half, g.hi_half, g.span};
   for (int k = 0; k < 8; ++k)
@@ -578,18 +840,23 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, void* const* 
   g.inv_dt = *fp++;
   g.lam2 = *fp++;
   g.pf2_num = *fp++;
-  static_assert(kGeomInts == 11 && kGeomFloats == 36, "geometry layout");
+  float* smr_dst[3] = {g.tile, g.nudge_cross, g.nudge_tilt};
+  for (int k = 0; k < 3; ++k)
+    for (int a = 0; a < 3; ++a) smr_dst[k][a] = *fp++;
+  static_assert(kGeomInts == 14 && kGeomFloats == 45, "geometry layout");
 
   if (ndim < 1 || ndim > 3) return -1;
+  const bool sm = smr != 0;
+  if (sm && (block_table == nullptr || levels == nullptr || lookup == nullptr)) return -2;
   if (n > 0) {
     const float* tab = (const float*)table;
     auto* ev = (unsigned long long*)events;
     auto* itp = (int32_t*)iters;
     auto st = (cudaStream_t)stream;
     const bool ab = absorb != 0, dd = ddmc != 0;
-    if (ndim == 1) launch_dim<1>(ab, dd, L, tab, n, g, ev, itp, st);
-    if (ndim == 2) launch_dim<2>(ab, dd, L, tab, n, g, ev, itp, st);
-    if (ndim == 3) launch_dim<3>(ab, dd, L, tab, n, g, ev, itp, st);
+    if (ndim == 1) launch_dim<1>(ab, dd, sm, L, tab, F, n, g, ev, itp, st);
+    if (ndim == 2) launch_dim<2>(ab, dd, sm, L, tab, F, n, g, ev, itp, st);
+    if (ndim == 3) launch_dim<3>(ab, dd, sm, L, tab, F, n, g, ev, itp, st);
   }
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,46 @@ class MeshGeometry:
         """Global flat cell index for segment reductions."""
         return ((b * self.nz + k) * self.ny + j) * self.nx + i
 
+    @property
+    def block_meta(self) -> torch.Tensor:
+        """Packed per-block geometry ``[B, 6] = (dx, dy, dz, ox, oy, oz)``."""
+        return torch.cat([self.block_dx, self.block_origin], dim=1)
+
+    def tile_edges(self) -> tuple:
+        """The (x, y, z) edge of a lookup tile as float32 scalars: the JAX package's
+        Python-float ``(hi - lo) / nt`` rounded to float32 where the f32 arrays
+        meet it."""
+        b = self.bounds
+        ntz, nty, ntx = self.tile_shape
+        return tuple(np.float32((b[2 * a + 1] - b[2 * a]) / n)
+                     for a, n in enumerate((ntx, nty, ntz)))
+
+    def _f32(self, v):
+        return torch.tensor(float(np.float32(v)), dtype=torch.float32, device=self.device)
+
+    def locate_block(self, x, y, z):
+        """Position -> owning block id, by ``floor`` binning into the lookup grid
+        and clipping to it (positions inside the domain: callers apply the
+        boundary conditions first)."""
+        ntz, nty, ntx = self.tile_shape
+        edge = self.tile_edges()
+        t = [
+            torch.clamp(torch.floor((q - self._f32(self.bounds[2 * a])) / self._f32(edge[a]))
+                        .to(torch.int32), 0, n - 1).long()
+            for a, (q, n) in enumerate(((x, ntx), (y, nty), (z, ntz)))
+        ]
+        return self.lookup[t[2], t[1], t[0]]
+
+    def cell_of_local(self, b, lx, ly, lz):
+        """Cell indices (i, j, k) of a block-local position, ``floor(l / dx)``
+        clipped to the block: a just-migrated particle on a face goes to the
+        boundary cell, the one it entered through."""
+        dx = self.block_dx[b.long()]
+        return tuple(
+            torch.clamp(torch.floor(q / dx[..., a]).to(torch.int32), 0, n - 1)
+            for a, (q, n) in enumerate(((lx, self.nx), (ly, self.ny), (lz, self.nz)))
+        )
+
     def cell_centers(self):
         """Physical cell-center coordinate arrays (xc, yc, zc), each f[B, nz, ny, nx]."""
         dev, dt = self.device, self.block_dx.dtype

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library with a
-plain C interface, loaded with ``ctypes``. The build runs at first use, into
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The build runs at first use, into
 ``jaybenne_tpu_torch/_build/`` (listed in ``.gitignore``), under a file name keyed
 by a hash of the sources and flags, so an edited source rebuilds and an unchanged
 one loads at once. Nothing here runs at import time: this module imports on a
@@ -35,7 +36,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -44,8 +45,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
     "jb_transport_launch": (
-        _I, _I, _I,      # ndim absorb ddmc
-        _P, _P, _I,      # host array of 13 ledger pointers, cell table, n
+        _I, _I, _I, _I,  # ndim absorb ddmc smr
+        _P, _P,          # host array of 14 ledger pointers, cell table
+        _P, _P, _P,      # block table, block levels, lookup grid (SMR; else null)
+        _I,              # n
         _P, _P,          # host int and float geometry arrays
         _P, _P, _P,      # events iters stream
     ),
@@ -95,14 +98,23 @@ def library() -> CudaLibrary:
         return CudaLibrary(so, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    log = "".join(logs) + res.stdout + res.stderr
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if res.returncode != 0 or any(proc.returncode != 0 for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, so)
-    return CudaLibrary(so, seconds, res.stdout + res.stderr)
+    return CudaLibrary(so, seconds, log)
 
 
 def stream_handle(device) -> int:

@@ -7,27 +7,31 @@ Fleck factor (Fleck & Cummings 1971), per cell::
 DDMC face probability (Habetler-Matkowsky extrapolation, lambda_ext = 0.7104), per
 face between cells l (lower) and u (upper)::
 
-    tau_s = dx * (sigma_s + sigma_a)_s      for side s in {l, u}, dx along the face axis
+    tau_s = dx_s * (sigma_s + sigma_a)_s    for side s in {l, u}, dx_s along the face axis
     tau_s = tau_s            if tau_s > tau_ddmc
           = 2 * lambda_ext   otherwise
     P     = 2 / (3 * (tau_l + tau_u))
 
-A face on the domain boundary takes its outer side from the field boundary
-conditions: the opposite boundary cell on a periodic axis, the cell itself (a
-zero-gradient ghost) otherwise.
+where ``dx_s`` is the cell size of the side's own block. A face on the domain
+boundary takes its outer side from the field boundary conditions: the opposite
+boundary cell on a periodic axis, the cell itself (a zero-gradient ghost)
+otherwise.
 
-The JAX package evaluates each side by locating a point a quarter cell from the
-face in its block forest, which on a uniform forest lands exactly in the index
-neighbour; here the sides are index neighbours on the global grid, which gives the
-same numbers. Static refinement (ROADMAP Queue 2, K1(d)) and the shard-local
-variant of the spatial decomposition (item 17) are not ported.
+The JAX package evaluates each side by locating a point a quarter local cell from
+the face in its block forest. On a uniform forest that lands exactly in the index
+neighbour, so there the sides are index neighbours on the global grid, which gives
+the same numbers. On a refined forest (``max_level > 0``) the port samples
+positions as the JAX package does: the point is wrapped (periodic field BC) or
+clamped into the domain, located in the forest, and the owning cell's
+``sigma_t dx`` of its own block is read. A coarse/fine face then holds a
+different value on each side's block. The shard-local variant of the spatial
+decomposition (ROADMAP Queue 1, item 17) is not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import not_ported
 from ..utils.constants import LAM_EXT
 from .transport_kernel import to_global_cells
 
@@ -66,7 +70,7 @@ def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
     ``periodic_flags``: (x, y, z) bools from the *field* boundary conditions.
     """
     if mesh.max_level > 0:
-        raise not_ported("DDMC face probabilities on a refined mesh", "Queue 2, K1(d)")
+        return _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype)
     B, nz, ny, nx = sigma_t.shape
     shapes = ((B, nz, ny, nx + 1), (B, nz, ny + 1, nx), (B, nz + 1, ny, nx))
     out = []
@@ -85,4 +89,62 @@ def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
         upper = torch.where(upper > tau_ddmc, upper, thin)
         p = (2.0 / (3.0 * (lower + upper))).to(dtype).movedim(-1, 2 - axis)
         out.append(_block_faces(p, mesh, axis))
+    return tuple(out)
+
+
+def _wrap_or_clamp(coord, lo, hi, periodic):
+    """A sample point's coordinate brought into [lo, hi] by the field BC: wrapped
+    on a periodic axis, clamped otherwise (float32, as the JAX package rounds it)."""
+    dev = coord.device
+    lo32 = torch.tensor(lo, dtype=torch.float32, device=dev)
+    if periodic:
+        span = torch.tensor(hi - lo, dtype=torch.float32, device=dev)
+        return lo32 + torch.remainder(coord - lo32, span)
+    return torch.clamp(coord, lo32, torch.tensor(hi, dtype=torch.float32, device=dev))
+
+
+def _sample_tau(mesh, tau_flat, pos, axis, periodic_flags):
+    """``tau`` along ``axis`` of the cell owning the physical point ``pos``."""
+    b = mesh.bounds
+    p = [_wrap_or_clamp(pos[a], b[2 * a], b[2 * a + 1], periodic_flags[a]) for a in range(3)]
+    blk = mesh.locate_block(*p)
+    org = mesh.block_origin[blk.long()]
+    i, j, k = mesh.cell_of_local(blk, *(p[a] - org[..., a] for a in range(3)))
+    flat = mesh.flat_cell(blk.long(), k.long(), j.long(), i.long())
+    return tau_flat[flat, axis]
+
+
+def _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
+    """``ddmc_face_probs`` on a refined forest: each face's two sides sampled a
+    quarter local cell to either side of its centre (``jaybenne_tpu/ops/fleck.py``
+    ``ddmc_face_probs``)."""
+    B, nz, ny, nx = sigma_t.shape
+    dev = sigma_t.device
+    dxv = mesh.block_dx.to(dtype)
+    tau_flat = (sigma_t[..., None] * dxv[:, None, None, None, :]).reshape(-1, 3).to(dtype)
+    org = mesh.block_origin.to(dtype)
+    thin = torch.tensor(2.0 * LAM_EXT, dtype=dtype, device=dev)
+    shapes = ((B, nz, ny, nx + 1), (B, nz, ny + 1, nx), (B, nz + 1, ny, nx))
+    out = []
+    for axis in range(3):
+        if axis >= mesh.ndim:
+            out.append(torch.zeros(shapes[axis], dtype=dtype, device=dev))
+            continue
+        pos = []
+        for a, n in enumerate((nx, ny, nz)):
+            f = torch.arange(n + (a == axis), dtype=dtype, device=dev)
+            if a != axis:
+                f = f + 0.5
+            view = [1, 1, 1, 1]
+            view[3 - a] = -1
+            pos.append((org[:, a].reshape(B, 1, 1, 1) + f.reshape(view)
+                        * dxv[:, a].reshape(B, 1, 1, 1)).expand(shapes[axis]))
+        off = 0.25 * dxv[:, axis].reshape(B, 1, 1, 1)
+        sides = []
+        for sgn in (-1, 1):
+            q = list(pos)
+            q[axis] = pos[axis] - off if sgn < 0 else pos[axis] + off
+            tau = _sample_tau(mesh, tau_flat, q, axis, periodic_flags)
+            sides.append(torch.where(tau > tau_ddmc, tau, thin))
+        out.append((2.0 / (3.0 * (sides[0] + sides[1]))).to(dtype))
     return tuple(out)

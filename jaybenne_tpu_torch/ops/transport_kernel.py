@@ -1,11 +1,12 @@
-"""Census transport: gray IMC, or hybrid IMC/DDMC, on a uniform single-level mesh
-in 1D, 2D or 3D, with or without absorption.
+"""Census transport: gray IMC, or hybrid IMC/DDMC, on a uniform or statically
+refined mesh in 1D, 2D or 3D, with or without absorption.
 
 Port of ``jaybenne_tpu/ops/pallas_transport.py::_transport_kernel`` (K1) in its
-gray configurations on uniform forests (K1(a), K1(b), K1(c) DDMC and the gray part
-of K1(e)), and of ``jaybenne_tpu/ops/pallas_grid.py::_grid_kernel`` (K3) in the
-same configurations: the JAX package runs the second on meshes whose tables do not
-fit VMEM, which here is no limit, so one kernel covers both.
+gray configurations (K1(a), K1(b), K1(c) DDMC, K1(d) static refinement and the
+gray part of K1(e)), of ``jaybenne_tpu/ops/pallas_grid.py::_grid_kernel`` (K3) and
+of the gray function of ``jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel``
+(K4): the JAX package runs the last two on meshes or forests whose tables do not
+fit VMEM, which here is no limit, so one kernel covers all three.
 
 ``transport`` runs the census for a ledger: the CUDA kernel
 (``csrc/transport_kernel.cu``) for CUDA tensors, its plain version for CPU tensors.
@@ -26,6 +27,13 @@ global row-major cell order. With DDMC the table row of a cell also carries its
 faces' probabilities (``_face_pairs``, the JAX ``_face_pair_vectors``), and the
 ledger's ``face`` column (the face-arrival code of the albedo test) is read and
 written.
+
+A refined forest (``max_level > 0``) keeps the ledger block-local and the cell
+table in block cell order, and the census reads and writes the ``block`` column:
+each event gathers its block's cell size, and a particle that leaves its block is
+re-homed by the block lookup grid (K1(d), ``pallas_transport.py:973-1020``). With
+DDMC in 2D/3D a leak into a finer block is re-seated on one of the fine faces
+around its coarse landing point (``:1022-1151``).
 
 Configurations the kernel does not take raise ``NotImplementedError`` naming their
 ROADMAP item, on every device: nothing falls back to another loop.
@@ -54,13 +62,12 @@ def check_supported(mesh, prm, dtype) -> None:
     configuration."""
     if dtype != torch.float32:
         raise not_ported("precision = f64 (the XLA event loop's port)", "Queue 1, item 7")
-    if mesh.max_level > 0:
-        raise not_ported("static mesh refinement in the census kernel", "Queue 2, K1(d)")
 
 
-def launch_name(ndim: int, absorb: bool, ddmc: bool = False) -> str:
+def launch_name(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False) -> str:
     """The ``cuda_lib.LAUNCHES`` key of one kernel instantiation."""
-    return f"transport_{ndim}d" + ("_abs" if absorb else "") + ("_ddmc" if ddmc else "")
+    return (f"transport_{ndim}d" + ("_abs" if absorb else "") + ("_ddmc" if ddmc else "")
+            + ("_smr" if smr else ""))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +78,11 @@ class _Geom:
     ndim: int
     absorb: bool
     ddmc: bool
-    n: tuple        # cells per axis of the collapsed single block
+    smr: bool       # a refined forest: per-block geometry and the lookup grid
+    n: tuple        # cells per axis of the collapsed single block (of a block with SMR)
     bc: tuple       # six BC codes (ix1, ox1, ix2, ox2, ix3, ox3)
+    # the collapsed single block's cell size, its reciprocal, its origin and dmin;
+    # SMR gathers them per block instead
     dx: tuple
     inv_dx: tuple
     org: tuple
@@ -94,21 +104,38 @@ class _Geom:
     inv_dt: np.float32   # f32(1) / f32(dt), as the JAX kernel takes it in f32
     lam2: np.float32     # 2 lambda_ext
     pf2_num: np.float32  # the albedo probability's numerator 2 (2 / 3)
+    # SMR only: the lookup grid's tiles per axis, a tile's f32 edge, and the probe
+    # nudges f32(0.5 finest) along a crossed face's normal and f32(0.01 finest)
+    # along the other axes
+    ntiles: tuple = (1, 1, 1)
+    tile: tuple = (np.float32(0.0),) * 3
+    nudge_cross: tuple = (np.float32(0.0),) * 3
+    nudge_tilt: tuple = (np.float32(0.0),) * 3
 
 
 def _geometry(mesh, prm, dt) -> _Geom:
     f32 = np.float32
     b = mesh.bounds
-    nrb = mesh.root_grid[::-1]  # root blocks per axis (x, y, z)
+    smr = mesh.max_level > 0
+    nrb = (1, 1, 1) if smr else mesh.root_grid[::-1]  # root blocks per axis (x, y, z)
     n = tuple(nrb[a] * (mesh.nx, mesh.ny, mesh.nz)[a] for a in range(3))
     dx = tuple((b[2 * a + 1] - b[2 * a]) / n[a] for a in range(3))
     c = f32(prm.c)
     cdt = c * f32(dt)
     half = [f32(0.5 * mesh.finest[a]) for a in range(3)]
+    smr_geom = {}
+    if smr:
+        smr_geom = dict(
+            ntiles=mesh.tile_shape[::-1],
+            tile=mesh.tile_edges(),
+            nudge_cross=tuple(half),
+            nudge_tilt=tuple(f32(0.01 * mesh.finest[a]) for a in range(3)),
+        )
     return _Geom(
         ndim=prm.ndim,
         absorb=bool(prm.has_absorption),
         ddmc=bool(prm.use_ddmc),
+        smr=smr,
         n=n,
         bc=tuple(_BC_CODE[v] for v in prm.swarm_bc),
         dx=tuple(f32(v) for v in dx),
@@ -131,6 +158,7 @@ def _geometry(mesh, prm, dt) -> _Geom:
         inv_dt=f32(1.0) / f32(dt),
         lam2=f32(2.0 * LAM_EXT),
         pf2_num=f32(2.0 * (2.0 / 3.0)),
+        **smr_geom,
     )
 
 
@@ -161,8 +189,36 @@ def _face_pairs(coefs, mesh):
                                     pz[:, :nz], pz[:, 1:])]
 
 
+@dataclasses.dataclass(frozen=True)
+class _Tables:
+    """What the census gathers from: the per-cell table and, on a refined forest,
+    the block table [B, 8] = (dx, dy, dz, 0, ox, oy, oz, 0) read as two float4,
+    the int32 level of each block and the flat int32 lookup grid ((z, y, x)
+    row-major, x fastest)."""
+
+    cell: torch.Tensor
+    block: torch.Tensor | None = None
+    level: torch.Tensor | None = None
+    lookup: torch.Tensor | None = None
+
+
+def _tables(coefs, mesh, g: _Geom) -> _Tables:
+    cell = _pair_table(coefs, mesh, g.absorb, g.ddmc)
+    if not g.smr:
+        return _Tables(cell)
+    # slices, not an index list: a list index is a host tensor copied to the card,
+    # which would synchronise the host with the queue at every census
+    block = torch.zeros((mesh.n_blocks, 8), dtype=torch.float32, device=cell.device)
+    block[:, 0:3] = mesh.block_dx.to(block)
+    block[:, 4:7] = mesh.block_origin.to(block)
+    return _Tables(cell, block,
+                   mesh.block_level.to(device=cell.device, dtype=torch.int32).contiguous(),
+                   mesh.lookup.to(device=cell.device, dtype=torch.int32).reshape(-1).contiguous())
+
+
 def _pair_table(coefs, mesh, absorb, ddmc):
-    """The kernel's per-cell table in global row-major cell order, from the
+    """The kernel's per-cell table (global row-major cell order on a uniform
+    forest, block cell order on a refined one), from the
     effective rates ``ea = fleck sigma_a`` and ``es = sigma_s + (1 - fleck)
     sigma_a`` (without absorption ``ea = 0``, ``es = sigma_s``): without DDMC the
     f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor, with DDMC the [NC, 8]
@@ -182,7 +238,7 @@ def _pair_table(coefs, mesh, absorb, ddmc):
     else:
         inv = 1.0 / (ea + es + _TINY)
         cols = [ea * inv, inv]
-    if mesh.n_blocks > 1:
+    if mesh.n_blocks > 1 and mesh.max_level == 0:
         cols = [to_global_cells(v, mesh) for v in cols]
     return torch.stack(cols, dim=1).contiguous()
 
@@ -195,8 +251,9 @@ def _block_shifts(mesh):
 
 
 def _collapse(p, mesh):
-    """Shift block-local state to the single synthetic block (in place)."""
-    if mesh.n_blocks == 1:
+    """Shift block-local state to the single synthetic block (in place); a
+    refined forest stays block-local."""
+    if mesh.n_blocks == 1 or mesh.max_level > 0:
         return
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
@@ -210,7 +267,7 @@ def _collapse(p, mesh):
 
 def _expand(p, mesh):
     """Inverse of ``_collapse``: recover the owning block from the global indices."""
-    if mesh.n_blocks == 1:
+    if mesh.n_blocks == 1 or mesh.max_level > 0:
         return
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
@@ -228,9 +285,11 @@ def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, i
                 fl, fu):
     """The DDMC event of the lanes ``is_ddmc`` (pallas_transport.py:655-870), drawing
     after the IMC event's variates. ``k`` holds the f32 scalars of
-    ``_census_plain``, ``pf`` the [NC]-gathered (P_lower, P_upper) per axis.
-    Returns (positions, index shifts, velocities, tau, absorbed): the values of
-    every lane, of which the caller keeps those of ``is_ddmc``."""
+    ``_census_plain`` (``dx`` and ``inv_dx`` per lane with SMR), ``pf`` the
+    gathered (P_lower, P_upper) per axis. Returns (positions, index shifts,
+    velocities, tau, absorbed, leak code): the values of every lane, of which the
+    caller keeps those of ``is_ddmc``; the leak code is -(axis + 1) for a leak
+    through a lower face, +(axis + 1) through an upper one, else 0."""
     nd = g.ndim
     c, zero, one = k["c"], k["zero"], k["one"]
     dx, inv_dx = k["dx"], k["inv_dx"]
@@ -300,12 +359,14 @@ def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, i
     dd_pos, dd_shift, dd_vel = list(pos), [torch.zeros_like(i) for i in idx], list(vel)
     h = hemisphere()
     centre = [fl[a] + 0.5 * dx[a] for a in range(nd)]
+    leak = torch.zeros_like(face)
     for e in range(2 * nd):
         a = e // 2
         for t in range(nd):  # transverse coordinates at the cell centre
             if t != a:
                 dd_pos[t] = torch.where(leak_sel[e], centre[t], dd_pos[t])
         place(leak_sel[e], a, e % 2 == 0, k["eps_ddmc"], h, dd_pos, dd_shift, dd_vel)
+        leak = torch.where(leak_sel[e], -(a + 1) if e % 2 == 0 else a + 1, leak)
 
     # census: uniform position in the cell, isotropic direction
     dd_census = do_step & ~is_event
@@ -325,10 +386,107 @@ def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, i
     dd_shift = [torch.where(rejected, r, v) for r, v in zip(rj_shift, dd_shift)]
     dd_vel = [torch.where(rejected, r, v) for r, v in zip(rj_vel, dd_vel)]
     dd_tau = torch.where(rejected, tau, dd_tau)
-    return dd_pos, dd_shift, dd_vel, dd_tau, dd_abs
+    return dd_pos, dd_shift, dd_vel, dd_tau, dd_abs, torch.where(rejected, 0, leak)
 
 
-def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
+def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi, nvel,
+                  leak, cell_of):
+    """The lanes that left their block on a refined forest (K1(d),
+    pallas_transport.py:973-1151): the lookup probe, half a finest cell along a
+    crossed face's normal and ``0.01 finest v / c`` along the other axes, binned
+    by ``floor``; the rebase into the new block; and with DDMC in 2D/3D the
+    coarse-to-fine subface resample of a leak into a finer block. Computed for
+    every lane; the caller keeps the lanes that left. Returns (block, local
+    positions, cell indices, velocities)."""
+    nd = g.ndim
+    f32 = torch.float32
+    t = []
+    for a in range(nd):
+        sg = torch.where(out_hi[a], 1.0, 0.0) - torch.where(out_lo[a], 1.0, 0.0)
+        probe = gp[a] + torch.where(sg != 0.0, k["nudge_cross"][a] * sg,
+                                    k["nudge_tilt"][a] * (nvel[a] * k["inv_c"]))
+        t.append(torch.clamp(torch.floor((probe - k["lo"][a]) / k["tile"][a]).to(torch.int32),
+                             0, g.ntiles[a] - 1).long())
+    tidx = t[0]
+    if nd >= 2:
+        tidx = t[1] * g.ntiles[0] + tidx
+    if nd == 3:
+        tidx = (t[2] * g.ntiles[1] + t[1]) * g.ntiles[0] + t[0]
+    b_new = tabs.lookup[tidx]
+    row = tabs.block[b_new.long()]
+    ndx = [row[:, a] for a in range(nd)]
+    loc = [gp[a] - row[:, 4 + a] for a in range(nd)]
+    idx = [torch.clamp(torch.floor(loc[a] / ndx[a]).to(torch.int32), 0, g.n[a] - 1)
+           for a in range(nd)]
+    vel = list(nvel)
+    if not (g.ddmc and nd >= 2):
+        return b_new, loc, idx, vel
+
+    # coarse -> fine subface resample: the leak landed at the transverse centre of
+    # its coarse cell, on the edge (2D) or corner (3D) of 2 or 4 fine faces
+    refine = (leak != 0) & (tabs.level[b_new.long()] > tabs.level[blk.long()])
+    leak_axis = leak.abs() - 1
+    lsgn = torch.sign(leak).to(f32)
+    u_sel = pool.u16(it)
+    u_t = [pool.u16(it) for _ in range(nd - 1)]
+    smu = torch.sqrt(pool.u16(it))
+    snu = torch.sqrt(torch.clamp_min(1.0 - smu * smu, 0.0))
+    sph, ssh = pool.circle(it)
+    hemi = (smu, snu * sph, snu * ssh)
+    take_upper = lsgn < 0.0  # a leak in -axis enters the upper face of the last cell
+    n = g.n
+
+    def face_prob(ax, ijk):
+        """The fine block's P_lower (leak in +axis) or P_upper of axis ``ax``."""
+        flat = cell_of(b_new.long(), [q.long() for q in ijk])
+        r = tabs.cell[flat]
+        return torch.where(take_upper, r[:, 3 + 2 * ax], r[:, 2 + 2 * ax])
+
+    for ax in range(nd):
+        m = refine & (leak_axis == ax)
+        f_ax = torch.where(lsgn > 0, 0, n[ax] - 1).to(torch.int32)
+        trans = [q for q in range(nd) if q != ax]
+        edges = []
+        for q in trans:
+            e = torch.clamp(torch.round(loc[q] / torch.clamp_min(ndx[q], k["tiny"]))
+                            .to(torch.int32), 1, n[q] - 1)
+            edges.append((e - 1, e))
+
+        def at(*cs):
+            ijk = list(idx)
+            ijk[ax] = f_ax
+            for q, cq in zip(trans, cs):
+                ijk[q] = cq
+            return ijk
+
+        if nd == 2:
+            (lo1, hi1), = edges
+            p_l, p_u = face_prob(ax, at(lo1)), face_prob(ax, at(hi1))
+            sel = [torch.where(u_sel * (p_l + p_u) >= p_l, hi1, lo1)]
+        else:
+            (lo1, hi1), (lo2, hi2) = edges
+            cands = [(lo1, lo2), (hi1, lo2), (lo1, hi2), (hi1, hi2)]
+            probs = [face_prob(ax, at(*cs)) for cs in cands]
+            xi = u_sel * (probs[0] + probs[1] + probs[2] + probs[3] + k["tiny"])
+            cum = k["zero"]
+            sel = [hi1, hi2]  # the numerical fall-through takes the last candidate
+            chosen = torch.zeros_like(m)
+            for cs, pr in zip(cands, probs):
+                hit = ~chosen & (xi < cum + pr)
+                sel = [torch.where(hit, cq, sq) for cq, sq in zip(cs, sel)]
+                chosen = chosen | hit
+                cum = cum + pr
+        for q, sq, u in zip(trans, sel, u_t):
+            idx[q] = torch.where(m, sq, idx[q])
+            loc[q] = torch.where(m, (sq.to(f32) + u) * ndx[q], loc[q])
+        # hemisphere direction into the block, in the cyclic axis order
+        vs = (k["c"] * lsgn * hemi[0], k["c"] * hemi[1], k["c"] * hemi[2])
+        for q in range(3):
+            vel[(ax + q) % 3] = torch.where(m, vs[q], vel[(ax + q) % 3])
+    return b_new, loc, idx, vel
+
+
+def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
     """All lanes advance one event per loop step (the JAX kernel's tile loop over
     the whole ledger). Returns (iterations, events) as tensors."""
     dev = p.x.device
@@ -347,7 +505,9 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
     dmin, c, inv_c, cdt, inv_cdt = (s(v) for v in (g.dmin, g.c, g.inv_c, g.cdt,
                                                    g.inv_cdt))
     one, zero = s(1.0), s(0.0)
-    k = dict(c=c, inv_c=inv_c, one=one, zero=zero, dx=dx, inv_dx=inv_dx,
+    k = dict(c=c, inv_c=inv_c, one=one, zero=zero, dx=dx, inv_dx=inv_dx, lo=lo,
+             tiny=s(_TINY), tile=axes(g.tile), nudge_cross=axes(g.nudge_cross),
+             nudge_tilt=axes(g.nudge_tilt),
              **{name: s(getattr(g, name)) for name in ("eps_imc", "eps_ddmc", "dt", "inv_dt",
                                                        "lam2", "pf2_num")})
     lanes = torch.arange(p.capacity, dtype=torch.int64, device=dev)
@@ -355,9 +515,24 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
     def raw(it, tag):
         return raw_bits_plain(seed, lanes, it, tag)
 
+    def cell_of(blk, ijk):
+        """Cell table row: global row-major on a uniform forest, block order with SMR."""
+        if g.smr:
+            cell = blk
+            for a in reversed(range(nd)):
+                cell = cell * g.n[a] + ijk[a]
+            return cell
+        cell = ijk[0]
+        if nd == 2:
+            cell = ijk[1] * g.n[0] + cell
+        elif nd == 3:
+            cell = (ijk[2] * g.n[1] + ijk[1]) * g.n[0] + cell
+        return cell
+
     pos = [p.x, p.y, p.z][:nd]
     idx = [p.i, p.j, p.k][:nd]
     vel = [p.vx, p.vy, p.vz]
+    blk = p.block
     tau, alive, absorbed, face = p.tau, p.alive, p.absorbed, p.face
     events = torch.zeros((), dtype=torch.int64, device=dev)
     it = 0
@@ -366,12 +541,15 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
         if not bool(active.any()):
             break
         pool = DrawPool(raw)
-        cell = idx[0].long()
-        if nd == 2:
-            cell = idx[1].long() * g.n[0] + cell
-        elif nd == 3:
-            cell = (idx[2].long() * g.n[1] + idx[1].long()) * g.n[0] + cell
-        row = table[cell]
+        if g.smr:  # the lane's block geometry
+            brow = tabs.block[blk.long()]
+            dx = [brow[:, a] for a in range(nd)]
+            dmin = dx[0]
+            for a in range(1, nd):
+                dmin = torch.minimum(dmin, dx[a])
+            if g.ddmc:
+                k["dx"], k["inv_dx"] = dx, [one / d for d in dx]
+        row = tabs.cell[cell_of(blk.long(), [q.long() for q in idx])]
         if g.ddmc:  # rows (ea, es, P_lower, P_upper per axis)
             ea = row[:, 0] if g.absorb else None
             sig_t = row[:, 1] if ea is None else ea + row[:, 1]
@@ -433,13 +611,14 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
         nvel = [torch.where(i_sc, nv, v) for nv, v in zip(new_v, vel)]
         nalive = alive if i_abs is None else alive & ~i_abs
 
+        leak = None
         if g.ddmc:
             # face-arrival code: +-(axis + 1) after a crossing, else 0
             nface = torch.zeros_like(face)
             for a in range(nd):
                 nface = torch.where(cr[a], torch.where(vel[a] > 0, a + 1, -(a + 1)), nface)
             pf = [row[:, 2 + e] for e in range(2 * nd)]
-            dd_pos, dd_shift, dd_vel, dd_tau, dd_abs = _ddmc_plain(
+            dd_pos, dd_shift, dd_vel, dd_tau, dd_abs, dd_leak = _ddmc_plain(
                 pool, it, g, k, is_ddmc, ea, sig_t, pf, face, tau, pos, idx, vel, fl, fu)
             npos = [torch.where(is_ddmc, q, v) for q, v in zip(dd_pos, npos)]
             nidx = [torch.where(is_ddmc, i + sh, v) for i, sh, v in zip(idx, dd_shift, nidx)]
@@ -448,11 +627,13 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
             nalive = nalive & ~dd_abs
             i_abs = dd_abs if i_abs is None else i_abs | dd_abs
             nface = torch.where(is_ddmc, 0, nface)
+            leak = torch.where(is_ddmc, dd_leak, 0)
 
         # domain boundaries: half-finest-cell tolerant hit test, then clip
         out_lo = [nidx[a] < 0 for a in range(nd)]
         out_hi = [nidx[a] >= g.n[a] for a in range(nd)]
-        gp = [org[a] + npos[a] for a in range(nd)]
+        box = [brow[:, 4 + a] for a in range(nd)] if g.smr else org
+        gp = [box[a] + npos[a] for a in range(nd)]
         for a in range(nd):
             hits = ((out_lo[a] & (gp[a] <= lo_half[a]), g.bc[2 * a], 1.0, lo[a]),
                     (out_hi[a] & (gp[a] >= hi_half[a]), g.bc[2 * a + 1], -1.0, hi[a]))
@@ -472,11 +653,18 @@ def _census_plain(p, table, g: _Geom, seed: int, max_iters: int):
         for a in range(1, nd):
             out = out | out_lo[a] | out_hi[a]
         out = out & nalive
+        if g.smr:  # re-home by the lookup grid
+            b_new, la, ra, rvel = _rehome_plain(pool, it, g, k, tabs, blk, gp, out_lo, out_hi,
+                                                nvel, leak, cell_of)
+            nvel = [torch.where(out, rv, v) for rv, v in zip(rvel, nvel)]
+            blk.copy_(torch.where(out, b_new, blk))
+        else:  # rebase into the single block
+            la = [gp[a] - org[a] for a in range(nd)]
+            ra = [torch.clamp((la[a] * inv_dx[a]).to(torch.int32), 0, g.n[a] - 1)
+                  for a in range(nd)]
         for a in range(nd):
-            la = gp[a] - org[a]
-            ra = torch.clamp((la * inv_dx[a]).to(torch.int32), 0, g.n[a] - 1)
-            pos[a].copy_(torch.where(out, la, npos[a]))
-            idx[a].copy_(torch.where(out, ra, torch.clamp(nidx[a], 0, g.n[a] - 1)))
+            pos[a].copy_(torch.where(out, la[a], npos[a]))
+            idx[a].copy_(torch.where(out, ra[a], torch.clamp(nidx[a], 0, g.n[a] - 1)))
         for v, nv in zip(vel, nvel):
             v.copy_(nv)
         tau.copy_(ntau)
@@ -511,26 +699,28 @@ def _check_cuda_ledger(p, coefs):
         raise ValueError("transport kernel: capacity must fit in int32")
 
 
-def _census_cuda(p, table, g: _Geom, seed: int, max_iters: int):
+def _census_cuda(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
     """One launch of the census kernel on PyTorch's current stream (no
     synchronisation); the ledger was checked by ``_check_cuda_ledger``."""
     dev = p.x.device
     events = torch.zeros((), dtype=torch.int64, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
-            p.face)
-    ptrs = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in cols))
-    ints = (*g.n, *g.bc, int(max_iters), int(seed))
+            p.face, p.block)
+    ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in cols))
+    ints = (*g.n, *g.bc, int(max_iters), int(seed), *g.ntiles)
     floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
               g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt, g.tau_ddmc, g.eps_imc, g.eps_ddmc,
-              g.dt, g.inv_dt, g.lam2, g.pf2_num)
+              g.dt, g.inv_dt, g.lam2, g.pf2_num, *g.tile, *g.nudge_cross, *g.nudge_tilt)
+    smr = (tabs.block, tabs.level, tabs.lookup) if g.smr else (None, None, None)
     cuda_lib.library().call(
-        "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), ptrs, table.data_ptr(),
+        "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr), ptrs,
+        tabs.cell.data_ptr(), *(0 if t is None else t.data_ptr() for t in smr),
         p.capacity, (ctypes.c_int * len(ints))(*ints),
         (ctypes.c_float * len(floats))(*map(float, floats)),
         events.data_ptr(), iters.data_ptr(), cuda_lib.stream_handle(dev),
     )
-    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc)] += 1
+    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc, g.smr)] += 1
     return iters, events
 
 
@@ -539,9 +729,9 @@ def _run(census, particles, coefs, mesh, seed, prm, dt):
     if any(t.shape != (mesh.total_cells,) for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck)):
         raise ValueError("transport: one coefficient per mesh cell expected")
     g = _geometry(mesh, prm, dt)
-    table = _pair_table(coefs, mesh, g.absorb, g.ddmc)
+    tabs = _tables(coefs, mesh, g)
     _collapse(particles, mesh)
-    iters, events = census(particles, table, g, int(seed), prm.max_iters)
+    iters, events = census(particles, tabs, g, int(seed), prm.max_iters)
     _expand(particles, mesh)
     return particles, iters, events
 

@@ -128,6 +128,33 @@ def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float) -> Partic
             getattr(p, pos).copy_((getattr(p, idx).float() + u) * dx)
         blocks.append(blk)
     p.block.copy_((blocks[2] * nrb[1] + blocks[1]) * nrb[0] + blocks[0])
+    return _isotropic(p, generator, c)
+
+
+def forest_ledger(mesh, n: int, generator: torch.Generator, c: float) -> ParticleLedger:
+    """The counterpart of ``uniform_ledger`` on any block forest, refined or not:
+    each particle in a cell drawn uniformly from all the forest's cells (so a fine
+    block holds as many as a coarse one), at a uniform position in it, ``block``
+    set. For kernel checks and timings."""
+    dev = generator.device
+    p = empty_ledger(n, torch.float32, dev)
+    cell = torch.randint(0, mesh.total_cells, (n,), generator=generator, device=dev)
+    blk = torch.div(cell, mesh.ncells_per_block, rounding_mode="floor")
+    rem = cell - blk * mesh.ncells_per_block
+    p.block.copy_(blk)
+    p.i.copy_(rem % mesh.nx)
+    p.j.copy_(torch.div(rem, mesh.nx, rounding_mode="floor") % mesh.ny)
+    p.k.copy_(torch.div(rem, mesh.nx * mesh.ny, rounding_mode="floor"))
+    dx = mesh.block_dx.to(dev)[blk]
+    for a, (pos, idx) in enumerate((("x", "i"), ("y", "j"), ("z", "k"))[: mesh.ndim]):
+        u = torch.rand(n, generator=generator, device=dev)
+        getattr(p, pos).copy_((getattr(p, idx).float() + u) * dx[:, a])
+    return _isotropic(p, generator, c)
+
+
+def _isotropic(p: ParticleLedger, generator: torch.Generator, c: float) -> ParticleLedger:
+    """Isotropic directions at speed ``c``, every slot alive with unit weight."""
+    n, dev = p.capacity, generator.device
     mu = 1.0 - 2.0 * torch.rand(n, generator=generator, device=dev)
     phi = (2.0 * math.pi) * torch.rand(n, generator=generator, device=dev)
     st = torch.sqrt(torch.clamp_min(1.0 - mu * mu, 0.0))
@@ -141,11 +168,11 @@ def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float) -> Partic
 
 def place_on_faces(p: ParticleLedger, mesh, select: torch.Tensor,
                    generator: torch.Generator) -> ParticleLedger:
-    """Move the ``select``-ed particles of a uniform-mesh ledger onto a face of their
-    cell as an IMC crossing leaves them (IN PLACE): each on its lower or upper face
-    along a random active axis with probability 1/2, flying into the cell, with the
-    face-arrival code +-(axis + 1) that the DDMC albedo test reads. For kernel
-    checks."""
+    """Move the ``select``-ed particles of a ledger onto a face of their cell as an
+    IMC crossing leaves them (IN PLACE): each on its lower or upper face along a
+    random active axis with probability 1/2, flying into the cell, with the
+    face-arrival code +-(axis + 1) that the DDMC albedo test reads. On a refined
+    forest each particle takes its own block's cell size. For kernel checks."""
     dev = p.x.device
     n = p.capacity
     axis = torch.randint(0, mesh.ndim, (n,), generator=generator, device=dev)
@@ -156,7 +183,10 @@ def place_on_faces(p: ParticleLedger, mesh, select: torch.Tensor,
     for a, (pos, idx, vel) in enumerate((("x", "i", "vx"), ("y", "j", "vy"),
                                         ("z", "k", "vz"))[: mesh.ndim]):
         m = select & (axis == a)
-        dx = (b[2 * a + 1] - b[2 * a]) / (nloc[a] * nrb[a])
+        if mesh.max_level > 0:
+            dx = mesh.block_dx.to(dev)[p.block.long(), a]
+        else:
+            dx = (b[2 * a + 1] - b[2 * a]) / (nloc[a] * nrb[a])
         cell = getattr(p, idx).to(torch.float32)
         face = torch.where(lower, cell, cell + 1.0) * dx
         getattr(p, pos).copy_(torch.where(m, face, getattr(p, pos)))

@@ -20,7 +20,8 @@ from jaybenne_tpu_torch.mesh import build_mesh
 from jaybenne_tpu_torch.ops import cuda_lib, kernel_rng, transport_kernel
 from jaybenne_tpu_torch.ops.transport import TransportCoefs
 from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
-from jaybenne_tpu_torch.particles import empty_ledger, place_on_faces, uniform_ledger
+from jaybenne_tpu_torch.particles import (empty_ledger, forest_ledger, place_on_faces,
+                                          uniform_ledger)
 from jaybenne_tpu_torch.step import make_transport_params
 from jaybenne_tpu_torch.utils.deck import Deck
 
@@ -374,6 +375,110 @@ def test_ddmc_main_path_runs_through_kernel(gpu, tmp_path):
         sims.append(run_file(STEPDIFF_DDMC, outdir=str(tmp_path), modified_inputs=mods,
                              quiet=True, nlim=3, device="cuda"))
         assert cuda_lib.LAUNCHES[name] == before + 3
+    a, b = (s.state.fields.energy_tally for s in sims)
+    assert a.is_cuda and torch.equal(a, b)
+    f = sims[0].state.fields
+    sourced = float((f.source_num.double() * f.source_ew.double()).sum())
+    dv = sims[0].mesh.block_volume.double()[:, None, None, None]
+    assert abs(float((a.double() * dv).sum()) - sourced) <= 1e-5 * sourced
+    assert all(h["unfinished"] == 0 for h in sims[0].history)
+
+
+# the forests of the SMR kernel checks: a level-1 box over the centre, cut small
+SMR_FORESTS = {
+    1: ("stepdiff.in", {"parthenon/mesh/nx1": 64, "parthenon/meshblock/nx1": 8,
+                        "parthenon/mesh/refinement": "static",
+                        "parthenon/static_refinement1/level": 1,
+                        "parthenon/static_refinement1/x1min": -0.25,
+                        "parthenon/static_refinement1/x1max": 0.25}),
+    2: ("stepdiff_smr.in", {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
+                            "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8}),
+    3: ("stepdiff_3d_smr_ddmc.in", {"parthenon/mesh/nx1": 16, "parthenon/mesh/nx2": 8,
+                                    "parthenon/mesh/nx3": 8, "parthenon/meshblock/nx1": 4,
+                                    "parthenon/meshblock/nx2": 4,
+                                    "parthenon/meshblock/nx3": 4}),
+}
+
+
+def _smr_setup(dev, ndim, absorb, ddmc, n=30000, seed=5):
+    """A level-1 forest with x-slabs of two coarse cells alternating thin (sigma_t =
+    64, IMC) and thick (sigma_t = 1024, DDMC for tau_ddmc = 5 on both levels in
+    2D/3D), with f sigma_a = 2 when absorbing; particles uniform over the forest's
+    cells, a quarter of them on a face of their cell with the face-arrival code
+    set."""
+    deck, mods = SMR_FORESTS[ndim]
+    mods = {**mods, "jaybenne/use_ddmc": "true" if ddmc else "false",
+            "jaybenne/tau_ddmc": 5.0, "mcblock/opacity_model": "constant" if absorb else "none"}
+    cfg = cm.from_deck(Deck.from_file(os.path.join(_ROOT, "inputs", deck)).update(mods))
+    mesh = build_mesh(cfg.mesh, device=dev)
+    prm = make_transport_params(cfg, torch.float32)
+    assert mesh.ndim == ndim and mesh.max_level == 1 and prm.use_ddmc == ddmc
+    xc = mesh.cell_centers()[0]
+    slab = 2.0 * float(mesh.block_dx[:, 0].max())
+    thick = torch.floor((xc - mesh.bounds[0]) / slab).long() % 2 == 1
+    sig = torch.where(thick, 1024.0, 64.0)
+    sa = torch.full_like(sig, 2.0 if absorb else 0.0)
+    faces = {}
+    if ddmc:
+        faces = dict(zip(("px", "py", "pz"), ddmc_face_probs(
+            mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags, torch.float32)))
+    coefs = TransportCoefs(sigma_a=sa.reshape(-1), sigma_s=(sig - sa).reshape(-1),
+                           fleck=torch.ones(mesh.total_cells, device=dev), **faces)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = forest_ledger(mesh, n, g, C)
+    place_on_faces(p, mesh, torch.rand(n, generator=g, device=dev) < 0.25, g)
+    return cfg.jaybenne.dt, mesh, prm, p, coefs
+
+
+@pytest.mark.parametrize("ddmc", [False, True])
+@pytest.mark.parametrize("absorb", [False, True])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("max_iters", [8, None])
+def test_smr_kernel_matches_plain(gpu, ndim, absorb, ddmc, max_iters):
+    dt, mesh, prm, p0, coefs = _smr_setup(gpu, ndim, absorb, ddmc)
+    if max_iters is not None:
+        prm = dataclasses.replace(prm, max_iters=max_iters)
+    name = transport_kernel.launch_name(ndim, absorb, ddmc, True)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, -99, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, -99, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    assert not bool((k.alive & k.absorbed).any())
+    assert bool((k.block != p0.block).any())
+    if max_iters is None:  # full census: statistics
+        assert not bool((k.tau[k.alive] < 1.0).any())
+        assert abs(int(ev_k) - int(ev_q)) <= EVENTS_RTOL * int(ev_q)
+        n = int(p0.alive.sum())
+        for ka, qa in ((int(k.absorbed.sum()), int(q.absorbed.sum())),
+                       (int(k.alive.sum()), int(q.alive.sum()))):
+            pbar = 0.5 * (ka + qa) / n
+            assert abs(ka - qa) <= 4.0 * np.sqrt(2.0 * n * pbar * (1.0 - pbar)) + 1
+        return
+    for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
+        assert torch.equal(getattr(k, name), getattr(q, name)), name
+    for name in ("x", "y", "z", "vx", "vy", "vz", "tau"):
+        torch.testing.assert_close(getattr(k, name), getattr(q, name), rtol=FLOAT_RTOL,
+                                   atol=1e-7 if name in ("x", "y", "z", "tau") else 1e-6 * C)
+    assert int(ev_k) == int(ev_q) and int(it_k) == int(it_q) == max_iters
+
+
+@pytest.mark.parametrize("deck", ["stepdiff_smr.in", "stepdiff_smr_ddmc.in"])
+def test_smr_path_runs_through_kernel(gpu, tmp_path, deck):
+    """An SMR deck at 32 x 16 cells in 8^2 blocks and 20000 particles, 3 steps: one
+    launch of the 2D SMR kernel per step, the radiation energy conserved, and a
+    rerun with the same seed bitwise identical."""
+    mods = {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
+            "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+            "jaybenne/num_particles": 20000, "parthenon/output0/file_type": "none"}
+    path = os.path.join(_ROOT, "inputs", deck)
+    name = transport_kernel.launch_name(2, False, "ddmc" in deck, True)
+    sims = []
+    for _ in range(2):
+        before = cuda_lib.LAUNCHES[name]
+        sims.append(run_file(path, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
+                             nlim=3, device="cuda"))
+        assert cuda_lib.LAUNCHES[name] == before + 3
+    assert sims[0].mesh.max_level == 1
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.is_cuda and torch.equal(a, b)
     f = sims[0].state.fields

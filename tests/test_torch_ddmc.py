@@ -313,21 +313,6 @@ def test_face_probs_match_jax(ndim, periodic):
             assert g.min() > 0
 
 
-def test_face_probs_refined_mesh_raises():
-    mods = {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
-            "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
-            "parthenon/mesh/refinement": "static",
-            "parthenon/static_refinement0/level": 1,
-            "parthenon/static_refinement0/x1min": -0.1,
-            "parthenon/static_refinement0/x1max": 0.1}
-    _, tcfg = _configs(mods)
-    mesh = tbuild_mesh(tcfg.mesh)
-    assert mesh.max_level == 1
-    sig = torch.full((mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx), 100.0)
-    with pytest.raises(NotImplementedError, match=r"K1\(d\)"):
-        tfleck.ddmc_face_probs(mesh, sig, 5.0, (False, False, False), torch.float32)
-
-
 # ----------------------------------------------------- (b) first events, per slot
 
 

@@ -30,7 +30,6 @@ from jaybenne_tpu_torch.models.problems import generate_problem as tgenerate
 from jaybenne_tpu_torch.ops import fleck as tfleck
 from jaybenne_tpu_torch.ops import transport as tT
 from jaybenne_tpu_torch.state import empty_fields as tempty_fields
-from jaybenne_tpu_torch.step import build_step_core
 from jaybenne_tpu_torch.utils.deck import Deck as TDeck
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -160,11 +159,6 @@ def test_fleck_and_coefs_match_jax(deck, opacity):
         ({"mcblock/eos_model": "power_law_cv"}, "item 14"),
         ({"mcblock/opacity_model": "ep_bremss"}, "item 14"),
         ({"mcblock/scattering_model": "thomson"}, "item 14"),
-        ({"jaybenne/use_ddmc": "true", "parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
-          "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
-          "parthenon/mesh/refinement": "static", "parthenon/static_refinement0/level": 1,
-          "parthenon/static_refinement0/x1min": -0.1,
-          "parthenon/static_refinement0/x1max": 0.1}, "K1(d)"),
         ({"jaybenne/use_ddmc": "true", "jaybenne/precision": "f64"}, "item 7"),
         ({"jaybenne/external_source": 1.0e10}, "item 14"),
         ({"jaybenne/precision": "f64"}, "item 7"),
@@ -180,21 +174,3 @@ def test_unported_configurations_raise(mods, where, tmp_path):
     _, tcfg = _configs(mods)
     with pytest.raises(NotImplementedError, match="ROADMAP .*" + re.escape(where)):
         Simulation(tcfg, outdir=str(tmp_path), quiet=True, device="cpu")
-
-
-def test_unported_2d_raises():
-    """2D and 3D uniform meshes are ported; a 2D mesh with static refinement is
-    not, and raises when the step is built."""
-    mods = {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
-            "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
-            "parthenon/mesh/refinement": "static",
-            "parthenon/static_refinement0/level": 1,
-            "parthenon/static_refinement0/x1min": -0.1,
-            "parthenon/static_refinement0/x1max": 0.1}
-    _, tcfg = _configs(mods)
-    mesh = tbuild_mesh(tcfg.mesh)
-    assert mesh.ndim == 2 and mesh.max_level == 1
-    with pytest.raises(NotImplementedError, match=r"K1\(d\)"):
-        build_step_core(mesh, tcfg)
-    _, uniform = _configs({k: v for k, v in mods.items() if "refine" not in k})
-    build_step_core(tbuild_mesh(uniform.mesh), uniform)  # the same mesh, uniform: ported
