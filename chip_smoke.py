@@ -7,7 +7,9 @@ holds each against its plain PyTorch version, drives the port's paths through
 ``driver.run_file`` on the GPU (the stepdiff gates with IMC and DDMC; the inf and
 inf_stiff equilibrium gates; a 2D and the 64^3 matter-coupled feedback
 configurations; the 64^3 DDMC mesh; the refined-mesh decks up to the 128x64
-hybrid forest), and checks each result by the repository's own gates. Every phase raises on failure; the last line of
+hybrid forest; EPBremss at spread photon energies in 1D, at 64^3 and on the
+shipped SMR forest; the Su-Olson deck with its external source; a tabulated
+opacity), and checks each result by the repository's own gates. Every phase raises on failure; the last line of
 standard output is the JSON result, printed only when every phase passed. It exits
 non-zero without a GPU. Nothing here imports jax.
 
@@ -92,8 +94,35 @@ Phases:
      <= 0.1, per-cell werr printed, events within 5 % of the JAX package's
      951619492.
 
-For phases 12-14, 16, 20 and 21 the kernel and its plain version are timed on the
-inputs of the path's last census, recorded as the path ran.
+ 22. the NONGRAY instantiations: all twelve (uniform 1D/2D/3D and level-1 SMR
+     forests, IMC and DDMC) against their plain versions on hybrid ledgers of 2^17
+     particles with EPBremss per cell (rho, T and fleck spread) at spread photon
+     energies, so that a cell's lanes are thin and thick alike: after 8
+     iterations and after a full census of the last 10 % of a step integers,
+     blocks, alive, absorbed and face codes identical, floats within 1e-6;
+ 23. non-gray K1(e): inputs/stepdiff.in at tst/stepdiff.py's 128 cells and 100k
+     particles with the ep_bremss overrides of tests/test_pallas.py:1402-1416, one
+     step through transport_1d_abs_ng: w_live + absorbed = w0 to 1e-4, the
+     survivors harden, and their count and mean energy agree with the JAX
+     package's run of the same configuration (within 4 sqrt(n) and 0.3);
+ 24. K3's non-gray function: bench.py's big_mesh_feedback geometry (64^3 cells in
+     8^3 blocks, 200k particles, emission and feedback) with EPBremss and the other
+     ep_bremss overrides, 3 steps of 1e-12 s through transport_3d_abs_ng: energy
+     conserved to 1e-2 of the radiation energy, nothing dropped, a bitwise rerun,
+     events within 5 % of the JAX package's;
+ 25. K4's non-gray function: inputs/stepdiff_smr.in as shipped (128x64 cells, 100k
+     particles) with the overrides of tests/test_pallas.py:1531-1546, one step
+     through transport_2d_abs_smr_ng: the gates of phase 23;
+ 26. the Su-Olson gate: inputs/suolson.in as shipped (64 cells, 40 steps, 8000 +
+     8000 particles) with tst/suolson.py's overrides: the external source, the
+     power-law-cv EOS and the 1D absorbing kernel; E_matter + E_radiation - E(0)
+     within 1e-2 of q V_src min(t, tmax), nothing dropped, a bitwise rerun;
+ 27. the tabulated opacity: the table of tests/test_pallas.py:1354-1358 written to
+     a temporary .npz, at the stepdiff gate's size for one step: absorbed > 0,
+     w_live + absorbed = w0 to 1e-4.
+
+For phases 12-14, 16, 20, 21 and 23-25 the kernel and its plain version are timed
+on the inputs of the path's last census, recorded as the path ran.
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -254,6 +283,47 @@ SMR_FORESTS = {
     2: (SMR_DECK, dict(SMR_GATE)),
     3: (SMR3D_DECK, {}),
 }
+# non-gray (phases 22-27): the ep_bremss overrides of tests/test_pallas.py:1402-1416
+# (and :1531-1546); cv = 1e8 keeps the Fleck factor near 1, without which a soft
+# photon in a cold cell scatters at sigma ~ 1e20 and no census completes
+EPB = {
+    "mcblock/opacity_model": "ep_bremss",
+    "mcblock/initial_temperature": "1.0e6",
+    "mcblock/cv": "1.0e8",
+    "mcblock/scattering_constant_value": "1.0e2",
+    "jaybenne/do_emission": "false",
+    "jaybenne/do_feedback": "false",
+    "jaybenne/dt": "1.e-12",
+    "parthenon/time/tlim": "1.e-12",
+}
+NG_GATE = {**GATE, **EPB}
+NG_BIG = {**FEEDBACK, **EPB, "jaybenne/do_emission": "true", "jaybenne/do_feedback": "true",
+          "parthenon/time/tlim": "3.e-12"}
+NG_SMR = {**EPB, "jaybenne/use_ddmc": "false", "parthenon/output0/file_type": "none"}
+NG_RTOL = 1e-6  # phase 22: kernel vs plain, floats
+NG_ENERGY_RTOL = 1e-4  # w_live + absorbed = w0 (tests/test_pallas.py:1430)
+NG_SIGMA_COUNT = 4.0  # survivors within 4 sqrt(n) of the JAX package's
+NG_MEAN_E_RTOL = 0.3  # their mean photon energy within 0.3
+# the JAX package's numbers for the same configurations, from its XLA event loop
+# on the CPU (jax_reference.py): (survivors, their mean photon energy) after the
+# step of phases 23 and 25, and the 3-step event total of phase 24
+NG_GATE_JAX = (2815, 443.0566841735298)
+NG_SMR_JAX = (2730, 442.2889385852185)
+NG_BIG_JAX_EVENTS = 1355348
+SUOLSON_DECK = os.path.join(ROOT, "inputs", "suolson.in")
+SUOLSON = {  # tst/suolson.py's overrides: a closed slab
+    "parthenon/swarm/ix1_bc": "jaybenne_reflecting",
+    "parthenon/swarm/ox1_bc": "jaybenne_reflecting",
+    "parthenon/output0/file_type": "none",
+}
+SUOLSON_TOL = 1e-2
+SUOLSON_STEPS = 40
+TABLE = {  # tests/test_pallas.py:1354-1371: kappa = 2 cm^2/g on a 3 x 3 table
+    "rho": np.array([0.1, 1.0, 10.0]), "T": np.array([1.0e3, 1.0e5, 1.0e7]),
+    "kappa": np.outer([1.0, 1.0, 1.0], [2.0, 2.0, 2.0]),
+}
+TABLE_GATE = {**GATE, "mcblock/opacity_model": "table", "jaybenne/do_emission": "false",
+              "jaybenne/do_feedback": "false"}
 PROFILE_TOL = 0.1  # tst/stepdiff_smr2.py's tolerance for the x-profile gate
 PROFILE_BINS = 64
 # the step-diffusion solution of tst/stepdiff_common.py, copied: diffusion time
@@ -391,6 +461,8 @@ def probe_costs(counts) -> dict:
         "logf": counts["jb_probe_logf"] - counts["jb_probe_load1"],
         "div": counts["jb_probe_div"] - counts["jb_probe_load2"] + 1,
         "hash": counts["jb_probe_hash"] - counts["jb_probe_load2"] + 1,
+        "expf": counts["jb_probe_expf"] - counts["jb_probe_load1"],
+        "sqrtf": counts["jb_probe_sqrtf"] - counts["jb_probe_load1"],
     }
 
 
@@ -456,7 +528,18 @@ def ops_per_crossing(ndim, cost) -> int:
     return ndim * (18 + 2 * cost["div"]) + 2 * (ndim - 1) + 3
 
 
-def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False, smr=None):
+def ops_nongray_per_event(cost) -> int:
+    """Operations the per-event opacity (``epbremss`` and the rates after it in
+    csrc/transport_kernel.cu) adds to every event: 13 multiplies (the scales, sb T,
+    kb T twice, x kb T, nu h, rho^2, g^3, the stimulated factor, the length
+    scale), the two clamps (compare and select: 4), the negation and 1 - exp (2),
+    ea, 1 - fleck, its product, + sigma_s and + ea (5): 24, plus five IEEE divides,
+    one expf and one sqrtf."""
+    return 24 + 5 * cost["div"] + cost["expf"] + cost["sqrtf"]
+
+
+def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False, smr=None,
+                 nongray=False):
     """(bound_ms, bound_by) of one census: the larger of its operations over the
     card's float32 peak and of its bytes over the memory rate. Bytes: each live
     particle's state read once and written once (position and cell index on the
@@ -467,14 +550,20 @@ def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False, smr=None):
     both branches run. ``smr`` is (mesh, block crossings) on a refined forest: the
     block column is read and written, the block table (32 bytes a block), the
     levels and the lookup grid read once, every event pays ``ops_smr_per_event``
-    and every crossing ``ops_per_crossing``."""
+    and every crossing ``ops_per_crossing``. ``nongray``: the energy column read
+    once, a 16-byte cell record (48 with DDMC) and ``ops_nongray_per_event`` on
+    every event."""
     live = int(p.alive.sum())
     per_particle = 2 * (4 * ndim + 12 + 4 + 4 * ndim + 1) + (1 if absorb else 0)
     per_particle += 8 if ddmc else 0
-    nbytes = live * per_particle + (p.capacity - live) + (32 if ddmc else 8) * n_cells
+    per_particle += 4 if nongray else 0
+    record = (48 if ddmc else 16) if nongray else (32 if ddmc else 8)
+    nbytes = live * per_particle + (p.capacity - live) + record * n_cells
     per_event = ops_per_event(ndim, absorb, cost)
     if ddmc:
         per_event = min(per_event, ops_per_ddmc_event(ndim, absorb, cost))
+    if nongray:
+        per_event += ops_nongray_per_event(cost)
     n_ops = events * per_event
     if smr is not None:
         mesh, crossings = smr
@@ -687,27 +776,36 @@ def ddmc_outcomes(p0, p1, mesh, gi, absorb):
     return {k: int(v.sum()) for k, v in counts.items()}
 
 
-def kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed, seen=""):
+def same_state(pk, pp, what, rtol):
+    """Raises unless two ledgers hold identical integers, blocks, alive, absorbed
+    and face codes and floats within ``rtol`` (relative, on FLOAT_FLOOR); returns
+    (max_abs_err, max_rel_err)."""
+    for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
+        if not torch.equal(getattr(pk, name), getattr(pp, name)):
+            bad = int((getattr(pk, name) != getattr(pp, name)).sum())
+            raise AssertionError(f"{what}: {name} differs in {bad} slots")
+    err, rel = max_float_err(pk, pp, ("x", "y", "z", "vx", "vy", "vz", "tau"), FLOAT_FLOOR)
+    if rel > rtol:
+        raise AssertionError(f"{what}: float rel err {rel}")
+    return err, rel
+
+
+def kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed, seen="",
+                    rtol=FLOAT_RTOL, exact_census=False):
     """One instantiation against its plain version on the ledger ``p0``: after 8
     iterations integer state, blocks, alive, absorbed and face codes identical and
-    floats within FLOAT_RTOL; after a full census of the last 10 % of a step every
+    floats within ``rtol``; after a full census of the last 10 % of a step every
     live slot at census, events within EVENTS_RTOL and absorbed counts within
-    N_SIGMA_BINOMIAL sd. Prints one line (``seen`` appended). Returns (8-iteration
-    max_abs_err, slots the kernel absorbed in the full census)."""
-    names = ("x", "y", "z", "vx", "vy", "vz", "tau")
+    N_SIGMA_BINOMIAL sd, with ``exact_census`` the 8-iteration check again. Prints
+    one line (``seen`` appended). Returns (max_abs_err, slots the kernel absorbed in
+    the full census)."""
     prm8 = dataclasses.replace(prm, max_iters=8)
     pk, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, seed, prm8, dt)
     pp, it_p, ev_p = transport_kernel.transport_plain(p0.clone(), coefs, mesh, seed, prm8, dt)
     torch.cuda.synchronize()
-    for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
-        if not torch.equal(getattr(pk, name), getattr(pp, name)):
-            bad = int((getattr(pk, name) != getattr(pp, name)).sum())
-            raise AssertionError(f"{what}, 8 iterations: {name} differs in {bad} slots")
+    err8, rel8 = same_state(pk, pp, f"{what}, 8 iterations", rtol)
     if int(ev_k) != int(ev_p) or int(it_k) != int(it_p):
         raise AssertionError(f"{what}, 8 iterations: stats {ev_k} {ev_p}")
-    err8, rel8 = max_float_err(pk, pp, names, FLOAT_FLOOR)
-    if rel8 > FLOAT_RTOL:
-        raise AssertionError(f"{what}, 8 iterations: float rel err {rel8}")
     ev8 = int(ev_k)
     pf = p0.clone()
     pf.tau.copy_(0.9 + 0.1 * torch.rand(pf.capacity, device=dev,
@@ -722,6 +820,10 @@ def kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed,
         raise AssertionError(f"{what} census: events {ev_k} vs {ev_p}")
     ka, kp = int(pk.absorbed.sum()), int(pp.absorbed.sum())
     binomial_gate(ka, kp, p0.capacity, f"{what} census")
+    if exact_census:
+        err8 = max(err8, same_state(pk, pp, f"{what}, full census", rtol)[0])
+        if ev_k != ev_p:
+            raise AssertionError(f"{what}, full census: events {ev_k} vs {ev_p}")
     same = all(torch.equal(getattr(pk, n), getattr(pp, n)) for n in ("x", "i", "block"))
     print(f"{what}: 8 iterations: identical integers, blocks and face codes, {ev8} events, "
           f"max_abs_err {err8:.3e} max_rel_err {rel8:.3e}; full census events kernel "
@@ -864,15 +966,16 @@ def lane_split(sim) -> dict:
     return {"ddmc_blocks": ddmc, "imc_blocks": mesh.n_blocks - ddmc}
 
 
-def run_path(deck, mods, launch):
-    """A deck through ``driver.run_file`` on the GPU for PATH_STEPS steps: the
+def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True):
+    """A deck through ``driver.run_file`` on the GPU for ``steps`` steps: the
     radiation energy before the first step; the run, with the launch counts set
     to 0 just before it and read just after; its peak device memory; the inputs
     of its last census; a rerun with the same seed. Raises unless ``launch`` ran
     once a step, every census completed short of the iteration cap, nothing was
-    dropped, sum(tally dV) was conserved and the rerun is bitwise identical.
-    Returns (sim, launches, (ledger, args) of the last census, the radiation
-    energy before the first step)."""
+    dropped, sum(tally dV) was conserved (unless not ``conserves_tally``: matter
+    absorbs or emits) and the rerun's tally and u are bitwise identical. Returns
+    (sim, launches, (ledger, args) of the last census, the radiation energy before
+    the first step)."""
     from jaybenne_tpu_torch.driver import run_file
     from jaybenne_tpu_torch.ops import cuda_lib, transport_kernel
 
@@ -883,34 +986,35 @@ def run_path(deck, mods, launch):
         del sim0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with CensusRecorder(transport_kernel, PATH_STEPS) as rec:
+        with CensusRecorder(transport_kernel, steps) as rec:
             cuda_lib.LAUNCHES.clear()
             sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
-                           nlim=PATH_STEPS, device="cuda")
+                           nlim=steps, device="cuda")
             launches = dict(cuda_lib.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         again = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
-                         nlim=PATH_STEPS, device="cuda")
+                         nlim=steps, device="cuda")
     what = os.path.basename(deck)
-    if launches.get(launch, 0) != PATH_STEPS or sim.cycle != PATH_STEPS:
+    if launches.get(launch, 0) != steps or sim.cycle != steps:
         raise AssertionError(f"{what}: launches {launches}, cycles {sim.cycle}")
     max_iters = sim.cfg.jaybenne.max_transport_iterations
     if any(h["dropped"] or h["unfinished"] or h["iterations"] >= max_iters
-           for h in sim.history):
+           for h in sim.history) or sim.state.overflow:
         raise AssertionError(f"{what}: dropped, unfinished or capped: {sim.history}")
     tally = sim.state.fields.energy_tally
     if not bool(torch.isfinite(tally).all()):
         raise AssertionError(f"{what}: tally not finite")
     e1 = radiation_energy(sim)
-    if abs(e1 - e0) > ENERGY_RTOL * e0:
+    if conserves_tally and abs(e1 - e0) > ENERGY_RTOL * e0:
         raise AssertionError(f"{what}: energy {e0} -> {e1}")
-    if not torch.equal(again.state.fields.energy_tally, tally):
+    if not (torch.equal(again.state.fields.energy_tally, tally)
+            and torch.equal(again.state.fields.u, sim.state.fields.u)):
         raise AssertionError(f"{what}: a rerun with the same seed differs")
     step_s = [h["step_seconds"] for h in sim.history]
     print(f"{what} {sim.mesh.n_blocks} blocks (levels "
           f"{sorted(set(sim.mesh.block_level.tolist()))}), {sim.mesh.total_cells} cells, "
           f"lane split {lane_split(sim)}: {launches.get(launch, 0)} launches of {launch}, "
-          f"events {sim.total_events}, energy rel {abs(e1 - e0) / e0:.3e}, iterations "
+          f"events {sim.total_events}, radiation energy {e0!r} -> {e1!r}, iterations "
           f"{[h['iterations'] for h in sim.history]}, rerun bitwise identical", flush=True)
     print(f"{what}: step seconds {step_s}; median {statistics.median(step_s) * 1e3!r} ms; "
           f"{sim.total_events / sum(step_s)!r} events/s; peak device memory {peak} bytes",
@@ -941,10 +1045,10 @@ def path_kernel(transport_kernel, dev, sim, inputs, name, cost):
     bound_ms, bound_by)."""
     p, args = inputs
     ms, plain_ms, ev, err = census_compare(transport_kernel, dev, p, args)
-    prm, mesh = args[3], sim.mesh
+    coefs, prm, mesh = args[0], args[3], sim.mesh
     smr = (mesh, block_crossings(transport_kernel, p, args, ev)) if mesh.max_level > 0 else None
     bound, by = census_bound(p, prm.ndim, bool(prm.has_absorption), mesh.total_cells, ev,
-                             cost, ddmc=bool(prm.use_ddmc), smr=smr)
+                             cost, ddmc=bool(prm.use_ddmc), smr=smr, nongray=not coefs.is_gray)
     print(f"{name} on the last census's inputs ({p.capacity} slots, {int(p.alive.sum())} "
           f"live): kernel {ms!r} ms, plain {plain_ms!r} ms, {ev} events"
           + (f", ~{smr[1]} block crossings" if smr else "")
@@ -1067,6 +1171,226 @@ def smr_phases(transport_kernel, dev, cost, src) -> list:
             "name": f"{name} ({what})", "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches_smr.get(name, 0), "max_abs_err": max(smr_err[name], err_k),
             "ms": ms_k, "plain_ms": plain_k, "bound_ms": bound_k, "bound_by": by_k,
+            "library_ms": None,
+        })
+    return kernels
+
+
+def nongray_setup(dev, ndim, ddmc, smr, seed):
+    """Phase 22's configuration: EPBremss on phase 11's uniform mesh or phase 15's
+    level-1 forest of ``ndim``, per cell rho in [0.5, 2], T log-uniform in [5e5,
+    5e6], fleck in [0.3, 1] and sigma_s = 10; 2^17 particles uniform over the
+    forest's cells, a quarter on a face of their cell with the face-arrival code
+    set, at photon energies x sb T of their cell with x log-uniform in [0.05, 30].
+    Returns (dt, mesh, prm, ledger, coefs, lanes on the DDMC branch at the start,
+    cells holding lanes of both branches)."""
+    from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.particles import forest_ledger, place_on_faces
+    from jaybenne_tpu_torch.utils.constants import CC, SB
+
+    if smr:
+        deck, mods = SMR_FORESTS[ndim]
+    else:
+        cells = {1: (128, 1, 1), 2: (64, 64, 1), 3: (16, 16, 16)}[ndim]
+        blocks = {1: (32, 1, 1), 2: (32, 32, 1), 3: (8, 8, 8)}[ndim]
+        deck, mods = DECK, {"parthenon/swarm/ix3_bc": "outflow",
+                            "parthenon/swarm/ox3_bc": "outflow"}
+        for a, k in enumerate("123"):
+            mods[f"parthenon/mesh/nx{k}"] = cells[a]
+            mods[f"parthenon/meshblock/nx{k}"] = blocks[a]
+    mods = {**mods, "jaybenne/use_ddmc": "true" if ddmc else "false", "jaybenne/tau_ddmc": 5.0,
+            "mcblock/opacity_model": "ep_bremss", "mcblock/scattering_constant_value": 10.0,
+            "parthenon/output0/file_type": "none"}
+    cfg, mesh, prm, _ = deck_setup(dev, deck, mods, 0.0, 0.0)
+    if mesh.ndim != ndim or (mesh.max_level > 0) != smr or not prm.has_absorption:
+        raise AssertionError(f"phase 22 setup: ndim {mesh.ndim}, max_level {mesh.max_level}")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nc = mesh.total_cells
+    rho = 0.5 + 1.5 * torch.rand(nc, generator=g, device=dev)
+    temp = torch.exp(np.log(5e5) + np.log(10.0) * torch.rand(nc, generator=g, device=dev))
+    ff = 0.3 + 0.7 * torch.rand(nc, generator=g, device=dev)
+    opacity, scattering = cfg.mcblock.build_opacity(), cfg.mcblock.build_scattering()
+    sa = opacity.absorption_coefficient(rho, temp)  # the Planck mean
+    ss = scattering.total_scattering_coefficient(rho, temp)
+    faces = {}
+    if ddmc:
+        shape = (mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx)
+        faces = dict(zip(("px", "py", "pz"), ddmc_face_probs(
+            mesh, (sa + ss).reshape(shape), prm.tau_ddmc, cfg.mesh.periodic_flags,
+            torch.float32)))
+    coefs = TransportCoefs(sigma_a=sa, sigma_s=ss, fleck=ff, rho=rho, temp=temp,
+                           opacity=opacity, **faces)
+    p0 = forest_ledger(mesh, HYBRID_N, g, CC)
+    place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=dev) < 0.25, g)
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
+    cell = mesh.flat_cell(p0.block.long(), p0.k.long(), p0.j.long(), p0.i.long())
+    x = torch.exp(np.log(0.05) + np.log(600.0) * torch.rand(p0.capacity, generator=g, device=dev))
+    p0.energy.copy_(x * SB * temp[cell])
+    # each lane's branch at the start, from its own sigma_t(E)
+    sa_e = opacity.absorption_coefficient(rho[cell], temp[cell], p0.energy)
+    sig_t = ff[cell] * sa_e + (ss[cell] + (1.0 - ff[cell]) * sa_e)
+    dmin = mesh.block_dx[:, :ndim].min(dim=1).values.to(dev)[p0.block.long()]
+    dd = dmin * sig_t > prm.tau_ddmc
+    both = int(np.intersect1d(cell[dd].cpu().numpy(), cell[~dd].cpu().numpy()).size)
+    return cfg.jaybenne.dt, mesh, prm, p0, coefs, int(dd.sum()), both
+
+
+def compare_nongray(transport_kernel, dev, ndim, ddmc, smr, seed):
+    """Phase 22 on one NONGRAY instantiation: the kernel against its plain version,
+    exactly after 8 iterations and after a full census. Returns the max_abs_err."""
+    dt, mesh, prm, p0, coefs, n_dd, both = nongray_setup(dev, ndim, ddmc, smr, seed)
+    what = transport_kernel.launch_name(ndim, True, ddmc, smr, True)
+    if ddmc and not (n_dd > 0 and both > 0):
+        raise AssertionError(f"{what}: {n_dd} DDMC lanes, {both} cells with both branches")
+    err, ka = kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed,
+                              f"; {mesh.n_blocks} blocks, {mesh.total_cells} cells, {n_dd} lanes "
+                              f"thick (dmin sigma_t(E) > tau_ddmc) at the start, {both} cells "
+                              "with thick and thin lanes",
+                              rtol=NG_RTOL, exact_census=True)
+    if not ka > 0.01 * p0.capacity:
+        raise AssertionError(f"{what} census: {ka} absorbed of {p0.capacity}")
+    return err
+
+
+def spectral_gate(sim, p0, what, jax_ref):
+    """Phases 23 and 25 after a one-step EPBremss run without emission or feedback
+    from the initial ledger ``p0``: w_live + absorbed = w0 to NG_ENERGY_RTOL, the
+    survivors' mean photon energy above the initial mean, and with ``jax_ref`` =
+    (survivors, mean energy) of the JAX package's run of the same configuration
+    the survivors within NG_SIGMA_COUNT sqrt(n) and their mean energy within
+    NG_MEAN_E_RTOL."""
+    p = sim.state.particles
+    w0 = float(p0.weight.double()[p0.alive].sum())
+    w_live = float(p.weight.double()[p.alive].sum())
+    absorbed = float(sim.state.fields.energy_delta.double().sum())
+    surv = int(p.alive.sum())
+    mean_e0 = float(p0.energy.double()[p0.alive].mean())
+    mean_e = float(p.energy.double()[p.alive].mean())
+    if absorbed <= 0 or abs(w_live + absorbed - w0) > NG_ENERGY_RTOL * w0:
+        raise AssertionError(f"{what}: w_live {w_live} + absorbed {absorbed} vs w0 {w0}")
+    if not mean_e > mean_e0:
+        raise AssertionError(f"{what}: survivors' mean energy {mean_e} <= {mean_e0}")
+    line = (f"{what}: w_live + absorbed - w0 = {(w_live + absorbed - w0) / w0:+.3e} of w0; "
+            f"survivors {surv} of {int(p0.alive.sum())}, mean photon energy {mean_e!r} "
+            f"(initially {mean_e0!r})")
+    if jax_ref is not None:
+        surv_j, mean_j = jax_ref
+        if abs(surv - surv_j) >= NG_SIGMA_COUNT * np.sqrt(surv + surv_j):
+            raise AssertionError(f"{what}: survivors {surv} vs the JAX package's {surv_j}")
+        if abs(mean_e - mean_j) >= NG_MEAN_E_RTOL * mean_j:
+            raise AssertionError(f"{what}: mean energy {mean_e} vs the JAX package's {mean_j}")
+        line += f"; the JAX package: {surv_j} survivors, mean energy {mean_j!r}"
+    print(line, flush=True)
+
+
+def initial_ledger(deck, mods):
+    """The ledger a deck starts from (``run_file`` with no step), on the GPU."""
+    from jaybenne_tpu_torch.driver import run_file
+
+    with tempfile.TemporaryDirectory() as outdir:
+        sim0 = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=0,
+                        device="cuda")
+    return sim0.state.particles.clone()
+
+
+def nongray_phases(transport_kernel, dev, cost, src) -> list:
+    """Phases 22-27 (frequency-dependent models, the external source, a tabulated
+    opacity). Returns the entries of the ``kernels`` line for the NONGRAY
+    instantiations that the paths run."""
+    from jaybenne_tpu_torch.driver import run_file
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    phase("22 NONGRAY: all twelve instantiations vs plain, EPBremss at spread energies")
+    ng_err = {}
+    for ndim, seed in ((1, 2201), (2, 2202), (3, 2203)):
+        for smr in (False, True):
+            for ddmc in (False, True):
+                name = transport_kernel.launch_name(ndim, True, ddmc, smr, True)
+                ng_err[name] = compare_nongray(transport_kernel, dev, ndim, ddmc, smr,
+                                               seed + 10 * smr)
+
+    phase("23 non-gray K1(e): stepdiff 128 cells, 100k particles, EPBremss, one step")
+    name_1 = transport_kernel.launch_name(1, True, False, False, True)
+    p0 = initial_ledger(DECK, NG_GATE)
+    k1e, k1e_launches, k1e_in, _ = run_path(DECK, NG_GATE, name_1, 1, conserves_tally=False)
+    spectral_gate(k1e, p0, "non-gray K1(e)", NG_GATE_JAX)
+    k_1 = path_kernel(transport_kernel, dev, k1e, k1e_in, name_1, cost)
+
+    phase("24 K3 non-gray: 64^3 cells, 200k particles, EPBremss, emission and feedback, "
+          "3 steps")
+    name_3 = transport_kernel.launch_name(3, True, False, False, True)
+    with tempfile.TemporaryDirectory() as outdir:
+        e_0, er_0 = total_energy(run_file(DECK, outdir=outdir, modified_inputs=NG_BIG,
+                                          quiet=True, nlim=0, device="cuda"))
+    big, big_launches, big_in, _ = run_path(DECK, NG_BIG, name_3, FEEDBACK_STEPS,
+                                            conserves_tally=False)
+    cons = abs(total_energy(big)[0] - e_0) / er_0
+    gate(cons, FEEDBACK_ENERGY_TOL, "K3 non-gray energy conservation of the radiation energy")
+    if NG_BIG_JAX_EVENTS is None:
+        print(f"K3 non-gray: events {big.total_events}; the JAX package's count was not "
+              "measured", flush=True)
+    else:
+        events_gate(big.total_events, NG_BIG_JAX_EVENTS, "K3 non-gray")
+    k_3 = path_kernel(transport_kernel, dev, big, big_in, name_3, cost)
+
+    phase("25 K4 non-gray: stepdiff_smr as shipped (128x64), 100k particles, EPBremss, "
+          "one step")
+    name_s = transport_kernel.launch_name(2, True, False, True, True)
+    p0 = initial_ledger(SMR_DECK, NG_SMR)
+    k4, k4_launches, k4_in, _ = run_path(SMR_DECK, NG_SMR, name_s, 1, conserves_tally=False)
+    if k4.mesh.n_blocks != 20 or k4.mesh.max_level != 1:
+        raise AssertionError(f"stepdiff_smr: {k4.mesh.n_blocks} blocks")
+    spectral_gate(k4, p0, "non-gray K4", NG_SMR_JAX)
+    k_s = path_kernel(transport_kernel, dev, k4, k4_in, name_s, cost)
+
+    phase("26 Su-Olson: suolson.in as shipped (64 cells, 40 steps, 8000 + 8000 particles)")
+    name_a1 = transport_kernel.launch_name(1, True)
+    so = run_path(SUOLSON_DECK, SUOLSON, name_a1, SUOLSON_STEPS, conserves_tally=False)[0]
+    mc, jb = so.cfg.mcblock, so.cfg.jaybenne
+    sie0 = float(mc.build_eos().internal_energy_from_density_temperature(
+        mc.initial_density, mc.initial_temperature))
+    b = so.mesh.bounds
+    e_init = mc.initial_density * sie0 * (b[1] - b[0]) * (b[3] - b[2]) * (b[5] - b[4])
+    box = jb.external_source_box
+    v_src = (box[1] - box[0]) * (box[3] - box[2]) * (box[5] - box[4])
+    injected = jb.external_source_q * v_src * min(so.t, jb.external_source_tmax)
+    e_mat, e_rad = total_energy(so)
+    e_mat -= e_rad
+    print(f"Su-Olson: matter {e_mat!r}, radiation {e_rad!r}, gain {e_mat + e_rad - e_init!r}, "
+          f"injected {injected!r}", flush=True)
+    gate(abs(e_mat + e_rad - e_init - injected) / injected, SUOLSON_TOL,
+         "Su-Olson bookkeeping error")
+
+    phase("27 tabulated opacity: stepdiff 128 cells, 100k particles, kappa(rho, T) from .npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tab.npz")
+        np.savez(path, **TABLE)
+        mods = {**TABLE_GATE, "mcblock/opacity_table_file": path}
+        p0 = initial_ledger(DECK, mods)
+        tab = run_path(DECK, mods, name_a1, 1, conserves_tally=False)[0]
+        gray = tab.cfg.mcblock.build_opacity().is_gray
+    p = tab.state.particles
+    w0 = float(p0.weight.double()[p0.alive].sum())
+    w_live = float(p.weight.double()[p.alive].sum())
+    absorbed = float(tab.state.fields.energy_delta.double().sum())
+    if not gray or absorbed <= 0:
+        raise AssertionError(f"tabulated opacity: absorbed {absorbed}")
+    gate(abs(w_live + absorbed - w0) / w0, NG_ENERGY_RTOL,
+         f"tabulated opacity: absorbed {absorbed!r} of {w0!r}; w_live + absorbed vs w0")
+
+    kernels = []
+    for name, what, replaces, launches, (ms, plain, _, err, bound, by) in (
+            (name_1, "non-gray K1(e), 1D; stepdiff with EPBremss",
+             "jaybenne_tpu/ops/pallas_transport.py:484", k1e_launches, k_1),
+            (name_3, "K3's non-gray function at 64^3; non-gray K1(e) in 3D",
+             "jaybenne_tpu/ops/pallas_grid.py:859", big_launches, k_3),
+            (name_s, "K4's non-gray function on stepdiff_smr; non-gray K1(d)",
+             "jaybenne_tpu/ops/pallas_bucketed.py:355", k4_launches, k_s)):
+        kernels.append({
+            "name": f"{name} ({what})", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches.get(name, 0), "max_abs_err": max(ng_err[name], err),
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })
     return kernels
@@ -1229,7 +1553,8 @@ def main() -> int:
     sass = sass_counts(lib.path)
     cost = probe_costs(sass)
     print(f"SASS instructions on the straight-line path: logf {cost['logf']}, divide "
-          f"{cost['div']}, hash {cost['hash']}", flush=True)
+          f"{cost['div']}, hash {cost['hash']}, expf {cost['expf']}, sqrtf {cost['sqrtf']}",
+          flush=True)
     bound_1d, by_1d = census_bound(pm, 1, False, meshm.total_cells, census_events, cost)
     print(f"K1(a) bound on the main-path ledger: {census_events} events x "
           f"{ops_per_event(1, False, cost)} operations: {bound_1d!r} ms ({by_1d}); "
@@ -1424,6 +1749,7 @@ def main() -> int:
 
     src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
     smr_kernels = smr_phases(transport_kernel, dev, cost, src)
+    nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
 
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -1483,7 +1809,7 @@ def main() -> int:
             "library_ms": None,
         },
     ]
-    kernels += smr_kernels
+    kernels += smr_kernels + nongray_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,12 @@ This package imports ``torch`` and never ``jax``. The census kernel is hand-writ
 CUDA C++ (``csrc/``), compiled with ``nvcc`` at first use; on CPU tensors every
 kernel runs its plain PyTorch version instead.
 
-Scope so far: gray IMC and hybrid IMC/DDMC on uniform single-level meshes in 1D, 2D
-and 3D on one device, with thermal initial radiation, emission, absorption and
-fluid feedback. Other configurations (static refinement, with or without DDMC;
-frequency-dependent models; the external source; f64; several devices) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Scope so far: IMC and hybrid IMC/DDMC on uniform and statically refined meshes in
+1D, 2D and 3D on one device, with thermal initial radiation, emission, absorption,
+fluid feedback, the external volume source, and every model of the JAX package
+(gray, tabulated and frequency-dependent ``EPBremss`` opacities, gray and Thomson
+scattering, the ideal-gas and power-law-cv equations of state). Other
+configurations (f64; several devices and the spatial decomposition; restart and
+the Parthenon dump layout) raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """

@@ -26,6 +26,10 @@ from .ops.transport import TransportCoefs
 from .particles import ParticleLedger
 from .state import Fields, SimState
 
+# the JAX coefficients' model object belongs to the JAX package: the port's
+# counterpart is built from the port's own models
+_MODEL_FIELDS = ("opacity",)
+
 # each kind is recognised by a key only it has
 _KINDS = (
     ("particles", SimState),
@@ -58,7 +62,7 @@ def state_from_numpy(d: dict, device="cpu"):
     cls = _kind(d)
     kwargs = {}
     for f in dataclasses.fields(cls):
-        if f.name not in d:
+        if f.name not in d or (cls is TransportCoefs and f.name in _MODEL_FIELDS):
             if f.default is not dataclasses.MISSING:
                 continue
             raise KeyError(f"state_from_numpy: {cls.__name__} needs {f.name!r}")

@@ -211,11 +211,12 @@ class McblockConfig:
 
     def build_eos(self):
         if self.eos_model == "power_law_cv":
-            raise not_ported("eos_model = power_law_cv", "Queue 1, item 14")
-        if self.eos_model != "ideal":
+            base = eos_models.PowerLawCv(alpha=self.cv_alpha, n=self.cv_exponent)
+        elif self.eos_model == "ideal":
+            cv = self.cv if self.cv is not None else 1.0 / (self.gamma - 1.0)
+            base = eos_models.IdealGas(gm1=self.gamma - 1.0, cv=cv)
+        else:
             raise DeckError("Only ideal or power_law_cv eos models supported!")
-        cv = self.cv if self.cv is not None else 1.0 / (self.gamma - 1.0)
-        base = eos_models.IdealGas(gm1=self.gamma - 1.0, cv=cv)
         return eos_models.UnitSystemEOS(base, **self._scales())
 
     def build_opacity(self):
@@ -223,8 +224,10 @@ class McblockConfig:
             base = opacity_models.Gray(0.0)
         elif self.opacity_model == "constant":
             base = opacity_models.Gray(self.opacity_constant_value)
-        elif self.opacity_model in ("ep_bremss", "table"):
-            raise not_ported(f"opacity_model = {self.opacity_model}", "Queue 1, item 14")
+        elif self.opacity_model == "ep_bremss":
+            base = opacity_models.EPBremss()
+        elif self.opacity_model == "table":
+            base = opacity_models.TabulatedOpacity.from_file(self.opacity_table_file)
         else:
             raise DeckError(
                 "Only none, constant, ep_bremss, or table opacity models supported!"
@@ -237,7 +240,7 @@ class McblockConfig:
         elif self.scattering_model == "constant":
             base = opacity_models.GrayS(self.scattering_constant_value, self.apm)
         elif self.scattering_model == "thomson":
-            raise not_ported("scattering_model = thomson", "Queue 1, item 14")
+            base = opacity_models.ThomsonS(self.apm)
         else:
             raise DeckError("Only none or constant scattering models supported!")
         return opacity_models.NonCGSUnitsS(base, **self._scales())

@@ -1,18 +1,19 @@
-// Census transport kernel: gray IMC, and hybrid IMC/DDMC, on a uniform mesh or a
-// statically refined (SMR) block forest, 1D/2D/3D, with or without absorption.
-// One source, twenty-four instantiations (NDIM in {1, 2, 3} x ABSORB x DDMC x
-// SMR).
+// Census transport kernel: IMC, and hybrid IMC/DDMC, on a uniform mesh or a
+// statically refined (SMR) block forest, 1D/2D/3D, with or without absorption,
+// with a gray or a frequency-dependent opacity. One source, thirty-six
+// instantiations: NDIM in {1, 2, 3} x SMR x (ABSORB x DDMC gray, and DDMC with
+// NONGRAY, which implies ABSORB).
 //
-// Replaces, in their gray configurations, the three census kernels of the JAX
-// package:
+// Replaces the three census kernels of the JAX package:
 //
 //   * jaybenne_tpu/ops/pallas_transport.py::_transport_kernel (:382; K1), the
-//     VMEM-resident kernel with its has_absorption (K1(b)), multi_d/three_d
-//     (K1(e), gray part), use_ddmc (K1(c)) and multi-block SMR (K1(d)) branches;
+//     VMEM-resident kernel with its has_absorption (K1(b)), multi_d/three_d and
+//     nongray (K1(e)), use_ddmc (K1(c)) and multi-block SMR (K1(d)) branches;
 //   * jaybenne_tpu/ops/pallas_grid.py::_grid_kernel (:678; K3), the kernel the
-//     JAX package runs on uniform meshes past K1's 5120-cell VMEM limit;
+//     JAX package runs on uniform meshes past K1's 5120-cell VMEM limit, gray
+//     and non-gray (:859-907);
 //   * jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel (:221; K4), the one
-//     it runs on refined forests past that limit.
+//     it runs on refined forests past that limit, gray and non-gray (:355-403).
 //
 // They exist separately on the TPU only because of VMEM. Here one kernel gathers
 // its tables from global memory: on a uniform forest it tracks global cells on
@@ -91,13 +92,30 @@
 //     direction from a hemisphere into the block in the cyclic axis order. Its
 //     variates continue the DrawPool after the DDMC event's: u_sel, u_t1, u_t2
 //     (3D) and the hemisphere mu are u16 halves, then one circle word;
+//   * NONGRAY (pallas_transport.py:484-501; pallas_grid.py:859-907;
+//     pallas_bucketed.py:355-403): the table holds (rho, T, fleck, sigma_s) per
+//     cell, one float4 (with DDMC followed by the six face probabilities and two
+//     zeros: three float4), and each event evaluates EPBremss under NonCGSUnits
+//     (models/opacity.py) at the lane's photon energy, read once from the
+//     ledger's energy column, before the collision draw: x = E / (sb T), nu =
+//     max(x (kb T) / h, 1e10), g = g_ff / nu, xc = min(nu h / (kb T), 80),
+//     sigma_a = rho^2 g^3 / sqrt(T) (1 - exp(-xc)), in that order of float32
+//     operations, each constant rounded to float32 on the host; then ea = fleck
+//     sigma_a, sigma_t = ea + (sigma_s + (1 - fleck) sigma_a), and the event
+//     runs with the DDMC-mode rounding (d_coll = exp23 / (sigma_t + tiny),
+//     absorption when u23 sigma_t < ea); with DDMC the lane's own sigma_t picks
+//     the branch (dmin sigma_t > tau_ddmc, pallas_transport.py:520-533). The JAX
+//     kernel draws the same words with and without nongray, so the tags are
+//     ABSORB's. K3 and K4 evaluate the models once per coefficient refresh and
+//     stall a lane whose cell changed until the next one: the same function;
 //   * events are summed per block and added with one int64 atomicAdd, the
 //     iteration maximum with one int32 atomicMax: integer atomics, so the
 //     statistics repeat exactly.
 //
 // What bounds it on an H100: the latency of a divergent per-thread loop of about
 // a thousand events (a warp runs to its slowest lane) and the throughput of
-// logf, the IEEE divides and the hash per event, not bytes: each particle is
+// logf, the IEEE divides and the hash per event (NONGRAY adds an expf, a sqrtf
+// and four divides), not bytes: each particle is
 // read and written once per call, and the one table gather per event hits L1
 // or L2. The design keeps every particle in registers for the whole census.
 // SMR's block and lookup tables are O(blocks) (at most 32 blocks and 512 tiles
@@ -107,7 +125,8 @@
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
 // kernel, so the stepdiff gate reproduces its events and error to every digit;
-// every line the DDMC and SMR parameters add is dead code when they are false.
+// every line the DDMC, SMR and NONGRAY parameters add is dead code when they are
+// false.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -152,9 +171,16 @@ struct Geom {
   float tile[3];      // f32 tile edge
   float nudge_cross[3];  // f32(0.5 finest): the probe along a crossed face's normal
   float nudge_tilt[3];   // f32(0.01 finest): the probe along the other axes, x v / c
+  // NONGRAY only: EPBremss under NonCGSUnits (ops/transport_kernel.py,
+  // NONGRAY_CONSTANTS)
+  float ng_rho_scale, ng_temp_scale, ng_len_scale;  // NonCGSUnits' scales
+  float ng_sb, ng_kb, ng_hh;  // Stefan-Boltzmann, Boltzmann and Planck constants
+  float ng_g;                 // (cff / m_p^2)^(1/3)
+  float ng_freq_min;          // the frequency clamp, 1e10
+  float ng_xc_max;            // the clamp of h nu / k T, 80
 };
 constexpr int kGeomInts = 14;
-constexpr int kGeomFloats = 45;
+constexpr int kGeomFloats = 54;
 
 // A refined forest's tables (SMR instantiations only): per block two float4,
 // (dx, dy, dz, 0) and (ox, oy, oz, 0); the int32 level of each block; the
@@ -174,10 +200,26 @@ struct Ledger {
   uint8_t* absorbed;
   int32_t* face;      // face-arrival code (DDMC instantiations only)
   int32_t* blk;       // owning block (SMR instantiations only)
+  const float* energy;  // photon energy, read only (NONGRAY instantiations only)
 };
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
+}
+
+// EPBremss under NonCGSUnits at photon energy en (models/opacity.py), in the JAX
+// package's order of float32 operations. The clamps pass a NaN through, as
+// torch.clamp_min/clamp_max and jnp.maximum/minimum do.
+__device__ __forceinline__ float epbremss(const Geom& g, float rho, float temp, float en) {
+  const float r = rho * g.ng_rho_scale;
+  const float t = temp * g.ng_temp_scale;
+  const float x = en / (g.ng_sb * t);
+  float freq = x * (g.ng_kb * t) / g.ng_hh;
+  freq = freq < g.ng_freq_min ? g.ng_freq_min : freq;
+  const float gg = g.ng_g / freq;
+  float xc = freq * g.ng_hh / (g.ng_kb * t);
+  xc = xc > g.ng_xc_max ? g.ng_xc_max : xc;
+  return r * r * gg * gg * gg / sqrtf(t) * (1.0f - expf(-xc)) * g.ng_len_scale;
 }
 
 // Draw tags of the DDMC event, continuing the IMC event's (the DrawPool's
@@ -359,7 +401,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
 // block and, with DDMC in 2D/3D, the coarse->fine subface resample of a leak.
 // ``gp`` is the global position after the BCs, ``v`` the velocity after the
 // scatter and any reflection; ``leak`` the DDMC leak code of this event.
-template <int NDIM, bool ABSORB, bool DDMC>
+template <int NDIM, bool ABSORB, bool DDMC, bool NONGRAY>
 __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const float* table,
                                        uint32_t lane, uint32_t it, int leak,
                                        const bool (&out_lo)[3], const bool (&out_hi)[3],
@@ -428,7 +470,11 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
           d2 = ndx[a];
         }
       }
-      // the fine block's P_lower (leak in +axis) or P_upper of a candidate face
+      // the fine block's P_lower (leak in +axis) or P_upper of a candidate face,
+      // in a record of 8 floats (ea, es, P...) or, NONGRAY, 12 (rho, T, fleck,
+      // sigma_s, P..., 0, 0)
+      constexpr int kRec = NONGRAY ? 12 : 8;
+      constexpr int kP0 = NONGRAY ? 4 : 2;
       auto face_prob = [&](int c1, int c2) -> float {
         int flat = b_new;
 #pragma unroll
@@ -436,7 +482,7 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
           const int ia = a == ax ? f_ax : (a == t1 ? c1 : (NDIM == 3 && a == t2 ? c2 : idx[a]));
           flat = flat * g.n[a] + ia;
         }
-        return __ldg(table + 8 * (size_t)flat + 2 + 2 * ax + upper);
+        return __ldg(table + kRec * (size_t)flat + kP0 + 2 * ax + upper);
       };
       int s1, s2 = 0;
       if constexpr (NDIM == 2) {
@@ -488,7 +534,7 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
   }
 }
 
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR>
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __global__ void __launch_bounds__(kThreads)
     transport_kernel(Ledger L, const float* __restrict__ table, Forest F, int n, Geom g,
                      unsigned long long* __restrict__ events,
@@ -511,6 +557,7 @@ __global__ void __launch_bounds__(kThreads)
     bool pabsorbed = false;
     int pface = DDMC ? L.face[s] : 0;
     int blk = SMR ? L.blk[s] : 0;
+    const float en = NONGRAY ? L.energy[s] : 0.0f;
     const uint32_t lane = (uint32_t)s;
     while (palive && ptau < 1.0f && it < g.max_iters) {
       // the cell geometry: the collapsed block's, or with SMR the lane's block's
@@ -546,12 +593,35 @@ __global__ void __launch_bounds__(kThreads)
         if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
         if (NDIM == 3) cell = (ci[2] * g.n[1] + ci[1]) * g.n[0] + ci[0];
       }
-      float2 tab;        // (p_abs, 1 / sigma_t) without DDMC
-      float ea = 0.0f;   // with DDMC: fleck sigma_a
+      float2 tab;        // (p_abs, 1 / sigma_t), gray without DDMC
+      float ea = 0.0f;   // with DDMC or NONGRAY: fleck sigma_a
       float sig_t = 0.0f;
       float pf[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       bool is_ddmc = false;
-      if constexpr (DDMC) {
+      if constexpr (NONGRAY) {
+        // (rho, T, fleck, sigma_s); with DDMC then (Px_lo, Px_hi, Py_lo, Py_hi)
+        // and (Pz_lo, Pz_hi, 0, 0)
+        const float4* rec = reinterpret_cast<const float4*>(table) + (DDMC ? 3 : 1) * (size_t)cell;
+        const float4 r0 = __ldg(rec);
+        const float sa = epbremss(g, r0.x, r0.y, en);
+        ea = r0.z * sa;
+        sig_t = ea + (r0.w + (1.0f - r0.z) * sa);
+        if constexpr (DDMC) {
+          const float4 r1 = __ldg(rec + 1);
+          pf[0] = r1.x;
+          pf[1] = r1.y;
+          if (NDIM >= 2) {
+            pf[2] = r1.z;
+            pf[3] = r1.w;
+          }
+          if (NDIM == 3) {
+            const float4 r2 = __ldg(rec + 2);
+            pf[4] = r2.x;
+            pf[5] = r2.y;
+          }
+          is_ddmc = dmin * sig_t > g.tau_ddmc;
+        }
+      } else if constexpr (DDMC) {
         const float4* rec = reinterpret_cast<const float4*>(table) + 2 * (size_t)cell;
         const float4 r0 = __ldg(rec);  // (ea, es, Px_lo, Px_hi)
         if (ABSORB) ea = r0.x;
@@ -578,7 +648,7 @@ __global__ void __launch_bounds__(kThreads)
                                  v, np_, nci, ptau, palive, pabsorbed, leak);
       } else {
         float d_coll;
-        if constexpr (DDMC) {
+        if constexpr (DDMC || NONGRAY) {
           d_coll = jb_exp23(jb_raw_bits(g.seed, lane, (uint32_t)it, 0u)) / (sig_t + 1.0e-37f);
         } else {
           d_coll = jb_exp23(jb_raw_bits(g.seed, lane, (uint32_t)it, 0u)) * tab.y;
@@ -603,8 +673,8 @@ __global__ void __launch_bounds__(kThreads)
 
         const bool coll = d_coll < d_push;
         bool absorb = false;
-        if constexpr (ABSORB && DDMC) absorb = coll && u_branch * sig_t < ea;
-        if constexpr (ABSORB && !DDMC) absorb = coll && u_branch < tab.x;
+        if constexpr (ABSORB && (DDMC || NONGRAY)) absorb = coll && u_branch * sig_t < ea;
+        if constexpr (ABSORB && !DDMC && !NONGRAY) absorb = coll && u_branch < tab.x;
         const bool scatter = coll && !absorb;
         bool cr[3] = {false, false, false};
         cr[0] = !coll && fd[0] <= d_geom;
@@ -689,8 +759,8 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
         if (SMR && palive) {  // re-home by the lookup grid
-          rehome<NDIM, ABSORB, DDMC>(g, F, table, lane, (uint32_t)it, leak, out_lo, out_hi, gp,
-                                     blk, np_, nci, v);
+          rehome<NDIM, ABSORB, DDMC, NONGRAY>(g, F, table, lane, (uint32_t)it, leak, out_lo,
+                                              out_hi, gp, blk, np_, nci, v);
         } else {
 #pragma unroll
           for (int a = 0; a < NDIM; ++a) {
@@ -753,50 +823,65 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR>
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 void launch(const Ledger& L, const float* table, const Forest& F, int n, const Geom& g,
             unsigned long long* events, int32_t* iters, cudaStream_t stream) {
-  transport_kernel<NDIM, ABSORB, DDMC, SMR>
+  transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY>
       <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, events, iters);
 }
 
+// A frequency-dependent opacity absorbs: NONGRAY is instantiated with ABSORB only
+// (the entry point refuses it without).
 template <int NDIM, bool SMR>
-void launch_mode(bool absorb, bool ddmc, const Ledger& L, const float* table, const Forest& F,
-                 int n, const Geom& g, unsigned long long* events, int32_t* iters,
-                 cudaStream_t stream) {
-  if (!absorb && !ddmc) launch<NDIM, false, false, SMR>(L, table, F, n, g, events, iters, stream);
-  if (absorb && !ddmc) launch<NDIM, true, false, SMR>(L, table, F, n, g, events, iters, stream);
-  if (!absorb && ddmc) launch<NDIM, false, true, SMR>(L, table, F, n, g, events, iters, stream);
-  if (absorb && ddmc) launch<NDIM, true, true, SMR>(L, table, F, n, g, events, iters, stream);
+void launch_mode(bool absorb, bool ddmc, bool nongray, const Ledger& L, const float* table,
+                 const Forest& F, int n, const Geom& g, unsigned long long* events,
+                 int32_t* iters, cudaStream_t stream) {
+  if (nongray) {
+    if (!ddmc) launch<NDIM, true, false, SMR, true>(L, table, F, n, g, events, iters, stream);
+    if (ddmc) launch<NDIM, true, true, SMR, true>(L, table, F, n, g, events, iters, stream);
+    return;
+  }
+  if (!absorb && !ddmc)
+    launch<NDIM, false, false, SMR, false>(L, table, F, n, g, events, iters, stream);
+  if (absorb && !ddmc)
+    launch<NDIM, true, false, SMR, false>(L, table, F, n, g, events, iters, stream);
+  if (!absorb && ddmc)
+    launch<NDIM, false, true, SMR, false>(L, table, F, n, g, events, iters, stream);
+  if (absorb && ddmc)
+    launch<NDIM, true, true, SMR, false>(L, table, F, n, g, events, iters, stream);
 }
 
 template <int NDIM>
-void launch_dim(bool absorb, bool ddmc, bool smr, const Ledger& L, const float* table,
-                const Forest& F, int n, const Geom& g, unsigned long long* events,
-                int32_t* iters, cudaStream_t stream) {
+void launch_dim(bool absorb, bool ddmc, bool smr, bool nongray, const Ledger& L,
+                const float* table, const Forest& F, int n, const Geom& g,
+                unsigned long long* events, int32_t* iters, cudaStream_t stream) {
   if (smr) {
-    launch_mode<NDIM, true>(absorb, ddmc, L, table, F, n, g, events, iters, stream);
+    launch_mode<NDIM, true>(absorb, ddmc, nongray, L, table, F, n, g, events, iters, stream);
   } else {
-    launch_mode<NDIM, false>(absorb, ddmc, L, table, F, n, g, events, iters, stream);
+    launch_mode<NDIM, false>(absorb, ddmc, nongray, L, table, F, n, g, events, iters, stream);
   }
 }
 
 }  // namespace
 
-// ptrs: 14 device pointers x y z vx vy vz tau i j k alive absorbed face block.
+// ptrs: 15 device pointers x y z vx vy vz tau i j k alive absorbed face block
+// energy.
 // table: per cell, the float2 (p_abs, 1 / sigma_t) without DDMC, the 8 floats
 // (ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi) with it (16-byte aligned);
-// in global row-major cell order on a uniform forest, block cell order with SMR.
+// with nongray the 4 floats (rho, T, fleck, sigma_s), with DDMC followed by the
+// six face probabilities and two zeros; in global row-major cell order on a
+// uniform forest, block cell order with SMR.
 // With smr: block_table (per block the 8 floats dx dy dz 0 ox oy oz 0, 16-byte
 // aligned), levels (int32 per block) and lookup (the int32 lookup grid); null
 // otherwise.
 // igeom: n[3] bc[6] max_iters seed nt[3]; fgeom: dx[3] inv_dx[3] org[3] lo[3]
 // hi[3] lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc eps_imc
-// eps_ddmc dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] (host
-// arrays).
+// eps_ddmc dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] rho_scale
+// temp_scale length_scale sb kb hh g_ff freq_min xc_max (host arrays).
 // Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
-// SMR launch without its tables.
-extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, void* const* ptrs,
+// SMR launch without its tables, -3 for nongray without absorb.
+extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int nongray,
+                                   void* const* ptrs,
                                    const void* table, const void* block_table,
                                    const void* levels, const void* lookup, int n,
                                    const int* igeom, const float* fgeom, void* events,
@@ -812,6 +897,7 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, void
   L.absorbed = (uint8_t*)ptrs[11];
   L.face = (int32_t*)ptrs[12];
   L.blk = (int32_t*)ptrs[13];
+  L.energy = (const float*)ptrs[14];
   Forest F;
   F.block = (const float4*)block_table;
   F.level = (const int32_t*)levels;
@@ -843,20 +929,25 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, void
   float* smr_dst[3] = {g.tile, g.nudge_cross, g.nudge_tilt};
   for (int k = 0; k < 3; ++k)
     for (int a = 0; a < 3; ++a) smr_dst[k][a] = *fp++;
-  static_assert(kGeomInts == 14 && kGeomFloats == 45, "geometry layout");
+  float* ng_dst[9] = {&g.ng_rho_scale, &g.ng_temp_scale, &g.ng_len_scale, &g.ng_sb, &g.ng_kb,
+                      &g.ng_hh, &g.ng_g, &g.ng_freq_min, &g.ng_xc_max};
+  for (int k = 0; k < 9; ++k) *ng_dst[k] = *fp++;
+  static_assert(kGeomInts == 14 && kGeomFloats == 54, "geometry layout");
 
   if (ndim < 1 || ndim > 3) return -1;
   const bool sm = smr != 0;
   if (sm && (block_table == nullptr || levels == nullptr || lookup == nullptr)) return -2;
+  const bool ng = nongray != 0;
+  if (ng && absorb == 0) return -3;
   if (n > 0) {
     const float* tab = (const float*)table;
     auto* ev = (unsigned long long*)events;
     auto* itp = (int32_t*)iters;
     auto st = (cudaStream_t)stream;
     const bool ab = absorb != 0, dd = ddmc != 0;
-    if (ndim == 1) launch_dim<1>(ab, dd, sm, L, tab, F, n, g, ev, itp, st);
-    if (ndim == 2) launch_dim<2>(ab, dd, sm, L, tab, F, n, g, ev, itp, st);
-    if (ndim == 3) launch_dim<3>(ab, dd, sm, L, tab, F, n, g, ev, itp, st);
+    if (ndim == 1) launch_dim<1>(ab, dd, sm, ng, L, tab, F, n, g, ev, itp, st);
+    if (ndim == 2) launch_dim<2>(ab, dd, sm, ng, L, tab, F, n, g, ev, itp, st);
+    if (ndim == 3) launch_dim<3>(ab, dd, sm, ng, L, tab, F, n, g, ev, itp, st);
   }
   return (int)cudaGetLastError();
 }

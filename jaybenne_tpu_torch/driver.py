@@ -63,7 +63,15 @@ class Simulation:
     def _capacity(self) -> int:
         jb = self.cfg.jaybenne
         # room for census survivors + one step of births + stochastic slack
-        return int(jb.num_particles * jb.capacity_factor) + self.mesh.total_cells + 1024
+        return (int(jb.num_particles * jb.capacity_factor) + self.mesh.total_cells + 1024
+                + self._ext_births())
+
+    def _ext_births(self) -> int:
+        """Births of the external source in one step (0 without it)."""
+        jb = self.cfg.jaybenne
+        if jb.external_source_q <= 0:
+            return 0
+        return jb.external_source_num or jb.num_particles
 
     def _ensure_headroom(self):
         """Grow the particle ledger before the next sourcing could overflow it (the
@@ -73,7 +81,7 @@ class Simulation:
         a pointer or a shape of the old ones across a step."""
         p = self.state.particles
         need = (int(p.num_alive()) + self.cfg.jaybenne.num_particles
-                + self.mesh.total_cells + 64)
+                + self._ext_births() + self.mesh.total_cells + 64)
         if need <= p.capacity:
             return
         new_cap = max(need, 2 * p.capacity)
@@ -118,7 +126,7 @@ class Simulation:
                 print(f"walltime limit reached after {self.cycle} cycles; stopping",
                       file=sys.stderr)
                 break
-            if cfg.jaybenne.do_emission:
+            if cfg.jaybenne.do_emission or self._ext_births():
                 self._ensure_headroom()
             t0 = _time.perf_counter()
             self.state, stats = self.step_fn(self.state, step_dt)

@@ -4,9 +4,9 @@ Models are frozen dataclasses of Python scalars. Their methods take tensors (or
 Python floats) and use plain arithmetic, so they broadcast over cell arrays on any
 device.
 
-``config.McblockConfig.build_eos`` always wraps the base model in
-``UnitSystemEOS``, as the JAX package does. ``PowerLawCv`` (the Su-Olson material)
-arrives with slice 5 (ROADMAP Queue 1, item 14).
+``config.McblockConfig.build_eos`` always wraps the base model (``IdealGas`` or
+``PowerLawCv``, the Su-Olson material) in ``UnitSystemEOS``, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -39,11 +39,38 @@ class IdealGas:
 
 
 @dataclasses.dataclass(frozen=True)
+class PowerLawCv:
+    """Temperature-power-law specific heat: ``cv(T) = alpha * T**n`` per unit mass,
+    so ``sie = alpha * T**(n+1) / (n+1)``. ``n = 3`` makes ``u_m`` proportional to
+    ``T^4``, like the radiation field: the material of the Su & Olson (1996)
+    benchmark (``inputs/suolson.in``)."""
+
+    alpha: float    # cv prefactor [erg/g/K^(n+1)]
+    n: float = 3.0  # temperature exponent
+
+    def temperature_from_density_internal_energy(self, rho, sie):
+        del rho
+        p = self.n + 1.0
+        v = p * sie / self.alpha
+        v = torch.clamp_min(v, 0.0) if isinstance(v, torch.Tensor) else max(v, 0.0)
+        return v ** (1.0 / p)
+
+    def specific_heat_from_density_internal_energy(self, rho, sie):
+        t = self.temperature_from_density_internal_energy(rho, sie)
+        return self.alpha * t**self.n
+
+    def internal_energy_from_density_temperature(self, rho, temp):
+        del rho
+        p = self.n + 1.0
+        return self.alpha * temp**p / p
+
+
+@dataclasses.dataclass(frozen=True)
 class UnitSystemEOS:
     """Unit-scale wrapper around an EOS: converts code-unit (rho, sie) to CGS,
     evaluates the wrapped model, and converts the result back to code units."""
 
-    base: IdealGas
+    base: object  # IdealGas or PowerLawCv
     time_scale: float = 1.0
     mass_scale: float = 1.0
     length_scale: float = 1.0

@@ -6,6 +6,7 @@ The JAX package folds (cycle, phase) tags into a threefry key. Here each stream 
 
   * ``PHASE_INIT`` — thermal initial radiation (cycle 0);
   * ``PHASE_SOURCE`` — per-step emission sourcing;
+  * ``PHASE_EXTERNAL`` — per-step external volume source;
   * ``PHASE_TRANSPORT`` — the census kernel, which draws its own variates from the
     counter hash of ``ops/kernel_rng.py`` and takes only a 32-bit seed, so that
     stream is the hash value itself (``kernel_seed``) and needs no generator.
@@ -25,6 +26,7 @@ import torch
 PHASE_INIT = 0
 PHASE_SOURCE = 1
 PHASE_TRANSPORT = 2
+PHASE_EXTERNAL = 3
 
 _M64 = (1 << 64) - 1
 

@@ -1,18 +1,23 @@
-"""Photon sourcing (port of ``jaybenne_tpu/ops/sourcing.py``, thermal and emission
-branches).
+"""Photon sourcing (port of ``jaybenne_tpu/ops/sourcing.py``, one device).
 
-  1. per cell: source energy ``erad`` -- thermal ``(4 sb / c) T^4 dV`` or emission
-     ``fleck * emis * dV * dt`` -- and a stochastically rounded particle count
+  1. per cell: source energy ``erad`` -- thermal ``(4 sb / c) T^4 dV``, emission
+     ``fleck * emis * dV * dt`` or external ``q * overlap * dV`` inside the source
+     box -- and a stochastically rounded particle count
      ``n = floor(npc) + Bernoulli(npc - floor(npc))`` with
-     ``npc = num_particles / n_cells`` and per-particle weight ``erad / n``;
-  2. a candidate grid ``[n_cells, floor(npc)+1]`` holds every potential birth at a
-     uniform in-cell position with an isotropic direction and a Planck energy;
+     ``npc = num_particles / n_cells`` (external: over the source cells only) and
+     per-particle weight ``erad / n``;
+  2. a candidate grid ``[n_cells, floor(npc)+1]`` (external: one row per source
+     cell) holds every potential birth at a uniform in-cell position with an
+     isotropic direction and a Planck energy;
   3. valid candidates go into the ledger's dead slots (``insert_particles``).
 
 Emission debits each cell's ``energy_delta`` by the summed birth weights
 ``n * ew``, and its births are uniform in the step (``tau ~ U[0, 1)``); thermal
-births start at ``tau = 0``. The external source arrives with slice 5 (ROADMAP
-Queue 1, item 14).
+births start at ``tau = 0``. The external volume source (the Su-Olson driving
+term, ``jaybenne/external_source*``) injects at the fixed rate ``q`` inside a box
+while ``t < tmax``: its births are uniform over the in-step window
+``[t, min(t + dt, tmax))``, nothing is debited from the matter, and
+``source_num``/``source_ew`` accumulate over the emission pass before it.
 """
 
 from __future__ import annotations
@@ -21,34 +26,69 @@ import dataclasses
 
 import torch
 
-from ..config import not_ported
 from ..particles import insert_particles
 from . import planck, rng
 
 
+@dataclasses.dataclass(frozen=True)
+class ExternalSource:
+    """Geometry of the external volume source, fixed for a run
+    (``external_source_setup``): the box mask over cell centres ([B, nz, ny, nx]
+    bool), the flat ids of the source cells, their count, the rate ``q``, the
+    cutoff ``tmax`` and the injection temperature (0: the local matter's)."""
+
+    inside: torch.Tensor
+    cells: torch.Tensor
+    n_cells: int
+    q: float
+    tmax: float
+    temperature: float
+
+
+def external_source_setup(mesh, jb) -> ExternalSource:
+    """The source box of ``jb.external_source_*`` (the whole domain when unset) on
+    ``mesh``: a cell is inside when its centre lies in ``[min, max)`` on every
+    axis. Port of the JAX ``external_source_setup``."""
+    box = jb.external_source_box or mesh.bounds
+    xc, yc, zc = mesh.cell_centers()
+    m = ((xc >= box[0]) & (xc < box[1]) & (yc >= box[2]) & (yc < box[3])
+         & (zc >= box[4]) & (zc < box[5]))
+    cells = torch.nonzero(m.reshape(-1)).reshape(-1)
+    if cells.numel() == 0:
+        raise ValueError("external_source box contains no cell centers")
+    # the open-ended default stays below the float32 maximum, as in the JAX package
+    return ExternalSource(inside=m, cells=cells, n_cells=int(cells.numel()),
+                          q=jb.external_source_q, tmax=min(jb.external_source_tmax, 3.0e38),
+                          temperature=jb.external_source_temperature)
+
+
 def source_photons(
     fields, particles, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype,
-    opacity=None, dt=0.0,
+    opacity=None, dt=0.0, t=0.0, external: ExternalSource | None = None,
 ):
     """Returns (fields, particles, n_dropped); the ledger is updated in place.
     ``gen`` is the stream's ``torch.Generator`` (see ``ops/rng.py``); emission
-    needs the ``opacity`` model and the step ``dt``."""
-    if source_type == "external":
-        raise not_ported("the external volume source", "Queue 1, item 14")
-    if source_type not in ("thermal", "emission"):
+    needs the ``opacity`` model and the step ``dt``, the external source the step's
+    start time ``t`` and its ``external`` geometry."""
+    if source_type not in ("thermal", "emission", "external"):
         raise ValueError(f"unknown source_type {source_type!r}")
     dev = fields.rho.device
     B, nz, ny, nx = fields.rho.shape
-    C = B * nz * ny * nx
+    n_cells = B * nz * ny * nx
 
     temp = eos.temperature_from_density_internal_energy(fields.rho, fields.sie)
     dv = mesh.block_volume[:, None, None, None]
+    overlap = 0.0
     if source_type == "thermal":
         erad = (4.0 * sb / c) * temp**4 * dv
-    else:
+    elif source_type == "emission":
         erad = fields.fleck * opacity.emissivity(fields.rho, temp) * dv * dt
+    else:
+        # the in-step source window [t, min(t + dt, tmax)); empty past the cutoff
+        overlap = min(max(min(t + dt, external.tmax) - t, 0.0), dt)
+        erad = (external.q * overlap) * dv * external.inside.to(dtype)
 
-    npc = float(num_particles) / float(C)
+    npc = float(num_particles) / float(external.n_cells if external else n_cells)
     base = int(npc)
     frac = npc - base
     bern = rng.uniform(gen, erad.shape, dtype, dev) < frac
@@ -57,17 +97,35 @@ def source_photons(
     n_cell = torch.where(erad > 0, n_cell, 0)
     n_f = n_cell.to(dtype)
     ew = torch.where(n_cell > 0, erad / n_f.clamp_min(1.0), 0.0).to(dtype)
-    debit = -(n_f * ew) if source_type == "emission" else torch.zeros_like(ew)
-    fields = dataclasses.replace(fields, source_num=n_f, source_ew=ew, energy_delta=debit)
+    if source_type == "external":
+        # accumulate over the emission pass: source_num * source_ew stays the
+        # energy sourced per cell; nothing is debited from the matter
+        tot_e = fields.source_num * fields.source_ew + n_f * ew
+        new_num = fields.source_num + n_f
+        fields = dataclasses.replace(fields, source_num=new_num, source_ew=torch.where(
+            new_num > 0, tot_e / new_num.clamp_min(1.0), 0.0).to(dtype))
+    else:
+        debit = -(n_f * ew) if source_type == "emission" else torch.zeros_like(ew)
+        fields = dataclasses.replace(fields, source_num=n_f, source_ew=ew, energy_delta=debit)
 
-    # ---- candidate grid ------------------------------------------------------
+    # ---- candidate grid: every cell, or the source cells ----------------------
     K = base + 1  # max births per cell
-    cflat = torch.arange(C, dtype=torch.int32, device=dev)
+    if external:
+        cflat = external.cells.to(torch.int32)
+    else:
+        cflat = torch.arange(n_cells, dtype=torch.int32, device=dev)
+    C = cflat.numel()
     i_c = cflat % nx
     j_c = (cflat // nx) % ny
     k_c = (cflat // (nx * ny)) % nz
     b_c = cflat // (nx * ny * nz)
-    valid = torch.arange(K, dtype=torch.int32, device=dev)[None, :] < n_cell.reshape(C, 1)
+
+    def per_row(v):
+        """A per-cell tensor at the candidate rows, [C, 1]."""
+        v = v.reshape(-1)
+        return (v[cflat.long()] if external else v).reshape(C, 1)
+
+    valid = torch.arange(K, dtype=torch.int32, device=dev)[None, :] < per_row(n_cell)
 
     shape = (C, K)
     ux = rng.uniform(gen, shape, dtype, dev)
@@ -75,10 +133,14 @@ def source_photons(
     uz = rng.uniform(gen, shape, dtype, dev)
     ndir = rng.isotropic_direction(gen, shape, dtype, dev)
     dxv = mesh.block_dx[b_c.long()]  # [C, 3]
-    temp_flat = temp.reshape(C, 1).to(dtype)
-    energy = planck.sample_planck_energy(gen, sb, temp_flat, shape, dtype, dev)
+    temp_rows = per_row(temp).to(dtype)
+    if external and external.temperature > 0:  # a fixed injection spectrum
+        temp_rows = torch.full_like(temp_rows, external.temperature)
+    energy = planck.sample_planck_energy(gen, sb, temp_rows, shape, dtype, dev)
     if source_type == "emission":
         tau = rng.uniform(gen, shape, dtype, dev)
+    elif source_type == "external":  # uniform over the in-step source window
+        tau = rng.uniform(gen, shape, dtype, dev) * (overlap / dt)
     else:
         tau = torch.zeros(shape, dtype=dtype, device=dev)
 
@@ -90,7 +152,7 @@ def source_photons(
         vy=c * ndir[1],
         vz=c * ndir[2],
         tau=tau,
-        weight=ew.reshape(C, 1).expand(shape),
+        weight=per_row(ew).expand(shape),
         energy=energy,
         block=b_c[:, None].expand(shape),
         i=i_c[:, None].expand(shape),

@@ -2,10 +2,9 @@
 ``jaybenne_tpu/ops/transport.py``).
 
 The census loop itself is ``ops/transport_kernel.py``: the CUDA kernel and, on
-CPU tensors, its plain PyTorch version, for IMC and DDMC alike. The JAX package's
-XLA event loop (``_one_event``/``transport``) draws threefry variates in another
-structure; its port waits for the slices that need it (f64, SMR; ROADMAP Queue 1,
-item 7).
+CPU tensors, its plain PyTorch version, for IMC and DDMC, gray and non-gray alike.
+The JAX package's XLA event loop (``_one_event``/``transport``) draws threefry
+variates in another structure; its port waits for f64 (ROADMAP Queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -14,21 +13,32 @@ import dataclasses
 
 import torch
 
-from ..config import not_ported
-
 
 @dataclasses.dataclass
 class TransportCoefs:
-    """Per-cell gray transport coefficients, computed once per step (the fields do
-    not change during transport). The cell ones are f[NC] in block cell order; the
-    DDMC face probabilities are the fields' face arrays, None without DDMC."""
+    """Per-cell transport coefficients, computed once per step (the fields do not
+    change during transport). The cell ones are f[NC] in block cell order; the
+    DDMC face probabilities are the fields' face arrays, None without DDMC.
 
-    sigma_a: torch.Tensor  # absorption coefficient
+    With a frequency-dependent model the census evaluates ``opacity`` at each
+    particle's photon energy, per event, from the cell's ``rho`` and ``temp``, as
+    the JAX package's ``TransportCoefs`` with its models attached does;
+    ``sigma_a`` then holds the Planck mean and ``sigma_s`` the (gray) scattering.
+    Gray runs leave the three at None."""
+
+    sigma_a: torch.Tensor  # absorption coefficient (the Planck mean if non-gray)
     sigma_s: torch.Tensor  # scattering coefficient
     fleck: torch.Tensor    # Fleck factor
     px: torch.Tensor | None = None  # [B, nz, ny, nx+1] DDMC face probabilities
     py: torch.Tensor | None = None  # [B, nz, ny+1, nx]
     pz: torch.Tensor | None = None  # [B, nz+1, ny, nx]
+    rho: torch.Tensor | None = None   # non-gray: density per cell
+    temp: torch.Tensor | None = None  # non-gray: temperature per cell
+    opacity: object = None            # non-gray: the absorption model
+
+    @property
+    def is_gray(self) -> bool:
+        return self.opacity is None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,18 +65,22 @@ def default_eps(dtype):
 
 
 def precompute_coefs(fields, mesh, eos, opacity, scattering, use_ddmc, dtype):
-    if not (opacity.is_gray and scattering.is_gray):
-        raise not_ported("frequency-dependent models", "Queue 1, item 14")
     temp = eos.temperature_from_density_internal_energy(fields.rho, fields.sie)
     shape = fields.rho.shape
 
     def cellwise(v):
         return torch.as_tensor(v, dtype=dtype, device=fields.rho.device).expand(shape).reshape(-1)
 
+    nongray = {}
+    if not (opacity.is_gray and scattering.is_gray):
+        # the census gathers (rho, T) and evaluates the models at the particle's
+        # photon energy
+        nongray = dict(rho=cellwise(fields.rho), temp=cellwise(temp), opacity=opacity)
     return TransportCoefs(
         sigma_a=cellwise(opacity.absorption_coefficient(fields.rho, temp)),
         sigma_s=cellwise(scattering.total_scattering_coefficient(fields.rho, temp)),
         fleck=fields.fleck.reshape(-1).to(dtype),
         **({"px": fields.ddmc_px, "py": fields.ddmc_py, "pz": fields.ddmc_pz}
            if use_ddmc else {}),
+        **nongray,
     )

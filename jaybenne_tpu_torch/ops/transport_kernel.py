@@ -1,12 +1,13 @@
-"""Census transport: gray IMC, or hybrid IMC/DDMC, on a uniform or statically
-refined mesh in 1D, 2D or 3D, with or without absorption.
+"""Census transport: IMC, or hybrid IMC/DDMC, on a uniform or statically refined
+mesh in 1D, 2D or 3D, with or without absorption, with gray or frequency-dependent
+opacities.
 
-Port of ``jaybenne_tpu/ops/pallas_transport.py::_transport_kernel`` (K1) in its
-gray configurations (K1(a), K1(b), K1(c) DDMC, K1(d) static refinement and the
-gray part of K1(e)), of ``jaybenne_tpu/ops/pallas_grid.py::_grid_kernel`` (K3) and
-of the gray function of ``jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel``
-(K4): the JAX package runs the last two on meshes or forests whose tables do not
-fit VMEM, which here is no limit, so one kernel covers all three.
+Port of ``jaybenne_tpu/ops/pallas_transport.py::_transport_kernel`` (K1) in all
+its configurations (K1(a), K1(b), K1(c) DDMC, K1(d) static refinement and K1(e),
+gray and non-gray), of ``jaybenne_tpu/ops/pallas_grid.py::_grid_kernel`` (K3) and
+of ``jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel`` (K4): the JAX package
+runs the last two on meshes or forests whose tables do not fit VMEM, which here is
+no limit, so one kernel covers all three.
 
 ``transport`` runs the census for a ledger: the CUDA kernel
 (``csrc/transport_kernel.cu``) for CUDA tensors, its plain version for CPU tensors.
@@ -28,6 +29,15 @@ faces' probabilities (``_face_pairs``, the JAX ``_face_pair_vectors``), and the
 ledger's ``face`` column (the face-arrival code of the albedo test) is read and
 written.
 
+With a frequency-dependent opacity (``EPBremss``, the one non-gray model) the
+table row of a cell is ``(rho, T, fleck, sigma_s)``, before the face
+probabilities with DDMC, and each event evaluates the opacity at the particle's
+photon energy (the ledger's read-only ``energy`` column) before the collision
+draw: ``ea = fleck sigma_a(E)``, ``es = sigma_s + (1 - fleck) sigma_a(E)``, as
+``pallas_transport.py:484-501`` does. K3 and K4 evaluate the same models once per
+coefficient refresh on the TPU, where a lane whose cell changed stalls until the
+next refresh; evaluating per event computes the same function.
+
 A refined forest (``max_level > 0``) keeps the ledger block-local and the cell
 table in block cell order, and the census reads and writes the ``block`` column:
 each event gathers its block's cell size, and a particle that leaves its block is
@@ -48,6 +58,8 @@ import numpy as np
 import torch
 
 from ..config import BC, not_ported
+from ..models.opacity import EPBremss, NonCGSUnits
+from ..utils import constants
 from ..utils.constants import LAM_EXT
 from . import cuda_lib
 from .kernel_rng import DrawPool, raw_bits_plain
@@ -64,10 +76,11 @@ def check_supported(mesh, prm, dtype) -> None:
         raise not_ported("precision = f64 (the XLA event loop's port)", "Queue 1, item 7")
 
 
-def launch_name(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False) -> str:
+def launch_name(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
+                nongray: bool = False) -> str:
     """The ``cuda_lib.LAUNCHES`` key of one kernel instantiation."""
     return (f"transport_{ndim}d" + ("_abs" if absorb else "") + ("_ddmc" if ddmc else "")
-            + ("_smr" if smr else ""))
+            + ("_smr" if smr else "") + ("_ng" if nongray else ""))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,9 +124,33 @@ class _Geom:
     tile: tuple = (np.float32(0.0),) * 3
     nudge_cross: tuple = (np.float32(0.0),) * 3
     nudge_tilt: tuple = (np.float32(0.0),) * 3
+    # non-gray only: EPBremss under NonCGSUnits, the constants of
+    # ``_nongray_constants`` in ``NONGRAY_CONSTANTS`` order
+    nongray: bool = False
+    ng: tuple = (np.float32(0.0),) * 9
 
 
-def _geometry(mesh, prm, dt) -> _Geom:
+NONGRAY_CONSTANTS = ("rho_scale", "temp_scale", "length_scale", "sb", "kb", "hh", "g_ff",
+                     "freq_min", "xc_max")
+
+
+def _nongray_constants(coefs) -> tuple:
+    """The f32 constants of the per-event opacity, in ``NONGRAY_CONSTANTS`` order:
+    ``EPBremss``, bare or under ``NonCGSUnits``, is the one frequency-dependent
+    model of either package (every scattering model is gray: its per-cell value is
+    in the table)."""
+    op = coefs.opacity
+    base = op.base if isinstance(op, NonCGSUnits) else op
+    if not isinstance(base, EPBremss):
+        raise ValueError(f"transport: the per-event census evaluates EPBremss, not {op!r}")
+    scales = ((op._rho_scale, op.temperature_scale, op.length_scale)
+              if isinstance(op, NonCGSUnits) else (1.0, 1.0, 1.0))
+    return tuple(np.float32(v) for v in (
+        *scales, constants.SB, constants.KB, constants.HH, base.g_ff, base.FREQ_MIN,
+        base.XC_MAX))
+
+
+def _geometry(mesh, prm, dt, coefs) -> _Geom:
     f32 = np.float32
     b = mesh.bounds
     smr = mesh.max_level > 0
@@ -123,14 +160,18 @@ def _geometry(mesh, prm, dt) -> _Geom:
     c = f32(prm.c)
     cdt = c * f32(dt)
     half = [f32(0.5 * mesh.finest[a]) for a in range(3)]
-    smr_geom = {}
+    extra = {}
     if smr:
-        smr_geom = dict(
+        extra = dict(
             ntiles=mesh.tile_shape[::-1],
             tile=mesh.tile_edges(),
             nudge_cross=tuple(half),
             nudge_tilt=tuple(f32(0.01 * mesh.finest[a]) for a in range(3)),
         )
+    if not coefs.is_gray:
+        if not prm.has_absorption:
+            raise ValueError("transport: a frequency-dependent opacity absorbs")
+        extra.update(nongray=True, ng=_nongray_constants(coefs))
     return _Geom(
         ndim=prm.ndim,
         absorb=bool(prm.has_absorption),
@@ -158,7 +199,7 @@ def _geometry(mesh, prm, dt) -> _Geom:
         inv_dt=f32(1.0) / f32(dt),
         lam2=f32(2.0 * LAM_EXT),
         pf2_num=f32(2.0 * (2.0 / 3.0)),
-        **smr_geom,
+        **extra,
     )
 
 
@@ -194,18 +235,20 @@ class _Tables:
     """What the census gathers from: the per-cell table and, on a refined forest,
     the block table [B, 8] = (dx, dy, dz, 0, ox, oy, oz, 0) read as two float4,
     the int32 level of each block and the flat int32 lookup grid ((z, y, x)
-    row-major, x fastest)."""
+    row-major, x fastest). ``opacity`` is the frequency-dependent model that the
+    plain version evaluates per event (None for gray runs)."""
 
     cell: torch.Tensor
     block: torch.Tensor | None = None
     level: torch.Tensor | None = None
     lookup: torch.Tensor | None = None
+    opacity: object = None
 
 
 def _tables(coefs, mesh, g: _Geom) -> _Tables:
     cell = _pair_table(coefs, mesh, g.absorb, g.ddmc)
     if not g.smr:
-        return _Tables(cell)
+        return _Tables(cell, opacity=coefs.opacity)
     # slices, not an index list: a list index is a host tensor copied to the card,
     # which would synchronise the host with the queue at every census
     block = torch.zeros((mesh.n_blocks, 8), dtype=torch.float32, device=cell.device)
@@ -213,7 +256,8 @@ def _tables(coefs, mesh, g: _Geom) -> _Tables:
     block[:, 4:7] = mesh.block_origin.to(block)
     return _Tables(cell, block,
                    mesh.block_level.to(device=cell.device, dtype=torch.int32).contiguous(),
-                   mesh.lookup.to(device=cell.device, dtype=torch.int32).reshape(-1).contiguous())
+                   mesh.lookup.to(device=cell.device, dtype=torch.int32).reshape(-1).contiguous(),
+                   coefs.opacity)
 
 
 def _pair_table(coefs, mesh, absorb, ddmc):
@@ -223,21 +267,30 @@ def _pair_table(coefs, mesh, absorb, ddmc):
     sigma_a`` (without absorption ``ea = 0``, ``es = sigma_s``): without DDMC the
     f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor, with DDMC the [NC, 8]
     rows ``(ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi)``. The JAX kernels
-    switch pairs the same way and hold them packed in bf16."""
+    switch pairs the same way and hold them packed in bf16. With a
+    frequency-dependent opacity the rows are ``(rho, T, fleck, sigma_s)`` [NC, 4],
+    with DDMC followed by the six face probabilities and two zeros [NC, 12]: the
+    JAX kernel's (rho, T, fleck) tables and the per-cell value of its gray
+    scattering."""
     f32 = torch.float32
     ss = coefs.sigma_s.to(f32)
-    if absorb:
-        sa, fl = coefs.sigma_a.to(f32), coefs.fleck.to(f32)
-        ea = fl * sa
-        es = ss + (1.0 - fl) * sa
+    faces = [v.to(f32) for v in _face_pairs(coefs, mesh)] if ddmc else []
+    if not coefs.is_gray:
+        zero = [torch.zeros_like(ss)] * 2 if ddmc else []
+        cols = [coefs.rho.to(f32), coefs.temp.to(f32), coefs.fleck.to(f32), ss, *faces, *zero]
     else:
-        ea = torch.zeros_like(ss)
-        es = ss
-    if ddmc:
-        cols = [ea, es, *(v.to(f32) for v in _face_pairs(coefs, mesh))]
-    else:
-        inv = 1.0 / (ea + es + _TINY)
-        cols = [ea * inv, inv]
+        if absorb:
+            sa, fl = coefs.sigma_a.to(f32), coefs.fleck.to(f32)
+            ea = fl * sa
+            es = ss + (1.0 - fl) * sa
+        else:
+            ea = torch.zeros_like(ss)
+            es = ss
+        if ddmc:
+            cols = [ea, es, *faces]
+        else:
+            inv = 1.0 / (ea + es + _TINY)
+            cols = [ea * inv, inv]
     if mesh.n_blocks > 1 and mesh.max_level == 0:
         cols = [to_global_cells(v, mesh) for v in cols]
     return torch.stack(cols, dim=1).contiguous()
@@ -436,11 +489,13 @@ def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi,
     take_upper = lsgn < 0.0  # a leak in -axis enters the upper face of the last cell
     n = g.n
 
+    p0 = _face_column(g)
+
     def face_prob(ax, ijk):
         """The fine block's P_lower (leak in +axis) or P_upper of axis ``ax``."""
         flat = cell_of(b_new.long(), [q.long() for q in ijk])
         r = tabs.cell[flat]
-        return torch.where(take_upper, r[:, 3 + 2 * ax], r[:, 2 + 2 * ax])
+        return torch.where(take_upper, r[:, p0 + 1 + 2 * ax], r[:, p0 + 2 * ax])
 
     for ax in range(nd):
         m = refine & (leak_axis == ax)
@@ -484,6 +539,11 @@ def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi,
         for q in range(3):
             vel[(ax + q) % 3] = torch.where(m, vs[q], vel[(ax + q) % 3])
     return b_new, loc, idx, vel
+
+
+def _face_column(g: _Geom) -> int:
+    """The cell table's column of Px_lo with DDMC."""
+    return 4 if g.nongray else 2
 
 
 def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
@@ -550,14 +610,19 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
             if g.ddmc:
                 k["dx"], k["inv_dx"] = dx, [one / d for d in dx]
         row = tabs.cell[cell_of(blk.long(), [q.long() for q in idx])]
-        if g.ddmc:  # rows (ea, es, P_lower, P_upper per axis)
+        if g.nongray:  # rows (rho, T, fleck, sigma_s): the opacity at the photon energy
+            ff = row[:, 2]
+            sa = tabs.opacity.absorption_coefficient(row[:, 0], row[:, 1], p.energy)
+            ea = ff * sa
+            sig_t = ea + (row[:, 3] + (1.0 - ff) * sa)
+        elif g.ddmc:  # rows (ea, es, P_lower, P_upper per axis)
             ea = row[:, 0] if g.absorb else None
             sig_t = row[:, 1] if ea is None else ea + row[:, 1]
-            is_ddmc = active & (dmin * sig_t > s(g.tau_ddmc))
-            act_imc = active & ~is_ddmc
+        is_ddmc = active & (dmin * sig_t > s(g.tau_ddmc)) if g.ddmc else None
+        act_imc = active & ~is_ddmc if g.ddmc else active
+        if g.ddmc or g.nongray:
             d_coll = pool.exp23(it) / (sig_t + _TINY)
         else:  # rows (p_abs, 1 / sigma_t)
-            act_imc = active
             d_coll = pool.exp23(it) * row[:, 1]
         u_branch = pool.u23(it) if g.absorb else None
         d_end = cdt * (one - tau)
@@ -576,7 +641,8 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
             d_push = torch.minimum(d_push, fd[a])
         coll = act_imc & (d_coll < d_push)
         if g.absorb:
-            i_abs = coll & ((u_branch * sig_t < ea) if g.ddmc else (u_branch < row[:, 0]))
+            i_abs = coll & ((u_branch * sig_t < ea) if g.ddmc or g.nongray
+                            else (u_branch < row[:, 0]))
             i_sc = coll & ~i_abs
         else:
             i_abs, i_sc = None, coll
@@ -617,7 +683,7 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
             nface = torch.zeros_like(face)
             for a in range(nd):
                 nface = torch.where(cr[a], torch.where(vel[a] > 0, a + 1, -(a + 1)), nface)
-            pf = [row[:, 2 + e] for e in range(2 * nd)]
+            pf = [row[:, _face_column(g) + e] for e in range(2 * nd)]
             dd_pos, dd_shift, dd_vel, dd_tau, dd_abs, dd_leak = _ddmc_plain(
                 pool, it, g, k, is_ddmc, ea, sig_t, pf, face, tau, pos, idx, vel, fl, fu)
             npos = [torch.where(is_ddmc, q, v) for q, v in zip(dd_pos, npos)]
@@ -681,11 +747,11 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
 def _check_cuda_ledger(p, coefs):
     """What the kernel takes, checked before anything touches the ledger."""
     dev = p.x.device
-    floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau)
+    floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.energy)
     ints = (p.i, p.j, p.k, p.block, p.face)
     bools = (p.alive, p.absorbed)
     cells = tuple(t for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck, coefs.px, coefs.py,
-                              coefs.pz) if t is not None)
+                              coefs.pz, coefs.rho, coefs.temp) if t is not None)
     for t in (*floats, *ints, *bools, *cells):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("transport kernel: ledger tensors must be contiguous on one GPU")
@@ -706,21 +772,23 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
     events = torch.zeros((), dtype=torch.int64, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
-            p.face, p.block)
-    ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in cols))
+            p.face, p.block, p.energy)
+    ptrs = (ctypes.c_void_p * len(cols))(*(t.data_ptr() for t in cols))
     ints = (*g.n, *g.bc, int(max_iters), int(seed), *g.ntiles)
     floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
               g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt, g.tau_ddmc, g.eps_imc, g.eps_ddmc,
-              g.dt, g.inv_dt, g.lam2, g.pf2_num, *g.tile, *g.nudge_cross, *g.nudge_tilt)
+              g.dt, g.inv_dt, g.lam2, g.pf2_num, *g.tile, *g.nudge_cross, *g.nudge_tilt,
+              *g.ng)
     smr = (tabs.block, tabs.level, tabs.lookup) if g.smr else (None, None, None)
     cuda_lib.library().call(
-        "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr), ptrs,
+        "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr),
+        int(g.nongray), ptrs,
         tabs.cell.data_ptr(), *(0 if t is None else t.data_ptr() for t in smr),
         p.capacity, (ctypes.c_int * len(ints))(*ints),
         (ctypes.c_float * len(floats))(*map(float, floats)),
         events.data_ptr(), iters.data_ptr(), cuda_lib.stream_handle(dev),
     )
-    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc, g.smr)] += 1
+    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray)] += 1
     return iters, events
 
 
@@ -728,7 +796,7 @@ def _run(census, particles, coefs, mesh, seed, prm, dt):
     check_supported(mesh, prm, particles.x.dtype)
     if any(t.shape != (mesh.total_cells,) for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck)):
         raise ValueError("transport: one coefficient per mesh cell expected")
-    g = _geometry(mesh, prm, dt)
+    g = _geometry(mesh, prm, dt, coefs)
     tabs = _tables(coefs, mesh, g)
     _collapse(particles, mesh)
     iters, events = census(particles, tabs, g, int(seed), prm.max_iters)

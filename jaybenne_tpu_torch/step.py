@@ -1,10 +1,10 @@
 """The radiation step (port of ``jaybenne_tpu/step.py``, single device).
 
 One cycle from t to t + dt: derived fields (the Fleck factor and, with DDMC, the
-face probabilities), emission sourcing,
-census transport, the absorption deposition, the tally, the fluid update, and the
-per-step reset of ``tau`` and ``absorbed``. The external source arrives with
-slice 5 (ROADMAP Queue 1, item 14), and both decompositions with item 17.
+face probabilities), emission sourcing, the external volume source, census
+transport, the absorption deposition, the tally, the fluid update, and the
+per-step reset of ``tau`` and ``absorbed``. Both decompositions arrive with ROADMAP
+Queue 1, item 17.
 
 Census selection mirrors the JAX package's ``_pallas_ok``, by configuration and
 never by failure: ``use_pallas = auto`` or ``on`` runs
@@ -56,8 +56,6 @@ def _check_step_supported(cfg: RunConfig) -> None:
     jb = cfg.jaybenne
     if jb.n_devices != 1 or jb.decomposition == "spatial":
         raise not_ported("multi-device runs and the spatial decomposition", "Queue 1, item 17")
-    if jb.external_source_q > 0:
-        raise not_ported("the external volume source", "Queue 1, item 14")
     if jb.debug_checks:
         raise not_ported("debug_checks (validate_state)", "Queue 1, item 16")
 
@@ -75,6 +73,11 @@ def build_step_core(mesh, cfg: RunConfig):
     prm = make_transport_params(cfg, dtype)
     periodic = cfg.mesh.periodic_flags
     transport_kernel.check_supported(mesh, prm, dtype)
+    # the external volume source (the Su-Olson driving term): fixed geometry
+    external = None
+    if jb.external_source_q > 0:
+        external = sourcing.external_source_setup(mesh, jb)
+        ext_num = jb.external_source_num or jb.num_particles
     census = (
         transport_kernel.transport_plain if jb.use_pallas == "off"
         else transport_kernel.transport
@@ -105,7 +108,21 @@ def build_step_core(mesh, cfg: RunConfig):
             )
         else:
             f = dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
+            if external:  # the external pass accumulates onto clean diagnostics
+                f = dataclasses.replace(f, source_num=torch.zeros_like(f.source_num),
+                                        source_ew=torch.zeros_like(f.source_ew))
             dropped = torch.zeros((), dtype=torch.int64, device=mesh.device)
+        if external:
+            gen = rng.generator(state.seed, state.cycle, rng.PHASE_EXTERNAL, mesh.device)
+            f, p, ext_drop = sourcing.source_photons(
+                f, p, mesh, gen,
+                source_type="external",
+                eos=eos, opacity=opacity,
+                sb=consts.sb, c=consts.c,
+                num_particles=ext_num,
+                dt=dt, t=state.t, external=external, dtype=dtype,
+            )
+            dropped = dropped + ext_drop
         coefs = transport_ops.precompute_coefs(
             f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype
         )

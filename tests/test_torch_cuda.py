@@ -486,3 +486,117 @@ def test_smr_path_runs_through_kernel(gpu, tmp_path, deck):
     dv = sims[0].mesh.block_volume.double()[:, None, None, None]
     assert abs(float((a.double() * dv).sum()) - sourced) <= 1e-5 * sourced
     assert all(h["unfinished"] == 0 for h in sims[0].history)
+
+
+def _nongray_setup(dev, ndim, ddmc, smr, n=30000, seed=5):
+    """EPBremss on the meshes of ``_hybrid_setup`` (uniform) or ``_smr_setup``
+    (level-1 forests): per cell rho in [0.5, 2], T log-uniform in [5e5, 5e6], fleck
+    in [0.3, 1] and sigma_s = 10; photon energies x sb T of the particle's cell, x
+    log-uniform in [0.05, 30], so that sigma_a(E) runs from thin to thick and, with
+    DDMC, lanes of one cell take both branches; a quarter of the particles on a face
+    of their cell with the face-arrival code set."""
+    from jaybenne_tpu_torch.utils.constants import SB
+
+    if smr:
+        deck, mods = SMR_FORESTS[ndim]
+        path = os.path.join(_ROOT, "inputs", deck)
+    else:
+        path, mods = STEPDIFF, {"parthenon/swarm/ix3_bc": "outflow",
+                                "parthenon/swarm/ox3_bc": "outflow"}
+        cells = {1: (64, 1, 1), 2: (32, 16, 1), 3: (16, 16, 16)}[ndim]
+        blocks = {1: (16, 1, 1), 2: (8, 8, 1), 3: (8, 8, 8)}[ndim]
+        for a, k in enumerate("123"):
+            mods[f"parthenon/mesh/nx{k}"] = cells[a]
+            mods[f"parthenon/meshblock/nx{k}"] = blocks[a]
+    mods = {**mods, "jaybenne/use_ddmc": "true" if ddmc else "false", "jaybenne/tau_ddmc": 5.0,
+            "mcblock/opacity_model": "ep_bremss", "mcblock/scattering_constant_value": 10.0}
+    cfg = cm.from_deck(Deck.from_file(path).update(mods))
+    mesh = build_mesh(cfg.mesh, device=dev)
+    prm = make_transport_params(cfg, torch.float32)
+    assert mesh.ndim == ndim and (mesh.max_level > 0) == smr and prm.has_absorption
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nc = mesh.total_cells
+    rho = 0.5 + 1.5 * torch.rand(nc, generator=g, device=dev)
+    temp = torch.exp(np.log(5e5) + np.log(10.0) * torch.rand(nc, generator=g, device=dev))
+    ff = 0.3 + 0.7 * torch.rand(nc, generator=g, device=dev)
+    opacity, scattering = cfg.mcblock.build_opacity(), cfg.mcblock.build_scattering()
+    sa = opacity.absorption_coefficient(rho, temp)
+    ss = scattering.total_scattering_coefficient(rho, temp)
+    faces = {}
+    if ddmc:
+        shape = (mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx)
+        faces = dict(zip(("px", "py", "pz"), ddmc_face_probs(
+            mesh, (sa + ss).reshape(shape), prm.tau_ddmc, cfg.mesh.periodic_flags,
+            torch.float32)))
+    coefs = TransportCoefs(sigma_a=sa, sigma_s=ss, fleck=ff, rho=rho, temp=temp,
+                           opacity=opacity, **faces)
+    p = forest_ledger(mesh, n, g, C)
+    place_on_faces(p, mesh, torch.rand(n, generator=g, device=dev) < 0.25, g)
+    cell = ((p.block.long() * mesh.nz + p.k) * mesh.ny + p.j) * mesh.nx + p.i
+    x = torch.exp(np.log(0.05) + np.log(600.0) * torch.rand(n, generator=g, device=dev))
+    p.energy.copy_(x * SB * temp[cell])
+    return cfg.jaybenne.dt, mesh, prm, p, coefs
+
+
+@pytest.mark.parametrize("smr", [False, True])
+@pytest.mark.parametrize("ddmc", [False, True])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("max_iters", [8, None])
+def test_nongray_kernel_matches_plain(gpu, ndim, ddmc, smr, max_iters):
+    """Each of the twelve NONGRAY instantiations against its plain version: after 8
+    iterations integers, blocks, alive, absorbed and face codes identical and floats
+    within FLOAT_RTOL (the model's expf, sqrtf and divides are the plain version's
+    on the card); after a full census statistics."""
+    dt, mesh, prm, p0, coefs = _nongray_setup(gpu, ndim, ddmc, smr)
+    if max_iters is not None:
+        prm = dataclasses.replace(prm, max_iters=max_iters)
+    name = transport_kernel.launch_name(ndim, True, ddmc, smr, True)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, -99, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, -99, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    assert not bool((k.alive & k.absorbed).any()) and bool(k.absorbed.any())
+    assert torch.equal(k.energy, p0.energy)
+    if max_iters is None:  # full census: statistics
+        assert not bool((k.tau[k.alive] < 1.0).any())
+        assert abs(int(ev_k) - int(ev_q)) <= EVENTS_RTOL * int(ev_q)
+        n = int(p0.alive.sum())
+        for ka, qa in ((int(k.absorbed.sum()), int(q.absorbed.sum())),
+                       (int(k.alive.sum()), int(q.alive.sum()))):
+            pbar = 0.5 * (ka + qa) / n
+            assert abs(ka - qa) <= 4.0 * np.sqrt(2.0 * n * pbar * (1.0 - pbar)) + 1
+        return
+    for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
+        assert torch.equal(getattr(k, name), getattr(q, name)), name
+    for name in ("x", "y", "z", "vx", "vy", "vz", "tau"):
+        torch.testing.assert_close(getattr(k, name), getattr(q, name), rtol=FLOAT_RTOL,
+                                   atol=1e-7 if name in ("x", "y", "z", "tau") else 1e-6 * C)
+    assert int(ev_k) == int(ev_q) and int(it_k) == int(it_q) == max_iters
+
+
+def test_suolson_path_runs_through_kernel(gpu, tmp_path):
+    """inputs/suolson.in with both particle walls reflecting, 1600 + 1600
+    particles, 5 steps: one launch of the 1D absorbing kernel per step, the
+    bookkeeping of tst/suolson.py within 1e-2, and a rerun bitwise identical."""
+    mods = {"parthenon/swarm/ix1_bc": "jaybenne_reflecting",
+            "parthenon/swarm/ox1_bc": "jaybenne_reflecting", "jaybenne/num_particles": 1600,
+            "jaybenne/external_source_num": 1600, "parthenon/output0/file_type": "none"}
+    path = os.path.join(_ROOT, "inputs", "suolson.in")
+    name = transport_kernel.launch_name(1, True)
+    sims = []
+    for _ in range(2):
+        before = cuda_lib.LAUNCHES[name]
+        sims.append(run_file(path, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
+                             nlim=5, device="cuda"))
+        assert cuda_lib.LAUNCHES[name] == before + 5
+    a, b = (s.state.fields.u for s in sims)
+    assert a.is_cuda and torch.equal(a, b)
+    sim = sims[0]
+    mc, jb = sim.cfg.mcblock, sim.cfg.jaybenne
+    dv = sim.mesh.block_volume.double()[:, None, None, None]
+    p = sim.state.particles
+    e = float((sim.state.fields.u.double() * dv).sum()) + float(p.weight.double()[p.alive].sum())
+    e0 = mc.initial_density * mc.build_eos().internal_energy_from_density_temperature(
+        mc.initial_density, mc.initial_temperature)
+    injected = jb.external_source_q * 0.25 * min(sim.t, jb.external_source_tmax)
+    assert abs(e - e0 - injected) <= 1e-2 * injected and sim.state.overflow == 0

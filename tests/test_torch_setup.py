@@ -156,11 +156,12 @@ def test_fleck_and_coefs_match_jax(deck, opacity):
 @pytest.mark.parametrize(
     "mods, where",
     [
-        ({"mcblock/eos_model": "power_law_cv"}, "item 14"),
-        ({"mcblock/opacity_model": "ep_bremss"}, "item 14"),
-        ({"mcblock/scattering_model": "thomson"}, "item 14"),
+        ({"mcblock/eos_model": "power_law_cv", "jaybenne/precision": "f64"}, "item 7"),
+        ({"mcblock/opacity_model": "ep_bremss", "jaybenne/n_devices": 2}, "item 17"),
+        ({"mcblock/scattering_model": "thomson", "parthenon/output0/file_type": "rst"},
+         "item 16"),
         ({"jaybenne/use_ddmc": "true", "jaybenne/precision": "f64"}, "item 7"),
-        ({"jaybenne/external_source": 1.0e10}, "item 14"),
+        ({"jaybenne/external_source": 1.0e10, "jaybenne/decomposition": "spatial"}, "item 17"),
         ({"jaybenne/precision": "f64"}, "item 7"),
         ({"jaybenne/n_devices": 2}, "item 17"),
         ({"parthenon/output0/file_type": "rst"}, "item 16"),
