@@ -9,7 +9,8 @@ inf_stiff equilibrium gates; a 2D and the 64^3 matter-coupled feedback
 configurations; the 64^3 DDMC mesh; the refined-mesh decks up to the 128x64
 hybrid forest; EPBremss at spread photon energies in 1D, at 64^3 and on the
 shipped SMR forest; the Su-Olson deck with its external source; a tabulated
-opacity), and checks each result by the repository's own gates. Every phase raises on failure; the last line of
+opacity; both decompositions at 8 shards in this process, the card's one
+backend), and checks each result by the repository's own gates. Every phase raises on failure; the last line of
 standard output is the JSON result, printed only when every phase passed. It exits
 non-zero without a GPU. Nothing here imports jax.
 
@@ -121,8 +122,44 @@ Phases:
      a temporary .npz, at the stepdiff gate's size for one step: absorbed > 0,
      w_live + absorbed = w0 to 1e-4.
 
+ 28. K3s, the owned-range kernel on a z-slab: bench.py's big mesh (64^3 in 8^3
+     blocks, periodic y and z) split in 8 shards of one z-plane of blocks, 2^17
+     particles on shard 3's slab and then on the seam shard 7's, one round each:
+     the kernel and its plain version identical in every column (floats
+     bitwise), every paused lane outside the shard's z cells (across the
+     periodic z seam too), every lane inside at census or absorbed;
+ 29. K4s, the owned-range kernel over blocks: the 32x16 stepdiff_smr_ddmc forest
+     in 8x8 blocks (tests/test_spatial.py:463-467) with phase 15's thin and thick
+     slabs, shards 0 and 1 of 2, 2^17 particles each, one round: as phase 28, and
+     shard 0 writes pending leak codes (into shard 1's finer blocks; shard 1
+     holds fine blocks only), identical between kernel and plain;
+ 30. big_mesh_spatial (bench.py:291-313: 64^3, 8^3 blocks, 200k particles, 3
+     steps, spatial) at 1 and 8 shards: events within 5 % of the JAX package's
+     658342636, sum(tally dV) equal to the live weight to 1e-5, every census
+     complete; migration rounds, migrated particles, step times and events/s
+     printed; K3s timed on the first round of shard 3;
+ 31. stepdiff through the spatial decomposition at 8 shards
+     (tst/launch_ci_runner.py:72-74: 128 cells in 16-cell blocks, 100k particles,
+     capacity_factor 4; then the CI's row :66-71, 32 cells in 2-cell blocks, 16k
+     particles): werr <= 0.05 each;
+ 32. the 8-device SMR rows of tst/launch_ci_runner.py (:33, :35, :37, :42) under
+     the particle decomposition, 10 steps each with a bitwise rerun and eight
+     launches a step: stepdiff_smr, stepdiff_smr_ddmc and the hybrid at
+     tau_ddmc = 10 werr <= 0.3, stepdiff_smr2 x-profile <= 0.1;
+ 33. spatial + SMR + DDMC at 8 shards (tests/test_spatial.py:546-586: 32x16 in
+     8x8 blocks, 96k particles, 2 steps): the tally equal to the live weight,
+     pending leaks resolved by their owners (counted) and none left, the
+     weighted difference from a one-device run < 0.10; K4s timed on the first
+     round of shard 0;
+ 34. determinism: phase 30 at 8 shards again gives bitwise-identical tallies
+     (phase 32's rows were each rerun);
+ 35. phase 25's path (stepdiff_smr with ep_bremss, 100k particles, one step) at
+     seeds 1-4: the mean survivors against the JAX package's at the same seeds
+     within 4 sd of the difference of the means.
+
 For phases 12-14, 16, 20, 21 and 23-25 the kernel and its plain version are timed
-on the inputs of the path's last census, recorded as the path ran.
+on the inputs of the path's last census, recorded as the path ran; for phases 30
+and 33 on the first owned-range round of one shard.
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -324,6 +361,37 @@ TABLE = {  # tests/test_pallas.py:1354-1371: kappa = 2 cm^2/g on a 3 x 3 table
 }
 TABLE_GATE = {**GATE, "mcblock/opacity_model": "table", "jaybenne/do_emission": "false",
               "jaybenne/do_feedback": "false"}
+# the decompositions (phases 28-35)
+SPATIAL = {"jaybenne/decomposition": "spatial"}
+BIG_MESH = {k: v for k, v in BIG_DDMC.items() if k != "jaybenne/use_ddmc"}  # bench.py:291-313
+# phase 28: bench.py's big mesh, shard 3 of 8 (z cells [24, 32)), sigma_t = 64 with
+# f sigma_a = 2, so a lane crosses a cell or two before its first collision
+Z_SHARD, Z_SHARDS = 3, 8
+# phase 29: the forest of tests/test_spatial.py:463-467, x-slabs thin and thick as
+# in phase 15, so that coarse thick cells leak into the other shard's fine blocks
+SMR_SPATIAL_FOREST = {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
+                      "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+                      "parthenon/output0/file_type": "none"}
+# the JAX package's 3-step event total of bench.py's big_mesh_spatial row
+# (BENCH_r05.json; its single-device big_mesh read 658238761): a count of the physics
+BIG_SPATIAL_JAX_EVENTS = 658342636
+BIG_SPATIAL_STEPS = 3
+# phase 31: tst/launch_ci_runner.py:72-74 (the full-size row) and :66-71 (the CI's)
+STEPDIFF_SPATIAL = {**GATE, **SPATIAL, "jaybenne/n_devices": 8,
+                    "parthenon/meshblock/nx1": 16, "jaybenne/capacity_factor": 4}
+STEPDIFF_SPATIAL_CI = {**STEPDIFF_SPATIAL, "parthenon/mesh/nx1": 32,
+                       "parthenon/meshblock/nx1": 2, "jaybenne/num_particles": 16000}
+# phase 32: the 8-device SMR rows of tst/launch_ci_runner.py:33, :35, :37, :42, the
+# hybrid at bench.py's tau_ddmc = 10
+EIGHT = {"jaybenne/n_devices": 8}
+# phase 33: tests/test_spatial.py:546-586
+SMR_SPATIAL = {**SMR_SPATIAL_FOREST, "jaybenne/num_particles": 96000,
+               "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "2.e-11"}
+SMR_SPATIAL_STEPS = 2
+SMR_SPATIAL_TOL = 0.10
+# phase 35: phase 25's path at seeds 1-4 against the JAX package's survivors at the
+# same seeds (jax_reference.py k4 --seed N)
+NG_SMR_JAX_SEEDS = {1: 2769, 2: 2738, 3: 2859, 4: 2723}
 PROFILE_TOL = 0.1  # tst/stepdiff_smr2.py's tolerance for the x-profile gate
 PROFILE_BINS = 64
 # the step-diffusion solution of tst/stepdiff_common.py, copied: diffusion time
@@ -966,13 +1034,14 @@ def lane_split(sim) -> dict:
     return {"ddmc_blocks": ddmc, "imc_blocks": mesh.n_blocks - ddmc}
 
 
-def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True):
+def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_step=1):
     """A deck through ``driver.run_file`` on the GPU for ``steps`` steps: the
     radiation energy before the first step; the run, with the launch counts set
     to 0 just before it and read just after; its peak device memory; the inputs
     of its last census; a rerun with the same seed. Raises unless ``launch`` ran
-    once a step, every census completed short of the iteration cap, nothing was
-    dropped, sum(tally dV) was conserved (unless not ``conserves_tally``: matter
+    ``per_step`` times a step (once, or once a shard), every census completed
+    short of the iteration cap, nothing was dropped, sum(tally dV) was conserved
+    (unless not ``conserves_tally``: matter
     absorbs or emits) and the rerun's tally and u are bitwise identical. Returns
     (sim, launches, (ledger, args) of the last census, the radiation energy before
     the first step)."""
@@ -995,7 +1064,7 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True):
         again = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
                          nlim=steps, device="cuda")
     what = os.path.basename(deck)
-    if launches.get(launch, 0) != steps or sim.cycle != steps:
+    if launches.get(launch, 0) != per_step * steps or sim.cycle != steps:
         raise AssertionError(f"{what}: launches {launches}, cycles {sim.cycle}")
     max_iters = sim.cfg.jaybenne.max_transport_iterations
     if any(h["dropped"] or h["unfinished"] or h["iterations"] >= max_iters
@@ -1396,6 +1465,337 @@ def nongray_phases(transport_kernel, dev, cost, src) -> list:
     return kernels
 
 
+def owned_vs_plain(transport_kernel, what, p0, args):
+    """One owned-range round (``args`` = coefs, mesh, seed, prm, dt, own) of the
+    kernel against its plain version on the ledger ``p0``: every column identical,
+    the floats bitwise, and the same events and iterations. Returns (the kernel's
+    ledger, events, max_abs_err of the floats)."""
+    pk, it_k, ev_k = transport_kernel.transport(p0.clone(), *args)
+    pp, it_p, ev_p = transport_kernel.transport_plain(p0.clone(), *args)
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(pk):
+        a, b = getattr(pk, f.name), getattr(pp, f.name)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {f.name} differs in {int((a != b).sum())} slots")
+    if int(ev_k) != int(ev_p) or int(it_k) != int(it_p):
+        raise AssertionError(f"{what}: stats {ev_k} {it_k} vs {ev_p} {it_p}")
+    err, _ = max_float_err(pk, pp, ("x", "y", "z", "vx", "vy", "vz", "tau"))
+    return pk, int(ev_k), err
+
+
+def z_round(transport_kernel, dev, shard, seed):
+    """Phase 28 on one shard: 2^17 particles on the shard's z-slab of bench.py's
+    big mesh, one owned-range round of the kernel and of its plain version.
+    Returns the max_abs_err."""
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.parallel.spatial import blocks_per_shard, owned_range
+    from jaybenne_tpu_torch.particles import uniform_ledger
+    from jaybenne_tpu_torch.utils.constants import CC
+
+    cfg, mesh, prm, _ = deck_setup(dev, DECK, {**BIG_MESH, "mcblock/opacity_model": "constant"},
+                                   0.0, 0.0)
+    own = owned_range(mesh, prm, Z_SHARDS, shard)
+    lo, hi = own.bounds()
+    if own.kind != "z" or hi - lo != mesh.nz:
+        raise AssertionError(f"phase 28 setup: owned range {own}")
+    plane = mesh.root_grid[1] * mesh.root_grid[2]
+    nc = blocks_per_shard(mesh, Z_SHARDS) * mesh.ncells_per_block
+    coefs = TransportCoefs(sigma_a=torch.full((nc,), 2.0, device=dev),
+                           sigma_s=torch.full((nc,), 62.0, device=dev),
+                           fleck=torch.ones(nc, device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p0 = uniform_ledger(mesh, 1 << 17, g, CC)
+    p0.block.copy_(p0.block % plane + lo // mesh.nz * plane)  # onto the shard's slab
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
+    what = f"K3s shard {shard} of {Z_SHARDS} (z cells [{lo}, {hi}))"
+    pk, ev, err = owned_vs_plain(transport_kernel, what, p0,
+                                 (coefs, mesh, seed, prm, cfg.jaybenne.dt, own))
+    gk = (pk.block // plane) * mesh.nz + pk.k
+    out = (gk < lo) | (gk >= hi)
+    paused = pk.alive & (pk.tau < 1.0)
+    if bool((paused & ~out).any()) or not bool(paused.any()):
+        raise AssertionError(f"{what}: {int((paused & ~out).sum())} lanes short of census "
+                             f"inside the range, {int(paused.sum())} paused")
+    nz_all = mesh.root_grid[0] * mesh.nz
+    # a lane that crossed the periodic z seam pauses wrapped, at the other end
+    seam = paused & (((gk < nz_all // 2) & (hi == nz_all)) | ((gk >= nz_all // 2) & (lo == 0)))
+    print(f"{what}: kernel and plain identical in every column, floats bitwise; {ev} "
+          f"events; {int(paused.sum())} lanes paused, each outside the range (below "
+          f"{int((paused & (gk < lo)).sum())}, above {int((paused & (gk >= hi)).sum())}; "
+          f"across the periodic z seam {int(seam.sum())}); {int((pk.alive & ~paused).sum())} "
+          f"at census, {int(pk.absorbed.sum())} absorbed", flush=True)
+    return err
+
+
+def forest_round(transport_kernel, dev, seed):
+    """Phase 29: the hybrid slabs of phase 15 with DDMC on the forest of
+    tests/test_spatial.py:463-467 at two shards, one owned-range round per shard
+    of the kernel and of its plain version on 2^17 particles in the shard's
+    blocks. Shard 0 holds the coarse blocks, whose thick cells leak into shard 1's
+    finer blocks: those leaks pause with a pending code (shard 1 holds fine blocks
+    only and writes none). Returns the max_abs_err."""
+    from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.parallel.spatial import owned_range
+    from jaybenne_tpu_torch.particles import forest_ledger, place_on_faces
+    from jaybenne_tpu_torch.utils.constants import CC
+
+    mods = {**SMR_SPATIAL_FOREST, "jaybenne/tau_ddmc": 5.0}
+    cfg, mesh, prm, _ = deck_setup(dev, SMR_DDMC_DECK, mods, 0.0, 0.0)
+    if mesh.max_level != 1 or not prm.use_ddmc:
+        raise AssertionError(f"phase 29 setup: max_level {mesh.max_level}")
+    xc = mesh.cell_centers()[0]
+    width = 4.0 * float(mesh.block_dx[:, 0].max())
+    thick = torch.floor((xc - mesh.bounds[0]) / width).long() % 2 == 1
+    sig = torch.where(thick, HYBRID_SIGMA[1], HYBRID_SIGMA[0])
+    faces = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags, torch.float32)
+    ncpb, err, leaks = mesh.ncells_per_block, 0.0, 0
+    for shard in (0, 1):
+        own = owned_range(mesh, prm, 2, shard)
+        lo, hi = own.bounds()
+        if own.kind != "blocks":
+            raise AssertionError(f"phase 29 setup: owned range {own}")
+        local = sig.reshape(-1)[lo * ncpb:hi * ncpb]
+        coefs = TransportCoefs(sigma_a=torch.zeros_like(local), sigma_s=local,
+                               fleck=torch.ones_like(local),
+                               **dict(zip(("px", "py", "pz"), (f[lo:hi] for f in faces))))
+        g = torch.Generator(device=dev).manual_seed(seed + shard)
+        p0 = forest_ledger(mesh, HYBRID_N, g, CC, blocks=(lo, min(hi, mesh.n_blocks)))
+        place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=dev) < 0.25, g)
+        p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
+        what = f"K4s shard {shard} of 2 (blocks [{lo}, {hi}))"
+        pk, ev, e = owned_vs_plain(transport_kernel, what, p0,
+                                   (coefs, mesh, seed + shard, prm, cfg.jaybenne.dt, own))
+        err = max(err, e)
+        out = (pk.block < lo) | (pk.block >= hi)
+        paused = pk.alive & (pk.tau < 1.0)
+        pending = pk.leak != 0
+        if bool((paused & ~out).any()) or not bool(paused.any()):
+            raise AssertionError(f"{what}: {int((paused & ~out).sum())} lanes short of census "
+                                 "inside the range")
+        if bool((pending & ~(paused & out)).any()):
+            raise AssertionError(f"{what}: a pending leak code on a lane that did not pause")
+        leaks += int(pending.sum())
+        levels = sorted(set(mesh.block_level[pk.block[pending].long()].tolist()))
+        print(f"{what}: kernel and plain identical in every column (leak codes too), floats "
+              f"bitwise; {ev} events; {int(paused.sum())} lanes paused outside the range, "
+              f"{int(pending.sum())} with a pending leak code (into blocks of level "
+              f"{levels}); {int((pk.alive & ~paused).sum())} at census", flush=True)
+    if leaks == 0:
+        raise AssertionError("phase 29: no pending leak code was written")
+    return err
+
+
+class RoundRecorder:
+    """While active, wraps ``transport_kernel.transport`` (so that the steps built
+    meanwhile call it through the wrapper) and keeps a copy of the inputs of the
+    first owned-range round of the shard whose range starts at ``lo``; and wraps
+    ``subface_resample`` to count the pending leaks it resolves."""
+
+    def __init__(self, transport_kernel, lo):
+        self.tk, self.lo, self.inputs, self.resolved = transport_kernel, lo, None, 0
+        self.real, self.real_fix = transport_kernel.transport, transport_kernel.subface_resample
+
+    def __enter__(self):
+        self.tk.transport, self.tk.subface_resample = self._census, self._fix
+        return self
+
+    def __exit__(self, *exc):
+        self.tk.transport, self.tk.subface_resample = self.real, self.real_fix
+
+    def _census(self, particles, *args):
+        if self.inputs is None and len(args) == 6 and args[5].lo == self.lo:
+            self.inputs = (particles.clone(), args)
+        return self.real(particles, *args)
+
+    def _fix(self, p, faces, mesh, c, gen, offset, n_local):
+        need = p.alive & (p.leak != 0) & (p.block >= offset) & (p.block < offset + n_local)
+        self.resolved += int(need.sum())
+        return self.real_fix(p, faces, mesh, c, gen, offset, n_local)
+
+
+def spatial_path(deck, mods, steps, what, lo=0):
+    """A deck under a decomposition through ``driver.run_file`` on the GPU for
+    ``steps`` steps (``None``: to its tlim), the launch counts set to 0 just before
+    and read just after, the first round of the shard whose range starts at ``lo``
+    recorded. Raises unless every step completed its census with nothing dropped
+    and the tally is finite and equals the live weight (sum(tally dV), to
+    ENERGY_RTOL). Returns (sim, launches, the recorded round, pending leaks
+    resolved)."""
+    from jaybenne_tpu_torch.driver import run_file
+    from jaybenne_tpu_torch.ops import cuda_lib, transport_kernel
+
+    with tempfile.TemporaryDirectory() as outdir:
+        with RoundRecorder(transport_kernel, lo) as rec:
+            cuda_lib.LAUNCHES.clear()
+            sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
+                           device="cuda")
+            launches = dict(cuda_lib.LAUNCHES)
+    p = sim.state.particles
+    if (any(h["dropped"] or h["unfinished"] for h in sim.history) or sim.state.overflow
+            or (steps is not None and sim.cycle != steps)):
+        raise AssertionError(f"{what}: dropped or unfinished: {sim.history}")
+    tally = sim.state.fields.energy_tally
+    if not bool(torch.isfinite(tally).all()) or tally.shape[0] != sim.mesh.n_blocks:
+        raise AssertionError(f"{what}: tally {tuple(tally.shape)} or not finite")
+    w = float(p.weight.double()[p.alive].sum())
+    e = radiation_energy(sim)
+    if abs(e - w) > ENERGY_RTOL * w:
+        raise AssertionError(f"{what}: sum(tally dV) {e} vs live weight {w}")
+    step_s = [h["step_seconds"] for h in sim.history]
+    print(f"{what}: {sim.mesh.n_blocks} blocks, {sim.mesh.total_cells} cells, "
+          f"{sim.cfg.jaybenne.n_devices} shards, {sim.cycle} steps: launches {launches}; "
+          f"events {sim.total_events}; migration rounds "
+          f"{[h['migration_rounds'] for h in sim.history]}, migrated "
+          f"{[h['migrated'] for h in sim.history]}; sum(tally dV) {e!r} vs live weight "
+          f"{w!r}; step seconds {step_s}; median {statistics.median(step_s) * 1e3!r} ms; "
+          f"{sim.total_events / sum(step_s)!r} events/s", flush=True)
+    return sim, launches, rec.inputs, rec.resolved
+
+
+def round_kernel(transport_kernel, dev, inputs, name, cost):
+    """The kernel ``name`` and its plain version timed on a recorded owned-range
+    round and held against each other (bitwise), with its bound from the round's
+    own events (on a forest without the block crossings, so the bound stays a
+    lower one): (ms, plain_ms, events, max_abs_err, bound_ms, bound_by)."""
+    p, args = inputs
+    coefs, mesh, _, prm, _, own = args
+    transport_kernel.transport(p.clone(), *args)  # warm-up
+    ms, ev = time_census(transport_kernel.transport, p, args, dev, 3)
+    plain_ms, _ = time_census(transport_kernel.transport_plain, p, args, dev, 1)
+    _, _, err = owned_vs_plain(transport_kernel, f"{name} on a recorded round", p, args)
+    smr = (mesh, 0) if own.kind == "blocks" else None
+    bound, by = census_bound(p, prm.ndim, bool(prm.has_absorption), coefs.sigma_a.numel(), ev,
+                             cost, ddmc=bool(prm.use_ddmc), smr=smr, nongray=not coefs.is_gray)
+    print(f"{name} on the first round of {own} ({p.capacity} slots, "
+          f"{int((p.alive & (p.tau < 1.0)).sum())} unfinished): kernel {ms!r} ms, plain "
+          f"{plain_ms!r} ms, {ev} events; bound {bound!r} ms ({by}), kernel at "
+          f"{bound / ms:.3f} of it; kernel and plain bitwise equal", flush=True)
+    return ms, plain_ms, ev, err, bound, by
+
+
+def weighted_difference(a, b) -> float:
+    """sum |a - b| / sum (a + b) over the cells where a + b > 0
+    (tests/test_spatial.py:581-583)."""
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    s = a + b
+    m = s > 0
+    return float((a - b).abs()[m].sum() / s[m].sum())
+
+
+def spatial_phases(transport_kernel, dev, cost, src) -> list:
+    """Phases 28-35 (both decompositions; backend (b): every shard in this process
+    on the one card). Returns the entries of the ``kernels`` line for the
+    owned-range routes K3s and K4s."""
+    from jaybenne_tpu_torch.driver import run_file
+
+    phase("28 K3s owned-range kernel vs plain: 64^3 in 8^3 blocks, shard 3 of 8 and the "
+          "seam shard 7, 2^17 particles on the shard's z-slab, one round")
+    err_z = max(z_round(transport_kernel, dev, Z_SHARD, 2801),
+                z_round(transport_kernel, dev, Z_SHARDS - 1, 2807))
+
+    phase("29 K4s owned-range kernel vs plain: the 32x16 SMR DDMC forest, shards 0 and 1 "
+          "of 2, 2^17 particles each, one round")
+    err_f = forest_round(transport_kernel, dev, 2901)
+
+    phase("30 big_mesh_spatial: 64^3 in 8^3 blocks, 200k particles, 3 steps, spatial at "
+          "1 and 8 shards")
+    big = {}
+    for n in (1, 8):
+        mods = {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": n}
+        big[n] = spatial_path(DECK, mods, BIG_SPATIAL_STEPS, f"big_mesh_spatial at {n}",
+                              lo=Z_SHARD * 8 if n == 8 else 0)
+        events_gate(big[n][0].total_events, BIG_SPATIAL_JAX_EVENTS,
+                    f"big_mesh_spatial at {n} shards")
+    name_z = transport_kernel.launch_name(3, False, route="@z")
+    for n in (1, 8):
+        if big[n][1].get(name_z, 0) < BIG_SPATIAL_STEPS * n:
+            raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}")
+    k_z = round_kernel(transport_kernel, dev, big[8][2], name_z, cost)
+
+    phase("31 stepdiff through the spatial decomposition at 8 shards: 128 cells in "
+          "16-cell blocks at 100k particles, and the CI's 32 cells in 2-cell blocks at 16k")
+    for mods, what in ((STEPDIFF_SPATIAL, "stepdiff spatial, 8 shards"),
+                       (STEPDIFF_SPATIAL_CI, "stepdiff spatial, the CI's row, 8 shards")):
+        sd = spatial_path(DECK, mods, None, what)[0]
+        gate(weighted_erf_error(sd), WERR_TOL, f"{what} werr")
+
+    phase("32 the 8-device SMR rows, particle decomposition: stepdiff_smr, "
+          "stepdiff_smr_ddmc, the hybrid at tau_ddmc = 10, stepdiff_smr2; 10 steps each")
+    name_s2 = transport_kernel.launch_name(2, False, False, True)
+    name_sd2 = transport_kernel.launch_name(2, False, True, True)
+    s8 = run_path(SMR_DECK, {**SMR_GATE, **EIGHT}, name_s2, per_step=8)[0]
+    gate(weighted_erf_error(s8), SMR_TOL, "stepdiff_smr at 8 shards werr")
+    sd8 = run_path(SMR_DDMC_DECK, {**SMR_GATE, **EIGHT}, name_sd2, per_step=8)[0]
+    gate(weighted_erf_error(sd8), SMR_TOL, "stepdiff_smr_ddmc at 8 shards werr")
+    hy8 = run_path(HYBRID_DECK, {**HYBRID_GATE, **EIGHT}, name_sd2, per_step=8)[0]
+    gate(weighted_erf_error(hy8), SMR_TOL, "hybrid (tau_ddmc = 10) at 8 shards werr")
+    s28 = run_path(SMR2_DECK, {**SMR_GATE, **EIGHT}, name_s2, per_step=8)[0]
+    gate(profile_error(s28), PROFILE_TOL, "stepdiff_smr2 at 8 shards x-profile")
+
+    phase("33 spatial + SMR + DDMC at 8 shards: tests/test_spatial.py:546-586's deck, "
+          "32x16 in 8x8 blocks, 96k particles, 2 steps")
+    sp8, sp_launches, sp_round, resolved = spatial_path(
+        SMR_DDMC_DECK, {**SMR_SPATIAL, **SPATIAL, "jaybenne/n_devices": 8}, SMR_SPATIAL_STEPS,
+        "stepdiff_smr_ddmc spatial, 8 shards")
+    left = int((sp8.state.particles.alive & (sp8.state.particles.leak != 0)).sum())
+    if resolved == 0 or left:
+        raise AssertionError(f"spatial SMR DDMC: {resolved} pending leaks resolved, {left} left")
+    with tempfile.TemporaryDirectory() as outdir:
+        one = run_file(SMR_DDMC_DECK, outdir=outdir, modified_inputs=SMR_SPATIAL, quiet=True,
+                       nlim=SMR_SPATIAL_STEPS, device="cuda")
+    print(f"spatial SMR DDMC: {resolved} pending coarse-to-fine leaks resolved by their "
+          f"owners after migration, {left} left at the end of the step", flush=True)
+    gate(weighted_difference(sp8.state.fields.energy_tally, one.state.fields.energy_tally),
+         SMR_SPATIAL_TOL, "spatial SMR DDMC at 8 shards: weighted difference from one device")
+    name_f = transport_kernel.launch_name(2, False, True, True, route="@blocks")
+    if sp_launches.get(name_f, 0) < SMR_SPATIAL_STEPS * 8:
+        raise AssertionError(f"spatial SMR DDMC: launches {sp_launches}")
+    k_f = round_kernel(transport_kernel, dev, sp_round, name_f, cost)
+
+    phase("34 determinism: phase 30 at 8 shards again (phase 32's rows were each rerun)")
+    again = spatial_path(DECK, {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8},
+                         BIG_SPATIAL_STEPS, "big_mesh_spatial at 8, rerun")[0]
+    if not torch.equal(again.state.fields.energy_tally, big[8][0].state.fields.energy_tally):
+        raise AssertionError("determinism: big_mesh_spatial at 8 shards differs on a rerun")
+    print("big_mesh_spatial at 8 shards, rerun with the same seed: tallies bitwise identical; "
+          "stepdiff_smr at 8 shards likewise (phase 32's rerun)", flush=True)
+
+    phase("35 phase 25's path (stepdiff_smr with ep_bremss, 100k particles, one step) at "
+          "seeds 1-4")
+    surv = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for seed in NG_SMR_JAX_SEEDS:
+            run = run_file(SMR_DECK, outdir=outdir, quiet=True, nlim=1, device="cuda",
+                           modified_inputs={**NG_SMR, "jaybenne/seed": seed})
+            p = run.state.particles
+            surv[seed] = (int(p.alive.sum()), float(p.energy.double()[p.alive].mean()))
+    mine = [v[0] for v in surv.values()]
+    theirs = list(NG_SMR_JAX_SEEDS.values())
+    diff = statistics.mean(mine) - statistics.mean(theirs)
+    sd = float(np.sqrt((statistics.variance(mine) + statistics.variance(theirs)) / 4))
+    print(f"ep_bremss stepdiff_smr survivors at seeds 1-4: {surv}; mean "
+          f"{statistics.mean(mine)!r} vs the JAX package's {statistics.mean(theirs)!r} "
+          f"({theirs}); difference {diff!r}, {diff / sd:+.2f} sd of the difference of the "
+          "means", flush=True)
+    if abs(diff) > N_SIGMA_BINOMIAL * sd:
+        raise AssertionError(f"phase 35: survivors {mine} vs the JAX package's {theirs}")
+
+    kernels = []
+    for name, what, replaces, launches, err, (ms, plain, _, err_r, bound, by) in (
+            (name_z, "K3s: a shard's round on its z-slab; big_mesh_spatial at 8 shards",
+             "jaybenne_tpu/ops/pallas_grid.py:2054", big[8][1], err_z, k_z),
+            (name_f, "K4s: a shard's round over its blocks; SMR DDMC spatial at 8 shards",
+             "jaybenne_tpu/ops/pallas_bucketed.py:1360", sp_launches, err_f, k_f)):
+        kernels.append({
+            "name": f"{name} ({what})", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches.get(name, 0), "max_abs_err": max(err, err_r),
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+        })
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
@@ -1750,6 +2150,7 @@ def main() -> int:
     src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
     smr_kernels = smr_phases(transport_kernel, dev, cost, src)
     nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
+    spatial_kernels = spatial_phases(transport_kernel, dev, cost, src)
 
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -1809,7 +2210,7 @@ def main() -> int:
             "library_ms": None,
         },
     ]
-    kernels += smr_kernels + nongray_kernels
+    kernels += smr_kernels + nongray_kernels + spatial_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

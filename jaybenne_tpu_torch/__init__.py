@@ -10,11 +10,13 @@ CUDA C++ (``csrc/``), compiled with ``nvcc`` at first use; on CPU tensors every
 kernel runs its plain PyTorch version instead.
 
 Scope so far: IMC and hybrid IMC/DDMC on uniform and statically refined meshes in
-1D, 2D and 3D on one device, with thermal initial radiation, emission, absorption,
-fluid feedback, the external volume source, and every model of the JAX package
-(gray, tabulated and frequency-dependent ``EPBremss`` opacities, gray and Thomson
-scattering, the ideal-gas and power-law-cv equations of state). Other
-configurations (f64; several devices and the spatial decomposition; restart and
-the Parthenon dump layout) raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+1D, 2D and 3D, with thermal initial radiation, emission, absorption, fluid
+feedback, the external volume source, and every model of the JAX package (gray,
+tabulated and frequency-dependent ``EPBremss`` opacities, gray and Thomson
+scattering, the ideal-gas and power-law-cv equations of state), on one device or
+under either decomposition (``parallel/``: the particle one, and the spatial one
+with migration), with every shard in one process or one shard per rank of a
+``torch.distributed`` group. Other configurations (f64; restart and the Parthenon
+dump layout) raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """

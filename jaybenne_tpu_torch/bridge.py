@@ -8,10 +8,10 @@ nested dataclasses, plain Python values for static metadata);
 packages. This module never imports jax: the dicts carry only numpy arrays and
 Python values.
 
-Keys the port has no field for (the JAX ledger's ``leak``, the JAX coefficients'
-``packed`` rows and model objects, the PRNG key) are ignored, and a field with a
-default may be left out. A ``SimState`` needs an integer ``seed`` in place of the
-JAX PRNG key.
+Keys the port has no field for (the JAX coefficients' ``packed`` rows and model
+objects, the PRNG key) are ignored, and a field with a default (the ledger's
+``leak`` column among them) may be left out. A ``SimState`` needs an integer
+``seed`` in place of the JAX PRNG key.
 """
 
 from __future__ import annotations

@@ -15,13 +15,30 @@
 //   * jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel (:221; K4), the one
 //     it runs on refined forests past that limit, gray and non-gray (:355-403).
 //
+// and the two census rounds of the JAX package's spatial decomposition:
+//
+//   * jaybenne_tpu/ops/pallas_grid.py::make_spatial_grid (:1943; K3s), a shard's
+//     round on the whole z planes of a uniform IMC mesh;
+//   * jaybenne_tpu/ops/pallas_bucketed.py::make_spatial_transport (:1360; K4s), a
+//     shard's round over its blocks of any forest.
+//
 // They exist separately on the TPU only because of VMEM. Here one kernel gathers
 // its tables from global memory: on a uniform forest it tracks global cells on
 // the collapsed single block; on a refined one the ledger stays block-local. The
 // region slabs, halos, parity layouts, SIGMA_REFRESH stale lanes,
-// pause-and-rebucket rounds, pending-leak codes, bucket sorts and bf16 pair
-// packing of the TPU kernels are not carried over. It computes what they
-// compute, per particle:
+// pause-and-rebucket rounds, bucket sorts and bf16 pair packing of the TPU
+// kernels are not carried over. It computes what they compute, per particle:
+//
+//   * an owned range [own_lo, own_hi) at run time (not a template parameter):
+//     the global z cells of a shard's slab on the collapsed uniform mesh (K3s,
+//     whose cell table is then the slab's, row ((k - own_lo) ny + j) nx + i), or
+//     a shard's blocks with SMR (K4s, cell table row (block - own_lo) cells per
+//     block + local cell, the block table and lookup grid global). Only a lane
+//     whose cell lies in it runs, and a lane pauses, alive and short of census,
+//     after the event that takes it out. With DDMC in 2D/3D a leak into a finer
+//     block outside the range is not resampled: its code goes to the ledger's
+//     leak column for the owning shard. On one device the range is the whole
+//     mesh, and the census is the same draw for draw;
 //
 //   * one thread per ledger slot runs its own history while
 //     alive && tau < 1 && it < max_iters, with its own iteration counter. A lane
@@ -171,6 +188,9 @@ struct Geom {
   float tile[3];      // f32 tile edge
   float nudge_cross[3];  // f32(0.5 finest): the probe along a crossed face's normal
   float nudge_tilt[3];   // f32(0.01 finest): the probe along the other axes, x v / c
+  // the owned range [own_lo, own_hi): of blocks with SMR, of global z cells in 3D
+  // without; a lane runs while its cell lies in it (the whole mesh on one device)
+  int own_lo, own_hi;
   // NONGRAY only: EPBremss under NonCGSUnits (ops/transport_kernel.py,
   // NONGRAY_CONSTANTS)
   float ng_rho_scale, ng_temp_scale, ng_len_scale;  // NonCGSUnits' scales
@@ -179,7 +199,7 @@ struct Geom {
   float ng_freq_min;          // the frequency clamp, 1e10
   float ng_xc_max;            // the clamp of h nu / k T, 80
 };
-constexpr int kGeomInts = 14;
+constexpr int kGeomInts = 16;
 constexpr int kGeomFloats = 54;
 
 // A refined forest's tables (SMR instantiations only): per block two float4,
@@ -201,10 +221,20 @@ struct Ledger {
   int32_t* face;      // face-arrival code (DDMC instantiations only)
   int32_t* blk;       // owning block (SMR instantiations only)
   const float* energy;  // photon energy, read only (NONGRAY instantiations only)
+  int32_t* leak;      // pending leak code, written on a pause (DDMC with SMR only)
 };
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
+}
+
+// Whether a lane's cell lies in the owned range: its block with SMR, its global
+// z cell in 3D without; 1D/2D uniform meshes are owned whole.
+template <int NDIM, bool SMR>
+__device__ __forceinline__ bool owned(const Geom& g, int blk, const int (&ci)[3]) {
+  if constexpr (SMR) return blk >= g.own_lo && blk < g.own_hi;
+  if constexpr (NDIM == 3) return ci[2] >= g.own_lo && ci[2] < g.own_hi;
+  return true;
 }
 
 // EPBremss under NonCGSUnits at photon energy en (models/opacity.py), in the JAX
@@ -406,7 +436,7 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
                                        uint32_t lane, uint32_t it, int leak,
                                        const bool (&out_lo)[3], const bool (&out_hi)[3],
                                        const float (&gp)[3], int& blk, float (&np_)[3],
-                                       int (&nci)[3], float (&v)[3]) {
+                                       int (&nci)[3], float (&v)[3], int& pending) {
   int t[3];
 #pragma unroll
   for (int a = 0; a < NDIM; ++a) {
@@ -431,7 +461,11 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
     idx[a] = min(max((int)floorf(loc[a] / ndx[a]), 0), g.n[a] - 1);
   }
   if constexpr (DDMC && NDIM >= 2) {
-    if (leak != 0 && __ldg(F.level + b_new) > __ldg(F.level + blk)) {
+    const bool here = b_new >= g.own_lo && b_new < g.own_hi;
+    // the fine faces of a block outside the owned range live on another shard:
+    // the leak code travels with the lane, which pauses there
+    if (leak != 0 && !here && __ldg(F.level + b_new) > __ldg(F.level + blk)) pending = leak;
+    if (leak != 0 && here && __ldg(F.level + b_new) > __ldg(F.level + blk)) {
       using T = DdmcTags<NDIM, ABSORB>;
       const int ax = abs(leak) - 1;
       const float lsgn = leak > 0 ? 1.0f : -1.0f;
@@ -476,7 +510,7 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
       constexpr int kRec = NONGRAY ? 12 : 8;
       constexpr int kP0 = NONGRAY ? 4 : 2;
       auto face_prob = [&](int c1, int c2) -> float {
-        int flat = b_new;
+        int flat = b_new - g.own_lo;
 #pragma unroll
         for (int a = NDIM - 1; a >= 0; --a) {
           const int ia = a == ax ? f_ax : (a == t1 ? c1 : (NDIM == 3 && a == t2 ? c2 : idx[a]));
@@ -543,23 +577,30 @@ __global__ void __launch_bounds__(kThreads)
   constexpr uint32_t kTagCircle = kTagU16 + 1u;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   int it = 0;
+  int ci[3] = {0, 0, 0};
+  int blk = 0;
   if (s < n && L.alive[s] != 0 && L.tau[s] < 1.0f) {
+#pragma unroll
+    for (int a = 0; a < NDIM; ++a) ci[a] = L.ci[a][s];
+    if (SMR) blk = L.blk[s];
+  }
+  if (s < n && L.alive[s] != 0 && L.tau[s] < 1.0f && owned<NDIM, SMR>(g, blk, ci)) {
     float p[3], v[3];
-    int ci[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       p[a] = a < NDIM ? L.x[a][s] : 0.0f;
       v[a] = L.v[a][s];
-      ci[a] = a < NDIM ? L.ci[a][s] : 0;
     }
     float ptau = L.tau[s];
     bool palive = true;
     bool pabsorbed = false;
     int pface = DDMC ? L.face[s] : 0;
-    int blk = SMR ? L.blk[s] : 0;
+    int pending = 0;  // a leak code for another shard (DDMC with SMR)
     const float en = NONGRAY ? L.energy[s] : 0.0f;
     const uint32_t lane = (uint32_t)s;
-    while (palive && ptau < 1.0f && it < g.max_iters) {
+    // a lane that leaves the owned range pauses: alive, short of census, its
+    // state at the crossing
+    while (palive && ptau < 1.0f && it < g.max_iters && owned<NDIM, SMR>(g, blk, ci)) {
       // the cell geometry: the collapsed block's, or with SMR the lane's block's
       float dx[3], inv_dx[3], box[3];
       float dmin;
@@ -578,7 +619,7 @@ __global__ void __launch_bounds__(kThreads)
         if (NDIM == 3) dmin = fminf(dmin, dx[2]);
 #pragma unroll
         for (int a = 0; a < 3; ++a) inv_dx[a] = DDMC ? 1.0f / dx[a] : 0.0f;
-        cell = blk;
+        cell = blk - g.own_lo;
 #pragma unroll
         for (int a = NDIM - 1; a >= 0; --a) cell = cell * g.n[a] + ci[a];
       } else {
@@ -591,7 +632,7 @@ __global__ void __launch_bounds__(kThreads)
         dmin = g.dmin;
         cell = ci[0];
         if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
-        if (NDIM == 3) cell = (ci[2] * g.n[1] + ci[1]) * g.n[0] + ci[0];
+        if (NDIM == 3) cell = ((ci[2] - g.own_lo) * g.n[1] + ci[1]) * g.n[0] + ci[0];
       }
       float2 tab;        // (p_abs, 1 / sigma_t), gray without DDMC
       float ea = 0.0f;   // with DDMC or NONGRAY: fleck sigma_a
@@ -760,7 +801,7 @@ __global__ void __launch_bounds__(kThreads)
         }
         if (SMR && palive) {  // re-home by the lookup grid
           rehome<NDIM, ABSORB, DDMC, NONGRAY>(g, F, table, lane, (uint32_t)it, leak, out_lo,
-                                              out_hi, gp, blk, np_, nci, v);
+                                              out_hi, gp, blk, np_, nci, v, pending);
         } else {
 #pragma unroll
           for (int a = 0; a < NDIM; ++a) {
@@ -794,6 +835,7 @@ __global__ void __launch_bounds__(kThreads)
     if (ABSORB && pabsorbed) L.absorbed[s] = 1;
     if (DDMC) L.face[s] = pface;
     if (SMR) L.blk[s] = blk;
+    if (DDMC && SMR && pending != 0) L.leak[s] = pending;
   }
 
   // block reduction of the per-thread event counts (one event per iteration)
@@ -864,8 +906,8 @@ void launch_dim(bool absorb, bool ddmc, bool smr, bool nongray, const Ledger& L,
 
 }  // namespace
 
-// ptrs: 15 device pointers x y z vx vy vz tau i j k alive absorbed face block
-// energy.
+// ptrs: 16 device pointers x y z vx vy vz tau i j k alive absorbed face block
+// energy leak.
 // table: per cell, the float2 (p_abs, 1 / sigma_t) without DDMC, the 8 floats
 // (ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi) with it (16-byte aligned);
 // with nongray the 4 floats (rho, T, fleck, sigma_s), with DDMC followed by the
@@ -874,7 +916,7 @@ void launch_dim(bool absorb, bool ddmc, bool smr, bool nongray, const Ledger& L,
 // With smr: block_table (per block the 8 floats dx dy dz 0 ox oy oz 0, 16-byte
 // aligned), levels (int32 per block) and lookup (the int32 lookup grid); null
 // otherwise.
-// igeom: n[3] bc[6] max_iters seed nt[3]; fgeom: dx[3] inv_dx[3] org[3] lo[3]
+// igeom: n[3] bc[6] max_iters seed nt[3] own_lo own_hi; fgeom: dx[3] inv_dx[3] org[3] lo[3]
 // hi[3] lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc eps_imc
 // eps_ddmc dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] rho_scale
 // temp_scale length_scale sb kb hh g_ff freq_min xc_max (host arrays).
@@ -898,6 +940,7 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   L.face = (int32_t*)ptrs[12];
   L.blk = (int32_t*)ptrs[13];
   L.energy = (const float*)ptrs[14];
+  L.leak = (int32_t*)ptrs[15];
   Forest F;
   F.block = (const float4*)block_table;
   F.level = (const int32_t*)levels;
@@ -910,6 +953,8 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   g.max_iters = *ip++;
   g.seed = (uint32_t)*ip++;
   for (int a = 0; a < 3; ++a) g.nt[a] = *ip++;
+  g.own_lo = *ip++;
+  g.own_hi = *ip++;
   const float* fp = fgeom;
   float* dst[8] = {g.dx, g.inv_dx, g.org, g.lo, g.hi, g.lo_half, g.hi_half, g.span};
   for (int k = 0; k < 8; ++k)
@@ -932,7 +977,7 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   float* ng_dst[9] = {&g.ng_rho_scale, &g.ng_temp_scale, &g.ng_len_scale, &g.ng_sb, &g.ng_kb,
                       &g.ng_hh, &g.ng_g, &g.ng_freq_min, &g.ng_xc_max};
   for (int k = 0; k < 9; ++k) *ng_dst[k] = *fp++;
-  static_assert(kGeomInts == 14 && kGeomFloats == 54, "geometry layout");
+  static_assert(kGeomInts == 16 && kGeomFloats == 54, "geometry layout");
 
   if (ndim < 1 || ndim > 3) return -1;
   const bool sm = smr != 0;

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
     "jb_transport_launch": (
         _I, _I, _I, _I, _I,  # ndim absorb ddmc smr nongray
-        _P, _P,          # host array of 15 ledger pointers, cell table
+        _P, _P,          # host array of 16 ledger pointers, cell table
         _P, _P, _P,      # block table, block levels, lookup grid (SMR; else null)
         _I,              # n
         _P, _P,          # host int and float geometry arrays

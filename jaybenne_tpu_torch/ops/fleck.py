@@ -24,12 +24,21 @@ the same numbers. On a refined forest (``max_level > 0``) the port samples
 positions as the JAX package does: the point is wrapped (periodic field BC) or
 clamped into the domain, located in the forest, and the owning cell's
 ``sigma_t dx`` of its own block is read. A coarse/fine face then holds a
-different value on each side's block. The shard-local variant of the spatial
-decomposition (ROADMAP Queue 1, item 17) is not ported.
+different value on each side's block.
+
+Under the spatial decomposition a shard holds only its blocks' sigma_t. Every side
+of a face of one of its blocks lies in that block or in the first cell layer of a
+neighbouring block (same level, 2:1 fine or 2:1 coarse alike), so the shards
+all-gather only their blocks' boundary-surface sigma_t
+(``pack_boundary_surface``), and ``ddmc_face_probs_spatial`` gives each shard
+bitwise the values of ``ddmc_face_probs`` on its own blocks.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..utils.constants import LAM_EXT
@@ -44,34 +53,37 @@ def fleck_factor(rho, sie, eos, opacity, dt, dtype):
     return (1.0 / (1.0 + (4.0 * emis / (rho * cv * temp)) * dt)).to(dtype)
 
 
-def _block_faces(gface, mesh, axis):
-    """Global face array along ``axis`` -> the per-block face array (each block
-    holds both faces of each of its cells, so blocks share their common faces)."""
+def _block_faces(gface, mesh, axis, blocks=None):
+    """Global face array along ``axis`` -> the per-block face array of ``blocks``
+    (default every block; each block holds both faces of each of its cells, so
+    blocks share their common faces)."""
     nrbz, nrby, nrbx = mesh.root_grid
     dev = gface.device
-    b = torch.arange(mesh.n_blocks, device=dev)
+    b = torch.arange(mesh.n_blocks, device=dev) if blocks is None else blocks
     bk = (b // (nrbx * nrby), (b // nrbx) % nrby, b % nrbx)  # (z, y, x) block index
     nloc = (mesh.nz, mesh.ny, mesh.nx)
     ax = 2 - axis  # (x, y, z) axis -> (z, y, x) dimension
     idx = []
     for d in range(3):
         n = nloc[d] + (1 if d == ax else 0)
-        shape = [mesh.n_blocks, 1, 1, 1]
+        shape = [b.numel(), 1, 1, 1]
         shape[d + 1] = n
         idx.append((bk[d][:, None] * nloc[d] + torch.arange(n, device=dev)).reshape(shape))
     return gface[idx[0], idx[1], idx[2]]
 
 
-def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
+def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype, blocks=None):
     """Face probability arrays (px, py, pz) of shapes ``[B, nz, ny, nx+1]``,
     ``[B, nz, ny+1, nx]`` and ``[B, nz+1, ny, nx]``; zeros on inactive axes.
 
     ``sigma_t``: per-cell total interaction coefficient [B, nz, ny, nx].
     ``periodic_flags``: (x, y, z) bools from the *field* boundary conditions.
+    ``blocks``: the ids of the blocks to return faces of (default every block).
     """
     if mesh.max_level > 0:
-        return _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype)
-    B, nz, ny, nx = sigma_t.shape
+        return _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype, blocks)
+    nz, ny, nx = sigma_t.shape[1:]
+    B = sigma_t.shape[0] if blocks is None else blocks.numel()
     shapes = ((B, nz, ny, nx + 1), (B, nz, ny + 1, nx), (B, nz + 1, ny, nx))
     out = []
     for axis in range(3):
@@ -88,7 +100,7 @@ def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
         lower = torch.where(lower > tau_ddmc, lower, thin)
         upper = torch.where(upper > tau_ddmc, upper, thin)
         p = (2.0 / (3.0 * (lower + upper))).to(dtype).movedim(-1, 2 - axis)
-        out.append(_block_faces(p, mesh, axis))
+        out.append(_block_faces(p, mesh, axis, blocks))
     return tuple(out)
 
 
@@ -114,15 +126,18 @@ def _sample_tau(mesh, tau_flat, pos, axis, periodic_flags):
     return tau_flat[flat, axis]
 
 
-def _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
+def _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype, blocks=None):
     """``ddmc_face_probs`` on a refined forest: each face's two sides sampled a
     quarter local cell to either side of its centre (``jaybenne_tpu/ops/fleck.py``
     ``ddmc_face_probs``)."""
-    B, nz, ny, nx = sigma_t.shape
+    nz, ny, nx = sigma_t.shape[1:]
     dev = sigma_t.device
     dxv = mesh.block_dx.to(dtype)
     tau_flat = (sigma_t[..., None] * dxv[:, None, None, None, :]).reshape(-1, 3).to(dtype)
     org = mesh.block_origin.to(dtype)
+    if blocks is not None:
+        dxv, org = dxv[blocks], org[blocks]
+    B = dxv.shape[0]
     thin = torch.tensor(2.0 * LAM_EXT, dtype=dtype, device=dev)
     shapes = ((B, nz, ny, nx + 1), (B, nz, ny + 1, nx), (B, nz + 1, ny, nx))
     out = []
@@ -148,3 +163,48 @@ def _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype):
             sides.append(torch.where(tau > tau_ddmc, tau, thin))
         out.append((2.0 / (3.0 * (sides[0] + sides[1]))).to(dtype))
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _surface_cells(nz, ny, nx) -> np.ndarray:
+    """Flat in-block ids of an (nz, ny, nx) block's boundary cells on its active
+    axes, each once, in flat order."""
+    kk, jj, ii = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij")
+    on = (ii == 0) | (ii == nx - 1)
+    if ny > 1:
+        on |= (jj == 0) | (jj == ny - 1)
+    if nz > 1:
+        on |= (kk == 0) | (kk == nz - 1)
+    return np.flatnonzero(on.reshape(-1))
+
+
+def pack_boundary_surface(mesh, sigma_local):
+    """[Bl, nz, ny, nx] local sigma_t -> [Bl, S] boundary-surface values: the
+    payload each shard all-gathers for the DDMC face probabilities."""
+    surf = torch.as_tensor(_surface_cells(mesh.nz, mesh.ny, mesh.nx), device=sigma_local.device)
+    return sigma_local.reshape(sigma_local.shape[0], -1)[:, surf]
+
+
+def ddmc_face_probs_spatial(mesh, sigma_local, surf_glob, offset, tau_ddmc, periodic_flags,
+                            dtype):
+    """The DDMC face probabilities of one shard's blocks [offset, offset + Bl):
+    bitwise ``ddmc_face_probs`` of the whole mesh restricted to them, from the
+    shard's own sigma_t ``sigma_local`` [Bl, nz, ny, nx] and every block's
+    boundary surface ``surf_glob`` [n Bl, S] (``pack_boundary_surface``,
+    all-gathered). The shard sees its own blocks whole and every other block's
+    surface; the faces of its blocks read nothing else. Padding blocks past the
+    mesh's last one get zeros. Returns local (px, py, pz) of shapes [Bl, nz, ny,
+    nx+1] etc."""
+    Bl, nz, ny, nx = sigma_local.shape
+    B = mesh.n_blocks
+    surf = torch.as_tensor(_surface_cells(nz, ny, nx), device=sigma_local.device)
+    visible = sigma_local.new_zeros((surf_glob.shape[0], nz * ny * nx))
+    visible[:, surf] = surf_glob.to(visible.dtype)
+    visible[offset:offset + Bl] = sigma_local.reshape(Bl, -1)
+    visible = visible[:B].reshape(B, nz, ny, nx)
+    n_real = max(0, min(Bl, B - offset))
+    blocks = torch.arange(offset, offset + n_real, device=sigma_local.device)
+    faces = ddmc_face_probs(mesh, visible, tau_ddmc, periodic_flags, dtype, blocks)
+    if n_real == Bl:
+        return faces
+    return tuple(torch.cat([f, f.new_zeros((Bl - n_real,) + f.shape[1:])]) for f in faces)

@@ -9,12 +9,20 @@ The JAX package folds (cycle, phase) tags into a threefry key. Here each stream 
   * ``PHASE_EXTERNAL`` — per-step external volume source;
   * ``PHASE_TRANSPORT`` — the census kernel, which draws its own variates from the
     counter hash of ``ops/kernel_rng.py`` and takes only a 32-bit seed, so that
-    stream is the hash value itself (``kernel_seed``) and needs no generator.
+    stream is the hash value itself (``kernel_seed``) and needs no generator;
+  * ``PHASE_FIXUP`` — the spatial decomposition's coarse-to-fine resample of
+    migrated DDMC arrivals, once per migration round.
 
-A stream is therefore fixed by (seed, cycle, phase) and the device: two runs with
-the same seed on the same kind of device draw the same numbers. CPU and CUDA
-generators differ, and neither matches threefry, so tests that run both packages
-hand them the same ledger and compare statistics.
+Under a decomposition (more than one shard, or the spatial one at any count) every
+key hashes further words after the phase: the shard, and for the census and the
+fixup the migration round, as the JAX package folds the shard index and the round
+into its keys. A run without a decomposition hashes no further word, so its keys
+are those of (seed, cycle, phase) alone.
+
+A stream is therefore fixed by its words and the device: two runs with the same
+seed on the same kind of device draw the same numbers. CPU and CUDA generators
+differ, and neither matches threefry, so tests that run both packages hand them
+the same ledger and compare statistics.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ PHASE_INIT = 0
 PHASE_SOURCE = 1
 PHASE_TRANSPORT = 2
 PHASE_EXTERNAL = 3
+PHASE_FIXUP = 4
 
 _M64 = (1 << 64) - 1
 
@@ -38,23 +47,25 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def stream_key(seed: int, cycle: int, phase: int) -> int:
-    """64-bit hash of (seed, cycle, phase)."""
+def stream_key(seed: int, cycle: int, phase: int, *words: int) -> int:
+    """64-bit hash of (seed, cycle, phase) and any further ``words`` (the shard,
+    the migration round)."""
     h = 0
-    for w in (seed, cycle, phase):
+    for w in (seed, cycle, phase, *words):
         h = _splitmix64(h ^ (w & _M64))
     return h
 
 
-def generator(seed: int, cycle: int, phase: int, device) -> torch.Generator:
+def generator(seed: int, cycle: int, phase: int, device, words=()) -> torch.Generator:
     g = torch.Generator(device=device)
-    g.manual_seed(stream_key(seed, cycle, phase) >> 1)  # manual_seed takes < 2^63
+    g.manual_seed(stream_key(seed, cycle, phase, *words) >> 1)  # manual_seed takes < 2^63
     return g
 
 
-def kernel_seed(seed: int, cycle: int) -> int:
-    """Signed 32-bit seed of the census kernel's counter hash for one cycle."""
-    s = stream_key(seed, cycle, PHASE_TRANSPORT) & 0xFFFFFFFF
+def kernel_seed(seed: int, cycle: int, *words: int) -> int:
+    """Signed 32-bit seed of the census kernel's counter hash for one cycle (and
+    one shard and migration round under a decomposition)."""
+    s = stream_key(seed, cycle, PHASE_TRANSPORT, *words) & 0xFFFFFFFF
     return s - (1 << 32) if s >= (1 << 31) else s
 
 

@@ -18,6 +18,11 @@ term, ``jaybenne/external_source*``) injects at the fixed rate ``q`` inside a bo
 while ``t < tmax``: its births are uniform over the in-step window
 ``[t, min(t + dt, tmax))``, nothing is debited from the matter, and
 ``source_num``/``source_ew`` accumulate over the emission pass before it.
+
+Under a decomposition each shard sources its own births: under the particle one a
+share of ``num_particles`` with the per-cell counts summed over shards before the
+weights are set (``birth_counts``, then ``births`` with the summed counts); under
+the spatial one the births of its own blocks (``block_offset``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import dataclasses
 import torch
 
 from ..particles import insert_particles
-from . import planck, rng
+from . import planck, rng, tally
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,22 +67,39 @@ def external_source_setup(mesh, jb) -> ExternalSource:
                           temperature=jb.external_source_temperature)
 
 
-def source_photons(
-    fields, particles, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype,
-    opacity=None, dt=0.0, t=0.0, external: ExternalSource | None = None,
-):
-    """Returns (fields, particles, n_dropped); the ledger is updated in place.
-    ``gen`` is the stream's ``torch.Generator`` (see ``ops/rng.py``); emission
-    needs the ``opacity`` model and the step ``dt``, the external source the step's
-    start time ``t`` and its ``external`` geometry."""
+@dataclasses.dataclass(frozen=True)
+class BirthCounts:
+    """A source's per-cell energy and birth count on one shard (``birth_counts``):
+    ``n_cell`` births per cell of the shard's fields, ``erad`` their energy, the
+    cells' temperature, the in-step window of the external source and the largest
+    whole number of births per cell before the stochastic rounding."""
+
+    erad: torch.Tensor
+    temp: torch.Tensor
+    n_cell: torch.Tensor
+    overlap: float
+    base: int
+
+
+def birth_counts(fields, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype,
+                 opacity=None, dt=0.0, t=0.0, external: ExternalSource | None = None,
+                 block_offset=None) -> BirthCounts:
+    """Step 1 of ``source_photons``: each cell's source energy and stochastically
+    rounded birth count. With ``block_offset`` (the spatial decomposition) the
+    fields are the shard's [Bl, ...] blocks from global block ``block_offset`` on,
+    the per-cell rate is normalised by the mesh's cell count, and the padding blocks
+    past the mesh's last one source nothing."""
     if source_type not in ("thermal", "emission", "external"):
         raise ValueError(f"unknown source_type {source_type!r}")
     dev = fields.rho.device
     B, nz, ny, nx = fields.rho.shape
-    n_cells = B * nz * ny * nx
+    n_cells = B * nz * ny * nx if block_offset is None else mesh.total_cells
 
     temp = eos.temperature_from_density_internal_energy(fields.rho, fields.sie)
-    dv = mesh.block_volume[:, None, None, None]
+    if block_offset is None:
+        dv = mesh.block_volume[:, None, None, None]
+    else:
+        dv = tally.local_block_volume(mesh, block_offset, B)[:, None, None, None]
     overlap = 0.0
     if source_type == "thermal":
         erad = (4.0 * sb / c) * temp**4 * dv
@@ -86,17 +108,40 @@ def source_photons(
     else:
         # the in-step source window [t, min(t + dt, tmax)); empty past the cutoff
         overlap = min(max(min(t + dt, external.tmax) - t, 0.0), dt)
-        erad = (external.q * overlap) * dv * external.inside.to(dtype)
+        inside = external.inside
+        if block_offset is not None:
+            pad = max(0, block_offset + B - mesh.n_blocks)
+            inside = torch.cat([inside, inside.new_zeros((pad,) + inside.shape[1:])])
+            inside = inside[block_offset:block_offset + B]
+        erad = (external.q * overlap) * dv * inside.to(dtype)
 
     npc = float(num_particles) / float(external.n_cells if external else n_cells)
     base = int(npc)
     frac = npc - base
     bern = rng.uniform(gen, erad.shape, dtype, dev) < frac
     n_cell = base + bern.to(torch.int32)
+    if block_offset is not None:  # padding blocks source nothing
+        own = torch.arange(B, device=dev) + block_offset < mesh.n_blocks
+        n_cell = torch.where(own[:, None, None, None], n_cell, 0)
     # cells with no source energy emit nothing
     n_cell = torch.where(erad > 0, n_cell, 0)
-    n_f = n_cell.to(dtype)
-    ew = torch.where(n_cell > 0, erad / n_f.clamp_min(1.0), 0.0).to(dtype)
+    return BirthCounts(erad=erad, temp=temp, n_cell=n_cell, overlap=overlap, base=base)
+
+
+def births(fields, particles, mesh, gen, counts: BirthCounts, n_glob=None, *, source_type,
+           sb, c, dtype, dt=0.0, external: ExternalSource | None = None, block_offset=None):
+    """Steps 2 and 3 of ``source_photons``: the weights, the source diagnostics and
+    the births of ``counts``. ``n_glob`` is each cell's birth count summed over the
+    shards of a particle decomposition (default: this shard's own), so the summed
+    energy per cell is exactly ``erad`` at any shard count. Returns (fields,
+    particles, n_dropped); the ledger is updated in place."""
+    dev = fields.rho.device
+    B, nz, ny, nx = fields.rho.shape
+    erad, n_cell, overlap = counts.erad, counts.n_cell, counts.overlap
+    if n_glob is None:
+        n_glob = n_cell
+    n_f = n_glob.to(dtype)
+    ew = torch.where(n_glob > 0, erad / n_f.clamp_min(1.0), 0.0).to(dtype)
     if source_type == "external":
         # accumulate over the emission pass: source_num * source_ew stays the
         # energy sourced per cell; nothing is debited from the matter
@@ -109,21 +154,31 @@ def source_photons(
         fields = dataclasses.replace(fields, source_num=n_f, source_ew=ew, energy_delta=debit)
 
     # ---- candidate grid: every cell, or the source cells ----------------------
-    K = base + 1  # max births per cell
+    K = counts.base + 1  # max births per cell
+    ncpb = nx * ny * nz
+    rows = None
     if external:
-        cflat = external.cells.to(torch.int32)
+        cflat = external.cells.to(torch.int32)  # flat global ids
+        if block_offset is None:
+            rows = cflat
+        else:  # the source cells in this shard's blocks
+            b = cflat // ncpb
+            cflat = cflat[(b >= block_offset) & (b < block_offset + B)]
+            rows = cflat - block_offset * ncpb
     else:
-        cflat = torch.arange(n_cells, dtype=torch.int32, device=dev)
+        cflat = torch.arange(B * ncpb, dtype=torch.int32, device=dev)
     C = cflat.numel()
     i_c = cflat % nx
     j_c = (cflat // nx) % ny
     k_c = (cflat // (nx * ny)) % nz
-    b_c = cflat // (nx * ny * nz)
+    b_c = cflat // ncpb
+    if block_offset is not None and not external:  # global block ids
+        b_c = torch.clamp(b_c + block_offset, max=mesh.n_blocks - 1)
 
     def per_row(v):
         """A per-cell tensor at the candidate rows, [C, 1]."""
         v = v.reshape(-1)
-        return (v[cflat.long()] if external else v).reshape(C, 1)
+        return (v[rows.long()] if external else v).reshape(C, 1)
 
     valid = torch.arange(K, dtype=torch.int32, device=dev)[None, :] < per_row(n_cell)
 
@@ -133,7 +188,7 @@ def source_photons(
     uz = rng.uniform(gen, shape, dtype, dev)
     ndir = rng.isotropic_direction(gen, shape, dtype, dev)
     dxv = mesh.block_dx[b_c.long()]  # [C, 3]
-    temp_rows = per_row(temp).to(dtype)
+    temp_rows = per_row(counts.temp).to(dtype)
     if external and external.temperature > 0:  # a fixed injection spectrum
         temp_rows = torch.full_like(temp_rows, external.temperature)
     energy = planck.sample_planck_energy(gen, sb, temp_rows, shape, dtype, dev)
@@ -161,3 +216,19 @@ def source_photons(
     )
     particles, n_dropped = insert_particles(particles, cand, valid)
     return fields, particles, n_dropped
+
+
+def source_photons(
+    fields, particles, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype,
+    opacity=None, dt=0.0, t=0.0, external: ExternalSource | None = None, block_offset=None,
+):
+    """Returns (fields, particles, n_dropped); the ledger is updated in place.
+    ``gen`` is the stream's ``torch.Generator`` (see ``ops/rng.py``); emission
+    needs the ``opacity`` model and the step ``dt``, the external source the step's
+    start time ``t`` and its ``external`` geometry; ``block_offset`` is the spatial
+    decomposition's (see ``birth_counts``)."""
+    counts = birth_counts(fields, mesh, gen, source_type=source_type, eos=eos, sb=sb, c=c,
+                          num_particles=num_particles, dtype=dtype, opacity=opacity, dt=dt,
+                          t=t, external=external, block_offset=block_offset)
+    return births(fields, particles, mesh, gen, counts, source_type=source_type, sb=sb, c=c,
+                  dtype=dtype, dt=dt, external=external, block_offset=block_offset)

@@ -45,6 +45,18 @@ re-homed by the block lookup grid (K1(d), ``pallas_transport.py:973-1020``). Wit
 DDMC in 2D/3D a leak into a finer block is re-seated on one of the fine faces
 around its coarse landing point (``:1022-1151``).
 
+An owned range makes one census call a round of the spatial decomposition
+(``OwnedRange``; the JAX package's ``pallas_grid.py::make_spatial_grid``, K3s, and
+``pallas_bucketed.py::make_spatial_transport``, K4s). A lane runs while its cell
+lies in the range and pauses, alive and short of census, at the first event that
+leaves it: on a uniform mesh collapsed to one block the range is the shard's global
+z cells and the cell table the shard's z-slab; on a forest it is the shard's blocks
+and the cell table theirs, while the block table and the lookup grid stay global.
+With DDMC in 2D/3D a leak into a finer block of another shard writes its leak code
+into the ledger's ``leak`` column instead of resampling, and pauses: the fine
+block's face probabilities live on that shard (``subface_resample``). The whole
+mesh as the range is the single-device census, draw for draw.
+
 Configurations the kernel does not take raise ``NotImplementedError`` naming their
 ROADMAP item, on every device: nothing falls back to another loop.
 """
@@ -77,10 +89,66 @@ def check_supported(mesh, prm, dtype) -> None:
 
 
 def launch_name(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
-                nongray: bool = False) -> str:
-    """The ``cuda_lib.LAUNCHES`` key of one kernel instantiation."""
+                nongray: bool = False, route: str = "") -> str:
+    """The ``cuda_lib.LAUNCHES`` key of one kernel instantiation; ``route`` is an
+    owned-range call's ``OwnedRange.route``."""
     return (f"transport_{ndim}d" + ("_abs" if absorb else "") + ("_ddmc" if ddmc else "")
-            + ("_smr" if smr else "") + ("_ng" if nongray else ""))
+            + ("_smr" if smr else "") + ("_ng" if nongray else "") + route)
+
+
+@dataclasses.dataclass(frozen=True)
+class OwnedRange:
+    """The part of the mesh one shard of the spatial decomposition owns, and with it
+    what the shard's coefficients cover:
+
+      * ``kind = "z"``: the global z cells [lo, lo + n) of a uniform mesh, whole
+        planes of blocks (K3s, ``pallas_grid.py:1925-1940``); the coefficients are
+        those of the blocks in them;
+      * ``kind = "blocks"``: the blocks [lo, lo + n) of any forest (K4s), uniform
+        or refined; the coefficients are those of these blocks.
+    """
+
+    kind: str
+    lo: int
+    n: int
+
+    def __post_init__(self):
+        if self.kind not in ("z", "blocks") or self.n < 1 or self.lo < 0:
+            raise ValueError(f"owned range {self}")
+
+    @property
+    def route(self) -> str:
+        return "@" + self.kind
+
+    def n_blocks(self, mesh) -> int:
+        """Blocks whose coefficients the shard holds."""
+        if self.kind == "blocks":
+            return self.n
+        nrbz, nrby, nrbx = mesh.root_grid
+        return self.n // mesh.nz * nrby * nrbx
+
+    def check(self, mesh) -> None:
+        """Raise unless the range fits ``mesh``: z ranges only on a uniform mesh, in
+        whole planes of blocks, and in 1D/2D only the whole mesh. A block range may
+        run past the mesh's last block into the padding blocks of the last shard."""
+        if self.kind == "blocks":
+            return
+        nz_all = mesh.root_grid[0] * mesh.nz
+        if (mesh.max_level > 0 or self.lo % mesh.nz or self.n % mesh.nz
+                or self.lo + self.n > nz_all or (mesh.ndim < 3 and self.n != nz_all)):
+            raise ValueError(f"owned range {self}: not whole z planes of blocks of this mesh")
+
+    def bounds(self) -> tuple:
+        """(lo, hi) of the range."""
+        return self.lo, self.lo + self.n
+
+
+def whole_mesh(mesh) -> OwnedRange:
+    """The single-device census as an owned range: every block of a forest, every
+    z cell of a uniform mesh."""
+    if mesh.max_level > 0:
+        return OwnedRange("blocks", 0, mesh.n_blocks)
+    return OwnedRange("z", 0, mesh.root_grid[0] * mesh.nz)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +196,8 @@ class _Geom:
     # ``_nongray_constants`` in ``NONGRAY_CONSTANTS`` order
     nongray: bool = False
     ng: tuple = (np.float32(0.0),) * 9
+    # an owned-range call's ``OwnedRange.route`` (its ``LAUNCHES`` key's suffix)
+    route: str = ""
 
 
 NONGRAY_CONSTANTS = ("rho_scale", "temp_scale", "length_scale", "sb", "kb", "hh", "g_ff",
@@ -150,10 +220,9 @@ def _nongray_constants(coefs) -> tuple:
         base.XC_MAX))
 
 
-def _geometry(mesh, prm, dt, coefs) -> _Geom:
+def _geometry(mesh, prm, dt, coefs, smr) -> _Geom:
     f32 = np.float32
     b = mesh.bounds
-    smr = mesh.max_level > 0
     nrb = (1, 1, 1) if smr else mesh.root_grid[::-1]  # root blocks per axis (x, y, z)
     n = tuple(nrb[a] * (mesh.nx, mesh.ny, mesh.nz)[a] for a in range(3))
     dx = tuple((b[2 * a + 1] - b[2 * a]) / n[a] for a in range(3))
@@ -207,25 +276,27 @@ def to_global_cells(vec, mesh):
     """Per-cell vector in block order ([B * nz*ny*nx], i fastest) -> global
     row-major cell order of the collapsed block: a reshape and permute, valid
     because uniform block ids are (z, y, x) row-major (``build_mesh`` sorts by
-    (level, z, y, x)). Port of ``pallas_transport.py::_to_global_cells``."""
-    nrbz, nrby, nrbx = mesh.root_grid
+    (level, z, y, x)). Port of ``pallas_transport.py::_to_global_cells``; on the
+    blocks of whole z planes (a z-owned shard's) it gives their z-slab in global
+    row-major order (``pallas_grid.py:2062-2066``, ``_local_glob``)."""
+    _, nrby, nrbx = mesh.root_grid
     return (
-        vec.reshape(nrbz, nrby, nrbx, mesh.nz, mesh.ny, mesh.nx)
+        vec.reshape(-1, nrby, nrbx, mesh.nz, mesh.ny, mesh.nx)
         .permute(0, 3, 1, 4, 2, 5)
         .reshape(-1)
     )
 
 
-def _face_pairs(coefs, mesh):
+def _face_pairs(px, py, pz, mesh):
     """Per-cell f32 ``(P_lower, P_upper)`` of each axis, [NC] each in block cell
     order, from the fields' face arrays: a port of the JAX
     ``_face_pair_vectors`` without its bf16 packing."""
-    if coefs.px is None:
+    if px is None:
         raise ValueError("transport: DDMC needs the face probabilities in the coefficients")
     nx, ny, nz = mesh.nx, mesh.ny, mesh.nz
-    px = coefs.px.reshape(-1, nz, ny, nx + 1)
-    py = coefs.py.reshape(-1, nz, ny + 1, nx)
-    pz = coefs.pz.reshape(-1, nz + 1, ny, nx)
+    px = px.reshape(-1, nz, ny, nx + 1)
+    py = py.reshape(-1, nz, ny + 1, nx)
+    pz = pz.reshape(-1, nz + 1, ny, nx)
     return [v.reshape(-1) for v in (px[..., :nx], px[..., 1:], py[:, :, :ny], py[:, :, 1:],
                                     pz[:, :nz], pz[:, 1:])]
 
@@ -246,7 +317,7 @@ class _Tables:
 
 
 def _tables(coefs, mesh, g: _Geom) -> _Tables:
-    cell = _pair_table(coefs, mesh, g.absorb, g.ddmc)
+    cell = _pair_table(coefs, mesh, g.absorb, g.ddmc, g.smr)
     if not g.smr:
         return _Tables(cell, opacity=coefs.opacity)
     # slices, not an index list: a list index is a host tensor copied to the card,
@@ -260,9 +331,10 @@ def _tables(coefs, mesh, g: _Geom) -> _Tables:
                    coefs.opacity)
 
 
-def _pair_table(coefs, mesh, absorb, ddmc):
+def _pair_table(coefs, mesh, absorb, ddmc, smr):
     """The kernel's per-cell table (global row-major cell order on a uniform
-    forest, block cell order on a refined one), from the
+    forest collapsed to one block, block cell order on a forest run block by block
+    with ``smr``), from the
     effective rates ``ea = fleck sigma_a`` and ``es = sigma_s + (1 - fleck)
     sigma_a`` (without absorption ``ea = 0``, ``es = sigma_s``): without DDMC the
     f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor, with DDMC the [NC, 8]
@@ -274,7 +346,7 @@ def _pair_table(coefs, mesh, absorb, ddmc):
     scattering."""
     f32 = torch.float32
     ss = coefs.sigma_s.to(f32)
-    faces = [v.to(f32) for v in _face_pairs(coefs, mesh)] if ddmc else []
+    faces = [v.to(f32) for v in _face_pairs(coefs.px, coefs.py, coefs.pz, mesh)] if ddmc else []
     if not coefs.is_gray:
         zero = [torch.zeros_like(ss)] * 2 if ddmc else []
         cols = [coefs.rho.to(f32), coefs.temp.to(f32), coefs.fleck.to(f32), ss, *faces, *zero]
@@ -291,7 +363,7 @@ def _pair_table(coefs, mesh, absorb, ddmc):
         else:
             inv = 1.0 / (ea + es + _TINY)
             cols = [ea * inv, inv]
-    if mesh.n_blocks > 1 and mesh.max_level == 0:
+    if mesh.n_blocks > 1 and not smr:
         cols = [to_global_cells(v, mesh) for v in cols]
     return torch.stack(cols, dim=1).contiguous()
 
@@ -303,10 +375,10 @@ def _block_shifts(mesh):
     return [float(np.float32((b[2 * a + 1] - b[2 * a]) / nrb[a])) for a in range(3)]
 
 
-def _collapse(p, mesh):
+def _collapse(p, mesh, smr):
     """Shift block-local state to the single synthetic block (in place); a
-    refined forest stays block-local."""
-    if mesh.n_blocks == 1 or mesh.max_level > 0:
+    forest run block by block (``smr``) stays block-local."""
+    if mesh.n_blocks == 1 or smr:
         return
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
@@ -318,9 +390,9 @@ def _collapse(p, mesh):
     p.block.zero_()
 
 
-def _expand(p, mesh):
+def _expand(p, mesh, smr):
     """Inverse of ``_collapse``: recover the owning block from the global indices."""
-    if mesh.n_blocks == 1 or mesh.max_level > 0:
+    if mesh.n_blocks == 1 or smr:
         return
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
@@ -443,16 +515,17 @@ def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, i
 
 
 def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi, nvel,
-                  leak, cell_of):
+                  leak, cell_of, own):
     """The lanes that left their block on a refined forest (K1(d),
     pallas_transport.py:973-1151): the lookup probe, half a finest cell along a
     crossed face's normal and ``0.01 finest v / c`` along the other axes, binned
     by ``floor``; the rebase into the new block; and with DDMC in 2D/3D the
-    coarse-to-fine subface resample of a leak into a finer block. Computed for
-    every lane; the caller keeps the lanes that left. Returns (block, local
-    positions, cell indices, velocities)."""
+    coarse-to-fine subface resample of a leak into a finer block of the owned
+    range ``own`` = (lo, hi). Computed for every lane; the caller keeps the lanes
+    that left. Returns (block, local positions, cell indices, velocities, the
+    pending leak code of a leak into a finer block outside the range, or None
+    without DDMC in 2D/3D)."""
     nd = g.ndim
-    f32 = torch.float32
     t = []
     for a in range(nd):
         sg = torch.where(out_hi[a], 1.0, 0.0) - torch.where(out_lo[a], 1.0, 0.0)
@@ -473,37 +546,56 @@ def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi,
            for a in range(nd)]
     vel = list(nvel)
     if not (g.ddmc and nd >= 2):
-        return b_new, loc, idx, vel
+        return b_new, loc, idx, vel, None
 
     # coarse -> fine subface resample: the leak landed at the transverse centre of
-    # its coarse cell, on the edge (2D) or corner (3D) of 2 or 4 fine faces
+    # its coarse cell, on the edge (2D) or corner (3D) of 2 or 4 fine faces; the
+    # fine faces of a block outside the owned range live on another shard
     refine = (leak != 0) & (tabs.level[b_new.long()] > tabs.level[blk.long()])
-    leak_axis = leak.abs() - 1
-    lsgn = torch.sign(leak).to(f32)
+    here = (b_new >= own[0]) & (b_new < own[1])
+    pending = torch.where(refine & ~here, leak, 0)
+    refine = refine & here
     u_sel = pool.u16(it)
     u_t = [pool.u16(it) for _ in range(nd - 1)]
     smu = torch.sqrt(pool.u16(it))
     snu = torch.sqrt(torch.clamp_min(1.0 - smu * smu, 0.0))
     sph, ssh = pool.circle(it)
     hemi = (smu, snu * sph, snu * ssh)
-    take_upper = lsgn < 0.0  # a leak in -axis enters the upper face of the last cell
-    n = g.n
-
     p0 = _face_column(g)
 
-    def face_prob(ax, ijk):
+    def face_prob(ax, upper, ijk):
         """The fine block's P_lower (leak in +axis) or P_upper of axis ``ax``."""
-        flat = cell_of(b_new.long(), [q.long() for q in ijk])
-        r = tabs.cell[flat]
-        return torch.where(take_upper, r[:, p0 + 1 + 2 * ax], r[:, p0 + 2 * ax])
+        r = tabs.cell[cell_of(b_new.long(), [q.long() for q in ijk])]
+        return torch.where(upper, r[:, p0 + 1 + 2 * ax], r[:, p0 + 2 * ax])
 
+    loc, idx, vel = _subface_pick(nd, g.n, refine, leak, loc, idx, ndx, vel, face_prob,
+                                  u_sel, u_t, hemi, k["c"], k["zero"], k["tiny"])
+    return b_new, loc, idx, vel, pending
+
+
+def _subface_pick(nd, n, refine, leak, loc, idx, ndx, vel, face_prob, u_sel, u_t, hemi, c,
+                  zero, tiny):
+    """The coarse-to-fine subface resample of the lanes ``refine``, whose DDMC leak
+    ``leak`` = +-(axis + 1) landed at the transverse centre of a coarse cell on a
+    finer block (``n`` cells per axis, cell sizes ``ndx``): e = clip(rint(l / dx),
+    1, n - 1) on each transverse axis gives the 2 (2D) or 4 (3D) fine faces around
+    the landing point; one is picked by the fine block's ``face_prob(axis, upper,
+    cell)``, P_lower for a leak in +axis and P_upper in -axis, in 2D by u (P_l +
+    P_u) >= P_l, in 3D by cumulative sum against u (sum + tiny); the transverse
+    position is redrawn uniformly on it (``u_t``) and the direction from the
+    hemisphere ``hemi`` into the block, in the cyclic axis order. Updates and
+    returns the lists (loc, idx, vel)."""
+    f32 = torch.float32
+    leak_axis = leak.abs() - 1
+    lsgn = torch.sign(leak).to(f32)
+    take_upper = lsgn < 0.0  # a leak in -axis enters the upper face of the last cell
     for ax in range(nd):
         m = refine & (leak_axis == ax)
         f_ax = torch.where(lsgn > 0, 0, n[ax] - 1).to(torch.int32)
         trans = [q for q in range(nd) if q != ax]
         edges = []
         for q in trans:
-            e = torch.clamp(torch.round(loc[q] / torch.clamp_min(ndx[q], k["tiny"]))
+            e = torch.clamp(torch.round(loc[q] / torch.clamp_min(ndx[q], tiny))
                             .to(torch.int32), 1, n[q] - 1)
             edges.append((e - 1, e))
 
@@ -516,14 +608,15 @@ def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi,
 
         if nd == 2:
             (lo1, hi1), = edges
-            p_l, p_u = face_prob(ax, at(lo1)), face_prob(ax, at(hi1))
+            p_l = face_prob(ax, take_upper, at(lo1))
+            p_u = face_prob(ax, take_upper, at(hi1))
             sel = [torch.where(u_sel * (p_l + p_u) >= p_l, hi1, lo1)]
         else:
             (lo1, hi1), (lo2, hi2) = edges
             cands = [(lo1, lo2), (hi1, lo2), (lo1, hi2), (hi1, hi2)]
-            probs = [face_prob(ax, at(*cs)) for cs in cands]
-            xi = u_sel * (probs[0] + probs[1] + probs[2] + probs[3] + k["tiny"])
-            cum = k["zero"]
+            probs = [face_prob(ax, take_upper, at(*cs)) for cs in cands]
+            xi = u_sel * (probs[0] + probs[1] + probs[2] + probs[3] + tiny)
+            cum = zero
             sel = [hi1, hi2]  # the numerical fall-through takes the last candidate
             chosen = torch.zeros_like(m)
             for cs, pr in zip(cands, probs):
@@ -535,10 +628,10 @@ def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi,
             idx[q] = torch.where(m, sq, idx[q])
             loc[q] = torch.where(m, (sq.to(f32) + u) * ndx[q], loc[q])
         # hemisphere direction into the block, in the cyclic axis order
-        vs = (k["c"] * lsgn * hemi[0], k["c"] * hemi[1], k["c"] * hemi[2])
+        vs = (c * lsgn * hemi[0], c * hemi[1], c * hemi[2])
         for q in range(3):
             vel[(ax + q) % 3] = torch.where(m, vs[q], vel[(ax + q) % 3])
-    return b_new, loc, idx, vel
+    return loc, idx, vel
 
 
 def _face_column(g: _Geom) -> int:
@@ -546,9 +639,11 @@ def _face_column(g: _Geom) -> int:
     return 4 if g.nongray else 2
 
 
-def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
+def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tuple):
     """All lanes advance one event per loop step (the JAX kernel's tile loop over
-    the whole ledger). Returns (iterations, events) as tensors."""
+    the whole ledger) while their cell lies in the owned range ``own`` = (lo, hi):
+    of blocks with SMR, of global z cells in 3D without. Returns (iterations,
+    events) as tensors."""
     dev = p.x.device
     f32 = torch.float32
     nd = g.ndim
@@ -575,29 +670,41 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
     def raw(it, tag):
         return raw_bits_plain(seed, lanes, it, tag)
 
+    n_rows = tabs.cell.shape[0]
+
     def cell_of(blk, ijk):
-        """Cell table row: global row-major on a uniform forest, block order with SMR."""
+        """Cell table row: row-major on a uniform forest (over the owned z cells), in
+        block order with SMR (over the owned blocks); clipped to the table, so a
+        lane outside the range gathers a row it does not use."""
         if g.smr:
-            cell = blk
+            cell = blk - own[0]
             for a in reversed(range(nd)):
                 cell = cell * g.n[a] + ijk[a]
-            return cell
-        cell = ijk[0]
-        if nd == 2:
-            cell = ijk[1] * g.n[0] + cell
-        elif nd == 3:
-            cell = (ijk[2] * g.n[1] + ijk[1]) * g.n[0] + cell
-        return cell
+        else:
+            cell = ijk[0]
+            if nd == 2:
+                cell = ijk[1] * g.n[0] + cell
+            elif nd == 3:
+                cell = ((ijk[2] - own[0]) * g.n[1] + ijk[1]) * g.n[0] + cell
+        return torch.clamp(cell, 0, n_rows - 1)
 
     pos = [p.x, p.y, p.z][:nd]
     idx = [p.i, p.j, p.k][:nd]
     vel = [p.vx, p.vy, p.vz]
     blk = p.block
     tau, alive, absorbed, face = p.tau, p.alive, p.absorbed, p.face
+
+    def owned():
+        if g.smr:
+            return (blk >= own[0]) & (blk < own[1])
+        if nd == 3:
+            return (idx[2] >= own[0]) & (idx[2] < own[1])
+        return torch.ones_like(alive)
+
     events = torch.zeros((), dtype=torch.int64, device=dev)
     it = 0
     while it < max_iters:
-        active = alive & (tau < one)
+        active = alive & (tau < one) & owned()
         if not bool(active.any()):
             break
         pool = DrawPool(raw)
@@ -720,10 +827,12 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
             out = out | out_lo[a] | out_hi[a]
         out = out & nalive
         if g.smr:  # re-home by the lookup grid
-            b_new, la, ra, rvel = _rehome_plain(pool, it, g, k, tabs, blk, gp, out_lo, out_hi,
-                                                nvel, leak, cell_of)
+            b_new, la, ra, rvel, pending = _rehome_plain(pool, it, g, k, tabs, blk, gp, out_lo,
+                                                         out_hi, nvel, leak, cell_of, own)
             nvel = [torch.where(out, rv, v) for rv, v in zip(rvel, nvel)]
             blk.copy_(torch.where(out, b_new, blk))
+            if pending is not None:  # a leak into another shard's finer block
+                p.leak.copy_(torch.where(out & (pending != 0), pending, p.leak))
         else:  # rebase into the single block
             la = [gp[a] - org[a] for a in range(nd)]
             ra = [torch.clamp((la[a] * inv_dx[a]).to(torch.int32), 0, g.n[a] - 1)
@@ -748,7 +857,7 @@ def _check_cuda_ledger(p, coefs):
     """What the kernel takes, checked before anything touches the ledger."""
     dev = p.x.device
     floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.energy)
-    ints = (p.i, p.j, p.k, p.block, p.face)
+    ints = (p.i, p.j, p.k, p.block, p.face, p.leak)
     bools = (p.alive, p.absorbed)
     cells = tuple(t for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck, coefs.px, coefs.py,
                               coefs.pz, coefs.rho, coefs.temp) if t is not None)
@@ -765,16 +874,16 @@ def _check_cuda_ledger(p, coefs):
         raise ValueError("transport kernel: capacity must fit in int32")
 
 
-def _census_cuda(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
+def _census_cuda(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tuple):
     """One launch of the census kernel on PyTorch's current stream (no
     synchronisation); the ledger was checked by ``_check_cuda_ledger``."""
     dev = p.x.device
     events = torch.zeros((), dtype=torch.int64, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
-            p.face, p.block, p.energy)
+            p.face, p.block, p.energy, p.leak)
     ptrs = (ctypes.c_void_p * len(cols))(*(t.data_ptr() for t in cols))
-    ints = (*g.n, *g.bc, int(max_iters), int(seed), *g.ntiles)
+    ints = (*g.n, *g.bc, int(max_iters), int(seed), *g.ntiles, *own)
     floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
               g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt, g.tau_ddmc, g.eps_imc, g.eps_ddmc,
               g.dt, g.inv_dt, g.lam2, g.pf2_num, *g.tile, *g.nudge_cross, *g.nudge_tilt,
@@ -788,36 +897,95 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int):
         (ctypes.c_float * len(floats))(*map(float, floats)),
         events.data_ptr(), iters.data_ptr(), cuda_lib.stream_handle(dev),
     )
-    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray)] += 1
+    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route)] += 1
     return iters, events
 
 
-def _run(census, particles, coefs, mesh, seed, prm, dt):
+def _run(census, particles, coefs, mesh, seed, prm, dt, own):
     check_supported(mesh, prm, particles.x.dtype)
-    if any(t.shape != (mesh.total_cells,) for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck)):
-        raise ValueError("transport: one coefficient per mesh cell expected")
-    g = _geometry(mesh, prm, dt, coefs)
+    smr = mesh.max_level > 0
+    if own is not None:
+        own.check(mesh)
+        smr = smr or own.kind == "blocks"
+    n_cells = (mesh.total_cells if own is None
+               else own.n_blocks(mesh) * mesh.ncells_per_block)
+    if any(t.shape != (n_cells,) for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck)):
+        raise ValueError(f"transport: {n_cells} coefficients expected, one per owned cell")
+    g = _geometry(mesh, prm, dt, coefs, smr)
+    if own is not None:
+        g = dataclasses.replace(g, route=own.route)
+    bounds = (whole_mesh(mesh) if own is None else own).bounds()
     tabs = _tables(coefs, mesh, g)
-    _collapse(particles, mesh)
-    iters, events = census(particles, tabs, g, int(seed), prm.max_iters)
-    _expand(particles, mesh)
+    _collapse(particles, mesh, smr)
+    iters, events = census(particles, tabs, g, int(seed), prm.max_iters, bounds)
+    _expand(particles, mesh, smr)
     return particles, iters, events
 
 
-def transport(particles, coefs, mesh, seed, prm, dt):
+def transport(particles, coefs, mesh, seed, prm, dt, own: OwnedRange | None = None):
     """Census transport of ``particles`` (updated in place) over one step ``dt``:
     the CUDA kernel for a ledger on a GPU, the plain version for one on the CPU.
-    ``seed`` is the step's signed 32-bit K2 seed. Returns
+    ``seed`` is the step's signed 32-bit K2 seed. With ``own`` the call is one
+    round of the spatial decomposition: only the range's lanes run, each until it
+    leaves the range, and ``coefs`` are the range's (see ``OwnedRange``). Returns
     ``(particles, iterations, events)``."""
     dev = particles.x.device.type
     if dev == "cuda":
         _check_cuda_ledger(particles, coefs)
-        return _run(_census_cuda, particles, coefs, mesh, seed, prm, dt)
+        return _run(_census_cuda, particles, coefs, mesh, seed, prm, dt, own)
     if dev == "cpu":
-        return _run(_census_plain, particles, coefs, mesh, seed, prm, dt)
+        return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own)
     raise ValueError(f"transport: unsupported device {particles.x.device}")
 
 
-def transport_plain(particles, coefs, mesh, seed, prm, dt):
+def transport_plain(particles, coefs, mesh, seed, prm, dt, own: OwnedRange | None = None):
     """The plain PyTorch version of ``transport`` on any device."""
-    return _run(_census_plain, particles, coefs, mesh, seed, prm, dt)
+    return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own)
+
+
+def subface_resample(p, faces, mesh, c, gen, offset, n_local):
+    """The coarse-to-fine subface resample of the DDMC particles that arrived by
+    migration with a pending leak code (IN PLACE; port of
+    ``jaybenne_tpu/parallel/spatial.py::_fixup_subface_arrivals`` through
+    ``ops/transport.py::_ddmc_subface_resample``): each live particle in the
+    blocks [offset, offset + n_local) with ``leak != 0`` is re-seated on one of
+    the fine faces around its coarse landing point, picked by the shard's own
+    face probabilities ``faces`` = (px, py, pz) of its [n_local, ...] blocks, with
+    a hemisphere direction into the block, and its code is cleared. ``gen`` draws
+    five uniforms per slot (``rng.PHASE_FIXUP``). Host-side, between rounds."""
+    nd = mesh.ndim
+    need = p.alive & (p.leak != 0) & (p.block >= offset) & (p.block < offset + n_local)
+    if nd < 2 or not bool(need.any()):
+        return p
+    from . import rng
+
+    f32 = torch.float32
+    dev = p.x.device
+    u = rng.uniform(gen, (5, p.capacity), f32, dev)
+    mu = torch.sqrt(u[3])
+    nu = torch.sqrt(torch.clamp_min(1.0 - mu * mu, 0.0))
+    phi = (2.0 * np.pi) * u[4]
+    hemi = (mu, nu * torch.cos(phi), nu * torch.sin(phi))
+    b_loc = torch.clamp(p.block - offset, 0, n_local - 1).long()
+    ndx = [mesh.block_dx[p.block.long(), a].to(f32) for a in range(nd)]
+    nx, ny, nz = mesh.nx, mesh.ny, mesh.nz
+    pairs = _face_pairs(*faces, mesh)
+
+    def face_prob(ax, upper, ijk):
+        i, j, k = (ijk + [torch.zeros_like(ijk[0])] * 3)[:3]
+        cell = ((b_loc * nz + k.long()) * ny + j.long()) * nx + i.long()
+        return torch.where(upper, pairs[2 * ax + 1][cell], pairs[2 * ax][cell]).to(f32)
+
+    loc = [p.x, p.y, p.z][:nd]
+    idx = [p.i, p.j, p.k][:nd]
+    vel = [p.vx, p.vy, p.vz]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    loc, idx, vel = _subface_pick(nd, (nx, ny, nz), need, p.leak, list(loc), list(idx), ndx,
+                                  list(vel), face_prob, u[0], [u[1], u[2]][: nd - 1], hemi,
+                                  torch.tensor(float(np.float32(c)), dtype=f32, device=dev),
+                                  zero, torch.tensor(_TINY, dtype=f32, device=dev))
+    for dst, src in zip([p.x, p.y, p.z][:nd] + [p.i, p.j, p.k][:nd] + [p.vx, p.vy, p.vz],
+                        loc + idx + vel):
+        dst.copy_(src)
+    p.leak.copy_(torch.where(need, 0, p.leak))
+    return p

@@ -1,0 +1,302 @@
+"""The spatial (block) decomposition with particle migration (port of
+``jaybenne_tpu/parallel/spatial.py``).
+
+Blocks are assigned contiguously to the shards, ``Bl = ceil(B / n)`` each (the
+last shard may own padding blocks, which cover no volume and source nothing), and
+each shard holds only its blocks' fields and the particles in them. A step's
+census is the reference's iterative task list (``jaybenne.cpp:113-131``):
+
+    until the summed unfinished count is 0 or max_migration_rounds is reached:
+        subface fixup of DDMC arrivals -> local census -> all_to_all migration
+
+The local census is one owned-range call of the census kernel
+(``transport_kernel.OwnedRange``): on a uniform IMC mesh whose shards own whole
+z planes of blocks the range is the shard's global z cells (the JAX package's
+K3s, ``pallas_grid.py::make_spatial_grid``), on every other mesh the shard's
+blocks (K4s, ``pallas_bucketed.py::make_spatial_transport``). A lane runs until
+census, absorption, exit, or the event that takes it out of the range, where it
+pauses; migration then ships it to its owner.
+
+Block metadata (origins, sizes, levels, the lookup grid) stays whole on every
+shard, so a shard computes the whole block transition of a leaving particle. The
+one field exchange is that of the DDMC face probabilities: each shard
+all-gathers the blocks' boundary-surface sigma_t (``fleck.pack_boundary_surface``).
+
+Migration sends fixed ``[n, K]`` buffers: a sent particle past K stays in transit
+and rides the next round; a received one that finds no free slot is dropped and
+counted (the driver warns). A DDMC leak into a finer block of another shard
+carries its pending-leak code, and the owner resamples it onto a fine face before
+its next census (``transport_kernel.subface_resample``).
+
+Restart re-homing (the JAX ``rehome_restart_ledger``) waits for restart (ROADMAP
+Queue 1, item 16).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import InitialRadiation, RunConfig
+from ..ops import fleck as fleck_ops
+from ..ops import rng, sourcing, tally
+from ..ops import transport as transport_ops
+from ..ops import transport_kernel
+from ..particles import insert_particles
+from ..step import (StepStats, census_fn, check_step_supported, make_transport_params,
+                    total_sigma, with_faces, with_fleck)
+
+# particle fields shipped during migration, each 4 bytes: sent as int32 words
+MIGRATE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy",
+                  "block", "i", "j", "k", "face", "leak")
+
+# matter fields whose padding blocks hold 1, not 0, so that the pointwise EOS and
+# Fleck factor stay finite there
+PAD_ONES = ("rho", "sie", "u")
+
+
+def blocks_per_shard(mesh, n: int) -> int:
+    return -(-mesh.n_blocks // n)
+
+
+def pad_field_blocks(fields, mesh, n: int):
+    """Every field's block axis padded from ``B`` to ``n * ceil(B / n)``, the
+    padding blocks holding ``rho = sie = u = 1`` and zeros elsewhere."""
+    n_pad = n * blocks_per_shard(mesh, n) - mesh.n_blocks
+    if n_pad == 0:
+        return fields
+
+    def pad(name, arr):
+        fill = 1.0 if name in PAD_ONES else 0.0
+        return torch.cat([arr, arr.new_full((n_pad,) + arr.shape[1:], fill)])
+
+    return dataclasses.replace(fields, **{f.name: pad(f.name, getattr(fields, f.name))
+                                          for f in dataclasses.fields(fields)})
+
+
+def shard_fields(padded, mesh, n: int, shard: int):
+    """Shard ``shard``'s [Bl, ...] slice of the padded fields."""
+    bl = blocks_per_shard(mesh, n)
+    return dataclasses.replace(padded, **{
+        f.name: getattr(padded, f.name)[shard * bl:(shard + 1) * bl].clone()
+        for f in dataclasses.fields(padded)})
+
+
+def gather_fields(fields_list, mesh):
+    """The whole mesh's fields from the shards' slices, padding dropped."""
+    first = fields_list[0]
+    return dataclasses.replace(first, **{
+        f.name: torch.cat([getattr(fl, f.name) for fl in fields_list])[:mesh.n_blocks]
+        for f in dataclasses.fields(first)})
+
+
+def owned_range(mesh, prm, n: int, shard: int) -> transport_kernel.OwnedRange:
+    """The census route of one shard: its global z cells (K3s) on a uniform IMC
+    mesh whose shards own whole z planes of blocks (``pallas_grid.py:1925-1940``),
+    else its blocks (K4s)."""
+    nrbz, nrby, nrbx = mesh.root_grid
+    B = mesh.n_blocks
+    bl = blocks_per_shard(mesh, n)
+    if mesh.max_level == 0 and not prm.use_ddmc and B % n == 0 and bl % (nrbx * nrby) == 0:
+        kz = bl // (nrbx * nrby) * mesh.nz
+        return transport_kernel.OwnedRange("z", shard * kz, kz)
+    return transport_kernel.OwnedRange("blocks", shard * bl, bl)
+
+
+def migrate(ledgers, offsets, bl, K, exchange):
+    """One round of all_to_all migration over the local shards' ledgers (IN
+    PLACE; JAX ``migrate``): the live particles whose block lies outside their
+    shard's [offset, offset + bl) are grouped by destination shard with a stable
+    sort, the first K for each destination packed into an [n, K] buffer and sent;
+    the rest stay in transit for the next round. Shard s receives, from each shard
+    j in j order, what j addressed to s, and inserts it into its free slots
+    without recycling this step's absorbed rows. Returns (received particles
+    dropped for want of a free slot, particles sent), one int64 tensor each per
+    local shard."""
+    n = exchange.n
+    bufs, sent_counts = [], []
+    for p, offset in zip(ledgers, offsets):
+        cap, dev = p.capacity, p.x.device
+        in_transit = p.alive & ((p.block < offset) | (p.block >= offset + bl))
+        dest = torch.where(in_transit, torch.clamp(p.block // bl, 0, n - 1), n).to(torch.int64)
+        order = torch.argsort(dest, stable=True)
+        sdest = dest[order]
+        first = torch.searchsorted(sdest, torch.arange(n + 1, device=dev))
+        rank = torch.arange(cap, device=dev) - first[sdest]
+        ok = (sdest < n) & (rank < K)
+        slot = torch.where(ok, sdest * K + rank, n * K)
+        src = torch.full((n * K + 1,), cap, dtype=torch.int64, device=dev)
+        src[slot] = order  # every ok slot distinct; the rest land on the dump slot
+        src = src[: n * K]
+        cols = [getattr(p, name).view(torch.int32) for name in MIGRATE_FIELDS]
+        rows = torch.stack(cols + [torch.ones_like(cols[0])], dim=1)
+        rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])  # the empty row
+        bufs.append(rows[src].reshape(n, K, rows.shape[1]))
+        sent = torch.zeros(cap, dtype=torch.bool, device=dev)
+        sent[order[ok]] = True
+        p.alive.copy_(p.alive & ~sent)
+        sent_counts.append(sent.sum(dtype=torch.int64))
+    recv = exchange.all_to_all(bufs)
+    dropped = []
+    for p, r in zip(ledgers, recv):
+        r = r.reshape(-1, r.shape[-1])
+        cand = {name: r[:, c].view(getattr(p, name).dtype)
+                for c, name in enumerate(MIGRATE_FIELDS)}
+        _, n_drop = insert_particles(p, cand, r[:, -1] != 0, reserved=p.absorbed)
+        dropped.append(n_drop.to(torch.int64))
+    return dropped, sent_counts
+
+
+def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
+    """``step(states, dt) -> (states, StepStats)`` over the local shards' states,
+    each with its [Bl, ...] fields and its ledger (JAX ``build_spatial_step_core``)."""
+    check_step_supported(cfg)
+    eos = cfg.mcblock.build_eos()
+    opacity = cfg.mcblock.build_opacity()
+    scattering = cfg.mcblock.build_scattering()
+    models = (eos, opacity, scattering)
+    consts = opacity.get_runtime_physical_constants()
+    jb = cfg.jaybenne
+    dtype = jb.dtype
+    prm = make_transport_params(cfg, dtype)
+    transport_kernel.check_supported(mesh, prm, dtype)
+    periodic = cfg.mesh.periodic_flags
+    n = exchange.n
+    B = mesh.n_blocks
+    bl = blocks_per_shard(mesh, n)
+    smr_ddmc = jb.use_ddmc and mesh.max_level > 0
+    # every real block on shard 0: nothing can be in transit, so migration is skipped
+    can_migrate = n > 1 and B > bl
+    census = census_fn(cfg)
+    owns = {s: owned_range(mesh, prm, n, s) for s in exchange.shards}
+    # the plain census interleaves its rounds by an iteration budget (JAX
+    # spatial.py:431-446); the round cap is scaled to keep the total backstop
+    prm_round, max_rounds = prm, jb.max_migration_rounds
+    if jb.use_pallas == "off" and can_migrate and jb.census_iters_per_round > 0:
+        budget = min(jb.census_iters_per_round, prm.max_iters)
+        prm_round = dataclasses.replace(prm, max_iters=budget)
+        max_rounds = max_rounds * -(-prm.max_iters // budget)
+    external = None
+    if jb.external_source_q > 0:
+        external = sourcing.external_source_setup(mesh, jb)
+        ext_num = jb.external_source_num or jb.num_particles
+
+    def step(states, dt):
+        shards = exchange.shards
+        offsets = [s * bl for s in shards]
+        dev = mesh.device
+        fs, ps = [st.fields for st in states], [st.particles for st in states]
+        fs = [with_fleck(f, models, dt, dtype) for f in fs]
+        if jb.use_ddmc:
+            # each shard's faces read its own blocks whole and every block's surface
+            sig = [total_sigma(f, models, dtype) for f in fs]
+            surf = exchange.all_gather([fleck_ops.pack_boundary_surface(mesh, t) for t in sig])
+            fs = [with_faces(f, fleck_ops.ddmc_face_probs_spatial(
+                mesh, t, g, off, jb.tau_ddmc, periodic, dtype))
+                for f, t, g, off in zip(fs, sig, surf, offsets)]
+        dropped = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
+        if not jb.do_emission:
+            fs = [dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
+                  for f in fs]
+            if external:
+                fs = [dataclasses.replace(f, source_num=torch.zeros_like(f.source_num),
+                                          source_ew=torch.zeros_like(f.source_ew))
+                      for f in fs]
+        for i, (st, s, off) in enumerate(zip(states, shards, offsets)):
+            kw = dict(eos=eos, opacity=opacity, sb=consts.sb, c=consts.c, dt=dt, dtype=dtype,
+                      block_offset=off)
+            if jb.do_emission:  # each shard sources its own blocks: nothing is summed
+                gen = rng.generator(st.seed, st.cycle, rng.PHASE_SOURCE, dev, (s,))
+                fs[i], ps[i], d = sourcing.source_photons(
+                    fs[i], ps[i], mesh, gen, source_type="emission",
+                    num_particles=jb.num_particles, **kw)
+                dropped[i] = dropped[i] + d
+            if external:
+                gen = rng.generator(st.seed, st.cycle, rng.PHASE_EXTERNAL, dev, (s,))
+                fs[i], ps[i], d = sourcing.source_photons(
+                    fs[i], ps[i], mesh, gen, source_type="external", num_particles=ext_num,
+                    t=st.t, external=external, **kw)
+                dropped[i] = dropped[i] + d
+        coefs = [transport_ops.precompute_coefs(f, mesh, eos, opacity, scattering,
+                                                jb.use_ddmc, dtype) for f in fs]
+        cap = ps[0].capacity
+        K = jb.migration_buffer_k or max(64, cap // (2 * n))
+        iters = [torch.zeros((), dtype=torch.int32, device=dev) for _ in states]
+        events = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
+        hits = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
+        sent = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
+        rounds, unfinished = 0, 1
+        while rounds < max_rounds and unfinished > 0:
+            for i, (st, s, off) in enumerate(zip(states, shards, offsets)):
+                if smr_ddmc:  # pending coarse-to-fine leaks, before the census
+                    gen = rng.generator(st.seed, st.cycle, rng.PHASE_FIXUP, dev, (s, rounds))
+                    transport_kernel.subface_resample(
+                        ps[i], (fs[i].ddmc_px, fs[i].ddmc_py, fs[i].ddmc_pz), mesh, prm.c,
+                        gen, off, bl)
+                seed = rng.kernel_seed(st.seed, st.cycle, s, rounds)
+                _, it, ev = census(ps[i], coefs[i], mesh, seed, prm_round, dt, owns[s])
+                iters[i] = iters[i] + it
+                events[i] = events[i] + ev
+                hits[i] = hits[i] + (it >= prm.max_iters).to(torch.int64)
+            if can_migrate:
+                drop, n_sent = migrate(ps, offsets, bl, K, exchange)
+                dropped = [d + e for d, e in zip(dropped, drop)]
+                sent = [a + b for a, b in zip(sent, n_sent)]
+            unfinished = int(exchange.sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
+                                           for p in ps])[0])
+            rounds += 1
+        for i, off in enumerate(offsets):  # tallies and feedback: each cell on one shard
+            if prm.has_absorption:
+                fs[i] = tally.accumulate_absorption(fs[i], ps[i], mesh, block_offset=off)
+            fs[i] = tally.evaluate_radiation_energy(fs[i], ps[i], mesh, block_offset=off)
+            if jb.do_feedback:
+                fs[i] = tally.update_fluid(fs[i], mesh, block_offset=off)
+        for p in ps:
+            p.absorbed.zero_()
+            p.tau.zero_()
+        n_alive = exchange.sum([p.alive.sum(dtype=torch.int64) for p in ps])
+        dropped = exchange.sum(dropped)
+        stats = StepStats(
+            iterations=exchange.max(iters)[0],
+            events=exchange.sum(events)[0],
+            n_alive=n_alive[0],
+            dropped=dropped[0],
+            cap_hits=exchange.sum(hits)[0],
+            unfinished=torch.tensor(unfinished, dtype=torch.int64, device=dev),
+            migration_rounds=rounds,
+            migrated=int(exchange.sum(sent)[0]),
+        )
+        new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt, cycle=st.cycle + 1,
+                                   overflow=st.overflow + int(dropped[0]))
+               for st, f, p in zip(states, fs, ps)]
+        return new, stats
+
+    return step
+
+
+def make_spatial_init(mesh, cfg: RunConfig, exchange):
+    """``init(states) -> states``: each shard thermal-sources its own blocks' cells
+    and tallies them (JAX ``make_spatial_init``)."""
+    bl = blocks_per_shard(mesh, exchange.n)
+
+    def init(states):
+        jb = cfg.jaybenne
+        out, drops = [], []
+        for st, s in zip(states, exchange.shards):
+            f, p = st.fields, st.particles
+            d = torch.zeros((), dtype=torch.int64, device=mesh.device)
+            if cfg.mcblock.initial_radiation == InitialRadiation.thermal:
+                consts = cfg.mcblock.build_opacity().get_runtime_physical_constants()
+                gen = rng.generator(st.seed, 0, rng.PHASE_INIT, mesh.device, (s,))
+                f, p, d = sourcing.source_photons(
+                    f, p, mesh, gen, source_type="thermal", eos=cfg.mcblock.build_eos(),
+                    sb=consts.sb, c=consts.c, num_particles=jb.num_particles, dtype=jb.dtype,
+                    block_offset=s * bl)
+            out.append((tally.evaluate_radiation_energy(f, p, mesh, block_offset=s * bl), p))
+            drops.append(d.to(torch.int64))
+        dropped = int(exchange.sum(drops)[0])
+        return [dataclasses.replace(st, fields=f, particles=p, overflow=st.overflow + dropped)
+                for st, (f, p) in zip(states, out)]
+
+    return init

@@ -6,8 +6,8 @@ owning block, ``tau`` is the time within the current step in units of dt (census
 
 Dtypes: f32 for positions, velocities, ``tau``, ``weight`` and ``energy``; int32
 for ``block``, ``i``, ``j``, ``k`` and ``face``; ``torch.bool`` for ``alive`` and
-``absorbed``. The JAX ledger's ``leak`` column (pending DDMC resamples of the spatial
-decomposition) arrives with that decomposition (ROADMAP Queue 1, item 17).
+``absorbed``; int32 ``leak``, the pending coarse-to-fine DDMC leak code of the spatial
+decomposition (zero-filled when a constructor leaves it out).
 
 Capacity is whatever the caller asks for: the census kernel runs one thread per
 slot and needs no tile multiple.
@@ -41,6 +41,13 @@ class ParticleLedger:
     absorbed: torch.Tensor
     # face-arrival code for the DDMC albedo test: +-(axis+1) after an IMC crossing
     face: torch.Tensor
+    # spatial decomposition: +-(axis+1) when a DDMC leak landed in a finer block that
+    # another shard owns, for that shard to resample onto a fine face; else 0
+    leak: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.leak is None:
+            self.leak = torch.zeros_like(self.face)
 
     @property
     def capacity(self) -> int:
@@ -60,7 +67,8 @@ class ParticleLedger:
         )
 
 
-def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor):
+def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor,
+                     reserved: torch.Tensor | None = None):
     """Write candidate particles into the ledger's dead slots, IN PLACE.
 
     ``cand`` maps field name -> candidate tensor (any shape, flattened); ``valid``
@@ -68,12 +76,17 @@ def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor):
     dead slots in stable index order. Returns ``(ledger, n_dropped)``, where dropped
     candidates exceeded the free-slot count. Every destination slot is distinct, so
     the writes are deterministic on any device.
+
+    ``reserved`` marks dead rows that must not be recycled yet: the spatial census
+    inserts migration arrivals mid-step, while this step's absorbed rows still carry
+    the weight that the absorption tally deposits after the census.
     """
     cap = ledger.capacity
     vflat = valid.reshape(-1)
     rank = torch.cumsum(vflat.to(torch.int64), 0) - 1
-    order = torch.argsort(ledger.alive.to(torch.uint8), stable=True)  # free first
-    n_dead = cap - ledger.alive.sum()
+    occupied = ledger.alive if reserved is None else ledger.alive | reserved
+    order = torch.argsort(occupied.to(torch.uint8), stable=True)  # free first
+    n_dead = cap - occupied.sum()
     ok = vflat & (rank < n_dead)
     n_dropped = vflat.sum() - ok.sum()
     dest = order[rank[ok]]
@@ -86,6 +99,8 @@ def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor):
         ledger.absorbed[dest] = False
     if "face" not in cand:
         ledger.face[dest] = 0
+    if "leak" not in cand:
+        ledger.leak[dest] = 0
     return ledger, n_dropped
 
 
@@ -103,7 +118,7 @@ def empty_ledger(capacity: int, dtype=torch.float32, device="cpu") -> ParticleLe
         x=f(), y=f(), z=f(), vx=f(), vy=f(), vz=f(),
         tau=f(), weight=f(), energy=f(),
         block=i(), i=i(), j=i(), k=i(),
-        alive=b(), absorbed=b(), face=i(),
+        alive=b(), absorbed=b(), face=i(), leak=i(),
     )
 
 
@@ -131,14 +146,18 @@ def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float) -> Partic
     return _isotropic(p, generator, c)
 
 
-def forest_ledger(mesh, n: int, generator: torch.Generator, c: float) -> ParticleLedger:
+def forest_ledger(mesh, n: int, generator: torch.Generator, c: float,
+                  blocks: tuple | None = None) -> ParticleLedger:
     """The counterpart of ``uniform_ledger`` on any block forest, refined or not:
     each particle in a cell drawn uniformly from all the forest's cells (so a fine
-    block holds as many as a coarse one), at a uniform position in it, ``block``
-    set. For kernel checks and timings."""
+    block holds as many as a coarse one), or from those of the blocks ``blocks`` =
+    (lo, hi), at a uniform position in it, ``block`` set. For kernel checks and
+    timings."""
     dev = generator.device
     p = empty_ledger(n, torch.float32, dev)
-    cell = torch.randint(0, mesh.total_cells, (n,), generator=generator, device=dev)
+    lo, hi = (0, mesh.n_blocks) if blocks is None else blocks
+    ncpb = mesh.ncells_per_block
+    cell = torch.randint(lo * ncpb, hi * ncpb, (n,), generator=generator, device=dev)
     blk = torch.div(cell, mesh.ncells_per_block, rounding_mode="floor")
     rem = cell - blk * mesh.ncells_per_block
     p.block.copy_(blk)

@@ -11,23 +11,26 @@ the state from before them and runs the same steps again under
 the same steps), and sums the trace's device events (kernels, copies, memsets) by
 name. It prints one line per name with its device time per step, the device
 total per step, the median wall time of the unprofiled steps and the device's
-idle share of them, the census kernel's launches by instantiation
-(``transport_{1,2,3}d[_abs][_ddmc]``, from ``cuda_lib.LAUNCHES``) in the profiled
-steps, and ``nvidia-smi``'s card name and power limit. ``--trace`` also writes the
-Chrome trace. Needs a GPU.
+idle share of them, the census kernel's launches by instantiation and route
+(``transport_{1,2,3}d[_abs][_ddmc][_smr][_ng][@z|@blocks]``, from
+``cuda_lib.LAUNCHES``) in the profiled steps, the migration rounds of each step
+under the spatial decomposition, the host's synchronisations with the device per
+step (the same steps once more under ``torch.cuda.set_sync_debug_mode``, each
+synchronising call counted), and ``nvidia-smi``'s card name and power limit.
+``--trace`` also writes the Chrome trace. Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import warnings
 
 import torch
 
@@ -67,12 +70,12 @@ def main(argv=None) -> int:
         sim = Simulation(cfg, outdir=outdir, quiet=True, device="cuda")
         sim.run(nlim=args.warm)
         n0 = len(sim.history)
-        snapshot = (copy.deepcopy(sim.state), sim.t, sim.cycle)
+        snapshot = sim.snapshot()
         sim.run(nlim=args.steps)
         wall = [h["step_seconds"] for h in sim.history[n0:]]
         events = [h["events"] for h in sim.history[n0:]]
-        state, sim.t, sim.cycle = snapshot
-        sim.state = state
+        rounds = [h["migration_rounds"] for h in sim.history[n0:]]
+        sim.restore(snapshot)
         n1 = len(sim.history)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         before = collections.Counter(cuda_lib.LAUNCHES)
@@ -81,6 +84,15 @@ def main(argv=None) -> int:
         launches = dict(collections.Counter(cuda_lib.LAUNCHES) - before)
         if [h["events"] for h in sim.history[n1:]] != events:
             raise RuntimeError("profile: the profiled steps differ from the timed ones")
+        sim.restore(snapshot)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sim.run(nlim=args.steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
         trace = args.trace or os.path.join(outdir, "trace.json")
         prof.export_chrome_trace(trace)
         by_name = device_time_by_name(trace)
@@ -95,6 +107,8 @@ def main(argv=None) -> int:
         print(f"device_ms_per_step {us / n / 1e3!r} {name[:120]}")
     step_ms = statistics.median(wall) * 1e3
     print(f"launches in the profiled steps: {launches}")
+    print(f"migration rounds per step: {rounds}; host synchronisations per step: "
+          f"{syncs / n!r}")
     print(f"device total {total / 1e3!r} ms per step; unprofiled step wall median "
           f"{step_ms!r} ms over {n}; device idle share {1.0 - total / 1e3 / step_ms!r}")
     return 0

@@ -1,10 +1,20 @@
-"""The radiation step (port of ``jaybenne_tpu/step.py``, single device).
+"""The radiation step (port of ``jaybenne_tpu/step.py``).
 
 One cycle from t to t + dt: derived fields (the Fleck factor and, with DDMC, the
 face probabilities), emission sourcing, the external volume source, census
 transport, the absorption deposition, the tally, the fluid update, and the
-per-step reset of ``tau`` and ``absorbed``. Both decompositions arrive with ROADMAP
-Queue 1, item 17.
+per-step reset of ``tau`` and ``absorbed``.
+
+``build_step_core`` without an exchange is the single-device step on one
+``SimState``. With one (``parallel/exchange.py``) it is the particle
+decomposition's step (JAX ``build_step_core(axis_name=...)`` under ``shard_map``):
+it takes and returns the list of the local shards' states, each holding a slice
+of the ledger and a replica of the fields. Each shard sources its share of the
+births, with the per-cell birth counts summed over the shards before the weights
+are set, transports its own particles with no communication, and the tallies are
+reduced over the shards in the integer domain, so they are bitwise those of the
+concatenated ledger. The spatial decomposition's step is
+``parallel/spatial.py``.
 
 Census selection mirrors the JAX package's ``_pallas_ok``, by configuration and
 never by failure: ``use_pallas = auto`` or ``on`` runs
@@ -33,8 +43,12 @@ class StepStats:
     events: torch.Tensor      # particle events this step (int64)
     n_alive: torch.Tensor     # live particles after the step
     dropped: torch.Tensor     # sourced particles dropped (ledger overflow)
-    cap_hits: torch.Tensor    # 1 when the census hit max_transport_iterations
+    cap_hits: torch.Tensor    # census calls that hit max_transport_iterations
     unfinished: torch.Tensor  # live particles short of census after transport
+    # the spatial decomposition only, 0 elsewhere: census migration rounds this
+    # step and the particles shipped between shards
+    migration_rounds: int = 0
+    migrated: int = 0
 
 
 def make_transport_params(cfg: RunConfig, dtype) -> transport_ops.TransportParams:
@@ -51,19 +65,84 @@ def make_transport_params(cfg: RunConfig, dtype) -> transport_ops.TransportParam
     )
 
 
-def _check_step_supported(cfg: RunConfig) -> None:
+def check_step_supported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError`` for step features this port does not run yet."""
-    jb = cfg.jaybenne
-    if jb.n_devices != 1 or jb.decomposition == "spatial":
-        raise not_ported("multi-device runs and the spatial decomposition", "Queue 1, item 17")
-    if jb.debug_checks:
+    if cfg.jaybenne.debug_checks:
         raise not_ported("debug_checks (validate_state)", "Queue 1, item 16")
 
 
-def build_step_core(mesh, cfg: RunConfig):
-    """The per-cycle step ``step(state, dt) -> (state, StepStats)``. The particle
-    ledger is updated in place; fields are replaced."""
-    _check_step_supported(cfg)
+def shard_share(total: int, n: int) -> int:
+    """One shard's share of ``total`` births under the particle decomposition (JAX
+    ``sharding.py:95``)."""
+    return total if n == 1 else max(1, round(total / n))
+
+
+def census_fn(cfg: RunConfig):
+    """The census the configuration selects: the kernel's entry or its plain
+    version (``use_pallas = off``)."""
+    return (transport_kernel.transport_plain if cfg.jaybenne.use_pallas == "off"
+            else transport_kernel.transport)
+
+
+def with_fleck(f, models, dt, dtype):
+    """The fields with this step's Fleck factor; ``models`` = (eos, opacity,
+    scattering)."""
+    eos, opacity, _ = models
+    return dataclasses.replace(
+        f, fleck=fleck_ops.fleck_factor(f.rho, f.sie, eos, opacity, dt, dtype))
+
+
+def total_sigma(f, models, dtype):
+    """Per-cell sigma_t = sigma_a + sigma_s of the fields' matter state, the DDMC
+    face probabilities' input."""
+    eos, opacity, scattering = models
+    temp = eos.temperature_from_density_internal_energy(f.rho, f.sie)
+    sig_t = (opacity.absorption_coefficient(f.rho, temp)
+             + scattering.total_scattering_coefficient(f.rho, temp))
+    return torch.as_tensor(sig_t, dtype=dtype, device=f.rho.device).expand(f.rho.shape)
+
+
+def with_faces(f, faces):
+    """The fields with the DDMC face probabilities ``faces`` = (px, py, pz)."""
+    return dataclasses.replace(f, ddmc_px=faces[0], ddmc_py=faces[1], ddmc_pz=faces[2])
+
+
+def _source(fs, ps, gens, mesh, exchange, **kw):
+    """Each shard's births of one source, each from its own generator; under the
+    particle decomposition the per-cell birth counts are summed over the shards
+    before the weights are set, so the summed energy of a cell is exactly its
+    source's. ``kw`` are ``sourcing.birth_counts``'s. Returns (fields, particles
+    dropped) per shard."""
+    counts = [sourcing.birth_counts(f, mesh, g, **kw) for f, g in zip(fs, gens)]
+    n_glob = ([None] * len(fs) if exchange is None
+              else exchange.sum([c.n_cell for c in counts]))
+    out = [sourcing.births(f, p, mesh, g, c, ng, source_type=kw["source_type"], sb=kw["sb"],
+                           c=kw["c"], dtype=kw["dtype"], dt=kw.get("dt", 0.0),
+                           external=kw.get("external"))
+           for f, p, g, c, ng in zip(fs, ps, gens, counts, n_glob)]
+    return [o[0] for o in out], [o[2].to(torch.int64) for o in out]
+
+
+def _tallies(fs, ps, mesh, exchange, absorb):
+    """The absorption deposit (with ``absorb``) and the tally of each shard's
+    fields: from its own ledger, or under the particle decomposition from every
+    shard's, reduced in the integer domain."""
+    if exchange is None:
+        f, p = fs[0], ps[0]
+        if absorb:
+            f = tally.accumulate_absorption(f, p, mesh)
+        return [tally.evaluate_radiation_energy(f, p, mesh)]
+    if absorb:
+        fs = tally.accumulate_absorption_sharded(fs, ps, mesh, exchange)
+    return tally.evaluate_radiation_energy_sharded(fs, ps, mesh, exchange)
+
+
+def build_step_core(mesh, cfg: RunConfig, exchange=None):
+    """The per-cycle step ``step(state, dt) -> (state, StepStats)``, or with
+    ``exchange`` the particle decomposition's ``step(states, dt) -> (states,
+    StepStats)`` over the local shards' states (see the module docstring). The
+    particle ledgers are updated in place; fields are replaced."""
+    check_step_supported(cfg)
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -71,109 +150,117 @@ def build_step_core(mesh, cfg: RunConfig):
     jb = cfg.jaybenne
     dtype = jb.dtype
     prm = make_transport_params(cfg, dtype)
-    periodic = cfg.mesh.periodic_flags
     transport_kernel.check_supported(mesh, prm, dtype)
+    periodic = cfg.mesh.periodic_flags
+    n = 1 if exchange is None else exchange.n
+    shards = (0,) if exchange is None else exchange.shards
+    num_particles = shard_share(jb.num_particles, n)
     # the external volume source (the Su-Olson driving term): fixed geometry
     external = None
     if jb.external_source_q > 0:
         external = sourcing.external_source_setup(mesh, jb)
-        ext_num = jb.external_source_num or jb.num_particles
-    census = (
-        transport_kernel.transport_plain if jb.use_pallas == "off"
-        else transport_kernel.transport
-    )
+        ext_num = shard_share(jb.external_source_num or jb.num_particles, n)
+    census = census_fn(cfg)
+    models = (eos, opacity, scattering)
 
-    def step(state, dt):
-        f, p = state.fields, state.particles
-        f = dataclasses.replace(
-            f, fleck=fleck_ops.fleck_factor(f.rho, f.sie, eos, opacity, dt, dtype)
-        )
+    def words(s):
+        """The shard word of every stream key under the decomposition, none without."""
+        return () if exchange is None else (s,)
+
+    def step(states, dt):
+        single = exchange is None
+        if single:
+            states = [states]
+        state = states[0]
+        dev = mesh.device
+        fs = [with_fleck(st.fields, models, dt, dtype) for st in states]
         if jb.use_ddmc:
-            temp = eos.temperature_from_density_internal_energy(f.rho, f.sie)
-            sig_t = (opacity.absorption_coefficient(f.rho, temp)
-                     + scattering.total_scattering_coefficient(f.rho, temp))
-            sig_t = torch.as_tensor(sig_t, dtype=dtype, device=f.rho.device).expand(
-                f.rho.shape)
-            px, py, pz = fleck_ops.ddmc_face_probs(mesh, sig_t, jb.tau_ddmc, periodic, dtype)
-            f = dataclasses.replace(f, ddmc_px=px, ddmc_py=py, ddmc_pz=pz)
+            fs = [with_faces(f, fleck_ops.ddmc_face_probs(
+                mesh, total_sigma(f, models, dtype), jb.tau_ddmc, periodic, dtype))
+                for f in fs]
+        ps = [st.particles for st in states]
+
+        def gens(phase):
+            return [rng.generator(st.seed, st.cycle, phase, dev, words(s))
+                    for st, s in zip(states, shards)]
+
+        kw = dict(eos=eos, opacity=opacity, sb=consts.sb, c=consts.c, dtype=dtype, dt=dt)
+        dropped = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
         if jb.do_emission:
-            gen = rng.generator(state.seed, state.cycle, rng.PHASE_SOURCE, mesh.device)
-            f, p, dropped = sourcing.source_photons(
-                f, p, mesh, gen,
-                source_type="emission",
-                eos=eos, opacity=opacity,
-                sb=consts.sb, c=consts.c,
-                num_particles=jb.num_particles,
-                dt=dt, dtype=dtype,
-            )
+            fs, dropped = _source(fs, ps, gens(rng.PHASE_SOURCE), mesh, exchange,
+                                  source_type="emission", num_particles=num_particles, **kw)
         else:
-            f = dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
+            fs = [dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
+                  for f in fs]
             if external:  # the external pass accumulates onto clean diagnostics
-                f = dataclasses.replace(f, source_num=torch.zeros_like(f.source_num),
-                                        source_ew=torch.zeros_like(f.source_ew))
-            dropped = torch.zeros((), dtype=torch.int64, device=mesh.device)
+                fs = [dataclasses.replace(f, source_num=torch.zeros_like(f.source_num),
+                                          source_ew=torch.zeros_like(f.source_ew))
+                      for f in fs]
         if external:
-            gen = rng.generator(state.seed, state.cycle, rng.PHASE_EXTERNAL, mesh.device)
-            f, p, ext_drop = sourcing.source_photons(
-                f, p, mesh, gen,
-                source_type="external",
-                eos=eos, opacity=opacity,
-                sb=consts.sb, c=consts.c,
-                num_particles=ext_num,
-                dt=dt, t=state.t, external=external, dtype=dtype,
-            )
-            dropped = dropped + ext_drop
-        coefs = transport_ops.precompute_coefs(
-            f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype
-        )
-        seed = rng.kernel_seed(state.seed, state.cycle)
-        p, iters, events = census(p, coefs, mesh, seed, prm, dt)
-        # survivors still short of end-of-step, before the tau reset below
-        unfinished = (p.alive & (p.tau < 1.0)).sum()
-        if prm.has_absorption:
-            f = tally.accumulate_absorption(f, p, mesh)
-        f = tally.evaluate_radiation_energy(f, p, mesh)
+            fs, ext_drop = _source(fs, ps, gens(rng.PHASE_EXTERNAL), mesh, exchange,
+                                   source_type="external", num_particles=ext_num, t=state.t,
+                                   external=external, **kw)
+            dropped = [d + e for d, e in zip(dropped, ext_drop)]
+        iters, events, unfinished = [], [], []
+        for f, p, st, s in zip(fs, ps, states, shards):
+            coefs = transport_ops.precompute_coefs(
+                f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype)
+            seed = rng.kernel_seed(st.seed, st.cycle, *words(s))
+            p, it, ev = census(p, coefs, mesh, seed, prm, dt)
+            iters.append(it)
+            events.append(ev)
+            # survivors still short of end-of-step, before the tau reset below
+            unfinished.append((p.alive & (p.tau < 1.0)).sum())
+        fs = _tallies(fs, ps, mesh, exchange, prm.has_absorption)
         if jb.do_feedback:
-            f = tally.update_fluid(f, mesh)
-        # census survivors restart at tau = 0 next cycle
-        p.absorbed.zero_()
-        p.tau.zero_()
-        new_state = dataclasses.replace(
-            state, fields=f, particles=p, t=state.t + dt, cycle=state.cycle + 1,
-            overflow=state.overflow + int(dropped),
-        )
+            fs = [tally.update_fluid(f, mesh) for f in fs]
+        for p in ps:  # census survivors restart at tau = 0 next cycle
+            p.absorbed.zero_()
+            p.tau.zero_()
+        n_alive = [p.alive.sum(dtype=torch.int64) for p in ps]
+        unfinished = [u.to(torch.int64) for u in unfinished]
+        if not single:
+            iters = exchange.max(iters)
+            events, n_alive, dropped, unfinished = (
+                exchange.sum(v) for v in (events, n_alive, dropped, unfinished))
         stats = StepStats(
-            iterations=iters,
-            events=events,
-            n_alive=p.num_alive(),
-            dropped=dropped,
-            cap_hits=(iters >= prm.max_iters).to(torch.int32),
-            unfinished=unfinished,
+            iterations=iters[0],
+            events=events[0],
+            n_alive=n_alive[0],
+            dropped=dropped[0],
+            cap_hits=(iters[0] >= prm.max_iters).to(torch.int32),
+            unfinished=unfinished[0],
         )
-        return new_state, stats
+        new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt, cycle=st.cycle + 1,
+                                   overflow=st.overflow + int(dropped[0]))
+               for st, f, p in zip(states, fs, ps)]
+        return (new[0] if single else new), stats
 
     return step
 
 
-def initialize_radiation(state, mesh, cfg: RunConfig):
+def initialize_radiation(state, mesh, cfg: RunConfig, exchange=None):
     """Thermal-source the initial photon field (if requested) and evaluate the tally
-    for outputs. The ledger is filled in place."""
+    for outputs. The ledger is filled in place. With ``exchange`` (the particle
+    decomposition, JAX ``sharding.make_sharded_init``) ``state`` is the list of
+    the local shards' states, each sourcing its share."""
     jb = cfg.jaybenne
-    f, p = state.fields, state.particles
-    dropped = 0
+    single = exchange is None
+    states = [state] if single else state
+    shards = (0,) if single else exchange.shards
+    n = 1 if single else exchange.n
+    fs = [st.fields for st in states]
+    ps = [st.particles for st in states]
+    dropped = [0] * len(states)
     if cfg.mcblock.initial_radiation == InitialRadiation.thermal:
         consts = cfg.mcblock.build_opacity().get_runtime_physical_constants()
-        gen = rng.generator(state.seed, 0, rng.PHASE_INIT, mesh.device)
-        f, p, n_drop = sourcing.source_photons(
-            f, p, mesh, gen,
-            source_type="thermal",
-            eos=cfg.mcblock.build_eos(),
-            sb=consts.sb, c=consts.c,
-            num_particles=jb.num_particles,
-            dtype=jb.dtype,
-        )
-        dropped = int(n_drop)
-    f = tally.evaluate_radiation_energy(f, p, mesh)
-    return dataclasses.replace(
-        state, fields=f, particles=p, overflow=state.overflow + dropped
-    )
+        gens = [rng.generator(st.seed, 0, rng.PHASE_INIT, mesh.device, () if single else (s,))
+                for st, s in zip(states, shards)]
+        fs, drops = _source(fs, ps, gens, mesh, exchange, source_type="thermal",
+                            eos=cfg.mcblock.build_eos(), sb=consts.sb, c=consts.c,
+                            num_particles=shard_share(jb.num_particles, n), dtype=jb.dtype)
+        dropped = [int(d) for d in (drops if single else exchange.sum(drops))]
+    fs = _tallies(fs, ps, mesh, exchange, absorb=False)
+    new = [dataclasses.replace(st, fields=f, particles=p, overflow=st.overflow + d)
+           for st, f, p, d in zip(states, fs, ps, dropped)]
+    return new[0] if single else new

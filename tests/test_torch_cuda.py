@@ -600,3 +600,114 @@ def test_suolson_path_runs_through_kernel(gpu, tmp_path):
         mc.initial_density, mc.initial_temperature)
     injected = jb.external_source_q * 0.25 * min(sim.t, jb.external_source_tmax)
     assert abs(e - e0 - injected) <= 1e-2 * injected and sim.state.overflow == 0
+
+
+def _owned_round_matches_plain(gpu, p0, coefs, mesh, prm, dt, own):
+    """One owned-range round of the kernel and of its plain version: every column
+    identical, the floats bitwise, and the route's launch counted."""
+    name = transport_kernel.launch_name(prm.ndim, prm.has_absorption, prm.use_ddmc,
+                                        own.kind == "blocks" or mesh.max_level > 0,
+                                        route=own.route)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, 4242, prm, dt, own)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 4242, prm, dt,
+                                                     own)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    for f in dataclasses.fields(k):
+        assert torch.equal(getattr(k, f.name), getattr(q, f.name)), f.name
+    assert int(ev_k) == int(ev_q) and int(it_k) == int(it_q)
+    paused = k.alive & (k.tau < 1.0)
+    assert bool(paused.any())
+    return k, paused
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_owned_range_z_kernel_matches_plain(gpu, shard):
+    """K3s (chip_smoke.py phase 28 at a test's size): 16^3 cells in 4^3 blocks,
+    periodic y and z, 4 shards of one z-plane of blocks each; 2^14 particles on
+    shard ``shard``'s slab, one round. Every paused lane left the slab."""
+    from jaybenne_tpu_torch.parallel.spatial import owned_range
+
+    per = {f"parthenon/swarm/{s}x{k}_bc": "periodic" for s in "io" for k in "23"}
+    cfg = cm.from_deck(Deck.from_file(STEPDIFF).update({
+        **{f"parthenon/mesh/nx{k}": 16 for k in "123"}, **per,
+        **{f"parthenon/meshblock/nx{k}": 4 for k in "123"},
+        "mcblock/opacity_model": "constant", "jaybenne/dt": "3.e-12"}))
+    mesh = build_mesh(cfg.mesh, device=gpu)
+    prm = make_transport_params(cfg, torch.float32)
+    own = owned_range(mesh, prm, 4, shard)
+    lo, hi = own.bounds()
+    assert own.kind == "z" and (lo, hi) == (4 * shard, 4 * shard + 4)
+    nc = 16 * mesh.ncells_per_block
+    coefs = TransportCoefs(sigma_a=torch.full((nc,), 2.0, device=gpu),
+                           sigma_s=torch.full((nc,), 62.0, device=gpu),
+                           fleck=torch.ones(nc, device=gpu))
+    g = torch.Generator(device=gpu).manual_seed(28 + shard)
+    p0 = uniform_ledger(mesh, 1 << 14, g, C)
+    p0.block.copy_(p0.block % 16 + shard * 16)
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=gpu))
+    k, paused = _owned_round_matches_plain(gpu, p0, coefs, mesh, prm, cfg.jaybenne.dt, own)
+    gk = (k.block // 16) * 4 + k.k
+    assert not bool((paused & (gk >= lo) & (gk < hi)).any())
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+def test_owned_range_blocks_kernel_matches_plain(gpu, shard):
+    """K4s with DDMC (chip_smoke.py phase 29 at a test's size): the 32x16 forest in
+    8x8 blocks with thin and thick x-slabs, 2 shards, 2^14 particles in shard
+    ``shard``'s blocks, one round; shard 0's coarse thick cells write pending leak
+    codes into shard 1's finer blocks."""
+    from jaybenne_tpu_torch.parallel.spatial import owned_range
+
+    cfg = cm.from_deck(Deck.from_file(os.path.join(_ROOT, "inputs", "stepdiff_smr_ddmc.in"))
+                       .update({"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
+                                "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
+                                "jaybenne/tau_ddmc": 5.0}))
+    mesh = build_mesh(cfg.mesh, device=gpu)
+    prm = make_transport_params(cfg, torch.float32)
+    own = owned_range(mesh, prm, 2, shard)
+    lo, hi = own.bounds()
+    assert own.kind == "blocks" and mesh.max_level == 1
+    xc = mesh.cell_centers()[0]
+    sig = torch.where(torch.floor((xc + 0.5) / 0.0625).long() % 2 == 1, 512.0, 16.0)
+    faces = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags, torch.float32)
+    ncpb = mesh.ncells_per_block
+    loc = sig.reshape(-1)[lo * ncpb:hi * ncpb]
+    coefs = TransportCoefs(sigma_a=torch.zeros_like(loc), sigma_s=loc,
+                           fleck=torch.ones_like(loc), px=faces[0][lo:hi],
+                           py=faces[1][lo:hi], pz=faces[2][lo:hi])
+    g = torch.Generator(device=gpu).manual_seed(29 + shard)
+    p0 = forest_ledger(mesh, 1 << 14, g, C, blocks=(lo, hi))
+    place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=gpu) < 0.25, g)
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=gpu))
+    k, paused = _owned_round_matches_plain(gpu, p0, coefs, mesh, prm, 3.0e-11, own)
+    assert not bool((paused & (k.block >= lo) & (k.block < hi)).any())
+    pending = k.leak != 0
+    assert not bool((pending & ~paused).any())
+    if shard == 0:
+        assert bool(pending.any())
+
+
+def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
+    """The stepdiff slab through the spatial decomposition at 4 in-process shards
+    on the card, 2 steps: every round launches the block-range route, the tally
+    holds the live weights, and a rerun is bitwise identical."""
+    mods = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
+            "jaybenne/num_particles": 8000, "jaybenne/decomposition": "spatial",
+            "jaybenne/n_devices": 4, "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "2.e-11",
+            "mcblock/scattering_constant_value": 200.0, "parthenon/output0/file_type": "none"}
+    name = transport_kernel.launch_name(1, False, False, True, route="@blocks")
+    sims = []
+    for _ in range(2):
+        before = cuda_lib.LAUNCHES[name]
+        sims.append(run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
+                             device="cuda"))
+        rounds = sum(h["migration_rounds"] for h in sims[-1].history)
+        assert cuda_lib.LAUNCHES[name] == before + 4 * rounds
+    a, b = (s.state.fields.energy_tally for s in sims)
+    assert a.is_cuda and torch.equal(a, b)
+    sim = sims[0]
+    p = sim.state.particles
+    w = float(p.weight.double()[p.alive].sum())
+    e = float((a.double() * sim.mesh.block_volume.double()[:, None, None, None]).sum())
+    assert abs(e - w) <= 1e-5 * w and sim.history[-1]["migrated"] > 0

@@ -22,6 +22,22 @@ print("IMPORTED", len(names), "JAX", bad)
 """
 
 
+@pytest.mark.parametrize("module", ["parallel.exchange", "parallel.sharding",
+                                    "parallel.spatial"])
+def test_decomposition_modules_import_no_jax(module):
+    """The decompositions' modules import alone, in a fresh process, without jax
+    or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = _ROOT
+    code = (f"import sys, jaybenne_tpu_torch.{module}; "
+            "print(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaybenne_tpu.'))))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
 def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _ROOT

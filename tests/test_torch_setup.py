@@ -157,21 +157,39 @@ def test_fleck_and_coefs_match_jax(deck, opacity):
     "mods, where",
     [
         ({"mcblock/eos_model": "power_law_cv", "jaybenne/precision": "f64"}, "item 7"),
-        ({"mcblock/opacity_model": "ep_bremss", "jaybenne/n_devices": 2}, "item 17"),
+        ({"mcblock/opacity_model": "ep_bremss", "jaybenne/n_devices": 2,
+          "parthenon/output0/file_type": "rst"}, "item 16"),
         ({"mcblock/scattering_model": "thomson", "parthenon/output0/file_type": "rst"},
          "item 16"),
         ({"jaybenne/use_ddmc": "true", "jaybenne/precision": "f64"}, "item 7"),
-        ({"jaybenne/external_source": 1.0e10, "jaybenne/decomposition": "spatial"}, "item 17"),
+        ({"jaybenne/external_source": 1.0e10, "jaybenne/decomposition": "spatial",
+          "jaybenne/precision": "f64"}, "item 7"),
         ({"jaybenne/precision": "f64"}, "item 7"),
-        ({"jaybenne/n_devices": 2}, "item 17"),
+        ({"jaybenne/n_devices": 2, "jaybenne/precision": "f64"}, "item 7"),
         ({"parthenon/output0/file_type": "rst"}, "item 16"),
-        ({"jaybenne/decomposition": "spatial"}, "item 17"),
+        ({"jaybenne/decomposition": "spatial", "jaybenne/debug_checks": "true"}, "item 16"),
         ({"jaybenne/debug_checks": "true"}, "item 16"),
     ],
 )
 def test_unported_configurations_raise(mods, where, tmp_path):
     """Every configuration outside the slice raises and names its ROADMAP item; none
-    falls back to another path."""
+    falls back to another path. Under either decomposition too."""
     _, tcfg = _configs(mods)
     with pytest.raises(NotImplementedError, match="ROADMAP .*" + re.escape(where)):
         Simulation(tcfg, outdir=str(tmp_path), quiet=True, device="cpu")
+
+
+@pytest.mark.parametrize("mods, shards", [
+    ({"jaybenne/n_devices": 2}, 2),
+    ({"jaybenne/n_devices": 0}, None),
+    ({"jaybenne/decomposition": "spatial"}, 1),
+    ({"jaybenne/decomposition": "spatial", "jaybenne/n_devices": 2,
+      "mcblock/opacity_model": "ep_bremss"}, 2),
+])
+def test_decompositions_are_ported(mods, shards, tmp_path):
+    """``n_devices > 1``, ``n_devices = 0`` (the world size: one device outside a
+    process group) and the spatial decomposition build and initialise."""
+    _, tcfg = _configs({**mods, "parthenon/output0/file_type": "none"})
+    sim = Simulation(tcfg, outdir=str(tmp_path), quiet=True, device="cpu")
+    assert (sim.shards is None) if shards is None else len(sim.shards) == shards
+    assert int(sim.state.particles.alive.sum()) > 0
