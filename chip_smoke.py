@@ -127,17 +127,23 @@ Phases:
      particles on shard 3's slab and then on the seam shard 7's, one round each:
      the kernel and its plain version identical in every column (floats
      bitwise), every paused lane outside the shard's z cells (across the
-     periodic z seam too), every lane inside at census or absorbed;
+     periodic z seam too), every lane inside at census or absorbed; then all 8
+     shards' slices of one ledger (4 times the card's resident threads) in one
+     launch against the plain per-shard calls in order, bitwise;
  29. K4s, the owned-range kernel over blocks: the 32x16 stepdiff_smr_ddmc forest
      in 8x8 blocks (tests/test_spatial.py:463-467) with phase 15's thin and thick
      slabs, shards 0 and 1 of 2, 2^17 particles each, one round: as phase 28, and
      shard 0 writes pending leak codes (into shard 1's finer blocks; shard 1
-     holds fine blocks only), identical between kernel and plain;
+     holds fine blocks only), identical between kernel and plain; then 8 shards
+     of 3 blocks (4 padding blocks) in one launch at 4 times the resident
+     threads against the plain per-shard calls, bitwise, leak codes written;
  30. big_mesh_spatial (bench.py:291-313: 64^3, 8^3 blocks, 200k particles, 3
      steps, spatial) at 1 and 8 shards: events within 5 % of the JAX package's
      658342636, sum(tally dV) equal to the live weight to 1e-5, every census
-     complete; migration rounds, migrated particles, step times and events/s
-     printed; K3s timed on the first round of shard 3;
+     complete, one census launch a round (launches a step printed); migration
+     rounds, migrated particles, step times and events/s printed; K3s timed on
+     the first round (one launch over the 8 shards), with the slot order's warp
+     efficiency;
  31. stepdiff through the spatial decomposition at 8 shards
      (tst/launch_ci_runner.py:72-74: 128 cells in 16-cell blocks, 100k particles,
      capacity_factor 4; then the CI's row :66-71, 32 cells in 2-cell blocks, 16k
@@ -155,11 +161,21 @@ Phases:
      (phase 32's rows were each rerun);
  35. phase 25's path (stepdiff_smr with ep_bremss, 100k particles, one step) at
      seeds 1-4: the mean survivors against the JAX package's at the same seeds
-     within 4 sd of the difference of the means.
+     within 4 sd of the difference of the means;
+ 36. the regrouping schedule at scale: the twelve DDMC instantiations (uniform and
+     SMR, gray) on hybrid ledgers of 4 times the card's resident threads, a full
+     census of the last 10 % of a step, kernel and plain identical in every
+     column (phases 28-29 hold both owned-range routes at that size).
+
+Phase 21 also prints the slot order's warp efficiency of the native hybrid's last
+census (``transport_kernel.warp_efficiency`` of the plain version's per-slot
+events): the share of a one-thread-per-slot warp's issued events that are real,
+the yardstick of what the regrouping schedule can win.
 
 For phases 12-14, 16, 20, 21 and 23-25 the kernel and its plain version are timed
 on the inputs of the path's last census, recorded as the path ran; for phases 30
-and 33 on the first owned-range round of one shard.
+and 33 on the first round (one launch over every shard, with the step's census
+set-up).
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -769,12 +785,12 @@ def census_compare(transport_kernel, dev, p0, args):
     return ms, plain_ms, events, err
 
 
-def hybrid_setup(dev, ndim, absorb, ddmc, seed):
+def hybrid_setup(dev, ndim, absorb, ddmc, seed, n=HYBRID_N):
     """Phase 11's configuration: x-slabs of four cells alternate thin (IMC) and
-    thick (DDMC) sigma_t, reflecting in x, periodic in y, outflow in z, with 2^17
-    particles at uniform positions, a quarter of them on a face of their cell with
-    the face-arrival code set. Returns (dt, mesh, prm, ledger, coefs, gi), gi the
-    global x index of each cell in block order."""
+    thick (DDMC) sigma_t, reflecting in x, periodic in y, outflow in z, with ``n``
+    (2^17) particles at uniform positions, a quarter of them on a face of their
+    cell with the face-arrival code set. Returns (dt, mesh, prm, ledger, coefs,
+    gi), gi the global x index of each cell in block order."""
     from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
     from jaybenne_tpu_torch.ops.transport import TransportCoefs
     from jaybenne_tpu_torch.particles import place_on_faces, uniform_ledger
@@ -802,7 +818,7 @@ def hybrid_setup(dev, ndim, absorb, ddmc, seed):
     coefs = TransportCoefs(sigma_a=sa.reshape(-1), sigma_s=(sig - sa).reshape(-1),
                            fleck=torch.ones(mesh.total_cells, device=dev), px=px, py=py, pz=pz)
     g = torch.Generator(device=dev).manual_seed(seed)
-    p0 = uniform_ledger(mesh, HYBRID_N, g, CC)
+    p0 = uniform_ledger(mesh, n, g, CC)
     place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=dev) < 0.25, g)
     p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))  # some reach census soon
     return cfg.jaybenne.dt, mesh, prm, p0, coefs, gi.reshape(-1)
@@ -932,12 +948,12 @@ def hybrid_census_timing(transport_kernel, dev, ndim, absorb, seed, cost):
     return ms, plain_ms, ev, bound, by
 
 
-def smr_setup(dev, ndim, absorb, ddmc, seed):
+def smr_setup(dev, ndim, absorb, ddmc, seed, n=HYBRID_N):
     """Phase 15's configuration on the level-1 forest of ``ndim``: x-slabs of four
     coarse cells alternate thin (IMC) and thick (DDMC) sigma_t by cell centre,
-    with 2^17 particles uniform over the forest's cells, a quarter of them on a
-    face of their cell with the face-arrival code set. Returns (dt, mesh, prm,
-    ledger, coefs, thick [NC])."""
+    with ``n`` (2^17) particles uniform over the forest's cells, a quarter of them
+    on a face of their cell with the face-arrival code set. Returns (dt, mesh,
+    prm, ledger, coefs, thick [NC])."""
     from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
     from jaybenne_tpu_torch.ops.transport import TransportCoefs
     from jaybenne_tpu_torch.particles import forest_ledger, place_on_faces
@@ -963,7 +979,7 @@ def smr_setup(dev, ndim, absorb, ddmc, seed):
     coefs = TransportCoefs(sigma_a=sa.reshape(-1), sigma_s=(sig - sa).reshape(-1),
                            fleck=torch.ones(mesh.total_cells, device=dev), **faces)
     g = torch.Generator(device=dev).manual_seed(seed)
-    p0 = forest_ledger(mesh, HYBRID_N, g, CC)
+    p0 = forest_ledger(mesh, n, g, CC)
     place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=dev) < 0.25, g)
     p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
     return cfg.jaybenne.dt, mesh, prm, p0, coefs, thick.reshape(-1)
@@ -1226,6 +1242,8 @@ def smr_phases(transport_kernel, dev, cost, src) -> list:
           f"{weighted_erf_error(nh)!r}", flush=True)
     events_gate(nh.total_events, NATIVE_HYBRID_JAX_EVENTS, "native hybrid")
     k_sd2 = path_kernel(transport_kernel, dev, nh, nh_in, name_sd2, cost)
+    warp_efficiency_line(transport_kernel, nh_in, f"{name_sd2} on the native hybrid's last "
+                         "census", k_sd2[0], "3.045")
 
     k1 = "jaybenne_tpu/ops/pallas_transport.py:382"
     k4 = "jaybenne_tpu/ops/pallas_bucketed.py:221"
@@ -1465,22 +1483,87 @@ def nongray_phases(transport_kernel, dev, cost, src) -> list:
     return kernels
 
 
-def owned_vs_plain(transport_kernel, what, p0, args):
-    """One owned-range round (``args`` = coefs, mesh, seed, prm, dt, own) of the
-    kernel against its plain version on the ledger ``p0``: every column identical,
-    the floats bitwise, and the same events and iterations. Returns (the kernel's
-    ledger, events, max_abs_err of the floats)."""
-    pk, it_k, ev_k = transport_kernel.transport(p0.clone(), *args)
-    pp, it_p, ev_p = transport_kernel.transport_plain(p0.clone(), *args)
-    torch.cuda.synchronize()
+def sliced(fn, n):
+    """``fn`` (the census or its plain version) over the ``n`` equal slices of a
+    ledger, one per shard, as one call: ``(ledger, iterations, events)`` summed
+    over the shards, so that ``time_census`` can time it."""
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    def run(p, *args, **kw):
+        _, it, ev = fn(split_ledger(p, n), *args, **kw)
+        return p, it.max(), ev.sum()
+
+    return run
+
+
+def same_columns(pk, pp, what):
+    """Raises unless two ledgers are identical in every column."""
     for f in dataclasses.fields(pk):
         a, b = getattr(pk, f.name), getattr(pp, f.name)
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: {f.name} differs in {int((a != b).sum())} slots")
-    if int(ev_k) != int(ev_p) or int(it_k) != int(it_p):
+
+
+def owned_vs_plain(transport_kernel, what, p0, args, n=None):
+    """One owned-range round (``args`` = coefs, mesh, seed, prm, dt, own; with ``n``
+    a census set-up, mesh, seeds, prm, dt over the ``n`` slices of ``p0``) of the
+    kernel against its plain version on the ledger ``p0``: every column
+    identical, the floats bitwise, and the same events and iterations (per
+    shard). Returns (the kernel's ledger, events, max_abs_err of the floats)."""
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    out = []
+    for fn in (transport_kernel.transport, transport_kernel.transport_plain):
+        q = p0.clone()
+        out.append((q, *fn(q if n is None else split_ledger(q, n), *args)[1:]))
+    torch.cuda.synchronize()
+    (pk, it_k, ev_k), (pp, it_p, ev_p) = out
+    same_columns(pk, pp, what)
+    if not (torch.equal(ev_k, ev_p) and torch.equal(it_k, it_p)):
         raise AssertionError(f"{what}: stats {ev_k} {it_k} vs {ev_p} {it_p}")
     err, _ = max_float_err(pk, pp, ("x", "y", "z", "vx", "vy", "vz", "tau"))
-    return pk, int(ev_k), err
+    return pk, int(ev_k.sum()), err
+
+
+def resident_threads(dev) -> int:
+    """The most threads the card holds at once."""
+    props = torch.cuda.get_device_properties(dev)
+    return props.multi_processor_count * getattr(props, "max_threads_per_multi_processor", 2048)
+
+
+def shards_vs_plain(transport_kernel, what, p0, coefs, mesh, seeds, prm, dt, owns):
+    """One launch of the kernel over the shards' adjacent slices of ``p0`` (one per
+    range of ``owns``, each with its coefficients and seed) against the plain
+    version's per-shard calls in shard order: every column identical, the floats
+    bitwise, the same iterations and events per shard, one launch counted. Returns
+    (the kernel's ledger, events, max_abs_err)."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    n = len(owns)
+    name = transport_kernel.launch_name(prm.ndim, bool(prm.has_absorption), bool(prm.use_ddmc),
+                                        owns[0].kind == "blocks" or mesh.max_level > 0,
+                                        route=owns[0].route)
+    pk, pp = p0.clone(), p0.clone()
+    before = cuda_lib.LAUNCHES[name]
+    _, it_k, ev_k = transport_kernel.transport(split_ledger(pk, n), coefs, mesh, seeds, prm, dt,
+                                               owns)
+    if cuda_lib.LAUNCHES[name] != before + 1:
+        raise AssertionError(f"{what}: {cuda_lib.LAUNCHES[name] - before} launches, not one")
+    its, evs = [], []
+    for q, c, sd, o in zip(split_ledger(pp, n), coefs, seeds, owns):
+        _, it, ev = transport_kernel.transport_plain(q, c, mesh, sd, prm, dt, o)
+        its.append(it)
+        evs.append(ev)
+    torch.cuda.synchronize()
+    same_columns(pk, pp, what)
+    if not (torch.equal(ev_k, torch.stack(evs)) and torch.equal(it_k, torch.stack(its))):
+        raise AssertionError(f"{what}: stats {ev_k} {it_k} vs {evs} {its}")
+    err, _ = max_float_err(pk, pp, ("x", "y", "z", "vx", "vy", "vz", "tau"))
+    print(f"{what}: one launch over {n} shards' slices ({p0.capacity} slots) and the plain "
+          f"per-shard calls in order identical in every column, floats bitwise; events per "
+          f"shard {ev_k.tolist()}, iterations {it_k.tolist()}", flush=True)
+    return pk, int(ev_k.sum()), err
 
 
 def z_round(transport_kernel, dev, shard, seed):
@@ -1586,14 +1669,103 @@ def forest_round(transport_kernel, dev, seed):
     return err
 
 
+def z_round_all(transport_kernel, dev, seed):
+    """Phase 28's 8-shard launch: every shard of bench.py's big mesh with its own
+    particles in its adjacent slice of one ledger (4 times the card's resident
+    threads in all, a tenth of each slice in the next shard's slab), one round as
+    one launch against the plain per-shard calls. Returns the max_abs_err."""
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+    from jaybenne_tpu_torch.parallel.spatial import blocks_per_shard, owned_range
+    from jaybenne_tpu_torch.particles import empty_ledger, uniform_ledger
+    from jaybenne_tpu_torch.utils.constants import CC
+
+    cfg, mesh, prm, _ = deck_setup(dev, DECK, {**BIG_MESH, "mcblock/opacity_model": "constant"},
+                                   0.0, 0.0)
+    owns = [owned_range(mesh, prm, Z_SHARDS, s) for s in range(Z_SHARDS)]
+    plane = mesh.root_grid[1] * mesh.root_grid[2]
+    nc = blocks_per_shard(mesh, Z_SHARDS) * mesh.ncells_per_block
+    coefs = [TransportCoefs(sigma_a=torch.full((nc,), 2.0, device=dev),
+                            sigma_s=torch.full((nc,), 62.0, device=dev),
+                            fleck=torch.ones(nc, device=dev)) for _ in owns]
+    m = -(-4 * resident_threads(dev) // Z_SHARDS)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p0 = empty_ledger(Z_SHARDS * m, torch.float32, dev)
+    other = torch.arange(m, device=dev) % 10 == 9
+    for s, q in enumerate(split_ledger(p0, Z_SHARDS)):
+        src = uniform_ledger(mesh, m, g, CC)
+        home = torch.where(other, (s + 1) % Z_SHARDS, s)
+        src.block.copy_(src.block % plane + home * plane)
+        for f in dataclasses.fields(q):
+            getattr(q, f.name).copy_(getattr(src, f.name))
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
+    seeds = [seed + 7 * s for s in range(Z_SHARDS)]
+    return shards_vs_plain(transport_kernel, f"K3s, all {Z_SHARDS} shards", p0, coefs, mesh,
+                           seeds, prm, cfg.jaybenne.dt, owns)[2]
+
+
+def forest_round_all(transport_kernel, dev, seed, n_shards=8):
+    """Phase 29's 8-shard launch: the forest of phase 29 at 8 shards of 3 blocks
+    (the last four padding blocks, the last shard padding only, its slice holding
+    shard 0's particles), 4 times the card's resident threads in all, one round as
+    one launch against the plain per-shard calls; shards write pending leak codes
+    into each other's finer blocks. Returns the max_abs_err."""
+    from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
+    from jaybenne_tpu_torch.ops.transport import TransportCoefs
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+    from jaybenne_tpu_torch.parallel.spatial import blocks_per_shard, owned_range
+    from jaybenne_tpu_torch.particles import empty_ledger, forest_ledger, place_on_faces
+    from jaybenne_tpu_torch.utils.constants import CC
+
+    cfg, mesh, prm, _ = deck_setup(dev, SMR_DDMC_DECK, {**SMR_SPATIAL_FOREST,
+                                                        "jaybenne/tau_ddmc": 5.0}, 0.0, 0.0)
+    xc = mesh.cell_centers()[0]
+    width = 4.0 * float(mesh.block_dx[:, 0].max())
+    thick = torch.floor((xc - mesh.bounds[0]) / width).long() % 2 == 1
+    sig = torch.where(thick, HYBRID_SIGMA[1], HYBRID_SIGMA[0])
+    faces = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags, torch.float32)
+    bl = blocks_per_shard(mesh, n_shards)
+    n_pad = n_shards * bl - mesh.n_blocks
+    ncpb = mesh.ncells_per_block
+    sig = torch.cat([sig.reshape(-1), sig.new_full((n_pad * ncpb,), HYBRID_SIGMA[0])])
+    faces = [torch.cat([f, f.new_zeros((n_pad,) + f.shape[1:])]) for f in faces]
+    owns = [owned_range(mesh, prm, n_shards, s) for s in range(n_shards)]
+    coefs = []
+    for s in range(n_shards):
+        local = sig[s * bl * ncpb:(s + 1) * bl * ncpb]
+        coefs.append(TransportCoefs(sigma_a=torch.zeros_like(local), sigma_s=local,
+                                    fleck=torch.ones_like(local),
+                                    **dict(zip(("px", "py", "pz"),
+                                               (f[s * bl:(s + 1) * bl] for f in faces)))))
+    m = -(-4 * resident_threads(dev) // n_shards)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p0 = empty_ledger(n_shards * m, torch.float32, dev)
+    for s, q in enumerate(split_ledger(p0, n_shards)):
+        lo = s * bl if s * bl < mesh.n_blocks else 0
+        src = forest_ledger(mesh, m, g, CC, blocks=(lo, min(lo + bl, mesh.n_blocks)))
+        place_on_faces(src, mesh, torch.rand(m, generator=g, device=dev) < 0.25, g)
+        for f in dataclasses.fields(q):
+            getattr(q, f.name).copy_(getattr(src, f.name))
+    p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
+    seeds = [seed + 7 * s for s in range(n_shards)]
+    pk, _, err = shards_vs_plain(transport_kernel, f"K4s, all {n_shards} shards", p0, coefs,
+                                 mesh, seeds, prm, cfg.jaybenne.dt, owns)
+    if not bool((pk.leak != 0).any()):
+        raise AssertionError("phase 29, 8 shards: no pending leak code was written")
+    print(f"K4s, all {n_shards} shards: {int((pk.leak != 0).sum())} pending leak codes",
+          flush=True)
+    return err
+
+
 class RoundRecorder:
     """While active, wraps ``transport_kernel.transport`` (so that the steps built
     meanwhile call it through the wrapper) and keeps a copy of the inputs of the
-    first owned-range round of the shard whose range starts at ``lo``; and wraps
-    ``subface_resample`` to count the pending leaks it resolves."""
+    first round (one call over every shard's slice: the joined ledger, the shard
+    count and the call's other arguments); and wraps ``subface_resample`` to count
+    the pending leaks it resolves."""
 
-    def __init__(self, transport_kernel, lo):
-        self.tk, self.lo, self.inputs, self.resolved = transport_kernel, lo, None, 0
+    def __init__(self, transport_kernel):
+        self.tk, self.inputs, self.resolved = transport_kernel, None, 0
         self.real, self.real_fix = transport_kernel.transport, transport_kernel.subface_resample
 
     def __enter__(self):
@@ -1604,8 +1776,10 @@ class RoundRecorder:
         self.tk.transport, self.tk.subface_resample = self.real, self.real_fix
 
     def _census(self, particles, *args):
-        if self.inputs is None and len(args) == 6 and args[5].lo == self.lo:
-            self.inputs = (particles.clone(), args)
+        if self.inputs is None and isinstance(particles, list):
+            from jaybenne_tpu_torch.particles import join_slices
+
+            self.inputs = (join_slices(particles)[0].clone(), len(particles), args)
         return self.real(particles, *args)
 
     def _fix(self, p, faces, mesh, c, gen, offset, n_local):
@@ -1614,19 +1788,19 @@ class RoundRecorder:
         return self.real_fix(p, faces, mesh, c, gen, offset, n_local)
 
 
-def spatial_path(deck, mods, steps, what, lo=0):
+def spatial_path(deck, mods, steps, what):
     """A deck under a decomposition through ``driver.run_file`` on the GPU for
     ``steps`` steps (``None``: to its tlim), the launch counts set to 0 just before
-    and read just after, the first round of the shard whose range starts at ``lo``
-    recorded. Raises unless every step completed its census with nothing dropped
-    and the tally is finite and equals the live weight (sum(tally dV), to
-    ENERGY_RTOL). Returns (sim, launches, the recorded round, pending leaks
-    resolved)."""
+    and read just after, the first round recorded. Raises unless every step
+    completed its census with nothing dropped, every round made one census launch
+    (``launch``), and the tally is finite and equals the live weight (sum(tally
+    dV), to ENERGY_RTOL). Returns (sim, launches, the recorded round, pending
+    leaks resolved)."""
     from jaybenne_tpu_torch.driver import run_file
     from jaybenne_tpu_torch.ops import cuda_lib, transport_kernel
 
     with tempfile.TemporaryDirectory() as outdir:
-        with RoundRecorder(transport_kernel, lo) as rec:
+        with RoundRecorder(transport_kernel) as rec:
             cuda_lib.LAUNCHES.clear()
             sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
                            device="cuda")
@@ -1643,8 +1817,13 @@ def spatial_path(deck, mods, steps, what, lo=0):
     if abs(e - w) > ENERGY_RTOL * w:
         raise AssertionError(f"{what}: sum(tally dV) {e} vs live weight {w}")
     step_s = [h["step_seconds"] for h in sim.history]
+    rounds = [h["migration_rounds"] for h in sim.history]
+    census = {k: v for k, v in launches.items() if k.startswith("transport_")}
+    if sum(census.values()) != sum(rounds):
+        raise AssertionError(f"{what}: census launches {census} for {sum(rounds)} rounds")
     print(f"{what}: {sim.mesh.n_blocks} blocks, {sim.mesh.total_cells} cells, "
           f"{sim.cfg.jaybenne.n_devices} shards, {sim.cycle} steps: launches {launches}; "
+          f"census launches a step {rounds} (one a round); "
           f"events {sim.total_events}; migration rounds "
           f"{[h['migration_rounds'] for h in sim.history]}, migrated "
           f"{[h['migrated'] for h in sim.history]}; sum(tally dV) {e!r} vs live weight "
@@ -1654,24 +1833,45 @@ def spatial_path(deck, mods, steps, what, lo=0):
 
 
 def round_kernel(transport_kernel, dev, inputs, name, cost):
-    """The kernel ``name`` and its plain version timed on a recorded owned-range
-    round and held against each other (bitwise), with its bound from the round's
-    own events (on a forest without the block crossings, so the bound stays a
-    lower one): (ms, plain_ms, events, max_abs_err, bound_ms, bound_by)."""
-    p, args = inputs
-    coefs, mesh, _, prm, _, own = args
-    transport_kernel.transport(p.clone(), *args)  # warm-up
-    ms, ev = time_census(transport_kernel.transport, p, args, dev, 3)
-    plain_ms, _ = time_census(transport_kernel.transport_plain, p, args, dev, 1)
-    _, _, err = owned_vs_plain(transport_kernel, f"{name} on a recorded round", p, args)
-    smr = (mesh, 0) if own.kind == "blocks" else None
-    bound, by = census_bound(p, prm.ndim, bool(prm.has_absorption), coefs.sigma_a.numel(), ev,
-                             cost, ddmc=bool(prm.use_ddmc), smr=smr, nongray=not coefs.is_gray)
-    print(f"{name} on the first round of {own} ({p.capacity} slots, "
+    """The kernel ``name`` and its plain version timed on a recorded round (one
+    call over every shard's slice, with the step's census set-up) and held
+    against each other (bitwise), with its bound from the round's own events (on
+    a forest without the block crossings, so the bound stays a lower one): (ms,
+    plain_ms, events, max_abs_err, bound_ms, bound_by)."""
+    p, n, args = inputs
+    setup, mesh, _, prm, _ = args
+    kernel = sliced(transport_kernel.transport, n)
+    kernel(p.clone(), *args)  # warm-up
+    ms, ev = time_census(kernel, p, args, dev, 3)
+    plain_ms, _ = time_census(sliced(transport_kernel.transport_plain, n), p, args, dev, 1)
+    _, _, err = owned_vs_plain(transport_kernel, f"{name} on a recorded round", p, args, n)
+    smr = (mesh, 0) if setup.owns[0].kind == "blocks" else None
+    bound, by = census_bound(p, prm.ndim, bool(prm.has_absorption), setup.tabs.cell.shape[0],
+                             ev, cost, ddmc=bool(prm.use_ddmc), smr=smr,
+                             nongray=setup.g.nongray)
+    print(f"{name} on the first round, one launch over {n} shards ({p.capacity} slots, "
           f"{int((p.alive & (p.tau < 1.0)).sum())} unfinished): kernel {ms!r} ms, plain "
           f"{plain_ms!r} ms, {ev} events; bound {bound!r} ms ({by}), kernel at "
           f"{bound / ms:.3f} of it; kernel and plain bitwise equal", flush=True)
     return ms, plain_ms, ev, err, bound, by
+
+
+def warp_efficiency_line(transport_kernel, inputs, name, ms, before_ms, n=None):
+    """Prints the slot order's warp efficiency of a recorded census (``inputs`` =
+    (ledger, args), or (ledger, shards, args) for a round), from the plain
+    version's per-slot events, beside the kernel's time and ``before_ms``, the
+    time of the one-thread-per-slot kernel without a regroup (NVIDIA H100 80GB
+    HBM3, 700.00 W); returns it."""
+    p, args = (inputs[0], inputs[-1])
+    lanes = torch.zeros(p.capacity, dtype=torch.int32, device=p.x.device)
+    fn = transport_kernel.transport_plain if n is None else sliced(
+        transport_kernel.transport_plain, n)
+    fn(p.clone(), *args, lane_events=lanes)
+    eff = transport_kernel.warp_efficiency(lanes)
+    print(f"{name}: slot-order warp efficiency {eff!r} (the share of a one-thread-per-slot "
+          f"warp's issued events that are real, {int(lanes.sum())} events); kernel {ms!r} ms; "
+          f"without the regroup and the one-launch round {before_ms} ms", flush=True)
+    return eff
 
 
 def weighted_difference(a, b) -> float:
@@ -1690,28 +1890,34 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
     from jaybenne_tpu_torch.driver import run_file
 
     phase("28 K3s owned-range kernel vs plain: 64^3 in 8^3 blocks, shard 3 of 8 and the "
-          "seam shard 7, 2^17 particles on the shard's z-slab, one round")
+          "seam shard 7, 2^17 particles on the shard's z-slab, one round; then all 8 "
+          "shards in one launch")
     err_z = max(z_round(transport_kernel, dev, Z_SHARD, 2801),
-                z_round(transport_kernel, dev, Z_SHARDS - 1, 2807))
+                z_round(transport_kernel, dev, Z_SHARDS - 1, 2807),
+                z_round_all(transport_kernel, dev, 2808))
 
     phase("29 K4s owned-range kernel vs plain: the 32x16 SMR DDMC forest, shards 0 and 1 "
-          "of 2, 2^17 particles each, one round")
-    err_f = forest_round(transport_kernel, dev, 2901)
+          "of 2, 2^17 particles each, one round; then 8 shards in one launch")
+    err_f = max(forest_round(transport_kernel, dev, 2901),
+                forest_round_all(transport_kernel, dev, 2908))
 
     phase("30 big_mesh_spatial: 64^3 in 8^3 blocks, 200k particles, 3 steps, spatial at "
           "1 and 8 shards")
     big = {}
     for n in (1, 8):
         mods = {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": n}
-        big[n] = spatial_path(DECK, mods, BIG_SPATIAL_STEPS, f"big_mesh_spatial at {n}",
-                              lo=Z_SHARD * 8 if n == 8 else 0)
+        big[n] = spatial_path(DECK, mods, BIG_SPATIAL_STEPS, f"big_mesh_spatial at {n}")
         events_gate(big[n][0].total_events, BIG_SPATIAL_JAX_EVENTS,
                     f"big_mesh_spatial at {n} shards")
     name_z = transport_kernel.launch_name(3, False, route="@z")
     for n in (1, 8):
-        if big[n][1].get(name_z, 0) < BIG_SPATIAL_STEPS * n:
-            raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}")
+        rounds = sum(h["migration_rounds"] for h in big[n][0].history)
+        if big[n][1].get(name_z, 0) != rounds:
+            raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}, {rounds} "
+                                 "rounds")
     k_z = round_kernel(transport_kernel, dev, big[8][2], name_z, cost)
+    warp_efficiency_line(transport_kernel, big[8][2], f"{name_z}, big_mesh_spatial's first "
+                         "round at 8 shards", k_z[0], "1.087 (shard 3's round alone)", n=8)
 
     phase("31 stepdiff through the spatial decomposition at 8 shards: 128 cells in "
           "16-cell blocks at 100k particles, and the CI's 32 cells in 2-cell blocks at 16k")
@@ -1749,7 +1955,7 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
     gate(weighted_difference(sp8.state.fields.energy_tally, one.state.fields.energy_tally),
          SMR_SPATIAL_TOL, "spatial SMR DDMC at 8 shards: weighted difference from one device")
     name_f = transport_kernel.launch_name(2, False, True, True, route="@blocks")
-    if sp_launches.get(name_f, 0) < SMR_SPATIAL_STEPS * 8:
+    if sp_launches.get(name_f, 0) != sum(h["migration_rounds"] for h in sp8.history):
         raise AssertionError(f"spatial SMR DDMC: launches {sp_launches}")
     k_f = round_kernel(transport_kernel, dev, sp_round, name_f, cost)
 
@@ -1794,6 +2000,31 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
             "library_ms": None,
         })
     return kernels
+
+
+def schedule_phase(transport_kernel, dev) -> None:
+    """Phase 36: the twelve DDMC instantiations (1D/2D/3D, with and without
+    absorption, uniform (phase 11's meshes) and SMR (phase 15's forests)) on
+    hybrid ledgers of 4 times the card's resident threads, so that blocks run in
+    several waves, each regrouping its lanes: a full census of the last
+    10 % of a step, kernel and plain identical in every column."""
+    n = 4 * resident_threads(dev)
+    for ndim in (1, 2, 3):
+        for absorb in (False, True):
+            for smr in (False, True):
+                seed = 3600 + 10 * ndim + 2 * absorb + smr
+                dt, mesh, prm, p0, coefs, _ = (smr_setup if smr else hybrid_setup)(
+                    dev, ndim, absorb, True, seed, n=n)
+                g = torch.Generator(device=dev).manual_seed(seed)
+                p0.tau.copy_(0.9 + 0.1 * torch.rand(n, generator=g, device=dev))
+                name = transport_kernel.launch_name(ndim, absorb, True, smr)
+                pk, ev, _ = owned_vs_plain(transport_kernel, f"{name} at {n} slots", p0,
+                                           (coefs, mesh, seed, prm, dt))
+                if bool((pk.tau[pk.alive] < 1.0).any()):
+                    raise AssertionError(f"{name} at {n} slots: short of census")
+                print(f"{name}: full census of {n} slots (4 times the resident threads), "
+                      f"{ev} events, {int(pk.absorbed.sum())} absorbed: kernel and plain "
+                      "identical in every column", flush=True)
 
 
 def main() -> int:
@@ -2151,6 +2382,10 @@ def main() -> int:
     smr_kernels = smr_phases(transport_kernel, dev, cost, src)
     nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
     spatial_kernels = spatial_phases(transport_kernel, dev, cost, src)
+
+    phase("36 the regrouping schedule at scale: the twelve DDMC instantiations, a full "
+          "census on ledgers of 4 times the resident threads")
+    schedule_phase(transport_kernel, dev)
 
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")

@@ -29,23 +29,28 @@
 // pause-and-rebucket rounds, bucket sorts and bf16 pair packing of the TPU
 // kernels are not carried over. It computes what they compute, per particle:
 //
-//   * an owned range [own_lo, own_hi) at run time (not a template parameter):
-//     the global z cells of a shard's slab on the collapsed uniform mesh (K3s,
-//     whose cell table is then the slab's, row ((k - own_lo) ny + j) nx + i), or
-//     a shard's blocks with SMR (K4s, cell table row (block - own_lo) cells per
-//     block + local cell, the block table and lookup grid global). Only a lane
-//     whose cell lies in it runs, and a lane pauses, alive and short of census,
-//     after the event that takes it out. With DDMC in 2D/3D a leak into a finer
-//     block outside the range is not resampled: its code goes to the ledger's
-//     leak column for the owning shard. On one device the range is the whole
-//     mesh, and the census is the same draw for draw;
+//   * a table of shards at run time (not a template parameter), one row per
+//     local shard of the spatial decomposition, so that one launch runs a whole
+//     round: the shard's ledger slots [slot_lo, slot_hi) (its lane is the slot's
+//     index in that slice), its owned range [own_lo, own_hi), its K2 seed and
+//     the first row of its range in the cell table. The range is the global z
+//     cells of the shard's slab on the collapsed uniform mesh (K3s, cell table
+//     row ((k - own_lo) ny + j) nx + i after the shard's first), or the shard's
+//     blocks with SMR (K4s, row (block - own_lo) cells per block + local cell
+//     after it; the block table and lookup grid global). Only a lane whose cell
+//     lies in its shard's range runs, and a lane pauses, alive and short of
+//     census, after the event that takes it out. With DDMC in 2D/3D a leak into
+//     a finer block outside the range is not resampled: its code goes to the
+//     ledger's leak column for the owning shard. On one device the table has one
+//     row, the whole ledger and the whole mesh, and the census is the same draw
+//     for draw;
 //
-//   * one thread per ledger slot runs its own history while
-//     alive && tau < 1 && it < max_iters, with its own iteration counter. A lane
-//     of the JAX tile is active from iteration 0 until census or absorption, so
-//     the thread's counter equals the tile's for every draw the lane makes, and
-//     the variates (kernel_rng.cuh, keyed by seed, slot, it, tag) are the JAX
-//     kernel's interpret-mode variates. Tags follow the JAX DrawPool's order:
+//   * each lane runs its own history while alive && tau < 1 && it < max_iters,
+//     with its own iteration counter. A lane of the JAX tile is active from
+//     iteration 0 until census or absorption, so the lane's counter equals the
+//     tile's for every draw the lane makes, and the variates (kernel_rng.cuh,
+//     keyed by seed, lane, it, tag) are the JAX kernel's interpret-mode
+//     variates. Tags follow the JAX DrawPool's order:
 //     exp23 is tag 0, then the u23 branch draw (ABSORB only), then the u16 word,
 //     then the circle word (multi-D only);
 //   * per event: d_coll = exp23 * inv_sigt[cell]; with ABSORB a u23 branch draw
@@ -91,8 +96,8 @@
 //     followed by a circle word in 2D/3D where the JAX kernel draws one;
 //   * SMR (pallas_transport.py:463-478, 888-891, 973-1151): each event gathers
 //     the lane's block geometry (cell size, origin) from the block table, so
-//     dmin, the face positions and, with DDMC, the reciprocal cell sizes (one
-//     IEEE divide per axis) are per lane, and the cell table row is
+//     dmin, the face positions and, with DDMC, the reciprocal cell sizes (the
+//     block table's f32(1 / dx) column) are per lane, and the cell table row is
 //     block * cells-per-block + local cell. A lane whose index leaves its block
 //     takes the global position origin + local, the domain BCs, and the lookup
 //     probe: half a finest cell along a crossed face's normal (from the out
@@ -125,18 +130,49 @@
 //     kernel draws the same words with and without nongray, so the tags are
 //     ABSORB's. K3 and K4 evaluate the models once per coefficient refresh and
 //     stall a lane whose cell changed until the next one: the same function;
-//   * events are summed per block and added with one int64 atomicAdd, the
-//     iteration maximum with one int32 atomicMax: integer atomics, so the
-//     statistics repeat exactly.
+//   * events and the iteration maximum are summed per shard, in shared memory
+//     and then with one int64 atomicAdd and one int32 atomicMax per block and
+//     shard: integer atomics, so the statistics repeat exactly.
 //
-// What bounds it on an H100: the latency of a divergent per-thread loop of about
-// a thousand events (a warp runs to its slowest lane) and the throughput of
-// logf, the IEEE divides and the hash per event (NONGRAY adds an expf, a sqrtf
-// and four divides), not bytes: each particle is
-// read and written once per call, and the one table gather per event hits L1
-// or L2. The design keeps every particle in registers for the whole census.
-// SMR's block and lookup tables are O(blocks) (at most 32 blocks and 512 tiles
-// on the gate forests) and stay in L1.
+// What bounds it on an H100: not bytes (each particle is read and written once
+// per call, and the one table gather per event hits L1 or L2; SMR's block and
+// lookup tables are O(blocks) and stay in L1), but the throughput of logf, the
+// IEEE divides and the hash per event (NONGRAY adds an expf, a sqrtf and four
+// divides), what a warp issues for nothing, and the longest history: a warp runs
+// until its slowest lane ends, and on a hybrid forest a warp that holds lanes on
+// both branches issues both bodies. On a spatial round, one launch per shard
+// waited for each shard's slowest lane in turn.
+//
+// The schedule: one launch runs every local shard of a round (the shard table
+// above). One thread takes one slot; the block then regroups once, before any
+// event: it stages its runnable lanes (slot, shard, own iteration count,
+// position, velocity, tau, cell, block, face, photon energy: at most 64 bytes a
+// lane) in shared memory and deals them back so that they fill the lowest
+// warps, those on the IMC branch first and, with DDMC, those on the DDMC branch
+// from the next warp boundary. Dead, finished and unowned slots then leave whole
+// warps empty, which issue nothing, and a hybrid warp runs one branch at its
+// start. Each lane then runs its whole history with its state in registers: the
+// lane's state in a struct, or the cell record returned by value, cost the 2D
+// SMR DDMC instantiation a 240-byte stack frame (112 in the body with plain
+// arrays) and halved its speed. A lane carries its slot and its own iteration
+// count, so the results are bitwise those of one thread per slot. With SMR the
+// block table carries f32(1 / dx) per axis (an IEEE divide on the host side), so
+// the DDMC event's per-event divides are gone.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; device ms a step by
+// jaybenne_tpu_torch/profile.py, this kernel and the one before it, one thread
+// per slot without a regroup, in one call): the native 128x64 hybrid 3.30-3.50
+// against 3.25-3.62 (the regroup alone: 3.30 against 3.41-3.45 without it), the
+// stepdiff gate 0.975-0.984 against 1.01-1.02. The slot order's warp efficiency
+// (the plain version's per-slot events: their sum over 32 times the sum of each
+// warp's longest lane) is 0.80 on the hybrid and 0.94 on stepdiff, so no
+// regrouping can win more than a factor 1/0.80 and 1/0.94 there. Two other
+// schedules were built and measured the same way and dropped: a persistent grid
+// (as many blocks as the card holds) taking slots from a device-side cursor with
+// a block regroup every 8 events, hybrid 2.88-2.92 against this one's 2.92-2.95
+// in one call but stepdiff 1.33-1.35 against 0.96, since the block waits at
+// each barrier for its slowest warp; and the same grid with warp-level refills
+// and no barrier, slower than that on both.
 //
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
@@ -163,7 +199,6 @@ struct Geom {
   int n[3];           // cells per axis of the collapsed single block (SMR: a block)
   int bc[6];          // (ix1, ox1, ix2, ox2, ix3, ox3)
   int max_iters;
-  uint32_t seed;
   float dx[3];        // cell size (of the collapsed block; SMR gathers it)
   float inv_dx[3];    // f32(1 / dx)
   float org[3];       // block origin (domain lower bound)
@@ -188,9 +223,6 @@ struct Geom {
   float tile[3];      // f32 tile edge
   float nudge_cross[3];  // f32(0.5 finest): the probe along a crossed face's normal
   float nudge_tilt[3];   // f32(0.01 finest): the probe along the other axes, x v / c
-  // the owned range [own_lo, own_hi): of blocks with SMR, of global z cells in 3D
-  // without; a lane runs while its cell lies in it (the whole mesh on one device)
-  int own_lo, own_hi;
   // NONGRAY only: EPBremss under NonCGSUnits (ops/transport_kernel.py,
   // NONGRAY_CONSTANTS)
   float ng_rho_scale, ng_temp_scale, ng_len_scale;  // NonCGSUnits' scales
@@ -199,12 +231,39 @@ struct Geom {
   float ng_freq_min;          // the frequency clamp, 1e10
   float ng_xc_max;            // the clamp of h nu / k T, 80
 };
-constexpr int kGeomInts = 16;
+constexpr int kGeomInts = 13;
 constexpr int kGeomFloats = 54;
 
-// A refined forest's tables (SMR instantiations only): per block two float4,
-// (dx, dy, dz, 0) and (ox, oy, oz, 0); the int32 level of each block; the
-// int32 lookup grid, (z, y, x) row-major.
+// The local shards of one launch, by value in the kernel's parameters: shard k
+// owns the ledger slots [slot_lo, slot_hi) (a slot's lane is its index in the
+// slice), the owned range [own_lo, own_hi) (of blocks with SMR, of global z cells
+// in 3D without; a lane runs while its cell lies in it), the K2 seed of its
+// round, and the first row of its range in the cell table. The launch scans the
+// slots [first, first + n).
+constexpr int kMaxShards = 64;
+struct Shards {
+  int count;
+  int first;
+  int slot_lo[kMaxShards], slot_hi[kMaxShards];
+  int own_lo[kMaxShards], own_hi[kMaxShards];
+  int row[kMaxShards];
+  uint32_t seed[kMaxShards];
+};
+
+// One lane's shard: its owned range, the cell table row of the range's first
+// cell, its seed.
+struct Own {
+  int lo, hi, row;
+  uint32_t seed;
+};
+
+__device__ __forceinline__ Own own_of(const Shards& S, int k) {
+  return Own{S.own_lo[k], S.own_hi[k], S.row[k], S.seed[k]};
+}
+
+// A refined forest's tables (SMR instantiations only): per block three float4,
+// (dx, dy, dz, 0), (ox, oy, oz, 0) and the f32 reciprocals (1/dx, 1/dy, 1/dz,
+// 0); the int32 level of each block; the int32 lookup grid, (z, y, x) row-major.
 struct Forest {
   const float4* block;
   const int32_t* level;
@@ -231,9 +290,9 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
 // Whether a lane's cell lies in the owned range: its block with SMR, its global
 // z cell in 3D without; 1D/2D uniform meshes are owned whole.
 template <int NDIM, bool SMR>
-__device__ __forceinline__ bool owned(const Geom& g, int blk, const int (&ci)[3]) {
-  if constexpr (SMR) return blk >= g.own_lo && blk < g.own_hi;
-  if constexpr (NDIM == 3) return ci[2] >= g.own_lo && ci[2] < g.own_hi;
+__device__ __forceinline__ bool owned(const Own& o, int blk, const int (&ci)[3]) {
+  if constexpr (SMR) return blk >= o.lo && blk < o.hi;
+  if constexpr (NDIM == 3) return ci[2] >= o.lo && ci[2] < o.hi;
   return true;
 }
 
@@ -276,7 +335,7 @@ struct DdmcTags {
 // -(axis + 1) for a leak through a lower face, +(axis + 1) through an upper
 // one, else 0.
 template <int NDIM, bool ABSORB>
-__device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_t it,
+__device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_t lane, uint32_t it,
                                            int face, float ea, float sig_t,
                                            const float (&pf)[6], const float (&dx)[3],
                                            const float (&inv_dx)[3], const float (&p)[3],
@@ -312,15 +371,15 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
       if (face == a + 1) prob = pf2 * (1.0f + drift);
       if (face == -(a + 1)) prob = pf2 * (1.0f - drift);
     }
-    rejected = jb_u23(jb_raw_bits(g.seed, lane, it, kTagAlbedo)) > prob;
+    rejected = jb_u23(jb_raw_bits(seed, lane, it, kTagAlbedo)) > prob;
   }
   if (rejected) {  // bounce back into the neighbour cell, no time advance
-    const float amu = sqrtf(jb_u16_hi(jb_raw_bits(g.seed, lane, it, kTagU16)));
+    const float amu = sqrtf(jb_u16_hi(jb_raw_bits(seed, lane, it, kTagU16)));
     const float anu = sqrtf(fmaxf(1.0f - amu * amu, 0.0f));
     float a2 = anu, a3 = 0.0f;
     if constexpr (kMultiD) {
       float cph, sph;
-      jb_circle(jb_raw_bits(g.seed, lane, it, kTagAlbedo + 1u), &cph, &sph);
+      jb_circle(jb_raw_bits(seed, lane, it, kTagAlbedo + 1u), &cph, &sph);
       a2 = anu * cph;
       a3 = anu * sph;
     }
@@ -348,12 +407,12 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
 #pragma unroll
   for (int e = 2; e < 2 * NDIM; ++e) leak_tot = leak_tot + lk[e];
   const float cdf = (ABSORB ? ea + leak_tot : leak_tot) + 1.0e-37f;
-  const float dt_ev = jb_exp23(jb_raw_bits(g.seed, lane, it, kTagExp)) / (g.c * cdf);
+  const float dt_ev = jb_exp23(jb_raw_bits(seed, lane, it, kTagExp)) / (g.c * cdf);
   const float dt_rem = g.dt * (1.0f - ptau);
-  const uint32_t w2 = jb_raw_bits(g.seed, lane, it, kTagW2);
+  const uint32_t w2 = jb_raw_bits(seed, lane, it, kTagW2);
   if (dt_ev < dt_rem) {
     ptau = ptau + dt_ev * g.inv_dt;
-    const float xi = cdf * jb_u23(jb_raw_bits(g.seed, lane, it, kTagXi));
+    const float xi = cdf * jb_u23(jb_raw_bits(seed, lane, it, kTagXi));
     if (ABSORB && xi < ea) {
       palive = false;
       pabsorbed = true;
@@ -376,7 +435,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
     float b2 = bnu, b3 = 0.0f;
     if constexpr (kMultiD) {
       float cph, sph;
-      jb_circle(jb_raw_bits(g.seed, lane, it, kTagW2 + 1u), &cph, &sph);
+      jb_circle(jb_raw_bits(seed, lane, it, kTagW2 + 1u), &cph, &sph);
       b2 = bnu * cph;
       b3 = bnu * sph;
     }
@@ -399,7 +458,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
   // census: uniform position in the cell, isotropic direction
   ptau = 1.0f;
   np_[0] = flo[0] + jb_u16_hi(w2) * dx[0];
-  const uint32_t w3 = jb_raw_bits(g.seed, lane, it, kTagW3);
+  const uint32_t w3 = jb_raw_bits(seed, lane, it, kTagW3);
   float cmu;
   if constexpr (NDIM == 1) {
     cmu = 1.0f - 2.0f * jb_u16_lo(w3);
@@ -409,7 +468,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
       cmu = 1.0f - 2.0f * jb_u16_hi(w3);
     } else {
       np_[2] = flo[2] + jb_u16_hi(w3) * dx[2];
-      cmu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(g.seed, lane, it, kTagW3 + 1u));
+      cmu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(seed, lane, it, kTagW3 + 1u));
     }
   }
   const float cst = sqrtf(fmaxf(1.0f - cmu * cmu, 0.0f));
@@ -419,7 +478,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
     v[2] = 0.0f;
   } else {
     float cph, sph;
-    jb_circle(jb_raw_bits(g.seed, lane, it, kTagW3 + (NDIM == 2 ? 1u : 2u)), &cph, &sph);
+    jb_circle(jb_raw_bits(seed, lane, it, kTagW3 + (NDIM == 2 ? 1u : 2u)), &cph, &sph);
     v[0] = g.c * cst * cph;
     v[1] = g.c * cst * sph;
     v[2] = g.c * cmu;
@@ -433,7 +492,7 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t lane, uint32_
 // scatter and any reflection; ``leak`` the DDMC leak code of this event.
 template <int NDIM, bool ABSORB, bool DDMC, bool NONGRAY>
 __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const float* table,
-                                       uint32_t lane, uint32_t it, int leak,
+                                       const Own& o, uint32_t lane, uint32_t it, int leak,
                                        const bool (&out_lo)[3], const bool (&out_hi)[3],
                                        const float (&gp)[3], int& blk, float (&np_)[3],
                                        int (&nci)[3], float (&v)[3], int& pending) {
@@ -449,8 +508,8 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
   if (NDIM == 2) tidx = t[1] * g.nt[0] + t[0];
   if (NDIM == 3) tidx = (t[2] * g.nt[1] + t[1]) * g.nt[0] + t[0];
   const int b_new = __ldg(F.lookup + tidx);
-  const float4 r0 = __ldg(F.block + 2 * b_new);      // (dx, dy, dz, 0)
-  const float4 r1 = __ldg(F.block + 2 * b_new + 1);  // (ox, oy, oz, 0)
+  const float4 r0 = __ldg(F.block + 3 * b_new);      // (dx, dy, dz, 0)
+  const float4 r1 = __ldg(F.block + 3 * b_new + 1);  // (ox, oy, oz, 0)
   const float ndx[3] = {r0.x, r0.y, r0.z};
   const float nbox[3] = {r1.x, r1.y, r1.z};
   float loc[3];
@@ -461,7 +520,7 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
     idx[a] = min(max((int)floorf(loc[a] / ndx[a]), 0), g.n[a] - 1);
   }
   if constexpr (DDMC && NDIM >= 2) {
-    const bool here = b_new >= g.own_lo && b_new < g.own_hi;
+    const bool here = b_new >= o.lo && b_new < o.hi;
     // the fine faces of a block outside the owned range live on another shard:
     // the leak code travels with the lane, which pauses there
     if (leak != 0 && !here && __ldg(F.level + b_new) > __ldg(F.level + blk)) pending = leak;
@@ -471,19 +530,19 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
       const float lsgn = leak > 0 ? 1.0f : -1.0f;
       const int upper = leak < 0 ? 1 : 0;  // a leak in -axis enters the upper face
       float u_sel, u_t[2] = {0.0f, 0.0f};
-      const uint32_t w = jb_raw_bits(g.seed, lane, it, T::kRes);
+      const uint32_t w = jb_raw_bits(o.seed, lane, it, T::kRes);
       if constexpr (NDIM == 2) {
         u_sel = jb_u16_lo(w);
         u_t[0] = jb_u16_hi(w);
       } else {
-        u_sel = jb_u16_hi(jb_raw_bits(g.seed, lane, it, T::kW3 + 1u));
+        u_sel = jb_u16_hi(jb_raw_bits(o.seed, lane, it, T::kW3 + 1u));
         u_t[0] = jb_u16_lo(w);
         u_t[1] = jb_u16_hi(w);
       }
-      const float smu = sqrtf(jb_u16_lo(jb_raw_bits(g.seed, lane, it, T::kRes + 1u)));
+      const float smu = sqrtf(jb_u16_lo(jb_raw_bits(o.seed, lane, it, T::kRes + 1u)));
       const float snu = sqrtf(fmaxf(1.0f - smu * smu, 0.0f));
       float cph, sph;
-      jb_circle(jb_raw_bits(g.seed, lane, it, T::kRes + 2u), &cph, &sph);
+      jb_circle(jb_raw_bits(o.seed, lane, it, T::kRes + 2u), &cph, &sph);
       // the transverse axes t1 < t2 (t2 in 3D only) and the fine edge around the
       // coarse landing point on each; every array index below is a compile-time
       // one, so the lane's state stays in registers
@@ -510,13 +569,13 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
       constexpr int kRec = NONGRAY ? 12 : 8;
       constexpr int kP0 = NONGRAY ? 4 : 2;
       auto face_prob = [&](int c1, int c2) -> float {
-        int flat = b_new - g.own_lo;
+        int flat = b_new - o.lo;
 #pragma unroll
         for (int a = NDIM - 1; a >= 0; --a) {
           const int ia = a == ax ? f_ax : (a == t1 ? c1 : (NDIM == 3 && a == t2 ? c2 : idx[a]));
           flat = flat * g.n[a] + ia;
         }
-        return __ldg(table + kRec * (size_t)flat + kP0 + 2 * ax + upper);
+        return __ldg(table + kRec * ((size_t)o.row + flat) + kP0 + 2 * ax + upper);
       };
       int s1, s2 = 0;
       if constexpr (NDIM == 2) {
@@ -568,366 +627,596 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
   }
 }
 
+// A lane's state as a thread takes it from the ledger, stages it across the
+// regroup and writes it back (``run_lane`` runs the history on a copy in
+// registers). ``slot`` is -1 for a thread that holds no lane.
+struct Lane {
+  int slot;    // its ledger slot
+  int shard;   // its shard in the launch's table
+  int it;      // its own iteration count: the K2 counter of its draws
+  float p[3], v[3], tau;
+  int ci[3], blk, face;
+  float en;    // photon energy (NONGRAY)
+  bool alive, absorbed;
+  int pending; // a leak code for another shard (DDMC with SMR)
+};
+
+// What one event gathers for the lane's cell: its geometry (the collapsed
+// block's, or with SMR the lane's block's: dx, inv_dx, box, dmin) and its table
+// record: (p_abs, 1 / sigma_t) gray without DDMC (tab); with DDMC or NONGRAY
+// fleck sigma_a (ea) and sigma_t; with DDMC the face probabilities (pf) and the
+// branch (is_ddmc). Out-parameters, so that the lane's state stays in registers.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
+__device__ __forceinline__ void gather(const Geom& g, const Forest& F, const float* table,
+                                       const Own& o, int blk, const int (&ci)[3], float en,
+                                       float (&dx)[3], float (&inv_dx)[3], float (&box)[3],
+                                       float& dmin, float2& tab, float& ea, float& sig_t,
+                                       float (&pf)[6], bool& is_ddmc) {
+  int cell;
+  if constexpr (SMR) {
+    const float4 b0 = __ldg(F.block + 3 * blk);      // (dx, dy, dz, 0)
+    const float4 b1 = __ldg(F.block + 3 * blk + 1);  // (ox, oy, oz, 0)
+    dx[0] = b0.x;
+    dx[1] = b0.y;
+    dx[2] = b0.z;
+    box[0] = b1.x;
+    box[1] = b1.y;
+    box[2] = b1.z;
+    dmin = dx[0];
+    if (NDIM >= 2) dmin = fminf(dmin, dx[1]);
+    if (NDIM == 3) dmin = fminf(dmin, dx[2]);
+    if constexpr (DDMC) {
+      const float4 b2 = __ldg(F.block + 3 * blk + 2);  // f32(1 / dx) per axis
+      inv_dx[0] = b2.x;
+      inv_dx[1] = b2.y;
+      inv_dx[2] = b2.z;
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) inv_dx[a] = 0.0f;
+    }
+    cell = blk - o.lo;
+#pragma unroll
+    for (int a = NDIM - 1; a >= 0; --a) cell = cell * g.n[a] + ci[a];
+  } else {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      dx[a] = g.dx[a];
+      inv_dx[a] = g.inv_dx[a];
+      box[a] = g.org[a];
+    }
+    dmin = g.dmin;
+    cell = ci[0];
+    if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
+    if (NDIM == 3) cell = ((ci[2] - o.lo) * g.n[1] + ci[1]) * g.n[0] + ci[0];
+  }
+  cell += o.row;
+  ea = 0.0f;
+  sig_t = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 6; ++e) pf[e] = 0.0f;
+  is_ddmc = false;
+  if constexpr (NONGRAY) {
+    // (rho, T, fleck, sigma_s); with DDMC then (Px_lo, Px_hi, Py_lo, Py_hi) and
+    // (Pz_lo, Pz_hi, 0, 0)
+    const float4* rec = reinterpret_cast<const float4*>(table) + (DDMC ? 3 : 1) * (size_t)cell;
+    const float4 r0 = __ldg(rec);
+    const float sa = epbremss(g, r0.x, r0.y, en);
+    ea = r0.z * sa;
+    sig_t = ea + (r0.w + (1.0f - r0.z) * sa);
+    if constexpr (DDMC) {
+      const float4 r1 = __ldg(rec + 1);
+      pf[0] = r1.x;
+      pf[1] = r1.y;
+      if (NDIM >= 2) {
+        pf[2] = r1.z;
+        pf[3] = r1.w;
+      }
+      if (NDIM == 3) {
+        const float4 r2 = __ldg(rec + 2);
+        pf[4] = r2.x;
+        pf[5] = r2.y;
+      }
+      is_ddmc = dmin * sig_t > g.tau_ddmc;
+    }
+  } else if constexpr (DDMC) {
+    const float4* rec = reinterpret_cast<const float4*>(table) + 2 * (size_t)cell;
+    const float4 r0 = __ldg(rec);  // (ea, es, Px_lo, Px_hi)
+    if (ABSORB) ea = r0.x;
+    sig_t = ABSORB ? r0.x + r0.y : r0.y;
+    pf[0] = r0.z;
+    pf[1] = r0.w;
+    if (NDIM >= 2) {
+      const float4 r1 = __ldg(rec + 1);  // (Py_lo, Py_hi, Pz_lo, Pz_hi)
+      pf[2] = r1.x;
+      pf[3] = r1.y;
+      pf[4] = r1.z;
+      pf[5] = r1.w;
+    }
+    is_ddmc = dmin * sig_t > g.tau_ddmc;
+  } else {
+    tab = __ldg(reinterpret_cast<const float2*>(table) + cell);
+  }
+}
+
+// Whether a lane takes another event.
+template <int NDIM, bool SMR>
+__device__ __forceinline__ bool runs(const Geom& g, const Own& o, bool alive, float tau, int it,
+                                     int blk, const int (&ci)[3]) {
+  return alive && tau < 1.0f && it < g.max_iters && owned<NDIM, SMR>(o, blk, ci);
+}
+
+// One event of a lane (``lane`` is its slot's index in its shard's slice), on
+// its state in registers.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
+__device__ __forceinline__ void event(const Geom& g, const Forest& F, const float* table,
+                                      const Own& o, uint32_t lane, int& pit, float (&p)[3],
+                                      float (&v)[3], float& ptau, int (&ci)[3], int& blk,
+                                      int& pface, bool& palive, bool& pabsorbed, int& pending,
+                                      float en) {
+  constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
+  constexpr uint32_t kTagCircle = kTagU16 + 1u;
+  const uint32_t it = (uint32_t)pit;
+  float dx[3], inv_dx[3], box[3];
+  float dmin;
+  float2 tab;
+  float ea, sig_t;
+  float pf[6];
+  bool is_ddmc;
+  gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, en, dx, inv_dx, box, dmin,
+                                           tab, ea, sig_t, pf, is_ddmc);
+  float np_[3];
+  int nci[3];
+  int nface = 0;
+  int leak = 0;
+  if (DDMC && is_ddmc) {
+    ddmc_event<NDIM, ABSORB>(g, o.seed, lane, it, pface, ea, sig_t, pf, dx, inv_dx, p, ci, v,
+                             np_, nci, ptau, palive, pabsorbed, leak);
+  } else {
+    float d_coll;
+    if constexpr (DDMC || NONGRAY) {
+      d_coll = jb_exp23(jb_raw_bits(o.seed, lane, it, 0u)) / (sig_t + 1.0e-37f);
+    } else {
+      d_coll = jb_exp23(jb_raw_bits(o.seed, lane, it, 0u)) * tab.y;
+    }
+    float u_branch = 0.0f;
+    if (ABSORB) u_branch = jb_u23(jb_raw_bits(o.seed, lane, it, 1u));
+    const float d_end = g.cdt * (1.0f - ptau);
+    const float d_geom = fminf(dmin, d_end);
+
+    float flo[3], fhi[3], fd[3];
+#pragma unroll
+    for (int a = 0; a < NDIM; ++a) {
+      const float f = (float)ci[a];
+      flo[a] = f * dx[a];
+      fhi[a] = (f + 1.0f) * dx[a];
+      fd[a] = v[a] != 0.0f ? g.c * ((v[a] > 0.0f ? fhi[a] : flo[a]) - p[a]) / v[a] : kBig;
+    }
+    float d_push = fminf(d_geom, fd[0]);
+    if (NDIM == 2) d_push = fminf(d_push, fd[1]);
+    if (NDIM == 3) d_push = fminf(d_push, fminf(fd[1], fd[2]));
+
+    const bool coll = d_coll < d_push;
+    bool absorb = false;
+    if constexpr (ABSORB && (DDMC || NONGRAY)) absorb = coll && u_branch * sig_t < ea;
+    if constexpr (ABSORB && !DDMC && !NONGRAY) absorb = coll && u_branch < tab.x;
+    const bool scatter = coll && !absorb;
+    bool cr[3] = {false, false, false};
+    cr[0] = !coll && fd[0] <= d_geom;
+    if (NDIM >= 2) cr[0] = cr[0] && fd[0] <= fd[1];
+    if (NDIM == 3) cr[0] = cr[0] && fd[0] <= fd[2];
+    if (NDIM >= 2) cr[1] = !coll && !cr[0] && fd[1] <= d_geom;
+    if (NDIM == 3) cr[1] = cr[1] && fd[1] <= fd[2];
+    if (NDIM == 3) cr[2] = !coll && !cr[0] && !cr[1] && fd[2] <= d_geom;
+    const bool census = !coll && !cr[0] && !cr[1] && !cr[2] && d_end <= dmin;
+    const float d = coll ? d_coll : d_push;
+
+    ptau = census ? 1.0f : ptau + d * g.inv_cdt;
+    const float step = d * g.inv_c;
+#pragma unroll
+    for (int a = 0; a < NDIM; ++a) {
+      np_[a] = p[a] + v[a] * step;
+      nci[a] = ci[a];
+      if (cr[a]) {
+        np_[a] = v[a] > 0.0f ? fhi[a] : flo[a];
+        nci[a] += v[a] > 0.0f ? 1 : -1;
+        if (DDMC) nface = v[a] > 0.0f ? a + 1 : -(a + 1);
+      }
+    }
+    if (scatter) {  // isotropic scatter
+      const float mu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(o.seed, lane, it, kTagU16));
+      const float st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+      if (NDIM == 1) {
+        v[0] = g.c * mu;
+        v[1] = g.c * st;
+        v[2] = 0.0f;
+      } else {
+        float cph, sph;
+        jb_circle(jb_raw_bits(o.seed, lane, it, kTagCircle), &cph, &sph);
+        v[0] = g.c * st * cph;
+        v[1] = g.c * st * sph;
+        v[2] = g.c * mu;
+      }
+    }
+    if (absorb) {
+      palive = false;
+      pabsorbed = true;
+    }
+  }
+
+  bool out_lo[3], out_hi[3];
+  bool any_out = false;
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    out_lo[a] = nci[a] < 0;
+    out_hi[a] = nci[a] >= g.n[a];
+    any_out = any_out || out_lo[a] || out_hi[a];
+  }
+  if (any_out) {  // a block face: the domain BCs, then the block and cell
+    float gp[3];
+#pragma unroll
+    for (int a = 0; a < NDIM; ++a) {
+      gp[a] = box[a] + np_[a];
+      const bool hit_lo = out_lo[a] && gp[a] <= g.lo_half[a];
+      const bool hit_hi = out_hi[a] && gp[a] >= g.hi_half[a];
+      if (hit_lo) {
+        if (g.bc[2 * a] == kReflecting) {
+          gp[a] = clip(2.0f * g.lo[a] - gp[a], g.lo[a], g.hi[a]);
+          v[a] = -v[a];
+          if (DDMC) nface = -nface;
+        } else if (g.bc[2 * a] == kPeriodic) {
+          gp[a] = clip(gp[a] + g.span[a], g.lo[a], g.hi[a]);
+        } else {
+          palive = false;
+        }
+      }
+      if (hit_hi) {
+        if (g.bc[2 * a + 1] == kReflecting) {
+          gp[a] = clip(2.0f * g.hi[a] - gp[a], g.lo[a], g.hi[a]);
+          v[a] = -v[a];
+          if (DDMC) nface = -nface;
+        } else if (g.bc[2 * a + 1] == kPeriodic) {
+          gp[a] = clip(gp[a] - g.span[a], g.lo[a], g.hi[a]);
+        } else {
+          palive = false;
+        }
+      }
+    }
+    if (SMR && palive) {  // re-home by the lookup grid
+      rehome<NDIM, ABSORB, DDMC, NONGRAY>(g, F, table, o, lane, it, leak, out_lo, out_hi, gp,
+                                          blk, np_, nci, v, pending);
+    } else {
+#pragma unroll
+      for (int a = 0; a < NDIM; ++a) {
+        if (palive) {  // rebase into the block and re-derive every cell
+          np_[a] = gp[a] - g.org[a];
+          nci[a] = min(max((int)(np_[a] * g.inv_dx[a]), 0), g.n[a] - 1);
+        } else {
+          nci[a] = min(max(nci[a], 0), g.n[a] - 1);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    p[a] = np_[a];
+    ci[a] = nci[a];
+  }
+  pface = nface;
+  ++pit;
+}
+
+// A lane's history from its state in ``st`` until it stops (absorbed, escaped,
+// at census, out of its range or at the iteration cap): the state is copied into
+// registers for the loop and back after it.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
+__device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const float* table,
+                                         const Shards& S, Lane& st) {
+  const Own o = own_of(S, st.shard);
+  const uint32_t lane = (uint32_t)(st.slot - S.slot_lo[st.shard]);
+  float p[3] = {st.p[0], st.p[1], st.p[2]};
+  float v[3] = {st.v[0], st.v[1], st.v[2]};
+  int ci[3] = {st.ci[0], st.ci[1], st.ci[2]};
+  float tau = st.tau;
+  int it = st.it, blk = st.blk, face = st.face, pending = 0;
+  bool alive = true, absorbed = false;
+  do {
+    event<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, lane, it, p, v, tau, ci, blk, face,
+                                            alive, absorbed, pending, st.en);
+  } while (runs<NDIM, SMR>(g, o, alive, tau, it, blk, ci));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    st.p[a] = p[a];
+    st.v[a] = v[a];
+    st.ci[a] = ci[a];
+  }
+  st.tau = tau;
+  st.it = it;
+  st.blk = blk;
+  st.face = face;
+  st.pending = pending;
+  st.alive = alive;
+  st.absorbed = absorbed;
+}
+
+// A thread without a lane takes ledger slot q if its particle runs: alive, short
+// of census, in a shard of the launch and in that shard's owned range. Any other
+// slot is left untouched.
+template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
+__device__ __forceinline__ void take(const Ledger& L, const Geom& g, const Shards& S, int q,
+                                     Lane& s) {
+  int k = -1;
+  for (int j = 0; j < S.count; ++j)
+    if (q >= S.slot_lo[j] && q < S.slot_hi[j]) k = j;
+  if (k < 0 || g.max_iters <= 0 || L.alive[q] == 0 || !(L.tau[q] < 1.0f)) return;
+  int ci[3] = {0, 0, 0};
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) ci[a] = L.ci[a][q];
+  const int blk = SMR ? L.blk[q] : 0;
+  if (!owned<NDIM, SMR>(own_of(S, k), blk, ci)) return;
+  s.slot = q;
+  s.shard = k;
+  s.it = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    s.p[a] = a < NDIM ? L.x[a][q] : 0.0f;
+    s.v[a] = L.v[a][q];
+    s.ci[a] = ci[a];
+  }
+  s.tau = L.tau[q];
+  s.blk = blk;
+  s.face = DDMC ? L.face[q] : 0;
+  s.en = NONGRAY ? L.energy[q] : 0.0f;
+  s.alive = true;
+  s.absorbed = false;
+  s.pending = 0;
+}
+
+// A lane that stopped (absorbed, escaped, at census, out of its range or at the
+// iteration cap) writes its state back.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR>
+__device__ __forceinline__ void retire(const Ledger& L, const Lane& s) {
+  const int q = s.slot;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (a < NDIM) {
+      L.x[a][q] = s.p[a];
+      L.ci[a][q] = s.ci[a];
+    }
+    L.v[a][q] = s.v[a];
+  }
+  L.tau[q] = s.tau;
+  L.alive[q] = s.alive ? 1 : 0;
+  if (ABSORB && s.absorbed) L.absorbed[q] = 1;
+  if (DDMC) L.face[q] = s.face;
+  if (SMR) L.blk[q] = s.blk;
+  if (DDMC && SMR && s.pending != 0) L.leak[q] = s.pending;
+}
+
+// Adds each thread's events ``it`` and iteration count to its shard's (``shard``
+// -1 for a thread without a lane) in shared memory: one atomic pair per warp
+// when the warp's lanes share a shard, as they do unless a slice boundary falls
+// inside the block, else one per lane (same-address atomics of every lane cost
+// the kernels of one or two events a lane up to twice their time). Every thread
+// of the warp calls it.
+__device__ __forceinline__ void count(int shard, int it, unsigned long long* ev, int* mx) {
+  const int top = __reduce_max_sync(0xFFFFFFFFu, shard);
+  if (__all_sync(0xFFFFFFFFu, shard < 0 || shard == top)) {
+    unsigned long long sum = shard < 0 ? 0ull : (unsigned long long)it;
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xFFFFFFFFu, sum, off);
+    const int most = (int)__reduce_max_sync(0xFFFFFFFFu, (unsigned)(shard < 0 ? 0 : it));
+    if ((threadIdx.x & 31) == 0 && top >= 0) {
+      atomicAdd(ev + top, sum);
+      atomicMax(mx + top, most);
+    }
+  } else if (shard >= 0) {
+    atomicAdd(ev + shard, (unsigned long long)it);
+    atomicMax(mx + shard, it);
+  }
+}
+
+constexpr int kWarps = kThreads / 32;
+
+// Staging area of a block's regroup, one column per lane.
+struct Stage {
+  int cnt[kWarps][2];    // lanes of each warp on the IMC and on the DDMC branch
+  float f[8][kThreads];  // x y z vx vy vz tau energy
+  int i[8][kThreads];    // slot shard it i j k block face
+};
+
+// The block's regroup (every thread calls it): the live lanes are dealt back to
+// the lowest threads, those on the IMC branch first and, with DDMC, those on the
+// DDMC branch from the next warp boundary when they fit; a thread left without a
+// lane gets slot -1. A full block on one branch keeps its arrangement.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
+__device__ __forceinline__ void regroup(const Geom& g, const Forest& F, const float* table,
+                                        const Shards& S, Stage& sm, Lane& st) {
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  // key 0 on the IMC branch, 1 on the DDMC branch, 2 no lane
+  int key = 2;
+  if (st.slot >= 0) {
+    key = 0;
+    if constexpr (DDMC) {
+      float dx[3], inv_dx[3], box[3], dmin, ea, sig_t, pf[6];
+      float2 tab;
+      bool is_ddmc;
+      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, own_of(S, st.shard), st.blk, st.ci,
+                                               st.en, dx, inv_dx, box, dmin, tab, ea, sig_t, pf,
+                                               is_ddmc);
+      key = is_ddmc ? 1 : 0;
+    }
+  }
+  const unsigned b0 = __ballot_sync(0xFFFFFFFFu, key == 0);
+  const unsigned b1 = __ballot_sync(0xFFFFFFFFu, key == 1);
+  if ((threadIdx.x & 31) == 0) {
+    sm.cnt[warp][0] = __popc(b0);
+    sm.cnt[warp][1] = __popc(b1);
+  }
+  __syncthreads();
+  int n0 = 0, n1 = 0, pre0 = 0, pre1 = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) {
+      pre0 += sm.cnt[w][0];
+      pre1 += sm.cnt[w][1];
+    }
+    n0 += sm.cnt[w][0];
+    n1 += sm.cnt[w][1];
+  }
+  // a full block on one branch keeps its arrangement
+  if (n0 + n1 < kThreads || (n0 > 0 && n1 > 0)) {
+    int start1 = (n0 + 31) & ~31;
+    if (start1 + n1 > kThreads) start1 = n0;
+    if (key != 2) {
+      const int d = key == 0 ? pre0 + __popc(b0 & below) : start1 + pre1 + __popc(b1 & below);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        if (a < NDIM) {
+          sm.f[a][d] = st.p[a];
+          sm.i[3 + a][d] = st.ci[a];
+        }
+        sm.f[3 + a][d] = st.v[a];
+      }
+      sm.f[6][d] = st.tau;
+      if (NONGRAY) sm.f[7][d] = st.en;
+      sm.i[0][d] = st.slot;
+      sm.i[1][d] = st.shard;
+      sm.i[2][d] = st.it;
+      if (SMR) sm.i[6][d] = st.blk;
+      if (DDMC) sm.i[7][d] = st.face;
+    }
+    __syncthreads();
+    const int t = threadIdx.x;
+    st.slot = -1;
+    if (t < n0 || (t >= start1 && t < start1 + n1)) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        st.p[a] = a < NDIM ? sm.f[a][t] : 0.0f;
+        st.ci[a] = a < NDIM ? sm.i[3 + a][t] : 0;
+        st.v[a] = sm.f[3 + a][t];
+      }
+      st.tau = sm.f[6][t];
+      st.en = NONGRAY ? sm.f[7][t] : 0.0f;
+      st.slot = sm.i[0][t];
+      st.shard = sm.i[1][t];
+      st.it = sm.i[2][t];
+      st.blk = SMR ? sm.i[6][t] : 0;
+      st.face = DDMC ? sm.i[7][t] : 0;
+      st.alive = true;
+      st.absorbed = false;
+      st.pending = 0;
+    }
+  }
+}
+
+// The census: one thread per ledger slot. A thread takes its slot if the
+// particle runs (``take``); the block regroups once, so that its live lanes fill
+// its lowest warps, those on the IMC branch first and those on the DDMC branch
+// from the next warp boundary; then each lane runs its whole history in
+// registers and writes it back. A lane carries its slot and its own iteration
+// count, so the thread that runs it does not change a draw.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __global__ void __launch_bounds__(kThreads)
     transport_kernel(Ledger L, const float* __restrict__ table, Forest F, int n, Geom g,
-                     unsigned long long* __restrict__ events,
+                     Shards S, unsigned long long* __restrict__ events,
                      int32_t* __restrict__ iters) {
-  constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
-  constexpr uint32_t kTagCircle = kTagU16 + 1u;
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  int it = 0;
-  int ci[3] = {0, 0, 0};
-  int blk = 0;
-  if (s < n && L.alive[s] != 0 && L.tau[s] < 1.0f) {
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a) ci[a] = L.ci[a][s];
-    if (SMR) blk = L.blk[s];
+  __shared__ unsigned long long s_ev[kMaxShards];
+  __shared__ int s_mx[kMaxShards];
+  __shared__ Stage sm;
+  for (int k = threadIdx.x; k < S.count; k += kThreads) {
+    s_ev[k] = 0;
+    s_mx[k] = 0;
   }
-  if (s < n && L.alive[s] != 0 && L.tau[s] < 1.0f && owned<NDIM, SMR>(g, blk, ci)) {
-    float p[3], v[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      p[a] = a < NDIM ? L.x[a][s] : 0.0f;
-      v[a] = L.v[a][s];
-    }
-    float ptau = L.tau[s];
-    bool palive = true;
-    bool pabsorbed = false;
-    int pface = DDMC ? L.face[s] : 0;
-    int pending = 0;  // a leak code for another shard (DDMC with SMR)
-    const float en = NONGRAY ? L.energy[s] : 0.0f;
-    const uint32_t lane = (uint32_t)s;
-    // a lane that leaves the owned range pauses: alive, short of census, its
-    // state at the crossing
-    while (palive && ptau < 1.0f && it < g.max_iters && owned<NDIM, SMR>(g, blk, ci)) {
-      // the cell geometry: the collapsed block's, or with SMR the lane's block's
-      float dx[3], inv_dx[3], box[3];
-      float dmin;
-      int cell;
-      if constexpr (SMR) {
-        const float4 b0 = __ldg(F.block + 2 * blk);      // (dx, dy, dz, 0)
-        const float4 b1 = __ldg(F.block + 2 * blk + 1);  // (ox, oy, oz, 0)
-        dx[0] = b0.x;
-        dx[1] = b0.y;
-        dx[2] = b0.z;
-        box[0] = b1.x;
-        box[1] = b1.y;
-        box[2] = b1.z;
-        dmin = dx[0];
-        if (NDIM >= 2) dmin = fminf(dmin, dx[1]);
-        if (NDIM == 3) dmin = fminf(dmin, dx[2]);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) inv_dx[a] = DDMC ? 1.0f / dx[a] : 0.0f;
-        cell = blk - g.own_lo;
-#pragma unroll
-        for (int a = NDIM - 1; a >= 0; --a) cell = cell * g.n[a] + ci[a];
-      } else {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          dx[a] = g.dx[a];
-          inv_dx[a] = g.inv_dx[a];
-          box[a] = g.org[a];
-        }
-        dmin = g.dmin;
-        cell = ci[0];
-        if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
-        if (NDIM == 3) cell = ((ci[2] - g.own_lo) * g.n[1] + ci[1]) * g.n[0] + ci[0];
-      }
-      float2 tab;        // (p_abs, 1 / sigma_t), gray without DDMC
-      float ea = 0.0f;   // with DDMC or NONGRAY: fleck sigma_a
-      float sig_t = 0.0f;
-      float pf[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      bool is_ddmc = false;
-      if constexpr (NONGRAY) {
-        // (rho, T, fleck, sigma_s); with DDMC then (Px_lo, Px_hi, Py_lo, Py_hi)
-        // and (Pz_lo, Pz_hi, 0, 0)
-        const float4* rec = reinterpret_cast<const float4*>(table) + (DDMC ? 3 : 1) * (size_t)cell;
-        const float4 r0 = __ldg(rec);
-        const float sa = epbremss(g, r0.x, r0.y, en);
-        ea = r0.z * sa;
-        sig_t = ea + (r0.w + (1.0f - r0.z) * sa);
-        if constexpr (DDMC) {
-          const float4 r1 = __ldg(rec + 1);
-          pf[0] = r1.x;
-          pf[1] = r1.y;
-          if (NDIM >= 2) {
-            pf[2] = r1.z;
-            pf[3] = r1.w;
-          }
-          if (NDIM == 3) {
-            const float4 r2 = __ldg(rec + 2);
-            pf[4] = r2.x;
-            pf[5] = r2.y;
-          }
-          is_ddmc = dmin * sig_t > g.tau_ddmc;
-        }
-      } else if constexpr (DDMC) {
-        const float4* rec = reinterpret_cast<const float4*>(table) + 2 * (size_t)cell;
-        const float4 r0 = __ldg(rec);  // (ea, es, Px_lo, Px_hi)
-        if (ABSORB) ea = r0.x;
-        sig_t = ABSORB ? r0.x + r0.y : r0.y;
-        pf[0] = r0.z;
-        pf[1] = r0.w;
-        if (NDIM >= 2) {
-          const float4 r1 = __ldg(rec + 1);  // (Py_lo, Py_hi, Pz_lo, Pz_hi)
-          pf[2] = r1.x;
-          pf[3] = r1.y;
-          pf[4] = r1.z;
-          pf[5] = r1.w;
-        }
-        is_ddmc = dmin * sig_t > g.tau_ddmc;
-      } else {
-        tab = __ldg(reinterpret_cast<const float2*>(table) + cell);
-      }
-      float np_[3];
-      int nci[3];
-      int nface = 0;
-      int leak = 0;
-      if (DDMC && is_ddmc) {
-        ddmc_event<NDIM, ABSORB>(g, lane, (uint32_t)it, pface, ea, sig_t, pf, dx, inv_dx, p, ci,
-                                 v, np_, nci, ptau, palive, pabsorbed, leak);
-      } else {
-        float d_coll;
-        if constexpr (DDMC || NONGRAY) {
-          d_coll = jb_exp23(jb_raw_bits(g.seed, lane, (uint32_t)it, 0u)) / (sig_t + 1.0e-37f);
-        } else {
-          d_coll = jb_exp23(jb_raw_bits(g.seed, lane, (uint32_t)it, 0u)) * tab.y;
-        }
-        float u_branch = 0.0f;
-        if (ABSORB) u_branch = jb_u23(jb_raw_bits(g.seed, lane, (uint32_t)it, 1u));
-        const float d_end = g.cdt * (1.0f - ptau);
-        const float d_geom = fminf(dmin, d_end);
-
-        float flo[3], fhi[3], fd[3];
-#pragma unroll
-        for (int a = 0; a < NDIM; ++a) {
-          const float f = (float)ci[a];
-          flo[a] = f * dx[a];
-          fhi[a] = (f + 1.0f) * dx[a];
-          fd[a] = v[a] != 0.0f ? g.c * ((v[a] > 0.0f ? fhi[a] : flo[a]) - p[a]) / v[a]
-                               : kBig;
-        }
-        float d_push = fminf(d_geom, fd[0]);
-        if (NDIM == 2) d_push = fminf(d_push, fd[1]);
-        if (NDIM == 3) d_push = fminf(d_push, fminf(fd[1], fd[2]));
-
-        const bool coll = d_coll < d_push;
-        bool absorb = false;
-        if constexpr (ABSORB && (DDMC || NONGRAY)) absorb = coll && u_branch * sig_t < ea;
-        if constexpr (ABSORB && !DDMC && !NONGRAY) absorb = coll && u_branch < tab.x;
-        const bool scatter = coll && !absorb;
-        bool cr[3] = {false, false, false};
-        cr[0] = !coll && fd[0] <= d_geom;
-        if (NDIM >= 2) cr[0] = cr[0] && fd[0] <= fd[1];
-        if (NDIM == 3) cr[0] = cr[0] && fd[0] <= fd[2];
-        if (NDIM >= 2) cr[1] = !coll && !cr[0] && fd[1] <= d_geom;
-        if (NDIM == 3) cr[1] = cr[1] && fd[1] <= fd[2];
-        if (NDIM == 3) cr[2] = !coll && !cr[0] && !cr[1] && fd[2] <= d_geom;
-        const bool census = !coll && !cr[0] && !cr[1] && !cr[2] && d_end <= dmin;
-        const float d = coll ? d_coll : d_push;
-
-        ptau = census ? 1.0f : ptau + d * g.inv_cdt;
-        const float step = d * g.inv_c;
-#pragma unroll
-        for (int a = 0; a < NDIM; ++a) {
-          np_[a] = p[a] + v[a] * step;
-          nci[a] = ci[a];
-          if (cr[a]) {
-            np_[a] = v[a] > 0.0f ? fhi[a] : flo[a];
-            nci[a] += v[a] > 0.0f ? 1 : -1;
-            if (DDMC) nface = v[a] > 0.0f ? a + 1 : -(a + 1);
-          }
-        }
-        if (scatter) {  // isotropic scatter
-          const float mu =
-              1.0f - 2.0f * jb_u16_lo(jb_raw_bits(g.seed, lane, (uint32_t)it, kTagU16));
-          const float st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
-          if (NDIM == 1) {
-            v[0] = g.c * mu;
-            v[1] = g.c * st;
-            v[2] = 0.0f;
-          } else {
-            float cph, sph;
-            jb_circle(jb_raw_bits(g.seed, lane, (uint32_t)it, kTagCircle), &cph, &sph);
-            v[0] = g.c * st * cph;
-            v[1] = g.c * st * sph;
-            v[2] = g.c * mu;
-          }
-        }
-        if (absorb) {
-          palive = false;
-          pabsorbed = true;
-        }
-      }
-
-      bool out_lo[3], out_hi[3];
-      bool any_out = false;
-#pragma unroll
-      for (int a = 0; a < NDIM; ++a) {
-        out_lo[a] = nci[a] < 0;
-        out_hi[a] = nci[a] >= g.n[a];
-        any_out = any_out || out_lo[a] || out_hi[a];
-      }
-      if (any_out) {  // a block face: the domain BCs, then the block and cell
-        float gp[3];
-#pragma unroll
-        for (int a = 0; a < NDIM; ++a) {
-          gp[a] = box[a] + np_[a];
-          const bool hit_lo = out_lo[a] && gp[a] <= g.lo_half[a];
-          const bool hit_hi = out_hi[a] && gp[a] >= g.hi_half[a];
-          if (hit_lo) {
-            if (g.bc[2 * a] == kReflecting) {
-              gp[a] = clip(2.0f * g.lo[a] - gp[a], g.lo[a], g.hi[a]);
-              v[a] = -v[a];
-              if (DDMC) nface = -nface;
-            } else if (g.bc[2 * a] == kPeriodic) {
-              gp[a] = clip(gp[a] + g.span[a], g.lo[a], g.hi[a]);
-            } else {
-              palive = false;
-            }
-          }
-          if (hit_hi) {
-            if (g.bc[2 * a + 1] == kReflecting) {
-              gp[a] = clip(2.0f * g.hi[a] - gp[a], g.lo[a], g.hi[a]);
-              v[a] = -v[a];
-              if (DDMC) nface = -nface;
-            } else if (g.bc[2 * a + 1] == kPeriodic) {
-              gp[a] = clip(gp[a] - g.span[a], g.lo[a], g.hi[a]);
-            } else {
-              palive = false;
-            }
-          }
-        }
-        if (SMR && palive) {  // re-home by the lookup grid
-          rehome<NDIM, ABSORB, DDMC, NONGRAY>(g, F, table, lane, (uint32_t)it, leak, out_lo,
-                                              out_hi, gp, blk, np_, nci, v, pending);
-        } else {
-#pragma unroll
-          for (int a = 0; a < NDIM; ++a) {
-            if (palive) {  // rebase into the block and re-derive every cell
-              np_[a] = gp[a] - g.org[a];
-              nci[a] = min(max((int)(np_[a] * g.inv_dx[a]), 0), g.n[a] - 1);
-            } else {
-              nci[a] = min(max(nci[a], 0), g.n[a] - 1);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < NDIM; ++a) {
-        p[a] = np_[a];
-        ci[a] = nci[a];
-      }
-      pface = nface;
-      ++it;
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      if (a < NDIM) {
-        L.x[a][s] = p[a];
-        L.ci[a][s] = ci[a];
-      }
-      L.v[a][s] = v[a];
-    }
-    L.tau[s] = ptau;
-    L.alive[s] = palive ? 1 : 0;
-    if (ABSORB && pabsorbed) L.absorbed[s] = 1;
-    if (DDMC) L.face[s] = pface;
-    if (SMR) L.blk[s] = blk;
-    if (DDMC && SMR && pending != 0) L.leak[s] = pending;
+  Lane st;
+  st.slot = -1;
+  st.it = 0;
+  const int q = blockIdx.x * kThreads + threadIdx.x;
+  if (q < n) take<NDIM, DDMC, SMR, NONGRAY>(L, g, S, S.first + q, st);
+  regroup<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, sm, st);
+  if (st.slot >= 0) {
+    run_lane<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, st);
+    retire<NDIM, ABSORB, DDMC, SMR>(L, st);
   }
-
-  // block reduction of the per-thread event counts (one event per iteration)
-  unsigned long long ev = (unsigned long long)it;
-  int mx = it;
-  for (int off = 16; off > 0; off >>= 1) {
-    ev += __shfl_down_sync(0xFFFFFFFFu, ev, off);
-    mx = max(mx, __shfl_down_sync(0xFFFFFFFFu, mx, off));
-  }
-  __shared__ unsigned long long s_ev[kThreads / 32];
-  __shared__ int s_mx[kThreads / 32];
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0) {
-    s_ev[warp] = ev;
-    s_mx[warp] = mx;
-  }
+  count(st.slot >= 0 ? st.shard : -1, st.it, s_ev, s_mx);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) {
-      ev += s_ev[w];
-      mx = max(mx, s_mx[w]);
-    }
-    if (ev > 0) {
-      atomicAdd(events, ev);
-      atomicMax(iters, mx);
+  for (int k = threadIdx.x; k < S.count; k += kThreads) {
+    if (s_ev[k] > 0) {
+      atomicAdd(events + k, s_ev[k]);
+      atomicMax(iters + k, s_mx[k]);
     }
   }
 }
 
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 void launch(const Ledger& L, const float* table, const Forest& F, int n, const Geom& g,
-            unsigned long long* events, int32_t* iters, cudaStream_t stream) {
+            const Shards& S, unsigned long long* events, int32_t* iters, cudaStream_t stream) {
   transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY>
-      <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, events, iters);
+      <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, S, events,
+                                                                 iters);
 }
 
 // A frequency-dependent opacity absorbs: NONGRAY is instantiated with ABSORB only
 // (the entry point refuses it without).
 template <int NDIM, bool SMR>
 void launch_mode(bool absorb, bool ddmc, bool nongray, const Ledger& L, const float* table,
-                 const Forest& F, int n, const Geom& g, unsigned long long* events,
+                 const Forest& F, int n, const Geom& g, const Shards& S, unsigned long long* events,
                  int32_t* iters, cudaStream_t stream) {
   if (nongray) {
-    if (!ddmc) launch<NDIM, true, false, SMR, true>(L, table, F, n, g, events, iters, stream);
-    if (ddmc) launch<NDIM, true, true, SMR, true>(L, table, F, n, g, events, iters, stream);
+    if (!ddmc) launch<NDIM, true, false, SMR, true>(L, table, F, n, g, S, events, iters,
+                                                     stream);
+    if (ddmc) launch<NDIM, true, true, SMR, true>(L, table, F, n, g, S, events, iters, stream);
     return;
   }
   if (!absorb && !ddmc)
-    launch<NDIM, false, false, SMR, false>(L, table, F, n, g, events, iters, stream);
+    launch<NDIM, false, false, SMR, false>(L, table, F, n, g, S, events, iters, stream);
   if (absorb && !ddmc)
-    launch<NDIM, true, false, SMR, false>(L, table, F, n, g, events, iters, stream);
+    launch<NDIM, true, false, SMR, false>(L, table, F, n, g, S, events, iters, stream);
   if (!absorb && ddmc)
-    launch<NDIM, false, true, SMR, false>(L, table, F, n, g, events, iters, stream);
+    launch<NDIM, false, true, SMR, false>(L, table, F, n, g, S, events, iters, stream);
   if (absorb && ddmc)
-    launch<NDIM, true, true, SMR, false>(L, table, F, n, g, events, iters, stream);
+    launch<NDIM, true, true, SMR, false>(L, table, F, n, g, S, events, iters, stream);
 }
 
 template <int NDIM>
 void launch_dim(bool absorb, bool ddmc, bool smr, bool nongray, const Ledger& L,
-                const float* table, const Forest& F, int n, const Geom& g,
+                const float* table, const Forest& F, int n, const Geom& g, const Shards& S,
                 unsigned long long* events, int32_t* iters, cudaStream_t stream) {
   if (smr) {
-    launch_mode<NDIM, true>(absorb, ddmc, nongray, L, table, F, n, g, events, iters, stream);
+    launch_mode<NDIM, true>(absorb, ddmc, nongray, L, table, F, n, g, S, events, iters, stream);
   } else {
-    launch_mode<NDIM, false>(absorb, ddmc, nongray, L, table, F, n, g, events, iters, stream);
+    launch_mode<NDIM, false>(absorb, ddmc, nongray, L, table, F, n, g, S, events, iters,
+                             stream);
   }
 }
 
 }  // namespace
 
 // ptrs: 16 device pointers x y z vx vy vz tau i j k alive absorbed face block
-// energy leak.
+// energy leak, of a ledger of ``capacity`` slots.
 // table: per cell, the float2 (p_abs, 1 / sigma_t) without DDMC, the 8 floats
 // (ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi) with it (16-byte aligned);
 // with nongray the 4 floats (rho, T, fleck, sigma_s), with DDMC followed by the
 // six face probabilities and two zeros; in global row-major cell order on a
-// uniform forest, block cell order with SMR.
-// With smr: block_table (per block the 8 floats dx dy dz 0 ox oy oz 0, 16-byte
-// aligned), levels (int32 per block) and lookup (the int32 lookup grid); null
-// otherwise.
-// igeom: n[3] bc[6] max_iters seed nt[3] own_lo own_hi; fgeom: dx[3] inv_dx[3] org[3] lo[3]
-// hi[3] lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc eps_imc
-// eps_ddmc dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] rho_scale
-// temp_scale length_scale sb kb hh g_ff freq_min xc_max (host arrays).
+// uniform forest, block cell order with SMR; the shards' ranges one after another.
+// With smr: block_table (per block the 12 floats dx dy dz 0 ox oy oz 0 1/dx 1/dy
+// 1/dz 0, 16-byte aligned), levels (int32 per block) and lookup (the int32 lookup
+// grid); null otherwise.
+// igeom: n[3] bc[6] max_iters nt[3]; fgeom: dx[3] inv_dx[3] org[3] lo[3] hi[3]
+// lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc eps_imc eps_ddmc
+// dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] rho_scale temp_scale
+// length_scale sb kb hh g_ff freq_min xc_max (host arrays).
+// shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row,
+// seed) (host array). events: n_shards uint64 and iters: n_shards int32, zeroed
+// (device).
 // Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
-// SMR launch without its tables, -3 for nongray without absorb.
+// SMR launch without its tables, -3 for nongray without absorb, -4 for a shard
+// table the kernel does not take.
 extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int nongray,
                                    void* const* ptrs,
                                    const void* table, const void* block_table,
-                                   const void* levels, const void* lookup, int n,
-                                   const int* igeom, const float* fgeom, void* events,
-                                   void* iters, void* stream) {
+                                   const void* levels, const void* lookup, int capacity,
+                                   const int* igeom, const float* fgeom, int n_shards,
+                                   const int* shards, void* events, void* iters, void* stream) {
   Ledger L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (float*)ptrs[a];
@@ -951,10 +1240,7 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   for (int a = 0; a < 3; ++a) g.n[a] = *ip++;
   for (int a = 0; a < 6; ++a) g.bc[a] = *ip++;
   g.max_iters = *ip++;
-  g.seed = (uint32_t)*ip++;
   for (int a = 0; a < 3; ++a) g.nt[a] = *ip++;
-  g.own_lo = *ip++;
-  g.own_hi = *ip++;
   const float* fp = fgeom;
   float* dst[8] = {g.dx, g.inv_dx, g.org, g.lo, g.hi, g.lo_half, g.hi_half, g.span};
   for (int k = 0; k < 8; ++k)
@@ -977,22 +1263,40 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   float* ng_dst[9] = {&g.ng_rho_scale, &g.ng_temp_scale, &g.ng_len_scale, &g.ng_sb, &g.ng_kb,
                       &g.ng_hh, &g.ng_g, &g.ng_freq_min, &g.ng_xc_max};
   for (int k = 0; k < 9; ++k) *ng_dst[k] = *fp++;
-  static_assert(kGeomInts == 16 && kGeomFloats == 54, "geometry layout");
+  static_assert(kGeomInts == 13 && kGeomFloats == 54, "geometry layout");
 
   if (ndim < 1 || ndim > 3) return -1;
   const bool sm = smr != 0;
   if (sm && (block_table == nullptr || levels == nullptr || lookup == nullptr)) return -2;
   const bool ng = nongray != 0;
   if (ng && absorb == 0) return -3;
+  if (n_shards < 1 || n_shards > kMaxShards) return -4;
+  Shards S;
+  S.count = n_shards;
+  int first = capacity, last = 0;
+  for (int k = 0; k < n_shards; ++k) {
+    const int* row = shards + 6 * k;
+    S.slot_lo[k] = row[0];
+    S.slot_hi[k] = row[1];
+    S.own_lo[k] = row[2];
+    S.own_hi[k] = row[3];
+    S.row[k] = row[4];
+    S.seed[k] = (uint32_t)row[5];
+    if (row[0] < 0 || row[1] < row[0] || row[1] > capacity) return -4;
+    first = row[0] < first ? row[0] : first;
+    last = row[1] > last ? row[1] : last;
+  }
+  S.first = first;
+  const int n = last - first;
   if (n > 0) {
     const float* tab = (const float*)table;
     auto* ev = (unsigned long long*)events;
     auto* itp = (int32_t*)iters;
     auto st = (cudaStream_t)stream;
     const bool ab = absorb != 0, dd = ddmc != 0;
-    if (ndim == 1) launch_dim<1>(ab, dd, sm, ng, L, tab, F, n, g, ev, itp, st);
-    if (ndim == 2) launch_dim<2>(ab, dd, sm, ng, L, tab, F, n, g, ev, itp, st);
-    if (ndim == 3) launch_dim<3>(ab, dd, sm, ng, L, tab, F, n, g, ev, itp, st);
+    if (ndim == 1) launch_dim<1>(ab, dd, sm, ng, L, tab, F, n, g, S, ev, itp, st);
+    if (ndim == 2) launch_dim<2>(ab, dd, sm, ng, L, tab, F, n, g, S, ev, itp, st);
+    if (ndim == 3) launch_dim<3>(ab, dd, sm, ng, L, tab, F, n, g, S, ev, itp, st);
   }
   return (int)cudaGetLastError();
 }

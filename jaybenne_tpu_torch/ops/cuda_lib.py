@@ -48,8 +48,9 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,  # ndim absorb ddmc smr nongray
         _P, _P,          # host array of 16 ledger pointers, cell table
         _P, _P, _P,      # block table, block levels, lookup grid (SMR; else null)
-        _I,              # n
+        _I,              # ledger capacity
         _P, _P,          # host int and float geometry arrays
+        _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row seed)
         _P, _P, _P,      # events iters stream
     ),
 }

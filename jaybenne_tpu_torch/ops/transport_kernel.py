@@ -57,6 +57,12 @@ into the ledger's ``leak`` column instead of resampling, and pauses: the fine
 block's face probabilities live on that shard (``subface_resample``). The whole
 mesh as the range is the single-device census, draw for draw.
 
+One call can run every local shard of a round at once: with a sequence of ranges,
+the shards' ledgers (adjacent slices of one ledger), their coefficients and their
+seeds, one launch covers them all, each lane keyed by its slot's index in its own
+shard's slice. ``prepare`` builds a call's geometry and tables, so that a step
+builds them once and every round reuses them.
+
 Configurations the kernel does not take raise ``NotImplementedError`` naming their
 ROADMAP item, on every device: nothing falls back to another loop.
 """
@@ -74,6 +80,7 @@ from ..models.opacity import EPBremss, NonCGSUnits
 from ..utils import constants
 from ..utils.constants import LAM_EXT
 from . import cuda_lib
+from ..particles import join_slices
 from .kernel_rng import DrawPool, raw_bits_plain
 
 _BC_CODE = {BC.periodic: 0, BC.outflow: 1, BC.reflecting: 2}
@@ -304,10 +311,12 @@ def _face_pairs(px, py, pz, mesh):
 @dataclasses.dataclass(frozen=True)
 class _Tables:
     """What the census gathers from: the per-cell table and, on a refined forest,
-    the block table [B, 8] = (dx, dy, dz, 0, ox, oy, oz, 0) read as two float4,
-    the int32 level of each block and the flat int32 lookup grid ((z, y, x)
-    row-major, x fastest). ``opacity`` is the frequency-dependent model that the
-    plain version evaluates per event (None for gray runs)."""
+    the block table [B, 12] = (dx, dy, dz, 0, ox, oy, oz, 0, 1/dx, 1/dy, 1/dz, 0)
+    read as three float4 (the reciprocals by an IEEE float32 divide, the bits the
+    kernel's per-event divide gave), the int32 level of each block and the flat
+    int32 lookup grid ((z, y, x) row-major, x fastest). ``opacity`` is the
+    frequency-dependent model that the plain version evaluates per event (None
+    for gray runs)."""
 
     cell: torch.Tensor
     block: torch.Tensor | None = None
@@ -322,9 +331,10 @@ def _tables(coefs, mesh, g: _Geom) -> _Tables:
         return _Tables(cell, opacity=coefs.opacity)
     # slices, not an index list: a list index is a host tensor copied to the card,
     # which would synchronise the host with the queue at every census
-    block = torch.zeros((mesh.n_blocks, 8), dtype=torch.float32, device=cell.device)
+    block = torch.zeros((mesh.n_blocks, 12), dtype=torch.float32, device=cell.device)
     block[:, 0:3] = mesh.block_dx.to(block)
     block[:, 4:7] = mesh.block_origin.to(block)
+    block[:, 8:11] = torch.ones_like(block[:, 0:3]) / block[:, 0:3]
     return _Tables(cell, block,
                    mesh.block_level.to(device=cell.device, dtype=torch.int32).contiguous(),
                    mesh.lookup.to(device=cell.device, dtype=torch.int32).reshape(-1).contiguous(),
@@ -639,11 +649,14 @@ def _face_column(g: _Geom) -> int:
     return 4 if g.nongray else 2
 
 
-def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tuple):
+def _census_plain(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int,
+                  lane_events=None):
     """All lanes advance one event per loop step (the JAX kernel's tile loop over
-    the whole ledger) while their cell lies in the owned range ``own`` = (lo, hi):
-    of blocks with SMR, of global z cells in 3D without. Returns (iterations,
-    events) as tensors."""
+    the whole ledger) while their cell lies in their shard's owned range (of
+    blocks with SMR, of global z cells in 3D without); ``shards`` are ``_Shard``
+    rows, and a slot in none of them does not run. Returns (iterations, events)
+    as [len(shards)] tensors; ``lane_events``, an int32 tensor of the ledger's
+    length, receives each slot's events."""
     dev = p.x.device
     f32 = torch.float32
     nd = g.ndim
@@ -665,19 +678,33 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tu
              nudge_tilt=axes(g.nudge_tilt),
              **{name: s(getattr(g, name)) for name in ("eps_imc", "eps_ddmc", "dt", "inv_dt",
                                                        "lam2", "pf2_num")})
-    lanes = torch.arange(p.capacity, dtype=torch.int64, device=dev)
+    # each slot's shard: its lane (the slot's index in the shard's slice), seed,
+    # owned range and first table row
+    cap = p.capacity
+    lanes = torch.zeros(cap, dtype=torch.int64, device=dev)
+    seeds, own_lo, own_hi, row0 = (torch.zeros_like(lanes) for _ in range(4))
+    in_shard = torch.zeros(cap, dtype=torch.bool, device=dev)
+    for sh in shards:
+        sl = slice(sh.slot_lo, sh.slot_hi)
+        lanes[sl] = torch.arange(sh.slot_hi - sh.slot_lo, dtype=torch.int64, device=dev)
+        for t, v in ((seeds, sh.seed & 0xFFFFFFFF), (own_lo, sh.own_lo), (own_hi, sh.own_hi),
+                     (row0, sh.row)):
+            t[sl] = v
+        in_shard[sl] = True
+    own = (own_lo, own_hi)
 
     def raw(it, tag):
-        return raw_bits_plain(seed, lanes, it, tag)
+        return raw_bits_plain(seeds, lanes, it, tag)
 
     n_rows = tabs.cell.shape[0]
 
     def cell_of(blk, ijk):
         """Cell table row: row-major on a uniform forest (over the owned z cells), in
-        block order with SMR (over the owned blocks); clipped to the table, so a
-        lane outside the range gathers a row it does not use."""
+        block order with SMR (over the owned blocks), after the rows of the shards
+        before; clipped to the table, so a lane outside the range gathers a row it
+        does not use."""
         if g.smr:
-            cell = blk - own[0]
+            cell = blk - own_lo
             for a in reversed(range(nd)):
                 cell = cell * g.n[a] + ijk[a]
         else:
@@ -685,8 +712,8 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tu
             if nd == 2:
                 cell = ijk[1] * g.n[0] + cell
             elif nd == 3:
-                cell = ((ijk[2] - own[0]) * g.n[1] + ijk[1]) * g.n[0] + cell
-        return torch.clamp(cell, 0, n_rows - 1)
+                cell = ((ijk[2] - own_lo) * g.n[1] + ijk[1]) * g.n[0] + cell
+        return torch.clamp(cell + row0, 0, n_rows - 1)
 
     pos = [p.x, p.y, p.z][:nd]
     idx = [p.i, p.j, p.k][:nd]
@@ -696,12 +723,12 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tu
 
     def owned():
         if g.smr:
-            return (blk >= own[0]) & (blk < own[1])
+            return in_shard & (blk >= own_lo) & (blk < own_hi)
         if nd == 3:
-            return (idx[2] >= own[0]) & (idx[2] < own[1])
-        return torch.ones_like(alive)
+            return in_shard & (idx[2] >= own_lo) & (idx[2] < own_hi)
+        return in_shard
 
-    events = torch.zeros((), dtype=torch.int64, device=dev)
+    n_ev = torch.zeros(cap, dtype=torch.int32, device=dev)
     it = 0
     while it < max_iters:
         active = alive & (tau < one) & owned()
@@ -715,7 +742,7 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tu
             for a in range(1, nd):
                 dmin = torch.minimum(dmin, dx[a])
             if g.ddmc:
-                k["dx"], k["inv_dx"] = dx, [one / d for d in dx]
+                k["dx"], k["inv_dx"] = dx, [brow[:, 8 + a] for a in range(nd)]
         row = tabs.cell[cell_of(blk.long(), [q.long() for q in idx])]
         if g.nongray:  # rows (rho, T, fleck, sigma_s): the opacity at the photon energy
             ff = row[:, 2]
@@ -848,20 +875,24 @@ def _census_plain(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tu
         alive.copy_(nalive)
         if g.ddmc:  # an inactive lane keeps its code
             face.copy_(torch.where(active, nface, face))
-        events += active.sum()
+        n_ev += active.to(torch.int32)
         it += 1
-    return torch.tensor(it, dtype=torch.int32, device=dev), events
+    if lane_events is not None:
+        lane_events.copy_(n_ev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    events = torch.stack([n_ev[sh.slot_lo:sh.slot_hi].sum(dtype=torch.int64) for sh in shards])
+    iters = torch.stack([torch.cat([n_ev[sh.slot_lo:sh.slot_hi], zero]).max() for sh in shards])
+    return iters, events
 
 
-def _check_cuda_ledger(p, coefs):
+def _check_cuda_ledger(p, tabs: _Tables):
     """What the kernel takes, checked before anything touches the ledger."""
     dev = p.x.device
     floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.energy)
     ints = (p.i, p.j, p.k, p.block, p.face, p.leak)
     bools = (p.alive, p.absorbed)
-    cells = tuple(t for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck, coefs.px, coefs.py,
-                              coefs.pz, coefs.rho, coefs.temp) if t is not None)
-    for t in (*floats, *ints, *bools, *cells):
+    tables = tuple(t for t in (tabs.cell, tabs.block, tabs.level, tabs.lookup) if t is not None)
+    for t in (*floats, *ints, *bools, *tables):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("transport kernel: ledger tensors must be contiguous on one GPU")
     if any(t.shape != (p.capacity,) for t in (*floats, *ints, *bools)):
@@ -874,73 +905,176 @@ def _check_cuda_ledger(p, coefs):
         raise ValueError("transport kernel: capacity must fit in int32")
 
 
-def _census_cuda(p, tabs: _Tables, g: _Geom, seed: int, max_iters: int, own: tuple):
-    """One launch of the census kernel on PyTorch's current stream (no
-    synchronisation); the ledger was checked by ``_check_cuda_ledger``."""
+# the shards one launch takes (csrc/transport_kernel.cu, kMaxShards); a call over
+# more makes one launch for each group of as many
+MAX_SHARDS_PER_LAUNCH = 64
+
+
+def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int):
+    """The census kernel on PyTorch's current stream (no synchronisation), one
+    launch for every MAX_SHARDS_PER_LAUNCH shards; the ledger was checked by
+    ``_check_cuda_ledger``."""
     dev = p.x.device
-    events = torch.zeros((), dtype=torch.int64, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    n = len(shards)
+    groups = [shards[k:k + MAX_SHARDS_PER_LAUNCH] for k in range(0, n, MAX_SHARDS_PER_LAUNCH)]
+    events = torch.zeros(n, dtype=torch.int64, device=dev)
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)
     cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
             p.face, p.block, p.energy, p.leak)
     ptrs = (ctypes.c_void_p * len(cols))(*(t.data_ptr() for t in cols))
-    ints = (*g.n, *g.bc, int(max_iters), int(seed), *g.ntiles, *own)
+    ints = (*g.n, *g.bc, int(max_iters), *g.ntiles)
     floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
               g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt, g.tau_ddmc, g.eps_imc, g.eps_ddmc,
               g.dt, g.inv_dt, g.lam2, g.pf2_num, *g.tile, *g.nudge_cross, *g.nudge_tilt,
               *g.ng)
     smr = (tabs.block, tabs.level, tabs.lookup) if g.smr else (None, None, None)
-    cuda_lib.library().call(
-        "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr),
-        int(g.nongray), ptrs,
-        tabs.cell.data_ptr(), *(0 if t is None else t.data_ptr() for t in smr),
-        p.capacity, (ctypes.c_int * len(ints))(*ints),
-        (ctypes.c_float * len(floats))(*map(float, floats)),
-        events.data_ptr(), iters.data_ptr(), cuda_lib.stream_handle(dev),
-    )
-    cuda_lib.LAUNCHES[launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route)] += 1
+    name = launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route)
+    for k, group in enumerate(groups):
+        k0 = k * MAX_SHARDS_PER_LAUNCH
+        rows = [v for sh in group for v in dataclasses.astuple(sh)]
+        cuda_lib.library().call(
+            "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr),
+            int(g.nongray), ptrs,
+            tabs.cell.data_ptr(), *(0 if t is None else t.data_ptr() for t in smr),
+            p.capacity, (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*map(float, floats)),
+            len(group), (ctypes.c_int * len(rows))(*rows),
+            events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
+        )
+        cuda_lib.LAUNCHES[name] += 1
     return iters, events
 
 
-def _run(census, particles, coefs, mesh, seed, prm, dt, own):
-    check_supported(mesh, prm, particles.x.dtype)
-    smr = mesh.max_level > 0
-    if own is not None:
-        own.check(mesh)
-        smr = smr or own.kind == "blocks"
-    n_cells = (mesh.total_cells if own is None
-               else own.n_blocks(mesh) * mesh.ncells_per_block)
-    if any(t.shape != (n_cells,) for t in (coefs.sigma_a, coefs.sigma_s, coefs.fleck)):
-        raise ValueError(f"transport: {n_cells} coefficients expected, one per owned cell")
-    g = _geometry(mesh, prm, dt, coefs, smr)
-    if own is not None:
-        g = dataclasses.replace(g, route=own.route)
-    bounds = (whole_mesh(mesh) if own is None else own).bounds()
-    tabs = _tables(coefs, mesh, g)
-    _collapse(particles, mesh, smr)
-    iters, events = census(particles, tabs, g, int(seed), prm.max_iters, bounds)
-    _expand(particles, mesh, smr)
-    return particles, iters, events
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """One shard of a census call, in the kernel's shard-table order: its slots
+    [slot_lo, slot_hi) of the call's ledger, its owned range [own_lo, own_hi),
+    the first row of that range in the cell table and its signed 32-bit K2
+    seed."""
+
+    slot_lo: int
+    slot_hi: int
+    own_lo: int
+    own_hi: int
+    row: int
+    seed: int
 
 
-def transport(particles, coefs, mesh, seed, prm, dt, own: OwnedRange | None = None):
+@dataclasses.dataclass(frozen=True)
+class Census:
+    """A census set-up, built by ``prepare``: the geometry and the tables of one
+    step's coefficients and the owned ranges they cover. Coefficients do not
+    change within a step, so a spatial step builds it once and every round
+    reuses it. The ranges' tables lie one after another: ``rows[k]`` is range k's
+    first row."""
+
+    g: _Geom
+    tabs: _Tables
+    owns: tuple
+    rows: tuple
+
+
+def _concat_coefs(coefs: list):
+    """One coefficient set over several ranges: each tensor concatenated in range
+    order along its block (or cell) axis."""
+    first = coefs[0]
+    return dataclasses.replace(first, **{
+        f.name: torch.cat([getattr(c, f.name) for c in coefs])
+        for f in dataclasses.fields(first) if isinstance(getattr(first, f.name), torch.Tensor)})
+
+
+def prepare(coefs, mesh, prm, dt, own=None) -> Census:
+    """The census set-up of one step ``dt``: with ``own`` None the whole mesh and
+    its coefficients; with an ``OwnedRange`` that range and its coefficients (see
+    ``OwnedRange``); with a sequence of ranges, all of one kind, a sequence of
+    coefficient sets, one per range (the local shards of a spatial round)."""
+    multi = own is not None and not isinstance(own, OwnedRange)
+    owns = tuple(own) if multi else (whole_mesh(mesh) if own is None else own,)
+    cset = list(coefs) if multi else [coefs]
+    if not owns or len(cset) != len(owns) or len({o.kind for o in owns}) != 1:
+        raise ValueError("transport: one coefficient set per owned range, all of one kind")
+    smr = mesh.max_level > 0 or (own is not None and owns[0].kind == "blocks")
+    rows, total = [], 0
+    for o, c in zip(owns, cset):
+        if own is not None:
+            o.check(mesh)
+        n_cells = mesh.total_cells if own is None else o.n_blocks(mesh) * mesh.ncells_per_block
+        if any(t.shape != (n_cells,) for t in (c.sigma_a, c.sigma_s, c.fleck)):
+            raise ValueError(f"transport: {n_cells} coefficients expected, one per owned cell")
+        rows.append(total)
+        total += n_cells
+    g = _geometry(mesh, prm, dt, cset[0], smr)
+    if own is not None:
+        g = dataclasses.replace(g, route=owns[0].route)
+    tabs = _tables(cset[0] if len(cset) == 1 else _concat_coefs(cset), mesh, g)
+    return Census(g, tabs, owns, tuple(rows))
+
+
+def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
+    multi = isinstance(particles, (list, tuple))
+    ledgers = list(particles) if multi else [particles]
+    seeds = list(seed) if multi else [seed]
+    p, slices = join_slices(ledgers)
+    check_supported(mesh, prm, p.x.dtype)
+    if isinstance(coefs, Census):
+        if own is not None:
+            raise ValueError("transport: a prepared census carries its owned ranges")
+        setup = coefs
+    else:
+        setup = prepare(coefs, mesh, prm, dt, own)
+    if not (len(ledgers) == len(seeds) == len(setup.owns)):
+        raise ValueError("transport: one ledger and one seed per owned range")
+    if census is _census_cuda:
+        _check_cuda_ledger(p, setup.tabs)
+    shards = tuple(_Shard(lo, hi, *o.bounds(), row, int(sd))
+                   for (lo, hi), o, row, sd in zip(slices, setup.owns, setup.rows, seeds))
+    _collapse(p, mesh, setup.g.smr)
+    iters, events = census(p, setup.tabs, setup.g, shards, prm.max_iters, **kw)
+    _expand(p, mesh, setup.g.smr)
+    if multi:
+        return particles, iters, events
+    return particles, iters[0], events[0]
+
+
+def transport(particles, coefs, mesh, seed, prm, dt, own=None):
     """Census transport of ``particles`` (updated in place) over one step ``dt``:
     the CUDA kernel for a ledger on a GPU, the plain version for one on the CPU.
-    ``seed`` is the step's signed 32-bit K2 seed. With ``own`` the call is one
-    round of the spatial decomposition: only the range's lanes run, each until it
-    leaves the range, and ``coefs`` are the range's (see ``OwnedRange``). Returns
-    ``(particles, iterations, events)``."""
-    dev = particles.x.device.type
+    ``seed`` is the step's signed 32-bit K2 seed. With ``own`` an ``OwnedRange``
+    the call is one round of the spatial decomposition: only the range's lanes
+    run, each until it leaves the range, and ``coefs`` are the range's. With
+    ``own`` a sequence of ranges, ``particles``, ``coefs`` and ``seed`` are
+    sequences too, one per range: the local shards' ledgers, which must be
+    adjacent slices of one ledger, and one launch runs them all; a lane is its
+    slot's index in its own shard's ledger. ``coefs`` may also be a ``Census``
+    from ``prepare`` (``own`` None), reused across calls. Returns ``(particles,
+    iterations, events)``, the last two per range ([n] tensors) with a sequence
+    of ledgers."""
+    p = particles[0] if isinstance(particles, (list, tuple)) else particles
+    dev = p.x.device.type
     if dev == "cuda":
-        _check_cuda_ledger(particles, coefs)
         return _run(_census_cuda, particles, coefs, mesh, seed, prm, dt, own)
     if dev == "cpu":
         return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own)
-    raise ValueError(f"transport: unsupported device {particles.x.device}")
+    raise ValueError(f"transport: unsupported device {p.x.device}")
 
 
-def transport_plain(particles, coefs, mesh, seed, prm, dt, own: OwnedRange | None = None):
-    """The plain PyTorch version of ``transport`` on any device."""
-    return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own)
+def transport_plain(particles, coefs, mesh, seed, prm, dt, own=None, lane_events=None):
+    """The plain PyTorch version of ``transport`` on any device. ``lane_events``, an
+    int32 tensor as long as the (joined) ledger, receives each slot's events."""
+    return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own,
+                lane_events=lane_events)
+
+
+def warp_efficiency(lane_events, width: int = 32) -> float:
+    """The share of issued lane-events that are real when each group of ``width``
+    consecutive slots runs until its longest lane ends (one thread per slot in
+    slot order): sum of the events over ``width`` times the sum of each group's
+    largest count."""
+    ev = lane_events.to(torch.int64)
+    pad = (-ev.numel()) % width
+    groups = torch.cat([ev, ev.new_zeros(pad)]).reshape(-1, width)
+    issued = int(groups.max(dim=1).values.sum()) * width
+    return float(int(ev.sum()) / issued) if issued else 1.0
 
 
 def subface_resample(p, faces, mesh, c, gen, offset, n_local):

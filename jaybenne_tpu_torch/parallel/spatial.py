@@ -9,13 +9,16 @@ census is the reference's iterative task list (``jaybenne.cpp:113-131``):
     until the summed unfinished count is 0 or max_migration_rounds is reached:
         subface fixup of DDMC arrivals -> local census -> all_to_all migration
 
-The local census is one owned-range call of the census kernel
-(``transport_kernel.OwnedRange``): on a uniform IMC mesh whose shards own whole
-z planes of blocks the range is the shard's global z cells (the JAX package's
-K3s, ``pallas_grid.py::make_spatial_grid``), on every other mesh the shard's
-blocks (K4s, ``pallas_bucketed.py::make_spatial_transport``). A lane runs until
-census, absorption, exit, or the event that takes it out of the range, where it
-pauses; migration then ships it to its owner.
+The local census is one call of the census kernel over every local shard, each
+with its owned range (``transport_kernel.OwnedRange``): on a uniform IMC mesh
+whose shards own whole z planes of blocks the range is the shard's global z
+cells (the JAX package's K3s, ``pallas_grid.py::make_spatial_grid``), on every
+other mesh the shard's blocks (K4s, ``pallas_bucketed.py::make_spatial_transport``).
+The local shards' ledgers are adjacent slices of the process's ledger, so one
+launch runs them all; its tables are built once a step (``transport_kernel.
+prepare``), since the coefficients do not change within one. A lane runs until
+census, absorption, exit, or the event that takes it out of its shard's range,
+where it pauses; migration then ships it to its owner.
 
 Block metadata (origins, sizes, levels, the lookup grid) stays whole on every
 shard, so a shard computes the whole block transition of a leaving particle. The
@@ -220,25 +223,27 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
                 dropped[i] = dropped[i] + d
         coefs = [transport_ops.precompute_coefs(f, mesh, eos, opacity, scattering,
                                                 jb.use_ddmc, dtype) for f in fs]
+        setup = transport_kernel.prepare(coefs, mesh, prm_round, dt, [owns[s] for s in shards])
         cap = ps[0].capacity
         K = jb.migration_buffer_k or max(64, cap // (2 * n))
-        iters = [torch.zeros((), dtype=torch.int32, device=dev) for _ in states]
-        events = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
-        hits = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
+        iters = torch.zeros(len(states), dtype=torch.int32, device=dev)
+        events = torch.zeros(len(states), dtype=torch.int64, device=dev)
+        hits = torch.zeros(len(states), dtype=torch.int64, device=dev)
         sent = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
         rounds, unfinished = 0, 1
         while rounds < max_rounds and unfinished > 0:
-            for i, (st, s, off) in enumerate(zip(states, shards, offsets)):
-                if smr_ddmc:  # pending coarse-to-fine leaks, before the census
+            if smr_ddmc:  # pending coarse-to-fine leaks, before the census
+                for i, (st, s, off) in enumerate(zip(states, shards, offsets)):
                     gen = rng.generator(st.seed, st.cycle, rng.PHASE_FIXUP, dev, (s, rounds))
                     transport_kernel.subface_resample(
                         ps[i], (fs[i].ddmc_px, fs[i].ddmc_py, fs[i].ddmc_pz), mesh, prm.c,
                         gen, off, bl)
-                seed = rng.kernel_seed(st.seed, st.cycle, s, rounds)
-                _, it, ev = census(ps[i], coefs[i], mesh, seed, prm_round, dt, owns[s])
-                iters[i] = iters[i] + it
-                events[i] = events[i] + ev
-                hits[i] = hits[i] + (it >= prm.max_iters).to(torch.int64)
+            seeds = [rng.kernel_seed(st.seed, st.cycle, s, rounds)
+                     for st, s in zip(states, shards)]
+            _, it, ev = census(ps, setup, mesh, seeds, prm_round, dt)
+            iters = iters + it
+            events = events + ev
+            hits = hits + (it >= prm.max_iters).to(torch.int64)
             if can_migrate:
                 drop, n_sent = migrate(ps, offsets, bl, K, exchange)
                 dropped = [d + e for d, e in zip(dropped, drop)]
@@ -258,11 +263,11 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
         n_alive = exchange.sum([p.alive.sum(dtype=torch.int64) for p in ps])
         dropped = exchange.sum(dropped)
         stats = StepStats(
-            iterations=exchange.max(iters)[0],
-            events=exchange.sum(events)[0],
+            iterations=exchange.max(list(iters.unbind()))[0],
+            events=exchange.sum(list(events.unbind()))[0],
             n_alive=n_alive[0],
             dropped=dropped[0],
-            cap_hits=exchange.sum(hits)[0],
+            cap_hits=exchange.sum(list(hits.unbind()))[0],
             unfinished=torch.tensor(unfinished, dtype=torch.int64, device=dev),
             migration_rounds=rounds,
             migrated=int(exchange.sum(sent)[0]),

@@ -67,6 +67,32 @@ class ParticleLedger:
         )
 
 
+def join_slices(ledgers) -> tuple:
+    """One ledger over ``ledgers``, which must be adjacent slices of one ledger in
+    order (the local shards' views of a process's ledger), and each slice's [lo,
+    hi) in it: ``(ledger, ((lo, hi), ...))``. The joined columns are views, so
+    updates through it reach every slice. One ledger is returned as it is."""
+    bounds, lo = [], 0
+    for p in ledgers:
+        bounds.append((lo, lo + p.capacity))
+        lo += p.capacity
+    if len(ledgers) == 1:
+        return ledgers[0], tuple(bounds)
+    cols = {}
+    for f in dataclasses.fields(ParticleLedger):
+        ts = [getattr(p, f.name) for p in ledgers]
+        t0 = ts[0]
+        for t, (start, _) in zip(ts, bounds):
+            if (t.device != t0.device or t.dtype != t0.dtype or t.dim() != 1
+                    or t.stride() != (1,) or t.untyped_storage().data_ptr()
+                    != t0.untyped_storage().data_ptr()
+                    or t.storage_offset() != t0.storage_offset() + start):
+                raise ValueError("join_slices: the ledgers are not adjacent slices of one "
+                                 f"ledger ({f.name})")
+        cols[f.name] = t0.as_strided((lo,), (1,), t0.storage_offset())
+    return ParticleLedger(**cols), tuple(bounds)
+
+
 def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor,
                      reserved: torch.Tensor | None = None):
     """Write candidate particles into the ledger's dead slots, IN PLACE.

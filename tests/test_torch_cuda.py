@@ -690,8 +690,9 @@ def test_owned_range_blocks_kernel_matches_plain(gpu, shard):
 
 def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
     """The stepdiff slab through the spatial decomposition at 4 in-process shards
-    on the card, 2 steps: every round launches the block-range route, the tally
-    holds the live weights, and a rerun is bitwise identical."""
+    on the card, 2 steps: every round makes one launch of the block-range route
+    over all 4 shards, the tally holds the live weights, and a rerun is bitwise
+    identical."""
     mods = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
             "jaybenne/num_particles": 8000, "jaybenne/decomposition": "spatial",
             "jaybenne/n_devices": 4, "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "2.e-11",
@@ -703,7 +704,7 @@ def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
         sims.append(run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
                              device="cuda"))
         rounds = sum(h["migration_rounds"] for h in sims[-1].history)
-        assert cuda_lib.LAUNCHES[name] == before + 4 * rounds
+        assert cuda_lib.LAUNCHES[name] == before + rounds  # one launch a round
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.is_cuda and torch.equal(a, b)
     sim = sims[0]
@@ -711,3 +712,76 @@ def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
     w = float(p.weight.double()[p.alive].sum())
     e = float((a.double() * sim.mesh.block_volume.double()[:, None, None, None]).sum())
     assert abs(e - w) <= 1e-5 * w and sim.history[-1]["migrated"] > 0
+
+
+# ------------------------------------------- the regrouping schedule, at scale
+
+
+def _resident_lanes(dev) -> int:
+    """The most threads the card holds at once."""
+    props = torch.cuda.get_device_properties(dev)
+    return props.multi_processor_count * getattr(props, "max_threads_per_multi_processor", 2048)
+
+
+def _same_round(k, q, it_k, ev_k, it_q, ev_q):
+    for f in dataclasses.fields(k):
+        a, b = getattr(k, f.name), getattr(q, f.name)
+        assert torch.equal(a, b), (f.name, int((a != b).sum()))
+    assert torch.equal(it_k, it_q) and torch.equal(ev_k, ev_q)
+
+
+@pytest.mark.parametrize("route", ["z", "blocks"])
+def test_multi_shard_launch_matches_plain(gpu, route):
+    """One launch over 8 shards' slices (tests/test_torch_schedule.py's cases at
+    4096 slots a shard) against the plain per-shard calls in order: every column
+    bitwise, the same iterations and events per shard."""
+    from test_torch_schedule import one_call_round, per_shard_rounds, shard_case
+
+    p0, coefs, mesh, seeds, prm, dt, owns = shard_case(route, 4096, dev=gpu)
+    name = transport_kernel.launch_name(prm.ndim, prm.has_absorption, prm.use_ddmc,
+                                        route == "blocks", route="@" + route)
+    before = cuda_lib.LAUNCHES[name]
+    k, q = p0.clone(), p0.clone()
+    it_k, ev_k = one_call_round(transport_kernel.transport, k, coefs, mesh, seeds, prm, dt, owns)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    it_q, ev_q = per_shard_rounds(transport_kernel.transport_plain, q, coefs, mesh, seeds, prm,
+                                  dt, owns)
+    _same_round(k, q, it_k, ev_k, it_q, ev_q)
+    assert bool((k.alive & (k.tau < 1.0)).any())
+
+
+@pytest.mark.parametrize("route", ["z", "blocks"])
+def test_owned_routes_bitwise_past_the_resident_lanes(gpu, route):
+    """Both owned-range routes over 8 shards on a ledger of 4 times the card's
+    resident threads, so that blocks run in several waves, each regrouping its lanes:
+    one launch against the plain version, bitwise."""
+    from test_torch_schedule import N_SHARDS, one_call_round, shard_case
+
+    m = -(-4 * _resident_lanes(gpu) // N_SHARDS)
+    p0, coefs, mesh, seeds, prm, dt, owns = shard_case(route, m, dev=gpu)
+    k, q = p0.clone(), p0.clone()
+    it_k, ev_k = one_call_round(transport_kernel.transport, k, coefs, mesh, seeds, prm, dt, owns)
+    it_q, ev_q = one_call_round(transport_kernel.transport_plain, q, coefs, mesh, seeds, prm,
+                                dt, owns)
+    _same_round(k, q, it_k, ev_k, it_q, ev_q)
+
+
+@pytest.mark.parametrize("smr", [False, True])
+@pytest.mark.parametrize("absorb", [False, True])
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_ddmc_full_census_bitwise_past_the_resident_lanes(gpu, ndim, absorb, smr):
+    """The twelve DDMC instantiations (uniform and SMR, gray) on hybrid ledgers of
+    4 times the card's resident threads, a full census of the last 10 % of a
+    step: kernel and plain identical in every column, events and iterations."""
+    n = 4 * _resident_lanes(gpu)
+    dt, mesh, prm, p0, coefs = (_smr_setup(gpu, ndim, absorb, True, n=n) if smr
+                                else _hybrid_setup(gpu, ndim, absorb, n=n))
+    g = torch.Generator(device=gpu).manual_seed(ndim)
+    p0.tau.copy_(0.9 + 0.1 * torch.rand(n, generator=g, device=gpu))
+    name = transport_kernel.launch_name(ndim, absorb, True, smr)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, 77, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 77, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    _same_round(k, q, it_k, ev_k, it_q, ev_q)
+    assert not bool((k.tau[k.alive] < 1.0).any())

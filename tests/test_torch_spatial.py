@@ -674,6 +674,91 @@ def test_spatial_smr_ddmc_eight_shards(tmp_path):
     assert err < SMR8_TOL, err
 
 
+# ------------------------------------------- one census call a round over every shard
+
+# a spatial step of each census route: the z-slab route (8^3 in 4^3 blocks, 2
+# shards of two z planes of blocks) and the block route (the SMR DDMC forest at 4
+# shards, pending leaks between them); one step each
+ROUND_CASES = {
+    "z": (None, {**{f"parthenon/mesh/nx{k}": 8 for k in "123"},
+                 **{f"parthenon/meshblock/nx{k}": 4 for k in "123"},
+                 "mcblock/opacity_model": "constant", "jaybenne/num_particles": 2000,
+                 "parthenon/time/tlim": "1.e-11"}),
+    "blocks": ("stepdiff_smr_ddmc.in",
+               {**SMR_FOREST, "jaybenne/num_particles": 2000, "jaybenne/dt": "1.e-11",
+                "parthenon/time/tlim": "1.e-11", "jaybenne/decomposition": "spatial",
+                "jaybenne/n_devices": 4, "parthenon/output0/file_type": "none"}),
+}
+
+
+def _per_shard_census(monkeypatch):
+    """Make the spatial steps built from here on run each round as the per-shard
+    loop, one census call per shard with that shard's own coefficients and owned
+    range: ``prepare`` is wrapped to keep what each set-up was built from."""
+    built = {}
+    real_prepare = transport_kernel.prepare
+
+    def prepare(coefs, mesh, prm, dt, own=None):
+        setup = real_prepare(coefs, mesh, prm, dt, own)
+        if isinstance(own, list):  # the step's set-up, not a per-shard call's
+            built[id(setup)] = (coefs, own)
+        return setup
+
+    def per_shard(ps, setup, mesh, seeds, prm, dt):
+        coefs, owns = built[id(setup)]
+        its, evs = [], []
+        for p, c, seed, own in zip(ps, coefs, seeds, owns):
+            _, it, ev = transport_kernel.transport(p, c, mesh, seed, prm, dt, own)
+            its.append(it)
+            evs.append(ev)
+        return ps, torch.stack(its), torch.stack(evs)
+
+    monkeypatch.setattr(transport_kernel, "prepare", prepare)
+    monkeypatch.setattr(spatial, "census_fn", lambda cfg: per_shard)
+
+
+@pytest.mark.parametrize("route", sorted(ROUND_CASES))
+def test_one_call_round_is_the_per_shard_loop(route, monkeypatch, tmp_path):
+    """A spatial step whose rounds make one census call over every local shard
+    against the same step with the per-shard loop written here: fields, the
+    history (StepStats, migration rounds, migrated) and every ledger column
+    bitwise."""
+    path, mods = ROUND_CASES[route]
+    path = path and os.path.join(INPUTS, path)
+    one = _sim(mods, path=path, tmp=tmp_path)
+    assert spatial.owned_range(one.mesh, tparams(one.cfg, torch.float32), one.exchange.n,
+                               0).kind == route
+    one.run()
+    _per_shard_census(monkeypatch)
+    loop = _sim(mods, path=path, tmp=tmp_path)
+    loop.run()
+    for h1, h2 in zip(one.history, loop.history, strict=True):
+        assert {k: v for k, v in h1.items() if k != "step_seconds"} == \
+            {k: v for k, v in h2.items() if k != "step_seconds"}
+    assert one.history[-1]["migration_rounds"] > 1 and one.history[-1]["migrated"] > 0
+    f1, f2 = one.state.fields, loop.state.fields
+    for f in dataclasses.fields(f1):
+        a, b = getattr(f1, f.name), getattr(f2, f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name
+    p1, p2 = one.state.particles, loop.state.particles
+    for f in dataclasses.fields(p1):
+        assert torch.equal(getattr(p1, f.name), getattr(p2, f.name)), f.name
+
+
+def test_census_tables_built_once_a_step(monkeypatch, tmp_path):
+    """The census tables are built once a step, not once per shard per round:
+    ``_tables`` counted over two steps of 2 shards with several rounds each."""
+    calls = []
+    real = transport_kernel._tables
+    monkeypatch.setattr(transport_kernel, "_tables",
+                        lambda *args: calls.append(1) or real(*args))
+    sim = _sim(tmp=tmp_path)
+    sim.run()
+    rounds = [h["migration_rounds"] for h in sim.history]
+    assert len(rounds) == 2 and min(rounds) > 1
+    assert len(calls) == len(rounds)
+
+
 # ------------------------------------------------- the slice end to end against JAX
 
 
