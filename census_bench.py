@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Census kernel times of two trees of this repository, in turns, on the same saved
+inputs; and, with ``--profile``, their device time a step by ``profile.py``.
+
+    python3 census_bench.py --parent DIR [--variant DIR ...] [--repeats 7]
+        [--turns 2] [--profile] [--out FILE]
+
+Run from the root of a checkout on a machine with one NVIDIA GPU. DIR is another
+checkout of the repository, for example the parent commit unpacked by ``git
+archive`` into a directory that ``.gitignore`` lists; each ``--variant`` DIR one
+more tree, timed in the same turns. Nothing here imports jax.
+
+1. With this tree's package it records the inputs of one census of every route
+   that ``chip_smoke.py`` times, on the same paths with the same overrides: the
+   stepdiff, 2D feedback and 64^3 feedback ledgers after their last step (seed
+   12345, the coefficients of the final fields); the last census of the DDMC, SMR
+   and non-gray paths; phase 11's hybrid ledgers; the first round of
+   big_mesh_spatial and of SMR+DDMC spatial at 8 shards. They go to one file.
+2. Child processes, each importing the package of one tree (``--child``), time the
+   census kernel on those inputs: every route the median of ``--repeats``
+   censuses, each on a fresh copy of the saved ledger, timed with CUDA events
+   after a device sleep (as ``chip_smoke.time_census``). The children run in turns,
+   parent, the variants, this tree, this tree, the variants in reverse, parent,
+   ``--turns`` times over. Every child
+   digests each route's output ledger; the script fails unless all children agree
+   on every digest, so the two trees' kernels are bitwise equal there.
+3. ``--profile`` runs ``python -m jaybenne_tpu_torch.profile`` from each tree's
+   root in the same turns on stepdiff_smr (64x32, 100k particles) and the 64^3
+   feedback row, and reads the census kernel's device ms a step and the step's
+   device total.
+
+It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
+resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
+that built the tree's library) and their event loop's common-path SASS
+instructions (``chip_smoke.common_paths`` on the tree's sources); one line per
+route with every tree's medians, ranges and their ratio to the parent's; with
+``--out`` it writes everything there as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PROFILE_DECKS = {
+    "stepdiff_smr": ("inputs/stepdiff_smr.in", [
+        "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=32", "parthenon/meshblock/nx1=16",
+        "parthenon/meshblock/nx2=16", "parthenon/output0/file_type=none"]),
+    "feedback_64": ("inputs/stepdiff.in", [
+        "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=64", "parthenon/mesh/nx3=64",
+        "parthenon/mesh/ix2_bc=periodic", "parthenon/mesh/ox2_bc=periodic",
+        "parthenon/mesh/ix3_bc=periodic", "parthenon/mesh/ox3_bc=periodic",
+        "parthenon/meshblock/nx1=8", "parthenon/meshblock/nx2=8", "parthenon/meshblock/nx3=8",
+        "jaybenne/num_particles=200000", "jaybenne/do_emission=true",
+        "jaybenne/do_feedback=true", "mcblock/opacity_model=constant",
+        "mcblock/opacity_constant_value=3.0", "jaybenne/capacity_factor=3",
+        "parthenon/output0/file_type=none"]),
+}
+
+
+def record(path) -> None:
+    """Step 1: the census inputs of every timed route, saved to ``path``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from jaybenne_tpu_torch.driver import run_file
+    from jaybenne_tpu_torch.ops import transport as transport_ops
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+    from jaybenne_tpu_torch.particles import ParticleLedger
+    from jaybenne_tpu_torch.step import make_transport_params
+
+    dev = torch.device("cuda", 0)
+    routes = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for name, deck, mods, steps in (
+                ("transport_1d", cs.DECK, cs.GATE, cs.N_STEPS),
+                ("transport_2d_abs", cs.DECK, cs.FEEDBACK_2D, cs.FEEDBACK_2D_STEPS),
+                ("transport_3d_abs", cs.DECK, cs.FEEDBACK, cs.FEEDBACK_STEPS)):
+            sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
+                           device="cuda")
+            m = sim.cfg.mcblock
+            coefs = transport_ops.precompute_coefs(
+                sim.state.fields, sim.mesh, m.build_eos(), m.build_opacity(),
+                m.build_scattering(), False, torch.float32)
+            prm = make_transport_params(sim.cfg, torch.float32)
+            routes[name] = (sim.state.particles.clone(), 1,
+                            (coefs, sim.mesh, 12345, prm, sim.cfg.jaybenne.dt))
+        for name, deck, mods, steps in (
+                ("transport_1d_ddmc", cs.DDMC_DECK, cs.DDMC_GATE, cs.PATH_STEPS),
+                ("transport_1d_abs_ddmc", cs.STIFF_DECK, cs.STIFF, cs.STIFF_STEPS),
+                ("transport_3d_ddmc", cs.DECK, cs.BIG_DDMC, cs.PATH_STEPS),
+                ("transport_2d_smr", cs.SMR_DECK, cs.SMR_GATE, cs.PATH_STEPS),
+                ("transport_3d_ddmc_smr", cs.SMR3D_DECK, cs.SMR3D, cs.PATH_STEPS),
+                ("transport_2d_ddmc_smr", cs.HYBRID_DECK, cs.NATIVE_HYBRID, cs.PATH_STEPS),
+                ("transport_1d_abs_ng", cs.DECK, cs.NG_GATE, 1),
+                ("transport_3d_abs_ng", cs.DECK, cs.NG_BIG, cs.FEEDBACK_STEPS),
+                ("transport_2d_abs_smr_ng", cs.SMR_DECK, cs.NG_SMR, 1)):
+            with cs.CensusRecorder(tk, steps) as rec:
+                run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
+                         device="cuda")
+            p, args = rec.inputs
+            routes[name] = (p, 1, args)
+    for ndim, absorb, seed in ((2, False, 1102), (2, True, 1112), (3, True, 1113)):
+        dt, mesh, prm, p0, coefs, _ = cs.hybrid_setup(dev, ndim, absorb, True, seed)
+        p0.tau.copy_(0.9 + 0.1 * torch.rand(p0.capacity, device=dev,
+                                            generator=torch.Generator(dev).manual_seed(seed)))
+        routes[f"{tk.launch_name(ndim, absorb, True)} (phase 11's ledger)"] = (
+            p0, 1, (coefs, mesh, seed, prm, dt))
+    for name, deck, mods, steps in (
+            (tk.launch_name(3, False, route="@z"), cs.DECK,
+             {**cs.BIG_MESH, **cs.SPATIAL, "jaybenne/n_devices": 8}, cs.BIG_SPATIAL_STEPS),
+            (tk.launch_name(2, False, True, True, route="@blocks"), cs.SMR_DDMC_DECK,
+             {**cs.SMR_SPATIAL, **cs.SPATIAL, "jaybenne/n_devices": 8}, cs.SMR_SPATIAL_STEPS)):
+        routes[name] = cs.spatial_path(deck, mods, steps, name)[2]
+    # the two routes whose event loop chip_smoke.py reads at other numbers of lanes
+    # a SM: the 64^3 feedback ledger's first eighth, the stepdiff_smr ledger eight
+    # times over (the copies in other slots, so other draws)
+    p, _, args = routes["transport_3d_abs"]
+    part = ParticleLedger(**{f.name: getattr(p, f.name)[: p.capacity // 8].clone()
+                             for f in dataclasses.fields(p)})
+    routes["transport_3d_abs, the first eighth of its ledger"] = (part, 1, args)
+    p, _, args = routes["transport_2d_smr"]
+    more = ParticleLedger(**{f.name: getattr(p, f.name).repeat(8) for f in dataclasses.fields(p)})
+    routes["transport_2d_smr, its ledger eight times"] = (more, 1, args)
+    torch.save(routes, path)
+
+
+def digest(p) -> str:
+    """sha256 of every column of a ledger."""
+    h = hashlib.sha256()
+    for f in dataclasses.fields(p):
+        h.update(getattr(p, f.name).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def child(inputs, pkg, repeats, out) -> None:
+    """Step 2 in one process: the census kernel of the package under ``pkg`` timed
+    on every saved route."""
+    sys.path.insert(0, pkg)
+    import torch
+
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    dev = torch.device("cuda", 0)
+    lib = cuda_lib.library()
+    routes = torch.load(inputs, weights_only=False)
+    result = {"pkg": pkg, "build_seconds": lib.build_seconds, "build_log": lib.build_log,
+              "routes": {}}
+    for name, (p0, n, args) in routes.items():
+        def census(p):
+            return tk.transport(p if n == 1 else split_ledger(p, n), *args)[2]
+
+        census(p0.clone())  # warm-up
+        times = []
+        for _ in range(repeats):
+            p = p0.clone()
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)  # ~25 ms at 1980 MHz
+            start.record()
+            events = census(p)
+            stop.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(stop))
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+                                "nounits"], capture_output=True, text=True, check=True).stdout
+        live = int((p0.alive & (p0.tau < 1.0)).sum())
+        result["routes"][name] = {"times": sorted(times), "events": int(events.sum()),
+                                  "digest": digest(p), "slots": p0.capacity, "live": live,
+                                  "sm_clock_mhz": float(clock.split()[0])}
+        print(f"  {os.path.basename(pkg.rstrip('/')) or pkg}: {name} median "
+              f"{statistics.median(times)!r} ms", flush=True)
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def profile(tree, deck) -> dict:
+    """Step 3 for one tree and deck: the census kernel's device ms a step and the
+    device total a step, from ``python -m jaybenne_tpu_torch.profile``."""
+    path, mods = PROFILE_DECKS[deck]
+    res = subprocess.run([sys.executable, "-m", "jaybenne_tpu_torch.profile", "-i", path,
+                          "--warm", "3", "--steps", "3", *mods], cwd=tree, capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"profile {deck} in {tree}:\n{res.stderr[-3000:]}")
+    kernel = sum(float(m.group(1)) for m in re.finditer(
+        r"device_ms_per_step (\S+) .*transport_kernel", res.stdout))
+    total = float(re.search(r"device total (\S+) ms per step", res.stdout).group(1))
+    return {"census_ms_per_step": kernel, "device_ms_per_step": total}
+
+
+def issue_share(kids, tree, name, summary, sms) -> float:
+    """The issue share of ``tree``'s census ``name``: its event loop's common-path
+    SASS instructions times the census's events over the median of its turns'
+    medians times the SMs, the instructions a SM issues a clock and the median SM
+    clock read after each turn."""
+    import chip_smoke as cs
+
+    runs = [kid["routes"][name] for kid in kids if kid["tree"] == tree]
+    ms = statistics.median(statistics.median(r["times"]) for r in runs)
+    mhz = statistics.median(r["sm_clock_mhz"] for r in runs)
+    ops = summary["common_path"][tree][name] * runs[0]["events"]
+    return ops / (ms * 1e-3 * sms * cs.ISSUE_PER_SM_CLOCK * mhz * 1e6)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="the other tree's root")
+    ap.add_argument("--variant", action="append", default=[], help="one more tree's root")
+    ap.add_argument("--repeats", type=int, default=7)
+    ap.add_argument("--turns", type=int, default=1, help="rounds of the turns")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--out", help="also write every number here, as JSON")
+    ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        child(args.child[0], args.child[1], args.repeats, args.child[2])
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or args.parent is None:
+        print("census_bench: needs a GPU and --parent", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parent = os.path.abspath(args.parent)
+    variants = [os.path.abspath(v) for v in args.variant]
+    trees = [parent, *variants, ROOT]
+    label = {t: os.path.basename(t.rstrip("/")) for t in trees}
+    label[parent], label[ROOT] = "parent", "this tree"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    order = [parent, *variants, ROOT, ROOT, *variants[::-1], parent] * args.turns
+    summary = {"device": smi, "order": [label[t] for t in order], "children": [],
+               "profile": [], "common_path": {}, "resources": {}}
+    for tree in trees:
+        summary["common_path"][label[tree]] = cs.common_paths(
+            os.path.join(tree, "jaybenne_tpu_torch", "csrc"), cs.EVENT_LOOP_ROUTES, tk)
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        record(inputs)
+        own_log = cuda_lib.library().build_log  # this tree's library, built by record
+        for k, tree in enumerate(order):
+            out = os.path.join(tmp, f"child{k}.json")
+            print(f"turn {k}: {label[tree]}", flush=True)
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--repeats",
+                            str(args.repeats), "--child", inputs, tree, out], check=True,
+                           timeout=1800)
+            with open(out) as f:
+                summary["children"].append({**json.load(f), "tree": label[tree]})
+    if args.profile:
+        for tree in order:
+            for deck in PROFILE_DECKS:
+                summary["profile"].append({"tree": label[tree], "deck": deck,
+                                           **profile(tree, deck)})
+    kids = summary["children"]
+    names = list(kids[0]["routes"])
+    for name in names:
+        seen = {kid["routes"][name]["digest"] for kid in kids}
+        if len(seen) != 1:
+            raise AssertionError(f"{name}: output ledgers differ between runs: {seen}")
+    for tree in trees:
+        logs = [kid.pop("build_log") for kid in kids if kid["tree"] == label[tree]]
+        log = own_log if tree == ROOT else next((log for log in logs if log), "")
+        res = summary["resources"][label[tree]] = cs.kernel_resources(log, tk)
+        print(f"{label[tree]}: resources {({k: res.get(k) for k in cs.EVENT_LOOP_ROUTES})}; event "
+              f"loop common path {summary['common_path'][label[tree]]} SASS instructions",
+              flush=True)
+    print(f"route: per tree the medians of {args.repeats} censuses in each turn (ms), the range "
+          "of each turn, and the median of the turns over the parent's; outputs bitwise equal")
+    for name in names:
+        row, base = [], None
+        for tree in trees:
+            runs = [kid["routes"][name]["times"] for kid in kids if kid["tree"] == label[tree]]
+            meds = [statistics.median(t) for t in runs]
+            base = base or statistics.median(meds)
+            row.append(f"{label[tree]} {meds} {[(t[0], t[-1]) for t in runs]} "
+                       f"{statistics.median(meds) / base:.3f}")
+        r0 = kids[0]["routes"][name]
+        print(f"{name} ({r0['events']} events, {r0['live']} live lanes of {r0['slots']}): "
+              + " | ".join(row), flush=True)
+        if name in cs.EVENT_LOOP_ROUTES:
+            print(f"  {name} issue share (common path x events over the median census x "
+                  f"{sms} SMs x {cs.ISSUE_PER_SM_CLOCK} x the SM clock read after it): "
+                  + ", ".join(f"{label[t]} {issue_share(kids, label[t], name, summary, sms)!r}"
+                              for t in trees), flush=True)
+    for row in summary["profile"]:
+        print(f"profile {row['deck']} {row['tree']}: census {row['census_ms_per_step']!r} ms a "
+              f"step, device total {row['device_ms_per_step']!r} ms a step", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,7 +16,10 @@ non-zero without a GPU. Nothing here imports jax.
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc time of the kernel library;
+  2. build: nvcc time of the kernel library; every instantiation's registers,
+     stack frame and spills (``-Xptxas -v``) and resident blocks a SM; the SASS
+     instructions of the event loop's common path (a scatter in the lane's cell)
+     of transport_1d, transport_2d_smr and transport_3d_abs (``common_paths``);
   3. K2: the CUDA raw_bits hash is bit-identical to the PyTorch hash;
   4. K1(a): the CUDA census kernel against its plain version on one ledger
      (2^17 particles, gate mesh, sigma_s = 1024): after 8 iterations integer state
@@ -27,7 +30,10 @@ Phases:
      (launch count 10), weighted-mean erf error <= 0.05, radiation energy conserved
      to 1e-5; event total, wall time per step and events/s; one step of the plain
      version (use_pallas = off) for comparison; the kernel and its plain version
-     timed on the main path's own ledger;
+     timed on the main path's own ledger; the event loop's reading (registers,
+     spills, common path, slot-order warp efficiency and issue share) there; K2
+     alone: the census's words drawn by the census_words probe, against its plain
+     version and its bound;
   6. determinism: the main path again with the same seed gives bitwise-identical
      tallies;
   7. the absorbing census kernel against its plain version in 3D (2^17 particles
@@ -175,7 +181,9 @@ the yardstick of what the regrouping schedule can win.
 For phases 12-14, 16, 20, 21 and 23-25 the kernel and its plain version are timed
 on the inputs of the path's last census, recorded as the path ran; for phases 30
 and 33 on the first round (one launch over every shard, with the step's census
-set-up).
+set-up). A kernel's time is the median of CENSUS_REPEATS censuses on fresh copies
+of the same inputs, printed with their range; the plain version's is one census.
+Phases 9 and 16 print the event loop's reading as phase 5 does.
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -418,6 +426,12 @@ ERF_SHIFT = 0.5
 # published H100 SXM peaks (NVIDIA's H100 data sheet)
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# instructions a SM issues a clock: four schedulers, one warp instruction each
+ISSUE_PER_SM_CLOCK = 128
+CENSUS_REPEATS = 5  # a kernel census's time is the median of this many
+K2_CHECK_LANES = 2048  # lanes of the census-words probe held to its plain version
+# the routes whose event loop is read (registers, common path, issue share)
+EVENT_LOOP_ROUTES = ("transport_1d", "transport_2d_smr", "transport_3d_abs")
 
 
 def phase(name):
@@ -485,10 +499,11 @@ def radiation_energy(sim) -> float:
 
 
 def time_census(fn, p0, args, dev, repeats):
-    """(ms per census call (CUDA events), events of the last call), each call on a
-    fresh copy of ``p0``. A device sleep queued before the start event keeps the
-    card busy while the host prepares the call, so the interval holds the call's
-    device work (its table set-up and the census) and not the host's latency."""
+    """(ms per census call (CUDA events), sorted, one per call; events of the last
+    call), each call on a fresh copy of ``p0``. A device sleep queued before the
+    start event keeps the card busy while the host prepares the call, so the
+    interval holds the call's device work (its table set-up and the census) and not
+    the host's latency."""
     times = []
     for _ in range(repeats):
         p = p0.clone()
@@ -501,7 +516,20 @@ def time_census(fn, p0, args, dev, repeats):
         stop.record()
         torch.cuda.synchronize(dev)
         times.append(start.elapsed_time(stop))
-    return statistics.median(times), int(events)
+    return sorted(times), int(events)
+
+
+def spread(times) -> str:
+    """The median of ``times`` (ms) and their range, as printed beside a census."""
+    return (f"median {statistics.median(times)!r} ms of {len(times)} "
+            f"(min {times[0]!r}, max {times[-1]!r})")
+
+
+def smi_value(field) -> float:
+    """One numeric field of ``nvidia-smi --query-gpu`` for card 0 (clocks in MHz)."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def max_float_err(a, b, names=("x", "vx", "vy", "vz", "tau"), floors=None):
@@ -515,26 +543,176 @@ def max_float_err(a, b, names=("x", "vx", "vy", "vz", "tau"), floors=None):
     return err, rel
 
 
-def sass_counts(lib_path) -> dict:
-    """Per kernel function of the library, from ``cuobjdump -sass``: the SASS
-    instructions (NOPs left out) up to and including its first EXIT, which is the
-    straight-line path a call takes; the rarely taken slow paths of logf and the
-    divide (special operands) are subroutines placed after it."""
+def sass_listing(lib_path) -> dict:
+    """Per kernel function of the library, from ``cuobjdump -sass``: its SASS
+    instructions as (address, text), NOPs left out."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
                          check=True, timeout=300).stdout
-    counts, name, done = {}, None, True
+    listing, name = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name, done = m.group(1), False
-            counts[name] = 0
+            name = m.group(1)
+            listing[name] = []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
-        if m and name is not None and not done and not m.group(1).startswith("NOP"):
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name is not None and not m.group(2).startswith("NOP"):
+            listing[name].append((int(m.group(1), 16), m.group(2)))
+    return listing
+
+
+def sass_counts(listing) -> dict:
+    """Per kernel function: the SASS instructions up to and including its first
+    EXIT, which is the straight-line path a call takes; the rarely taken slow
+    paths of logf and the divide (special operands) are subroutines placed after
+    it."""
+    counts = {}
+    for name, code in listing.items():
+        counts[name] = 0
+        for _, text in code:
             counts[name] += 1
-            done = re.search(r"\bEXIT\b", m.group(1)) is not None
+            if re.search(r"\bEXIT\b", text):
+                break
     return counts
+
+
+def loop_body(code) -> int:
+    """The SASS instructions of a function's widest loop, from the target of the
+    widest backward branch before its first unpredicated EXIT to that branch (in a
+    census instantiation, its event loop; blocks after the EXIT are subroutines),
+    less the blocks inside it that a forward branch skips and that hold a call or
+    a loop of their own: the math library's slow paths (cosf's long argument
+    reduction, the divide's and sqrtf's special operands)."""
+    branches = []
+    for addr, text in code:
+        if text.startswith("EXIT"):
+            break
+        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
+        if m:
+            branches.append((addr, int(m.group(1), 16)))
+    back = [(src - dst, dst, src) for src, dst in branches if dst < src]
+    if not back:
+        return 0
+    _, lo, hi = max(back)
+    inner = {dst for src, dst in branches if lo <= dst < src < hi}
+    calls = {addr for addr, text in code if lo <= addr <= hi and text.startswith("CALL")}
+    forward = [(src, dst) for src, dst in branches if lo <= src < dst <= hi]
+    cold = set()
+    for x in inner | calls:  # the innermost forward branch around it skips it
+        around = [(dst - src, src, dst) for src, dst in forward if src < x < dst]
+        if around:
+            _, src, dst = min(around)
+            cold.update(addr for addr, _ in code if src < addr < dst)
+    return sum(1 for addr, _ in code if lo <= addr <= hi and addr not in cold)
+
+
+KERNEL_ARGS = re.compile(r"transport_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
+# the event's outcome held to a scatter in the lane's cell: any other outcome
+# traps, so the compiler keeps the tests that decide the outcome and drops the
+# code of every other one. Each line goes in front of the line of
+# csrc/transport_kernel.cu that it names, which the kernel must hold once, or at
+# most once where the third field is False (a kernel without a cell cache has no
+# test of a move).
+COMMON_PATH = (("    const bool census = !coll",
+                "    if (!scatter) __trap();\n    if (cr[0]) __trap();\n    if (cr[1]) __trap();\n"
+                "    if (cr[2]) __trap();\n", True),
+               ("  if (any_out) {", "  if (any_out) __trap();\n", True),
+               ("    if (kKeep && moved)", "    if (moved) __trap();\n", False))
+
+
+def common_paths(csrc, names, transport_kernel) -> dict:
+    """The SASS instructions of the event loop's common path, a scatter in the
+    lane's cell (no absorption, crossing, census or wall), of the census
+    instantiations ``names``: ``csrc``/transport_kernel.cu compiled with the
+    library's flags and COMMON_PATH's traps, so that the compiler drops every
+    other outcome's code, and ``loop_body`` of each instantiation's SASS
+    (cuobjdump). ``csrc`` may be another tree's sources of the same kernel."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    with open(os.path.join(csrc, "transport_kernel.cu")) as f:
+        src = f.read()
+    for anchor, line, required in COMMON_PATH:
+        if src.count(anchor) not in ((1,) if required else (0, 1)):
+            raise AssertionError(f"common path: {anchor!r} is not one line of the kernel")
+        src = src.replace(anchor, line + anchor)
+    flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, cubin = os.path.join(tmp, "common_path.cu"), os.path.join(tmp, "common_path.cubin")
+        with open(cu, "w") as f:
+            f.write(src)
+        subprocess.run([cuda_lib.nvcc(), *flags, "-I", csrc, "-cubin", "-o", cubin, cu],
+                       check=True, capture_output=True, timeout=900)
+        listing = sass_listing(cubin)
+    out = {}
+    for fn, code in listing.items():
+        m = KERNEL_ARGS.search(fn)
+        if m:
+            ndim, *bits = (int(x) for x in m.groups())
+            name = transport_kernel.launch_name(ndim, *map(bool, bits))
+            if name in names:
+                out[name] = loop_body(code)
+    return out
+
+
+def kernel_resources(build_log, transport_kernel) -> dict:
+    """Per census instantiation (by launch name), from nvcc's ``-Xptxas -v``
+    output: registers a thread, stack frame, spill stores and loads (bytes)."""
+    entry, props, res = None, None, {}
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = props = m.group(1)
+            res.setdefault(entry, {})
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and props in res:
+            res[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in res:
+            res[entry]["registers"] = int(m.group(1))
+    out = {}
+    for fn, r in res.items():
+        m = KERNEL_ARGS.search(fn)
+        if m:
+            ndim, *flags = (int(x) for x in m.groups())
+            out[transport_kernel.launch_name(ndim, *map(bool, flags))] = r
+    return out
+
+
+def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common):
+    """Prints, for the route ``name`` on a census's ``inputs`` ((ledger, args) of
+    ``transport``) timed at ``ms`` for ``events``: registers, stack and spills
+    (``res``), resident blocks a SM, live lanes against the card's resident
+    threads, the SASS instructions of the event loop's common path (``common``),
+    the slot order's warp efficiency (the plain version's per-slot events) and the
+    issue share, common-path instructions x events over ms x SMs x
+    ISSUE_PER_SM_CLOCK x the SM clock (nvidia-smi, read just after). Returns the
+    per-slot events."""
+    p, args = inputs
+    prm = args[3]
+    flags = (bool(prm.has_absorption), bool(prm.use_ddmc), args[1].max_level > 0)
+    blocks = transport_kernel.resident_blocks(prm.ndim, *flags)
+    clock = smi_value("clocks.sm")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    live = int((p.alive & (p.tau < 1.0)).sum())
+    lanes = torch.zeros(p.capacity, dtype=torch.int32, device=p.x.device)
+    transport_kernel.transport_plain(p.clone(), *args, lane_events=lanes)
+    eff = transport_kernel.warp_efficiency(lanes)
+    issue = common * events / (ms * 1e-3 * sms * ISSUE_PER_SM_CLOCK * clock * 1e6)
+    print(f"{name} event loop: {res.get('registers', 'not read')} registers, stack "
+          f"{res.get('stack', 'not read')} bytes, spills {res.get('spill_stores', 'not read')}"
+          f"/{res.get('spill_loads', 'not read')} bytes; {blocks} resident blocks of 256 a SM; "
+          f"{live} live lanes for {sms * blocks * 256} resident threads; common path "
+          f"{common} SASS instructions an event; slot-order warp efficiency {eff!r}; SM clock "
+          f"{clock!r} MHz; issue share {issue!r} ({events} events in {ms!r} ms)", flush=True)
+    return lanes
 
 
 def probe_costs(counts) -> dict:
@@ -748,8 +926,8 @@ def total_energy(sim):
 
 def path_census(sim, transport_kernel, dev, seed=12345):
     """The kernel and its plain version on a path's own ledger after its last step:
-    (kernel ms, plain ms, census events, 8-iteration max_abs_err). One warm-up
-    each, then one timed census each."""
+    (kernel ms, plain ms, census events, 8-iteration max_abs_err, the census's
+    inputs), as ``census_compare`` times them."""
     from jaybenne_tpu_torch.ops import transport as transport_ops
     from jaybenne_tpu_torch.step import make_transport_params
 
@@ -760,20 +938,24 @@ def path_census(sim, transport_kernel, dev, seed=12345):
         sim.state.fields, mesh, m.build_eos(), m.build_opacity(), m.build_scattering(),
         False, torch.float32,
     )
-    return census_compare(transport_kernel, dev, sim.state.particles.clone(),
-                          (coefs, mesh, seed, prm, cfg.jaybenne.dt))
+    inputs = (sim.state.particles.clone(), (coefs, mesh, seed, prm, cfg.jaybenne.dt))
+    return (*census_compare(transport_kernel, dev, *inputs), inputs)
 
 
 def census_compare(transport_kernel, dev, p0, args):
     """The kernel and its plain version on one census's inputs ``p0`` and ``args``
     (coefs, mesh, seed, prm, dt): (kernel ms, plain ms, census events, 8-iteration
-    max_abs_err). One warm-up each, then one timed census each."""
+    max_abs_err). One warm-up each, then the kernel's median of CENSUS_REPEATS
+    censuses (printed with their range) and one timed census of the plain
+    version."""
     coefs, mesh, seed, prm, dt = args
     transport_kernel.transport(p0.clone(), *args)  # warm-up
-    ms, events = time_census(transport_kernel.transport, p0, args, dev, 1)
+    times, events = time_census(transport_kernel.transport, p0, args, dev, CENSUS_REPEATS)
+    ms = statistics.median(times)
+    print(f"census kernel on {p0.capacity} slots: {spread(times)}", flush=True)
     a8 = (coefs, mesh, seed, dataclasses.replace(prm, max_iters=8), dt)
     transport_kernel.transport_plain(p0.clone(), *a8)  # warm-up
-    plain_ms, _ = time_census(transport_kernel.transport_plain, p0, args, dev, 1)
+    plain_ms = time_census(transport_kernel.transport_plain, p0, args, dev, 1)[0][0]
     qk = transport_kernel.transport(p0.clone(), *a8)[0]
     qp = transport_kernel.transport_plain(p0.clone(), *a8)[0]
     for name in ("i", "j", "k", "block", "alive", "absorbed", "face"):
@@ -1186,7 +1368,7 @@ def profile_error(sim, nbins=PROFILE_BINS, scale=1.0) -> float:
     return float((frac * sol).sum() / sol.sum())
 
 
-def smr_phases(transport_kernel, dev, cost, src) -> list:
+def smr_phases(transport_kernel, dev, cost, src, resources, common) -> list:
     """Phases 15-21 (static mesh refinement). Returns the entries of the
     ``kernels`` line for the SMR instantiations that the paths run."""
     phase("15 K1(d): all twelve SMR instantiations vs plain on level-1 forests, 2^17 particles")
@@ -1206,6 +1388,8 @@ def smr_phases(transport_kernel, dev, cost, src) -> list:
     s2, s2_launches, s2_in, _ = run_path(SMR_DECK, SMR_GATE, name_s2)
     gate(weighted_erf_error(s2), SMR_TOL, "stepdiff_smr werr")
     k_s2 = path_kernel(transport_kernel, dev, s2, s2_in, name_s2, cost)
+    event_loop_line(transport_kernel, dev, name_s2, s2_in, k_s2[0], k_s2[2],
+                    resources.get(name_s2, {}), common[name_s2])
 
     phase("17 SMR with DDMC: stepdiff_smr_ddmc, 64x32 cells, 10 steps")
     name_sd2 = transport_kernel.launch_name(2, False, True, True)
@@ -1842,8 +2026,10 @@ def round_kernel(transport_kernel, dev, inputs, name, cost):
     setup, mesh, _, prm, _ = args
     kernel = sliced(transport_kernel.transport, n)
     kernel(p.clone(), *args)  # warm-up
-    ms, ev = time_census(kernel, p, args, dev, 3)
-    plain_ms, _ = time_census(sliced(transport_kernel.transport_plain, n), p, args, dev, 1)
+    times, ev = time_census(kernel, p, args, dev, CENSUS_REPEATS)
+    ms = statistics.median(times)
+    print(f"{name}, one launch over {n} shards: {spread(times)}", flush=True)
+    plain_ms = time_census(sliced(transport_kernel.transport_plain, n), p, args, dev, 1)[0][0]
     _, _, err = owned_vs_plain(transport_kernel, f"{name} on a recorded round", p, args, n)
     smr = (mesh, 0) if setup.owns[0].kind == "blocks" else None
     bound, by = census_bound(p, prm.ndim, bool(prm.has_absorption), setup.tabs.cell.shape[0],
@@ -2046,9 +2232,26 @@ def main() -> int:
 
     lib = cuda_lib.library()
     print(f"build_seconds {lib.build_seconds!r}  ({lib.path.name})", flush=True)
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    resources = kernel_resources(lib.build_log, transport_kernel)
+    for ndim in (1, 2, 3):
+        for smr in (False, True):
+            for absorb, ddmc, ng in ((False, False, False), (True, False, False),
+                                     (False, True, False), (True, True, False),
+                                     (True, False, True), (True, True, True)):
+                name = transport_kernel.launch_name(ndim, absorb, ddmc, smr, ng)
+                r = resources.get(name, {})
+                print(f"  {name}: {r.get('registers', 'not read')} registers, stack "
+                      f"{r.get('stack', 'not read')} bytes, spill stores/loads "
+                      f"{r.get('spill_stores', 'not read')}/{r.get('spill_loads', 'not read')} "
+                      f"bytes, {transport_kernel.resident_blocks(ndim, absorb, ddmc, smr, ng)} "
+                      "resident blocks of 256 a SM", flush=True)
+    listing = sass_listing(lib.path)
+    cost = probe_costs(sass_counts(listing))
+    common = common_paths(str(cuda_lib.SRC_DIR), EVENT_LOOP_ROUTES, transport_kernel)
+    print(f"event loop common path (a scatter in the lane's cell), SASS instructions an "
+          f"event: {common}", flush=True)
+    if sorted(common) != sorted(EVENT_LOOP_ROUTES) or min(common.values()) <= 0:
+        raise AssertionError(f"build: no event loop read: {common}")
 
     phase("3 K2 raw_bits vs plain")
     slots = torch.tensor([0, 1, 127, 128, 16383, 16384, 3 * 16384 + 5, 100003,
@@ -2161,8 +2364,10 @@ def main() -> int:
     pm = sim.state.particles.clone()
     args = (coefsm, meshm, 12345, prmm, cfgm.jaybenne.dt)
     transport_kernel.transport(pm.clone(), *args)  # warm-up
-    ms, census_events = time_census(transport_kernel.transport, pm, args, dev, 5)
-    plain_ms, _ = time_census(transport_kernel.transport_plain, pm, args, dev, 2)
+    times, census_events = time_census(transport_kernel.transport, pm, args, dev, CENSUS_REPEATS)
+    ms = statistics.median(times)
+    plain_ms = statistics.median(time_census(transport_kernel.transport_plain, pm, args, dev,
+                                             2)[0])
     a8 = dataclasses.replace(prmm, max_iters=8)
     qk = transport_kernel.transport(pm.clone(), coefsm, meshm, 12345, a8, cfgm.jaybenne.dt)[0]
     qp = transport_kernel.transport_plain(pm.clone(), coefsm, meshm, 12345, a8,
@@ -2173,16 +2378,44 @@ def main() -> int:
     if rel_m > FLOAT_RTOL:
         raise AssertionError(f"K1 on the main-path ledger: float rel err {rel_m}")
     print(f"K1 on the main-path ledger ({pm.capacity} slots, {int(pm.alive.sum())} live): "
-          f"kernel {ms!r} ms, plain {plain_ms!r} ms per census; 8-iteration "
+          f"kernel {spread(times)}, plain {plain_ms!r} ms per census; 8-iteration "
           f"max_abs_err {err_m:.3e}", flush=True)
+    lanes_1d = event_loop_line(transport_kernel, dev, "transport_1d", (pm, args), ms,
+                               census_events, resources.get("transport_1d", {}),
+                               common["transport_1d"])
+    # K2 alone: the words of this census (two an event: the exp23 word and the u16
+    # word), drawn by the census_words probe, against their plain version on the
+    # first lanes and against the bound of their hash instructions at the issue rate
+    words = 2
+    kernel_rng.census_words(12345, lanes_1d, words)  # warm-up
+    k2_times = []
+    for _ in range(CENSUS_REPEATS):
+        torch.cuda.synchronize(dev)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        got = kernel_rng.census_words(12345, lanes_1d, words)
+        stop.record()
+        torch.cuda.synchronize(dev)
+        k2_times.append(start.elapsed_time(stop))
+    k2_times.sort()
+    head = lanes_1d[:K2_CHECK_LANES]
+    if not torch.equal(got[:K2_CHECK_LANES], kernel_rng.census_words_plain(12345, head, words)):
+        raise AssertionError("K2 census words: the probe differs from its plain version")
+    n_words = words * int(lanes_1d.sum())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k2_bound = n_words * cost["hash"] / (sms * ISSUE_PER_SM_CLOCK * smi_value("clocks.max.sm")
+                                         * 1e6) * 1e3
+    print(f"K2 alone, the stepdiff census's {n_words} words ({words} an event): "
+          f"{spread(k2_times)}; bound {k2_bound!r} ms ({cost['hash']} SASS instructions a "
+          f"word at the issue rate, clocks.max.sm); the census {ms!r} ms; equal to the plain "
+          f"version on the first {K2_CHECK_LANES} lanes", flush=True)
 
     phase("6 determinism")
     if not torch.equal(again.state.fields.energy_tally, tally):
         raise AssertionError("determinism: a second run with the same seed differs")
     print("second run with the same seed: tallies bitwise identical", flush=True)
 
-    sass = sass_counts(lib.path)
-    cost = probe_costs(sass)
     print(f"SASS instructions on the straight-line path: logf {cost['logf']}, divide "
           f"{cost['div']}, hash {cost['hash']}, expf {cost['expf']}, sqrtf {cost['sqrtf']}",
           flush=True)
@@ -2235,7 +2468,7 @@ def main() -> int:
     if (launches_2d.get(name2, 0) != FEEDBACK_2D_STEPS or cons2 > FEEDBACK_ENERGY_TOL
             or any(h["dropped"] or h["unfinished"] for h in sim2.history)):
         raise AssertionError(f"2D feedback: launches {launches_2d}, energy {cons2}")
-    ms2, plain_ms2, ev2, err2m = path_census(sim2, transport_kernel, dev)
+    ms2, plain_ms2, ev2, err2m, _ = path_census(sim2, transport_kernel, dev)
     bound_2d, by_2d = census_bound(sim2.state.particles, 2, True, sim2.mesh.total_cells,
                                    ev2, cost)
     print(f"2D feedback ({sim2.mesh.total_cells} cells, {FEEDBACK_2D_STEPS} steps): "
@@ -2257,7 +2490,7 @@ def main() -> int:
         fb_launches = dict(cuda_lib.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         fb_fields = (fb.state.fields.energy_tally.clone(), fb.state.fields.u.clone())
-        fb_ms, fb_plain_ms, fb_ev, fb_err = path_census(fb, transport_kernel, dev)
+        fb_ms, fb_plain_ms, fb_ev, fb_err, fb_in = path_census(fb, transport_kernel, dev)
         bound_3d, by_3d = census_bound(fb.state.particles, 3, True, fb.mesh.total_cells,
                                        fb_ev, cost)
         phase("10 determinism of phase 9")
@@ -2283,6 +2516,8 @@ def main() -> int:
           f"median {statistics.median(fb_step_s) * 1e3!r} ms; "
           f"{fb_events / sum(fb_step_s)!r} events/s; peak device memory {peak} bytes",
           flush=True)
+    event_loop_line(transport_kernel, dev, name3, fb_in, fb_ms, fb_ev,
+                    resources.get(name3, {}), common[name3])
     print(f"feedback ledger ({fb.state.particles.capacity} slots, "
           f"{int(fb.state.particles.alive.sum())} live): kernel {fb_ms!r} ms, plain "
           f"{fb_plain_ms!r} ms per census, {fb_ev} events; bound {bound_3d!r} ms "
@@ -2379,7 +2614,7 @@ def main() -> int:
         transport_kernel, dev, big, big_in, name_dd3, cost)
 
     src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
-    smr_kernels = smr_phases(transport_kernel, dev, cost, src)
+    smr_kernels = smr_phases(transport_kernel, dev, cost, src, resources, common)
     nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
     spatial_kernels = spatial_phases(transport_kernel, dev, cost, src)
 

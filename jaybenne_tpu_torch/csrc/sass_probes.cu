@@ -5,7 +5,7 @@
 // how many instructions the function compiles to: the probe's count less that of
 // the probe with the same loads and stores and a single FADD in its place
 // (chip_smoke.py counts them). The probes are compiled with the library's flags
-// and never launched.
+// and never launched; ``jb_census_words_launch`` at the end is launched.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,4 +46,34 @@ extern "C" __global__ void jb_probe_expf(const float* a, float* o) {
 extern "C" __global__ void jb_probe_sqrtf(const float* a, float* o) {
   const int i = threadIdx.x;
   o[i] = sqrtf(a[i]);
+}
+
+namespace {
+
+// The K2 words of one census alone: thread l hashes the words its lane draws in
+// its n_events[l] events, ``words`` tags an event (2 for the 1D gray IMC event
+// without absorption: the exp23 word and the u16 word), and writes their xor, so
+// that no word is left out.
+__global__ void census_words_kernel(uint32_t seed, const int32_t* __restrict__ n_events,
+                                    uint32_t* __restrict__ out, int n, int words) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= n) return;
+  uint32_t acc = 0u;
+  const int events = n_events[l];
+  for (int it = 0; it < events; ++it)
+    for (int tag = 0; tag < words; ++tag)
+      acc ^= jb_raw_bits(seed, (uint32_t)l, (uint32_t)it, (uint32_t)tag);
+  out[l] = acc;
+}
+
+}  // namespace
+
+extern "C" int jb_census_words_launch(int seed, const void* n_events, void* out, int n,
+                                      int words, void* stream) {
+  if (n > 0) {
+    const int threads = 256;
+    census_words_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        (uint32_t)seed, (const int32_t*)n_events, (uint32_t*)out, n, words);
+  }
+  return (int)cudaGetLastError();
 }

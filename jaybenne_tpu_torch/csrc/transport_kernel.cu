@@ -174,6 +174,34 @@
 // each barrier for its slowest warp; and the same grid with warp-level refills
 // and no barrier, slower than that on both.
 //
+// The event loop. Most events of a scatter-dominated lane stay in its cell, so a
+// lane keeps what its cell gives an event in registers (``gather``: the record,
+// the faces f dx and (f + 1) dx, with SMR the block's dx, origin and dmin) and
+// gathers it again only after an event that changed its cell or block; a lane of
+// a uniform mesh with DDMC gathers before every event, as before. The same
+// operations run on the same operands, so the census stays bitwise its plain
+// version's. A K2 word depends only on (seed, lane, iteration, tag), so an event's
+// draws and what follows from them alone (exp23, the u23 branch draw, mu,
+// sqrt(1 - mu^2), the circle's cos and sin) need not wait for its state: a gray
+// lane on a refined forest makes them during the event before and carries them;
+// a gray lane on a uniform mesh makes them at the top of the event, before the
+// face divides; a DDMC or NONGRAY lane in place, the scatter's in the scatter.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; census_bench.py, each census the
+// median of 7 on the same saved inputs, the kernel before this loop in the same
+// call, in turns; variants built and dropped as noted): the cache alone took the
+// native hybrid from 3.68 to 3.17 ms and slowed no gray route by more than 3 %;
+// every IMC event's draws one event ahead took stepdiff_smr's census 10-14 %
+// down in three calls but the 64^3 feedback census 5-6 % and the 2D feedback
+// census 6-9 % up; the draws at the top of the event left stepdiff_smr 1-3 % up
+// and took K3s's round 11-13 % and the 64^3 feedback census 1-3 % down; drawing
+// only the collision's words ahead, and keeping no cell for NONGRAY, were no
+// better and were dropped. With the placement above (two calls, four turns
+// each): stepdiff_smr 2.085 -> 1.80 ms, the 64^3 feedback census 5.80 -> 5.63,
+// K3s's round 2.99 -> 2.65, the native hybrid 3.42 -> 3.08, stepdiff 1.001 ->
+// 1.000; the event loop's common path (a scatter in the cell) 243 -> 231 SASS
+// instructions in 2D SMR, 297 -> 279 in 3D. The census issues 0.39-0.52 of the
+// card's instruction rate on that path alone: issue, not latency, bounds it.
+//
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
@@ -331,14 +359,15 @@ struct DdmcTags {
 // The DDMC event of one lane (pallas_transport.py:655-870): writes the lane's
 // new position, cell index, velocity, tau and absorption; the face code it
 // leaves is 0. ``pf`` holds the cell's (P_lower, P_upper) of x, y, z, ``dx``
-// and ``inv_dx`` its cell size and f32 reciprocal. ``leak_code`` is set to
-// -(axis + 1) for a leak through a lower face, +(axis + 1) through an upper
-// one, else 0.
+// and ``inv_dx`` its cell size and f32 reciprocal, ``flo`` and ``fhi`` its
+// faces. ``leak_code`` is set to -(axis + 1) for a leak through a lower face,
+// +(axis + 1) through an upper one, else 0.
 template <int NDIM, bool ABSORB>
 __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_t lane, uint32_t it,
                                            int face, float ea, float sig_t,
                                            const float (&pf)[6], const float (&dx)[3],
-                                           const float (&inv_dx)[3], const float (&p)[3],
+                                           const float (&inv_dx)[3], const float (&flo)[3],
+                                           const float (&fhi)[3], const float (&p)[3],
                                            const int (&ci)[3], float (&v)[3],
                                            float (&np_)[3], int (&nci)[3], float& ptau,
                                            bool& palive, bool& pabsorbed, int& leak_code) {
@@ -351,12 +380,8 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_
   constexpr uint32_t kTagW2 = T::kW2;
   constexpr uint32_t kTagW3 = T::kW3;
   leak_code = 0;
-  float flo[3], fhi[3];
 #pragma unroll
   for (int a = 0; a < NDIM; ++a) {
-    const float f = (float)ci[a];
-    flo[a] = f * dx[a];
-    fhi[a] = (f + 1.0f) * dx[a];
     np_[a] = p[a];
     nci[a] = ci[a];
   }
@@ -641,17 +666,21 @@ struct Lane {
   int pending; // a leak code for another shard (DDMC with SMR)
 };
 
-// What one event gathers for the lane's cell: its geometry (the collapsed
-// block's, or with SMR the lane's block's: dx, inv_dx, box, dmin) and its table
-// record: (p_abs, 1 / sigma_t) gray without DDMC (tab); with DDMC or NONGRAY
-// fleck sigma_a (ea) and sigma_t; with DDMC the face probabilities (pf) and the
-// branch (is_ddmc). Out-parameters, so that the lane's state stays in registers.
+// What the lane's cell gives each of its events, gathered when the lane enters
+// the cell: its geometry (the collapsed block's, or with SMR the lane's block's:
+// dx, inv_dx, box, dmin), its faces (flo, fhi: f dx and (f + 1) dx on each active
+// axis) and its table record: (p_abs, 1 / sigma_t) gray without DDMC (tab); with
+// DDMC or NONGRAY fleck sigma_a (ea) and sigma_t; with DDMC the face
+// probabilities (pf) and the branch (is_ddmc). Every value depends only on the
+// lane's block, cell, shard and photon energy. Out-parameters, so that the lane's
+// state stays in registers.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __device__ __forceinline__ void gather(const Geom& g, const Forest& F, const float* table,
                                        const Own& o, int blk, const int (&ci)[3], float en,
                                        float (&dx)[3], float (&inv_dx)[3], float (&box)[3],
-                                       float& dmin, float2& tab, float& ea, float& sig_t,
-                                       float (&pf)[6], bool& is_ddmc) {
+                                       float (&flo)[3], float (&fhi)[3], float& dmin,
+                                       float2& tab, float& ea, float& sig_t, float (&pf)[6],
+                                       bool& is_ddmc) {
   int cell;
   if constexpr (SMR) {
     const float4 b0 = __ldg(F.block + 3 * blk);      // (dx, dy, dz, 0)
@@ -736,7 +765,63 @@ __device__ __forceinline__ void gather(const Geom& g, const Forest& F, const flo
   } else {
     tab = __ldg(reinterpret_cast<const float2*>(table) + cell);
   }
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    const float f = (float)ci[a];
+    flo[a] = f * dx[a];
+    fhi[a] = (f + 1.0f) * dx[a];
+  }
 }
+
+// The words of an IMC event (kernel_rng.cuh: keyed by seed, lane, iteration and
+// tag, in the DrawPool's order) and what follows from them alone: the collision's
+// unit exponential (tag 0) and, with ABSORB, the u23 branch draw (tag 1);
+// the scatter's mu = 1 - 2 u16 and st = sqrt(1 - mu^2) from the u16 word's low
+// half, and in 2D/3D (cos phi, sin phi) from the circle word after it.
+template <bool ABSORB>
+__device__ __forceinline__ void collision_draws(uint32_t seed, uint32_t lane, uint32_t it,
+                                                float& e23, float& ub) {
+  e23 = jb_exp23(jb_raw_bits(seed, lane, it, 0u));
+  ub = ABSORB ? jb_u23(jb_raw_bits(seed, lane, it, 1u)) : 0.0f;
+}
+
+template <int NDIM, bool ABSORB>
+__device__ __forceinline__ void scatter_draws(uint32_t seed, uint32_t lane, uint32_t it,
+                                              float& mu, float& st, float& cph, float& sph) {
+  constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
+  mu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(seed, lane, it, kTagU16));
+  st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+  cph = 0.0f;
+  sph = 0.0f;
+  if constexpr (NDIM > 1) jb_circle(jb_raw_bits(seed, lane, it, kTagU16 + 1u), &cph, &sph);
+}
+
+// kDraws values of an IMC event's words: e23, ub, mu, st, cph, sph.
+constexpr int kDraws = 6;
+
+template <int NDIM, bool ABSORB>
+__device__ __forceinline__ void imc_draws(uint32_t seed, uint32_t lane, uint32_t it,
+                                          float (&dr)[kDraws]) {
+  collision_draws<ABSORB>(seed, lane, it, dr[0], dr[1]);
+  scatter_draws<NDIM, ABSORB>(seed, lane, it, dr[2], dr[3], dr[4], dr[5]);
+}
+
+// Where an instantiation's IMC event makes its draws (measured, see the note at
+// the head of this file): a gray lane on a refined forest one event ahead, during
+// the event before (``run_lane``); a gray lane on a uniform mesh at the top of the
+// event; a lane of a DDMC or NONGRAY instantiation, whose events seldom scatter in
+// a row, in place, the scatter's inside the scatter (a lane on the DDMC branch
+// draws none of them).
+template <bool DDMC, bool SMR, bool NONGRAY>
+constexpr bool kDrawAhead = SMR && !DDMC && !NONGRAY;
+template <bool DDMC, bool SMR, bool NONGRAY>
+constexpr bool kDrawAtTop = !SMR && !DDMC && !NONGRAY;
+
+// Whether a lane keeps its cell's values from one event to the next (measured,
+// see the note at the head of this file): not with DDMC on a uniform mesh, where
+// the record is two loads without a block table before them.
+template <bool DDMC, bool SMR>
+constexpr bool kKeepCell = SMR || !DDMC;
 
 // Whether a lane takes another event.
 template <int NDIM, bool SMR>
@@ -746,51 +831,46 @@ __device__ __forceinline__ bool runs(const Geom& g, const Own& o, bool alive, fl
 }
 
 // One event of a lane (``lane`` is its slot's index in its shard's slice), on
-// its state in registers.
+// its state in registers and its cell's values (``gather``). ``dr`` holds the
+// event's draws where ``kDrawAhead`` (made during the event before it) and
+// receives them at the top of the event where ``kDrawAtTop``. ``moved`` says
+// whether the event changed the lane's cell or block.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __device__ __forceinline__ void event(const Geom& g, const Forest& F, const float* table,
                                       const Own& o, uint32_t lane, int& pit, float (&p)[3],
                                       float (&v)[3], float& ptau, int (&ci)[3], int& blk,
                                       int& pface, bool& palive, bool& pabsorbed, int& pending,
-                                      float en) {
-  constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
-  constexpr uint32_t kTagCircle = kTagU16 + 1u;
+                                      const float (&dx)[3], const float (&inv_dx)[3],
+                                      const float (&box)[3], const float (&flo)[3],
+                                      const float (&fhi)[3], float dmin, float2 tab, float ea,
+                                      float sig_t, const float (&pf)[6], bool is_ddmc,
+                                      float (&dr)[kDraws], bool& moved) {
   const uint32_t it = (uint32_t)pit;
-  float dx[3], inv_dx[3], box[3];
-  float dmin;
-  float2 tab;
-  float ea, sig_t;
-  float pf[6];
-  bool is_ddmc;
-  gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, en, dx, inv_dx, box, dmin,
-                                           tab, ea, sig_t, pf, is_ddmc);
   float np_[3];
   int nci[3];
   int nface = 0;
   int leak = 0;
   if (DDMC && is_ddmc) {
-    ddmc_event<NDIM, ABSORB>(g, o.seed, lane, it, pface, ea, sig_t, pf, dx, inv_dx, p, ci, v,
-                             np_, nci, ptau, palive, pabsorbed, leak);
+    ddmc_event<NDIM, ABSORB>(g, o.seed, lane, it, pface, ea, sig_t, pf, dx, inv_dx, flo, fhi, p,
+                             ci, v, np_, nci, ptau, palive, pabsorbed, leak);
   } else {
+    constexpr bool kInPlace = DDMC || NONGRAY;
+    if constexpr (kDrawAtTop<DDMC, SMR, NONGRAY>) imc_draws<NDIM, ABSORB>(o.seed, lane, it, dr);
+    float e23 = dr[0], u_branch = dr[1];
+    if constexpr (kInPlace) collision_draws<ABSORB>(o.seed, lane, it, e23, u_branch);
     float d_coll;
     if constexpr (DDMC || NONGRAY) {
-      d_coll = jb_exp23(jb_raw_bits(o.seed, lane, it, 0u)) / (sig_t + 1.0e-37f);
+      d_coll = e23 / (sig_t + 1.0e-37f);
     } else {
-      d_coll = jb_exp23(jb_raw_bits(o.seed, lane, it, 0u)) * tab.y;
+      d_coll = e23 * tab.y;
     }
-    float u_branch = 0.0f;
-    if (ABSORB) u_branch = jb_u23(jb_raw_bits(o.seed, lane, it, 1u));
     const float d_end = g.cdt * (1.0f - ptau);
     const float d_geom = fminf(dmin, d_end);
 
-    float flo[3], fhi[3], fd[3];
+    float fd[3];
 #pragma unroll
-    for (int a = 0; a < NDIM; ++a) {
-      const float f = (float)ci[a];
-      flo[a] = f * dx[a];
-      fhi[a] = (f + 1.0f) * dx[a];
+    for (int a = 0; a < NDIM; ++a)
       fd[a] = v[a] != 0.0f ? g.c * ((v[a] > 0.0f ? fhi[a] : flo[a]) - p[a]) / v[a] : kBig;
-    }
     float d_push = fminf(d_geom, fd[0]);
     if (NDIM == 2) d_push = fminf(d_push, fd[1]);
     if (NDIM == 3) d_push = fminf(d_push, fminf(fd[1], fd[2]));
@@ -823,15 +903,13 @@ __device__ __forceinline__ void event(const Geom& g, const Forest& F, const floa
       }
     }
     if (scatter) {  // isotropic scatter
-      const float mu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(o.seed, lane, it, kTagU16));
-      const float st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+      float mu = dr[2], st = dr[3], cph = dr[4], sph = dr[5];
+      if constexpr (kInPlace) scatter_draws<NDIM, ABSORB>(o.seed, lane, it, mu, st, cph, sph);
       if (NDIM == 1) {
         v[0] = g.c * mu;
         v[1] = g.c * st;
         v[2] = 0.0f;
       } else {
-        float cph, sph;
-        jb_circle(jb_raw_bits(o.seed, lane, it, kTagCircle), &cph, &sph);
         v[0] = g.c * st * cph;
         v[1] = g.c * st * sph;
         v[2] = g.c * mu;
@@ -896,8 +974,10 @@ __device__ __forceinline__ void event(const Geom& g, const Forest& F, const floa
       }
     }
   }
+  moved = any_out;
 #pragma unroll
   for (int a = 0; a < NDIM; ++a) {
+    moved = moved || nci[a] != ci[a];
     p[a] = np_[a];
     ci[a] = nci[a];
   }
@@ -907,7 +987,13 @@ __device__ __forceinline__ void event(const Geom& g, const Forest& F, const floa
 
 // A lane's history from its state in ``st`` until it stops (absorbed, escaped,
 // at census, out of its range or at the iteration cap): the state is copied into
-// registers for the loop and back after it.
+// registers for the loop and back after it. Where ``kKeepCell`` the values of
+// the lane's cell (``gather``) stay in registers from one event to the next and
+// are gathered again only after an event that changed the lane's cell or block,
+// so an event in the same cell loads nothing; elsewhere every event gathers them
+// first. Where ``kDrawAhead`` each event's draws are made during the event before
+// it (``imc_draws`` of it + 1), off that event's dependent chain; a lane carries
+// its own iteration count, so its words do not change.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const float* table,
                                          const Shards& S, Lane& st) {
@@ -919,10 +1005,34 @@ __device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const f
   float tau = st.tau;
   int it = st.it, blk = st.blk, face = st.face, pending = 0;
   bool alive = true, absorbed = false;
-  do {
-    event<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, lane, it, p, v, tau, ci, blk, face,
-                                            alive, absorbed, pending, st.en);
-  } while (runs<NDIM, SMR>(g, o, alive, tau, it, blk, ci));
+  float dx[3], inv_dx[3], box[3], flo[3], fhi[3], dmin, ea, sig_t, pf[6];
+  float2 tab;
+  bool is_ddmc, moved;
+  constexpr bool kKeep = kKeepCell<DDMC, SMR>;
+  if constexpr (kKeep)
+    gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box, flo,
+                                             fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
+  constexpr bool kAhead = kDrawAhead<DDMC, SMR, NONGRAY>;
+  float dr[kDraws] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (kAhead) imc_draws<NDIM, ABSORB>(o.seed, lane, (uint32_t)it, dr);
+  while (true) {
+    float next[kDraws];
+    if constexpr (kAhead) imc_draws<NDIM, ABSORB>(o.seed, lane, (uint32_t)it + 1u, next);
+    if constexpr (!kKeep)  // every event gathers its cell first
+      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
+                                               flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
+    event<NDIM, ABSORB, DDMC, SMR, NONGRAY>(
+        g, F, table, o, lane, it, p, v, tau, ci, blk, face, alive, absorbed, pending, dx, inv_dx,
+        box, flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc, dr, moved);
+    if (!runs<NDIM, SMR>(g, o, alive, tau, it, blk, ci)) break;
+    if (kKeep && moved)
+      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
+                                               flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
+    if constexpr (kAhead) {
+#pragma unroll
+      for (int k = 0; k < kDraws; ++k) dr[k] = next[k];
+    }
+  }
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     st.p[a] = p[a];
@@ -1037,12 +1147,12 @@ __device__ __forceinline__ void regroup(const Geom& g, const Forest& F, const fl
   if (st.slot >= 0) {
     key = 0;
     if constexpr (DDMC) {
-      float dx[3], inv_dx[3], box[3], dmin, ea, sig_t, pf[6];
+      float dx[3], inv_dx[3], box[3], flo[3], fhi[3], dmin, ea, sig_t, pf[6];
       float2 tab;
       bool is_ddmc;
       gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, own_of(S, st.shard), st.blk, st.ci,
-                                               st.en, dx, inv_dx, box, dmin, tab, ea, sig_t, pf,
-                                               is_ddmc);
+                                               st.en, dx, inv_dx, box, flo, fhi, dmin, tab, ea,
+                                               sig_t, pf, is_ddmc);
       key = is_ddmc ? 1 : 0;
     }
   }
@@ -1147,47 +1257,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-void launch(const Ledger& L, const float* table, const Forest& F, int n, const Geom& g,
-            const Shards& S, unsigned long long* events, int32_t* iters, cudaStream_t stream) {
-  transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY>
-      <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, S, events,
-                                                                 iters);
-}
-
-// A frequency-dependent opacity absorbs: NONGRAY is instantiated with ABSORB only
-// (the entry point refuses it without).
-template <int NDIM, bool SMR>
-void launch_mode(bool absorb, bool ddmc, bool nongray, const Ledger& L, const float* table,
-                 const Forest& F, int n, const Geom& g, const Shards& S, unsigned long long* events,
-                 int32_t* iters, cudaStream_t stream) {
+// Calls ``op.run<NDIM, ABSORB, DDMC, SMR, NONGRAY>()`` for the instantiation a
+// launch asks for. A frequency-dependent opacity absorbs: NONGRAY is
+// instantiated with ABSORB only (the entry points refuse it without).
+template <int NDIM, bool SMR, class Op>
+void dispatch_mode(bool absorb, bool ddmc, bool nongray, Op& op) {
   if (nongray) {
-    if (!ddmc) launch<NDIM, true, false, SMR, true>(L, table, F, n, g, S, events, iters,
-                                                     stream);
-    if (ddmc) launch<NDIM, true, true, SMR, true>(L, table, F, n, g, S, events, iters, stream);
+    if (!ddmc) op.template run<NDIM, true, false, SMR, true>();
+    if (ddmc) op.template run<NDIM, true, true, SMR, true>();
     return;
   }
-  if (!absorb && !ddmc)
-    launch<NDIM, false, false, SMR, false>(L, table, F, n, g, S, events, iters, stream);
-  if (absorb && !ddmc)
-    launch<NDIM, true, false, SMR, false>(L, table, F, n, g, S, events, iters, stream);
-  if (!absorb && ddmc)
-    launch<NDIM, false, true, SMR, false>(L, table, F, n, g, S, events, iters, stream);
-  if (absorb && ddmc)
-    launch<NDIM, true, true, SMR, false>(L, table, F, n, g, S, events, iters, stream);
+  if (!absorb && !ddmc) op.template run<NDIM, false, false, SMR, false>();
+  if (absorb && !ddmc) op.template run<NDIM, true, false, SMR, false>();
+  if (!absorb && ddmc) op.template run<NDIM, false, true, SMR, false>();
+  if (absorb && ddmc) op.template run<NDIM, true, true, SMR, false>();
 }
 
-template <int NDIM>
-void launch_dim(bool absorb, bool ddmc, bool smr, bool nongray, const Ledger& L,
-                const float* table, const Forest& F, int n, const Geom& g, const Shards& S,
-                unsigned long long* events, int32_t* iters, cudaStream_t stream) {
-  if (smr) {
-    launch_mode<NDIM, true>(absorb, ddmc, nongray, L, table, F, n, g, S, events, iters, stream);
-  } else {
-    launch_mode<NDIM, false>(absorb, ddmc, nongray, L, table, F, n, g, S, events, iters,
-                             stream);
-  }
+template <class Op>
+void dispatch(int ndim, bool absorb, bool ddmc, bool smr, bool nongray, Op& op) {
+  if (ndim == 1 && smr) dispatch_mode<1, true>(absorb, ddmc, nongray, op);
+  if (ndim == 1 && !smr) dispatch_mode<1, false>(absorb, ddmc, nongray, op);
+  if (ndim == 2 && smr) dispatch_mode<2, true>(absorb, ddmc, nongray, op);
+  if (ndim == 2 && !smr) dispatch_mode<2, false>(absorb, ddmc, nongray, op);
+  if (ndim == 3 && smr) dispatch_mode<3, true>(absorb, ddmc, nongray, op);
+  if (ndim == 3 && !smr) dispatch_mode<3, false>(absorb, ddmc, nongray, op);
 }
+
+struct Launch {
+  const Ledger& L;
+  const float* table;
+  const Forest& F;
+  int n;
+  const Geom& g;
+  const Shards& S;
+  unsigned long long* events;
+  int32_t* iters;
+  cudaStream_t stream;
+  template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
+  void run() {
+    transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY>
+        <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, S, events,
+                                                                   iters);
+  }
+};
+
+struct Occupancy {
+  int blocks;
+  int err;
+  template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
+  void run() {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY>, kThreads, 0);
+  }
+};
 
 }  // namespace
 
@@ -1293,10 +1415,21 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
     auto* ev = (unsigned long long*)events;
     auto* itp = (int32_t*)iters;
     auto st = (cudaStream_t)stream;
-    const bool ab = absorb != 0, dd = ddmc != 0;
-    if (ndim == 1) launch_dim<1>(ab, dd, sm, ng, L, tab, F, n, g, S, ev, itp, st);
-    if (ndim == 2) launch_dim<2>(ab, dd, sm, ng, L, tab, F, n, g, S, ev, itp, st);
-    if (ndim == 3) launch_dim<3>(ab, dd, sm, ng, L, tab, F, n, g, S, ev, itp, st);
+    Launch op{L, tab, F, n, g, S, ev, itp, st};
+    dispatch(ndim, absorb != 0, ddmc != 0, sm, ng, op);
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks of kThreads threads a SM of one instantiation
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks. Returns the CUDA
+// error, -1 for an unknown ndim, -3 for nongray without absorb.
+extern "C" int jb_transport_occupancy(int ndim, int absorb, int ddmc, int smr, int nongray,
+                                      int* blocks) {
+  if (ndim < 1 || ndim > 3) return -1;
+  if (nongray != 0 && absorb == 0) return -3;
+  Occupancy op{0, 0};
+  dispatch(ndim, absorb != 0, ddmc != 0, smr != 0, nongray != 0, op);
+  *blocks = op.blocks;
+  return op.err;
 }

@@ -44,6 +44,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
+    "jb_census_words_launch": (_I, _P, _P, _I, _I, _P),  # seed n_events out n words stream
+    "jb_transport_occupancy": (_I, _I, _I, _I, _I, _P),  # ndim absorb ddmc smr nongray blocks
     "jb_transport_launch": (
         _I, _I, _I, _I, _I,  # ndim absorb ddmc smr nongray
         _P, _P,          # host array of 16 ledger pointers, cell table
@@ -58,7 +60,8 @@ _SIGNATURES = {
 
 class CudaLibrary:
     """The loaded kernel library; ``build_seconds`` is the nvcc time of this process
-    (0.0 when the library was already built), ``build_log`` nvcc's output."""
+    (0.0 when the library was already built), ``build_log`` nvcc's output (of the
+    build that made it)."""
 
     def __init__(self, path: Path, build_seconds: float, build_log: str):
         self.path = path
@@ -77,7 +80,7 @@ class CudaLibrary:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -95,18 +98,19 @@ def library() -> CudaLibrary:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     so = BUILD_DIR / f"libjbtorch_{h.hexdigest()[:16]}.so"
+    log_path = so.with_suffix(".log")  # nvcc's output, kept for a library loaded later
     if so.exists():
-        return CudaLibrary(so, 0.0, "")
+        return CudaLibrary(so, 0.0, log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-    nvcc = _nvcc()
+    exe = nvcc()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    procs = [subprocess.Popen([exe, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
     logs = [proc.communicate()[0] for proc in procs]
-    res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+    res = subprocess.run([exe, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
                          capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = "".join(logs) + res.stdout + res.stderr
@@ -114,6 +118,7 @@ def library() -> CudaLibrary:
         obj.unlink(missing_ok=True)
     if res.returncode != 0 or any(proc.returncode != 0 for proc in procs):
         raise RuntimeError(f"nvcc failed:\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, so)
     return CudaLibrary(so, seconds, log)
 

@@ -118,3 +118,43 @@ class DrawPool:
         ch = torch.cos(3.14159265358979 * u23(b))
         sh = torch.sqrt(torch.clamp_min(1.0 - ch * ch, 0.0))
         return ch, torch.where((b & 1) != 0, -sh, sh)
+
+
+def census_words_plain(seed: int, lane_events, words: int):
+    """The xor of the hash words that each lane of a census draws: lane l draws
+    tags 0 .. words - 1 in each of its ``lane_events[l]`` iterations. uint32 values
+    in an int64 tensor."""
+    ev = torch.as_tensor(lane_events, dtype=torch.int64)
+    lane = torch.arange(ev.numel(), dtype=torch.int64, device=ev.device)
+    out = torch.zeros_like(lane)
+    for it in range(int(ev.max()) if ev.numel() else 0):
+        live = ev > it
+        for tag in range(words):
+            out ^= torch.where(live, raw_bits_plain(seed, lane, it, tag), 0)
+    return out
+
+
+def census_words_cuda(seed: int, lane_events, words: int):
+    """``census_words_plain`` by the CUDA probe of csrc/sass_probes.cu, which draws
+    a census's words alone (its time is K2's share of the census): a contiguous
+    int32 CUDA tensor of per-lane event counts in."""
+    ev = lane_events
+    if ev.device.type != "cuda" or ev.dtype != torch.int32 or not ev.is_contiguous():
+        raise ValueError("census_words_cuda takes a contiguous int32 CUDA tensor")
+    out = torch.empty_like(ev)
+    cuda_lib.library().call(
+        "jb_census_words_launch", int(seed), ev.data_ptr(), out.data_ptr(), ev.numel(),
+        int(words), cuda_lib.stream_handle(ev.device),
+    )
+    cuda_lib.LAUNCHES["census_words"] += 1
+    return out.to(torch.int64) & _MASK
+
+
+def census_words(seed: int, lane_events, words: int):
+    """The census's words, through the CUDA probe for a CUDA tensor and the plain
+    version for a CPU tensor."""
+    if lane_events.device.type == "cuda":
+        return census_words_cuda(seed, lane_events, words)
+    if lane_events.device.type != "cpu":
+        raise ValueError(f"census_words: unsupported device {lane_events.device}")
+    return census_words_plain(seed, lane_events, words)

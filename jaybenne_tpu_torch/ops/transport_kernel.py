@@ -103,6 +103,16 @@ def launch_name(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
             + ("_smr" if smr else "") + ("_ng" if nongray else "") + route)
 
 
+def resident_blocks(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
+                    nongray: bool = False) -> int:
+    """Blocks of one kernel instantiation that a SM of the current GPU holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = ctypes.c_int(0)
+    cuda_lib.library().call("jb_transport_occupancy", ndim, int(absorb), int(ddmc), int(smr),
+                            int(nongray), ctypes.addressof(out))
+    return out.value
+
+
 @dataclasses.dataclass(frozen=True)
 class OwnedRange:
     """The part of the mesh one shard of the spatial decomposition owns, and with it

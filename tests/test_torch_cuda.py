@@ -785,3 +785,67 @@ def test_ddmc_full_census_bitwise_past_the_resident_lanes(gpu, ndim, absorb, smr
     assert cuda_lib.LAUNCHES[name] == before + 1
     _same_round(k, q, it_k, ev_k, it_q, ev_q)
     assert not bool((k.tau[k.alive] < 1.0).any())
+
+
+# ------------------------------- the event loop's cell cache and early draws
+
+
+def _imc_target(dev, route, n, moving):
+    """The two routes whose event loop was redesigned (the cell's values kept in
+    registers; the draws made one event ahead on the forest, at the top of the
+    event on the uniform mesh), on ledgers of their kind: ``transport_2d_smr`` on
+    the level-1 2D forest of ``_smr_setup`` (8x8 blocks, reflecting in x, periodic in
+    y) and ``transport_3d_abs`` on ``_grid_setup``'s 16^3 mesh (reflecting in x,
+    periodic in y, outflow in z). ``moving``: sigma_t = 16 everywhere, an optical
+    depth of a cell or less, so that lanes change cell, block and wall every event
+    or two and each change gathers the cell's values anew."""
+    if route == "2d_smr":
+        dt, mesh, prm, p0, coefs = _smr_setup(dev, 2, False, False, n=n)
+        if moving:
+            nc = mesh.total_cells
+            coefs = TransportCoefs(sigma_a=torch.zeros(nc, device=dev),
+                                   sigma_s=torch.full((nc,), 16.0, device=dev),
+                                   fleck=torch.ones(nc, device=dev))
+        return dt, mesh, prm, p0, coefs, transport_kernel.launch_name(2, False, False, True)
+    kw = {"sigma_a": 4.0, "sigma_s": 12.0} if moving else {}
+    dt, mesh, prm, p0, coefs = _grid_setup(dev, 3, n=n, **kw)
+    return dt, mesh, prm, p0, coefs, transport_kernel.launch_name(3, True)
+
+
+@pytest.mark.parametrize("size", ["path", "4x_resident", "moving"])
+@pytest.mark.parametrize("route", ["2d_smr", "3d_abs"])
+def test_imc_targets_bitwise_after_a_full_census(gpu, route, size):
+    """transport_2d_smr and transport_3d_abs against their plain versions after a
+    full census, identical in every column, events and iterations: on ledgers of
+    their paths' size (100k lanes, 2^18 in 3D) from the start of a step; on 4 times
+    the card's resident threads over the last 10 % of a step; and on a ledger that
+    changes cell, block and wall often."""
+    n = {"path": 100_000 if route == "2d_smr" else 1 << 18, "moving": 100_000,
+         "4x_resident": 4 * _resident_lanes(gpu)}[size]
+    dt, mesh, prm, p0, coefs, name = _imc_target(gpu, route, n, size == "moving")
+    if size == "4x_resident":
+        g = torch.Generator(device=gpu).manual_seed(n)
+        p0.tau.copy_(0.9 + 0.1 * torch.rand(p0.capacity, generator=g, device=gpu))
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, 8080, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 8080, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    _same_round(k, q, it_k, ev_k, it_q, ev_q)
+    assert not bool((k.tau[k.alive] < 1.0).any())
+    live = p0.alive
+    if route == "2d_smr":
+        moved = float((k.block != p0.block)[live].float().mean())
+        assert moved > (0.5 if size == "moving" else 0.0), moved
+    elif size == "moving":
+        assert 0 < int((live & ~k.alive & ~k.absorbed).sum())  # escaped through z
+        assert 0 < int(k.absorbed.sum())
+
+
+def test_census_words_kernel_matches_plain(gpu):
+    """K2's census-words probe against its plain version: per-lane event counts
+    from 0 to 99 on 5000 lanes, three words an event."""
+    ev = torch.as_tensor(np.random.default_rng(3).integers(0, 100, 5000), dtype=torch.int32)
+    before = cuda_lib.LAUNCHES["census_words"]
+    got = kernel_rng.census_words(-4321, ev.to(gpu), 3).cpu()
+    assert cuda_lib.LAUNCHES["census_words"] == before + 1
+    assert torch.equal(got, kernel_rng.census_words_plain(-4321, ev, 3))

@@ -82,3 +82,21 @@ def test_draw_pool_matches_jax(it):
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=2e-5)
     np.testing.assert_array_equal(np.sign(st.numpy()), np.sign(np.asarray(sj)))
     assert (e_t >= 0).all() and np.isfinite(e_t).all()
+
+
+@pytest.mark.parametrize("words", [2, 3])
+def test_census_words_match_jax(words):
+    """The census-words probe's plain version (K2's words of a census alone: tags
+    0 .. words - 1 of every event of every lane, xor-ed per lane) against the JAX
+    kernel's interpret-mode hash, lane by lane, with per-lane event counts from 0
+    to 19."""
+    seed = 24680
+    events = np.random.default_rng(words).integers(0, 20, SHAPE[0] * SHAPE[1])
+    jraw = pallas_rng.make_raw_bits(SHAPE, jnp.int32(seed), 0, interpret=True)
+    want = np.zeros(events.size, np.int64)
+    for it in range(int(events.max())):
+        for tag in range(words):
+            bits = np.asarray(jraw(jnp.int32(it), tag)).astype(np.int64).reshape(-1)
+            want ^= np.where(events > it, bits, 0)
+    got = kernel_rng.census_words(seed, torch.as_tensor(events, dtype=torch.int32), words)
+    np.testing.assert_array_equal(got.numpy(), want)
