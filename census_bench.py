@@ -15,7 +15,11 @@ more tree, timed in the same turns. Nothing here imports jax.
    stepdiff, 2D feedback and 64^3 feedback ledgers after their last step (seed
    12345, the coefficients of the final fields); the last census of the DDMC, SMR
    and non-gray paths; phase 11's hybrid ledgers; the first round of
-   big_mesh_spatial and of SMR+DDMC spatial at 8 shards. They go to one file.
+   big_mesh_spatial and of SMR+DDMC spatial at 8 shards; at other numbers of lanes
+   a SM, the 64^3 feedback ledger's first eighth, the stepdiff_smr ledger eight
+   times over and the lane sweep: the stepdiff and the 2D feedback ledgers two and
+   four times over (the copies in other slots, so other draws). They go to one
+   file.
 2. Child processes, each importing the package of one tree (``--child``), time the
    census kernel on those inputs: every route the median of ``--repeats``
    censuses, each on a fresh copy of the saved ledger, timed with CUDA events
@@ -33,8 +37,13 @@ It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
 resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
 that built the tree's library) and their event loop's common-path SASS
 instructions (``chip_smoke.common_paths`` on the tree's sources); one line per
-route with every tree's medians, ranges and their ratio to the parent's; with
-``--out`` it writes everything there as JSON.
+route with every tree's medians, ranges and their ratio to the parent's; each
+tree's warp path mix on the stepdiff and 2D feedback censuses (``--mix-child``:
+its kernel's counting variant, ``chip_smoke.path_mix``), with how their
+lane-events spread over the SMs (%smid); the lane sweep's time an event at 1, 2
+and 4 times the live lanes (a time an event that falls with more lanes says the
+one-wave census leaves throughput unused: unevenly loaded SMs, which the path mix
+shows, or latency); with ``--out`` it writes everything there as JSON.
 """
 
 from __future__ import annotations
@@ -65,6 +74,16 @@ PROFILE_DECKS = {
         "mcblock/opacity_constant_value=3.0", "jaybenne/capacity_factor=3",
         "parthenon/output0/file_type=none"]),
 }
+
+
+SWEEP_ROUTES = ("transport_1d", "transport_2d_abs")
+SWEEP = (1, 2, 4)
+
+
+def sweep_name(name, k) -> str:
+    """The route of ``name``'s census ledger ``k`` times over (the copies in other
+    slots, so other draws)."""
+    return name if k == 1 else f"{name}, its ledger {k} times"
 
 
 def record(path) -> None:
@@ -132,6 +151,13 @@ def record(path) -> None:
     p, _, args = routes["transport_2d_smr"]
     more = ParticleLedger(**{f.name: getattr(p, f.name).repeat(8) for f in dataclasses.fields(p)})
     routes["transport_2d_smr, its ledger eight times"] = (more, 1, args)
+    # the lane sweep: the stepdiff and 2D feedback ledgers SWEEP times over
+    for name in SWEEP_ROUTES:
+        p, _, args = routes[name]
+        for k in SWEEP[1:]:
+            more = ParticleLedger(**{f.name: getattr(p, f.name).repeat(k)
+                                     for f in dataclasses.fields(p)})
+            routes[sweep_name(name, k)] = (more, 1, args)
     torch.save(routes, path)
 
 
@@ -141,6 +167,39 @@ def digest(p) -> str:
     for f in dataclasses.fields(p):
         h.update(getattr(p, f.name).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+MIX_ROUTES = ("transport_1d", "transport_2d_abs")
+
+
+def mix_child(inputs, pkg, out) -> None:
+    """The warp path mix (``chip_smoke.path_mix``) of the package under ``pkg`` on
+    the saved inputs of MIX_ROUTES: its kernel's counting variant, built from its
+    own sources, run through its own launch."""
+    sys.path.insert(0, pkg)
+    import importlib.util
+
+    import torch
+
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    routes = torch.load(inputs, weights_only=False)
+    lib = cs.path_mix_library(cuda_lib.SRC_DIR, cuda_lib.BUILD_DIR / "path_mix")
+    result = {}
+    for name in MIX_ROUTES:
+        p0, _, args = routes[name]
+        mix = cs.path_mix(tk, lib, (p0, args))
+        by_sm = mix.pop("by_sm")
+        result[name] = {**mix, "sms_with_lanes": len(by_sm),
+                        "sm_max_over_mean": max(by_sm) * torch.cuda.get_device_properties(
+                            0).multi_processor_count / sum(by_sm)}
+    with open(out, "w") as f:
+        json.dump(result, f)
 
 
 def child(inputs, pkg, repeats, out) -> None:
@@ -225,9 +284,14 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out", help="also write every number here, as JSON")
     ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--mix-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
         child(args.child[0], args.child[1], args.repeats, args.child[2])
+        return 0
+    if args.mix_child:
+        mix_child(*args.mix_child)
         return 0
     import torch
 
@@ -250,7 +314,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     order = [parent, *variants, ROOT, ROOT, *variants[::-1], parent] * args.turns
     summary = {"device": smi, "order": [label[t] for t in order], "children": [],
-               "profile": [], "common_path": {}, "resources": {}}
+               "profile": [], "common_path": {}, "resources": {}, "mix": {}}
     for tree in trees:
         summary["common_path"][label[tree]] = cs.common_paths(
             os.path.join(tree, "jaybenne_tpu_torch", "csrc"), cs.EVENT_LOOP_ROUTES, tk)
@@ -266,6 +330,12 @@ def main(argv=None) -> int:
                            timeout=1800)
             with open(out) as f:
                 summary["children"].append({**json.load(f), "tree": label[tree]})
+        for tree in trees:
+            out = os.path.join(tmp, f"mix_{len(summary['mix'])}.json")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--mix-child", inputs,
+                            tree, out], check=True, timeout=1800)
+            with open(out) as f:
+                summary["mix"][label[tree]] = json.load(f)
     if args.profile:
         for tree in order:
             for deck in PROFILE_DECKS:
@@ -302,6 +372,24 @@ def main(argv=None) -> int:
                   f"{sms} SMs x {cs.ISSUE_PER_SM_CLOCK} x the SM clock read after it): "
                   + ", ".join(f"{label[t]} {issue_share(kids, label[t], name, summary, sms)!r}"
                               for t in trees), flush=True)
+    for name in MIX_ROUTES:
+        for tree in trees:
+            m = summary["mix"][label[tree]][name]
+            print(f"path mix {name} {label[tree]}: {m['warp_events']} warp-events, SIMT "
+                  f"efficiency {m['lane_events'] / (32 * m['warp_events'])!r}, crossed "
+                  f"{m['cross'] / m['warp_events']!r}; lane-events a SM (%smid): "
+                  f"{m['sms_with_lanes']} SMs ran lanes, max/mean {m['sm_max_over_mean']!r}",
+                  flush=True)
+    for name in SWEEP_ROUTES:
+        for tree in trees:
+            cells = []
+            for k in SWEEP:
+                runs = [kid["routes"][sweep_name(name, k)] for kid in kids
+                        if kid["tree"] == label[tree]]
+                ms = statistics.median(statistics.median(r["times"]) for r in runs)
+                cells.append(f"{k}x {runs[0]['live']} live lanes {ms!r} ms "
+                             f"{ms * 1e6 / runs[0]['events']!r} ns an event")
+            print(f"lane sweep {name} {label[tree]}: " + "; ".join(cells), flush=True)
     for row in summary["profile"]:
         print(f"profile {row['deck']} {row['tree']}: census {row['census_ms_per_step']!r} ms a "
               f"step, device total {row['device_ms_per_step']!r} ms a step", flush=True)

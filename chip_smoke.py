@@ -18,8 +18,11 @@ Phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc time of the kernel library; every instantiation's registers,
      stack frame and spills (``-Xptxas -v``) and resident blocks a SM; the SASS
-     instructions of the event loop's common path (a scatter in the lane's cell)
-     of transport_1d, transport_2d_smr and transport_3d_abs (``common_paths``);
+     instructions of the event loop's paths (``loop_paths``: the common path, a
+     scatter in the lane's cell; a crossing; any outcome but a wall; the whole
+     loop) of transport_1d, transport_2d_abs, transport_2d_smr and
+     transport_3d_abs; the counting variant of the kernel (``path_mix_library``)
+     built beside the library;
   3. K2: the CUDA raw_bits hash is bit-identical to the PyTorch hash;
   4. K1(a): the CUDA census kernel against its plain version on one ledger
      (2^17 particles, gate mesh, sigma_s = 1024): after 8 iterations integer state
@@ -31,7 +34,12 @@ Phases:
      to 1e-5; event total, wall time per step and events/s; one step of the plain
      version (use_pallas = off) for comparison; the kernel and its plain version
      timed on the main path's own ledger; the event loop's reading (registers,
-     spills, common path, slot-order warp efficiency and issue share) there; K2
+     spills, common path, slot-order warp efficiency and issue share) there; its
+     warp path mix (``path_mix_line``: the counting variant on the same ledger,
+     the share of warp-events in which a lane scattered, crossed, reached a wall,
+     gathers its cell anew or reached census, and from it and the loop's paths
+     the instructions a warp issues an event and the warp issue share, and how
+     the lane-events spread over the SMs, read by %smid); K2
      alone: the census's words drawn by the census_words probe, against its plain
      version and its bound;
   6. determinism: the main path again with the same seed gives bitwise-identical
@@ -46,7 +54,10 @@ Phases:
      particles, seed 42), 20 steps through the 3D absorbing kernel; the mean
      fractional error of the tally against a T0^4 (tst/regression_test.py's
      "mean" comparison) <= 0.1; then a 2D matter-coupled path (128^2 cells,
-     emission and feedback, 3 steps) through the 2D absorbing kernel;
+     emission and feedback, 3 steps) through the 2D absorbing kernel, and on its
+     ledger transport_2d_abs's event loop line, how its live lanes and events
+     spread over blocks of 256 slots (``block_spread_line``) and its warp path
+     mix, with its lane-events by SM;
   9. the full-width path: bench.py's big_mesh_feedback configuration (64^3 cells
      in 8^3 blocks, 200k particles, emission and feedback, sigma_a = 3 on
      sigma_s = 1e3), 3 steps through the 3D absorbing kernel (3 launches): total
@@ -183,7 +194,7 @@ on the inputs of the path's last census, recorded as the path ran; for phases 30
 and 33 on the first round (one launch over every shard, with the step's census
 set-up). A kernel's time is the median of CENSUS_REPEATS censuses on fresh copies
 of the same inputs, printed with their range; the plain version's is one census.
-Phases 9 and 16 print the event loop's reading as phase 5 does.
+Phases 8, 9 and 16 print the event loop's reading as phase 5 does.
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
@@ -192,6 +203,7 @@ tensor cores), from this run's events (see ``census_bound``).
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -431,7 +443,7 @@ ISSUE_PER_SM_CLOCK = 128
 CENSUS_REPEATS = 5  # a kernel census's time is the median of this many
 K2_CHECK_LANES = 2048  # lanes of the census-words probe held to its plain version
 # the routes whose event loop is read (registers, common path, issue share)
-EVENT_LOOP_ROUTES = ("transport_1d", "transport_2d_smr", "transport_3d_abs")
+EVENT_LOOP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_2d_smr", "transport_3d_abs")
 
 
 def phase(name):
@@ -608,51 +620,240 @@ def loop_body(code) -> int:
 
 
 KERNEL_ARGS = re.compile(r"transport_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
-# the event's outcome held to a scatter in the lane's cell: any other outcome
-# traps, so the compiler keeps the tests that decide the outcome and drops the
-# code of every other one. Each line goes in front of the line of
+# The event loop's paths, each the event's outcomes held to some: any other outcome
+# traps, so the compiler keeps the tests that decide the outcome and drops the code
+# of every other one. Each entry puts its line in front of the line of
 # csrc/transport_kernel.cu that it names, which the kernel must hold once, or at
 # most once where the third field is False (a kernel without a cell cache has no
-# test of a move).
-COMMON_PATH = (("    const bool census = !coll",
-                "    if (!scatter) __trap();\n    if (cr[0]) __trap();\n    if (cr[1]) __trap();\n"
-                "    if (cr[2]) __trap();\n", True),
-               ("  if (any_out) {", "  if (any_out) __trap();\n", True),
-               ("    if (kKeep && moved)", "    if (moved) __trap();\n", False))
+# test of a move):
+#   scatter: a scatter in the lane's cell (the common path);
+#   cross: a crossing into the next cell, no collision, census or wall;
+#   no_wall: any outcome but a wall (scatter, absorption, crossing, census);
+#   full: every outcome (the loop as built).
+_NO_WALL = ("  if (any_out) {", "  if (any_out) __trap();\n", True)
+LOOP_PATHS = {
+    "scatter": (("    const bool census = !coll",
+                 "    if (!scatter) __trap();\n    if (cr[0]) __trap();\n    if (cr[1]) __trap();\n"
+                 "    if (cr[2]) __trap();\n", True),
+                _NO_WALL,
+                ("    if (kKeep && moved)", "    if (moved) __trap();\n", False)),
+    "cross": (("    const bool census = !coll", "    if (coll) __trap();\n", True),
+              ("    const float d = coll ? d_coll : d_push;", "    if (census) __trap();\n", True),
+              _NO_WALL),
+    "no_wall": (_NO_WALL,),
+    "full": (),
+}
 
 
-def common_paths(csrc, names, transport_kernel) -> dict:
-    """The SASS instructions of the event loop's common path, a scatter in the
-    lane's cell (no absorption, crossing, census or wall), of the census
-    instantiations ``names``: ``csrc``/transport_kernel.cu compiled with the
-    library's flags and COMMON_PATH's traps, so that the compiler drops every
-    other outcome's code, and ``loop_body`` of each instantiation's SASS
+def patched(src, edits, what) -> str:
+    """``src`` with each (anchor, text, required) of ``edits`` applied: ``text`` put
+    in front of ``anchor``, which must occur once (at most once where ``required``
+    is False)."""
+    for anchor, line, required in edits:
+        if src.count(anchor) not in ((1,) if required else (0, 1)):
+            raise AssertionError(f"{what}: {anchor!r} is not one line of the kernel")
+        src = src.replace(anchor, line + anchor)
+    return src
+
+
+def loop_paths(csrc, names, transport_kernel, paths=tuple(LOOP_PATHS)) -> dict:
+    """The SASS instructions of the event loop's ``paths`` (LOOP_PATHS) of the
+    census instantiations ``names``, as {path: {name: count}}: for each path
+    ``csrc``/transport_kernel.cu compiled with the library's flags and the path's
+    traps (one nvcc a path, all started together), so that the compiler drops the
+    code of every other outcome, and ``loop_body`` of each instantiation's SASS
     (cuobjdump). ``csrc`` may be another tree's sources of the same kernel."""
     from jaybenne_tpu_torch.ops import cuda_lib
 
     with open(os.path.join(csrc, "transport_kernel.cu")) as f:
         src = f.read()
-    for anchor, line, required in COMMON_PATH:
-        if src.count(anchor) not in ((1,) if required else (0, 1)):
-            raise AssertionError(f"common path: {anchor!r} is not one line of the kernel")
-        src = src.replace(anchor, line + anchor)
     flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
-    with tempfile.TemporaryDirectory() as tmp:
-        cu, cubin = os.path.join(tmp, "common_path.cu"), os.path.join(tmp, "common_path.cubin")
-        with open(cu, "w") as f:
-            f.write(src)
-        subprocess.run([cuda_lib.nvcc(), *flags, "-I", csrc, "-cubin", "-o", cubin, cu],
-                       check=True, capture_output=True, timeout=900)
-        listing = sass_listing(cubin)
     out = {}
-    for fn, code in listing.items():
-        m = KERNEL_ARGS.search(fn)
-        if m:
-            ndim, *bits = (int(x) for x in m.groups())
-            name = transport_kernel.launch_name(ndim, *map(bool, bits))
-            if name in names:
-                out[name] = loop_body(code)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for path in paths:
+            cu, cubin = os.path.join(tmp, f"{path}.cu"), os.path.join(tmp, f"{path}.cubin")
+            with open(cu, "w") as f:
+                f.write(patched(src, LOOP_PATHS[path], f"loop path {path}"))
+            procs[path] = (cubin, subprocess.Popen(
+                [cuda_lib.nvcc(), *flags, "-I", csrc, "-cubin", "-o", cubin, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for path, (cubin, proc) in procs.items():
+            log = proc.communicate(timeout=900)[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"loop path {path}: nvcc failed:\n{log[-3000:]}")
+            out[path] = {}
+            for fn, code in sass_listing(cubin).items():
+                m = KERNEL_ARGS.search(fn)
+                if m:
+                    ndim, *bits = (int(x) for x in m.groups())
+                    name = transport_kernel.launch_name(ndim, *map(bool, bits))
+                    if name in names:
+                        out[path][name] = loop_body(code)
     return out
+
+
+def common_paths(csrc, names, transport_kernel) -> dict:
+    """The SASS instructions of the event loop's common path, a scatter in the
+    lane's cell (no absorption, crossing, census or wall), of the census
+    instantiations ``names`` (``loop_paths``)."""
+    return loop_paths(csrc, names, transport_kernel, ("scatter",))["scatter"]
+
+
+# The counting variant of the census kernel (``path_mix``): per warp and event,
+# whether any lane of the warp scattered, crossed into another cell, reached a wall
+# (any_out), moved and runs on (so gathers its cell anew), or reached census; and
+# the lanes that did; and the lane-events of each SM (%smid). The warp's active
+# lanes are the ones that ran the event (``__activemask`` where the event ends).
+PATH_MIX_KEYS = ("warp_events", "lane_events", "scatter", "cross", "wall", "regather", "census",
+                 "lane_scatters", "lane_crossings", "lane_walls")
+PATH_MIX_SMS = 1024  # SM ids the variant counts
+PATH_MIX = (
+    ("namespace {\n",
+     f"__device__ unsigned long long jb_path_mix[{len(PATH_MIX_KEYS)}];\n"
+     f"__device__ unsigned long long jb_path_mix_sm[{PATH_MIX_SMS}];\n", True),
+    ("  int leak = 0;\n  if (DDMC && is_ddmc) {",
+     "  bool pm_scatter = false, pm_cross = false, pm_census = false;\n", True),
+    ("    const float d = coll ? d_coll : d_push;",
+     "    pm_scatter = scatter;\n    pm_cross = cr[0] || cr[1] || cr[2];\n"
+     "    pm_census = census;\n", True),
+    ("  pface = nface;\n",
+     "  {\n"
+     "    const unsigned m = __activemask();\n"
+     "    const unsigned bs = __ballot_sync(m, pm_scatter), bx = __ballot_sync(m, pm_cross);\n"
+     "    const unsigned bw = __ballot_sync(m, any_out);\n"
+     "    const unsigned bg = __ballot_sync(m, moved && palive && ptau < 1.0f);\n"
+     "    const unsigned bc = __ballot_sync(m, pm_census);\n"
+     "    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {\n"
+     "      const unsigned b[5] = {bs, bx, bw, bg, bc};\n"
+     "      unsigned sm;\n"
+     "      asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+     f"      atomicAdd(&jb_path_mix_sm[sm % {PATH_MIX_SMS}u], (unsigned long long)__popc(m));\n"
+     "      atomicAdd(&jb_path_mix[0], 1ull);\n"
+     "      atomicAdd(&jb_path_mix[1], (unsigned long long)__popc(m));\n"
+     "      for (int k = 0; k < 5; ++k) atomicAdd(&jb_path_mix[2 + k], b[k] ? 1ull : 0ull);\n"
+     "      for (int k = 0; k < 3; ++k)\n"
+     "        atomicAdd(&jb_path_mix[7 + k], (unsigned long long)__popc(b[k]));\n"
+     "    }\n"
+     "  }\n", True),
+)
+PATH_MIX_READ = f"""
+// the counting variant's totals and its lane-events by SM, copied out and zeroed
+extern "C" int jb_path_mix_read(unsigned long long* out, unsigned long long* by_sm) {{
+  static const unsigned long long zero[{PATH_MIX_SMS}] = {{}};
+  int err = (int)cudaMemcpyFromSymbol(out, jb_path_mix, sizeof(jb_path_mix));
+  if (err == 0) err = (int)cudaMemcpyFromSymbol(by_sm, jb_path_mix_sm, sizeof(jb_path_mix_sm));
+  if (err == 0) err = (int)cudaMemcpyToSymbol(jb_path_mix, zero, sizeof(jb_path_mix));
+  if (err == 0) err = (int)cudaMemcpyToSymbol(jb_path_mix_sm, zero, sizeof(jb_path_mix_sm));
+  return err;
+}}
+"""
+
+
+def path_mix_library(csrc=None, out_dir=None):
+    """The counting variant (PATH_MIX) of the kernel library of the sources in
+    ``csrc`` (this tree's by default), built into ``out_dir`` (by default
+    ``path_mix`` under the build directory, which ``.gitignore`` lists): every source
+    compiled, transport_kernel.cu with PATH_MIX's counters, so that it loads as a
+    ``cuda_lib.CudaLibrary`` of that tree and takes its launches."""
+    import ctypes
+    from pathlib import Path
+
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    csrc = Path(csrc or cuda_lib.SRC_DIR)
+    out_dir = Path(out_dir or cuda_lib.BUILD_DIR / "path_mix")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    procs, objs = [], []
+    for src in sorted(csrc.glob("*.cu")):
+        text = src.read_text()
+        if src.name == "transport_kernel.cu":
+            text = patched(text, PATH_MIX, "path mix") + PATH_MIX_READ
+        cu, obj = out_dir / src.name, out_dir / f"{src.stem}.o"
+        cu.write_text(text)
+        objs.append(str(obj))
+        procs.append(subprocess.Popen([cuda_lib.nvcc(), *flags, "-I", str(csrc), "-c", "-o",
+                                       str(obj), str(cu)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = [proc.communicate(timeout=900)[0] for proc in procs]
+    if any(proc.returncode != 0 for proc in procs):
+        raise RuntimeError("path mix: nvcc failed:\n" + "".join(logs)[-3000:])
+    so = out_dir / "libjbtorch_path_mix.so"
+    subprocess.run([cuda_lib.nvcc(), *flags[:2], "-shared", "-o", str(so), *objs], check=True,
+                   capture_output=True, timeout=300)
+    lib = cuda_lib.CudaLibrary(so, 0.0, "")
+    lib._dll.jb_path_mix_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib._dll.jb_path_mix_read.restype = ctypes.c_int
+    return lib
+
+
+def path_mix(transport_kernel, lib, inputs) -> dict:
+    """The counting variant ``lib`` (``path_mix_library``) run on a census's
+    ``inputs`` ((ledger, args) of ``transport``) through ``transport_kernel``'s own
+    launch, with the variant in place of the kernel library for the call (its
+    launch not counted): its PATH_MIX_KEYS totals and ``by_sm``, the lane-events
+    of each SM that ran any."""
+    import ctypes
+
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    p, args = inputs
+    buf = (ctypes.c_ulonglong * len(PATH_MIX_KEYS))()
+    by_sm = (ctypes.c_ulonglong * PATH_MIX_SMS)()
+    read = ("jb_path_mix_read", ctypes.addressof(buf), ctypes.addressof(by_sm))
+    lib.call(*read)  # zeroes the counters
+    own, launches = cuda_lib.library, dict(cuda_lib.LAUNCHES)
+    cuda_lib.library = lambda: lib
+    try:
+        transport_kernel.transport(p.clone(), *args)
+        torch.cuda.synchronize()
+    finally:
+        cuda_lib.library = own
+        cuda_lib.LAUNCHES.clear()
+        cuda_lib.LAUNCHES.update(launches)
+    lib.call(*read)
+    return {**dict(zip(PATH_MIX_KEYS, (int(x) for x in buf))),
+            "by_sm": [int(x) for x in by_sm if x]}
+
+
+def path_mix_line(name, mix, paths, ms, events, dev) -> dict:
+    """Prints the warp path mix of the route ``name`` (``path_mix``), checked against
+    the census's ``events``, and the instructions a warp issues an event modelled
+    from it and the loop's paths (``loop_paths`` of the route, {path: count}): the
+    code the scatter, crossing and no-wall paths share (scatter + cross - no_wall),
+    plus the scatter's code (no_wall - cross) where any lane scattered, the
+    crossing's (no_wall - scatter) where any lane crossed and the wall's (full -
+    no_wall) where any lane reached a wall. The warp issue share is those
+    instructions x warp-events over ms x SMs x 4 warp instructions a SM clock x the
+    SM clock (nvidia-smi, read just after). Last, how the lane-events spread over
+    the SMs (%smid): the SMs that ran lanes, and the busiest SM's against the mean
+    over every SM of the card. Returns the mix with the model's numbers."""
+    if mix["lane_events"] != events:
+        raise AssertionError(f"{name} path mix: {mix['lane_events']} lane-events, census {events}")
+    we, by_sm = mix["warp_events"], mix["by_sm"]
+    share = {k: mix[k] / we for k in ("scatter", "cross", "wall", "regather", "census")}
+    s, x, sx, full = (paths[k] for k in ("scatter", "cross", "no_wall", "full"))
+    shared = s + x - sx
+    per_warp = (shared + share["scatter"] * (sx - x) + share["cross"] * (sx - s)
+                + share["wall"] * (full - sx))
+    clock = smi_value("clocks.sm")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    issue = per_warp * we / (ms * 1e-3 * sms * (ISSUE_PER_SM_CLOCK // 32) * clock * 1e6)
+    print(f"{name} warp path mix: {we} warp-events for {mix['lane_events']} lane-events (SIMT "
+          f"efficiency {mix['lane_events'] / (32 * we)!r}); share of warp-events with a lane "
+          f"that scattered {share['scatter']!r}, crossed {share['cross']!r}, reached a wall "
+          f"{share['wall']!r}, gathers its cell anew {share['regather']!r}, reached census "
+          f"{share['census']!r}; a lane-event scatters "
+          f"{mix['lane_scatters'] / mix['lane_events']!r}, crosses "
+          f"{mix['lane_crossings'] / mix['lane_events']!r}, reaches a wall "
+          f"{mix['lane_walls'] / mix['lane_events']!r}; loop paths (SASS) scatter {s}, cross {x}, "
+          f"no wall {sx}, full {full}: shared {shared}, scatter +{sx - x}, crossing +{sx - s}, "
+          f"wall +{full - sx}; modelled {per_warp!r} instructions a warp-event; SM clock "
+          f"{clock!r} MHz; warp issue share {issue!r} ({ms!r} ms); lane-events a SM "
+          f"(%smid): {len(by_sm)} of {sms} SMs ran lanes, max/mean over the {sms} "
+          f"{max(by_sm) * sms / sum(by_sm)!r}", flush=True)
+    return {**mix, "instructions_per_warp_event": per_warp, "warp_issue_share": issue}
 
 
 def kernel_resources(build_log, transport_kernel) -> dict:
@@ -713,6 +914,25 @@ def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common
           f"{common} SASS instructions an event; slot-order warp efficiency {eff!r}; SM clock "
           f"{clock!r} MHz; issue share {issue!r} ({events} events in {ms!r} ms)", flush=True)
     return lanes
+
+
+def block_spread_line(name, lanes, p, blocks, dev):
+    """Prints how the live lanes and the events (``lanes``, the plain version's per
+    slot) of a census of the route ``name`` on the ledger ``p`` spread over blocks
+    of 256 consecutive slots, against the card's ``blocks`` resident a SM. (How
+    they spread over the SMs the counting variant reads: ``path_mix_line``.)"""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pad = (-p.capacity) % 256
+    zero = torch.zeros(pad, dtype=torch.int64, device=p.x.device)
+    live = torch.cat([(p.alive & (p.tau < 1.0)).to(torch.int64), zero]).view(-1, 256).sum(1)
+    ev = torch.cat([lanes.to(torch.int64), zero]).view(-1, 256).sum(1)
+    nb = live.numel()
+    lv = live.sort().values
+    print(f"{name} blocks: {nb} blocks of 256 slots ({int((live > 0).sum())} with live lanes) "
+          f"on {sms} SMs x {blocks} resident: {nb / sms!r} a SM, {nb / (sms * blocks)!r} "
+          f"waves; live lanes a block min {int(lv[0])} median {int(lv[nb // 2])} max "
+          f"{int(lv[-1])}; events a block max/mean {float(ev.max() / ev.float().mean())!r}",
+          flush=True)
 
 
 def probe_costs(counts) -> dict:
@@ -2247,9 +2467,13 @@ def main() -> int:
                       "resident blocks of 256 a SM", flush=True)
     listing = sass_listing(lib.path)
     cost = probe_costs(sass_counts(listing))
-    common = common_paths(str(cuda_lib.SRC_DIR), EVENT_LOOP_ROUTES, transport_kernel)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        mix_build = pool.submit(path_mix_library)
+        paths = loop_paths(str(cuda_lib.SRC_DIR), EVENT_LOOP_ROUTES, transport_kernel)
+        mix_lib = mix_build.result()
+    common = paths["scatter"]
     print(f"event loop common path (a scatter in the lane's cell), SASS instructions an "
-          f"event: {common}", flush=True)
+          f"event: {common}; every path of the loop (LOOP_PATHS): {paths}", flush=True)
     if sorted(common) != sorted(EVENT_LOOP_ROUTES) or min(common.values()) <= 0:
         raise AssertionError(f"build: no event loop read: {common}")
 
@@ -2383,6 +2607,8 @@ def main() -> int:
     lanes_1d = event_loop_line(transport_kernel, dev, "transport_1d", (pm, args), ms,
                                census_events, resources.get("transport_1d", {}),
                                common["transport_1d"])
+    path_mix_line("transport_1d", path_mix(transport_kernel, mix_lib, (pm, args)),
+                  {k: v["transport_1d"] for k, v in paths.items()}, ms, census_events, dev)
     # K2 alone: the words of this census (two an event: the exp23 word and the u16
     # word), drawn by the census_words probe, against their plain version on the
     # first lanes and against the bound of their hash instructions at the issue rate
@@ -2468,13 +2694,18 @@ def main() -> int:
     if (launches_2d.get(name2, 0) != FEEDBACK_2D_STEPS or cons2 > FEEDBACK_ENERGY_TOL
             or any(h["dropped"] or h["unfinished"] for h in sim2.history)):
         raise AssertionError(f"2D feedback: launches {launches_2d}, energy {cons2}")
-    ms2, plain_ms2, ev2, err2m, _ = path_census(sim2, transport_kernel, dev)
+    ms2, plain_ms2, ev2, err2m, in2 = path_census(sim2, transport_kernel, dev)
     bound_2d, by_2d = census_bound(sim2.state.particles, 2, True, sim2.mesh.total_cells,
                                    ev2, cost)
     print(f"2D feedback ({sim2.mesh.total_cells} cells, {FEEDBACK_2D_STEPS} steps): "
           f"{launches_2d.get(name2, 0)} launches, energy conservation {cons2!r}, events "
           f"{sim2.total_events}; on its ledger kernel {ms2!r} ms, plain {plain_ms2!r} ms, "
           f"{ev2} events, bound {bound_2d!r} ms ({by_2d})", flush=True)
+    lanes_2d = event_loop_line(transport_kernel, dev, name2, in2, ms2, ev2,
+                               resources.get(name2, {}), common[name2])
+    block_spread_line(name2, lanes_2d, in2[0], transport_kernel.resident_blocks(2, True), dev)
+    path_mix_line(name2, path_mix(transport_kernel, mix_lib, in2),
+                  {k: v[name2] for k, v in paths.items()}, ms2, ev2, dev)
 
     phase("9 full width: big_mesh_feedback, 64^3 cells, 200k particles, 3 steps")
     with tempfile.TemporaryDirectory() as outdir:

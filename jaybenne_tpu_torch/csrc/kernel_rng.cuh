@@ -13,15 +13,30 @@
 
 #include <cstdint>
 
-__device__ __forceinline__ uint32_t jb_raw_bits(uint32_t seed, uint32_t lane,
-                                                uint32_t it, uint32_t tag) {
-  uint32_t x = seed + lane + it * 0x9E3779B9u + tag * 0x85EBCA6Bu;
+// A word is the hash of key + tag * kTagStep, where the key of (seed, lane,
+// iteration) is seed + lane + iteration * kItStep: a lane's next iteration has the
+// key + kItStep (uint32 arithmetic wraps, so the words are the same however the
+// key is reached).
+constexpr uint32_t kItStep = 0x9E3779B9u;
+constexpr uint32_t kTagStep = 0x85EBCA6Bu;
+
+__device__ __forceinline__ uint32_t jb_key(uint32_t seed, uint32_t lane, uint32_t it) {
+  return seed + lane + it * kItStep;
+}
+
+__device__ __forceinline__ uint32_t jb_word(uint32_t key, uint32_t tag) {
+  uint32_t x = key + tag * kTagStep;
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t jb_raw_bits(uint32_t seed, uint32_t lane,
+                                                uint32_t it, uint32_t tag) {
+  return jb_word(jb_key(seed, lane, it), tag);
 }
 
 // 23-bit-mantissa uniform on [0, 1) from one word

@@ -149,7 +149,13 @@
 // position, velocity, tau, cell, block, face, photon energy: at most 64 bytes a
 // lane) in shared memory and deals them back so that they fill the lowest
 // warps, those on the IMC branch first and, with DDMC, those on the DDMC branch
-// from the next warp boundary. Dead, finished and unowned slots then leave whole
+// from the next warp boundary. When the launch's blocks all fit on the card at
+// once, the host asks for its slots spread: block b's warp w takes the 32 slots of
+// group w x blocks + b, so that every block holds slots from across the launch (a
+// ledger keeps its live particles first and its room to grow after them, and the
+// blocks that held stepdiff's 100000 live lanes of 201152 slots in consecutive
+// order left the busiest SM 1.69 times the mean SM's lane-events, counted by
+// %smid; spread, 1.02). Dead, finished and unowned slots then leave whole
 // warps empty, which issue nothing, and a hybrid warp runs one branch at its
 // start. Each lane then runs its whole history with its state in registers: the
 // lane's state in a struct, or the cell record returned by value, cost the 2D
@@ -200,7 +206,28 @@
 // K3s's round 2.99 -> 2.65, the native hybrid 3.42 -> 3.08, stepdiff 1.001 ->
 // 1.000; the event loop's common path (a scatter in the cell) 243 -> 231 SASS
 // instructions in 2D SMR, 297 -> 279 in 3D. The census issues 0.39-0.52 of the
-// card's instruction rate on that path alone: issue, not latency, bounds it.
+// card's instruction rate on that path alone.
+//
+// The gray event on a uniform 1D or 2D mesh (stepdiff, the 2D feedback path).
+// Counted per warp-event by a counting variant (chip_smoke.py ``path_mix``), a
+// lane of the warp scattered in 0.998 (1D) and 0.996 (2D) of them, crossed in 0.82
+// and 0.88, hit a wall in 0.014 and 0.021: so such a lane gathers its cell's
+// record after every event, without the branch (``kGatherEvery``), and a 1D lane
+// sets vy and vz once, from its last scatter's mu, when its history ends
+// (``kVyAfter``: the scatter's sqrtf leaves the loop); a gray lane steps its K2
+// key by kItStep an event. Measured (NVIDIA H100 80GB HBM3, 700.00 W;
+// census_bench.py, each candidate built alone and timed against the kernel before
+// it in turns): stepdiff's census 1.0019 ms -> 0.8916 with vy after the history
+// alone, 0.9703 with the branch-free gather alone, 0.9893 with the stepped key
+// alone, 0.8502 with all three, 0.5808 with the slots spread too (above); the 2D
+// feedback census 1.6854 -> 1.6363 with the gather, the key and the spread (vz
+// after the history cost 1.1 % more). Landed, four turns each: stepdiff 0.9946 ->
+// 0.5771 ms, the 2D feedback census 1.6773 -> 1.6276. Dropped: drawing 1D events
+// one ahead (1.2 % slower with the spread, 0.9 % without); 128-thread blocks
+// (stepdiff 27 % faster, the 2D and 64^3 feedback censuses 9.5 % and 6.3 %
+// slower); the 1 KB 1D cell table staged in shared memory (7 % slower); a DDMC or
+// NONGRAY lane carrying its key (9 registers fewer for the 2D SMR DDMC kernel, so
+// 4 resident blocks instead of 3: its K4s round 8-9 % slower).
 //
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
@@ -272,6 +299,7 @@ constexpr int kMaxShards = 64;
 struct Shards {
   int count;
   int first;
+  int spread;  // a block's warps take slot groups spread over the launch
   int slot_lo[kMaxShards], slot_hi[kMaxShards];
   int own_lo[kMaxShards], own_hi[kMaxShards];
   int row[kMaxShards];
@@ -773,37 +801,37 @@ __device__ __forceinline__ void gather(const Geom& g, const Forest& F, const flo
   }
 }
 
-// The words of an IMC event (kernel_rng.cuh: keyed by seed, lane, iteration and
-// tag, in the DrawPool's order) and what follows from them alone: the collision's
-// unit exponential (tag 0) and, with ABSORB, the u23 branch draw (tag 1);
-// the scatter's mu = 1 - 2 u16 and st = sqrt(1 - mu^2) from the u16 word's low
-// half, and in 2D/3D (cos phi, sin phi) from the circle word after it.
+// The words of an IMC event (kernel_rng.cuh: ``key`` is the key of the lane's
+// seed, lane and iteration, a word that key's hash with its tag, in the
+// DrawPool's order) and what follows from them alone: the collision's unit
+// exponential (tag 0) and, with ABSORB, the u23 branch draw (tag 1); the
+// scatter's mu = 1 - 2 u16 from the u16 word's low half with, unless ``kSt`` is
+// false, st = sqrt(1 - mu^2), and in 2D/3D (cos phi, sin phi) from the circle
+// word after it.
 template <bool ABSORB>
-__device__ __forceinline__ void collision_draws(uint32_t seed, uint32_t lane, uint32_t it,
-                                                float& e23, float& ub) {
-  e23 = jb_exp23(jb_raw_bits(seed, lane, it, 0u));
-  ub = ABSORB ? jb_u23(jb_raw_bits(seed, lane, it, 1u)) : 0.0f;
+__device__ __forceinline__ void collision_draws(uint32_t key, float& e23, float& ub) {
+  e23 = jb_exp23(jb_word(key, 0u));
+  ub = ABSORB ? jb_u23(jb_word(key, 1u)) : 0.0f;
 }
 
-template <int NDIM, bool ABSORB>
-__device__ __forceinline__ void scatter_draws(uint32_t seed, uint32_t lane, uint32_t it,
-                                              float& mu, float& st, float& cph, float& sph) {
+template <int NDIM, bool ABSORB, bool kSt = true>
+__device__ __forceinline__ void scatter_draws(uint32_t key, float& mu, float& st, float& cph,
+                                              float& sph) {
   constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
-  mu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(seed, lane, it, kTagU16));
-  st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+  mu = 1.0f - 2.0f * jb_u16_lo(jb_word(key, kTagU16));
+  st = kSt ? sqrtf(fmaxf(1.0f - mu * mu, 0.0f)) : 0.0f;
   cph = 0.0f;
   sph = 0.0f;
-  if constexpr (NDIM > 1) jb_circle(jb_raw_bits(seed, lane, it, kTagU16 + 1u), &cph, &sph);
+  if constexpr (NDIM > 1) jb_circle(jb_word(key, kTagU16 + 1u), &cph, &sph);
 }
 
 // kDraws values of an IMC event's words: e23, ub, mu, st, cph, sph.
 constexpr int kDraws = 6;
 
-template <int NDIM, bool ABSORB>
-__device__ __forceinline__ void imc_draws(uint32_t seed, uint32_t lane, uint32_t it,
-                                          float (&dr)[kDraws]) {
-  collision_draws<ABSORB>(seed, lane, it, dr[0], dr[1]);
-  scatter_draws<NDIM, ABSORB>(seed, lane, it, dr[2], dr[3], dr[4], dr[5]);
+template <int NDIM, bool ABSORB, bool kSt = true>
+__device__ __forceinline__ void imc_draws(uint32_t key, float (&dr)[kDraws]) {
+  collision_draws<ABSORB>(key, dr[0], dr[1]);
+  scatter_draws<NDIM, ABSORB, kSt>(key, dr[2], dr[3], dr[4], dr[5]);
 }
 
 // Where an instantiation's IMC event makes its draws (measured, see the note at
@@ -823,6 +851,24 @@ constexpr bool kDrawAtTop = !SMR && !DDMC && !NONGRAY;
 template <bool DDMC, bool SMR>
 constexpr bool kKeepCell = SMR || !DDMC;
 
+// Whether a lane gathers its cell's values after every event, without a branch:
+// a gray lane on a uniform 1D or 2D mesh, where the gather is the record's one
+// load and most warp-events hold a lane that crossed anyway (measured, see the
+// note at the head of this file).
+template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
+constexpr bool kGatherEvery = NDIM < 3 && !DDMC && !SMR && !NONGRAY;
+
+// Whether a lane's vy and vz wait for the end of its history: a gray lane on a
+// uniform 1D mesh, where no event reads them. Its scatter sets vx and keeps mu;
+// when the history ends, vy = c sqrt(1 - mu^2) and vz = 0 of the last scatter, the
+// same operations on the same mu as that scatter's; a lane that did not scatter
+// keeps its own.
+template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
+constexpr bool kVyAfter = NDIM == 1 && !DDMC && !SMR && !NONGRAY;
+
+// mu of a lane that has not scattered (|mu| <= 1 after a scatter)
+constexpr float kNoMu = 2.0f;
+
 // Whether a lane takes another event.
 template <int NDIM, bool SMR>
 __device__ __forceinline__ bool runs(const Geom& g, const Own& o, bool alive, float tau, int it,
@@ -830,21 +876,24 @@ __device__ __forceinline__ bool runs(const Geom& g, const Own& o, bool alive, fl
   return alive && tau < 1.0f && it < g.max_iters && owned<NDIM, SMR>(o, blk, ci);
 }
 
-// One event of a lane (``lane`` is its slot's index in its shard's slice), on
-// its state in registers and its cell's values (``gather``). ``dr`` holds the
-// event's draws where ``kDrawAhead`` (made during the event before it) and
-// receives them at the top of the event where ``kDrawAtTop``. ``moved`` says
-// whether the event changed the lane's cell or block.
+// One event of a lane (``lane`` is its slot's index in its shard's slice, ``key``
+// the K2 key of its seed, lane and iteration, which gray lanes carry), on its
+// state in registers and its cell's values (``gather``). ``dr`` holds the event's
+// draws where ``kDrawAhead`` (made during the event before it) and receives them
+// at the top of the event where ``kDrawAtTop``. ``moved`` says whether the event
+// changed the lane's cell or block. Where ``kVyAfter`` a scatter sets ``mu_last``
+// instead of vy and vz.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __device__ __forceinline__ void event(const Geom& g, const Forest& F, const float* table,
-                                      const Own& o, uint32_t lane, int& pit, float (&p)[3],
-                                      float (&v)[3], float& ptau, int (&ci)[3], int& blk,
-                                      int& pface, bool& palive, bool& pabsorbed, int& pending,
+                                      const Own& o, uint32_t lane, uint32_t key, int& pit,
+                                      float (&p)[3], float (&v)[3], float& ptau, int (&ci)[3],
+                                      int& blk, int& pface, bool& palive, bool& pabsorbed,
+                                      int& pending,
                                       const float (&dx)[3], const float (&inv_dx)[3],
                                       const float (&box)[3], const float (&flo)[3],
                                       const float (&fhi)[3], float dmin, float2 tab, float ea,
                                       float sig_t, const float (&pf)[6], bool is_ddmc,
-                                      float (&dr)[kDraws], bool& moved) {
+                                      float (&dr)[kDraws], bool& moved, float& mu_last) {
   const uint32_t it = (uint32_t)pit;
   float np_[3];
   int nci[3];
@@ -855,9 +904,14 @@ __device__ __forceinline__ void event(const Geom& g, const Forest& F, const floa
                              ci, v, np_, nci, ptau, palive, pabsorbed, leak);
   } else {
     constexpr bool kInPlace = DDMC || NONGRAY;
-    if constexpr (kDrawAtTop<DDMC, SMR, NONGRAY>) imc_draws<NDIM, ABSORB>(o.seed, lane, it, dr);
+    // a gray lane carries its key; a DDMC or NONGRAY lane keys the words it draws
+    // here (carried, the 2D SMR DDMC kernel fits 4 blocks a SM, not 3, and its K4s
+    // round ran 8-9 % slower)
+    const uint32_t ikey = kInPlace ? jb_key(o.seed, lane, it) : key;
+    constexpr bool kVy = kVyAfter<NDIM, DDMC, SMR, NONGRAY>;
+    if constexpr (kDrawAtTop<DDMC, SMR, NONGRAY>) imc_draws<NDIM, ABSORB, !kVy>(key, dr);
     float e23 = dr[0], u_branch = dr[1];
-    if constexpr (kInPlace) collision_draws<ABSORB>(o.seed, lane, it, e23, u_branch);
+    if constexpr (kInPlace) collision_draws<ABSORB>(ikey, e23, u_branch);
     float d_coll;
     if constexpr (DDMC || NONGRAY) {
       d_coll = e23 / (sig_t + 1.0e-37f);
@@ -904,11 +958,15 @@ __device__ __forceinline__ void event(const Geom& g, const Forest& F, const floa
     }
     if (scatter) {  // isotropic scatter
       float mu = dr[2], st = dr[3], cph = dr[4], sph = dr[5];
-      if constexpr (kInPlace) scatter_draws<NDIM, ABSORB>(o.seed, lane, it, mu, st, cph, sph);
+      if constexpr (kInPlace) scatter_draws<NDIM, ABSORB>(ikey, mu, st, cph, sph);
       if (NDIM == 1) {
         v[0] = g.c * mu;
-        v[1] = g.c * st;
-        v[2] = 0.0f;
+        if (kVy) {
+          mu_last = mu;
+        } else {
+          v[1] = g.c * st;
+          v[2] = 0.0f;
+        }
       } else {
         v[0] = g.c * st * cph;
         v[1] = g.c * st * sph;
@@ -990,10 +1048,13 @@ __device__ __forceinline__ void event(const Geom& g, const Forest& F, const floa
 // registers for the loop and back after it. Where ``kKeepCell`` the values of
 // the lane's cell (``gather``) stay in registers from one event to the next and
 // are gathered again only after an event that changed the lane's cell or block,
-// so an event in the same cell loads nothing; elsewhere every event gathers them
-// first. Where ``kDrawAhead`` each event's draws are made during the event before
-// it (``imc_draws`` of it + 1), off that event's dependent chain; a lane carries
-// its own iteration count, so its words do not change.
+// so an event in the same cell loads nothing; where ``kGatherEvery`` they are
+// gathered after every event, without a branch; elsewhere every event gathers
+// them first. Where ``kDrawAhead`` each event's draws are made during the event
+// before it (``imc_draws`` of the next key), off that event's dependent chain. A
+// lane carries its own iteration count and, where gray, its K2 key, stepped by
+// kItStep an event, so its words do not change. Where ``kVyAfter`` vy and vz are
+// set from the last scatter's mu when the history ends.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const float* table,
                                          const Shards& S, Lane& st) {
@@ -1008,23 +1069,29 @@ __device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const f
   float dx[3], inv_dx[3], box[3], flo[3], fhi[3], dmin, ea, sig_t, pf[6];
   float2 tab;
   bool is_ddmc, moved;
-  constexpr bool kKeep = kKeepCell<DDMC, SMR>;
-  if constexpr (kKeep)
+  float mu_last = kNoMu;
+  constexpr bool kEvery = kGatherEvery<NDIM, DDMC, SMR, NONGRAY>;
+  constexpr bool kKeep = kKeepCell<DDMC, SMR> && !kEvery;
+  if constexpr (kKeep || kEvery)
     gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box, flo,
                                              fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
   constexpr bool kAhead = kDrawAhead<DDMC, SMR, NONGRAY>;
+  uint32_t key = jb_key(o.seed, lane, (uint32_t)it);
   float dr[kDraws] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if constexpr (kAhead) imc_draws<NDIM, ABSORB>(o.seed, lane, (uint32_t)it, dr);
+  if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key, dr);
   while (true) {
     float next[kDraws];
-    if constexpr (kAhead) imc_draws<NDIM, ABSORB>(o.seed, lane, (uint32_t)it + 1u, next);
-    if constexpr (!kKeep)  // every event gathers its cell first
+    if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key + kItStep, next);
+    if constexpr (!kKeep && !kEvery)  // every event gathers its cell first
       gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
                                                flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
     event<NDIM, ABSORB, DDMC, SMR, NONGRAY>(
-        g, F, table, o, lane, it, p, v, tau, ci, blk, face, alive, absorbed, pending, dx, inv_dx,
-        box, flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc, dr, moved);
+        g, F, table, o, lane, key, it, p, v, tau, ci, blk, face, alive, absorbed, pending, dx,
+        inv_dx, box, flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc, dr, moved, mu_last);
     if (!runs<NDIM, SMR>(g, o, alive, tau, it, blk, ci)) break;
+    if constexpr (kEvery)
+      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
+                                               flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
     if (kKeep && moved)
       gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
                                                flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
@@ -1032,6 +1099,11 @@ __device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const f
 #pragma unroll
       for (int k = 0; k < kDraws; ++k) dr[k] = next[k];
     }
+    key += kItStep;
+  }
+  if (kVyAfter<NDIM, DDMC, SMR, NONGRAY> && mu_last <= 1.0f) {  // vy, vz of the last scatter
+    v[1] = g.c * sqrtf(fmaxf(1.0f - mu_last * mu_last, 0.0f));
+    v[2] = 0.0f;
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -1240,7 +1312,9 @@ __global__ void __launch_bounds__(kThreads)
   Lane st;
   st.slot = -1;
   st.it = 0;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
+  // spread: warp w of block b takes the 32 slots of group w x blocks + b
+  const int warp_slots = 32 * ((threadIdx.x >> 5) * gridDim.x + blockIdx.x);
+  const int q = S.spread ? warp_slots + (threadIdx.x & 31) : blockIdx.x * kThreads + threadIdx.x;
   if (q < n) take<NDIM, DDMC, SMR, NONGRAY>(L, g, S, S.first + q, st);
   regroup<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, sm, st);
   if (st.slot >= 0) {
@@ -1328,8 +1402,10 @@ struct Occupancy {
 // dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] rho_scale temp_scale
 // length_scale sb kb hh g_ff freq_min xc_max (host arrays).
 // shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row,
-// seed) (host array). events: n_shards uint64 and iters: n_shards int32, zeroed
-// (device).
+// seed) (host array). spread: nonzero for warp w of block b to take the 32 slots
+// of group w x blocks + b instead of block b the 256 after 256 b, so that every
+// block holds slots from across the launch. events: n_shards uint64 and iters:
+// n_shards int32, zeroed (device).
 // Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
 // SMR launch without its tables, -3 for nongray without absorb, -4 for a shard
 // table the kernel does not take.
@@ -1338,7 +1414,8 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
                                    const void* table, const void* block_table,
                                    const void* levels, const void* lookup, int capacity,
                                    const int* igeom, const float* fgeom, int n_shards,
-                                   const int* shards, void* events, void* iters, void* stream) {
+                                   const int* shards, int spread, void* events, void* iters,
+                                   void* stream) {
   Ledger L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (float*)ptrs[a];
@@ -1409,6 +1486,7 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
     last = row[1] > last ? row[1] : last;
   }
   S.first = first;
+  S.spread = spread;
   const int n = last - first;
   if (n > 0) {
     const float* tab = (const float*)table;

@@ -53,6 +53,7 @@ _SIGNATURES = {
         _I,              # ledger capacity
         _P, _P,          # host int and float geometry arrays
         _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row seed)
+        _I,              # spread: a block's warps take slot groups spread over the launch
         _P, _P, _P,      # events iters stream
     ),
 }

@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -918,6 +919,24 @@ def _check_cuda_ledger(p, tabs: _Tables):
 # the shards one launch takes (csrc/transport_kernel.cu, kMaxShards); a call over
 # more makes one launch for each group of as many
 MAX_SHARDS_PER_LAUNCH = 64
+# threads a block of the census kernel (csrc/transport_kernel.cu, kThreads)
+THREADS = 256
+
+
+def spreads(slots: int, sms: int, resident: int) -> bool:
+    """Whether a census launch over ``slots`` ledger slots spreads them: when its
+    blocks of THREADS slots all fit on the card at once (``resident`` blocks on each
+    of ``sms`` SMs), each block's warps take slot groups from across the launch, so
+    that live slots gathered at one end of the ledger (a ledger with room to grow
+    holds them first) run on every SM, not on the SMs that happen to take the
+    blocks that hold them. A launch of several waves keeps consecutive slots: a
+    block of dead slots ends at once and its SM takes the next."""
+    return -(-slots // THREADS) <= sms * resident
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(ndim, absorb, ddmc, smr, nongray) -> int:
+    return resident_blocks(ndim, absorb, ddmc, smr, nongray)
 
 
 def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int):
@@ -941,6 +960,9 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int):
     name = launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route)
     for k, group in enumerate(groups):
         k0 = k * MAX_SHARDS_PER_LAUNCH
+        slots = max(sh.slot_hi for sh in group) - min(sh.slot_lo for sh in group)
+        spread = spreads(slots, torch.cuda.get_device_properties(dev).multi_processor_count,
+                         _resident(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray))
         rows = [v for sh in group for v in dataclasses.astuple(sh)]
         cuda_lib.library().call(
             "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr),
@@ -948,7 +970,7 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int):
             tabs.cell.data_ptr(), *(0 if t is None else t.data_ptr() for t in smr),
             p.capacity, (ctypes.c_int * len(ints))(*ints),
             (ctypes.c_float * len(floats))(*map(float, floats)),
-            len(group), (ctypes.c_int * len(rows))(*rows),
+            len(group), (ctypes.c_int * len(rows))(*rows), int(spread),
             events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
         )
         cuda_lib.LAUNCHES[name] += 1

@@ -790,15 +790,35 @@ def test_ddmc_full_census_bitwise_past_the_resident_lanes(gpu, ndim, absorb, smr
 # ------------------------------- the event loop's cell cache and early draws
 
 
+def _line_setup(dev, n, nx, sigma_s):
+    """The stepdiff deck at nx cells in two blocks, reflecting walls, sigma_s
+    everywhere, n particles at uniform positions with isotropic directions."""
+    cfg = cm.from_deck(Deck.from_file(STEPDIFF).update(
+        {"parthenon/mesh/nx1": nx, "parthenon/meshblock/nx1": nx // 2}))
+    mesh = build_mesh(cfg.mesh, device=dev)
+    prm = make_transport_params(cfg, torch.float32)
+    assert mesh.ndim == 1 and mesh.n_blocks == 2 and not prm.has_absorption
+    p = uniform_ledger(mesh, n, torch.Generator(device=dev).manual_seed(nx), C)
+    coefs = TransportCoefs(sigma_a=torch.zeros(nx, device=dev),
+                           sigma_s=torch.full((nx,), sigma_s, device=dev),
+                           fleck=torch.ones(nx, device=dev))
+    return cfg.jaybenne.dt, mesh, prm, p, coefs
+
+
 def _imc_target(dev, route, n, moving):
-    """The two routes whose event loop was redesigned (the cell's values kept in
-    registers; the draws made one event ahead on the forest, at the top of the
-    event on the uniform mesh), on ledgers of their kind: ``transport_2d_smr`` on
-    the level-1 2D forest of ``_smr_setup`` (8x8 blocks, reflecting in x, periodic in
-    y) and ``transport_3d_abs`` on ``_grid_setup``'s 16^3 mesh (reflecting in x,
-    periodic in y, outflow in z). ``moving``: sigma_t = 16 everywhere, an optical
-    depth of a cell or less, so that lanes change cell, block and wall every event
-    or two and each change gathers the cell's values anew."""
+    """The routes whose event loop was redesigned, on ledgers of their kind:
+    ``transport_1d`` on the stepdiff line (128 cells, sigma_s = 1e3, reflecting
+    walls), ``transport_2d_abs`` on ``_grid_setup``'s 32 x 16 mesh (sigma_s = 1e3,
+    f sigma_a = 3, as on the 2D feedback path), ``transport_2d_smr`` on the level-1
+    2D forest of ``_smr_setup`` (8x8 blocks, reflecting in x, periodic in y) and
+    ``transport_3d_abs`` on ``_grid_setup``'s 16^3 mesh (reflecting in x, periodic
+    in y, outflow in z). ``moving``: an optical depth of a cell or less (in 1D
+    four cells of depth 1), so that lanes change cell, block and wall every event or
+    two and each change gathers the cell's values anew."""
+    if route == "1d":
+        dt, mesh, prm, p0, coefs = _line_setup(dev, n, 4 if moving else 128,
+                                               4.0 if moving else 1.0e3)
+        return dt, mesh, prm, p0, coefs, transport_kernel.launch_name(1, False)
     if route == "2d_smr":
         dt, mesh, prm, p0, coefs = _smr_setup(dev, 2, False, False, n=n)
         if moving:
@@ -807,20 +827,24 @@ def _imc_target(dev, route, n, moving):
                                    sigma_s=torch.full((nc,), 16.0, device=dev),
                                    fleck=torch.ones(nc, device=dev))
         return dt, mesh, prm, p0, coefs, transport_kernel.launch_name(2, False, False, True)
+    ndim = 2 if route == "2d_abs" else 3
     kw = {"sigma_a": 4.0, "sigma_s": 12.0} if moving else {}
-    dt, mesh, prm, p0, coefs = _grid_setup(dev, 3, n=n, **kw)
-    return dt, mesh, prm, p0, coefs, transport_kernel.launch_name(3, True)
+    if route == "2d_abs" and not moving:
+        kw = {"sigma_a": 3.0, "sigma_s": 1.0e3}
+    dt, mesh, prm, p0, coefs = _grid_setup(dev, ndim, n=n, **kw)
+    return dt, mesh, prm, p0, coefs, transport_kernel.launch_name(ndim, True)
 
 
 @pytest.mark.parametrize("size", ["path", "4x_resident", "moving"])
-@pytest.mark.parametrize("route", ["2d_smr", "3d_abs"])
+@pytest.mark.parametrize("route", ["1d", "2d_abs", "2d_smr", "3d_abs"])
 def test_imc_targets_bitwise_after_a_full_census(gpu, route, size):
-    """transport_2d_smr and transport_3d_abs against their plain versions after a
-    full census, identical in every column, events and iterations: on ledgers of
-    their paths' size (100k lanes, 2^18 in 3D) from the start of a step; on 4 times
-    the card's resident threads over the last 10 % of a step; and on a ledger that
+    """transport_1d, transport_2d_abs, transport_2d_smr and transport_3d_abs against
+    their plain versions after a full census, identical in every column, events
+    and iterations: on ledgers of their paths' size (100k lanes, 150k on the 2D
+    feedback path's mesh, 2^18 in 3D) from the start of a step; on 4 times the
+    card's resident threads over the last 10 % of a step; and on a ledger that
     changes cell, block and wall often."""
-    n = {"path": 100_000 if route == "2d_smr" else 1 << 18, "moving": 100_000,
+    n = {"path": {"2d_abs": 150_000, "3d_abs": 1 << 18}.get(route, 100_000), "moving": 100_000,
          "4x_resident": 4 * _resident_lanes(gpu)}[size]
     dt, mesh, prm, p0, coefs, name = _imc_target(gpu, route, n, size == "moving")
     if size == "4x_resident":
@@ -833,12 +857,35 @@ def test_imc_targets_bitwise_after_a_full_census(gpu, route, size):
     _same_round(k, q, it_k, ev_k, it_q, ev_q)
     assert not bool((k.tau[k.alive] < 1.0).any())
     live = p0.alive
-    if route == "2d_smr":
+    if route in ("1d", "2d_smr"):
         moved = float((k.block != p0.block)[live].float().mean())
-        assert moved > (0.5 if size == "moving" else 0.0), moved
+        assert moved > ({"1d": 0.2, "2d_smr": 0.5}[route] if size == "moving" else 0.0), moved
     elif size == "moving":
-        assert 0 < int((live & ~k.alive & ~k.absorbed).sum())  # escaped through z
         assert 0 < int(k.absorbed.sum())
+        if route == "3d_abs":
+            assert 0 < int((live & ~k.alive & ~k.absorbed).sum())  # escaped through z
+
+
+def test_1d_lanes_that_never_scatter_keep_their_transverse_velocity(gpu):
+    """transport_1d sets a lane's vy and vz from its last scatter when its history
+    ends: over the last 0.1 % of a step at sigma_s = 1e3 about a third of the
+    lanes reach census without a scatter and keep the bits of their own vy and vz
+    (drawn here at random, unrelated to vx), the others end with c sqrt(1 - mu^2)
+    and 0; kernel and plain identical in every column."""
+    dt, mesh, prm, p0, coefs, name = _imc_target(gpu, "1d", 100_000, False)
+    g = torch.Generator(device=gpu).manual_seed(99)
+    p0.tau.copy_(0.999 + 0.001 * torch.rand(p0.capacity, generator=g, device=gpu))
+    p0.vy.copy_(C * torch.rand(p0.capacity, generator=g, device=gpu))
+    p0.vz.copy_(C * torch.rand(p0.capacity, generator=g, device=gpu))
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, 4242, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 4242, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    _same_round(k, q, it_k, ev_k, it_q, ev_q)
+    live = p0.alive
+    kept = live & (k.vy == p0.vy) & (k.vz == p0.vz)
+    scattered = live & (k.vz == 0.0)
+    assert int(kept.sum()) > 0.1 * int(live.sum()) and int(scattered.sum()) > 0.1 * int(live.sum())
 
 
 def test_census_words_kernel_matches_plain(gpu):

@@ -1,0 +1,76 @@
+"""The edits that ``chip_smoke.py`` makes to the census kernel's source to read its
+event loop on the card: each anchor of the loop's paths (``LOOP_PATHS``: the SASS
+of a scatter in the cell, a crossing, any outcome but a wall, the whole loop) and
+of the counting variant (``PATH_MIX``: the warp path mix) must name one line of
+``csrc/transport_kernel.cu``, or the readings fail on the card. No GPU needed.
+"""
+
+import os
+import sys
+
+import pytest
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+KERNEL = os.path.join(_ROOT, "jaybenne_tpu_torch", "csrc", "transport_kernel.cu")
+
+
+def _source():
+    with open(KERNEL) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("path", sorted(cs.LOOP_PATHS))
+def test_loop_path_traps_apply_to_the_kernel(path):
+    """Each path's traps go in front of lines the kernel holds once (at most once
+    where optional): the patched source holds the traps of every edit whose line
+    is there, and the whole loop ("full") is the source itself."""
+    src = _source()
+    out = cs.patched(src, cs.LOOP_PATHS[path], path)
+    traps = sum(line.count("__trap()") for anchor, line, _ in cs.LOOP_PATHS[path]
+                if src.count(anchor) == 1)
+    assert out.count("__trap()") - src.count("__trap()") == traps
+    assert (path == "full") == (out == src)
+
+
+def test_path_mix_counters_apply_to_the_kernel():
+    """The counting variant's edits apply once each, every counter key is written,
+    and its reader comes after the kernel's entry points."""
+    src = _source()
+    out = cs.patched(src, cs.PATH_MIX, "path mix") + cs.PATH_MIX_READ
+    assert out.count("jb_path_mix[") == src.count("jb_path_mix[") + 1 + 4
+    assert f"jb_path_mix[{len(cs.PATH_MIX_KEYS)}]" in out
+    assert out.index("jb_transport_occupancy") < out.index("jb_path_mix_read")
+    # the flags are set inside the IMC branch and read where every event ends
+    assert out.index("pm_scatter = scatter;") < out.index("const unsigned m = __activemask();")
+
+
+def test_patched_refuses_a_missing_or_repeated_anchor():
+    """An anchor the kernel lacks, or holds twice, fails loudly instead of reading
+    another loop."""
+    src = "a\nb\nb\n"
+    with pytest.raises(AssertionError):
+        cs.patched(src, (("c\n", "x\n", True),), "missing")
+    with pytest.raises(AssertionError):
+        cs.patched(src, (("b\n", "x\n", False),), "repeated")
+    assert cs.patched(src, (("c\n", "x\n", False),), "optional") == src
+    assert cs.patched(src, (("a\n", "x\n", True),), "once") == "x\na\nb\nb\n"
+
+
+@pytest.mark.parametrize("slots, resident, want", [
+    (201152, 6, True),   # stepdiff's census: 786 blocks, transport_1d holds 6 a SM
+    (167408, 5, True),   # the 2D feedback census: 654 blocks, transport_2d_abs 5 a SM
+    (863168, 4, False),  # the 64^3 feedback census: 3372 blocks, transport_3d_abs 4 a SM
+    (206144, 4, False),  # stepdiff_smr's census: 806 blocks, transport_2d_smr 4 a SM
+    (132 * 6 * 256, 6, True),
+    (132 * 6 * 256 + 1, 6, False),
+])
+def test_a_launch_spreads_its_slots_only_when_it_fits_on_the_card(slots, resident, want):
+    """The census launch spreads each block's warps over the ledger only when all
+    its blocks are resident at once on 132 SMs (one wave): the paths' ledgers."""
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+
+    assert tk.spreads(slots, 132, resident) == want
