@@ -10,7 +10,8 @@ configurations; the 64^3 DDMC mesh; the refined-mesh decks up to the 128x64
 hybrid forest; EPBremss at spread photon energies in 1D, at 64^3 and on the
 shipped SMR forest; the Su-Olson deck with its external source; a tabulated
 opacity; both decompositions at 8 shards in this process, the card's one
-backend), and checks each result by the repository's own gates. Every phase raises on failure; the last line of
+backend; checkpoint/restart, debug_checks and --profile-dir), and checks each
+result by the repository's own gates. Every phase raises on failure; the last line of
 standard output is the JSON result, printed only when every phase passed. It exits
 non-zero without a GPU. Nothing here imports jax.
 
@@ -182,7 +183,26 @@ Phases:
  36. the regrouping schedule at scale: the twelve DDMC instantiations (uniform and
      SMR, gray) on hybrid ledgers of 4 times the card's resident threads, a full
      census of the last 10 % of a step, kernel and plain identical in every
-     column (phases 28-29 hold both owned-range routes at that size).
+     column (phases 28-29 hold both owned-range routes at that size);
+ 37. checkpoint/restart on the main path: stepdiff at 128 cells and 100k
+     particles, 5 steps, ``checkpoint_tree`` through ``np.savez``/``np.load``, a
+     new ``Simulation(restart=tree)`` (what ``-r`` builds after reading a file), 5
+     more steps: tally, u and every ledger column bitwise the 10-step run's, one
+     ``transport_1d`` launch a step; the tree's bytes and the ms to build and to
+     restore it;
+ 38. restart under the spatial decomposition on phase 31's full row: a resume at
+     8 shards bitwise the straight run; at 4 shards after re-homing every census
+     complete and the radiation energy conserved to 1e-5; a 1-shard tree at 8
+     shards: only the misplaced slots move (counted), every other slot
+     byte-identical;
+ 39. ``jaybenne/debug_checks`` on stepdiff_smr (phase 16's deck), 10 steps: every
+     cycle validated, the ms ``validate_state`` adds a step, the run bitwise the
+     unchecked one;
+ 40. ``driver.main`` with ``--profile-dir``, 3 steps of stepdiff: the Chrome trace
+     holds the transport_1d kernel (``profile.device_time_by_name``) and
+     ``history.json`` 3 cycles with the JAX package's keys. The card's machine has
+     no h5py: the HDF5 writers and readers are held to the JAX package's on the
+     CPU (``tests/test_torch_io.py``).
 
 Phase 21 also prints the slot order's warp efficiency of the native hybrid's last
 census (``transport_kernel.warp_efficiency`` of the plain version's per-slot
@@ -428,6 +448,14 @@ SMR_SPATIAL_TOL = 0.10
 # phase 35: phase 25's path at seeds 1-4 against the JAX package's survivors at the
 # same seeds (jax_reference.py k4 --seed N)
 NG_SMR_JAX_SEEDS = {1: 2769, 2: 2738, 3: 2859, 4: 2723}
+# phases 37-38: checkpoint/restart; the steps before the checkpoint and after it
+RESTART_STEPS = 5
+SPATIAL_RESTART_STEPS = 2
+# the keys of the JAX package's history.json (jaybenne_tpu/driver.py:283-296, :366-371)
+HISTORY_KEYS = ["cycles", "problem_id", "total_events", "walltime_s"]
+HISTORY_CYCLE_KEYS = ["alive", "cycle", "dropped", "dt", "events", "iterations",
+                      "migrated", "migration_rounds", "time", "unfinished"]
+PROFILE_STEPS = 3  # phase 40
 PROFILE_TOL = 0.1  # tst/stepdiff_smr2.py's tolerance for the x-profile gate
 PROFILE_BINS = 64
 # the step-diffusion solution of tst/stepdiff_common.py, copied: diffusion time
@@ -2433,6 +2461,202 @@ def schedule_phase(transport_kernel, dev) -> None:
                       "identical in every column", flush=True)
 
 
+def same_run(a, b, what):
+    """Raises unless two runs' tallies, u and every ledger column are bitwise equal."""
+    for name in ("energy_tally", "u"):
+        if not torch.equal(getattr(a.state.fields, name), getattr(b.state.fields, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    pa, pb = a.state.particles, b.state.particles
+    for f in dataclasses.fields(pa):
+        if not torch.equal(getattr(pa, f.name), getattr(pb, f.name)):
+            raise AssertionError(f"{what}: ledger column {f.name} differs")
+
+
+def through_npz(tree, outdir):
+    """A checkpoint tree written with np.savez and read back with np.load."""
+    path = os.path.join(outdir, "tree.npz")
+    np.savez(path, **tree)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def restart_phases(dev, smi) -> None:
+    """Phases 37-40: checkpoint/restart on the main path and under the spatial
+    decomposition, debug_checks, and --profile-dir with history.json. The card's
+    machine has no h5py: checkpoints go through their tree and np.savez, and the
+    HDF5 writers are held to the JAX package's on the CPU (tests/test_torch_io.py)."""
+    import time
+
+    from jaybenne_tpu_torch import config as config_mod
+    from jaybenne_tpu_torch import driver as driver_mod
+    from jaybenne_tpu_torch import io as io_mod
+    from jaybenne_tpu_torch import state as state_mod
+    from jaybenne_tpu_torch.driver import Simulation, run_file
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.parallel import spatial
+    from jaybenne_tpu_torch.profile import device_time_by_name
+    from jaybenne_tpu_torch.utils.deck import Deck
+
+    def cfg_of(deck, mods):
+        return config_mod.from_deck(Deck.from_file(deck).update(dict(mods)))
+
+    def ms_since(t0):
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    phase(f"37 bitwise restart on the main path: stepdiff 128 cells, 100k particles, "
+          f"{RESTART_STEPS} steps, a checkpoint tree through np.savez, {RESTART_STEPS} more, "
+          f"against {2 * RESTART_STEPS} straight")
+    with tempfile.TemporaryDirectory() as outdir:
+        straight = run_file(DECK, outdir, GATE, quiet=True, nlim=2 * RESTART_STEPS,
+                            device="cuda")
+        first = run_file(DECK, outdir, GATE, quiet=True, nlim=RESTART_STEPS, device="cuda")
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tree = first.checkpoint_tree()
+        build_ms = ms_since(t0)
+        n_bytes = sum(np.asarray(v).nbytes for v in tree.values())
+        loaded = through_npz(tree, outdir)
+        t0 = time.perf_counter()
+        io_mod.state_from_checkpoint_tree(loaded, state_mod.initial_state(
+            first.mesh, first.state.particles.capacity, 0))
+        restore_ms = ms_since(t0)
+        t0 = time.perf_counter()
+        resumed = Simulation(cfg_of(DECK, GATE), outdir=outdir, quiet=True, device="cuda",
+                             restart=loaded)
+        sim_ms = ms_since(t0)
+        cuda_lib.LAUNCHES.clear()
+        resumed.run(nlim=RESTART_STEPS)
+        launches = dict(cuda_lib.LAUNCHES)
+    if resumed.cycle != 2 * RESTART_STEPS or launches.get("transport_1d", 0) != RESTART_STEPS:
+        raise AssertionError(f"restart: cycle {resumed.cycle}, launches {launches}")
+    same_run(straight, resumed, "restart on the main path")
+    if [h["events"] for h in resumed.history] != [h["events"] for h in
+                                                  straight.history[RESTART_STEPS:]]:
+        raise AssertionError("restart on the main path: events differ")
+    print(f"stepdiff resumed at cycle {RESTART_STEPS} from a checkpoint tree through np.savez: "
+          f"tally, u and every ledger column bitwise the straight run's after "
+          f"{2 * RESTART_STEPS} steps; launches after the restart {launches} (one "
+          f"transport_1d a step)", flush=True)
+    print(f"checkpoint ({smi}): {len(tree)} entries, {n_bytes} bytes for "
+          f"{first.state.particles.capacity} ledger slots and {first.mesh.total_cells} cells; "
+          f"checkpoint_tree {build_ms!r} ms; state_from_checkpoint_tree {restore_ms!r} ms; "
+          f"Simulation(restart=tree) {sim_ms!r} ms", flush=True)
+
+    phase(f"38 restart under the spatial decomposition: phase 31's full row (8 shards, 128 "
+          f"cells in 16-cell blocks, 100k particles), {SPATIAL_RESTART_STEPS} + "
+          f"{SPATIAL_RESTART_STEPS} steps; resumes at 8 and 4 shards, and from a 1-shard tree")
+    steps = SPATIAL_RESTART_STEPS
+    with tempfile.TemporaryDirectory() as outdir:
+        straight = run_file(DECK, outdir, STEPDIFF_SPATIAL, quiet=True, nlim=2 * steps,
+                            device="cuda")
+        first = run_file(DECK, outdir, STEPDIFF_SPATIAL, quiet=True, nlim=steps, device="cuda")
+        tree = through_npz(first.checkpoint_tree(), outdir)
+        e_ck = radiation_energy(first)
+        at8 = Simulation(cfg_of(DECK, STEPDIFF_SPATIAL), outdir=outdir, quiet=True,
+                         device="cuda", restart=tree)
+        at8.run(nlim=steps)
+        same_run(straight, at8, "spatial restart at 8 shards")
+        mods4 = {**STEPDIFF_SPATIAL, "jaybenne/n_devices": 4}
+        at4 = Simulation(cfg_of(DECK, mods4), outdir=outdir, quiet=True, device="cuda",
+                         restart=tree)
+        at4.run(nlim=steps)
+        e4 = radiation_energy(at4)
+        if (any(h["unfinished"] or h["dropped"] for h in at4.history)
+                or abs(e4 - e_ck) > ENERGY_RTOL * e_ck):
+            raise AssertionError(f"spatial restart at 4 shards: {at4.history}, energy "
+                                 f"{e_ck} -> {e4}")
+        mods1 = {**STEPDIFF_SPATIAL, "jaybenne/n_devices": 1}
+        one = run_file(DECK, outdir, mods1, quiet=True, nlim=steps, device="cuda")
+        tree1 = through_npz(one.checkpoint_tree(), outdir)
+        from1 = Simulation(cfg_of(DECK, STEPDIFF_SPATIAL), outdir=outdir, quiet=True,
+                           device="cuda", restart=tree1)
+        # Simulation's re-homing again, on the same ledger at the same capacity
+        mesh, cap = one.mesh, from1.state.particles.capacity
+        p = io_mod.state_from_checkpoint_tree(
+            tree1, state_mod.initial_state(mesh, cap, 0)).particles
+        move, _ = spatial.misplaced(p, mesh, 8)
+        q = spatial.rehome_restart_ledger(p, mesh, 8)
+        changed = torch.zeros(cap, dtype=torch.bool, device=dev)
+        for f in dataclasses.fields(p):
+            changed |= getattr(p, f.name) != getattr(q, f.name)
+        filled = q.alive & ~(p.alive & ~move)
+        n_move = int(move.sum())
+        if (bool((changed & ~(move | filled)).any()) or int(filled.sum()) != n_move
+                or bool(spatial.misplaced(q, mesh, 8)[0].any())):
+            raise AssertionError("re-homing moved a slot that was not misplaced")
+        same_ledger = all(torch.equal(getattr(q, f.name), getattr(from1.state.particles, f.name))
+                          for f in dataclasses.fields(q))
+        if not same_ledger:
+            raise AssertionError("restart from a 1-shard tree: Simulation's ledger differs")
+        from1.run(nlim=1)
+        if from1.history[0]["unfinished"] or from1.history[0]["dropped"]:
+            raise AssertionError(f"restart from a 1-shard tree at 8: {from1.history}")
+    print(f"spatial stepdiff at 8 shards resumed at cycle {steps}: bitwise the straight run "
+          f"after {2 * steps} steps (migrated {[h['migrated'] for h in at8.history]}); at 4 "
+          f"shards: unfinished {[h['unfinished'] for h in at4.history]}, radiation energy "
+          f"{e_ck!r} -> {e4!r} (rel {abs(e4 - e_ck) / e_ck:.3e}); a 1-shard tree at 8 shards: "
+          f"{n_move} of {int(p.alive.sum())} live particles misplaced and moved, every other "
+          f"of {cap} slots byte-identical, the next step unfinished "
+          f"{from1.history[0]['unfinished']}", flush=True)
+
+    phase("39 debug_checks on the card: stepdiff_smr (phase 16's deck), 10 steps")
+    checks = []
+    validate = driver_mod.validate_state
+
+    def timed(state, mesh, cfg):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        validate(state, mesh, cfg)
+        checks.append(ms_since(t0))
+
+    driver_mod.validate_state = timed
+    try:
+        with tempfile.TemporaryDirectory() as outdir:
+            plain = run_file(SMR_DECK, outdir, SMR_GATE, quiet=True, nlim=PATH_STEPS,
+                             device="cuda")
+            checked = run_file(SMR_DECK, outdir, {**SMR_GATE, "jaybenne/debug_checks": "true"},
+                               quiet=True, nlim=PATH_STEPS, device="cuda")
+    finally:
+        driver_mod.validate_state = validate
+    if len(checks) != PATH_STEPS or checked.cycle != PATH_STEPS:
+        raise AssertionError(f"debug_checks: {len(checks)} validations in {checked.cycle} "
+                             "cycles")
+    same_run(plain, checked, "debug_checks")
+    step_ms = statistics.median(h["step_seconds"] for h in plain.history) * 1e3
+    print(f"debug_checks ({smi}): every one of {PATH_STEPS} cycles validated; validate_state "
+          f"{spread(sorted(checks))} a step, against a median step of {step_ms!r} ms; the run "
+          "bitwise the unchecked one", flush=True)
+
+    phase(f"40 --profile-dir and history.json: driver.main, stepdiff, {PROFILE_STEPS} steps")
+    with tempfile.TemporaryDirectory() as outdir:
+        prof_dir = os.path.join(outdir, "prof")
+        rc = driver_mod.main(["-i", DECK, "-d", outdir, "-q", "-n", str(PROFILE_STEPS),
+                              "--profile-dir", prof_dir,
+                              *(f"{k}={v}" for k, v in GATE.items())])
+        trace = os.path.join(prof_dir, "trace.json")
+        if rc != 0 or not os.path.exists(trace):
+            raise AssertionError(f"--profile-dir: rc {rc}, trace {os.listdir(prof_dir)}")
+        by_name = device_time_by_name(trace)
+        trace_bytes = os.path.getsize(trace)
+        with open(os.path.join(outdir, "history.json")) as fh:
+            hist = json.load(fh)
+    k1 = {k: v for k, v in by_name.items() if "transport_kernel<1, false, false, false, false>"
+          in k}
+    if not k1:
+        raise AssertionError(f"--profile-dir: no transport_1d kernel in the trace: "
+                             f"{sorted(by_name)[:20]}")
+    cycles = hist["cycles"]
+    if (sorted(hist) != HISTORY_KEYS or len(cycles) != PROFILE_STEPS
+            or any(not set(HISTORY_CYCLE_KEYS) <= set(c) for c in cycles)):
+        raise AssertionError(f"history.json: {sorted(hist)}, {cycles}")
+    print(f"--profile-dir: a Chrome trace of {trace_bytes} bytes; "
+          f"device_time_by_name finds transport_1d: {sum(k1.values()) / 1e3!r} ms over "
+          f"{PROFILE_STEPS} steps ({len(by_name)} device names); history.json: "
+          f"{len(cycles)} cycles with the JAX package's keys, events "
+          f"{[c['events'] for c in cycles]}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
@@ -2852,6 +3076,7 @@ def main() -> int:
     phase("36 the regrouping schedule at scale: the twelve DDMC instantiations, a full "
           "census on ledgers of 4 times the resident threads")
     schedule_phase(transport_kernel, dev)
+    restart_phases(dev, smi)
 
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")

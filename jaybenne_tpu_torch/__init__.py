@@ -16,7 +16,8 @@ tabulated and frequency-dependent ``EPBremss`` opacities, gray and Thomson
 scattering, the ideal-gas and power-law-cv equations of state), on one device or
 under either decomposition (``parallel/``: the particle one, and the spatial one
 with migration), with every shard in one process or one shard per rank of a
-``torch.distributed`` group. Other configurations (f64; restart and the Parthenon
-dump layout) raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+``torch.distributed`` group; with the JAX package's dumps and checkpoints
+(``io.py``: each package restarts from the other's), restart at any shard count,
+``debug_checks`` and profiling. ``precision = f64`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """

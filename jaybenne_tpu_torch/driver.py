@@ -1,7 +1,8 @@
 """Evolution driver and CLI (port of ``jaybenne_tpu/driver.py``).
 
 CLI: ``python -m jaybenne_tpu_torch.driver -i inputs/stepdiff.in [-d outdir]
-[-n cycles] [-t HH:MM:SS] [--device cuda|cpu] [block/key=value ...]``.
+[-r checkpoint.rhdf] [-n cycles] [-t HH:MM:SS] [--device cuda|cpu]
+[--profile-dir DIR] [block/key=value ...]``.
 
 ``jaybenne/n_devices`` shards (0: the world size of an initialised
 ``torch.distributed`` group, 1 outside one) run the particle decomposition, or
@@ -11,16 +12,27 @@ of ``parallel/exchange.py``); inside one each rank runs its own shard. The capac
 is padded to a multiple of the shard count, and each shard's ledger is a slice of
 it.
 
-Restart (``-r``), checkpoint outputs, the Parthenon dump layout, ``history.json``
-and profiling arrive with slice 7 (ROADMAP Queue 1, item 16), and with it dumps
-from a process group.
+Outputs: dumps (``file_type = hdf5`` or ``phdf``: the compact schema;
+``phdf_parthenon``: Parthenon's layout) and checkpoints (``rst`` or ``restart``:
+``{problem_id}.ckpt.{cycle:05d}.rhdf``), each on its ``dt``, and ``history.json``
+(the per-cycle record) at the run's end. In a process group rank 0 gathers the
+real blocks' fields and the whole ledger through the exchange and writes; the
+other ranks write nothing. ``restart`` (``-r``) resumes from a checkpoint file of
+either package, or from a checkpoint tree (``io.checkpoint_tree``), at any shard
+count: under the spatial decomposition the ledger is first re-homed
+(``spatial.rehome_restart_ledger``), and in a process group each rank keeps its
+own slices. ``jaybenne/debug_checks`` validates the state after every step
+(``utils/debug.py``); ``--profile-dir`` runs the run under ``torch.profiler`` and
+writes its Chrome trace there.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import json
 import os
 import sys
 import time as _time
@@ -36,8 +48,10 @@ from .parallel import exchange as exchange_mod
 from .parallel import sharding, spatial
 from .particles import ParticleLedger
 from .step import build_step_core, initialize_radiation
+from .utils.debug import validate_state
 
-_DUMP_TYPES = ("hdf5", "phdf")
+_DUMP_TYPES = ("hdf5", "phdf", "phdf_parthenon")
+_RESTART_TYPES = ("rst", "restart")
 
 
 class Simulation:
@@ -47,7 +61,7 @@ class Simulation:
     slices of), the process's own shard only in a process group."""
 
     def __init__(self, cfg: config_mod.RunConfig, outdir: str = ".", quiet: bool = False,
-                 device="cuda"):
+                 device="cuda", restart=None):
         self.cfg = cfg
         self.outdir = outdir
         os.makedirs(outdir, exist_ok=True)
@@ -56,10 +70,9 @@ class Simulation:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda requested but torch.cuda.is_available() is false")
         for out in cfg.outputs:
-            if out.file_type not in _DUMP_TYPES + ("none",):
-                raise config_mod.not_ported(
-                    f"output file_type = {out.file_type}", "Queue 1, item 16"
-                )
+            if out.file_type not in _DUMP_TYPES + _RESTART_TYPES + ("none",):
+                raise ValueError(f"output file_type = {out.file_type} is none of "
+                                 f"{_DUMP_TYPES + _RESTART_TYPES + ('none',)}")
         jb = cfg.jaybenne
         self.dtype = jb.dtype
         self.mesh = build_mesh(cfg.mesh, dtype=self.dtype, device=self.device)
@@ -70,14 +83,19 @@ class Simulation:
         self.exchange = None
         if self.n_shards > 1 or self.spatial or world > 1:
             self.exchange = exchange_mod.exchange_for(jb.n_devices)
-            if world > 1 and any(o.file_type != "none" for o in cfg.outputs):
-                raise config_mod.not_ported("dumps from a process group", "Queue 1, item 16")
-        state = state_mod.initial_state(self.mesh, self._capacity(), jb.seed, self.dtype)
-        state.fields = generate_problem(state.fields, self.mesh, cfg, self.dtype)
+        # the process that writes outputs: rank 0 of a process group
+        self.writes = self.exchange is None or self.exchange.shards[0] == 0
+        if restart is None:
+            state = state_mod.initial_state(self.mesh, self._capacity(local=True), jb.seed,
+                                            self.dtype)
+            state.fields = generate_problem(state.fields, self.mesh, cfg, self.dtype)
+        else:
+            state = self._restored(restart)
         self.shards, self._state, self._ledger = None, None, None
         if self.exchange is None:
             self.step_fn = build_step_core(self.mesh, cfg)
-            self._state = initialize_radiation(state, self.mesh, cfg)
+            self._state = state if restart is not None else initialize_radiation(
+                state, self.mesh, cfg)
         else:
             self._ledger = state.particles
             ex, mesh = self.exchange, self.mesh
@@ -86,17 +104,48 @@ class Simulation:
                 padded = spatial.pad_field_blocks(state.fields, mesh, ex.n)
                 states = sharding.local_states(
                     state, ex, lambda s: spatial.shard_fields(padded, mesh, ex.n, s))
-                self.shards = spatial.make_spatial_init(mesh, cfg, ex)(states)
+                init = spatial.make_spatial_init(mesh, cfg, ex)
             else:
                 self.step_fn = sharding.make_sharded_step(mesh, cfg, ex)
                 states = sharding.local_states(state, ex)
-                self.shards = sharding.make_sharded_init(mesh, cfg, ex)(states)
-        self.t = 0.0  # authoritative (host float64) simulation time
-        self.cycle = 0
+                init = sharding.make_sharded_init(mesh, cfg, ex)
+            self.shards = states if restart is not None else init(states)
+        self.t = float(state.t)  # authoritative (host float64) simulation time
+        self.cycle = int(state.cycle)
         self.total_events = 0
         self.dump_count = 0
-        self._next_dump_t = 0.0
-        self.history = []  # per-cycle diagnostics
+        self._next_dump_t = self.t
+        self._next_rst_t = None
+        self.history = []  # per-cycle diagnostics (written to history.json)
+        if restart is not None and not quiet:
+            what = restart if isinstance(restart, (str, os.PathLike)) else "a checkpoint tree"
+            print(f"restarted from {what} at t={self.t:.6e} cycle={self.cycle}", flush=True)
+
+    def _restored(self, restart) -> state_mod.SimState:
+        """The process's state from a checkpoint (a file, or a tree of
+        ``io.checkpoint_tree``): the whole ledger at the deck's capacity or the
+        checkpoint's, whichever is larger (a ledger that grew keeps every slot, and
+        with it every stream), under the spatial decomposition re-homed onto its
+        shards' slices; then the process's own slices of it."""
+        tree = (io_mod.read_checkpoint_tree(restart)
+                if isinstance(restart, (str, os.PathLike)) else restart)
+        cap = max(self._capacity(local=False), len(tree["particles/alive"]))
+        if self.exchange is not None:
+            cap = sharding.pad_capacity(cap, self.exchange.n)
+        whole = state_mod.initial_state(self.mesh, cap, self.cfg.jaybenne.seed, self.dtype)
+        state = io_mod.state_from_checkpoint_tree(tree, whole)
+        if self.exchange is None:
+            return state
+        ex = self.exchange
+        p = state.particles
+        if self.spatial:
+            p = spatial.rehome_restart_ledger(p, self.mesh, ex.n)
+        cap_l = p.capacity // ex.n
+        lo, hi = ex.shards[0] * cap_l, (ex.shards[-1] + 1) * cap_l
+        if (lo, hi) != (0, p.capacity):
+            p = ParticleLedger(**{f.name: getattr(p, f.name)[lo:hi].clone()
+                                  for f in dataclasses.fields(p)})
+        return dataclasses.replace(state, particles=p)
 
     @property
     def state(self) -> state_mod.SimState:
@@ -116,9 +165,9 @@ class Simulation:
         """Back to a ``snapshot`` (which stays usable)."""
         (self._state, self.shards, self._ledger, self.t, self.cycle) = copy.deepcopy(snap)
 
-    def _capacity(self) -> int:
-        """The process's ledger capacity: under a decomposition its shards' slices,
-        the whole padded to a multiple of the shard count."""
+    def _capacity(self, local: bool) -> int:
+        """The run's ledger capacity, under a decomposition padded to a multiple of
+        the shard count; with ``local`` the process's shards' slices of it."""
         jb = self.cfg.jaybenne
         # room for census survivors + one step of births + stochastic slack
         cap = (int(jb.num_particles * jb.capacity_factor) + self.mesh.total_cells + 1024
@@ -126,7 +175,7 @@ class Simulation:
         if self.exchange is None:
             return cap
         cap = sharding.pad_capacity(cap, self.exchange.n)
-        return cap // self.exchange.n * len(self.exchange.shards)
+        return cap // self.exchange.n * len(self.exchange.shards) if local else cap
 
     def _ext_births(self) -> int:
         """Births of the external source in one step (0 without it); under the
@@ -161,30 +210,95 @@ class Simulation:
         else:
             # every shard grows alike and keeps its particles in their slots
             ex = self.exchange
-            alive = ex.sum([st.particles.alive.sum(dtype=torch.int64) for st in self.shards])
+            alive = [st.particles.alive.sum(dtype=torch.int64) for st in self.shards]
             cap_l = p.capacity // len(ex.shards)
-            need = int(alive[0]) + extra
-            if need <= cap_l * ex.n:
+            if self.spatial:
+                # a birth lands in the slice of the shard that owns its cell, and one
+                # shard may own every source: the fullest slice needs a step's room
+                need_l = int(ex.max(alive)[0]) + extra
+            else:
+                need_l = -(-(int(ex.sum(alive)[0]) + extra) // ex.n)
+            if need_l <= cap_l:
                 return
-            new_cap = sharding.pad_capacity(max(need, 2 * cap_l * ex.n), ex.n)
-            self._ledger = sharding.grow_ledger(p, len(ex.shards), new_cap // ex.n)
+            self._ledger = sharding.grow_ledger(p, len(ex.shards), max(need_l, 2 * cap_l))
             self.shards = [dataclasses.replace(st, particles=q) for st, q in zip(
                 self.shards, sharding.split_ledger(self._ledger, len(ex.shards)))]
             new_cap = self._ledger.capacity
         if not self.quiet:
             print(f"ledger grown: capacity {p.capacity} -> {new_cap}", flush=True)
 
+    def whole_state(self) -> state_mod.SimState:
+        """The run's state with the real blocks' fields and the whole ledger: in a
+        process group gathered through the exchange (a collective: every rank
+        calls it), else ``state``."""
+        if self.exchange is None or len(self.exchange.shards) == self.exchange.n:
+            return self.state
+        ex, st = self.exchange, self.shards[0]
+
+        def gather(t):
+            if t.dtype == torch.bool:  # gathered as bytes
+                return ex.all_gather([t.to(torch.uint8)])[0].bool()
+            return ex.all_gather([t])[0]
+
+        fields = st.fields
+        if self.spatial:
+            fields = dataclasses.replace(fields, **{
+                f.name: gather(getattr(fields, f.name))[:self.mesh.n_blocks]
+                for f in dataclasses.fields(fields)})
+        ledger = ParticleLedger(**{f.name: gather(getattr(st.particles, f.name))
+                                   for f in dataclasses.fields(st.particles)})
+        return dataclasses.replace(st, fields=fields, particles=ledger)
+
+    def checkpoint_tree(self) -> dict:
+        """The run's checkpoint tree (``io.checkpoint_tree`` of ``whole_state`` at the
+        host clock), what ``restart`` takes."""
+        return io_mod.checkpoint_tree(self.whole_state(), self.mesh, t=self.t,
+                                      cycle=self.cycle)
+
+    def write_checkpoint(self, path=None) -> str:
+        """Write ``{problem_id}.ckpt.{cycle:05d}.rhdf`` (or ``path``) from rank 0;
+        every rank of a process group calls it. Returns the path."""
+        path = path or os.path.join(self.outdir,
+                                    f"{self.cfg.problem_id}.ckpt.{self.cycle:05d}.rhdf")
+        st = self.whole_state()
+        if self.writes:
+            io_mod.write_checkpoint(path, st, self.mesh, t=self.t, cycle=self.cycle)
+        return path
+
     def _maybe_dump(self, force=False):
         outs = [o for o in self.cfg.outputs if o.file_type in _DUMP_TYPES]
-        if not outs:
+        if outs:
+            out = outs[0]
+            if force or (out.dt > 0
+                         and self.t >= self._next_dump_t - 1e-12 * max(out.dt, 1.0)):
+                path = io_mod.dump_filename(self.cfg.problem_id, self.dump_count, self.outdir)
+                writer = (io_mod.write_dump_parthenon if out.file_type == "phdf_parthenon"
+                          else io_mod.write_dump)
+                st = self.whole_state()
+                if self.writes:
+                    writer(path, st, self.mesh, out.variables, out.swarm_variables)
+                self.dump_count += 1
+                while out.dt > 0 and self._next_dump_t <= self.t + 1e-12 * max(out.dt, 1.0):
+                    self._next_dump_t += out.dt
+        rsts = [o for o in self.cfg.outputs if o.file_type in _RESTART_TYPES]
+        if rsts:
+            out = rsts[0]
+            if self._next_rst_t is None:
+                self._next_rst_t = out.dt
+            if out.dt > 0 and self.t >= self._next_rst_t - 1e-12 * out.dt:
+                self.write_checkpoint()
+                while self._next_rst_t <= self.t + 1e-12 * out.dt:
+                    self._next_rst_t += out.dt
+
+    def write_history(self) -> None:
+        """``history.json`` in the output directory (rank 0): the JAX package's keys
+        and, a cycle, the port's ``step_seconds``."""
+        if not self.writes:
             return
-        out = outs[0]
-        if force or (out.dt > 0 and self.t >= self._next_dump_t - 1e-12 * max(out.dt, 1.0)):
-            path = io_mod.dump_filename(self.cfg.problem_id, self.dump_count, self.outdir)
-            io_mod.write_dump(path, self.state, self.mesh, out.variables, out.swarm_variables)
-            self.dump_count += 1
-            while out.dt > 0 and self._next_dump_t <= self.t + 1e-12 * max(out.dt, 1.0):
-                self._next_dump_t += out.dt
+        with open(os.path.join(self.outdir, "history.json"), "w") as fh:
+            json.dump({"problem_id": self.cfg.problem_id, "walltime_s": self.walltime,
+                       "total_events": self.total_events, "cycles": self.history}, fh,
+                      indent=1)
 
     def run(self, wall_limit_s=None, nlim=None) -> None:
         """Evolve to ``tlim``; ``wall_limit_s`` stops cleanly when the wall clock is
@@ -260,6 +374,8 @@ class Simulation:
                     f"{what} (raise jaybenne/capacity_factor)",
                     file=sys.stderr,
                 )
+            if cfg.jaybenne.debug_checks:
+                validate_state(self.state, self.mesh, cfg)
             if int(stats.cap_hits) > 0:
                 print(
                     f"WARNING: {int(stats.cap_hits)} transport call(s) hit "
@@ -270,6 +386,7 @@ class Simulation:
             self._maybe_dump()
         self.walltime = _time.time() - wall0
         self._maybe_dump(force=True)
+        self.write_history()
         if not self.quiet:
             rate = self.total_events / max(self.walltime, 1e-9)
             print(
@@ -279,13 +396,13 @@ class Simulation:
             )
 
 
-def run_file(input_path, outdir=".", modified_inputs=None, quiet=False,
+def run_file(input_path, outdir=".", modified_inputs=None, quiet=False, restart=None,
              wall_limit_s=None, nlim=None, device="cuda") -> Simulation:
     from .utils.deck import Deck
 
     deck = Deck.from_file(input_path).update(modified_inputs or {})
     cfg = config_mod.from_deck(deck)
-    sim = Simulation(cfg, outdir=outdir, quiet=quiet, device=device)
+    sim = Simulation(cfg, outdir=outdir, quiet=quiet, device=device, restart=restart)
     sim.run(wall_limit_s=wall_limit_s, nlim=nlim)
     return sim
 
@@ -307,7 +424,10 @@ def main(argv=None):
     )
     ap.add_argument("-i", "--input", required=True, help="input deck (.in)")
     ap.add_argument("-d", "--outdir", default=".", help="output directory")
+    ap.add_argument("-r", "--restart", default=None, help="checkpoint (.rhdf) to resume")
     ap.add_argument("-q", "--quiet", action="store_true")
+    ap.add_argument("--profile-dir", default=None,
+                    help="run under torch.profiler and write its Chrome trace here")
     ap.add_argument("-t", "--walltime", default=None, metavar="HH:MM:SS",
                     help="wall-clock limit; stop cleanly (with final dumps) when exceeded")
     ap.add_argument("-n", "--nlim", type=int, default=None, help="max number of cycles")
@@ -328,9 +448,32 @@ def main(argv=None):
             ap.error(f"override must look like block/key=value, got: {ov!r}")
         k, v = ov.split("=", 1)
         mods[k] = v
-    run_file(args.input, outdir=args.outdir, modified_inputs=mods, quiet=args.quiet,
-             wall_limit_s=wall_limit_s, nlim=args.nlim, device=args.device)
+    with (profiled(args.profile_dir, args.device) if args.profile_dir
+          else contextlib.nullcontext()):
+        run_file(args.input, outdir=args.outdir, modified_inputs=mods, quiet=args.quiet,
+                 restart=args.restart, wall_limit_s=wall_limit_s, nlim=args.nlim,
+                 device=args.device)
     return 0
+
+
+@contextlib.contextmanager
+def profiled(trace_dir, device):
+    """Run the body under ``torch.profiler`` (CPU activities, and on a GPU the
+    device's), then write its Chrome trace to ``trace_dir``: ``trace.json``, or
+    ``trace.<rank>.json`` in a process group. ``profile.device_time_by_name``
+    reads it."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    name = "trace.json"
+    if exchange_mod.world_size() > 1:
+        import torch.distributed as dist
+
+        name = f"trace.{dist.get_rank()}.json"
+    prof.export_chrome_trace(os.path.join(trace_dir, name))
 
 
 if __name__ == "__main__":

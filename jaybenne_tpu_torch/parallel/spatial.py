@@ -31,8 +31,8 @@ counted (the driver warns). A DDMC leak into a finer block of another shard
 carries its pending-leak code, and the owner resamples it onto a fine face before
 its next census (``transport_kernel.subface_resample``).
 
-Restart re-homing (the JAX ``rehome_restart_ledger``) waits for restart (ROADMAP
-Queue 1, item 16).
+At restart, ``rehome_restart_ledger`` moves each live particle that a checkpoint
+left in another shard's ledger slice into a free slot of its owner's.
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ from ..ops import rng, sourcing, tally
 from ..ops import transport as transport_ops
 from ..ops import transport_kernel
 from ..particles import insert_particles
-from ..step import (StepStats, census_fn, check_step_supported, make_transport_params,
-                    total_sigma, with_faces, with_fleck)
+from ..step import (StepStats, census_fn, make_transport_params, total_sigma, with_faces,
+                    with_fleck)
 
 # particle fields shipped during migration, each 4 bytes: sent as int32 words
 MIGRATE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy",
@@ -61,6 +61,48 @@ PAD_ONES = ("rho", "sie", "u")
 
 def blocks_per_shard(mesh, n: int) -> int:
     return -(-mesh.n_blocks // n)
+
+
+def misplaced(p, mesh, n: int) -> tuple:
+    """The live slots of a ledger of ``n`` equal shard slices (``sharding.
+    split_ledger``) whose block another shard owns, and each slot's owner."""
+    if p.capacity % n:
+        raise ValueError(f"ledger capacity {p.capacity} is not a multiple of {n} shards")
+    cap_l = p.capacity // n
+    owner = torch.clamp(p.block.long() // blocks_per_shard(mesh, n), 0, n - 1)
+    slot_shard = torch.arange(p.capacity, device=p.block.device) // cap_l
+    return p.alive & (owner != slot_shard), owner
+
+
+def rehome_restart_ledger(p, mesh, n: int):
+    """The ledger with every misplaced live particle (``misplaced``) moved into a
+    free slot of its owner's slice, in slot order (JAX ``rehome_restart_ledger``).
+    A checkpoint written at any shard count then resumes at any other: a particle
+    left in another shard's slice would otherwise wait for migration, or be
+    stranded where every real block is on one shard. Every other slot stays
+    byte-identical, since a slot keys its random streams: at the writing run's
+    shard count nothing moves and the resume is bitwise. Raises when a slice has
+    too few free slots."""
+    move, owner = misplaced(p, mesh, n)
+    if not bool(move.any()):
+        return p
+    cap_l = p.capacity // n
+    out = p.clone()
+    out.alive[move] = False  # the vacated slots become free
+    free = ~p.alive | move
+    for s in range(n):
+        src = torch.nonzero(move & (owner == s)).flatten()
+        if src.numel() == 0:
+            continue
+        dst = torch.nonzero(free[s * cap_l:(s + 1) * cap_l]).flatten() + s * cap_l
+        if src.numel() > dst.numel():
+            raise ValueError(f"restart re-homing: shard {s} owns {src.numel()} relocated "
+                             f"particles but its ledger slice has only {dst.numel()} free "
+                             "slots; raise jaybenne/capacity_factor")
+        dst = dst[:src.numel()]
+        for f in dataclasses.fields(p):
+            getattr(out, f.name)[dst] = getattr(p, f.name)[src]
+    return out
 
 
 def pad_field_blocks(fields, mesh, n: int):
@@ -154,7 +196,6 @@ def migrate(ledgers, offsets, bl, K, exchange):
 def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
     """``step(states, dt) -> (states, StepStats)`` over the local shards' states,
     each with its [Bl, ...] fields and its ledger (JAX ``build_spatial_step_core``)."""
-    check_step_supported(cfg)
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()

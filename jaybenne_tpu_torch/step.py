@@ -30,7 +30,7 @@ import dataclasses
 
 import torch
 
-from .config import InitialRadiation, RunConfig, not_ported
+from .config import InitialRadiation, RunConfig
 from .ops import fleck as fleck_ops
 from .ops import rng, sourcing, tally
 from .ops import transport as transport_ops
@@ -63,12 +63,6 @@ def make_transport_params(cfg: RunConfig, dtype) -> transport_ops.TransportParam
         has_absorption=cfg.mcblock.opacity_model != "none",
         **transport_ops.default_eps(dtype),
     )
-
-
-def check_step_supported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for step features this port does not run yet."""
-    if cfg.jaybenne.debug_checks:
-        raise not_ported("debug_checks (validate_state)", "Queue 1, item 16")
 
 
 def shard_share(total: int, n: int) -> int:
@@ -142,7 +136,6 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     ``exchange`` the particle decomposition's ``step(states, dt) -> (states,
     StepStats)`` over the local shards' states (see the module docstring). The
     particle ledgers are updated in place; fields are replaced."""
-    check_step_supported(cfg)
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()

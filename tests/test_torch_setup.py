@@ -172,9 +172,16 @@ def test_fleck_and_coefs_match_jax(deck, opacity):
     ],
 )
 def test_unported_configurations_raise(mods, where, tmp_path):
-    """Every configuration outside the slice raises and names its ROADMAP item; none
-    falls back to another path. Under either decomposition too."""
+    """Every configuration outside the port raises and names its ROADMAP item; none
+    falls back to another path. Under either decomposition too. Item 16's
+    configurations (checkpoint outputs, debug_checks) are ported: they build, and
+    keep what the deck asked for."""
     _, tcfg = _configs(mods)
+    if where == "item 16":
+        sim = Simulation(tcfg, outdir=str(tmp_path), quiet=True, device="cpu")
+        assert int(sim.state.particles.alive.sum()) > 0
+        assert sim.cfg.jaybenne.debug_checks == (mods.get("jaybenne/debug_checks") == "true")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP .*" + re.escape(where)):
         Simulation(tcfg, outdir=str(tmp_path), quiet=True, device="cpu")
 

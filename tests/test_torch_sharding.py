@@ -239,8 +239,9 @@ def test_sharded_emission_feedback_and_growth(tmp_path):
 
 def _gloo_worker(rank, path, out_dir):
     """One rank of a 2-process gloo group: both decompositions on a tiny deck,
-    saving each rank's ledger and fields; a deck asking for another world size
-    raises."""
+    saving each rank's ledger and fields, and from rank 0 a dump and a checkpoint
+    of the whole run; then both ranks resume from that checkpoint for a step and
+    save their ledgers again. A deck asking for another world size raises."""
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -249,7 +250,8 @@ def _gloo_worker(rank, path, out_dir):
         with pytest.raises(ValueError):
             exchange.exchange_for(3)
         for name, mods in GLOO_RUNS.items():
-            sim = _sim({**mods, "jaybenne/n_devices": 0}, tmp=out_dir)
+            outdir = os.path.join(out_dir, f"gloo_{name}")
+            sim = _sim({**mods, **GLOO_DUMP, "jaybenne/n_devices": 0}, tmp=outdir)
             assert isinstance(sim.exchange, exchange.Distributed) and sim.exchange.n == 2
             sim.run()
             st = sim.shards[0]
@@ -257,10 +259,25 @@ def _gloo_worker(rank, path, out_dir):
                         "fields": dataclasses.asdict(st.fields),
                         "history": sim.history},
                        os.path.join(out_dir, f"{name}.{rank}.pt"))
+            ck = sim.write_checkpoint(os.path.join(outdir, "run.rhdf"))
+            dist.barrier()  # rank 0 has written it
+            again = _sim({**mods, "jaybenne/n_devices": 0, "parthenon/time/tlim": "3.e-11"},
+                         tmp=outdir)
+            resumed = Simulation(again.cfg, outdir=outdir, quiet=True, device="cpu",
+                                 restart=ck)
+            assert resumed.cycle == 2
+            resumed.run()
+            torch.save(dataclasses.asdict(resumed.shards[0].particles),
+                       os.path.join(out_dir, f"{name}.resumed.{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
+# the gloo runs' outputs: the compact dump with swarm variables, at the start and
+# the end
+GLOO_DUMP = {"parthenon/output0/file_type": "hdf5",
+             "parthenon/output0/variables": "field.material.density, field.jaybenne.energy_tally",
+             "parthenon/output0/swarm_variables": "swarm.x, swarm.weight"}
 GLOO_RUNS = {
     "particle": {"jaybenne/num_particles": 1000},
     "spatial": {"jaybenne/num_particles": 1000, "jaybenne/decomposition": "spatial",
@@ -272,7 +289,9 @@ GLOO_RUNS = {
 def test_gloo_ranks_match_in_process_bitwise(tmp_path):
     """Two gloo ranks (torch.multiprocessing, ``init_method=file://``) run both
     decompositions; each rank's ledger and fields are bitwise those of the
-    in-process backend's shard of the same index at n = 2."""
+    in-process backend's shard of the same index at n = 2; rank 0's dumps and
+    checkpoint, gathered through the exchange, are the in-process run's; and
+    both ranks resume from that checkpoint as the in-process shards do."""
     ctx = mp.start_processes(_gloo_worker, args=(str(tmp_path / "pg"), str(tmp_path)),
                              nprocs=2, join=False, start_method="spawn")
     t0 = time.time()
@@ -281,8 +300,19 @@ def test_gloo_ranks_match_in_process_bitwise(tmp_path):
             for proc in ctx.processes:
                 proc.kill()
             pytest.fail(f"the gloo ranks did not finish in {GLOO_TIMEOUT_S} s")
+    import h5py
+
+    def contents(path):
+        out = {}
+        with h5py.File(path, "r") as h:
+            out["/"] = dict(h.attrs)
+            h.visititems(lambda k, v: out.__setitem__(
+                k, v[...] if isinstance(v, h5py.Dataset) else dict(v.attrs)))
+        return out
+
     for name, mods in GLOO_RUNS.items():
-        sim = _sim({**mods, "jaybenne/n_devices": 2}, tmp=tmp_path)
+        outdir = tmp_path / f"in_process_{name}"
+        sim = _sim({**mods, **GLOO_DUMP, "jaybenne/n_devices": 2}, tmp=outdir)
         sim.run()
         for rank in range(2):
             got = torch.load(os.path.join(tmp_path, f"{name}.{rank}.pt"))
@@ -294,3 +324,29 @@ def test_gloo_ranks_match_in_process_bitwise(tmp_path):
             assert got["history"][-1]["events"] == sim.history[-1]["events"]
         if name == "spatial":
             assert sim.history[-1]["migrated"] > 0
+        # rank 0's dumps and checkpoint are those of the in-process run, bit for bit
+        ck = sim.write_checkpoint(str(outdir / "run.rhdf"))
+        gloo_dir = tmp_path / f"gloo_{name}"
+        files = sorted(p.name for p in outdir.iterdir())
+        assert files == sorted(p.name for p in gloo_dir.iterdir()), name
+        for f in files:
+            if f.endswith((".phdf", ".rhdf")):
+                a, b = contents(outdir / f), contents(gloo_dir / f)
+                assert sorted(a) == sorted(b), (name, f)
+                for k in a:
+                    if isinstance(a[k], dict):
+                        assert a[k].keys() == b[k].keys(), (name, f, k)
+                        for key in a[k]:
+                            np.testing.assert_array_equal(a[k][key], b[k][key])
+                    else:
+                        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name} {f} {k}")
+        # the ranks resumed from it as the in-process backend does
+        again = _sim({**mods, "jaybenne/n_devices": 2, "parthenon/time/tlim": "3.e-11"},
+                     tmp=outdir)
+        resumed = Simulation(again.cfg, outdir=str(outdir), quiet=True, device="cpu",
+                             restart=ck)
+        resumed.run()
+        for rank in range(2):
+            got = torch.load(os.path.join(tmp_path, f"{name}.resumed.{rank}.pt"))
+            for field, t in dataclasses.asdict(resumed.shards[rank].particles).items():
+                assert torch.equal(got[field], t), (name, "resumed", rank, field)

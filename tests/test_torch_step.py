@@ -140,7 +140,8 @@ def test_no_dump_when_file_type_none(tmp_path):
     sim = run_file(STEPDIFF, outdir=str(tmp_path),
                    modified_inputs={**SMALL, "parthenon/output0/file_type": "none"},
                    quiet=True, nlim=1, device="cpu")
-    assert sim.cycle == 1 and not list(tmp_path.iterdir())
+    # no dump: the run's one file is its per-cycle record
+    assert sim.cycle == 1 and [p.name for p in tmp_path.iterdir()] == ["history.json"]
 
 
 def test_cli_runs_one_cycle(tmp_path):
@@ -151,7 +152,7 @@ def test_cli_runs_one_cycle(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "cycle=1 " in res.stdout and "events/s" in res.stdout
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "stepdiff.out0.00000.phdf", "stepdiff.out0.00001.phdf"
+        "history.json", "stepdiff.out0.00000.phdf", "stepdiff.out0.00001.phdf"
     ]
 
 
