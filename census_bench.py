@@ -17,33 +17,41 @@ more tree, timed in the same turns. Nothing here imports jax.
    and non-gray paths; phase 11's hybrid ledgers; the first round of
    big_mesh_spatial and of SMR+DDMC spatial at 8 shards; at other numbers of lanes
    a SM, the 64^3 feedback ledger's first eighth, the stepdiff_smr ledger eight
-   times over and the lane sweep: the stepdiff and the 2D feedback ledgers two and
-   four times over (the copies in other slots, so other draws). They go to one
-   file.
+   times over and the lane sweep: the stepdiff, 2D feedback, 64^3 DDMC and
+   stepdiff_3d ledgers two and four times over (the copies in other slots, so other
+   draws). They go to one file.
 2. Child processes, each importing the package of one tree (``--child``), time the
    census kernel on those inputs: every route the median of ``--repeats``
    censuses, each on a fresh copy of the saved ledger, timed with CUDA events
-   after a device sleep (as ``chip_smoke.time_census``). The children run in turns,
+   after a device sleep (as ``chip_smoke.time_census``), and in the same censuses
+   the kernel alone (``chip_smoke.LaunchWindows``). The children run in turns,
    parent, the variants, this tree, this tree, the variants in reverse, parent,
    ``--turns`` times over. Every child
    digests each route's output ledger; the script fails unless all children agree
    on every digest, so the two trees' kernels are bitwise equal there.
 3. ``--profile`` runs ``python -m jaybenne_tpu_torch.profile`` from each tree's
-   root in the same turns on stepdiff_smr (64x32, 100k particles) and the 64^3
-   feedback row, and reads the census kernel's device ms a step and the step's
-   device total.
+   root in the same turns on stepdiff_smr (64x32, 100k particles), the 64^3
+   feedback row, the 64^3 DDMC row and stepdiff_3d (``chip_smoke.py`` phases 14
+   and 20), and reads the census kernel's device ms a step, the step's device
+   total and the unprofiled steps' wall median.
 
 It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
 resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
 that built the tree's library) and their event loop's common-path SASS
 instructions (``chip_smoke.common_paths`` on the tree's sources); one line per
-route with every tree's medians, ranges and their ratio to the parent's; each
-tree's warp path mix on the stepdiff and 2D feedback censuses (``--mix-child``:
-its kernel's counting variant, ``chip_smoke.path_mix``), with how their
-lane-events spread over the SMs (%smid); the lane sweep's time an event at 1, 2
-and 4 times the live lanes (a time an event that falls with more lanes says the
-one-wave census leaves throughput unused: unevenly loaded SMs, which the path mix
-shows, or latency); with ``--out`` it writes everything there as JSON.
+route with every tree's medians, ranges and their ratio to the parent's, and the
+kernel alone's; each tree's warp path mix on the stepdiff, 2D feedback, 64^3 DDMC
+and stepdiff_3d censuses (``--mix-child``: its kernel's counting variant,
+``chip_smoke.path_mix``), with how their lane-events spread over the SMs (%smid),
+and on the two DDMC censuses its DDMC reading (``ddmc_reading``: the kernel
+alone, registers and resident blocks, the slot order's warp efficiency, the live
+lanes and events by block of 256 slots, the DDMC path mix with its issue time and
+share from the DDMC event's SASS, and on stepdiff_3d the events of a live lane by
+the level of its block);
+the lane sweep's time an event at 1, 2 and 4 times the live lanes of the same four
+(a time an event that falls with more lanes says the census leaves throughput
+unused: unevenly loaded SMs, which the path mix shows, or latency); with ``--out``
+it writes everything there as JSON.
 """
 
 from __future__ import annotations
@@ -73,10 +81,20 @@ PROFILE_DECKS = {
         "jaybenne/do_feedback=true", "mcblock/opacity_model=constant",
         "mcblock/opacity_constant_value=3.0", "jaybenne/capacity_factor=3",
         "parthenon/output0/file_type=none"]),
+    # chip_smoke.py phases 14 (BIG_DDMC) and 20 (SMR3D)
+    "big_mesh_ddmc": ("inputs/stepdiff.in", [
+        "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=64", "parthenon/mesh/nx3=64",
+        "parthenon/mesh/ix2_bc=periodic", "parthenon/mesh/ox2_bc=periodic",
+        "parthenon/mesh/ix3_bc=periodic", "parthenon/mesh/ox3_bc=periodic",
+        "parthenon/meshblock/nx1=8", "parthenon/meshblock/nx2=8", "parthenon/meshblock/nx3=8",
+        "jaybenne/num_particles=200000", "jaybenne/use_ddmc=true",
+        "parthenon/output0/file_type=none"]),
+    "stepdiff_3d": ("inputs/stepdiff_3d_smr_ddmc.in", [
+        "jaybenne/num_particles=500000", "parthenon/output0/file_type=none"]),
 }
 
 
-SWEEP_ROUTES = ("transport_1d", "transport_2d_abs")
+SWEEP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr")
 SWEEP = (1, 2, 4)
 
 
@@ -169,31 +187,149 @@ def digest(p) -> str:
     return h.hexdigest()[:16]
 
 
-MIX_ROUTES = ("transport_1d", "transport_2d_abs")
+MIX_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr")
 
 
-def mix_child(inputs, pkg, out) -> None:
+def this_chip_smoke():
+    """This tree's ``chip_smoke.py`` as a module, in a child that imports another
+    tree's package: its readings apply to any tree's kernel of the same layout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+DD_PATHS = ("dd_leak", "dd_step", "dd_any")
+
+
+def kernel_alone(cs, tk, dev, p0, args, repeats) -> list:
+    """Sorted ms of the census kernel alone (``chip_smoke.LaunchWindows``) in
+    ``repeats`` censuses on fresh copies of ``p0``, each after a device sleep."""
+    import torch
+
+    times = []
+    with cs.LaunchWindows(tk) as win:
+        for _ in range(repeats):
+            p = p0.clone()
+            torch.cuda.synchronize(dev)
+            torch.cuda._sleep(50_000_000)
+            tk.transport(p, *args)
+            times.append(sum(win.ms()))
+    return sorted(times)
+
+
+def ddmc_mix_line(cs, name, mix, paths, kernel_ms, events, dev) -> dict:
+    """Prints the DDMC warp path mix of the route ``name`` (``chip_smoke.path_mix``),
+    checked against the census's ``events``: the share of warp-events with a lane
+    on the DDMC branch, one that leaked, reached census from it, was rejected or
+    accepted at a face's albedo test or was absorbed, and with a lane that did
+    anything else than a DDMC leak or census inside its block ("other"); what a
+    lane-event did; the SIMT efficiency (lane-events over 32 x warp-events) and how
+    the lane-events spread over the SMs (%smid). Then the instructions a warp
+    issues an event, modelled from the mix and the DDMC loop paths (``paths``,
+    {path: count}): the leak's path (dd_leak; a lane leaks in 0.9 or more of the
+    warp-events of these routes), plus the census's code (dd_step - dd_leak) where
+    a lane reached census and the rest of the DDMC event (dd_any - dd_step: albedo
+    tests, absorption, block faces and walls) where one did anything else; the
+    issue time, those instructions x warp-events at the card's issue rate (SMs x 4
+    warp instructions a SM clock x the SM clock, nvidia-smi, read just after), and
+    the warp issue share, the issue time over ``kernel_ms`` (the kernel alone).
+    Returns the mix with the model's numbers."""
+    import torch
+
+    if mix["lane_events"] != events:
+        raise AssertionError(f"{name} path mix: {mix['lane_events']} lane-events, census {events}")
+    we, le, by_sm = mix["warp_events"], mix["lane_events"], mix["by_sm"]
+    keys = ("ddmc", "dd_leak", "dd_census", "dd_rejected", "dd_accepted", "dd_absorbed",
+            "dd_other")
+    share = {k: mix[k] / we for k in keys}
+    lane = {k: mix[k] / le for k in ("lane_ddmc", "lane_leaks", "lane_dd_census",
+                                     "lane_rejected", "lane_accepted", "lane_dd_absorbed")}
+    leak, step, any_ = (paths[k] for k in DD_PATHS)
+    per_warp = leak + share["dd_census"] * (step - leak) + share["dd_other"] * (any_ - step)
+    clock = cs.smi_value("clocks.sm")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rate = sms * (cs.ISSUE_PER_SM_CLOCK // 32) * clock * 1e6
+    issue_ms = per_warp * we / rate * 1e3
+    print(f"{name} DDMC warp path mix: {we} warp-events for {le} lane-events (SIMT efficiency "
+          f"{le / (32 * we)!r}); share of warp-events with a lane "
+          + ", ".join(f"{k} {v!r}" for k, v in share.items()) + "; a lane-event "
+          + ", ".join(f"{k} {v!r}" for k, v in lane.items())
+          + f"; loop paths (SASS) dd_leak {leak}, dd_step {step}, dd_any {any_}: census "
+          f"+{step - leak}, other +{any_ - step}; modelled {per_warp!r} instructions a "
+          f"warp-event; SM clock {clock!r} MHz; at the issue rate {issue_ms!r} ms; warp issue "
+          f"share {issue_ms / kernel_ms!r} (kernel alone {kernel_ms!r} ms); lane-events a SM "
+          f"(%smid): {len(by_sm)} of {sms} SMs ran lanes, max/mean over the {sms} "
+          f"{max(by_sm) * sms / sum(by_sm)!r}", flush=True)
+    return {**mix, "instructions_per_warp_event": per_warp, "issue_ms": issue_ms,
+            "warp_issue_share": issue_ms / kernel_ms}
+
+
+def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> dict:
+    """The reading of the 3D DDMC route ``name`` (``chip_smoke.DDMC_ROUTES``) on a
+    census's ``inputs`` ((ledger, args)), its lines headed ``label``: the kernel
+    alone (``kernel_alone``), the event loop's line (``chip_smoke.event_loop_line``,
+    registers and stack from ``res``, its common path the DDMC loop's dd_step), how
+    the live lanes and the events spread over blocks of 256 slots
+    (``chip_smoke.block_spread_line``), the DDMC warp path mix ``mix`` with the
+    issue figures (``ddmc_mix_line``, the loop paths ``paths``) and, on a refined
+    forest, the events of a live lane by the level of its block. Returns the mix
+    with the kernel alone's ms, the slot-order warp efficiency and the issue
+    figures."""
+    p, args = inputs
+    prm, mesh = args[3], args[1]
+    events = int(tk.transport(p.clone(), *args)[2])
+    k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats))
+    print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
+    lanes = cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["dd_step"])
+    blocks = tk.resident_blocks(3, bool(prm.has_absorption), True, mesh.max_level > 0)
+    cs.block_spread_line(label, lanes, p, blocks, dev)
+    out = ddmc_mix_line(cs, label, mix, paths, k_ms, events, dev)
+    if mesh.max_level > 0:
+        live = p.alive & (p.tau < 1.0)
+        lvl = mesh.block_level.to(p.x.device)[p.block.long()]
+        per = {int(lv): (int((live & (lvl == lv)).sum()),
+                         float(lanes[live & (lvl == lv)].double().mean()))
+               for lv in sorted(set(mesh.block_level.tolist()))}
+        print(f"{label}: events a live lane by the level of its block at the census's start "
+              f"(lanes, mean events): {per}; longest {int(lanes.max())}", flush=True)
+    return {**out, "kernel_ms": k_ms, "slot_order_warp_efficiency": tk.warp_efficiency(lanes)}
+
+
+def mix_child(inputs, pkg, repeats, out) -> None:
     """The warp path mix (``chip_smoke.path_mix``) of the package under ``pkg`` on
     the saved inputs of MIX_ROUTES: its kernel's counting variant, built from its
-    own sources, run through its own launch."""
+    own sources, run through its own launch; on the DDMC routes the DDMC reading
+    (``ddmc_reading``), with the DDMC event's loop paths (``chip_smoke.loop_paths``)
+    compiled from the same sources meanwhile."""
     sys.path.insert(0, pkg)
-    import importlib.util
+    import concurrent.futures
 
     import torch
 
     from jaybenne_tpu_torch.ops import cuda_lib
     from jaybenne_tpu_torch.ops import transport_kernel as tk
 
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    dev = torch.device("cuda", 0)
+    cs = this_chip_smoke()
     routes = torch.load(inputs, weights_only=False)
-    lib = cs.path_mix_library(cuda_lib.SRC_DIR, cuda_lib.BUILD_DIR / "path_mix")
+    res = cs.kernel_resources(cuda_lib.library().build_log, tk)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        dd_build = pool.submit(cs.loop_paths, str(cuda_lib.SRC_DIR), cs.DDMC_ROUTES, tk, DD_PATHS)
+        lib = cs.path_mix_library(cuda_lib.SRC_DIR, cuda_lib.BUILD_DIR / "path_mix")
+        dd = dd_build.result()
+    label = os.path.basename(pkg.rstrip("/")) or pkg
     result = {}
     for name in MIX_ROUTES:
         p0, _, args = routes[name]
         mix = cs.path_mix(tk, lib, (p0, args))
+        if name in cs.DDMC_ROUTES:
+            mix = ddmc_reading(cs, tk, dev, f"{label}: {name}", name, (p0, args),
+                               res.get(name, {}), {k: dd[k][name] for k in DD_PATHS}, mix,
+                               repeats)
         by_sm = mix.pop("by_sm")
         result[name] = {**mix, "sms_with_lanes": len(by_sm),
                         "sm_max_over_mean": max(by_sm) * torch.cuda.get_device_properties(
@@ -214,6 +350,7 @@ def child(inputs, pkg, repeats, out) -> None:
 
     dev = torch.device("cuda", 0)
     lib = cuda_lib.library()
+    cs = this_chip_smoke()
     routes = torch.load(inputs, weights_only=False)
     result = {"pkg": pkg, "build_seconds": lib.build_seconds, "build_log": lib.build_log,
               "routes": {}}
@@ -222,22 +359,25 @@ def child(inputs, pkg, repeats, out) -> None:
             return tk.transport(p if n == 1 else split_ledger(p, n), *args)[2]
 
         census(p0.clone())  # warm-up
-        times = []
-        for _ in range(repeats):
-            p = p0.clone()
-            torch.cuda.synchronize(dev)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(50_000_000)  # ~25 ms at 1980 MHz
-            start.record()
-            events = census(p)
-            stop.record()
-            torch.cuda.synchronize(dev)
-            times.append(start.elapsed_time(stop))
+        times, kernel = [], []
+        with cs.LaunchWindows(tk) as win:
+            for _ in range(repeats):
+                p = p0.clone()
+                torch.cuda.synchronize(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(50_000_000)  # ~25 ms at 1980 MHz
+                start.record()
+                events = census(p)
+                stop.record()
+                torch.cuda.synchronize(dev)
+                times.append(start.elapsed_time(stop))
+                kernel.append(sum(win.ms()))
         clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
                                 "nounits"], capture_output=True, text=True, check=True).stdout
         live = int((p0.alive & (p0.tau < 1.0)).sum())
-        result["routes"][name] = {"times": sorted(times), "events": int(events.sum()),
+        result["routes"][name] = {"times": sorted(times), "kernel": sorted(kernel),
+                                  "events": int(events.sum()),
                                   "digest": digest(p), "slots": p0.capacity, "live": live,
                                   "sm_clock_mhz": float(clock.split()[0])}
         print(f"  {os.path.basename(pkg.rstrip('/')) or pkg}: {name} median "
@@ -257,8 +397,10 @@ def profile(tree, deck) -> dict:
         raise RuntimeError(f"profile {deck} in {tree}:\n{res.stderr[-3000:]}")
     kernel = sum(float(m.group(1)) for m in re.finditer(
         r"device_ms_per_step (\S+) .*transport_kernel", res.stdout))
-    total = float(re.search(r"device total (\S+) ms per step", res.stdout).group(1))
-    return {"census_ms_per_step": kernel, "device_ms_per_step": total}
+    m = re.search(r"device total (\S+) ms per step; unprofiled step wall median (\S+) ms",
+                  res.stdout)
+    return {"census_ms_per_step": kernel, "device_ms_per_step": float(m.group(1)),
+            "step_wall_ms": float(m.group(2))}
 
 
 def issue_share(kids, tree, name, summary, sms) -> float:
@@ -291,7 +433,7 @@ def main(argv=None) -> int:
         child(args.child[0], args.child[1], args.repeats, args.child[2])
         return 0
     if args.mix_child:
-        mix_child(*args.mix_child)
+        mix_child(args.mix_child[0], args.mix_child[1], args.repeats, args.mix_child[2])
         return 0
     import torch
 
@@ -332,8 +474,9 @@ def main(argv=None) -> int:
                 summary["children"].append({**json.load(f), "tree": label[tree]})
         for tree in trees:
             out = os.path.join(tmp, f"mix_{len(summary['mix'])}.json")
-            subprocess.run([sys.executable, os.path.abspath(__file__), "--mix-child", inputs,
-                            tree, out], check=True, timeout=1800)
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--repeats",
+                            str(args.repeats), "--mix-child", inputs, tree, out], check=True,
+                           timeout=1800)
             with open(out) as f:
                 summary["mix"][label[tree]] = json.load(f)
     if args.profile:
@@ -351,7 +494,8 @@ def main(argv=None) -> int:
         logs = [kid.pop("build_log") for kid in kids if kid["tree"] == label[tree]]
         log = own_log if tree == ROOT else next((log for log in logs if log), "")
         res = summary["resources"][label[tree]] = cs.kernel_resources(log, tk)
-        print(f"{label[tree]}: resources {({k: res.get(k) for k in cs.EVENT_LOOP_ROUTES})}; event "
+        print(f"{label[tree]}: resources "
+              f"{({k: res.get(k) for k in cs.EVENT_LOOP_ROUTES + cs.DDMC_ROUTES})}; event "
               f"loop common path {summary['common_path'][label[tree]]} SASS instructions",
               flush=True)
     print(f"route: per tree the medians of {args.repeats} censuses in each turn (ms), the range "
@@ -367,6 +511,14 @@ def main(argv=None) -> int:
         r0 = kids[0]["routes"][name]
         print(f"{name} ({r0['events']} events, {r0['live']} live lanes of {r0['slots']}): "
               + " | ".join(row), flush=True)
+        row, base = [], None
+        for tree in trees:
+            meds = [statistics.median(kid["routes"][name]["kernel"]) for kid in kids
+                    if kid["tree"] == label[tree]]
+            base = base or statistics.median(meds)
+            row.append(f"{label[tree]} {meds} {statistics.median(meds) / base:.3f}")
+        print(f"  {name} kernel alone (CUDA events around its launch), medians of each turn "
+              "(ms) and over the parent's: " + " | ".join(row), flush=True)
         if name in cs.EVENT_LOOP_ROUTES:
             print(f"  {name} issue share (common path x events over the median census x "
                   f"{sms} SMs x {cs.ISSUE_PER_SM_CLOCK} x the SM clock read after it): "
@@ -375,11 +527,17 @@ def main(argv=None) -> int:
     for name in MIX_ROUTES:
         for tree in trees:
             m = summary["mix"][label[tree]][name]
-            print(f"path mix {name} {label[tree]}: {m['warp_events']} warp-events, SIMT "
-                  f"efficiency {m['lane_events'] / (32 * m['warp_events'])!r}, crossed "
-                  f"{m['cross'] / m['warp_events']!r}; lane-events a SM (%smid): "
-                  f"{m['sms_with_lanes']} SMs ran lanes, max/mean {m['sm_max_over_mean']!r}",
-                  flush=True)
+            we = m["warp_events"]
+            what = (f"DDMC {m['ddmc'] / we!r}, leaked {m['dd_leak'] / we!r}, DDMC census "
+                    f"{m['dd_census'] / we!r}, other {m['dd_other'] / we!r}; issue "
+                    f"{m['issue_ms']!r} ms, {m['warp_issue_share']!r} of the kernel alone "
+                    f"{m['kernel_ms']!r} ms; slot-order warp efficiency "
+                    f"{m['slot_order_warp_efficiency']!r}"
+                    if name in cs.DDMC_ROUTES else f"crossed {m['cross'] / we!r}")
+            print(f"path mix {name} {label[tree]}: {we} warp-events, SIMT efficiency "
+                  f"{m['lane_events'] / (32 * we)!r}, warp-events with a lane that {what}; "
+                  f"lane-events a SM (%smid): {m['sms_with_lanes']} SMs ran lanes, max/mean "
+                  f"{m['sm_max_over_mean']!r}", flush=True)
     for name in SWEEP_ROUTES:
         for tree in trees:
             cells = []
@@ -392,7 +550,8 @@ def main(argv=None) -> int:
             print(f"lane sweep {name} {label[tree]}: " + "; ".join(cells), flush=True)
     for row in summary["profile"]:
         print(f"profile {row['deck']} {row['tree']}: census {row['census_ms_per_step']!r} ms a "
-              f"step, device total {row['device_ms_per_step']!r} ms a step", flush=True)
+              f"step, device total {row['device_ms_per_step']!r} ms a step, step wall median "
+              f"{row['step_wall_ms']!r} ms", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -18,7 +18,8 @@ non-zero without a GPU. Nothing here imports jax.
 Phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc time of the kernel library; every instantiation's registers,
-     stack frame and spills (``-Xptxas -v``) and resident blocks a SM; the SASS
+     stack frame and spills (``-Xptxas -v``) and resident blocks a SM, and the
+     local-memory instructions (LDL/STL) of each one with a stack frame; the SASS
      instructions of the event loop's paths (``loop_paths``: the common path, a
      scatter in the lane's cell; a crossing; any outcome but a wall; the whole
      loop) of transport_1d, transport_2d_abs, transport_2d_smr and
@@ -74,7 +75,9 @@ Phases:
      test, DDMC lanes leak into IMC cells and walls, reach census and are
      absorbed): after 8 iterations integer state, alive, absorbed and face
      identical and floats within FLOAT_RTOL; after a full census of the last
-     10 % of a step events within 2 % and absorbed counts within 4 binomial sd;
+     10 % of a step events within 2 % and absorbed counts within 4 binomial sd
+     (the 3D DDMC ones held as after 8 iterations, with the same events;
+     phase 15 holds their SMR twins so);
  12. the DDMC main path: inputs/stepdiff_ddmc.in with bench.py's ddmc overrides
      (128 cells, 100k particles), 10 steps through transport_1d_ddmc (10
      launches): werr <= 0.05, radiation energy conserved to 1e-5, a bitwise
@@ -90,8 +93,14 @@ Phases:
      (tst/regression_test.py::profile_comparison), the solution scaled by the
      share of a T^4 that the thermal source put in (0.76 at 0.76 particles a
      cell), sum(tally dV) conserved to 1e-5, every census complete, a bitwise
-     rerun; then the 2D and the absorbing 2D/3D DDMC instantiations, which no path
-     runs, timed on phase 11's ledger;
+     rerun; on the last census's inputs the collapse of its ledger to one block
+     and the expansion back (``ledger_shift_kernels``: csrc/ledger_kernel.cu, one
+     launch each a census) against their plain versions, bitwise, timed beside
+     their bounds; phase 30 holds them so on big_mesh_spatial's joined ledger, and
+     every counted path that runs them (a uniform forest of several blocks) lists
+     its launches in their entries (``note_shifts``); then the 2D
+     and the absorbing 2D/3D DDMC instantiations, which no path runs, timed on
+     phase 11's ledger;
  15. K1(d): all twelve SMR instantiations against their plain versions on a
      level-1 forest per dimension (2^17 particles; x-slabs of four coarse cells
      alternate thin and thick, so that IMC crossings change level both ways and
@@ -181,9 +190,10 @@ Phases:
      seeds 1-4: the mean survivors against the JAX package's at the same seeds
      within 4 sd of the difference of the means;
  36. the regrouping schedule at scale: the twelve DDMC instantiations (uniform and
-     SMR, gray) on hybrid ledgers of 4 times the card's resident threads, a full
-     census of the last 10 % of a step, kernel and plain identical in every
-     column (phases 28-29 hold both owned-range routes at that size);
+     SMR, gray) on hybrid ledgers of 4 times the card's resident threads, so that
+     blocks run in several waves, a full census of the last 10 % of a step,
+     kernel and plain identical in every column (phases 28-29 hold both
+     owned-range routes at that size);
  37. checkpoint/restart on the main path: stepdiff at 128 cells and 100k
      particles, 5 steps, ``checkpoint_tree`` through ``np.savez``/``np.load``, a
      new ``Simulation(restart=tree)`` (what ``-r`` builds after reading a file), 5
@@ -474,7 +484,11 @@ K2_CHECK_LANES = 2048  # lanes of the census-words probe held to its plain versi
 EVENT_LOOP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_2d_smr", "transport_3d_abs")
 
 
+PHASE = [""]  # the number of the phase that runs
+
+
 def phase(name):
+    PHASE[0] = name.split()[0]
     print(f"--- phase: {name}", flush=True)
 
 
@@ -658,7 +672,17 @@ KERNEL_ARGS = re.compile(r"transport_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb
 #   cross: a crossing into the next cell, no collision, census or wall;
 #   no_wall: any outcome but a wall (scatter, absorption, crossing, census);
 #   full: every outcome (the loop as built).
+#   dd_leak, dd_step, dd_any: a DDMC lane's event inside the block that leaks, or
+#     leaks or reaches census (no IMC event, albedo test, absorption or block
+#     face), or any DDMC event, read on the DDMC routes (DDMC_ROUTES) by
+#     census_bench.py's DDMC reading. A census
+#     ends a lane's history, so a loop of census events alone compiles to no loop:
+#     the census's code is read as dd_step less dd_leak.
 _NO_WALL = ("  if (any_out) {", "  if (any_out) __trap();\n", True)
+_DD_NO_IMC = ("    constexpr bool kInPlace = DDMC || NONGRAY;", "    __trap();\n", True)
+_DD_NO_REJECT = ("  if (rejected) {  // bounce back", "  if (rejected) __trap();\n", True)
+_DD_NO_ABSORB = ("    if (ABSORB && xi < ea) {", "    if (ABSORB && xi < ea) __trap();\n", True)
+_DD_NO_CENSUS = ("  // census: uniform position in the cell", "  __trap();\n", True)
 LOOP_PATHS = {
     "scatter": (("    const bool census = !coll",
                  "    if (!scatter) __trap();\n    if (cr[0]) __trap();\n    if (cr[1]) __trap();\n"
@@ -669,8 +693,13 @@ LOOP_PATHS = {
               ("    const float d = coll ? d_coll : d_push;", "    if (census) __trap();\n", True),
               _NO_WALL),
     "no_wall": (_NO_WALL,),
+    "dd_leak": (_DD_NO_IMC, _DD_NO_REJECT, _DD_NO_ABSORB, _DD_NO_CENSUS, _NO_WALL),
+    "dd_step": (_DD_NO_IMC, _DD_NO_REJECT, _DD_NO_ABSORB, _NO_WALL),
+    "dd_any": (_DD_NO_IMC,),
     "full": (),
 }
+# the routes whose DDMC event is read (loop paths, path mix, issue share)
+DDMC_ROUTES = ("transport_3d_ddmc", "transport_3d_ddmc_smr")
 
 
 def patched(src, edits, what) -> str:
@@ -733,18 +762,34 @@ def common_paths(csrc, names, transport_kernel) -> dict:
 # (any_out), moved and runs on (so gathers its cell anew), or reached census; and
 # the lanes that did; and the lane-events of each SM (%smid). The warp's active
 # lanes are the ones that ran the event (``__activemask`` where the event ends).
+# With DDMC, per warp and event, whether any lane was on the DDMC branch, leaked,
+# reached census from it, was rejected or accepted at the albedo test of a face,
+# was absorbed from it, or did anything else than a DDMC leak or census inside the
+# block (an albedo test, absorption, an IMC event, a block face or wall: "dd_other"),
+# and the lanes that did.
 PATH_MIX_KEYS = ("warp_events", "lane_events", "scatter", "cross", "wall", "regather", "census",
-                 "lane_scatters", "lane_crossings", "lane_walls")
+                 "lane_scatters", "lane_crossings", "lane_walls",
+                 "ddmc", "dd_leak", "dd_census", "dd_rejected", "dd_accepted", "dd_absorbed",
+                 "dd_other", "lane_ddmc", "lane_leaks", "lane_dd_census", "lane_rejected",
+                 "lane_accepted", "lane_dd_absorbed")
 PATH_MIX_SMS = 1024  # SM ids the variant counts
 PATH_MIX = (
     ("namespace {\n",
      f"__device__ unsigned long long jb_path_mix[{len(PATH_MIX_KEYS)}];\n"
      f"__device__ unsigned long long jb_path_mix_sm[{PATH_MIX_SMS}];\n", True),
     ("  int leak = 0;\n  if (DDMC && is_ddmc) {",
-     "  bool pm_scatter = false, pm_cross = false, pm_census = false;\n", True),
+     "  bool pm_scatter = false, pm_cross = false, pm_census = false;\n"
+     "  bool pm_dd = false, pm_leak = false, pm_dd_census = false, pm_rej = false;\n"
+     "  bool pm_acc = false, pm_abs = false;\n"
+     "  const int pm_face = pface;\n", True),
     ("    const float d = coll ? d_coll : d_push;",
      "    pm_scatter = scatter;\n    pm_cross = cr[0] || cr[1] || cr[2];\n"
      "    pm_census = census;\n", True),
+    ("  } else {\n    constexpr bool kInPlace = DDMC || NONGRAY;",
+     "    pm_dd = true;\n    pm_leak = leak != 0;\n    pm_abs = !palive;\n"
+     "    pm_dd_census = ptau == 1.0f;\n"
+     "    pm_rej = pm_face != 0 && !pm_leak && !pm_abs && !pm_dd_census;\n"
+     "    pm_acc = pm_face != 0 && !pm_rej;\n", True),
     ("  pface = nface;\n",
      "  {\n"
      "    const unsigned m = __activemask();\n"
@@ -752,6 +797,10 @@ PATH_MIX = (
      "    const unsigned bw = __ballot_sync(m, any_out);\n"
      "    const unsigned bg = __ballot_sync(m, moved && palive && ptau < 1.0f);\n"
      "    const unsigned bc = __ballot_sync(m, pm_census);\n"
+     "    const unsigned d[7] = {__ballot_sync(m, pm_dd), __ballot_sync(m, pm_leak),\n"
+     "                           __ballot_sync(m, pm_dd_census), __ballot_sync(m, pm_rej),\n"
+     "                           __ballot_sync(m, pm_acc), __ballot_sync(m, pm_dd && pm_abs),\n"
+     "                           __ballot_sync(m, !pm_dd || pm_face != 0 || pm_abs || any_out)};\n"
      "    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {\n"
      "      const unsigned b[5] = {bs, bx, bw, bg, bc};\n"
      "      unsigned sm;\n"
@@ -762,6 +811,9 @@ PATH_MIX = (
      "      for (int k = 0; k < 5; ++k) atomicAdd(&jb_path_mix[2 + k], b[k] ? 1ull : 0ull);\n"
      "      for (int k = 0; k < 3; ++k)\n"
      "        atomicAdd(&jb_path_mix[7 + k], (unsigned long long)__popc(b[k]));\n"
+     "      for (int k = 0; k < 7; ++k) atomicAdd(&jb_path_mix[10 + k], d[k] ? 1ull : 0ull);\n"
+     "      for (int k = 0; k < 6; ++k)\n"
+     "        atomicAdd(&jb_path_mix[17 + k], (unsigned long long)__popc(d[k]));\n"
      "    }\n"
      "  }\n", True),
 )
@@ -882,6 +934,136 @@ def path_mix_line(name, mix, paths, ms, events, dev) -> dict:
           f"(%smid): {len(by_sm)} of {sms} SMs ran lanes, max/mean over the {sms} "
           f"{max(by_sm) * sms / sum(by_sm)!r}", flush=True)
     return {**mix, "instructions_per_warp_event": per_warp, "warp_issue_share": issue}
+
+
+class LaunchWindows:
+    """While active, wraps ``transport_kernel._census_cuda`` so that each census
+    call's kernel launches lie between two CUDA events: ``ms()`` is the device time
+    of the kernel alone (with its two small counter allocations) in each call
+    since the last ``ms()``, without the table set-up and the collapse to one block
+    around it. Works on any tree's package of the same layout."""
+
+    def __init__(self, transport_kernel):
+        self.tk, self.real, self.events = transport_kernel, transport_kernel._census_cuda, []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*args, **kw)
+            stop.record()
+            self.events.append((start, stop))
+            return out
+
+        self.tk._census_cuda = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.tk._census_cuda = self.real
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        out = [a.elapsed_time(b) for a, b in self.events]
+        self.events = []
+        return out
+
+
+def local_memory(code) -> int:
+    """The local-memory instructions (LDL, STL) of a function's SASS: a lane's
+    arrays that the compiler could not keep in registers (an index known only at
+    run time), and the math library's slow paths (cosf's argument reduction)."""
+    return sum(1 for _, text in code if re.match(r"(@!?U?P\d+\s+)?(LDL|STL)\b", text))
+
+
+# the bytes a slot that each ledger shift kernel must move: the collapse reads and
+# writes the three f32 positions, the three int32 indices and the block; the
+# expansion reads the positions and indices and writes all seven
+SHIFT_BYTES = {"ledger_collapse": 56, "ledger_expand": 52}
+# (path, its launches of each of SHIFT_BYTES) of every counted path run that
+# launched the ledger shift kernels (``note_shifts``)
+SHIFT_PATHS = []
+
+
+def note_shifts(what, launches) -> None:
+    """Keeps the ledger shift kernels' ``launches`` in the counted run of the path
+    ``what`` (its counts set to 0 just before it and read just after), where it ran
+    them, for their entries of the ``kernels`` line. Raises unless the run
+    expanded every ledger it collapsed."""
+    got = [launches.get(k, 0) for k in SHIFT_BYTES]
+    if len(set(got)) != 1:
+        raise AssertionError(f"{what}: ledger shift launches {got}")
+    if got[0]:
+        SHIFT_PATHS.append((f"phase {PHASE[0]}: {what}", *got))
+
+
+def shift_check(transport_kernel, dev, p0, mesh, what) -> list:
+    """Holds the ledger shift kernels (``LEDGER_SHIFTS``: the collapse of a uniform
+    multi-block ledger to one block, then the expansion back) against their plain
+    versions on the ledger ``p0``: every column bitwise (float32 as bits) after
+    each. Returns the ledger that each was given."""
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    given, state = [], p0.clone()
+    for name, (kernel, plain) in transport_kernel.LEDGER_SHIFTS.items():
+        given.append(state)
+        k, q = state.clone(), state.clone()
+        kernel(k, mesh)
+        plain(q, mesh)
+        torch.cuda.synchronize(dev)
+        for f in dataclasses.fields(k):
+            if not torch.equal(bits(getattr(k, f.name)), bits(getattr(q, f.name))):
+                raise AssertionError(f"{name} on {what}: {f.name} differs from the plain version")
+        state = q
+    print(f"ledger_collapse, ledger_expand on {what} ({p0.capacity} slots, {mesh.n_blocks} "
+          "blocks): every column bitwise the plain version's", flush=True)
+    return given
+
+
+def ledger_shift_kernels(transport_kernel, dev, p0, mesh, launches, src) -> list:
+    """The ledger shift kernels (``shift_check``) on the ledger ``p0``, each timed,
+    the median of CENSUS_REPEATS calls on fresh copies after a device sleep, beside
+    one call of its plain version and its bound (its SHIFT_BYTES a slot over the
+    memory rate). Returns their entries of the ``kernels`` line, with ``launches``
+    the path's counts."""
+
+    def timed(fn, p, reps):
+        times = []
+        for _ in range(reps):
+            q = p.clone()
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)
+            start.record()
+            fn(q, mesh)
+            stop.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(stop))
+        return sorted(times)
+
+    out = []
+    given = shift_check(transport_kernel, dev, p0, mesh, "the path's last census")
+    for (name, (kernel, plain)), state in zip(transport_kernel.LEDGER_SHIFTS.items(), given):
+        bound = p0.capacity * SHIFT_BYTES[name] / PEAK_BYTES * 1e3
+        times = timed(kernel, state, CENSUS_REPEATS)
+        plain_ms = timed(plain, state, 1)[0]
+        ms = statistics.median(times)
+        print(f"{name} on {p0.capacity} slots: kernel {spread(times)}, plain {plain_ms!r} ms, "
+              f"bound {bound!r} ms ({SHIFT_BYTES[name]} bytes a slot), kernel at "
+              f"{bound / ms:.3f} of it; {launches.get(name, 0)} launches on the path", flush=True)
+        out.append({
+            "name": f"{name} (the uniform forest's shift to one block and back around the "
+                    "census; XLA ops in the JAX package)",
+            "route": "cuda", "source": src.replace("transport_kernel.cu", "ledger_kernel.cu"),
+            "replaces": "jaybenne_tpu/ops/pallas_transport.py:335 (_uniform_view, around K1 "
+                        "and K3)",
+            "launches": launches.get(name, 0), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        })
+    return out
 
 
 def kernel_resources(build_log, transport_kernel) -> dict:
@@ -1021,11 +1203,12 @@ def ops_per_ddmc_event(ndim, absorb, cost) -> int:
     return n + cost["logf"] + cost["div"] + 2 * cost["hash"]
 
 
-def ops_smr_per_event(ndim, ddmc, cost) -> int:
+def ops_smr_per_event(ndim) -> int:
     """Operations SMR adds to every event (csrc/transport_kernel.cu): the block
     record's address (2), dmin over the active axes (ndim - 1) and the block term
-    of the cell index (2); with DDMC one IEEE divide per axis for 1 / dx."""
-    return 2 + (ndim - 1) + 2 + (ndim * cost["div"] if ddmc else 0)
+    of the cell index (2). With DDMC the reciprocal cell sizes are the block
+    table's column, so no event divides for them."""
+    return 2 + (ndim - 1) + 2
 
 
 def ops_per_crossing(ndim, cost) -> int:
@@ -1079,7 +1262,7 @@ def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False, smr=None,
         mesh, crossings = smr
         nt = mesh.tile_shape
         nbytes += 8 * live + 36 * mesh.n_blocks + 4 * nt[0] * nt[1] * nt[2]
-        n_ops += events * ops_smr_per_event(ndim, ddmc, cost)
+        n_ops += events * ops_smr_per_event(ndim)
         n_ops += crossings * ops_per_crossing(ndim, cost)
     t_ops = n_ops / PEAK_F32_OPS
     t_bytes = nbytes / PEAK_BYTES
@@ -1359,8 +1542,10 @@ def compare_hybrid(transport_kernel, dev, ndim, absorb, ddmc, seed):
         if min(counts.values()) == 0:
             raise AssertionError(f"{what}: a DDMC outcome did not occur: {counts}")
         seen = f"; first event {counts}"
+    # the 3D DDMC instantiations (the 64^3 DDMC row's and its absorbing twin) are
+    # held bitwise after the full census too
     err8, ka = kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed,
-                               seen)
+                               seen, exact_census=ddmc and ndim == 3)
     if absorb and not ka > 0.01 * p0.capacity:
         raise AssertionError(f"{what} census: {ka} absorbed of {p0.capacity}")
     return err8
@@ -1448,7 +1633,7 @@ def compare_smr(transport_kernel, dev, ndim, absorb, ddmc, seed):
         raise AssertionError(f"{what}: no subface resample: {seen}")
     err8, _ = kernel_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed,
                               f"; {mesh.n_blocks} blocks, {mesh.total_cells} cells; "
-                              f"first event {seen}")
+                              f"first event {seen}", exact_census=ddmc and ndim == 3)
     return err8, seen.get("resamples", 0)
 
 
@@ -1510,6 +1695,7 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
         again = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
                          nlim=steps, device="cuda")
     what = os.path.basename(deck)
+    note_shifts(f"{what}, {launch}", launches)
     if launches.get(launch, 0) != per_step * steps or sim.cycle != steps:
         raise AssertionError(f"{what}: launches {launches}, cycles {sim.cycle}")
     max_iters = sim.cfg.jaybenne.max_transport_iterations
@@ -2237,6 +2423,7 @@ def spatial_path(deck, mods, steps, what):
             sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
                            device="cuda")
             launches = dict(cuda_lib.LAUNCHES)
+            note_shifts(what, launches)
     p = sim.state.particles
     if (any(h["dropped"] or h["unfinished"] for h in sim.history) or sim.state.overflow
             or (steps is not None and sim.cycle != steps)):
@@ -2350,6 +2537,9 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
             raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}, {rounds} "
                                  "rounds")
     k_z = round_kernel(transport_kernel, dev, big[8][2], name_z, cost)
+    p_z, _, args_z = big[8][2]
+    shift_check(transport_kernel, dev, p_z, args_z[1], "big_mesh_spatial's joined ledger of "
+                "its first round at 8 shards")
     warp_efficiency_line(transport_kernel, big[8][2], f"{name_z}, big_mesh_spatial's first "
                          "round at 8 shards", k_z[0], "1.087 (shard 3's round alone)", n=8)
 
@@ -2528,6 +2718,7 @@ def restart_phases(dev, smi) -> None:
         cuda_lib.LAUNCHES.clear()
         resumed.run(nlim=RESTART_STEPS)
         launches = dict(cuda_lib.LAUNCHES)
+        note_shifts("stepdiff resumed from a checkpoint", launches)
     if resumed.cycle != 2 * RESTART_STEPS or launches.get("transport_1d", 0) != RESTART_STEPS:
         raise AssertionError(f"restart: cycle {resumed.cycle}, launches {launches}")
     same_run(straight, resumed, "restart on the main path")
@@ -2691,9 +2882,17 @@ def main() -> int:
                       "resident blocks of 256 a SM", flush=True)
     listing = sass_listing(lib.path)
     cost = probe_costs(sass_counts(listing))
+    for fn, code in listing.items():  # where a stack frame is used: LDL/STL
+        m = KERNEL_ARGS.search(fn)
+        if m:
+            ndim, *bits = (int(x) for x in m.groups())
+            name = transport_kernel.launch_name(ndim, *map(bool, bits))
+            if resources.get(name, {}).get("stack", 0) > 0:
+                print(f"  {name}: {local_memory(code)} LDL/STL instructions", flush=True)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         mix_build = pool.submit(path_mix_library)
-        paths = loop_paths(str(cuda_lib.SRC_DIR), EVENT_LOOP_ROUTES, transport_kernel)
+        paths = loop_paths(str(cuda_lib.SRC_DIR), EVENT_LOOP_ROUTES, transport_kernel,
+                           ("scatter", "cross", "no_wall", "full"))
         mix_lib = mix_build.result()
     common = paths["scatter"]
     print(f"event loop common path (a scatter in the lane's cell), SASS instructions an "
@@ -2770,6 +2969,7 @@ def main() -> int:
         sim = run_file(DECK, outdir=outdir, modified_inputs=GATE, quiet=True,
                        device="cuda")
         launches = dict(cuda_lib.LAUNCHES)
+        note_shifts("stepdiff", launches)
         plain = run_file(DECK, outdir=outdir,
                          modified_inputs={**GATE, "jaybenne/use_pallas": "off"},
                          quiet=True, nlim=1, device="cuda")
@@ -2894,6 +3094,7 @@ def main() -> int:
         inf = run_file(INF_DECK, outdir=outdir, modified_inputs=INF, quiet=True,
                        device="cuda")
         inf_launches = dict(cuda_lib.LAUNCHES)
+        note_shifts("inf", inf_launches)
         sim2_0 = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK_2D, quiet=True,
                           nlim=0, device="cuda")
         e2_0, er2_0 = total_energy(sim2_0)
@@ -2901,6 +3102,7 @@ def main() -> int:
         sim2 = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK_2D, quiet=True,
                         nlim=FEEDBACK_2D_STEPS, device="cuda")
         launches_2d = dict(cuda_lib.LAUNCHES)
+        note_shifts("2D feedback", launches_2d)
     if inf_launches.get(name3, 0) != INF_STEPS or inf.cycle != INF_STEPS:
         raise AssertionError(f"inf: launches {inf_launches}, cycles {inf.cycle}")
     var = inf.state.fields.energy_tally.double().cpu().numpy()
@@ -2943,6 +3145,7 @@ def main() -> int:
         fb = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK, quiet=True,
                       nlim=FEEDBACK_STEPS, device="cuda")
         fb_launches = dict(cuda_lib.LAUNCHES)
+        note_shifts("big_mesh_feedback", fb_launches)
         peak = torch.cuda.max_memory_allocated(dev)
         fb_fields = (fb.state.fields.energy_tally.clone(), fb.state.fields.u.clone())
         fb_ms, fb_plain_ms, fb_ev, fb_err, fb_in = path_census(fb, transport_kernel, dev)
@@ -3027,6 +3230,7 @@ def main() -> int:
             stiff = run_file(STIFF_DECK, outdir=outdir, modified_inputs=STIFF, quiet=True,
                              device="cuda")
             stiff_launches = dict(cuda_lib.LAUNCHES)
+            note_shifts("inf_stiff", stiff_launches)
     if stiff_launches.get(name_dd1a, 0) != STIFF_STEPS or stiff.cycle != STIFF_STEPS:
         raise AssertionError(f"inf_stiff: launches {stiff_launches}, cycles {stiff.cycle}")
     var_st = stiff.state.fields.energy_tally.double().cpu().numpy()
@@ -3065,10 +3269,14 @@ def main() -> int:
           f"{big.cfg.jaybenne.tau_ddmc}); sourced {sourced!r} of a T^4; "
           f"{prof_err_unscaled!r} against the unscaled solution", flush=True)
     gate(prof_err, PROFILE_TOL, "big_mesh DDMC x-profile against the sourced solution")
-    ms_dd3, plain_dd3, _, err_dd3, bound_dd3, by_dd3 = path_kernel(
+    ms_dd3, plain_dd3, ev_dd3, err_dd3, bound_dd3, by_dd3 = path_kernel(
         transport_kernel, dev, big, big_in, name_dd3, cost)
-
     src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
+    shift_kernels = ledger_shift_kernels(transport_kernel, dev, big_in[0], big.mesh, big_launches,
+                                         src)
+    if min(big_launches.get(k, 0) for k in SHIFT_BYTES) != PATH_STEPS:
+        raise AssertionError(f"big_mesh DDMC: launches {big_launches}")
+
     smr_kernels = smr_phases(transport_kernel, dev, cost, src, resources, common)
     nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
     spatial_kernels = spatial_phases(transport_kernel, dev, cost, src)
@@ -3136,7 +3344,11 @@ def main() -> int:
             "library_ms": None,
         },
     ]
-    kernels += smr_kernels + nongray_kernels + spatial_kernels
+    for k, entry in enumerate(shift_kernels):
+        # ``launches`` is phase 14's; beside it every counted path that ran the kernel
+        entry["launches_by_path"] = [[what, n[k]] for what, *n in SHIFT_PATHS]
+    print(f"ledger_collapse, ledger_expand launches by path: {SHIFT_PATHS}", flush=True)
+    kernels += shift_kernels + smr_kernels + nongray_kernels + spatial_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

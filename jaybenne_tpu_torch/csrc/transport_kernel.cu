@@ -229,6 +229,40 @@
 // NONGRAY lane carrying its key (9 registers fewer for the 2D SMR DDMC kernel, so
 // 4 resident blocks instead of 3: its K4s round 8-9 % slower).
 //
+// The 3D gray DDMC census (the 64^3 DDMC row, stepdiff_3d). Measured before any
+// change (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phases 14 and 20,
+// census_bench.py): the 64^3 row's 200340 live lanes of 663168 slots run 9.2
+// events each and the longest 23-28, stepdiff_3d's 499963 of 1016384 run 4.8 (3.2
+// in its level-0 blocks, 8.6 in its level-1 ones) and the longest 23-26; the slot
+// order's warp efficiency is 0.59 and 0.41; the busiest SM runs 1.36 and 1.47
+// times the mean SM's lane-events (%smid); a lane leaks in 89 % and 79 % of its
+// events and reaches census in the rest, and on stepdiff_3d 53 % of warp-events
+// hold a lane that meets a block face (re-homing). The kernel alone took 0.18 of
+// the 64^3 row's 0.45 ms census call: most of the rest was the ledger's collapse
+// to one block and back in 44 elementwise passes, now one kernel pass each way
+// (csrc/ledger_kernel.cu). The 112-byte stack frame of every 2D/3D DDMC
+// instantiation held the lane's state arrays (position, cell, velocity, faces,
+// cell size) in local memory: the compiler had turned the face placement's
+// unrolled ``if (leak >> 1 == a)`` into stores at a runtime index, so every DDMC
+// event read and wrote them there (LDL/STL in the SASS); the placement now writes
+// every element through a select (``place_across``). Measured (census_bench.py,
+// two turns in one call, the same inputs): the frame 112 -> 32 bytes (cosf's slow
+// path, 20-25 LDL/STL left of 110-157), the kernel alone on the 64^3 row 0.182 ->
+// 0.074 ms, on stepdiff_3d 0.284 -> 0.208 (79 -> 101 registers, 3 -> 2 resident
+// blocks), on the native hybrid 2.83 -> 2.17, on phase 11's 2D/3D hybrid ledgers
+// 22-30 % less; no route slower than 1 %. Built, measured in turns
+// against the kernel before it in one call each, and dropped: a refill schedule
+// (as many blocks as the card holds; each warp runs its lanes one event at a time
+// and, once 8 or 16 are idle, refills them from a launch-wide cursor over groups
+// of 32 slots; results bitwise) raised the SIMT efficiency from 0.59 to 0.61-0.66
+// and from 0.41 to 0.69-0.82, yet the 64^3 row's kernel took 4-16 % longer,
+// stepdiff_3d's moved by -2.3 to +1.4 % (97 registers, 2 resident blocks; held to
+// 80 by launch bounds it spilled and took 8-10 % longer) and the absorbing 3D twin
+// on a hybrid ledger took 20-29 % longer; one divide in the albedo test, measured
+// only beside the refill, sped up no route it reaches. A launch bound of one
+// resident block a SM, which should change nothing, raised the 1D DDMC kernels'
+// registers (40 -> 44) and slowed stepdiff_ddmc's census by 23 %.
+//
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
@@ -384,6 +418,36 @@ struct DdmcTags {
   static constexpr uint32_t kRes = kW3 + (NDIM == 3 ? 3u : 2u);
 };
 
+// A DDMC lane's move across a face of its cell on axis ``ax`` (the lower face when
+// ``lower``): ``eps`` cells beyond the face, into the neighbour cell, with the
+// direction (vn, vt1, vt2) on the axes (ax, ax + 1, ax + 2) mod 3; with
+// ``centre`` the other coordinates go to the cell centre, else they stay. Every
+// element is written on every axis through a select, never through an index
+// that depends on ``ax``: a store to np_[ax], nci[ax] or v[(ax + 1) % 3] puts the
+// lane's state arrays in local memory (a 112-byte stack frame, read and written
+// on every DDMC event before, by the SASS). An ``ax`` outside the active axes
+// (not a face code) leaves the lane as it is.
+template <int NDIM>
+__device__ __forceinline__ void place_across(int ax, bool lower, float eps,
+                                             float vn, float vt1, float vt2, bool centre,
+                                             const float (&dx)[3], const float (&flo)[3],
+                                             const float (&fhi)[3], const int (&ci)[3],
+                                             float (&np_)[3], int (&nci)[3], float (&v)[3]) {
+  if (ax < 0 || ax >= NDIM) return;
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    const bool hit = a == ax;
+    const float edge = lower ? flo[a] - eps * dx[a] : fhi[a] + eps * dx[a];
+    np_[a] = hit ? edge : (centre ? flo[a] + 0.5f * dx[a] : np_[a]);
+    nci[a] = hit ? ci[a] + (lower ? -1 : 1) : nci[a];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int q = (a - ax + 3) % 3;
+    v[a] = q == 0 ? vn : (q == 1 ? vt1 : vt2);
+  }
+}
+
 // The DDMC event of one lane (pallas_transport.py:655-870): writes the lane's
 // new position, cell index, velocity, tau and absorption; the face code it
 // leaves is 0. ``pf`` holds the cell's (P_lower, P_upper) of x, y, z, ``dx``
@@ -436,17 +500,10 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_
       a2 = anu * cph;
       a3 = anu * sph;
     }
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a) {
-      if (face == a + 1 || face == -(a + 1)) {
-        const bool lower = face > 0;
-        np_[a] = lower ? flo[a] - g.eps_imc * dx[a] : fhi[a] + g.eps_imc * dx[a];
-        nci[a] = ci[a] + (lower ? -1 : 1);
-        v[a] = (g.c * (lower ? -1.0f : 1.0f)) * amu;
-        v[(a + 1) % 3] = g.c * a2;
-        v[(a + 2) % 3] = g.c * a3;
-      }
-    }
+    const int fa = abs(face) - 1;
+    const bool lower = face > 0;
+    place_across<NDIM>(fa, lower, g.eps_imc, (g.c * (lower ? -1.0f : 1.0f)) * amu, g.c * a2,
+                       g.c * a3, false, dx, flo, fhi, ci, np_, nci, v);
     return;
   }
   // in-cell step: leak rates P_face / dx, event time against census
@@ -492,20 +549,11 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_
       b2 = bnu * cph;
       b3 = bnu * sph;
     }
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a) {
-      if (leak >> 1 == a) {
-        const bool lower = (leak & 1) == 0;
-        leak_code = lower ? -(a + 1) : a + 1;
-        np_[a] = lower ? flo[a] - g.eps_ddmc * dx[a] : fhi[a] + g.eps_ddmc * dx[a];
-        nci[a] = ci[a] + (lower ? -1 : 1);
-        v[a] = (g.c * (lower ? -1.0f : 1.0f)) * bmu;
-        v[(a + 1) % 3] = g.c * b2;
-        v[(a + 2) % 3] = g.c * b3;
-      } else {
-        np_[a] = flo[a] + 0.5f * dx[a];  // transverse: the cell centre
-      }
-    }
+    const int ax = leak >> 1;
+    const bool lower = (leak & 1) == 0;
+    leak_code = lower ? -(ax + 1) : ax + 1;
+    place_across<NDIM>(ax, lower, g.eps_ddmc, (g.c * (lower ? -1.0f : 1.0f)) * bmu, g.c * b2,
+                       g.c * b3, true, dx, flo, fhi, ci, np_, nci, v);
     return;
   }
   // census: uniform position in the cell, isotropic direction
@@ -598,7 +646,8 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
       jb_circle(jb_raw_bits(o.seed, lane, it, T::kRes + 2u), &cph, &sph);
       // the transverse axes t1 < t2 (t2 in 3D only) and the fine edge around the
       // coarse landing point on each; every array index below is a compile-time
-      // one, so the lane's state stays in registers
+      // one and every pick by axis a select (``place_across``), so the lane's
+      // state stays in registers
       const int t1 = ax == 0 ? 1 : 0;
       const int t2 = ax == 2 ? 1 : 2;
       int f_ax = 0, e1 = 0, e2 = 0;
@@ -606,14 +655,12 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
 #pragma unroll
       for (int a = 0; a < NDIM; ++a) {
         const int edge = min(max((int)rintf(loc[a] / fmaxf(ndx[a], 1.0e-37f)), 1), g.n[a] - 1);
-        if (a == ax) f_ax = lsgn > 0.0f ? 0 : g.n[a] - 1;
-        if (a == t1) {
-          e1 = edge;
-          d1 = ndx[a];
-        }
-        if (NDIM == 3 && a == t2) {
-          e2 = edge;
-          d2 = ndx[a];
+        f_ax = a == ax ? (lsgn > 0.0f ? 0 : g.n[a] - 1) : f_ax;
+        e1 = a == t1 ? edge : e1;
+        d1 = a == t1 ? ndx[a] : d1;
+        if (NDIM == 3) {
+          e2 = a == t2 ? edge : e2;
+          d2 = a == t2 ? ndx[a] : d2;
         }
       }
       // the fine block's P_lower (leak in +axis) or P_upper of a candidate face,
@@ -661,13 +708,13 @@ __device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const flo
       for (int a = 0; a < 3; ++a) {
         const int q = (a - ax + 3) % 3;
         v[a] = q == 0 ? vs[0] : (q == 1 ? vs[1] : vs[2]);
-        if (a < NDIM && a == t1) {
-          idx[a] = s1;
-          loc[a] = l1;
+        if (a < NDIM) {
+          idx[a] = a == t1 ? s1 : idx[a];
+          loc[a] = a == t1 ? l1 : loc[a];
         }
-        if (NDIM == 3 && a == t2) {
-          idx[a] = s2;
-          loc[a] = l2;
+        if (NDIM == 3) {
+          idx[a] = a == t2 ? s2 : idx[a];
+          loc[a] = a == t2 ? l2 : loc[a];
         }
       }
     }

@@ -15,7 +15,8 @@ it.
 Outputs: dumps (``file_type = hdf5`` or ``phdf``: the compact schema;
 ``phdf_parthenon``: Parthenon's layout) and checkpoints (``rst`` or ``restart``:
 ``{problem_id}.ckpt.{cycle:05d}.rhdf``), each on its ``dt``, and ``history.json``
-(the per-cycle record) at the run's end. In a process group rank 0 gathers the
+(the per-cycle record) at the run's end; any other output type (Parthenon's
+``hst``, say) is skipped with a warning, as the JAX driver skips it. In a process group rank 0 gathers the
 real blocks' fields and the whole ledger through the exchange and writes; the
 other ranks write nothing. ``restart`` (``-r``) resumes from a checkpoint file of
 either package, or from a checkpoint tree (``io.checkpoint_tree``), at any shard
@@ -36,6 +37,7 @@ import json
 import os
 import sys
 import time as _time
+import warnings
 
 import torch
 
@@ -69,10 +71,12 @@ class Simulation:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda requested but torch.cuda.is_available() is false")
+        # an output type this driver does not write (a Parthenon history file,
+        # ``hst``, say) is skipped, as the JAX driver skips it
         for out in cfg.outputs:
             if out.file_type not in _DUMP_TYPES + _RESTART_TYPES + ("none",):
-                raise ValueError(f"output file_type = {out.file_type} is none of "
-                                 f"{_DUMP_TYPES + _RESTART_TYPES + ('none',)}")
+                warnings.warn(f"output file_type = {out.file_type} is not written (only "
+                              f"{', '.join(_DUMP_TYPES + _RESTART_TYPES)} are)", stacklevel=2)
         jb = cfg.jaybenne
         self.dtype = jb.dtype
         self.mesh = build_mesh(cfg.mesh, dtype=self.dtype, device=self.device)

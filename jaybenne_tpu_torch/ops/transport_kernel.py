@@ -9,8 +9,9 @@ of ``jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel`` (K4): the JAX packa
 runs the last two on meshes or forests whose tables do not fit VMEM, which here is
 no limit, so one kernel covers all three.
 
-``transport`` runs the census for a ledger: the CUDA kernel
-(``csrc/transport_kernel.cu``) for CUDA tensors, its plain version for CPU tensors.
+``transport`` runs the census for a ledger: the CUDA kernels
+(``csrc/transport_kernel.cu``, ``csrc/ledger_kernel.cu``) for CUDA tensors, their
+plain versions for CPU tensors.
 ``transport_plain`` is that plain version: a vectorised PyTorch port of the same
 event body in which every lane advances one iteration per loop step, with the same
 K2 draws, as the JAX kernel's lanes do. The tests hold it against the JAX kernels
@@ -23,9 +24,10 @@ kernel's int32 total wraps past 2^31).
 
 A uniform multi-block forest is first collapsed to one synthetic block, as the JAX
 wrapper does (``_uniform_view``): block-local positions and indices shift to global
-ones before the census and back after it, and the per-cell table is laid out in
-global row-major cell order. With DDMC the table row of a cell also carries its
-faces' probabilities (``_face_pairs``, the JAX ``_face_pair_vectors``), and the
+ones before the census and back after it (``collapse_cuda`` and ``expand_cuda``,
+one kernel pass each way on a GPU; ``collapse_plain`` and ``expand_plain``), and
+the per-cell table is laid out in global row-major cell order. With DDMC the table row of a cell also
+carries its faces' probabilities (``_face_pairs``, the JAX ``_face_pair_vectors``), and the
 ledger's ``face`` column (the face-arrival code of the albedo test) is read and
 written.
 
@@ -396,11 +398,9 @@ def _block_shifts(mesh):
     return [float(np.float32((b[2 * a + 1] - b[2 * a]) / nrb[a])) for a in range(3)]
 
 
-def _collapse(p, mesh, smr):
-    """Shift block-local state to the single synthetic block (in place); a
-    forest run block by block (``smr``) stays block-local."""
-    if mesh.n_blocks == 1 or smr:
-        return
+def collapse_plain(p, mesh):
+    """Shift block-local state to the single synthetic block (in place): the plain
+    version of ``collapse_cuda``."""
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
     bl = (p.block % nrbx, (p.block // nrbx) % nrby, p.block // (nrbx * nrby))
@@ -411,10 +411,9 @@ def _collapse(p, mesh, smr):
     p.block.zero_()
 
 
-def _expand(p, mesh, smr):
-    """Inverse of ``_collapse``: recover the owning block from the global indices."""
-    if mesh.n_blocks == 1 or smr:
-        return
+def expand_plain(p, mesh):
+    """Inverse of ``collapse_plain``: recover the owning block from the global
+    indices (in place); the plain version of ``expand_cuda``."""
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
     bl = []
@@ -425,6 +424,43 @@ def _expand(p, mesh, smr):
         pos -= bk.to(torch.float32) * d
         bl.append(bk)
     p.block.copy_((bl[2] * nrby + bl[1]) * nrbx + bl[0])
+
+
+def _shift_cuda(p, mesh, expand):
+    """``collapse_plain`` (with ``expand``, ``expand_plain``) as one CUDA kernel
+    (``csrc/ledger_kernel.cu``) on PyTorch's current stream: one pass over the
+    ledger for the plain version's 21 (23) elementwise ones, the same float32 and
+    int32 operations on every slot, so the same bits. Raises unless the position,
+    index and block columns are contiguous float32 and int32 on one GPU."""
+    cols = (p.x, p.y, p.z, p.i, p.j, p.k, p.block)
+    dev = p.x.device
+    if (dev.type != "cuda" or any(t.device != dev or not t.is_contiguous()
+                                  or t.shape != (p.capacity,) for t in cols)
+            or any(t.dtype != torch.float32 for t in cols[:3])
+            or any(t.dtype != torch.int32 for t in cols[3:])):
+        raise ValueError("ledger shift kernel: f32 positions and int32 indices and blocks, "
+                         "contiguous on one GPU")
+    nrbz, nrby, nrbx = mesh.root_grid
+    cuda_lib.library().call(
+        "jb_ledger_shift_launch", int(expand),
+        (ctypes.c_void_p * len(cols))(*(t.data_ptr() for t in cols)), p.capacity, nrbx, nrby,
+        mesh.nx, mesh.ny, mesh.nz, *_block_shifts(mesh), cuda_lib.stream_handle(dev))
+    cuda_lib.LAUNCHES["ledger_expand" if expand else "ledger_collapse"] += 1
+
+
+def collapse_cuda(p, mesh):
+    """``collapse_plain`` as one CUDA kernel pass (``_shift_cuda``)."""
+    _shift_cuda(p, mesh, False)
+
+
+def expand_cuda(p, mesh):
+    """``expand_plain`` as one CUDA kernel pass (``_shift_cuda``)."""
+    _shift_cuda(p, mesh, True)
+
+
+# the ledger shift kernels by launch name: (the kernel's wrapper, its plain version)
+LEDGER_SHIFTS = {"ledger_collapse": (collapse_cuda, collapse_plain),
+                 "ledger_expand": (expand_cuda, expand_plain)}
 
 
 def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, idx, vel,
@@ -1056,13 +1092,20 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
         setup = prepare(coefs, mesh, prm, dt, own)
     if not (len(ledgers) == len(seeds) == len(setup.owns)):
         raise ValueError("transport: one ledger and one seed per owned range")
-    if census is _census_cuda:
+    kernel = census is _census_cuda
+    if kernel:
         _check_cuda_ledger(p, setup.tabs)
     shards = tuple(_Shard(lo, hi, *o.bounds(), row, int(sd))
                    for (lo, hi), o, row, sd in zip(slices, setup.owns, setup.rows, seeds))
-    _collapse(p, mesh, setup.g.smr)
+    # a uniform forest of several blocks runs collapsed to one; a forest run block
+    # by block (SMR) stays as it is
+    collapsed = mesh.n_blocks > 1 and not setup.g.smr
+    collapse, expand = (collapse_cuda, expand_cuda) if kernel else (collapse_plain, expand_plain)
+    if collapsed:
+        collapse(p, mesh)
     iters, events = census(p, setup.tabs, setup.g, shards, prm.max_iters, **kw)
-    _expand(p, mesh, setup.g.smr)
+    if collapsed:
+        expand(p, mesh)
     if multi:
         return particles, iters, events
     return particles, iters[0], events[0]

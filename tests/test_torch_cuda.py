@@ -299,11 +299,12 @@ def test_main_path_runs_through_kernel(gpu, tmp_path):
     assert abs(tallied - sourced) <= 1e-5 * sourced  # no absorption, reflecting walls
 
 
-def _hybrid_setup(dev, ndim, absorb, n=30000, seed=5):
+def _hybrid_setup(dev, ndim, absorb, n=30000, seed=5, thin=64.0):
     """DDMC on the meshes of ``_grid_setup`` (1D: 64 cells in 4 blocks): x-slabs of
-    cells alternate thin (sigma_t = 64, IMC) and thick (sigma_t = 1024, DDMC for
-    tau_ddmc = 5), with f sigma_a = 2 in every cell when absorbing; a quarter of
-    the particles sit on a face of their cell with the face-arrival code set."""
+    cells alternate thin (sigma_t = ``thin``, 64: IMC) and thick (sigma_t = 1024,
+    DDMC for tau_ddmc = 5), with f sigma_a = 2 in every cell when absorbing; a
+    quarter of the particles sit on a face of their cell with the face-arrival
+    code set."""
     cells = {1: (64, 1, 1), 2: (32, 16, 1), 3: (16, 16, 16)}[ndim]
     blocks = {1: (16, 1, 1), 2: (8, 8, 1), 3: (8, 8, 8)}[ndim]
     mods = {"jaybenne/use_ddmc": "true", "parthenon/swarm/ix3_bc": "outflow",
@@ -320,7 +321,7 @@ def _hybrid_setup(dev, ndim, absorb, n=30000, seed=5):
     gi = (torch.arange(mesh.n_blocks, device=dev) % nrbx)[:, None, None, None] * mesh.nx \
         + torch.arange(mesh.nx, device=dev)
     thick = ((gi // 4) % 2 == 1).expand(mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx)
-    sig = torch.where(thick, 1024.0, 64.0)
+    sig = torch.where(thick, 1024.0, thin)
     sa = torch.full_like(sig, 2.0 if absorb else 0.0)
     px, py, pz = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags,
                                  torch.float32)
@@ -400,12 +401,12 @@ SMR_FORESTS = {
 }
 
 
-def _smr_setup(dev, ndim, absorb, ddmc, n=30000, seed=5):
+def _smr_setup(dev, ndim, absorb, ddmc, n=30000, seed=5, thin=64.0):
     """A level-1 forest with x-slabs of two coarse cells alternating thin (sigma_t =
-    64, IMC) and thick (sigma_t = 1024, DDMC for tau_ddmc = 5 on both levels in
-    2D/3D), with f sigma_a = 2 when absorbing; particles uniform over the forest's
-    cells, a quarter of them on a face of their cell with the face-arrival code
-    set."""
+    ``thin``, 64: IMC) and thick (sigma_t = 1024, DDMC for tau_ddmc = 5 on both
+    levels in 2D/3D), with f sigma_a = 2 when absorbing; particles uniform over the
+    forest's cells, a quarter of them on a face of their cell with the face-arrival
+    code set."""
     deck, mods = SMR_FORESTS[ndim]
     mods = {**mods, "jaybenne/use_ddmc": "true" if ddmc else "false",
             "jaybenne/tau_ddmc": 5.0, "mcblock/opacity_model": "constant" if absorb else "none"}
@@ -416,7 +417,7 @@ def _smr_setup(dev, ndim, absorb, ddmc, n=30000, seed=5):
     xc = mesh.cell_centers()[0]
     slab = 2.0 * float(mesh.block_dx[:, 0].max())
     thick = torch.floor((xc - mesh.bounds[0]) / slab).long() % 2 == 1
-    sig = torch.where(thick, 1024.0, 64.0)
+    sig = torch.where(thick, 1024.0, thin)
     sa = torch.full_like(sig, 2.0 if absorb else 0.0)
     faces = {}
     if ddmc:
@@ -730,7 +731,12 @@ def _same_round(k, q, it_k, ev_k, it_q, ev_q):
     assert torch.equal(it_k, it_q) and torch.equal(ev_k, ev_q)
 
 
-@pytest.mark.parametrize("route", ["z", "blocks"])
+# tests/test_torch_schedule.py's ROUTES: the z slabs with IMC and with DDMC, the 2D
+# and the 3D forest by blocks
+SHARD_ROUTES = ["z", "z_ddmc", "blocks", "blocks_3d"]
+
+
+@pytest.mark.parametrize("route", SHARD_ROUTES)
 def test_multi_shard_launch_matches_plain(gpu, route):
     """One launch over 8 shards' slices (tests/test_torch_schedule.py's cases at
     4096 slots a shard) against the plain per-shard calls in order: every column
@@ -738,8 +744,9 @@ def test_multi_shard_launch_matches_plain(gpu, route):
     from test_torch_schedule import one_call_round, per_shard_rounds, shard_case
 
     p0, coefs, mesh, seeds, prm, dt, owns = shard_case(route, 4096, dev=gpu)
+    kind = owns[0].kind
     name = transport_kernel.launch_name(prm.ndim, prm.has_absorption, prm.use_ddmc,
-                                        route == "blocks", route="@" + route)
+                                        kind == "blocks", route="@" + kind)
     before = cuda_lib.LAUNCHES[name]
     k, q = p0.clone(), p0.clone()
     it_k, ev_k = one_call_round(transport_kernel.transport, k, coefs, mesh, seeds, prm, dt, owns)
@@ -750,7 +757,7 @@ def test_multi_shard_launch_matches_plain(gpu, route):
     assert bool((k.alive & (k.tau < 1.0)).any())
 
 
-@pytest.mark.parametrize("route", ["z", "blocks"])
+@pytest.mark.parametrize("route", SHARD_ROUTES)
 def test_owned_routes_bitwise_past_the_resident_lanes(gpu, route):
     """Both owned-range routes over 8 shards on a ledger of 4 times the card's
     resident threads, so that blocks run in several waves, each regrouping its lanes:
@@ -785,6 +792,81 @@ def test_ddmc_full_census_bitwise_past_the_resident_lanes(gpu, ndim, absorb, smr
     assert cuda_lib.LAUNCHES[name] == before + 1
     _same_round(k, q, it_k, ev_k, it_q, ev_q)
     assert not bool((k.tau[k.alive] < 1.0).any())
+
+
+@pytest.mark.parametrize("case", ["scattered", "capped", "hybrid"])
+@pytest.mark.parametrize("absorb", [False, True])
+@pytest.mark.parametrize("smr", [False, True])
+def test_3d_ddmc_bitwise_over_several_waves(gpu, smr, absorb, case):
+    """The four 3D gray DDMC instantiations (the 64^3 DDMC row's and stepdiff_3d's,
+    with their absorbing twins) on ledgers of 6 times the card's resident threads,
+    so that blocks run in several waves, with a third of the slots live at random
+    through the whole ledger and tau in [0.5, 1): kernel and plain identical in
+    every column, events and iterations, one launch, dead slots untouched.
+    ``scattered``: every cell thick (DDMC lanes only); ``capped``: the same at
+    max_iters = 2, so that lanes stop short of census; ``hybrid``: thin and thick
+    slabs, IMC and DDMC lanes."""
+    n = 6 * _resident_lanes(gpu)
+    thin = 64.0 if case == "hybrid" else 1024.0
+    dt, mesh, prm, p0, coefs = (_smr_setup(gpu, 3, absorb, True, n=n, thin=thin) if smr
+                                else _hybrid_setup(gpu, 3, absorb, n=n, thin=thin))
+    g = torch.Generator(device=gpu).manual_seed(31 + 2 * smr + absorb)
+    p0.alive &= torch.rand(n, generator=g, device=gpu) < 1.0 / 3.0
+    p0.tau.copy_(0.5 + 0.5 * torch.rand(n, generator=g, device=gpu))
+    if case == "capped":
+        prm = dataclasses.replace(prm, max_iters=2)
+    props = torch.cuda.get_device_properties(gpu)
+    resident = transport_kernel.resident_blocks(3, absorb, True, smr)
+    assert 4 * props.multi_processor_count * resident * 256 < n
+    name = transport_kernel.launch_name(3, absorb, True, smr)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, 4321, prm, dt)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 4321, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    _same_round(k, q, it_k, ev_k, it_q, ev_q)
+    late = k.alive & (k.tau < 1.0)
+    if case == "capped":
+        assert int(it_k) == 2 and bool(late.any()) and int(ev_k) <= 2 * int(p0.alive.sum())
+    else:
+        assert not bool(late.any())
+    dead = ~p0.alive  # never taken
+    assert torch.equal(k.tau[dead], p0.tau[dead]) and torch.equal(k.vx[dead], p0.vx[dead])
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_ledger_shift_kernel_matches_plain(gpu, ndim):
+    """The collapse of a uniform multi-block ledger to one block and its expansion
+    back, each one kernel pass, against the plain version's elementwise operations:
+    every column bitwise after each, on the live and dead slots of ``_grid_setup``'s
+    (``_hybrid_setup``'s in 1D) ledger with its dead slots' indices, blocks and
+    positions at random (negative, past the mesh, -0.0); both launches counted."""
+    if ndim == 1:
+        dt, mesh, prm, p0, coefs = _hybrid_setup(gpu, 1, False, n=20000)
+    else:
+        dt, mesh, prm, p0, coefs = _grid_setup(gpu, ndim, n=20000)
+    rng = np.random.default_rng(ndim)
+    dead = ~p0.alive
+    m = int(dead.sum())
+    for name in ("i", "j", "k"):
+        getattr(p0, name)[dead] = torch.as_tensor(rng.integers(-40, 40, m), dtype=torch.int32,
+                                                  device=gpu)
+    p0.block[dead] = torch.as_tensor(rng.integers(-3, 2 * mesh.n_blocks, m), dtype=torch.int32,
+                                     device=gpu)
+    p0.x[dead] = torch.as_tensor(rng.normal(size=m), dtype=torch.float32, device=gpu)
+    p0.y[dead] = -0.0
+    before = {k: cuda_lib.LAUNCHES[k] for k in transport_kernel.LEDGER_SHIFTS}
+    k, q = p0.clone(), p0.clone()
+    for name, (kernel, plain) in transport_kernel.LEDGER_SHIFTS.items():
+        kernel(k, mesh)
+        plain(q, mesh)
+        for f in dataclasses.fields(k):
+            a, b = getattr(k, f.name), getattr(q, f.name)
+            if a.dtype == torch.float32:  # the bits, signed zeros too
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (f.name, name)
+    assert {k: cuda_lib.LAUNCHES[k] - v for k, v in before.items()} == {
+        "ledger_collapse": 1, "ledger_expand": 1}
+    assert not torch.equal(k.x, p0.x) or mesh.n_blocks == 1
 
 
 # ------------------------------- the event loop's cell cache and early draws

@@ -41,11 +41,14 @@ def test_path_mix_counters_apply_to_the_kernel():
     and its reader comes after the kernel's entry points."""
     src = _source()
     out = cs.patched(src, cs.PATH_MIX, "path mix") + cs.PATH_MIX_READ
-    assert out.count("jb_path_mix[") == src.count("jb_path_mix[") + 1 + 4
+    assert out.count("jb_path_mix[") == src.count("jb_path_mix[") + 1 + 6
     assert f"jb_path_mix[{len(cs.PATH_MIX_KEYS)}]" in out
     assert out.index("jb_transport_occupancy") < out.index("jb_path_mix_read")
-    # the flags are set inside the IMC branch and read where every event ends
+    # the flags are set inside the IMC branch and after the DDMC event, and read
+    # where every event ends
     assert out.index("pm_scatter = scatter;") < out.index("const unsigned m = __activemask();")
+    assert (out.index("ddmc_event<NDIM, ABSORB>(g, o.seed") < out.index("pm_leak = leak != 0;")
+            < out.index("pm_scatter = scatter;"))
 
 
 def test_patched_refuses_a_missing_or_repeated_anchor():

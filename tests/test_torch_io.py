@@ -490,3 +490,36 @@ def test_cli_restart(tmp_path):
     straight = _sim(tmp_path / "c", **{"parthenon/output0/file_type": "none"})
     straight.run()
     assert [h["events"] for h in straight.history[2:]] == [h["events"] for h in hist["cycles"]]
+
+
+def test_unwritten_output_type_is_skipped(tmp_path):
+    """A deck with an output type neither driver writes (``file_type = hst``, a
+    Parthenon history output) builds in both packages, and a one-step run of the
+    port writes the same dumps as the same deck without that output."""
+    base = open(os.path.join(os.path.dirname(__file__), "..", "inputs", "stepdiff.in")).read()
+    hst = base + "\n<parthenon/output1>\nfile_type = hst\ndt = 3.335641e-11\n"
+    small = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 32,
+             "jaybenne/num_particles": 4000}
+    paths = {}
+    for name, text in (("hst", hst), ("plain", base)):
+        paths[name] = tmp_path / f"{name}.in"
+        paths[name].write_text(text)
+    jsim = JSimulation(_jcfg(path=str(paths["hst"]), **small), outdir=str(tmp_path / "jax"),
+                       quiet=True)
+    assert [o.file_type for o in jsim.cfg.outputs] == ["hdf5", "hst"]
+    dumps = {}
+    for name in ("hst", "plain"):
+        out = tmp_path / name
+        if name == "hst":
+            with pytest.warns(UserWarning, match="file_type = hst is not written"):
+                sim = Simulation(_tcfg(path=str(paths[name]), **small), outdir=str(out),
+                                 quiet=True, device="cpu")
+        else:
+            sim = Simulation(_tcfg(path=str(paths[name]), **small), outdir=str(out),
+                             quiet=True, device="cpu")
+        sim.run(nlim=1)
+        assert sim.cycle == 1
+        dumps[name] = {p.name: _h5_layout(p) for p in sorted(out.glob("*.phdf"))}
+    assert list(dumps["hst"]) == list(dumps["plain"]) and dumps["plain"]
+    for fname in dumps["plain"]:
+        _same_layout(dumps["hst"][fname], dumps["plain"][fname])

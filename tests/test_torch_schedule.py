@@ -85,45 +85,65 @@ def _slabs(mesh):
     return torch.where(thick, SIGMA[1], SIGMA[0])
 
 
+def _shard_coefs(mesh, prm, cfg, sig, sigma_a):
+    """Per-shard DDMC coefficients of ``N_SHARDS`` shards of blocks_per_shard blocks
+    from per-cell ``sig`` (sigma_t) with ``sigma_a`` of it absorbing, padding blocks
+    thin and without face probabilities."""
+    faces = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags, torch.float32)
+    bl = blocks_per_shard(mesh, N_SHARDS)
+    n_pad = N_SHARDS * bl - mesh.n_blocks
+    ncpb = mesh.ncells_per_block
+    sig = torch.cat([sig.reshape(-1), sig.new_full((n_pad * ncpb,), SIGMA[0])])
+    faces = [torch.cat([f, f.new_zeros((n_pad,) + f.shape[1:])]) for f in faces]
+    coefs = []
+    for s in range(N_SHARDS):
+        loc = sig[s * bl * ncpb:(s + 1) * bl * ncpb]
+        coefs.append(TransportCoefs(sigma_a=torch.full_like(loc, sigma_a), sigma_s=loc - sigma_a,
+                                    fleck=torch.ones_like(loc),
+                                    **dict(zip(("px", "py", "pz"),
+                                               (f[s * bl:(s + 1) * bl] for f in faces)))))
+    return coefs
+
+
 def shard_case(route: str, m: int, dev="cpu", seed=7):
     """A round of ``N_SHARDS`` shards: (one ledger of their adjacent slices of ``m``
     slots, per-shard coefficients, mesh, per-shard seeds, prm, dt, owned ranges).
     Each slice holds live particles of its shard's range at random tau, a tenth
-    of them in the next shard's range (they do not run); on the block route a
+    of them in the next shard's range (they do not run); on the block routes a
     quarter sit on a face with its arrival code, and the last shard owns padding
-    blocks only (its slice holds shard 0's particles)."""
+    blocks (on the 2D forest only those: its slice holds shard 0's particles).
+    ``route``: ``z`` (IMC with absorption), ``z_ddmc`` (the same z slabs,
+    absorbing IMC and DDMC on thin and thick x-slabs, a quarter of the lanes on a
+    face; a spatial run with DDMC takes the block route, the kernel takes both),
+    ``blocks`` (the 2D level-1 DDMC forest) or ``blocks_3d`` (a 3D level-1 DDMC
+    forest)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     p = empty_ledger(N_SHARDS * m, torch.float32, dev)
-    if route == "z":
-        cfg, mesh, prm = _config("stepdiff.in", {**Z_MESH, "jaybenne/dt": "1.e-11"}, dev)
+    if route in ("z", "z_ddmc"):
+        ddmc = route == "z_ddmc"
+        cfg, mesh, prm = _config("stepdiff.in", {**Z_MESH, "jaybenne/dt": "1.e-11",
+                                                 "jaybenne/use_ddmc": str(ddmc).lower()}, dev)
         nc = blocks_per_shard(mesh, N_SHARDS) * mesh.ncells_per_block
         coefs = [TransportCoefs(sigma_a=torch.full((nc,), 2.0, device=dev),
                                 sigma_s=torch.full((nc,), 62.0, device=dev),
                                 fleck=torch.ones(nc, device=dev))] * N_SHARDS
+        if ddmc:
+            coefs = _shard_coefs(mesh, prm, cfg, _slabs(mesh), 2.0)
         for s, q in enumerate(split_ledger(p, N_SHARDS)):
             src = uniform_ledger(mesh, m, g, C)
             src.block.copy_(torch.where(torch.arange(m, device=dev) % 10 == 9,
                                         (s + 1) % N_SHARDS, s))
+            if ddmc:
+                place_on_faces(src, mesh, torch.rand(m, generator=g, device=dev) < 0.25, g)
             for f in dataclasses.fields(q):
                 getattr(q, f.name).copy_(getattr(src, f.name))
     else:
-        cfg, mesh, prm = _config("stepdiff_smr_ddmc.in", {**SMR_FOREST, "jaybenne/dt": "3.e-11"},
-                                 dev)
-        sig = _slabs(mesh)
-        faces = ddmc_face_probs(mesh, sig, prm.tau_ddmc, cfg.mesh.periodic_flags,
-                                torch.float32)
+        deck, forest = (("stepdiff_smr_ddmc.in", SMR_FOREST) if route == "blocks"
+                        else FORESTS["3d_level1"])
+        cfg, mesh, prm = _config(deck, {**forest, "jaybenne/tau_ddmc": 5.0,
+                                        "jaybenne/dt": "3.e-11"}, dev)
         bl = blocks_per_shard(mesh, N_SHARDS)
-        n_pad = N_SHARDS * bl - mesh.n_blocks
-        ncpb = mesh.ncells_per_block
-        sig = torch.cat([sig.reshape(-1), sig.new_full((n_pad * ncpb,), SIGMA[0])])
-        faces = [torch.cat([f, f.new_zeros((n_pad,) + f.shape[1:])]) for f in faces]
-        coefs = []
-        for s in range(N_SHARDS):
-            loc = sig[s * bl * ncpb:(s + 1) * bl * ncpb]
-            coefs.append(TransportCoefs(sigma_a=torch.zeros_like(loc), sigma_s=loc,
-                                        fleck=torch.ones_like(loc),
-                                        **dict(zip(("px", "py", "pz"),
-                                                   (f[s * bl:(s + 1) * bl] for f in faces)))))
+        coefs = _shard_coefs(mesh, prm, cfg, _slabs(mesh), 0.0)
         for s, q in enumerate(split_ledger(p, N_SHARDS)):
             lo = s * bl if s * bl < mesh.n_blocks else 0
             src = forest_ledger(mesh, m, g, C, blocks=(lo, min(lo + bl, mesh.n_blocks)))
@@ -139,7 +159,9 @@ def shard_case(route: str, m: int, dev="cpu", seed=7):
                 getattr(q, f.name).copy_(getattr(src, f.name))
     p.tau.copy_(torch.rand(p.capacity, generator=g, device=dev))
     owns = [owned_range(mesh, prm, N_SHARDS, s) for s in range(N_SHARDS)]
-    assert {o.kind for o in owns} == {route}
+    if route == "z_ddmc":  # spatial runs take DDMC on the block route; the kernel takes both
+        owns = [transport_kernel.OwnedRange("z", s * mesh.nz, mesh.nz) for s in range(N_SHARDS)]
+    assert {o.kind for o in owns} == {route.split("_")[0]} and prm.use_ddmc == (route != "z")
     seeds = [1000 + 17 * s - (1 << 31) * (s % 2) for s in range(N_SHARDS)]
     return p, coefs, mesh, seeds, prm, cfg.jaybenne.dt, owns
 
@@ -167,12 +189,15 @@ def assert_same_ledgers(a, b):
         assert torch.equal(x, y), (f.name, int((x != y).sum()))
 
 
-@pytest.mark.parametrize("route", ["z", "blocks"])
+ROUTES = ["z", "z_ddmc", "blocks", "blocks_3d"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
 def test_one_call_over_shards_is_the_per_shard_calls(route):
     """One plain census call over 8 shards' adjacent slices, each with its owned
     range and seed, against the 8 per-shard calls in order: every column bitwise,
-    the same iterations and events per shard. On the z route lanes pause across
-    the periodic z seam; on the block route shards write pending leak codes into
+    the same iterations and events per shard. On the z routes lanes pause across
+    the periodic z seam; on the block routes shards write pending leak codes into
     other shards' finer blocks and the last shard owns padding blocks only."""
     p0, coefs, mesh, seeds, prm, dt, owns = shard_case(route, 300)
     a, b = p0.clone(), p0.clone()
@@ -185,14 +210,15 @@ def test_one_call_over_shards_is_the_per_shard_calls(route):
     assert it_a.shape == ev_a.shape == (N_SHARDS,) and int(ev_a.sum()) > 0
     paused = a.alive & (a.tau < 1.0)
     assert bool(paused.any()) and bool((a.alive & (a.tau == 1.0)).any())
-    if route == "z":
+    if route.startswith("z"):
         gk = a.block * mesh.nz + a.k  # one block per z plane
         nz_all = mesh.root_grid[0] * mesh.nz
         seam = paused & (gk >= nz_all - mesh.nz)  # out of shard 0 across the seam
         assert bool(seam[: p0.capacity // N_SHARDS].any())
     else:
         assert bool((a.leak != 0).any())
-        assert int(ev_a[-1]) == 0  # the padding shard's slice holds none of its lanes
+        if route == "blocks":  # the padding shard's slice holds none of its lanes
+            assert int(ev_a[-1]) == 0
 
 
 def test_a_census_setup_is_reused_across_calls():
@@ -283,3 +309,29 @@ def test_block_table_reciprocals_are_the_per_event_divide(name, monkeypatch):
     b, it_b, ev_b = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 11, prm, dt)
     assert_same_ledgers(a, b)
     assert int(it_a) == int(it_b) and int(ev_a) == int(ev_b) > 0
+
+
+@pytest.mark.parametrize("route", ["z", "z_ddmc"])
+def test_plain_collapse_round_trip(route):
+    """The plain collapse of a uniform multi-block ledger to one block and its
+    expansion: indices and blocks back exactly, positions within float32 rounding
+    of the block extent, and the collapsed ledger on global cells of one block."""
+    p0, coefs, mesh, seeds, prm, dt, owns = shard_case(route, 64)
+    p = p0.clone()
+    transport_kernel.collapse_plain(p, mesh)
+    assert not bool(p.block.any())
+    assert torch.equal(p.k, p0.k + p0.block * mesh.nz)  # one block per z plane
+    transport_kernel.expand_plain(p, mesh)
+    for name in ("i", "j", "k", "block"):
+        assert torch.equal(getattr(p, name), getattr(p0, name)), name
+    extent = max(transport_kernel._block_shifts(mesh))
+    assert float((p.z - p0.z).abs().max()) <= 4 * np.finfo(np.float32).eps * 8 * extent
+
+
+def test_ledger_shift_kernel_refuses_a_cpu_ledger():
+    """The ledger shift kernels' wrappers launch on a GPU or raise: a CPU ledger
+    takes the plain versions, inside ``transport``, and never the wrappers."""
+    p0, coefs, mesh, seeds, prm, dt, owns = shard_case("z", 16)
+    for kernel, _ in transport_kernel.LEDGER_SHIFTS.values():
+        with pytest.raises(ValueError, match="contiguous on one GPU"):
+            kernel(p0, mesh)
