@@ -17,14 +17,15 @@ more tree, timed in the same turns. Nothing here imports jax.
    and non-gray paths; phase 11's hybrid ledgers; the first round of
    big_mesh_spatial and of SMR+DDMC spatial at 8 shards; at other numbers of lanes
    a SM, the 64^3 feedback ledger's first eighth, the stepdiff_smr ledger eight
-   times over and the lane sweep: the stepdiff, 2D feedback, 64^3 DDMC and
-   stepdiff_3d ledgers two and four times over (the copies in other slots, so other
-   draws). They go to one file.
+   times over and the lane sweep: the stepdiff, 2D feedback, 64^3 DDMC,
+   stepdiff_3d, stepdiff_ddmc and 64^3 ep_bremss ledgers two and four times over
+   (the copies in other slots, so other draws). They go to one file.
 2. Child processes, each importing the package of one tree (``--child``), time the
    census kernel on those inputs: every route the median of ``--repeats``
    censuses, each on a fresh copy of the saved ledger, timed with CUDA events
    after a device sleep (as ``chip_smoke.time_census``), and in the same censuses
-   the kernel alone (``chip_smoke.LaunchWindows``). The children run in turns,
+   the parts of the call (``chip_smoke.CallSplit``: the table set-up, the kernel
+   with its counters, its launch alone, the shifts). The children run in turns,
    parent, the variants, this tree, this tree, the variants in reverse, parent,
    ``--turns`` times over. Every child
    digests each route's output ledger; the script fails unless all children agree
@@ -37,21 +38,23 @@ more tree, timed in the same turns. Nothing here imports jax.
 
 It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
 resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
-that built the tree's library) and their event loop's common-path SASS
-instructions (``chip_smoke.common_paths`` on the tree's sources); one line per
-route with every tree's medians, ranges and their ratio to the parent's, and the
-kernel alone's; each tree's warp path mix on the stepdiff, 2D feedback, 64^3 DDMC
-and stepdiff_3d censuses (``--mix-child``: its kernel's counting variant,
-``chip_smoke.path_mix``), with how their lane-events spread over the SMs (%smid),
-and on the two DDMC censuses its DDMC reading (``ddmc_reading``: the kernel
-alone, registers and resident blocks, the slot order's warp efficiency, the live
-lanes and events by block of 256 slots, the DDMC path mix with its issue time and
-share from the DDMC event's SASS, and on stepdiff_3d the events of a live lane by
-the level of its block);
-the lane sweep's time an event at 1, 2 and 4 times the live lanes of the same four
-(a time an event that falls with more lanes says the census leaves throughput
-unused: unevenly loaded SMs, which the path mix shows, or latency); with ``--out``
-it writes everything there as JSON.
+that built the tree's library), the instantiations whose resources differ from
+the parent's, and their event loop's common-path SASS instructions
+(``chip_smoke.common_paths`` on the tree's sources); one line per route with every
+tree's medians, ranges and their ratio to the parent's, the kernel alone's and the
+call's parts; each tree's warp path mix (MIX_ROUTES: ``--mix-child``, its
+kernel's counting variant, ``chip_smoke.path_mix``), with how their lane-events
+spread over the SMs (%smid); on the DDMC routes (``chip_smoke.DDMC_ROUTES``) its
+DDMC reading (``ddmc_reading``: the kernel alone, registers and resident blocks,
+the slot order's warp efficiency, the live lanes and events by block of 256
+slots, the events of a live lane, the DDMC path mix with its issue time and share
+from the DDMC event's SASS, and on stepdiff_3d the events of a live lane by the
+level of its block); on the non-gray route its reading (``ng_reading``: the same,
+and the opacity's SASS against the event loop's); the lane sweep's time an event
+at 1, 2 and 4 times the live lanes of SWEEP_ROUTES (a time an event that falls
+with more lanes says the census leaves throughput unused: unevenly loaded SMs,
+which the path mix shows, or latency); with ``--out`` it writes everything there
+as JSON.
 """
 
 from __future__ import annotations
@@ -94,7 +97,8 @@ PROFILE_DECKS = {
 }
 
 
-SWEEP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr")
+SWEEP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
+                "transport_1d_ddmc", "transport_3d_abs_ng")
 SWEEP = (1, 2, 4)
 
 
@@ -187,7 +191,12 @@ def digest(p) -> str:
     return h.hexdigest()[:16]
 
 
-MIX_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr")
+MIX_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
+              "transport_1d_ddmc", "transport_1d_abs_ddmc", "transport_3d_abs_ng")
+# the non-gray route whose opacity's share of the event loop is read: the loop as
+# built, and with EPBremss returning at once (``chip_smoke.LOOP_PATHS``)
+NG_ROUTES = ("transport_3d_abs_ng",)
+NG_PATHS = ("scatter", "full", "no_opacity")
 
 
 def this_chip_smoke():
@@ -206,18 +215,21 @@ DD_PATHS = ("dd_leak", "dd_step", "dd_any")
 
 
 def kernel_alone(cs, tk, dev, p0, args, repeats) -> list:
-    """Sorted ms of the census kernel alone (``chip_smoke.LaunchWindows``) in
-    ``repeats`` censuses on fresh copies of ``p0``, each after a device sleep."""
+    """Sorted ms of the census kernel alone with its counters (``chip_smoke.CallSplit``'s
+    ``kernel``) in ``repeats`` censuses on fresh copies of ``p0``, each after a
+    device sleep."""
     import torch
 
+    from jaybenne_tpu_torch.ops import cuda_lib
+
     times = []
-    with cs.LaunchWindows(tk) as win:
+    with cs.CallSplit(tk, cuda_lib.library()) as win:
         for _ in range(repeats):
             p = p0.clone()
             torch.cuda.synchronize(dev)
             torch.cuda._sleep(50_000_000)
             tk.transport(p, *args)
-            times.append(sum(win.ms()))
+            times.append(win.ms()["kernel"])
     return sorted(times)
 
 
@@ -268,8 +280,61 @@ def ddmc_mix_line(cs, name, mix, paths, kernel_ms, events, dev) -> dict:
             "warp_issue_share": issue_ms / kernel_ms}
 
 
+def history_line(label, lanes, p) -> None:
+    """Prints the events of a live lane of the census (``lanes``, the plain
+    version's per slot): the mean and the longest history."""
+    live = p.alive & (p.tau < 1.0)
+    ev = lanes[live].double()
+    print(f"{label}: {int(live.sum())} live lanes, events a live lane mean "
+          f"{float(ev.mean())!r}, longest {int(ev.max())}", flush=True)
+
+
+def ng_reading(cs, tk, dev, label, inputs, res, paths, mix, repeats) -> dict:
+    """The reading of a non-gray route (NG_ROUTES) on a census's ``inputs``: the
+    kernel alone, the event loop's line (its common path a scatter in the cell),
+    how its lanes spread over blocks of 256 slots, the events of a live lane, and
+    the opacity's SASS: the event loop as built (``paths["full"]``) less the loop
+    with EPBremss returning at once, which a lane runs when it gathers its cell
+    anew (the share of warp-events that do, from the path mix). The issue time is
+    the whole loop's instructions a warp-event at the card's issue rate, an upper
+    bound of what the warps issue; its share of the kernel alone says whether the
+    kernel is issue-bound."""
+    import torch
+
+    p, args = inputs
+    prm = args[3]
+    events = int(tk.transport(p.clone(), *args)[2])
+    if mix["lane_events"] != events:
+        raise AssertionError(f"{label} path mix: {mix['lane_events']} lane-events, census "
+                             f"{events}")
+    k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats))
+    print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
+    lanes = cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["scatter"])
+    blocks = tk.resident_blocks(prm.ndim, True, False, False, True)
+    cs.block_spread_line(label, lanes, p, blocks, dev)
+    history_line(label, lanes, p)
+    we = mix["warp_events"]
+    opacity = paths["full"] - paths["no_opacity"]
+    clock = cs.smi_value("clocks.sm")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rate = sms * (cs.ISSUE_PER_SM_CLOCK // 32) * clock * 1e6
+    issue_ms = paths["full"] * we / rate * 1e3
+    print(f"{label}: {we} warp-events for {mix['lane_events']} lane-events (SIMT efficiency "
+          f"{mix['lane_events'] / (32 * we)!r}); share with a lane that gathers its cell anew "
+          f"{mix['regather'] / we!r}, crossed {mix['cross'] / we!r}, scattered "
+          f"{mix['scatter'] / we!r}, reached census {mix['census'] / we!r}; loop paths (SASS) "
+          f"scatter {paths['scatter']}, full {paths['full']}, full without the opacity "
+          f"{paths['no_opacity']}: the opacity {opacity} instructions a gather; the whole loop "
+          f"a warp-event at the issue rate {issue_ms!r} ms, {issue_ms / k_ms!r} of the kernel "
+          f"alone; lane-events a SM (%smid): max/mean "
+          f"{max(mix['by_sm']) * sms / sum(mix['by_sm'])!r}", flush=True)
+    return {**mix, "kernel_ms": k_ms, "issue_ms": issue_ms, "warp_issue_share": issue_ms / k_ms,
+            "opacity_instructions": opacity, "slot_order_warp_efficiency":
+            tk.warp_efficiency(lanes)}
+
+
 def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> dict:
-    """The reading of the 3D DDMC route ``name`` (``chip_smoke.DDMC_ROUTES``) on a
+    """The reading of the DDMC route ``name`` (``chip_smoke.DDMC_ROUTES``) on a
     census's ``inputs`` ((ledger, args)), its lines headed ``label``: the kernel
     alone (``kernel_alone``), the event loop's line (``chip_smoke.event_loop_line``,
     registers and stack from ``res``, its common path the DDMC loop's dd_step), how
@@ -285,8 +350,9 @@ def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> 
     k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats))
     print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
     lanes = cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["dd_step"])
-    blocks = tk.resident_blocks(3, bool(prm.has_absorption), True, mesh.max_level > 0)
+    blocks = tk.resident_blocks(prm.ndim, bool(prm.has_absorption), True, mesh.max_level > 0)
     cs.block_spread_line(label, lanes, p, blocks, dev)
+    history_line(label, lanes, p)
     out = ddmc_mix_line(cs, label, mix, paths, k_ms, events, dev)
     if mesh.max_level > 0:
         live = p.alive & (p.tau < 1.0)
@@ -317,10 +383,11 @@ def mix_child(inputs, pkg, repeats, out) -> None:
     cs = this_chip_smoke()
     routes = torch.load(inputs, weights_only=False)
     res = cs.kernel_resources(cuda_lib.library().build_log, tk)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         dd_build = pool.submit(cs.loop_paths, str(cuda_lib.SRC_DIR), cs.DDMC_ROUTES, tk, DD_PATHS)
+        ng_build = pool.submit(cs.loop_paths, str(cuda_lib.SRC_DIR), NG_ROUTES, tk, NG_PATHS)
         lib = cs.path_mix_library(cuda_lib.SRC_DIR, cuda_lib.BUILD_DIR / "path_mix")
-        dd = dd_build.result()
+        dd, ng = dd_build.result(), ng_build.result()
     label = os.path.basename(pkg.rstrip("/")) or pkg
     result = {}
     for name in MIX_ROUTES:
@@ -330,6 +397,9 @@ def mix_child(inputs, pkg, repeats, out) -> None:
             mix = ddmc_reading(cs, tk, dev, f"{label}: {name}", name, (p0, args),
                                res.get(name, {}), {k: dd[k][name] for k in DD_PATHS}, mix,
                                repeats)
+        elif name in NG_ROUTES:
+            mix = ng_reading(cs, tk, dev, f"{label}: {name}", (p0, args), res.get(name, {}),
+                             {k: ng[k][name] for k in NG_PATHS}, mix, repeats)
         by_sm = mix.pop("by_sm")
         result[name] = {**mix, "sms_with_lanes": len(by_sm),
                         "sm_max_over_mean": max(by_sm) * torch.cuda.get_device_properties(
@@ -359,8 +429,8 @@ def child(inputs, pkg, repeats, out) -> None:
             return tk.transport(p if n == 1 else split_ledger(p, n), *args)[2]
 
         census(p0.clone())  # warm-up
-        times, kernel = [], []
-        with cs.LaunchWindows(tk) as win:
+        times, parts = [], []
+        with cs.CallSplit(tk, lib) as win:
             for _ in range(repeats):
                 p = p0.clone()
                 torch.cuda.synchronize(dev)
@@ -372,11 +442,12 @@ def child(inputs, pkg, repeats, out) -> None:
                 stop.record()
                 torch.cuda.synchronize(dev)
                 times.append(start.elapsed_time(stop))
-                kernel.append(sum(win.ms()))
+                parts.append(win.ms())
         clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
                                 "nounits"], capture_output=True, text=True, check=True).stdout
         live = int((p0.alive & (p0.tau < 1.0)).sum())
-        result["routes"][name] = {"times": sorted(times), "kernel": sorted(kernel),
+        split = {k: sorted(d[k] for d in parts) for k in parts[0]}
+        result["routes"][name] = {"times": sorted(times), **split,
                                   "events": int(events.sum()),
                                   "digest": digest(p), "slots": p0.capacity, "live": live,
                                   "sm_clock_mhz": float(clock.split()[0])}
@@ -494,10 +565,16 @@ def main(argv=None) -> int:
         logs = [kid.pop("build_log") for kid in kids if kid["tree"] == label[tree]]
         log = own_log if tree == ROOT else next((log for log in logs if log), "")
         res = summary["resources"][label[tree]] = cs.kernel_resources(log, tk)
-        print(f"{label[tree]}: resources "
-              f"{({k: res.get(k) for k in cs.EVENT_LOOP_ROUTES + cs.DDMC_ROUTES})}; event "
+        shown = cs.EVENT_LOOP_ROUTES + cs.DDMC_ROUTES + NG_ROUTES
+        print(f"{label[tree]}: resources {({k: res.get(k) for k in shown})}; event "
               f"loop common path {summary['common_path'][label[tree]]} SASS instructions",
               flush=True)
+    base = summary["resources"]["parent"]
+    for tree in trees[1:]:
+        res = summary["resources"][label[tree]]
+        moved = {k: (base.get(k), v) for k, v in sorted(res.items()) if base.get(k) != v}
+        print(f"{label[tree]}: instantiations whose resources differ from the parent's "
+              f"(parent, tree): {moved}", flush=True)
     print(f"route: per tree the medians of {args.repeats} censuses in each turn (ms), the range "
           "of each turn, and the median of the turns over the parent's; outputs bitwise equal")
     for name in names:
@@ -519,6 +596,15 @@ def main(argv=None) -> int:
             row.append(f"{label[tree]} {meds} {statistics.median(meds) / base:.3f}")
         print(f"  {name} kernel alone (CUDA events around its launch), medians of each turn "
               "(ms) and over the parent's: " + " | ".join(row), flush=True)
+        row = []
+        for tree in trees:
+            runs = [kid["routes"][name] for kid in kids if kid["tree"] == label[tree]]
+            med = {k: statistics.median(statistics.median(r[k]) for r in runs)
+                   for k in ("table", "kernel", "launch", "shifts")}
+            row.append(f"{label[tree]} table {med['table']!r}, counters "
+                       f"{med['kernel'] - med['launch']!r}, census launch {med['launch']!r}, "
+                       f"shifts {med['shifts']!r}")
+        print(f"  {name} call split, median over the turns (ms): " + " | ".join(row), flush=True)
         if name in cs.EVENT_LOOP_ROUTES:
             print(f"  {name} issue share (common path x events over the median census x "
                   f"{sms} SMs x {cs.ISSUE_PER_SM_CLOCK} x the SM clock read after it): "
@@ -533,7 +619,13 @@ def main(argv=None) -> int:
                     f"{m['issue_ms']!r} ms, {m['warp_issue_share']!r} of the kernel alone "
                     f"{m['kernel_ms']!r} ms; slot-order warp efficiency "
                     f"{m['slot_order_warp_efficiency']!r}"
-                    if name in cs.DDMC_ROUTES else f"crossed {m['cross'] / we!r}")
+                    if name in cs.DDMC_ROUTES else
+                    f"gathered anew {m['regather'] / we!r}, crossed {m['cross'] / we!r}; the "
+                    f"opacity {m['opacity_instructions']} SASS a gather; the whole loop at the "
+                    f"issue rate {m['issue_ms']!r} ms, {m['warp_issue_share']!r} of the kernel "
+                    f"alone {m['kernel_ms']!r} ms; slot-order warp efficiency "
+                    f"{m['slot_order_warp_efficiency']!r}"
+                    if name in NG_ROUTES else f"crossed {m['cross'] / we!r}")
             print(f"path mix {name} {label[tree]}: {we} warp-events, SIMT efficiency "
                   f"{m['lane_events'] / (32 * we)!r}, warp-events with a lane that {what}; "
                   f"lane-events a SM (%smid): {m['sms_with_lanes']} SMs ran lanes, max/mean "

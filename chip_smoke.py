@@ -82,10 +82,11 @@ Phases:
      (128 cells, 100k particles), 10 steps through transport_1d_ddmc (10
      launches): werr <= 0.05, radiation energy conserved to 1e-5, a bitwise
      rerun, events within 5 % of the JAX package's 11939980 and below a quarter of
-     phase 5's IMC total;
+     phase 5's IMC total; on the last census the call split and the table kernel
+     bitwise against its plain version (the 1D DDMC record);
  13. the stiff gate: inputs/inf_stiff.in with tst/inf_stiff.py's overrides
      (400000 particles, seed 42), 10 steps through transport_1d_abs_ddmc: mean
-     fractional error of the tally against a T0^4 <= 0.15;
+     fractional error of the tally against a T0^4 <= 0.15; the call split;
  14. full width in 3D, K3's DDMC function: bench.py's big_mesh configuration
      (64^3 cells in 8^3 blocks, 200k particles) with use_ddmc, 10 steps through
      transport_3d_ddmc (10 launches), every cell on the DDMC branch: the
@@ -93,14 +94,17 @@ Phases:
      (tst/regression_test.py::profile_comparison), the solution scaled by the
      share of a T^4 that the thermal source put in (0.76 at 0.76 particles a
      cell), sum(tally dV) conserved to 1e-5, every census complete, a bitwise
-     rerun; on the last census's inputs the collapse of its ledger to one block
-     and the expansion back (``ledger_shift_kernels``: csrc/ledger_kernel.cu, one
-     launch each a census) against their plain versions, bitwise, timed beside
-     their bounds; phase 30 holds them so on big_mesh_spatial's joined ledger, and
-     every counted path that runs them (a uniform forest of several blocks) lists
-     its launches in their entries (``note_shifts``); then the 2D
-     and the absorbing 2D/3D DDMC instantiations, which no path runs, timed on
-     phase 11's ledger;
+     rerun; on the last census's inputs the call split (``call_split_line``: the
+     table, the counters, the launch), a full census whose kernel folds the
+     ledger's collapse to one block and its expansion back into its reads and
+     writes against the plain collapse, census and expansion, every column
+     bitwise (``fold_check``), and the census table kernel (csrc/table_kernel.cu,
+     one launch a census) against its plain version, bitwise, timed beside its
+     bound (``table_check``); phase 30 holds the table so on big_mesh_spatial's
+     eight coefficient sets and the fold on its joined ledger, and every counted
+     path lists the table kernel's launches in its entry (``note_table``); then
+     the 2D and the absorbing 2D/3D DDMC instantiations, which no path runs, timed
+     on phase 11's ledger;
  15. K1(d): all twelve SMR instantiations against their plain versions on a
      level-1 forest per dimension (2^17 particles; x-slabs of four coarse cells
      alternate thin and thick, so that IMC crossings change level both ways and
@@ -137,7 +141,8 @@ Phases:
      8^3 blocks, 200k particles, emission and feedback) with EPBremss and the other
      ep_bremss overrides, 3 steps of 1e-12 s through transport_3d_abs_ng: energy
      conserved to 1e-2 of the radiation energy, nothing dropped, a bitwise rerun,
-     events within 5 % of the JAX package's;
+     events within 5 % of the JAX package's; on the last census the call split,
+     the table kernel and the fold, bitwise against their plain versions;
  25. K4's non-gray function: inputs/stepdiff_smr.in as shipped (128x64 cells, 100k
      particles) with the overrides of tests/test_pallas.py:1531-1546, one step
      through transport_2d_abs_smr_ng: the gates of phase 23;
@@ -169,8 +174,9 @@ Phases:
      658342636, sum(tally dV) equal to the live weight to 1e-5, every census
      complete, one census launch a round (launches a step printed); migration
      rounds, migrated particles, step times and events/s printed; K3s timed on
-     the first round (one launch over the 8 shards), with the slot order's warp
-     efficiency;
+     the first round (one launch over the 8 shards, with the fold: every column of
+     the joined ledger bitwise the plain version's), with the slot order's warp
+     efficiency; the table kernel on the first step's eight coefficient sets;
  31. stepdiff through the spatial decomposition at 8 shards
      (tst/launch_ci_runner.py:72-74: 128 cells in 16-cell blocks, 100k particles,
      capacity_factor 4; then the CI's row :66-71, 32 cells in 2-cell blocks, 16k
@@ -678,6 +684,9 @@ KERNEL_ARGS = re.compile(r"transport_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb
 #     census_bench.py's DDMC reading. A census
 #     ends a lane's history, so a loop of census events alone compiles to no loop:
 #     the census's code is read as dd_step less dd_leak.
+#   no_opacity: the whole loop with EPBremss returning at once (its first line), so
+#     that on a non-gray route the loop as built less this one is the opacity's
+#     code (census_bench.py's non-gray reading).
 _NO_WALL = ("  if (any_out) {", "  if (any_out) __trap();\n", True)
 _DD_NO_IMC = ("    constexpr bool kInPlace = DDMC || NONGRAY;", "    __trap();\n", True)
 _DD_NO_REJECT = ("  if (rejected) {  // bounce back", "  if (rejected) __trap();\n", True)
@@ -696,10 +705,12 @@ LOOP_PATHS = {
     "dd_leak": (_DD_NO_IMC, _DD_NO_REJECT, _DD_NO_ABSORB, _DD_NO_CENSUS, _NO_WALL),
     "dd_step": (_DD_NO_IMC, _DD_NO_REJECT, _DD_NO_ABSORB, _NO_WALL),
     "dd_any": (_DD_NO_IMC,),
+    "no_opacity": (("  const float r = rho * g.ng_rho_scale;", "  return rho;\n", True),),
     "full": (),
 }
 # the routes whose DDMC event is read (loop paths, path mix, issue share)
-DDMC_ROUTES = ("transport_3d_ddmc", "transport_3d_ddmc_smr")
+DDMC_ROUTES = ("transport_3d_ddmc", "transport_3d_ddmc_smr", "transport_1d_ddmc",
+               "transport_1d_abs_ddmc")
 
 
 def patched(src, edits, what) -> str:
@@ -936,37 +947,136 @@ def path_mix_line(name, mix, paths, ms, events, dev) -> dict:
     return {**mix, "instructions_per_warp_event": per_warp, "warp_issue_share": issue}
 
 
-class LaunchWindows:
-    """While active, wraps ``transport_kernel._census_cuda`` so that each census
-    call's kernel launches lie between two CUDA events: ``ms()`` is the device time
-    of the kernel alone (with its two small counter allocations) in each call
-    since the last ``ms()``, without the table set-up and the collapse to one block
-    around it. Works on any tree's package of the same layout."""
+class CallSplit:
+    """While active, puts CUDA events around the parts of each census call of a
+    tree's ``transport_kernel`` (any tree of the same layout): ``table``, the
+    census set-up (``_prepare``, or ``prepare`` in a tree without it); ``kernel``,
+    the kernel with its counters (``_census_cuda``); ``launch``, the census
+    kernel's launch alone (``jb_transport_launch``); ``shifts``, the ledger shift
+    kernels where the tree has them. ``ms()`` sums each part's windows since its
+    last call."""
 
-    def __init__(self, transport_kernel):
-        self.tk, self.real, self.events = transport_kernel, transport_kernel._census_cuda, []
+    PARTS = {"_census_cuda": "kernel", "collapse_cuda": "shifts", "expand_cuda": "shifts"}
 
-    def __enter__(self):
+    def __init__(self, tk, lib):
+        self.tk, self.lib, self.events, self.saved = tk, lib, [], {}
+
+    def _window(self, part, fn):
         def timed(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = self.real(*args, **kw)
+            out = fn(*args, **kw)
             stop.record()
-            self.events.append((start, stop))
+            self.events.append((part, start, stop))
             return out
+        return timed
 
-        self.tk._census_cuda = timed
+    def __enter__(self):
+        table = "_prepare" if hasattr(self.tk, "_prepare") else "prepare"
+        for attr, part in {table: "table", **self.PARTS}.items():
+            if hasattr(self.tk, attr):
+                self.saved[attr] = getattr(self.tk, attr)
+                setattr(self.tk, attr, self._window(part, self.saved[attr]))
+        call = self.lib.call
+        launch = self._window("launch", call)
+        self.lib.call = lambda name, *a: (launch if name == "jb_transport_launch" else call)(
+            name, *a)
         return self
 
     def __exit__(self, *exc):
-        self.tk._census_cuda = self.real
+        for attr, fn in self.saved.items():
+            setattr(self.tk, attr, fn)
+        del self.lib.call
 
-    def ms(self) -> list:
+    def ms(self) -> dict:
         torch.cuda.synchronize()
-        out = [a.elapsed_time(b) for a, b in self.events]
+        out = dict.fromkeys(("table", "kernel", "launch", "shifts"), 0.0)
+        for part, a, b in self.events:
+            out[part] += a.elapsed_time(b)
         self.events = []
         return out
+
+
+def call_split_line(transport_kernel, dev, inputs, name) -> dict:
+    """Prints the parts of a census call of the route ``name`` on a census's
+    ``inputs`` ((ledger, args) of ``transport``), each the median of
+    CENSUS_REPEATS calls on fresh copies after a device sleep (``CallSplit``): the
+    table set-up, the counters (the kernel with its counters less its launch),
+    the census launch and the ledger shift kernels (0 where the census folds the
+    collapse to one block in). Returns the medians."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    p0, args = inputs
+    parts = []
+    with CallSplit(transport_kernel, cuda_lib.library()) as win:
+        for _ in range(CENSUS_REPEATS):
+            p = p0.clone()
+            torch.cuda.synchronize(dev)
+            torch.cuda._sleep(50_000_000)
+            transport_kernel.transport(p, *args)
+            parts.append(win.ms())
+    med = {k: statistics.median(d[k] for d in parts) for k in parts[0]}
+    med["counters"] = statistics.median(d["kernel"] - d["launch"] for d in parts)
+    print(f"{name} call split (medians of {CENSUS_REPEATS} calls, ms): table {med['table']!r}, "
+          f"counters {med['counters']!r}, census launch {med['launch']!r}, shifts "
+          f"{med['shifts']!r}", flush=True)
+    return med
+
+
+def table_check(transport_kernel, dev, coefs, mesh, prm, dt, own, what):
+    """The census table kernel (the set-up of ``prepare`` on the card, which
+    launches nothing else on a uniform mesh) against its plain version
+    (``_pair_table``) on the same coefficients: the tables bitwise; the kernel's
+    time, the median of CENSUS_REPEATS set-ups after a device sleep, beside one
+    plain set-up and its bound: every coefficient the record reads once and the
+    table written once, over the memory rate. Returns (ms, plain_ms, bound_ms)."""
+
+    def timed(kernel, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)
+            start.record()
+            census = transport_kernel._prepare(coefs, mesh, prm, dt, own, kernel)
+            stop.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(stop))
+        return sorted(times), census.tabs.cell, census.g
+
+    times, cell, g = timed(True, CENSUS_REPEATS)
+    plain_ms, plain, _ = timed(False, 1)
+    if not torch.equal(cell.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError(f"census table on {what}: the kernel's rows differ from the plain "
+                             "version's")
+    cset = list(coefs) if own is not None and not isinstance(
+        own, transport_kernel.OwnedRange) else [coefs]
+    nbytes = (sum(getattr(c, k).numel() * 4 for c in cset
+                  for k in transport_kernel.table_columns(g)) + cell.numel() * 4)
+    bound = nbytes / PEAK_BYTES * 1e3
+    ms = statistics.median(times)
+    print(f"census_table on {what} ({cell.shape[0]} rows of {cell.shape[1]} floats, "
+          f"{len(cset)} coefficient sets): kernel {spread(times)}, plain {plain_ms[0]!r} ms, "
+          f"bound {bound!r} ms ({nbytes} bytes), kernel at {bound / ms:.3f} of it; bitwise the "
+          "plain version's", flush=True)
+    return ms, plain_ms[0], bound
+
+
+def fold_check(transport_kernel, inputs, what):
+    """A full census of the kernel on a uniform mesh of several blocks, with the
+    collapse to one block and the expansion folded into its reads and writes,
+    against the plain collapse, census and expansion on the same inputs ((ledger,
+    args) of ``transport``): every column identical, float32 as bits, the dead
+    and finished slots too."""
+    p0, args = inputs
+    k, q = p0.clone(), p0.clone()
+    transport_kernel.transport(k, *args)
+    transport_kernel.transport_plain(q, *args)
+    same_columns(k, q, f"the folded census on {what}")
+    print(f"the census with the fold on {what} ({p0.capacity} slots, {int(p0.alive.sum())} "
+          "alive): every column bitwise the plain collapse, census and expansion", flush=True)
 
 
 def local_memory(code) -> int:
@@ -976,94 +1086,16 @@ def local_memory(code) -> int:
     return sum(1 for _, text in code if re.match(r"(@!?U?P\d+\s+)?(LDL|STL)\b", text))
 
 
-# the bytes a slot that each ledger shift kernel must move: the collapse reads and
-# writes the three f32 positions, the three int32 indices and the block; the
-# expansion reads the positions and indices and writes all seven
-SHIFT_BYTES = {"ledger_collapse": 56, "ledger_expand": 52}
-# (path, its launches of each of SHIFT_BYTES) of every counted path run that
-# launched the ledger shift kernels (``note_shifts``)
-SHIFT_PATHS = []
+# (path, its launches of the census table kernel) of every counted path run
+# (``note_table``)
+TABLE_PATHS = []
 
 
-def note_shifts(what, launches) -> None:
-    """Keeps the ledger shift kernels' ``launches`` in the counted run of the path
-    ``what`` (its counts set to 0 just before it and read just after), where it ran
-    them, for their entries of the ``kernels`` line. Raises unless the run
-    expanded every ledger it collapsed."""
-    got = [launches.get(k, 0) for k in SHIFT_BYTES]
-    if len(set(got)) != 1:
-        raise AssertionError(f"{what}: ledger shift launches {got}")
-    if got[0]:
-        SHIFT_PATHS.append((f"phase {PHASE[0]}: {what}", *got))
-
-
-def shift_check(transport_kernel, dev, p0, mesh, what) -> list:
-    """Holds the ledger shift kernels (``LEDGER_SHIFTS``: the collapse of a uniform
-    multi-block ledger to one block, then the expansion back) against their plain
-    versions on the ledger ``p0``: every column bitwise (float32 as bits) after
-    each. Returns the ledger that each was given."""
-
-    def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-    given, state = [], p0.clone()
-    for name, (kernel, plain) in transport_kernel.LEDGER_SHIFTS.items():
-        given.append(state)
-        k, q = state.clone(), state.clone()
-        kernel(k, mesh)
-        plain(q, mesh)
-        torch.cuda.synchronize(dev)
-        for f in dataclasses.fields(k):
-            if not torch.equal(bits(getattr(k, f.name)), bits(getattr(q, f.name))):
-                raise AssertionError(f"{name} on {what}: {f.name} differs from the plain version")
-        state = q
-    print(f"ledger_collapse, ledger_expand on {what} ({p0.capacity} slots, {mesh.n_blocks} "
-          "blocks): every column bitwise the plain version's", flush=True)
-    return given
-
-
-def ledger_shift_kernels(transport_kernel, dev, p0, mesh, launches, src) -> list:
-    """The ledger shift kernels (``shift_check``) on the ledger ``p0``, each timed,
-    the median of CENSUS_REPEATS calls on fresh copies after a device sleep, beside
-    one call of its plain version and its bound (its SHIFT_BYTES a slot over the
-    memory rate). Returns their entries of the ``kernels`` line, with ``launches``
-    the path's counts."""
-
-    def timed(fn, p, reps):
-        times = []
-        for _ in range(reps):
-            q = p.clone()
-            torch.cuda.synchronize(dev)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(50_000_000)
-            start.record()
-            fn(q, mesh)
-            stop.record()
-            torch.cuda.synchronize(dev)
-            times.append(start.elapsed_time(stop))
-        return sorted(times)
-
-    out = []
-    given = shift_check(transport_kernel, dev, p0, mesh, "the path's last census")
-    for (name, (kernel, plain)), state in zip(transport_kernel.LEDGER_SHIFTS.items(), given):
-        bound = p0.capacity * SHIFT_BYTES[name] / PEAK_BYTES * 1e3
-        times = timed(kernel, state, CENSUS_REPEATS)
-        plain_ms = timed(plain, state, 1)[0]
-        ms = statistics.median(times)
-        print(f"{name} on {p0.capacity} slots: kernel {spread(times)}, plain {plain_ms!r} ms, "
-              f"bound {bound!r} ms ({SHIFT_BYTES[name]} bytes a slot), kernel at "
-              f"{bound / ms:.3f} of it; {launches.get(name, 0)} launches on the path", flush=True)
-        out.append({
-            "name": f"{name} (the uniform forest's shift to one block and back around the "
-                    "census; XLA ops in the JAX package)",
-            "route": "cuda", "source": src.replace("transport_kernel.cu", "ledger_kernel.cu"),
-            "replaces": "jaybenne_tpu/ops/pallas_transport.py:335 (_uniform_view, around K1 "
-                        "and K3)",
-            "launches": launches.get(name, 0), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-        })
-    return out
+def note_table(what, launches) -> None:
+    """Keeps the census table kernel's ``launches`` in the counted run of the path
+    ``what`` (its counts set to 0 just before it and read just after), for its
+    entry of the ``kernels`` line."""
+    TABLE_PATHS.append((f"phase {PHASE[0]}: {what}", launches.get("census_table", 0)))
 
 
 def kernel_resources(build_log, transport_kernel) -> dict:
@@ -1108,7 +1140,8 @@ def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common
     per-slot events."""
     p, args = inputs
     prm = args[3]
-    flags = (bool(prm.has_absorption), bool(prm.use_ddmc), args[1].max_level > 0)
+    flags = (bool(prm.has_absorption), bool(prm.use_ddmc), args[1].max_level > 0,
+             not getattr(args[0], "is_gray", True))
     blocks = transport_kernel.resident_blocks(prm.ndim, *flags)
     clock = smi_value("clocks.sm")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1695,7 +1728,7 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
         again = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
                          nlim=steps, device="cuda")
     what = os.path.basename(deck)
-    note_shifts(f"{what}, {launch}", launches)
+    note_table(f"{what}, {launch}", launches)
     if launches.get(launch, 0) != per_step * steps or sim.cycle != steps:
         raise AssertionError(f"{what}: launches {launches}, cycles {sim.cycle}")
     max_iters = sim.cfg.jaybenne.max_transport_iterations
@@ -2038,6 +2071,10 @@ def nongray_phases(transport_kernel, dev, cost, src) -> list:
     else:
         events_gate(big.total_events, NG_BIG_JAX_EVENTS, "K3 non-gray")
     k_3 = path_kernel(transport_kernel, dev, big, big_in, name_3, cost)
+    call_split_line(transport_kernel, dev, big_in, name_3)
+    table_check(transport_kernel, dev, big_in[1][0], big.mesh, big_in[1][3], big_in[1][4], None,
+                "the 64^3 ep_bremss row's last census")
+    fold_check(transport_kernel, big_in, "the 64^3 ep_bremss row's last census")
 
     phase("25 K4 non-gray: stepdiff_smr as shipped (128x64), 100k particles, EPBremss, "
           "one step")
@@ -2115,9 +2152,11 @@ def sliced(fn, n):
 
 
 def same_columns(pk, pp, what):
-    """Raises unless two ledgers are identical in every column."""
+    """Raises unless two ledgers are identical in every column, float32 as bits."""
     for f in dataclasses.fields(pk):
         a, b = getattr(pk, f.name), getattr(pp, f.name)
+        if a.dtype == torch.float32:  # signed zeros too
+            a, b = a.view(torch.int32), b.view(torch.int32)
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: {f.name} differs in {int((a != b).sum())} slots")
 
@@ -2379,19 +2418,29 @@ class RoundRecorder:
     """While active, wraps ``transport_kernel.transport`` (so that the steps built
     meanwhile call it through the wrapper) and keeps a copy of the inputs of the
     first round (one call over every shard's slice: the joined ledger, the shard
-    count and the call's other arguments); and wraps ``subface_resample`` to count
-    the pending leaks it resolves."""
+    count and the call's other arguments); keeps the arguments of the first
+    census set-up (``prepare``: the shards' coefficient sets, mesh, prm, dt and
+    owned ranges); and wraps ``subface_resample`` to count the pending leaks it
+    resolves."""
 
     def __init__(self, transport_kernel):
-        self.tk, self.inputs, self.resolved = transport_kernel, None, 0
+        self.tk, self.inputs, self.resolved, self.setup = transport_kernel, None, 0, None
         self.real, self.real_fix = transport_kernel.transport, transport_kernel.subface_resample
+        self.real_prepare = transport_kernel.prepare
 
     def __enter__(self):
         self.tk.transport, self.tk.subface_resample = self._census, self._fix
+        self.tk.prepare = self._prepare
         return self
 
     def __exit__(self, *exc):
         self.tk.transport, self.tk.subface_resample = self.real, self.real_fix
+        self.tk.prepare = self.real_prepare
+
+    def _prepare(self, *args):
+        if self.setup is None:
+            self.setup = args
+        return self.real_prepare(*args)
 
     def _census(self, particles, *args):
         if self.inputs is None and isinstance(particles, list):
@@ -2413,7 +2462,7 @@ def spatial_path(deck, mods, steps, what):
     completed its census with nothing dropped, every round made one census launch
     (``launch``), and the tally is finite and equals the live weight (sum(tally
     dV), to ENERGY_RTOL). Returns (sim, launches, the recorded round, pending
-    leaks resolved)."""
+    leaks resolved, the first census set-up's arguments)."""
     from jaybenne_tpu_torch.driver import run_file
     from jaybenne_tpu_torch.ops import cuda_lib, transport_kernel
 
@@ -2423,7 +2472,7 @@ def spatial_path(deck, mods, steps, what):
             sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
                            device="cuda")
             launches = dict(cuda_lib.LAUNCHES)
-            note_shifts(what, launches)
+            note_table(what, launches)
     p = sim.state.particles
     if (any(h["dropped"] or h["unfinished"] for h in sim.history) or sim.state.overflow
             or (steps is not None and sim.cycle != steps)):
@@ -2448,7 +2497,7 @@ def spatial_path(deck, mods, steps, what):
           f"{[h['migrated'] for h in sim.history]}; sum(tally dV) {e!r} vs live weight "
           f"{w!r}; step seconds {step_s}; median {statistics.median(step_s) * 1e3!r} ms; "
           f"{sim.total_events / sum(step_s)!r} events/s", flush=True)
-    return sim, launches, rec.inputs, rec.resolved
+    return sim, launches, rec.inputs, rec.resolved, rec.setup
 
 
 def round_kernel(transport_kernel, dev, inputs, name, cost):
@@ -2537,9 +2586,8 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
             raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}, {rounds} "
                                  "rounds")
     k_z = round_kernel(transport_kernel, dev, big[8][2], name_z, cost)
-    p_z, _, args_z = big[8][2]
-    shift_check(transport_kernel, dev, p_z, args_z[1], "big_mesh_spatial's joined ledger of "
-                "its first round at 8 shards")
+    table_check(transport_kernel, dev, *big[8][4], "big_mesh_spatial's first step at 8 shards "
+                "(8 coefficient sets)")
     warp_efficiency_line(transport_kernel, big[8][2], f"{name_z}, big_mesh_spatial's first "
                          "round at 8 shards", k_z[0], "1.087 (shard 3's round alone)", n=8)
 
@@ -2565,7 +2613,7 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
 
     phase("33 spatial + SMR + DDMC at 8 shards: tests/test_spatial.py:546-586's deck, "
           "32x16 in 8x8 blocks, 96k particles, 2 steps")
-    sp8, sp_launches, sp_round, resolved = spatial_path(
+    sp8, sp_launches, sp_round, resolved, _ = spatial_path(
         SMR_DDMC_DECK, {**SMR_SPATIAL, **SPATIAL, "jaybenne/n_devices": 8}, SMR_SPATIAL_STEPS,
         "stepdiff_smr_ddmc spatial, 8 shards")
     left = int((sp8.state.particles.alive & (sp8.state.particles.leak != 0)).sum())
@@ -2718,7 +2766,7 @@ def restart_phases(dev, smi) -> None:
         cuda_lib.LAUNCHES.clear()
         resumed.run(nlim=RESTART_STEPS)
         launches = dict(cuda_lib.LAUNCHES)
-        note_shifts("stepdiff resumed from a checkpoint", launches)
+        note_table("stepdiff resumed from a checkpoint", launches)
     if resumed.cycle != 2 * RESTART_STEPS or launches.get("transport_1d", 0) != RESTART_STEPS:
         raise AssertionError(f"restart: cycle {resumed.cycle}, launches {launches}")
     same_run(straight, resumed, "restart on the main path")
@@ -2969,7 +3017,7 @@ def main() -> int:
         sim = run_file(DECK, outdir=outdir, modified_inputs=GATE, quiet=True,
                        device="cuda")
         launches = dict(cuda_lib.LAUNCHES)
-        note_shifts("stepdiff", launches)
+        note_table("stepdiff", launches)
         plain = run_file(DECK, outdir=outdir,
                          modified_inputs={**GATE, "jaybenne/use_pallas": "off"},
                          quiet=True, nlim=1, device="cuda")
@@ -3094,7 +3142,7 @@ def main() -> int:
         inf = run_file(INF_DECK, outdir=outdir, modified_inputs=INF, quiet=True,
                        device="cuda")
         inf_launches = dict(cuda_lib.LAUNCHES)
-        note_shifts("inf", inf_launches)
+        note_table("inf", inf_launches)
         sim2_0 = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK_2D, quiet=True,
                           nlim=0, device="cuda")
         e2_0, er2_0 = total_energy(sim2_0)
@@ -3102,7 +3150,7 @@ def main() -> int:
         sim2 = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK_2D, quiet=True,
                         nlim=FEEDBACK_2D_STEPS, device="cuda")
         launches_2d = dict(cuda_lib.LAUNCHES)
-        note_shifts("2D feedback", launches_2d)
+        note_table("2D feedback", launches_2d)
     if inf_launches.get(name3, 0) != INF_STEPS or inf.cycle != INF_STEPS:
         raise AssertionError(f"inf: launches {inf_launches}, cycles {inf.cycle}")
     var = inf.state.fields.energy_tally.double().cpu().numpy()
@@ -3145,7 +3193,7 @@ def main() -> int:
         fb = run_file(DECK, outdir=outdir, modified_inputs=FEEDBACK, quiet=True,
                       nlim=FEEDBACK_STEPS, device="cuda")
         fb_launches = dict(cuda_lib.LAUNCHES)
-        note_shifts("big_mesh_feedback", fb_launches)
+        note_table("big_mesh_feedback", fb_launches)
         peak = torch.cuda.max_memory_allocated(dev)
         fb_fields = (fb.state.fields.energy_tally.clone(), fb.state.fields.u.clone())
         fb_ms, fb_plain_ms, fb_ev, fb_err, fb_in = path_census(fb, transport_kernel, dev)
@@ -3221,6 +3269,9 @@ def main() -> int:
           f"{dd_events / DDMC_JAX_EVENTS - 1.0:+.4f}; IMC gate {events})", flush=True)
     ms_dd1, plain_dd1, _, err_dd1, bound_dd1, by_dd1 = path_kernel(
         transport_kernel, dev, dd, dd_in, name_dd1, cost)
+    call_split_line(transport_kernel, dev, dd_in, name_dd1)
+    table_check(transport_kernel, dev, dd_in[1][0], dd.mesh, dd_in[1][3], dd_in[1][4], None,
+                "stepdiff_ddmc's last census (the 1D DDMC record)")
 
     phase("13 stiff gate: inf_stiff (tst/inf_stiff.py overrides), 10 steps")
     name_dd1a = transport_kernel.launch_name(1, True, True)
@@ -3230,7 +3281,7 @@ def main() -> int:
             stiff = run_file(STIFF_DECK, outdir=outdir, modified_inputs=STIFF, quiet=True,
                              device="cuda")
             stiff_launches = dict(cuda_lib.LAUNCHES)
-            note_shifts("inf_stiff", stiff_launches)
+            note_table("inf_stiff", stiff_launches)
     if stiff_launches.get(name_dd1a, 0) != STIFF_STEPS or stiff.cycle != STIFF_STEPS:
         raise AssertionError(f"inf_stiff: launches {stiff_launches}, cycles {stiff.cycle}")
     var_st = stiff.state.fields.energy_tally.double().cpu().numpy()
@@ -3246,6 +3297,7 @@ def main() -> int:
           f"alive {[h['alive'] for h in stiff.history]}", flush=True)
     ms_dd1a, plain_dd1a, _, err_dd1a, bound_dd1a, by_dd1a = path_kernel(
         transport_kernel, dev, stiff, rec_st.inputs, name_dd1a, cost)
+    call_split_line(transport_kernel, dev, rec_st.inputs, name_dd1a)
 
     phase("14 full width in 3D: big_mesh with DDMC, 64^3 cells, 200k particles, 10 steps")
     name_dd3 = transport_kernel.launch_name(3, False, True)
@@ -3272,10 +3324,22 @@ def main() -> int:
     ms_dd3, plain_dd3, ev_dd3, err_dd3, bound_dd3, by_dd3 = path_kernel(
         transport_kernel, dev, big, big_in, name_dd3, cost)
     src = "jaybenne_tpu_torch/csrc/transport_kernel.cu"
-    shift_kernels = ledger_shift_kernels(transport_kernel, dev, big_in[0], big.mesh, big_launches,
-                                         src)
-    if min(big_launches.get(k, 0) for k in SHIFT_BYTES) != PATH_STEPS:
+    call_split_line(transport_kernel, dev, big_in, name_dd3)
+    fold_check(transport_kernel, big_in, "the 64^3 DDMC row's last census")
+    table = table_check(transport_kernel, dev, big_in[1][0], big.mesh, big_in[1][3],
+                        big_in[1][4], None, "the 64^3 DDMC row's last census")
+    if big_launches.get("census_table", 0) != PATH_STEPS:
         raise AssertionError(f"big_mesh DDMC: launches {big_launches}")
+    table_kernel = {
+        "name": "census_table (the census's per-cell table in one pass; XLA ops around K1 "
+                "and K3 in the JAX package)",
+        "route": "cuda", "source": "jaybenne_tpu_torch/csrc/table_kernel.cu",
+        "replaces": "jaybenne_tpu/ops/pallas_transport.py:370 (_to_global_cells, with "
+                    "_face_pair_vectors :319, around K1) and jaybenne_tpu/ops/pallas_grid.py:445 "
+                    "(_to_global, _faces_to_global :455, _pack_rows :486, around K3)",
+        "launches": big_launches.get("census_table", 0), "max_abs_err": 0.0, "ms": table[0],
+        "plain_ms": table[1], "bound_ms": table[2], "bound_by": "bytes", "library_ms": None,
+    }
 
     smr_kernels = smr_phases(transport_kernel, dev, cost, src, resources, common)
     nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
@@ -3342,13 +3406,15 @@ def main() -> int:
             "max_abs_err": max(hybrid_err[name_dd3], err_dd3),
             "ms": ms_dd3, "plain_ms": plain_dd3, "bound_ms": bound_dd3, "bound_by": by_dd3,
             "library_ms": None,
+            "folds": "the ledger's collapse to one block and its expansion back (once the kernels "
+                     "ledger_collapse and ledger_expand) into the census's reads "
+                     "and writes of every slot, on every uniform mesh of several blocks",
         },
     ]
-    for k, entry in enumerate(shift_kernels):
-        # ``launches`` is phase 14's; beside it every counted path that ran the kernel
-        entry["launches_by_path"] = [[what, n[k]] for what, *n in SHIFT_PATHS]
-    print(f"ledger_collapse, ledger_expand launches by path: {SHIFT_PATHS}", flush=True)
-    kernels += shift_kernels + smr_kernels + nongray_kernels + spatial_kernels
+    # ``launches`` is phase 14's; beside it every counted path's
+    table_kernel["launches_by_path"] = [[what, n] for what, n in TABLE_PATHS]
+    print(f"census_table launches by path: {TABLE_PATHS}", flush=True)
+    kernels += [table_kernel] + smr_kernels + nongray_kernels + spatial_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

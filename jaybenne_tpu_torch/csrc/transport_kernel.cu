@@ -239,8 +239,9 @@
 // events and reaches census in the rest, and on stepdiff_3d 53 % of warp-events
 // hold a lane that meets a block face (re-homing). The kernel alone took 0.18 of
 // the 64^3 row's 0.45 ms census call: most of the rest was the ledger's collapse
-// to one block and back in 44 elementwise passes, now one kernel pass each way
-// (csrc/ledger_kernel.cu). The 112-byte stack frame of every 2D/3D DDMC
+// to one block and back in 44 elementwise passes (then one kernel pass each way,
+// now folded into this kernel: see the census call below). The 112-byte stack
+// frame of every 2D/3D DDMC
 // instantiation held the lane's state arrays (position, cell, velocity, faces,
 // cell size) in local memory: the compiler had turned the face placement's
 // unrolled ``if (leak >> 1 == a)`` into stores at a runtime index, so every DDMC
@@ -262,6 +263,32 @@
 // only beside the refill, sped up no route it reaches. A launch bound of one
 // resident block a SM, which should change nothing, raised the 1D DDMC kernels'
 // registers (40 -> 44) and slowed stepdiff_ddmc's census by 23 %.
+//
+// The census call around the kernel (stepdiff_ddmc's 1D DDMC census, inf_stiff's
+// absorbing twin, the 64^3 ep_bremss census). Measured first (NVIDIA H100 80GB
+// HBM3, 700.00 W; census_bench.py, CUDA events around the call's parts): the 64^3
+// ep_bremss call of 0.146 ms was the kernel's launch 0.047, the table's five
+// elementwise passes 0.036, the ledger's collapse and expansion 0.038 and two
+// counter fills 0.010; the 1D DDMC call of 0.054 ms was the launch 0.026, the
+// table 0.0086 and the counters 0.010. The 1D DDMC kernel is not issue-bound (its
+// warps issue for 0.33 of its time; a lane runs 11.9 events, the longest 28; four
+// times the lanes take 0.45 of the time an event), and the ep_bremss kernel
+// evaluates EPBremss only where a lane gathers a cell (98 SASS instructions, at
+// most 9 % of its loop). So the table is one pass (csrc/table_kernel.cu), the
+// counters one fill, and on a uniform mesh of several blocks this kernel folds the
+// collapse to one block and the expansion back into its reads (``take``) and
+// writes (``retire``) of every slot, by the plain versions' operations ((x + d) - d
+// is not always x, so a slot that no lane takes is written back too); the 1D DDMC
+// record carries the cell's leak rate, cdf and c cdf (``kCell1d``), and that event
+// hashes its words at its start. Measured in turns against the kernel before it
+// (census_bench.py, two turns, medians of 7): the calls 0.0537 -> 0.0483 ms (1D
+// DDMC), 0.0549 -> 0.0435 (its absorbing twin), 0.1464 -> 0.0870 (64^3 ep_bremss),
+// 0.2282 -> 0.1046 (64^3 DDMC); the fold costs the ep_bremss launch 0.047 -> 0.060
+// ms (it reads every slot) for the two passes' 0.038. Without the lighter 1D event
+// the 1D DDMC kernel took 41 registers (5 resident blocks, not 6: two waves) and
+// its call was 4 % slower than before; 128-thread blocks for the 1D DDMC
+// instantiations, built and dropped, took the twin's call 4 % lower and
+// stepdiff_ddmc's 1.3 % higher.
 //
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
@@ -319,9 +346,16 @@ struct Geom {
   float ng_g;                 // (cff / m_p^2)^(1/3)
   float ng_freq_min;          // the frequency clamp, 1e10
   float ng_xc_max;            // the clamp of h nu / k T, 80
+  // A uniform forest of several blocks, run collapsed to one block (``fold``
+  // nonzero; never with SMR): the kernel applies collapse_plain's shift where it
+  // reads a slot and expand_plain's where it writes one (ops/transport_kernel.py)
+  int fold;
+  int nrbx, nrby;     // root blocks along x and y
+  int nloc[3];        // cells a block per axis
+  float shift[3];     // the f32 extent of a block per axis
 };
-constexpr int kGeomInts = 13;
-constexpr int kGeomFloats = 54;
+constexpr int kGeomInts = 19;
+constexpr int kGeomFloats = 57;
 
 // The local shards of one launch, by value in the kernel's parameters: shard k
 // owns the ledger slots [slot_lo, slot_hi) (a slot's lane is its index in the
@@ -377,6 +411,60 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// Python's floor division and modulo of an int32 by a positive divisor.
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// The fold (Geom::fold), collapse_plain and expand_plain on one slot. The
+// collapse: with (bx, by, bz) = (block mod nrbx, (block // nrbx) mod nrby, block //
+// (nrbx nrby)), x += f32(bx) Dx and i += bx nx on each axis. The expansion: bk = i
+// // nx, i -= bk nx, x -= f32(bk) Dx on each axis and block = (bz nrby + by) nrbx +
+// bx, here summed axis by axis. The same float32 and int32 operations as the
+// plain versions on every slot, so the same bits: (x + d) - d is not always x,
+// so a slot that no lane takes gets the round trip too.
+__device__ __forceinline__ void root_block(const Geom& g, int b, int (&bk)[3]) {
+  bk[0] = floor_mod(b, g.nrbx);
+  bk[1] = floor_mod(floor_div(b, g.nrbx), g.nrby);
+  bk[2] = floor_div(b, g.nrbx * g.nrby);
+}
+
+// expand_plain on axis ``a`` of a collapsed (x, i): writes them to their
+// block-local values; returns the axis's term of the block id.
+__device__ __forceinline__ int unfold_axis(const Geom& g, int a, float& x, int& i) {
+  const int bk = floor_div(i, g.nloc[a]);
+  i = i - bk * g.nloc[a];
+  x = x - (float)bk * g.shift[a];
+  return bk * (a == 0 ? 1 : (a == 1 ? g.nrbx : g.nrbx * g.nrby));
+}
+
+// The round trip of slot ``q``'s axes from ``a0`` on, which the census does not
+// move, as its block ``b`` gives it: each value written where its bits change.
+// Returns those axes' terms of the block id.
+__device__ __forceinline__ int round_trip(const Ledger& L, const Geom& g, int q, int b, int a0) {
+  int bk[3];
+  root_block(g, b, bk);
+  int part = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (a < a0) continue;
+    const float x0 = L.x[a][q];
+    const int i0 = L.ci[a][q];
+    float x = x0 + (float)bk[a] * g.shift[a];
+    int i = i0 + bk[a] * g.nloc[a];
+    part += unfold_axis(g, a, x, i);
+    if (__float_as_uint(x) != __float_as_uint(x0)) L.x[a][q] = x;
+    if (i != i0) L.ci[a][q] = i;
+  }
+  return part;
+}
+
 // Whether a lane's cell lies in the owned range: its block with SMR, its global
 // z cell in 3D without; 1D/2D uniform meshes are owned whole.
 template <int NDIM, bool SMR>
@@ -418,6 +506,18 @@ struct DdmcTags {
   static constexpr uint32_t kRes = kW3 + (NDIM == 3 ? 3u : 2u);
 };
 
+// Whether the DDMC event reads what its cell alone gives it from the record
+// instead of making it: on a uniform 1D gray mesh, where the record's columns 4-6
+// (the face probabilities of y and z, which 1D never reads) hold the lower face's
+// leak rate P_lower f32(1 / dx), cdf = (ea + the two leak rates) + tiny (without
+// ABSORB the leak rates and tiny) and c cdf, made by the table with the event's own
+// float32 operations (ops/transport_kernel.py: _pair_table). There the event also
+// hashes its words at its start (exp, xi and the leak's or census's word, which
+// depend on (seed, lane, it, tag) alone), off the chain that waits for the record
+// and the divide.
+template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
+constexpr bool kCell1d = NDIM == 1 && DDMC && !SMR && !NONGRAY;
+
 // A DDMC lane's move across a face of its cell on axis ``ax`` (the lower face when
 // ``lower``): ``eps`` cells beyond the face, into the neighbour cell, with the
 // direction (vn, vt1, vt2) on the axes (ax, ax + 1, ax + 2) mod 3; with
@@ -452,9 +552,10 @@ __device__ __forceinline__ void place_across(int ax, bool lower, float eps,
 // new position, cell index, velocity, tau and absorption; the face code it
 // leaves is 0. ``pf`` holds the cell's (P_lower, P_upper) of x, y, z, ``dx``
 // and ``inv_dx`` its cell size and f32 reciprocal, ``flo`` and ``fhi`` its
-// faces. ``leak_code`` is set to -(axis + 1) for a leak through a lower face,
+// faces; with ``kCell`` (``kCell1d``) pf[2..4] the cell's leak rate, cdf and c
+// cdf. ``leak_code`` is set to -(axis + 1) for a leak through a lower face,
 // +(axis + 1) through an upper one, else 0.
-template <int NDIM, bool ABSORB>
+template <int NDIM, bool ABSORB, bool kCell>
 __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_t lane, uint32_t it,
                                            int face, float ea, float sig_t,
                                            const float (&pf)[6], const float (&dx)[3],
@@ -507,22 +608,39 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_
     return;
   }
   // in-cell step: leak rates P_face / dx, event time against census
-  float lk[2 * NDIM];
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    lk[2 * a] = pf[2 * a] * inv_dx[a];
-    lk[2 * a + 1] = pf[2 * a + 1] * inv_dx[a];
+  uint32_t w_exp = 0u, w_xi = 0u, w2 = 0u;
+  if constexpr (kCell) {
+    const uint32_t key = jb_key(seed, lane, it);
+    w_exp = jb_word(key, kTagExp);
+    w_xi = jb_word(key, kTagXi);
+    w2 = jb_word(key, kTagW2);
   }
-  float leak_tot = lk[0] + lk[1];
+  float lk[2 * NDIM];
+  float cdf, ccdf;
+  if constexpr (kCell) {
+    lk[0] = pf[2];
+    cdf = pf[3];
+    ccdf = pf[4];
+  } else {
 #pragma unroll
-  for (int e = 2; e < 2 * NDIM; ++e) leak_tot = leak_tot + lk[e];
-  const float cdf = (ABSORB ? ea + leak_tot : leak_tot) + 1.0e-37f;
-  const float dt_ev = jb_exp23(jb_raw_bits(seed, lane, it, kTagExp)) / (g.c * cdf);
+    for (int a = 0; a < NDIM; ++a) {
+      lk[2 * a] = pf[2 * a] * inv_dx[a];
+      lk[2 * a + 1] = pf[2 * a + 1] * inv_dx[a];
+    }
+    float leak_tot = lk[0] + lk[1];
+#pragma unroll
+    for (int e = 2; e < 2 * NDIM; ++e) leak_tot = leak_tot + lk[e];
+    cdf = (ABSORB ? ea + leak_tot : leak_tot) + 1.0e-37f;
+    ccdf = g.c * cdf;
+    w_exp = jb_raw_bits(seed, lane, it, kTagExp);
+  }
+  const float dt_ev = jb_exp23(w_exp) / ccdf;
   const float dt_rem = g.dt * (1.0f - ptau);
-  const uint32_t w2 = jb_raw_bits(seed, lane, it, kTagW2);
+  if constexpr (!kCell) w2 = jb_raw_bits(seed, lane, it, kTagW2);
   if (dt_ev < dt_rem) {
     ptau = ptau + dt_ev * g.inv_dt;
-    const float xi = cdf * jb_u23(jb_raw_bits(seed, lane, it, kTagXi));
+    if constexpr (!kCell) w_xi = jb_raw_bits(seed, lane, it, kTagXi);
+    const float xi = cdf * jb_u23(w_xi);
     if (ABSORB && xi < ea) {
       palive = false;
       pabsorbed = true;
@@ -530,15 +648,20 @@ __device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_
     }
     const float xim = ABSORB ? xi - ea : xi;
     int leak = 2 * NDIM - 1;  // the numerical fall-through takes the last face
-    bool found = false;
-    float cum = 0.0f;
+    if constexpr (kCell) {
+      // 1D: the lower face when xim < 0 + lk[0], else the upper, found or not
+      if (xim < lk[0]) leak = 0;
+    } else {
+      bool found = false;
+      float cum = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 2 * NDIM; ++e) {
-      if (!found && xim < cum + lk[e]) {
-        leak = e;
-        found = true;
+      for (int e = 0; e < 2 * NDIM; ++e) {
+        if (!found && xim < cum + lk[e]) {
+          leak = e;
+          found = true;
+        }
+        cum = cum + lk[e];
       }
-      cum = cum + lk[e];
     }
     const float bmu = sqrtf(jb_u16_lo(w2));
     const float bnu = sqrtf(fmaxf(1.0f - bmu * bmu, 0.0f));
@@ -746,9 +869,10 @@ struct Lane {
 // dx, inv_dx, box, dmin), its faces (flo, fhi: f dx and (f + 1) dx on each active
 // axis) and its table record: (p_abs, 1 / sigma_t) gray without DDMC (tab); with
 // DDMC or NONGRAY fleck sigma_a (ea) and sigma_t; with DDMC the face
-// probabilities (pf) and the branch (is_ddmc). Every value depends only on the
-// lane's block, cell, shard and photon energy. Out-parameters, so that the lane's
-// state stays in registers.
+// probabilities (pf) and the branch (is_ddmc); where ``kCell1d``, pf[2..4] carry
+// the record's leak rate, cdf and c cdf. Every value depends only on the lane's
+// block, cell, shard and photon energy. Out-parameters, so that the lane's state
+// stays in registers.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
 __device__ __forceinline__ void gather(const Geom& g, const Forest& F, const float* table,
                                        const Own& o, int blk, const int (&ci)[3], float en,
@@ -829,7 +953,12 @@ __device__ __forceinline__ void gather(const Geom& g, const Forest& F, const flo
     sig_t = ABSORB ? r0.x + r0.y : r0.y;
     pf[0] = r0.z;
     pf[1] = r0.w;
-    if (NDIM >= 2) {
+    if constexpr (kCell1d<NDIM, DDMC, SMR, NONGRAY>) {
+      const float4 r1 = __ldg(rec + 1);  // (P_lower / dx, cdf, c cdf, 0)
+      pf[2] = r1.x;
+      pf[3] = r1.y;
+      pf[4] = r1.z;
+    } else if (NDIM >= 2) {
       const float4 r1 = __ldg(rec + 1);  // (Py_lo, Py_hi, Pz_lo, Pz_hi)
       pf[2] = r1.x;
       pf[3] = r1.y;
@@ -947,8 +1076,9 @@ __device__ __forceinline__ void event(const Geom& g, const Forest& F, const floa
   int nface = 0;
   int leak = 0;
   if (DDMC && is_ddmc) {
-    ddmc_event<NDIM, ABSORB>(g, o.seed, lane, it, pface, ea, sig_t, pf, dx, inv_dx, flo, fhi, p,
-                             ci, v, np_, nci, ptau, palive, pabsorbed, leak);
+    constexpr bool kCell = kCell1d<NDIM, DDMC, SMR, NONGRAY>;
+    ddmc_event<NDIM, ABSORB, kCell>(g, o.seed, lane, it, pface, ea, sig_t, pf, dx, inv_dx, flo,
+                                    fhi, p, ci, v, np_, nci, ptau, palive, pabsorbed, leak);
   } else {
     constexpr bool kInPlace = DDMC || NONGRAY;
     // a gray lane carries its key; a DDMC or NONGRAY lane keys the words it draws
@@ -1169,30 +1299,44 @@ __device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const f
 
 // A thread without a lane takes ledger slot q if its particle runs: alive, short
 // of census, in a shard of the launch and in that shard's owned range. Any other
-// slot is left untouched.
+// slot is left untouched, but with the fold (Geom::fold) written back at once with
+// the round trip; a slot that runs takes its state on the collapsed block, and its
+// axes beyond NDIM and its block wait for ``retire``.
 template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
 __device__ __forceinline__ void take(const Ledger& L, const Geom& g, const Shards& S, int q,
                                      Lane& s) {
   int k = -1;
   for (int j = 0; j < S.count; ++j)
     if (q >= S.slot_lo[j] && q < S.slot_hi[j]) k = j;
-  if (k < 0 || g.max_iters <= 0 || L.alive[q] == 0 || !(L.tau[q] < 1.0f)) return;
+  const bool fold = !SMR && g.fold != 0;
+  const bool run = k >= 0 && g.max_iters > 0 && L.alive[q] != 0 && L.tau[q] < 1.0f;
+  if (!run && !fold) return;
+  const int b = SMR || fold ? L.blk[q] : 0;
+  int bk[3] = {0, 0, 0};
+  if (fold) root_block(g, b, bk);
   int ci[3] = {0, 0, 0};
 #pragma unroll
-  for (int a = 0; a < NDIM; ++a) ci[a] = L.ci[a][q];
-  const int blk = SMR ? L.blk[q] : 0;
-  if (!owned<NDIM, SMR>(own_of(S, k), blk, ci)) return;
+  for (int a = 0; a < NDIM; ++a) ci[a] = L.ci[a][q] + bk[a] * g.nloc[a];
+  if (!(run && owned<NDIM, SMR>(own_of(S, k), b, ci))) {
+    if (fold) {
+      const int moved = round_trip(L, g, q, b, 0);
+      if (moved != b) L.blk[q] = moved;
+    }
+    return;
+  }
   s.slot = q;
   s.shard = k;
   s.it = 0;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    s.p[a] = a < NDIM ? L.x[a][q] : 0.0f;
+    float x = 0.0f;
+    if (a < NDIM) x = fold ? L.x[a][q] + (float)bk[a] * g.shift[a] : L.x[a][q];
+    s.p[a] = x;
     s.v[a] = L.v[a][q];
     s.ci[a] = ci[a];
   }
   s.tau = L.tau[q];
-  s.blk = blk;
+  s.blk = SMR ? b : 0;
   s.face = DDMC ? L.face[q] : 0;
   s.en = NONGRAY ? L.energy[q] : 0.0f;
   s.alive = true;
@@ -1201,18 +1345,26 @@ __device__ __forceinline__ void take(const Ledger& L, const Geom& g, const Shard
 }
 
 // A lane that stopped (absorbed, escaped, at census, out of its range or at the
-// iteration cap) writes its state back.
+// iteration cap) writes its state back; with the fold, expand_plain's shift of its
+// state, and the round trip of the axes it does not move.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR>
-__device__ __forceinline__ void retire(const Ledger& L, const Lane& s) {
+__device__ __forceinline__ void retire(const Ledger& L, const Geom& g, const Lane& s) {
   const int q = s.slot;
+  const bool fold = !SMR && g.fold != 0;
+  int blk = 0;
+  if (NDIM < 3 && fold) blk = round_trip(L, g, q, L.blk[q], NDIM);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     if (a < NDIM) {
-      L.x[a][q] = s.p[a];
-      L.ci[a][q] = s.ci[a];
+      float x = s.p[a];
+      int i = s.ci[a];
+      if (fold) blk += unfold_axis(g, a, x, i);
+      L.x[a][q] = x;
+      L.ci[a][q] = i;
     }
     L.v[a][q] = s.v[a];
   }
+  if (fold) L.blk[q] = blk;
   L.tau[q] = s.tau;
   L.alive[q] = s.alive ? 1 : 0;
   if (ABSORB && s.absorbed) L.absorbed[q] = 1;
@@ -1366,7 +1518,7 @@ __global__ void __launch_bounds__(kThreads)
   regroup<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, sm, st);
   if (st.slot >= 0) {
     run_lane<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, st);
-    retire<NDIM, ABSORB, DDMC, SMR>(L, st);
+    retire<NDIM, ABSORB, DDMC, SMR>(L, g, st);
   }
   count(st.slot >= 0 ? st.shard : -1, st.it, s_ev, s_mx);
   __syncthreads();
@@ -1444,10 +1596,12 @@ struct Occupancy {
 // With smr: block_table (per block the 12 floats dx dy dz 0 ox oy oz 0 1/dx 1/dy
 // 1/dz 0, 16-byte aligned), levels (int32 per block) and lookup (the int32 lookup
 // grid); null otherwise.
-// igeom: n[3] bc[6] max_iters nt[3]; fgeom: dx[3] inv_dx[3] org[3] lo[3] hi[3]
-// lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc eps_imc eps_ddmc
-// dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3] rho_scale temp_scale
-// length_scale sb kb hh g_ff freq_min xc_max (host arrays).
+// igeom: n[3] bc[6] max_iters nt[3] fold nrbx nrby nloc[3]; fgeom: dx[3] inv_dx[3]
+// org[3] lo[3] hi[3] lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc
+// eps_imc eps_ddmc dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3]
+// rho_scale temp_scale length_scale sb kb hh g_ff freq_min xc_max shift[3] (host
+// arrays). With fold the shards' slots must cover the ledger: every slot is
+// rewritten.
 // shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row,
 // seed) (host array). spread: nonzero for warp w of block b to take the 32 slots
 // of group w x blocks + b instead of block b the 256 after 256 b, so that every
@@ -1487,6 +1641,10 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   for (int a = 0; a < 6; ++a) g.bc[a] = *ip++;
   g.max_iters = *ip++;
   for (int a = 0; a < 3; ++a) g.nt[a] = *ip++;
+  g.fold = *ip++;
+  g.nrbx = *ip++;
+  g.nrby = *ip++;
+  for (int a = 0; a < 3; ++a) g.nloc[a] = *ip++;
   const float* fp = fgeom;
   float* dst[8] = {g.dx, g.inv_dx, g.org, g.lo, g.hi, g.lo_half, g.hi_half, g.span};
   for (int k = 0; k < 8; ++k)
@@ -1509,7 +1667,8 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   float* ng_dst[9] = {&g.ng_rho_scale, &g.ng_temp_scale, &g.ng_len_scale, &g.ng_sb, &g.ng_kb,
                       &g.ng_hh, &g.ng_g, &g.ng_freq_min, &g.ng_xc_max};
   for (int k = 0; k < 9; ++k) *ng_dst[k] = *fp++;
-  static_assert(kGeomInts == 13 && kGeomFloats == 54, "geometry layout");
+  for (int a = 0; a < 3; ++a) g.shift[a] = *fp++;
+  static_assert(kGeomInts == 19 && kGeomFloats == 57, "geometry layout");
 
   if (ndim < 1 || ndim > 3) return -1;
   const bool sm = smr != 0;

@@ -43,9 +43,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # expand, host array of 7 ledger pointers, slots, nrbx nrby, nx ny nz, block
-    # extents, stream
-    "jb_ledger_shift_launch": (_I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # kind absorb, table, ranges, host arrays of their 8 column pointers and of
+    # their (cells, first row), nx ny nz, nrbx nrby, permute, f32(1 / dx), c, stream
+    "jb_table_launch": (_I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
     "jb_census_words_launch": (_I, _P, _P, _I, _I, _P),  # seed n_events out n words stream
     "jb_transport_occupancy": (_I, _I, _I, _I, _I, _P),  # ndim absorb ddmc smr nongray blocks

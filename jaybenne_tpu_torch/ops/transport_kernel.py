@@ -10,8 +10,8 @@ runs the last two on meshes or forests whose tables do not fit VMEM, which here 
 no limit, so one kernel covers all three.
 
 ``transport`` runs the census for a ledger: the CUDA kernels
-(``csrc/transport_kernel.cu``, ``csrc/ledger_kernel.cu``) for CUDA tensors, their
-plain versions for CPU tensors.
+(``csrc/table_kernel.cu`` builds the census's table, ``csrc/transport_kernel.cu``
+runs it) for CUDA tensors, their plain versions for CPU tensors.
 ``transport_plain`` is that plain version: a vectorised PyTorch port of the same
 event body in which every lane advances one iteration per loop step, with the same
 K2 draws, as the JAX kernel's lanes do. The tests hold it against the JAX kernels
@@ -24,12 +24,12 @@ kernel's int32 total wraps past 2^31).
 
 A uniform multi-block forest is first collapsed to one synthetic block, as the JAX
 wrapper does (``_uniform_view``): block-local positions and indices shift to global
-ones before the census and back after it (``collapse_cuda`` and ``expand_cuda``,
-one kernel pass each way on a GPU; ``collapse_plain`` and ``expand_plain``), and
-the per-cell table is laid out in global row-major cell order. With DDMC the table row of a cell also
-carries its faces' probabilities (``_face_pairs``, the JAX ``_face_pair_vectors``), and the
-ledger's ``face`` column (the face-arrival code of the albedo test) is read and
-written.
+ones before the census and back after it (``collapse_plain`` and ``expand_plain``;
+on a GPU the census kernel folds both into its reads and writes of every slot),
+and the per-cell table is laid out in global row-major cell order. With DDMC the
+table row of a cell also carries its faces' probabilities (``_face_pairs``, the
+JAX ``_face_pair_vectors``), and the ledger's ``face`` column (the face-arrival
+code of the albedo test) is read and written.
 
 With a frequency-dependent opacity (``EPBremss``, the one non-gray model) the
 table row of a cell is ``(rho, T, fleck, sigma_s)``, before the face
@@ -338,8 +338,15 @@ class _Tables:
     opacity: object = None
 
 
-def _tables(coefs, mesh, g: _Geom) -> _Tables:
-    cell = _pair_table(coefs, mesh, g.absorb, g.ddmc, g.smr)
+def _tables(cset, mesh, g: _Geom, kernel: bool) -> _Tables:
+    """The tables of the coefficient sets ``cset`` (one per owned range, in range
+    order): the cell table by the CUDA kernel (``_table_cuda``) with ``kernel``,
+    else by its plain version (``_pair_table``)."""
+    coefs = cset[0]
+    if kernel:
+        cell = _table_cuda(cset, mesh, g)
+    else:
+        cell = _pair_table(coefs if len(cset) == 1 else _concat_coefs(cset), mesh, g)
     if not g.smr:
         return _Tables(cell, opacity=coefs.opacity)
     # slices, not an index list: a list index is a host tensor copied to the card,
@@ -354,7 +361,7 @@ def _tables(coefs, mesh, g: _Geom) -> _Tables:
                    coefs.opacity)
 
 
-def _pair_table(coefs, mesh, absorb, ddmc, smr):
+def _pair_table(coefs, mesh, g: _Geom):
     """The kernel's per-cell table (global row-major cell order on a uniform
     forest collapsed to one block, block cell order on a forest run block by block
     with ``smr``), from the
@@ -362,33 +369,122 @@ def _pair_table(coefs, mesh, absorb, ddmc, smr):
     sigma_a`` (without absorption ``ea = 0``, ``es = sigma_s``): without DDMC the
     f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor, with DDMC the [NC, 8]
     rows ``(ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi)``. The JAX kernels
-    switch pairs the same way and hold them packed in bf16. With a
-    frequency-dependent opacity the rows are ``(rho, T, fleck, sigma_s)`` [NC, 4],
-    with DDMC followed by the six face probabilities and two zeros [NC, 12]: the
-    JAX kernel's (rho, T, fleck) tables and the per-cell value of its gray
-    scattering."""
+    switch pairs the same way and hold them packed in bf16. On a uniform 1D mesh
+    the DDMC rows end instead with what the DDMC event would make from its cell
+    alone (``kCell1d`` in csrc/transport_kernel.cu), by the event's float32
+    operations: the lower face's leak rate ``lk = Px_lo f32(1 / dx)``, ``cdf =
+    (ea + (lk + Px_hi f32(1 / dx))) + tiny`` (without absorption ``(lk + Px_hi
+    f32(1 / dx)) + tiny``), ``c cdf`` and a zero. With a frequency-dependent
+    opacity the rows are ``(rho, T, fleck, sigma_s)`` [NC, 4], with DDMC followed
+    by the six face probabilities and two zeros [NC, 12]: the JAX kernel's (rho,
+    T, fleck) tables and the per-cell value of its gray scattering."""
     f32 = torch.float32
     ss = coefs.sigma_s.to(f32)
-    faces = [v.to(f32) for v in _face_pairs(coefs.px, coefs.py, coefs.pz, mesh)] if ddmc else []
+    faces = ([v.to(f32) for v in _face_pairs(coefs.px, coefs.py, coefs.pz, mesh)] if g.ddmc
+             else [])
     if not coefs.is_gray:
-        zero = [torch.zeros_like(ss)] * 2 if ddmc else []
+        zero = [torch.zeros_like(ss)] * 2 if g.ddmc else []
         cols = [coefs.rho.to(f32), coefs.temp.to(f32), coefs.fleck.to(f32), ss, *faces, *zero]
     else:
-        if absorb:
+        if g.absorb:
             sa, fl = coefs.sigma_a.to(f32), coefs.fleck.to(f32)
             ea = fl * sa
             es = ss + (1.0 - fl) * sa
         else:
             ea = torch.zeros_like(ss)
             es = ss
-        if ddmc:
+        if _cell_1d(g):
+            inv_dx = float(g.inv_dx[0])
+            lk = faces[0] * inv_dx
+            leak_tot = lk + faces[1] * inv_dx
+            cdf = (ea + leak_tot if g.absorb else leak_tot) + _TINY
+            cols = [ea, es, faces[0], faces[1], lk, cdf, cdf * float(g.c),
+                    torch.zeros_like(ss)]
+        elif g.ddmc:
             cols = [ea, es, *faces]
         else:
             inv = 1.0 / (ea + es + _TINY)
             cols = [ea * inv, inv]
-    if mesh.n_blocks > 1 and not smr:
+    if mesh.n_blocks > 1 and not g.smr:
         cols = [to_global_cells(v, mesh) for v in cols]
     return torch.stack(cols, dim=1).contiguous()
+
+
+def _cell_1d(g: _Geom) -> bool:
+    """Whether the DDMC record carries what the event makes from its cell alone
+    (``kCell1d``): a uniform 1D gray mesh."""
+    return g.ndim == 1 and g.ddmc and not g.smr and not g.nongray
+
+
+# the census table's record kinds (csrc/table_kernel.cu): the gray pair, gray
+# DDMC, non-gray, non-gray DDMC, gray DDMC on a uniform 1D mesh; their widths
+_TABLE_WIDTHS = (2, 8, 4, 12, 8)
+
+
+def _table_kind(g: _Geom) -> int:
+    if _cell_1d(g):
+        return 4
+    return (2 if g.nongray else 0) + int(g.ddmc)
+
+
+# the owned ranges one launch of the table kernel takes (kMaxRanges); a set-up over
+# more makes one launch for each group of as many
+MAX_RANGES_PER_TABLE = 16
+_TABLE_COLUMNS = ("sigma_a", "sigma_s", "fleck", "rho", "temp", "px", "py", "pz")
+
+
+def table_columns(g: _Geom) -> set:
+    """The coefficient columns that the cell table's record reads."""
+    if g.nongray:
+        need = {"rho", "temp", "fleck", "sigma_s"}
+    else:
+        need = {"sigma_a", "fleck", "sigma_s"} if g.absorb else {"sigma_s"}
+    return need | ({"px", "py", "pz"} if g.ddmc else set())
+
+
+def _table_cuda(cset, mesh, g: _Geom):
+    """``_pair_table`` of the coefficient sets ``cset`` (one per owned range, the
+    ranges' rows one after another) as one pass of a CUDA kernel
+    (``csrc/table_kernel.cu``) on PyTorch's current stream, a launch for each
+    group of MAX_RANGES_PER_TABLE ranges: the permutation to global row-major
+    order as index arithmetic, the face columns read from the face arrays, the
+    same float32 operations, so the same bits. Raises unless every column that
+    the record reads is contiguous float32 on one GPU."""
+    kind = _table_kind(g)
+    need = table_columns(g)
+    dev = cset[0].sigma_s.device
+    cpb = mesh.ncells_per_block
+    rows, total = [], 0
+    for c in cset:
+        cells = c.sigma_s.numel()
+        nb = cells // cpb
+        for name in need:
+            t = getattr(c, name)
+            # a face array has one face more than cells along its own axis
+            faces = {"px": (0, 0, 1), "py": (0, 1, 0), "pz": (1, 0, 0)}.get(name)
+            want = (cells if faces is None else
+                    nb * (mesh.nz + faces[0]) * (mesh.ny + faces[1]) * (mesh.nx + faces[2]))
+            if (t is None or t.device != dev or dev.type != "cuda" or t.dtype != torch.float32
+                    or not t.is_contiguous() or t.numel() != want):
+                raise ValueError(f"census table kernel: {name} must be {want} contiguous "
+                                 "float32 values on one GPU")
+        rows.append((cells, total))
+        total += cells
+    out = torch.empty((total, _TABLE_WIDTHS[kind]), dtype=torch.float32, device=dev)
+    nrbz, nrby, nrbx = mesh.root_grid
+    permute = int(mesh.n_blocks > 1 and not g.smr)
+    for k0 in range(0, len(cset), MAX_RANGES_PER_TABLE):
+        group = cset[k0:k0 + MAX_RANGES_PER_TABLE]
+        ptrs = [getattr(c, name).data_ptr() if name in need else 0
+                for c in group for name in _TABLE_COLUMNS]
+        ranges = [v for r in rows[k0:k0 + len(group)] for v in r]
+        cuda_lib.library().call(
+            "jb_table_launch", kind, int(g.absorb), out.data_ptr(), len(group),
+            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ranges))(*ranges),
+            mesh.nx, mesh.ny, mesh.nz, nrbx, nrby, permute, float(g.inv_dx[0]), float(g.c),
+            cuda_lib.stream_handle(dev))
+        cuda_lib.LAUNCHES["census_table"] += 1
+    return out
 
 
 def _block_shifts(mesh):
@@ -400,7 +496,7 @@ def _block_shifts(mesh):
 
 def collapse_plain(p, mesh):
     """Shift block-local state to the single synthetic block (in place): the plain
-    version of ``collapse_cuda``."""
+    version of what the census kernel applies where it reads a slot (its fold)."""
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
     bl = (p.block % nrbx, (p.block // nrbx) % nrby, p.block // (nrbx * nrby))
@@ -413,7 +509,8 @@ def collapse_plain(p, mesh):
 
 def expand_plain(p, mesh):
     """Inverse of ``collapse_plain``: recover the owning block from the global
-    indices (in place); the plain version of ``expand_cuda``."""
+    indices (in place); the plain version of what the census kernel applies where
+    it writes a slot back (its fold)."""
     nrbz, nrby, nrbx = mesh.root_grid
     D = _block_shifts(mesh)
     bl = []
@@ -424,43 +521,6 @@ def expand_plain(p, mesh):
         pos -= bk.to(torch.float32) * d
         bl.append(bk)
     p.block.copy_((bl[2] * nrby + bl[1]) * nrbx + bl[0])
-
-
-def _shift_cuda(p, mesh, expand):
-    """``collapse_plain`` (with ``expand``, ``expand_plain``) as one CUDA kernel
-    (``csrc/ledger_kernel.cu``) on PyTorch's current stream: one pass over the
-    ledger for the plain version's 21 (23) elementwise ones, the same float32 and
-    int32 operations on every slot, so the same bits. Raises unless the position,
-    index and block columns are contiguous float32 and int32 on one GPU."""
-    cols = (p.x, p.y, p.z, p.i, p.j, p.k, p.block)
-    dev = p.x.device
-    if (dev.type != "cuda" or any(t.device != dev or not t.is_contiguous()
-                                  or t.shape != (p.capacity,) for t in cols)
-            or any(t.dtype != torch.float32 for t in cols[:3])
-            or any(t.dtype != torch.int32 for t in cols[3:])):
-        raise ValueError("ledger shift kernel: f32 positions and int32 indices and blocks, "
-                         "contiguous on one GPU")
-    nrbz, nrby, nrbx = mesh.root_grid
-    cuda_lib.library().call(
-        "jb_ledger_shift_launch", int(expand),
-        (ctypes.c_void_p * len(cols))(*(t.data_ptr() for t in cols)), p.capacity, nrbx, nrby,
-        mesh.nx, mesh.ny, mesh.nz, *_block_shifts(mesh), cuda_lib.stream_handle(dev))
-    cuda_lib.LAUNCHES["ledger_expand" if expand else "ledger_collapse"] += 1
-
-
-def collapse_cuda(p, mesh):
-    """``collapse_plain`` as one CUDA kernel pass (``_shift_cuda``)."""
-    _shift_cuda(p, mesh, False)
-
-
-def expand_cuda(p, mesh):
-    """``expand_plain`` as one CUDA kernel pass (``_shift_cuda``)."""
-    _shift_cuda(p, mesh, True)
-
-
-# the ledger shift kernels by launch name: (the kernel's wrapper, its plain version)
-LEDGER_SHIFTS = {"ledger_collapse": (collapse_cuda, collapse_plain),
-                 "ledger_expand": (expand_cuda, expand_plain)}
 
 
 def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, idx, vel,
@@ -696,14 +756,25 @@ def _face_column(g: _Geom) -> int:
     return 4 if g.nongray else 2
 
 
-def _census_plain(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int,
+def _census_plain(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None,
                   lane_events=None):
     """All lanes advance one event per loop step (the JAX kernel's tile loop over
     the whole ledger) while their cell lies in their shard's owned range (of
     blocks with SMR, of global z cells in 3D without); ``shards`` are ``_Shard``
-    rows, and a slot in none of them does not run. Returns (iterations, events)
-    as [len(shards)] tensors; ``lane_events``, an int32 tensor of the ledger's
-    length, receives each slot's events."""
+    rows, and a slot in none of them does not run. With ``fold`` a uniform mesh
+    of several blocks: the ledger is collapsed to one block before
+    (``collapse_plain``) and expanded after (``expand_plain``). Returns
+    (iterations, events) as [len(shards)] tensors; ``lane_events``, an int32
+    tensor of the ledger's length, receives each slot's events."""
+    if fold is not None:
+        collapse_plain(p, fold)
+    out = _census_loop(p, tabs, g, shards, max_iters, lane_events)
+    if fold is not None:
+        expand_plain(p, fold)
+    return out
+
+
+def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane_events):
     dev = p.x.device
     f32 = torch.float32
     nd = g.ndim
@@ -975,23 +1046,32 @@ def _resident(ndim, absorb, ddmc, smr, nongray) -> int:
     return resident_blocks(ndim, absorb, ddmc, smr, nongray)
 
 
-def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int):
+def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None):
     """The census kernel on PyTorch's current stream (no synchronisation), one
     launch for every MAX_SHARDS_PER_LAUNCH shards; the ledger was checked by
-    ``_check_cuda_ledger``."""
+    ``_check_cuda_ledger``. With ``fold`` a uniform mesh of several blocks, the
+    kernel folds ``collapse_plain`` into its reads and ``expand_plain`` into its
+    writes, on every slot, so the launches must cover the whole ledger."""
     dev = p.x.device
     n = len(shards)
     groups = [shards[k:k + MAX_SHARDS_PER_LAUNCH] for k in range(0, n, MAX_SHARDS_PER_LAUNCH)]
-    events = torch.zeros(n, dtype=torch.int64, device=dev)
-    iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    if fold is not None and (min(sh.slot_lo for sh in shards) != 0
+                             or max(sh.slot_hi for sh in shards) != p.capacity):
+        raise ValueError("transport kernel: a collapsed census covers the whole ledger")
+    # one fill for both counters: events (int64) and, after them, iters (int32)
+    counters = torch.zeros(2 * n, dtype=torch.int64, device=dev)
+    events, iters = counters[:n], counters[n:].view(torch.int32)[:n]
     cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
             p.face, p.block, p.energy, p.leak)
     ptrs = (ctypes.c_void_p * len(cols))(*(t.data_ptr() for t in cols))
-    ints = (*g.n, *g.bc, int(max_iters), *g.ntiles)
+    nrbz, nrby, nrbx = fold.root_grid if fold is not None else (1, 1, 1)
+    nloc = (fold.nx, fold.ny, fold.nz) if fold is not None else (1, 1, 1)
+    shifts = _block_shifts(fold) if fold is not None else (0.0, 0.0, 0.0)
+    ints = (*g.n, *g.bc, int(max_iters), *g.ntiles, int(fold is not None), nrbx, nrby, *nloc)
     floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
               g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt, g.tau_ddmc, g.eps_imc, g.eps_ddmc,
               g.dt, g.inv_dt, g.lam2, g.pf2_num, *g.tile, *g.nudge_cross, *g.nudge_tilt,
-              *g.ng)
+              *g.ng, *shifts)
     smr = (tabs.block, tabs.level, tabs.lookup) if g.smr else (None, None, None)
     name = launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route)
     for k, group in enumerate(groups):
@@ -1055,7 +1135,13 @@ def prepare(coefs, mesh, prm, dt, own=None) -> Census:
     """The census set-up of one step ``dt``: with ``own`` None the whole mesh and
     its coefficients; with an ``OwnedRange`` that range and its coefficients (see
     ``OwnedRange``); with a sequence of ranges, all of one kind, a sequence of
-    coefficient sets, one per range (the local shards of a spatial round)."""
+    coefficient sets, one per range (the local shards of a spatial round). On a
+    GPU the table kernel builds the cell table, on the CPU its plain version."""
+    first = coefs[0] if own is not None and not isinstance(own, OwnedRange) else coefs
+    return _prepare(coefs, mesh, prm, dt, own, first.sigma_s.device.type == "cuda")
+
+
+def _prepare(coefs, mesh, prm, dt, own, kernel) -> Census:
     multi = own is not None and not isinstance(own, OwnedRange)
     owns = tuple(own) if multi else (whole_mesh(mesh) if own is None else own,)
     cset = list(coefs) if multi else [coefs]
@@ -1074,8 +1160,7 @@ def prepare(coefs, mesh, prm, dt, own=None) -> Census:
     g = _geometry(mesh, prm, dt, cset[0], smr)
     if own is not None:
         g = dataclasses.replace(g, route=owns[0].route)
-    tabs = _tables(cset[0] if len(cset) == 1 else _concat_coefs(cset), mesh, g)
-    return Census(g, tabs, owns, tuple(rows))
+    return Census(g, _tables(cset, mesh, g, kernel), owns, tuple(rows))
 
 
 def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
@@ -1089,23 +1174,17 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
             raise ValueError("transport: a prepared census carries its owned ranges")
         setup = coefs
     else:
-        setup = prepare(coefs, mesh, prm, dt, own)
+        setup = _prepare(coefs, mesh, prm, dt, own, census is _census_cuda)
     if not (len(ledgers) == len(seeds) == len(setup.owns)):
         raise ValueError("transport: one ledger and one seed per owned range")
-    kernel = census is _census_cuda
-    if kernel:
+    if census is _census_cuda:
         _check_cuda_ledger(p, setup.tabs)
     shards = tuple(_Shard(lo, hi, *o.bounds(), row, int(sd))
                    for (lo, hi), o, row, sd in zip(slices, setup.owns, setup.rows, seeds))
     # a uniform forest of several blocks runs collapsed to one; a forest run block
     # by block (SMR) stays as it is
-    collapsed = mesh.n_blocks > 1 and not setup.g.smr
-    collapse, expand = (collapse_cuda, expand_cuda) if kernel else (collapse_plain, expand_plain)
-    if collapsed:
-        collapse(p, mesh)
-    iters, events = census(p, setup.tabs, setup.g, shards, prm.max_iters, **kw)
-    if collapsed:
-        expand(p, mesh)
+    fold = mesh if mesh.n_blocks > 1 and not setup.g.smr else None
+    iters, events = census(p, setup.tabs, setup.g, shards, prm.max_iters, fold, **kw)
     if multi:
         return particles, iters, events
     return particles, iters[0], events[0]

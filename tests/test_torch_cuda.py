@@ -833,40 +833,108 @@ def test_3d_ddmc_bitwise_over_several_waves(gpu, smr, absorb, case):
     assert torch.equal(k.tau[dead], p0.tau[dead]) and torch.equal(k.vx[dead], p0.vx[dead])
 
 
+# ------------------------------ the census table and the fold into the census
+
+
+@pytest.mark.parametrize("layout", ["one_block_1d", "uniform_1d", "uniform_3d", "forest_2d",
+                                    "z_ranges_2", "z_ranges_20", "block_ranges_2"])
+@pytest.mark.parametrize("kind", ["pair", "pair_abs", "ddmc", "ddmc_abs", "nongray",
+                                  "nongray_ddmc"])
+def test_census_table_kernel_matches_plain(gpu, kind, layout):
+    """The table kernel (``csrc/table_kernel.cu``, through ``prepare`` on the card)
+    against the rows computed cell by cell (tests/test_torch_table.py) and against
+    its plain version ``_pair_table`` on the same tensors: bitwise, every record
+    kind on every layout, one launch a group of 16 ranges."""
+    from test_torch_table import table_case
+
+    coefs, mesh, prm, dt, own, want = table_case(kind, layout, dev=gpu)
+    before = cuda_lib.LAUNCHES["census_table"]
+    census = transport_kernel.prepare(coefs, mesh, prm, dt, own)
+    groups = 1 if own is None else -(-len(own) // transport_kernel.MAX_RANGES_PER_TABLE)
+    assert cuda_lib.LAUNCHES["census_table"] == before + groups
+    got = census.tabs.cell
+    assert got.is_cuda and torch.equal(got.cpu().view(torch.int32), want)
+    cset = [coefs] if own is None else coefs
+    plain = transport_kernel._pair_table(cset[0] if len(cset) == 1
+                                         else transport_kernel._concat_coefs(cset), mesh,
+                                         census.g)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+
+
+def _scramble_idle_slots(p, mesh, seed):
+    """A fifth of the slots dead, at random blocks, cells and positions (-0.0 in
+    y), and a tenth of the live ones finished (tau = 1): slots that no lane takes,
+    whose collapse to one block and expansion back change their bits. A dead
+    slot's block and cells stay inside the mesh, as a census leaves them: the plain
+    census clips every slot's cell to the mesh, taken or not."""
+    rng = np.random.default_rng(seed)
+    dev = p.x.device
+    p.alive &= torch.as_tensor(rng.random(p.capacity) >= 0.2, device=dev)
+    dead = ~p.alive
+    m = int(dead.sum())
+    for name, n in (("i", mesh.nx), ("j", mesh.ny), ("k", mesh.nz)):
+        getattr(p, name)[dead] = torch.as_tensor(rng.integers(0, n, m), dtype=torch.int32,
+                                                 device=dev)
+    p.block[dead] = torch.as_tensor(rng.integers(0, mesh.n_blocks, m), dtype=torch.int32,
+                                    device=dev)
+    p.x[dead] = torch.as_tensor(rng.normal(size=m), dtype=torch.float32, device=dev)
+    p.y[dead] = -0.0
+    done = p.alive & torch.as_tensor(rng.random(p.capacity) < 0.1, device=dev)
+    p.tau[done] = 1.0
+
+
+def _same_bits(k, q):
+    for f in dataclasses.fields(k):
+        a, b = getattr(k, f.name), getattr(q, f.name)
+        if a.dtype == torch.float32:  # the bits, signed zeros too
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (f.name, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("ddmc", [False, True])
 @pytest.mark.parametrize("ndim", [1, 2, 3])
-def test_ledger_shift_kernel_matches_plain(gpu, ndim):
-    """The collapse of a uniform multi-block ledger to one block and its expansion
-    back, each one kernel pass, against the plain version's elementwise operations:
-    every column bitwise after each, on the live and dead slots of ``_grid_setup``'s
-    (``_hybrid_setup``'s in 1D) ledger with its dead slots' indices, blocks and
-    positions at random (negative, past the mesh, -0.0); both launches counted."""
-    if ndim == 1:
-        dt, mesh, prm, p0, coefs = _hybrid_setup(gpu, 1, False, n=20000)
+def test_folded_census_matches_plain_collapse(gpu, ndim, ddmc):
+    """A census on a uniform mesh of several blocks, the collapse to one block and
+    the expansion folded into the kernel's reads and writes, against the plain
+    collapse, census and expansion: every column bitwise, dead and finished slots
+    too, whose round trip changes their bits; no other kernel launched."""
+    if ddmc:
+        dt, mesh, prm, p0, coefs = _hybrid_setup(gpu, ndim, True, n=20000)
+    elif ndim == 1:
+        dt, mesh, prm, p0, coefs = _hybrid_setup(gpu, 1, True, n=20000)
+        prm = dataclasses.replace(prm, use_ddmc=False)
     else:
         dt, mesh, prm, p0, coefs = _grid_setup(gpu, ndim, n=20000)
-    rng = np.random.default_rng(ndim)
-    dead = ~p0.alive
-    m = int(dead.sum())
-    for name in ("i", "j", "k"):
-        getattr(p0, name)[dead] = torch.as_tensor(rng.integers(-40, 40, m), dtype=torch.int32,
-                                                  device=gpu)
-    p0.block[dead] = torch.as_tensor(rng.integers(-3, 2 * mesh.n_blocks, m), dtype=torch.int32,
-                                     device=gpu)
-    p0.x[dead] = torch.as_tensor(rng.normal(size=m), dtype=torch.float32, device=gpu)
-    p0.y[dead] = -0.0
-    before = {k: cuda_lib.LAUNCHES[k] for k in transport_kernel.LEDGER_SHIFTS}
+    assert mesh.n_blocks > 1
+    _scramble_idle_slots(p0, mesh, ndim)
+    name = transport_kernel.launch_name(ndim, True, prm.use_ddmc)
+    before = dict(cuda_lib.LAUNCHES)
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, 99, prm, dt)
+    launched = {n: c - before.get(n, 0) for n, c in cuda_lib.LAUNCHES.items()
+                if c != before.get(n, 0)}
+    assert launched == {name: 1, "census_table": 1}
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 99, prm, dt)
+    _same_bits(k, q)
+    assert int(it_k) == int(it_q) and int(ev_k) == int(ev_q) > 0
+    assert not torch.equal(k.x.view(torch.int32)[~p0.alive], p0.x.view(torch.int32)[~p0.alive])
+
+
+@pytest.mark.parametrize("route", ["z", "z_ddmc"])
+def test_folded_round_over_8_shards_matches_plain(gpu, route):
+    """A spatial round's one launch over 8 shards' joined ledger on a uniform mesh
+    (tests/test_torch_schedule.py's z slabs), with the fold, against the plain
+    collapse, round and expansion of the joined ledger: every column bitwise,
+    the unowned, dead and finished slots too, the same iterations and events."""
+    from test_torch_schedule import one_call_round, shard_case
+
+    p0, coefs, mesh, seeds, prm, dt, owns = shard_case(route, 4096, dev=gpu)
+    _scramble_idle_slots(p0, mesh, 8)
     k, q = p0.clone(), p0.clone()
-    for name, (kernel, plain) in transport_kernel.LEDGER_SHIFTS.items():
-        kernel(k, mesh)
-        plain(q, mesh)
-        for f in dataclasses.fields(k):
-            a, b = getattr(k, f.name), getattr(q, f.name)
-            if a.dtype == torch.float32:  # the bits, signed zeros too
-                a, b = a.view(torch.int32), b.view(torch.int32)
-            assert torch.equal(a, b), (f.name, name)
-    assert {k: cuda_lib.LAUNCHES[k] - v for k, v in before.items()} == {
-        "ledger_collapse": 1, "ledger_expand": 1}
-    assert not torch.equal(k.x, p0.x) or mesh.n_blocks == 1
+    it_k, ev_k = one_call_round(transport_kernel.transport, k, coefs, mesh, seeds, prm, dt, owns)
+    it_q, ev_q = one_call_round(transport_kernel.transport_plain, q, coefs, mesh, seeds, prm,
+                                dt, owns)
+    _same_bits(k, q)
+    assert torch.equal(it_k, it_q) and torch.equal(ev_k, ev_q)
 
 
 # ------------------------------- the event loop's cell cache and early draws

@@ -47,7 +47,7 @@ def test_path_mix_counters_apply_to_the_kernel():
     # the flags are set inside the IMC branch and after the DDMC event, and read
     # where every event ends
     assert out.index("pm_scatter = scatter;") < out.index("const unsigned m = __activemask();")
-    assert (out.index("ddmc_event<NDIM, ABSORB>(g, o.seed") < out.index("pm_leak = leak != 0;")
+    assert (out.index("ddmc_event<NDIM, ABSORB, kCell>(g, o.seed") < out.index("pm_leak = leak != 0;")
             < out.index("pm_scatter = scatter;"))
 
 

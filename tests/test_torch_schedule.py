@@ -326,12 +326,3 @@ def test_plain_collapse_round_trip(route):
         assert torch.equal(getattr(p, name), getattr(p0, name)), name
     extent = max(transport_kernel._block_shifts(mesh))
     assert float((p.z - p0.z).abs().max()) <= 4 * np.finfo(np.float32).eps * 8 * extent
-
-
-def test_ledger_shift_kernel_refuses_a_cpu_ledger():
-    """The ledger shift kernels' wrappers launch on a GPU or raise: a CPU ledger
-    takes the plain versions, inside ``transport``, and never the wrappers."""
-    p0, coefs, mesh, seeds, prm, dt, owns = shard_case("z", 16)
-    for kernel, _ in transport_kernel.LEDGER_SHIFTS.values():
-        with pytest.raises(ValueError, match="contiguous on one GPU"):
-            kernel(p0, mesh)
