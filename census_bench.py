@@ -23,13 +23,15 @@ more tree, timed in the same turns. Nothing here imports jax.
 2. Child processes, each importing the package of one tree (``--child``), time the
    census kernel on those inputs: every route the median of ``--repeats``
    censuses, each on a fresh copy of the saved ledger, timed with CUDA events
-   after a device sleep (as ``chip_smoke.time_census``), and in the same censuses
-   the parts of the call (``chip_smoke.CallSplit``: the table set-up, the kernel
-   with its counters, its launch alone, the shifts). The children run in turns,
+   after a device sleep (as ``chip_smoke.time_census``), and in as many more the
+   parts of the call (``chip_smoke.CallSplit``: the cell table, the forest
+   tables, the counters, the census launch; apart, since its events lengthen a
+   call). The children run in turns,
    parent, the variants, this tree, this tree, the variants in reverse, parent,
    ``--turns`` times over. Every child
    digests each route's output ledger; the script fails unless all children agree
-   on every digest, so the two trees' kernels are bitwise equal there.
+   on every digest and every event count, so the trees' kernels are bitwise equal
+   there and their counters agree.
 3. ``--profile`` runs ``python -m jaybenne_tpu_torch.profile`` from each tree's
    root in the same turns on stepdiff_smr (64x32, 100k particles), the 64^3
    feedback row, the 64^3 DDMC row and stepdiff_3d (``chip_smoke.py`` phases 14
@@ -42,15 +44,17 @@ that built the tree's library), the instantiations whose resources differ from
 the parent's, and their event loop's common-path SASS instructions
 (``chip_smoke.common_paths`` on the tree's sources); one line per route with every
 tree's medians, ranges and their ratio to the parent's, the kernel alone's and the
-call's parts; each tree's warp path mix (MIX_ROUTES: ``--mix-child``, its
-kernel's counting variant, ``chip_smoke.path_mix``), with how their lane-events
+call's parts; the parent's and this tree's warp path mix (MIX_ROUTES:
+``--mix-child``, its kernel's counting variant, ``chip_smoke.path_mix``; the
+variants share their event loop with one of them), with how their lane-events
 spread over the SMs (%smid); on the DDMC routes (``chip_smoke.DDMC_ROUTES``) its
 DDMC reading (``ddmc_reading``: the kernel alone, registers and resident blocks,
 the slot order's warp efficiency, the live lanes and events by block of 256
 slots, the events of a live lane, the DDMC path mix with its issue time and share
 from the DDMC event's SASS, and on stepdiff_3d the events of a live lane by the
-level of its block); on the non-gray route its reading (``ng_reading``: the same,
-and the opacity's SASS against the event loop's); the lane sweep's time an event
+level of its block); on the non-gray routes their reading (``ng_reading``: the same,
+the kernel alone with its slots spread and in order, and the opacity's SASS against
+the event loop's); the lane sweep's time an event
 at 1, 2 and 4 times the live lanes of SWEEP_ROUTES (a time an event that falls
 with more lanes says the census leaves throughput unused: unevenly loaded SMs,
 which the path mix shows, or latency); with ``--out`` it writes everything there
@@ -192,10 +196,11 @@ def digest(p) -> str:
 
 
 MIX_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
-              "transport_1d_ddmc", "transport_1d_abs_ddmc", "transport_3d_abs_ng")
-# the non-gray route whose opacity's share of the event loop is read: the loop as
+              "transport_1d_ddmc", "transport_1d_abs_ddmc", "transport_3d_abs_ng",
+              "transport_1d_abs_ng", "transport_2d_abs_smr_ng")
+# the non-gray routes whose opacity's share of the event loop is read: the loop as
 # built, and with EPBremss returning at once (``chip_smoke.LOOP_PATHS``)
-NG_ROUTES = ("transport_3d_abs_ng",)
+NG_ROUTES = ("transport_3d_abs_ng", "transport_1d_abs_ng", "transport_2d_abs_smr_ng")
 NG_PATHS = ("scatter", "full", "no_opacity")
 
 
@@ -214,22 +219,28 @@ def this_chip_smoke():
 DD_PATHS = ("dd_leak", "dd_step", "dd_any")
 
 
-def kernel_alone(cs, tk, dev, p0, args, repeats) -> list:
+def kernel_alone(cs, tk, dev, p0, args, repeats, spread=None) -> list:
     """Sorted ms of the census kernel alone with its counters (``chip_smoke.CallSplit``'s
     ``kernel``) in ``repeats`` censuses on fresh copies of ``p0``, each after a
-    device sleep."""
+    device sleep; with ``spread`` False or True, each launch's slots spread or not
+    whatever ``transport_kernel.spreads`` would choose."""
     import torch
 
     from jaybenne_tpu_torch.ops import cuda_lib
 
-    times = []
-    with cs.CallSplit(tk, cuda_lib.library()) as win:
-        for _ in range(repeats):
-            p = p0.clone()
-            torch.cuda.synchronize(dev)
-            torch.cuda._sleep(50_000_000)
-            tk.transport(p, *args)
-            times.append(win.ms()["kernel"])
+    times, chooser = [], tk.spreads
+    if spread is not None:
+        tk.spreads = lambda *a: spread
+    try:
+        with cs.CallSplit(tk, cuda_lib.library()) as win:
+            for _ in range(repeats):
+                p = p0.clone()
+                torch.cuda.synchronize(dev)
+                torch.cuda._sleep(50_000_000)
+                tk.transport(p, *args)
+                times.append(win.ms()["kernel"])
+    finally:
+        tk.spreads = chooser
     return sorted(times)
 
 
@@ -291,7 +302,8 @@ def history_line(label, lanes, p) -> None:
 
 def ng_reading(cs, tk, dev, label, inputs, res, paths, mix, repeats) -> dict:
     """The reading of a non-gray route (NG_ROUTES) on a census's ``inputs``: the
-    kernel alone, the event loop's line (its common path a scatter in the cell),
+    kernel alone (with its slots spread over the launch's blocks and without), the
+    event loop's line (its common path a scatter in the cell),
     how its lanes spread over blocks of 256 slots, the events of a live lane, and
     the opacity's SASS: the event loop as built (``paths["full"]``) less the loop
     with EPBremss returning at once, which a lane runs when it gathers its cell
@@ -302,15 +314,20 @@ def ng_reading(cs, tk, dev, label, inputs, res, paths, mix, repeats) -> dict:
     import torch
 
     p, args = inputs
-    prm = args[3]
+    prm, smr = args[3], args[1].max_level > 0
     events = int(tk.transport(p.clone(), *args)[2])
     if mix["lane_events"] != events:
         raise AssertionError(f"{label} path mix: {mix['lane_events']} lane-events, census "
                              f"{events}")
     k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats))
-    print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
+    blocks = tk.resident_blocks(prm.ndim, True, False, smr, True)
+    spreads = tk.spreads(p.capacity, torch.cuda.get_device_properties(dev).multi_processor_count,
+                         blocks)
+    other = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats, not spreads))
+    print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms, its slots "
+          f"{'spread' if spreads else 'in order'}; {other!r} ms "
+          f"{'in order' if spreads else 'spread'}", flush=True)
     lanes = cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["scatter"])
-    blocks = tk.resident_blocks(prm.ndim, True, False, False, True)
     cs.block_spread_line(label, lanes, p, blocks, dev)
     history_line(label, lanes, p)
     we = mix["warp_events"]
@@ -328,7 +345,8 @@ def ng_reading(cs, tk, dev, label, inputs, res, paths, mix, repeats) -> dict:
           f"a warp-event at the issue rate {issue_ms!r} ms, {issue_ms / k_ms!r} of the kernel "
           f"alone; lane-events a SM (%smid): max/mean "
           f"{max(mix['by_sm']) * sms / sum(mix['by_sm'])!r}", flush=True)
-    return {**mix, "kernel_ms": k_ms, "issue_ms": issue_ms, "warp_issue_share": issue_ms / k_ms,
+    return {**mix, "kernel_ms": k_ms, "kernel_ms_other_spread": other, "spreads": spreads,
+            "issue_ms": issue_ms, "warp_issue_share": issue_ms / k_ms,
             "opacity_instructions": opacity, "slot_order_warp_efficiency":
             tk.warp_efficiency(lanes)}
 
@@ -430,18 +448,23 @@ def child(inputs, pkg, repeats, out) -> None:
 
         census(p0.clone())  # warm-up
         times, parts = [], []
+        for _ in range(repeats):
+            p = p0.clone()
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)  # ~25 ms at 1980 MHz
+            start.record()
+            events = census(p)
+            stop.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(stop))
         with cs.CallSplit(tk, lib) as win:
             for _ in range(repeats):
-                p = p0.clone()
+                q = p0.clone()
                 torch.cuda.synchronize(dev)
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                torch.cuda._sleep(50_000_000)  # ~25 ms at 1980 MHz
-                start.record()
-                events = census(p)
-                stop.record()
-                torch.cuda.synchronize(dev)
-                times.append(start.elapsed_time(stop))
+                torch.cuda._sleep(50_000_000)
+                census(q)
                 parts.append(win.ms())
         clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
                                 "nounits"], capture_output=True, text=True, check=True).stdout
@@ -543,7 +566,7 @@ def main(argv=None) -> int:
                            timeout=1800)
             with open(out) as f:
                 summary["children"].append({**json.load(f), "tree": label[tree]})
-        for tree in trees:
+        for tree in (parent, ROOT):
             out = os.path.join(tmp, f"mix_{len(summary['mix'])}.json")
             subprocess.run([sys.executable, os.path.abspath(__file__), "--repeats",
                             str(args.repeats), "--mix-child", inputs, tree, out], check=True,
@@ -561,6 +584,9 @@ def main(argv=None) -> int:
         seen = {kid["routes"][name]["digest"] for kid in kids}
         if len(seen) != 1:
             raise AssertionError(f"{name}: output ledgers differ between runs: {seen}")
+        counts = {kid["routes"][name]["events"] for kid in kids}
+        if len(counts) != 1:
+            raise AssertionError(f"{name}: events differ between runs: {counts}")
     for tree in trees:
         logs = [kid.pop("build_log") for kid in kids if kid["tree"] == label[tree]]
         log = own_log if tree == ROOT else next((log for log in logs if log), "")
@@ -600,10 +626,10 @@ def main(argv=None) -> int:
         for tree in trees:
             runs = [kid["routes"][name] for kid in kids if kid["tree"] == label[tree]]
             med = {k: statistics.median(statistics.median(r[k]) for r in runs)
-                   for k in ("table", "kernel", "launch", "shifts")}
-            row.append(f"{label[tree]} table {med['table']!r}, counters "
-                       f"{med['kernel'] - med['launch']!r}, census launch {med['launch']!r}, "
-                       f"shifts {med['shifts']!r}")
+                   for k in ("table", "forest", "counters", "launch", "gap")}
+            row.append(f"{label[tree]} cell table {med['table']!r}, forest tables "
+                       f"{med['forest']!r}, counters {med['counters']!r}, census launch "
+                       f"{med['launch']!r} (gap {med['gap']!r})")
         print(f"  {name} call split, median over the turns (ms): " + " | ".join(row), flush=True)
         if name in cs.EVENT_LOOP_ROUTES:
             print(f"  {name} issue share (common path x events over the median census x "
@@ -611,7 +637,7 @@ def main(argv=None) -> int:
                   + ", ".join(f"{label[t]} {issue_share(kids, label[t], name, summary, sms)!r}"
                               for t in trees), flush=True)
     for name in MIX_ROUTES:
-        for tree in trees:
+        for tree in (parent, ROOT):
             m = summary["mix"][label[tree]][name]
             we = m["warp_events"]
             what = (f"DDMC {m['ddmc'] / we!r}, leaked {m['dd_leak'] / we!r}, DDMC census "
@@ -623,7 +649,9 @@ def main(argv=None) -> int:
                     f"gathered anew {m['regather'] / we!r}, crossed {m['cross'] / we!r}; the "
                     f"opacity {m['opacity_instructions']} SASS a gather; the whole loop at the "
                     f"issue rate {m['issue_ms']!r} ms, {m['warp_issue_share']!r} of the kernel "
-                    f"alone {m['kernel_ms']!r} ms; slot-order warp efficiency "
+                    f"alone {m['kernel_ms']!r} ms (slots "
+                    f"{'spread' if m['spreads'] else 'in order'}; "
+                    f"{m['kernel_ms_other_spread']!r} ms if not); slot-order warp efficiency "
                     f"{m['slot_order_warp_efficiency']!r}"
                     if name in NG_ROUTES else f"crossed {m['cross'] / we!r}")
             print(f"path mix {name} {label[tree]}: {we} warp-events, SIMT efficiency "

@@ -95,11 +95,12 @@ Phases:
      share of a T^4 that the thermal source put in (0.76 at 0.76 particles a
      cell), sum(tally dV) conserved to 1e-5, every census complete, a bitwise
      rerun; on the last census's inputs the call split (``call_split_line``: the
-     table, the counters, the launch), a full census whose kernel folds the
-     ledger's collapse to one block and its expansion back into its reads and
-     writes against the plain collapse, census and expansion, every column
-     bitwise (``fold_check``), and the census table kernel (csrc/table_kernel.cu,
-     one launch a census) against its plain version, bitwise, timed beside its
+     cell table, the forest tables, the counters, the launch), a full census
+     whose kernel folds the ledger's collapse to one block and its expansion back
+     into its reads and writes against the plain collapse, census and expansion,
+     every column bitwise (``fold_check``), and the census table kernel
+     (csrc/table_kernel.cu, one launch a census) against its plain version,
+     bitwise, timed beside its
      bound (``table_check``); phase 30 holds the table so on big_mesh_spatial's
      eight coefficient sets and the fold on its joined ledger, and every counted
      path lists the table kernel's launches in its entry (``note_table``); then
@@ -136,7 +137,8 @@ Phases:
      particles with the ep_bremss overrides of tests/test_pallas.py:1402-1416, one
      step through transport_1d_abs_ng: w_live + absorbed = w0 to 1e-4, the
      survivors harden, and their count and mean energy agree with the JAX
-     package's run of the same configuration (within 4 sqrt(n) and 0.3);
+     package's run of the same configuration (within 4 sqrt(n) and 0.3); on the
+     census's inputs the call split;
  24. K3's non-gray function: bench.py's big_mesh_feedback geometry (64^3 cells in
      8^3 blocks, 200k particles, emission and feedback) with EPBremss and the other
      ep_bremss overrides, 3 steps of 1e-12 s through transport_3d_abs_ng: energy
@@ -145,7 +147,7 @@ Phases:
      the table kernel and the fold, bitwise against their plain versions;
  25. K4's non-gray function: inputs/stepdiff_smr.in as shipped (128x64 cells, 100k
      particles) with the overrides of tests/test_pallas.py:1531-1546, one step
-     through transport_2d_abs_smr_ng: the gates of phase 23;
+     through transport_2d_abs_smr_ng: the gates and the call split of phase 23;
  26. the Su-Olson gate: inputs/suolson.in as shipped (64 cells, 40 steps, 8000 +
      8000 particles) with tst/suolson.py's overrides: the external source, the
      power-law-cv EOS and the 1D absorbing kernel; E_matter + E_radiation - E(0)
@@ -949,20 +951,32 @@ def path_mix_line(name, mix, paths, ms, events, dev) -> dict:
 
 class CallSplit:
     """While active, puts CUDA events around the parts of each census call of a
-    tree's ``transport_kernel`` (any tree of the same layout): ``table``, the
-    census set-up (``_prepare``, or ``prepare`` in a tree without it); ``kernel``,
-    the kernel with its counters (``_census_cuda``); ``launch``, the census
-    kernel's launch alone (``jb_transport_launch``); ``shifts``, the ledger shift
-    kernels where the tree has them. ``ms()`` sums each part's windows since its
-    last call."""
+    tree's ``transport_kernel`` (any tree of the same layout): ``setup``, the
+    census set-up (``_prepare``), and inside it ``table``, the cell table kernel
+    (``_table_cuda``; what else the set-up runs on the device is the forest
+    tables); ``kernel``, the kernel with its counters (``_census_cuda``);
+    ``launch``, the census kernel's launch alone (``jb_transport_launch``); and
+    ``gap``, an empty window (two events recorded back to back) before each
+    kernel window. ``ms()`` sums each part's windows since its last call, and
+    derives ``forest`` (the set-up less the cell table) and ``counters`` (the
+    kernel with its counters less its launch), each less the gaps that the
+    windows' events add to it: an empty window reads one gap, so a window with
+    nothing inside holds one, and one with a window inside it two more. Each event
+    recorded takes the queue a few microseconds, so a call timed inside these
+    windows runs longer than one timed alone: time the call without them."""
 
-    PARTS = {"_census_cuda": "kernel", "collapse_cuda": "shifts", "expand_cuda": "shifts"}
+    PARTS = {"_prepare": "setup", "_table_cuda": "table", "_census_cuda": "kernel"}
 
     def __init__(self, tk, lib):
         self.tk, self.lib, self.events, self.saved = tk, lib, [], {}
 
     def _window(self, part, fn):
         def timed(*args, **kw):
+            if part == "kernel":
+                empty = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                for e in empty:
+                    e.record()
+                self.events.append(("gap", *empty))
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -973,11 +987,9 @@ class CallSplit:
         return timed
 
     def __enter__(self):
-        table = "_prepare" if hasattr(self.tk, "_prepare") else "prepare"
-        for attr, part in {table: "table", **self.PARTS}.items():
-            if hasattr(self.tk, attr):
-                self.saved[attr] = getattr(self.tk, attr)
-                setattr(self.tk, attr, self._window(part, self.saved[attr]))
+        for attr, part in self.PARTS.items():
+            self.saved[attr] = getattr(self.tk, attr)
+            setattr(self.tk, attr, self._window(part, self.saved[attr]))
         call = self.lib.call
         launch = self._window("launch", call)
         self.lib.call = lambda name, *a: (launch if name == "jb_transport_launch" else call)(
@@ -991,10 +1003,14 @@ class CallSplit:
 
     def ms(self) -> dict:
         torch.cuda.synchronize()
-        out = dict.fromkeys(("table", "kernel", "launch", "shifts"), 0.0)
+        out = dict.fromkeys(("setup", "table", "kernel", "launch", "gap"), 0.0)
         for part, a, b in self.events:
             out[part] += a.elapsed_time(b)
         self.events = []
+        # a window's own events take one gap, and each window inside it two more
+        inner = 2 if out["table"] else 1
+        out["forest"] = out["setup"] - out["table"] - inner * out["gap"] if out["setup"] else 0.0
+        out["counters"] = out["kernel"] - out["launch"] - 2 * out["gap"]
         return out
 
 
@@ -1002,9 +1018,10 @@ def call_split_line(transport_kernel, dev, inputs, name) -> dict:
     """Prints the parts of a census call of the route ``name`` on a census's
     ``inputs`` ((ledger, args) of ``transport``), each the median of
     CENSUS_REPEATS calls on fresh copies after a device sleep (``CallSplit``): the
-    table set-up, the counters (the kernel with its counters less its launch),
-    the census launch and the ledger shift kernels (0 where the census folds the
-    collapse to one block in). Returns the medians."""
+    cell table, the forest tables (the rest of the set-up), the counters (the
+    kernel with its counters less its launch), the census launch, and the gap
+    that an event recorded adds, taken off the two parts derived. Returns the
+    medians."""
     from jaybenne_tpu_torch.ops import cuda_lib
 
     p0, args = inputs
@@ -1017,10 +1034,9 @@ def call_split_line(transport_kernel, dev, inputs, name) -> dict:
             transport_kernel.transport(p, *args)
             parts.append(win.ms())
     med = {k: statistics.median(d[k] for d in parts) for k in parts[0]}
-    med["counters"] = statistics.median(d["kernel"] - d["launch"] for d in parts)
-    print(f"{name} call split (medians of {CENSUS_REPEATS} calls, ms): table {med['table']!r}, "
-          f"counters {med['counters']!r}, census launch {med['launch']!r}, shifts "
-          f"{med['shifts']!r}", flush=True)
+    print(f"{name} call split (medians of {CENSUS_REPEATS} calls, ms): cell table "
+          f"{med['table']!r}, forest tables {med['forest']!r}, counters {med['counters']!r}, "
+          f"census launch {med['launch']!r} (gap an event adds {med['gap']!r})", flush=True)
     return med
 
 
@@ -2054,6 +2070,7 @@ def nongray_phases(transport_kernel, dev, cost, src) -> list:
     k1e, k1e_launches, k1e_in, _ = run_path(DECK, NG_GATE, name_1, 1, conserves_tally=False)
     spectral_gate(k1e, p0, "non-gray K1(e)", NG_GATE_JAX)
     k_1 = path_kernel(transport_kernel, dev, k1e, k1e_in, name_1, cost)
+    call_split_line(transport_kernel, dev, k1e_in, name_1)
 
     phase("24 K3 non-gray: 64^3 cells, 200k particles, EPBremss, emission and feedback, "
           "3 steps")
@@ -2085,6 +2102,7 @@ def nongray_phases(transport_kernel, dev, cost, src) -> list:
         raise AssertionError(f"stepdiff_smr: {k4.mesh.n_blocks} blocks")
     spectral_gate(k4, p0, "non-gray K4", NG_SMR_JAX)
     k_s = path_kernel(transport_kernel, dev, k4, k4_in, name_s, cost)
+    call_split_line(transport_kernel, dev, k4_in, name_s)
 
     phase("26 Su-Olson: suolson.in as shipped (64 cells, 40 steps, 8000 + 8000 particles)")
     name_a1 = transport_kernel.launch_name(1, True)

@@ -45,6 +45,11 @@
 // DDMC row's 262144 rows of 8 floats in 0.0115 ms (bound 0.0039, the plain
 // version's passes 0.094), the 64^3 ep_bremss row's rows of 4 in 0.0075 (bound
 // 0.0025, plain 0.032): one launch, a few microseconds of it the launch itself.
+// Where the non-gray record is a verbatim copy of four coefficient columns (no
+// DDMC, one range, one block or a forest run block by block) the census kernel
+// reads the columns and this pass is not run: it took 0.005 of stepdiff's 0.021
+// ms ep_bremss call (census_bench.py, the same card); it still builds every
+// other record, and that one where asked (the tests hold it to the same rows).
 #include <cuda_runtime.h>
 
 #include <cstdint>

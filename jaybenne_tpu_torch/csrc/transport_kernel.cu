@@ -132,7 +132,8 @@
 //     stall a lane whose cell changed until the next one: the same function;
 //   * events and the iteration maximum are summed per shard, in shared memory
 //     and then with one int64 atomicAdd and one int32 atomicMax per block and
-//     shard: integer atomics, so the statistics repeat exactly.
+//     shard: integer atomics, so the statistics repeat exactly. The launch entry
+//     zeroes the counters on the stream first (one cudaMemsetAsync).
 //
 // What bounds it on an H100: not bytes (each particle is read and written once
 // per call, and the one table gather per event hits L1 or L2; SMR's block and
@@ -290,6 +291,29 @@
 // instantiations, built and dropped, took the twin's call 4 % lower and
 // stepdiff_ddmc's 1.3 % higher.
 //
+// The two non-gray census calls on one block and on a forest (stepdiff and
+// stepdiff_smr with ep_bremss: 1.6 and 2.2 events a live lane, 55 % of the
+// launch's blocks without one, the loop at the issue rate 0.21 and 0.36 of the
+// kernel). Measured first (NVIDIA H100 80GB HBM3, 700.00 W; census_bench.py, the
+// call's parts in calls of their own, each less the two gaps its events add): on
+// the forest the set-up rebuilt the block table, levels and lookup grid in six
+// small operations every call (0.013 ms of 0.050), on both the table pass only
+// copied four coefficient columns (0.005), and the counters' fill cost 0.002. So
+// the forest's tables are built once per mesh (ops/transport_kernel.py,
+// forest_tables), the kernel reads the non-gray record straight from the
+// coefficient columns where the table would copy them (``Columns``; not with
+// DDMC, a permuted uniform mesh or several ranges), and the launch entry zeroes
+// the counters with a memset. Measured in turns against the kernel before it
+// (census_bench.py, two turns, medians of 7, each candidate alone): the forest
+// tables once took stepdiff_smr's ep_bremss call 0.0500 -> 0.0368 ms and
+// stepdiff_3d's 0.224 -> 0.210; the columns took stepdiff's ep_bremss call 0.0213
+// -> 0.0192 (the launch 0.0005 longer for four loads in place of one); the memset
+// 1-2 % off the short calls. Built and dropped: counters without any zeroing,
+// running totals that every block adds into and fences, and the last block by a
+// ticket moves out and leaves at zero (the CUDA samples' threadfence reduction):
+// every block, empty ones too, takes the ticket on one address, so the launches
+// took longer (inf_stiff's call +7.9 %, the 64^3 ep_bremss call +5.5 %).
+//
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
@@ -385,13 +409,27 @@ __device__ __forceinline__ Own own_of(const Shards& S, int k) {
   return Own{S.own_lo[k], S.own_hi[k], S.row[k], S.seed[k]};
 }
 
+// The non-gray record read straight from the coefficient columns (rho, T, fleck,
+// sigma_s), where the cell table would be their verbatim copy: a non-gray census
+// without DDMC over one owned range, on one block or block by block on a forest
+// (ops/transport_kernel.py, ``record_columns``). ``rho`` is null where the cell
+// table holds the record.
+struct Columns {
+  const float* rho;
+  const float* temp;
+  const float* fleck;
+  const float* sigma_s;
+};
+
 // A refined forest's tables (SMR instantiations only): per block three float4,
 // (dx, dy, dz, 0), (ox, oy, oz, 0) and the f32 reciprocals (1/dx, 1/dy, 1/dz,
 // 0); the int32 level of each block; the int32 lookup grid, (z, y, x) row-major.
+// And the non-gray record's columns (NONGRAY without DDMC).
 struct Forest {
   const float4* block;
   const int32_t* level;
   const int32_t* lookup;
+  Columns cols;
 };
 
 struct Ledger {
@@ -927,7 +965,10 @@ __device__ __forceinline__ void gather(const Geom& g, const Forest& F, const flo
     // (rho, T, fleck, sigma_s); with DDMC then (Px_lo, Px_hi, Py_lo, Py_hi) and
     // (Pz_lo, Pz_hi, 0, 0)
     const float4* rec = reinterpret_cast<const float4*>(table) + (DDMC ? 3 : 1) * (size_t)cell;
-    const float4 r0 = __ldg(rec);
+    const float4 r0 = !DDMC && F.cols.rho != nullptr
+                          ? make_float4(__ldg(F.cols.rho + cell), __ldg(F.cols.temp + cell),
+                                        __ldg(F.cols.fleck + cell), __ldg(F.cols.sigma_s + cell))
+                          : __ldg(rec);
     const float sa = epbremss(g, r0.x, r0.y, en);
     ea = r0.z * sa;
     sig_t = ea + (r0.w + (1.0f - r0.z) * sa);
@@ -1593,6 +1634,9 @@ struct Occupancy {
 // with nongray the 4 floats (rho, T, fleck, sigma_s), with DDMC followed by the
 // six face probabilities and two zeros; in global row-major cell order on a
 // uniform forest, block cell order with SMR; the shards' ranges one after another.
+// cols: null, or with nongray and without ddmc a host array of 4 device pointers,
+// the rho, T, fleck and sigma_s columns of one owned range that the table would
+// copy verbatim; the kernel reads the record there, and table may be null.
 // With smr: block_table (per block the 12 floats dx dy dz 0 ox oy oz 0 1/dx 1/dy
 // 1/dz 0, 16-byte aligned), levels (int32 per block) and lookup (the int32 lookup
 // grid); null otherwise.
@@ -1606,13 +1650,15 @@ struct Occupancy {
 // seed) (host array). spread: nonzero for warp w of block b to take the 32 slots
 // of group w x blocks + b instead of block b the 256 after 256 b, so that every
 // block holds slots from across the launch. events: n_shards uint64 and iters:
-// n_shards int32, zeroed (device).
+// n_shards int32 (device), zeroed here on the stream before the launch (one
+// memset where iters follows events), so the caller need not fill them.
 // Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
 // SMR launch without its tables, -3 for nongray without absorb, -4 for a shard
-// table the kernel does not take.
+// table the kernel does not take, -6 for a record neither in the table nor in
+// columns the kernel takes.
 extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int nongray,
-                                   void* const* ptrs,
-                                   const void* table, const void* block_table,
+                                   void* const* ptrs, const void* table,
+                                   const void* const* cols, const void* block_table,
                                    const void* levels, const void* lookup, int capacity,
                                    const int* igeom, const float* fgeom, int n_shards,
                                    const int* shards, int spread, void* events, void* iters,
@@ -1634,6 +1680,10 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   F.block = (const float4*)block_table;
   F.level = (const int32_t*)levels;
   F.lookup = (const int32_t*)lookup;
+  F.cols = Columns{nullptr, nullptr, nullptr, nullptr};
+  if (cols != nullptr)
+    F.cols = Columns{(const float*)cols[0], (const float*)cols[1], (const float*)cols[2],
+                     (const float*)cols[3]};
 
   Geom g;
   const int* ip = igeom;
@@ -1676,6 +1726,10 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   const bool ng = nongray != 0;
   if (ng && absorb == 0) return -3;
   if (n_shards < 1 || n_shards > kMaxShards) return -4;
+  const Columns& c = F.cols;
+  if (cols == nullptr && table == nullptr) return -6;
+  if (cols != nullptr && (!ng || ddmc != 0 || !c.rho || !c.temp || !c.fleck || !c.sigma_s))
+    return -6;
   Shards S;
   S.count = n_shards;
   int first = capacity, last = 0;
@@ -1694,11 +1748,18 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
   S.first = first;
   S.spread = spread;
   const int n = last - first;
+  auto st = (cudaStream_t)stream;
+  constexpr size_t kEv = sizeof(unsigned long long), kIt = sizeof(int32_t);
+  if ((char*)iters == (char*)events + kEv * n_shards) {
+    cudaMemsetAsync(events, 0, (kEv + kIt) * n_shards, st);
+  } else {
+    cudaMemsetAsync(events, 0, kEv * n_shards, st);
+    cudaMemsetAsync(iters, 0, kIt * n_shards, st);
+  }
   if (n > 0) {
     const float* tab = (const float*)table;
     auto* ev = (unsigned long long*)events;
     auto* itp = (int32_t*)iters;
-    auto st = (cudaStream_t)stream;
     Launch op{L, tab, F, n, g, S, ev, itp, st};
     dispatch(ndim, absorb != 0, ddmc != 0, sm, ng, op);
   }

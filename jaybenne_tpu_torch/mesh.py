@@ -37,6 +37,12 @@ class MeshGeometry:
     block_level: torch.Tensor   # i32[B]
     lookup: torch.Tensor        # i32[ntz, nty, ntx] -> block id
 
+    def __post_init__(self):
+        # tables that other modules derive from the mesh alone, built once and kept
+        # for the mesh's lifetime, by the key of their maker (the census's forest
+        # tables: ``ops/transport_kernel.py::forest_tables``); not a field
+        self.derived = {}
+
     @property
     def device(self) -> torch.device:
         return self.block_dx.device

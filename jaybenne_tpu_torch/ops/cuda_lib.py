@@ -52,6 +52,7 @@ _SIGNATURES = {
     "jb_transport_launch": (
         _I, _I, _I, _I, _I,  # ndim absorb ddmc smr nongray
         _P, _P,          # host array of 16 ledger pointers, cell table
+        _P,              # host array of the record's 4 column pointers (or null)
         _P, _P, _P,      # block table, block levels, lookup grid (SMR; else null)
         _I,              # ledger capacity
         _P, _P,          # host int and float geometry arrays

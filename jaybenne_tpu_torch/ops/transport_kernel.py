@@ -63,7 +63,10 @@ One call can run every local shard of a round at once: with a sequence of ranges
 the shards' ledgers (adjacent slices of one ledger), their coefficients and their
 seeds, one launch covers them all, each lane keyed by its slot's index in its own
 shard's slice. ``prepare`` builds a call's geometry and tables, so that a step
-builds them once and every round reuses them.
+builds them once and every round reuses them. A forest's own tables (block table,
+levels, lookup grid) are built once per mesh (``forest_tables``); where the
+non-gray record would copy the coefficients verbatim, the kernel reads their
+columns and no table is built (``record_columns``).
 
 Configurations the kernel does not take raise ``NotImplementedError`` naming their
 ROADMAP item, on every device: nothing falls back to another loop.
@@ -323,7 +326,9 @@ def _face_pairs(px, py, pz, mesh):
 
 @dataclasses.dataclass(frozen=True)
 class _Tables:
-    """What the census gathers from: the per-cell table and, on a refined forest,
+    """What the census gathers from: the per-cell table, or for the kernel where
+    that table would copy its record verbatim the coefficient columns ``cols``
+    (``record_columns``), and on a refined forest the mesh's ``forest_tables``:
     the block table [B, 12] = (dx, dy, dz, 0, ox, oy, oz, 0, 1/dx, 1/dy, 1/dz, 0)
     read as three float4 (the reciprocals by an IEEE float32 divide, the bits the
     kernel's per-event divide gave), the int32 level of each block and the flat
@@ -331,34 +336,68 @@ class _Tables:
     frequency-dependent model that the plain version evaluates per event (None
     for gray runs)."""
 
-    cell: torch.Tensor
+    cell: torch.Tensor | None
     block: torch.Tensor | None = None
     level: torch.Tensor | None = None
     lookup: torch.Tensor | None = None
     opacity: object = None
+    cols: tuple | None = None
 
 
 def _tables(cset, mesh, g: _Geom, kernel: bool) -> _Tables:
     """The tables of the coefficient sets ``cset`` (one per owned range, in range
     order): the cell table by the CUDA kernel (``_table_cuda``) with ``kernel``,
-    else by its plain version (``_pair_table``)."""
+    else by its plain version (``_pair_table``); on a forest the mesh's
+    ``forest_tables``."""
     coefs = cset[0]
-    if kernel:
+    cols = record_columns(cset, mesh, g) if kernel else None
+    if cols is not None:
+        cell = None
+    elif kernel:
         cell = _table_cuda(cset, mesh, g)
     else:
         cell = _pair_table(coefs if len(cset) == 1 else _concat_coefs(cset), mesh, g)
-    if not g.smr:
-        return _Tables(cell, opacity=coefs.opacity)
-    # slices, not an index list: a list index is a host tensor copied to the card,
-    # which would synchronise the host with the queue at every census
-    block = torch.zeros((mesh.n_blocks, 12), dtype=torch.float32, device=cell.device)
-    block[:, 0:3] = mesh.block_dx.to(block)
-    block[:, 4:7] = mesh.block_origin.to(block)
-    block[:, 8:11] = torch.ones_like(block[:, 0:3]) / block[:, 0:3]
-    return _Tables(cell, block,
-                   mesh.block_level.to(device=cell.device, dtype=torch.int32).contiguous(),
-                   mesh.lookup.to(device=cell.device, dtype=torch.int32).reshape(-1).contiguous(),
-                   coefs.opacity)
+    forest = forest_tables(mesh, coefs.sigma_s.device) if g.smr else (None, None, None)
+    return _Tables(cell, *forest, coefs.opacity, cols)
+
+
+def forest_tables(mesh, device) -> tuple:
+    """The block table, levels and lookup grid of ``_Tables`` for ``mesh`` on
+    ``device``. They depend on the mesh alone, so they are built once per mesh and
+    device, at the first census there, and kept in ``mesh.derived``: every later
+    census and spatial step on the forest launches nothing for them; they are
+    read, never written. Built on ``device`` by the operations a census set-up
+    used to run each time, so the same bits (the reciprocals by an IEEE float32
+    divide)."""
+    key = ("census forest", torch.device(device))
+    hit = mesh.derived.get(key)
+    if hit is None:
+        # slices, not an index list: a list index is a host tensor copied to the card
+        block = torch.zeros((mesh.n_blocks, 12), dtype=torch.float32, device=device)
+        block[:, 0:3] = mesh.block_dx.to(block)
+        block[:, 4:7] = mesh.block_origin.to(block)
+        block[:, 8:11] = torch.ones_like(block[:, 0:3]) / block[:, 0:3]
+        hit = mesh.derived[key] = (
+            block, mesh.block_level.to(device=device, dtype=torch.int32).contiguous(),
+            mesh.lookup.to(device=device, dtype=torch.int32).reshape(-1).contiguous())
+    return hit
+
+
+def record_columns(cset, mesh, g: _Geom) -> tuple | None:
+    """The coefficient columns (rho, T, fleck, sigma_s) that the census kernel reads
+    its record from where the cell table would be their verbatim copy, else None:
+    a non-gray census without DDMC over one owned range whose table is not
+    permuted (one block, or block by block on a forest). Each column is checked
+    as the table kernel checks it."""
+    if not g.nongray or g.ddmc or len(cset) != 1 or (mesh.n_blocks > 1 and not g.smr):
+        return None
+    c = cset[0]
+    cols = (c.rho, c.temp, c.fleck, c.sigma_s)
+    if any(t is None or t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != c.sigma_s.device or t.shape != c.sigma_s.shape for t in cols):
+        raise ValueError("census: rho, T, fleck and sigma_s must be contiguous float32 "
+                         "columns of one length on one device")
+    return cols
 
 
 def _pair_table(coefs, mesh, g: _Geom):
@@ -1009,7 +1048,8 @@ def _check_cuda_ledger(p, tabs: _Tables):
     floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.energy)
     ints = (p.i, p.j, p.k, p.block, p.face, p.leak)
     bools = (p.alive, p.absorbed)
-    tables = tuple(t for t in (tabs.cell, tabs.block, tabs.level, tabs.lookup) if t is not None)
+    tables = tuple(t for t in (tabs.cell, tabs.block, tabs.level, tabs.lookup, *(tabs.cols or ()))
+                   if t is not None)
     for t in (*floats, *ints, *bools, *tables):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("transport kernel: ledger tensors must be contiguous on one GPU")
@@ -1051,15 +1091,18 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
     launch for every MAX_SHARDS_PER_LAUNCH shards; the ledger was checked by
     ``_check_cuda_ledger``. With ``fold`` a uniform mesh of several blocks, the
     kernel folds ``collapse_plain`` into its reads and ``expand_plain`` into its
-    writes, on every slot, so the launches must cover the whole ledger."""
+    writes, on every slot, so the launches must cover the whole ledger. The
+    launch entry zeroes the events and iteration maxima of its shards on the
+    stream, so they need no fill before it."""
     dev = p.x.device
     n = len(shards)
     groups = [shards[k:k + MAX_SHARDS_PER_LAUNCH] for k in range(0, n, MAX_SHARDS_PER_LAUNCH)]
     if fold is not None and (min(sh.slot_lo for sh in shards) != 0
                              or max(sh.slot_hi for sh in shards) != p.capacity):
         raise ValueError("transport kernel: a collapsed census covers the whole ledger")
-    # one fill for both counters: events (int64) and, after them, iters (int32)
-    counters = torch.zeros(2 * n, dtype=torch.int64, device=dev)
+    # events (int64) and, after them, iters (int32): the launch entry zeroes each
+    # group's on the stream, so no PyTorch fill comes first
+    counters = torch.empty(2 * n, dtype=torch.int64, device=dev)
     events, iters = counters[:n], counters[n:].view(torch.int32)[:n]
     cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
             p.face, p.block, p.energy, p.leak)
@@ -1073,6 +1116,9 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
               g.dt, g.inv_dt, g.lam2, g.pf2_num, *g.tile, *g.nudge_cross, *g.nudge_tilt,
               *g.ng, *shifts)
     smr = (tabs.block, tabs.level, tabs.lookup) if g.smr else (None, None, None)
+    cell = 0 if tabs.cell is None else tabs.cell.data_ptr()
+    record = (None if tabs.cols is None
+              else (ctypes.c_void_p * 4)(*(t.data_ptr() for t in tabs.cols)))
     name = launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route)
     for k, group in enumerate(groups):
         k0 = k * MAX_SHARDS_PER_LAUNCH
@@ -1082,14 +1128,14 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
         rows = [v for sh in group for v in dataclasses.astuple(sh)]
         cuda_lib.library().call(
             "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr),
-            int(g.nongray), ptrs,
-            tabs.cell.data_ptr(), *(0 if t is None else t.data_ptr() for t in smr),
+            int(g.nongray), ptrs, cell, record, *(0 if t is None else t.data_ptr() for t in smr),
             p.capacity, (ctypes.c_int * len(ints))(*ints),
             (ctypes.c_float * len(floats))(*map(float, floats)),
             len(group), (ctypes.c_int * len(rows))(*rows), int(spread),
             events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
         )
-        cuda_lib.LAUNCHES[name] += 1
+        if slots > 0:  # a group without slots launches nothing, its counters zeroed
+            cuda_lib.LAUNCHES[name] += 1
     return iters, events
 
 

@@ -844,17 +844,28 @@ def test_census_table_kernel_matches_plain(gpu, kind, layout):
     """The table kernel (``csrc/table_kernel.cu``, through ``prepare`` on the card)
     against the rows computed cell by cell (tests/test_torch_table.py) and against
     its plain version ``_pair_table`` on the same tensors: bitwise, every record
-    kind on every layout, one launch a group of 16 ranges."""
+    kind on every layout, one launch a group of 16 ranges. Where the non-gray
+    record would be a verbatim copy (one range, one block or a forest), ``prepare``
+    launches no table and the kernel reads the coefficient columns, which hold the
+    same rows; the table kernel, called itself, still makes them."""
     from test_torch_table import table_case
 
     coefs, mesh, prm, dt, own, want = table_case(kind, layout, dev=gpu)
+    cset = [coefs] if own is None else coefs
     before = cuda_lib.LAUNCHES["census_table"]
     census = transport_kernel.prepare(coefs, mesh, prm, dt, own)
     groups = 1 if own is None else -(-len(own) // transport_kernel.MAX_RANGES_PER_TABLE)
-    assert cuda_lib.LAUNCHES["census_table"] == before + groups
-    got = census.tabs.cell
+    columns = kind == "nongray" and layout in ("one_block_1d", "forest_2d")
+    assert (census.tabs.cols is not None) == columns
+    if columns:
+        assert cuda_lib.LAUNCHES["census_table"] == before and census.tabs.cell is None
+        rows = torch.stack(census.tabs.cols, dim=1)
+        assert torch.equal(rows.cpu().view(torch.int32), want)
+        got = transport_kernel._table_cuda(cset, mesh, census.g)
+    else:
+        assert cuda_lib.LAUNCHES["census_table"] == before + groups
+        got = census.tabs.cell
     assert got.is_cuda and torch.equal(got.cpu().view(torch.int32), want)
-    cset = [coefs] if own is None else coefs
     plain = transport_kernel._pair_table(cset[0] if len(cset) == 1
                                          else transport_kernel._concat_coefs(cset), mesh,
                                          census.g)
@@ -1046,3 +1057,145 @@ def test_census_words_kernel_matches_plain(gpu):
     got = kernel_rng.census_words(-4321, ev.to(gpu), 3).cpu()
     assert cuda_lib.LAUNCHES["census_words"] == before + 1
     assert torch.equal(got, kernel_rng.census_words_plain(-4321, ev, 3))
+
+
+
+# ------------------------------ the counters without a fill, the non-gray record
+
+
+def _same_counts(it_k, ev_k, it_q, ev_q):
+    assert torch.equal(it_k.cpu(), it_q.cpu()) and torch.equal(ev_k.cpu(), ev_q.cpu()), (
+        it_k, ev_k, it_q, ev_q)
+
+
+def test_counters_over_back_to_back_calls(gpu):
+    """The census counters are zeroed by the launch entry on the stream, with no
+    PyTorch fill before it: ten calls on one stream and no synchronisation
+    between them (a gray and a non-gray forest, uniform non-gray and gray meshes, a
+    ledger with no live lane), twice over with other seeds, each with the plain
+    version's events and iteration maximum exactly and its ledger bitwise."""
+    cases = [_smr_setup(gpu, 2, True, False, seed=21), _nongray_setup(gpu, 1, False, False),
+             _nongray_setup(gpu, 2, False, True), _grid_setup(gpu, 3)]
+    dt, mesh, prm, p0, coefs = cases[0]
+    dead = p0.clone()
+    dead.alive.zero_()
+    cases.append((dt, mesh, prm, dead, coefs))
+    runs = [(case, seed, transport_kernel.transport(case[3].clone(), case[4], case[1], seed,
+                                                     case[2], case[0]))
+            for seed in (31, 32) for case in cases]
+    torch.cuda.synchronize()
+    for (dt, mesh, prm, p0, coefs), seed, (k, it_k, ev_k) in runs:
+        q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, seed, prm, dt)
+        _same_round(k, q, it_k, ev_k, it_q, ev_q)
+    assert int(runs[4][2][2]) == 0 and all(int(r[2][2]) > 0 for r in runs[:4])
+
+
+@pytest.mark.parametrize("case", ["two_groups", "empty_group"])
+def test_counters_over_more_than_64_shards(gpu, case):
+    """A call over 70 shards, each owning the whole gray level-1 forest with its own
+    seed and slice: two launch groups (64 shards, then 6), each zeroing and
+    counting its own shards; with ``empty_group`` the last six slices are empty,
+    so the second group launches nothing and only zeroes its counters. Events and
+    iteration maxima per shard exactly the plain version's over the same shards
+    (itself the per-shard calls: tests/test_torch_schedule.py), every column
+    bitwise."""
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    n_shards, m = 70, 512
+    assert n_shards > transport_kernel.MAX_SHARDS_PER_LAUNCH
+    dt, mesh, prm, p0, coefs = _smr_setup(gpu, 2, True, False, n=n_shards * m, seed=23)
+    full = n_shards if case == "two_groups" else transport_kernel.MAX_SHARDS_PER_LAUNCH
+
+    def slices(p):
+        """The full slices, then empty ones at their end."""
+        empty = dataclasses.replace(p, **{f.name: getattr(p, f.name)[full * m:full * m]
+                                          for f in dataclasses.fields(p)})
+        return split_ledger(p, n_shards)[:full] + [empty] * (n_shards - full)
+
+    own = [transport_kernel.OwnedRange("blocks", 0, mesh.n_blocks)] * n_shards
+    seeds = [7000 + 13 * s - (1 << 31) * (s % 2) for s in range(n_shards)]
+    name = transport_kernel.launch_name(2, True, smr=True, route="@blocks")
+    before = cuda_lib.LAUNCHES[name]
+    k, q = p0.clone(), p0.clone()
+    _, it_k, ev_k = transport_kernel.transport(slices(k), [coefs] * n_shards, mesh, seeds, prm,
+                                               dt, own)
+    assert cuda_lib.LAUNCHES[name] == before + (2 if full == n_shards else 1)
+    _, it_q, ev_q = transport_kernel.transport_plain(slices(q), [coefs] * n_shards, mesh, seeds,
+                                                     prm, dt, own)
+    _same_counts(it_k, ev_k, it_q, ev_q)
+    assert int(ev_q[:full].min()) > 0 and not bool(ev_q[full:].any())
+    _same_bits(k, q)
+
+
+@pytest.mark.parametrize("route", SHARD_ROUTES)
+def test_counters_over_back_to_back_rounds(gpu, route):
+    """Two spatial rounds over 8 shards back to back on one stream (the second with
+    other seeds), then the same rounds by the plain version: each round's events
+    and iteration maxima per shard exactly the plain version's, its ledger
+    bitwise."""
+    from test_torch_schedule import one_call_round, shard_case
+
+    p0, coefs, mesh, seeds, prm, dt, owns = shard_case(route, 4096, dev=gpu)
+    rounds = []
+    for sd in (seeds, [s + 1 for s in seeds]):
+        k = p0.clone()
+        rounds.append((sd, k, one_call_round(transport_kernel.transport, k, coefs, mesh, sd,
+                                             prm, dt, owns)))
+    for sd, k, got in rounds:
+        q = p0.clone()
+        it_q, ev_q = one_call_round(transport_kernel.transport_plain, q, coefs, mesh, sd, prm, dt,
+                                    owns)
+        _same_counts(*got, it_q, ev_q)
+        _same_bits(k, q)
+        assert int(ev_q.sum()) > 0
+
+
+# chip_smoke.py's phases 23 and 25: the ep_bremss overrides of
+# tests/test_pallas.py:1402-1416 (and :1531-1546) on stepdiff at 128 cells in one
+# block and on stepdiff_smr as shipped, 100k particles, one step
+_EPB = {"mcblock/opacity_model": "ep_bremss", "mcblock/initial_temperature": "1.0e6",
+        "mcblock/cv": "1.0e8", "mcblock/scattering_constant_value": "1.0e2",
+        "jaybenne/do_emission": "false", "jaybenne/do_feedback": "false",
+        "jaybenne/dt": "1.e-12", "parthenon/time/tlim": "1.e-12",
+        "parthenon/output0/file_type": "none"}
+_NG_PATHS = {
+    "stepdiff.in": {**_EPB, "parthenon/mesh/nx1": 128, "parthenon/meshblock/nx1": 128,
+                    "jaybenne/num_particles": 100000},
+    "stepdiff_smr.in": {**_EPB, "jaybenne/use_ddmc": "false"},
+}
+
+
+@pytest.mark.parametrize("deck", sorted(_NG_PATHS))
+def test_nongray_path_census_bitwise(gpu, tmp_path, deck):
+    """The census of phases 23 (``transport_1d_abs_ng``) and 25
+    (``transport_2d_abs_smr_ng``) on the path's own inputs: the kernel, which reads
+    the record straight from the coefficient columns there (no table launch),
+    against its plain version, every column bitwise, the same events and
+    iteration maximum."""
+    recorded = []
+    real = transport_kernel.transport
+
+    def keep(p, *args):
+        recorded.append((p.clone(), args))
+        return real(p, *args)
+
+    transport_kernel.transport = keep
+    try:
+        run_file(os.path.join(_ROOT, "inputs", deck), outdir=str(tmp_path),
+                 modified_inputs=_NG_PATHS[deck], quiet=True, nlim=1, device="cuda")
+    finally:
+        transport_kernel.transport = real
+    (p0, args), = recorded
+    coefs, mesh, prm = args[0], args[1], args[3]
+    assert not coefs.is_gray and not prm.use_ddmc
+    g = transport_kernel._geometry(mesh, prm, args[4], coefs, mesh.max_level > 0)
+    assert transport_kernel.record_columns([coefs], mesh, g) is not None
+    name = transport_kernel.launch_name(prm.ndim, True, False, mesh.max_level > 0, True)
+    before = dict(cuda_lib.LAUNCHES)
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), *args)
+    assert cuda_lib.LAUNCHES[name] == before.get(name, 0) + 1
+    assert cuda_lib.LAUNCHES["census_table"] == before.get("census_table", 0)
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), *args)
+    _same_bits(k, q)
+    _same_counts(it_k, ev_k, it_q, ev_q)
+    assert int(ev_k) > 0

@@ -10,9 +10,15 @@ absorption; on a uniform 1D mesh the DDMC record that carries the cell's leak
 rate, cdf and c cdf) on one block, a uniform mesh of several blocks (1D and 3D), a
 level-1 forest, two and twenty owned ranges of z planes and two block ranges of a
 forest. ``tests/test_torch_cuda.py`` holds the kernel to the same rows on the card.
+Where the kernel reads the non-gray record straight from the coefficient columns,
+those columns are held to the same rows. The forest tables, kept per mesh, are held
+to the tables each census set-up built before, and the plain census on forests to
+the census built on those.
 """
 
+import dataclasses
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -172,3 +178,117 @@ def test_table_kernel_refuses_a_cpu_coefficient_set():
     g = tk._geometry(mesh, prm, dt, coefs, False)
     with pytest.raises(ValueError, match="on one GPU"):
         tk._table_cuda([coefs], mesh, g)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_record_columns_are_the_plain_record(kind, layout):
+    """Where the non-gray record would be a verbatim copy of the coefficients (no
+    DDMC, one owned range, one block or a forest), the kernel reads it straight
+    from the columns ``record_columns`` names: those columns, side by side, are
+    bitwise the rows of the plain table; on every other kind and layout it reads
+    the table (None)."""
+    coefs, mesh, prm, dt, own, want = table_case(kind, layout)
+    g = tk._prepare(coefs, mesh, prm, dt, own, False).g
+    cols = tk.record_columns([coefs] if own is None else coefs, mesh, g)
+    if kind == "nongray" and layout in ("one_block_1d", "forest_2d"):
+        rows = torch.stack(cols, dim=1).view(torch.int32)
+        assert torch.equal(rows, want)
+        assert torch.equal(rows, census_rows(coefs, mesh, prm, dt, own))
+    else:
+        assert cols is None
+
+
+# ------------------------------ the forest tables, built once per mesh
+
+_ROOT = os.path.dirname(INPUTS)
+sys.path.insert(0, _ROOT)
+import chip_smoke as cs  # noqa: E402
+
+# the level-1 forests of chip_smoke.py's phase 15 (1D, 2D, 3D) and stepdiff_smr as
+# shipped (phase 25's forest)
+FOREST_DECKS = {f"{ndim}d_level1": (path, mods) for ndim, (path, mods) in cs.SMR_FORESTS.items()}
+FOREST_DECKS["stepdiff_smr"] = (os.path.join(INPUTS, "stepdiff_smr.in"), {})
+
+
+def _forest(name, dev="cpu"):
+    path, mods = FOREST_DECKS[name]
+    cfg = cm.from_deck(Deck.from_file(path).update(
+        {**mods, "mcblock/opacity_model": "constant", "jaybenne/use_ddmc": "false"}))
+    mesh = build_mesh(cfg.mesh, device=dev)
+    assert mesh.max_level > 0
+    return cfg, mesh
+
+
+def _set_up_tables(mesh):
+    """The forest tables as a census set-up built them each time before they were
+    kept per mesh, in numpy: (dx, 0, origin, 0, f32(1) / dx by an IEEE float32
+    divide, 0) per block, the int32 levels, the flat int32 lookup grid."""
+    dx = mesh.block_dx.numpy().astype(F32)
+    block = np.zeros((mesh.n_blocks, 12), F32)
+    block[:, 0:3] = dx
+    block[:, 4:7] = mesh.block_origin.numpy()
+    block[:, 8:11] = F32(1.0) / dx
+    return (block, mesh.block_level.numpy().astype(np.int32),
+            mesh.lookup.numpy().astype(np.int32).reshape(-1))
+
+
+@pytest.mark.parametrize("name", sorted(FOREST_DECKS))
+def test_forest_tables_are_the_set_up_tables(name):
+    """``forest_tables`` gives, bitwise, the block table, levels and lookup grid
+    that each census set-up built before they were kept per mesh."""
+    _, mesh = _forest(name)
+    got = tk.forest_tables(mesh, torch.device("cpu"))
+    for t, want in zip(got, _set_up_tables(mesh)):
+        assert t.is_contiguous() and t.dtype == torch.from_numpy(want).dtype
+        assert np.array_equal(t.numpy().view(np.int32), want.view(np.int32))
+
+
+def _gray_coefs(mesh, rng):
+    nc = mesh.total_cells
+    return TransportCoefs(
+        sigma_a=torch.as_tensor(rng.uniform(0.5, 2.0, nc).astype(F32)),
+        sigma_s=torch.as_tensor(rng.uniform(1.0, 4.0, nc).astype(F32)),
+        fleck=torch.as_tensor(rng.uniform(0.2, 1.0, nc).astype(F32)))
+
+
+@pytest.mark.parametrize("name", sorted(FOREST_DECKS))
+def test_census_set_ups_share_the_forest_tables(name):
+    """Two census set-ups on one mesh, with other coefficients and steps, hold the
+    same forest tables (the same tensors: built once, kept by the mesh); another
+    mesh of the same deck gets its own."""
+    cfg, mesh = _forest(name)
+    prm = make_transport_params(cfg, torch.float32)
+    rng = np.random.default_rng(5)
+    a = tk.prepare(_gray_coefs(mesh, rng), mesh, prm, cfg.jaybenne.dt)
+    b = tk.prepare(_gray_coefs(mesh, rng), mesh, prm, 0.5 * cfg.jaybenne.dt)
+    assert a.tabs.cell is not b.tabs.cell
+    for part in ("block", "level", "lookup"):
+        assert getattr(a.tabs, part) is getattr(b.tabs, part)
+    _, other = _forest(name)
+    c = tk.prepare(_gray_coefs(other, rng), other, prm, cfg.jaybenne.dt)
+    assert c.tabs.block is not a.tabs.block and torch.equal(c.tabs.block, a.tabs.block)
+    assert [k[0] for k in mesh.derived] == ["census forest"]
+
+
+@pytest.mark.parametrize("name", sorted(FOREST_DECKS))
+def test_plain_census_on_forests_is_unchanged(name, monkeypatch):
+    """The plain census on each forest, gray and absorbing, is bitwise the census
+    whose set-up builds the forest tables anew (``_set_up_tables``): every column,
+    the events and the iteration maximum."""
+    from jaybenne_tpu_torch.particles import forest_ledger
+
+    cfg, mesh = _forest(name)
+    prm = make_transport_params(cfg, torch.float32)
+    coefs = _gray_coefs(mesh, np.random.default_rng(9))
+    p0 = forest_ledger(mesh, 3000, torch.Generator().manual_seed(9), 2.99792458e10)
+    a, it_a, ev_a = tk.transport_plain(p0.clone(), coefs, mesh, 77, prm, cfg.jaybenne.dt)
+    monkeypatch.setattr(tk, "forest_tables", lambda m, dev: tuple(
+        torch.from_numpy(t) for t in _set_up_tables(m)))
+    b, it_b, ev_b = tk.transport_plain(p0.clone(), coefs, mesh, 77, prm, cfg.jaybenne.dt)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f.name
+    assert int(it_a) == int(it_b) and int(ev_a) == int(ev_b) > 0
