@@ -10,7 +10,8 @@ configurations; the 64^3 DDMC mesh; the refined-mesh decks up to the 128x64
 hybrid forest; EPBremss at spread photon energies in 1D, at 64^3 and on the
 shipped SMR forest; the Su-Olson deck with its external source; a tabulated
 opacity; both decompositions at 8 shards in this process, the card's one
-backend; checkpoint/restart, debug_checks and --profile-dir), and checks each
+backend; checkpoint/restart, debug_checks and --profile-dir; the float64 census,
+precision = f64, of every instantiation and its gates), and checks each
 result by the repository's own gates. Every phase raises on failure; the last line of
 standard output is the JSON result, printed only when every phase passed. It exits
 non-zero without a GPU. Nothing here imports jax.
@@ -220,7 +221,27 @@ Phases:
      holds the transport_1d kernel (``profile.device_time_by_name``) and
      ``history.json`` 3 cycles with the JAX package's keys. The card's machine has
      no h5py: the HDF5 writers and readers are held to the JAX package's on the
-     CPU (``tests/test_torch_io.py``).
+     CPU (``tests/test_torch_io.py``);
+ 41. the double draw of the float64 census (precision = f64; ``Draw<double>`` of
+     csrc/kernel_rng.cuh): its u53, spare u53, exp, cos and sin bitwise the plain
+     float64 pool's (``kernel_rng.draws_f64_plain``) on raw_bits's words;
+ 42. every one of the 36 float64 instantiations (csrc/transport_kernel_f64.cu)
+     bitwise its float64 plain version on phase 11's, 15's and 22's ledgers made
+     float64, after 8 iterations and after a full census, every column and the
+     events identical, only ``_f64`` launches; one K3s and one K4s round (phases
+     28-29) in float64 so too;
+ 43. the float64 gates through ``driver.run_file``, each launching float64 kernels
+     alone: stepdiff at 128 cells and 100k particles, 10 steps (10
+     ``transport_1d_f64`` launches, werr <= 0.05, the radiation energy conserved
+     to the fixed-point tally's bound, ``tally.conservation_rtol``), stepdiff_ddmc
+     (<= 0.05; the float64 table kernel bitwise its plain version),
+     stepdiff_smr (<= 0.3), one EPBremss step on stepdiff_smr (phase 25's gate),
+     stepdiff at 8 spatial shards (<= 0.05); each route's kernel and plain
+     version timed on its last census (the spatial one on its first round);
+ 44. the float64 census against the float32 one on the same inputs, in turns,
+     median of 5 with its range, on stepdiff's, the 2D feedback path's and the
+     64^3 feedback row's last census; the float64 bound (8-byte floats over 3.35
+     TB/s, operations from the float64 probes' SASS over 34 TFLOP/s FP64).
 
 Phase 21 also prints the slot order's warp efficiency of the native hybrid's last
 census (``transport_kernel.warp_efficiency`` of the plain version's per-slot
@@ -236,7 +257,8 @@ Phases 8, 9 and 16 print the event loop's reading as phase 5 does.
 
 For each kernel the JSON line gives its bound: the larger of the bytes the census
 must move over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
-tensor cores), from this run's events (see ``census_bound``).
+tensor cores; 34 TFLOP/s FP64 for a float64 route), from this run's events (see
+``census_bound``).
 """
 
 from __future__ import annotations
@@ -256,6 +278,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+F64 = torch.float64
 DECK = os.path.join(ROOT, "inputs", "stepdiff.in")
 GATE = {
     "parthenon/mesh/nx1": 128,
@@ -481,8 +504,10 @@ PROFILE_BINS = 64
 ERF_TAU = 1.000692e-7
 ERF_UR0 = 7.5646e5
 ERF_SHIFT = 0.5
-# published H100 SXM peaks (NVIDIA's H100 data sheet)
+# published H100 SXM peaks (NVIDIA's H100 data sheet): float32 and float64 outside
+# the tensor cores (FP64 is half the FP32 rate), and the memory rate
 PEAK_F32_OPS = 67e12
+PEAK_F64_OPS = 34e12
 PEAK_BYTES = 3.35e12
 # instructions a SM issues a clock: four schedulers, one warp instruction each
 ISSUE_PER_SM_CLOCK = 128
@@ -669,11 +694,26 @@ def loop_body(code) -> int:
     return sum(1 for addr, _ in code if lo <= addr <= hi and addr not in cold)
 
 
-KERNEL_ARGS = re.compile(r"transport_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E")
+KERNEL_ARGS = re.compile(
+    r"transport_kernelILi(\d)ELb([01])ELb([01])ELb([01])ELb([01])E(?:([fd])E)?")
+# the census kernel's body, which the reading edits (LOOP_PATHS, PATH_MIX); its
+# float32 and float64 instantiations are the two sources that include it
+KERNEL_BODY = "transport_kernel.cuh"
+
+
+def census_route(fn, transport_kernel):
+    """The ``launch_name`` of a census instantiation's mangled name ``fn``, None for
+    any other function."""
+    m = KERNEL_ARGS.search(fn)
+    if not m:
+        return None
+    ndim, *bits = (int(x) for x in m.groups()[:5])
+    dtype = torch.float64 if m.group(6) == "d" else torch.float32
+    return transport_kernel.launch_name(ndim, *map(bool, bits), dtype=dtype)
 # The event loop's paths, each the event's outcomes held to some: any other outcome
 # traps, so the compiler keeps the tests that decide the outcome and drops the code
 # of every other one. Each entry puts its line in front of the line of
-# csrc/transport_kernel.cu that it names, which the kernel must hold once, or at
+# csrc/transport_kernel.cuh that it names, which the kernel must hold once, or at
 # most once where the third field is False (a kernel without a cell cache has no
 # test of a move):
 #   scatter: a scatter in the lane's cell (the common path);
@@ -701,13 +741,13 @@ LOOP_PATHS = {
                 _NO_WALL,
                 ("    if (kKeep && moved)", "    if (moved) __trap();\n", False)),
     "cross": (("    const bool census = !coll", "    if (coll) __trap();\n", True),
-              ("    const float d = coll ? d_coll : d_push;", "    if (census) __trap();\n", True),
+              ("    const Real d = coll ? d_coll : d_push;", "    if (census) __trap();\n", True),
               _NO_WALL),
     "no_wall": (_NO_WALL,),
     "dd_leak": (_DD_NO_IMC, _DD_NO_REJECT, _DD_NO_ABSORB, _DD_NO_CENSUS, _NO_WALL),
     "dd_step": (_DD_NO_IMC, _DD_NO_REJECT, _DD_NO_ABSORB, _NO_WALL),
     "dd_any": (_DD_NO_IMC,),
-    "no_opacity": (("  const float r = rho * g.ng_rho_scale;", "  return rho;\n", True),),
+    "no_opacity": (("  const Real r = rho * g.ng_rho_scale;", "  return rho;\n", True),),
     "full": (),
 }
 # the routes whose DDMC event is read (loop paths, path mix, issue share)
@@ -728,23 +768,29 @@ def patched(src, edits, what) -> str:
 
 def loop_paths(csrc, names, transport_kernel, paths=tuple(LOOP_PATHS)) -> dict:
     """The SASS instructions of the event loop's ``paths`` (LOOP_PATHS) of the
-    census instantiations ``names``, as {path: {name: count}}: for each path
-    ``csrc``/transport_kernel.cu compiled with the library's flags and the path's
-    traps (one nvcc a path, all started together), so that the compiler drops the
-    code of every other outcome, and ``loop_body`` of each instantiation's SASS
+    census instantiations ``names``, as {path: {name: count}}: for each path the
+    float32 instantiations (``csrc``/transport_kernel.cu) compiled with the
+    library's flags and the path's traps in the kernel's body (KERNEL_BODY; one
+    nvcc a path, all started together), so that the compiler drops the code of
+    every other outcome, and ``loop_body`` of each instantiation's SASS
     (cuobjdump). ``csrc`` may be another tree's sources of the same kernel."""
     from jaybenne_tpu_torch.ops import cuda_lib
 
-    with open(os.path.join(csrc, "transport_kernel.cu")) as f:
+    with open(os.path.join(csrc, KERNEL_BODY)) as f:
         src = f.read()
+    with open(os.path.join(csrc, "transport_kernel.cu")) as f:
+        entry = f.read()
     flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         for path in paths:
             cu, cubin = os.path.join(tmp, f"{path}.cu"), os.path.join(tmp, f"{path}.cubin")
-            with open(cu, "w") as f:
+            body = os.path.join(tmp, f"{path}.cuh")
+            with open(body, "w") as f:
                 f.write(patched(src, LOOP_PATHS[path], f"loop path {path}"))
+            with open(cu, "w") as f:
+                f.write(entry.replace(f'#include "{KERNEL_BODY}"', f'#include "{path}.cuh"'))
             procs[path] = (cubin, subprocess.Popen(
                 [cuda_lib.nvcc(), *flags, "-I", csrc, "-cubin", "-o", cubin, cu],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -754,12 +800,9 @@ def loop_paths(csrc, names, transport_kernel, paths=tuple(LOOP_PATHS)) -> dict:
                 raise RuntimeError(f"loop path {path}: nvcc failed:\n{log[-3000:]}")
             out[path] = {}
             for fn, code in sass_listing(cubin).items():
-                m = KERNEL_ARGS.search(fn)
-                if m:
-                    ndim, *bits = (int(x) for x in m.groups())
-                    name = transport_kernel.launch_name(ndim, *map(bool, bits))
-                    if name in names:
-                        out[path][name] = loop_body(code)
+                name = census_route(fn, transport_kernel)
+                if name in names:
+                    out[path][name] = loop_body(code)
     return out
 
 
@@ -787,7 +830,7 @@ PATH_MIX_KEYS = ("warp_events", "lane_events", "scatter", "cross", "wall", "rega
                  "lane_accepted", "lane_dd_absorbed")
 PATH_MIX_SMS = 1024  # SM ids the variant counts
 PATH_MIX = (
-    ("namespace {\n",
+    ("constexpr int kThreads = 256;\n",
      f"__device__ unsigned long long jb_path_mix[{len(PATH_MIX_KEYS)}];\n"
      f"__device__ unsigned long long jb_path_mix_sm[{PATH_MIX_SMS}];\n", True),
     ("  int leak = 0;\n  if (DDMC && is_ddmc) {",
@@ -795,7 +838,7 @@ PATH_MIX = (
      "  bool pm_dd = false, pm_leak = false, pm_dd_census = false, pm_rej = false;\n"
      "  bool pm_acc = false, pm_abs = false;\n"
      "  const int pm_face = pface;\n", True),
-    ("    const float d = coll ? d_coll : d_push;",
+    ("    const Real d = coll ? d_coll : d_push;",
      "    pm_scatter = scatter;\n    pm_cross = cr[0] || cr[1] || cr[2];\n"
      "    pm_census = census;\n", True),
     ("  } else {\n    constexpr bool kInPlace = DDMC || NONGRAY;",
@@ -847,7 +890,9 @@ def path_mix_library(csrc=None, out_dir=None):
     """The counting variant (PATH_MIX) of the kernel library of the sources in
     ``csrc`` (this tree's by default), built into ``out_dir`` (by default
     ``path_mix`` under the build directory, which ``.gitignore`` lists): every source
-    compiled, transport_kernel.cu with PATH_MIX's counters, so that it loads as a
+    compiled, the kernel's body (KERNEL_BODY) with PATH_MIX's counters, each
+    source's own (the anonymous namespace holds them), and transport_kernel.cu
+    with the reader of the float32 census's, so that it loads as a
     ``cuda_lib.CudaLibrary`` of that tree and takes its launches."""
     import ctypes
     from pathlib import Path
@@ -859,10 +904,12 @@ def path_mix_library(csrc=None, out_dir=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     procs, objs = [], []
+    (out_dir / KERNEL_BODY).write_text(patched((csrc / KERNEL_BODY).read_text(), PATH_MIX,
+                                               "path mix"))
     for src in sorted(csrc.glob("*.cu")):
         text = src.read_text()
         if src.name == "transport_kernel.cu":
-            text = patched(text, PATH_MIX, "path mix") + PATH_MIX_READ
+            text = text + PATH_MIX_READ
         cu, obj = out_dir / src.name, out_dir / f"{src.stem}.o"
         cu.write_text(text)
         objs.append(str(obj))
@@ -1069,8 +1116,8 @@ def table_check(transport_kernel, dev, coefs, mesh, prm, dt, own, what):
                              "version's")
     cset = list(coefs) if own is not None and not isinstance(
         own, transport_kernel.OwnedRange) else [coefs]
-    nbytes = (sum(getattr(c, k).numel() * 4 for c in cset
-                  for k in transport_kernel.table_columns(g)) + cell.numel() * 4)
+    nbytes = (sum(getattr(c, k).numel() * getattr(c, k).element_size() for c in cset
+                  for k in transport_kernel.table_columns(g)) + cell.numel() * cell.element_size())
     bound = nbytes / PEAK_BYTES * 1e3
     ms = statistics.median(times)
     print(f"census_table on {what} ({cell.shape[0]} rows of {cell.shape[1]} floats, "
@@ -1138,10 +1185,9 @@ def kernel_resources(build_log, transport_kernel) -> dict:
             res[entry]["registers"] = int(m.group(1))
     out = {}
     for fn, r in res.items():
-        m = KERNEL_ARGS.search(fn)
-        if m:
-            ndim, *flags = (int(x) for x in m.groups())
-            out[transport_kernel.launch_name(ndim, *map(bool, flags))] = r
+        name = census_route(fn, transport_kernel)
+        if name is not None:
+            out[name] = r
     return out
 
 
@@ -1194,10 +1240,21 @@ def block_spread_line(name, lanes, p, blocks, dev):
           flush=True)
 
 
-def probe_costs(counts) -> dict:
+def probe_costs(counts, f64=False) -> dict:
     """Instructions of logf, the IEEE divide and the K2 hash, from the probes of
     csrc/sass_probes.cu: each probe's count less its baseline's (the same loads
-    and stores with one FADD)."""
+    and stores with one FADD). With ``f64`` the float64 census's under the same
+    keys, from the ``_f64`` probes (one DADD in the baseline): the double log,
+    divide, exp and sqrt, and as the hash the double draw (two hash words made
+    one 53-bit uniform, ``jb_probe_u53``)."""
+    if f64:
+        return {
+            "logf": counts["jb_probe_log_f64"] - counts["jb_probe_load1_f64"],
+            "div": counts["jb_probe_div_f64"] - counts["jb_probe_load2_f64"] + 1,
+            "hash": counts["jb_probe_u53"] - counts["jb_probe_load2_f64"] + 1,
+            "expf": counts["jb_probe_exp_f64"] - counts["jb_probe_load1_f64"],
+            "sqrtf": counts["jb_probe_sqrt_f64"] - counts["jb_probe_load1_f64"],
+        }
     return {
         "logf": counts["jb_probe_logf"] - counts["jb_probe_load1"],
         "div": counts["jb_probe_div"] - counts["jb_probe_load2"] + 1,
@@ -1208,7 +1265,7 @@ def probe_costs(counts) -> dict:
 
 
 def ops_per_event(ndim, absorb, cost) -> int:
-    """Operations every census event executes, counted from csrc/transport_kernel.cu
+    """Operations every census event executes, counted from csrc/transport_kernel.cuh
     (each float or integer arithmetic, compare, min, select and conversion is one;
     logf, the divide and the hash count as the instructions cuobjdump shows):
 
@@ -1234,7 +1291,7 @@ def ops_per_event(ndim, absorb, cost) -> int:
 
 def ops_per_ddmc_event(ndim, absorb, cost) -> int:
     """Operations every DDMC event executes (a lane on the DDMC branch that is not
-    at a face), counted from csrc/transport_kernel.cu as ``ops_per_event`` counts:
+    at a face), counted from csrc/transport_kernel.cuh as ``ops_per_event`` counts:
 
       common: is_ddmc (dmin sigma_t and the compare: 2) + face test (1) + exp23's
         u23 (3) + fmax (1) + negation (1) + c cdf (1) + cdf's tiny (1) + dt_rem
@@ -1253,7 +1310,7 @@ def ops_per_ddmc_event(ndim, absorb, cost) -> int:
 
 
 def ops_smr_per_event(ndim) -> int:
-    """Operations SMR adds to every event (csrc/transport_kernel.cu): the block
+    """Operations SMR adds to every event (csrc/transport_kernel.cuh): the block
     record's address (2), dmin over the active axes (ndim - 1) and the block term
     of the cell index (2). With DDMC the reciprocal cell sizes are the block
     table's column, so no event divides for them."""
@@ -1272,7 +1329,7 @@ def ops_per_crossing(ndim, cost) -> int:
 
 def ops_nongray_per_event(cost) -> int:
     """Operations the per-event opacity (``epbremss`` and the rates after it in
-    csrc/transport_kernel.cu) adds to every event: 13 multiplies (the scales, sb T,
+    csrc/transport_kernel.cuh) adds to every event: 13 multiplies (the scales, sb T,
     kb T twice, x kb T, nu h, rho^2, g^3, the stimulated factor, the length
     scale), the two clamps (compare and select: 4), the negation and 1 - exp (2),
     ea, 1 - fleck, its product, + sigma_s and + ea (5): 24, plus five IEEE divides,
@@ -1283,23 +1340,27 @@ def ops_nongray_per_event(cost) -> int:
 def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False, smr=None,
                  nongray=False):
     """(bound_ms, bound_by) of one census: the larger of its operations over the
-    card's float32 peak and of its bytes over the memory rate. Bytes: each live
+    card's float32 peak (float64 peak for a float64 ledger, whose floats count 8
+    bytes each and whose ``cost`` are the float64 probes') and of its bytes over
+    the memory rate. Bytes: each live
     particle's state read once and written once (position and cell index on the
     active axes, velocity, tau, alive, absorbed written when absorbing, and the
     face code with DDMC), one alive byte of each other slot, the cell table read
     once (8 bytes a cell, 32 with DDMC). With DDMC every event is counted at the
     cheaper of the IMC and the DDMC event, so the bound stays a lower bound where
     both branches run. ``smr`` is (mesh, block crossings) on a refined forest: the
-    block column is read and written, the block table (32 bytes a block), the
-    levels and the lookup grid read once, every event pays ``ops_smr_per_event``
-    and every crossing ``ops_per_crossing``. ``nongray``: the energy column read
+    block column is read and written, the block table (32 bytes a block, 64 in
+    float64), the levels and the lookup grid read once, every event pays
+    ``ops_smr_per_event`` and every crossing ``ops_per_crossing``. ``nongray``: the
+    energy column read
     once, a 16-byte cell record (48 with DDMC) and ``ops_nongray_per_event`` on
     every event."""
     live = int(p.alive.sum())
-    per_particle = 2 * (4 * ndim + 12 + 4 + 4 * ndim + 1) + (1 if absorb else 0)
+    fb = p.x.element_size()  # bytes a float: 4, or 8 in float64
+    per_particle = 2 * (fb * ndim + 3 * fb + fb + 4 * ndim + 1) + (1 if absorb else 0)
     per_particle += 8 if ddmc else 0
-    per_particle += 4 if nongray else 0
-    record = (48 if ddmc else 16) if nongray else (32 if ddmc else 8)
+    per_particle += fb if nongray else 0
+    record = fb // 4 * ((48 if ddmc else 16) if nongray else (32 if ddmc else 8))
     nbytes = live * per_particle + (p.capacity - live) + record * n_cells
     per_event = ops_per_event(ndim, absorb, cost)
     if ddmc:
@@ -1310,10 +1371,10 @@ def census_bound(p, ndim, absorb, n_cells, events, cost, ddmc=False, smr=None,
     if smr is not None:
         mesh, crossings = smr
         nt = mesh.tile_shape
-        nbytes += 8 * live + 36 * mesh.n_blocks + 4 * nt[0] * nt[1] * nt[2]
+        nbytes += 8 * live + (8 * fb + 4) * mesh.n_blocks + 4 * nt[0] * nt[1] * nt[2]
         n_ops += events * ops_smr_per_event(ndim)
         n_ops += crossings * ops_per_crossing(ndim, cost)
-    t_ops = n_ops / PEAK_F32_OPS
+    t_ops = n_ops / (PEAK_F64_OPS if fb == 8 else PEAK_F32_OPS)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1714,15 +1775,17 @@ def lane_split(sim) -> dict:
     return {"ddmc_blocks": ddmc, "imc_blocks": mesh.n_blocks - ddmc}
 
 
-def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_step=1):
+def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_step=1,
+             energy_rtol=ENERGY_RTOL):
     """A deck through ``driver.run_file`` on the GPU for ``steps`` steps: the
     radiation energy before the first step; the run, with the launch counts set
     to 0 just before it and read just after; its peak device memory; the inputs
     of its last census; a rerun with the same seed. Raises unless ``launch`` ran
     ``per_step`` times a step (once, or once a shard), every census completed
     short of the iteration cap, nothing was dropped, sum(tally dV) was conserved
-    (unless not ``conserves_tally``: matter
-    absorbs or emits) and the rerun's tally and u are bitwise identical. Returns
+    to ``energy_rtol`` (a number, or a function of the run; unless not
+    ``conserves_tally``: matter absorbs or emits)
+    and the rerun's tally and u are bitwise identical. Returns
     (sim, launches, (ledger, args) of the last census, the radiation energy before
     the first step)."""
     from jaybenne_tpu_torch.driver import run_file
@@ -1755,7 +1818,9 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
     if not bool(torch.isfinite(tally).all()):
         raise AssertionError(f"{what}: tally not finite")
     e1 = radiation_energy(sim)
-    if conserves_tally and abs(e1 - e0) > ENERGY_RTOL * e0:
+    if callable(energy_rtol):
+        energy_rtol = energy_rtol(sim)
+    if conserves_tally and abs(e1 - e0) > energy_rtol * e0:
         raise AssertionError(f"{what}: energy {e0} -> {e1}")
     if not (torch.equal(again.state.fields.energy_tally, tally)
             and torch.equal(again.state.fields.u, sim.state.fields.u)):
@@ -2170,11 +2235,12 @@ def sliced(fn, n):
 
 
 def same_columns(pk, pp, what):
-    """Raises unless two ledgers are identical in every column, float32 as bits."""
+    """Raises unless two ledgers are identical in every column, floats as bits."""
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
     for f in dataclasses.fields(pk):
         a, b = getattr(pk, f.name), getattr(pp, f.name)
-        if a.dtype == torch.float32:  # signed zeros too
-            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.dtype in bits:  # signed zeros too
+            a, b = a.view(bits[a.dtype]), b.view(bits[b.dtype])
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: {f.name} differs in {int((a != b).sum())} slots")
 
@@ -2198,6 +2264,63 @@ def owned_vs_plain(transport_kernel, what, p0, args, n=None):
         raise AssertionError(f"{what}: stats {ev_k} {it_k} vs {ev_p} {it_p}")
     err, _ = max_float_err(pk, pp, ("x", "y", "z", "vx", "vy", "vz", "tau"))
     return pk, int(ev_k.sum()), err
+
+
+def ledger_as(p, dtype):
+    """A copy of the ledger ``p`` with its float columns in ``dtype``."""
+    q = p.clone()
+    return dataclasses.replace(q, **{f.name: getattr(q, f.name).to(dtype)
+                                     for f in dataclasses.fields(q)
+                                     if getattr(q, f.name).is_floating_point()})
+
+
+def coefs_as(coefs, dtype):
+    """The coefficients ``coefs`` with their float tensors in ``dtype``."""
+    return dataclasses.replace(coefs, **{
+        f.name: getattr(coefs, f.name).to(dtype) for f in dataclasses.fields(coefs)
+        if isinstance(getattr(coefs, f.name), torch.Tensor)})
+
+
+def prm_as(prm, dtype):
+    """Transport parameters with the face offsets of ``dtype`` (``default_eps``)."""
+    from jaybenne_tpu_torch.ops.transport import default_eps
+
+    return dataclasses.replace(prm, **default_eps(dtype))
+
+
+def f64_vs_plain(transport_kernel, dev, what, p0, coefs, mesh, prm, dt, seed):
+    """The float64 instantiation on a float32 check's inputs made float64 (the
+    ledger ``p0``, ``coefs``, ``prm``) against its float64 plain version: after 8
+    iterations and after a full census of the last 10 % of a step, every column
+    identical, the floats bitwise, the same events and iterations, and only
+    ``_f64`` launches. Returns (max_abs_err, full census events, kernel ms of that
+    census)."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    f64 = torch.float64
+    p64, c64, prm64 = ledger_as(p0, f64), coefs_as(coefs, f64), prm_as(prm, f64)
+    pf = ledger_as(p0, f64)
+    pf.tau.copy_(0.9 + 0.1 * torch.rand(pf.capacity, device=dev, dtype=f64,
+                                        generator=torch.Generator(dev).manual_seed(seed)))
+    err, out = 0.0, []
+    for q0, prm_q in ((p64, dataclasses.replace(prm64, max_iters=8)), (pf, prm64)):
+        before = dict(cuda_lib.LAUNCHES)
+        pk, it_k, ev_k = transport_kernel.transport(q0.clone(), c64, mesh, seed, prm_q, dt)
+        new = {k for k, v in cuda_lib.LAUNCHES.items() if v != before.get(k, 0)}
+        pp, it_p, ev_p = transport_kernel.transport_plain(q0.clone(), c64, mesh, seed, prm_q, dt)
+        torch.cuda.synchronize()
+        if not new or any(not k.split("@")[0].endswith("_f64") for k in new):
+            raise AssertionError(f"{what}: the float64 census launched {sorted(new)}")
+        same_columns(pk, pp, what)
+        if int(ev_k) != int(ev_p) or int(it_k) != int(it_p):
+            raise AssertionError(f"{what}: stats {ev_k} {it_k} vs {ev_p} {it_p}")
+        err = max(err, max_float_err(pk, pp, ("x", "y", "z", "vx", "vy", "vz", "tau"))[0])
+        out.append((int(ev_k), int(pk.absorbed.sum())))
+    times, _ = time_census(transport_kernel.transport, pf, (c64, mesh, seed, prm64, dt), dev, 3)
+    print(f"{what} f64: bitwise its float64 plain version in every column after 8 iterations "
+          f"({out[0][0]} events) and after a full census ({out[1][0]} events, {out[1][1]} "
+          f"absorbed); the census {spread(times)}", flush=True)
+    return err, out[1][0], statistics.median(times)
 
 
 def resident_threads(dev) -> int:
@@ -2241,10 +2364,11 @@ def shards_vs_plain(transport_kernel, what, p0, coefs, mesh, seeds, prm, dt, own
     return pk, int(ev_k.sum()), err
 
 
-def z_round(transport_kernel, dev, shard, seed):
+def z_round(transport_kernel, dev, shard, seed, dtype=torch.float32):
     """Phase 28 on one shard: 2^17 particles on the shard's z-slab of bench.py's
-    big mesh, one owned-range round of the kernel and of its plain version.
-    Returns the max_abs_err."""
+    big mesh, one owned-range round of the kernel and of its plain version, at
+    the census precision ``dtype`` (phase 42 runs it in float64). Returns the
+    max_abs_err."""
     from jaybenne_tpu_torch.ops.transport import TransportCoefs
     from jaybenne_tpu_torch.parallel.spatial import blocks_per_shard, owned_range
     from jaybenne_tpu_torch.particles import uniform_ledger
@@ -2266,6 +2390,9 @@ def z_round(transport_kernel, dev, shard, seed):
     p0.block.copy_(p0.block % plane + lo // mesh.nz * plane)  # onto the shard's slab
     p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
     what = f"K3s shard {shard} of {Z_SHARDS} (z cells [{lo}, {hi}))"
+    if dtype != torch.float32:
+        p0, coefs, prm = ledger_as(p0, dtype), coefs_as(coefs, dtype), prm_as(prm, dtype)
+        what += f" in {dtype}"
     pk, ev, err = owned_vs_plain(transport_kernel, what, p0,
                                  (coefs, mesh, seed, prm, cfg.jaybenne.dt, own))
     gk = (pk.block // plane) * mesh.nz + pk.k
@@ -2285,13 +2412,14 @@ def z_round(transport_kernel, dev, shard, seed):
     return err
 
 
-def forest_round(transport_kernel, dev, seed):
+def forest_round(transport_kernel, dev, seed, dtype=torch.float32):
     """Phase 29: the hybrid slabs of phase 15 with DDMC on the forest of
     tests/test_spatial.py:463-467 at two shards, one owned-range round per shard
     of the kernel and of its plain version on 2^17 particles in the shard's
     blocks. Shard 0 holds the coarse blocks, whose thick cells leak into shard 1's
     finer blocks: those leaks pause with a pending code (shard 1 holds fine blocks
-    only and writes none). Returns the max_abs_err."""
+    only and writes none); at the census precision ``dtype`` (phase 42 runs it in
+    float64). Returns the max_abs_err."""
     from jaybenne_tpu_torch.ops.fleck import ddmc_face_probs
     from jaybenne_tpu_torch.ops.transport import TransportCoefs
     from jaybenne_tpu_torch.parallel.spatial import owned_range
@@ -2322,8 +2450,12 @@ def forest_round(transport_kernel, dev, seed):
         place_on_faces(p0, mesh, torch.rand(p0.capacity, generator=g, device=dev) < 0.25, g)
         p0.tau.copy_(torch.rand(p0.capacity, generator=g, device=dev))
         what = f"K4s shard {shard} of 2 (blocks [{lo}, {hi}))"
+        prm_s = prm
+        if dtype != torch.float32:
+            p0, coefs, prm_s = ledger_as(p0, dtype), coefs_as(coefs, dtype), prm_as(prm, dtype)
+            what += f" in {dtype}"
         pk, ev, e = owned_vs_plain(transport_kernel, what, p0,
-                                   (coefs, mesh, seed + shard, prm, cfg.jaybenne.dt, own))
+                                   (coefs, mesh, seed + shard, prm_s, cfg.jaybenne.dt, own))
         err = max(err, e)
         out = (pk.block < lo) | (pk.block >= hi)
         paused = pk.alive & (pk.tau < 1.0)
@@ -2898,7 +3030,7 @@ def restart_phases(dev, smi) -> None:
         trace_bytes = os.path.getsize(trace)
         with open(os.path.join(outdir, "history.json")) as fh:
             hist = json.load(fh)
-    k1 = {k: v for k, v in by_name.items() if "transport_kernel<1, false, false, false, false>"
+    k1 = {k: v for k, v in by_name.items() if "transport_kernel<1, false, false, false, false, float>"
           in k}
     if not k1:
         raise AssertionError(f"--profile-dir: no transport_1d kernel in the trace: "
@@ -2912,6 +3044,193 @@ def restart_phases(dev, smi) -> None:
           f"{PROFILE_STEPS} steps ({len(by_name)} device names); history.json: "
           f"{len(cycles)} cycles with the JAX package's keys, events "
           f"{[c['events'] for c in cycles]}", flush=True)
+
+
+# the float64 census (phases 41-44, precision = f64): the deck override, the JAX
+# package's counterpart (its XLA event loop) that the float64 rows name, and the
+# source of its instantiations
+PREC64 = {"jaybenne/precision": "f64"}
+F64_REPLACES = "jaybenne_tpu/ops/transport.py:154 (_one_event, XLA, f64)"
+F64_SRC = "jaybenne_tpu_torch/csrc/transport_kernel_f64.cu"
+
+
+def only_f64(launches, what):
+    """Raises unless a float64 run launched float64 kernels alone."""
+    other = [k for k, n in launches.items() if n and not k.split("@")[0].endswith("_f64")]
+    if other:
+        raise AssertionError(f"{what}: the float64 run launched {other}: {launches}")
+
+
+def tally_rtol(sim) -> float:
+    """The float64 run's conservation bound: the fixed-point tally's
+    (ops/tally.py: conservation_rtol) at its ledger's capacity."""
+    from jaybenne_tpu_torch.ops import tally
+
+    return tally.conservation_rtol(sim.state.particles.capacity)
+
+
+def f64_row(name, what, launches, errs, timing, src=F64_SRC):
+    """One float64 route's entry of the ``kernels`` line from a gate's run and its
+    kernel's timing (ms, plain_ms, events, max_abs_err, bound_ms, bound_by)."""
+    ms, plain_ms, _, err, bound, by = timing
+    return {"name": f"{name} (the float64 census; {what})", "route": "cuda", "source": src,
+            "replaces": F64_REPLACES, "launches": launches.get(name, 0),
+            "max_abs_err": max([err, *errs]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def precision_line(transport_kernel, dev, what, inputs, cost64):
+    """A census's float32 kernel against its float64 one on the same inputs (the
+    float64 census on them made float64), in turns, each the median of
+    CENSUS_REPEATS with its range; the float64 census's bound. Returns the
+    ratio of the medians."""
+    p, args = inputs
+    coefs, mesh, seed, prm, dt = args
+    p64 = ledger_as(p, F64)
+    args64 = (coefs_as(coefs, F64), mesh, seed, prm_as(prm, F64), dt)
+    transport_kernel.transport(p.clone(), *args)  # warm-up
+    transport_kernel.transport(p64.clone(), *args64)
+    t32, t64 = [], []
+    for _ in range(CENSUS_REPEATS):
+        t32 += time_census(transport_kernel.transport, p, args, dev, 1)[0]
+        times, ev64 = time_census(transport_kernel.transport, p64, args64, dev, 1)
+        t64 += times
+    t32.sort()
+    t64.sort()
+    ratio = statistics.median(t64) / statistics.median(t32)
+    smr = ((mesh, block_crossings(transport_kernel, p64, args64, ev64))
+           if mesh.max_level > 0 else None)
+    bound, by = census_bound(p64, prm.ndim, bool(prm.has_absorption), mesh.total_cells, ev64,
+                             cost64, ddmc=bool(prm.use_ddmc), smr=smr,
+                             nongray=not coefs.is_gray)
+    print(f"f64 against f32 on {what} ({p.capacity} slots, {int(p.alive.sum())} live): f32 "
+          f"census {spread(t32)}, f64 census {spread(t64)}, f64/f32 {ratio!r}; f64 bound "
+          f"{bound!r} ms ({by}; {ev64} events; FP64 {PEAK_F64_OPS:.3g} op/s, "
+          f"{PEAK_BYTES:.3g} B/s), f64 kernel at {bound / statistics.median(t64):.3f} of it",
+          flush=True)
+    return ratio
+
+
+def f64_phases(transport_kernel, dev, cost, cost64, routes) -> list:
+    """Phases 41-44, the float64 census (precision = f64). ``routes`` are
+    (what, census inputs) of float32 paths that phase 44 times at both
+    precisions. Returns the ``kernels`` entries of the float64 routes that the
+    gates run."""
+    from jaybenne_tpu_torch.ops import cuda_lib, kernel_rng
+
+    phase("41 the double draw: Draw<double> (kernel_rng.cuh) vs the plain float64 pool")
+    slots = torch.tensor([0, 1, 127, 128, 16383, 100003, (1 << 17) - 1, 201151, (1 << 31) - 1],
+                         dtype=torch.int32)
+    its = torch.tensor([0, 1, 7, 8, 1000, 12345, 65537, (1 << 31) - 1], dtype=torch.int32)
+    tags = torch.arange(24, dtype=torch.int32)
+    grid = torch.cartesian_prod(slots, its, tags).to(dev)
+    lane, it, tag = (grid[:, k].contiguous() for k in range(3))
+    n_draws = 0
+    for seed in (-12345, 0, 349857, -(1 << 31), (1 << 31) - 1):
+        got = kernel_rng.draws_f64_cuda(seed, lane, it, tag)
+        want = kernel_rng.draws_f64_plain(seed, lane.long(), it.long(), tag.long())
+        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            raise AssertionError(f"the double draw differs from its plain version at seed {seed}")
+        n_draws += got.numel()
+    print(f"Draw<double>: u53, the spare half's u53, exp, cos and sin bitwise the plain float64 "
+          f"pool's on {n_draws} (seed, slot, it, tag) values", flush=True)
+
+    phase("42 all 36 float64 instantiations vs their float64 plain versions: phase 11's, 15's "
+          "and 22's ledgers in float64, and one K3s and one K4s round")
+    err64 = {}
+    for ndim in (1, 2, 3):
+        for absorb in (False, True):
+            for ddmc in (False, True):
+                seed = 1100 + ndim + 10 * absorb
+                dt, mesh, prm, p0, coefs, _ = hybrid_setup(dev, ndim, absorb, ddmc, seed)
+                name = transport_kernel.launch_name(ndim, absorb, ddmc, dtype=F64)
+                err64[name] = f64_vs_plain(transport_kernel, dev, name, p0, coefs, mesh, prm, dt,
+                                           seed)[0]
+                seed = 1500 + ndim
+                dt, mesh, prm, p0, coefs, _ = smr_setup(dev, ndim, absorb, ddmc, seed)
+                name = transport_kernel.launch_name(ndim, absorb, ddmc, True, dtype=F64)
+                err64[name] = f64_vs_plain(transport_kernel, dev, name, p0, coefs, mesh, prm, dt,
+                                           seed)[0]
+        for smr in (False, True):
+            for ddmc in (False, True):
+                seed = 2200 + ndim + 10 * smr
+                dt, mesh, prm, p0, coefs, _, _ = nongray_setup(dev, ndim, ddmc, smr, seed)
+                name = transport_kernel.launch_name(ndim, True, ddmc, smr, True, dtype=F64)
+                err64[name] = f64_vs_plain(transport_kernel, dev, name, p0, coefs, mesh, prm, dt,
+                                           seed)[0]
+    before = dict(cuda_lib.LAUNCHES)
+    err64["transport_3d_f64@z"] = z_round(transport_kernel, dev, Z_SHARD, 2801, F64)
+    err64["transport_2d_ddmc_smr_f64@blocks"] = forest_round(transport_kernel, dev, 2901, F64)
+    only_f64({k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()}, "phase 42 rounds")
+    if len(err64) != 38 or any(e != 0.0 for e in err64.values()):
+        raise AssertionError(f"float64 kernels against their plain versions: {err64}")
+    print(f"all {len(err64) - 2} float64 instantiations and the two owned-range rounds bitwise "
+          "their float64 plain versions (max_abs_err 0.0)", flush=True)
+
+    phase("43 the float64 gates through driver.run_file: stepdiff, stepdiff_ddmc, "
+          "stepdiff_smr, one EPBremss step on stepdiff_smr, stepdiff at 8 spatial shards")
+    rows = []
+    name = transport_kernel.launch_name(1, False, dtype=F64)
+    sd, launches, sd_in, e0 = run_path(DECK, {**GATE, **PREC64}, name, energy_rtol=tally_rtol)
+    only_f64(launches, "stepdiff f64")
+    if sd.state.particles.x.dtype != F64 or sd.state.fields.energy_tally.dtype != F64:
+        raise AssertionError("stepdiff f64: the state is not float64")
+    gate(weighted_erf_error(sd), WERR_TOL, "stepdiff f64 werr")
+    print(f"stepdiff f64: radiation energy conserved to {abs(radiation_energy(sd) - e0) / e0!r} "
+          f"(the fixed-point tally's bound {tally_rtol(sd)!r}); events {sd.total_events}",
+          flush=True)
+    rows.append(f64_row(name, "stepdiff, 128 cells, 100k particles", launches, [err64[name]],
+                        path_kernel(transport_kernel, dev, sd, sd_in, name, cost64)))
+
+    name = transport_kernel.launch_name(1, False, True, dtype=F64)
+    dd, launches, dd_in, _ = run_path(DDMC_DECK, {**DDMC_GATE, **PREC64}, name,
+                                      energy_rtol=tally_rtol)
+    only_f64(launches, "stepdiff_ddmc f64")
+    gate(weighted_erf_error(dd), WERR_TOL, "stepdiff_ddmc f64 werr")
+    rows.append(f64_row(name, "stepdiff_ddmc", launches, [err64[name]],
+                        path_kernel(transport_kernel, dev, dd, dd_in, name, cost64)))
+    table = table_check(transport_kernel, dev, dd_in[1][0], dd.mesh, dd_in[1][3], dd_in[1][4],
+                        None, "stepdiff_ddmc f64's last census (the 1D DDMC record in float64)")
+    rows.append({
+        "name": "census_table_f64 (the float64 census's per-cell table in one pass)",
+        "route": "cuda", "source": "jaybenne_tpu_torch/csrc/table_kernel.cu",
+        "replaces": F64_REPLACES + ": its per-event coefficient gathers",
+        "launches": launches.get("census_table_f64", 0), "max_abs_err": 0.0, "ms": table[0],
+        "plain_ms": table[1], "bound_ms": table[2], "bound_by": "bytes", "library_ms": None})
+
+    name = transport_kernel.launch_name(2, False, False, True, dtype=F64)
+    s2, launches, s2_in, _ = run_path(SMR_DECK, {**SMR_GATE, **PREC64}, name,
+                                      energy_rtol=tally_rtol)
+    only_f64(launches, "stepdiff_smr f64")
+    gate(weighted_erf_error(s2), SMR_TOL, "stepdiff_smr f64 werr")
+    rows.append(f64_row(name, "stepdiff_smr", launches, [err64[name]],
+                        path_kernel(transport_kernel, dev, s2, s2_in, name, cost64)))
+
+    name = transport_kernel.launch_name(2, True, False, True, True, dtype=F64)
+    p0 = initial_ledger(SMR_DECK, {**NG_SMR, **PREC64})
+    k4, launches, k4_in, _ = run_path(SMR_DECK, {**NG_SMR, **PREC64}, name, 1,
+                                      conserves_tally=False)
+    only_f64(launches, "stepdiff_smr with ep_bremss f64")
+    spectral_gate(k4, p0, "non-gray K4 f64", NG_SMR_JAX)
+    rows.append(f64_row(name, "one EPBremss step on stepdiff_smr", launches, [err64[name]],
+                        path_kernel(transport_kernel, dev, k4, k4_in, name, cost64)))
+
+    what = "stepdiff spatial f64, 8 shards"
+    sp, launches, sp_round, _, _ = spatial_path(DECK, {**STEPDIFF_SPATIAL, **PREC64}, None, what)
+    only_f64(launches, what)
+    gate(weighted_erf_error(sp), WERR_TOL, f"{what} werr")
+    name = next(k for k in launches if k.startswith("transport_"))
+    rows.append(f64_row(name, "stepdiff at 8 spatial shards, one launch a round", launches,
+                        [], round_kernel(transport_kernel, dev, sp_round, name, cost64)))
+
+    phase("44 the float64 census against the float32 one: time and bound")
+    for what, inputs in routes:
+        precision_line(transport_kernel, dev, what, inputs, cost64)
+    print(f"SASS instructions on the straight-line path, float64: log {cost64['logf']}, divide "
+          f"{cost64['div']}, the double draw (two hash words) {cost64['hash']}, exp "
+          f"{cost64['expf']}, sqrt {cost64['sqrtf']} (float32: logf {cost['logf']}, divide "
+          f"{cost['div']}, hash {cost['hash']})", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -2946,15 +3265,25 @@ def main() -> int:
                       f"{r.get('spill_stores', 'not read')}/{r.get('spill_loads', 'not read')} "
                       f"bytes, {transport_kernel.resident_blocks(ndim, absorb, ddmc, smr, ng)} "
                       "resident blocks of 256 a SM", flush=True)
+    for ndim in (1, 2, 3):  # the float64 census's (precision = f64)
+        for smr in (False, True):
+            for absorb, ddmc, ng in ((False, False, False), (True, False, False),
+                                     (False, True, False), (True, True, False),
+                                     (True, False, True), (True, True, True)):
+                name = transport_kernel.launch_name(ndim, absorb, ddmc, smr, ng, dtype=F64)
+                r = resources.get(name, {})
+                blocks = transport_kernel.resident_blocks(ndim, absorb, ddmc, smr, ng, F64)
+                print(f"  {name}: {r.get('registers', 'not read')} registers, stack "
+                      f"{r.get('stack', 'not read')} bytes, spill stores/loads "
+                      f"{r.get('spill_stores', 'not read')}/{r.get('spill_loads', 'not read')} "
+                      f"bytes, {blocks} resident blocks of 256 a SM", flush=True)
     listing = sass_listing(lib.path)
     cost = probe_costs(sass_counts(listing))
+    cost64 = probe_costs(sass_counts(listing), f64=True)
     for fn, code in listing.items():  # where a stack frame is used: LDL/STL
-        m = KERNEL_ARGS.search(fn)
-        if m:
-            ndim, *bits = (int(x) for x in m.groups())
-            name = transport_kernel.launch_name(ndim, *map(bool, bits))
-            if resources.get(name, {}).get("stack", 0) > 0:
-                print(f"  {name}: {local_memory(code)} LDL/STL instructions", flush=True)
+        name = census_route(fn, transport_kernel)
+        if name is not None and resources.get(name, {}).get("stack", 0) > 0:
+            print(f"  {name}: {local_memory(code)} LDL/STL instructions", flush=True)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         mix_build = pool.submit(path_mix_library)
         paths = loop_paths(str(cuda_lib.SRC_DIR), EVENT_LOOP_ROUTES, transport_kernel,
@@ -3367,6 +3696,10 @@ def main() -> int:
           "census on ledgers of 4 times the resident threads")
     schedule_phase(transport_kernel, dev)
     restart_phases(dev, smi)
+    f64_kernels = f64_phases(
+        transport_kernel, dev, cost, cost64,
+        (("stepdiff (transport_1d)", (pm, args)), ("the 2D feedback path (transport_2d_abs)", in2),
+         ("the 64^3 feedback row (transport_3d_abs)", fb_in)))
 
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -3432,7 +3765,7 @@ def main() -> int:
     # ``launches`` is phase 14's; beside it every counted path's
     table_kernel["launches_by_path"] = [[what, n] for what, n in TABLE_PATHS]
     print(f"census_table launches by path: {TABLE_PATHS}", flush=True)
-    kernels += [table_kernel] + smr_kernels + nongray_kernels + spatial_kernels
+    kernels += [table_kernel] + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,6 @@ under either decomposition (``parallel/``: the particle one, and the spatial one
 with migration), with every shard in one process or one shard per rank of a
 ``torch.distributed`` group; with the JAX package's dumps and checkpoints
 (``io.py``: each package restarts from the other's), restart at any shard count,
-``debug_checks`` and profiling. ``precision = f64`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``debug_checks`` and profiling; in float32 or, with ``precision = f64``, in
+float64 throughout (a ``double`` instantiation of the census kernel).
 """

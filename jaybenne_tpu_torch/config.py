@@ -2,8 +2,8 @@
 
 The same ``<block> key = value`` decks, parsed by :mod:`.utils.deck` into the typed
 dataclasses below, with the JAX package's parameter names, defaults and validation.
-Every key parses, so a deck means the same thing to both packages; what this port
-cannot run yet is refused where it would be used, by :func:`not_ported`.
+Every key parses, so a deck means the same thing to both packages, and the port
+runs every configuration the JAX package runs.
 """
 
 from __future__ import annotations
@@ -18,13 +18,6 @@ import torch
 from .models import eos as eos_models
 from .models import opacity as opacity_models
 from .utils.deck import Deck, DeckError
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error every unported configuration raises: names the ROADMAP item."""
-    return NotImplementedError(
-        f"{what} is not ported to jaybenne_tpu_torch yet (ROADMAP {item})"
-    )
 
 
 class SourceStrategy(enum.Enum):

@@ -9,6 +9,14 @@
 // Tags follow the DrawPool's allocation order inside one event: in the gray IMC
 // body without absorption, tag 0 feeds exp23 and tag 1 feeds u16 (low half).
 // u16 has 1/65536 granularity and must never feed a threshold test u < p.
+//
+// The float64 census draws 53-bit uniforms (``Draw<double>`` below, the scheme of
+// ops/kernel_rng.py's float64 DrawPool): its tags are allocated as the float32
+// census's, but the word of tag t is four hash words, of tags 4t .. 4t + 3. A
+// uniform is u53(hi, lo) = ((hi >> 5) 2^26 + (lo >> 6)) 2^-53 of the words 4t and
+// 4t + 1 (u23, a u16 low half, exp23, circle); a u16 high half is u53 of 4t + 2
+// and 4t + 3, a full double uniform too; circle takes the sign of the sine from
+// bit 0 of word 4t + 1; exp23 floors its uniform at the smallest normal double.
 #pragma once
 
 #include <cstdint>
@@ -67,3 +75,66 @@ __device__ __forceinline__ void jb_circle(uint32_t b, float* cph, float* sph) {
   *cph = c;
   *sph = (b & 1u) ? -s : s;
 }
+
+// 53-bit uniform on [0, 1) from two words (numpy's and jax.random's float64 draw)
+__device__ __forceinline__ double jb_u53(uint32_t hi, uint32_t lo) {
+  return (double)((uint64_t)(hi >> 5) * 67108864ull + (uint64_t)(lo >> 6)) *
+         (1.0 / 9007199254740992.0);
+}
+
+// The census's variates at its working precision. Draw<float> is the float32
+// census's words and transforms above, unchanged; Draw<double> the float64 ones.
+// ``Word`` is what an event carries for a tag: the hashed word in float32, the key
+// and tag in float64, hashed where a transform takes them.
+template <class Real>
+struct Draw;
+
+template <>
+struct Draw<float> {
+  using Word = uint32_t;
+  __device__ static __forceinline__ Word word(uint32_t key, uint32_t tag) {
+    return jb_word(key, tag);
+  }
+  __device__ static __forceinline__ Word raw(uint32_t seed, uint32_t lane, uint32_t it,
+                                             uint32_t tag) {
+    return jb_raw_bits(seed, lane, it, tag);
+  }
+  __device__ static __forceinline__ float u23(Word b) { return jb_u23(b); }
+  __device__ static __forceinline__ float u16_lo(Word b) { return jb_u16_lo(b); }
+  __device__ static __forceinline__ float u16_hi(Word b) { return jb_u16_hi(b); }
+  __device__ static __forceinline__ float exp23(Word b) { return jb_exp23(b); }
+  __device__ static __forceinline__ void circle(Word b, float* cph, float* sph) {
+    jb_circle(b, cph, sph);
+  }
+};
+
+template <>
+struct Draw<double> {
+  struct Word {
+    uint32_t key, tag;
+  };
+  __device__ static __forceinline__ Word word(uint32_t key, uint32_t tag) {
+    return Word{key, tag};
+  }
+  __device__ static __forceinline__ Word raw(uint32_t seed, uint32_t lane, uint32_t it,
+                                             uint32_t tag) {
+    return Word{jb_key(seed, lane, it), tag};
+  }
+  __device__ static __forceinline__ double u23(Word b) {
+    return jb_u53(jb_word(b.key, 4u * b.tag), jb_word(b.key, 4u * b.tag + 1u));
+  }
+  __device__ static __forceinline__ double u16_lo(Word b) { return u23(b); }
+  __device__ static __forceinline__ double u16_hi(Word b) {
+    return jb_u53(jb_word(b.key, 4u * b.tag + 2u), jb_word(b.key, 4u * b.tag + 3u));
+  }
+  __device__ static __forceinline__ double exp23(Word b) {
+    return -log(fmax(u23(b), 2.2250738585072014e-308));
+  }
+  __device__ static __forceinline__ void circle(Word b, double* cph, double* sph) {
+    const uint32_t lo = jb_word(b.key, 4u * b.tag + 1u);
+    const double c = cos(3.141592653589793 * jb_u53(jb_word(b.key, 4u * b.tag), lo));
+    const double s = sqrt(fmax(1.0 - c * c, 0.0));
+    *cph = c;
+    *sph = (lo & 1u) ? -s : s;
+  }
+};

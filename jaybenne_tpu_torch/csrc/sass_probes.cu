@@ -5,7 +5,10 @@
 // how many instructions the function compiles to: the probe's count less that of
 // the probe with the same loads and stores and a single FADD in its place
 // (chip_smoke.py counts them). The probes are compiled with the library's flags
-// and never launched; ``jb_census_words_launch`` at the end is launched.
+// and never launched; ``jb_census_words_launch`` at the end is launched. The
+// ``_f64`` probes count the float64 census's functions the same way against a
+// baseline with one DADD: the double log, divide, exp, sqrt and cos, and the
+// double draw (two hash words made one 53-bit uniform, kernel_rng.cuh).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,6 +49,48 @@ extern "C" __global__ void jb_probe_expf(const float* a, float* o) {
 extern "C" __global__ void jb_probe_sqrtf(const float* a, float* o) {
   const int i = threadIdx.x;
   o[i] = sqrtf(a[i]);
+}
+
+extern "C" __global__ void jb_probe_load1_f64(const double* a, double* o) {
+  const int i = threadIdx.x;
+  o[i] = a[i];
+}
+
+extern "C" __global__ void jb_probe_load2_f64(const double* a, double* o) {
+  const int i = threadIdx.x;
+  o[i] = a[i] + a[i + 64];
+}
+
+extern "C" __global__ void jb_probe_log_f64(const double* a, double* o) {
+  const int i = threadIdx.x;
+  o[i] = log(a[i]);
+}
+
+extern "C" __global__ void jb_probe_div_f64(const double* a, double* o) {
+  const int i = threadIdx.x;
+  o[i] = a[i] / a[i + 64];
+}
+
+extern "C" __global__ void jb_probe_exp_f64(const double* a, double* o) {
+  const int i = threadIdx.x;
+  o[i] = exp(a[i]);
+}
+
+extern "C" __global__ void jb_probe_sqrt_f64(const double* a, double* o) {
+  const int i = threadIdx.x;
+  o[i] = sqrt(a[i]);
+}
+
+extern "C" __global__ void jb_probe_cos_f64(const double* a, double* o) {
+  const int i = threadIdx.x;
+  o[i] = cos(a[i]);
+}
+
+extern "C" __global__ void jb_probe_u53(const double* a, double* o) {
+  const int i = threadIdx.x;
+  const uint32_t key = jb_key((uint32_t)__double2hiint(a[i]), (uint32_t)i,
+                              (uint32_t)__double2hiint(a[i + 64]));
+  o[i] = jb_u53(jb_word(key, 4u), jb_word(key, 5u));
 }
 
 namespace {

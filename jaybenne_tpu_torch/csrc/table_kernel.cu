@@ -1,5 +1,5 @@
 // The census's per-cell table in one pass: the rows that the census kernel's
-// ``gather`` reads (csrc/transport_kernel.cu), built from the coefficient columns
+// ``gather`` reads (csrc/transport_kernel.cuh), built from the coefficient columns
 // of one step as ops/transport_kernel.py::prepare receives them.
 //
 // Replaces no TPU kernel: it is the port of the XLA ops that the JAX package
@@ -35,9 +35,12 @@
 // dx))) + tiny, what the 1D DDMC event reads instead of making it;
 // non-gray (rho, T, fleck, sigma_s), with DDMC followed by the six face
 // probabilities and two zeros; with ABSORB ea = fleck sigma_a and es = sigma_s +
-// (1 - fleck) sigma_a, without ea = 0 and es = sigma_s. The same float32
+// (1 - fleck) sigma_a, without ea = 0 and es = sigma_s. The same float
 // operations in the same order as the plain version, IEEE divides, built without
-// FMA contraction, so the rows are bitwise the plain version's.
+// FMA contraction, so the rows are bitwise the plain version's. One kernel at
+// two precisions: float32 (jb_table_launch) and, for precision = f64, float64
+// (jb_table_launch_f64, its rows of doubles written as double2 pairs); the float32
+// layout is unchanged.
 //
 // What bounds it on an H100: bytes, each coefficient read once and each row
 // written once (the face arrays' one extra face a row of cells is read too).
@@ -61,38 +64,69 @@ constexpr int kMaxRanges = 16;
 
 enum Kind : int { kPair = 0, kDdmc = 1, kNongray = 2, kNongrayDdmc = 3, kDdmc1d = 4 };
 
-// One range's coefficient columns (float32, contiguous; null where its kind
-// reads none), its cells and its first row in the table.
+// One range's coefficient columns (Real, contiguous; null where its kind reads
+// none), its cells and its first row in the table.
+template <class Real>
 struct Range {
-  const float* sa;
-  const float* ss;
-  const float* fl;
-  const float* rho;
-  const float* temp;
-  const float* px;
-  const float* py;
-  const float* pz;
+  const Real* sa;
+  const Real* ss;
+  const Real* fl;
+  const Real* rho;
+  const Real* temp;
+  const Real* px;
+  const Real* py;
+  const Real* pz;
   int cells;
   int row;
 };
 
+template <class Real>
 struct Ranges {
-  Range r[kMaxRanges];
+  Range<Real> r[kMaxRanges];
 };
 
 // cells a block along x, y, z; root blocks along x and y; whether rows are in
-// the collapsed block's global row-major order; f32(1 / dx) and c (kDdmc1d)
+// the collapsed block's global row-major order; Real(1 / dx) and c (kDdmc1d)
+template <class Real>
 struct Layout {
   int nx, ny, nz;
   int nrbx, nrby;
   int permute;
-  float inv_dx, c;
+  Real inv_dx, c;
 };
 
-template <int KIND, bool ABSORB>
+// the floor added before a divide: 1e-37 in float32, the smallest normal double
+// in float64 (ops/transport_kernel.py, limits)
+template <class Real>
+constexpr Real kTiny = Real(2.2250738585072014e-308);
+template <>
+constexpr float kTiny<float> = 1.0e-37f;
+
+// Row element i of 4 (or 2) reals: one float4 (float2) store in float32, two
+// double2 stores (one) in float64.
+__device__ __forceinline__ void store4(float* out, size_t i, float a, float b, float c,
+                                       float d) {
+  reinterpret_cast<float4*>(out)[i] = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(double* out, size_t i, double a, double b, double c,
+                                       double d) {
+  reinterpret_cast<double2*>(out)[2 * i] = make_double2(a, b);
+  reinterpret_cast<double2*>(out)[2 * i + 1] = make_double2(c, d);
+}
+
+__device__ __forceinline__ void store2(float* out, size_t i, float a, float b) {
+  reinterpret_cast<float2*>(out)[i] = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(double* out, size_t i, double a, double b) {
+  reinterpret_cast<double2*>(out)[i] = make_double2(a, b);
+}
+
+template <int KIND, bool ABSORB, class Real>
 __global__ void __launch_bounds__(kThreads)
-    table_kernel(float* __restrict__ out, Ranges R, Layout m) {
-  const Range rg = R.r[blockIdx.y];
+    table_kernel(Real* __restrict__ out, Ranges<Real> R, Layout<Real> m) {
+  const Range<Real> rg = R.r[blockIdx.y];
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= rg.cells) return;
   int c = r;
@@ -105,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const size_t row = (size_t)rg.row + r;
   constexpr bool kFaces = KIND == kDdmc || KIND == kNongrayDdmc || KIND == kDdmc1d;
-  float f[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  Real f[6] = {Real(0), Real(0), Real(0), Real(0), Real(0), Real(0)};
   if constexpr (kFaces) {
     const int cpb = m.nx * m.ny * m.nz;
     const int b = c / cpb;
@@ -121,49 +155,74 @@ __global__ void __launch_bounds__(kThreads)
     f[4] = __ldg(rg.pz + iz);
     f[5] = __ldg(rg.pz + iz + (size_t)m.ny * m.nx);
   }
+  constexpr Real tiny = kTiny<Real>;
   if constexpr (KIND == kNongray || KIND == kNongrayDdmc) {
-    const float4 r0 = make_float4(__ldg(rg.rho + c), __ldg(rg.temp + c), __ldg(rg.fl + c),
-                                  __ldg(rg.ss + c));
-    float4* o = reinterpret_cast<float4*>(out) + (KIND == kNongrayDdmc ? 3 : 1) * row;
-    o[0] = r0;
+    const size_t o = (KIND == kNongrayDdmc ? 3 : 1) * row;
+    store4(out, o, __ldg(rg.rho + c), __ldg(rg.temp + c), __ldg(rg.fl + c), __ldg(rg.ss + c));
     if constexpr (KIND == kNongrayDdmc) {
-      o[1] = make_float4(f[0], f[1], f[2], f[3]);
-      o[2] = make_float4(f[4], f[5], 0.0f, 0.0f);
+      store4(out, o + 1, f[0], f[1], f[2], f[3]);
+      store4(out, o + 2, f[4], f[5], Real(0), Real(0));
     }
   } else {
-    const float ss = __ldg(rg.ss + c);
-    float ea = 0.0f, es = ss;
+    const Real ss = __ldg(rg.ss + c);
+    Real ea = Real(0), es = ss;
     if constexpr (ABSORB) {
-      const float sa = __ldg(rg.sa + c), fl = __ldg(rg.fl + c);
+      const Real sa = __ldg(rg.sa + c), fl = __ldg(rg.fl + c);
       ea = fl * sa;
-      es = ss + (1.0f - fl) * sa;
+      es = ss + (Real(1) - fl) * sa;
     }
     if constexpr (KIND == kDdmc) {
-      float4* o = reinterpret_cast<float4*>(out) + 2 * row;
-      o[0] = make_float4(ea, es, f[0], f[1]);
-      o[1] = make_float4(f[2], f[3], f[4], f[5]);
+      store4(out, 2 * row, ea, es, f[0], f[1]);
+      store4(out, 2 * row + 1, f[2], f[3], f[4], f[5]);
     } else if constexpr (KIND == kDdmc1d) {
       // what the 1D DDMC event makes from its cell alone, by its own operations
-      const float lk = f[0] * m.inv_dx;
-      const float leak_tot = lk + f[1] * m.inv_dx;
-      const float cdf = (ABSORB ? ea + leak_tot : leak_tot) + 1.0e-37f;
-      float4* o = reinterpret_cast<float4*>(out) + 2 * row;
-      o[0] = make_float4(ea, es, f[0], f[1]);
-      o[1] = make_float4(lk, cdf, cdf * m.c, 0.0f);
+      const Real lk = f[0] * m.inv_dx;
+      const Real leak_tot = lk + f[1] * m.inv_dx;
+      const Real cdf = (ABSORB ? ea + leak_tot : leak_tot) + tiny;
+      store4(out, 2 * row, ea, es, f[0], f[1]);
+      store4(out, 2 * row + 1, lk, cdf, cdf * m.c, Real(0));
     } else {
-      const float inv = 1.0f / (ea + es + 1.0e-37f);
-      reinterpret_cast<float2*>(out)[row] = make_float2(ea * inv, inv);
+      const Real inv = Real(1) / (ea + es + tiny);
+      store2(out, row, ea * inv, inv);
     }
   }
 }
 
-template <int KIND>
-void launch(bool absorb, float* out, const Ranges& R, const Layout& m, dim3 grid,
+template <int KIND, class Real>
+void launch(bool absorb, Real* out, const Ranges<Real>& R, const Layout<Real>& m, dim3 grid,
             cudaStream_t st) {
   if (absorb)
-    table_kernel<KIND, true><<<grid, kThreads, 0, st>>>(out, R, m);
+    table_kernel<KIND, true, Real><<<grid, kThreads, 0, st>>>(out, R, m);
   else
-    table_kernel<KIND, false><<<grid, kThreads, 0, st>>>(out, R, m);
+    table_kernel<KIND, false, Real><<<grid, kThreads, 0, st>>>(out, R, m);
+}
+
+template <class Real>
+int table_entry(int kind, int absorb, void* out, int n_ranges, void* const* cols,
+                const int* ranges, int nx, int ny, int nz, int nrbx, int nrby, int permute,
+                Real inv_dx, Real c, void* stream) {
+  if (kind < kPair || kind > kDdmc1d || n_ranges < 1 || n_ranges > kMaxRanges) return -1;
+  Ranges<Real> R;
+  int most = 0;
+  for (int k = 0; k < n_ranges; ++k) {
+    const Real* const* p = reinterpret_cast<const Real* const*>(cols) + 8 * k;
+    R.r[k] = Range<Real>{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], ranges[2 * k],
+                         ranges[2 * k + 1]};
+    most = ranges[2 * k] > most ? ranges[2 * k] : most;
+  }
+  const Layout<Real> m{nx, ny, nz, nrbx, nrby, permute, inv_dx, c};
+  if (most > 0) {
+    const dim3 grid((most + kThreads - 1) / kThreads, n_ranges);
+    auto* o = (Real*)out;
+    auto st = (cudaStream_t)stream;
+    const bool ab = absorb != 0;
+    if (kind == kPair) launch<kPair>(ab, o, R, m, grid, st);
+    if (kind == kDdmc) launch<kDdmc>(ab, o, R, m, grid, st);
+    if (kind == kNongray) launch<kNongray>(ab, o, R, m, grid, st);
+    if (kind == kNongrayDdmc) launch<kNongrayDdmc>(ab, o, R, m, grid, st);
+    if (kind == kDdmc1d) launch<kDdmc1d>(ab, o, R, m, grid, st);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -181,26 +240,16 @@ extern "C" int jb_table_launch(int kind, int absorb, void* out, int n_ranges,
                                void* const* cols, const int* ranges, int nx, int ny, int nz,
                                int nrbx, int nrby, int permute, float inv_dx, float c,
                                void* stream) {
-  if (kind < kPair || kind > kDdmc1d || n_ranges < 1 || n_ranges > kMaxRanges) return -1;
-  Ranges R;
-  int most = 0;
-  for (int k = 0; k < n_ranges; ++k) {
-    const float* const* p = reinterpret_cast<const float* const*>(cols) + 8 * k;
-    R.r[k] = Range{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], ranges[2 * k],
-                   ranges[2 * k + 1]};
-    most = ranges[2 * k] > most ? ranges[2 * k] : most;
-  }
-  const Layout m{nx, ny, nz, nrbx, nrby, permute, inv_dx, c};
-  if (most > 0) {
-    const dim3 grid((most + kThreads - 1) / kThreads, n_ranges);
-    auto* o = (float*)out;
-    auto st = (cudaStream_t)stream;
-    const bool ab = absorb != 0;
-    if (kind == kPair) launch<kPair>(ab, o, R, m, grid, st);
-    if (kind == kDdmc) launch<kDdmc>(ab, o, R, m, grid, st);
-    if (kind == kNongray) launch<kNongray>(ab, o, R, m, grid, st);
-    if (kind == kNongrayDdmc) launch<kNongrayDdmc>(ab, o, R, m, grid, st);
-    if (kind == kDdmc1d) launch<kDdmc1d>(ab, o, R, m, grid, st);
-  }
-  return (int)cudaGetLastError();
+  return table_entry<float>(kind, absorb, out, n_ranges, cols, ranges, nx, ny, nz, nrbx, nrby,
+                            permute, inv_dx, c, stream);
+}
+
+// jb_table_launch in float64 (precision = f64): rows of doubles, columns of doubles,
+// inv_dx and c as doubles.
+extern "C" int jb_table_launch_f64(int kind, int absorb, void* out, int n_ranges,
+                                   void* const* cols, const int* ranges, int nx, int ny,
+                                   int nz, int nrbx, int nrby, int permute, double inv_dx,
+                                   double c, void* stream) {
+  return table_entry<double>(kind, absorb, out, n_ranges, cols, ranges, nx, ny, nz, nrbx,
+                             nrby, permute, inv_dx, c, stream);
 }

@@ -1,1661 +1,7 @@
-// Census transport kernel: IMC, and hybrid IMC/DDMC, on a uniform mesh or a
-// statically refined (SMR) block forest, 1D/2D/3D, with or without absorption,
-// with a gray or a frequency-dependent opacity. One source, thirty-six
-// instantiations: NDIM in {1, 2, 3} x SMR x (ABSORB x DDMC gray, and DDMC with
-// NONGRAY, which implies ABSORB).
-//
-// Replaces the three census kernels of the JAX package:
-//
-//   * jaybenne_tpu/ops/pallas_transport.py::_transport_kernel (:382; K1), the
-//     VMEM-resident kernel with its has_absorption (K1(b)), multi_d/three_d and
-//     nongray (K1(e)), use_ddmc (K1(c)) and multi-block SMR (K1(d)) branches;
-//   * jaybenne_tpu/ops/pallas_grid.py::_grid_kernel (:678; K3), the kernel the
-//     JAX package runs on uniform meshes past K1's 5120-cell VMEM limit, gray
-//     and non-gray (:859-907);
-//   * jaybenne_tpu/ops/pallas_bucketed.py::_bucketed_kernel (:221; K4), the one
-//     it runs on refined forests past that limit, gray and non-gray (:355-403).
-//
-// and the two census rounds of the JAX package's spatial decomposition:
-//
-//   * jaybenne_tpu/ops/pallas_grid.py::make_spatial_grid (:1943; K3s), a shard's
-//     round on the whole z planes of a uniform IMC mesh;
-//   * jaybenne_tpu/ops/pallas_bucketed.py::make_spatial_transport (:1360; K4s), a
-//     shard's round over its blocks of any forest.
-//
-// They exist separately on the TPU only because of VMEM. Here one kernel gathers
-// its tables from global memory: on a uniform forest it tracks global cells on
-// the collapsed single block; on a refined one the ledger stays block-local. The
-// region slabs, halos, parity layouts, SIGMA_REFRESH stale lanes,
-// pause-and-rebucket rounds, bucket sorts and bf16 pair packing of the TPU
-// kernels are not carried over. It computes what they compute, per particle:
-//
-//   * a table of shards at run time (not a template parameter), one row per
-//     local shard of the spatial decomposition, so that one launch runs a whole
-//     round: the shard's ledger slots [slot_lo, slot_hi) (its lane is the slot's
-//     index in that slice), its owned range [own_lo, own_hi), its K2 seed and
-//     the first row of its range in the cell table. The range is the global z
-//     cells of the shard's slab on the collapsed uniform mesh (K3s, cell table
-//     row ((k - own_lo) ny + j) nx + i after the shard's first), or the shard's
-//     blocks with SMR (K4s, row (block - own_lo) cells per block + local cell
-//     after it; the block table and lookup grid global). Only a lane whose cell
-//     lies in its shard's range runs, and a lane pauses, alive and short of
-//     census, after the event that takes it out. With DDMC in 2D/3D a leak into
-//     a finer block outside the range is not resampled: its code goes to the
-//     ledger's leak column for the owning shard. On one device the table has one
-//     row, the whole ledger and the whole mesh, and the census is the same draw
-//     for draw;
-//
-//   * each lane runs its own history while alive && tau < 1 && it < max_iters,
-//     with its own iteration counter. A lane of the JAX tile is active from
-//     iteration 0 until census or absorption, so the lane's counter equals the
-//     tile's for every draw the lane makes, and the variates (kernel_rng.cuh,
-//     keyed by seed, lane, it, tag) are the JAX kernel's interpret-mode
-//     variates. Tags follow the JAX DrawPool's order:
-//     exp23 is tag 0, then the u23 branch draw (ABSORB only), then the u16 word,
-//     then the circle word (multi-D only);
-//   * per event: d_coll = exp23 * inv_sigt[cell]; with ABSORB a u23 branch draw
-//     (a u16 draw must never feed a threshold test); d_end = c dt (1 - tau);
-//     d_geom = min(dmin, d_end); the face distances c (face - x) / v on the
-//     active axes; then, in order, collision (absorb when u23 < p_abs, else
-//     scatter), crossing of x, else y, else z (ties go to the lower axis), else
-//     census when d_end <= dmin (tau = 1 exactly). Absorption clears alive, sets
-//     absorbed and does not scatter. A 1D scatter draws mu = 1 - 2 u16 with
-//     vx = c mu, vy = c sqrt(1 - mu^2), vz = 0 (the azimuth is unobservable); a
-//     multi-D scatter draws the azimuth from the circle word:
-//     (c st cos(phi), c st sin(phi), c mu);
-//   * domain walls use the half-finest-cell tolerant hit test and clip of the
-//     JAX kernel's apply_bc (an exact comparison livelocks). After any wall hit
-//     every active axis's cell is re-derived from the rebased position; every
-//     other crossing updates the integer index;
-//   * the per-cell table holds the f32 pair (p_abs = fleck sigma_a / sigma_t,
-//     1 / sigma_t) in global row-major cell order, one 8-byte float2 per cell
-//     (the TPU kernels' bf16 packing only halved their chunk scans). At the
-//     128-cell stepdiff gate it stays in L1; at the 64^3 feedback mesh it is
-//     2 MB and each event's gather is served from L2;
-//   * DDMC (pallas_transport.py:502-870, 893-939, 1166-1167): the table holds
-//     one 32-byte record per cell, (ea = fleck sigma_a, es = sigma_s +
-//     (1 - fleck) sigma_a, P_lower, P_upper of x, y, z), read as two float4.
-//     A lane whose cell has dmin sigma_t > tau_ddmc runs the DDMC event: the
-//     albedo test 2 P (1 +- 1.5 v / c) against the extrapolated face
-//     probability when it arrived at a face by an IMC crossing (rejection
-//     bounces it into the neighbour cell eps_imc dx from the face, with no time
-//     advance); else an exponential event time at rate c (ea + sum of the leak
-//     rates P_face / dx) against the time to census: absorption, a leak eps_ddmc
-//     dx beyond the face chosen by cumulative sum in the order x_lo, x_hi, y_lo,
-//     y_hi, z_lo, z_hi (the numerical fall-through takes the last face) with the
-//     transverse coordinates at the cell centre and a hemisphere direction, or
-//     census with a uniform position in the cell and an isotropic direction.
-//     Any other lane runs the IMC event with the JAX kernel's DDMC-mode
-//     rounding (d_coll = exp23 / (sigma_t + tiny), absorption when u23 sigma_t
-//     < ea) and records the face-arrival code +-(axis + 1) of a crossing (0
-//     otherwise; a reflecting wall negates it). The ledger's face column is read
-//     and written only by the DDMC instantiations. Draw tags continue the IMC
-//     event's (the DrawPool's order): the albedo u23, the hemisphere mu from the
-//     high half of the IMC scatter's u16 word, exp23, the leak u23, then u16
-//     words for the leak mu, the census position and the census mu, each
-//     followed by a circle word in 2D/3D where the JAX kernel draws one;
-//   * SMR (pallas_transport.py:463-478, 888-891, 973-1151): each event gathers
-//     the lane's block geometry (cell size, origin) from the block table, so
-//     dmin, the face positions and, with DDMC, the reciprocal cell sizes (the
-//     block table's f32(1 / dx) column) are per lane, and the cell table row is
-//     block * cells-per-block + local cell. A lane whose index leaves its block
-//     takes the global position origin + local, the domain BCs, and the lookup
-//     probe: half a finest cell along a crossed face's normal (from the out
-//     flags), 0.01 finest v / c along the others, with v the velocity after the
-//     scatter and any reflection; floorf binning into the lookup grid, the new
-//     block's origin subtracted (global - origin, in that order), and the cell
-//     floorf(l / dx) by an IEEE divide, clipped. With DDMC in 2D/3D a leak
-//     (not an albedo bounce) into a block of higher level is resampled onto a
-//     fine subface: e = clip(rint(l / dx), 1, n - 1) on each transverse axis
-//     gives the 2 (2D) or 4 (3D) fine faces around the coarse landing point;
-//     one is picked by the fine block's P_lower (leak in +axis) or P_upper
-//     (-axis), in 2D by u (P_l + P_u) >= P_l, in 3D by cumulative sum against
-//     u (sum + tiny); the transverse position is redrawn uniformly on it and the
-//     direction from a hemisphere into the block in the cyclic axis order. Its
-//     variates continue the DrawPool after the DDMC event's: u_sel, u_t1, u_t2
-//     (3D) and the hemisphere mu are u16 halves, then one circle word;
-//   * NONGRAY (pallas_transport.py:484-501; pallas_grid.py:859-907;
-//     pallas_bucketed.py:355-403): the table holds (rho, T, fleck, sigma_s) per
-//     cell, one float4 (with DDMC followed by the six face probabilities and two
-//     zeros: three float4), and each event evaluates EPBremss under NonCGSUnits
-//     (models/opacity.py) at the lane's photon energy, read once from the
-//     ledger's energy column, before the collision draw: x = E / (sb T), nu =
-//     max(x (kb T) / h, 1e10), g = g_ff / nu, xc = min(nu h / (kb T), 80),
-//     sigma_a = rho^2 g^3 / sqrt(T) (1 - exp(-xc)), in that order of float32
-//     operations, each constant rounded to float32 on the host; then ea = fleck
-//     sigma_a, sigma_t = ea + (sigma_s + (1 - fleck) sigma_a), and the event
-//     runs with the DDMC-mode rounding (d_coll = exp23 / (sigma_t + tiny),
-//     absorption when u23 sigma_t < ea); with DDMC the lane's own sigma_t picks
-//     the branch (dmin sigma_t > tau_ddmc, pallas_transport.py:520-533). The JAX
-//     kernel draws the same words with and without nongray, so the tags are
-//     ABSORB's. K3 and K4 evaluate the models once per coefficient refresh and
-//     stall a lane whose cell changed until the next one: the same function;
-//   * events and the iteration maximum are summed per shard, in shared memory
-//     and then with one int64 atomicAdd and one int32 atomicMax per block and
-//     shard: integer atomics, so the statistics repeat exactly. The launch entry
-//     zeroes the counters on the stream first (one cudaMemsetAsync).
-//
-// What bounds it on an H100: not bytes (each particle is read and written once
-// per call, and the one table gather per event hits L1 or L2; SMR's block and
-// lookup tables are O(blocks) and stay in L1), but the throughput of logf, the
-// IEEE divides and the hash per event (NONGRAY adds an expf, a sqrtf and four
-// divides), what a warp issues for nothing, and the longest history: a warp runs
-// until its slowest lane ends, and on a hybrid forest a warp that holds lanes on
-// both branches issues both bodies. On a spatial round, one launch per shard
-// waited for each shard's slowest lane in turn.
-//
-// The schedule: one launch runs every local shard of a round (the shard table
-// above). One thread takes one slot; the block then regroups once, before any
-// event: it stages its runnable lanes (slot, shard, own iteration count,
-// position, velocity, tau, cell, block, face, photon energy: at most 64 bytes a
-// lane) in shared memory and deals them back so that they fill the lowest
-// warps, those on the IMC branch first and, with DDMC, those on the DDMC branch
-// from the next warp boundary. When the launch's blocks all fit on the card at
-// once, the host asks for its slots spread: block b's warp w takes the 32 slots of
-// group w x blocks + b, so that every block holds slots from across the launch (a
-// ledger keeps its live particles first and its room to grow after them, and the
-// blocks that held stepdiff's 100000 live lanes of 201152 slots in consecutive
-// order left the busiest SM 1.69 times the mean SM's lane-events, counted by
-// %smid; spread, 1.02). Dead, finished and unowned slots then leave whole
-// warps empty, which issue nothing, and a hybrid warp runs one branch at its
-// start. Each lane then runs its whole history with its state in registers: the
-// lane's state in a struct, or the cell record returned by value, cost the 2D
-// SMR DDMC instantiation a 240-byte stack frame (112 in the body with plain
-// arrays) and halved its speed. A lane carries its slot and its own iteration
-// count, so the results are bitwise those of one thread per slot. With SMR the
-// block table carries f32(1 / dx) per axis (an IEEE divide on the host side), so
-// the DDMC event's per-event divides are gone.
-//
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; device ms a step by
-// jaybenne_tpu_torch/profile.py, this kernel and the one before it, one thread
-// per slot without a regroup, in one call): the native 128x64 hybrid 3.30-3.50
-// against 3.25-3.62 (the regroup alone: 3.30 against 3.41-3.45 without it), the
-// stepdiff gate 0.975-0.984 against 1.01-1.02. The slot order's warp efficiency
-// (the plain version's per-slot events: their sum over 32 times the sum of each
-// warp's longest lane) is 0.80 on the hybrid and 0.94 on stepdiff, so no
-// regrouping can win more than a factor 1/0.80 and 1/0.94 there. Two other
-// schedules were built and measured the same way and dropped: a persistent grid
-// (as many blocks as the card holds) taking slots from a device-side cursor with
-// a block regroup every 8 events, hybrid 2.88-2.92 against this one's 2.92-2.95
-// in one call but stepdiff 1.33-1.35 against 0.96, since the block waits at
-// each barrier for its slowest warp; and the same grid with warp-level refills
-// and no barrier, slower than that on both.
-//
-// The event loop. Most events of a scatter-dominated lane stay in its cell, so a
-// lane keeps what its cell gives an event in registers (``gather``: the record,
-// the faces f dx and (f + 1) dx, with SMR the block's dx, origin and dmin) and
-// gathers it again only after an event that changed its cell or block; a lane of
-// a uniform mesh with DDMC gathers before every event, as before. The same
-// operations run on the same operands, so the census stays bitwise its plain
-// version's. A K2 word depends only on (seed, lane, iteration, tag), so an event's
-// draws and what follows from them alone (exp23, the u23 branch draw, mu,
-// sqrt(1 - mu^2), the circle's cos and sin) need not wait for its state: a gray
-// lane on a refined forest makes them during the event before and carries them;
-// a gray lane on a uniform mesh makes them at the top of the event, before the
-// face divides; a DDMC or NONGRAY lane in place, the scatter's in the scatter.
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; census_bench.py, each census the
-// median of 7 on the same saved inputs, the kernel before this loop in the same
-// call, in turns; variants built and dropped as noted): the cache alone took the
-// native hybrid from 3.68 to 3.17 ms and slowed no gray route by more than 3 %;
-// every IMC event's draws one event ahead took stepdiff_smr's census 10-14 %
-// down in three calls but the 64^3 feedback census 5-6 % and the 2D feedback
-// census 6-9 % up; the draws at the top of the event left stepdiff_smr 1-3 % up
-// and took K3s's round 11-13 % and the 64^3 feedback census 1-3 % down; drawing
-// only the collision's words ahead, and keeping no cell for NONGRAY, were no
-// better and were dropped. With the placement above (two calls, four turns
-// each): stepdiff_smr 2.085 -> 1.80 ms, the 64^3 feedback census 5.80 -> 5.63,
-// K3s's round 2.99 -> 2.65, the native hybrid 3.42 -> 3.08, stepdiff 1.001 ->
-// 1.000; the event loop's common path (a scatter in the cell) 243 -> 231 SASS
-// instructions in 2D SMR, 297 -> 279 in 3D. The census issues 0.39-0.52 of the
-// card's instruction rate on that path alone.
-//
-// The gray event on a uniform 1D or 2D mesh (stepdiff, the 2D feedback path).
-// Counted per warp-event by a counting variant (chip_smoke.py ``path_mix``), a
-// lane of the warp scattered in 0.998 (1D) and 0.996 (2D) of them, crossed in 0.82
-// and 0.88, hit a wall in 0.014 and 0.021: so such a lane gathers its cell's
-// record after every event, without the branch (``kGatherEvery``), and a 1D lane
-// sets vy and vz once, from its last scatter's mu, when its history ends
-// (``kVyAfter``: the scatter's sqrtf leaves the loop); a gray lane steps its K2
-// key by kItStep an event. Measured (NVIDIA H100 80GB HBM3, 700.00 W;
-// census_bench.py, each candidate built alone and timed against the kernel before
-// it in turns): stepdiff's census 1.0019 ms -> 0.8916 with vy after the history
-// alone, 0.9703 with the branch-free gather alone, 0.9893 with the stepped key
-// alone, 0.8502 with all three, 0.5808 with the slots spread too (above); the 2D
-// feedback census 1.6854 -> 1.6363 with the gather, the key and the spread (vz
-// after the history cost 1.1 % more). Landed, four turns each: stepdiff 0.9946 ->
-// 0.5771 ms, the 2D feedback census 1.6773 -> 1.6276. Dropped: drawing 1D events
-// one ahead (1.2 % slower with the spread, 0.9 % without); 128-thread blocks
-// (stepdiff 27 % faster, the 2D and 64^3 feedback censuses 9.5 % and 6.3 %
-// slower); the 1 KB 1D cell table staged in shared memory (7 % slower); a DDMC or
-// NONGRAY lane carrying its key (9 registers fewer for the 2D SMR DDMC kernel, so
-// 4 resident blocks instead of 3: its K4s round 8-9 % slower).
-//
-// The 3D gray DDMC census (the 64^3 DDMC row, stepdiff_3d). Measured before any
-// change (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phases 14 and 20,
-// census_bench.py): the 64^3 row's 200340 live lanes of 663168 slots run 9.2
-// events each and the longest 23-28, stepdiff_3d's 499963 of 1016384 run 4.8 (3.2
-// in its level-0 blocks, 8.6 in its level-1 ones) and the longest 23-26; the slot
-// order's warp efficiency is 0.59 and 0.41; the busiest SM runs 1.36 and 1.47
-// times the mean SM's lane-events (%smid); a lane leaks in 89 % and 79 % of its
-// events and reaches census in the rest, and on stepdiff_3d 53 % of warp-events
-// hold a lane that meets a block face (re-homing). The kernel alone took 0.18 of
-// the 64^3 row's 0.45 ms census call: most of the rest was the ledger's collapse
-// to one block and back in 44 elementwise passes (then one kernel pass each way,
-// now folded into this kernel: see the census call below). The 112-byte stack
-// frame of every 2D/3D DDMC
-// instantiation held the lane's state arrays (position, cell, velocity, faces,
-// cell size) in local memory: the compiler had turned the face placement's
-// unrolled ``if (leak >> 1 == a)`` into stores at a runtime index, so every DDMC
-// event read and wrote them there (LDL/STL in the SASS); the placement now writes
-// every element through a select (``place_across``). Measured (census_bench.py,
-// two turns in one call, the same inputs): the frame 112 -> 32 bytes (cosf's slow
-// path, 20-25 LDL/STL left of 110-157), the kernel alone on the 64^3 row 0.182 ->
-// 0.074 ms, on stepdiff_3d 0.284 -> 0.208 (79 -> 101 registers, 3 -> 2 resident
-// blocks), on the native hybrid 2.83 -> 2.17, on phase 11's 2D/3D hybrid ledgers
-// 22-30 % less; no route slower than 1 %. Built, measured in turns
-// against the kernel before it in one call each, and dropped: a refill schedule
-// (as many blocks as the card holds; each warp runs its lanes one event at a time
-// and, once 8 or 16 are idle, refills them from a launch-wide cursor over groups
-// of 32 slots; results bitwise) raised the SIMT efficiency from 0.59 to 0.61-0.66
-// and from 0.41 to 0.69-0.82, yet the 64^3 row's kernel took 4-16 % longer,
-// stepdiff_3d's moved by -2.3 to +1.4 % (97 registers, 2 resident blocks; held to
-// 80 by launch bounds it spilled and took 8-10 % longer) and the absorbing 3D twin
-// on a hybrid ledger took 20-29 % longer; one divide in the albedo test, measured
-// only beside the refill, sped up no route it reaches. A launch bound of one
-// resident block a SM, which should change nothing, raised the 1D DDMC kernels'
-// registers (40 -> 44) and slowed stepdiff_ddmc's census by 23 %.
-//
-// The census call around the kernel (stepdiff_ddmc's 1D DDMC census, inf_stiff's
-// absorbing twin, the 64^3 ep_bremss census). Measured first (NVIDIA H100 80GB
-// HBM3, 700.00 W; census_bench.py, CUDA events around the call's parts): the 64^3
-// ep_bremss call of 0.146 ms was the kernel's launch 0.047, the table's five
-// elementwise passes 0.036, the ledger's collapse and expansion 0.038 and two
-// counter fills 0.010; the 1D DDMC call of 0.054 ms was the launch 0.026, the
-// table 0.0086 and the counters 0.010. The 1D DDMC kernel is not issue-bound (its
-// warps issue for 0.33 of its time; a lane runs 11.9 events, the longest 28; four
-// times the lanes take 0.45 of the time an event), and the ep_bremss kernel
-// evaluates EPBremss only where a lane gathers a cell (98 SASS instructions, at
-// most 9 % of its loop). So the table is one pass (csrc/table_kernel.cu), the
-// counters one fill, and on a uniform mesh of several blocks this kernel folds the
-// collapse to one block and the expansion back into its reads (``take``) and
-// writes (``retire``) of every slot, by the plain versions' operations ((x + d) - d
-// is not always x, so a slot that no lane takes is written back too); the 1D DDMC
-// record carries the cell's leak rate, cdf and c cdf (``kCell1d``), and that event
-// hashes its words at its start. Measured in turns against the kernel before it
-// (census_bench.py, two turns, medians of 7): the calls 0.0537 -> 0.0483 ms (1D
-// DDMC), 0.0549 -> 0.0435 (its absorbing twin), 0.1464 -> 0.0870 (64^3 ep_bremss),
-// 0.2282 -> 0.1046 (64^3 DDMC); the fold costs the ep_bremss launch 0.047 -> 0.060
-// ms (it reads every slot) for the two passes' 0.038. Without the lighter 1D event
-// the 1D DDMC kernel took 41 registers (5 resident blocks, not 6: two waves) and
-// its call was 4 % slower than before; 128-thread blocks for the 1D DDMC
-// instantiations, built and dropped, took the twin's call 4 % lower and
-// stepdiff_ddmc's 1.3 % higher.
-//
-// The two non-gray census calls on one block and on a forest (stepdiff and
-// stepdiff_smr with ep_bremss: 1.6 and 2.2 events a live lane, 55 % of the
-// launch's blocks without one, the loop at the issue rate 0.21 and 0.36 of the
-// kernel). Measured first (NVIDIA H100 80GB HBM3, 700.00 W; census_bench.py, the
-// call's parts in calls of their own, each less the two gaps its events add): on
-// the forest the set-up rebuilt the block table, levels and lookup grid in six
-// small operations every call (0.013 ms of 0.050), on both the table pass only
-// copied four coefficient columns (0.005), and the counters' fill cost 0.002. So
-// the forest's tables are built once per mesh (ops/transport_kernel.py,
-// forest_tables), the kernel reads the non-gray record straight from the
-// coefficient columns where the table would copy them (``Columns``; not with
-// DDMC, a permuted uniform mesh or several ranges), and the launch entry zeroes
-// the counters with a memset. Measured in turns against the kernel before it
-// (census_bench.py, two turns, medians of 7, each candidate alone): the forest
-// tables once took stepdiff_smr's ep_bremss call 0.0500 -> 0.0368 ms and
-// stepdiff_3d's 0.224 -> 0.210; the columns took stepdiff's ep_bremss call 0.0213
-// -> 0.0192 (the launch 0.0005 longer for four loads in place of one); the memset
-// 1-2 % off the short calls. Built and dropped: counters without any zeroing,
-// running totals that every block adds into and fences, and the last block by a
-// ticket moves out and leaves at zero (the CUDA samples' threadfence reduction):
-// every block, empty ones too, takes the ticket on one address, so the launches
-// took longer (inf_stiff's call +7.9 %, the 64^3 ep_bremss call +5.5 %).
-//
-// Built without --use_fast_math and with --fmad=false, so that every operation
-// rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
-// executes the same float operations as the first (1D-only) version of this
-// kernel, so the stepdiff gate reproduces its events and error to every digit;
-// every line the DDMC, SMR and NONGRAY parameters add is dead code when they are
-// false.
-#include <cuda_runtime.h>
+// The float32 census: the thirty-six float32 instantiations of the census kernel
+// (transport_kernel.cuh, whose head describes it) and their C entries.
+#include "transport_kernel.cuh"
 
-#include <cstdint>
-
-#include "kernel_rng.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr float kBig = 3.0e38f;
-
-enum Bc : int { kPeriodic = 0, kOutflow = 1, kReflecting = 2 };
-
-// Float32 scalars of the event body, each rounded on the host as the JAX
-// kernel rounds it. Per-axis arrays are (x, y, z); only the first NDIM are read.
-struct Geom {
-  int n[3];           // cells per axis of the collapsed single block (SMR: a block)
-  int bc[6];          // (ix1, ox1, ix2, ox2, ix3, ox3)
-  int max_iters;
-  float dx[3];        // cell size (of the collapsed block; SMR gathers it)
-  float inv_dx[3];    // f32(1 / dx)
-  float org[3];       // block origin (domain lower bound)
-  float lo[3], hi[3]; // domain bounds
-  float lo_half[3];   // lo + half a finest cell
-  float hi_half[3];   // hi - half a finest cell
-  float span[3];      // f32(hi - lo)
-  float dmin;         // smallest cell size over the active axes (uniform)
-  float c, inv_c;     // speed of light and its f32 reciprocal
-  float cdt;          // c * dt
-  float inv_cdt;      // 1 / (c * dt)
-  // DDMC only
-  float tau_ddmc;     // a lane is on the DDMC branch when dmin sigma_t > tau_ddmc
-  float eps_imc;      // albedo bounce-back offset, in cells
-  float eps_ddmc;     // leak offset, in cells
-  float dt;           // f32(dt)
-  float inv_dt;       // f32(1) / f32(dt)
-  float lam2;         // f32(2 lambda_ext)
-  float pf2_num;      // f32(2 (2 / 3))
-  // SMR only
-  int nt[3];          // lookup tiles per axis
-  float tile[3];      // f32 tile edge
-  float nudge_cross[3];  // f32(0.5 finest): the probe along a crossed face's normal
-  float nudge_tilt[3];   // f32(0.01 finest): the probe along the other axes, x v / c
-  // NONGRAY only: EPBremss under NonCGSUnits (ops/transport_kernel.py,
-  // NONGRAY_CONSTANTS)
-  float ng_rho_scale, ng_temp_scale, ng_len_scale;  // NonCGSUnits' scales
-  float ng_sb, ng_kb, ng_hh;  // Stefan-Boltzmann, Boltzmann and Planck constants
-  float ng_g;                 // (cff / m_p^2)^(1/3)
-  float ng_freq_min;          // the frequency clamp, 1e10
-  float ng_xc_max;            // the clamp of h nu / k T, 80
-  // A uniform forest of several blocks, run collapsed to one block (``fold``
-  // nonzero; never with SMR): the kernel applies collapse_plain's shift where it
-  // reads a slot and expand_plain's where it writes one (ops/transport_kernel.py)
-  int fold;
-  int nrbx, nrby;     // root blocks along x and y
-  int nloc[3];        // cells a block per axis
-  float shift[3];     // the f32 extent of a block per axis
-};
-constexpr int kGeomInts = 19;
-constexpr int kGeomFloats = 57;
-
-// The local shards of one launch, by value in the kernel's parameters: shard k
-// owns the ledger slots [slot_lo, slot_hi) (a slot's lane is its index in the
-// slice), the owned range [own_lo, own_hi) (of blocks with SMR, of global z cells
-// in 3D without; a lane runs while its cell lies in it), the K2 seed of its
-// round, and the first row of its range in the cell table. The launch scans the
-// slots [first, first + n).
-constexpr int kMaxShards = 64;
-struct Shards {
-  int count;
-  int first;
-  int spread;  // a block's warps take slot groups spread over the launch
-  int slot_lo[kMaxShards], slot_hi[kMaxShards];
-  int own_lo[kMaxShards], own_hi[kMaxShards];
-  int row[kMaxShards];
-  uint32_t seed[kMaxShards];
-};
-
-// One lane's shard: its owned range, the cell table row of the range's first
-// cell, its seed.
-struct Own {
-  int lo, hi, row;
-  uint32_t seed;
-};
-
-__device__ __forceinline__ Own own_of(const Shards& S, int k) {
-  return Own{S.own_lo[k], S.own_hi[k], S.row[k], S.seed[k]};
-}
-
-// The non-gray record read straight from the coefficient columns (rho, T, fleck,
-// sigma_s), where the cell table would be their verbatim copy: a non-gray census
-// without DDMC over one owned range, on one block or block by block on a forest
-// (ops/transport_kernel.py, ``record_columns``). ``rho`` is null where the cell
-// table holds the record.
-struct Columns {
-  const float* rho;
-  const float* temp;
-  const float* fleck;
-  const float* sigma_s;
-};
-
-// A refined forest's tables (SMR instantiations only): per block three float4,
-// (dx, dy, dz, 0), (ox, oy, oz, 0) and the f32 reciprocals (1/dx, 1/dy, 1/dz,
-// 0); the int32 level of each block; the int32 lookup grid, (z, y, x) row-major.
-// And the non-gray record's columns (NONGRAY without DDMC).
-struct Forest {
-  const float4* block;
-  const int32_t* level;
-  const int32_t* lookup;
-  Columns cols;
-};
-
-struct Ledger {
-  float* x[3];        // x, y, z
-  float* v[3];        // vx, vy, vz
-  float* tau;
-  int32_t* ci[3];     // i, j, k
-  uint8_t* alive;
-  uint8_t* absorbed;
-  int32_t* face;      // face-arrival code (DDMC instantiations only)
-  int32_t* blk;       // owning block (SMR instantiations only)
-  const float* energy;  // photon energy, read only (NONGRAY instantiations only)
-  int32_t* leak;      // pending leak code, written on a pause (DDMC with SMR only)
-};
-
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// Python's floor division and modulo of an int32 by a positive divisor.
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int floor_mod(int a, int b) {
-  const int r = a % b;
-  return r < 0 ? r + b : r;
-}
-
-// The fold (Geom::fold), collapse_plain and expand_plain on one slot. The
-// collapse: with (bx, by, bz) = (block mod nrbx, (block // nrbx) mod nrby, block //
-// (nrbx nrby)), x += f32(bx) Dx and i += bx nx on each axis. The expansion: bk = i
-// // nx, i -= bk nx, x -= f32(bk) Dx on each axis and block = (bz nrby + by) nrbx +
-// bx, here summed axis by axis. The same float32 and int32 operations as the
-// plain versions on every slot, so the same bits: (x + d) - d is not always x,
-// so a slot that no lane takes gets the round trip too.
-__device__ __forceinline__ void root_block(const Geom& g, int b, int (&bk)[3]) {
-  bk[0] = floor_mod(b, g.nrbx);
-  bk[1] = floor_mod(floor_div(b, g.nrbx), g.nrby);
-  bk[2] = floor_div(b, g.nrbx * g.nrby);
-}
-
-// expand_plain on axis ``a`` of a collapsed (x, i): writes them to their
-// block-local values; returns the axis's term of the block id.
-__device__ __forceinline__ int unfold_axis(const Geom& g, int a, float& x, int& i) {
-  const int bk = floor_div(i, g.nloc[a]);
-  i = i - bk * g.nloc[a];
-  x = x - (float)bk * g.shift[a];
-  return bk * (a == 0 ? 1 : (a == 1 ? g.nrbx : g.nrbx * g.nrby));
-}
-
-// The round trip of slot ``q``'s axes from ``a0`` on, which the census does not
-// move, as its block ``b`` gives it: each value written where its bits change.
-// Returns those axes' terms of the block id.
-__device__ __forceinline__ int round_trip(const Ledger& L, const Geom& g, int q, int b, int a0) {
-  int bk[3];
-  root_block(g, b, bk);
-  int part = 0;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (a < a0) continue;
-    const float x0 = L.x[a][q];
-    const int i0 = L.ci[a][q];
-    float x = x0 + (float)bk[a] * g.shift[a];
-    int i = i0 + bk[a] * g.nloc[a];
-    part += unfold_axis(g, a, x, i);
-    if (__float_as_uint(x) != __float_as_uint(x0)) L.x[a][q] = x;
-    if (i != i0) L.ci[a][q] = i;
-  }
-  return part;
-}
-
-// Whether a lane's cell lies in the owned range: its block with SMR, its global
-// z cell in 3D without; 1D/2D uniform meshes are owned whole.
-template <int NDIM, bool SMR>
-__device__ __forceinline__ bool owned(const Own& o, int blk, const int (&ci)[3]) {
-  if constexpr (SMR) return blk >= o.lo && blk < o.hi;
-  if constexpr (NDIM == 3) return ci[2] >= o.lo && ci[2] < o.hi;
-  return true;
-}
-
-// EPBremss under NonCGSUnits at photon energy en (models/opacity.py), in the JAX
-// package's order of float32 operations. The clamps pass a NaN through, as
-// torch.clamp_min/clamp_max and jnp.maximum/minimum do.
-__device__ __forceinline__ float epbremss(const Geom& g, float rho, float temp, float en) {
-  const float r = rho * g.ng_rho_scale;
-  const float t = temp * g.ng_temp_scale;
-  const float x = en / (g.ng_sb * t);
-  float freq = x * (g.ng_kb * t) / g.ng_hh;
-  freq = freq < g.ng_freq_min ? g.ng_freq_min : freq;
-  const float gg = g.ng_g / freq;
-  float xc = freq * g.ng_hh / (g.ng_kb * t);
-  xc = xc > g.ng_xc_max ? g.ng_xc_max : xc;
-  return r * r * gg * gg * gg / sqrtf(t) * (1.0f - expf(-xc)) * g.ng_len_scale;
-}
-
-// Draw tags of the DDMC event, continuing the IMC event's (the DrawPool's
-// order), and of the SMR subface resample after it.
-template <int NDIM, bool ABSORB>
-struct DdmcTags {
-  static constexpr bool kMultiD = NDIM >= 2;
-  static constexpr uint32_t kU16 = ABSORB ? 2u : 1u;  // the IMC scatter's u16 word
-  static constexpr uint32_t kAlbedo = kU16 + (kMultiD ? 2u : 1u);
-  static constexpr uint32_t kExp = kAlbedo + (kMultiD ? 2u : 1u);
-  static constexpr uint32_t kXi = kExp + 1u;
-  static constexpr uint32_t kW2 = kXi + 1u;  // leak mu (lo), census x (hi)
-  static constexpr uint32_t kW3 = kW2 + (kMultiD ? 2u : 1u);
-  // the resample: in 2D u_sel and u_t1 are the halves of word kRes; in 3D u_sel
-  // is the spare high half of the census mu word (kW3 + 1) and u_t1, u_t2 the
-  // halves of kRes; then the hemisphere mu (kRes + 1, low half), the circle
-  static constexpr uint32_t kRes = kW3 + (NDIM == 3 ? 3u : 2u);
-};
-
-// Whether the DDMC event reads what its cell alone gives it from the record
-// instead of making it: on a uniform 1D gray mesh, where the record's columns 4-6
-// (the face probabilities of y and z, which 1D never reads) hold the lower face's
-// leak rate P_lower f32(1 / dx), cdf = (ea + the two leak rates) + tiny (without
-// ABSORB the leak rates and tiny) and c cdf, made by the table with the event's own
-// float32 operations (ops/transport_kernel.py: _pair_table). There the event also
-// hashes its words at its start (exp, xi and the leak's or census's word, which
-// depend on (seed, lane, it, tag) alone), off the chain that waits for the record
-// and the divide.
-template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kCell1d = NDIM == 1 && DDMC && !SMR && !NONGRAY;
-
-// A DDMC lane's move across a face of its cell on axis ``ax`` (the lower face when
-// ``lower``): ``eps`` cells beyond the face, into the neighbour cell, with the
-// direction (vn, vt1, vt2) on the axes (ax, ax + 1, ax + 2) mod 3; with
-// ``centre`` the other coordinates go to the cell centre, else they stay. Every
-// element is written on every axis through a select, never through an index
-// that depends on ``ax``: a store to np_[ax], nci[ax] or v[(ax + 1) % 3] puts the
-// lane's state arrays in local memory (a 112-byte stack frame, read and written
-// on every DDMC event before, by the SASS). An ``ax`` outside the active axes
-// (not a face code) leaves the lane as it is.
-template <int NDIM>
-__device__ __forceinline__ void place_across(int ax, bool lower, float eps,
-                                             float vn, float vt1, float vt2, bool centre,
-                                             const float (&dx)[3], const float (&flo)[3],
-                                             const float (&fhi)[3], const int (&ci)[3],
-                                             float (&np_)[3], int (&nci)[3], float (&v)[3]) {
-  if (ax < 0 || ax >= NDIM) return;
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    const bool hit = a == ax;
-    const float edge = lower ? flo[a] - eps * dx[a] : fhi[a] + eps * dx[a];
-    np_[a] = hit ? edge : (centre ? flo[a] + 0.5f * dx[a] : np_[a]);
-    nci[a] = hit ? ci[a] + (lower ? -1 : 1) : nci[a];
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const int q = (a - ax + 3) % 3;
-    v[a] = q == 0 ? vn : (q == 1 ? vt1 : vt2);
-  }
-}
-
-// The DDMC event of one lane (pallas_transport.py:655-870): writes the lane's
-// new position, cell index, velocity, tau and absorption; the face code it
-// leaves is 0. ``pf`` holds the cell's (P_lower, P_upper) of x, y, z, ``dx``
-// and ``inv_dx`` its cell size and f32 reciprocal, ``flo`` and ``fhi`` its
-// faces; with ``kCell`` (``kCell1d``) pf[2..4] the cell's leak rate, cdf and c
-// cdf. ``leak_code`` is set to -(axis + 1) for a leak through a lower face,
-// +(axis + 1) through an upper one, else 0.
-template <int NDIM, bool ABSORB, bool kCell>
-__device__ __forceinline__ void ddmc_event(const Geom& g, uint32_t seed, uint32_t lane, uint32_t it,
-                                           int face, float ea, float sig_t,
-                                           const float (&pf)[6], const float (&dx)[3],
-                                           const float (&inv_dx)[3], const float (&flo)[3],
-                                           const float (&fhi)[3], const float (&p)[3],
-                                           const int (&ci)[3], float (&v)[3],
-                                           float (&np_)[3], int (&nci)[3], float& ptau,
-                                           bool& palive, bool& pabsorbed, int& leak_code) {
-  using T = DdmcTags<NDIM, ABSORB>;
-  constexpr bool kMultiD = T::kMultiD;
-  constexpr uint32_t kTagU16 = T::kU16;
-  constexpr uint32_t kTagAlbedo = T::kAlbedo;
-  constexpr uint32_t kTagExp = T::kExp;
-  constexpr uint32_t kTagXi = T::kXi;
-  constexpr uint32_t kTagW2 = T::kW2;
-  constexpr uint32_t kTagW3 = T::kW3;
-  leak_code = 0;
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    np_[a] = p[a];
-    nci[a] = ci[a];
-  }
-  // albedo test on arrival at a face: +code at the lower face, -code at the upper
-  bool rejected = false;
-  if (face != 0) {
-    float prob = 0.0f;
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a) {
-      const float pf2 = g.pf2_num / (sig_t * dx[a] + g.lam2);
-      const float drift = 1.5f * v[a] * g.inv_c;
-      if (face == a + 1) prob = pf2 * (1.0f + drift);
-      if (face == -(a + 1)) prob = pf2 * (1.0f - drift);
-    }
-    rejected = jb_u23(jb_raw_bits(seed, lane, it, kTagAlbedo)) > prob;
-  }
-  if (rejected) {  // bounce back into the neighbour cell, no time advance
-    const float amu = sqrtf(jb_u16_hi(jb_raw_bits(seed, lane, it, kTagU16)));
-    const float anu = sqrtf(fmaxf(1.0f - amu * amu, 0.0f));
-    float a2 = anu, a3 = 0.0f;
-    if constexpr (kMultiD) {
-      float cph, sph;
-      jb_circle(jb_raw_bits(seed, lane, it, kTagAlbedo + 1u), &cph, &sph);
-      a2 = anu * cph;
-      a3 = anu * sph;
-    }
-    const int fa = abs(face) - 1;
-    const bool lower = face > 0;
-    place_across<NDIM>(fa, lower, g.eps_imc, (g.c * (lower ? -1.0f : 1.0f)) * amu, g.c * a2,
-                       g.c * a3, false, dx, flo, fhi, ci, np_, nci, v);
-    return;
-  }
-  // in-cell step: leak rates P_face / dx, event time against census
-  uint32_t w_exp = 0u, w_xi = 0u, w2 = 0u;
-  if constexpr (kCell) {
-    const uint32_t key = jb_key(seed, lane, it);
-    w_exp = jb_word(key, kTagExp);
-    w_xi = jb_word(key, kTagXi);
-    w2 = jb_word(key, kTagW2);
-  }
-  float lk[2 * NDIM];
-  float cdf, ccdf;
-  if constexpr (kCell) {
-    lk[0] = pf[2];
-    cdf = pf[3];
-    ccdf = pf[4];
-  } else {
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a) {
-      lk[2 * a] = pf[2 * a] * inv_dx[a];
-      lk[2 * a + 1] = pf[2 * a + 1] * inv_dx[a];
-    }
-    float leak_tot = lk[0] + lk[1];
-#pragma unroll
-    for (int e = 2; e < 2 * NDIM; ++e) leak_tot = leak_tot + lk[e];
-    cdf = (ABSORB ? ea + leak_tot : leak_tot) + 1.0e-37f;
-    ccdf = g.c * cdf;
-    w_exp = jb_raw_bits(seed, lane, it, kTagExp);
-  }
-  const float dt_ev = jb_exp23(w_exp) / ccdf;
-  const float dt_rem = g.dt * (1.0f - ptau);
-  if constexpr (!kCell) w2 = jb_raw_bits(seed, lane, it, kTagW2);
-  if (dt_ev < dt_rem) {
-    ptau = ptau + dt_ev * g.inv_dt;
-    if constexpr (!kCell) w_xi = jb_raw_bits(seed, lane, it, kTagXi);
-    const float xi = cdf * jb_u23(w_xi);
-    if (ABSORB && xi < ea) {
-      palive = false;
-      pabsorbed = true;
-      return;
-    }
-    const float xim = ABSORB ? xi - ea : xi;
-    int leak = 2 * NDIM - 1;  // the numerical fall-through takes the last face
-    if constexpr (kCell) {
-      // 1D: the lower face when xim < 0 + lk[0], else the upper, found or not
-      if (xim < lk[0]) leak = 0;
-    } else {
-      bool found = false;
-      float cum = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 2 * NDIM; ++e) {
-        if (!found && xim < cum + lk[e]) {
-          leak = e;
-          found = true;
-        }
-        cum = cum + lk[e];
-      }
-    }
-    const float bmu = sqrtf(jb_u16_lo(w2));
-    const float bnu = sqrtf(fmaxf(1.0f - bmu * bmu, 0.0f));
-    float b2 = bnu, b3 = 0.0f;
-    if constexpr (kMultiD) {
-      float cph, sph;
-      jb_circle(jb_raw_bits(seed, lane, it, kTagW2 + 1u), &cph, &sph);
-      b2 = bnu * cph;
-      b3 = bnu * sph;
-    }
-    const int ax = leak >> 1;
-    const bool lower = (leak & 1) == 0;
-    leak_code = lower ? -(ax + 1) : ax + 1;
-    place_across<NDIM>(ax, lower, g.eps_ddmc, (g.c * (lower ? -1.0f : 1.0f)) * bmu, g.c * b2,
-                       g.c * b3, true, dx, flo, fhi, ci, np_, nci, v);
-    return;
-  }
-  // census: uniform position in the cell, isotropic direction
-  ptau = 1.0f;
-  np_[0] = flo[0] + jb_u16_hi(w2) * dx[0];
-  const uint32_t w3 = jb_raw_bits(seed, lane, it, kTagW3);
-  float cmu;
-  if constexpr (NDIM == 1) {
-    cmu = 1.0f - 2.0f * jb_u16_lo(w3);
-  } else {
-    np_[1] = flo[1] + jb_u16_lo(w3) * dx[1];
-    if constexpr (NDIM == 2) {
-      cmu = 1.0f - 2.0f * jb_u16_hi(w3);
-    } else {
-      np_[2] = flo[2] + jb_u16_hi(w3) * dx[2];
-      cmu = 1.0f - 2.0f * jb_u16_lo(jb_raw_bits(seed, lane, it, kTagW3 + 1u));
-    }
-  }
-  const float cst = sqrtf(fmaxf(1.0f - cmu * cmu, 0.0f));
-  if constexpr (NDIM == 1) {
-    v[0] = g.c * cmu;
-    v[1] = g.c * cst;
-    v[2] = 0.0f;
-  } else {
-    float cph, sph;
-    jb_circle(jb_raw_bits(seed, lane, it, kTagW3 + (NDIM == 2 ? 1u : 2u)), &cph, &sph);
-    v[0] = g.c * cst * cph;
-    v[1] = g.c * cst * sph;
-    v[2] = g.c * cmu;
-  }
-}
-
-// The re-homing of a lane that left its block on a refined forest
-// (pallas_transport.py:973-1151): the lookup probe, the rebase into the new
-// block and, with DDMC in 2D/3D, the coarse->fine subface resample of a leak.
-// ``gp`` is the global position after the BCs, ``v`` the velocity after the
-// scatter and any reflection; ``leak`` the DDMC leak code of this event.
-template <int NDIM, bool ABSORB, bool DDMC, bool NONGRAY>
-__device__ __forceinline__ void rehome(const Geom& g, const Forest& F, const float* table,
-                                       const Own& o, uint32_t lane, uint32_t it, int leak,
-                                       const bool (&out_lo)[3], const bool (&out_hi)[3],
-                                       const float (&gp)[3], int& blk, float (&np_)[3],
-                                       int (&nci)[3], float (&v)[3], int& pending) {
-  int t[3];
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    const float sg = (out_hi[a] ? 1.0f : 0.0f) - (out_lo[a] ? 1.0f : 0.0f);
-    const float probe =
-        gp[a] + (sg != 0.0f ? g.nudge_cross[a] * sg : g.nudge_tilt[a] * (v[a] * g.inv_c));
-    t[a] = min(max((int)floorf((probe - g.lo[a]) / g.tile[a]), 0), g.nt[a] - 1);
-  }
-  int tidx = t[0];
-  if (NDIM == 2) tidx = t[1] * g.nt[0] + t[0];
-  if (NDIM == 3) tidx = (t[2] * g.nt[1] + t[1]) * g.nt[0] + t[0];
-  const int b_new = __ldg(F.lookup + tidx);
-  const float4 r0 = __ldg(F.block + 3 * b_new);      // (dx, dy, dz, 0)
-  const float4 r1 = __ldg(F.block + 3 * b_new + 1);  // (ox, oy, oz, 0)
-  const float ndx[3] = {r0.x, r0.y, r0.z};
-  const float nbox[3] = {r1.x, r1.y, r1.z};
-  float loc[3];
-  int idx[3] = {0, 0, 0};
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    loc[a] = gp[a] - nbox[a];
-    idx[a] = min(max((int)floorf(loc[a] / ndx[a]), 0), g.n[a] - 1);
-  }
-  if constexpr (DDMC && NDIM >= 2) {
-    const bool here = b_new >= o.lo && b_new < o.hi;
-    // the fine faces of a block outside the owned range live on another shard:
-    // the leak code travels with the lane, which pauses there
-    if (leak != 0 && !here && __ldg(F.level + b_new) > __ldg(F.level + blk)) pending = leak;
-    if (leak != 0 && here && __ldg(F.level + b_new) > __ldg(F.level + blk)) {
-      using T = DdmcTags<NDIM, ABSORB>;
-      const int ax = abs(leak) - 1;
-      const float lsgn = leak > 0 ? 1.0f : -1.0f;
-      const int upper = leak < 0 ? 1 : 0;  // a leak in -axis enters the upper face
-      float u_sel, u_t[2] = {0.0f, 0.0f};
-      const uint32_t w = jb_raw_bits(o.seed, lane, it, T::kRes);
-      if constexpr (NDIM == 2) {
-        u_sel = jb_u16_lo(w);
-        u_t[0] = jb_u16_hi(w);
-      } else {
-        u_sel = jb_u16_hi(jb_raw_bits(o.seed, lane, it, T::kW3 + 1u));
-        u_t[0] = jb_u16_lo(w);
-        u_t[1] = jb_u16_hi(w);
-      }
-      const float smu = sqrtf(jb_u16_lo(jb_raw_bits(o.seed, lane, it, T::kRes + 1u)));
-      const float snu = sqrtf(fmaxf(1.0f - smu * smu, 0.0f));
-      float cph, sph;
-      jb_circle(jb_raw_bits(o.seed, lane, it, T::kRes + 2u), &cph, &sph);
-      // the transverse axes t1 < t2 (t2 in 3D only) and the fine edge around the
-      // coarse landing point on each; every array index below is a compile-time
-      // one and every pick by axis a select (``place_across``), so the lane's
-      // state stays in registers
-      const int t1 = ax == 0 ? 1 : 0;
-      const int t2 = ax == 2 ? 1 : 2;
-      int f_ax = 0, e1 = 0, e2 = 0;
-      float d1 = 0.0f, d2 = 0.0f;
-#pragma unroll
-      for (int a = 0; a < NDIM; ++a) {
-        const int edge = min(max((int)rintf(loc[a] / fmaxf(ndx[a], 1.0e-37f)), 1), g.n[a] - 1);
-        f_ax = a == ax ? (lsgn > 0.0f ? 0 : g.n[a] - 1) : f_ax;
-        e1 = a == t1 ? edge : e1;
-        d1 = a == t1 ? ndx[a] : d1;
-        if (NDIM == 3) {
-          e2 = a == t2 ? edge : e2;
-          d2 = a == t2 ? ndx[a] : d2;
-        }
-      }
-      // the fine block's P_lower (leak in +axis) or P_upper of a candidate face,
-      // in a record of 8 floats (ea, es, P...) or, NONGRAY, 12 (rho, T, fleck,
-      // sigma_s, P..., 0, 0)
-      constexpr int kRec = NONGRAY ? 12 : 8;
-      constexpr int kP0 = NONGRAY ? 4 : 2;
-      auto face_prob = [&](int c1, int c2) -> float {
-        int flat = b_new - o.lo;
-#pragma unroll
-        for (int a = NDIM - 1; a >= 0; --a) {
-          const int ia = a == ax ? f_ax : (a == t1 ? c1 : (NDIM == 3 && a == t2 ? c2 : idx[a]));
-          flat = flat * g.n[a] + ia;
-        }
-        return __ldg(table + kRec * ((size_t)o.row + flat) + kP0 + 2 * ax + upper);
-      };
-      int s1, s2 = 0;
-      if constexpr (NDIM == 2) {
-        const float p_l = face_prob(e1 - 1, 0);
-        const float p_u = face_prob(e1, 0);
-        s1 = u_sel * (p_l + p_u) >= p_l ? e1 : e1 - 1;
-      } else {
-        const float pr[4] = {face_prob(e1 - 1, e2 - 1), face_prob(e1, e2 - 1),
-                             face_prob(e1 - 1, e2), face_prob(e1, e2)};
-        const float xi = u_sel * (pr[0] + pr[1] + pr[2] + pr[3] + 1.0e-37f);
-        float cum = 0.0f;
-        s1 = e1;  // the numerical fall-through takes the last candidate
-        s2 = e2;
-        bool chosen = false;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (!chosen && xi < cum + pr[q]) {
-            s1 = (q & 1) ? e1 : e1 - 1;
-            s2 = (q & 2) ? e2 : e2 - 1;
-            chosen = true;
-          }
-          cum = cum + pr[q];
-        }
-      }
-      const float l1 = ((float)s1 + u_t[0]) * d1;
-      const float l2 = ((float)s2 + u_t[1]) * d2;
-      // hemisphere direction into the block, in the cyclic axis order
-      const float vs[3] = {(g.c * lsgn) * smu, g.c * (snu * cph), g.c * (snu * sph)};
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int q = (a - ax + 3) % 3;
-        v[a] = q == 0 ? vs[0] : (q == 1 ? vs[1] : vs[2]);
-        if (a < NDIM) {
-          idx[a] = a == t1 ? s1 : idx[a];
-          loc[a] = a == t1 ? l1 : loc[a];
-        }
-        if (NDIM == 3) {
-          idx[a] = a == t2 ? s2 : idx[a];
-          loc[a] = a == t2 ? l2 : loc[a];
-        }
-      }
-    }
-  }
-  blk = b_new;
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    np_[a] = loc[a];
-    nci[a] = idx[a];
-  }
-}
-
-// A lane's state as a thread takes it from the ledger, stages it across the
-// regroup and writes it back (``run_lane`` runs the history on a copy in
-// registers). ``slot`` is -1 for a thread that holds no lane.
-struct Lane {
-  int slot;    // its ledger slot
-  int shard;   // its shard in the launch's table
-  int it;      // its own iteration count: the K2 counter of its draws
-  float p[3], v[3], tau;
-  int ci[3], blk, face;
-  float en;    // photon energy (NONGRAY)
-  bool alive, absorbed;
-  int pending; // a leak code for another shard (DDMC with SMR)
-};
-
-// What the lane's cell gives each of its events, gathered when the lane enters
-// the cell: its geometry (the collapsed block's, or with SMR the lane's block's:
-// dx, inv_dx, box, dmin), its faces (flo, fhi: f dx and (f + 1) dx on each active
-// axis) and its table record: (p_abs, 1 / sigma_t) gray without DDMC (tab); with
-// DDMC or NONGRAY fleck sigma_a (ea) and sigma_t; with DDMC the face
-// probabilities (pf) and the branch (is_ddmc); where ``kCell1d``, pf[2..4] carry
-// the record's leak rate, cdf and c cdf. Every value depends only on the lane's
-// block, cell, shard and photon energy. Out-parameters, so that the lane's state
-// stays in registers.
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-__device__ __forceinline__ void gather(const Geom& g, const Forest& F, const float* table,
-                                       const Own& o, int blk, const int (&ci)[3], float en,
-                                       float (&dx)[3], float (&inv_dx)[3], float (&box)[3],
-                                       float (&flo)[3], float (&fhi)[3], float& dmin,
-                                       float2& tab, float& ea, float& sig_t, float (&pf)[6],
-                                       bool& is_ddmc) {
-  int cell;
-  if constexpr (SMR) {
-    const float4 b0 = __ldg(F.block + 3 * blk);      // (dx, dy, dz, 0)
-    const float4 b1 = __ldg(F.block + 3 * blk + 1);  // (ox, oy, oz, 0)
-    dx[0] = b0.x;
-    dx[1] = b0.y;
-    dx[2] = b0.z;
-    box[0] = b1.x;
-    box[1] = b1.y;
-    box[2] = b1.z;
-    dmin = dx[0];
-    if (NDIM >= 2) dmin = fminf(dmin, dx[1]);
-    if (NDIM == 3) dmin = fminf(dmin, dx[2]);
-    if constexpr (DDMC) {
-      const float4 b2 = __ldg(F.block + 3 * blk + 2);  // f32(1 / dx) per axis
-      inv_dx[0] = b2.x;
-      inv_dx[1] = b2.y;
-      inv_dx[2] = b2.z;
-    } else {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) inv_dx[a] = 0.0f;
-    }
-    cell = blk - o.lo;
-#pragma unroll
-    for (int a = NDIM - 1; a >= 0; --a) cell = cell * g.n[a] + ci[a];
-  } else {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      dx[a] = g.dx[a];
-      inv_dx[a] = g.inv_dx[a];
-      box[a] = g.org[a];
-    }
-    dmin = g.dmin;
-    cell = ci[0];
-    if (NDIM == 2) cell = ci[1] * g.n[0] + ci[0];
-    if (NDIM == 3) cell = ((ci[2] - o.lo) * g.n[1] + ci[1]) * g.n[0] + ci[0];
-  }
-  cell += o.row;
-  ea = 0.0f;
-  sig_t = 0.0f;
-#pragma unroll
-  for (int e = 0; e < 6; ++e) pf[e] = 0.0f;
-  is_ddmc = false;
-  if constexpr (NONGRAY) {
-    // (rho, T, fleck, sigma_s); with DDMC then (Px_lo, Px_hi, Py_lo, Py_hi) and
-    // (Pz_lo, Pz_hi, 0, 0)
-    const float4* rec = reinterpret_cast<const float4*>(table) + (DDMC ? 3 : 1) * (size_t)cell;
-    const float4 r0 = !DDMC && F.cols.rho != nullptr
-                          ? make_float4(__ldg(F.cols.rho + cell), __ldg(F.cols.temp + cell),
-                                        __ldg(F.cols.fleck + cell), __ldg(F.cols.sigma_s + cell))
-                          : __ldg(rec);
-    const float sa = epbremss(g, r0.x, r0.y, en);
-    ea = r0.z * sa;
-    sig_t = ea + (r0.w + (1.0f - r0.z) * sa);
-    if constexpr (DDMC) {
-      const float4 r1 = __ldg(rec + 1);
-      pf[0] = r1.x;
-      pf[1] = r1.y;
-      if (NDIM >= 2) {
-        pf[2] = r1.z;
-        pf[3] = r1.w;
-      }
-      if (NDIM == 3) {
-        const float4 r2 = __ldg(rec + 2);
-        pf[4] = r2.x;
-        pf[5] = r2.y;
-      }
-      is_ddmc = dmin * sig_t > g.tau_ddmc;
-    }
-  } else if constexpr (DDMC) {
-    const float4* rec = reinterpret_cast<const float4*>(table) + 2 * (size_t)cell;
-    const float4 r0 = __ldg(rec);  // (ea, es, Px_lo, Px_hi)
-    if (ABSORB) ea = r0.x;
-    sig_t = ABSORB ? r0.x + r0.y : r0.y;
-    pf[0] = r0.z;
-    pf[1] = r0.w;
-    if constexpr (kCell1d<NDIM, DDMC, SMR, NONGRAY>) {
-      const float4 r1 = __ldg(rec + 1);  // (P_lower / dx, cdf, c cdf, 0)
-      pf[2] = r1.x;
-      pf[3] = r1.y;
-      pf[4] = r1.z;
-    } else if (NDIM >= 2) {
-      const float4 r1 = __ldg(rec + 1);  // (Py_lo, Py_hi, Pz_lo, Pz_hi)
-      pf[2] = r1.x;
-      pf[3] = r1.y;
-      pf[4] = r1.z;
-      pf[5] = r1.w;
-    }
-    is_ddmc = dmin * sig_t > g.tau_ddmc;
-  } else {
-    tab = __ldg(reinterpret_cast<const float2*>(table) + cell);
-  }
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    const float f = (float)ci[a];
-    flo[a] = f * dx[a];
-    fhi[a] = (f + 1.0f) * dx[a];
-  }
-}
-
-// The words of an IMC event (kernel_rng.cuh: ``key`` is the key of the lane's
-// seed, lane and iteration, a word that key's hash with its tag, in the
-// DrawPool's order) and what follows from them alone: the collision's unit
-// exponential (tag 0) and, with ABSORB, the u23 branch draw (tag 1); the
-// scatter's mu = 1 - 2 u16 from the u16 word's low half with, unless ``kSt`` is
-// false, st = sqrt(1 - mu^2), and in 2D/3D (cos phi, sin phi) from the circle
-// word after it.
-template <bool ABSORB>
-__device__ __forceinline__ void collision_draws(uint32_t key, float& e23, float& ub) {
-  e23 = jb_exp23(jb_word(key, 0u));
-  ub = ABSORB ? jb_u23(jb_word(key, 1u)) : 0.0f;
-}
-
-template <int NDIM, bool ABSORB, bool kSt = true>
-__device__ __forceinline__ void scatter_draws(uint32_t key, float& mu, float& st, float& cph,
-                                              float& sph) {
-  constexpr uint32_t kTagU16 = ABSORB ? 2u : 1u;
-  mu = 1.0f - 2.0f * jb_u16_lo(jb_word(key, kTagU16));
-  st = kSt ? sqrtf(fmaxf(1.0f - mu * mu, 0.0f)) : 0.0f;
-  cph = 0.0f;
-  sph = 0.0f;
-  if constexpr (NDIM > 1) jb_circle(jb_word(key, kTagU16 + 1u), &cph, &sph);
-}
-
-// kDraws values of an IMC event's words: e23, ub, mu, st, cph, sph.
-constexpr int kDraws = 6;
-
-template <int NDIM, bool ABSORB, bool kSt = true>
-__device__ __forceinline__ void imc_draws(uint32_t key, float (&dr)[kDraws]) {
-  collision_draws<ABSORB>(key, dr[0], dr[1]);
-  scatter_draws<NDIM, ABSORB, kSt>(key, dr[2], dr[3], dr[4], dr[5]);
-}
-
-// Where an instantiation's IMC event makes its draws (measured, see the note at
-// the head of this file): a gray lane on a refined forest one event ahead, during
-// the event before (``run_lane``); a gray lane on a uniform mesh at the top of the
-// event; a lane of a DDMC or NONGRAY instantiation, whose events seldom scatter in
-// a row, in place, the scatter's inside the scatter (a lane on the DDMC branch
-// draws none of them).
-template <bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kDrawAhead = SMR && !DDMC && !NONGRAY;
-template <bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kDrawAtTop = !SMR && !DDMC && !NONGRAY;
-
-// Whether a lane keeps its cell's values from one event to the next (measured,
-// see the note at the head of this file): not with DDMC on a uniform mesh, where
-// the record is two loads without a block table before them.
-template <bool DDMC, bool SMR>
-constexpr bool kKeepCell = SMR || !DDMC;
-
-// Whether a lane gathers its cell's values after every event, without a branch:
-// a gray lane on a uniform 1D or 2D mesh, where the gather is the record's one
-// load and most warp-events hold a lane that crossed anyway (measured, see the
-// note at the head of this file).
-template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kGatherEvery = NDIM < 3 && !DDMC && !SMR && !NONGRAY;
-
-// Whether a lane's vy and vz wait for the end of its history: a gray lane on a
-// uniform 1D mesh, where no event reads them. Its scatter sets vx and keeps mu;
-// when the history ends, vy = c sqrt(1 - mu^2) and vz = 0 of the last scatter, the
-// same operations on the same mu as that scatter's; a lane that did not scatter
-// keeps its own.
-template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kVyAfter = NDIM == 1 && !DDMC && !SMR && !NONGRAY;
-
-// mu of a lane that has not scattered (|mu| <= 1 after a scatter)
-constexpr float kNoMu = 2.0f;
-
-// Whether a lane takes another event.
-template <int NDIM, bool SMR>
-__device__ __forceinline__ bool runs(const Geom& g, const Own& o, bool alive, float tau, int it,
-                                     int blk, const int (&ci)[3]) {
-  return alive && tau < 1.0f && it < g.max_iters && owned<NDIM, SMR>(o, blk, ci);
-}
-
-// One event of a lane (``lane`` is its slot's index in its shard's slice, ``key``
-// the K2 key of its seed, lane and iteration, which gray lanes carry), on its
-// state in registers and its cell's values (``gather``). ``dr`` holds the event's
-// draws where ``kDrawAhead`` (made during the event before it) and receives them
-// at the top of the event where ``kDrawAtTop``. ``moved`` says whether the event
-// changed the lane's cell or block. Where ``kVyAfter`` a scatter sets ``mu_last``
-// instead of vy and vz.
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-__device__ __forceinline__ void event(const Geom& g, const Forest& F, const float* table,
-                                      const Own& o, uint32_t lane, uint32_t key, int& pit,
-                                      float (&p)[3], float (&v)[3], float& ptau, int (&ci)[3],
-                                      int& blk, int& pface, bool& palive, bool& pabsorbed,
-                                      int& pending,
-                                      const float (&dx)[3], const float (&inv_dx)[3],
-                                      const float (&box)[3], const float (&flo)[3],
-                                      const float (&fhi)[3], float dmin, float2 tab, float ea,
-                                      float sig_t, const float (&pf)[6], bool is_ddmc,
-                                      float (&dr)[kDraws], bool& moved, float& mu_last) {
-  const uint32_t it = (uint32_t)pit;
-  float np_[3];
-  int nci[3];
-  int nface = 0;
-  int leak = 0;
-  if (DDMC && is_ddmc) {
-    constexpr bool kCell = kCell1d<NDIM, DDMC, SMR, NONGRAY>;
-    ddmc_event<NDIM, ABSORB, kCell>(g, o.seed, lane, it, pface, ea, sig_t, pf, dx, inv_dx, flo,
-                                    fhi, p, ci, v, np_, nci, ptau, palive, pabsorbed, leak);
-  } else {
-    constexpr bool kInPlace = DDMC || NONGRAY;
-    // a gray lane carries its key; a DDMC or NONGRAY lane keys the words it draws
-    // here (carried, the 2D SMR DDMC kernel fits 4 blocks a SM, not 3, and its K4s
-    // round ran 8-9 % slower)
-    const uint32_t ikey = kInPlace ? jb_key(o.seed, lane, it) : key;
-    constexpr bool kVy = kVyAfter<NDIM, DDMC, SMR, NONGRAY>;
-    if constexpr (kDrawAtTop<DDMC, SMR, NONGRAY>) imc_draws<NDIM, ABSORB, !kVy>(key, dr);
-    float e23 = dr[0], u_branch = dr[1];
-    if constexpr (kInPlace) collision_draws<ABSORB>(ikey, e23, u_branch);
-    float d_coll;
-    if constexpr (DDMC || NONGRAY) {
-      d_coll = e23 / (sig_t + 1.0e-37f);
-    } else {
-      d_coll = e23 * tab.y;
-    }
-    const float d_end = g.cdt * (1.0f - ptau);
-    const float d_geom = fminf(dmin, d_end);
-
-    float fd[3];
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a)
-      fd[a] = v[a] != 0.0f ? g.c * ((v[a] > 0.0f ? fhi[a] : flo[a]) - p[a]) / v[a] : kBig;
-    float d_push = fminf(d_geom, fd[0]);
-    if (NDIM == 2) d_push = fminf(d_push, fd[1]);
-    if (NDIM == 3) d_push = fminf(d_push, fminf(fd[1], fd[2]));
-
-    const bool coll = d_coll < d_push;
-    bool absorb = false;
-    if constexpr (ABSORB && (DDMC || NONGRAY)) absorb = coll && u_branch * sig_t < ea;
-    if constexpr (ABSORB && !DDMC && !NONGRAY) absorb = coll && u_branch < tab.x;
-    const bool scatter = coll && !absorb;
-    bool cr[3] = {false, false, false};
-    cr[0] = !coll && fd[0] <= d_geom;
-    if (NDIM >= 2) cr[0] = cr[0] && fd[0] <= fd[1];
-    if (NDIM == 3) cr[0] = cr[0] && fd[0] <= fd[2];
-    if (NDIM >= 2) cr[1] = !coll && !cr[0] && fd[1] <= d_geom;
-    if (NDIM == 3) cr[1] = cr[1] && fd[1] <= fd[2];
-    if (NDIM == 3) cr[2] = !coll && !cr[0] && !cr[1] && fd[2] <= d_geom;
-    const bool census = !coll && !cr[0] && !cr[1] && !cr[2] && d_end <= dmin;
-    const float d = coll ? d_coll : d_push;
-
-    ptau = census ? 1.0f : ptau + d * g.inv_cdt;
-    const float step = d * g.inv_c;
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a) {
-      np_[a] = p[a] + v[a] * step;
-      nci[a] = ci[a];
-      if (cr[a]) {
-        np_[a] = v[a] > 0.0f ? fhi[a] : flo[a];
-        nci[a] += v[a] > 0.0f ? 1 : -1;
-        if (DDMC) nface = v[a] > 0.0f ? a + 1 : -(a + 1);
-      }
-    }
-    if (scatter) {  // isotropic scatter
-      float mu = dr[2], st = dr[3], cph = dr[4], sph = dr[5];
-      if constexpr (kInPlace) scatter_draws<NDIM, ABSORB>(ikey, mu, st, cph, sph);
-      if (NDIM == 1) {
-        v[0] = g.c * mu;
-        if (kVy) {
-          mu_last = mu;
-        } else {
-          v[1] = g.c * st;
-          v[2] = 0.0f;
-        }
-      } else {
-        v[0] = g.c * st * cph;
-        v[1] = g.c * st * sph;
-        v[2] = g.c * mu;
-      }
-    }
-    if (absorb) {
-      palive = false;
-      pabsorbed = true;
-    }
-  }
-
-  bool out_lo[3], out_hi[3];
-  bool any_out = false;
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    out_lo[a] = nci[a] < 0;
-    out_hi[a] = nci[a] >= g.n[a];
-    any_out = any_out || out_lo[a] || out_hi[a];
-  }
-  if (any_out) {  // a block face: the domain BCs, then the block and cell
-    float gp[3];
-#pragma unroll
-    for (int a = 0; a < NDIM; ++a) {
-      gp[a] = box[a] + np_[a];
-      const bool hit_lo = out_lo[a] && gp[a] <= g.lo_half[a];
-      const bool hit_hi = out_hi[a] && gp[a] >= g.hi_half[a];
-      if (hit_lo) {
-        if (g.bc[2 * a] == kReflecting) {
-          gp[a] = clip(2.0f * g.lo[a] - gp[a], g.lo[a], g.hi[a]);
-          v[a] = -v[a];
-          if (DDMC) nface = -nface;
-        } else if (g.bc[2 * a] == kPeriodic) {
-          gp[a] = clip(gp[a] + g.span[a], g.lo[a], g.hi[a]);
-        } else {
-          palive = false;
-        }
-      }
-      if (hit_hi) {
-        if (g.bc[2 * a + 1] == kReflecting) {
-          gp[a] = clip(2.0f * g.hi[a] - gp[a], g.lo[a], g.hi[a]);
-          v[a] = -v[a];
-          if (DDMC) nface = -nface;
-        } else if (g.bc[2 * a + 1] == kPeriodic) {
-          gp[a] = clip(gp[a] - g.span[a], g.lo[a], g.hi[a]);
-        } else {
-          palive = false;
-        }
-      }
-    }
-    if (SMR && palive) {  // re-home by the lookup grid
-      rehome<NDIM, ABSORB, DDMC, NONGRAY>(g, F, table, o, lane, it, leak, out_lo, out_hi, gp,
-                                          blk, np_, nci, v, pending);
-    } else {
-#pragma unroll
-      for (int a = 0; a < NDIM; ++a) {
-        if (palive) {  // rebase into the block and re-derive every cell
-          np_[a] = gp[a] - g.org[a];
-          nci[a] = min(max((int)(np_[a] * g.inv_dx[a]), 0), g.n[a] - 1);
-        } else {
-          nci[a] = min(max(nci[a], 0), g.n[a] - 1);
-        }
-      }
-    }
-  }
-  moved = any_out;
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    moved = moved || nci[a] != ci[a];
-    p[a] = np_[a];
-    ci[a] = nci[a];
-  }
-  pface = nface;
-  ++pit;
-}
-
-// A lane's history from its state in ``st`` until it stops (absorbed, escaped,
-// at census, out of its range or at the iteration cap): the state is copied into
-// registers for the loop and back after it. Where ``kKeepCell`` the values of
-// the lane's cell (``gather``) stay in registers from one event to the next and
-// are gathered again only after an event that changed the lane's cell or block,
-// so an event in the same cell loads nothing; where ``kGatherEvery`` they are
-// gathered after every event, without a branch; elsewhere every event gathers
-// them first. Where ``kDrawAhead`` each event's draws are made during the event
-// before it (``imc_draws`` of the next key), off that event's dependent chain. A
-// lane carries its own iteration count and, where gray, its K2 key, stepped by
-// kItStep an event, so its words do not change. Where ``kVyAfter`` vy and vz are
-// set from the last scatter's mu when the history ends.
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-__device__ __forceinline__ void run_lane(const Geom& g, const Forest& F, const float* table,
-                                         const Shards& S, Lane& st) {
-  const Own o = own_of(S, st.shard);
-  const uint32_t lane = (uint32_t)(st.slot - S.slot_lo[st.shard]);
-  float p[3] = {st.p[0], st.p[1], st.p[2]};
-  float v[3] = {st.v[0], st.v[1], st.v[2]};
-  int ci[3] = {st.ci[0], st.ci[1], st.ci[2]};
-  float tau = st.tau;
-  int it = st.it, blk = st.blk, face = st.face, pending = 0;
-  bool alive = true, absorbed = false;
-  float dx[3], inv_dx[3], box[3], flo[3], fhi[3], dmin, ea, sig_t, pf[6];
-  float2 tab;
-  bool is_ddmc, moved;
-  float mu_last = kNoMu;
-  constexpr bool kEvery = kGatherEvery<NDIM, DDMC, SMR, NONGRAY>;
-  constexpr bool kKeep = kKeepCell<DDMC, SMR> && !kEvery;
-  if constexpr (kKeep || kEvery)
-    gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box, flo,
-                                             fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
-  constexpr bool kAhead = kDrawAhead<DDMC, SMR, NONGRAY>;
-  uint32_t key = jb_key(o.seed, lane, (uint32_t)it);
-  float dr[kDraws] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key, dr);
-  while (true) {
-    float next[kDraws];
-    if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key + kItStep, next);
-    if constexpr (!kKeep && !kEvery)  // every event gathers its cell first
-      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
-                                               flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
-    event<NDIM, ABSORB, DDMC, SMR, NONGRAY>(
-        g, F, table, o, lane, key, it, p, v, tau, ci, blk, face, alive, absorbed, pending, dx,
-        inv_dx, box, flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc, dr, moved, mu_last);
-    if (!runs<NDIM, SMR>(g, o, alive, tau, it, blk, ci)) break;
-    if constexpr (kEvery)
-      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
-                                               flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
-    if (kKeep && moved)
-      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
-                                               flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
-    if constexpr (kAhead) {
-#pragma unroll
-      for (int k = 0; k < kDraws; ++k) dr[k] = next[k];
-    }
-    key += kItStep;
-  }
-  if (kVyAfter<NDIM, DDMC, SMR, NONGRAY> && mu_last <= 1.0f) {  // vy, vz of the last scatter
-    v[1] = g.c * sqrtf(fmaxf(1.0f - mu_last * mu_last, 0.0f));
-    v[2] = 0.0f;
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    st.p[a] = p[a];
-    st.v[a] = v[a];
-    st.ci[a] = ci[a];
-  }
-  st.tau = tau;
-  st.it = it;
-  st.blk = blk;
-  st.face = face;
-  st.pending = pending;
-  st.alive = alive;
-  st.absorbed = absorbed;
-}
-
-// A thread without a lane takes ledger slot q if its particle runs: alive, short
-// of census, in a shard of the launch and in that shard's owned range. Any other
-// slot is left untouched, but with the fold (Geom::fold) written back at once with
-// the round trip; a slot that runs takes its state on the collapsed block, and its
-// axes beyond NDIM and its block wait for ``retire``.
-template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
-__device__ __forceinline__ void take(const Ledger& L, const Geom& g, const Shards& S, int q,
-                                     Lane& s) {
-  int k = -1;
-  for (int j = 0; j < S.count; ++j)
-    if (q >= S.slot_lo[j] && q < S.slot_hi[j]) k = j;
-  const bool fold = !SMR && g.fold != 0;
-  const bool run = k >= 0 && g.max_iters > 0 && L.alive[q] != 0 && L.tau[q] < 1.0f;
-  if (!run && !fold) return;
-  const int b = SMR || fold ? L.blk[q] : 0;
-  int bk[3] = {0, 0, 0};
-  if (fold) root_block(g, b, bk);
-  int ci[3] = {0, 0, 0};
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) ci[a] = L.ci[a][q] + bk[a] * g.nloc[a];
-  if (!(run && owned<NDIM, SMR>(own_of(S, k), b, ci))) {
-    if (fold) {
-      const int moved = round_trip(L, g, q, b, 0);
-      if (moved != b) L.blk[q] = moved;
-    }
-    return;
-  }
-  s.slot = q;
-  s.shard = k;
-  s.it = 0;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float x = 0.0f;
-    if (a < NDIM) x = fold ? L.x[a][q] + (float)bk[a] * g.shift[a] : L.x[a][q];
-    s.p[a] = x;
-    s.v[a] = L.v[a][q];
-    s.ci[a] = ci[a];
-  }
-  s.tau = L.tau[q];
-  s.blk = SMR ? b : 0;
-  s.face = DDMC ? L.face[q] : 0;
-  s.en = NONGRAY ? L.energy[q] : 0.0f;
-  s.alive = true;
-  s.absorbed = false;
-  s.pending = 0;
-}
-
-// A lane that stopped (absorbed, escaped, at census, out of its range or at the
-// iteration cap) writes its state back; with the fold, expand_plain's shift of its
-// state, and the round trip of the axes it does not move.
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR>
-__device__ __forceinline__ void retire(const Ledger& L, const Geom& g, const Lane& s) {
-  const int q = s.slot;
-  const bool fold = !SMR && g.fold != 0;
-  int blk = 0;
-  if (NDIM < 3 && fold) blk = round_trip(L, g, q, L.blk[q], NDIM);
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (a < NDIM) {
-      float x = s.p[a];
-      int i = s.ci[a];
-      if (fold) blk += unfold_axis(g, a, x, i);
-      L.x[a][q] = x;
-      L.ci[a][q] = i;
-    }
-    L.v[a][q] = s.v[a];
-  }
-  if (fold) L.blk[q] = blk;
-  L.tau[q] = s.tau;
-  L.alive[q] = s.alive ? 1 : 0;
-  if (ABSORB && s.absorbed) L.absorbed[q] = 1;
-  if (DDMC) L.face[q] = s.face;
-  if (SMR) L.blk[q] = s.blk;
-  if (DDMC && SMR && s.pending != 0) L.leak[q] = s.pending;
-}
-
-// Adds each thread's events ``it`` and iteration count to its shard's (``shard``
-// -1 for a thread without a lane) in shared memory: one atomic pair per warp
-// when the warp's lanes share a shard, as they do unless a slice boundary falls
-// inside the block, else one per lane (same-address atomics of every lane cost
-// the kernels of one or two events a lane up to twice their time). Every thread
-// of the warp calls it.
-__device__ __forceinline__ void count(int shard, int it, unsigned long long* ev, int* mx) {
-  const int top = __reduce_max_sync(0xFFFFFFFFu, shard);
-  if (__all_sync(0xFFFFFFFFu, shard < 0 || shard == top)) {
-    unsigned long long sum = shard < 0 ? 0ull : (unsigned long long)it;
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xFFFFFFFFu, sum, off);
-    const int most = (int)__reduce_max_sync(0xFFFFFFFFu, (unsigned)(shard < 0 ? 0 : it));
-    if ((threadIdx.x & 31) == 0 && top >= 0) {
-      atomicAdd(ev + top, sum);
-      atomicMax(mx + top, most);
-    }
-  } else if (shard >= 0) {
-    atomicAdd(ev + shard, (unsigned long long)it);
-    atomicMax(mx + shard, it);
-  }
-}
-
-constexpr int kWarps = kThreads / 32;
-
-// Staging area of a block's regroup, one column per lane.
-struct Stage {
-  int cnt[kWarps][2];    // lanes of each warp on the IMC and on the DDMC branch
-  float f[8][kThreads];  // x y z vx vy vz tau energy
-  int i[8][kThreads];    // slot shard it i j k block face
-};
-
-// The block's regroup (every thread calls it): the live lanes are dealt back to
-// the lowest threads, those on the IMC branch first and, with DDMC, those on the
-// DDMC branch from the next warp boundary when they fit; a thread left without a
-// lane gets slot -1. A full block on one branch keeps its arrangement.
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-__device__ __forceinline__ void regroup(const Geom& g, const Forest& F, const float* table,
-                                        const Shards& S, Stage& sm, Lane& st) {
-  const int warp = threadIdx.x >> 5;
-  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
-  // key 0 on the IMC branch, 1 on the DDMC branch, 2 no lane
-  int key = 2;
-  if (st.slot >= 0) {
-    key = 0;
-    if constexpr (DDMC) {
-      float dx[3], inv_dx[3], box[3], flo[3], fhi[3], dmin, ea, sig_t, pf[6];
-      float2 tab;
-      bool is_ddmc;
-      gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, own_of(S, st.shard), st.blk, st.ci,
-                                               st.en, dx, inv_dx, box, flo, fhi, dmin, tab, ea,
-                                               sig_t, pf, is_ddmc);
-      key = is_ddmc ? 1 : 0;
-    }
-  }
-  const unsigned b0 = __ballot_sync(0xFFFFFFFFu, key == 0);
-  const unsigned b1 = __ballot_sync(0xFFFFFFFFu, key == 1);
-  if ((threadIdx.x & 31) == 0) {
-    sm.cnt[warp][0] = __popc(b0);
-    sm.cnt[warp][1] = __popc(b1);
-  }
-  __syncthreads();
-  int n0 = 0, n1 = 0, pre0 = 0, pre1 = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) {
-      pre0 += sm.cnt[w][0];
-      pre1 += sm.cnt[w][1];
-    }
-    n0 += sm.cnt[w][0];
-    n1 += sm.cnt[w][1];
-  }
-  // a full block on one branch keeps its arrangement
-  if (n0 + n1 < kThreads || (n0 > 0 && n1 > 0)) {
-    int start1 = (n0 + 31) & ~31;
-    if (start1 + n1 > kThreads) start1 = n0;
-    if (key != 2) {
-      const int d = key == 0 ? pre0 + __popc(b0 & below) : start1 + pre1 + __popc(b1 & below);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        if (a < NDIM) {
-          sm.f[a][d] = st.p[a];
-          sm.i[3 + a][d] = st.ci[a];
-        }
-        sm.f[3 + a][d] = st.v[a];
-      }
-      sm.f[6][d] = st.tau;
-      if (NONGRAY) sm.f[7][d] = st.en;
-      sm.i[0][d] = st.slot;
-      sm.i[1][d] = st.shard;
-      sm.i[2][d] = st.it;
-      if (SMR) sm.i[6][d] = st.blk;
-      if (DDMC) sm.i[7][d] = st.face;
-    }
-    __syncthreads();
-    const int t = threadIdx.x;
-    st.slot = -1;
-    if (t < n0 || (t >= start1 && t < start1 + n1)) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        st.p[a] = a < NDIM ? sm.f[a][t] : 0.0f;
-        st.ci[a] = a < NDIM ? sm.i[3 + a][t] : 0;
-        st.v[a] = sm.f[3 + a][t];
-      }
-      st.tau = sm.f[6][t];
-      st.en = NONGRAY ? sm.f[7][t] : 0.0f;
-      st.slot = sm.i[0][t];
-      st.shard = sm.i[1][t];
-      st.it = sm.i[2][t];
-      st.blk = SMR ? sm.i[6][t] : 0;
-      st.face = DDMC ? sm.i[7][t] : 0;
-      st.alive = true;
-      st.absorbed = false;
-      st.pending = 0;
-    }
-  }
-}
-
-// The census: one thread per ledger slot. A thread takes its slot if the
-// particle runs (``take``); the block regroups once, so that its live lanes fill
-// its lowest warps, those on the IMC branch first and those on the DDMC branch
-// from the next warp boundary; then each lane runs its whole history in
-// registers and writes it back. A lane carries its slot and its own iteration
-// count, so the thread that runs it does not change a draw.
-template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-__global__ void __launch_bounds__(kThreads)
-    transport_kernel(Ledger L, const float* __restrict__ table, Forest F, int n, Geom g,
-                     Shards S, unsigned long long* __restrict__ events,
-                     int32_t* __restrict__ iters) {
-  __shared__ unsigned long long s_ev[kMaxShards];
-  __shared__ int s_mx[kMaxShards];
-  __shared__ Stage sm;
-  for (int k = threadIdx.x; k < S.count; k += kThreads) {
-    s_ev[k] = 0;
-    s_mx[k] = 0;
-  }
-  Lane st;
-  st.slot = -1;
-  st.it = 0;
-  // spread: warp w of block b takes the 32 slots of group w x blocks + b
-  const int warp_slots = 32 * ((threadIdx.x >> 5) * gridDim.x + blockIdx.x);
-  const int q = S.spread ? warp_slots + (threadIdx.x & 31) : blockIdx.x * kThreads + threadIdx.x;
-  if (q < n) take<NDIM, DDMC, SMR, NONGRAY>(L, g, S, S.first + q, st);
-  regroup<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, sm, st);
-  if (st.slot >= 0) {
-    run_lane<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, st);
-    retire<NDIM, ABSORB, DDMC, SMR>(L, g, st);
-  }
-  count(st.slot >= 0 ? st.shard : -1, st.it, s_ev, s_mx);
-  __syncthreads();
-  for (int k = threadIdx.x; k < S.count; k += kThreads) {
-    if (s_ev[k] > 0) {
-      atomicAdd(events + k, s_ev[k]);
-      atomicMax(iters + k, s_mx[k]);
-    }
-  }
-}
-
-// Calls ``op.run<NDIM, ABSORB, DDMC, SMR, NONGRAY>()`` for the instantiation a
-// launch asks for. A frequency-dependent opacity absorbs: NONGRAY is
-// instantiated with ABSORB only (the entry points refuse it without).
-template <int NDIM, bool SMR, class Op>
-void dispatch_mode(bool absorb, bool ddmc, bool nongray, Op& op) {
-  if (nongray) {
-    if (!ddmc) op.template run<NDIM, true, false, SMR, true>();
-    if (ddmc) op.template run<NDIM, true, true, SMR, true>();
-    return;
-  }
-  if (!absorb && !ddmc) op.template run<NDIM, false, false, SMR, false>();
-  if (absorb && !ddmc) op.template run<NDIM, true, false, SMR, false>();
-  if (!absorb && ddmc) op.template run<NDIM, false, true, SMR, false>();
-  if (absorb && ddmc) op.template run<NDIM, true, true, SMR, false>();
-}
-
-template <class Op>
-void dispatch(int ndim, bool absorb, bool ddmc, bool smr, bool nongray, Op& op) {
-  if (ndim == 1 && smr) dispatch_mode<1, true>(absorb, ddmc, nongray, op);
-  if (ndim == 1 && !smr) dispatch_mode<1, false>(absorb, ddmc, nongray, op);
-  if (ndim == 2 && smr) dispatch_mode<2, true>(absorb, ddmc, nongray, op);
-  if (ndim == 2 && !smr) dispatch_mode<2, false>(absorb, ddmc, nongray, op);
-  if (ndim == 3 && smr) dispatch_mode<3, true>(absorb, ddmc, nongray, op);
-  if (ndim == 3 && !smr) dispatch_mode<3, false>(absorb, ddmc, nongray, op);
-}
-
-struct Launch {
-  const Ledger& L;
-  const float* table;
-  const Forest& F;
-  int n;
-  const Geom& g;
-  const Shards& S;
-  unsigned long long* events;
-  int32_t* iters;
-  cudaStream_t stream;
-  template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-  void run() {
-    transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY>
-        <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, S, events,
-                                                                   iters);
-  }
-};
-
-struct Occupancy {
-  int blocks;
-  int err;
-  template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
-  void run() {
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY>, kThreads, 0);
-  }
-};
-
-}  // namespace
-
-// ptrs: 16 device pointers x y z vx vy vz tau i j k alive absorbed face block
-// energy leak, of a ledger of ``capacity`` slots.
-// table: per cell, the float2 (p_abs, 1 / sigma_t) without DDMC, the 8 floats
-// (ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi) with it (16-byte aligned);
-// with nongray the 4 floats (rho, T, fleck, sigma_s), with DDMC followed by the
-// six face probabilities and two zeros; in global row-major cell order on a
-// uniform forest, block cell order with SMR; the shards' ranges one after another.
-// cols: null, or with nongray and without ddmc a host array of 4 device pointers,
-// the rho, T, fleck and sigma_s columns of one owned range that the table would
-// copy verbatim; the kernel reads the record there, and table may be null.
-// With smr: block_table (per block the 12 floats dx dy dz 0 ox oy oz 0 1/dx 1/dy
-// 1/dz 0, 16-byte aligned), levels (int32 per block) and lookup (the int32 lookup
-// grid); null otherwise.
-// igeom: n[3] bc[6] max_iters nt[3] fold nrbx nrby nloc[3]; fgeom: dx[3] inv_dx[3]
-// org[3] lo[3] hi[3] lo_half[3] hi_half[3] span[3] dmin c inv_c cdt inv_cdt tau_ddmc
-// eps_imc eps_ddmc dt inv_dt lam2 pf2_num tile[3] nudge_cross[3] nudge_tilt[3]
-// rho_scale temp_scale length_scale sb kb hh g_ff freq_min xc_max shift[3] (host
-// arrays). With fold the shards' slots must cover the ledger: every slot is
-// rewritten.
-// shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row,
-// seed) (host array). spread: nonzero for warp w of block b to take the 32 slots
-// of group w x blocks + b instead of block b the 256 after 256 b, so that every
-// block holds slots from across the launch. events: n_shards uint64 and iters:
-// n_shards int32 (device), zeroed here on the stream before the launch (one
-// memset where iters follows events), so the caller need not fill them.
-// Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
-// SMR launch without its tables, -3 for nongray without absorb, -4 for a shard
-// table the kernel does not take, -6 for a record neither in the table nor in
-// columns the kernel takes.
 extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int nongray,
                                    void* const* ptrs, const void* table,
                                    const void* const* cols, const void* block_table,
@@ -1663,118 +9,12 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
                                    const int* igeom, const float* fgeom, int n_shards,
                                    const int* shards, int spread, void* events, void* iters,
                                    void* stream) {
-  Ledger L;
-  for (int a = 0; a < 3; ++a) {
-    L.x[a] = (float*)ptrs[a];
-    L.v[a] = (float*)ptrs[3 + a];
-    L.ci[a] = (int32_t*)ptrs[7 + a];
-  }
-  L.tau = (float*)ptrs[6];
-  L.alive = (uint8_t*)ptrs[10];
-  L.absorbed = (uint8_t*)ptrs[11];
-  L.face = (int32_t*)ptrs[12];
-  L.blk = (int32_t*)ptrs[13];
-  L.energy = (const float*)ptrs[14];
-  L.leak = (int32_t*)ptrs[15];
-  Forest F;
-  F.block = (const float4*)block_table;
-  F.level = (const int32_t*)levels;
-  F.lookup = (const int32_t*)lookup;
-  F.cols = Columns{nullptr, nullptr, nullptr, nullptr};
-  if (cols != nullptr)
-    F.cols = Columns{(const float*)cols[0], (const float*)cols[1], (const float*)cols[2],
-                     (const float*)cols[3]};
-
-  Geom g;
-  const int* ip = igeom;
-  for (int a = 0; a < 3; ++a) g.n[a] = *ip++;
-  for (int a = 0; a < 6; ++a) g.bc[a] = *ip++;
-  g.max_iters = *ip++;
-  for (int a = 0; a < 3; ++a) g.nt[a] = *ip++;
-  g.fold = *ip++;
-  g.nrbx = *ip++;
-  g.nrby = *ip++;
-  for (int a = 0; a < 3; ++a) g.nloc[a] = *ip++;
-  const float* fp = fgeom;
-  float* dst[8] = {g.dx, g.inv_dx, g.org, g.lo, g.hi, g.lo_half, g.hi_half, g.span};
-  for (int k = 0; k < 8; ++k)
-    for (int a = 0; a < 3; ++a) dst[k][a] = *fp++;
-  g.dmin = *fp++;
-  g.c = *fp++;
-  g.inv_c = *fp++;
-  g.cdt = *fp++;
-  g.inv_cdt = *fp++;
-  g.tau_ddmc = *fp++;
-  g.eps_imc = *fp++;
-  g.eps_ddmc = *fp++;
-  g.dt = *fp++;
-  g.inv_dt = *fp++;
-  g.lam2 = *fp++;
-  g.pf2_num = *fp++;
-  float* smr_dst[3] = {g.tile, g.nudge_cross, g.nudge_tilt};
-  for (int k = 0; k < 3; ++k)
-    for (int a = 0; a < 3; ++a) smr_dst[k][a] = *fp++;
-  float* ng_dst[9] = {&g.ng_rho_scale, &g.ng_temp_scale, &g.ng_len_scale, &g.ng_sb, &g.ng_kb,
-                      &g.ng_hh, &g.ng_g, &g.ng_freq_min, &g.ng_xc_max};
-  for (int k = 0; k < 9; ++k) *ng_dst[k] = *fp++;
-  for (int a = 0; a < 3; ++a) g.shift[a] = *fp++;
-  static_assert(kGeomInts == 19 && kGeomFloats == 57, "geometry layout");
-
-  if (ndim < 1 || ndim > 3) return -1;
-  const bool sm = smr != 0;
-  if (sm && (block_table == nullptr || levels == nullptr || lookup == nullptr)) return -2;
-  const bool ng = nongray != 0;
-  if (ng && absorb == 0) return -3;
-  if (n_shards < 1 || n_shards > kMaxShards) return -4;
-  const Columns& c = F.cols;
-  if (cols == nullptr && table == nullptr) return -6;
-  if (cols != nullptr && (!ng || ddmc != 0 || !c.rho || !c.temp || !c.fleck || !c.sigma_s))
-    return -6;
-  Shards S;
-  S.count = n_shards;
-  int first = capacity, last = 0;
-  for (int k = 0; k < n_shards; ++k) {
-    const int* row = shards + 6 * k;
-    S.slot_lo[k] = row[0];
-    S.slot_hi[k] = row[1];
-    S.own_lo[k] = row[2];
-    S.own_hi[k] = row[3];
-    S.row[k] = row[4];
-    S.seed[k] = (uint32_t)row[5];
-    if (row[0] < 0 || row[1] < row[0] || row[1] > capacity) return -4;
-    first = row[0] < first ? row[0] : first;
-    last = row[1] > last ? row[1] : last;
-  }
-  S.first = first;
-  S.spread = spread;
-  const int n = last - first;
-  auto st = (cudaStream_t)stream;
-  constexpr size_t kEv = sizeof(unsigned long long), kIt = sizeof(int32_t);
-  if ((char*)iters == (char*)events + kEv * n_shards) {
-    cudaMemsetAsync(events, 0, (kEv + kIt) * n_shards, st);
-  } else {
-    cudaMemsetAsync(events, 0, kEv * n_shards, st);
-    cudaMemsetAsync(iters, 0, kIt * n_shards, st);
-  }
-  if (n > 0) {
-    const float* tab = (const float*)table;
-    auto* ev = (unsigned long long*)events;
-    auto* itp = (int32_t*)iters;
-    Launch op{L, tab, F, n, g, S, ev, itp, st};
-    dispatch(ndim, absorb != 0, ddmc != 0, sm, ng, op);
-  }
-  return (int)cudaGetLastError();
+  return launch_entry<float>(ndim, absorb, ddmc, smr, nongray, ptrs, table, cols, block_table,
+                             levels, lookup, capacity, igeom, fgeom, n_shards, shards, spread,
+                             events, iters, stream);
 }
 
-// Resident blocks of kThreads threads a SM of one instantiation
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks. Returns the CUDA
-// error, -1 for an unknown ndim, -3 for nongray without absorb.
 extern "C" int jb_transport_occupancy(int ndim, int absorb, int ddmc, int smr, int nongray,
                                       int* blocks) {
-  if (ndim < 1 || ndim > 3) return -1;
-  if (nongray != 0 && absorb == 0) return -3;
-  Occupancy op{0, 0};
-  dispatch(ndim, absorb != 0, ddmc != 0, smr != 0, nongray != 0, op);
-  *blocks = op.blocks;
-  return op.err;
+  return occupancy_entry<float>(ndim, absorb, ddmc, smr, nongray, blocks);
 }

@@ -1,0 +1,31 @@
+// The float64 census (precision = f64): the thirty-six double instantiations of the
+// census kernel (transport_kernel.cuh) and their C entries, in a translation unit
+// of their own, so that nvcc builds them beside the float32 ones.
+//
+// Replaces the JAX package's float64 census, its XLA event loop
+// (jaybenne_tpu/ops/transport.py::_one_event, run by transport): the JAX step sends
+// only float32 to Pallas (jaybenne_tpu/step.py:141). Its plain version is
+// ops/transport_kernel.py's census at float64. It draws 53-bit uniforms
+// (kernel_rng.cuh, Draw<double>) on the float32 census's tags, takes the largest
+// and the smallest normal double where the float32 census takes 3e38 and 1e-37,
+// and reads a record of four reals as two double2 loads. What bounds it on an
+// H100: the float64 rate (half the float32 one) and the double log, cos, exp and
+// divide, each a long instruction sequence, not bytes.
+#include "transport_kernel.cuh"
+
+extern "C" int jb_transport_launch_f64(int ndim, int absorb, int ddmc, int smr, int nongray,
+                                       void* const* ptrs, const void* table,
+                                       const void* const* cols, const void* block_table,
+                                       const void* levels, const void* lookup, int capacity,
+                                       const int* igeom, const double* fgeom, int n_shards,
+                                       const int* shards, int spread, void* events,
+                                       void* iters, void* stream) {
+  return launch_entry<double>(ndim, absorb, ddmc, smr, nongray, ptrs, table, cols,
+                              block_table, levels, lookup, capacity, igeom, fgeom, n_shards,
+                              shards, spread, events, iters, stream);
+}
+
+extern "C" int jb_transport_occupancy_f64(int ndim, int absorb, int ddmc, int smr,
+                                          int nongray, int* blocks) {
+  return occupancy_entry<double>(ndim, absorb, ddmc, smr, nongray, blocks);
+}

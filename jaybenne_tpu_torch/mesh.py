@@ -70,17 +70,20 @@ class MeshGeometry:
         """Packed per-block geometry ``[B, 6] = (dx, dy, dz, ox, oy, oz)``."""
         return torch.cat([self.block_dx, self.block_origin], dim=1)
 
-    def tile_edges(self) -> tuple:
-        """The (x, y, z) edge of a lookup tile as float32 scalars: the JAX package's
-        Python-float ``(hi - lo) / nt`` rounded to float32 where the f32 arrays
-        meet it."""
+    def tile_edges(self, dtype=None) -> tuple:
+        """The (x, y, z) edge of a lookup tile as scalars of ``dtype`` (the mesh's
+        by default): the JAX package's Python-float ``(hi - lo) / nt`` rounded to
+        float32 where float32 arrays meet it, kept whole in float64."""
+        rd = np.float64 if (dtype or self.block_dx.dtype) == torch.float64 else np.float32
         b = self.bounds
         ntz, nty, ntx = self.tile_shape
-        return tuple(np.float32((b[2 * a + 1] - b[2 * a]) / n)
-                     for a, n in enumerate((ntx, nty, ntz)))
+        return tuple(rd((b[2 * a + 1] - b[2 * a]) / n) for a, n in enumerate((ntx, nty, ntz)))
 
-    def _f32(self, v):
-        return torch.tensor(float(np.float32(v)), dtype=torch.float32, device=self.device)
+    def _real(self, v):
+        """``v`` as a 0-dim tensor of the mesh's precision, rounded as ``tile_edges``."""
+        dt = self.block_dx.dtype
+        rd = np.float64 if dt == torch.float64 else np.float32
+        return torch.tensor(float(rd(v)), dtype=dt, device=self.device)
 
     def locate_block(self, x, y, z):
         """Position -> owning block id, by ``floor`` binning into the lookup grid
@@ -89,7 +92,7 @@ class MeshGeometry:
         ntz, nty, ntx = self.tile_shape
         edge = self.tile_edges()
         t = [
-            torch.clamp(torch.floor((q - self._f32(self.bounds[2 * a])) / self._f32(edge[a]))
+            torch.clamp(torch.floor((q - self._real(self.bounds[2 * a])) / self._real(edge[a]))
                         .to(torch.int32), 0, n - 1).long()
             for a, (q, n) in enumerate(((x, ntx), (y, nty), (z, ntz)))
         ]

@@ -1,7 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by its own ``nvcc``, all started together,
-and the objects are linked into one shared library with a plain C interface,
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc``, all started together
+(the census's float32 and float64 instantiations are two sources,
+``transport_kernel.cu`` and ``transport_kernel_f64.cu``, so that the float64 ones
+add no time to the build's longest compile), and the objects are linked into one
+shared library with a plain C interface,
 loaded with ``ctypes``. The build runs at first use, into
 ``jaybenne_tpu_torch/_build/`` (listed in ``.gitignore``), under a file name keyed
 by a hash of the sources and flags, so an edited source rebuilds and an unchanged
@@ -41,25 +44,37 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+
+
+def _table(real):
     # kind absorb, table, ranges, host arrays of their 8 column pointers and of
-    # their (cells, first row), nx ny nz, nrbx nrby, permute, f32(1 / dx), c, stream
-    "jb_table_launch": (_I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # their (cells, first row), nx ny nz, nrbx nrby, permute, real(1 / dx), c, stream
+    return (_I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, real, real, _P)
+
+
+_TRANSPORT = (
+    _I, _I, _I, _I, _I,  # ndim absorb ddmc smr nongray
+    _P, _P,          # host array of 16 ledger pointers, cell table
+    _P,              # host array of the record's 4 column pointers (or null)
+    _P, _P, _P,      # block table, block levels, lookup grid (SMR; else null)
+    _I,              # ledger capacity
+    _P, _P,          # host int and real geometry arrays
+    _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row seed)
+    _I,              # spread: a block's warps take slot groups spread over the launch
+    _P, _P, _P,      # events iters stream
+)
+# every C entry; a float64 entry (precision = f64) ends in _f64
+_SIGNATURES = {
+    "jb_table_launch": _table(_F),
+    "jb_table_launch_f64": _table(_D),
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
+    "jb_draws_f64_launch": (_I, _P, _P, _P, _P, _I, _P),  # seed lane it tag out n stream
     "jb_census_words_launch": (_I, _P, _P, _I, _I, _P),  # seed n_events out n words stream
     "jb_transport_occupancy": (_I, _I, _I, _I, _I, _P),  # ndim absorb ddmc smr nongray blocks
-    "jb_transport_launch": (
-        _I, _I, _I, _I, _I,  # ndim absorb ddmc smr nongray
-        _P, _P,          # host array of 16 ledger pointers, cell table
-        _P,              # host array of the record's 4 column pointers (or null)
-        _P, _P, _P,      # block table, block levels, lookup grid (SMR; else null)
-        _I,              # ledger capacity
-        _P, _P,          # host int and float geometry arrays
-        _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row seed)
-        _I,              # spread: a block's warps take slot groups spread over the launch
-        _P, _P, _P,      # events iters stream
-    ),
+    "jb_transport_occupancy_f64": (_I, _I, _I, _I, _I, _P),
+    "jb_transport_launch": _TRANSPORT,
+    "jb_transport_launch_f64": _TRANSPORT,
 }
 
 

@@ -106,13 +106,14 @@ def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype, blocks=None)
 
 def _wrap_or_clamp(coord, lo, hi, periodic):
     """A sample point's coordinate brought into [lo, hi] by the field BC: wrapped
-    on a periodic axis, clamped otherwise (float32, as the JAX package rounds it)."""
-    dev = coord.device
-    lo32 = torch.tensor(lo, dtype=torch.float32, device=dev)
+    on a periodic axis, clamped otherwise (at the coordinate's precision, as the
+    JAX package rounds it)."""
+    dev, dt = coord.device, coord.dtype
+    lo_t = torch.tensor(lo, dtype=dt, device=dev)
     if periodic:
-        span = torch.tensor(hi - lo, dtype=torch.float32, device=dev)
-        return lo32 + torch.remainder(coord - lo32, span)
-    return torch.clamp(coord, lo32, torch.tensor(hi, dtype=torch.float32, device=dev))
+        span = torch.tensor(hi - lo, dtype=dt, device=dev)
+        return lo_t + torch.remainder(coord - lo_t, span)
+    return torch.clamp(coord, lo_t, torch.tensor(hi, dtype=dt, device=dev))
 
 
 def _sample_tau(mesh, tau_flat, pos, axis, periodic_flags):

@@ -17,6 +17,17 @@ the tally of the concatenated ledger. Under the spatial decomposition a shard
 holds its blocks' fields and the particles in them: with ``block_offset`` (the
 global id of its first block) it tallies its own particles into its own cells and
 nothing is reduced.
+
+Precision, a stated deviation in float64 (``precision = f64``). A bin keeps
+``62 - ceil(log2 n)`` bits of its largest contribution, n the slots summed
+(``_bits``): 44 bits at stepdiff's 201152 slots. That is fewer than a float64's 53
+once n passes 512, so a float64 run's tally is exact only to those bits, not to
+the float64 sum's last bit: each of a bin's contributions is rounded by at most
+half a unit of its scale, 2^-(bits + 1) of the bin's largest, so a sum of
+positive contributions is off by at most n 2^-bits of itself
+(``conservation_rtol``). The JAX package's float64 ``segment_sum`` keeps 53 bits
+and adds in an order of its own. In float32 the contributions themselves carry 24
+bits, and the tally is exact to them.
 """
 
 from __future__ import annotations
@@ -46,6 +57,16 @@ def _bits(n: int) -> int:
     """Bits of a bin's scale such that ``n`` values below 2^bits cannot overflow
     int64."""
     return 62 - math.ceil(math.log2(max(n, 2)))
+
+
+def conservation_rtol(n: int) -> float:
+    """The relative difference that the fixed-point quantisation allows between
+    two tallies of the same positive values over ``n`` slots in whatever bins: each
+    is within n 2^-bits of the exact sum (bits = ``_bits(n)``, at most n values a
+    bin), so the two differ by at most 2 n 2^-bits <= 2^(2 ceil(log2 n) - 61); and
+    by the float64 roundings of the bins' conversion and of a sum over the cells,
+    which 2^-40 covers for any mesh of fewer than 2^12 cells a slot."""
+    return 2.0 ** (2 * math.ceil(math.log2(max(n, 2))) - 61) + 2.0 ** -40
 
 
 def _exponents(v, sub, num_segments, ways):

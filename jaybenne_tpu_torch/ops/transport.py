@@ -2,9 +2,11 @@
 ``jaybenne_tpu/ops/transport.py``).
 
 The census loop itself is ``ops/transport_kernel.py``: the CUDA kernel and, on
-CPU tensors, its plain PyTorch version, for IMC and DDMC, gray and non-gray alike.
-The JAX package's XLA event loop (``_one_event``/``transport``) draws threefry
-variates in another structure; its port waits for f64 (ROADMAP Queue 1, item 7).
+CPU tensors, its plain PyTorch version, for IMC and DDMC, gray and non-gray alike,
+in float32 and float64. The JAX package runs float64 through its XLA event loop
+(``_one_event``/``transport``), which draws threefry variates in another
+structure; the port runs it through the same census at double precision instead
+(``transport_kernel``'s module docstring), so the two agree in distribution.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ runs the last two on meshes or forests whose tables do not fit VMEM, which here 
 no limit, so one kernel covers all three.
 
 ``transport`` runs the census for a ledger: the CUDA kernels
-(``csrc/table_kernel.cu`` builds the census's table, ``csrc/transport_kernel.cu``
+(``csrc/table_kernel.cu`` builds the census's table, ``csrc/transport_kernel.cuh``
 runs it) for CUDA tensors, their plain versions for CPU tensors.
 ``transport_plain`` is that plain version: a vectorised PyTorch port of the same
 event body in which every lane advances one iteration per loop step, with the same
@@ -68,8 +68,17 @@ levels, lookup grid) are built once per mesh (``forest_tables``); where the
 non-gray record would copy the coefficients verbatim, the kernel reads their
 columns and no table is built (``record_columns``).
 
-Configurations the kernel does not take raise ``NotImplementedError`` naming their
-ROADMAP item, on every device: nothing falls back to another loop.
+The census runs at the ledger's precision, float32 or float64 (``precision =
+f64``): the same event body, a ``double`` instantiation of the CUDA kernel and its
+float64 plain version. The float64 census draws 53-bit uniforms from the same
+hash and tag layout (``kernel_rng``'s float64 pool), rounds every scalar of
+``_Geom`` in float64, and takes ``finfo(float64).max`` and ``.tiny`` where the
+float32 census takes 3e38 and 1e-37, as the JAX package's float64 event loop
+(``jaybenne_tpu/ops/transport.py::_one_event``) does. The JAX package runs float64
+through that XLA loop, which draws threefry variates in another structure, so the
+float64 census agrees with it in distribution, not draw for draw. Its launches
+are named with an ``_f64`` suffix (``launch_name``). Nothing falls back to
+another loop.
 """
 
 from __future__ import annotations
@@ -81,7 +90,7 @@ import functools
 import numpy as np
 import torch
 
-from ..config import BC, not_ported
+from ..config import BC
 from ..models.opacity import EPBremss, NonCGSUnits
 from ..utils import constants
 from ..utils.constants import LAM_EXT
@@ -92,30 +101,45 @@ from .kernel_rng import DrawPool, raw_bits_plain
 _BC_CODE = {BC.periodic: 0, BC.outflow: 1, BC.reflecting: 2}
 _BIG = 3.0e38
 _TINY = 1.0e-37
+# the float64 census's: finfo(float64).max and .tiny, as the JAX float64 loop takes
+_BIG64 = float(np.finfo(np.float64).max)
+_TINY64 = float(np.finfo(np.float64).tiny)
+REALS = (torch.float32, torch.float64)
+
+
+def limits(dtype) -> tuple:
+    """(big, tiny) of the census at ``dtype``: the face distance of a lane at rest
+    on an axis, and the floor added to a rate before a divide."""
+    return (_BIG64, _TINY64) if dtype == torch.float64 else (_BIG, _TINY)
 
 
 def check_supported(mesh, prm, dtype) -> None:
-    """Raise ``NotImplementedError`` unless the census kernel covers the
-    configuration."""
-    if dtype != torch.float32:
-        raise not_ported("precision = f64 (the XLA event loop's port)", "Queue 1, item 7")
+    """Raise unless the census covers the configuration: float32 or float64 state."""
+    if dtype not in REALS:
+        raise ValueError(f"transport: float32 or float64 state only, not {dtype}")
+
+
+def _f64(dtype) -> str:
+    """The suffix of a float64 census's C entries and launch names."""
+    return "_f64" if dtype == torch.float64 else ""
 
 
 def launch_name(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
-                nongray: bool = False, route: str = "") -> str:
+                nongray: bool = False, route: str = "", dtype=torch.float32) -> str:
     """The ``cuda_lib.LAUNCHES`` key of one kernel instantiation; ``route`` is an
-    owned-range call's ``OwnedRange.route``."""
+    owned-range call's ``OwnedRange.route``; a float64 instantiation's name ends
+    in ``_f64`` before the route."""
     return (f"transport_{ndim}d" + ("_abs" if absorb else "") + ("_ddmc" if ddmc else "")
-            + ("_smr" if smr else "") + ("_ng" if nongray else "") + route)
+            + ("_smr" if smr else "") + ("_ng" if nongray else "") + _f64(dtype) + route)
 
 
 def resident_blocks(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
-                    nongray: bool = False) -> int:
+                    nongray: bool = False, dtype=torch.float32) -> int:
     """Blocks of one kernel instantiation that a SM of the current GPU holds at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     out = ctypes.c_int(0)
-    cuda_lib.library().call("jb_transport_occupancy", ndim, int(absorb), int(ddmc), int(smr),
-                            int(nongray), ctypes.addressof(out))
+    cuda_lib.library().call("jb_transport_occupancy" + _f64(dtype), ndim, int(absorb),
+                            int(ddmc), int(smr), int(nongray), ctypes.addressof(out))
     return out.value
 
 
@@ -176,8 +200,9 @@ def whole_mesh(mesh) -> OwnedRange:
 
 @dataclasses.dataclass(frozen=True)
 class _Geom:
-    """Float32 scalars of the event body, each rounded as the JAX kernel rounds
-    it. Per-axis tuples are (x, y, z); only the first ``ndim`` are used."""
+    """Scalars of the event body at the census's precision ``real``: in float32
+    each rounded as the JAX kernel rounds it, in float64 as the JAX float64 loop
+    does. Per-axis tuples are (x, y, z); only the first ``ndim`` are used."""
 
     ndim: int
     absorb: bool
@@ -221,14 +246,17 @@ class _Geom:
     ng: tuple = (np.float32(0.0),) * 9
     # an owned-range call's ``OwnedRange.route`` (its ``LAUNCHES`` key's suffix)
     route: str = ""
+    # the census's precision: the ledger's, the tables' and these scalars'
+    real: torch.dtype = torch.float32
 
 
 NONGRAY_CONSTANTS = ("rho_scale", "temp_scale", "length_scale", "sb", "kb", "hh", "g_ff",
                      "freq_min", "xc_max")
 
 
-def _nongray_constants(coefs) -> tuple:
-    """The f32 constants of the per-event opacity, in ``NONGRAY_CONSTANTS`` order:
+def _nongray_constants(coefs, rd=np.float32) -> tuple:
+    """The constants of the per-event opacity rounded by ``rd``, in
+    ``NONGRAY_CONSTANTS`` order:
     ``EPBremss``, bare or under ``NonCGSUnits``, is the one frequency-dependent
     model of either package (every scattering model is gray: its per-cell value is
     in the table)."""
@@ -238,32 +266,34 @@ def _nongray_constants(coefs) -> tuple:
         raise ValueError(f"transport: the per-event census evaluates EPBremss, not {op!r}")
     scales = ((op._rho_scale, op.temperature_scale, op.length_scale)
               if isinstance(op, NonCGSUnits) else (1.0, 1.0, 1.0))
-    return tuple(np.float32(v) for v in (
+    return tuple(rd(v) for v in (
         *scales, constants.SB, constants.KB, constants.HH, base.g_ff, base.FREQ_MIN,
         base.XC_MAX))
 
 
-def _geometry(mesh, prm, dt, coefs, smr) -> _Geom:
-    f32 = np.float32
+def _geometry(mesh, prm, dt, coefs, smr, real=None) -> _Geom:
+    real = real or coefs.sigma_s.dtype
+    check_supported(mesh, prm, real)
+    rd = np.float64 if real == torch.float64 else np.float32  # the census's rounding
     b = mesh.bounds
     nrb = (1, 1, 1) if smr else mesh.root_grid[::-1]  # root blocks per axis (x, y, z)
     n = tuple(nrb[a] * (mesh.nx, mesh.ny, mesh.nz)[a] for a in range(3))
     dx = tuple((b[2 * a + 1] - b[2 * a]) / n[a] for a in range(3))
-    c = f32(prm.c)
-    cdt = c * f32(dt)
-    half = [f32(0.5 * mesh.finest[a]) for a in range(3)]
+    c = rd(prm.c)
+    cdt = c * rd(dt)
+    half = [rd(0.5 * mesh.finest[a]) for a in range(3)]
     extra = {}
     if smr:
         extra = dict(
             ntiles=mesh.tile_shape[::-1],
-            tile=mesh.tile_edges(),
+            tile=mesh.tile_edges(real),
             nudge_cross=tuple(half),
-            nudge_tilt=tuple(f32(0.01 * mesh.finest[a]) for a in range(3)),
+            nudge_tilt=tuple(rd(0.01 * mesh.finest[a]) for a in range(3)),
         )
     if not coefs.is_gray:
         if not prm.has_absorption:
             raise ValueError("transport: a frequency-dependent opacity absorbs")
-        extra.update(nongray=True, ng=_nongray_constants(coefs))
+        extra.update(nongray=True, ng=_nongray_constants(coefs, rd))
     return _Geom(
         ndim=prm.ndim,
         absorb=bool(prm.has_absorption),
@@ -271,26 +301,27 @@ def _geometry(mesh, prm, dt, coefs, smr) -> _Geom:
         smr=smr,
         n=n,
         bc=tuple(_BC_CODE[v] for v in prm.swarm_bc),
-        dx=tuple(f32(v) for v in dx),
-        inv_dx=tuple(f32(1.0 / v) for v in dx),
-        org=tuple(f32(b[2 * a]) for a in range(3)),
-        lo=tuple(f32(b[2 * a]) for a in range(3)),
-        hi=tuple(f32(b[2 * a + 1]) for a in range(3)),
-        lo_half=tuple(f32(b[2 * a]) + half[a] for a in range(3)),
-        hi_half=tuple(f32(b[2 * a + 1]) - half[a] for a in range(3)),
-        span=tuple(f32(b[2 * a + 1] - b[2 * a]) for a in range(3)),
-        dmin=f32(min(dx[: prm.ndim])),
+        dx=tuple(rd(v) for v in dx),
+        inv_dx=tuple(rd(1.0 / v) for v in dx),
+        org=tuple(rd(b[2 * a]) for a in range(3)),
+        lo=tuple(rd(b[2 * a]) for a in range(3)),
+        hi=tuple(rd(b[2 * a + 1]) for a in range(3)),
+        lo_half=tuple(rd(b[2 * a]) + half[a] for a in range(3)),
+        hi_half=tuple(rd(b[2 * a + 1]) - half[a] for a in range(3)),
+        span=tuple(rd(b[2 * a + 1] - b[2 * a]) for a in range(3)),
+        dmin=rd(min(dx[: prm.ndim])),
         c=c,
-        inv_c=f32(1.0) / c,
+        inv_c=rd(1.0) / c,
         cdt=cdt,
-        inv_cdt=f32(1.0) / cdt,
-        tau_ddmc=f32(prm.tau_ddmc),
-        eps_imc=f32(prm.eps_imc),
-        eps_ddmc=f32(prm.eps_ddmc),
-        dt=f32(dt),
-        inv_dt=f32(1.0) / f32(dt),
-        lam2=f32(2.0 * LAM_EXT),
-        pf2_num=f32(2.0 * (2.0 / 3.0)),
+        inv_cdt=rd(1.0) / cdt,
+        tau_ddmc=rd(prm.tau_ddmc),
+        eps_imc=rd(prm.eps_imc),
+        eps_ddmc=rd(prm.eps_ddmc),
+        dt=rd(dt),
+        inv_dt=rd(1.0) / rd(dt),
+        lam2=rd(2.0 * LAM_EXT),
+        pf2_num=rd(2.0 * (2.0 / 3.0)),
+        real=real,
         **extra,
     )
 
@@ -357,23 +388,24 @@ def _tables(cset, mesh, g: _Geom, kernel: bool) -> _Tables:
         cell = _table_cuda(cset, mesh, g)
     else:
         cell = _pair_table(coefs if len(cset) == 1 else _concat_coefs(cset), mesh, g)
-    forest = forest_tables(mesh, coefs.sigma_s.device) if g.smr else (None, None, None)
+    forest = (forest_tables(mesh, coefs.sigma_s.device, g.real) if g.smr
+              else (None, None, None))
     return _Tables(cell, *forest, coefs.opacity, cols)
 
 
-def forest_tables(mesh, device) -> tuple:
+def forest_tables(mesh, device, dtype=torch.float32) -> tuple:
     """The block table, levels and lookup grid of ``_Tables`` for ``mesh`` on
-    ``device``. They depend on the mesh alone, so they are built once per mesh and
-    device, at the first census there, and kept in ``mesh.derived``: every later
-    census and spatial step on the forest launches nothing for them; they are
-    read, never written. Built on ``device`` by the operations a census set-up
-    used to run each time, so the same bits (the reciprocals by an IEEE float32
-    divide)."""
-    key = ("census forest", torch.device(device))
+    ``device``, the block table at the census's precision ``dtype``. They depend
+    on the mesh alone, so they are built once per mesh, device and precision, at
+    the first census there, and kept in ``mesh.derived``: every later census and
+    spatial step on the forest launches nothing for them; they are read, never
+    written. Built on ``device`` by the operations a census set-up used to run
+    each time, so the same bits (the reciprocals by an IEEE divide)."""
+    key = ("census forest", torch.device(device), dtype)
     hit = mesh.derived.get(key)
     if hit is None:
         # slices, not an index list: a list index is a host tensor copied to the card
-        block = torch.zeros((mesh.n_blocks, 12), dtype=torch.float32, device=device)
+        block = torch.zeros((mesh.n_blocks, 12), dtype=dtype, device=device)
         block[:, 0:3] = mesh.block_dx.to(block)
         block[:, 4:7] = mesh.block_origin.to(block)
         block[:, 8:11] = torch.ones_like(block[:, 0:3]) / block[:, 0:3]
@@ -393,9 +425,9 @@ def record_columns(cset, mesh, g: _Geom) -> tuple | None:
         return None
     c = cset[0]
     cols = (c.rho, c.temp, c.fleck, c.sigma_s)
-    if any(t is None or t.dtype != torch.float32 or not t.is_contiguous()
+    if any(t is None or t.dtype != g.real or not t.is_contiguous()
            or t.device != c.sigma_s.device or t.shape != c.sigma_s.shape for t in cols):
-        raise ValueError("census: rho, T, fleck and sigma_s must be contiguous float32 "
+        raise ValueError(f"census: rho, T, fleck and sigma_s must be contiguous {g.real} "
                          "columns of one length on one device")
     return cols
 
@@ -406,27 +438,28 @@ def _pair_table(coefs, mesh, g: _Geom):
     with ``smr``), from the
     effective rates ``ea = fleck sigma_a`` and ``es = sigma_s + (1 - fleck)
     sigma_a`` (without absorption ``ea = 0``, ``es = sigma_s``): without DDMC the
-    f32 pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor, with DDMC the [NC, 8]
+    real pair ``(p_abs, 1 / sigma_t)`` as an [NC, 2] tensor, with DDMC the [NC, 8]
     rows ``(ea, es, Px_lo, Px_hi, Py_lo, Py_hi, Pz_lo, Pz_hi)``. The JAX kernels
     switch pairs the same way and hold them packed in bf16. On a uniform 1D mesh
     the DDMC rows end instead with what the DDMC event would make from its cell
-    alone (``kCell1d`` in csrc/transport_kernel.cu), by the event's float32
-    operations: the lower face's leak rate ``lk = Px_lo f32(1 / dx)``, ``cdf =
-    (ea + (lk + Px_hi f32(1 / dx))) + tiny`` (without absorption ``(lk + Px_hi
-    f32(1 / dx)) + tiny``), ``c cdf`` and a zero. With a frequency-dependent
+    alone (``kCell1d`` in csrc/transport_kernel.cuh), by the event's
+    operations: the lower face's leak rate ``lk = Px_lo real(1 / dx)``, ``cdf =
+    (ea + (lk + Px_hi real(1 / dx))) + tiny`` (without absorption ``(lk + Px_hi
+    real(1 / dx)) + tiny``), ``c cdf`` and a zero. With a frequency-dependent
     opacity the rows are ``(rho, T, fleck, sigma_s)`` [NC, 4], with DDMC followed
     by the six face probabilities and two zeros [NC, 12]: the JAX kernel's (rho,
     T, fleck) tables and the per-cell value of its gray scattering."""
-    f32 = torch.float32
-    ss = coefs.sigma_s.to(f32)
-    faces = ([v.to(f32) for v in _face_pairs(coefs.px, coefs.py, coefs.pz, mesh)] if g.ddmc
+    real = g.real
+    tiny = limits(real)[1]
+    ss = coefs.sigma_s.to(real)
+    faces = ([v.to(real) for v in _face_pairs(coefs.px, coefs.py, coefs.pz, mesh)] if g.ddmc
              else [])
     if not coefs.is_gray:
         zero = [torch.zeros_like(ss)] * 2 if g.ddmc else []
-        cols = [coefs.rho.to(f32), coefs.temp.to(f32), coefs.fleck.to(f32), ss, *faces, *zero]
+        cols = [coefs.rho.to(real), coefs.temp.to(real), coefs.fleck.to(real), ss, *faces, *zero]
     else:
         if g.absorb:
-            sa, fl = coefs.sigma_a.to(f32), coefs.fleck.to(f32)
+            sa, fl = coefs.sigma_a.to(real), coefs.fleck.to(real)
             ea = fl * sa
             es = ss + (1.0 - fl) * sa
         else:
@@ -436,13 +469,13 @@ def _pair_table(coefs, mesh, g: _Geom):
             inv_dx = float(g.inv_dx[0])
             lk = faces[0] * inv_dx
             leak_tot = lk + faces[1] * inv_dx
-            cdf = (ea + leak_tot if g.absorb else leak_tot) + _TINY
+            cdf = (ea + leak_tot if g.absorb else leak_tot) + tiny
             cols = [ea, es, faces[0], faces[1], lk, cdf, cdf * float(g.c),
                     torch.zeros_like(ss)]
         elif g.ddmc:
             cols = [ea, es, *faces]
         else:
-            inv = 1.0 / (ea + es + _TINY)
+            inv = 1.0 / (ea + es + tiny)
             cols = [ea * inv, inv]
     if mesh.n_blocks > 1 and not g.smr:
         cols = [to_global_cells(v, mesh) for v in cols]
@@ -503,13 +536,13 @@ def _table_cuda(cset, mesh, g: _Geom):
             faces = {"px": (0, 0, 1), "py": (0, 1, 0), "pz": (1, 0, 0)}.get(name)
             want = (cells if faces is None else
                     nb * (mesh.nz + faces[0]) * (mesh.ny + faces[1]) * (mesh.nx + faces[2]))
-            if (t is None or t.device != dev or dev.type != "cuda" or t.dtype != torch.float32
+            if (t is None or t.device != dev or dev.type != "cuda" or t.dtype != g.real
                     or not t.is_contiguous() or t.numel() != want):
                 raise ValueError(f"census table kernel: {name} must be {want} contiguous "
-                                 "float32 values on one GPU")
+                                 f"{g.real} values on one GPU")
         rows.append((cells, total))
         total += cells
-    out = torch.empty((total, _TABLE_WIDTHS[kind]), dtype=torch.float32, device=dev)
+    out = torch.empty((total, _TABLE_WIDTHS[kind]), dtype=g.real, device=dev)
     nrbz, nrby, nrbx = mesh.root_grid
     permute = int(mesh.n_blocks > 1 and not g.smr)
     for k0 in range(0, len(cset), MAX_RANGES_PER_TABLE):
@@ -518,30 +551,31 @@ def _table_cuda(cset, mesh, g: _Geom):
                 for c in group for name in _TABLE_COLUMNS]
         ranges = [v for r in rows[k0:k0 + len(group)] for v in r]
         cuda_lib.library().call(
-            "jb_table_launch", kind, int(g.absorb), out.data_ptr(), len(group),
+            "jb_table_launch" + _f64(g.real), kind, int(g.absorb), out.data_ptr(), len(group),
             (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ranges))(*ranges),
             mesh.nx, mesh.ny, mesh.nz, nrbx, nrby, permute, float(g.inv_dx[0]), float(g.c),
             cuda_lib.stream_handle(dev))
-        cuda_lib.LAUNCHES["census_table"] += 1
+        cuda_lib.LAUNCHES["census_table" + _f64(g.real)] += 1
     return out
 
 
-def _block_shifts(mesh):
-    """Per-axis f32 block extents (the collapse shift per block index)."""
+def _block_shifts(mesh, dtype=torch.float32):
+    """Per-axis block extents at ``dtype`` (the collapse shift per block index)."""
     nrb = mesh.root_grid[::-1]
     b = mesh.bounds
-    return [float(np.float32((b[2 * a + 1] - b[2 * a]) / nrb[a])) for a in range(3)]
+    rd = np.float64 if dtype == torch.float64 else np.float32
+    return [float(rd((b[2 * a + 1] - b[2 * a]) / nrb[a])) for a in range(3)]
 
 
 def collapse_plain(p, mesh):
     """Shift block-local state to the single synthetic block (in place): the plain
     version of what the census kernel applies where it reads a slot (its fold)."""
     nrbz, nrby, nrbx = mesh.root_grid
-    D = _block_shifts(mesh)
+    D = _block_shifts(mesh, p.x.dtype)
     bl = (p.block % nrbx, (p.block // nrbx) % nrby, p.block // (nrbx * nrby))
     for pos, idx, bk, d, nloc in zip((p.x, p.y, p.z), (p.i, p.j, p.k), bl, D,
                                      (mesh.nx, mesh.ny, mesh.nz)):
-        pos += bk.to(torch.float32) * d
+        pos += bk.to(p.x.dtype) * d
         idx += bk * nloc
     p.block.zero_()
 
@@ -551,13 +585,13 @@ def expand_plain(p, mesh):
     indices (in place); the plain version of what the census kernel applies where
     it writes a slot back (its fold)."""
     nrbz, nrby, nrbx = mesh.root_grid
-    D = _block_shifts(mesh)
+    D = _block_shifts(mesh, p.x.dtype)
     bl = []
     for pos, idx, d, nloc in zip((p.x, p.y, p.z), (p.i, p.j, p.k), D,
                                  (mesh.nx, mesh.ny, mesh.nz)):
         bk = torch.div(idx, nloc, rounding_mode="floor")
         idx -= bk * nloc
-        pos -= bk.to(torch.float32) * d
+        pos -= bk.to(p.x.dtype) * d
         bl.append(bk)
     p.block.copy_((bl[2] * nrby + bl[1]) * nrbx + bl[0])
 
@@ -618,7 +652,7 @@ def _ddmc_plain(pool, it, g: _Geom, k, is_ddmc, ea, sig_t, pf, face, tau, pos, i
     leak_tot = lk[0] + lk[1]
     for v in lk[2:]:
         leak_tot = leak_tot + v
-    cdf = ea_dd + leak_tot + _TINY
+    cdf = ea_dd + leak_tot + k["tiny"]
     dt_ev = pool.exp23(it) / (c * cdf)
     dt_rem = k["dt"] * (1.0 - tau)
     is_event = dt_ev < dt_rem
@@ -684,7 +718,7 @@ def _rehome_plain(pool, it, g: _Geom, k, tabs: _Tables, blk, gp, out_lo, out_hi,
     nd = g.ndim
     t = []
     for a in range(nd):
-        sg = torch.where(out_hi[a], 1.0, 0.0) - torch.where(out_lo[a], 1.0, 0.0)
+        sg = (torch.where(out_hi[a], 1.0, 0.0) - torch.where(out_lo[a], 1.0, 0.0)).to(g.real)
         probe = gp[a] + torch.where(sg != 0.0, k["nudge_cross"][a] * sg,
                                     k["nudge_tilt"][a] * (nvel[a] * k["inv_c"]))
         t.append(torch.clamp(torch.floor((probe - k["lo"][a]) / k["tile"][a]).to(torch.int32),
@@ -741,9 +775,9 @@ def _subface_pick(nd, n, refine, leak, loc, idx, ndx, vel, face_prob, u_sel, u_t
     position is redrawn uniformly on it (``u_t``) and the direction from the
     hemisphere ``hemi`` into the block, in the cyclic axis order. Updates and
     returns the lists (loc, idx, vel)."""
-    f32 = torch.float32
+    real = loc[0].dtype
     leak_axis = leak.abs() - 1
-    lsgn = torch.sign(leak).to(f32)
+    lsgn = torch.sign(leak).to(real)
     take_upper = lsgn < 0.0  # a leak in -axis enters the upper face of the last cell
     for ax in range(nd):
         m = refine & (leak_axis == ax)
@@ -782,7 +816,7 @@ def _subface_pick(nd, n, refine, leak, loc, idx, ndx, vel, face_prob, u_sel, u_t
                 cum = cum + pr
         for q, sq, u in zip(trans, sel, u_t):
             idx[q] = torch.where(m, sq, idx[q])
-            loc[q] = torch.where(m, (sq.to(f32) + u) * ndx[q], loc[q])
+            loc[q] = torch.where(m, (sq.to(real) + u) * ndx[q], loc[q])
         # hemisphere direction into the block, in the cyclic axis order
         vs = (c * lsgn * hemi[0], c * hemi[1], c * hemi[2])
         for q in range(3):
@@ -815,11 +849,12 @@ def _census_plain(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fol
 
 def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane_events):
     dev = p.x.device
-    f32 = torch.float32
+    real = g.real
+    big, tiny = limits(real)
     nd = g.ndim
 
     def s(v):
-        return torch.tensor(float(v), dtype=f32, device=dev)
+        return torch.tensor(float(v), dtype=real, device=dev)
 
     def axes(vals):
         return [s(v) for v in vals[:nd]]
@@ -831,7 +866,7 @@ def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane
                                                    g.inv_cdt))
     one, zero = s(1.0), s(0.0)
     k = dict(c=c, inv_c=inv_c, one=one, zero=zero, dx=dx, inv_dx=inv_dx, lo=lo,
-             tiny=s(_TINY), tile=axes(g.tile), nudge_cross=axes(g.nudge_cross),
+             tiny=s(tiny), tile=axes(g.tile), nudge_cross=axes(g.nudge_cross),
              nudge_tilt=axes(g.nudge_tilt),
              **{name: s(getattr(g, name)) for name in ("eps_imc", "eps_ddmc", "dt", "inv_dt",
                                                        "lam2", "pf2_num")})
@@ -891,7 +926,7 @@ def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane
         active = alive & (tau < one) & owned()
         if not bool(active.any()):
             break
-        pool = DrawPool(raw)
+        pool = DrawPool(raw, real)
         if g.smr:  # the lane's block geometry
             brow = tabs.block[blk.long()]
             dx = [brow[:, a] for a in range(nd)]
@@ -912,7 +947,7 @@ def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane
         is_ddmc = active & (dmin * sig_t > s(g.tau_ddmc)) if g.ddmc else None
         act_imc = active & ~is_ddmc if g.ddmc else active
         if g.ddmc or g.nongray:
-            d_coll = pool.exp23(it) / (sig_t + _TINY)
+            d_coll = pool.exp23(it) / (sig_t + tiny)
         else:  # rows (p_abs, 1 / sigma_t)
             d_coll = pool.exp23(it) * row[:, 1]
         u_branch = pool.u23(it) if g.absorb else None
@@ -920,13 +955,13 @@ def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane
         d_geom = torch.minimum(dmin, d_end)
         fl, fu, fd = [], [], []
         for a in range(nd):
-            fi = idx[a].to(f32)
+            fi = idx[a].to(real)
             fl.append(fi * dx[a])
             fu.append((fi + one) * dx[a])
             v = vel[a]
             tgt = torch.where(v > 0, fu[a], fl[a])
             fd.append(torch.where(v != 0, c * (tgt - pos[a]) / torch.where(v != 0, v, one),
-                                  _BIG))
+                                  big))
         d_push = torch.minimum(d_geom, fd[0])
         for a in range(1, nd):
             d_push = torch.minimum(d_push, fd[a])
@@ -1042,8 +1077,9 @@ def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane
     return iters, events
 
 
-def _check_cuda_ledger(p, tabs: _Tables):
-    """What the kernel takes, checked before anything touches the ledger."""
+def _check_cuda_ledger(p, tabs: _Tables, real=torch.float32):
+    """What the kernel takes, checked before anything touches the ledger: the
+    ledger's and the tables' floats at the census's precision ``real``."""
     dev = p.x.device
     floats = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.energy)
     ints = (p.i, p.j, p.k, p.block, p.face, p.leak)
@@ -1055,18 +1091,21 @@ def _check_cuda_ledger(p, tabs: _Tables):
             raise ValueError("transport kernel: ledger tensors must be contiguous on one GPU")
     if any(t.shape != (p.capacity,) for t in (*floats, *ints, *bools)):
         raise ValueError("transport kernel: ledger columns differ in length")
-    if any(t.dtype != torch.float32 for t in floats) or any(t.dtype != torch.int32 for t in ints):
-        raise ValueError("transport kernel: f32 state and int32 cell indices only")
+    tab_floats = tuple(t for t in (tabs.cell, tabs.block, *(tabs.cols or ())) if t is not None)
+    if (any(t.dtype != real for t in floats + tab_floats)
+            or any(t.dtype != torch.int32 for t in ints)):
+        raise ValueError(f"transport kernel: {real} state and tables and int32 cell indices "
+                         "only")
     if any(t.dtype != torch.bool for t in bools):
         raise ValueError("transport kernel: the alive and absorbed masks must be torch.bool")
     if p.capacity >= 2**31:
         raise ValueError("transport kernel: capacity must fit in int32")
 
 
-# the shards one launch takes (csrc/transport_kernel.cu, kMaxShards); a call over
+# the shards one launch takes (csrc/transport_kernel.cuh, kMaxShards); a call over
 # more makes one launch for each group of as many
 MAX_SHARDS_PER_LAUNCH = 64
-# threads a block of the census kernel (csrc/transport_kernel.cu, kThreads)
+# threads a block of the census kernel (csrc/transport_kernel.cuh, kThreads)
 THREADS = 256
 
 
@@ -1082,8 +1121,8 @@ def spreads(slots: int, sms: int, resident: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(ndim, absorb, ddmc, smr, nongray) -> int:
-    return resident_blocks(ndim, absorb, ddmc, smr, nongray)
+def _resident(ndim, absorb, ddmc, smr, nongray, dtype) -> int:
+    return resident_blocks(ndim, absorb, ddmc, smr, nongray, dtype)
 
 
 def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None):
@@ -1109,7 +1148,7 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
     ptrs = (ctypes.c_void_p * len(cols))(*(t.data_ptr() for t in cols))
     nrbz, nrby, nrbx = fold.root_grid if fold is not None else (1, 1, 1)
     nloc = (fold.nx, fold.ny, fold.nz) if fold is not None else (1, 1, 1)
-    shifts = _block_shifts(fold) if fold is not None else (0.0, 0.0, 0.0)
+    shifts = _block_shifts(fold, g.real) if fold is not None else (0.0, 0.0, 0.0)
     ints = (*g.n, *g.bc, int(max_iters), *g.ntiles, int(fold is not None), nrbx, nrby, *nloc)
     floats = (*g.dx, *g.inv_dx, *g.org, *g.lo, *g.hi, *g.lo_half, *g.hi_half, *g.span,
               g.dmin, g.c, g.inv_c, g.cdt, g.inv_cdt, g.tau_ddmc, g.eps_imc, g.eps_ddmc,
@@ -1119,18 +1158,20 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
     cell = 0 if tabs.cell is None else tabs.cell.data_ptr()
     record = (None if tabs.cols is None
               else (ctypes.c_void_p * 4)(*(t.data_ptr() for t in tabs.cols)))
-    name = launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route)
+    name = launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.route, g.real)
+    c_real = ctypes.c_double if g.real == torch.float64 else ctypes.c_float
     for k, group in enumerate(groups):
         k0 = k * MAX_SHARDS_PER_LAUNCH
         slots = max(sh.slot_hi for sh in group) - min(sh.slot_lo for sh in group)
         spread = spreads(slots, torch.cuda.get_device_properties(dev).multi_processor_count,
-                         _resident(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray))
+                         _resident(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.real))
         rows = [v for sh in group for v in dataclasses.astuple(sh)]
         cuda_lib.library().call(
-            "jb_transport_launch", g.ndim, int(g.absorb), int(g.ddmc), int(g.smr),
-            int(g.nongray), ptrs, cell, record, *(0 if t is None else t.data_ptr() for t in smr),
+            "jb_transport_launch" + _f64(g.real), g.ndim, int(g.absorb), int(g.ddmc),
+            int(g.smr), int(g.nongray), ptrs, cell, record,
+            *(0 if t is None else t.data_ptr() for t in smr),
             p.capacity, (ctypes.c_int * len(ints))(*ints),
-            (ctypes.c_float * len(floats))(*map(float, floats)),
+            (c_real * len(floats))(*map(float, floats)),
             len(group), (ctypes.c_int * len(rows))(*rows), int(spread),
             events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
         )
@@ -1182,12 +1223,13 @@ def prepare(coefs, mesh, prm, dt, own=None) -> Census:
     its coefficients; with an ``OwnedRange`` that range and its coefficients (see
     ``OwnedRange``); with a sequence of ranges, all of one kind, a sequence of
     coefficient sets, one per range (the local shards of a spatial round). On a
-    GPU the table kernel builds the cell table, on the CPU its plain version."""
+    GPU the table kernel builds the cell table, on the CPU its plain version. The
+    census runs at the coefficients' precision."""
     first = coefs[0] if own is not None and not isinstance(own, OwnedRange) else coefs
     return _prepare(coefs, mesh, prm, dt, own, first.sigma_s.device.type == "cuda")
 
 
-def _prepare(coefs, mesh, prm, dt, own, kernel) -> Census:
+def _prepare(coefs, mesh, prm, dt, own, kernel, real=None) -> Census:
     multi = own is not None and not isinstance(own, OwnedRange)
     owns = tuple(own) if multi else (whole_mesh(mesh) if own is None else own,)
     cset = list(coefs) if multi else [coefs]
@@ -1203,7 +1245,7 @@ def _prepare(coefs, mesh, prm, dt, own, kernel) -> Census:
             raise ValueError(f"transport: {n_cells} coefficients expected, one per owned cell")
         rows.append(total)
         total += n_cells
-    g = _geometry(mesh, prm, dt, cset[0], smr)
+    g = _geometry(mesh, prm, dt, cset[0], smr, real)
     if own is not None:
         g = dataclasses.replace(g, route=owns[0].route)
     return Census(g, _tables(cset, mesh, g, kernel), owns, tuple(rows))
@@ -1220,11 +1262,13 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
             raise ValueError("transport: a prepared census carries its owned ranges")
         setup = coefs
     else:
-        setup = _prepare(coefs, mesh, prm, dt, own, census is _census_cuda)
+        setup = _prepare(coefs, mesh, prm, dt, own, census is _census_cuda, p.x.dtype)
     if not (len(ledgers) == len(seeds) == len(setup.owns)):
         raise ValueError("transport: one ledger and one seed per owned range")
+    if p.x.dtype != setup.g.real:
+        raise ValueError(f"transport: a {p.x.dtype} ledger and {setup.g.real} coefficients")
     if census is _census_cuda:
-        _check_cuda_ledger(p, setup.tabs)
+        _check_cuda_ledger(p, setup.tabs, setup.g.real)
     shards = tuple(_Shard(lo, hi, *o.bounds(), row, int(sd))
                    for (lo, hi), o, row, sd in zip(slices, setup.owns, setup.rows, seeds))
     # a uniform forest of several blocks runs collapsed to one; a forest run block
@@ -1293,31 +1337,31 @@ def subface_resample(p, faces, mesh, c, gen, offset, n_local):
         return p
     from . import rng
 
-    f32 = torch.float32
+    real = p.x.dtype
     dev = p.x.device
-    u = rng.uniform(gen, (5, p.capacity), f32, dev)
+    u = rng.uniform(gen, (5, p.capacity), real, dev)
     mu = torch.sqrt(u[3])
     nu = torch.sqrt(torch.clamp_min(1.0 - mu * mu, 0.0))
     phi = (2.0 * np.pi) * u[4]
     hemi = (mu, nu * torch.cos(phi), nu * torch.sin(phi))
     b_loc = torch.clamp(p.block - offset, 0, n_local - 1).long()
-    ndx = [mesh.block_dx[p.block.long(), a].to(f32) for a in range(nd)]
+    ndx = [mesh.block_dx[p.block.long(), a].to(real) for a in range(nd)]
     nx, ny, nz = mesh.nx, mesh.ny, mesh.nz
     pairs = _face_pairs(*faces, mesh)
 
     def face_prob(ax, upper, ijk):
         i, j, k = (ijk + [torch.zeros_like(ijk[0])] * 3)[:3]
         cell = ((b_loc * nz + k.long()) * ny + j.long()) * nx + i.long()
-        return torch.where(upper, pairs[2 * ax + 1][cell], pairs[2 * ax][cell]).to(f32)
+        return torch.where(upper, pairs[2 * ax + 1][cell], pairs[2 * ax][cell]).to(real)
 
     loc = [p.x, p.y, p.z][:nd]
     idx = [p.i, p.j, p.k][:nd]
     vel = [p.vx, p.vy, p.vz]
-    zero = torch.zeros((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=real, device=dev)
     loc, idx, vel = _subface_pick(nd, (nx, ny, nz), need, p.leak, list(loc), list(idx), ndx,
                                   list(vel), face_prob, u[0], [u[1], u[2]][: nd - 1], hemi,
-                                  torch.tensor(float(np.float32(c)), dtype=f32, device=dev),
-                                  zero, torch.tensor(_TINY, dtype=f32, device=dev))
+                                  torch.tensor(c, dtype=real, device=dev), zero,
+                                  torch.tensor(limits(real)[1], dtype=real, device=dev))
     for dst, src in zip([p.x, p.y, p.z][:nd] + [p.i, p.j, p.k][:nd] + [p.vx, p.vy, p.vz],
                         loc + idx + vel):
         dst.copy_(src)

@@ -50,9 +50,16 @@ from ..particles import insert_particles
 from ..step import (StepStats, census_fn, make_transport_params, total_sigma, with_faces,
                     with_fleck)
 
-# particle fields shipped during migration, each 4 bytes: sent as int32 words
+# particle fields shipped during migration, sent as int32 words: one for a 4-byte
+# column, two for a float64 one (precision = f64), as the JAX package packs them
+# (jaybenne_tpu/parallel/spatial.py:100, pallas_grid._pack_cols)
 MIGRATE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy",
                   "block", "i", "j", "k", "face", "leak")
+
+
+def _words(t):
+    """A column as [capacity, w] int32 words (w = its itemsize / 4)."""
+    return t.view(torch.int32).reshape(t.shape[0], -1)
 
 # matter fields whose padding blocks hold 1, not 0, so that the pointwise EOS and
 # Fleck factor stay finite there
@@ -174,8 +181,8 @@ def migrate(ledgers, offsets, bl, K, exchange):
         src = torch.full((n * K + 1,), cap, dtype=torch.int64, device=dev)
         src[slot] = order  # every ok slot distinct; the rest land on the dump slot
         src = src[: n * K]
-        cols = [getattr(p, name).view(torch.int32) for name in MIGRATE_FIELDS]
-        rows = torch.stack(cols + [torch.ones_like(cols[0])], dim=1)
+        cols = [_words(getattr(p, name)) for name in MIGRATE_FIELDS]
+        rows = torch.cat(cols + [torch.ones_like(cols[-1][:, :1])], dim=1)
         rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])  # the empty row
         bufs.append(rows[src].reshape(n, K, rows.shape[1]))
         sent = torch.zeros(cap, dtype=torch.bool, device=dev)
@@ -186,8 +193,12 @@ def migrate(ledgers, offsets, bl, K, exchange):
     dropped = []
     for p, r in zip(ledgers, recv):
         r = r.reshape(-1, r.shape[-1])
-        cand = {name: r[:, c].view(getattr(p, name).dtype)
-                for c, name in enumerate(MIGRATE_FIELDS)}
+        cand, c = {}, 0
+        for name in MIGRATE_FIELDS:
+            dt = getattr(p, name).dtype
+            w = dt.itemsize // 4
+            cand[name] = r[:, c:c + w].contiguous().view(dt).reshape(-1)
+            c += w
         _, n_drop = insert_particles(p, cand, r[:, -1] != 0, reserved=p.absorbed)
         dropped.append(n_drop.to(torch.int64))
     return dropped, sent_counts

@@ -4,7 +4,8 @@ One flat struct-of-arrays ledger with an ``alive`` mask. Positions are local to 
 owning block, ``tau`` is the time within the current step in units of dt (census is
 ``tau >= 1``), and cell identity is tracked by the integers ``(block, i, j, k)``.
 
-Dtypes: f32 for positions, velocities, ``tau``, ``weight`` and ``energy``; int32
+Dtypes: the run's precision (f32, or f64 with ``precision = f64``) for positions,
+velocities, ``tau``, ``weight`` and ``energy``; int32
 for ``block``, ``i``, ``j``, ``k`` and ``face``; ``torch.bool`` for ``alive`` and
 ``absorbed``; int32 ``leak``, the pending coarse-to-fine DDMC leak code of the spatial
 decomposition (zero-filled when a constructor leaves it out).
@@ -148,12 +149,14 @@ def empty_ledger(capacity: int, dtype=torch.float32, device="cpu") -> ParticleLe
     )
 
 
-def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float) -> ParticleLedger:
+def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float,
+                   dtype=torch.float32) -> ParticleLedger:
     """A ledger of ``n`` live particles of unit weight at uniform positions over a
     uniform (single-level) mesh, with isotropic directions at speed ``c``, drawn
-    from ``generator`` on its device. For kernel checks and timings."""
+    from ``generator`` on its device, its floats of ``dtype``. For kernel checks
+    and timings."""
     dev = generator.device
-    p = empty_ledger(n, torch.float32, dev)
+    p = empty_ledger(n, dtype, dev)
     nloc = (mesh.nx, mesh.ny, mesh.nz)
     nrb = mesh.root_grid[::-1]
     b = mesh.bounds
@@ -165,22 +168,22 @@ def uniform_ledger(mesh, n: int, generator: torch.Generator, c: float) -> Partic
         getattr(p, idx).copy_(gc - blk * nloc[a])
         if a < mesh.ndim:
             dx = (b[2 * a + 1] - b[2 * a]) / cells
-            u = torch.rand(n, generator=generator, device=dev)
-            getattr(p, pos).copy_((getattr(p, idx).float() + u) * dx)
+            u = torch.rand(n, generator=generator, device=dev, dtype=dtype)
+            getattr(p, pos).copy_((getattr(p, idx).to(dtype) + u) * dx)
         blocks.append(blk)
     p.block.copy_((blocks[2] * nrb[1] + blocks[1]) * nrb[0] + blocks[0])
     return _isotropic(p, generator, c)
 
 
 def forest_ledger(mesh, n: int, generator: torch.Generator, c: float,
-                  blocks: tuple | None = None) -> ParticleLedger:
+                  blocks: tuple | None = None, dtype=torch.float32) -> ParticleLedger:
     """The counterpart of ``uniform_ledger`` on any block forest, refined or not:
     each particle in a cell drawn uniformly from all the forest's cells (so a fine
     block holds as many as a coarse one), or from those of the blocks ``blocks`` =
-    (lo, hi), at a uniform position in it, ``block`` set. For kernel checks and
-    timings."""
+    (lo, hi), at a uniform position in it, ``block`` set, its floats of ``dtype``.
+    For kernel checks and timings."""
     dev = generator.device
-    p = empty_ledger(n, torch.float32, dev)
+    p = empty_ledger(n, dtype, dev)
     lo, hi = (0, mesh.n_blocks) if blocks is None else blocks
     ncpb = mesh.ncells_per_block
     cell = torch.randint(lo * ncpb, hi * ncpb, (n,), generator=generator, device=dev)
@@ -190,18 +193,18 @@ def forest_ledger(mesh, n: int, generator: torch.Generator, c: float,
     p.i.copy_(rem % mesh.nx)
     p.j.copy_(torch.div(rem, mesh.nx, rounding_mode="floor") % mesh.ny)
     p.k.copy_(torch.div(rem, mesh.nx * mesh.ny, rounding_mode="floor"))
-    dx = mesh.block_dx.to(dev)[blk]
+    dx = mesh.block_dx.to(device=dev, dtype=dtype)[blk]
     for a, (pos, idx) in enumerate((("x", "i"), ("y", "j"), ("z", "k"))[: mesh.ndim]):
-        u = torch.rand(n, generator=generator, device=dev)
-        getattr(p, pos).copy_((getattr(p, idx).float() + u) * dx[:, a])
+        u = torch.rand(n, generator=generator, device=dev, dtype=dtype)
+        getattr(p, pos).copy_((getattr(p, idx).to(dtype) + u) * dx[:, a])
     return _isotropic(p, generator, c)
 
 
 def _isotropic(p: ParticleLedger, generator: torch.Generator, c: float) -> ParticleLedger:
     """Isotropic directions at speed ``c``, every slot alive with unit weight."""
-    n, dev = p.capacity, generator.device
-    mu = 1.0 - 2.0 * torch.rand(n, generator=generator, device=dev)
-    phi = (2.0 * math.pi) * torch.rand(n, generator=generator, device=dev)
+    n, dev, dt = p.capacity, generator.device, p.x.dtype
+    mu = 1.0 - 2.0 * torch.rand(n, generator=generator, device=dev, dtype=dt)
+    phi = (2.0 * math.pi) * torch.rand(n, generator=generator, device=dev, dtype=dt)
     st = torch.sqrt(torch.clamp_min(1.0 - mu * mu, 0.0))
     p.vx.copy_(c * st * torch.cos(phi))
     p.vy.copy_(c * st * torch.sin(phi))
@@ -229,10 +232,10 @@ def place_on_faces(p: ParticleLedger, mesh, select: torch.Tensor,
                                         ("z", "k", "vz"))[: mesh.ndim]):
         m = select & (axis == a)
         if mesh.max_level > 0:
-            dx = mesh.block_dx.to(dev)[p.block.long(), a]
+            dx = mesh.block_dx.to(device=dev, dtype=p.x.dtype)[p.block.long(), a]
         else:
             dx = (b[2 * a + 1] - b[2 * a]) / (nloc[a] * nrb[a])
-        cell = getattr(p, idx).to(torch.float32)
+        cell = getattr(p, idx).to(p.x.dtype)
         face = torch.where(lower, cell, cell + 1.0) * dx
         getattr(p, pos).copy_(torch.where(m, face, getattr(p, pos)))
         v = getattr(p, vel).abs()

@@ -19,9 +19,9 @@ concatenated ledger. The spatial decomposition's step is
 Census selection mirrors the JAX package's ``_pallas_ok``, by configuration and
 never by failure: ``use_pallas = auto`` or ``on`` runs
 ``transport_kernel.transport`` (the CUDA kernel on a GPU, its plain version on the
-CPU), ``use_pallas = off`` runs the plain version on any device, and a
-configuration the kernel does not take raises ``NotImplementedError`` when the step
-is built.
+CPU), ``use_pallas = off`` runs the plain version on any device, in float32 or
+float64 (``precision = f64``) alike: the JAX package sends float64 to its XLA loop
+instead, and the port to the census's float64 instantiation.
 """
 
 from __future__ import annotations

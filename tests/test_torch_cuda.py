@@ -1199,3 +1199,88 @@ def test_nongray_path_census_bitwise(gpu, tmp_path, deck):
     _same_bits(k, q)
     _same_counts(it_k, ev_k, it_q, ev_q)
     assert int(ev_k) > 0
+
+
+# ------------------------------------------------------------ precision = f64
+
+# every float64 instantiation: (ndim, absorb, ddmc, smr, nongray)
+F64_ROUTES = [(nd, ab, dd, smr, False) for nd in (1, 2, 3) for ab in (False, True)
+              for dd in (False, True) for smr in (False, True)] + [
+    (nd, True, dd, smr, True) for nd in (1, 2, 3) for dd in (False, True) for smr in (False, True)]
+
+
+def _chip_smoke():
+    import sys
+
+    sys.path.insert(0, _ROOT)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_draws_f64_kernel_matches_plain(gpu):
+    """Draw<double>: the float64 census's variates bitwise the plain float64 pool's
+    on the card (the CPU's cos and log may round a double another way)."""
+    g = torch.Generator().manual_seed(4)
+    n = 1 << 15
+    lane, it, tag = (torch.randint(0, hi, (n,), generator=g, dtype=torch.int32).to(gpu)
+                     for hi in (1 << 31, 1 << 20, 24))
+    got = kernel_rng.draws_f64_cuda(-777, lane, it, tag)
+    want = kernel_rng.draws_f64_plain(-777, lane.long(), it.long(), tag.long())
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("route", F64_ROUTES,
+                         ids=[transport_kernel.launch_name(*r, dtype=torch.float64)
+                              for r in F64_ROUTES])
+def test_f64_kernel_bitwise_plain(gpu, route):
+    """Each float64 instantiation on chip_smoke's hybrid, SMR and EPBremss ledgers
+    (phases 11, 15 and 22) made float64, 2^14 particles: bitwise its float64 plain
+    version in every column after 8 iterations and after a full census, float64
+    launches only."""
+    cs = _chip_smoke()
+    ndim, absorb, ddmc, smr, ng = route
+    seed = 4100 + ndim
+    if ng:
+        cs.HYBRID_N = 1 << 14
+        dt, mesh, prm, p0, coefs, _, _ = cs.nongray_setup(gpu, ndim, ddmc, smr, seed)
+    elif smr:
+        dt, mesh, prm, p0, coefs, _ = cs.smr_setup(gpu, ndim, absorb, ddmc, seed, n=1 << 14)
+    else:
+        dt, mesh, prm, p0, coefs, _ = cs.hybrid_setup(gpu, ndim, absorb, ddmc, seed, n=1 << 14)
+    name = transport_kernel.launch_name(*route, dtype=torch.float64)
+    err, events, _ = cs.f64_vs_plain(transport_kernel, gpu, name, p0, coefs, mesh, prm, dt, seed)
+    assert err == 0.0 and events > 0
+
+
+@pytest.mark.parametrize("deck, mods", [
+    ("stepdiff.in", {"parthenon/mesh/nx1": 128, "parthenon/meshblock/nx1": 64}),
+    ("stepdiff_ddmc.in", {"parthenon/mesh/nx1": 64, "parthenon/meshblock/nx1": 32}),
+])
+def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
+    """A float64 deck through run_file on the card: one float64 census launch and
+    one float64 table launch a step and no other, float64 state, a bitwise rerun."""
+    mods = {**mods, "jaybenne/num_particles": 20000, "parthenon/output0/file_type": "none",
+            "jaybenne/precision": "f64"}
+    cuda_lib.LAUNCHES.clear()
+    sims = [run_file(os.path.join(_ROOT, "inputs", deck), outdir=str(tmp_path),
+                     modified_inputs=mods, quiet=True, nlim=3, device="cuda") for _ in range(2)]
+    name = transport_kernel.launch_name(1, False, deck == "stepdiff_ddmc.in",
+                                        dtype=torch.float64)
+    assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6}
+    a, b = (s.state.fields.energy_tally for s in sims)
+    assert a.dtype == torch.float64 and sims[0].state.particles.x.dtype == torch.float64
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["one_block_1d", "uniform_3d"])
+def test_f64_census_table_kernel_matches_plain(gpu, layout):
+    """The float64 table pass bitwise its plain version (chip_smoke.table_check) on
+    the gray DDMC record of a uniform mesh."""
+    cs = _chip_smoke()
+    ndim = 1 if layout == "one_block_1d" else 3
+    dt, mesh, prm, _, coefs, _ = cs.hybrid_setup(gpu, ndim, True, True, 11, n=1024)
+    before = cuda_lib.LAUNCHES["census_table_f64"]
+    cs.table_check(transport_kernel, gpu, cs.coefs_as(coefs, torch.float64), mesh,
+                   cs.prm_as(prm, torch.float64), dt, None, f"{layout} f64")
+    assert cuda_lib.LAUNCHES["census_table_f64"] > before

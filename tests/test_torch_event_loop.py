@@ -2,7 +2,8 @@
 event loop on the card: each anchor of the loop's paths (``LOOP_PATHS``: the SASS
 of a scatter in the cell, a crossing, any outcome but a wall, the whole loop) and
 of the counting variant (``PATH_MIX``: the warp path mix) must name one line of
-``csrc/transport_kernel.cu``, or the readings fail on the card. No GPU needed.
+the kernel's body, ``csrc/transport_kernel.cuh``, or the readings fail on the card.
+No GPU needed.
 """
 
 import os
@@ -15,11 +16,12 @@ sys.path.insert(0, _ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-KERNEL = os.path.join(_ROOT, "jaybenne_tpu_torch", "csrc", "transport_kernel.cu")
+CSRC = os.path.join(_ROOT, "jaybenne_tpu_torch", "csrc")
+KERNEL = os.path.join(CSRC, cs.KERNEL_BODY)
 
 
-def _source():
-    with open(KERNEL) as f:
+def _source(path=KERNEL):
+    with open(path) as f:
         return f.read()
 
 
@@ -38,9 +40,12 @@ def test_loop_path_traps_apply_to_the_kernel(path):
 
 def test_path_mix_counters_apply_to_the_kernel():
     """The counting variant's edits apply once each, every counter key is written,
-    and its reader comes after the kernel's entry points."""
+    and its reader comes after the kernel's entry points (the float32 census's
+    source, which includes the body)."""
     src = _source()
-    out = cs.patched(src, cs.PATH_MIX, "path mix") + cs.PATH_MIX_READ
+    entry = _source(os.path.join(CSRC, "transport_kernel.cu"))
+    assert f'#include "{cs.KERNEL_BODY}"' in entry
+    out = cs.patched(src, cs.PATH_MIX, "path mix") + entry + cs.PATH_MIX_READ
     assert out.count("jb_path_mix[") == src.count("jb_path_mix[") + 1 + 6
     assert f"jb_path_mix[{len(cs.PATH_MIX_KEYS)}]" in out
     assert out.index("jb_transport_occupancy") < out.index("jb_path_mix_read")

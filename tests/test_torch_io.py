@@ -101,6 +101,16 @@ SWARM = ("swarm.x", "swarm.y", "swarm.z", "swarm.weight")
 WEIGHT_RTOL = 1e-6
 
 
+# the precisions the checkpoint tests run at, and each one's numpy float type
+PRECISIONS = ["f32", "f64"]
+REALS = {"f32": np.dtype(np.float32), "f64": np.dtype(np.float64)}
+
+
+def _torch(real):
+    """The torch dtype of a numpy float type."""
+    return torch.float64 if real == np.float64 else torch.float32
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
@@ -183,18 +193,26 @@ def _same_layout(a, b):
 # ----------------------------------------------------------------- restarts
 
 
-def test_checkpoint_restart_bitwise(tmp_path):
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_checkpoint_restart_bitwise(precision, tmp_path):
     """tests/test_io.py:219: 4 cycles straight against 2 + checkpoint + restart +
     2: the streams are keyed by (seed, cycle, slot), so the resumed run is the
-    straight one bit for bit."""
-    a = _sim(tmp_path)
+    straight one bit for bit; at f64 the checkpoint's float datasets are float64
+    and the resumed state keeps float64."""
+    prec = {"jaybenne/precision": precision}
+    a = _sim(tmp_path, **prec)
     a.run()
-    b = _sim(tmp_path, **{"parthenon/time/tlim": "2.e-11"})
+    b = _sim(tmp_path, **{"parthenon/time/tlim": "2.e-11", **prec})
     b.run()
     ck = b.write_checkpoint()
     assert os.path.basename(ck) == "ckpt.ckpt.00002.rhdf"
-    c = _sim(tmp_path, restart=ck)
+    real = REALS[precision]
+    with h5py.File(ck, "r") as h:
+        for name in ("x", "tau", "weight", "energy"):
+            assert h[f"particles/{name}"].dtype == real, name
+    c = _sim(tmp_path, restart=ck, **prec)
     assert c.cycle == 2 and c.t == b.t
+    assert c.state.particles.x.dtype == c.state.fields.u.dtype == _torch(real)
     c.run()
     assert c.cycle == 4
     _same_fields(a.state.fields, c.state.fields)
@@ -376,53 +394,77 @@ def _jax_run(tmp, **mods):
     return jsim
 
 
-def test_jax_checkpoint_restores_in_port(tmp_path):
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_jax_checkpoint_restores_in_port(precision, tmp_path):
     """The JAX package's checkpoint after 2 cycles, read by the port onto a state
     of the same capacity, is ``bridge.state_from_numpy`` of the JAX state bit for
-    bit: every field, every ledger column, t, cycle, seed and overflow."""
-    jsim = _jax_run(tmp_path / "jax")
-    path = jsim.write_checkpoint()
-    js = jsim.state
-    want = bridge.state_from_numpy(_jax_dict(js, 7))
-    mesh = build_mesh(_tcfg().mesh)
-    got = tio.read_checkpoint(path, tstate.initial_state(mesh, js.particles.capacity, 0))
+    bit: every field, every ledger column, t, cycle, seed and overflow; at f64 a
+    float64 state of the JAX package's float64 run."""
+    prec = {"jaybenne/precision": precision}
+    real = _torch(REALS[precision])
+    try:
+        jsim = _jax_run(tmp_path / "jax", **prec)  # at f64 its driver enables x64
+        path = jsim.write_checkpoint()
+        js = jsim.state
+        want = bridge.state_from_numpy(_jax_dict(js, 7))
+        overflow = int(js.overflow)
+        cap = js.particles.capacity
+        jt = float(js.t)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert want.particles.x.dtype == real
+    mesh = build_mesh(_tcfg(**prec).mesh, real)
+    got = tio.read_checkpoint(path, tstate.initial_state(mesh, cap, 0, real))
     _same_fields(want.fields, got.fields)
     _same_ledger(want.particles, got.particles)
-    assert (got.t, got.cycle, got.seed, got.overflow) == (jsim.t, 2, 7, int(js.overflow))
-    assert np.float32(got.t) == pytest.approx(float(js.t), rel=1e-6)
+    assert (got.t, got.cycle, got.seed, got.overflow) == (jsim.t, 2, 7, overflow)
+    assert np.float32(got.t) == pytest.approx(jt, rel=1e-6)
+    assert got.particles.x.dtype == real
     # and the port resumes from it
-    sim = _sim(tmp_path, restart=path)
+    sim = _sim(tmp_path, restart=path, **prec)
     assert sim.cycle == 2
     sim.run()
     assert sim.cycle == 4 and all(h["unfinished"] == 0 for h in sim.history)
 
 
-def test_port_checkpoint_restores_in_jax(tmp_path):
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_port_checkpoint_restores_in_jax(precision, tmp_path):
     """``jaybenne_tpu.io.read_checkpoint`` reads the port's checkpoint into a state
     equal to the port's; and the port's checkpoint of a bridged JAX state is the
     JAX package's checkpoint of it: the same dataset names, shapes, dtypes,
-    attributes and values."""
-    sim = _sim(tmp_path / "port", **{"parthenon/time/tlim": "2.e-11"})
+    attributes and values; at f64 both packages' float64 states and files."""
+    prec = {"jaybenne/precision": precision}
+    real = REALS[precision]
+    sim = _sim(tmp_path / "port", **{"parthenon/time/tlim": "2.e-11", **prec})
     sim.run()
     path = sim.write_checkpoint()
-    jmesh = jbuild_mesh(_jcfg().mesh)
     p = sim.state.particles
-    js = jio.read_checkpoint(path, jstate.initial_state(jmesh, p.capacity, 0))
-    for f in dataclasses.fields(sim.state.fields):
-        np.testing.assert_array_equal(np.asarray(getattr(js.fields, f.name)),
-                                      getattr(sim.state.fields, f.name).numpy(), f.name)
-    for f in dataclasses.fields(p):
-        np.testing.assert_array_equal(np.asarray(getattr(js.particles, f.name)),
-                                      getattr(p, f.name).numpy(), f.name)
-    assert int(js.cycle) == 2 and int(js.overflow) == sim.state.overflow
-    assert float(js.t) == float(np.float32(sim.t))
-    np.testing.assert_array_equal(np.asarray(js.rng_key), np.asarray(jax.random.PRNGKey(7)))
+    if precision == "f64":
+        jax.config.update("jax_enable_x64", True)
+    try:
+        jmesh = jbuild_mesh(_jcfg(**prec).mesh, dtype=real)
+        js = jio.read_checkpoint(path, jstate.initial_state(jmesh, p.capacity, 0, real))
+        for f in dataclasses.fields(sim.state.fields):
+            got = np.asarray(getattr(js.fields, f.name))
+            assert got.dtype == real, f.name
+            np.testing.assert_array_equal(got, getattr(sim.state.fields, f.name).numpy(), f.name)
+        for f in dataclasses.fields(p):
+            np.testing.assert_array_equal(np.asarray(getattr(js.particles, f.name)),
+                                          getattr(p, f.name).numpy(), f.name)
+        assert int(js.cycle) == 2 and int(js.overflow) == sim.state.overflow
+        assert float(js.t) == float(real.type(sim.t))
+        np.testing.assert_array_equal(np.asarray(js.rng_key),
+                                      np.asarray(jax.random.PRNGKey(7)))
 
-    jsim = _jax_run(tmp_path / "jax")
-    jpath = jsim.write_checkpoint(str(tmp_path / "jax.rhdf"))
-    bridged = bridge.state_from_numpy(_jax_dict(jsim.state, 7))
+        jsim = _jax_run(tmp_path / "jax", **prec)
+        jpath = jsim.write_checkpoint(str(tmp_path / "jax.rhdf"))
+        bridged = bridge.state_from_numpy(_jax_dict(jsim.state, 7))
+        jt, jcycle = jsim.t, jsim.cycle
+    finally:
+        jax.config.update("jax_enable_x64", False)
     tpath = str(tmp_path / "port.rhdf")
-    tio.write_checkpoint(tpath, bridged, build_mesh(_tcfg().mesh), t=jsim.t, cycle=jsim.cycle)
+    tio.write_checkpoint(tpath, bridged, build_mesh(_tcfg(**prec).mesh, _torch(real)), t=jt,
+                         cycle=jcycle)
     _same_layout(_h5_layout(jpath), _h5_layout(tpath))
 
 

@@ -174,13 +174,22 @@ def test_fleck_and_coefs_match_jax(deck, opacity):
 def test_unported_configurations_raise(mods, where, tmp_path):
     """Every configuration outside the port raises and names its ROADMAP item; none
     falls back to another path. Under either decomposition too. Item 16's
-    configurations (checkpoint outputs, debug_checks) are ported: they build, and
-    keep what the deck asked for."""
+    configurations (checkpoint outputs, debug_checks) and item 7's (precision =
+    f64) are ported: they build and initialise, keep what the deck asked for, and
+    item 7's hold float64 state, every field and ledger float column."""
     _, tcfg = _configs(mods)
-    if where == "item 16":
+    if where in ("item 16", "item 7"):
         sim = Simulation(tcfg, outdir=str(tmp_path), quiet=True, device="cpu")
         assert int(sim.state.particles.alive.sum()) > 0
         assert sim.cfg.jaybenne.debug_checks == (mods.get("jaybenne/debug_checks") == "true")
+        if where == "item 7":
+            states = getattr(sim, "shards", None) or [sim.state]
+            for st in states:
+                for obj in (st.fields, st.particles):
+                    for f in dataclasses.fields(obj):
+                        t = getattr(obj, f.name)
+                        assert not t.is_floating_point() or t.dtype == torch.float64, f.name
+            assert sim.mesh.block_dx.dtype == torch.float64
         return
     with pytest.raises(NotImplementedError, match="ROADMAP .*" + re.escape(where)):
         Simulation(tcfg, outdir=str(tmp_path), quiet=True, device="cpu")

@@ -283,7 +283,7 @@ def test_plain_census_on_forests_is_unchanged(name, monkeypatch):
     coefs = _gray_coefs(mesh, np.random.default_rng(9))
     p0 = forest_ledger(mesh, 3000, torch.Generator().manual_seed(9), 2.99792458e10)
     a, it_a, ev_a = tk.transport_plain(p0.clone(), coefs, mesh, 77, prm, cfg.jaybenne.dt)
-    monkeypatch.setattr(tk, "forest_tables", lambda m, dev: tuple(
+    monkeypatch.setattr(tk, "forest_tables", lambda m, dev, dtype=torch.float32: tuple(
         torch.from_numpy(t) for t in _set_up_tables(m)))
     b, it_b, ev_b = tk.transport_plain(p0.clone(), coefs, mesh, 77, prm, cfg.jaybenne.dt)
     for f in dataclasses.fields(a):
