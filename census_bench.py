@@ -150,9 +150,9 @@ def record(path) -> None:
                 ("transport_1d_abs_ng", cs.DECK, cs.NG_GATE, 1),
                 ("transport_3d_abs_ng", cs.DECK, cs.NG_BIG, cs.FEEDBACK_STEPS),
                 ("transport_2d_abs_smr_ng", cs.SMR_DECK, cs.NG_SMR, 1)):
-            with cs.CensusRecorder(tk, steps) as rec:
+            with cs.CensusRecorder(tk, steps) as rec:  # recorded: the eager step
                 run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
-                         device="cuda")
+                         device="cuda", graph=False)
             p, args = rec.inputs
             routes[name] = (p, 1, args)
     for ndim, absorb, seed in ((2, False, 1102), (2, True, 1112), (3, True, 1113)):

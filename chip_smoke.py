@@ -34,8 +34,9 @@ Phases:
      tolerances;
   5. main path: stepdiff at 128 cells, 100k particles, 10 steps through the kernel
      (launch count 10), weighted-mean erf error <= 0.05, radiation energy conserved
-     to 1e-5; event total, wall time per step and events/s; one step of the plain
-     version (use_pallas = off) for comparison; the kernel and its plain version
+     to 1e-5; event total, wall time per step and events/s; two steps of the
+     plain version (use_pallas = off) for comparison, eager (no graph) and with
+     no census launch; the kernel and its plain version
      timed on the main path's own ledger; the event loop's reading (registers,
      spills, common path, slot-order warp efficiency and issue share) there; its
      warp path mix (``path_mix_line``: the counting variant on the same ledger,
@@ -241,7 +242,34 @@ Phases:
  44. the float64 census against the float32 one on the same inputs, in turns,
      median of 5 with its range, on stepdiff's, the 2D feedback path's and the
      64^3 feedback row's last census; the float64 bound (8-byte floats over 3.35
-     TB/s, operations from the float64 probes' SASS over 34 TFLOP/s FP64).
+     TB/s, operations from the float64 probes' SASS over 34 TFLOP/s FP64);
+ 45. the step without the host: a CUDA graph's replay after manual_seed draws
+     what the eager draw does (``CUDAGraph.register_generator_state``); each of
+     ``GRAPH_PATHS`` (stepdiff, stepdiff_ddmc, the 64^3 DDMC and feedback rows,
+     stepdiff_smr, stepdiff with ep_bremss, stepdiff at precision = f64, and a 2D
+     feedback path whose ledger grows mid-run, so that it is captured again) run
+     step by step with the eager step and with the graph (``run_file(...,
+     graph=False)`` and as the driver runs it), every field, ledger column,
+     counter, ``overflow`` and the launches bitwise equal after every step, then
+     one more replay under ``torch.cuda.set_sync_debug_mode("error")``; the
+     insert kernel (csrc/insert_kernel.cu) bitwise its plain version and the
+     boolean-mask insert on the 64^3 feedback row, timed beside its bound (its
+     launches are phase 9's: the initial radiation's births and one a step), and
+     bitwise its plain version on the writes the main paths make
+     (``insert_paths_check``: stepdiff's initial source, a grid with broadcast
+     columns; the 8-shard spatial step's migration arrivals, with ``reserved``;
+     stepdiff's initial source at precision = f64); the
+     8-shard big_mesh_spatial step under the same mode but for each round's exit
+     read (counted: one a round) and the step's packed read; the host's
+     synchronisations a step (``profile.host_syncs``) on stepdiff, the 64^3
+     feedback row, Su-Olson (an external source: the eager step) and the 8-shard
+     spatial row; the step wall times, eager against graph replays, of stepdiff,
+     the 64^3 DDMC and feedback rows and stepdiff_smr, and the spatial row's.
+
+The recorded runs of phases 12-14, 16-21 and 23-25 and of ``census_bench.py``
+run the eager step (``graph=False``): a CUDA graph's replay calls no Python, so
+``CensusRecorder`` could not see its census; each of those phases' reruns runs
+as the driver runs it, a graph on one device, and is held bitwise to it.
 
 Phase 21 also prints the slot order's warp efficiency of the native hybrid's last
 census (``transport_kernel.warp_efficiency`` of the plain version's per-slot
@@ -287,6 +315,7 @@ GATE = {
     "parthenon/output0/file_type": "none",
 }
 N_STEPS = 10
+PLAIN_STEPS = 2  # phase 5: steps of the plain version (use_pallas = off)
 WERR_TOL = 0.05
 ENERGY_RTOL = 1e-5
 # kernel vs plain after 8 iterations: both run the same IEEE float32 operations
@@ -497,6 +526,27 @@ HISTORY_KEYS = ["cycles", "problem_id", "total_events", "walltime_s"]
 HISTORY_CYCLE_KEYS = ["alive", "cycle", "dropped", "dt", "events", "iterations",
                       "migrated", "migration_rounds", "time", "unfinished"]
 PROFILE_STEPS = 3  # phase 40
+# phase 45: the paths run with the eager step and with the CUDA graph, step by
+# step, every state bitwise; (what, deck, overrides, steps)
+GRAPH_PATHS = (
+    ("stepdiff", DECK, GATE, N_STEPS),
+    ("stepdiff_ddmc", DDMC_DECK, DDMC_GATE, PATH_STEPS),
+    ("the 64^3 DDMC row", DECK, BIG_DDMC, PATH_STEPS),
+    ("the 64^3 feedback row", DECK, FEEDBACK, 5),
+    ("stepdiff_smr", SMR_DECK, SMR_GATE, PATH_STEPS),
+    ("stepdiff with ep_bremss", DECK, {**NG_GATE, "parthenon/time/tlim": "3.e-12"}, 3),
+    ("stepdiff at precision = f64", DECK, {**GATE, "jaybenne/precision": "f64"}, N_STEPS),
+    # births outrun absorption (a thin opacity), so the ledger grows mid-run
+    ("the 2D feedback path with a growing ledger", DECK,
+     {**FEEDBACK_2D, "jaybenne/num_particles": 20000, "jaybenne/capacity_factor": 1,
+      "mcblock/opacity_constant_value": 1e-3}, 8),
+)
+# the rows whose step wall times phase 45 prints, eager against graph
+GRAPH_TIMED = ("stepdiff", "the 64^3 DDMC row", "the 64^3 feedback row", "stepdiff_smr")
+# the 8-shard spatial step's host synchronisations before this port's step ran
+# without them (profile.py, one H100): a step, a migration round
+SPATIAL_SYNCS_BEFORE = (12254, 161)
+SYNC_STEPS = 3  # phase 45: steps counted by profile.host_syncs
 PROFILE_TOL = 0.1  # tst/stepdiff_smr2.py's tolerance for the x-profile gate
 PROFILE_BINS = 64
 # the step-diffusion solution of tst/stepdiff_common.py, copied: diffusion time
@@ -1779,8 +1829,10 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
              energy_rtol=ENERGY_RTOL):
     """A deck through ``driver.run_file`` on the GPU for ``steps`` steps: the
     radiation energy before the first step; the run, with the launch counts set
-    to 0 just before it and read just after; its peak device memory; the inputs
-    of its last census; a rerun with the same seed. Raises unless ``launch`` ran
+    to 0 just before it and read just after, the eager step (``graph=False``) so
+    that the inputs of its last census are recorded; its peak device memory; a
+    rerun with the same seed, as the driver runs it (a CUDA graph on one device
+    without an external source). Raises unless ``launch`` ran
     ``per_step`` times a step (once, or once a shard), every census completed
     short of the iteration cap, nothing was dropped, sum(tally dV) was conserved
     to ``energy_rtol`` (a number, or a function of the run; unless not
@@ -1801,7 +1853,7 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
         with CensusRecorder(transport_kernel, steps) as rec:
             cuda_lib.LAUNCHES.clear()
             sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
-                           nlim=steps, device="cuda")
+                           nlim=steps, device="cuda", graph=False)
             launches = dict(cuda_lib.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         again = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
@@ -1830,7 +1882,8 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
           f"{sorted(set(sim.mesh.block_level.tolist()))}), {sim.mesh.total_cells} cells, "
           f"lane split {lane_split(sim)}: {launches.get(launch, 0)} launches of {launch}, "
           f"events {sim.total_events}, radiation energy {e0!r} -> {e1!r}, iterations "
-          f"{[h['iterations'] for h in sim.history]}, rerun bitwise identical", flush=True)
+          f"{[h['iterations'] for h in sim.history]}; the recorded run eager, its rerun "
+          f"({'a CUDA graph' if again.graphed else 'eager'}) bitwise identical", flush=True)
     print(f"{what}: step seconds {step_s}; median {statistics.median(step_s) * 1e3!r} ms; "
           f"{sim.total_events / sum(step_s)!r} events/s; peak device memory {peak} bytes",
           flush=True)
@@ -1875,7 +1928,12 @@ def path_kernel(transport_kernel, dev, sim, inputs, name, cost):
 class CensusRecorder:
     """While active, wraps ``transport_kernel.transport`` so that the steps built
     meanwhile call it through the wrapper, and keeps a copy of the inputs of its
-    ``keep``-th call (the ledger cloned before the census changes it)."""
+    ``keep``-th call (the ledger cloned before the census changes it; the seed as
+    a host int, where the step passes a view of its device seed buffer, which a
+    later step rewrites). A CUDA graph's replay calls no Python, and its capture
+    holds no values yet, so the recorded run must run the eager step
+    (``run_file(..., graph=False)``): a call made while a graph is being captured
+    raises."""
 
     def __init__(self, transport_kernel, keep):
         self.tk, self.keep, self.calls, self.inputs = transport_kernel, keep, 0, None
@@ -1889,9 +1947,14 @@ class CensusRecorder:
         self.tk.transport = self.real
 
     def _census(self, particles, *args):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("CensusRecorder: a recorded run must run the eager step")
         self.calls += 1
         if self.calls == self.keep:
-            self.inputs = (particles.clone(), args)
+            coefs, mesh, seed, *rest = args
+            if isinstance(seed, torch.Tensor):
+                seed = int(seed.item())
+            self.inputs = (particles.clone(), (coefs, mesh, seed, *rest))
         return self.real(particles, *args)
 
 
@@ -3055,8 +3118,10 @@ F64_SRC = "jaybenne_tpu_torch/csrc/transport_kernel_f64.cu"
 
 
 def only_f64(launches, what):
-    """Raises unless a float64 run launched float64 kernels alone."""
-    other = [k for k, n in launches.items() if n and not k.split("@")[0].endswith("_f64")]
+    """Raises unless a float64 run launched float64 kernels alone (the insert
+    kernel, ``ledger_insert``, copies the bytes of a column of either width)."""
+    other = [k for k, n in launches.items()
+             if n and k != "ledger_insert" and not k.split("@")[0].endswith("_f64")]
     if other:
         raise AssertionError(f"{what}: the float64 run launched {other}: {launches}")
 
@@ -3233,6 +3298,372 @@ def f64_phases(transport_kernel, dev, cost, cost64, routes) -> list:
     return rows
 
 
+def bitwise_equal(a, b) -> bool:
+    """Whether two tensors hold the same bits (a float by its integer view, so
+    that -0.0 and 0.0 differ and a NaN equals itself)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int64 if a.element_size() == 8 else torch.int32
+        return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def same_states(a, b, what):
+    """Raises unless two simulations stand at the same step with every field, every
+    ledger column and ``overflow`` bitwise equal and the same history but for the
+    wall time."""
+    from jaybenne_tpu_torch.graph import state_tensors
+
+    sa, sb = a.state, b.state
+    if (a.t, a.cycle) != (b.t, b.cycle):
+        raise AssertionError(f"{what}: clocks {(a.t, a.cycle)} and {(b.t, b.cycle)}")
+    for x, y in zip(state_tensors(sa), state_tensors(sb)):
+        if not bitwise_equal(x, y):
+            raise AssertionError(f"{what}: a tensor of the state differs at cycle {a.cycle}")
+    strip = [[{k: v for k, v in h.items() if k != "step_seconds"} for h in s.history]
+             for s in (a, b)]
+    if strip[0] != strip[1]:
+        raise AssertionError(f"{what}: histories differ: {strip}")
+
+
+def mask_insert(ledger, cand, valid, reserved=None):
+    """The boolean-mask insert the port ran before its static-shape one (the
+    destinations ``order[rank[ok]]``, each column written through a mask), kept
+    here to time and check the static one against."""
+    cap = ledger.capacity
+    vflat = valid.reshape(-1)
+    rank = torch.cumsum(vflat.to(torch.int64), 0) - 1
+    occupied = ledger.alive if reserved is None else ledger.alive | reserved
+    order = torch.argsort(occupied.to(torch.uint8), stable=True)
+    ok = vflat & (rank < cap - occupied.sum())
+    dest = order[rank[ok]]
+    for name, val in cand.items():
+        arr = getattr(ledger, name)
+        arr[dest] = val.reshape(-1)[ok].to(arr.dtype)
+    ledger.alive[dest] = True
+    ledger.absorbed[dest] = False
+    ledger.face[dest] = 0
+    ledger.leak[dest] = 0
+    return ledger, vflat.sum() - ok.sum()
+
+
+def insert_check(dev, sim, smi) -> dict:
+    """The insert kernel (csrc/insert_kernel.cu) on the 64^3 feedback row's ledger
+    with the candidate grid its emission makes (one candidate a cell, 0.76 of
+    them valid; the per-cell columns broadcast along the candidate axis, as
+    ``sourcing.births`` makes them): the writes alone by the kernel and by its
+    plain version, the whole insert and the boolean-mask insert the port ran
+    before, all bitwise equal, each timed (CUDA events after a device sleep,
+    median of CENSUS_REPEATS); the kernel beside its bound (each candidate's destination
+    and values read once, each written slot's 17 columns written once). Returns
+    its ``kernels`` entry, the launches left to the caller."""
+    from jaybenne_tpu_torch.particles import (insert_destinations, insert_particles,
+                                              write_columns)
+
+    p0 = sim.state.particles.clone()
+    gen = torch.Generator(device=dev).manual_seed(45)
+    n = sim.mesh.total_cells
+    shape = (n, 1)
+    valid = torch.rand(shape, generator=gen, device=dev) < 0.76
+    floats = ("x", "y", "z", "vx", "vy", "vz", "tau", "energy")
+    cand = {k: torch.rand(shape, generator=gen, device=dev) for k in floats}
+    cand["weight"] = torch.rand((n, 1), generator=gen, device=dev).expand(shape)
+    cand.update({k: torch.randint(0, 8, (n, 1), generator=gen, device=dev,
+                                  dtype=torch.int32).expand(shape)
+                 for k in ("block", "i", "j", "k")})
+    dest, n_drop = insert_destinations(p0, valid)
+    runs = {  # (what a run returns as its drops, the call)
+        "kernel": lambda q: (n_drop, write_columns(q, cand, dest, shape)),
+        "plain": lambda q: (n_drop, write_columns(q, cand, dest, shape, plain=True)),
+        "insert": lambda q: insert_particles(q, cand, valid)[::-1],
+        "mask": lambda q: mask_insert(q, cand, valid)[::-1]}
+    out = {}
+    for name, fn in runs.items():
+        fn(p0.clone())
+        times = []
+        for _ in range(CENSUS_REPEATS):
+            q = p0.clone()
+            torch.cuda.synchronize(dev)
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(50_000_000)  # the host queues the call meanwhile
+            start.record()
+            dropped, _ = fn(q)
+            stop.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(stop))
+        out[name] = (q, int(dropped), statistics.median(times))
+    for name in ("plain", "insert", "mask"):
+        for f in dataclasses.fields(p0):
+            if not bitwise_equal(getattr(out["kernel"][0], f.name), getattr(out[name][0], f.name)):
+                raise AssertionError(f"insert kernel: column {f.name} differs from the {name} "
+                                     "run's")
+        if out[name][1] != out["kernel"][1]:
+            raise AssertionError(f"insert kernel: dropped {out['kernel'][1]} vs {out[name][1]}")
+    n_ok = int(valid.sum()) - out["kernel"][1]
+    col_bytes = sum(getattr(p0, f.name).element_size() for f in dataclasses.fields(p0))
+    read = n * 8 + sum(v.numel() * v.element_size() for v in cand.values())
+    bound = (read + n_ok * col_bytes) / PEAK_BYTES * 1e3
+    ms, plain_ms, insert_ms, mask_ms = (out[k][2] for k in ("kernel", "plain", "insert", "mask"))
+    print(f"insert at the 64^3 feedback row ({p0.capacity} slots, {n} candidates, "
+          f"{int(valid.sum())} valid, {len(cand)} candidate columns and 4 fills; {smi}): "
+          f"the writes: kernel {ms!r} ms, plain version {plain_ms!r} ms, bound {bound!r} ms "
+          f"(bytes), kernel at {bound / ms:.3f} of it; the whole insert (ranks, the stable "
+          f"free-first order, the writes) {insert_ms!r} ms, the boolean-mask insert "
+          f"{mask_ms!r} ms (it waits for the device at each column); every column bitwise "
+          "equal", flush=True)
+    return {
+        "name": "ledger_insert (the ledger insert's writes, every column in one pass)",
+        "route": "cuda", "source": "jaybenne_tpu_torch/csrc/insert_kernel.cu",
+        "replaces": "jaybenne_tpu/particles.py:110-125 (insert_particles: XLA scatters with "
+                    "mode='drop', no Pallas kernel)",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": None,
+    }
+
+
+def kept(v):
+    """A copy of the candidate ``v`` with its strides: a dimension it broadcasts
+    (stride 0) stays a broadcast, a strided view keeps its stride."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    base = v[tuple(slice(None) if st else slice(0, 1) for st in v.stride())]
+    out = torch.empty_strided(base.shape, base.stride(), dtype=v.dtype, device=v.device)
+    out.copy_(base)
+    return out.expand(v.shape)
+
+
+def recorded_inserts(run, want, keep):
+    """The first ``keep`` calls of ``particles.write_columns`` that ``run()`` makes
+    whose candidates ``want(cand)`` takes: each (a clone of the ledger before the
+    call, the candidates with their strides, the destinations, the shape)."""
+    from jaybenne_tpu_torch import particles
+
+    calls, real = [], particles.write_columns
+
+    def recording(ledger, cand, dest, shape, plain=False):
+        if len(calls) < keep and want(cand):
+            calls.append((ledger.clone(), {k: kept(v) for k, v in cand.items()},
+                          dest.clone(), tuple(shape)))
+        return real(ledger, cand, dest, shape, plain)
+
+    particles.write_columns = recording
+    try:
+        run()
+    finally:
+        particles.write_columns = real
+    return calls
+
+
+def inserts_bitwise(calls, what) -> str:
+    """Each recorded insert (``recorded_inserts``) by the kernel and by its plain
+    version on clones of its ledger: raises unless every column is bitwise equal
+    and the kernel launched once a call. Returns what was held, as text."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.particles import write_columns
+
+    if not calls:
+        raise AssertionError(f"insert on {what}: no call recorded")
+    seen = []
+    for ledger, cand, dest, shape in calls:
+        q, r = ledger.clone(), ledger.clone()
+        before = cuda_lib.LAUNCHES["ledger_insert"]
+        write_columns(q, cand, dest, shape)
+        if cuda_lib.LAUNCHES["ledger_insert"] != before + 1:
+            raise AssertionError(f"insert on {what}: the kernel did not launch")
+        write_columns(r, cand, dest, shape, plain=True)
+        for f in dataclasses.fields(q):
+            if not bitwise_equal(getattr(q, f.name), getattr(r, f.name)):
+                raise AssertionError(f"insert on {what}: column {f.name} differs from the "
+                                     "plain version's")
+        written = int((dest < ledger.capacity).sum())
+        if written == 0:
+            raise AssertionError(f"insert on {what}: no candidate written")
+        strides = sorted({tuple(v.stride()) for v in cand.values()})
+        seen.append(f"shape {shape}, {written} written of {dest.numel()}, "
+                    f"{q.x.dtype}, candidate strides {strides}")
+    return f"{what}: " + "; ".join(seen)
+
+
+def insert_paths_check(dev, outdir) -> None:
+    """The insert kernel bitwise its plain version at the shapes the main paths
+    give it: stepdiff's initial thermal source (a [blocks x cells, candidates a
+    cell] grid whose per-cell columns are broadcast with stride 0), the first
+    migration arrivals of the 8-shard spatial step (inserted with ``reserved``,
+    carrying face and leak), and stepdiff's initial source at precision = f64
+    (8-byte columns)."""
+    from jaybenne_tpu_torch import driver
+
+    def run(mods, nlim):
+        return lambda: driver.run_file(DECK, outdir=outdir, modified_inputs=mods, quiet=True,
+                                       nlim=nlim, device="cuda", graph=False)
+
+    checks = (
+        ("stepdiff's initial source", run(GATE, 0), lambda c: True, 1),
+        ("the 8-shard spatial step's migration arrivals",
+         run({**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}, 1), lambda c: "face" in c, 8),
+        ("stepdiff's initial source at precision = f64", run({**GATE, **PREC64}, 0),
+         lambda c: True, 1),
+    )
+    for what, fn, want, keep in checks:
+        print("insert kernel bitwise its plain version, " + inserts_bitwise(
+            recorded_inserts(fn, want, keep), what), flush=True)
+        torch.cuda.empty_cache()
+
+
+def graph_phase(dev, smi) -> dict:
+    """Phase 45: the step without the host. Returns the insert kernel's ``kernels``
+    entry (``insert_check``)."""
+    from jaybenne_tpu_torch import driver
+    from jaybenne_tpu_torch import profile as profile_mod
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.parallel import spatial as spatial_mod
+    from jaybenne_tpu_torch.step import STAT_NAMES
+
+    phase("45 the step without the host: each path with the eager step and with the CUDA "
+          "graph, bitwise after every step; a replay and the spatial step under "
+          "set_sync_debug_mode('error'); host synchronisations and step wall times")
+    # a registered generator: a replay after manual_seed draws what the eager
+    # draw after the same manual_seed does
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        raise AssertionError(f"torch {torch.__version__}: no CUDAGraph.register_generator_state")
+    gen = torch.Generator(device=dev)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    gen.manual_seed(1)
+    with torch.cuda.graph(graph):
+        drawn = torch.rand(1 << 16, generator=gen, device=dev)
+    for seed in (12345, 67890):
+        gen.manual_seed(seed)
+        graph.replay()
+        gen.manual_seed(seed)
+        if not bitwise_equal(drawn, torch.rand(1 << 16, generator=gen, device=dev)):
+            raise AssertionError(f"a replay after manual_seed({seed}) draws other numbers")
+    del graph
+    print(f"torch {torch.__version__}: CUDAGraph.register_generator_state; a replay after "
+          "manual_seed draws bitwise what the eager draw does", flush=True)
+    walls = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for what, deck, mods, steps in GRAPH_PATHS:
+            sims = [driver.run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
+                                    nlim=0, device="cuda", graph=g) for g in (False, True)]
+            eager, graph = sims
+            if eager.graphed or not graph.graphed:
+                raise AssertionError(f"{what}: graph {eager.graphed}, {graph.graphed}")
+            kinds, caps = [], []
+            for _ in range(steps):
+                launches = []
+                for sim in sims:
+                    cuda_lib.LAUNCHES.clear()
+                    before = sim.step_fn.captures if sim.graphed else 0
+                    sim.run(nlim=1)
+                    launches.append(dict(cuda_lib.LAUNCHES))
+                kinds.append("eager" if len(graph.history) == 1 else
+                             "capture" if graph.step_fn.captures > before else "replay")
+                caps.append(graph.state.particles.capacity)
+                if launches[0] != launches[1]:
+                    raise AssertionError(f"{what}: launches {launches} at cycle {graph.cycle}")
+                same_states(eager, graph, what)
+            if kinds.count("replay") < 1:
+                raise AssertionError(f"{what}: no replay in {kinds}")
+            grown = [k for k in range(1, steps) if caps[k] != caps[k - 1]]
+            if "growing" in what and not any(kinds[k] == "capture" and k >= 2 for k in grown):
+                raise AssertionError(f"{what}: no capture after the ledger grew: {kinds}, {caps}")
+            # one more replay, with every synchronisation an error
+            st, dt = graph.state, graph.history[-1]["dt"]  # its graph holds these tensors
+            captures = graph.step_fn.captures
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                graph._state, _ = graph.step_fn(st, dt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if graph.step_fn.captures != captures:
+                raise AssertionError(f"{what}: the last step captured, it did not replay")
+            ew = [h["step_seconds"] for h in eager.history[1:]]
+            gw = [h["step_seconds"] for h, k in zip(graph.history, kinds) if k == "replay"]
+            walls[what] = (ew, gw)
+            print(f"{what}: {steps} steps eager and graph, every field, ledger column, "
+                  f"counter and overflow bitwise equal after every step, launches equal "
+                  f"({launches[1]} in the last step); steps {kinds}, {graph.step_fn.captures} "
+                  f"captures, capacities {caps}; a replay under set_sync_debug_mode('error') "
+                  f"ran", flush=True)
+            if what == "the 64^3 feedback row":
+                insert = insert_check(dev, graph, smi)
+                insert_paths_check(dev, outdir)
+            del sims, eager, graph
+            torch.cuda.empty_cache()
+
+        # the 8-shard spatial step: only each round's exit read and the step's
+        # packed read may synchronise
+        mods = {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}
+        sim = driver.run_file(DECK, outdir=outdir, modified_inputs=mods, quiet=True, nlim=1,
+                              device="cuda")
+        reads, rounds = [0], 0
+        real = spatial_mod._exit_read
+
+        def counted(t):
+            reads[0] += 1
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return real(t)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        spatial_mod._exit_read = counted
+        dt = sim.cfg.jaybenne.dt
+        try:
+            for _ in range(BIG_SPATIAL_STEPS):
+                torch.cuda.set_sync_debug_mode("error")
+                sim.shards, stats = sim.step_fn(sim.shards, dt)
+                torch.cuda.set_sync_debug_mode("default")
+                rounds += dict(zip(STAT_NAMES, stats.packed.tolist()))["migration_rounds"]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            spatial_mod._exit_read = real
+        if reads[0] != rounds:
+            raise AssertionError(f"spatial: {reads[0]} exit reads for {rounds} rounds")
+        print(f"big_mesh_spatial at 8 shards, {BIG_SPATIAL_STEPS} steps under "
+              f"set_sync_debug_mode('error'): {rounds} rounds, {reads[0]} exit reads (one a "
+              f"round), and one packed read a step", flush=True)
+        del sim
+
+        # host synchronisations a step, as profile.py counts them (the driver's one
+        # synchronisation a step among them)
+        for what, deck, mods in (("stepdiff", DECK, GATE), ("the 64^3 feedback row", DECK,
+                                                            FEEDBACK),
+                                 ("Su-Olson (eager: an external source)", SUOLSON_DECK,
+                                  SUOLSON),
+                                 ("big_mesh_spatial at 8 shards", DECK,
+                                  {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8})):
+            sim = driver.run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
+                                  nlim=2, device="cuda")
+            n0 = len(sim.history)
+            syncs = profile_mod.host_syncs(sim, SYNC_STEPS)
+            hist = sim.history[n0:]
+            rounds = sum(h["migration_rounds"] for h in hist)
+            per_round = f", {syncs / rounds!r} a round ({rounds} rounds)" if rounds else ""
+            if sim.exchange is not None:  # timed on steps of their own, not under "warn"
+                n1 = len(sim.history)
+                sim.run(nlim=SYNC_STEPS)
+                walls[what] = ([], [h["step_seconds"] for h in sim.history[n1:]])
+            print(f"host synchronisations, {what} ({'a CUDA graph' if sim.graphed else 'eager'}"
+                  f"): {syncs / len(hist)!r} a step{per_round} over {len(hist)} steps; "
+                  f"before, the 8-shard spatial step made {SPATIAL_SYNCS_BEFORE[0]} a step, "
+                  f"{SPATIAL_SYNCS_BEFORE[1]} a round", flush=True)
+            del sim
+    for what in GRAPH_TIMED + ("big_mesh_spatial at 8 shards",):
+        ew, gw = walls[what]
+        line = f"step wall ms, {what} ({smi}): "
+        for name, w in (("eager", ew), ("graph replay" if what in GRAPH_TIMED else "eager "
+                                                                                   "spatial", gw)):
+            if w:
+                ms = [v * 1e3 for v in w]
+                line += (f"{name} median {statistics.median(ms)!r} range [{min(ms)!r}, "
+                         f"{max(ms)!r}] over {len(ms)}; ")
+        print(line, flush=True)
+    return insert
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
@@ -3365,13 +3796,22 @@ def main() -> int:
                        device="cuda")
         launches = dict(cuda_lib.LAUNCHES)
         note_table("stepdiff", launches)
+        cuda_lib.LAUNCHES.clear()
         plain = run_file(DECK, outdir=outdir,
                          modified_inputs={**GATE, "jaybenne/use_pallas": "off"},
-                         quiet=True, nlim=1, device="cuda")
+                         quiet=True, nlim=PLAIN_STEPS, device="cuda")
+        plain_launches = dict(cuda_lib.LAUNCHES)
         again = run_file(DECK, outdir=outdir, modified_inputs=GATE, quiet=True,
                          device="cuda")
     if launches.get("transport_1d", 0) != N_STEPS or sim.cycle != N_STEPS:
         raise AssertionError(f"main path: launches {launches}, cycles {sim.cycle}")
+    # use_pallas = off runs eagerly on the card (its census reads its exit test),
+    # past the step a graph would capture, with no census launch
+    plain_tally = plain.state.fields.energy_tally
+    if (plain.graphed or plain.cycle != PLAIN_STEPS or plain_launches.get("transport_1d", 0)
+            or not bool(torch.isfinite(plain_tally).all())):
+        raise AssertionError(f"plain version: graph {plain.graphed}, cycles {plain.cycle}, "
+                             f"launches {plain_launches}")
     werr = weighted_erf_error(sim)
     e10 = radiation_energy(sim)
     tally = sim.state.fields.energy_tally
@@ -3384,13 +3824,14 @@ def main() -> int:
     step_s = [h["step_seconds"] for h in sim.history]
     events = sim.total_events
     rate = events / sum(step_s)
-    plain_step_s = plain.history[0]["step_seconds"]
+    plain_step_s = plain.history[-1]["step_seconds"]
     print(f"werr {werr!r} (tol {WERR_TOL}); energy step 0 {e0!r} step 10 {e10!r} "
           f"rel {abs(e10 - e0) / e0:.3e}", flush=True)
     print(f"events {events} (int64); step seconds {step_s}; "
           f"median {statistics.median(step_s) * 1e3!r} ms; {rate!r} events/s", flush=True)
-    print(f"plain version, one step on the GPU: {plain_step_s * 1e3!r} ms "
-          f"({plain.history[0]['events']} events)", flush=True)
+    print(f"plain version (use_pallas = off, eager), {PLAIN_STEPS} steps on the GPU, no "
+          f"census launch; its last step {plain_step_s * 1e3!r} ms "
+          f"({plain.history[-1]['events']} events)", flush=True)
 
     # the kernel and its plain version on the main path's own ledger (tau = 0 after
     # the last step), same inputs, timed with CUDA events
@@ -3554,6 +3995,9 @@ def main() -> int:
     fb_events = fb.total_events
     if fb_launches.get(name3, 0) != FEEDBACK_STEPS or fb.cycle != FEEDBACK_STEPS:
         raise AssertionError(f"feedback: launches {fb_launches}, cycles {fb.cycle}")
+    # the insert kernel: the initial radiation's births and each step's emission
+    if fb_launches.get("ledger_insert", 0) != FEEDBACK_STEPS + 1:
+        raise AssertionError(f"feedback: ledger_insert launches {fb_launches}")
     if any(h["dropped"] or h["unfinished"] for h in fb.history) or fb.state.overflow:
         raise AssertionError(f"feedback: dropped or unfinished {fb.history}")
     if not bool(torch.isfinite(fb.state.fields.u).all()) or cons > FEEDBACK_ENERGY_TOL:
@@ -3562,7 +4006,8 @@ def main() -> int:
         raise AssertionError(f"feedback: events {fb_events} vs JAX {FEEDBACK_JAX_EVENTS}")
     fb_step_s = [h["step_seconds"] for h in fb.history]
     print(f"feedback: energy conservation {cons!r} of the radiation energy {er_0!r} "
-          f"(tol {FEEDBACK_ENERGY_TOL}); {fb_launches.get(name3, 0)} launches of {name3}; "
+          f"(tol {FEEDBACK_ENERGY_TOL}); {fb_launches.get(name3, 0)} launches of {name3}, "
+          f"{fb_launches.get('ledger_insert', 0)} of ledger_insert; "
           f"dropped 0, unfinished 0; alive {[h['alive'] for h in fb.history]}", flush=True)
     print(f"feedback: events {fb_events} (JAX package {FEEDBACK_JAX_EVENTS}, "
           f"{fb_events / FEEDBACK_JAX_EVENTS - 1.0:+.4f}); step seconds {fb_step_s}; "
@@ -3626,7 +4071,7 @@ def main() -> int:
         with CensusRecorder(transport_kernel, STIFF_STEPS) as rec_st:
             cuda_lib.LAUNCHES.clear()
             stiff = run_file(STIFF_DECK, outdir=outdir, modified_inputs=STIFF, quiet=True,
-                             device="cuda")
+                             device="cuda", graph=False)  # recorded: the eager step
             stiff_launches = dict(cuda_lib.LAUNCHES)
             note_table("inf_stiff", stiff_launches)
     if stiff_launches.get(name_dd1a, 0) != STIFF_STEPS or stiff.cycle != STIFF_STEPS:
@@ -3701,6 +4146,12 @@ def main() -> int:
         (("stepdiff (transport_1d)", (pm, args)), ("the 2D feedback path (transport_2d_abs)", in2),
          ("the 64^3 feedback row (transport_3d_abs)", fb_in)))
 
+    insert_kernel = graph_phase(dev, smi)
+    insert_kernel["launches"] = fb_launches.get("ledger_insert", 0)
+    insert_kernel["launches_by_path"] = [["inf", inf_launches.get("ledger_insert", 0)],
+                                         ["2D feedback", launches_2d.get("ledger_insert", 0)],
+                                         ["big_mesh_feedback", insert_kernel["launches"]]]
+
     if "jax" in sys.modules or any(m.startswith("jaybenne_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     kernels = [
@@ -3765,7 +4216,7 @@ def main() -> int:
     # ``launches`` is phase 14's; beside it every counted path's
     table_kernel["launches_by_path"] = [[what, n] for what, n in TABLE_PATHS]
     print(f"census_table launches by path: {TABLE_PATHS}", flush=True)
-    kernels += [table_kernel] + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels
+    kernels += [table_kernel, insert_kernel] + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

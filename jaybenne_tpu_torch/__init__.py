@@ -2,8 +2,9 @@
 
 Implicit Monte Carlo thermal photon transport on one NVIDIA GPU. The module layout
 mirrors the JAX package (``jaybenne_tpu``), which stays the reference: every module
-here has a counterpart of the same name there, and ``bridge.py`` moves states
-between the two for the tests.
+here has a counterpart of the same name there but ``graph.py`` (the step as a CUDA
+graph, where the JAX package jits it) and ``utils/device.py`` (constants made once
+on the device), and ``bridge.py`` moves states between the two for the tests.
 
 This package imports ``torch`` and never ``jax``. The census kernel is hand-written
 CUDA C++ (``csrc/``), compiled with ``nvcc`` at first use; on CPU tensors every
@@ -19,5 +20,7 @@ with migration), with every shard in one process or one shard per rank of a
 ``torch.distributed`` group; with the JAX package's dumps and checkpoints
 (``io.py``: each package restarts from the other's), restart at any shard count,
 ``debug_checks`` and profiling; in float32 or, with ``precision = f64``, in
-float64 throughout (a ``double`` instantiation of the census kernel).
+float64 throughout (a ``double`` instantiation of the census kernel). A step
+queues its device work without waiting for it, and on a GPU the single-device
+step runs as a CUDA graph.
 """

@@ -459,9 +459,10 @@ constexpr int kGeomFloats = 57;
 // The local shards of one launch, by value in the kernel's parameters: shard k
 // owns the ledger slots [slot_lo, slot_hi) (a slot's lane is its index in the
 // slice), the owned range [own_lo, own_hi) (of blocks with SMR, of global z cells
-// in 3D without; a lane runs while its cell lies in it), the K2 seed of its
-// round, and the first row of its range in the cell table. The launch scans the
-// slots [first, first + n).
+// in 3D without; a lane runs while its cell lies in it), and the first row of its
+// range in the cell table; its K2 seed of the round is seed[k], in device memory,
+// so that a CUDA graph's launch keeps the pointer and each replay reads the seed
+// copied there since. The launch scans the slots [first, first + n).
 constexpr int kMaxShards = 64;
 struct Shards {
   int count;
@@ -470,7 +471,7 @@ struct Shards {
   int slot_lo[kMaxShards], slot_hi[kMaxShards];
   int own_lo[kMaxShards], own_hi[kMaxShards];
   int row[kMaxShards];
-  uint32_t seed[kMaxShards];
+  const uint32_t* seed;  // device memory, one a shard
 };
 
 // One lane's shard: its owned range, the cell table row of the range's first
@@ -481,7 +482,7 @@ struct Own {
 };
 
 __device__ __forceinline__ Own own_of(const Shards& S, int k) {
-  return Own{S.own_lo[k], S.own_hi[k], S.row[k], S.seed[k]};
+  return Own{S.own_lo[k], S.own_hi[k], S.row[k], __ldg(S.seed + k)};
 }
 
 // The non-gray record read straight from the coefficient columns (rho, T, fleck,
@@ -1756,8 +1757,8 @@ struct Occupancy {
 // nudge_tilt[3] rho_scale temp_scale length_scale sb kb hh g_ff freq_min xc_max
 // shift[3] (host arrays). With fold the shards' slots must cover the ledger: every
 // slot is rewritten.
-// shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row,
-// seed) (host array). spread: nonzero for warp w of block b to take the 32 slots
+// shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row)
+// (host array); seeds: the shards' n_shards K2 seeds (int32, device). spread: nonzero for warp w of block b to take the 32 slots
 // of group w x blocks + b instead of block b the 256 after 256 b, so that every
 // block holds slots from across the launch. events: n_shards uint64 and iters:
 // n_shards int32 (device), zeroed here on the stream before the launch (one
@@ -1770,8 +1771,8 @@ template <class Real>
 int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* const* ptrs,
                  const void* table, const void* const* cols, const void* block_table,
                  const void* levels, const void* lookup, int capacity, const int* igeom,
-                 const Real* fgeom, int n_shards, const int* shards, int spread, void* events,
-                 void* iters, void* stream) {
+                 const Real* fgeom, int n_shards, const int* shards, const void* seeds,
+                 int spread, void* events, void* iters, void* stream) {
   Ledger<Real> L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (Real*)ptrs[a];
@@ -1843,19 +1844,19 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
   S.count = n_shards;
   int first = capacity, last = 0;
   for (int k = 0; k < n_shards; ++k) {
-    const int* row = shards + 6 * k;
+    const int* row = shards + 5 * k;
     S.slot_lo[k] = row[0];
     S.slot_hi[k] = row[1];
     S.own_lo[k] = row[2];
     S.own_hi[k] = row[3];
     S.row[k] = row[4];
-    S.seed[k] = (uint32_t)row[5];
     if (row[0] < 0 || row[1] < row[0] || row[1] > capacity) return -4;
     first = row[0] < first ? row[0] : first;
     last = row[1] > last ? row[1] : last;
   }
   S.first = first;
   S.spread = spread;
+  S.seed = (const uint32_t*)seeds;
   const int n = last - first;
   auto st = (cudaStream_t)stream;
   constexpr size_t kEv = sizeof(unsigned long long), kIt = sizeof(int32_t);

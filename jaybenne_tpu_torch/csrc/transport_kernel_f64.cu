@@ -18,11 +18,11 @@ extern "C" int jb_transport_launch_f64(int ndim, int absorb, int ddmc, int smr, 
                                        const void* const* cols, const void* block_table,
                                        const void* levels, const void* lookup, int capacity,
                                        const int* igeom, const double* fgeom, int n_shards,
-                                       const int* shards, int spread, void* events,
-                                       void* iters, void* stream) {
+                                       const int* shards, const void* seeds, int spread,
+                                       void* events, void* iters, void* stream) {
   return launch_entry<double>(ndim, absorb, ddmc, smr, nongray, ptrs, table, cols,
                               block_table, levels, lookup, capacity, igeom, fgeom, n_shards,
-                              shards, spread, events, iters, stream);
+                              shards, seeds, spread, events, iters, stream);
 }
 
 extern "C" int jb_transport_occupancy_f64(int ndim, int absorb, int ddmc, int smr,

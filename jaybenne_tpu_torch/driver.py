@@ -25,6 +25,17 @@ count: under the spatial decomposition the ledger is first re-homed
 own slices. ``jaybenne/debug_checks`` validates the state after every step
 (``utils/debug.py``); ``--profile-dir`` runs the run under ``torch.profiler`` and
 writes its Chrome trace there.
+
+On a GPU the single-device step (no decomposition) of a deck without an external
+source that runs the kernel's census runs as a CUDA graph (``graph.py``): the
+first step eagerly, then captured and replayed. The CPU, a deck with an external
+source (its births read the step's start time on the host), ``use_pallas = off``
+(the plain census reads its exit test) and both decompositions run the step
+eagerly (``build_step_core``'s ``capturable``);
+``Simulation(graph=False)`` asks for the eager step anywhere. Either way the step
+queues its work without waiting for the device, and the driver waits once a
+step: it enqueues one copy of the step's packed counters (``StepStats``) into a
+pinned buffer, synchronises, and reads every counter from there.
 """
 
 from __future__ import annotations
@@ -48,8 +59,9 @@ from .mesh import build_mesh
 from .models.problems import generate_problem
 from .parallel import exchange as exchange_mod
 from .parallel import sharding, spatial
+from .graph import GraphedStep, state_tensors
 from .particles import ParticleLedger
-from .step import build_step_core, initialize_radiation
+from .step import STAT_NAMES, StepStats, build_step_core, initialize_radiation
 from .utils.debug import validate_state
 
 _DUMP_TYPES = ("hdf5", "phdf", "phdf_parthenon")
@@ -63,7 +75,7 @@ class Simulation:
     slices of), the process's own shard only in a process group."""
 
     def __init__(self, cfg: config_mod.RunConfig, outdir: str = ".", quiet: bool = False,
-                 device="cuda", restart=None):
+                 device="cuda", restart=None, graph=True):
         self.cfg = cfg
         self.outdir = outdir
         os.makedirs(outdir, exist_ok=True)
@@ -96,8 +108,14 @@ class Simulation:
         else:
             state = self._restored(restart)
         self.shards, self._state, self._ledger = None, None, None
+        self.graphed = False
         if self.exchange is None:
             self.step_fn = build_step_core(self.mesh, cfg)
+            # a CUDA graph where the step can be captured, unless graph=False asks
+            # for the eager step
+            self.graphed = graph and self.device.type == "cuda" and self.step_fn.capturable
+            if self.graphed:
+                self.step_fn = GraphedStep(self.step_fn)
             self._state = state if restart is not None else initialize_radiation(
                 state, self.mesh, cfg)
         else:
@@ -116,6 +134,11 @@ class Simulation:
             self.shards = states if restart is not None else init(states)
         self.t = float(state.t)  # authoritative (host float64) simulation time
         self.cycle = int(state.cycle)
+        # the last step's counters, read from one copy of StepStats.packed; before
+        # the first step the live counts of the initial or restored ledger
+        self._stats_buf = torch.empty(len(STAT_NAMES), dtype=torch.int64,
+                                      pin_memory=self.device.type == "cuda")
+        self._counts = self._live_counts()
         self.total_events = 0
         self.dump_count = 0
         self._next_dump_t = self.t
@@ -124,6 +147,18 @@ class Simulation:
         if restart is not None and not quiet:
             what = restart if isinstance(restart, (str, os.PathLike)) else "a checkpoint tree"
             print(f"restarted from {what} at t={self.t:.6e} cycle={self.cycle}", flush=True)
+
+    def _live_counts(self) -> dict:
+        """``StepStats``'s ``n_alive`` and ``alive_max`` of the present ledger, in
+        one read (under a decomposition a collective: every rank calls it)."""
+        if self.exchange is None:
+            n = self._state.particles.alive.sum(dtype=torch.int64)
+            alive = [n, n]
+        else:
+            ex = self.exchange
+            mine = [st.particles.alive.sum(dtype=torch.int64) for st in self.shards]
+            alive = [ex.sum(mine)[0], ex.max(mine)[0]]
+        return dict(zip(("n_alive", "alive_max"), torch.stack(alive).tolist()))
 
     def _restored(self, restart) -> state_mod.SimState:
         """The process's state from a checkpoint (a file, or a tree of
@@ -166,8 +201,19 @@ class Simulation:
         return copy.deepcopy((self._state, self.shards, self._ledger, self.t, self.cycle))
 
     def restore(self, snap) -> None:
-        """Back to a ``snapshot`` (which stays usable)."""
-        (self._state, self.shards, self._ledger, self.t, self.cycle) = copy.deepcopy(snap)
+        """Back to a ``snapshot`` (which stays usable). Without a decomposition the
+        snapshot's values are copied into the state's own tensors where they have
+        its shapes, so that a step's CUDA graph, which holds their pointers, stays
+        valid."""
+        state = snap[0]
+        if self.shards is None and _same_layout(self._state, state):
+            for dst, src in zip(state_tensors(self._state), state_tensors(state)):
+                dst.copy_(src)
+            self._state = dataclasses.replace(self._state, t=state.t, cycle=state.cycle)
+            self.t, self.cycle = snap[3], snap[4]
+        else:
+            (self._state, self.shards, self._ledger, self.t, self.cycle) = copy.deepcopy(snap)
+        self._counts = self._live_counts()
 
     def _capacity(self, local: bool) -> int:
         """The run's ledger capacity, under a decomposition padded to a multiple of
@@ -201,7 +247,7 @@ class Simulation:
         extra = (self.cfg.jaybenne.num_particles + self._ext_births() + self.mesh.total_cells
                  + 64)
         if self.exchange is None:
-            need = int(p.num_alive()) + extra
+            need = self._counts["n_alive"] + extra
             if need <= p.capacity:
                 return
             new_cap = max(need, 2 * p.capacity)
@@ -214,14 +260,13 @@ class Simulation:
         else:
             # every shard grows alike and keeps its particles in their slots
             ex = self.exchange
-            alive = [st.particles.alive.sum(dtype=torch.int64) for st in self.shards]
             cap_l = p.capacity // len(ex.shards)
             if self.spatial:
                 # a birth lands in the slice of the shard that owns its cell, and one
                 # shard may own every source: the fullest slice needs a step's room
-                need_l = int(ex.max(alive)[0]) + extra
+                need_l = self._counts["alive_max"] + extra
             else:
-                need_l = -(-(int(ex.sum(alive)[0]) + extra) // ex.n)
+                need_l = -(-(self._counts["n_alive"] + extra) // ex.n)
             if need_l <= cap_l:
                 return
             self._ledger = sharding.grow_ledger(p, len(ex.shards), max(need_l, 2 * cap_l))
@@ -331,58 +376,59 @@ class Simulation:
                 self._state, stats = self.step_fn(self._state, step_dt)
             else:
                 self.shards, stats = self.step_fn(self.shards, step_dt)
+            stats.copy_to(self._stats_buf)  # the step's one read, enqueued
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             step_s = _time.perf_counter() - t0
-            ev = int(stats.events)
+            c = self._counts = StepStats.values(self._stats_buf)
+            ev = c["events"]
             self.t += step_dt
             self.cycle += 1
-            iters = int(stats.iterations)
             self.total_events += ev
             self.history.append(
                 {
                     "cycle": self.cycle,
                     "time": self.t,
                     "dt": step_dt,
-                    "iterations": iters,
+                    "iterations": c["iterations"],
                     "events": ev,
-                    "alive": int(stats.n_alive),
-                    "dropped": int(stats.dropped),
-                    "migration_rounds": stats.migration_rounds,
-                    "migrated": stats.migrated,
-                    "unfinished": int(stats.unfinished),
+                    "alive": c["n_alive"],
+                    "dropped": c["dropped"],
+                    "migration_rounds": c["migration_rounds"],
+                    "migrated": c["migrated"],
+                    "unfinished": c["unfinished"],
                     "step_seconds": step_s,
                 }
             )
             if not self.quiet:
-                mig = (f" mig_rounds={stats.migration_rounds} migrated={stats.migrated}"
-                       if stats.migration_rounds else "")
+                mig = (f" mig_rounds={c['migration_rounds']} migrated={c['migrated']}"
+                       if c["migration_rounds"] else "")
                 print(
                     f"cycle={self.cycle} time={self.t:.6e} dt={step_dt:.6e} "
-                    f"iters={iters} events={ev} alive={int(stats.n_alive)}" + mig,
+                    f"iters={c['iterations']} events={ev} alive={c['n_alive']}" + mig,
                     flush=True,
                 )
-            if int(stats.unfinished) > 0:
-                after = (f" after {stats.migration_rounds} migration rounds"
+            if c["unfinished"] > 0:
+                after = (f" after {c['migration_rounds']} migration rounds"
                          if self.spatial else "")
                 print(
                     f"WARNING: census incomplete this cycle — "
-                    f"{int(stats.unfinished)} particles unfinished{after}",
+                    f"{c['unfinished']} particles unfinished{after}",
                     file=sys.stderr,
                 )
-            if int(stats.dropped) > 0:
+            if c["dropped"] > 0:
                 what = ("sourced or migrated particles (a migration arrival finds no free "
                         "slot)" if self.spatial else "sourced particles")
                 print(
-                    f"WARNING: particle ledger overflow, dropped {int(stats.dropped)} "
+                    f"WARNING: particle ledger overflow, dropped {c['dropped']} "
                     f"{what} (raise jaybenne/capacity_factor)",
                     file=sys.stderr,
                 )
             if cfg.jaybenne.debug_checks:
                 validate_state(self.state, self.mesh, cfg)
-            if int(stats.cap_hits) > 0:
+            if c["cap_hits"] > 0:
                 print(
-                    f"WARNING: {int(stats.cap_hits)} transport call(s) hit "
+                    f"WARNING: {c['cap_hits']} transport call(s) hit "
                     f"max_transport_iterations ({cfg.jaybenne.max_transport_iterations}); "
                     "census incomplete this cycle",
                     file=sys.stderr,
@@ -400,13 +446,21 @@ class Simulation:
             )
 
 
+def _same_layout(a, b) -> bool:
+    """Whether two states' tensors agree in shape, dtype and device, one by one."""
+    return all(x.shape == y.shape and x.dtype == y.dtype and x.device == y.device
+               for x, y in zip(state_tensors(a), state_tensors(b)))
+
+
 def run_file(input_path, outdir=".", modified_inputs=None, quiet=False, restart=None,
-             wall_limit_s=None, nlim=None, device="cuda") -> Simulation:
+             wall_limit_s=None, nlim=None, device="cuda", graph=True) -> Simulation:
+    """Run a deck; ``graph`` is ``Simulation``'s (False: the eager step)."""
     from .utils.deck import Deck
 
     deck = Deck.from_file(input_path).update(modified_inputs or {})
     cfg = config_mod.from_deck(deck)
-    sim = Simulation(cfg, outdir=outdir, quiet=quiet, device=device, restart=restart)
+    sim = Simulation(cfg, outdir=outdir, quiet=quiet, device=device, restart=restart,
+                     graph=graph)
     sim.run(wall_limit_s=wall_limit_s, nlim=nlim)
     return sim
 

@@ -1,0 +1,111 @@
+"""The single-device step as a CUDA graph (the counterpart of the JAX package's
+``jax.jit`` of ``build_step_core``, ``jaybenne_tpu/step.py:94-96``).
+
+``GraphedStep`` wraps the step of ``step.build_step_core`` (one device, no
+exchange) on a GPU. Its first call runs the step eagerly: that builds the kernel
+library, the forest tables and every cached constant (``utils/device.py``), none
+of which a capture may do. Its second call captures the step's ``body`` into a
+``torch.cuda.CUDAGraph`` and replays it; later calls replay. Every call first
+runs the step's ``prologue`` on the host: it seeds the step's generators with
+``manual_seed`` and copies the census kernel's seeds into the device tensor the
+captured launch reads, so a replay draws what the eager step draws. The
+generators are registered with each graph, so that a replay takes their seed and
+offset as they stand.
+
+A graph holds the pointers of the tensors it read and wrote. The captured body
+ends by copying its fields and ``overflow`` into the state's own tensors, so the
+state keeps its tensors from replay to replay (the ledger is updated in place
+anyway). A graph is kept by the step's ``dt`` and the addresses and shapes of
+every tensor of the state: the last, shorter step, a ledger that
+``Simulation._ensure_headroom`` grew and a state restored from a snapshot each
+capture a graph of their own. A graph's ``StepStats`` are its own output tensor,
+rewritten by each replay: read them before the next step.
+
+A replay launches no kernel from Python, so ``cuda_lib.LAUNCHES`` would not count
+it: the launches counted while a graph was captured are taken back out, and added
+again at each replay. Nothing here falls back to the eager step: a capture that
+fails raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+from .ops import cuda_lib
+
+# graphs kept per step (least recently used dropped first): the step's dt and the
+# last step's shorter one, and one more while a grown ledger takes over
+MAX_GRAPHS = 3
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a state that a step reads or writes."""
+    return ([getattr(state.fields, f.name) for f in dataclasses.fields(state.fields)]
+            + [getattr(state.particles, f.name) for f in dataclasses.fields(state.particles)]
+            + [state.overflow])
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: torch.cuda.CUDAGraph
+    stats: object                 # the StepStats the graph writes
+    launches: collections.Counter  # kernel launches of one replay, by name
+
+
+class GraphedStep:
+    """``step(state, dt) -> (state, StepStats)``: the single-device ``step`` of
+    ``build_step_core`` run eagerly once, then captured and replayed (see the
+    module docstring). ``captures`` counts the graphs captured."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.warm = False
+        self.captures = 0
+
+    def __call__(self, state, dt):
+        self.step.prologue([state])
+        if not self.warm:
+            new, stats = self.step.body([state], dt)
+            self.warm = True
+            return new[0], stats
+        key = (float(dt),) + tuple((t.data_ptr(), tuple(t.shape))
+                                   for t in state_tensors(state))
+        cap = self.graphs.get(key)
+        if cap is None:
+            cap = self._capture(state, dt)
+            self.graphs[key] = cap
+            while len(self.graphs) > MAX_GRAPHS:
+                self.graphs.popitem(last=False)
+        else:
+            self.graphs.move_to_end(key)
+        cap.graph.replay()
+        cuda_lib.LAUNCHES.update(cap.launches)
+        return dataclasses.replace(state, t=state.t + dt, cycle=state.cycle + 1), cap.stats
+
+    def _capture(self, state, dt) -> _Captured:
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.step.generators():
+            graph.register_generator_state(gen)
+        before = collections.Counter(cuda_lib.LAUNCHES)
+        with torch.cuda.graph(graph):
+            new, stats = self.step.body([state], dt)
+            _copy_back(state, new[0])
+        launches = collections.Counter(cuda_lib.LAUNCHES) - before
+        for name, n in launches.items():  # the capture launched nothing
+            cuda_lib.LAUNCHES[name] -= n
+        self.captures += 1
+        return _Captured(graph, stats, launches)
+
+
+def _copy_back(state, new) -> None:
+    """Copy a captured body's output fields and ``overflow`` into ``state``'s own
+    tensors (the body updates the ledger in place)."""
+    for f in dataclasses.fields(new.fields):
+        src, dst = getattr(new.fields, f.name), getattr(state.fields, f.name)
+        if src is not dst:
+            dst.copy_(src)
+    state.overflow.copy_(new.overflow)

@@ -238,7 +238,7 @@ def checkpoint_tree(state, mesh, t=None, cycle=None) -> dict:
     tree = {
         "Time": np.float64(state.t if t is None else t),
         "NCycle": np.int64(state.cycle if cycle is None else cycle),
-        "overflow": np.int64(state.overflow),
+        "overflow": np.int64(int(state.overflow)),
     }
     for fld in dataclasses.fields(state.fields):
         tree[f"fields/{fld.name}"] = _np(getattr(state.fields, fld.name)[:B])

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .config import MeshConfig, RefinementRegion
+from .utils.device import device_const
 
 
 @dataclasses.dataclass
@@ -83,7 +84,7 @@ class MeshGeometry:
         """``v`` as a 0-dim tensor of the mesh's precision, rounded as ``tile_edges``."""
         dt = self.block_dx.dtype
         rd = np.float64 if dt == torch.float64 else np.float32
-        return torch.tensor(float(rd(v)), dtype=dt, device=self.device)
+        return device_const(float(rd(v)), dt, self.device)
 
     def locate_block(self, x, y, z):
         """Position -> owning block id, by ``floor`` binning into the lookup grid

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils import constants
+from ..utils.device import device_const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +40,7 @@ class RuntimePhysicalConstants:
 
 def _const(value, like):
     """``value`` as a 0-dim tensor of ``like``'s dtype and device."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    return device_const(value, like.dtype, like.device)
 
 
 # ---------------------------------------------------------------- absorption models
@@ -136,7 +137,7 @@ class TabulatedOpacity:
 
     def _interp(self, rho, temp):
         def axis(v):
-            return torch.tensor(v, dtype=rho.dtype, device=rho.device)
+            return device_const(v, rho.dtype, rho.device)
 
         lr_ax, lt_ax, lk = axis(self.log_rho), axis(self.log_T), axis(self.log_kappa)
         lr = torch.clamp(torch.log10(rho), lr_ax[0], lr_ax[-1])

@@ -13,7 +13,8 @@ machine without ``nvcc`` or a GPU, where only the plain PyTorch versions run.
 
 ``LAUNCHES`` counts kernel launches by name. Each launch wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that it went through the
-kernels.
+kernels; a CUDA graph's replay, which launches from no wrapper, adds the launches
+counted while it was captured (``graph.py``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ _TRANSPORT = (
     _P, _P, _P,      # block table, block levels, lookup grid (SMR; else null)
     _I,              # ledger capacity
     _P, _P,          # host int and real geometry arrays
-    _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row seed)
+    _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row)
+    _P,              # the shards' int32 seeds (device)
     _I,              # spread: a block's warps take slot groups spread over the launch
     _P, _P, _P,      # events iters stream
 )
@@ -75,6 +77,9 @@ _SIGNATURES = {
     "jb_transport_occupancy_f64": (_I, _I, _I, _I, _I, _P),
     "jb_transport_launch": _TRANSPORT,
     "jb_transport_launch_f64": _TRANSPORT,
+    # columns dst src strides bytes fills k dest n capacity stream
+    "jb_insert_launch": (_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong,
+                         ctypes.c_longlong, _P),
 }
 
 

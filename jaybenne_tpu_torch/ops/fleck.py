@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import LAM_EXT
+from ..utils.device import device_const
 from .transport_kernel import to_global_cells
 
 
@@ -96,7 +97,7 @@ def ddmc_face_probs(mesh, sigma_t, tau_ddmc, periodic_flags, dtype, blocks=None)
             nrb[0] * nz, nrb[1] * ny, nrb[2] * nx).movedim(2 - axis, -1)  # face axis last
         lower = torch.cat([tau[..., -1:] if periodic_flags[axis] else tau[..., :1], tau], -1)
         upper = torch.cat([tau, tau[..., :1] if periodic_flags[axis] else tau[..., -1:]], -1)
-        thin = torch.tensor(2.0 * LAM_EXT, dtype=dtype, device=tau.device)
+        thin = device_const(2.0 * LAM_EXT, dtype, tau.device)
         lower = torch.where(lower > tau_ddmc, lower, thin)
         upper = torch.where(upper > tau_ddmc, upper, thin)
         p = (2.0 / (3.0 * (lower + upper))).to(dtype).movedim(-1, 2 - axis)
@@ -109,11 +110,11 @@ def _wrap_or_clamp(coord, lo, hi, periodic):
     on a periodic axis, clamped otherwise (at the coordinate's precision, as the
     JAX package rounds it)."""
     dev, dt = coord.device, coord.dtype
-    lo_t = torch.tensor(lo, dtype=dt, device=dev)
+    lo_t = device_const(lo, dt, dev)
     if periodic:
-        span = torch.tensor(hi - lo, dtype=dt, device=dev)
+        span = device_const(hi - lo, dt, dev)
         return lo_t + torch.remainder(coord - lo_t, span)
-    return torch.clamp(coord, lo_t, torch.tensor(hi, dtype=dt, device=dev))
+    return torch.clamp(coord, lo_t, device_const(hi, dt, dev))
 
 
 def _sample_tau(mesh, tau_flat, pos, axis, periodic_flags):
@@ -139,7 +140,7 @@ def _face_probs_refined(mesh, sigma_t, tau_ddmc, periodic_flags, dtype, blocks=N
     if blocks is not None:
         dxv, org = dxv[blocks], org[blocks]
     B = dxv.shape[0]
-    thin = torch.tensor(2.0 * LAM_EXT, dtype=dtype, device=dev)
+    thin = device_const(2.0 * LAM_EXT, dtype, dev)
     shapes = ((B, nz, ny, nx + 1), (B, nz, ny + 1, nx), (B, nz + 1, ny, nx))
     out = []
     for axis in range(3):
@@ -182,7 +183,7 @@ def _surface_cells(nz, ny, nx) -> np.ndarray:
 def pack_boundary_surface(mesh, sigma_local):
     """[Bl, nz, ny, nx] local sigma_t -> [Bl, S] boundary-surface values: the
     payload each shard all-gathers for the DDMC face probabilities."""
-    surf = torch.as_tensor(_surface_cells(mesh.nz, mesh.ny, mesh.nx), device=sigma_local.device)
+    surf = device_const(_surface_cells(mesh.nz, mesh.ny, mesh.nx), torch.int64, sigma_local.device)
     return sigma_local.reshape(sigma_local.shape[0], -1)[:, surf]
 
 
@@ -198,7 +199,7 @@ def ddmc_face_probs_spatial(mesh, sigma_local, surf_glob, offset, tau_ddmc, peri
     nx+1] etc."""
     Bl, nz, ny, nx = sigma_local.shape
     B = mesh.n_blocks
-    surf = torch.as_tensor(_surface_cells(nz, ny, nx), device=sigma_local.device)
+    surf = device_const(_surface_cells(nz, ny, nx), torch.int64, sigma_local.device)
     visible = sigma_local.new_zeros((surf_glob.shape[0], nz * ny * nx))
     visible[:, surf] = surf_glob.to(visible.dtype)
     visible[offset:offset + Bl] = sigma_local.reshape(Bl, -1)

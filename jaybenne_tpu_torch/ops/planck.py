@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import device_const
 from . import rng
 
 _L = 64
@@ -25,7 +26,7 @@ _CDF[-1] = 1.0  # absorb the truncated tail into the last term
 def sample_planck_energy(gen, sb, temp, shape, dtype, device):
     """Draw Planck-distributed energies ``E`` with scale ``sb * temp``; ``temp``
     broadcasts against ``shape``."""
-    cdf = torch.as_tensor(_CDF, dtype=dtype, device=device)
+    cdf = device_const(_CDF, dtype, device)
     xi0 = rng.uniform(gen, shape, dtype, device)
     # first index with cdf[idx] >= xi0 -> l = idx + 1
     l = torch.bucketize(xi0, cdf).to(dtype) + 1.0

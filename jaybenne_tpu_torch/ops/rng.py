@@ -57,7 +57,13 @@ def stream_key(seed: int, cycle: int, phase: int, *words: int) -> int:
 
 
 def generator(seed: int, cycle: int, phase: int, device, words=()) -> torch.Generator:
-    g = torch.Generator(device=device)
+    return reseed(torch.Generator(device=device), seed, cycle, phase, words)
+
+
+def reseed(g: torch.Generator, seed: int, cycle: int, phase: int, words=()) -> torch.Generator:
+    """``g`` seeded as ``generator`` seeds a new one: a generator kept across
+    steps (a CUDA graph draws from the generators registered with it) draws what
+    a new one would."""
     g.manual_seed(stream_key(seed, cycle, phase, *words) >> 1)  # manual_seed takes < 2^63
     return g
 

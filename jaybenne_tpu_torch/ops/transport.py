@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from ..utils.device import as_device
+
 
 @dataclasses.dataclass
 class TransportCoefs:
@@ -71,7 +73,7 @@ def precompute_coefs(fields, mesh, eos, opacity, scattering, use_ddmc, dtype):
     shape = fields.rho.shape
 
     def cellwise(v):
-        return torch.as_tensor(v, dtype=dtype, device=fields.rho.device).expand(shape).reshape(-1)
+        return as_device(v, dtype, fields.rho.device).expand(shape).reshape(-1)
 
     nongray = {}
     if not (opacity.is_gray and scattering.is_gray):

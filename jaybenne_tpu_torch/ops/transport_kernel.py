@@ -94,6 +94,7 @@ from ..config import BC
 from ..models.opacity import EPBremss, NonCGSUnits
 from ..utils import constants
 from ..utils.constants import LAM_EXT
+from ..utils.device import device_const
 from . import cuda_lib
 from ..particles import join_slices
 from .kernel_rng import DrawPool, raw_bits_plain
@@ -854,7 +855,7 @@ def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane
     nd = g.ndim
 
     def s(v):
-        return torch.tensor(float(v), dtype=real, device=dev)
+        return device_const(float(v), real, dev)
 
     def axes(vals):
         return [s(v) for v in vals[:nd]]
@@ -1125,16 +1126,27 @@ def _resident(ndim, absorb, ddmc, smr, nongray, dtype) -> int:
     return resident_blocks(ndim, absorb, ddmc, smr, nongray, dtype)
 
 
-def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None):
+def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None,
+                 seeds=None):
     """The census kernel on PyTorch's current stream (no synchronisation), one
     launch for every MAX_SHARDS_PER_LAUNCH shards; the ledger was checked by
     ``_check_cuda_ledger``. With ``fold`` a uniform mesh of several blocks, the
     kernel folds ``collapse_plain`` into its reads and ``expand_plain`` into its
     writes, on every slot, so the launches must cover the whole ledger. The
     launch entry zeroes the events and iteration maxima of its shards on the
-    stream, so they need no fill before it."""
+    stream, so they need no fill before it. The kernel reads each shard's seed
+    from device memory: ``seeds``, an int32 tensor of one per shard on the
+    ledger's device (a CUDA graph's launch keeps its pointer, and a replay reads
+    what was copied there since), or when None the shards' own, copied there
+    from pinned memory without waiting."""
     dev = p.x.device
     n = len(shards)
+    if seeds is None:
+        seeds = torch.tensor([sh.seed for sh in shards], dtype=torch.int32,
+                             pin_memory=True).to(dev, non_blocking=True)
+    elif (seeds.dtype != torch.int32 or seeds.device != dev or seeds.shape != (n,)
+          or not seeds.is_contiguous()):
+        raise ValueError(f"transport kernel: the seeds must be {n} contiguous int32 on {dev}")
     groups = [shards[k:k + MAX_SHARDS_PER_LAUNCH] for k in range(0, n, MAX_SHARDS_PER_LAUNCH)]
     if fold is not None and (min(sh.slot_lo for sh in shards) != 0
                              or max(sh.slot_hi for sh in shards) != p.capacity):
@@ -1165,14 +1177,14 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
         slots = max(sh.slot_hi for sh in group) - min(sh.slot_lo for sh in group)
         spread = spreads(slots, torch.cuda.get_device_properties(dev).multi_processor_count,
                          _resident(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.real))
-        rows = [v for sh in group for v in dataclasses.astuple(sh)]
+        rows = [v for sh in group for v in dataclasses.astuple(sh)[:5]]
         cuda_lib.library().call(
             "jb_transport_launch" + _f64(g.real), g.ndim, int(g.absorb), int(g.ddmc),
             int(g.smr), int(g.nongray), ptrs, cell, record,
             *(0 if t is None else t.data_ptr() for t in smr),
             p.capacity, (ctypes.c_int * len(ints))(*ints),
             (c_real * len(floats))(*map(float, floats)),
-            len(group), (ctypes.c_int * len(rows))(*rows), int(spread),
+            len(group), (ctypes.c_int * len(rows))(*rows), seeds[k0:].data_ptr(), int(spread),
             events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
         )
         if slots > 0:  # a group without slots launches nothing, its counters zeroed
@@ -1185,14 +1197,14 @@ class _Shard:
     """One shard of a census call, in the kernel's shard-table order: its slots
     [slot_lo, slot_hi) of the call's ledger, its owned range [own_lo, own_hi),
     the first row of that range in the cell table and its signed 32-bit K2
-    seed."""
+    seed (None where the call's seeds are a device tensor)."""
 
     slot_lo: int
     slot_hi: int
     own_lo: int
     own_hi: int
     row: int
-    seed: int
+    seed: int | None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1254,7 +1266,12 @@ def _prepare(coefs, mesh, prm, dt, own, kernel, real=None) -> Census:
 def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
     multi = isinstance(particles, (list, tuple))
     ledgers = list(particles) if multi else [particles]
-    seeds = list(seed) if multi else [seed]
+    seed_dev = None
+    if isinstance(seed, torch.Tensor):  # one per range, on the device
+        seed_dev = seed
+        seeds = seed.tolist() if census is not _census_cuda else [None] * seed.numel()
+    else:
+        seeds = list(seed) if multi else [seed]
     p, slices = join_slices(ledgers)
     check_supported(mesh, prm, p.x.dtype)
     if isinstance(coefs, Census):
@@ -1269,11 +1286,13 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
         raise ValueError(f"transport: a {p.x.dtype} ledger and {setup.g.real} coefficients")
     if census is _census_cuda:
         _check_cuda_ledger(p, setup.tabs, setup.g.real)
-    shards = tuple(_Shard(lo, hi, *o.bounds(), row, int(sd))
+    shards = tuple(_Shard(lo, hi, *o.bounds(), row, None if sd is None else int(sd))
                    for (lo, hi), o, row, sd in zip(slices, setup.owns, setup.rows, seeds))
     # a uniform forest of several blocks runs collapsed to one; a forest run block
     # by block (SMR) stays as it is
     fold = mesh if mesh.n_blocks > 1 and not setup.g.smr else None
+    if seed_dev is not None and census is _census_cuda:
+        kw["seeds"] = seed_dev
     iters, events = census(p, setup.tabs, setup.g, shards, prm.max_iters, fold, **kw)
     if multi:
         return particles, iters, events
@@ -1283,7 +1302,9 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
 def transport(particles, coefs, mesh, seed, prm, dt, own=None):
     """Census transport of ``particles`` (updated in place) over one step ``dt``:
     the CUDA kernel for a ledger on a GPU, the plain version for one on the CPU.
-    ``seed`` is the step's signed 32-bit K2 seed. With ``own`` an ``OwnedRange``
+    ``seed`` is the step's signed 32-bit K2 seed, or an int32 tensor of one seed
+    per range on the ledger's device, which the kernel reads there (the step's
+    seeds, which a CUDA graph's replay rewrites). With ``own`` an ``OwnedRange``
     the call is one round of the spatial decomposition: only the range's lanes
     run, each until it leaves the range, and ``coefs`` are the range's. With
     ``own`` a sequence of ranges, ``particles``, ``coefs`` and ``seed`` are
@@ -1330,11 +1351,14 @@ def subface_resample(p, faces, mesh, c, gen, offset, n_local):
     the fine faces around its coarse landing point, picked by the shard's own
     face probabilities ``faces`` = (px, py, pz) of its [n_local, ...] blocks, with
     a hemisphere direction into the block, and its code is cleared. ``gen`` draws
-    five uniforms per slot (``rng.PHASE_FIXUP``). Host-side, between rounds."""
+    five uniforms per slot (``rng.PHASE_FIXUP``) every round, whether or not a
+    slot needs them: the round's generator is its own, so no other stream moves,
+    and the resample, masked by ``need``, changes only the slots that need it. It
+    runs between rounds and does not wait for the device."""
     nd = mesh.ndim
-    need = p.alive & (p.leak != 0) & (p.block >= offset) & (p.block < offset + n_local)
-    if nd < 2 or not bool(need.any()):
+    if nd < 2:
         return p
+    need = p.alive & (p.leak != 0) & (p.block >= offset) & (p.block < offset + n_local)
     from . import rng
 
     real = p.x.dtype
@@ -1360,8 +1384,8 @@ def subface_resample(p, faces, mesh, c, gen, offset, n_local):
     zero = torch.zeros((), dtype=real, device=dev)
     loc, idx, vel = _subface_pick(nd, (nx, ny, nz), need, p.leak, list(loc), list(idx), ndx,
                                   list(vel), face_prob, u[0], [u[1], u[2]][: nd - 1], hemi,
-                                  torch.tensor(c, dtype=real, device=dev), zero,
-                                  torch.tensor(limits(real)[1], dtype=real, device=dev))
+                                  device_const(c, real, dev), zero,
+                                  device_const(limits(real)[1], real, dev))
     for dst, src in zip([p.x, p.y, p.z][:nd] + [p.i, p.j, p.k][:nd] + [p.vx, p.vy, p.vz],
                         loc + idx + vel):
         dst.copy_(src)

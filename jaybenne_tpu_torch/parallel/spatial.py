@@ -31,6 +31,12 @@ counted (the driver warns). A DDMC leak into a finer block of another shard
 carries its pending-leak code, and the owner resamples it onto a fine face before
 its next census (``transport_kernel.subface_resample``).
 
+A round reads the device once, for its exit test: the summed count of live
+particles short of census. Every other counter stays on the device until the
+step's ``StepStats``, which the driver reads in one copy. No shape depends on
+the data (the insert of the arrivals is the static one of ``particles.py``), so
+nothing else in a step waits for the device.
+
 At restart, ``rehome_restart_ledger`` moves each live particle that a checkpoint
 left in another shard's ledger slice into a free slot of its owner's.
 """
@@ -185,8 +191,8 @@ def migrate(ledgers, offsets, bl, K, exchange):
         rows = torch.cat(cols + [torch.ones_like(cols[-1][:, :1])], dim=1)
         rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])  # the empty row
         bufs.append(rows[src].reshape(n, K, rows.shape[1]))
-        sent = torch.zeros(cap, dtype=torch.bool, device=dev)
-        sent[order[ok]] = True
+        # ok scattered back through the permutation order: each slot once
+        sent = torch.zeros(cap, dtype=torch.bool, device=dev).scatter_(0, order, ok)
         p.alive.copy_(p.alive & ~sent)
         sent_counts.append(sent.sum(dtype=torch.int64))
     recv = exchange.all_to_all(bufs)
@@ -202,6 +208,11 @@ def migrate(ledgers, offsets, bl, K, exchange):
         _, n_drop = insert_particles(p, cand, r[:, -1] != 0, reserved=p.absorbed)
         dropped.append(n_drop.to(torch.int64))
     return dropped, sent_counts
+
+
+def _exit_read(unfinished: torch.Tensor) -> int:
+    """A round's one host read: the summed count of particles short of census."""
+    return int(unfinished.item())
 
 
 def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
@@ -282,8 +293,8 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
         events = torch.zeros(len(states), dtype=torch.int64, device=dev)
         hits = torch.zeros(len(states), dtype=torch.int64, device=dev)
         sent = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
-        rounds, unfinished = 0, 1
-        while rounds < max_rounds and unfinished > 0:
+        rounds, left, unfinished = 0, 1, None
+        while rounds < max_rounds and left > 0:
             if smr_ddmc:  # pending coarse-to-fine leaks, before the census
                 for i, (st, s, off) in enumerate(zip(states, shards, offsets)):
                     gen = rng.generator(st.seed, st.cycle, rng.PHASE_FIXUP, dev, (s, rounds))
@@ -300,8 +311,9 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
                 drop, n_sent = migrate(ps, offsets, bl, K, exchange)
                 dropped = [d + e for d, e in zip(dropped, drop)]
                 sent = [a + b for a, b in zip(sent, n_sent)]
-            unfinished = int(exchange.sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
-                                           for p in ps])[0])
+            unfinished = exchange.sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
+                                       for p in ps])[0]
+            left = _exit_read(unfinished)
             rounds += 1
         for i, off in enumerate(offsets):  # tallies and feedback: each cell on one shard
             if prm.has_absorption:
@@ -312,20 +324,21 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
         for p in ps:
             p.absorbed.zero_()
             p.tau.zero_()
-        n_alive = exchange.sum([p.alive.sum(dtype=torch.int64) for p in ps])
+        alive = [p.alive.sum(dtype=torch.int64) for p in ps]
         dropped = exchange.sum(dropped)
-        stats = StepStats(
+        stats = StepStats.pack(
             iterations=exchange.max(list(iters.unbind()))[0],
             events=exchange.sum(list(events.unbind()))[0],
-            n_alive=n_alive[0],
+            n_alive=exchange.sum(alive)[0],
             dropped=dropped[0],
             cap_hits=exchange.sum(list(hits.unbind()))[0],
-            unfinished=torch.tensor(unfinished, dtype=torch.int64, device=dev),
-            migration_rounds=rounds,
-            migrated=int(exchange.sum(sent)[0]),
+            unfinished=unfinished,
+            migration_rounds=torch.full((), rounds, dtype=torch.int64, device=dev),
+            migrated=exchange.sum(sent)[0],
+            alive_max=exchange.max(alive)[0],
         )
         new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt, cycle=st.cycle + 1,
-                                   overflow=st.overflow + int(dropped[0]))
+                                   overflow=st.overflow + dropped[0])
                for st, f, p in zip(states, fs, ps)]
         return new, stats
 
@@ -352,7 +365,7 @@ def make_spatial_init(mesh, cfg: RunConfig, exchange):
                     block_offset=s * bl)
             out.append((tally.evaluate_radiation_energy(f, p, mesh, block_offset=s * bl), p))
             drops.append(d.to(torch.int64))
-        dropped = int(exchange.sum(drops)[0])
+        dropped = exchange.sum(drops)[0]
         return [dataclasses.replace(st, fields=f, particles=p, overflow=st.overflow + dropped)
                 for st, (f, p) in zip(states, out)]
 

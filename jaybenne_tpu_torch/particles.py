@@ -16,6 +16,7 @@ slot and needs no tile multiple.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -96,18 +97,35 @@ def join_slices(ledgers) -> tuple:
 
 def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor,
                      reserved: torch.Tensor | None = None):
-    """Write candidate particles into the ledger's dead slots, IN PLACE.
+    """Write candidate particles into the ledger's dead slots, IN PLACE (port of
+    ``jaybenne_tpu/particles.py::insert_particles``, shape for shape).
 
     ``cand`` maps field name -> candidate tensor (any shape, flattened); ``valid``
     masks real candidates. Valid candidates are ranked by prefix sum and written to
     dead slots in stable index order. Returns ``(ledger, n_dropped)``, where dropped
-    candidates exceeded the free-slot count. Every destination slot is distinct, so
-    the writes are deterministic on any device.
+    candidates exceeded the free-slot count; ``n_dropped`` is a device tensor.
+    Every destination slot is distinct, so the writes are deterministic on any
+    device.
+
+    No shape depends on the data, so nothing waits for the device: a candidate
+    that is not written gets the destination ``cap``, and the writes drop that
+    index (JAX ``mode="drop"``): on a GPU every column in one launch of the
+    insert kernel (``csrc/insert_kernel.cu``), on the CPU its plain version,
+    ``_put`` a column.
 
     ``reserved`` marks dead rows that must not be recycled yet: the spatial census
     inserts migration arrivals mid-step, while this step's absorbed rows still carry
     the weight that the absorption tally deposits after the census.
     """
+    dest, n_dropped = insert_destinations(ledger, valid, reserved)
+    write_columns(ledger, cand, dest, valid.shape)
+    return ledger, n_dropped
+
+
+def insert_destinations(ledger: ParticleLedger, valid: torch.Tensor,
+                        reserved: torch.Tensor | None = None) -> tuple:
+    """``insert_particles``'s destination of each candidate (the ledger's capacity
+    for one not written) and the count of valid candidates dropped."""
     cap = ledger.capacity
     vflat = valid.reshape(-1)
     rank = torch.cumsum(vflat.to(torch.int64), 0) - 1
@@ -116,19 +134,78 @@ def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor,
     n_dead = cap - occupied.sum()
     ok = vflat & (rank < n_dead)
     n_dropped = vflat.sum() - ok.sum()
-    dest = order[rank[ok]]
+    dest = torch.where(ok, order[rank.clamp(0, cap - 1)], cap)  # cap -> dropped
+    return dest, n_dropped
 
-    for name, val in cand.items():
-        arr = getattr(ledger, name)
-        arr[dest] = val.reshape(-1)[ok].to(arr.dtype)
-    ledger.alive[dest] = True
-    if "absorbed" not in cand:
-        ledger.absorbed[dest] = False
-    if "face" not in cand:
-        ledger.face[dest] = 0
-    if "leak" not in cand:
-        ledger.leak[dest] = 0
-    return ledger, n_dropped
+
+def write_columns(ledger: ParticleLedger, cand: dict, dest: torch.Tensor, shape,
+                  plain: bool = False) -> None:
+    """``insert_particles``'s writes (IN PLACE): each candidate column of ``cand``
+    (tensors of ``shape``) and the fills (``alive``; ``absorbed``, ``face`` and
+    ``leak`` unless ``cand`` has them) at ``dest``, the capacity dropped. On a
+    GPU one launch of the insert kernel, on the CPU (or with ``plain``) its plain
+    version."""
+    cols = [(getattr(ledger, name), val) for name, val in cand.items()]
+    cols.append((ledger.alive, True))
+    cols += [(getattr(ledger, name), fill) for name, fill in
+             (("absorbed", False), ("face", 0), ("leak", 0)) if name not in cand]
+    if dest.is_cuda and not plain:
+        _put_cuda(cols, dest, shape)
+    elif dest.device.type == "cpu" or plain:
+        for col, val in cols:
+            _put(col, dest, val.reshape(-1) if isinstance(val, torch.Tensor) else val)
+    else:
+        raise ValueError(f"insert_particles: unsupported device {dest.device}")
+
+
+def _put(col: torch.Tensor, dest: torch.Tensor, val) -> None:
+    """``col[dest] = val`` IN PLACE, the writes to index ``col.shape[0]`` dropped:
+    the column is extended by one dump slot, written, and copied back. The plain
+    version of the insert kernel, a column at a time."""
+    ext = torch.cat([col, col[:1]])
+    if isinstance(val, torch.Tensor):
+        ext.index_put_((dest,), val.to(col.dtype))
+    else:
+        ext.index_fill_(0, dest, val)
+    col.copy_(ext[:-1])
+
+
+def _put_cuda(cols: list, dest: torch.Tensor, shape) -> None:
+    """Every ``_put`` of ``cols`` ((ledger column, candidate tensor of ``shape``
+    or a fill value) pairs) in one launch of the insert kernel on PyTorch's
+    current stream, without waiting for it. Raises unless the columns are
+    contiguous on ``dest``'s GPU."""
+    from .ops import cuda_lib
+
+    dev = dest.device
+    rows, k = tuple(shape) if len(shape) == 2 else (1, dest.numel())
+    dst, src, strides, widths, fills, keep = [], [], [], [], [], []
+    for col, val in cols:
+        if col.device != dev or col.dim() != 1 or not col.is_contiguous():
+            raise ValueError("insert kernel: ledger columns must be contiguous on one GPU")
+        dst.append(col.data_ptr())
+        widths.append(col.element_size())
+        if isinstance(val, torch.Tensor):
+            v = val.to(col.dtype).reshape(rows, k)
+            if v.device != dev:
+                raise ValueError("insert kernel: candidates must lie on the ledger's GPU")
+            keep.append(v)
+            src.append(v.data_ptr())
+            strides += list(v.stride())
+            fills.append(0)
+        else:
+            src.append(None)
+            strides += [0, 0]
+            fills.append(int(val))
+    n = len(cols)
+    dest = dest.to(torch.int64).contiguous()
+    cuda_lib.library().call(
+        "jb_insert_launch", n, (ctypes.c_void_p * n)(*dst), (ctypes.c_void_p * n)(*src),
+        (ctypes.c_longlong * (2 * n))(*strides), (ctypes.c_int * n)(*widths),
+        (ctypes.c_ulonglong * n)(*fills), k, dest.data_ptr(), dest.numel(), cols[0][0].numel(),
+        cuda_lib.stream_handle(dev))
+    if dest.numel() > 0:
+        cuda_lib.LAUNCHES["ledger_insert"] += 1
 
 
 def empty_ledger(capacity: int, dtype=torch.float32, device="cpu") -> ParticleLedger:

@@ -16,8 +16,10 @@ idle share of them, the census kernel's launches by instantiation and route
 ``cuda_lib.LAUNCHES``) in the profiled steps, the migration rounds of each step
 under the spatial decomposition, the host's synchronisations with the device per
 step (the same steps once more under ``torch.cuda.set_sync_debug_mode``, each
-synchronising call counted), and ``nvidia-smi``'s card name and power limit.
-``--trace`` also writes the Chrome trace. Needs a GPU.
+synchronising call counted: ``host_syncs``), and ``nvidia-smi``'s card name and
+power limit. The step runs as the driver runs it (a CUDA graph where it can be
+one: the first step eagerly, the second captured, so give ``--warm`` at least 2
+to time replays). ``--trace`` also writes the Chrome trace. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -53,6 +55,20 @@ def device_time_by_name(trace_path: str) -> dict:
     return dict(out)
 
 
+def host_syncs(sim, steps: int) -> int:
+    """The host's synchronisations with the device in ``steps`` steps of ``sim``
+    (``Simulation.run``): each call that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports, the driver's one synchronisation a step among them."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sim.run(nlim=steps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-i", "--input", required=True)
@@ -85,14 +101,7 @@ def main(argv=None) -> int:
         if [h["events"] for h in sim.history[n1:]] != events:
             raise RuntimeError("profile: the profiled steps differ from the timed ones")
         sim.restore(snapshot)
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                sim.run(nlim=args.steps)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        syncs = host_syncs(sim, args.steps)
         trace = args.trace or os.path.join(outdir, "trace.json")
         prof.export_chrome_trace(trace)
         by_name = device_time_by_name(trace)
@@ -106,6 +115,7 @@ def main(argv=None) -> int:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
         print(f"device_ms_per_step {us / n / 1e3!r} {name[:120]}")
     step_ms = statistics.median(wall) * 1e3
+    print(f"step: {'a CUDA graph' if sim.graphed else 'eager'}")
     print(f"launches in the profiled steps: {launches}")
     print(f"migration rounds per step: {rounds}; host synchronisations per step: "
           f"{syncs / n!r}")

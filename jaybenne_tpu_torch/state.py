@@ -4,8 +4,10 @@ Cell arrays are ``[n_blocks, nz, ny, nx]`` tensors on the run's device; the DDMC
 face-probability fields ``ddmc_px/py/pz`` gain one entry along their axis
 (``[B, nz, ny, nx+1]``, ``[B, nz, ny+1, nx]``, ``[B, nz+1, ny, nx]``) and hold
 zeros on inactive axes and in runs without DDMC. The JAX state's PRNG key becomes
-the integer ``seed`` that ``ops.rng`` keys every stream with, and the scalar
-counters are host numbers.
+the integer ``seed`` that ``ops.rng`` keys every stream with. The clock (``t``,
+``cycle``) and the seed are host numbers; ``overflow`` is a 0-dim int64 tensor on
+the run's device, so that a step adds its drops to it without waiting for the
+device (a host number given to the constructor is moved there).
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ class SimState:
     t: float       # simulation time
     cycle: int     # cycle counter
     seed: int      # run seed: keys every random stream (see ops/rng.py)
-    overflow: int  # sourced particles dropped due to a full ledger
+    overflow: torch.Tensor  # sourced particles dropped due to a full ledger (int64)
+
+    def __post_init__(self):
+        if not isinstance(self.overflow, torch.Tensor):
+            self.overflow = torch.tensor(int(self.overflow), dtype=torch.int64,
+                                         device=self.fields.rho.device)
 
 
 def empty_fields(n_blocks, nz, ny, nx, dtype=torch.float32, device="cpu") -> Fields:

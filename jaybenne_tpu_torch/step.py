@@ -16,6 +16,13 @@ reduced over the shards in the integer domain, so they are bitwise those of the
 concatenated ledger. The spatial decomposition's step is
 ``parallel/spatial.py``.
 
+A step waits for the device nowhere: every shape is fixed by the configuration
+(the static-shape insert of ``particles.py``), every counter stays a device
+tensor (``StepStats``, packed for the driver's one read a step; ``overflow``),
+and each constant it needs is made once (``utils/device.py``). So the body of the
+single-device step can be captured into a CUDA graph and replayed
+(``graph.py``), as the JAX package jits it (``jaybenne_tpu/step.py:94-96``).
+
 Census selection mirrors the JAX package's ``_pallas_ok``, by configuration and
 never by failure: ``use_pallas = auto`` or ``on`` runs
 ``transport_kernel.transport`` (the CUDA kernel on a GPU, its plain version on the
@@ -35,20 +42,60 @@ from .ops import fleck as fleck_ops
 from .ops import rng, sourcing, tally
 from .ops import transport as transport_ops
 from .ops import transport_kernel
+from .utils.device import as_device
 
 
-@dataclasses.dataclass
+# the step's counters, in their order in ``StepStats.packed``
+STAT_NAMES = ("iterations", "events", "n_alive", "dropped", "cap_hits", "unfinished",
+              "migration_rounds", "migrated", "alive_max")
+
+
 class StepStats:
-    iterations: torch.Tensor  # census-loop iterations this step (int32)
-    events: torch.Tensor      # particle events this step (int64)
-    n_alive: torch.Tensor     # live particles after the step
-    dropped: torch.Tensor     # sourced particles dropped (ledger overflow)
-    cap_hits: torch.Tensor    # census calls that hit max_transport_iterations
-    unfinished: torch.Tensor  # live particles short of census after transport
-    # the spatial decomposition only, 0 elsewhere: census migration rounds this
-    # step and the particles shipped between shards
-    migration_rounds: int = 0
-    migrated: int = 0
+    """One step's counters, packed in one int64 tensor on the run's device
+    (``packed``, in ``STAT_NAMES`` order) so that the driver reads them all in
+    one copy (``copy_to``). Each name reads its 0-dim view of ``packed``:
+
+      * ``iterations``: census-loop iterations this step;
+      * ``events``: particle events this step;
+      * ``n_alive``: live particles after the step;
+      * ``dropped``: sourced (or, spatial, migrated) particles dropped for a full
+        ledger;
+      * ``cap_hits``: census calls that hit max_transport_iterations;
+      * ``unfinished``: live particles short of census after transport;
+      * ``migration_rounds``, ``migrated``: the spatial decomposition's census
+        rounds this step and the particles shipped between shards (0 elsewhere);
+      * ``alive_max``: the live particles of the fullest shard (``n_alive``
+        without a decomposition), which the driver's ledger growth reads.
+    """
+
+    def __init__(self, packed: torch.Tensor):
+        self.packed = packed
+
+    @classmethod
+    def pack(cls, **counts) -> "StepStats":
+        """The counters ``counts`` (0-dim integer tensors on one device, by the
+        names of ``STAT_NAMES``; the spatial ones default to 0 and ``alive_max``
+        to ``n_alive``) stacked into one int64 tensor."""
+        zero = torch.zeros((), dtype=torch.int64, device=counts["events"].device)
+        counts.setdefault("alive_max", counts["n_alive"])
+        return cls(torch.stack([counts.get(name, zero).to(torch.int64)
+                                for name in STAT_NAMES]))
+
+    def __getattr__(self, name):
+        if name in STAT_NAMES:
+            return self.packed[STAT_NAMES.index(name)]
+        raise AttributeError(name)
+
+    def copy_to(self, buf: torch.Tensor) -> torch.Tensor:
+        """Enqueue the one copy of ``packed`` into ``buf`` (an int64 host buffer of
+        ``len(STAT_NAMES)``, pinned on a GPU run) without waiting for it: the
+        caller synchronises before ``values(buf)`` reads it."""
+        return buf.copy_(self.packed, non_blocking=True)
+
+    @staticmethod
+    def values(buf: torch.Tensor) -> dict:
+        """The counters of a ``copy_to`` buffer as host ints, by name."""
+        return dict(zip(STAT_NAMES, buf.tolist()))
 
 
 def make_transport_params(cfg: RunConfig, dtype) -> transport_ops.TransportParams:
@@ -93,7 +140,7 @@ def total_sigma(f, models, dtype):
     temp = eos.temperature_from_density_internal_energy(f.rho, f.sie)
     sig_t = (opacity.absorption_coefficient(f.rho, temp)
              + scattering.total_scattering_coefficient(f.rho, temp))
-    return torch.as_tensor(sig_t, dtype=dtype, device=f.rho.device).expand(f.rho.shape)
+    return as_device(sig_t, dtype, f.rho.device).expand(f.rho.shape)
 
 
 def with_faces(f, faces):
@@ -135,7 +182,18 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     """The per-cycle step ``step(state, dt) -> (state, StepStats)``, or with
     ``exchange`` the particle decomposition's ``step(states, dt) -> (states,
     StepStats)`` over the local shards' states (see the module docstring). The
-    particle ledgers are updated in place; fields are replaced."""
+    particle ledgers are updated in place; fields are replaced.
+
+    The step is ``step.prologue(states)``, which sets what changes from cycle to
+    cycle on the host (each random stream's generator seeded by ``manual_seed``,
+    the census kernel's seeds copied to the device), then ``step.body(states,
+    dt)``, which takes the lists of states and queues the device work without
+    waiting for it. A CUDA graph (``graph.py``) captures the body once and replays
+    it after the prologue. ``step.generators()`` are the generators the body
+    draws from: one per (phase, shard), kept across steps. ``step.capturable``
+    says whether the body makes no host read, and so can be captured: on one
+    device, with the kernel's census and no external source (the plain census
+    reads its exit test, the external source reads ``t`` on the host)."""
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -155,17 +213,34 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
         ext_num = shard_share(jb.external_source_num or jb.num_particles, n)
     census = census_fn(cfg)
     models = (eos, opacity, scattering)
+    dev = mesh.device
+    phases = ((rng.PHASE_SOURCE,) if jb.do_emission else ()) + (
+        (rng.PHASE_EXTERNAL,) if external else ())
+    gens = {(ph, s): torch.Generator(device=dev) for ph in phases for s in shards}
+    # the census kernel's seed of each shard: on a GPU a one-element view of an
+    # int32 device tensor that each prologue rewrites; on the CPU a host int
+    seeds = {"buf": None, "now": None}
 
     def words(s):
         """The shard word of every stream key under the decomposition, none without."""
         return () if exchange is None else (s,)
 
-    def step(states, dt):
-        single = exchange is None
-        if single:
-            states = [states]
+    def prologue(states):
+        for ph in phases:
+            for st, s in zip(states, shards):
+                rng.reseed(gens[(ph, s)], st.seed, st.cycle, ph, words(s))
+        now = [rng.kernel_seed(st.seed, st.cycle, *words(s)) for st, s in zip(states, shards)]
+        if dev.type == "cuda":
+            if seeds["buf"] is None:
+                seeds["buf"] = torch.empty(len(now), dtype=torch.int32, device=dev)
+                seeds["now"] = [seeds["buf"][k:k + 1] for k in range(len(now))]
+            seeds["buf"].copy_(torch.tensor(now, dtype=torch.int32, pin_memory=True),
+                               non_blocking=True)
+        else:
+            seeds["now"] = now
+
+    def body(states, dt):
         state = states[0]
-        dev = mesh.device
         fs = [with_fleck(st.fields, models, dt, dtype) for st in states]
         if jb.use_ddmc:
             fs = [with_faces(f, fleck_ops.ddmc_face_probs(
@@ -173,14 +248,13 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
                 for f in fs]
         ps = [st.particles for st in states]
 
-        def gens(phase):
-            return [rng.generator(st.seed, st.cycle, phase, dev, words(s))
-                    for st, s in zip(states, shards)]
+        def stream(phase):
+            return [gens[(phase, s)] for s in shards]
 
         kw = dict(eos=eos, opacity=opacity, sb=consts.sb, c=consts.c, dtype=dtype, dt=dt)
         dropped = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
         if jb.do_emission:
-            fs, dropped = _source(fs, ps, gens(rng.PHASE_SOURCE), mesh, exchange,
+            fs, dropped = _source(fs, ps, stream(rng.PHASE_SOURCE), mesh, exchange,
                                   source_type="emission", num_particles=num_particles, **kw)
         else:
             fs = [dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
@@ -190,17 +264,16 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
                                           source_ew=torch.zeros_like(f.source_ew))
                       for f in fs]
         if external:
-            fs, ext_drop = _source(fs, ps, gens(rng.PHASE_EXTERNAL), mesh, exchange,
+            fs, ext_drop = _source(fs, ps, stream(rng.PHASE_EXTERNAL), mesh, exchange,
                                    source_type="external", num_particles=ext_num, t=state.t,
                                    external=external, **kw)
             dropped = [d + e for d, e in zip(dropped, ext_drop)]
         iters, events, unfinished = [], [], []
-        for f, p, st, s in zip(fs, ps, states, shards):
+        for k, (f, p) in enumerate(zip(fs, ps)):
             coefs = transport_ops.precompute_coefs(
                 f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype)
-            seed = rng.kernel_seed(st.seed, st.cycle, *words(s))
-            p, it, ev = census(p, coefs, mesh, seed, prm, dt)
-            iters.append(it)
+            p, it, ev = census(p, coefs, mesh, seeds["now"][k], prm, dt)
+            iters.append(it.to(torch.int64))
             events.append(ev)
             # survivors still short of end-of-step, before the tau reset below
             unfinished.append((p.alive & (p.tau < 1.0)).sum())
@@ -211,24 +284,38 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
             p.absorbed.zero_()
             p.tau.zero_()
         n_alive = [p.alive.sum(dtype=torch.int64) for p in ps]
+        alive_max = n_alive
         unfinished = [u.to(torch.int64) for u in unfinished]
-        if not single:
-            iters = exchange.max(iters)
+        if exchange is not None:
+            iters, alive_max = exchange.max(iters), exchange.max(n_alive)
             events, n_alive, dropped, unfinished = (
                 exchange.sum(v) for v in (events, n_alive, dropped, unfinished))
-        stats = StepStats(
+        stats = StepStats.pack(
             iterations=iters[0],
             events=events[0],
             n_alive=n_alive[0],
             dropped=dropped[0],
-            cap_hits=(iters[0] >= prm.max_iters).to(torch.int32),
+            cap_hits=iters[0] >= prm.max_iters,
             unfinished=unfinished[0],
+            alive_max=alive_max[0],
         )
         new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt, cycle=st.cycle + 1,
-                                   overflow=st.overflow + int(dropped[0]))
+                                   overflow=st.overflow + dropped[0])
                for st, f, p in zip(states, fs, ps)]
+        return new, stats
+
+    def step(states, dt):
+        single = exchange is None
+        states = [states] if single else list(states)
+        prologue(states)
+        new, stats = body(states, dt)
         return (new[0] if single else new), stats
 
+    step.prologue = prologue
+    step.body = body
+    step.generators = lambda: list(gens.values())
+    step.capturable = (exchange is None and external is None
+                       and census is transport_kernel.transport)
     return step
 
 
@@ -236,7 +323,8 @@ def initialize_radiation(state, mesh, cfg: RunConfig, exchange=None):
     """Thermal-source the initial photon field (if requested) and evaluate the tally
     for outputs. The ledger is filled in place. With ``exchange`` (the particle
     decomposition, JAX ``sharding.make_sharded_init``) ``state`` is the list of
-    the local shards' states, each sourcing its share."""
+    the local shards' states, each sourcing its share. The drops are added to
+    ``overflow`` on the device."""
     jb = cfg.jaybenne
     single = exchange is None
     states = [state] if single else state
@@ -244,7 +332,7 @@ def initialize_radiation(state, mesh, cfg: RunConfig, exchange=None):
     n = 1 if single else exchange.n
     fs = [st.fields for st in states]
     ps = [st.particles for st in states]
-    dropped = [0] * len(states)
+    dropped = [torch.zeros((), dtype=torch.int64, device=mesh.device) for _ in states]
     if cfg.mcblock.initial_radiation == InitialRadiation.thermal:
         consts = cfg.mcblock.build_opacity().get_runtime_physical_constants()
         gens = [rng.generator(st.seed, 0, rng.PHASE_INIT, mesh.device, () if single else (s,))
@@ -252,7 +340,7 @@ def initialize_radiation(state, mesh, cfg: RunConfig, exchange=None):
         fs, drops = _source(fs, ps, gens, mesh, exchange, source_type="thermal",
                             eos=cfg.mcblock.build_eos(), sb=consts.sb, c=consts.c,
                             num_particles=shard_share(jb.num_particles, n), dtype=jb.dtype)
-        dropped = [int(d) for d in (drops if single else exchange.sum(drops))]
+        dropped = drops if single else exchange.sum(drops)
     fs = _tallies(fs, ps, mesh, exchange, absorb=False)
     new = [dataclasses.replace(st, fields=f, particles=p, overflow=st.overflow + d)
            for st, f, p, d in zip(states, fs, ps, dropped)]

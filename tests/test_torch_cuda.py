@@ -1259,7 +1259,9 @@ def test_f64_kernel_bitwise_plain(gpu, route):
 ])
 def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
     """A float64 deck through run_file on the card: one float64 census launch and
-    one float64 table launch a step and no other, float64 state, a bitwise rerun."""
+    one float64 table launch a step, one insert launch a run (the initial
+    radiation's births; the insert kernel copies bytes of either width) and no
+    other, float64 state, a bitwise rerun."""
     mods = {**mods, "jaybenne/num_particles": 20000, "parthenon/output0/file_type": "none",
             "jaybenne/precision": "f64"}
     cuda_lib.LAUNCHES.clear()
@@ -1267,7 +1269,7 @@ def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
                      modified_inputs=mods, quiet=True, nlim=3, device="cuda") for _ in range(2)]
     name = transport_kernel.launch_name(1, False, deck == "stepdiff_ddmc.in",
                                         dtype=torch.float64)
-    assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6}
+    assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6, "ledger_insert": 2}
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.dtype == torch.float64 and sims[0].state.particles.x.dtype == torch.float64
     assert torch.equal(a, b)
@@ -1284,3 +1286,56 @@ def test_f64_census_table_kernel_matches_plain(gpu, layout):
     cs.table_check(transport_kernel, gpu, cs.coefs_as(coefs, torch.float64), mesh,
                    cs.prm_as(prm, torch.float64), dt, None, f"{layout} f64")
     assert cuda_lib.LAUNCHES["census_table_f64"] > before
+
+
+# ------------------------------------------------ the step without the host
+
+
+def test_plain_census_deck_runs_eagerly_on_the_card(gpu, tmp_path):
+    """``use_pallas = off`` on the card through run_file for 3 steps: the plain
+    census reads its exit test, so the step is not captured (``capturable`` is
+    false) and runs eagerly past the step a graph would capture, with no census
+    launch, and a rerun is bitwise identical."""
+    mods = {"parthenon/mesh/nx1": 64, "parthenon/meshblock/nx1": 64,
+            "jaybenne/num_particles": 20000, "jaybenne/use_pallas": "off",
+            "parthenon/output0/file_type": "none"}
+    cuda_lib.LAUNCHES.clear()
+    sims = [run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
+                     nlim=3, device="cuda") for _ in range(2)]
+    assert not any(s.graphed for s in sims) and [s.cycle for s in sims] == [3, 3]
+    assert not any(k.startswith("transport") for k in cuda_lib.LAUNCHES)
+    a, b = (s.state.fields.energy_tally for s in sims)
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+_INSERT_PATHS = {  # (deck, overrides, steps, the candidates recorded, calls kept)
+    "stepdiff_initial_source": (STEPDIFF, {"parthenon/mesh/nx1": 128,
+                                           "parthenon/meshblock/nx1": 64}, 0, None, 1),
+    "spatial_migration": (STEPDIFF, {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
+                                     "jaybenne/decomposition": "spatial",
+                                     "jaybenne/n_devices": 4, "jaybenne/dt": "1.e-11",
+                                     "mcblock/scattering_constant_value": 200.0},
+                          1, "face", 4),
+    "f64_initial_source": (STEPDIFF, {"parthenon/mesh/nx1": 128, "parthenon/meshblock/nx1": 64,
+                                      "jaybenne/precision": "f64"}, 0, None, 1),
+}
+
+
+@pytest.mark.parametrize("path", sorted(_INSERT_PATHS))
+def test_insert_kernel_matches_plain_on_path_shapes(gpu, tmp_path, path):
+    """The insert kernel bitwise its plain version (chip_smoke.inserts_bitwise) on
+    the writes a run makes: the initial thermal source's [cells, candidates a
+    cell] grid with its broadcast columns, the spatial migration arrivals (with
+    ``reserved``; face and leak carried) and a float64 ledger."""
+    cs = _chip_smoke()
+    deck, mods, steps, key, keep = _INSERT_PATHS[path]
+    mods = {**mods, "jaybenne/num_particles": 8000, "parthenon/output0/file_type": "none"}
+    calls = cs.recorded_inserts(
+        lambda: run_file(deck, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
+                         nlim=steps, device="cuda", graph=False),
+        lambda cand: key is None or key in cand, keep)
+    cs.inserts_bitwise(calls, path)
+    if key is None:  # the grid: candidates along a row, per-cell columns broadcast
+        _, cand, _, shape = calls[0]
+        assert len(shape) == 2 and shape[1] > 1
+        assert any(0 in v.stride() for v in cand.values())
