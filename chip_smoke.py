@@ -25,7 +25,9 @@ Phases:
      scatter in the lane's cell; a crossing; any outcome but a wall; the whole
      loop) of transport_1d, transport_2d_abs, transport_2d_smr and
      transport_3d_abs; the counting variant of the kernel (``path_mix_library``)
-     built beside the library;
+     built beside the library; the native mesh builder's g++ seconds and its
+     forests of stepdiff_smr_hybrid and stepdiff_3d against the Python builder's
+     (bitwise, each timed: ``native_build_line``);
   3. K2: the CUDA raw_bits hash is bit-identical to the PyTorch hash;
   4. K1(a): the CUDA census kernel against its plain version on one ledger
      (2^17 particles, gate mesh, sigma_s = 1024): after 8 iterations integer state
@@ -176,7 +178,9 @@ Phases:
  30. big_mesh_spatial (bench.py:291-313: 64^3, 8^3 blocks, 200k particles, 3
      steps, spatial) at 1 and 8 shards: events within 5 % of the JAX package's
      658342636, sum(tally dV) equal to the live weight to 1e-5, every census
-     complete, one census launch a round (launches a step printed); migration
+     complete, one census launch a round queued (the rounds of a batch, its
+     no-op rounds too; launches a step printed; the steps after the first run as
+     CUDA graphs); migration
      rounds, migrated particles, step times and events/s printed; K3s timed on
      the first round (one launch over the 8 shards, with the fold: every column of
      the joined ledger bitwise the plain version's), with the slot order's warp
@@ -246,12 +250,17 @@ Phases:
  45. the step without the host: a CUDA graph's replay after manual_seed draws
      what the eager draw does (``CUDAGraph.register_generator_state``); each of
      ``GRAPH_PATHS`` (stepdiff, stepdiff_ddmc, the 64^3 DDMC and feedback rows,
-     stepdiff_smr, stepdiff with ep_bremss, stepdiff at precision = f64, and a 2D
-     feedback path whose ledger grows mid-run, so that it is captured again) run
-     step by step with the eager step and with the graph (``run_file(...,
-     graph=False)`` and as the driver runs it), every field, ledger column,
-     counter, ``overflow`` and the launches bitwise equal after every step, then
-     one more replay under ``torch.cuda.set_sync_debug_mode("error")``; the
+     stepdiff_smr, stepdiff with ep_bremss, stepdiff at precision = f64, a 2D
+     feedback path whose ledger grows mid-run, so that it is captured again,
+     Su-Olson across tmax, and graphs of the spatial step's head, batches of
+     rounds and tail: big_mesh_spatial at 8 and at 1 shard, phase 33's SMR+DDMC
+     deck at 8 shards, and Su-Olson at 2 shards across tmax, its ledger growing
+     so that its graphs are captured again) run step by step with
+     the eager step and with the graph (``run_file(..., graph=False)`` and as the
+     driver runs it), every field, ledger column, counter, ``overflow`` and the
+     launches bitwise equal after every step, then one more replay under
+     ``torch.cuda.set_sync_debug_mode("error")``, a spatial batch's exit read
+     alone let through and counted (one a batch); the
      insert kernel (csrc/insert_kernel.cu) bitwise its plain version and the
      boolean-mask insert on the 64^3 feedback row, timed beside its bound (its
      launches are phase 9's: the initial radiation's births and one a step), and
@@ -259,12 +268,13 @@ Phases:
      (``insert_paths_check``: stepdiff's initial source, a grid with broadcast
      columns; the 8-shard spatial step's migration arrivals, with ``reserved``;
      stepdiff's initial source at precision = f64); the
-     8-shard big_mesh_spatial step under the same mode but for each round's exit
-     read (counted: one a round) and the step's packed read; the host's
-     synchronisations a step (``profile.host_syncs``) on stepdiff, the 64^3
-     feedback row, Su-Olson (an external source: the eager step) and the 8-shard
+     8-shard big_mesh_spatial step, eager and replayed, under the same mode but
+     for each batch's exit read (counted: one a batch) and the step's packed read;
+     the host's synchronisations a step (``profile.host_syncs``) on stepdiff, the
+     64^3 feedback row, Su-Olson (0 a step, or the phase fails) and the 8-shard
      spatial row; the step wall times, eager against graph replays, of stepdiff,
-     the 64^3 DDMC and feedback rows and stepdiff_smr, and the spatial row's.
+     the 64^3 DDMC and feedback rows, stepdiff_smr, Su-Olson and the spatial
+     rows.
 
 The recorded runs of phases 12-14, 16-21 and 23-25 and of ``census_bench.py``
 run the eager step (``graph=False``): a CUDA graph's replay calls no Python, so
@@ -292,6 +302,7 @@ tensor cores; 34 TFLOP/s FP64 for a float64 route), from this run's events (see
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -301,6 +312,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -474,6 +486,7 @@ NG_GATE_JAX = (2815, 443.0566841735298)
 NG_SMR_JAX = (2730, 442.2889385852185)
 NG_BIG_JAX_EVENTS = 1355348
 SUOLSON_DECK = os.path.join(ROOT, "inputs", "suolson.in")
+SUOLSON_GRAPH_STEPS = 22  # phase 45: past the step in which the source window closes
 SUOLSON = {  # tst/suolson.py's overrides: a closed slab
     "parthenon/swarm/ix1_bc": "jaybenne_reflecting",
     "parthenon/swarm/ox1_bc": "jaybenne_reflecting",
@@ -540,9 +553,29 @@ GRAPH_PATHS = (
     ("the 2D feedback path with a growing ledger", DECK,
      {**FEEDBACK_2D, "jaybenne/num_particles": 20000, "jaybenne/capacity_factor": 1,
       "mcblock/opacity_constant_value": 1e-3}, 8),
+    # an external source: the window at tmax = 2e-11 closes in step 20 (dt 1e-12)
+    ("Su-Olson across tmax", SUOLSON_DECK, SUOLSON, SUOLSON_GRAPH_STEPS),
+    # the spatial step: graphs of its head, its batches of rounds and its tail
+    ("big_mesh_spatial at 8 shards", DECK, {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8},
+     BIG_SPATIAL_STEPS + 1),
+    ("big_mesh_spatial at 1 shard", DECK, {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 1},
+     BIG_SPATIAL_STEPS + 3),
+    # phase 33's deck: the block route (K4s), the fixup generators of every
+    # (shard, batch slot) and the pending coarse-to-fine leaks they resolve
+    ("stepdiff_smr_ddmc spatial at 8 shards", SMR_DDMC_DECK,
+     {**SMR_SPATIAL, **SPATIAL, "jaybenne/n_devices": 8, "parthenon/time/tlim": "5.e-11"},
+     SMR_SPATIAL_STEPS + 2),
+    # the spatial step's external source (each shard's source cells, the window
+    # buffer) across its cutoff, and its graphs captured again after the ledger grew
+    ("Su-Olson at 2 spatial shards across tmax with a growing ledger", SUOLSON_DECK,
+     {**SUOLSON, **SPATIAL, "jaybenne/n_devices": 2, "parthenon/meshblock/nx1": 32,
+      "mcblock/opacity_constant_value": 1.0, "jaybenne/capacity_factor": 1,
+      "jaybenne/external_source_tmax": "4.5e-12"}, 7),
 )
 # the rows whose step wall times phase 45 prints, eager against graph
-GRAPH_TIMED = ("stepdiff", "the 64^3 DDMC row", "the 64^3 feedback row", "stepdiff_smr")
+GRAPH_TIMED = ("stepdiff", "the 64^3 DDMC row", "the 64^3 feedback row", "stepdiff_smr",
+               "Su-Olson across tmax", "big_mesh_spatial at 8 shards",
+               "big_mesh_spatial at 1 shard")
 # the 8-shard spatial step's host synchronisations before this port's step ran
 # without them (profile.py, one H100): a step, a migration round
 SPATIAL_SYNCS_BEFORE = (12254, 161)
@@ -568,6 +601,35 @@ EVENT_LOOP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_2d_smr", "tr
 
 
 PHASE = [""]  # the number of the phase that runs
+
+
+def native_build_line() -> None:
+    """Phase 2's native mesh builder: g++'s seconds, and on stepdiff_smr_hybrid's
+    and stepdiff_3d's forests the native builder's ms against the Python
+    builder's, every tensor bitwise."""
+    from jaybenne_tpu_torch import config as config_mod
+    from jaybenne_tpu_torch import native
+    from jaybenne_tpu_torch.mesh import build_mesh
+    from jaybenne_tpu_torch.utils.deck import Deck
+
+    mb = native.load_mesh_builder()
+    line = (f"native mesh builder: g++ {mb.build_seconds!r} s ({mb.path.name}, "
+            f"{' '.join(native.GXX_FLAGS)})")
+    for deck in (HYBRID_DECK, SMR3D_DECK):
+        cfg = config_mod.from_deck(Deck.from_file(deck)).mesh
+        ms = {}
+        for use in (True, False):
+            t0 = time.perf_counter()
+            mesh = build_mesh(cfg, use_native=use)
+            ms[use] = (time.perf_counter() - t0) * 1e3
+            ms[(use, "mesh")] = mesh
+        a, b = ms[(True, "mesh")], ms[(False, "mesh")]
+        for key in ("block_origin", "block_dx", "block_level", "lookup"):
+            if not bitwise_equal(getattr(a, key), getattr(b, key)):
+                raise AssertionError(f"native mesh builder: {key} differs on {deck}")
+        line += (f"; {os.path.basename(deck)} ({a.n_blocks} blocks): native {ms[True]!r} ms, "
+                 f"Python {ms[False]!r} ms, bitwise equal")
+    print(line, flush=True)
 
 
 def phase(name):
@@ -1831,8 +1893,8 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
     radiation energy before the first step; the run, with the launch counts set
     to 0 just before it and read just after, the eager step (``graph=False``) so
     that the inputs of its last census are recorded; its peak device memory; a
-    rerun with the same seed, as the driver runs it (a CUDA graph on one device
-    without an external source). Raises unless ``launch`` ran
+    rerun with the same seed, as the driver runs it (a CUDA graph on one device,
+    an external source's step too). Raises unless ``launch`` ran
     ``per_step`` times a step (once, or once a shard), every census completed
     short of the iteration cap, nothing was dropped, sum(tally dV) was conserved
     to ``energy_rtol`` (a number, or a function of the run; unless not
@@ -2659,19 +2721,42 @@ class RoundRecorder:
         if self.inputs is None and isinstance(particles, list):
             from jaybenne_tpu_torch.particles import join_slices
 
-            self.inputs = (join_slices(particles)[0].clone(), len(particles), args)
+            setup, mesh, seeds, *rest = args
+            if isinstance(seeds, torch.Tensor):  # a row of the step's seed buffer
+                seeds = seeds.clone()
+            self.inputs = (join_slices(particles)[0].clone(), len(particles),
+                           (setup, mesh, seeds, *rest))
         return self.real(particles, *args)
 
-    def _fix(self, p, faces, mesh, c, gen, offset, n_local):
-        need = p.alive & (p.leak != 0) & (p.block >= offset) & (p.block < offset + n_local)
-        self.resolved += int(need.sum())
-        return self.real_fix(p, faces, mesh, c, gen, offset, n_local)
+    def _fix(self, p, faces, mesh, c, gen, offset, n_local, go=None):
+        if not torch.cuda.is_current_stream_capturing():  # a replay calls no Python
+            need = p.alive & (p.leak != 0) & (p.block >= offset) & (p.block < offset + n_local)
+            self.resolved += int((need if go is None else need & go).sum())
+        return self.real_fix(p, faces, mesh, c, gen, offset, n_local, go=go)
 
 
-def spatial_path(deck, mods, steps, what):
+def spatial_core(sim):
+    """A spatial run's step (``build_spatial_step_core``), graphed or not."""
+    return sim.step_fn.step if sim.graphed else sim.step_fn
+
+
+def rounds_queued(sim) -> int:
+    """The migration rounds a spatial run queued, the no-op rounds that end a
+    batch too (one census launch each)."""
+    return spatial_core(sim).rounds_run
+
+
+def batches_of(sim, rounds: int) -> int:
+    """The batches (host reads) of a spatial step that ran ``rounds`` rounds."""
+    return -(-rounds // spatial_core(sim).rounds_per_batch)
+
+
+def spatial_path(deck, mods, steps, what, graph=True):
     """A deck under a decomposition through ``driver.run_file`` on the GPU for
-    ``steps`` steps (``None``: to its tlim), the launch counts set to 0 just before
-    and read just after, the first round recorded. Raises unless every step
+    ``steps`` steps (``None``: to its tlim; ``graph`` as ``run_file``'s), the launch
+    counts set to 0 just before and read just after, the first round recorded
+    (the pending leaks resolved are counted in eager steps only: a replay calls no
+    Python). Raises unless every step
     completed its census with nothing dropped, every round made one census launch
     (``launch``), and the tally is finite and equals the live weight (sum(tally
     dV), to ENERGY_RTOL). Returns (sim, launches, the recorded round, pending
@@ -2683,7 +2768,7 @@ def spatial_path(deck, mods, steps, what):
         with RoundRecorder(transport_kernel) as rec:
             cuda_lib.LAUNCHES.clear()
             sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
-                           device="cuda")
+                           device="cuda", graph=graph)
             launches = dict(cuda_lib.LAUNCHES)
             note_table(what, launches)
     p = sim.state.particles
@@ -2700,11 +2785,14 @@ def spatial_path(deck, mods, steps, what):
     step_s = [h["step_seconds"] for h in sim.history]
     rounds = [h["migration_rounds"] for h in sim.history]
     census = {k: v for k, v in launches.items() if k.startswith("transport_")}
-    if sum(census.values()) != sum(rounds):
-        raise AssertionError(f"{what}: census launches {census} for {sum(rounds)} rounds")
+    if sum(census.values()) != rounds_queued(sim):
+        raise AssertionError(f"{what}: census launches {census} for {rounds_queued(sim)} "
+                             "rounds queued")
     print(f"{what}: {sim.mesh.n_blocks} blocks, {sim.mesh.total_cells} cells, "
-          f"{sim.cfg.jaybenne.n_devices} shards, {sim.cycle} steps: launches {launches}; "
-          f"census launches a step {rounds} (one a round); "
+          f"{sim.cfg.jaybenne.n_devices} shards, {sim.cycle} steps "
+          f"({'CUDA graphs' if sim.graphed else 'eager'}): launches {launches}; "
+          f"rounds a step {rounds}, {rounds_queued(sim)} rounds queued in batches of "
+          f"{spatial_core(sim).rounds_per_batch} (one census launch a round queued); "
           f"events {sim.total_events}; migration rounds "
           f"{[h['migration_rounds'] for h in sim.history]}, migrated "
           f"{[h['migrated'] for h in sim.history]}; sum(tally dV) {e!r} vs live weight "
@@ -2794,10 +2882,10 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
                     f"big_mesh_spatial at {n} shards")
     name_z = transport_kernel.launch_name(3, False, route="@z")
     for n in (1, 8):
-        rounds = sum(h["migration_rounds"] for h in big[n][0].history)
+        rounds = rounds_queued(big[n][0])
         if big[n][1].get(name_z, 0) != rounds:
             raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}, {rounds} "
-                                 "rounds")
+                                 "rounds queued")
     k_z = round_kernel(transport_kernel, dev, big[8][2], name_z, cost)
     table_check(transport_kernel, dev, *big[8][4], "big_mesh_spatial's first step at 8 shards "
                 "(8 coefficient sets)")
@@ -2826,9 +2914,11 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
 
     phase("33 spatial + SMR + DDMC at 8 shards: tests/test_spatial.py:546-586's deck, "
           "32x16 in 8x8 blocks, 96k particles, 2 steps")
+    # the eager step: every step's resolved leaks are counted (a replay calls no
+    # Python); phase 45 holds this deck's graphs against its eager step
     sp8, sp_launches, sp_round, resolved, _ = spatial_path(
         SMR_DDMC_DECK, {**SMR_SPATIAL, **SPATIAL, "jaybenne/n_devices": 8}, SMR_SPATIAL_STEPS,
-        "stepdiff_smr_ddmc spatial, 8 shards")
+        "stepdiff_smr_ddmc spatial, 8 shards", graph=False)
     left = int((sp8.state.particles.alive & (sp8.state.particles.leak != 0)).sum())
     if resolved == 0 or left:
         raise AssertionError(f"spatial SMR DDMC: {resolved} pending leaks resolved, {left} left")
@@ -2840,7 +2930,7 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
     gate(weighted_difference(sp8.state.fields.energy_tally, one.state.fields.energy_tally),
          SMR_SPATIAL_TOL, "spatial SMR DDMC at 8 shards: weighted difference from one device")
     name_f = transport_kernel.launch_name(2, False, True, True, route="@blocks")
-    if sp_launches.get(name_f, 0) != sum(h["migration_rounds"] for h in sp8.history):
+    if sp_launches.get(name_f, 0) != rounds_queued(sp8):
         raise AssertionError(f"spatial SMR DDMC: launches {sp_launches}")
     k_f = round_kernel(transport_kernel, dev, sp_round, name_f, cost)
 
@@ -3511,6 +3601,29 @@ def insert_paths_check(dev, outdir) -> None:
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def exit_reads_counted(spatial_mod):
+    """While active, each spatial batch's exit read (``spatial._exit_read``) is
+    counted in the yielded list's one entry, and runs with synchronisation allowed
+    whatever the debug mode."""
+    reads, real = [0], spatial_mod._exit_read
+
+    def counted(t):
+        reads[0] += 1
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(t)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    spatial_mod._exit_read = counted
+    try:
+        yield reads
+    finally:
+        spatial_mod._exit_read = real
+
+
 def graph_phase(dev, smi) -> dict:
     """Phase 45: the step without the host. Returns the insert kernel's ``kernels``
     entry (``insert_check``)."""
@@ -3569,16 +3682,26 @@ def graph_phase(dev, smi) -> dict:
             grown = [k for k in range(1, steps) if caps[k] != caps[k - 1]]
             if "growing" in what and not any(kinds[k] == "capture" and k >= 2 for k in grown):
                 raise AssertionError(f"{what}: no capture after the ledger grew: {kinds}, {caps}")
-            # one more replay, with every synchronisation an error
-            st, dt = graph.state, graph.history[-1]["dt"]  # its graph holds these tensors
+            # one more replay, with every synchronisation an error but a spatial
+            # batch's exit read (counted)
+            dt = graph.history[-1]["dt"]  # its graphs hold the state's tensors
             captures = graph.step_fn.captures
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                graph._state, _ = graph.step_fn(st, dt)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+            with exit_reads_counted(spatial_mod) as reads:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    if graph.shards is None:
+                        graph._state, stats = graph.step_fn(graph.state, dt)
+                    else:
+                        graph.shards, stats = graph.step_fn(graph.shards, dt)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
             if graph.step_fn.captures != captures:
                 raise AssertionError(f"{what}: the last step captured, it did not replay")
+            rounds = dict(zip(STAT_NAMES, stats.packed.tolist()))["migration_rounds"]
+            if graph.shards is not None and reads[0] != batches_of(graph, rounds):
+                raise AssertionError(f"{what}: {reads[0]} exit reads for {rounds} rounds")
+            if graph.shards is None and reads[0]:
+                raise AssertionError(f"{what}: {reads[0]} exit reads in a single-device step")
             ew = [h["step_seconds"] for h in eager.history[1:]]
             gw = [h["step_seconds"] for h, k in zip(graph.history, kinds) if k == "replay"]
             walls[what] = (ew, gw)
@@ -3586,53 +3709,47 @@ def graph_phase(dev, smi) -> dict:
                   f"counter and overflow bitwise equal after every step, launches equal "
                   f"({launches[1]} in the last step); steps {kinds}, {graph.step_fn.captures} "
                   f"captures, capacities {caps}; a replay under set_sync_debug_mode('error') "
-                  f"ran", flush=True)
+                  f"ran" + (f", {rounds} rounds in {reads[0]} batches, one exit read each"
+                            if graph.shards is not None else ""), flush=True)
             if what == "the 64^3 feedback row":
                 insert = insert_check(dev, graph, smi)
                 insert_paths_check(dev, outdir)
             del sims, eager, graph
             torch.cuda.empty_cache()
 
-        # the 8-shard spatial step: only each round's exit read and the step's
-        # packed read may synchronise
+        # the 8-shard spatial step, eager and replayed: only each batch's exit read
+        # and the step's packed read may synchronise
         mods = {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}
-        sim = driver.run_file(DECK, outdir=outdir, modified_inputs=mods, quiet=True, nlim=1,
-                              device="cuda")
-        reads, rounds = [0], 0
-        real = spatial_mod._exit_read
-
-        def counted(t):
-            reads[0] += 1
-            torch.cuda.set_sync_debug_mode("default")
-            try:
-                return real(t)
-            finally:
-                torch.cuda.set_sync_debug_mode("error")
-
-        spatial_mod._exit_read = counted
-        dt = sim.cfg.jaybenne.dt
-        try:
-            for _ in range(BIG_SPATIAL_STEPS):
-                torch.cuda.set_sync_debug_mode("error")
-                sim.shards, stats = sim.step_fn(sim.shards, dt)
-                torch.cuda.set_sync_debug_mode("default")
-                rounds += dict(zip(STAT_NAMES, stats.packed.tolist()))["migration_rounds"]
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-            spatial_mod._exit_read = real
-        if reads[0] != rounds:
-            raise AssertionError(f"spatial: {reads[0]} exit reads for {rounds} rounds")
-        print(f"big_mesh_spatial at 8 shards, {BIG_SPATIAL_STEPS} steps under "
-              f"set_sync_debug_mode('error'): {rounds} rounds, {reads[0]} exit reads (one a "
-              f"round), and one packed read a step", flush=True)
-        del sim
+        for g in (False, True):
+            sim = driver.run_file(DECK, outdir=outdir, modified_inputs=mods, quiet=True,
+                                  nlim=2, device="cuda", graph=g)  # eager, then captured
+            rounds, batches = 0, 0
+            dt = sim.cfg.jaybenne.dt
+            with exit_reads_counted(spatial_mod) as reads:
+                try:
+                    for _ in range(BIG_SPATIAL_STEPS):
+                        torch.cuda.set_sync_debug_mode("error")
+                        sim.shards, stats = sim.step_fn(sim.shards, dt)
+                        torch.cuda.set_sync_debug_mode("default")
+                        r = dict(zip(STAT_NAMES, stats.packed.tolist()))["migration_rounds"]
+                        rounds += r
+                        batches += batches_of(sim, r)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            if reads[0] != batches:
+                raise AssertionError(f"spatial: {reads[0]} exit reads for {batches} batches")
+            print(f"big_mesh_spatial at 8 shards ({'CUDA graphs' if sim.graphed else 'eager'}"
+                  f"), {BIG_SPATIAL_STEPS} steps under set_sync_debug_mode('error'): {rounds} "
+                  f"rounds in {batches} batches of {spatial_core(sim).rounds_per_batch}, "
+                  f"{reads[0]} exit reads "
+                  f"(one a batch), and one packed read a step", flush=True)
+            del sim
 
         # host synchronisations a step, as profile.py counts them (the driver's one
         # synchronisation a step among them)
         for what, deck, mods in (("stepdiff", DECK, GATE), ("the 64^3 feedback row", DECK,
                                                             FEEDBACK),
-                                 ("Su-Olson (eager: an external source)", SUOLSON_DECK,
-                                  SUOLSON),
+                                 ("Su-Olson", SUOLSON_DECK, SUOLSON),
                                  ("big_mesh_spatial at 8 shards", DECK,
                                   {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8})):
             sim = driver.run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True,
@@ -3642,20 +3759,18 @@ def graph_phase(dev, smi) -> dict:
             hist = sim.history[n0:]
             rounds = sum(h["migration_rounds"] for h in hist)
             per_round = f", {syncs / rounds!r} a round ({rounds} rounds)" if rounds else ""
-            if sim.exchange is not None:  # timed on steps of their own, not under "warn"
-                n1 = len(sim.history)
-                sim.run(nlim=SYNC_STEPS)
-                walls[what] = ([], [h["step_seconds"] for h in sim.history[n1:]])
-            print(f"host synchronisations, {what} ({'a CUDA graph' if sim.graphed else 'eager'}"
+            if what == "Su-Olson" and syncs:
+                raise AssertionError(f"Su-Olson: {syncs} host synchronisations in {len(hist)} "
+                                     "steps")
+            print(f"host synchronisations, {what} ({'CUDA graphs' if sim.graphed else 'eager'}"
                   f"): {syncs / len(hist)!r} a step{per_round} over {len(hist)} steps; "
                   f"before, the 8-shard spatial step made {SPATIAL_SYNCS_BEFORE[0]} a step, "
                   f"{SPATIAL_SYNCS_BEFORE[1]} a round", flush=True)
             del sim
-    for what in GRAPH_TIMED + ("big_mesh_spatial at 8 shards",):
+    for what in GRAPH_TIMED:
         ew, gw = walls[what]
         line = f"step wall ms, {what} ({smi}): "
-        for name, w in (("eager", ew), ("graph replay" if what in GRAPH_TIMED else "eager "
-                                                                                   "spatial", gw)):
+        for name, w in (("eager", ew), ("graph replay", gw)):
             if w:
                 ms = [v * 1e3 for v in w]
                 line += (f"{name} median {statistics.median(ms)!r} range [{min(ms)!r}, "
@@ -3683,6 +3798,7 @@ def main() -> int:
 
     lib = cuda_lib.library()
     print(f"build_seconds {lib.build_seconds!r}  ({lib.path.name})", flush=True)
+    native_build_line()
     resources = kernel_resources(lib.build_log, transport_kernel)
     for ndim in (1, 2, 3):
         for smr in (False, True):

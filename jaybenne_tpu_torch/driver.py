@@ -26,16 +26,18 @@ own slices. ``jaybenne/debug_checks`` validates the state after every step
 (``utils/debug.py``); ``--profile-dir`` runs the run under ``torch.profiler`` and
 writes its Chrome trace there.
 
-On a GPU the single-device step (no decomposition) of a deck without an external
-source that runs the kernel's census runs as a CUDA graph (``graph.py``): the
-first step eagerly, then captured and replayed. The CPU, a deck with an external
-source (its births read the step's start time on the host), ``use_pallas = off``
-(the plain census reads its exit test) and both decompositions run the step
-eagerly (``build_step_core``'s ``capturable``);
-``Simulation(graph=False)`` asks for the eager step anywhere. Either way the step
-queues its work without waiting for the device, and the driver waits once a
-step: it enqueues one copy of the step's packed counters (``StepStats``) into a
-pinned buffer, synchronises, and reads every counter from there.
+On a GPU a step that runs the kernel's census runs as CUDA graphs (``graph.py``):
+the first step eagerly, then captured and replayed. The single-device step (an
+external source's too: its window is copied to the device before each replay) is
+one graph; the spatial decomposition's step with the in-process exchange is a
+graph of its head, one of a batch of migration rounds and one of its tail, with
+one host read a batch. The CPU, ``use_pallas = off`` (the plain census reads its
+exit test), the particle decomposition and a ``torch.distributed`` spatial step
+run eagerly (``capturable``); ``Simulation(graph=False)`` asks for the eager step
+anywhere. Either way the step queues its work without waiting for the device but
+for a spatial batch's exit read, and the driver waits once a step: it enqueues
+one copy of the step's packed counters (``StepStats``) into a pinned buffer,
+synchronises, and reads every counter from there.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from .mesh import build_mesh
 from .models.problems import generate_problem
 from .parallel import exchange as exchange_mod
 from .parallel import sharding, spatial
-from .graph import GraphedStep, state_tensors
+from .graph import GraphedSpatialStep, GraphedStep, state_tensors
 from .particles import ParticleLedger
 from .step import STAT_NAMES, StepStats, build_step_core, initialize_radiation
 from .utils.debug import validate_state
@@ -72,10 +74,12 @@ class Simulation:
     """Host-side orchestration around the step, on one ``device``. ``state`` is
     the run's ``SimState``; under a decomposition it is assembled from the local
     shards' states (the fields of every shard, the one ledger their ledgers are
-    slices of), the process's own shard only in a process group."""
+    slices of), the process's own shard only in a process group.
+    ``rounds_per_batch`` is the spatial step's (``build_spatial_step_core``'s
+    default when None)."""
 
     def __init__(self, cfg: config_mod.RunConfig, outdir: str = ".", quiet: bool = False,
-                 device="cuda", restart=None, graph=True):
+                 device="cuda", restart=None, graph=True, rounds_per_batch=None):
         self.cfg = cfg
         self.outdir = outdir
         os.makedirs(outdir, exist_ok=True)
@@ -122,7 +126,12 @@ class Simulation:
             self._ledger = state.particles
             ex, mesh = self.exchange, self.mesh
             if self.spatial:
-                self.step_fn = spatial.build_spatial_step_core(mesh, cfg, ex)
+                self.step_fn = spatial.build_spatial_step_core(mesh, cfg, ex,
+                                                               rounds_per_batch)
+                self.graphed = (graph and self.device.type == "cuda"
+                                and self.step_fn.capturable)
+                if self.graphed:
+                    self.step_fn = GraphedSpatialStep(self.step_fn)
                 padded = spatial.pad_field_blocks(state.fields, mesh, ex.n)
                 states = sharding.local_states(
                     state, ex, lambda s: spatial.shard_fields(padded, mesh, ex.n, s))
@@ -201,15 +210,21 @@ class Simulation:
         return copy.deepcopy((self._state, self.shards, self._ledger, self.t, self.cycle))
 
     def restore(self, snap) -> None:
-        """Back to a ``snapshot`` (which stays usable). Without a decomposition the
-        snapshot's values are copied into the state's own tensors where they have
-        its shapes, so that a step's CUDA graph, which holds their pointers, stays
+        """Back to a ``snapshot`` (which stays usable). The snapshot's values are
+        copied into the state's own tensors (each shard's) where they have its
+        shapes, so that a step's CUDA graphs, which hold their pointers, stay
         valid."""
-        state = snap[0]
-        if self.shards is None and _same_layout(self._state, state):
-            for dst, src in zip(state_tensors(self._state), state_tensors(state)):
-                dst.copy_(src)
-            self._state = dataclasses.replace(self._state, t=state.t, cycle=state.cycle)
+        mine = [self._state] if self.shards is None else self.shards
+        theirs = [snap[0]] if self.shards is None else snap[1]
+        if len(mine) == len(theirs) and all(map(_same_layout, mine, theirs)):
+            for a, b in zip(mine, theirs):
+                for dst, src in zip(state_tensors(a), state_tensors(b)):
+                    dst.copy_(src)
+            new = [dataclasses.replace(a, t=b.t, cycle=b.cycle) for a, b in zip(mine, theirs)]
+            if self.shards is None:
+                self._state = new[0]
+            else:
+                self.shards = new
             self.t, self.cycle = snap[3], snap[4]
         else:
             (self._state, self.shards, self._ledger, self.t, self.cycle) = copy.deepcopy(snap)

@@ -1,5 +1,6 @@
-"""The single-device step as a CUDA graph (the counterpart of the JAX package's
-``jax.jit`` of ``build_step_core``, ``jaybenne_tpu/step.py:94-96``).
+"""The step as CUDA graphs (the counterpart of the JAX package's ``jax.jit`` of
+``build_step_core``, ``jaybenne_tpu/step.py:94-96``, and of its spatial rounds'
+``lax.while_loop``, ``jaybenne_tpu/parallel/spatial.py:454-499``).
 
 ``GraphedStep`` wraps the step of ``step.build_step_core`` (one device, no
 exchange) on a GPU. Its first call runs the step eagerly: that builds the kernel
@@ -25,6 +26,14 @@ A replay launches no kernel from Python, so ``cuda_lib.LAUNCHES`` would not coun
 it: the launches counted while a graph was captured are taken back out, and added
 again at each replay. Nothing here falls back to the eager step: a capture that
 fails raises.
+
+``GraphedSpatialStep`` does the same for the spatial decomposition's step
+(``parallel/spatial.py``, the in-process exchange) over the list of the local
+shards' states: a graph of its head, one of a batch of ``nr`` rounds for each
+batch length it meets, and one of its tail, kept together by the same key over
+every shard's tensors. The rounds stay a host loop of batches: each batch's
+round prologue (its fixup generators seeded, its census seeds copied to the
+device), a replay, and the batch's one host read, the summed unfinished count.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ def state_tensors(state) -> list:
 @dataclasses.dataclass
 class _Captured:
     graph: torch.cuda.CUDAGraph
-    stats: object                 # the StepStats the graph writes
+    out: object                   # what the captured function returned (StepStats)
     launches: collections.Counter  # kernel launches of one replay, by name
 
 
@@ -67,13 +76,12 @@ class GraphedStep:
         self.captures = 0
 
     def __call__(self, state, dt):
-        self.step.prologue([state])
+        self.step.prologue([state], dt)
         if not self.warm:
             new, stats = self.step.body([state], dt)
             self.warm = True
             return new[0], stats
-        key = (float(dt),) + tuple((t.data_ptr(), tuple(t.shape))
-                                   for t in state_tensors(state))
+        key = _key([state], dt)
         cap = self.graphs.get(key)
         if cap is None:
             cap = self._capture(state, dt)
@@ -82,23 +90,102 @@ class GraphedStep:
                 self.graphs.popitem(last=False)
         else:
             self.graphs.move_to_end(key)
-        cap.graph.replay()
-        cuda_lib.LAUNCHES.update(cap.launches)
-        return dataclasses.replace(state, t=state.t + dt, cycle=state.cycle + 1), cap.stats
+        stats = _replay(cap)
+        return dataclasses.replace(state, t=state.t + dt, cycle=state.cycle + 1), stats
 
     def _capture(self, state, dt) -> _Captured:
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.step.generators():
-            graph.register_generator_state(gen)
-        before = collections.Counter(cuda_lib.LAUNCHES)
-        with torch.cuda.graph(graph):
+        def body():
             new, stats = self.step.body([state], dt)
             _copy_back(state, new[0])
-        launches = collections.Counter(cuda_lib.LAUNCHES) - before
-        for name, n in launches.items():  # the capture launched nothing
-            cuda_lib.LAUNCHES[name] -= n
+            return stats
+
         self.captures += 1
-        return _Captured(graph, stats, launches)
+        return _capture(body, self.step.generators())
+
+
+def _key(states, dt) -> tuple:
+    """A graph's key: the step's ``dt`` and every state tensor's address and shape."""
+    return (float(dt),) + tuple((t.data_ptr(), tuple(t.shape))
+                                for st in states for t in state_tensors(st))
+
+
+def _capture(fn, generators) -> _Captured:
+    """``fn()`` captured into a graph with ``generators`` registered; its output
+    kept, and the launches counted while it was captured taken back out."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = fn()
+    launches = collections.Counter(cuda_lib.LAUNCHES) - before
+    for name, n in launches.items():  # the capture launched nothing
+        cuda_lib.LAUNCHES[name] -= n
+    return _Captured(graph, out, launches)
+
+
+def _replay(cap: _Captured):
+    cap.graph.replay()
+    cuda_lib.LAUNCHES.update(cap.launches)
+    return cap.out
+
+
+@dataclasses.dataclass
+class _SpatialGraphs:
+    head: _Captured    # its output: the ``StepTensors`` the batches and the tail read
+    batches: dict      # rounds a batch -> _Captured
+    tail: _Captured | None
+
+
+class GraphedSpatialStep:
+    """``step(states, dt) -> (states, StepStats)``: the spatial ``step`` of
+    ``parallel.spatial.build_spatial_step_core`` run eagerly once, then as graphs
+    of its head, its batches and its tail (see the module docstring).
+    ``captures`` counts the graphs captured."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.warm = False
+        self.captures = 0
+
+    def __call__(self, states, dt):
+        core = self.step
+        if not self.warm:
+            self.warm = True
+            return core(states, dt)
+        key = _key(states, dt)
+        g = self.graphs.get(key)
+        core.prologue(states, dt)
+        if g is None:
+            g = _SpatialGraphs(self._capture(lambda: core.head(states, dt)), {}, None)
+            self.graphs[key] = g
+            while len(self.graphs) > MAX_GRAPHS:
+                self.graphs.popitem(last=False)
+        else:
+            self.graphs.move_to_end(key)
+        t = _replay(g.head)
+
+        def run_batch(nr):
+            if nr not in g.batches:
+                g.batches[nr] = self._capture(lambda: core.batch(states, t, nr, dt))
+            _replay(g.batches[nr])
+
+        core.run_rounds(states, t.unfinished, run_batch)
+        if g.tail is None:
+            def tail():
+                new, stats = core.tail(states, t, dt)
+                for st, nw in zip(states, new):
+                    _copy_back(st, nw)
+                return stats
+
+            g.tail = self._capture(tail)
+        stats = _replay(g.tail)
+        return [dataclasses.replace(st, t=st.t + dt, cycle=st.cycle + 1) for st in states], stats
+
+    def _capture(self, fn) -> _Captured:
+        self.captures += 1
+        return _capture(fn, self.step.generators())
 
 
 def _copy_back(state, new) -> None:

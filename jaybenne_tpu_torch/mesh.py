@@ -2,9 +2,10 @@
 
 Dense per-variable field arrays of shape ``[n_blocks, nz, ny, nx]``, flat per-block
 metadata (origin, cell size, level) and a finest-granularity block lookup grid, as
-in the JAX package. The forest is built by the pure-Python path, which
-``tests/test_native.py`` pins bitwise-equal to the native C++ builder; the ctypes
-loader of that builder is ROADMAP Queue 1, item 4.
+in the JAX package. The forest is built by the native C++ builder
+(``native/``, compiled with g++ at first use), as the JAX package's driver builds
+it; the pure-Python builder (``use_native=False``) is its plain version, held
+bitwise equal to it by ``tests/test_torch_native.py``.
 
 Axis convention: physical axes are (x1, x2, x3) = (x, y, z); cell arrays are indexed
 ``[block, k, j, i]`` with i fastest.
@@ -131,10 +132,16 @@ def _intersects(bmin, bmax, rmin, rmax, ndim) -> bool:
     return True
 
 
-def build_mesh(cfg: MeshConfig, dtype=torch.float32, device="cpu") -> MeshGeometry:
+def build_mesh(cfg: MeshConfig, dtype=torch.float32, device="cpu",
+               use_native=True) -> MeshGeometry:
     """Construct the block forest from a mesh config: root blocks overlapping a
     ``<parthenon/static_refinement*>`` box are split until they reach its level,
-    then 2:1 balance is enforced. Blocks are ordered by (level, z, y, x)."""
+    then 2:1 balance is enforced. Blocks are ordered by (level, z, y, x).
+
+    With ``use_native`` (the default, as in ``jaybenne_tpu/mesh.py:134``) the
+    forest is built by the native builder (``native.build_forest_native``), which
+    raises where it cannot be built: nothing falls back to the Python builder
+    below, which ``use_native=False`` selects."""
     nz_b, ny_b, nx_b = cfg.block_shape
     for n_tot, n_blk, name in (
         (cfg.nx1, nx_b, "nx1"),
@@ -152,6 +159,15 @@ def build_mesh(cfg: MeshConfig, dtype=torch.float32, device="cpu") -> MeshGeomet
     regions: tuple[RefinementRegion, ...] = (
         cfg.refinement_regions if cfg.refinement == "static" else ()
     )
+
+    if use_native:
+        from . import native
+
+        origin, size, levels, lookup, max_level = native.build_forest_native(
+            ndim, nrb, gmin, gmax, regions)
+        bdx = size / np.asarray([(nx_b, ny_b, nz_b)], dtype=np.float64)
+        return _geometry(cfg, ndim, (nx_b, ny_b, nz_b), nrb, max_level, origin, bdx, levels,
+                         lookup, dtype, device)
 
     # block = (level, (lx, ly, lz)) with logical location in level-granularity units
     blocks = [
@@ -244,16 +260,23 @@ def build_mesh(cfg: MeshConfig, dtype=torch.float32, device="cpu") -> MeshGeomet
         lookup[sz : sz + mult[2], sy : sy + mult[1], sx : sx + mult[0]] = bid
     if (lookup < 0).any():
         raise RuntimeError("mesh construction left uncovered lookup tiles")
+    return _geometry(cfg, ndim, (nx_b, ny_b, nz_b), nrb, max_level, origin, bdx, levels,
+                     lookup, dtype, device)
 
+
+def _geometry(cfg, ndim, nloc, nrb, max_level, origin, bdx, levels, lookup, dtype,
+              device) -> MeshGeometry:
+    """The ``MeshGeometry`` of a built forest (numpy arrays: float64 origins and
+    cell sizes, int32 levels and lookup grid)."""
     return MeshGeometry(
         ndim=ndim,
-        nx=nx_b,
-        ny=ny_b,
-        nz=nz_b,
-        n_blocks=n_blocks,
+        nx=nloc[0],
+        ny=nloc[1],
+        nz=nloc[2],
+        n_blocks=origin.shape[0],
         max_level=max_level,
         bounds=(cfg.x1min, cfg.x1max, cfg.x2min, cfg.x2max, cfg.x3min, cfg.x3max),
-        tile_shape=(nt[2], nt[1], nt[0]),
+        tile_shape=lookup.shape,
         root_grid=(nrb[2], nrb[1], nrb[0]),
         finest=tuple(float(v) for v in bdx.min(axis=0)),
         block_origin=torch.as_tensor(origin, dtype=dtype, device=device),

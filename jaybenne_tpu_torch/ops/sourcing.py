@@ -17,7 +17,12 @@ births start at ``tau = 0``. The external volume source (the Su-Olson driving
 term, ``jaybenne/external_source*``) injects at the fixed rate ``q`` inside a box
 while ``t < tmax``: its births are uniform over the in-step window
 ``[t, min(t + dt, tmax))``, nothing is debited from the matter, and
-``source_num``/``source_ew`` accumulate over the emission pass before it.
+``source_num``/``source_ew`` accumulate over the emission pass before it. The
+window comes from the host clock (``ExternalSource.window``) as a tensor of two
+values, ``q * overlap`` and ``overlap / dt``, formed in float64 and rounded once
+to the run's precision, as a Python float is where it multiplies a tensor: the
+step writes them into a device buffer before it runs, so that its body holds no
+host float of ``t`` and a CUDA graph's replay reads the step's own window.
 
 Under a decomposition each shard sources its own births: under the particle one a
 share of ``num_particles`` with the per-cell counts summed over shards before the
@@ -49,6 +54,12 @@ class ExternalSource:
     tmax: float
     temperature: float
 
+    def window(self, t: float, dt: float) -> tuple:
+        """``(q * overlap, overlap / dt)`` of the in-step source window [t, min(t +
+        dt, tmax)), empty past the cutoff, as host floats."""
+        overlap = min(max(min(t + dt, self.tmax) - t, 0.0), dt)
+        return self.q * overlap, overlap / dt
+
 
 def external_source_setup(mesh, jb) -> ExternalSource:
     """The source box of ``jb.external_source_*`` (the whole domain when unset) on
@@ -67,28 +78,44 @@ def external_source_setup(mesh, jb) -> ExternalSource:
                           temperature=jb.external_source_temperature)
 
 
+def shard_source_cells(mesh, external: ExternalSource, block_offset: int, n_local: int):
+    """The external source's cells in a spatial shard's blocks [block_offset,
+    block_offset + n_local): their flat global ids and their rows in the shard's
+    fields, int32 each (``births``' ``cells``). Its shape depends on the data: make
+    it once, when the step is built."""
+    ncpb = mesh.nx * mesh.ny * mesh.nz
+    cflat = external.cells.to(torch.int32)
+    b = cflat // ncpb
+    cflat = cflat[(b >= block_offset) & (b < block_offset + n_local)]
+    return cflat, cflat - block_offset * ncpb
+
+
 @dataclasses.dataclass(frozen=True)
 class BirthCounts:
     """A source's per-cell energy and birth count on one shard (``birth_counts``):
     ``n_cell`` births per cell of the shard's fields, ``erad`` their energy, the
-    cells' temperature, the in-step window of the external source and the largest
-    whole number of births per cell before the stochastic rounding."""
+    cells' temperature, the external source's window (its ``overlap / dt``, a
+    0-dim tensor; None for another source) and the largest whole number of births
+    per cell before the stochastic rounding."""
 
     erad: torch.Tensor
     temp: torch.Tensor
     n_cell: torch.Tensor
-    overlap: float
+    window_frac: torch.Tensor | None
     base: int
 
 
 def birth_counts(fields, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype,
                  opacity=None, dt=0.0, t=0.0, external: ExternalSource | None = None,
-                 block_offset=None) -> BirthCounts:
+                 block_offset=None, window=None) -> BirthCounts:
     """Step 1 of ``source_photons``: each cell's source energy and stochastically
     rounded birth count. With ``block_offset`` (the spatial decomposition) the
     fields are the shard's [Bl, ...] blocks from global block ``block_offset`` on,
     the per-cell rate is normalised by the mesh's cell count, and the padding blocks
-    past the mesh's last one source nothing."""
+    past the mesh's last one source nothing. The external source reads its
+    ``window``, ``ExternalSource.window``'s two values in a tensor of ``dtype`` on
+    the fields' device (made here from ``t`` and ``dt`` when not given: a step
+    passes a buffer of its own)."""
     if source_type not in ("thermal", "emission", "external"):
         raise ValueError(f"unknown source_type {source_type!r}")
     dev = fields.rho.device
@@ -100,20 +127,21 @@ def birth_counts(fields, mesh, gen, *, source_type, eos, sb, c, num_particles, d
         dv = mesh.block_volume[:, None, None, None]
     else:
         dv = tally.local_block_volume(mesh, block_offset, B)[:, None, None, None]
-    overlap = 0.0
+    window_frac = None
     if source_type == "thermal":
         erad = (4.0 * sb / c) * temp**4 * dv
     elif source_type == "emission":
         erad = fields.fleck * opacity.emissivity(fields.rho, temp) * dv * dt
     else:
-        # the in-step source window [t, min(t + dt, tmax)); empty past the cutoff
-        overlap = min(max(min(t + dt, external.tmax) - t, 0.0), dt)
+        if window is None:
+            window = torch.tensor(external.window(t, dt), dtype=dtype, device=dev)
+        window_frac = window[1]
         inside = external.inside
         if block_offset is not None:
             pad = max(0, block_offset + B - mesh.n_blocks)
             inside = torch.cat([inside, inside.new_zeros((pad,) + inside.shape[1:])])
             inside = inside[block_offset:block_offset + B]
-        erad = (external.q * overlap) * dv * inside.to(dtype)
+        erad = window[0] * dv * inside.to(dtype)
 
     npc = float(num_particles) / float(external.n_cells if external else n_cells)
     base = int(npc)
@@ -125,19 +153,23 @@ def birth_counts(fields, mesh, gen, *, source_type, eos, sb, c, num_particles, d
         n_cell = torch.where(own[:, None, None, None], n_cell, 0)
     # cells with no source energy emit nothing
     n_cell = torch.where(erad > 0, n_cell, 0)
-    return BirthCounts(erad=erad, temp=temp, n_cell=n_cell, overlap=overlap, base=base)
+    return BirthCounts(erad=erad, temp=temp, n_cell=n_cell, window_frac=window_frac,
+                       base=base)
 
 
 def births(fields, particles, mesh, gen, counts: BirthCounts, n_glob=None, *, source_type,
-           sb, c, dtype, dt=0.0, external: ExternalSource | None = None, block_offset=None):
+           sb, c, dtype, dt=0.0, external: ExternalSource | None = None, block_offset=None,
+           cells=None):
     """Steps 2 and 3 of ``source_photons``: the weights, the source diagnostics and
     the births of ``counts``. ``n_glob`` is each cell's birth count summed over the
     shards of a particle decomposition (default: this shard's own), so the summed
-    energy per cell is exactly ``erad`` at any shard count. Returns (fields,
-    particles, n_dropped); the ledger is updated in place."""
+    energy per cell is exactly ``erad`` at any shard count. ``cells`` is a spatial
+    shard's ``shard_source_cells`` for the external source (made here when not
+    given). Returns (fields, particles, n_dropped); the ledger is updated in
+    place."""
     dev = fields.rho.device
     B, nz, ny, nx = fields.rho.shape
-    erad, n_cell, overlap = counts.erad, counts.n_cell, counts.overlap
+    erad, n_cell = counts.erad, counts.n_cell
     if n_glob is None:
         n_glob = n_cell
     n_f = n_glob.to(dtype)
@@ -162,9 +194,7 @@ def births(fields, particles, mesh, gen, counts: BirthCounts, n_glob=None, *, so
         if block_offset is None:
             rows = cflat
         else:  # the source cells in this shard's blocks
-            b = cflat // ncpb
-            cflat = cflat[(b >= block_offset) & (b < block_offset + B)]
-            rows = cflat - block_offset * ncpb
+            cflat, rows = cells or shard_source_cells(mesh, external, block_offset, B)
     else:
         cflat = torch.arange(B * ncpb, dtype=torch.int32, device=dev)
     C = cflat.numel()
@@ -195,7 +225,7 @@ def births(fields, particles, mesh, gen, counts: BirthCounts, n_glob=None, *, so
     if source_type == "emission":
         tau = rng.uniform(gen, shape, dtype, dev)
     elif source_type == "external":  # uniform over the in-step source window
-        tau = rng.uniform(gen, shape, dtype, dev) * (overlap / dt)
+        tau = rng.uniform(gen, shape, dtype, dev) * counts.window_frac
     else:
         tau = torch.zeros(shape, dtype=dtype, device=dev)
 
@@ -221,14 +251,17 @@ def births(fields, particles, mesh, gen, counts: BirthCounts, n_glob=None, *, so
 def source_photons(
     fields, particles, mesh, gen, *, source_type, eos, sb, c, num_particles, dtype,
     opacity=None, dt=0.0, t=0.0, external: ExternalSource | None = None, block_offset=None,
+    window=None, cells=None,
 ):
     """Returns (fields, particles, n_dropped); the ledger is updated in place.
     ``gen`` is the stream's ``torch.Generator`` (see ``ops/rng.py``); emission
     needs the ``opacity`` model and the step ``dt``, the external source the step's
-    start time ``t`` and its ``external`` geometry; ``block_offset`` is the spatial
-    decomposition's (see ``birth_counts``)."""
+    start time ``t`` (or its ``window``) and its ``external`` geometry;
+    ``block_offset`` is the spatial decomposition's (see ``birth_counts``), and
+    ``cells`` its shard's source cells (see ``births``)."""
     counts = birth_counts(fields, mesh, gen, source_type=source_type, eos=eos, sb=sb, c=c,
                           num_particles=num_particles, dtype=dtype, opacity=opacity, dt=dt,
-                          t=t, external=external, block_offset=block_offset)
+                          t=t, external=external, block_offset=block_offset, window=window)
     return births(fields, particles, mesh, gen, counts, source_type=source_type, sb=sb, c=c,
-                  dtype=dtype, dt=dt, external=external, block_offset=block_offset)
+                  dtype=dtype, dt=dt, external=external, block_offset=block_offset,
+                  cells=cells)

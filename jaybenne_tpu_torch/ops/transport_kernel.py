@@ -1342,7 +1342,7 @@ def warp_efficiency(lane_events, width: int = 32) -> float:
     return float(int(ev.sum()) / issued) if issued else 1.0
 
 
-def subface_resample(p, faces, mesh, c, gen, offset, n_local):
+def subface_resample(p, faces, mesh, c, gen, offset, n_local, go=None):
     """The coarse-to-fine subface resample of the DDMC particles that arrived by
     migration with a pending leak code (IN PLACE; port of
     ``jaybenne_tpu/parallel/spatial.py::_fixup_subface_arrivals`` through
@@ -1354,11 +1354,14 @@ def subface_resample(p, faces, mesh, c, gen, offset, n_local):
     five uniforms per slot (``rng.PHASE_FIXUP``) every round, whether or not a
     slot needs them: the round's generator is its own, so no other stream moves,
     and the resample, masked by ``need``, changes only the slots that need it. It
-    runs between rounds and does not wait for the device."""
+    runs between rounds and does not wait for the device. With ``go`` (a 0-dim bool
+    tensor) false no slot needs it."""
     nd = mesh.ndim
     if nd < 2:
         return p
     need = p.alive & (p.leak != 0) & (p.block >= offset) & (p.block < offset + n_local)
+    if go is not None:
+        need = need & go
     from . import rng
 
     real = p.x.dtype

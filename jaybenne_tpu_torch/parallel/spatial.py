@@ -31,11 +31,15 @@ counted (the driver warns). A DDMC leak into a finer block of another shard
 carries its pending-leak code, and the owner resamples it onto a fine face before
 its next census (``transport_kernel.subface_resample``).
 
-A round reads the device once, for its exit test: the summed count of live
-particles short of census. Every other counter stays on the device until the
+The rounds run in batches (of ``ROUNDS_PER_BATCH`` where the step runs as CUDA
+graphs, else of one round), and a batch reads the device once, for its exit test: the summed count of live particles short of census. A
+round that begins with that count at 0 changes nothing, so the batches repeat
+the step of one round a batch. Every other counter stays on the device until the
 step's ``StepStats``, which the driver reads in one copy. No shape depends on
 the data (the insert of the arrivals is the static one of ``particles.py``), so
-nothing else in a step waits for the device.
+nothing else in a step waits for the device, and on a GPU the step's head, a
+batch and its tail are each a CUDA graph (``graph.GraphedSpatialStep``), as the
+JAX package runs its rounds in a ``lax.while_loop``.
 
 At restart, ``rehome_restart_ledger`` moves each live particle that a checkpoint
 left in another shard's ledger slice into a free slot of its owner's.
@@ -46,21 +50,34 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from ..config import InitialRadiation, RunConfig
 from ..ops import fleck as fleck_ops
 from ..ops import rng, sourcing, tally
 from ..ops import transport as transport_ops
 from ..ops import transport_kernel
-from ..particles import insert_particles
+from ..particles import insert_particles, join_slices
 from ..step import (StepStats, census_fn, make_transport_params, total_sigma, with_faces,
                     with_fleck)
+from .exchange import InProcess
 
 # particle fields shipped during migration, sent as int32 words: one for a 4-byte
 # column, two for a float64 one (precision = f64), as the JAX package packs them
 # (jaybenne_tpu/parallel/spatial.py:100, pallas_grid._pack_cols)
 MIGRATE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy",
                   "block", "i", "j", "k", "face", "leak")
+
+
+# rounds a batch runs before its one host read where the step runs as CUDA
+# graphs (``build_spatial_step_core``'s default on a GPU). Chosen on one H100
+# (big_mesh_spatial at 8 shards as CUDA graphs, 74-88 rounds a step,
+# ``profile.py --rounds-per-batch``): a host read costs the replays about 0.33 ms,
+# a round with nothing to do about 3.7 ms (its migration's sorts and sums run
+# whatever moves), and 4 rounds a batch gave the step of 2 with half the reads.
+# An eager step gains nothing from a batch but the read it saves, and pays each
+# no-op round in full: it runs one round a batch
+ROUNDS_PER_BATCH = 4
 
 
 def _words(t):
@@ -162,21 +179,24 @@ def owned_range(mesh, prm, n: int, shard: int) -> transport_kernel.OwnedRange:
     return transport_kernel.OwnedRange("blocks", shard * bl, bl)
 
 
-def migrate(ledgers, offsets, bl, K, exchange):
+def migrate(ledgers, offsets, bl, K, exchange, go=None):
     """One round of all_to_all migration over the local shards' ledgers (IN
     PLACE; JAX ``migrate``): the live particles whose block lies outside their
     shard's [offset, offset + bl) are grouped by destination shard with a stable
     sort, the first K for each destination packed into an [n, K] buffer and sent;
     the rest stay in transit for the next round. Shard s receives, from each shard
     j in j order, what j addressed to s, and inserts it into its free slots
-    without recycling this step's absorbed rows. Returns (received particles
-    dropped for want of a free slot, particles sent), one int64 tensor each per
-    local shard."""
+    without recycling this step's absorbed rows. With ``go`` (a 0-dim bool
+    tensor) false nothing is sent and nothing changes. Returns (received
+    particles dropped for want of a free slot, particles sent), one int64 tensor
+    each per local shard."""
     n = exchange.n
     bufs, sent_counts = [], []
     for p, offset in zip(ledgers, offsets):
         cap, dev = p.capacity, p.x.device
         in_transit = p.alive & ((p.block < offset) | (p.block >= offset + bl))
+        if go is not None:
+            in_transit = in_transit & go
         dest = torch.where(in_transit, torch.clamp(p.block // bl, 0, n - 1), n).to(torch.int64)
         order = torch.argsort(dest, stable=True)
         sdest = dest[order]
@@ -211,13 +231,54 @@ def migrate(ledgers, offsets, bl, K, exchange):
 
 
 def _exit_read(unfinished: torch.Tensor) -> int:
-    """A round's one host read: the summed count of particles short of census."""
-    return int(unfinished.item())
+    """A batch's one host read: the summed count of particles short of census."""
+    with record_function("spatial.exit_read"):
+        return int(unfinished.item())
 
 
-def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
+@dataclasses.dataclass
+class StepTensors:
+    """What a spatial step's head hands its rounds and its tail, on the device:
+    the shards' fields, the census set-up, and the counters that the rounds
+    update in place (per local shard: census iterations, events, iteration cap
+    hits, particles dropped and sent; the summed rounds run and unfinished
+    particles). A CUDA graph of the rounds reads and writes these tensors."""
+
+    fs: list
+    setup: object
+    iters: torch.Tensor
+    events: torch.Tensor
+    hits: torch.Tensor
+    dropped: torch.Tensor
+    sent: torch.Tensor
+    rounds: torch.Tensor
+    unfinished: torch.Tensor
+
+
+def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=None):
     """``step(states, dt) -> (states, StepStats)`` over the local shards' states,
-    each with its [Bl, ...] fields and its ledger (JAX ``build_spatial_step_core``)."""
+    each with its [Bl, ...] fields and its ledger (JAX ``build_spatial_step_core``).
+
+    The step is ``step.prologue(states, dt)`` (on the host: the sourcing
+    generators seeded by ``manual_seed``, the external source's window copied to
+    the device), ``step.head(states, dt)`` (Fleck factor, faces, sourcing,
+    coefficients and the census set-up; returns the ``StepTensors``), batches of
+    rounds (``step.run_rounds``: before each batch ``step.round_prologue`` seeds
+    the batch's fixup generators and copies its census seeds to the device, then
+    ``step.batch(states, tensors, nr)`` queues ``nr`` rounds, then the batch's one
+    host read) and ``step.tail(states, tensors, dt)`` (tallies, feedback, the
+    counters). ``step.capturable`` says whether the head, a batch and the tail can
+    each be captured in a CUDA graph (``graph.GraphedSpatialStep``): with the
+    in-process exchange and the kernel's census.
+
+    A batch runs ``rounds_per_batch`` rounds (fewer where it would run past
+    ``max_migration_rounds``, one where nothing can migrate); by default
+    ``ROUNDS_PER_BATCH`` where the step is capturable on a GPU (its graphs, and
+    the eager step that ``Simulation(graph=False)`` holds them against), else one.
+    A round that begins with nothing unfinished changes nothing (its writes and
+    counts are gated by a device flag), so any batch size gives the step of one
+    round a batch, bitwise. ``step.rounds_run`` counts the rounds queued, no-op
+    rounds too; ``step.rounds_per_batch`` is the batch."""
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -235,7 +296,13 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
     # every real block on shard 0: nothing can be in transit, so migration is skipped
     can_migrate = n > 1 and B > bl
     census = census_fn(cfg)
-    owns = {s: owned_range(mesh, prm, n, s) for s in exchange.shards}
+    shards = exchange.shards
+    offsets = [s * bl for s in shards]
+    owns = [owned_range(mesh, prm, n, s) for s in shards]
+    # a census over a uniform mesh of several blocks (the z route) gives every
+    # slot the collapse and expansion's round trip, which may move a bit of a
+    # slot that has not had one: a gated round puts those columns back
+    fold = owns[0].kind == "z" and B > 1
     # the plain census interleaves its rounds by an iteration budget (JAX
     # spatial.py:431-446); the round cap is scaled to keep the total backstop
     prm_round, max_rounds = prm, jb.max_migration_rounds
@@ -243,105 +310,189 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange):
         budget = min(jb.census_iters_per_round, prm.max_iters)
         prm_round = dataclasses.replace(prm, max_iters=budget)
         max_rounds = max_rounds * -(-prm.max_iters // budget)
+    dev = mesh.device
+    capturable = isinstance(exchange, InProcess) and census is transport_kernel.transport
+    if rounds_per_batch is None:
+        rounds_per_batch = ROUNDS_PER_BATCH if capturable and dev.type == "cuda" else 1
+    R = rounds_per_batch if can_migrate else 1
     external = None
     if jb.external_source_q > 0:
         external = sourcing.external_source_setup(mesh, jb)
         ext_num = jb.external_source_num or jb.num_particles
+        # each shard's source cells, fixed for the run
+        ext_cells = [sourcing.shard_source_cells(mesh, external, off, bl) for off in offsets]
+    phases = ((rng.PHASE_SOURCE,) if jb.do_emission else ()) + (
+        (rng.PHASE_EXTERNAL,) if external else ())
+    gens = {(ph, s): torch.Generator(device=dev) for ph in phases for s in shards}
+    fixup = {(s, k): torch.Generator(device=dev) for s in shards for k in range(R)
+             } if smr_ddmc else {}
+    window = torch.empty(2, dtype=dtype, device=dev) if external else None
+    # the census seeds of a batch's rounds: on a GPU rows of an int32 device
+    # tensor that each round prologue rewrites, on the CPU host ints
+    seeds = {"buf": None, "now": None}
+
+    def prologue(states, dt):
+        if external:
+            window.copy_(torch.tensor(external.window(states[0].t, dt), dtype=dtype,
+                                      pin_memory=dev.type == "cuda"), non_blocking=True)
+        for ph in phases:
+            for st, s in zip(states, shards):
+                rng.reseed(gens[(ph, s)], st.seed, st.cycle, ph, (s,))
+
+    def round_prologue(states, r0, nr):
+        for k in range(nr) if smr_ddmc else ():
+            for st, s in zip(states, shards):
+                rng.reseed(fixup[(s, k)], st.seed, st.cycle, rng.PHASE_FIXUP, (s, r0 + k))
+        now = [[rng.kernel_seed(st.seed, st.cycle, s, r0 + k) for st, s in zip(states, shards)]
+               for k in range(nr)]
+        if dev.type == "cuda":
+            if seeds["buf"] is None:
+                seeds["buf"] = torch.empty((R, len(shards)), dtype=torch.int32, device=dev)
+                seeds["now"] = list(seeds["buf"].unbind())
+            seeds["buf"][:nr].copy_(torch.tensor(now, dtype=torch.int32, pin_memory=True),
+                                    non_blocking=True)
+        else:
+            seeds["now"] = now
+
+    def head(states, dt) -> StepTensors:
+        with record_function("spatial.head"):
+            fs, ps = [st.fields for st in states], [st.particles for st in states]
+            fs = [with_fleck(f, models, dt, dtype) for f in fs]
+            if jb.use_ddmc:
+                # each shard's faces read its own blocks whole and every block's surface
+                sig = [total_sigma(f, models, dtype) for f in fs]
+                surf = exchange.all_gather([fleck_ops.pack_boundary_surface(mesh, t)
+                                            for t in sig])
+                fs = [with_faces(f, fleck_ops.ddmc_face_probs_spatial(
+                    mesh, t, g, off, jb.tau_ddmc, periodic, dtype))
+                    for f, t, g, off in zip(fs, sig, surf, offsets)]
+            dropped = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
+            if not jb.do_emission:
+                fs = [dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
+                      for f in fs]
+                if external:
+                    fs = [dataclasses.replace(f, source_num=torch.zeros_like(f.source_num),
+                                              source_ew=torch.zeros_like(f.source_ew))
+                          for f in fs]
+            for i, (s, off) in enumerate(zip(shards, offsets)):
+                kw = dict(eos=eos, opacity=opacity, sb=consts.sb, c=consts.c, dt=dt,
+                          dtype=dtype, block_offset=off)
+                if jb.do_emission:  # each shard sources its own blocks: nothing is summed
+                    fs[i], ps[i], d = sourcing.source_photons(
+                        fs[i], ps[i], mesh, gens[(rng.PHASE_SOURCE, s)], source_type="emission",
+                        num_particles=jb.num_particles, **kw)
+                    dropped[i] = dropped[i] + d
+                if external:
+                    fs[i], ps[i], d = sourcing.source_photons(
+                        fs[i], ps[i], mesh, gens[(rng.PHASE_EXTERNAL, s)],
+                        source_type="external", num_particles=ext_num, external=external,
+                        window=window, cells=ext_cells[i], **kw)
+                    dropped[i] = dropped[i] + d
+            coefs = [transport_ops.precompute_coefs(f, mesh, eos, opacity, scattering,
+                                                    jb.use_ddmc, dtype) for f in fs]
+            setup = transport_kernel.prepare(coefs, mesh, prm_round, dt, owns)
+
+            def zeros(shape, dtype=torch.int64):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            m = len(states)
+            return StepTensors(fs, setup, zeros(m, torch.int32), zeros(m), zeros(m),
+                               torch.stack(dropped), zeros(m), zeros(()), zeros(()))
+
+    def one_round(ps, t: StepTensors, k, go, dt):
+        """Round ``k`` of a batch; ``go`` None where it is known to have work, else
+        the device flag that it has."""
+        with record_function("spatial.round.fixup"):
+            for i, (s, off) in enumerate(zip(shards, offsets)) if smr_ddmc else ():
+                f = t.fs[i]  # pending coarse-to-fine leaks, before the census
+                transport_kernel.subface_resample(
+                    ps[i], (f.ddmc_px, f.ddmc_py, f.ddmc_pz), mesh, prm.c, fixup[(s, k)], off,
+                    bl, go=go)
+        with record_function("spatial.round.census"):
+            kept = []
+            if fold and go is not None:  # over the local shards' ledgers joined
+                p = join_slices(ps)[0]
+                kept = [(c, c.clone()) for c in (p.x, p.y, p.z, p.i, p.j, p.k, p.block)]
+            _, it, ev = census(ps, t.setup, mesh, seeds["now"][k], prm_round, dt)
+            for c, old in kept:
+                torch.where(go, c, old, out=c)
+            hit = it >= prm.max_iters
+            if go is not None:
+                it, ev, hit = torch.where(go, it, 0), torch.where(go, ev, 0), hit & go
+            t.iters.add_(it)
+            t.events.add_(ev)
+            t.hits.add_(hit.to(torch.int64))
+        with record_function("spatial.round.migrate"):
+            if can_migrate:
+                K = jb.migration_buffer_k or max(64, ps[0].capacity // (2 * n))
+                drop, n_sent = migrate(ps, offsets, bl, K, exchange, go=go)
+                t.dropped.add_(torch.stack(drop))
+                t.sent.add_(torch.stack(n_sent))
+            t.unfinished.copy_(exchange.sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
+                                             for p in ps])[0])
+            t.rounds.add_(1 if go is None else go.to(torch.int64))
+
+    def batch(states, t: StepTensors, nr, dt):
+        """``nr`` rounds with no host read; the first begins with work (the host
+        read the count before it), each later one is gated by its own count."""
+        ps = [st.particles for st in states]
+        for k in range(nr):
+            with record_function("spatial.round"):
+                one_round(ps, t, k, None if k == 0 else t.unfinished > 0, dt)
+
+    def run_rounds(states, unfinished, run_batch):
+        """The step's batches, each ``run_batch(nr)`` after its round prologue and
+        followed by its one host read of ``unfinished``."""
+        done, left = 0, 1
+        while done < max_rounds and left > 0:
+            nr = min(R, max_rounds - done)
+            round_prologue(states, done, nr)
+            run_batch(nr)
+            left = _exit_read(unfinished)
+            done += nr
+            step.rounds_run += nr
+
+    def tail(states, t: StepTensors, dt):
+        with record_function("spatial.tail"):
+            fs, ps = list(t.fs), [st.particles for st in states]
+            for i, off in enumerate(offsets):  # tallies and feedback: each cell on one shard
+                if prm.has_absorption:
+                    fs[i] = tally.accumulate_absorption(fs[i], ps[i], mesh, block_offset=off)
+                fs[i] = tally.evaluate_radiation_energy(fs[i], ps[i], mesh, block_offset=off)
+                if jb.do_feedback:
+                    fs[i] = tally.update_fluid(fs[i], mesh, block_offset=off)
+            for p in ps:
+                p.absorbed.zero_()
+                p.tau.zero_()
+            alive = [p.alive.sum(dtype=torch.int64) for p in ps]
+            dropped = exchange.sum(list(t.dropped.unbind()))
+            stats = StepStats.pack(
+                iterations=exchange.max(list(t.iters.unbind()))[0],
+                events=exchange.sum(list(t.events.unbind()))[0],
+                n_alive=exchange.sum(alive)[0],
+                dropped=dropped[0],
+                cap_hits=exchange.sum(list(t.hits.unbind()))[0],
+                unfinished=t.unfinished,
+                migration_rounds=t.rounds,
+                migrated=exchange.sum(list(t.sent.unbind()))[0],
+                alive_max=exchange.max(alive)[0],
+            )
+            new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt,
+                                       cycle=st.cycle + 1, overflow=st.overflow + dropped[0])
+                   for st, f, p in zip(states, fs, ps)]
+            return new, stats
 
     def step(states, dt):
-        shards = exchange.shards
-        offsets = [s * bl for s in shards]
-        dev = mesh.device
-        fs, ps = [st.fields for st in states], [st.particles for st in states]
-        fs = [with_fleck(f, models, dt, dtype) for f in fs]
-        if jb.use_ddmc:
-            # each shard's faces read its own blocks whole and every block's surface
-            sig = [total_sigma(f, models, dtype) for f in fs]
-            surf = exchange.all_gather([fleck_ops.pack_boundary_surface(mesh, t) for t in sig])
-            fs = [with_faces(f, fleck_ops.ddmc_face_probs_spatial(
-                mesh, t, g, off, jb.tau_ddmc, periodic, dtype))
-                for f, t, g, off in zip(fs, sig, surf, offsets)]
-        dropped = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
-        if not jb.do_emission:
-            fs = [dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
-                  for f in fs]
-            if external:
-                fs = [dataclasses.replace(f, source_num=torch.zeros_like(f.source_num),
-                                          source_ew=torch.zeros_like(f.source_ew))
-                      for f in fs]
-        for i, (st, s, off) in enumerate(zip(states, shards, offsets)):
-            kw = dict(eos=eos, opacity=opacity, sb=consts.sb, c=consts.c, dt=dt, dtype=dtype,
-                      block_offset=off)
-            if jb.do_emission:  # each shard sources its own blocks: nothing is summed
-                gen = rng.generator(st.seed, st.cycle, rng.PHASE_SOURCE, dev, (s,))
-                fs[i], ps[i], d = sourcing.source_photons(
-                    fs[i], ps[i], mesh, gen, source_type="emission",
-                    num_particles=jb.num_particles, **kw)
-                dropped[i] = dropped[i] + d
-            if external:
-                gen = rng.generator(st.seed, st.cycle, rng.PHASE_EXTERNAL, dev, (s,))
-                fs[i], ps[i], d = sourcing.source_photons(
-                    fs[i], ps[i], mesh, gen, source_type="external", num_particles=ext_num,
-                    t=st.t, external=external, **kw)
-                dropped[i] = dropped[i] + d
-        coefs = [transport_ops.precompute_coefs(f, mesh, eos, opacity, scattering,
-                                                jb.use_ddmc, dtype) for f in fs]
-        setup = transport_kernel.prepare(coefs, mesh, prm_round, dt, [owns[s] for s in shards])
-        cap = ps[0].capacity
-        K = jb.migration_buffer_k or max(64, cap // (2 * n))
-        iters = torch.zeros(len(states), dtype=torch.int32, device=dev)
-        events = torch.zeros(len(states), dtype=torch.int64, device=dev)
-        hits = torch.zeros(len(states), dtype=torch.int64, device=dev)
-        sent = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
-        rounds, left, unfinished = 0, 1, None
-        while rounds < max_rounds and left > 0:
-            if smr_ddmc:  # pending coarse-to-fine leaks, before the census
-                for i, (st, s, off) in enumerate(zip(states, shards, offsets)):
-                    gen = rng.generator(st.seed, st.cycle, rng.PHASE_FIXUP, dev, (s, rounds))
-                    transport_kernel.subface_resample(
-                        ps[i], (fs[i].ddmc_px, fs[i].ddmc_py, fs[i].ddmc_pz), mesh, prm.c,
-                        gen, off, bl)
-            seeds = [rng.kernel_seed(st.seed, st.cycle, s, rounds)
-                     for st, s in zip(states, shards)]
-            _, it, ev = census(ps, setup, mesh, seeds, prm_round, dt)
-            iters = iters + it
-            events = events + ev
-            hits = hits + (it >= prm.max_iters).to(torch.int64)
-            if can_migrate:
-                drop, n_sent = migrate(ps, offsets, bl, K, exchange)
-                dropped = [d + e for d, e in zip(dropped, drop)]
-                sent = [a + b for a, b in zip(sent, n_sent)]
-            unfinished = exchange.sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
-                                       for p in ps])[0]
-            left = _exit_read(unfinished)
-            rounds += 1
-        for i, off in enumerate(offsets):  # tallies and feedback: each cell on one shard
-            if prm.has_absorption:
-                fs[i] = tally.accumulate_absorption(fs[i], ps[i], mesh, block_offset=off)
-            fs[i] = tally.evaluate_radiation_energy(fs[i], ps[i], mesh, block_offset=off)
-            if jb.do_feedback:
-                fs[i] = tally.update_fluid(fs[i], mesh, block_offset=off)
-        for p in ps:
-            p.absorbed.zero_()
-            p.tau.zero_()
-        alive = [p.alive.sum(dtype=torch.int64) for p in ps]
-        dropped = exchange.sum(dropped)
-        stats = StepStats.pack(
-            iterations=exchange.max(list(iters.unbind()))[0],
-            events=exchange.sum(list(events.unbind()))[0],
-            n_alive=exchange.sum(alive)[0],
-            dropped=dropped[0],
-            cap_hits=exchange.sum(list(hits.unbind()))[0],
-            unfinished=unfinished,
-            migration_rounds=torch.full((), rounds, dtype=torch.int64, device=dev),
-            migrated=exchange.sum(sent)[0],
-            alive_max=exchange.max(alive)[0],
-        )
-        new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt, cycle=st.cycle + 1,
-                                   overflow=st.overflow + dropped[0])
-               for st, f, p in zip(states, fs, ps)]
-        return new, stats
+        prologue(states, dt)
+        t = head(states, dt)
+        run_rounds(states, t.unfinished, lambda nr: batch(states, t, nr, dt))
+        return tail(states, t, dt)
 
+    step.prologue, step.head, step.batch, step.tail = prologue, head, batch, tail
+    step.run_rounds, step.round_prologue, step.one_round = run_rounds, round_prologue, one_round
+    step.generators = lambda: list(gens.values()) + list(fixup.values())
+    step.capturable = capturable
+    step.rounds_run, step.rounds_per_batch = 0, R
     return step
 
 

@@ -2,7 +2,7 @@
 ``torch.profiler`` trace of steady steps.
 
     python -m jaybenne_tpu_torch.profile -i DECK [--warm N] [--steps M]
-        [--trace PATH] [block/key=value ...]
+        [--trace PATH] [--eager] [--rounds-per-batch R] [block/key=value ...]
 
 Builds the ``Simulation`` on the GPU, runs ``--warm`` steps, times ``--steps`` more
 on the host clock (each step ends in ``torch.cuda.synchronize()``), then restores
@@ -16,10 +16,15 @@ idle share of them, the census kernel's launches by instantiation and route
 ``cuda_lib.LAUNCHES``) in the profiled steps, the migration rounds of each step
 under the spatial decomposition, the host's synchronisations with the device per
 step (the same steps once more under ``torch.cuda.set_sync_debug_mode``, each
-synchronising call counted: ``host_syncs``), and ``nvidia-smi``'s card name and
-power limit. The step runs as the driver runs it (a CUDA graph where it can be
-one: the first step eagerly, the second captured, so give ``--warm`` at least 2
-to time replays). ``--trace`` also writes the Chrome trace. Needs a GPU.
+synchronising call counted: ``host_syncs``), the host and device milliseconds a
+step of each ``record_function`` span (the spatial step's head, rounds and their
+fixup, census and migration, exit reads and tail: ``spans_by_name``), and
+``nvidia-smi``'s card name and power limit. The step runs as the driver runs it
+(CUDA graphs where it can: the first step eagerly, the second captured, so give
+``--warm`` at least 2 to time replays), or eagerly with ``--eager``.
+``--rounds-per-batch`` sets the spatial step's rounds a batch (by default
+``spatial.ROUNDS_PER_BATCH`` as CUDA graphs, one eagerly). ``--trace`` also writes
+the Chrome trace. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -55,6 +60,23 @@ def device_time_by_name(trace_path: str) -> dict:
     return dict(out)
 
 
+def spans_by_name(trace_path: str) -> tuple:
+    """Milliseconds of host time (``user_annotation``) and of device time
+    (``gpu_user_annotation``: from the first kernel to the last one queued in
+    the span) per ``record_function`` span name in a Chrome trace, and each
+    span's count."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    host, dev, count = collections.Counter(), collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get("cat") == "user_annotation" and "dur" in e:
+            host[e["name"]] += float(e["dur"]) / 1e3
+            count[e["name"]] += 1
+        elif e.get("cat") == "gpu_user_annotation" and "dur" in e:
+            dev[e["name"]] += float(e["dur"]) / 1e3
+    return dict(host), dict(dev), dict(count)
+
+
 def host_syncs(sim, steps: int) -> int:
     """The host's synchronisations with the device in ``steps`` steps of ``sim``
     (``Simulation.run``): each call that ``torch.cuda.set_sync_debug_mode("warn")``
@@ -75,6 +97,9 @@ def main(argv=None) -> int:
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None, help="also write the Chrome trace here")
+    ap.add_argument("--eager", action="store_true", help="run the eager step, no graph")
+    ap.add_argument("--rounds-per-batch", type=int, default=None,
+                    help="the spatial step's rounds a batch")
     ap.add_argument("overrides", nargs="*", metavar="block/key=value")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -83,7 +108,8 @@ def main(argv=None) -> int:
     mods = dict(ov.split("=", 1) for ov in args.overrides)
     cfg = config_mod.from_deck(Deck.from_file(args.input).update(mods))
     with tempfile.TemporaryDirectory() as outdir:
-        sim = Simulation(cfg, outdir=outdir, quiet=True, device="cuda")
+        sim = Simulation(cfg, outdir=outdir, quiet=True, device="cuda", graph=not args.eager,
+                         rounds_per_batch=args.rounds_per_batch)
         sim.run(nlim=args.warm)
         n0 = len(sim.history)
         snapshot = sim.snapshot()
@@ -105,6 +131,7 @@ def main(argv=None) -> int:
         trace = args.trace or os.path.join(outdir, "trace.json")
         prof.export_chrome_trace(trace)
         by_name = device_time_by_name(trace)
+        span_host, span_dev, span_count = spans_by_name(trace)
     n = args.steps
     if len(wall) != n:
         raise RuntimeError(f"profile: ran {len(wall)} timed steps of {n} (tlim reached?)")
@@ -114,8 +141,13 @@ def main(argv=None) -> int:
     total = sum(by_name.values()) / n
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
         print(f"device_ms_per_step {us / n / 1e3!r} {name[:120]}")
+    for name in sorted(span_host):
+        print(f"span {name}: host_ms_per_step {span_host[name] / n!r} device_ms_per_step "
+              f"{span_dev.get(name, 0.0) / n!r} count_per_step {span_count[name] / n!r}")
     step_ms = statistics.median(wall) * 1e3
-    print(f"step: {'a CUDA graph' if sim.graphed else 'eager'}")
+    print(f"step: {'CUDA graphs' if sim.graphed else 'eager'}"
+          + (f", {getattr(sim.step_fn, 'step', sim.step_fn).rounds_per_batch} rounds a "
+             "batch" if sim.spatial else ""))
     print(f"launches in the profiled steps: {launches}")
     print(f"migration rounds per step: {rounds}; host synchronisations per step: "
           f"{syncs / n!r}")

@@ -184,16 +184,16 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     StepStats)`` over the local shards' states (see the module docstring). The
     particle ledgers are updated in place; fields are replaced.
 
-    The step is ``step.prologue(states)``, which sets what changes from cycle to
-    cycle on the host (each random stream's generator seeded by ``manual_seed``,
-    the census kernel's seeds copied to the device), then ``step.body(states,
-    dt)``, which takes the lists of states and queues the device work without
-    waiting for it. A CUDA graph (``graph.py``) captures the body once and replays
-    it after the prologue. ``step.generators()`` are the generators the body
-    draws from: one per (phase, shard), kept across steps. ``step.capturable``
-    says whether the body makes no host read, and so can be captured: on one
-    device, with the kernel's census and no external source (the plain census
-    reads its exit test, the external source reads ``t`` on the host)."""
+    The step is ``step.prologue(states, dt)``, which sets what changes from cycle
+    to cycle on the host (each random stream's generator seeded by
+    ``manual_seed``; the census kernel's seeds and the external source's window,
+    from the host clock, copied to the device), then ``step.body(states, dt)``,
+    which takes the lists of states and queues the device work without waiting
+    for it. A CUDA graph (``graph.py``) captures the body once and replays it
+    after the prologue. ``step.generators()`` are the generators the body draws
+    from: one per (phase, shard), kept across steps. ``step.capturable`` says
+    whether the body makes no host read, and so can be captured: on one device,
+    with the kernel's census (the plain census reads its exit test)."""
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -220,12 +220,18 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     # the census kernel's seed of each shard: on a GPU a one-element view of an
     # int32 device tensor that each prologue rewrites; on the CPU a host int
     seeds = {"buf": None, "now": None}
+    # the external source's window (``sourcing.ExternalSource.window``), which
+    # each prologue writes from the host clock: a tensor of the run's dtype
+    window = torch.empty(2, dtype=dtype, device=dev) if external else None
 
     def words(s):
         """The shard word of every stream key under the decomposition, none without."""
         return () if exchange is None else (s,)
 
-    def prologue(states):
+    def prologue(states, dt):
+        if external:  # one pinned copy on a GPU, each value rounded once
+            window.copy_(torch.tensor(external.window(states[0].t, dt), dtype=dtype,
+                                      pin_memory=dev.type == "cuda"), non_blocking=True)
         for ph in phases:
             for st, s in zip(states, shards):
                 rng.reseed(gens[(ph, s)], st.seed, st.cycle, ph, words(s))
@@ -240,7 +246,6 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
             seeds["now"] = now
 
     def body(states, dt):
-        state = states[0]
         fs = [with_fleck(st.fields, models, dt, dtype) for st in states]
         if jb.use_ddmc:
             fs = [with_faces(f, fleck_ops.ddmc_face_probs(
@@ -265,8 +270,8 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
                       for f in fs]
         if external:
             fs, ext_drop = _source(fs, ps, stream(rng.PHASE_EXTERNAL), mesh, exchange,
-                                   source_type="external", num_particles=ext_num, t=state.t,
-                                   external=external, **kw)
+                                   source_type="external", num_particles=ext_num,
+                                   external=external, window=window, **kw)
             dropped = [d + e for d, e in zip(dropped, ext_drop)]
         iters, events, unfinished = [], [], []
         for k, (f, p) in enumerate(zip(fs, ps)):
@@ -307,15 +312,14 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     def step(states, dt):
         single = exchange is None
         states = [states] if single else list(states)
-        prologue(states)
+        prologue(states, dt)
         new, stats = body(states, dt)
         return (new[0] if single else new), stats
 
     step.prologue = prologue
     step.body = body
     step.generators = lambda: list(gens.values())
-    step.capturable = (exchange is None and external is None
-                       and census is transport_kernel.transport)
+    step.capturable = exchange is None and census is transport_kernel.transport
     return step
 
 

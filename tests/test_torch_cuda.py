@@ -691,9 +691,9 @@ def test_owned_range_blocks_kernel_matches_plain(gpu, shard):
 
 def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
     """The stepdiff slab through the spatial decomposition at 4 in-process shards
-    on the card, 2 steps: every round makes one launch of the block-range route
-    over all 4 shards, the tally holds the live weights, and a rerun is bitwise
-    identical."""
+    on the card, 2 steps: every round queued (a batch's no-op rounds too) makes
+    one launch of the block-range route over all 4 shards, the tally holds the
+    live weights, and a rerun is bitwise identical."""
     mods = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
             "jaybenne/num_particles": 8000, "jaybenne/decomposition": "spatial",
             "jaybenne/n_devices": 4, "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "2.e-11",
@@ -704,8 +704,11 @@ def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
         before = cuda_lib.LAUNCHES[name]
         sims.append(run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
                              device="cuda"))
-        rounds = sum(h["migration_rounds"] for h in sims[-1].history)
-        assert cuda_lib.LAUNCHES[name] == before + rounds  # one launch a round
+        sim = sims[-1]
+        core = sim.step_fn.step if sim.graphed else sim.step_fn
+        rounds = sum(h["migration_rounds"] for h in sim.history)
+        assert 0 < rounds <= core.rounds_run
+        assert cuda_lib.LAUNCHES[name] == before + core.rounds_run  # one a round queued
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.is_cuda and torch.equal(a, b)
     sim = sims[0]
@@ -1339,3 +1342,61 @@ def test_insert_kernel_matches_plain_on_path_shapes(gpu, tmp_path, path):
         _, cand, _, shape = calls[0]
         assert len(shape) == 2 and shape[1] > 1
         assert any(0 in v.stride() for v in cand.values())
+
+
+# ------------------------------------------------ the spatial step as CUDA graphs
+
+# two in-process spatial shards whose ledgers grow after the step was captured
+# (births outrun absorption): an SMR+DDMC forest with emission (the block route,
+# its fixup generators, pending coarse-to-fine leaks), and Su-Olson's slab in two
+# blocks with its source window closing in the fifth step (a partial, then empty
+# windows; the source box in shard 0's block)
+_SPATIAL_GRAPH_PATHS = {  # (deck, overrides, steps)
+    "smr_ddmc_2_shards": (os.path.join(_ROOT, "inputs", "stepdiff_smr_ddmc.in"), {
+        "parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16, "parthenon/meshblock/nx1": 8,
+        "parthenon/meshblock/nx2": 8, "jaybenne/num_particles": 3000, "jaybenne/dt": "1.e-11",
+        "parthenon/time/tlim": "1.e-10", "jaybenne/do_emission": "true",
+        "mcblock/opacity_model": "constant", "mcblock/opacity_constant_value": 1e-3,
+        "jaybenne/capacity_factor": 1}, 6),
+    "suolson_2_shards": (os.path.join(_ROOT, "inputs", "suolson.in"), {
+        "parthenon/meshblock/nx1": 32, "parthenon/swarm/ox1_bc": "jaybenne_reflecting",
+        "mcblock/opacity_constant_value": 1.0, "jaybenne/capacity_factor": 1,
+        "jaybenne/external_source_tmax": "4.5e-12"}, 7),
+}
+
+
+@pytest.mark.parametrize("path", sorted(_SPATIAL_GRAPH_PATHS))
+def test_spatial_graph_matches_eager(gpu, tmp_path, path):
+    """The spatial step at 2 in-process shards through run_file, eager and as CUDA
+    graphs (``GraphedSpatialStep``) side by side: every field, ledger column,
+    counter and overflow bitwise equal after every step (chip_smoke.same_states),
+    the same launches a step, a replay, and a capture again after the ledger
+    grew."""
+    cs = _chip_smoke()
+    deck, mods, steps = _SPATIAL_GRAPH_PATHS[path]
+    mods = {**mods, "jaybenne/decomposition": "spatial", "jaybenne/n_devices": 2,
+            "parthenon/output0/file_type": "none"}
+    sims = [run_file(deck, outdir=str(tmp_path), modified_inputs=mods, quiet=True, nlim=0,
+                     device="cuda", graph=g) for g in (False, True)]
+    eager, graph = sims
+    assert not eager.graphed and graph.graphed
+    kinds, caps = [], []
+    for _ in range(steps):
+        before = graph.step_fn.captures
+        launches = []
+        for sim in sims:
+            cuda_lib.LAUNCHES.clear()
+            sim.run(nlim=1)
+            launches.append(dict(cuda_lib.LAUNCHES))
+        kinds.append("eager" if len(graph.history) == 1 else
+                     "capture" if graph.step_fn.captures > before else "replay")
+        caps.append(graph.state.particles.capacity)
+        assert launches[0] == launches[1], (path, graph.cycle, launches)
+        assert any(k.startswith("transport") for k in launches[1])
+        cs.same_states(eager, graph, path)
+    grown = [k for k in range(2, steps) if caps[k] != caps[k - 1]]
+    assert grown and all(kinds[k] == "capture" for k in grown), (kinds, caps)
+    assert "replay" in kinds, kinds
+    assert sum(h["migrated"] for h in graph.history) > 0
+    if "suolson" in path:  # past the source's cutoff
+        assert graph.t > graph.cfg.jaybenne.external_source_tmax + graph.cfg.jaybenne.dt

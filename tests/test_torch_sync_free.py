@@ -22,6 +22,7 @@ from jaybenne_tpu_torch import config as tcm
 from jaybenne_tpu_torch import particles as particles_mod
 from jaybenne_tpu_torch.driver import Simulation
 from jaybenne_tpu_torch.ops import transport_kernel
+from jaybenne_tpu_torch.parallel import spatial
 from jaybenne_tpu_torch.particles import ParticleLedger, insert_particles
 from jaybenne_tpu_torch.utils.deck import Deck
 
@@ -165,21 +166,28 @@ def test_single_device_step_reads_nothing(name):
             assert bool((state.particles.alive & ~before).any())
 
 
-def test_spatial_step_reads_once_a_round():
+@pytest.mark.parametrize("rounds_per_batch", [1, 3, 8])
+def test_spatial_step_reads_once_a_round(rounds_per_batch):
     """An SMR+DDMC spatial step at 2 in-process shards reads the host once a
-    migration round, for its exit test, and nowhere else."""
+    batch of migration rounds, for its exit test, and nowhere else: once a
+    round at one round a batch."""
     mods = {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
             "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8,
             "jaybenne/num_particles": 3000, "jaybenne/dt": "1.e-11",
             "jaybenne/decomposition": "spatial", "jaybenne/n_devices": 2}
     with tempfile.TemporaryDirectory() as tmp:
         sim = _sim(SMR_DDMC, mods, tmp)
+        step = spatial.build_spatial_step_core(sim.mesh, sim.cfg, sim.exchange,
+                                               rounds_per_batch)
         reads = []
         with host_reads(reads):
-            shards, stats = sim.step_fn(sim.shards, sim.cfg.jaybenne.dt)
+            shards, stats = step(sim.shards, sim.cfg.jaybenne.dt)
         counts = stats.values(stats.packed.clone())
     assert counts["migration_rounds"] >= 2 and counts["migrated"] > 0
-    assert reads == ["item"] * counts["migration_rounds"]
+    if rounds_per_batch == 1:
+        assert reads == ["item"] * counts["migration_rounds"]
+    assert reads == ["item"] * -(-counts["migration_rounds"] // rounds_per_batch)
+    assert step.rounds_run == rounds_per_batch * len(reads)
 
 
 # a deck that overflows its ledger: the thermal source of the initial radiation
