@@ -15,11 +15,15 @@ more tree, timed in the same turns. Nothing here imports jax.
    stepdiff, 2D feedback and 64^3 feedback ledgers after their last step (seed
    12345, the coefficients of the final fields); the last census of the DDMC, SMR
    and non-gray paths; phase 11's hybrid ledgers; the first round of
-   big_mesh_spatial and of SMR+DDMC spatial at 8 shards; at other numbers of lanes
-   a SM, the 64^3 feedback ledger's first eighth, the stepdiff_smr ledger eight
-   times over and the lane sweep: the stepdiff, 2D feedback, 64^3 DDMC,
-   stepdiff_3d, stepdiff_ddmc and 64^3 ep_bremss ledgers two and four times over
-   (the copies in other slots, so other draws). They go to one file.
+   big_mesh_spatial and of SMR+DDMC spatial at 8 shards; the float64 routes of
+   phase 43 (the last census of stepdiff, stepdiff_ddmc, stepdiff_smr and its
+   EPBremss step, the first round of stepdiff at 8 spatial shards); at other
+   numbers of lanes a SM, the 64^3 feedback ledger's first eighth, the
+   stepdiff_smr ledger eight times over and the lane sweep: the stepdiff, 2D
+   feedback, 64^3 DDMC, stepdiff_3d, stepdiff_ddmc and 64^3 ep_bremss ledgers and
+   the two float64 routes of F64_READ two and four times over (the copies in other
+   slots, so other draws; of a round, each shard's slice). They go to one file;
+   with ``--only`` the named routes and their sweep alone.
 2. Child processes, each importing the package of one tree (``--child``), time the
    census kernel on those inputs: every route the median of ``--repeats``
    censuses, each on a fresh copy of the saved ledger, timed with CUDA events
@@ -34,9 +38,11 @@ more tree, timed in the same turns. Nothing here imports jax.
    there and their counters agree.
 3. ``--profile`` runs ``python -m jaybenne_tpu_torch.profile`` from each tree's
    root in the same turns on stepdiff_smr (64x32, 100k particles), the 64^3
-   feedback row, the 64^3 DDMC row and stepdiff_3d (``chip_smoke.py`` phases 14
-   and 20), and reads the census kernel's device ms a step, the step's device
-   total and the unprofiled steps' wall median.
+   feedback row, the 64^3 DDMC row, stepdiff_3d (``chip_smoke.py`` phases 14
+   and 20) and, in float64, stepdiff_smr and stepdiff at 8 spatial shards (phase
+   43; ``--profile DECK ...`` names some), and reads the census kernel's device
+   ms a step and its launches a step (the mean launch: a spatial round), the
+   step's device total and the unprofiled steps' wall median.
 
 It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
 resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
@@ -54,7 +60,10 @@ slots, the events of a live lane, the DDMC path mix with its issue time and shar
 from the DDMC event's SASS, and on stepdiff_3d the events of a live lane by the
 level of its block); on the non-gray routes their reading (``ng_reading``: the same,
 the kernel alone with its slots spread and in order, and the opacity's SASS against
-the event loop's); the lane sweep's time an event
+the event loop's); on the float64 routes of F64_READ their reading
+(``f64_reading``: the kernel alone, registers and resident blocks, the warp path
+mix with the instructions a warp-event modelled from the loop's float64 SASS and
+its issue share); the lane sweep's time an event
 at 1, 2 and 4 times the live lanes of SWEEP_ROUTES (a time an event that falls
 with more lanes says the census leaves throughput unused: unevenly loaded SMs,
 which the path mix shows, or latency); with ``--out`` it writes everything there
@@ -64,6 +73,7 @@ as JSON.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
 import hashlib
 import json
@@ -98,12 +108,26 @@ PROFILE_DECKS = {
         "parthenon/output0/file_type=none"]),
     "stepdiff_3d": ("inputs/stepdiff_3d_smr_ddmc.in", [
         "jaybenne/num_particles=500000", "parthenon/output0/file_type=none"]),
+    # chip_smoke.py phase 43's float64 stepdiff_smr and stepdiff at 8 spatial shards
+    "stepdiff_smr_f64": ("inputs/stepdiff_smr.in", [
+        "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=32", "parthenon/meshblock/nx1=16",
+        "parthenon/meshblock/nx2=16", "parthenon/output0/file_type=none",
+        "jaybenne/precision=f64"]),
+    "stepdiff_spatial_f64": ("inputs/stepdiff.in", [
+        "parthenon/mesh/nx1=128", "parthenon/meshblock/nx1=16", "jaybenne/num_particles=100000",
+        "parthenon/output0/file_type=none", "jaybenne/decomposition=spatial",
+        "jaybenne/n_devices=8", "jaybenne/capacity_factor=4", "jaybenne/precision=f64"]),
 }
 
 
+PROFILE_ARGS = ("--warm", "3", "--steps", "3")
 SWEEP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
-                "transport_1d_ddmc", "transport_3d_abs_ng")
+                "transport_1d_ddmc", "transport_3d_abs_ng", "transport_2d_smr_f64",
+                "transport_1d_smr_f64@blocks")
 SWEEP = (1, 2, 4)
+# the float64 routes read apart (``f64_reading``): stepdiff_smr's last census and
+# the first round of stepdiff at 8 spatial shards (chip_smoke.py phase 43's)
+F64_READ = ("transport_2d_smr_f64", "transport_1d_smr_f64@blocks")
 
 
 def sweep_name(name, k) -> str:
@@ -112,8 +136,18 @@ def sweep_name(name, k) -> str:
     return name if k == 1 else f"{name}, its ledger {k} times"
 
 
-def record(path) -> None:
-    """Step 1: the census inputs of every timed route, saved to ``path``."""
+def times_over(p, k, n=1):
+    """A ledger of ``n`` equal slices (shards) with each slice ``k`` times over (the
+    copies in other slots, so other draws)."""
+    from jaybenne_tpu_torch.particles import ParticleLedger
+
+    return ParticleLedger(**{f.name: getattr(p, f.name).view(n, -1).repeat(1, k).reshape(-1)
+                             for f in dataclasses.fields(p)})
+
+
+def record(path, only=None) -> None:
+    """Step 1: the census inputs of every timed route (of ``only``'s, where given),
+    saved to ``path``."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -126,11 +160,18 @@ def record(path) -> None:
 
     dev = torch.device("cuda", 0)
     routes = {}
+
+    def want(name):
+        return only is None or name in only
+
+    f64 = cs.PREC64
     with tempfile.TemporaryDirectory() as outdir:
         for name, deck, mods, steps in (
                 ("transport_1d", cs.DECK, cs.GATE, cs.N_STEPS),
                 ("transport_2d_abs", cs.DECK, cs.FEEDBACK_2D, cs.FEEDBACK_2D_STEPS),
                 ("transport_3d_abs", cs.DECK, cs.FEEDBACK, cs.FEEDBACK_STEPS)):
+            if not want(name):
+                continue
             sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
                            device="cuda")
             m = sim.cfg.mcblock
@@ -149,13 +190,21 @@ def record(path) -> None:
                 ("transport_2d_ddmc_smr", cs.HYBRID_DECK, cs.NATIVE_HYBRID, cs.PATH_STEPS),
                 ("transport_1d_abs_ng", cs.DECK, cs.NG_GATE, 1),
                 ("transport_3d_abs_ng", cs.DECK, cs.NG_BIG, cs.FEEDBACK_STEPS),
-                ("transport_2d_abs_smr_ng", cs.SMR_DECK, cs.NG_SMR, 1)):
+                ("transport_2d_abs_smr_ng", cs.SMR_DECK, cs.NG_SMR, 1),
+                ("transport_1d_f64", cs.DECK, {**cs.GATE, **f64}, cs.N_STEPS),
+                ("transport_1d_ddmc_f64", cs.DDMC_DECK, {**cs.DDMC_GATE, **f64}, cs.PATH_STEPS),
+                ("transport_2d_smr_f64", cs.SMR_DECK, {**cs.SMR_GATE, **f64}, cs.PATH_STEPS),
+                ("transport_2d_abs_smr_ng_f64", cs.SMR_DECK, {**cs.NG_SMR, **f64}, 1)):
+            if not want(name):
+                continue
             with cs.CensusRecorder(tk, steps) as rec:  # recorded: the eager step
                 run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=steps,
                          device="cuda", graph=False)
             p, args = rec.inputs
             routes[name] = (p, 1, args)
     for ndim, absorb, seed in ((2, False, 1102), (2, True, 1112), (3, True, 1113)):
+        if only is not None:
+            break
         dt, mesh, prm, p0, coefs, _ = cs.hybrid_setup(dev, ndim, absorb, True, seed)
         p0.tau.copy_(0.9 + 0.1 * torch.rand(p0.capacity, device=dev,
                                             generator=torch.Generator(dev).manual_seed(seed)))
@@ -165,25 +214,28 @@ def record(path) -> None:
             (tk.launch_name(3, False, route="@z"), cs.DECK,
              {**cs.BIG_MESH, **cs.SPATIAL, "jaybenne/n_devices": 8}, cs.BIG_SPATIAL_STEPS),
             (tk.launch_name(2, False, True, True, route="@blocks"), cs.SMR_DDMC_DECK,
-             {**cs.SMR_SPATIAL, **cs.SPATIAL, "jaybenne/n_devices": 8}, cs.SMR_SPATIAL_STEPS)):
-        routes[name] = cs.spatial_path(deck, mods, steps, name)[2]
-    # the two routes whose event loop chip_smoke.py reads at other numbers of lanes
-    # a SM: the 64^3 feedback ledger's first eighth, the stepdiff_smr ledger eight
-    # times over (the copies in other slots, so other draws)
-    p, _, args = routes["transport_3d_abs"]
-    part = ParticleLedger(**{f.name: getattr(p, f.name)[: p.capacity // 8].clone()
-                             for f in dataclasses.fields(p)})
-    routes["transport_3d_abs, the first eighth of its ledger"] = (part, 1, args)
-    p, _, args = routes["transport_2d_smr"]
-    more = ParticleLedger(**{f.name: getattr(p, f.name).repeat(8) for f in dataclasses.fields(p)})
-    routes["transport_2d_smr, its ledger eight times"] = (more, 1, args)
-    # the lane sweep: the stepdiff and 2D feedback ledgers SWEEP times over
+             {**cs.SMR_SPATIAL, **cs.SPATIAL, "jaybenne/n_devices": 8}, cs.SMR_SPATIAL_STEPS),
+            (tk.launch_name(1, False, False, True, route="@blocks", dtype=torch.float64),
+             cs.DECK, {**cs.STEPDIFF_SPATIAL, **f64}, 1)):
+        if want(name):
+            routes[name] = cs.spatial_path(deck, mods, steps, name)[2]
+    if only is None:
+        # the two routes whose event loop chip_smoke.py reads at other numbers of
+        # lanes a SM: the 64^3 feedback ledger's first eighth, the stepdiff_smr
+        # ledger eight times over (the copies in other slots, so other draws)
+        p, _, args = routes["transport_3d_abs"]
+        part = ParticleLedger(**{f.name: getattr(p, f.name)[: p.capacity // 8].clone()
+                                 for f in dataclasses.fields(p)})
+        routes["transport_3d_abs, the first eighth of its ledger"] = (part, 1, args)
+        p, _, args = routes["transport_2d_smr"]
+        routes["transport_2d_smr, its ledger eight times"] = (times_over(p, 8), 1, args)
+    # the lane sweep: each route's ledger (each shard's slice) SWEEP times over
     for name in SWEEP_ROUTES:
-        p, _, args = routes[name]
+        if name not in routes:
+            continue
+        p, n, args = routes[name]
         for k in SWEEP[1:]:
-            more = ParticleLedger(**{f.name: getattr(p, f.name).repeat(k)
-                                     for f in dataclasses.fields(p)})
-            routes[sweep_name(name, k)] = (more, 1, args)
+            routes[sweep_name(name, k)] = (times_over(p, k, n), n, args)
     torch.save(routes, path)
 
 
@@ -197,7 +249,7 @@ def digest(p) -> str:
 
 MIX_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
               "transport_1d_ddmc", "transport_1d_abs_ddmc", "transport_3d_abs_ng",
-              "transport_1d_abs_ng", "transport_2d_abs_smr_ng")
+              "transport_1d_abs_ng", "transport_2d_abs_smr_ng", *F64_READ)
 # the non-gray routes whose opacity's share of the event loop is read: the loop as
 # built, and with EPBremss returning at once (``chip_smoke.LOOP_PATHS``)
 NG_ROUTES = ("transport_3d_abs_ng", "transport_1d_abs_ng", "transport_2d_abs_smr_ng")
@@ -219,16 +271,18 @@ def this_chip_smoke():
 DD_PATHS = ("dd_leak", "dd_step", "dd_any")
 
 
-def kernel_alone(cs, tk, dev, p0, args, repeats, spread=None) -> list:
+def kernel_alone(cs, tk, dev, p0, args, repeats, spread=None, n=1) -> list:
     """Sorted ms of the census kernel alone with its counters (``chip_smoke.CallSplit``'s
-    ``kernel``) in ``repeats`` censuses on fresh copies of ``p0``, each after a
-    device sleep; with ``spread`` False or True, each launch's slots spread or not
-    whatever ``transport_kernel.spreads`` would choose."""
+    ``kernel``) in ``repeats`` censuses on fresh copies of ``p0`` (of ``n`` shards'
+    slices), each after a device sleep; with ``spread`` False or True, each
+    launch's slots spread or not whatever ``transport_kernel.spreads`` would
+    choose."""
     import torch
 
     from jaybenne_tpu_torch.ops import cuda_lib
 
     times, chooser = [], tk.spreads
+    census = cs.sliced(tk.transport, n) if n > 1 else tk.transport
     if spread is not None:
         tk.spreads = lambda *a: spread
     try:
@@ -237,7 +291,7 @@ def kernel_alone(cs, tk, dev, p0, args, repeats, spread=None) -> list:
                 p = p0.clone()
                 torch.cuda.synchronize(dev)
                 torch.cuda._sleep(50_000_000)
-                tk.transport(p, *args)
+                census(p, *args)
                 times.append(win.ms()["kernel"])
     finally:
         tk.spreads = chooser
@@ -383,6 +437,23 @@ def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> 
     return {**out, "kernel_ms": k_ms, "slot_order_warp_efficiency": tk.warp_efficiency(lanes)}
 
 
+def f64_reading(cs, tk, dev, label, inputs, n, res, paths, mix, repeats) -> dict:
+    """The reading of a float64 route (F64_READ) on a census's ``inputs`` ((ledger,
+    args), of ``n`` shards' slices): the kernel alone, the event loop's line
+    (registers, stack and spills from ``res``, resident blocks, the common path
+    from ``paths``, the slot order's warp efficiency, the issue share), the warp
+    path mix with the instructions a warp-event modelled from ``paths``
+    (``chip_smoke.path_mix_line``: a lane that reaches a block face is re-homed by
+    the lookup, or meets a wall) and its issue share of the kernel alone."""
+    p, args = inputs
+    census = cs.sliced(tk.transport, n) if n > 1 else tk.transport
+    events = int(census(p.clone(), *args)[2])
+    k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats, n=n))
+    print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
+    cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["scatter"], n=n)
+    return {**cs.path_mix_line(label, mix, paths, k_ms, events, dev), "kernel_ms": k_ms}
+
+
 def mix_child(inputs, pkg, repeats, out) -> None:
     """The warp path mix (``chip_smoke.path_mix``) of the package under ``pkg`` on
     the saved inputs of MIX_ROUTES: its kernel's counting variant, built from its
@@ -401,17 +472,29 @@ def mix_child(inputs, pkg, repeats, out) -> None:
     cs = this_chip_smoke()
     routes = torch.load(inputs, weights_only=False)
     res = cs.kernel_resources(cuda_lib.library().build_log, tk)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        dd_build = pool.submit(cs.loop_paths, str(cuda_lib.SRC_DIR), cs.DDMC_ROUTES, tk, DD_PATHS)
-        ng_build = pool.submit(cs.loop_paths, str(cuda_lib.SRC_DIR), NG_ROUTES, tk, NG_PATHS)
+    mixed = [name for name in MIX_ROUTES if name in routes]
+    csrc = str(cuda_lib.SRC_DIR)
+
+    def reading(pool, names, paths):  # the loop paths of the mixed routes among names
+        names = [name.split("@")[0] for name in names if name in mixed]
+        return pool.submit(cs.loop_paths, csrc, names, tk, paths) if names else None
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = (reading(pool, cs.DDMC_ROUTES, DD_PATHS), reading(pool, NG_ROUTES, NG_PATHS),
+                  reading(pool, F64_READ, ("scatter", "cross", "no_wall", "full")))
         lib = cs.path_mix_library(cuda_lib.SRC_DIR, cuda_lib.BUILD_DIR / "path_mix")
-        dd, ng = dd_build.result(), ng_build.result()
+        dd, ng, f64_paths = (b.result() if b else None for b in builds)
     label = os.path.basename(pkg.rstrip("/")) or pkg
     result = {}
-    for name in MIX_ROUTES:
-        p0, _, args = routes[name]
-        mix = cs.path_mix(tk, lib, (p0, args))
-        if name in cs.DDMC_ROUTES:
+    for name in mixed:
+        p0, n, args = routes[name]
+        mix = cs.path_mix(tk, lib, (p0, args), n)
+        if name in F64_READ:
+            base = name.split("@")[0]
+            mix = f64_reading(cs, tk, dev, f"{label}: {name}", (p0, args), n,
+                              res.get(base, {}), {k: v[base] for k, v in f64_paths.items()},
+                              mix, repeats)
+        elif name in cs.DDMC_ROUTES:
             mix = ddmc_reading(cs, tk, dev, f"{label}: {name}", name, (p0, args),
                                res.get(name, {}), {k: dd[k][name] for k in DD_PATHS}, mix,
                                repeats)
@@ -481,20 +564,26 @@ def child(inputs, pkg, repeats, out) -> None:
 
 
 def profile(tree, deck) -> dict:
-    """Step 3 for one tree and deck: the census kernel's device ms a step and the
-    device total a step, from ``python -m jaybenne_tpu_torch.profile``."""
+    """Step 3 for one tree and deck: the census kernel's device ms a step, its
+    launches a step (under the spatial decomposition one a round queued, so that
+    the census ms over them is the mean round's), the device total a step and the
+    unprofiled steps' wall median, from ``python -m jaybenne_tpu_torch.profile``."""
     path, mods = PROFILE_DECKS[deck]
     res = subprocess.run([sys.executable, "-m", "jaybenne_tpu_torch.profile", "-i", path,
-                          "--warm", "3", "--steps", "3", *mods], cwd=tree, capture_output=True,
-                         text=True, timeout=900)
+                          *PROFILE_ARGS, *mods], cwd=tree, capture_output=True, text=True,
+                         timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"profile {deck} in {tree}:\n{res.stderr[-3000:]}")
     kernel = sum(float(m.group(1)) for m in re.finditer(
         r"device_ms_per_step (\S+) .*transport_kernel", res.stdout))
     m = re.search(r"device total (\S+) ms per step; unprofiled step wall median (\S+) ms",
                   res.stdout)
-    return {"census_ms_per_step": kernel, "device_ms_per_step": float(m.group(1)),
-            "step_wall_ms": float(m.group(2))}
+    launches = ast.literal_eval(re.search(r"launches in the profiled steps: (\{.*\})",
+                                          res.stdout).group(1))
+    steps = int(PROFILE_ARGS[PROFILE_ARGS.index("--steps") + 1])
+    census = sum(v for k, v in launches.items() if k.startswith("transport_")) / steps
+    return {"census_ms_per_step": kernel, "census_launches_per_step": census,
+            "device_ms_per_step": float(m.group(1)), "step_wall_ms": float(m.group(2))}
 
 
 def issue_share(kids, tree, name, summary, sms) -> float:
@@ -517,7 +606,11 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", action="append", default=[], help="one more tree's root")
     ap.add_argument("--repeats", type=int, default=7)
     ap.add_argument("--turns", type=int, default=1, help="rounds of the turns")
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile", nargs="*", metavar="DECK",
+                    help=f"profile.py's reading of these decks, every deck if none is "
+                    f"named: {', '.join(PROFILE_DECKS)}")
+    ap.add_argument("--only", action="append", metavar="ROUTE",
+                    help="time this route (with its lane sweep) alone; may repeat")
     ap.add_argument("--out", help="also write every number here, as JSON")
     ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--mix-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
@@ -551,12 +644,14 @@ def main(argv=None) -> int:
     order = [parent, *variants, ROOT, ROOT, *variants[::-1], parent] * args.turns
     summary = {"device": smi, "order": [label[t] for t in order], "children": [],
                "profile": [], "common_path": {}, "resources": {}, "mix": {}}
+    loop_routes = [r for r in cs.EVENT_LOOP_ROUTES if args.only is None or r in args.only]
     for tree in trees:
-        summary["common_path"][label[tree]] = cs.common_paths(
-            os.path.join(tree, "jaybenne_tpu_torch", "csrc"), cs.EVENT_LOOP_ROUTES, tk)
+        csrc = os.path.join(tree, "jaybenne_tpu_torch", "csrc")
+        summary["common_path"][label[tree]] = (cs.common_paths(csrc, loop_routes, tk)
+                                               if loop_routes else {})
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
-        record(inputs)
+        record(inputs, args.only)
         own_log = cuda_lib.library().build_log  # this tree's library, built by record
         for k, tree in enumerate(order):
             out = os.path.join(tmp, f"child{k}.json")
@@ -573,9 +668,9 @@ def main(argv=None) -> int:
                            timeout=1800)
             with open(out) as f:
                 summary["mix"][label[tree]] = json.load(f)
-    if args.profile:
+    if args.profile is not None:
         for tree in order:
-            for deck in PROFILE_DECKS:
+            for deck in args.profile or PROFILE_DECKS:
                 summary["profile"].append({"tree": label[tree], "deck": deck,
                                            **profile(tree, deck)})
     kids = summary["children"]
@@ -637,6 +732,8 @@ def main(argv=None) -> int:
                   + ", ".join(f"{label[t]} {issue_share(kids, label[t], name, summary, sms)!r}"
                               for t in trees), flush=True)
     for name in MIX_ROUTES:
+        if name not in names:
+            continue
         for tree in (parent, ROOT):
             m = summary["mix"][label[tree]][name]
             we = m["warp_events"]
@@ -653,12 +750,19 @@ def main(argv=None) -> int:
                     f"{'spread' if m['spreads'] else 'in order'}; "
                     f"{m['kernel_ms_other_spread']!r} ms if not); slot-order warp efficiency "
                     f"{m['slot_order_warp_efficiency']!r}"
-                    if name in NG_ROUTES else f"crossed {m['cross'] / we!r}")
+                    if name in NG_ROUTES else
+                    f"crossed {m['cross'] / we!r}, reached a block face or wall "
+                    f"{m['wall'] / we!r}; {m['instructions_per_warp_event']!r} instructions a "
+                    f"warp-event, warp issue share {m['warp_issue_share']!r} of the kernel alone "
+                    f"{m['kernel_ms']!r} ms"
+                    if name in F64_READ else f"crossed {m['cross'] / we!r}")
             print(f"path mix {name} {label[tree]}: {we} warp-events, SIMT efficiency "
                   f"{m['lane_events'] / (32 * we)!r}, warp-events with a lane that {what}; "
                   f"lane-events a SM (%smid): {m['sms_with_lanes']} SMs ran lanes, max/mean "
                   f"{m['sm_max_over_mean']!r}", flush=True)
     for name in SWEEP_ROUTES:
+        if name not in names:
+            continue
         for tree in trees:
             cells = []
             for k in SWEEP:
@@ -669,8 +773,11 @@ def main(argv=None) -> int:
                              f"{ms * 1e6 / runs[0]['events']!r} ns an event")
             print(f"lane sweep {name} {label[tree]}: " + "; ".join(cells), flush=True)
     for row in summary["profile"]:
+        launches = row["census_launches_per_step"]
         print(f"profile {row['deck']} {row['tree']}: census {row['census_ms_per_step']!r} ms a "
-              f"step, device total {row['device_ms_per_step']!r} ms a step, step wall median "
+              f"step in {launches!r} launches (the mean launch "
+              f"{row['census_ms_per_step'] / max(launches, 1)!r} ms), device total "
+              f"{row['device_ms_per_step']!r} ms a step, step wall median "
               f"{row['step_wall_ms']!r} ms", flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -19,8 +19,10 @@ non-zero without a GPU. Nothing here imports jax.
 Phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc time of the kernel library; every instantiation's registers,
-     stack frame and spills (``-Xptxas -v``) and resident blocks a SM, and the
-     local-memory instructions (LDL/STL) of each one with a stack frame; the SASS
+     stack frame and spills (``-Xptxas -v``) and resident blocks a SM (the phase
+     fails where a float64 route of ``F64_RESIDENT_FLOOR`` spills or holds fewer
+     blocks than its floor, printed beside it), and the local-memory
+     instructions (LDL/STL) of each one with a stack frame; the SASS
      instructions of the event loop's paths (``loop_paths``: the common path, a
      scatter in the lane's cell; a crossing; any outcome but a wall; the whole
      loop) of transport_1d, transport_2d_abs, transport_2d_smr and
@@ -242,11 +244,13 @@ Phases:
      (<= 0.05; the float64 table kernel bitwise its plain version),
      stepdiff_smr (<= 0.3), one EPBremss step on stepdiff_smr (phase 25's gate),
      stepdiff at 8 spatial shards (<= 0.05); each route's kernel and plain
-     version timed on its last census (the spatial one on its first round);
+     version timed on its last census (the spatial one on its first round, and
+     the mean round's device time beside it, ``mean_round_line``);
  44. the float64 census against the float32 one on the same inputs, in turns,
-     median of 5 with its range, on stepdiff's, the 2D feedback path's and the
-     64^3 feedback row's last census; the float64 bound (8-byte floats over 3.35
-     TB/s, operations from the float64 probes' SASS over 34 TFLOP/s FP64);
+     median of 5 with its range, on stepdiff's, the 2D feedback path's, the
+     64^3 feedback row's and stepdiff_smr's last census; the float64 bound
+     (8-byte floats over 3.35 TB/s, operations from the float64 probes' SASS over
+     34 TFLOP/s FP64);
  45. the step without the host: a CUDA graph's replay after manual_seed draws
      what the eager draw does (``CUDAGraph.register_generator_state``); each of
      ``GRAPH_PATHS`` (stepdiff, stepdiff_ddmc, the 64^3 DDMC and feedback rows,
@@ -319,6 +323,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F64 = torch.float64
+# the float64 routes redesigned for the register file (the lean lane, kLean of
+# csrc/transport_kernel.cuh): the resident blocks of 256 a SM each holds on an
+# H100 with no spill bytes (phase 2 fails without them)
+F64_RESIDENT_FLOOR = {"transport_2d_smr_f64": 3, "transport_1d_smr_f64": 4}
 DECK = os.path.join(ROOT, "inputs", "stepdiff.in")
 GATE = {
     "parthenon/mesh/nx1": 128,
@@ -881,36 +889,42 @@ def patched(src, edits, what) -> str:
 def loop_paths(csrc, names, transport_kernel, paths=tuple(LOOP_PATHS)) -> dict:
     """The SASS instructions of the event loop's ``paths`` (LOOP_PATHS) of the
     census instantiations ``names``, as {path: {name: count}}: for each path the
-    float32 instantiations (``csrc``/transport_kernel.cu) compiled with the
-    library's flags and the path's traps in the kernel's body (KERNEL_BODY; one
-    nvcc a path, all started together), so that the compiler drops the code of
-    every other outcome, and ``loop_body`` of each instantiation's SASS
-    (cuobjdump). ``csrc`` may be another tree's sources of the same kernel."""
+    float32 instantiations (``csrc``/transport_kernel.cu) and, where ``names``
+    holds a float64 one, the float64 instantiations (transport_kernel_f64.cu),
+    compiled with the library's flags and the path's traps in the kernel's body
+    (KERNEL_BODY; one nvcc a path and source, all started together), so that the
+    compiler drops the code of every other outcome, and ``loop_body`` of each
+    instantiation's SASS (cuobjdump). ``csrc`` may be another tree's sources of
+    the same kernel."""
     from jaybenne_tpu_torch.ops import cuda_lib
 
     with open(os.path.join(csrc, KERNEL_BODY)) as f:
         src = f.read()
-    with open(os.path.join(csrc, "transport_kernel.cu")) as f:
-        entry = f.read()
+    entries = [e for e, want in (("transport_kernel", not all(n.endswith("_f64") for n in names)),
+                                 ("transport_kernel_f64", any(n.endswith("_f64") for n in names)))
+               if want]
     flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
-    out = {}
+    out = {path: {} for path in paths}
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
+        procs = []
         for path in paths:
-            cu, cubin = os.path.join(tmp, f"{path}.cu"), os.path.join(tmp, f"{path}.cubin")
             body = os.path.join(tmp, f"{path}.cuh")
             with open(body, "w") as f:
                 f.write(patched(src, LOOP_PATHS[path], f"loop path {path}"))
-            with open(cu, "w") as f:
-                f.write(entry.replace(f'#include "{KERNEL_BODY}"', f'#include "{path}.cuh"'))
-            procs[path] = (cubin, subprocess.Popen(
-                [cuda_lib.nvcc(), *flags, "-I", csrc, "-cubin", "-o", cubin, cu],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for path, (cubin, proc) in procs.items():
+            for stem in entries:
+                with open(os.path.join(csrc, f"{stem}.cu")) as f:
+                    entry = f.read()
+                cu = os.path.join(tmp, f"{path}_{stem}.cu")
+                cubin = os.path.join(tmp, f"{path}_{stem}.cubin")
+                with open(cu, "w") as f:
+                    f.write(entry.replace(f'#include "{KERNEL_BODY}"', f'#include "{path}.cuh"'))
+                procs.append((path, cubin, subprocess.Popen(
+                    [cuda_lib.nvcc(), *flags, "-I", csrc, "-cubin", "-o", cubin, cu],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for path, cubin, proc in procs:
             log = proc.communicate(timeout=900)[0]
             if proc.returncode != 0:
                 raise RuntimeError(f"loop path {path}: nvcc failed:\n{log[-3000:]}")
-            out[path] = {}
             for fn, code in sass_listing(cubin).items():
                 name = census_route(fn, transport_kernel)
                 if name in names:
@@ -996,6 +1010,8 @@ extern "C" int jb_path_mix_read(unsigned long long* out, unsigned long long* by_
   return err;
 }}
 """
+# the float64 census's counters (its source's own) read by their own entry
+PATH_MIX_READ_F64 = PATH_MIX_READ.replace("jb_path_mix_read(", "jb_path_mix_read_f64(")
 
 
 def path_mix_library(csrc=None, out_dir=None):
@@ -1003,9 +1019,10 @@ def path_mix_library(csrc=None, out_dir=None):
     ``csrc`` (this tree's by default), built into ``out_dir`` (by default
     ``path_mix`` under the build directory, which ``.gitignore`` lists): every source
     compiled, the kernel's body (KERNEL_BODY) with PATH_MIX's counters, each
-    source's own (the anonymous namespace holds them), and transport_kernel.cu
-    with the reader of the float32 census's, so that it loads as a
-    ``cuda_lib.CudaLibrary`` of that tree and takes its launches."""
+    source's own (the anonymous namespace holds them), transport_kernel.cu with
+    the reader of the float32 census's and transport_kernel_f64.cu with that of
+    the float64 census's, so that it loads as a ``cuda_lib.CudaLibrary`` of that
+    tree and takes its launches."""
     import ctypes
     from pathlib import Path
 
@@ -1020,8 +1037,8 @@ def path_mix_library(csrc=None, out_dir=None):
                                                "path mix"))
     for src in sorted(csrc.glob("*.cu")):
         text = src.read_text()
-        if src.name == "transport_kernel.cu":
-            text = text + PATH_MIX_READ
+        text += {"transport_kernel.cu": PATH_MIX_READ,
+                 "transport_kernel_f64.cu": PATH_MIX_READ_F64}.get(src.name, "")
         cu, obj = out_dir / src.name, out_dir / f"{src.stem}.o"
         cu.write_text(text)
         objs.append(str(obj))
@@ -1035,17 +1052,19 @@ def path_mix_library(csrc=None, out_dir=None):
     subprocess.run([cuda_lib.nvcc(), *flags[:2], "-shared", "-o", str(so), *objs], check=True,
                    capture_output=True, timeout=300)
     lib = cuda_lib.CudaLibrary(so, 0.0, "")
-    lib._dll.jb_path_mix_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib._dll.jb_path_mix_read.restype = ctypes.c_int
+    for read in ("jb_path_mix_read", "jb_path_mix_read_f64"):
+        getattr(lib._dll, read).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        getattr(lib._dll, read).restype = ctypes.c_int
     return lib
 
 
-def path_mix(transport_kernel, lib, inputs) -> dict:
+def path_mix(transport_kernel, lib, inputs, n=1) -> dict:
     """The counting variant ``lib`` (``path_mix_library``) run on a census's
-    ``inputs`` ((ledger, args) of ``transport``) through ``transport_kernel``'s own
-    launch, with the variant in place of the kernel library for the call (its
-    launch not counted): its PATH_MIX_KEYS totals and ``by_sm``, the lane-events
-    of each SM that ran any."""
+    ``inputs`` ((ledger, args) of ``transport``, over ``n`` shards' slices) through
+    ``transport_kernel``'s own launch, with the variant in place of the kernel
+    library for the call (its launch not counted): its PATH_MIX_KEYS totals (of
+    the census's precision) and ``by_sm``, the lane-events of each SM that ran
+    any."""
     import ctypes
 
     from jaybenne_tpu_torch.ops import cuda_lib
@@ -1053,12 +1072,14 @@ def path_mix(transport_kernel, lib, inputs) -> dict:
     p, args = inputs
     buf = (ctypes.c_ulonglong * len(PATH_MIX_KEYS))()
     by_sm = (ctypes.c_ulonglong * PATH_MIX_SMS)()
-    read = ("jb_path_mix_read", ctypes.addressof(buf), ctypes.addressof(by_sm))
+    entry = "jb_path_mix_read" + ("_f64" if p.x.dtype == F64 else "")
+    read = (entry, ctypes.addressof(buf), ctypes.addressof(by_sm))
     lib.call(*read)  # zeroes the counters
     own, launches = cuda_lib.library, dict(cuda_lib.LAUNCHES)
     cuda_lib.library = lambda: lib
+    census = sliced(transport_kernel.transport, n) if n > 1 else transport_kernel.transport
     try:
-        transport_kernel.transport(p.clone(), *args)
+        census(p.clone(), *args)
         torch.cuda.synchronize()
     finally:
         cuda_lib.library = own
@@ -1151,7 +1172,8 @@ class CallSplit:
             setattr(self.tk, attr, self._window(part, self.saved[attr]))
         call = self.lib.call
         launch = self._window("launch", call)
-        self.lib.call = lambda name, *a: (launch if name == "jb_transport_launch" else call)(
+        self.lib.call = lambda name, *a: (
+            launch if name in ("jb_transport_launch", "jb_transport_launch_f64") else call)(
             name, *a)
         return self
 
@@ -1303,9 +1325,10 @@ def kernel_resources(build_log, transport_kernel) -> dict:
     return out
 
 
-def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common):
+def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common, n=1):
     """Prints, for the route ``name`` on a census's ``inputs`` ((ledger, args) of
-    ``transport``) timed at ``ms`` for ``events``: registers, stack and spills
+    ``transport``, over ``n`` shards' slices) timed at ``ms`` for ``events``:
+    registers, stack and spills
     (``res``), resident blocks a SM, live lanes against the card's resident
     threads, the SASS instructions of the event loop's common path (``common``),
     the slot order's warp efficiency (the plain version's per-slot events) and the
@@ -1313,15 +1336,18 @@ def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common
     ISSUE_PER_SM_CLOCK x the SM clock (nvidia-smi, read just after). Returns the
     per-slot events."""
     p, args = inputs
-    prm = args[3]
-    flags = (bool(prm.has_absorption), bool(prm.use_ddmc), args[1].max_level > 0,
-             not getattr(args[0], "is_gray", True))
-    blocks = transport_kernel.resident_blocks(prm.ndim, *flags)
+    prm, g = args[3], getattr(args[0], "g", None)  # a recorded round's set-up has its geometry
+    flags = (bool(prm.has_absorption), bool(prm.use_ddmc),
+             g.smr if g is not None else args[1].max_level > 0,
+             g.nongray if g is not None else not getattr(args[0], "is_gray", True))
+    blocks = transport_kernel.resident_blocks(prm.ndim, *flags, dtype=p.x.dtype)
     clock = smi_value("clocks.sm")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     live = int((p.alive & (p.tau < 1.0)).sum())
     lanes = torch.zeros(p.capacity, dtype=torch.int32, device=p.x.device)
-    transport_kernel.transport_plain(p.clone(), *args, lane_events=lanes)
+    plain = (sliced(transport_kernel.transport_plain, n) if n > 1
+             else transport_kernel.transport_plain)
+    plain(p.clone(), *args, lane_events=lanes)
     eff = transport_kernel.warp_efficiency(lanes)
     issue = common * events / (ms * 1e-3 * sms * ISSUE_PER_SM_CLOCK * clock * 1e6)
     print(f"{name} event loop: {res.get('registers', 'not read')} registers, stack "
@@ -2041,9 +2067,11 @@ def profile_error(sim, nbins=PROFILE_BINS, scale=1.0) -> float:
     return float((frac * sol).sum() / sol.sum())
 
 
-def smr_phases(transport_kernel, dev, cost, src, resources, common) -> list:
+def smr_phases(transport_kernel, dev, cost, src, resources, common) -> tuple:
     """Phases 15-21 (static mesh refinement). Returns the entries of the
-    ``kernels`` line for the SMR instantiations that the paths run."""
+    ``kernels`` line for the SMR instantiations that the paths run, and the
+    inputs of stepdiff_smr's last census (phase 44 times it at both
+    precisions)."""
     phase("15 K1(d): all twelve SMR instantiations vs plain on level-1 forests, 2^17 particles")
     smr_err, resamples = {}, 0
     for ndim, seed in ((1, 1501), (2, 1502), (3, 1503)):
@@ -2117,7 +2145,7 @@ def smr_phases(transport_kernel, dev, cost, src, resources, common) -> list:
             "ms": ms_k, "plain_ms": plain_k, "bound_ms": bound_k, "bound_by": by_k,
             "library_ms": None,
         })
-    return kernels
+    return kernels, s2_in
 
 
 def nongray_setup(dev, ndim, ddmc, smr, seed):
@@ -2466,7 +2494,7 @@ def shards_vs_plain(transport_kernel, what, p0, coefs, mesh, seeds, prm, dt, own
     n = len(owns)
     name = transport_kernel.launch_name(prm.ndim, bool(prm.has_absorption), bool(prm.use_ddmc),
                                         owns[0].kind == "blocks" or mesh.max_level > 0,
-                                        route=owns[0].route)
+                                        route=owns[0].route, dtype=p0.x.dtype)
     pk, pp = p0.clone(), p0.clone()
     before = cuda_lib.LAUNCHES[name]
     _, it_k, ev_k = transport_kernel.transport(split_ledger(pk, n), coefs, mesh, seeds, prm, dt,
@@ -2825,6 +2853,43 @@ def round_kernel(transport_kernel, dev, inputs, name, cost):
           f"{plain_ms!r} ms, {ev} events; bound {bound!r} ms ({by}), kernel at "
           f"{bound / ms:.3f} of it; kernel and plain bitwise equal", flush=True)
     return ms, plain_ms, ev, err, bound, by
+
+
+def mean_round_line(deck, mods, name, sim, first_ms) -> float:
+    """Prints the mean device time of a spatial run's census launches (one a round
+    queued, a batch's no-op rounds too) beside the first round's ``first_ms``: the
+    deck run as the driver runs it (CUDA graphs) for two steps, then one more step
+    under ``torch.profiler``, the census kernel's device time summed over its
+    launches in that step; and the rounds a step of ``sim``, the path's own run.
+    Returns the mean launch's ms."""
+    import collections
+
+    from jaybenne_tpu_torch import config as config_mod
+    from jaybenne_tpu_torch.driver import Simulation
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.profile import device_time_by_name
+    from jaybenne_tpu_torch.utils.deck import Deck
+
+    cfg = config_mod.from_deck(Deck.from_file(deck).update(mods))
+    with tempfile.TemporaryDirectory() as outdir:
+        run = Simulation(cfg, outdir=outdir, quiet=True, device="cuda")
+        run.run(nlim=2)  # the first step eager, the second captured
+        before = collections.Counter(cuda_lib.LAUNCHES)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            run.run(nlim=1)
+        launches = sum(v for k, v in (collections.Counter(cuda_lib.LAUNCHES) - before).items()
+                       if k.startswith("transport_"))
+        trace = os.path.join(outdir, "trace.json")
+        prof.export_chrome_trace(trace)
+        census_ms = sum(us for k, us in device_time_by_name(trace).items()
+                        if "transport_kernel" in k) / 1e3
+    mean = census_ms / launches
+    print(f"{name}: the mean round {mean!r} ms of device time (torch.profiler on the third "
+          f"step, {run.history[-1]['migration_rounds']} rounds run, {launches} census launches "
+          f"queued, {census_ms!r} ms in all) against the first round's {first_ms!r} ms; rounds "
+          f"a step of the path {[h['migration_rounds'] for h in sim.history]}", flush=True)
+    return mean
 
 
 def warp_efficiency_line(transport_kernel, inputs, name, ms, before_ms, n=None):
@@ -3375,8 +3440,10 @@ def f64_phases(transport_kernel, dev, cost, cost64, routes) -> list:
     only_f64(launches, what)
     gate(weighted_erf_error(sp), WERR_TOL, f"{what} werr")
     name = next(k for k in launches if k.startswith("transport_"))
+    timing = round_kernel(transport_kernel, dev, sp_round, name, cost64)
     rows.append(f64_row(name, "stepdiff at 8 spatial shards, one launch a round", launches,
-                        [], round_kernel(transport_kernel, dev, sp_round, name, cost64)))
+                        [], timing))
+    mean_round_line(DECK, {**STEPDIFF_SPATIAL, **PREC64}, name, sp, timing[0])
 
     phase("44 the float64 census against the float32 one: time and bound")
     for what, inputs in routes:
@@ -3820,10 +3887,16 @@ def main() -> int:
                 name = transport_kernel.launch_name(ndim, absorb, ddmc, smr, ng, dtype=F64)
                 r = resources.get(name, {})
                 blocks = transport_kernel.resident_blocks(ndim, absorb, ddmc, smr, ng, F64)
+                floor = F64_RESIDENT_FLOOR.get(name)
                 print(f"  {name}: {r.get('registers', 'not read')} registers, stack "
                       f"{r.get('stack', 'not read')} bytes, spill stores/loads "
                       f"{r.get('spill_stores', 'not read')}/{r.get('spill_loads', 'not read')} "
-                      f"bytes, {blocks} resident blocks of 256 a SM", flush=True)
+                      f"bytes, {blocks} resident blocks of 256 a SM"
+                      + (f" (floor {floor})" if floor else ""), flush=True)
+                if floor and (blocks < floor or r.get("spill_stores") != 0
+                              or r.get("spill_loads") != 0):
+                    raise AssertionError(f"{name}: a floor of {floor} resident blocks, "
+                                         f"{blocks} held, resources {r}")
     listing = sass_listing(lib.path)
     cost = probe_costs(sass_counts(listing))
     cost64 = probe_costs(sass_counts(listing), f64=True)
@@ -4249,7 +4322,7 @@ def main() -> int:
         "plain_ms": table[1], "bound_ms": table[2], "bound_by": "bytes", "library_ms": None,
     }
 
-    smr_kernels = smr_phases(transport_kernel, dev, cost, src, resources, common)
+    smr_kernels, s2_in = smr_phases(transport_kernel, dev, cost, src, resources, common)
     nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
     spatial_kernels = spatial_phases(transport_kernel, dev, cost, src)
 
@@ -4260,7 +4333,8 @@ def main() -> int:
     f64_kernels = f64_phases(
         transport_kernel, dev, cost, cost64,
         (("stepdiff (transport_1d)", (pm, args)), ("the 2D feedback path (transport_2d_abs)", in2),
-         ("the 64^3 feedback row (transport_3d_abs)", fb_in)))
+         ("the 64^3 feedback row (transport_3d_abs)", fb_in),
+         ("stepdiff_smr (transport_2d_smr)", s2_in)))
 
     insert_kernel = graph_phase(dev, smi)
     insert_kernel["launches"] = fb_launches.get("ledger_insert", 0)

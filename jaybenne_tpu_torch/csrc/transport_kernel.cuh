@@ -317,6 +317,31 @@
 // every block, empty ones too, takes the ticket on one address, so the launches
 // took longer (inf_stiff's call +7.9 %, the 64^3 ep_bremss call +5.5 %).
 //
+// The float64 census on a forest (stepdiff_smr's transport_2d_smr_f64, the 8-shard
+// stepdiff round's transport_1d_smr_f64@blocks). Read first (NVIDIA H100 80GB HBM3,
+// 700.00 W; census_bench.py on the paths' saved inputs): 98 and 68 registers, 2 and
+// 3 resident blocks of 256; the warps issue for 0.61 and 0.56 of the kernel's time
+// (the warp path mix at the card's issue rate: a warp-event holds a lane that
+// crosses a cell in 0.92 and 0.73 of them, one that reaches a block face in 0.17
+// and 0.02, at 367 and 178 more instructions), and the time an event fell 11-13 %
+// and 16-24 % with two and four times the lanes: latency and issue both, too few
+// warps to hide the FP64 chains (log 84 SASS instructions, divide 18). The lane
+// kept in registers what its cell gives every event, in double two registers each
+// (the block's dx and origin, dmin, the faces). So a lean lane (``kLean``, on the
+// 1D and 2D gray forests without absorption) keeps its record alone and makes the
+// rest anew at each event (an L1 read of the block table, two multiplies an axis),
+// and draws at the top of the event: 98 -> 78 registers and 2 -> 3 resident blocks
+// in 2D, 68 -> 60 and 3 -> 4 in 1D, no spills, every other instantiation's ptxas
+// line as before. Measured in turns against the kernel before it (census_bench.py,
+// the same inputs, outputs bitwise): stepdiff_smr's census 3.142 -> 2.499 ms, the
+// 8-shard first round 1.770 -> 1.630. Built, measured and dropped: a register
+// budget in __launch_bounds__ (3 and 4 blocks; with the lean lane the same blocks
+// and time, 2.488 and 1.626 ms; alone, 2D at 80 registers with 16 bytes of spills,
+// 2.706 ms, the 1D round at 64 registers 7.7 % slower; a 2D budget of 4 blocks,
+// 64 registers, 40 bytes of spills, 3.320 ms), the lean lane drawing one event
+// ahead (80 and 64 registers, 2.644 and 1.697 ms). 128-thread blocks would add
+// resident warps only under 73 registers.
+//
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
@@ -981,6 +1006,46 @@ __device__ __forceinline__ void rehome(const Geom<Real>& g, const Forest<Real>& 
   }
 }
 
+// Whether a lane keeps only its cell's record from one event to the next (the
+// float64 census's lean lane; measured, see the note at the head of this file):
+// a gray lane without absorption on a refined 1D or 2D forest in double, whose
+// cell in registers (the block's dx, origin and dmin, the faces) held the 2D
+// instantiation at 98 registers and 2 resident blocks. Its block's cell size is
+// read again through the read-only cache at every event (``cell_size``), the
+// faces made from the cell index there (``faces``), the block's origin read at a
+// block face: the same operations on the same operands as ``gather``'s. The 3D
+// and absorbing float64 forests, on no path measured, keep their cell in
+// registers.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+constexpr bool kLean = sizeof(Real) == 8 && NDIM < 3 && !ABSORB && SMR && !DDMC && !NONGRAY;
+
+// A block's cell size per axis (the block table's first row) and dmin, the
+// smallest over the active axes.
+template <int NDIM, class Real>
+__device__ __forceinline__ void cell_size(const Forest<Real>& F, int blk, Real (&dx)[3],
+                                          Real& dmin) {
+  using N = Num<Real>;
+  const typename N::V4 b0 = N::ld4(F.block, 3 * blk);  // (dx, dy, dz, 0)
+  dx[0] = b0.x;
+  dx[1] = b0.y;
+  dx[2] = b0.z;
+  dmin = dx[0];
+  if (NDIM >= 2) dmin = N::fmin(dmin, dx[1]);
+  if (NDIM == 3) dmin = N::fmin(dmin, dx[2]);
+}
+
+// The faces of cell ci on each active axis: f dx and (f + 1) dx.
+template <int NDIM, class Real>
+__device__ __forceinline__ void faces(const int (&ci)[3], const Real (&dx)[3], Real (&flo)[3],
+                                      Real (&fhi)[3]) {
+#pragma unroll
+  for (int a = 0; a < NDIM; ++a) {
+    const Real f = (Real)ci[a];
+    flo[a] = f * dx[a];
+    fhi[a] = (f + Real(1.0)) * dx[a];
+  }
+}
+
 // A lane's state as a thread takes it from the ledger, stages it across the
 // regroup and writes it back (``run_lane`` runs the history on a copy in
 // registers). ``slot`` is -1 for a thread that holds no lane.
@@ -1004,7 +1069,7 @@ struct Lane {
 // probabilities (pf) and the branch (is_ddmc); where ``kCell1d``, pf[2..4] carry
 // the record's leak rate, cdf and c cdf. Every value depends only on the lane's
 // block, cell, shard and photon energy. Out-parameters, so that the lane's state
-// stays in registers.
+// stays in registers. A lean lane (``kLean``) gathers its record alone.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 __device__ __forceinline__ void gather(const Geom<Real>& g, const Forest<Real>& F,
                                        const Real* table, const Own& o, int blk,
@@ -1014,19 +1079,16 @@ __device__ __forceinline__ void gather(const Geom<Real>& g, const Forest<Real>& 
                                        Real& ea, Real& sig_t, Real (&pf)[6], bool& is_ddmc) {
   using N = Num<Real>;
   using V4 = typename N::V4;
+  constexpr bool kLeanLane = kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
   int cell;
   if constexpr (SMR) {
-    const V4 b0 = N::ld4(F.block, 3 * blk);      // (dx, dy, dz, 0)
-    const V4 b1 = N::ld4(F.block, 3 * blk + 1);  // (ox, oy, oz, 0)
-    dx[0] = b0.x;
-    dx[1] = b0.y;
-    dx[2] = b0.z;
-    box[0] = b1.x;
-    box[1] = b1.y;
-    box[2] = b1.z;
-    dmin = dx[0];
-    if (NDIM >= 2) dmin = N::fmin(dmin, dx[1]);
-    if (NDIM == 3) dmin = N::fmin(dmin, dx[2]);
+    if constexpr (!kLeanLane) {
+      cell_size<NDIM>(F, blk, dx, dmin);
+      const V4 b1 = N::ld4(F.block, 3 * blk + 1);  // (ox, oy, oz, 0)
+      box[0] = b1.x;
+      box[1] = b1.y;
+      box[2] = b1.z;
+    }
     if constexpr (DDMC) {
       const V4 b2 = N::ld4(F.block, 3 * blk + 2);  // Real(1 / dx) per axis
       inv_dx[0] = b2.x;
@@ -1106,12 +1168,7 @@ __device__ __forceinline__ void gather(const Geom<Real>& g, const Forest<Real>& 
   } else {
     tab = N::ld2(table, cell);
   }
-#pragma unroll
-  for (int a = 0; a < NDIM; ++a) {
-    const Real f = (Real)ci[a];
-    flo[a] = f * dx[a];
-    fhi[a] = (f + Real(1.0)) * dx[a];
-  }
+  if constexpr (!kLeanLane) faces<NDIM>(ci, dx, flo, fhi);
 }
 
 // The words of an IMC event (kernel_rng.cuh: ``key`` is the key of the lane's
@@ -1155,11 +1212,14 @@ __device__ __forceinline__ void imc_draws(uint32_t key, Real (&dr)[kDraws]) {
 // the event before (``run_lane``); a gray lane on a uniform mesh at the top of the
 // event; a lane of a DDMC or NONGRAY instantiation, whose events seldom scatter in
 // a row, in place, the scatter's inside the scatter (a lane on the DDMC branch
-// draws none of them).
-template <bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kDrawAhead = SMR && !DDMC && !NONGRAY;
-template <bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kDrawAtTop = !SMR && !DDMC && !NONGRAY;
+// draws none of them). A lean lane (``kLean``) draws at the top of the event, so
+// that no event's draws wait in registers through the event before.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+constexpr bool kDrawAhead =
+    SMR && !DDMC && !NONGRAY && !kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+constexpr bool kDrawAtTop =
+    (!SMR || kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) && !DDMC && !NONGRAY;
 
 // Whether a lane keeps its cell's values from one event to the next (measured,
 // see the note at the head of this file): not with DDMC on a uniform mesh, where
@@ -1175,12 +1235,14 @@ template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
 constexpr bool kGatherEvery = NDIM < 3 && !DDMC && !SMR && !NONGRAY;
 
 // Whether a lane's vy and vz wait for the end of its history: a gray lane on a
-// uniform 1D mesh, where no event reads them. Its scatter sets vx and keeps mu;
-// when the history ends, vy = c sqrt(1 - mu^2) and vz = 0 of the last scatter, the
-// same operations on the same mu as that scatter's; a lane that did not scatter
-// keeps its own.
-template <int NDIM, bool DDMC, bool SMR, bool NONGRAY>
-constexpr bool kVyAfter = NDIM == 1 && !DDMC && !SMR && !NONGRAY;
+// uniform 1D mesh, or a lean one (``kLean``) on a 1D forest, where no event reads
+// them (a block face's probe and a wall read vx alone). Its scatter sets vx and
+// keeps mu; when the history ends, vy = c sqrt(1 - mu^2) and vz = 0 of the last
+// scatter, the same operations on the same mu as that scatter's; a lane that did
+// not scatter keeps its own.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+constexpr bool kVyAfter =
+    NDIM == 1 && !DDMC && !NONGRAY && (!SMR || kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>);
 
 // mu of a lane that has not scattered (|mu| <= 1 after a scatter)
 template <class Real>
@@ -1229,8 +1291,9 @@ __device__ __forceinline__ void event(const Geom<Real>& g, const Forest<Real>& F
     // here (carried, the 2D SMR DDMC kernel fits 4 blocks a SM, not 3, and its K4s
     // round ran 8-9 % slower)
     const uint32_t ikey = kInPlace ? jb_key(o.seed, lane, it) : key;
-    constexpr bool kVy = kVyAfter<NDIM, DDMC, SMR, NONGRAY>;
-    if constexpr (kDrawAtTop<DDMC, SMR, NONGRAY>) imc_draws<NDIM, ABSORB, !kVy>(key, dr);
+    constexpr bool kVy = kVyAfter<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
+    if constexpr (kDrawAtTop<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>)
+      imc_draws<NDIM, ABSORB, !kVy>(key, dr);
     Real e23 = dr[0], u_branch = dr[1];
     if constexpr (kInPlace) collision_draws<ABSORB>(ikey, e23, u_branch);
     Real d_coll;
@@ -1310,10 +1373,19 @@ __device__ __forceinline__ void event(const Geom<Real>& g, const Forest<Real>& F
     any_out = any_out || out_lo[a] || out_hi[a];
   }
   if (any_out) {  // a block face: the domain BCs, then the block and cell
-    Real gp[3];
+    Real gp[3], org[3];
+    if constexpr (kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) {  // the block's origin
+      const typename N::V4 b1 = N::ld4(F.block, 3 * blk + 1);  // (ox, oy, oz, 0)
+      org[0] = b1.x;
+      org[1] = b1.y;
+      org[2] = b1.z;
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) org[a] = box[a];
+    }
 #pragma unroll
     for (int a = 0; a < NDIM; ++a) {
-      gp[a] = box[a] + np_[a];
+      gp[a] = org[a] + np_[a];
       const bool hit_lo = out_lo[a] && gp[a] <= g.lo_half[a];
       const bool hit_hi = out_hi[a] && gp[a] >= g.hi_half[a];
       if (hit_lo) {
@@ -1376,7 +1448,9 @@ __device__ __forceinline__ void event(const Geom<Real>& g, const Forest<Real>& F
 // before it (``imc_draws`` of the next key), off that event's dependent chain. A
 // lane carries its own iteration count and, where gray, its K2 key, stepped by
 // kItStep an event, so its words do not change. Where ``kVyAfter`` vy and vz are
-// set from the last scatter's mu when the history ends.
+// set from the last scatter's mu when the history ends. A lean lane (``kLean``)
+// keeps its cell's record alone and makes its block's cell size, dmin and faces
+// anew at every event.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 __device__ __forceinline__ void run_lane(const Geom<Real>& g, const Forest<Real>& F,
                                          const Real* table, const Shards& S, Lane<Real>& st) {
@@ -1398,13 +1472,17 @@ __device__ __forceinline__ void run_lane(const Geom<Real>& g, const Forest<Real>
   if constexpr (kKeep || kEvery)
     gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box, flo,
                                              fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
-  constexpr bool kAhead = kDrawAhead<DDMC, SMR, NONGRAY>;
+  constexpr bool kAhead = kDrawAhead<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
   uint32_t key = jb_key(o.seed, lane, (uint32_t)it);
   Real dr[kDraws] = {Real(0.0), Real(0.0), Real(0.0), Real(0.0), Real(0.0), Real(0.0)};
   if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key, dr);
   while (true) {
     Real next[kDraws];
     if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key + kItStep, next);
+    if constexpr (kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) {  // the cell's geometry
+      cell_size<NDIM>(F, blk, dx, dmin);
+      faces<NDIM>(ci, dx, flo, fhi);
+    }
     if constexpr (!kKeep && !kEvery)  // every event gathers its cell first
       gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box,
                                                flo, fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
@@ -1425,7 +1503,7 @@ __device__ __forceinline__ void run_lane(const Geom<Real>& g, const Forest<Real>
     key += kItStep;
   }
   // vy, vz of the last scatter
-  if (kVyAfter<NDIM, DDMC, SMR, NONGRAY> && mu_last <= Real(1.0)) {
+  if (kVyAfter<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> && mu_last <= Real(1.0)) {
     v[1] = g.c * N::sqrt(N::fmax(Real(1.0) - mu_last * mu_last, Real(0.0)));
     v[2] = Real(0.0);
   }

@@ -9,8 +9,13 @@
 // (kernel_rng.cuh, Draw<double>) on the float32 census's tags, takes the largest
 // and the smallest normal double where the float32 census takes 3e38 and 1e-37,
 // and reads a record of four reals as two double2 loads. What bounds it on an
-// H100: the float64 rate (half the float32 one) and the double log, cos, exp and
-// divide, each a long instruction sequence, not bytes.
+// H100: not bytes, but the double log, cos, exp and divide, each a long dependent
+// instruction sequence (log 84 SASS instructions, divide 18), and too few resident
+// warps to hide them: the lane's state takes two registers a value, so most
+// instantiations hold half the resident blocks of their float32 twins. On a forest
+// (stepdiff_smr; stepdiff at 8 spatial shards) the gray lane keeps only its cell's
+// record, and so holds 3 and 4 resident blocks (transport_kernel.cuh: kLean;
+// measured there): stepdiff_smr's census 3.14 -> 2.50 ms.
 #include "transport_kernel.cuh"
 
 extern "C" int jb_transport_launch_f64(int ndim, int absorb, int ddmc, int smr, int nongray,

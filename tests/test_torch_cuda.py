@@ -1291,6 +1291,76 @@ def test_f64_census_table_kernel_matches_plain(gpu, layout):
     assert cuda_lib.LAUNCHES["census_table_f64"] > before
 
 
+# the resident blocks of 256 a SM of the 36 float32 instantiations on an NVIDIA H100
+# 80GB HBM3 (chip_smoke.py phase 2), which the float64 lean lane leaves as they were:
+# (ndim, smr) -> those of (gray, abs, ddmc, abs_ddmc, abs_ng, abs_ddmc_ng)
+F32_RESIDENT = {(1, False): (8, 6, 6, 6, 6, 5), (1, True): (5, 5, 5, 5, 5, 5),
+                (2, False): (6, 5, 5, 5, 5, 5), (2, True): (4, 4, 4, 3, 4, 3),
+                (3, False): (4, 4, 4, 4, 4, 4), (3, True): (4, 3, 2, 2, 3, 2)}
+F32_MODES = ((False, False, False), (True, False, False), (False, True, False),
+             (True, True, False), (True, False, True), (True, True, True))
+
+
+@pytest.mark.parametrize("route", F64_ROUTES,
+                         ids=[transport_kernel.launch_name(*r, dtype=torch.float64)
+                              for r in F64_ROUTES])
+def test_f64_register_budget_held(gpu, route):
+    """Each float64 instantiation is resident: the two routes redesigned for the
+    register file (``chip_smoke.F64_RESIDENT_FLOOR``: transport_2d_smr_f64 and
+    transport_1d_smr_f64) hold at least 3 and 4 blocks of 256 a SM on an H100,
+    with no spill bytes (ptxas's lines of the library's build)."""
+    cs = _chip_smoke()
+    name = transport_kernel.launch_name(*route, dtype=torch.float64)
+    floor = cs.F64_RESIDENT_FLOOR.get(name)
+    blocks = transport_kernel.resident_blocks(*route, dtype=torch.float64)
+    assert blocks >= 1
+    if floor is None:
+        return
+    if "H100" not in torch.cuda.get_device_name(gpu):
+        pytest.skip("the floors are an H100's")
+    r = cs.kernel_resources(cuda_lib.library().build_log, transport_kernel)[name]
+    assert blocks >= floor, (blocks, r)
+    assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
+
+
+@pytest.mark.parametrize("ndim, smr", sorted(F32_RESIDENT))
+def test_f32_resident_blocks_unchanged(gpu, ndim, smr):
+    """The float32 instantiations hold the resident blocks they held before the
+    float64 lean lane, on an H100."""
+    if "H100" not in torch.cuda.get_device_name(gpu):
+        pytest.skip("the resident blocks are an H100's")
+    got = tuple(transport_kernel.resident_blocks(ndim, *mode[:2], smr, mode[2])
+                for mode in F32_MODES)
+    assert got == F32_RESIDENT[(ndim, smr)]
+
+
+@pytest.mark.parametrize("path", ["stepdiff_smr", "stepdiff_spatial"])
+def test_redesigned_f64_routes_bitwise_at_path_shapes(gpu, tmp_path, path):
+    """The two redesigned float64 routes on their paths' own inputs, bitwise their
+    float64 plain version in every column: transport_2d_smr_f64 on stepdiff_smr's
+    second census (``chip_smoke.f64_vs_plain``: after 8 iterations and after a
+    full census of the last 10 % of a step), transport_1d_smr_f64@blocks on the
+    first round of stepdiff at 8 spatial shards (``chip_smoke.owned_vs_plain``)."""
+    cs = _chip_smoke()
+    if path == "stepdiff_smr":
+        name = transport_kernel.launch_name(2, False, False, True, dtype=torch.float64)
+        with cs.CensusRecorder(transport_kernel, 2) as rec:
+            run_file(cs.SMR_DECK, outdir=str(tmp_path), modified_inputs={**cs.SMR_GATE,
+                                                                         **cs.PREC64},
+                     quiet=True, nlim=2, device="cuda", graph=False)
+        p0, (coefs, mesh, seed, prm, dt) = rec.inputs
+        err, events, _ = cs.f64_vs_plain(transport_kernel, gpu, name, p0, coefs, mesh, prm, dt,
+                                         seed)
+    else:
+        name = transport_kernel.launch_name(1, False, False, True, route="@blocks",
+                                            dtype=torch.float64)
+        _, launches, (p0, n, args), _, _ = cs.spatial_path(
+            cs.DECK, {**cs.STEPDIFF_SPATIAL, **cs.PREC64}, 1, name)
+        assert launches.get(name, 0) > 0
+        _, events, err = cs.owned_vs_plain(transport_kernel, name, p0, args, n)
+    assert p0.x.dtype == torch.float64 and err == 0.0 and events > 0
+
+
 # ------------------------------------------------ the step without the host
 
 

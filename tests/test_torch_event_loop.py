@@ -82,3 +82,31 @@ def test_a_launch_spreads_its_slots_only_when_it_fits_on_the_card(slots, residen
     from jaybenne_tpu_torch.ops import transport_kernel as tk
 
     assert tk.spreads(slots, 132, resident) == want
+
+
+_PTXAS = """ptxas info    : Compiling entry function '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
+    {stack} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used {regs} registers, used 1 barriers, 8 bytes smem
+"""
+_MANGLED = "_ZN12_GLOBAL__N_116transport_kernelILi{}ELb{}ELb{}ELb{}ELb{}E{}EEvNS_6LedgerIT4_EE"
+
+
+@pytest.mark.parametrize("args, route, regs, stack, spill", [
+    ((1, 0, 0, 0, 0, "f"), "transport_1d", 32, 0, 0),
+    ((1, 0, 0, 1, 0, "d"), "transport_1d_smr_f64", 60, 0, 0),
+    ((2, 0, 0, 1, 0, "d"), "transport_2d_smr_f64", 78, 40, 0),
+    ((3, 1, 1, 1, 0, "d"), "transport_3d_abs_ddmc_smr_f64", 128, 40, 4)])
+def test_kernel_resources_are_read_from_ptxas(args, route, regs, stack, spill):
+    """``census_route`` names a census instantiation from its mangled name, float32
+    or float64, and ``kernel_resources`` reads its registers, stack frame and
+    spills from nvcc's ``-Xptxas -v`` output (phase 2's residency floors read
+    them), beside a kernel that is no census."""
+    from jaybenne_tpu_torch.ops import transport_kernel
+
+    fn = _MANGLED.format(*args)
+    log = (_PTXAS.format(name=fn, stack=stack, spill=spill, regs=regs)
+           + _PTXAS.format(name="_Z11raw_bits_kPKjS0_Pji", stack=0, spill=0, regs=16))
+    assert cs.census_route(fn, transport_kernel) == route
+    assert cs.kernel_resources(log, transport_kernel) == {
+        route: {"registers": regs, "stack": stack, "spill_stores": spill, "spill_loads": spill}}

@@ -95,7 +95,17 @@ CASES = {
         "mcblock/opacity_model": "constant"}, None),
     "epbremss": (DECK, {"mcblock/opacity_model": "ep_bremss",
                         "mcblock/scattering_constant_value": 10.0}, "nongray"),
+    # the route of transport_2d_smr_f64: stepdiff_smr (IMC on a level-1 forest), reduced
+    "smr_2d": ("stepdiff_smr.in", {
+        "parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16, "parthenon/meshblock/nx1": 8,
+        "parthenon/meshblock/nx2": 8, "jaybenne/dt": 1.0e-11,
+        "mcblock/opacity_model": "constant"}, (4.0, 60.0)),
 }
+# the round of transport_1d_smr_f64@blocks: the 1D deck in four blocks of 8 cells,
+# one owned by the shard (the spatial decomposition's K4s route on a uniform forest)
+SETUPS = {**CASES, "blocks_1d": (DECK, {"parthenon/meshblock/nx1": 8,
+                                        "mcblock/scattering_constant_value": 60.0}, (4.0, 60.0))}
+OWNED = (1, 1)  # the shard's blocks [lo, lo + n)
 N = 3000
 FLECK = 0.8
 # the forest's slabs: thin (IMC) and thick (DDMC) sigma_t by cell centre, every
@@ -193,7 +203,7 @@ def test_f32_pool_is_unchanged():
 
 
 def _configs(case):
-    deck, mods, _ = CASES[case]
+    deck, mods, _ = SETUPS[case]
     mods = {**mods, "jaybenne/precision": "f64"}
     if deck.endswith(".in"):
         path = os.path.join(INPUTS, deck)
@@ -210,7 +220,7 @@ def _census_setup(case, seed=17):
     EPBremss); float64 coefficients and face probabilities built once and carried
     to both packages."""
     jcfg, tcfg = _configs(case)
-    sig = CASES[case][2]
+    sig = SETUPS[case][2]
     jmesh, tmesh = jbuild_mesh(jcfg.mesh, dtype=jnp.float64), tbuild_mesh(tcfg.mesh, F64)
     jprm, tprm = jparams(jcfg, jnp.float64), tparams(tcfg, F64)
     rng = np.random.default_rng(seed)
@@ -317,6 +327,67 @@ def test_census_matches_jax_f64_loop(case):
     sd = (dt_.var() / dt_.size + dj.var() / dj.size) ** 0.5
     assert abs(dt_.mean() - dj.mean()) <= N_SIGMA * sd, (dt_.mean(), dj.mean(), sd)
     assert abs(dt_.std() - dj.std()) <= STD_RTOL * dj.std()
+
+
+def test_blocks_round_matches_jax_f64_round():
+    """One float64 round of the spatial decomposition over a 1D uniform forest
+    split in blocks (four of 8 cells, the shard owning block 1), the route of
+    transport_1d_smr_f64@blocks: the port's plain version with the owned range
+    against the JAX package's float64 round (``transport`` with ``block_offset``,
+    as ``jaybenne_tpu/parallel/spatial.py`` runs it) from the same initial ledger
+    and the owned blocks' coefficients. Lanes outside the range stay as they were
+    in both; the owned lanes that left the range (paused, alive short of census),
+    those at census and those absorbed agree within N_SIGMA binomial sd, the
+    events within N_SIGMA sd of their difference, and the census survivors' mean
+    x within N_SIGMA sd, its spread within STD_RTOL (per-particle equality cannot
+    hold: the JAX loop draws threefry variates)."""
+    lo, n = OWNED
+    with _x64():
+        dt, (jl, jc, jmesh, jprm), (tl, tc, tmesh, tprm), d = _census_setup("blocks_1d")
+        assert tmesh.n_blocks == 4 and tmesh.max_level == 0
+        ncpb = tmesh.ncells_per_block
+        cells = slice(lo * ncpb, (lo + n) * ncpb)
+        jloc = jT.TransportCoefs(sigma_a=jc.sigma_a[cells], sigma_s=jc.sigma_s[cells],
+                                 fleck=jc.fleck[cells], px=jnp.zeros(n), py=jnp.zeros(n),
+                                 pz=jnp.zeros(n))
+        jout, _, ev_j = jT.transport(jl, jloc, jmesh, jr.PRNGKey(2024), jprm, dt, block_offset=lo)
+        jout = {f.name: np.asarray(getattr(jout, f.name)) for f in dataclasses.fields(jout)}
+    tloc = TransportCoefs(sigma_a=tc.sigma_a[cells], sigma_s=tc.sigma_s[cells],
+                          fleck=tc.fleck[cells])
+    own = transport_kernel.OwnedRange("blocks", lo, n)
+    lane_events = torch.zeros(N, dtype=torch.int32)
+    tout, _, ev_t = transport_kernel.transport_plain(tl, tloc, tmesh, 31337, tprm, dt, own,
+                                                     lane_events=lane_events)
+    tout = {f.name: getattr(tout, f.name).numpy() for f in dataclasses.fields(tout)}
+    assert tout["x"].dtype == np.float64 and jout["x"].dtype == np.float64
+    owned = (d["block"] >= lo) & (d["block"] < lo + n)
+    for out in (tout, jout):  # the lanes outside the range as they were
+        for name in ("x", "vx", "tau", "i", "block"):
+            assert np.array_equal(out[name][~owned], d[name][~owned]), name
+    org = np.asarray(tmesh.block_origin)[:, 0]
+
+    def outcome(out):
+        left = owned & out["alive"] & (out["tau"] < 1.0)
+        census = owned & out["alive"] & (out["tau"] >= 1.0)
+        assert ((out["block"][left] < lo) | (out["block"][left] >= lo + n)).all()
+        assert ((out["block"][census] >= lo) & (out["block"][census] < lo + n)).all()
+        return left, census, owned & out["absorbed"]
+
+    (tl_, tcen, tab), (jl_, jcen, jab) = outcome(tout), outcome(jout)
+    m = int(owned.sum())
+    for ka, kb in ((int(tl_.sum()), int(jl_.sum())), (int(tcen.sum()), int(jcen.sum())),
+                   (int(tab.sum()), int(jab.sum()))):
+        p = 0.5 * (ka + kb) / m
+        assert abs(ka - kb) <= N_SIGMA * (2.0 * m * p * (1.0 - p)) ** 0.5 + 1, (ka, kb)
+    assert int(tl_.sum()) > 0.05 * m and int(tcen.sum()) > 0.05 * m
+    ev = lane_events.double().numpy()[owned]
+    sd_ev = (2.0 * m * ev.var()) ** 0.5
+    assert abs(int(ev_t) - int(ev_j)) <= N_SIGMA * sd_ev + 1, (int(ev_t), int(ev_j), sd_ev)
+    xt = (org[tout["block"]] + tout["x"])[tcen]
+    xj = (org[jout["block"]] + jout["x"])[jcen]
+    sd = (xt.var() / xt.size + xj.var() / xj.size) ** 0.5
+    assert abs(xt.mean() - xj.mean()) <= N_SIGMA * sd, (xt.mean(), xj.mean(), sd)
+    assert abs(xt.std() - xj.std()) <= STD_RTOL * xj.std()
 
 
 # ------------------------------------------------------- Simulation, end to end
