@@ -21,7 +21,7 @@ more tree, timed in the same turns. Nothing here imports jax.
    numbers of lanes a SM, the 64^3 feedback ledger's first eighth, the
    stepdiff_smr ledger eight times over and the lane sweep: the stepdiff, 2D
    feedback, 64^3 DDMC, stepdiff_3d, stepdiff_ddmc and 64^3 ep_bremss ledgers and
-   the two float64 routes of F64_READ two and four times over (the copies in other
+   the float64 routes of F64_READ two and four times over (the copies in other
    slots, so other draws; of a round, each shard's slice). They go to one file;
    with ``--only`` the named routes and their sweep alone.
 2. Child processes, each importing the package of one tree (``--child``), time the
@@ -60,10 +60,11 @@ slots, the events of a live lane, the DDMC path mix with its issue time and shar
 from the DDMC event's SASS, and on stepdiff_3d the events of a live lane by the
 level of its block); on the non-gray routes their reading (``ng_reading``: the same,
 the kernel alone with its slots spread and in order, and the opacity's SASS against
-the event loop's); on the float64 routes of F64_READ their reading
+the event loop's); on the float64 IMC routes of F64_READ their reading
 (``f64_reading``: the kernel alone, registers and resident blocks, the warp path
 mix with the instructions a warp-event modelled from the loop's float64 SASS and
-its issue share); the lane sweep's time an event
+its issue share, and the double log's and divide's share of the common path);
+the float64 DDMC route of F64_READ has the DDMC reading; the lane sweep's time an event
 at 1, 2 and 4 times the live lanes of SWEEP_ROUTES (a time an event that falls
 with more lanes says the census leaves throughput unused: unevenly loaded SMs,
 which the path mix shows, or latency); with ``--out`` it writes everything there
@@ -123,11 +124,14 @@ PROFILE_DECKS = {
 PROFILE_ARGS = ("--warm", "3", "--steps", "3")
 SWEEP_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
                 "transport_1d_ddmc", "transport_3d_abs_ng", "transport_2d_smr_f64",
-                "transport_1d_smr_f64@blocks")
+                "transport_1d_smr_f64@blocks", "transport_1d_f64", "transport_1d_ddmc_f64")
 SWEEP = (1, 2, 4)
-# the float64 routes read apart (``f64_reading``): stepdiff_smr's last census and
-# the first round of stepdiff at 8 spatial shards (chip_smoke.py phase 43's)
-F64_READ = ("transport_2d_smr_f64", "transport_1d_smr_f64@blocks")
+# the float64 routes read apart: stepdiff_smr's, stepdiff's and stepdiff_ddmc's
+# last census and the first round of stepdiff at 8 spatial shards (chip_smoke.py
+# phase 43's); the IMC ones by ``f64_reading``, the DDMC one
+# (``chip_smoke.DDMC_ROUTES``) by ``ddmc_reading``
+F64_READ = ("transport_2d_smr_f64", "transport_1d_smr_f64@blocks", "transport_1d_f64",
+            "transport_1d_ddmc_f64")
 
 
 def sweep_name(name, k) -> str:
@@ -422,7 +426,8 @@ def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> 
     k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats))
     print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
     lanes = cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["dd_step"])
-    blocks = tk.resident_blocks(prm.ndim, bool(prm.has_absorption), True, mesh.max_level > 0)
+    blocks = tk.resident_blocks(prm.ndim, bool(prm.has_absorption), True, mesh.max_level > 0,
+                                dtype=p.x.dtype)
     cs.block_spread_line(label, lanes, p, blocks, dev)
     history_line(label, lanes, p)
     out = ddmc_mix_line(cs, label, mix, paths, k_ms, events, dev)
@@ -437,12 +442,14 @@ def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> 
     return {**out, "kernel_ms": k_ms, "slot_order_warp_efficiency": tk.warp_efficiency(lanes)}
 
 
-def f64_reading(cs, tk, dev, label, inputs, n, res, paths, mix, repeats) -> dict:
-    """The reading of a float64 route (F64_READ) on a census's ``inputs`` ((ledger,
-    args), of ``n`` shards' slices): the kernel alone, the event loop's line
-    (registers, stack and spills from ``res``, resident blocks, the common path
-    from ``paths``, the slot order's warp efficiency, the issue share), the warp
-    path mix with the instructions a warp-event modelled from ``paths``
+def f64_reading(cs, tk, dev, label, inputs, n, res, paths, mix, repeats, cost64) -> dict:
+    """The reading of a float64 IMC route (F64_READ) on a census's ``inputs``
+    ((ledger, args), of ``n`` shards' slices): the kernel alone, the event loop's
+    line (registers, stack and spills from ``res``, resident blocks, the common
+    path from ``paths``, the slot order's warp efficiency, the issue share), the
+    share of the common path that the double log and the divides (one an active
+    axis) take, from the float64 probes' SASS (``cost64``, ``chip_smoke.probe_costs``),
+    the warp path mix with the instructions a warp-event modelled from ``paths``
     (``chip_smoke.path_mix_line``: a lane that reaches a block face is re-homed by
     the lookup, or meets a wall) and its issue share of the kernel alone."""
     p, args = inputs
@@ -451,7 +458,14 @@ def f64_reading(cs, tk, dev, label, inputs, n, res, paths, mix, repeats) -> dict
     k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats, n=n))
     print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
     cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["scatter"], n=n)
-    return {**cs.path_mix_line(label, mix, paths, k_ms, events, dev), "kernel_ms": k_ms}
+    ndim, common = args[3].ndim, paths["scatter"]
+    log, div = cost64["logf"], ndim * cost64["div"]
+    print(f"{label}: of the common path's {common} SASS instructions the double log takes "
+          f"{log} ({log / common!r}) and the {ndim} divide(s) {div} ({div / common!r}); the two "
+          f"hash words of each of the event's two draws {4 * cost64['hash']} (the double draw's "
+          f"probe, four words)", flush=True)
+    return {**cs.path_mix_line(label, mix, paths, k_ms, events, dev), "kernel_ms": k_ms,
+            "log_share": log / common, "divide_share": div / common}
 
 
 def mix_child(inputs, pkg, repeats, out) -> None:
@@ -472,7 +486,9 @@ def mix_child(inputs, pkg, repeats, out) -> None:
     cs = this_chip_smoke()
     routes = torch.load(inputs, weights_only=False)
     res = cs.kernel_resources(cuda_lib.library().build_log, tk)
+    cost64 = cs.probe_costs(cs.sass_counts(cs.sass_listing(cuda_lib.library().path)), f64=True)
     mixed = [name for name in MIX_ROUTES if name in routes]
+    f64_imc = [name for name in F64_READ if name not in cs.DDMC_ROUTES]
     csrc = str(cuda_lib.SRC_DIR)
 
     def reading(pool, names, paths):  # the loop paths of the mixed routes among names
@@ -481,7 +497,7 @@ def mix_child(inputs, pkg, repeats, out) -> None:
 
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = (reading(pool, cs.DDMC_ROUTES, DD_PATHS), reading(pool, NG_ROUTES, NG_PATHS),
-                  reading(pool, F64_READ, ("scatter", "cross", "no_wall", "full")))
+                  reading(pool, f64_imc, ("scatter", "cross", "no_wall", "full")))
         lib = cs.path_mix_library(cuda_lib.SRC_DIR, cuda_lib.BUILD_DIR / "path_mix")
         dd, ng, f64_paths = (b.result() if b else None for b in builds)
     label = os.path.basename(pkg.rstrip("/")) or pkg
@@ -489,15 +505,15 @@ def mix_child(inputs, pkg, repeats, out) -> None:
     for name in mixed:
         p0, n, args = routes[name]
         mix = cs.path_mix(tk, lib, (p0, args), n)
-        if name in F64_READ:
-            base = name.split("@")[0]
-            mix = f64_reading(cs, tk, dev, f"{label}: {name}", (p0, args), n,
-                              res.get(base, {}), {k: v[base] for k, v in f64_paths.items()},
-                              mix, repeats)
-        elif name in cs.DDMC_ROUTES:
+        if name in cs.DDMC_ROUTES:
             mix = ddmc_reading(cs, tk, dev, f"{label}: {name}", name, (p0, args),
                                res.get(name, {}), {k: dd[k][name] for k in DD_PATHS}, mix,
                                repeats)
+        elif name in F64_READ:
+            base = name.split("@")[0]
+            mix = f64_reading(cs, tk, dev, f"{label}: {name}", (p0, args), n,
+                              res.get(base, {}), {k: v[base] for k, v in f64_paths.items()},
+                              mix, repeats, cost64)
         elif name in NG_ROUTES:
             mix = ng_reading(cs, tk, dev, f"{label}: {name}", (p0, args), res.get(name, {}),
                              {k: ng[k][name] for k in NG_PATHS}, mix, repeats)
@@ -556,7 +572,8 @@ def child(inputs, pkg, repeats, out) -> None:
         result["routes"][name] = {"times": sorted(times), **split,
                                   "events": int(events.sum()),
                                   "digest": digest(p), "slots": p0.capacity, "live": live,
-                                  "sm_clock_mhz": float(clock.split()[0])}
+                                  "sm_clock_mhz": float(clock.split()[0]),
+                                  "blocks": cs.census_blocks(tk, p0, args)}
         print(f"  {os.path.basename(pkg.rstrip('/')) or pkg}: {name} median "
               f"{statistics.median(times)!r} ms", flush=True)
     with open(out, "w") as f:
@@ -709,6 +726,9 @@ def main(argv=None) -> int:
         r0 = kids[0]["routes"][name]
         print(f"{name} ({r0['events']} events, {r0['live']} live lanes of {r0['slots']}): "
               + " | ".join(row), flush=True)
+        blocks = {label[t]: next(kid["routes"][name].get("blocks") for kid in kids
+                                 if kid["tree"] == label[t]) for t in trees}
+        print(f"  {name} resident blocks of 256 a SM: {blocks}", flush=True)
         row, base = [], None
         for tree in trees:
             meds = [statistics.median(kid["routes"][name]["kernel"]) for kid in kids

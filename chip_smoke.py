@@ -245,7 +245,10 @@ Phases:
      stepdiff_smr (<= 0.3), one EPBremss step on stepdiff_smr (phase 25's gate),
      stepdiff at 8 spatial shards (<= 0.05); each route's kernel and plain
      version timed on its last census (the spatial one on its first round, and
-     the mean round's device time beside it, ``mean_round_line``);
+     the mean round's device time beside it, ``mean_round_line``); each
+     redesigned route's census time beside its time before the redesign
+     (``F64_REDESIGNED``, PERF.md's figures) and its ``redesigned`` entry in the
+     ``kernels`` line;
  44. the float64 census against the float32 one on the same inputs, in turns,
      median of 5 with its range, on stepdiff's, the 2D feedback path's, the
      64^3 feedback row's and stepdiff_smr's last census; the float64 bound
@@ -323,10 +326,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F64 = torch.float64
-# the float64 routes redesigned for the register file (the lean lane, kLean of
-# csrc/transport_kernel.cuh): the resident blocks of 256 a SM each holds on an
-# H100 with no spill bytes (phase 2 fails without them)
-F64_RESIDENT_FLOOR = {"transport_2d_smr_f64": 3, "transport_1d_smr_f64": 4}
+# the float64 routes redesigned (csrc/transport_kernel.cuh: the lean lane, kLean, on
+# the two forests; the resident grid in rounds, kRounds, on the uniform 1D mesh,
+# whose grid is as many blocks as the card holds): the resident blocks of 256 a SM
+# each holds on an H100 with no spill bytes (phase 2 fails without them)
+F64_RESIDENT_FLOOR = {"transport_2d_smr_f64": 3, "transport_1d_smr_f64": 4,
+                      "transport_1d_f64": 4, "transport_1d_ddmc_f64": 4}
 DECK = os.path.join(ROOT, "inputs", "stepdiff.in")
 GATE = {
     "parthenon/mesh/nx1": 128,
@@ -785,12 +790,13 @@ def sass_counts(listing) -> dict:
 
 
 def loop_body(code) -> int:
-    """The SASS instructions of a function's widest loop, from the target of the
-    widest backward branch before its first unpredicated EXIT to that branch (in a
-    census instantiation, its event loop; blocks after the EXIT are subroutines),
-    less the blocks inside it that a forward branch skips and that hold a call or
-    a loop of their own: the math library's slow paths (cosf's long argument
-    reduction, the divide's and sqrtf's special operands)."""
+    """The SASS instructions of a function's widest loop without a barrier, from
+    the target of the widest backward branch before its first unpredicated EXIT
+    to that branch whose span holds no BAR (in a census instantiation, its event
+    loop, inside the rounds of one that runs in rounds, kRounds; blocks after the
+    EXIT are subroutines), less the blocks inside it that a forward branch skips
+    and that hold a call or a loop of their own: the math library's slow paths
+    (cosf's long argument reduction, the divide's and sqrtf's special operands)."""
     branches = []
     for addr, text in code:
         if text.startswith("EXIT"):
@@ -798,7 +804,9 @@ def loop_body(code) -> int:
         m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
         if m:
             branches.append((addr, int(m.group(1), 16)))
-    back = [(src - dst, dst, src) for src, dst in branches if dst < src]
+    bars = [addr for addr, text in code if re.match(r"(@!?U?P\d+\s+)?BAR\b", text)]
+    back = [(src - dst, dst, src) for src, dst in branches
+            if dst < src and not any(dst <= a <= src for a in bars)]
     if not back:
         return 0
     _, lo, hi = max(back)
@@ -872,7 +880,7 @@ LOOP_PATHS = {
 }
 # the routes whose DDMC event is read (loop paths, path mix, issue share)
 DDMC_ROUTES = ("transport_3d_ddmc", "transport_3d_ddmc_smr", "transport_1d_ddmc",
-               "transport_1d_abs_ddmc")
+               "transport_1d_abs_ddmc", "transport_1d_ddmc_f64")
 
 
 def patched(src, edits, what) -> str:
@@ -1325,6 +1333,16 @@ def kernel_resources(build_log, transport_kernel) -> dict:
     return out
 
 
+def census_blocks(transport_kernel, p, args) -> int:
+    """Resident blocks a SM of the instantiation that a census of the ledger ``p``
+    with ``args`` (of ``transport``) launches."""
+    prm, g = args[3], getattr(args[0], "g", None)  # a recorded round's set-up has its geometry
+    flags = (bool(prm.has_absorption), bool(prm.use_ddmc),
+             g.smr if g is not None else args[1].max_level > 0,
+             g.nongray if g is not None else not getattr(args[0], "is_gray", True))
+    return transport_kernel.resident_blocks(prm.ndim, *flags, dtype=p.x.dtype)
+
+
 def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common, n=1):
     """Prints, for the route ``name`` on a census's ``inputs`` ((ledger, args) of
     ``transport``, over ``n`` shards' slices) timed at ``ms`` for ``events``:
@@ -1336,11 +1354,7 @@ def event_loop_line(transport_kernel, dev, name, inputs, ms, events, res, common
     ISSUE_PER_SM_CLOCK x the SM clock (nvidia-smi, read just after). Returns the
     per-slot events."""
     p, args = inputs
-    prm, g = args[3], getattr(args[0], "g", None)  # a recorded round's set-up has its geometry
-    flags = (bool(prm.has_absorption), bool(prm.use_ddmc),
-             g.smr if g is not None else args[1].max_level > 0,
-             g.nongray if g is not None else not getattr(args[0], "is_gray", True))
-    blocks = transport_kernel.resident_blocks(prm.ndim, *flags, dtype=p.x.dtype)
+    blocks = census_blocks(transport_kernel, p, args)
     clock = smi_value("clocks.sm")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     live = int((p.alive & (p.tau < 1.0)).sum())
@@ -3270,6 +3284,22 @@ def restart_phases(dev, smi) -> None:
 PREC64 = {"jaybenne/precision": "f64"}
 F64_REPLACES = "jaybenne_tpu/ops/transport.py:154 (_one_event, XLA, f64)"
 F64_SRC = "jaybenne_tpu_torch/csrc/transport_kernel_f64.cu"
+# the float64 routes redesigned (csrc/transport_kernel.cuh's head note): how, for
+# the ``redesigned`` entry of their ``kernels`` row, and the census ms that
+# PERF.md's table gives the route before its redesign (NVIDIA H100 80GB HBM3,
+# 700.00 W), which phase 43 prints beside this run's
+F64_REDESIGNED = {
+    "transport_2d_smr_f64": ("the lean lane: the cell's record alone in registers (kLean)",
+                             3.1203),
+    "transport_1d_smr_f64@blocks": ("the lean lane, vy and vz after the history (kLean)",
+                                    1.7692),
+    "transport_1d_f64": ("on the card's resident grid in rounds, each round's slots spread "
+                         "over it, where the ledger takes at most two (kRounds); the draws "
+                         "one event ahead (kDrawAhead)", 1.4591),
+    "transport_1d_ddmc_f64": ("on the card's resident grid in rounds, each round's slots "
+                              "spread over it, where the ledger takes at most two (kRounds)",
+                              0.0543),
+}
 
 
 def only_f64(launches, what):
@@ -3291,12 +3321,21 @@ def tally_rtol(sim) -> float:
 
 def f64_row(name, what, launches, errs, timing, src=F64_SRC):
     """One float64 route's entry of the ``kernels`` line from a gate's run and its
-    kernel's timing (ms, plain_ms, events, max_abs_err, bound_ms, bound_by)."""
+    kernel's timing (ms, plain_ms, events, max_abs_err, bound_ms, bound_by); a
+    route of F64_REDESIGNED has its ``redesigned`` entry, and its census time is
+    printed beside the one before its redesign."""
     ms, plain_ms, _, err, bound, by = timing
-    return {"name": f"{name} (the float64 census; {what})", "route": "cuda", "source": src,
-            "replaces": F64_REPLACES, "launches": launches.get(name, 0),
-            "max_abs_err": max([err, *errs]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    row = {"name": f"{name} (the float64 census; {what})", "route": "cuda", "source": src,
+           "replaces": F64_REPLACES, "launches": launches.get(name, 0),
+           "max_abs_err": max([err, *errs]), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    if name in F64_REDESIGNED:
+        how, before = F64_REDESIGNED[name]
+        row["redesigned"] = how
+        print(f"{name}: the census {ms!r} ms in this run; {before!r} ms before its redesign "
+              f"(PERF.md's table, NVIDIA H100 80GB HBM3, 700.00 W): {ms / before:.3f} of it",
+              flush=True)
+    return row
 
 
 def precision_line(transport_kernel, dev, what, inputs, cost64):

@@ -7,14 +7,14 @@ extern "C" int jb_transport_launch(int ndim, int absorb, int ddmc, int smr, int 
                                    const void* const* cols, const void* block_table,
                                    const void* levels, const void* lookup, int capacity,
                                    const int* igeom, const float* fgeom, int n_shards,
-                                   const int* shards, const void* seeds, int spread,
+                                   const int* shards, const void* seeds, int spread, int grid,
                                    void* events, void* iters, void* stream) {
   return launch_entry<float>(ndim, absorb, ddmc, smr, nongray, ptrs, table, cols, block_table,
                              levels, lookup, capacity, igeom, fgeom, n_shards, shards, seeds,
-                             spread, events, iters, stream);
+                             spread, grid, events, iters, stream);
 }
 
 extern "C" int jb_transport_occupancy(int ndim, int absorb, int ddmc, int smr, int nongray,
-                                      int* blocks) {
-  return occupancy_entry<float>(ndim, absorb, ddmc, smr, nongray, blocks);
+                                      int* blocks, int* rounds) {
+  return occupancy_entry<float>(ndim, absorb, ddmc, smr, nongray, blocks, rounds);
 }

@@ -342,6 +342,36 @@
 // ahead (80 and 64 registers, 2.644 and 1.697 ms). 128-thread blocks would add
 // resident warps only under 73 registers.
 //
+// The float64 census on a uniform 1D mesh (stepdiff's transport_1d_f64, 100001 live
+// lanes of 201152 slots; stepdiff_ddmc's transport_1d_ddmc_f64). Read first (NVIDIA
+// H100 80GB HBM3, 700.00 W; census_bench.py on the paths' saved inputs): 54 and 61
+// registers, 4 resident blocks; 786 blocks of 256 slots, the live lanes in the
+// first 391, for 528 resident, so the launch did not spread; the busiest SM ran
+// 1.35 and 1.37 times the mean SM's lane-events (%smid), since the block
+// scheduler put 4 live blocks on some SMs and 2 on others; the warps issued for
+// 0.53-0.56 of the gray kernel's time (the busiest SM's about 0.75; the double log
+// 84 of its event's 241 SASS instructions, the divide 18), and the time an event
+// fell 28 % with twice the lanes. So these two launch on the card's resident grid
+// (``kRounds``): at most SMs x resident blocks, one wave, each round the next
+// kThreads x blocks slots spread over the blocks as a one-wave launch spreads
+// them, so that stepdiff's live lanes run on every SM (busiest SM 1.06 and 1.04
+// times the mean), and the gray lane draws one event ahead (``kDrawAhead``, vy
+// after the history, so e23 and mu are what it carries). A round waits for the
+// block's slowest warp before the next, and runs only the live lanes among its
+// slots: a ledger twice or four times stepdiff's, live lanes in several rounds,
+// took 21-29 % longer than one thread a slot, so the host takes the resident grid
+// only where the slots take at most two rounds (ops/transport_kernel.py:
+// launch_shape), where a ledger's live slots, first, fit the first. Measured in
+// turns against the kernel before it (census_bench.py, the same inputs, outputs
+// bitwise): transport_1d_f64 1.461 -> 1.184 ms (60 registers, 4 blocks; in other
+// calls the rounds alone 1.284, 48 registers and 5 blocks, the draws ahead alone
+// 1.441, 54 and 4), transport_1d_ddmc_f64 0.0542 -> 0.0499 (53 registers); their
+// ledgers of two and four times the lanes within 2 %. Built, measured and
+// dropped: two lanes a thread, an event of each in turn (87 registers, 2 blocks,
+// 1.623 ms: two chains in a warp are as many as two warps' and cost the registers),
+// and on the DDMC lane its record kept in registers or its exp23 one event ahead
+// (1.8 % and 1.3 % slower: a DDMC lane leaks out of its cell in most events).
+//
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
@@ -1019,6 +1049,17 @@ __device__ __forceinline__ void rehome(const Geom<Real>& g, const Forest<Real>& 
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 constexpr bool kLean = sizeof(Real) == 8 && NDIM < 3 && !ABSORB && SMR && !DDMC && !NONGRAY;
 
+// Whether an instantiation runs in rounds on the card's resident grid (measured,
+// see the note at the head of this file): the float64 census without absorption
+// on a uniform 1D mesh, gray or DDMC (stepdiff's and stepdiff_ddmc's at precision
+// = f64). Where the host asks for it (a ledger of at most two rounds:
+// ops/transport_kernel.py, launch_shape) the launch has at most as many blocks as
+// the card holds at once (``Launch``), and each round takes the next kThreads x
+// blocks slots, spread over the blocks, so that a ledger's live slots at one end
+// of it run on every SM; otherwise one thread takes one slot, as elsewhere.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+constexpr bool kRounds = sizeof(Real) == 8 && NDIM == 1 && !ABSORB && !SMR && !NONGRAY;
+
 // A block's cell size per axis (the block table's first row) and dmin, the
 // smallest over the active axes.
 template <int NDIM, class Real>
@@ -1209,17 +1250,20 @@ __device__ __forceinline__ void imc_draws(uint32_t key, Real (&dr)[kDraws]) {
 
 // Where an instantiation's IMC event makes its draws (measured, see the note at
 // the head of this file): a gray lane on a refined forest one event ahead, during
-// the event before (``run_lane``); a gray lane on a uniform mesh at the top of the
-// event; a lane of a DDMC or NONGRAY instantiation, whose events seldom scatter in
-// a row, in place, the scatter's inside the scatter (a lane on the DDMC branch
-// draws none of them). A lean lane (``kLean``) draws at the top of the event, so
-// that no event's draws wait in registers through the event before.
+// the event before (``run_lane``), and so the float64 gray lane on a uniform 1D
+// mesh (``kRounds``, without DDMC); any other gray lane on a uniform mesh at the
+// top of the event; a lane of a DDMC or NONGRAY instantiation, whose events seldom
+// scatter in a row, in place, the scatter's inside the scatter (a lane on the DDMC
+// branch draws none of them). A lean lane (``kLean``) draws at the top of the
+// event, so that no event's draws wait in registers through the event before.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 constexpr bool kDrawAhead =
-    SMR && !DDMC && !NONGRAY && !kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
+    (SMR && !DDMC && !NONGRAY && !kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) ||
+    (kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> && !DDMC);
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 constexpr bool kDrawAtTop =
-    (!SMR || kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) && !DDMC && !NONGRAY;
+    (!SMR || kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) && !DDMC && !NONGRAY &&
+    !kDrawAhead<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
 
 // Whether a lane keeps its cell's values from one event to the next (measured,
 // see the note at the head of this file): not with DDMC on a uniform mesh, where
@@ -1473,12 +1517,13 @@ __device__ __forceinline__ void run_lane(const Geom<Real>& g, const Forest<Real>
     gather<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, o, blk, ci, st.en, dx, inv_dx, box, flo,
                                              fhi, dmin, tab, ea, sig_t, pf, is_ddmc);
   constexpr bool kAhead = kDrawAhead<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
+  constexpr bool kSt = !kVyAfter<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
   uint32_t key = jb_key(o.seed, lane, (uint32_t)it);
   Real dr[kDraws] = {Real(0.0), Real(0.0), Real(0.0), Real(0.0), Real(0.0), Real(0.0)};
-  if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key, dr);
+  if constexpr (kAhead) imc_draws<NDIM, ABSORB, kSt>(key, dr);
   while (true) {
     Real next[kDraws];
-    if constexpr (kAhead) imc_draws<NDIM, ABSORB>(key + kItStep, next);
+    if constexpr (kAhead) imc_draws<NDIM, ABSORB, kSt>(key + kItStep, next);
     if constexpr (kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) {  // the cell's geometry
       cell_size<NDIM>(F, blk, dx, dmin);
       faces<NDIM>(ci, dx, flo, fhi);
@@ -1718,6 +1763,32 @@ __device__ __forceinline__ void regroup(const Geom<Real>& g, const Forest<Real>&
   }
 }
 
+// One thread's part of the census of the slots [base, base + kThreads x blocks):
+// it takes its slot if the particle runs (``take``: block b's thread t the slot
+// base + kThreads b + t, or where the launch spreads, warp w of block b the 32
+// slots of group w x blocks + b), the block regroups, the lane runs its history
+// and writes it back, and its events are counted.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+__device__ __forceinline__ void census_slots(const Ledger<Real>& L, const Real* table,
+                                             const Forest<Real>& F, int n, const Geom<Real>& g,
+                                             const Shards& S, Stage<Real>& sm, int base,
+                                             unsigned long long* s_ev, int* s_mx) {
+  Lane<Real> st;
+  st.slot = -1;
+  st.it = 0;
+  // spread: warp w of block b takes the 32 slots of group w x blocks + b
+  const int warp_slots = base + 32 * ((threadIdx.x >> 5) * gridDim.x + blockIdx.x);
+  const int q =
+      S.spread ? warp_slots + (threadIdx.x & 31) : base + blockIdx.x * kThreads + threadIdx.x;
+  if (q < n) take<NDIM, DDMC, SMR, NONGRAY>(L, g, S, S.first + q, st);
+  regroup<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, sm, st);
+  if (st.slot >= 0) {
+    run_lane<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, st);
+    retire<NDIM, ABSORB, DDMC, SMR>(L, g, st);
+  }
+  count(st.slot >= 0 ? st.shard : -1, st.it, s_ev, s_mx);
+}
+
 // The census: one thread per ledger slot. A thread takes its slot if the
 // particle runs (``take``); the block regroups once, so that its live lanes fill
 // its lowest warps, those on the IMC branch first and those on the DDMC branch
@@ -1736,19 +1807,15 @@ __global__ void __launch_bounds__(kThreads)
     s_ev[k] = 0;
     s_mx[k] = 0;
   }
-  Lane<Real> st;
-  st.slot = -1;
-  st.it = 0;
-  // spread: warp w of block b takes the 32 slots of group w x blocks + b
-  const int warp_slots = 32 * ((threadIdx.x >> 5) * gridDim.x + blockIdx.x);
-  const int q = S.spread ? warp_slots + (threadIdx.x & 31) : blockIdx.x * kThreads + threadIdx.x;
-  if (q < n) take<NDIM, DDMC, SMR, NONGRAY>(L, g, S, S.first + q, st);
-  regroup<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, sm, st);
-  if (st.slot >= 0) {
-    run_lane<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, st);
-    retire<NDIM, ABSORB, DDMC, SMR>(L, g, st);
+  if constexpr (kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) {
+    for (int base = 0; base < n; base += kThreads * gridDim.x) {
+      // the regroup's staging is the next round's only once every thread is past it
+      if (base > 0) __syncthreads();
+      census_slots<NDIM, ABSORB, DDMC, SMR, NONGRAY>(L, table, F, n, g, S, sm, base, s_ev, s_mx);
+    }
+  } else {
+    census_slots<NDIM, ABSORB, DDMC, SMR, NONGRAY>(L, table, F, n, g, S, sm, 0, s_ev, s_mx);
   }
-  count(st.slot >= 0 ? st.shard : -1, st.it, s_ev, s_mx);
   __syncthreads();
   for (int k = threadIdx.x; k < S.count; k += kThreads) {
     if (s_ev[k] > 0) {
@@ -1795,20 +1862,25 @@ struct Launch {
   unsigned long long* events;
   int32_t* iters;
   cudaStream_t stream;
+  int grid;  // at most this many blocks where the instantiation runs in rounds
   template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
   void run() {
+    int blocks = (n + kThreads - 1) / kThreads;
+    if (kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> && grid > 0 && grid < blocks)
+      blocks = grid;
     transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>
-        <<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(L, table, F, n, g, S, events,
-                                                                   iters);
+        <<<blocks, kThreads, 0, stream>>>(L, table, F, n, g, S, events, iters);
   }
 };
 
 template <class Real>
 struct Occupancy {
   int blocks;
+  int rounds;
   int err;
   template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
   void run() {
+    rounds = kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> ? 1 : 0;
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>, kThreads, 0);
   }
@@ -1838,7 +1910,10 @@ struct Occupancy {
 // shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row)
 // (host array); seeds: the shards' n_shards K2 seeds (int32, device). spread: nonzero for warp w of block b to take the 32 slots
 // of group w x blocks + b instead of block b the 256 after 256 b, so that every
-// block holds slots from across the launch. events: n_shards uint64 and iters:
+// block holds slots from across the launch (of each round, where the instantiation
+// runs in rounds). grid: where the instantiation runs in rounds (kRounds), at most
+// this many blocks when it is positive, each round the next 256 x blocks slots
+// (the card's resident blocks: one wave); ignored elsewhere. events: n_shards uint64 and iters:
 // n_shards int32 (device), zeroed here on the stream before the launch (one
 // memset where iters follows events), so the caller need not fill them.
 // Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
@@ -1850,7 +1925,7 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
                  const void* table, const void* const* cols, const void* block_table,
                  const void* levels, const void* lookup, int capacity, const int* igeom,
                  const Real* fgeom, int n_shards, const int* shards, const void* seeds,
-                 int spread, void* events, void* iters, void* stream) {
+                 int spread, int grid, void* events, void* iters, void* stream) {
   Ledger<Real> L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (Real*)ptrs[a];
@@ -1948,22 +2023,25 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
     const Real* tab = (const Real*)table;
     auto* ev = (unsigned long long*)events;
     auto* itp = (int32_t*)iters;
-    Launch<Real> op{L, tab, F, n, g, S, ev, itp, st};
+    Launch<Real> op{L, tab, F, n, g, S, ev, itp, st, grid};
     dispatch(ndim, absorb != 0, ddmc != 0, sm, ng, op);
   }
   return (int)cudaGetLastError();
 }
 
 // Resident blocks of kThreads threads a SM of one instantiation at precision Real
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks. Returns the CUDA
-// error, -1 for an unknown ndim, -3 for nongray without absorb.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks, and into *rounds
+// 1 where it runs in rounds on the resident grid (kRounds), else 0. Returns the
+// CUDA error, -1 for an unknown ndim, -3 for nongray without absorb.
 template <class Real>
-int occupancy_entry(int ndim, int absorb, int ddmc, int smr, int nongray, int* blocks) {
+int occupancy_entry(int ndim, int absorb, int ddmc, int smr, int nongray, int* blocks,
+                    int* rounds) {
   if (ndim < 1 || ndim > 3) return -1;
   if (nongray != 0 && absorb == 0) return -3;
-  Occupancy<Real> op{0, 0};
+  Occupancy<Real> op{0, 0, 0};
   dispatch(ndim, absorb != 0, ddmc != 0, smr != 0, nongray != 0, op);
   *blocks = op.blocks;
+  *rounds = op.rounds;
   return op.err;
 }
 

@@ -15,7 +15,10 @@
 // instantiations hold half the resident blocks of their float32 twins. On a forest
 // (stepdiff_smr; stepdiff at 8 spatial shards) the gray lane keeps only its cell's
 // record, and so holds 3 and 4 resident blocks (transport_kernel.cuh: kLean;
-// measured there): stepdiff_smr's census 3.14 -> 2.50 ms.
+// measured there): stepdiff_smr's census 3.14 -> 2.50 ms. On a uniform 1D mesh
+// (stepdiff, stepdiff_ddmc) the census runs on the card's resident grid in rounds,
+// so that its live lanes run on every SM (kRounds; measured there): stepdiff's
+// census 1.46 -> 1.18 ms.
 #include "transport_kernel.cuh"
 
 extern "C" int jb_transport_launch_f64(int ndim, int absorb, int ddmc, int smr, int nongray,
@@ -23,14 +26,14 @@ extern "C" int jb_transport_launch_f64(int ndim, int absorb, int ddmc, int smr, 
                                        const void* const* cols, const void* block_table,
                                        const void* levels, const void* lookup, int capacity,
                                        const int* igeom, const double* fgeom, int n_shards,
-                                       const int* shards, const void* seeds, int spread,
+                                       const int* shards, const void* seeds, int spread, int grid,
                                        void* events, void* iters, void* stream) {
   return launch_entry<double>(ndim, absorb, ddmc, smr, nongray, ptrs, table, cols,
                               block_table, levels, lookup, capacity, igeom, fgeom, n_shards,
-                              shards, seeds, spread, events, iters, stream);
+                              shards, seeds, spread, grid, events, iters, stream);
 }
 
 extern "C" int jb_transport_occupancy_f64(int ndim, int absorb, int ddmc, int smr,
-                                          int nongray, int* blocks) {
-  return occupancy_entry<double>(ndim, absorb, ddmc, smr, nongray, blocks);
+                                          int nongray, int* blocks, int* rounds) {
+  return occupancy_entry<double>(ndim, absorb, ddmc, smr, nongray, blocks, rounds);
 }

@@ -64,6 +64,7 @@ _TRANSPORT = (
     _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row)
     _P,              # the shards' int32 seeds (device)
     _I,              # spread: a block's warps take slot groups spread over the launch
+    _I,              # grid: at most this many blocks where the instantiation runs in rounds
     _P, _P, _P,      # events iters stream
 )
 # every C entry; a float64 entry (precision = f64) ends in _f64
@@ -73,8 +74,9 @@ _SIGNATURES = {
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
     "jb_draws_f64_launch": (_I, _P, _P, _P, _P, _I, _P),  # seed lane it tag out n stream
     "jb_census_words_launch": (_I, _P, _P, _I, _I, _P),  # seed n_events out n words stream
-    "jb_transport_occupancy": (_I, _I, _I, _I, _I, _P),  # ndim absorb ddmc smr nongray blocks
-    "jb_transport_occupancy_f64": (_I, _I, _I, _I, _I, _P),
+    # ndim absorb ddmc smr nongray, out: resident blocks, whether it runs in rounds
+    "jb_transport_occupancy": (_I, _I, _I, _I, _I, _P, _P),
+    "jb_transport_occupancy_f64": (_I, _I, _I, _I, _I, _P, _P),
     "jb_transport_launch": _TRANSPORT,
     "jb_transport_launch_f64": _TRANSPORT,
     # columns dst src strides bytes fills k dest n capacity stream

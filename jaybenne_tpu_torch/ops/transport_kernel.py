@@ -134,14 +134,24 @@ def launch_name(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
             + ("_smr" if smr else "") + ("_ng" if nongray else "") + _f64(dtype) + route)
 
 
+def occupancy(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
+              nongray: bool = False, dtype=torch.float32) -> tuple:
+    """(blocks, rounds) of one kernel instantiation: the blocks that a SM of the
+    current GPU holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    and whether it runs in rounds on the card's resident grid
+    (csrc/transport_kernel.cuh, kRounds)."""
+    blocks, rounds = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_lib.library().call("jb_transport_occupancy" + _f64(dtype), ndim, int(absorb),
+                            int(ddmc), int(smr), int(nongray), ctypes.addressof(blocks),
+                            ctypes.addressof(rounds))
+    return blocks.value, bool(rounds.value)
+
+
 def resident_blocks(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
                     nongray: bool = False, dtype=torch.float32) -> int:
     """Blocks of one kernel instantiation that a SM of the current GPU holds at
     once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    out = ctypes.c_int(0)
-    cuda_lib.library().call("jb_transport_occupancy" + _f64(dtype), ndim, int(absorb),
-                            int(ddmc), int(smr), int(nongray), ctypes.addressof(out))
-    return out.value
+    return occupancy(ndim, absorb, ddmc, smr, nongray, dtype)[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1110,6 +1120,25 @@ MAX_SHARDS_PER_LAUNCH = 64
 THREADS = 256
 
 
+def launch_shape(slots: int, sms: int, resident: int, rounds: bool) -> tuple:
+    """(spread, grid) of a census launch over ``slots`` ledger slots on ``sms`` SMs
+    that hold ``resident`` blocks each, as the C launch entry takes them. An
+    instantiation that runs in rounds (``rounds``, csrc/transport_kernel.cuh
+    kRounds) is launched on the card's resident grid where its slots take at most
+    two rounds: at most sms x resident blocks, one wave, each round the next
+    THREADS x blocks slots spread over them (grid is that bound; the kernel
+    launches fewer blocks where the slots need fewer). A ledger keeps its live
+    slots first and at least as many after them to grow into, so its live lanes
+    then run in the first round, on every SM. A longer ledger, and any other
+    instantiation, takes one thread a slot (grid 0) and spreads where its blocks
+    fit on the card at once (``spreads``): in rounds, a ledger with live lanes in
+    several rounds runs each round's share of them alone (measured, see the
+    kernel's note)."""
+    if rounds and -(-slots // THREADS) <= 2 * sms * resident:
+        return 1, sms * resident
+    return int(spreads(slots, sms, resident)), 0
+
+
 def spreads(slots: int, sms: int, resident: int) -> bool:
     """Whether a census launch over ``slots`` ledger slots spreads them: when its
     blocks of THREADS slots all fit on the card at once (``resident`` blocks on each
@@ -1122,8 +1151,8 @@ def spreads(slots: int, sms: int, resident: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(ndim, absorb, ddmc, smr, nongray, dtype) -> int:
-    return resident_blocks(ndim, absorb, ddmc, smr, nongray, dtype)
+def _occupancy(ndim, absorb, ddmc, smr, nongray, dtype) -> tuple:
+    return occupancy(ndim, absorb, ddmc, smr, nongray, dtype)
 
 
 def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None,
@@ -1175,8 +1204,9 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
     for k, group in enumerate(groups):
         k0 = k * MAX_SHARDS_PER_LAUNCH
         slots = max(sh.slot_hi for sh in group) - min(sh.slot_lo for sh in group)
-        spread = spreads(slots, torch.cuda.get_device_properties(dev).multi_processor_count,
-                         _resident(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.real))
+        spread, grid = launch_shape(
+            slots, torch.cuda.get_device_properties(dev).multi_processor_count,
+            *_occupancy(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.real))
         rows = [v for sh in group for v in dataclasses.astuple(sh)[:5]]
         cuda_lib.library().call(
             "jb_transport_launch" + _f64(g.real), g.ndim, int(g.absorb), int(g.ddmc),
@@ -1184,7 +1214,7 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
             *(0 if t is None else t.data_ptr() for t in smr),
             p.capacity, (ctypes.c_int * len(ints))(*ints),
             (c_real * len(floats))(*map(float, floats)),
-            len(group), (ctypes.c_int * len(rows))(*rows), seeds[k0:].data_ptr(), int(spread),
+            len(group), (ctypes.c_int * len(rows))(*rows), seeds[k0:].data_ptr(), spread, grid,
             events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
         )
         if slots > 0:  # a group without slots launches nothing, its counters zeroed

@@ -900,8 +900,9 @@ def _scramble_idle_slots(p, mesh, seed):
 def _same_bits(k, q):
     for f in dataclasses.fields(k):
         a, b = getattr(k, f.name), getattr(q, f.name)
-        if a.dtype == torch.float32:  # the bits, signed zeros too
-            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.dtype in (torch.float32, torch.float64):  # the bits, signed zeros too
+            bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+            a, b = a.view(bits), b.view(bits)
         assert torch.equal(a, b), (f.name, int((a != b).sum()))
 
 
@@ -1305,10 +1306,12 @@ F32_MODES = ((False, False, False), (True, False, False), (False, True, False),
                          ids=[transport_kernel.launch_name(*r, dtype=torch.float64)
                               for r in F64_ROUTES])
 def test_f64_register_budget_held(gpu, route):
-    """Each float64 instantiation is resident: the two routes redesigned for the
-    register file (``chip_smoke.F64_RESIDENT_FLOOR``: transport_2d_smr_f64 and
-    transport_1d_smr_f64) hold at least 3 and 4 blocks of 256 a SM on an H100,
-    with no spill bytes (ptxas's lines of the library's build)."""
+    """Each float64 instantiation is resident: the redesigned routes
+    (``chip_smoke.F64_RESIDENT_FLOOR``: transport_2d_smr_f64 and
+    transport_1d_smr_f64 for the register file, transport_1d_f64 and
+    transport_1d_ddmc_f64 on the resident grid) hold at least 3, 4, 4 and 4 blocks
+    of 256 a SM on an H100, with no spill bytes (ptxas's lines of the library's
+    build)."""
     cs = _chip_smoke()
     name = transport_kernel.launch_name(*route, dtype=torch.float64)
     floor = cs.F64_RESIDENT_FLOOR.get(name)
@@ -1334,23 +1337,68 @@ def test_f32_resident_blocks_unchanged(gpu, ndim, smr):
     assert got == F32_RESIDENT[(ndim, smr)]
 
 
-@pytest.mark.parametrize("path", ["stepdiff_smr", "stepdiff_spatial"])
+# the float64 routes redesigned, each on its path's recorded census (deck, overrides,
+# the census kept); "_4x", on that census's ledger four times over (the copies in
+# other slots, so other draws): several waves of blocks, one thread a slot;
+# "_flipped", on that ledger in reverse slot order: its live lanes at the end, so a
+# route that runs in rounds meets live lanes in two rounds
+_F64_PATHS = {
+    "stepdiff": ("DECK", "GATE", 2),
+    "stepdiff_ddmc": ("DDMC_DECK", "DDMC_GATE", 2),
+    "stepdiff_smr": ("SMR_DECK", "SMR_GATE", 2),
+}
+
+
+def _flipped(p):
+    """The ledger ``p`` in reverse slot order."""
+    return dataclasses.replace(p, **{f.name: getattr(p, f.name).flip(0)
+                                     for f in dataclasses.fields(p)})
+
+
+@pytest.mark.parametrize("path", ["stepdiff_smr", "stepdiff_spatial", "stepdiff",
+                                  "stepdiff_ddmc", "stepdiff_4x", "stepdiff_ddmc_4x",
+                                  "stepdiff_flipped", "stepdiff_ddmc_flipped"])
 def test_redesigned_f64_routes_bitwise_at_path_shapes(gpu, tmp_path, path):
-    """The two redesigned float64 routes on their paths' own inputs, bitwise their
+    """The redesigned float64 routes on their paths' own inputs, bitwise their
     float64 plain version in every column: transport_2d_smr_f64 on stepdiff_smr's
-    second census (``chip_smoke.f64_vs_plain``: after 8 iterations and after a
-    full census of the last 10 % of a step), transport_1d_smr_f64@blocks on the
-    first round of stepdiff at 8 spatial shards (``chip_smoke.owned_vs_plain``)."""
+    second census, transport_1d_f64 on stepdiff's (128 cells, 100k particles) and
+    transport_1d_ddmc_f64 on stepdiff_ddmc's (``chip_smoke.f64_vs_plain``: after 8
+    iterations and after a full census of the last 10 % of a step; the 1D routes
+    also on the whole recorded census, with its events and iteration maximum, on
+    its ledger four times over, several waves of blocks, and on it in reverse slot
+    order, live lanes in two rounds of the resident grid), and
+    transport_1d_smr_f64@blocks on the first round of stepdiff at 8 spatial shards
+    (``chip_smoke.owned_vs_plain``)."""
     cs = _chip_smoke()
-    if path == "stepdiff_smr":
-        name = transport_kernel.launch_name(2, False, False, True, dtype=torch.float64)
-        with cs.CensusRecorder(transport_kernel, 2) as rec:
-            run_file(cs.SMR_DECK, outdir=str(tmp_path), modified_inputs={**cs.SMR_GATE,
-                                                                         **cs.PREC64},
-                     quiet=True, nlim=2, device="cuda", graph=False)
+    base = path.removesuffix("_4x").removesuffix("_flipped")
+    if base in _F64_PATHS:
+        deck, mods, keep = _F64_PATHS[base]
+        with cs.CensusRecorder(transport_kernel, keep) as rec:
+            run_file(getattr(cs, deck), outdir=str(tmp_path),
+                     modified_inputs={**getattr(cs, mods), **cs.PREC64}, quiet=True, nlim=keep,
+                     device="cuda", graph=False)
         p0, (coefs, mesh, seed, prm, dt) = rec.inputs
+        if path.endswith("_4x"):
+            import census_bench  # beside chip_smoke.py
+
+            p0 = census_bench.times_over(p0, 4)
+            assert -(-p0.capacity // transport_kernel.THREADS) > _resident_lanes(gpu) // 256
+        if path.endswith("_flipped"):
+            p0 = _flipped(p0)
+            assert bool(p0.alive[-1]) and not bool(p0.alive[0])
+        name = transport_kernel.launch_name(prm.ndim, bool(prm.has_absorption),
+                                            bool(prm.use_ddmc), mesh.max_level > 0,
+                                            dtype=torch.float64)
         err, events, _ = cs.f64_vs_plain(transport_kernel, gpu, name, p0, coefs, mesh, prm, dt,
                                          seed)
+        if base != "stepdiff_smr":
+            before = cuda_lib.LAUNCHES[name]
+            k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, seed, prm, dt)
+            assert cuda_lib.LAUNCHES[name] == before + 1
+            q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, seed, prm,
+                                                             dt)
+            _same_bits(k, q)
+            _same_counts(it_k, ev_k, it_q, ev_q)
     else:
         name = transport_kernel.launch_name(1, False, False, True, route="@blocks",
                                             dtype=torch.float64)

@@ -84,6 +84,38 @@ def test_a_launch_spreads_its_slots_only_when_it_fits_on_the_card(slots, residen
     assert tk.spreads(slots, 132, resident) == want
 
 
+@pytest.mark.parametrize("slots, resident, rounds, want", [
+    (201152, 4, True, (1, 528)),   # stepdiff f64's census: transport_1d_f64, 4 a SM
+    (201152, 4, False, (0, 0)),    # one thread a slot: its 786 blocks do not fit at once
+    (201152, 6, False, (1, 0)),    # transport_1d's census: 786 blocks fit, spread
+    (2 * 528 * 256, 4, True, (1, 528)),      # two rounds
+    (2 * 528 * 256 + 1, 4, True, (0, 0)),    # three: one thread a slot, in order
+    (804608, 4, True, (0, 0)),     # four times stepdiff's ledger
+    (256, 4, True, (1, 528)),      # one block's slots: the kernel launches one block
+])
+def test_a_rounds_launch_takes_the_resident_grid(slots, resident, rounds, want):
+    """(spread, grid) of a census launch on 132 SMs: an instantiation that runs in
+    rounds (the float64 uniform 1D routes) is bounded by the card's resident grid,
+    each round's slots spread over it, where its slots take at most two rounds;
+    a longer ledger, and any other instantiation, takes one thread a slot and
+    spreads only where its blocks fit at once."""
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+
+    assert tk.launch_shape(slots, 132, resident, rounds) == want
+
+
+def test_loop_body_reads_the_event_loop_inside_rounds():
+    """``loop_body`` reads the widest loop that holds no barrier: in a census that
+    runs in rounds (a barrier in each round) its event loop, not the rounds."""
+    code = [(0x00, "MOV R1, c[0x0][0x28] ;"), (0x10, "BAR.SYNC.DEFER_BLOCKING 0x0 ;"),
+            (0x20, "DADD R2, R2, R4 ;"), (0x30, "DMUL R2, R2, R6 ;"),
+            (0x40, "@P0 BRA 0x20 ;"), (0x50, "ISETP.GE.AND P1, PT, R8, R9, PT ;"),
+            (0x60, "@!P1 BRA 0x10 ;"), (0x70, "EXIT ;")]
+    assert cs.loop_body(code) == 3
+    without = [(a, "NOP ;" if "BAR" in t else t) for a, t in code]
+    assert cs.loop_body(without) == 6
+
+
 _PTXAS = """ptxas info    : Compiling entry function '{name}' for 'sm_90a'
 ptxas info    : Function properties for {name}
     {stack} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
@@ -96,7 +128,9 @@ _MANGLED = "_ZN12_GLOBAL__N_116transport_kernelILi{}ELb{}ELb{}ELb{}ELb{}E{}EEvNS
     ((1, 0, 0, 0, 0, "f"), "transport_1d", 32, 0, 0),
     ((1, 0, 0, 1, 0, "d"), "transport_1d_smr_f64", 60, 0, 0),
     ((2, 0, 0, 1, 0, "d"), "transport_2d_smr_f64", 78, 40, 0),
-    ((3, 1, 1, 1, 0, "d"), "transport_3d_abs_ddmc_smr_f64", 128, 40, 4)])
+    ((3, 1, 1, 1, 0, "d"), "transport_3d_abs_ddmc_smr_f64", 128, 40, 4),
+    ((1, 0, 0, 0, 0, "d"), "transport_1d_f64", 60, 0, 0),
+    ((1, 0, 1, 0, 0, "d"), "transport_1d_ddmc_f64", 53, 0, 0)])
 def test_kernel_resources_are_read_from_ptxas(args, route, regs, stack, spill):
     """``census_route`` names a census instantiation from its mangled name, float32
     or float64, and ``kernel_resources`` reads its registers, stack frame and

@@ -1,7 +1,16 @@
 """The port's native mesh-forest builder (``jaybenne_tpu_torch/native/``) against the
 JAX package's native builder and against the port's Python builder, its build when
-processes build at once, and its refusal to fall back. Skips where g++ is missing."""
+processes build at once, and its refusal to fall back. Skips where g++ is missing.
 
+At import this module makes sure that the JAX package's library
+(``jaybenne_tpu/native/libjbmesh.so``) is whole before any test runs
+(``_jax_library_in_place``): the JAX loader builds it in place with g++ at its first
+call and caches None where that build or the load fails, so pytest-xdist workers
+that all call it at once raced, and one that lost the race skipped the native tests
+for the rest of the run. Every worker imports this module while it collects,
+before it runs a test, and no test module calls a JAX ``build_mesh`` at import."""
+
+import ctypes
 import os
 import shutil
 import subprocess
@@ -19,6 +28,43 @@ from jaybenne_tpu_torch.mesh import build_mesh
 from jaybenne_tpu_torch.utils.deck import Deck
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# native/build.sh: the JAX package's library, its source and g++'s flags
+_JAX_LIB = os.path.join(_ROOT, "jaybenne_tpu", "native", "libjbmesh.so")
+_JAX_SRC = os.path.join(_ROOT, "native", "mesh_builder.cc")
+_JAX_GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+
+def _loads(path) -> bool:
+    """Whether ``path`` loads as a library with the builder's two entries."""
+    try:
+        lib = ctypes.CDLL(path)
+        return all(hasattr(lib, name) for name in ("jb_mesh_query", "jb_mesh_fill"))
+    except OSError:
+        return False
+
+
+def _jax_library_in_place() -> None:
+    """Where g++ is present and the JAX package's library is missing or does not
+    load, compiles ``native/mesh_builder.cc`` with ``native/build.sh``'s command and
+    flags into a file named by this process and renames it into place: the bytes
+    the JAX loader would build, written at once, so that its in-place build never
+    runs and no process loads a half-written file. Processes that do this at once
+    each rename a whole library."""
+    gxx = shutil.which("g++")
+    if gxx is None or (os.path.exists(_JAX_LIB) and _loads(_JAX_LIB)):
+        return
+    tmp = f"{_JAX_LIB}.{os.getpid()}.tmp"
+    try:
+        subprocess.run([gxx, *_JAX_GXX_FLAGS, os.path.basename(_JAX_SRC), "-o", tmp],
+                       cwd=os.path.dirname(_JAX_SRC), check=True, capture_output=True,
+                       timeout=300)
+        os.replace(tmp, _JAX_LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+_jax_library_in_place()
 
 
 @pytest.fixture(autouse=True)
@@ -72,8 +118,8 @@ def test_native_forest_is_the_jax_packages(name):
     """The port's native forest is bitwise the JAX package's native forest (loaded
     as tests/test_native.py loads it): origins, sizes, levels, lookup grid and
     the finest level."""
-    if jnative.load_mesh_builder() is None:
-        pytest.skip("the JAX package's native builder is unavailable")
+    assert jnative.load_mesh_builder() is not None, (
+        "the JAX package's native builder does not load though g++ is present")
     args = _forest_args(MESHES[name]())
     got = native.build_forest_native(*args)
     want = jnative.build_forest_native(*args)
