@@ -15,7 +15,8 @@ more tree, timed in the same turns. Nothing here imports jax.
    stepdiff, 2D feedback and 64^3 feedback ledgers after their last step (seed
    12345, the coefficients of the final fields); the last census of the DDMC, SMR
    and non-gray paths; phase 11's hybrid ledgers; the first round of
-   big_mesh_spatial and of SMR+DDMC spatial at 8 shards; the float64 routes of
+   big_mesh_spatial and of SMR+DDMC spatial at 8 shards (of the latter, K4s, its
+   second round too, LATER_ROUNDS); the float64 routes of
    phase 43 (the last census of stepdiff, stepdiff_ddmc, stepdiff_smr and its
    EPBremss step, the first round of stepdiff at 8 spatial shards); at other
    numbers of lanes a SM, the 64^3 feedback ledger's first eighth, the
@@ -39,8 +40,9 @@ more tree, timed in the same turns. Nothing here imports jax.
 3. ``--profile`` runs ``python -m jaybenne_tpu_torch.profile`` from each tree's
    root in the same turns on stepdiff_smr (64x32, 100k particles), the 64^3
    feedback row, the 64^3 DDMC row, stepdiff_3d (``chip_smoke.py`` phases 14
-   and 20) and, in float64, stepdiff_smr and stepdiff at 8 spatial shards (phase
-   43; ``--profile DECK ...`` names some), and reads the census kernel's device
+   and 20), big_mesh_spatial at 8 shards (phase 30; its migration's inserts)
+   and, in float64, stepdiff_smr and stepdiff at 8 spatial shards (phase 43;
+   ``--profile DECK ...`` names some), and reads the census kernel's device
    ms a step and its launches a step (the mean launch: a spatial round), the
    step's device total and the unprofiled steps' wall median.
 
@@ -99,6 +101,15 @@ PROFILE_DECKS = {
         "jaybenne/do_feedback=true", "mcblock/opacity_model=constant",
         "mcblock/opacity_constant_value=3.0", "jaybenne/capacity_factor=3",
         "parthenon/output0/file_type=none"]),
+    # chip_smoke.py phase 30's big_mesh_spatial at 8 in-process shards (bench.py's
+    # big mesh, IMC, 200k particles): the spatial step, its migration's inserts
+    "big_mesh_spatial_8": ("inputs/stepdiff.in", [
+        "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=64", "parthenon/mesh/nx3=64",
+        "parthenon/mesh/ix2_bc=periodic", "parthenon/mesh/ox2_bc=periodic",
+        "parthenon/mesh/ix3_bc=periodic", "parthenon/mesh/ox3_bc=periodic",
+        "parthenon/meshblock/nx1=8", "parthenon/meshblock/nx2=8", "parthenon/meshblock/nx3=8",
+        "jaybenne/num_particles=200000", "jaybenne/decomposition=spatial",
+        "jaybenne/n_devices=8", "parthenon/output0/file_type=none"]),
     # chip_smoke.py phases 14 (BIG_DDMC) and 20 (SMR3D)
     "big_mesh_ddmc": ("inputs/stepdiff.in", [
         "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=64", "parthenon/mesh/nx3=64",
@@ -132,6 +143,10 @@ SWEEP = (1, 2, 4)
 # (``chip_smoke.DDMC_ROUTES``) by ``ddmc_reading``
 F64_READ = ("transport_2d_smr_f64", "transport_1d_smr_f64@blocks", "transport_1d_f64",
             "transport_1d_ddmc_f64")
+# the spatial routes whose second round is recorded too (a later round: its lanes
+# the first round's leftovers and arrivals), and read apart by ``ddmc_reading``
+LATER_ROUNDS = ("transport_2d_ddmc_smr@blocks",)
+K4S_READ = ("transport_2d_ddmc_smr@blocks", "transport_2d_ddmc_smr@blocks, its second round")
 
 
 def sweep_name(name, k) -> str:
@@ -221,8 +236,12 @@ def record(path, only=None) -> None:
              {**cs.SMR_SPATIAL, **cs.SPATIAL, "jaybenne/n_devices": 8}, cs.SMR_SPATIAL_STEPS),
             (tk.launch_name(1, False, False, True, route="@blocks", dtype=torch.float64),
              cs.DECK, {**cs.STEPDIFF_SPATIAL, **f64}, 1)):
-        if want(name):
-            routes[name] = cs.spatial_path(deck, mods, steps, name)[2]
+        later = f"{name}, its second round"
+        if want(name) or want(later):
+            sim = cs.spatial_path(deck, mods, steps, name)[0]
+            routes[name] = sim.recorded_rounds[0]
+            if name in LATER_ROUNDS:
+                routes[later] = sim.recorded_rounds[1]
     if only is None:
         # the two routes whose event loop chip_smoke.py reads at other numbers of
         # lanes a SM: the 64^3 feedback ledger's first eighth, the stepdiff_smr
@@ -253,7 +272,7 @@ def digest(p) -> str:
 
 MIX_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
               "transport_1d_ddmc", "transport_1d_abs_ddmc", "transport_3d_abs_ng",
-              "transport_1d_abs_ng", "transport_2d_abs_smr_ng", *F64_READ)
+              "transport_1d_abs_ng", "transport_2d_abs_smr_ng", *F64_READ, *K4S_READ)
 # the non-gray routes whose opacity's share of the event loop is read: the loop as
 # built, and with EPBremss returning at once (``chip_smoke.LOOP_PATHS``)
 NG_ROUTES = ("transport_3d_abs_ng", "transport_1d_abs_ng", "transport_2d_abs_smr_ng")
@@ -409,10 +428,10 @@ def ng_reading(cs, tk, dev, label, inputs, res, paths, mix, repeats) -> dict:
             tk.warp_efficiency(lanes)}
 
 
-def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> dict:
-    """The reading of the DDMC route ``name`` (``chip_smoke.DDMC_ROUTES``) on a
-    census's ``inputs`` ((ledger, args)), its lines headed ``label``: the kernel
-    alone (``kernel_alone``), the event loop's line (``chip_smoke.event_loop_line``,
+def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats, n=1) -> dict:
+    """The reading of the DDMC route ``name`` (``chip_smoke.DDMC_ROUTES``, K4S_READ)
+    on a census's ``inputs`` ((ledger, args), of ``n`` shards' slices), its lines
+    headed ``label``: the kernel alone (``kernel_alone``), the event loop's line (``chip_smoke.event_loop_line``,
     registers and stack from ``res``, its common path the DDMC loop's dd_step), how
     the live lanes and the events spread over blocks of 256 slots
     (``chip_smoke.block_spread_line``), the DDMC warp path mix ``mix`` with the
@@ -422,10 +441,12 @@ def ddmc_reading(cs, tk, dev, label, name, inputs, res, paths, mix, repeats) -> 
     figures."""
     p, args = inputs
     prm, mesh = args[3], args[1]
-    events = int(tk.transport(p.clone(), *args)[2])
-    k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats))
+    census = cs.sliced(tk.transport, n) if n > 1 else tk.transport
+    events = int(census(p.clone(), *args)[2])
+    k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats, n=n))
     print(f"{label}: the kernel alone (CUDA events around its launch) {k_ms!r} ms", flush=True)
-    lanes = cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["dd_step"])
+    lanes = cs.event_loop_line(tk, dev, label, inputs, k_ms, events, res, paths["dd_step"],
+                               n=n)
     blocks = tk.resident_blocks(prm.ndim, bool(prm.has_absorption), True, mesh.max_level > 0,
                                 dtype=p.x.dtype)
     cs.block_spread_line(label, lanes, p, blocks, dev)
@@ -496,7 +517,8 @@ def mix_child(inputs, pkg, repeats, out) -> None:
         return pool.submit(cs.loop_paths, csrc, names, tk, paths) if names else None
 
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = (reading(pool, cs.DDMC_ROUTES, DD_PATHS), reading(pool, NG_ROUTES, NG_PATHS),
+        builds = (reading(pool, cs.DDMC_ROUTES + K4S_READ, DD_PATHS),
+                  reading(pool, NG_ROUTES, NG_PATHS),
                   reading(pool, f64_imc, ("scatter", "cross", "no_wall", "full")))
         lib = cs.path_mix_library(cuda_lib.SRC_DIR, cuda_lib.BUILD_DIR / "path_mix")
         dd, ng, f64_paths = (b.result() if b else None for b in builds)
@@ -505,10 +527,11 @@ def mix_child(inputs, pkg, repeats, out) -> None:
     for name in mixed:
         p0, n, args = routes[name]
         mix = cs.path_mix(tk, lib, (p0, args), n)
-        if name in cs.DDMC_ROUTES:
+        if name in cs.DDMC_ROUTES or name in K4S_READ:
+            base = name.split("@")[0]
             mix = ddmc_reading(cs, tk, dev, f"{label}: {name}", name, (p0, args),
-                               res.get(name, {}), {k: dd[k][name] for k in DD_PATHS}, mix,
-                               repeats)
+                               res.get(base, {}), {k: dd[k][base] for k in DD_PATHS}, mix,
+                               repeats, n)
         elif name in F64_READ:
             base = name.split("@")[0]
             mix = f64_reading(cs, tk, dev, f"{label}: {name}", (p0, args), n,
@@ -762,7 +785,7 @@ def main(argv=None) -> int:
                     f"{m['issue_ms']!r} ms, {m['warp_issue_share']!r} of the kernel alone "
                     f"{m['kernel_ms']!r} ms; slot-order warp efficiency "
                     f"{m['slot_order_warp_efficiency']!r}"
-                    if name in cs.DDMC_ROUTES else
+                    if name in cs.DDMC_ROUTES or name in K4S_READ else
                     f"gathered anew {m['regather'] / we!r}, crossed {m['cross'] / we!r}; the "
                     f"opacity {m['opacity_instructions']} SASS a gather; the whole loop at the "
                     f"issue rate {m['issue_ms']!r} ms, {m['warp_issue_share']!r} of the kernel "

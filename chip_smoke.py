@@ -198,8 +198,11 @@ Phases:
  33. spatial + SMR + DDMC at 8 shards (tests/test_spatial.py:546-586: 32x16 in
      8x8 blocks, 96k particles, 2 steps): the tally equal to the live weight,
      pending leaks resolved by their owners (counted) and none left, the
-     weighted difference from a one-device run < 0.10; K4s timed on the first
-     round of shard 0;
+     weighted difference from a one-device run < 0.10; K4s (its shards' slot
+     groups interleaved over the first wave) timed on the first and the second
+     round, each bitwise its plain version, its mean round as the driver runs
+     the deck to 6e-11, and each recorded round's busiest SM against the mean
+     (the counting variant's lane-events by %smid);
  34. determinism: phase 30 at 8 shards again gives bitwise-identical tallies
      (phase 32's rows were each rerun);
  35. phase 25's path (stepdiff_smr with ep_bremss, 100k particles, one step) at
@@ -268,12 +271,15 @@ Phases:
      launches bitwise equal after every step, then one more replay under
      ``torch.cuda.set_sync_debug_mode("error")``, a spatial batch's exit read
      alone let through and counted (one a batch); the
-     insert kernel (csrc/insert_kernel.cu) bitwise its plain version and the
-     boolean-mask insert on the 64^3 feedback row, timed beside its bound (its
-     launches are phase 9's: the initial radiation's births and one a step), and
-     bitwise its plain version on the writes the main paths make
-     (``insert_paths_check``: stepdiff's initial source, a grid with broadcast
-     columns; the 8-shard spatial step's migration arrivals, with ``reserved``;
+     insert kernel (csrc/insert_kernel.cu: destinations by scans, then the
+     writes, three launches a pass) bitwise its plain version on the 64^3
+     feedback row, its destinations the parent's stable sort's, timed beside its
+     bound and the parent's destinations part by part (its launches are phase
+     9's: the initial radiation's births and one pass a step), and bitwise its
+     plain version on the inserts the main paths make (``insert_paths_check``:
+     stepdiff's initial source, a grid with broadcast columns; the 8-shard
+     spatial step's migration arrivals, every shard in one pass with
+     ``reserved``, timed against the parent's destinations a shard at a time;
      stepdiff's initial source at precision = f64); the
      8-shard big_mesh_spatial step, eager and replayed, under the same mode but
      for each batch's exit read (counted: one a batch) and the step's packed read;
@@ -320,6 +326,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 import numpy as np
 import torch
@@ -2734,14 +2741,17 @@ def forest_round_all(transport_kernel, dev, seed, n_shards=8):
 class RoundRecorder:
     """While active, wraps ``transport_kernel.transport`` (so that the steps built
     meanwhile call it through the wrapper) and keeps a copy of the inputs of the
-    first round (one call over every shard's slice: the joined ledger, the shard
-    count and the call's other arguments); keeps the arguments of the first
+    first KEEP_ROUNDS rounds run eagerly (``rounds``; each one call over every
+    shard's slice: the joined ledger, the shard count and the call's other
+    arguments; ``inputs`` the first); keeps the arguments of the first
     census set-up (``prepare``: the shards' coefficient sets, mesh, prm, dt and
     owned ranges); and wraps ``subface_resample`` to count the pending leaks it
     resolves."""
 
+    KEEP_ROUNDS = 2
+
     def __init__(self, transport_kernel):
-        self.tk, self.inputs, self.resolved, self.setup = transport_kernel, None, 0, None
+        self.tk, self.rounds, self.resolved, self.setup = transport_kernel, [], 0, None
         self.real, self.real_fix = transport_kernel.transport, transport_kernel.subface_resample
         self.real_prepare = transport_kernel.prepare
 
@@ -2759,15 +2769,20 @@ class RoundRecorder:
             self.setup = args
         return self.real_prepare(*args)
 
+    @property
+    def inputs(self):
+        return self.rounds[0] if self.rounds else None
+
     def _census(self, particles, *args):
-        if self.inputs is None and isinstance(particles, list):
+        if (len(self.rounds) < self.KEEP_ROUNDS and isinstance(particles, list)
+                and not torch.cuda.is_current_stream_capturing()):
             from jaybenne_tpu_torch.particles import join_slices
 
             setup, mesh, seeds, *rest = args
             if isinstance(seeds, torch.Tensor):  # a row of the step's seed buffer
                 seeds = seeds.clone()
-            self.inputs = (join_slices(particles)[0].clone(), len(particles),
-                           (setup, mesh, seeds, *rest))
+            self.rounds.append((join_slices(particles)[0].clone(), len(particles),
+                                (setup, mesh, seeds, *rest)))
         return self.real(particles, *args)
 
     def _fix(self, p, faces, mesh, c, gen, offset, n_local, go=None):
@@ -2797,7 +2812,8 @@ def spatial_path(deck, mods, steps, what, graph=True):
     """A deck under a decomposition through ``driver.run_file`` on the GPU for
     ``steps`` steps (``None``: to its tlim; ``graph`` as ``run_file``'s), the launch
     counts set to 0 just before and read just after, the first round recorded
-    (the pending leaks resolved are counted in eager steps only: a replay calls no
+    (and the first RoundRecorder.KEEP_ROUNDS run eagerly: ``sim.recorded_rounds``;
+    the pending leaks resolved are counted in eager steps only: a replay calls no
     Python). Raises unless every step
     completed its census with nothing dropped, every round made one census launch
     (``launch``), and the tally is finite and equals the live weight (sum(tally
@@ -2813,6 +2829,7 @@ def spatial_path(deck, mods, steps, what, graph=True):
                            device="cuda", graph=graph)
             launches = dict(cuda_lib.LAUNCHES)
             note_table(what, launches)
+    sim.recorded_rounds = rec.rounds
     p = sim.state.particles
     if (any(h["dropped"] or h["unfinished"] for h in sim.history) or sim.state.overflow
             or (steps is not None and sim.cycle != steps)):
@@ -2843,7 +2860,7 @@ def spatial_path(deck, mods, steps, what, graph=True):
     return sim, launches, rec.inputs, rec.resolved, rec.setup
 
 
-def round_kernel(transport_kernel, dev, inputs, name, cost):
+def round_kernel(transport_kernel, dev, inputs, name, cost, which="the first round"):
     """The kernel ``name`` and its plain version timed on a recorded round (one
     call over every shard's slice, with the step's census set-up) and held
     against each other (bitwise), with its bound from the round's own events (on
@@ -2862,7 +2879,7 @@ def round_kernel(transport_kernel, dev, inputs, name, cost):
     bound, by = census_bound(p, prm.ndim, bool(prm.has_absorption), setup.tabs.cell.shape[0],
                              ev, cost, ddmc=bool(prm.use_ddmc), smr=smr,
                              nongray=setup.g.nongray)
-    print(f"{name} on the first round, one launch over {n} shards ({p.capacity} slots, "
+    print(f"{name} on {which}, one launch over {n} shards ({p.capacity} slots, "
           f"{int((p.alive & (p.tau < 1.0)).sum())} unfinished): kernel {ms!r} ms, plain "
           f"{plain_ms!r} ms, {ev} events; bound {bound!r} ms ({by}), kernel at "
           f"{bound / ms:.3f} of it; kernel and plain bitwise equal", flush=True)
@@ -2933,7 +2950,7 @@ def weighted_difference(a, b) -> float:
     return float((a - b).abs()[m].sum() / s[m].sum())
 
 
-def spatial_phases(transport_kernel, dev, cost, src) -> list:
+def spatial_phases(transport_kernel, dev, cost, src, mix_lib) -> list:
     """Phases 28-35 (both decompositions; backend (b): every shard in this process
     on the one card). Returns the entries of the ``kernels`` line for the
     owned-range routes K3s and K4s."""
@@ -3012,6 +3029,18 @@ def spatial_phases(transport_kernel, dev, cost, src) -> list:
     if sp_launches.get(name_f, 0) != rounds_queued(sp8):
         raise AssertionError(f"spatial SMR DDMC: launches {sp_launches}")
     k_f = round_kernel(transport_kernel, dev, sp_round, name_f, cost)
+    # K4s on a later round (the second, recorded eagerly), its mean round as the
+    # driver runs the deck to 6e-11, and how each recorded round's lane-events
+    # spread over the SMs (the counting variant, %smid)
+    round_kernel(transport_kernel, dev, sp8.recorded_rounds[1], name_f, cost,
+                 which="the second round")
+    mean_round_line(SMR_DDMC_DECK, {**SMR_SPATIAL, **SPATIAL, "jaybenne/n_devices": 8,
+                                    "parthenon/time/tlim": "6.e-11"}, name_f, sp8, k_f[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for which, (p, n, args) in zip(("first", "second"), sp8.recorded_rounds):
+        by_sm = path_mix(transport_kernel, mix_lib, (p, args), n)["by_sm"]
+        print(f"{name_f} on the {which} round: lane-events on {len(by_sm)} SMs, the busiest "
+              f"SM {max(by_sm) * sms / sum(by_sm)!r} times the mean SM's", flush=True)
 
     phase("34 determinism: phase 30 at 8 shards again (phase 32's rows were each rerun)")
     again = spatial_path(DECK, {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8},
@@ -3523,39 +3552,109 @@ def same_states(a, b, what):
         raise AssertionError(f"{what}: histories differ: {strip}")
 
 
-def mask_insert(ledger, cand, valid, reserved=None):
-    """The boolean-mask insert the port ran before its static-shape one (the
-    destinations ``order[rank[ok]]``, each column written through a mask), kept
-    here to time and check the static one against."""
+def parent_insert_parts(ledger, valid, reserved=None):
+    """The insert's destinations as the port made them before its scan kernel
+    (the ranks' cumsum, a stable free-first argsort of the ledger, the sums, a
+    where and a gather; then the write kernel), kept here only as the yardstick
+    that the scan is timed against: (dest, n_dropped, parts), where parts maps each
+    part's name to a call that repeats it on the same inputs."""
     cap = ledger.capacity
     vflat = valid.reshape(-1)
-    rank = torch.cumsum(vflat.to(torch.int64), 0) - 1
-    occupied = ledger.alive if reserved is None else ledger.alive | reserved
-    order = torch.argsort(occupied.to(torch.uint8), stable=True)
-    ok = vflat & (rank < cap - occupied.sum())
-    dest = order[rank[ok]]
-    for name, val in cand.items():
-        arr = getattr(ledger, name)
-        arr[dest] = val.reshape(-1)[ok].to(arr.dtype)
-    ledger.alive[dest] = True
-    ledger.absorbed[dest] = False
-    ledger.face[dest] = 0
-    ledger.leak[dest] = 0
-    return ledger, vflat.sum() - ok.sum()
+
+    def ranks():
+        return torch.cumsum(vflat.to(torch.int64), 0) - 1
+
+    def sort():
+        occupied = ledger.alive if reserved is None else ledger.alive | reserved
+        return occupied, torch.argsort(occupied.to(torch.uint8), stable=True)
+
+    rank, (occupied, order) = ranks(), sort()
+
+    def sums():
+        ok = vflat & (rank < cap - occupied.sum())
+        return ok, vflat.sum() - ok.sum()
+
+    ok, n_dropped = sums()
+
+    def gather():
+        return torch.where(ok, order[rank.clamp(0, cap - 1)], cap)
+
+    return gather(), n_dropped, {"the ranks' cumsum": ranks, "the stable argsort": sort,
+                                 "the sums": sums, "the where and gather": gather}
+
+
+def timed_ms(fn, dev, fresh=lambda: None, repeats=CENSUS_REPEATS) -> float:
+    """The median ms of ``fn(fresh())`` between CUDA events after a device sleep
+    (the host queues the call meanwhile), after one warm-up call."""
+    fn(fresh())
+    times = []
+    for _ in range(repeats):
+        arg = fresh()
+        torch.cuda.synchronize(dev)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        fn(arg)
+        stop.record()
+        torch.cuda.synchronize(dev)
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def launch_split(fn, fresh, names, repeats=CENSUS_REPEATS) -> dict:
+    """The mean device ms a call of each kernel in ``names`` (substrings of the
+    kernels' names) takes in ``repeats`` calls of ``fn(fresh())``, read from a
+    ``torch.profiler`` trace."""
+    from jaybenne_tpu_torch.profile import device_time_by_name
+
+    args = [fresh() for _ in range(repeats)]
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for a in args:
+            fn(a)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        by_name = device_time_by_name(trace)
+    return {name: sum(us for k, us in by_name.items() if name in k) / 1e3 / repeats
+            for name in names}
+
+
+# the insert kernel's three launches (csrc/insert_kernel.cu), by kernel name
+INSERT_LAUNCHES = ("count_kernel", "list_kernel", "write_kernel")
+
+
+def insert_bound(ledger, cand, valid, written, reserved) -> float:
+    """The least ms of an insert on the card (bytes / PEAK_BYTES): the ledger's
+    alive flags (and ``reserved``'s) read once, every candidate's valid flag, the
+    values of the ``written`` candidates, and their rows' columns written."""
+    from jaybenne_tpu_torch.particles import _columns
+
+    flags = ledger.capacity * (2 if reserved else 1) + valid.numel() * valid.element_size()
+    values = sum(v.element_size() for v in cand.values())
+    rows = sum(col.element_size() for col, _ in _columns(ledger, cand))
+    return (flags + written * (values + rows)) / PEAK_BYTES * 1e3
+
+
+def equal_ledgers(a, b, what) -> None:
+    for f in dataclasses.fields(a):
+        if not bitwise_equal(getattr(a, f.name), getattr(b, f.name)):
+            raise AssertionError(f"{what}: column {f.name} differs")
 
 
 def insert_check(dev, sim, smi) -> dict:
     """The insert kernel (csrc/insert_kernel.cu) on the 64^3 feedback row's ledger
     with the candidate grid its emission makes (one candidate a cell, 0.76 of
     them valid; the per-cell columns broadcast along the candidate axis, as
-    ``sourcing.births`` makes them): the writes alone by the kernel and by its
-    plain version, the whole insert and the boolean-mask insert the port ran
-    before, all bitwise equal, each timed (CUDA events after a device sleep,
-    median of CENSUS_REPEATS); the kernel beside its bound (each candidate's destination
-    and values read once, each written slot's 17 columns written once). Returns
-    its ``kernels`` entry, the launches left to the caller."""
-    from jaybenne_tpu_torch.particles import (insert_destinations, insert_particles,
-                                              write_columns)
+    ``sourcing.births`` makes them): the whole insert (one pass: the scans and
+    the writes) and its plain version bitwise equal, their destinations those
+    of the parent's stable free-first sort; each timed (CUDA events after a device
+    sleep, median of CENSUS_REPEATS) beside its bound (``insert_bound``) and
+    beside the parts of the parent's destinations, each a call of its own.
+    Returns its ``kernels`` entry, the launches left to the caller."""
+    from jaybenne_tpu_torch.particles import insert_destinations, insert_particles
 
     p0 = sim.state.particles.clone()
     gen = torch.Generator(device=dev).manual_seed(45)
@@ -3568,51 +3667,35 @@ def insert_check(dev, sim, smi) -> dict:
     cand.update({k: torch.randint(0, 8, (n, 1), generator=gen, device=dev,
                                   dtype=torch.int32).expand(shape)
                  for k in ("block", "i", "j", "k")})
-    dest, n_drop = insert_destinations(p0, valid)
-    runs = {  # (what a run returns as its drops, the call)
-        "kernel": lambda q: (n_drop, write_columns(q, cand, dest, shape)),
-        "plain": lambda q: (n_drop, write_columns(q, cand, dest, shape, plain=True)),
-        "insert": lambda q: insert_particles(q, cand, valid)[::-1],
-        "mask": lambda q: mask_insert(q, cand, valid)[::-1]}
-    out = {}
-    for name, fn in runs.items():
-        fn(p0.clone())
-        times = []
-        for _ in range(CENSUS_REPEATS):
-            q = p0.clone()
-            torch.cuda.synchronize(dev)
-            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda._sleep(50_000_000)  # the host queues the call meanwhile
-            start.record()
-            dropped, _ = fn(q)
-            stop.record()
-            torch.cuda.synchronize(dev)
-            times.append(start.elapsed_time(stop))
-        out[name] = (q, int(dropped), statistics.median(times))
-    for name in ("plain", "insert", "mask"):
-        for f in dataclasses.fields(p0):
-            if not bitwise_equal(getattr(out["kernel"][0], f.name), getattr(out[name][0], f.name)):
-                raise AssertionError(f"insert kernel: column {f.name} differs from the {name} "
-                                     "run's")
-        if out[name][1] != out["kernel"][1]:
-            raise AssertionError(f"insert kernel: dropped {out['kernel'][1]} vs {out[name][1]}")
-    n_ok = int(valid.sum()) - out["kernel"][1]
-    col_bytes = sum(getattr(p0, f.name).element_size() for f in dataclasses.fields(p0))
-    read = n * 8 + sum(v.numel() * v.element_size() for v in cand.values())
-    bound = (read + n_ok * col_bytes) / PEAK_BYTES * 1e3
-    ms, plain_ms, insert_ms, mask_ms = (out[k][2] for k in ("kernel", "plain", "insert", "mask"))
+    q, r = p0.clone(), p0.clone()
+    drop = int(insert_particles(q, cand, valid)[1])
+    plain_drop = int(insert_particles(r, cand, valid, plain=True)[1])
+    equal_ledgers(q, r, "insert kernel against its plain version")
+    dest, parent_drop, parts = parent_insert_parts(p0, valid)
+    if (drop != plain_drop or drop != int(parent_drop)
+            or not torch.equal(insert_destinations(p0, valid)[0], dest)):
+        raise AssertionError(f"insert kernel: drops {drop}, {plain_drop}, {int(parent_drop)} "
+                             "or the destinations differ from the stable sort's")
+    ms = timed_ms(lambda x: insert_particles(x, cand, valid), dev, p0.clone)
+    plain_ms = timed_ms(lambda x: insert_particles(x, cand, valid, plain=True), dev, p0.clone)
+    part_ms = {name: timed_ms(lambda _, f=f: f(), dev) for name, f in parts.items()}
+    split = launch_split(lambda x: insert_particles(x, cand, valid), p0.clone, INSERT_LAUNCHES)
+    bound = insert_bound(p0, cand, valid, int(valid.sum()) - drop, False)
     print(f"insert at the 64^3 feedback row ({p0.capacity} slots, {n} candidates, "
           f"{int(valid.sum())} valid, {len(cand)} candidate columns and 4 fills; {smi}): "
-          f"the writes: kernel {ms!r} ms, plain version {plain_ms!r} ms, bound {bound!r} ms "
-          f"(bytes), kernel at {bound / ms:.3f} of it; the whole insert (ranks, the stable "
-          f"free-first order, the writes) {insert_ms!r} ms, the boolean-mask insert "
-          f"{mask_ms!r} ms (it waits for the device at each column); every column bitwise "
-          "equal", flush=True)
+          f"the whole insert, one pass of the kernel (3 launches: counts, lists, writes) "
+          f"{ms!r} ms, its plain version {plain_ms!r} ms, bound {bound!r} ms (bytes), the "
+          f"kernel at {bound / ms:.3f} of it; device ms by launch (torch.profiler) {split}; "
+          f"the parent's destinations by part "
+          f"{part_ms} ms, summed {sum(part_ms.values())!r} ms "
+          "(its write kernel after them); every column bitwise equal, the destinations "
+          "the stable sort's", flush=True)
     return {
-        "name": "ledger_insert (the ledger insert's writes, every column in one pass)",
+        "name": "ledger_insert (the ledger insert: its destinations by scans and its writes, "
+                "three launches a pass, every local shard in one pass)",
         "route": "cuda", "source": "jaybenne_tpu_torch/csrc/insert_kernel.cu",
-        "replaces": "jaybenne_tpu/particles.py:110-125 (insert_particles: XLA scatters with "
-                    "mode='drop', no Pallas kernel)",
+        "replaces": "jaybenne_tpu/particles.py:103-125 (insert_particles: XLA's cumsum, "
+                    "stable argsort and scatters with mode='drop', no Pallas kernel)",
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes", "library_ms": None,
     }
@@ -3629,65 +3712,132 @@ def kept(v):
     return out.expand(v.shape)
 
 
+class RecordedInsert(typing.NamedTuple):
+    """One pass of the insert kernel as a run made it: a clone of the ledger
+    before it, the candidates and valid flags with their strides, whether the
+    ledger's absorbed rows were reserved, and the shards it took at once."""
+
+    ledger: object
+    cand: dict
+    valid: torch.Tensor
+    reserved: bool
+    m: int
+
+
 def recorded_inserts(run, want, keep):
-    """The first ``keep`` calls of ``particles.write_columns`` that ``run()`` makes
-    whose candidates ``want(cand)`` takes: each (a clone of the ledger before the
-    call, the candidates with their strides, the destinations, the shape)."""
+    """The first ``keep`` passes of the insert kernel (``particles._insert_cuda``)
+    that ``run()`` makes whose candidates ``want(cand)`` takes, as
+    ``RecordedInsert``s."""
     from jaybenne_tpu_torch import particles
 
-    calls, real = [], particles.write_columns
+    calls, real = [], particles._insert_cuda
 
-    def recording(ledger, cand, dest, shape, plain=False):
+    def recording(ledger, cand, valid, reserved, m):
         if len(calls) < keep and want(cand):
-            calls.append((ledger.clone(), {k: kept(v) for k, v in cand.items()},
-                          dest.clone(), tuple(shape)))
-        return real(ledger, cand, dest, shape, plain)
+            if reserved is not None and reserved.data_ptr() != ledger.absorbed.data_ptr():
+                raise AssertionError("insert: reserved rows other than the absorbed ones")
+            calls.append(RecordedInsert(ledger.clone(), {k: kept(v) for k, v in cand.items()},
+                                        kept(valid), reserved is not None, m))
+        return real(ledger, cand, valid, reserved, m)
 
-    particles.write_columns = recording
+    particles._insert_cuda = recording
     try:
         run()
     finally:
-        particles.write_columns = real
+        particles._insert_cuda = real
     return calls
+
+
+def replay_insert(c: RecordedInsert, ledger, plain=False):
+    """A recorded insert on ``ledger`` (a clone of its own) by the kernel, or by
+    its plain version: returns the dropped counts, one a shard."""
+    from jaybenne_tpu_torch import particles
+    from jaybenne_tpu_torch.parallel import sharding
+
+    if c.m > 1:
+        if not c.reserved:
+            raise AssertionError("insert: an insert over several shards reserves")
+        return particles.insert_arrivals(sharding.split_ledger(ledger, c.m), c.cand, c.valid,
+                                         plain=plain)
+    reserved = ledger.absorbed if c.reserved else None
+    return particles.insert_particles(ledger, c.cand, c.valid, reserved, plain=plain)[1][None]
 
 
 def inserts_bitwise(calls, what) -> str:
     """Each recorded insert (``recorded_inserts``) by the kernel and by its plain
-    version on clones of its ledger: raises unless every column is bitwise equal
-    and the kernel launched once a call. Returns what was held, as text."""
+    version on clones of its ledger: raises unless every column and every drop
+    count is bitwise equal and the kernel launched its three launches once.
+    Returns what was held, as text."""
     from jaybenne_tpu_torch.ops import cuda_lib
-    from jaybenne_tpu_torch.particles import write_columns
 
     if not calls:
         raise AssertionError(f"insert on {what}: no call recorded")
     seen = []
-    for ledger, cand, dest, shape in calls:
-        q, r = ledger.clone(), ledger.clone()
+    for c in calls:
+        q, r = c.ledger.clone(), c.ledger.clone()
         before = cuda_lib.LAUNCHES["ledger_insert"]
-        write_columns(q, cand, dest, shape)
-        if cuda_lib.LAUNCHES["ledger_insert"] != before + 1:
-            raise AssertionError(f"insert on {what}: the kernel did not launch")
-        write_columns(r, cand, dest, shape, plain=True)
-        for f in dataclasses.fields(q):
-            if not bitwise_equal(getattr(q, f.name), getattr(r, f.name)):
-                raise AssertionError(f"insert on {what}: column {f.name} differs from the "
-                                     "plain version's")
-        written = int((dest < ledger.capacity).sum())
+        drops = replay_insert(c, q)
+        if cuda_lib.LAUNCHES["ledger_insert"] != before + 3:
+            raise AssertionError(f"insert on {what}: the kernel did not launch once")
+        plain_drops = replay_insert(c, r, plain=True)
+        equal_ledgers(q, r, f"insert on {what} against the plain version")
+        if not torch.equal(drops, plain_drops):
+            raise AssertionError(f"insert on {what}: dropped {drops} vs {plain_drops}")
+        written = int((q.alive & ~c.ledger.alive).sum())
         if written == 0:
             raise AssertionError(f"insert on {what}: no candidate written")
-        strides = sorted({tuple(v.stride()) for v in cand.values()})
-        seen.append(f"shape {shape}, {written} written of {dest.numel()}, "
-                    f"{q.x.dtype}, candidate strides {strides}")
+        strides = sorted({tuple(v.stride()) for v in c.cand.values()})
+        seen.append(f"{c.m} shard(s) in one pass, {tuple(c.valid.shape)} candidates, "
+                    f"{written} written, {drops.tolist()} dropped, {q.x.dtype}, candidate "
+                    f"strides {strides}")
     return f"{what}: " + "; ".join(seen)
 
 
-def insert_paths_check(dev, outdir) -> None:
+def migration_insert_check(dev, c: RecordedInsert, smi) -> None:
+    """A recorded migration round's insert over every local shard (one pass of the
+    kernel) timed against its plain version (a shard at a time) and against the
+    parent's destinations, a shard at a time (``parent_insert_parts``, every part
+    in one call; its writes not counted), beside its bound; the destinations of
+    every shard the stable sort's."""
+    from jaybenne_tpu_torch import particles
+    from jaybenne_tpu_torch.parallel import sharding
+
+    nc = c.valid.shape[0] // c.m
+    shards = sharding.split_ledger(c.ledger, c.m)
+    valid = [c.valid[s * nc:(s + 1) * nc] != 0 for s in range(c.m)]
+    parent = [parent_insert_parts(p, v, p.absorbed) for p, v in zip(shards, valid)]
+    for p, v, (dest, _, _) in zip(shards, valid, parent):
+        if not torch.equal(particles.insert_destinations(p, v, p.absorbed)[0], dest):
+            raise AssertionError("migration insert: destinations differ from the stable sort's")
+    ms = timed_ms(lambda x: replay_insert(c, x), dev, c.ledger.clone)
+    plain_ms = timed_ms(lambda x: replay_insert(c, x, plain=True), dev, c.ledger.clone)
+
+    def parent_dests(_):
+        for p, v in zip(shards, valid):
+            parent_insert_parts(p, v, p.absorbed)
+
+    parent_ms = timed_ms(parent_dests, dev)
+    split = launch_split(lambda x: replay_insert(c, x), c.ledger.clone, INSERT_LAUNCHES)
+    q = c.ledger.clone()
+    drops = replay_insert(c, q)
+    written = int((q.alive & ~c.ledger.alive).sum())
+    bound = insert_bound(c.ledger, c.cand, c.valid, written, True)
+    print(f"insert of a migration round's arrivals at 8 shards ({c.ledger.capacity} slots, "
+          f"{c.valid.shape[0]} candidates, {int((c.valid != 0).sum())} valid, {written} "
+          f"written, {drops.tolist()} dropped; {smi}): one pass over every shard {ms!r} ms, "
+          f"its plain version {plain_ms!r} ms, bound {bound!r} ms (bytes), the kernel at "
+          f"{bound / ms:.3f} of it; device ms by launch (torch.profiler) {split}; the "
+          f"parent's destinations, a shard at a time "
+          f"{parent_ms!r} ms (its eight write launches after them)", flush=True)
+
+
+def insert_paths_check(dev, outdir, smi) -> None:
     """The insert kernel bitwise its plain version at the shapes the main paths
     give it: stepdiff's initial thermal source (a [blocks x cells, candidates a
     cell] grid whose per-cell columns are broadcast with stride 0), the first
-    migration arrivals of the 8-shard spatial step (inserted with ``reserved``,
-    carrying face and leak), and stepdiff's initial source at precision = f64
-    (8-byte columns)."""
+    migration arrivals of the 8-shard spatial step (every shard in one pass, with
+    ``reserved``, carrying face and leak; then timed, ``migration_insert_check``),
+    and stepdiff's initial source at precision = f64 (8-byte columns)."""
     from jaybenne_tpu_torch import driver
 
     def run(mods, nlim):
@@ -3697,13 +3847,16 @@ def insert_paths_check(dev, outdir) -> None:
     checks = (
         ("stepdiff's initial source", run(GATE, 0), lambda c: True, 1),
         ("the 8-shard spatial step's migration arrivals",
-         run({**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}, 1), lambda c: "face" in c, 8),
+         run({**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}, 1), lambda c: "face" in c, 2),
         ("stepdiff's initial source at precision = f64", run({**GATE, **PREC64}, 0),
          lambda c: True, 1),
     )
     for what, fn, want, keep in checks:
-        print("insert kernel bitwise its plain version, " + inserts_bitwise(
-            recorded_inserts(fn, want, keep), what), flush=True)
+        calls = recorded_inserts(fn, want, keep)
+        print("insert kernel bitwise its plain version, " + inserts_bitwise(calls, what),
+              flush=True)
+        if calls[0].m > 1:
+            migration_insert_check(dev, calls[0], smi)
         torch.cuda.empty_cache()
 
 
@@ -3819,7 +3972,7 @@ def graph_phase(dev, smi) -> dict:
                             if graph.shards is not None else ""), flush=True)
             if what == "the 64^3 feedback row":
                 insert = insert_check(dev, graph, smi)
-                insert_paths_check(dev, outdir)
+                insert_paths_check(dev, outdir, smi)
             del sims, eager, graph
             torch.cuda.empty_cache()
 
@@ -4223,8 +4376,9 @@ def main() -> int:
     fb_events = fb.total_events
     if fb_launches.get(name3, 0) != FEEDBACK_STEPS or fb.cycle != FEEDBACK_STEPS:
         raise AssertionError(f"feedback: launches {fb_launches}, cycles {fb.cycle}")
-    # the insert kernel: the initial radiation's births and each step's emission
-    if fb_launches.get("ledger_insert", 0) != FEEDBACK_STEPS + 1:
+    # the insert kernel, three launches a pass: the initial radiation's births and
+    # each step's emission
+    if fb_launches.get("ledger_insert", 0) != 3 * (FEEDBACK_STEPS + 1):
         raise AssertionError(f"feedback: ledger_insert launches {fb_launches}")
     if any(h["dropped"] or h["unfinished"] for h in fb.history) or fb.state.overflow:
         raise AssertionError(f"feedback: dropped or unfinished {fb.history}")
@@ -4363,7 +4517,7 @@ def main() -> int:
 
     smr_kernels, s2_in = smr_phases(transport_kernel, dev, cost, src, resources, common)
     nongray_kernels = nongray_phases(transport_kernel, dev, cost, src)
-    spatial_kernels = spatial_phases(transport_kernel, dev, cost, src)
+    spatial_kernels = spatial_phases(transport_kernel, dev, cost, src, mix_lib)
 
     phase("36 the regrouping schedule at scale: the twelve DDMC instantiations, a full "
           "census on ledgers of 4 times the resident threads")

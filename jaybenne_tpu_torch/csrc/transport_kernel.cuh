@@ -372,6 +372,27 @@
 // and on the DDMC lane its record kept in registers or its exp23 one event ahead
 // (1.8 % and 1.3 % slower: a DDMC lane leaks out of its cell in most events).
 //
+// The spatial round of the 2D SMR+DDMC block route (K4s, transport_2d_ddmc_smr@
+// blocks, 8 shards of 24288 slots). Read first (NVIDIA H100 80GB HBM3, 700.00 W;
+// census_bench.py on the path's first and second rounds): 759 blocks for 528
+// resident, 1.44 waves, each shard's live lanes at the start of its slice, so 381
+// blocks held the first round's 96000 lanes (2.2 events a lane, the longest 10,
+// issue share 0.31) and the second round's 9666 (1.5 events, the longest 8,
+// issue share 0.05) sat in 319 blocks, the busiest SM running 4.1 times the mean
+// SM's lane-events: latency, a few events a lane on a few SMs. So the host asks
+// this instantiation to interleave its shards (``kSpreadShards``): group G of 32
+// slots is shard G % count's (G / count)-th, and the first W blocks take group w
+// x W + b spread over them, W the resident blocks (or the launch's, if fewer)
+// made prime to the shard count, so that the first wave holds every shard's
+// first groups and a block's warps come from several shards (with W = 528, a
+// multiple of 8, block b held only shard b mod 8's lanes, and the refined shards'
+// longer histories sat on some SMs). Measured in turns against the kernel before
+// it (census_bench.py, the same inputs, outputs bitwise): first round 0.0251 ->
+// 0.0229 ms, second 0.0179 -> 0.0179. Built, measured and dropped: a launch over
+// a list of the pending slots built by the insert kernel's scans, on the
+// resident grid (1.28 and 1.40 times the kernel before it, its two list launches
+// aside; in a loop of rounds it spilled 24 bytes).
+//
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
@@ -527,6 +548,11 @@ struct Shards {
   int own_lo[kMaxShards], own_hi[kMaxShards];
   int row[kMaxShards];
   const uint32_t* seed;  // device memory, one a shard
+  // where the instantiation spreads its shards (``kSpreadShards``) and width > 0:
+  // the first width blocks take 32-slot groups spread over them, later blocks 256
+  // consecutive; group G of the launch is shard G % count's (G / count)-th group
+  // of its slice of ``slice`` slots (the shards' slices equal and adjacent)
+  int width, slice;
 };
 
 // One lane's shard: its owned range, the cell table row of the range's first
@@ -1059,6 +1085,16 @@ constexpr bool kLean = sizeof(Real) == 8 && NDIM < 3 && !ABSORB && SMR && !DDMC 
 // of it run on every SM; otherwise one thread takes one slot, as elsewhere.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 constexpr bool kRounds = sizeof(Real) == 8 && NDIM == 1 && !ABSORB && !SMR && !NONGRAY;
+
+// Whether an instantiation spreads a spatial round's shard slices over the card
+// where the host asks for it (``Shards::width``; the 2D SMR+DDMC block route,
+// K4s; measured, see the note at the head of this file): a launch of several
+// waves whose live lanes sit at the start of each shard's slice ran them on the
+// SMs that took those blocks; here the first wave's blocks take every shard's
+// first groups, spread over them (``slot_of``), one thread a slot kept.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+constexpr bool kSpreadShards =
+    sizeof(Real) == 4 && NDIM == 2 && !ABSORB && DDMC && SMR && !NONGRAY;
 
 // A block's cell size per axis (the block table's first row) and dmin, the
 // smallest over the active axes.
@@ -1763,11 +1799,34 @@ __device__ __forceinline__ void regroup(const Geom<Real>& g, const Forest<Real>&
   }
 }
 
-// One thread's part of the census of the slots [base, base + kThreads x blocks):
-// it takes its slot if the particle runs (``take``: block b's thread t the slot
-// base + kThreads b + t, or where the launch spreads, warp w of block b the 32
-// slots of group w x blocks + b), the block regroups, the lane runs its history
-// and writes it back, and its events are counted.
+// The slot that a thread takes in the round of the launch at ``base``, or -1:
+// block b's thread t the slot base + kThreads b + t, or where the launch spreads,
+// warp w of block b the 32 slots of group w x blocks + b; where the instantiation
+// spreads its shards and the host asks for it (``Shards::width``), the shards'
+// groups interleaved, the first W blocks (W = width, at most the launch's
+// blocks) taking group w x W + b spread and later blocks 256 consecutive; the
+// host makes W prime to the shard count, so that a block's warps come from
+// several shards.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+__device__ __forceinline__ int slot_of(const Shards& S, int n, int base) {
+  if constexpr (kSpreadShards<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) {
+    if (S.width > 0) {
+      const int b = blockIdx.x, lane = threadIdx.x & 31, w = min(S.width, (int)gridDim.x);
+      const int q = b < w ? 32 * ((threadIdx.x >> 5) * w + b) + lane : kThreads * b + threadIdx.x;
+      const int grp = q >> 5, off = 32 * (grp / S.count) + lane;
+      return off < S.slice ? S.first + (grp % S.count) * S.slice + off : -1;
+    }
+  }
+  // spread: warp w of block b takes the 32 slots of group w x blocks + b
+  const int warp_slots = base + 32 * ((threadIdx.x >> 5) * gridDim.x + blockIdx.x);
+  const int q =
+      S.spread ? warp_slots + (threadIdx.x & 31) : base + blockIdx.x * kThreads + threadIdx.x;
+  return q < n ? S.first + q : -1;
+}
+
+// One thread's part of the census of the round at ``base``: it takes its slot
+// (``slot_of``) if the particle runs (``take``), the block regroups, the lane
+// runs its history and writes it back, and its events are counted.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 __device__ __forceinline__ void census_slots(const Ledger<Real>& L, const Real* table,
                                              const Forest<Real>& F, int n, const Geom<Real>& g,
@@ -1776,11 +1835,8 @@ __device__ __forceinline__ void census_slots(const Ledger<Real>& L, const Real* 
   Lane<Real> st;
   st.slot = -1;
   st.it = 0;
-  // spread: warp w of block b takes the 32 slots of group w x blocks + b
-  const int warp_slots = base + 32 * ((threadIdx.x >> 5) * gridDim.x + blockIdx.x);
-  const int q =
-      S.spread ? warp_slots + (threadIdx.x & 31) : base + blockIdx.x * kThreads + threadIdx.x;
-  if (q < n) take<NDIM, DDMC, SMR, NONGRAY>(L, g, S, S.first + q, st);
+  const int slot = slot_of<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>(S, n, base);
+  if (slot >= 0) take<NDIM, DDMC, SMR, NONGRAY>(L, g, S, slot, st);
   regroup<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, sm, st);
   if (st.slot >= 0) {
     run_lane<NDIM, ABSORB, DDMC, SMR, NONGRAY>(g, F, table, S, st);
@@ -1868,6 +1924,9 @@ struct Launch {
     int blocks = (n + kThreads - 1) / kThreads;
     if (kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> && grid > 0 && grid < blocks)
       blocks = grid;
+    // the shards' groups interleaved: every group of every slice, padded to 32
+    if (kSpreadShards<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> && S.width > 0)
+      blocks = (S.count * ((S.slice + 31) / 32) * 32 + kThreads - 1) / kThreads;
     transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>
         <<<blocks, kThreads, 0, stream>>>(L, table, F, n, g, S, events, iters);
   }
@@ -1913,9 +1972,12 @@ struct Occupancy {
 // block holds slots from across the launch (of each round, where the instantiation
 // runs in rounds). grid: where the instantiation runs in rounds (kRounds), at most
 // this many blocks when it is positive, each round the next 256 x blocks slots
-// (the card's resident blocks: one wave); ignored elsewhere. events: n_shards uint64 and iters:
-// n_shards int32 (device), zeroed here on the stream before the launch (one
-// memset where iters follows events), so the caller need not fill them.
+// (the card's resident blocks: one wave); ignored elsewhere. width: where the
+// instantiation spreads its shards (kSpreadShards), 0 or the blocks of the first
+// wave that take the shards' slot groups interleaved, spread over them (the
+// slices equal and adjacent, else -4); ignored elsewhere. events: n_shards uint64
+// and iters: n_shards int32 (device), zeroed here on the stream before the launch
+// (one memset where iters follows events), so the caller need not fill them.
 // Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
 // SMR launch without its tables, -3 for nongray without absorb, -4 for a shard
 // table the kernel does not take, -6 for a record neither in the table nor in
@@ -1925,7 +1987,7 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
                  const void* table, const void* const* cols, const void* block_table,
                  const void* levels, const void* lookup, int capacity, const int* igeom,
                  const Real* fgeom, int n_shards, const int* shards, const void* seeds,
-                 int spread, int grid, void* events, void* iters, void* stream) {
+                 int spread, int grid, int width, void* events, void* iters, void* stream) {
   Ledger<Real> L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (Real*)ptrs[a];
@@ -2010,6 +2072,13 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
   S.first = first;
   S.spread = spread;
   S.seed = (const uint32_t*)seeds;
+  S.width = width;
+  S.slice = S.slot_hi[0] - S.slot_lo[0];
+  if (width < 0) return -4;
+  if (width > 0)  // interleaved: equal, adjacent slices
+    for (int k = 0; k < n_shards; ++k)
+      if (S.slot_lo[k] != first + k * S.slice || S.slot_hi[k] != S.slot_lo[k] + S.slice)
+        return -4;
   const int n = last - first;
   auto st = (cudaStream_t)stream;
   constexpr size_t kEv = sizeof(unsigned long long), kIt = sizeof(int32_t);

@@ -45,7 +45,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 
-_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _D = ctypes.c_float, ctypes.c_double
 
 
 def _table(real):
@@ -65,6 +66,7 @@ _TRANSPORT = (
     _P,              # the shards' int32 seeds (device)
     _I,              # spread: a block's warps take slot groups spread over the launch
     _I,              # grid: at most this many blocks where the instantiation runs in rounds
+    _I,              # width: the first wave's blocks that take the shards spread, or 0
     _P, _P, _P,      # events iters stream
 )
 # every C entry; a float64 entry (precision = f64) ends in _f64
@@ -79,9 +81,10 @@ _SIGNATURES = {
     "jb_transport_occupancy_f64": (_I, _I, _I, _I, _I, _P, _P),
     "jb_transport_launch": _TRANSPORT,
     "jb_transport_launch_f64": _TRANSPORT,
-    # columns dst src strides bytes fills k dest n capacity stream
-    "jb_insert_launch": (_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong,
-                         ctypes.c_longlong, _P),
+    # columns dst src strides bytes fills k, alive reserved, valid vstride vbytes,
+    # segments, slots and candidates a segment, scratch dropped stream
+    "jb_insert_launch": (_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _L, _L, _P,
+                         _P, _P),
 }
 
 

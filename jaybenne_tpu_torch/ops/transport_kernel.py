@@ -86,6 +86,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -1118,6 +1119,25 @@ def _check_cuda_ledger(p, tabs: _Tables, real=torch.float32):
 MAX_SHARDS_PER_LAUNCH = 64
 # threads a block of the census kernel (csrc/transport_kernel.cuh, kThreads)
 THREADS = 256
+# the routes whose launch spreads its shards' slices over the card's first wave
+# of blocks (csrc/transport_kernel.cuh, kSpreadShards, which the launch of no
+# other instantiation reads): the spatial round of the 2D SMR+DDMC block route
+# (K4s), its shards' slot groups interleaved
+SPREAD_ROUTES = ("transport_2d_ddmc_smr@blocks",)
+
+
+def spread_width(sms: int, resident: int, shards: int, slice_: int) -> int:
+    """The blocks of a launch's first wave that take its shards' interleaved slot
+    groups (``Shards::width``), for ``shards`` slices of ``slice_`` slots: the
+    card's resident blocks or the launch's blocks if fewer, less as few as make
+    it prime to the shard count, so that a block's warps come from several
+    shards (with a multiple of the count, block b's groups would all be shard b
+    modulo the count's)."""
+    blocks = -(-shards * -(-slice_ // 32) * 32 // THREADS)
+    width = min(sms * resident, blocks)
+    while math.gcd(width, shards) > 1:
+        width -= 1
+    return width
 
 
 def launch_shape(slots: int, sms: int, resident: int, rounds: bool) -> tuple:
@@ -1203,10 +1223,15 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
     c_real = ctypes.c_double if g.real == torch.float64 else ctypes.c_float
     for k, group in enumerate(groups):
         k0 = k * MAX_SHARDS_PER_LAUNCH
-        slots = max(sh.slot_hi for sh in group) - min(sh.slot_lo for sh in group)
-        spread, grid = launch_shape(
-            slots, torch.cuda.get_device_properties(dev).multi_processor_count,
-            *_occupancy(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.real))
+        first = min(sh.slot_lo for sh in group)
+        slots = max(sh.slot_hi for sh in group) - first
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        resident, rounds = _occupancy(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray, g.real)
+        spread, grid = launch_shape(slots, sms, resident, rounds)
+        width = 0
+        if (name in SPREAD_ROUTES and slots > 0
+                and len({sh.slot_hi - sh.slot_lo for sh in group}) == 1):
+            width = spread_width(sms, resident, len(group), slots // len(group))
         rows = [v for sh in group for v in dataclasses.astuple(sh)[:5]]
         cuda_lib.library().call(
             "jb_transport_launch" + _f64(g.real), g.ndim, int(g.absorb), int(g.ddmc),
@@ -1215,7 +1240,7 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
             p.capacity, (ctypes.c_int * len(ints))(*ints),
             (c_real * len(floats))(*map(float, floats)),
             len(group), (ctypes.c_int * len(rows))(*rows), seeds[k0:].data_ptr(), spread, grid,
-            events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
+            width, events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
         )
         if slots > 0:  # a group without slots launches nothing, its counters zeroed
             cuda_lib.LAUNCHES[name] += 1

@@ -10,7 +10,8 @@ collectives take one tensor per local shard and return one per local shard:
     order (``lax.all_gather(..., tiled=True)``);
   * ``all_to_all(xs)``: each ``xs[i]`` is ``[n, ...]``, row j addressed to shard j;
     shard s receives ``out[j]`` = what shard j addressed to s, in j order
-    (``lax.all_to_all(..., split_axis=0, concat_axis=0)``);
+    (``lax.all_to_all(..., split_axis=0, concat_axis=0)``), returned as one
+    tensor whose row i is local shard i's (so one pass can take every shard's);
   * ``sum(xs)`` and ``max(xs)``: the elementwise integer sum and maximum over every
     shard (``lax.psum``, ``lax.pmax``). Only integers are reduced: an integer sum
     does not depend on the order of its terms, so a reduction over shards repeats
@@ -79,7 +80,7 @@ class InProcess(Exchange):
 
     def all_to_all(self, xs):
         self._check(xs)
-        return [torch.stack([x[s] for x in xs]) for s in range(self.n)]
+        return torch.stack(list(xs), dim=1)
 
     def sum(self, xs):
         self._check(xs)
@@ -122,7 +123,7 @@ class Distributed(Exchange):
         x = x.contiguous()
         out = torch.empty_like(x)
         self._dist.all_to_all_single(out, x)
-        return [out]
+        return out[None]
 
     def _reduce(self, xs, op):
         (x,) = xs

@@ -57,7 +57,7 @@ from ..ops import fleck as fleck_ops
 from ..ops import rng, sourcing, tally
 from ..ops import transport as transport_ops
 from ..ops import transport_kernel
-from ..particles import insert_particles, join_slices
+from ..particles import insert_arrivals, join_slices
 from ..step import (StepStats, census_fn, make_transport_params, total_sigma, with_faces,
                     with_fleck)
 from .exchange import InProcess
@@ -186,12 +186,14 @@ def migrate(ledgers, offsets, bl, K, exchange, go=None):
     sort, the first K for each destination packed into an [n, K] buffer and sent;
     the rest stay in transit for the next round. Shard s receives, from each shard
     j in j order, what j addressed to s, and inserts it into its free slots
-    without recycling this step's absorbed rows. With ``go`` (a 0-dim bool
-    tensor) false nothing is sent and nothing changes. Returns (received
-    particles dropped for want of a free slot, particles sent), one int64 tensor
-    each per local shard."""
+    without recycling this step's absorbed rows: on a GPU one pass of the insert
+    kernel over every local shard (``particles.insert_arrivals``). With ``go`` (a
+    0-dim bool tensor) false nothing is sent and nothing changes. Returns
+    (received particles dropped for want of a free slot, particles sent), one
+    int64 tensor each of one a local shard."""
     n = exchange.n
     bufs, sent_counts = [], []
+    wide = ledgers[0].x.element_size() == 8
     for p, offset in zip(ledgers, offsets):
         cap, dev = p.capacity, p.x.device
         in_transit = p.alive & ((p.block < offset) | (p.block >= offset + bl))
@@ -208,6 +210,10 @@ def migrate(ledgers, offsets, bl, K, exchange, go=None):
         src[slot] = order  # every ok slot distinct; the rest land on the dump slot
         src = src[: n * K]
         cols = [_words(getattr(p, name)) for name in MIGRATE_FIELDS]
+        # a row of an even count of words holds its float64 values on 8-byte
+        # boundaries, so the receiver reads them in place
+        if wide and (sum(c.shape[1] for c in cols) + 1) % 2:
+            cols.append(torch.zeros_like(cols[-1][:, :1]))
         rows = torch.cat(cols + [torch.ones_like(cols[-1][:, :1])], dim=1)
         rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])  # the empty row
         bufs.append(rows[src].reshape(n, K, rows.shape[1]))
@@ -215,19 +221,15 @@ def migrate(ledgers, offsets, bl, K, exchange, go=None):
         sent = torch.zeros(cap, dtype=torch.bool, device=dev).scatter_(0, order, ok)
         p.alive.copy_(p.alive & ~sent)
         sent_counts.append(sent.sum(dtype=torch.int64))
-    recv = exchange.all_to_all(bufs)
-    dropped = []
-    for p, r in zip(ledgers, recv):
-        r = r.reshape(-1, r.shape[-1])
-        cand, c = {}, 0
-        for name in MIGRATE_FIELDS:
-            dt = getattr(p, name).dtype
-            w = dt.itemsize // 4
-            cand[name] = r[:, c:c + w].contiguous().view(dt).reshape(-1)
-            c += w
-        _, n_drop = insert_particles(p, cand, r[:, -1] != 0, reserved=p.absorbed)
-        dropped.append(n_drop.to(torch.int64))
-    return dropped, sent_counts
+    recv = exchange.all_to_all(bufs)  # [local shards, n, K, words]
+    recv = recv.reshape(-1, recv.shape[-1])
+    cand, c = {}, 0
+    for name in MIGRATE_FIELDS:
+        dt = getattr(ledgers[0], name).dtype
+        w = dt.itemsize // 4
+        cand[name] = recv[:, c:c + w].view(dt)[:, 0]
+        c += w
+    return insert_arrivals(ledgers, cand, recv[:, -1]), torch.stack(sent_counts)
 
 
 def _exit_read(unfinished: torch.Tensor) -> int:
@@ -426,8 +428,8 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
             if can_migrate:
                 K = jb.migration_buffer_k or max(64, ps[0].capacity // (2 * n))
                 drop, n_sent = migrate(ps, offsets, bl, K, exchange, go=go)
-                t.dropped.add_(torch.stack(drop))
-                t.sent.add_(torch.stack(n_sent))
+                t.dropped.add_(drop)
+                t.sent.add_(n_sent)
             t.unfinished.copy_(exchange.sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
                                              for p in ps])[0])
             t.rounds.add_(1 if go is None else go.to(torch.int64))

@@ -96,72 +96,104 @@ def join_slices(ledgers) -> tuple:
 
 
 def insert_particles(ledger: ParticleLedger, cand: dict, valid: torch.Tensor,
-                     reserved: torch.Tensor | None = None):
+                     reserved: torch.Tensor | None = None, plain: bool = False):
     """Write candidate particles into the ledger's dead slots, IN PLACE (port of
     ``jaybenne_tpu/particles.py::insert_particles``, shape for shape).
 
-    ``cand`` maps field name -> candidate tensor (any shape, flattened); ``valid``
-    masks real candidates. Valid candidates are ranked by prefix sum and written to
-    dead slots in stable index order. Returns ``(ledger, n_dropped)``, where dropped
-    candidates exceeded the free-slot count; ``n_dropped`` is a device tensor.
-    Every destination slot is distinct, so the writes are deterministic on any
-    device.
+    ``cand`` maps field name -> candidate tensor (of ``valid``'s shape, any
+    strides); ``valid`` masks real candidates (bool, or integers: nonzero). The
+    r-th valid candidate in flat index order goes to the r-th dead slot in slot
+    order. Returns ``(ledger, n_dropped)``, where dropped candidates exceeded the
+    free-slot count; ``n_dropped`` is a 0-dim int64 device tensor. Every
+    destination slot is distinct, so the writes are deterministic on any device.
 
-    No shape depends on the data, so nothing waits for the device: a candidate
-    that is not written gets the destination ``cap``, and the writes drop that
-    index (JAX ``mode="drop"``): on a GPU every column in one launch of the
-    insert kernel (``csrc/insert_kernel.cu``), on the CPU its plain version,
-    ``_put`` a column.
+    No shape depends on the data, so nothing waits for the device: on a GPU one
+    pass of the insert kernel (``csrc/insert_kernel.cu``: the destinations from
+    its scans of the free slots and the valid candidates, then every column), on
+    the CPU (or with ``plain``) its plain version, ``insert_destinations`` and
+    ``write_columns``.
 
     ``reserved`` marks dead rows that must not be recycled yet: the spatial census
     inserts migration arrivals mid-step, while this step's absorbed rows still carry
     the weight that the absorption tally deposits after the census.
     """
+    if ledger.alive.is_cuda and not plain:
+        return ledger, _insert_cuda(ledger, cand, valid, reserved, 1)[0]
+    if ledger.alive.device.type != "cpu" and not plain:
+        raise ValueError(f"insert_particles: unsupported device {ledger.alive.device}")
+    if valid.dtype != torch.bool:
+        valid = valid != 0
     dest, n_dropped = insert_destinations(ledger, valid, reserved)
-    write_columns(ledger, cand, dest, valid.shape)
+    write_columns(ledger, cand, dest)
     return ledger, n_dropped
+
+
+def insert_arrivals(ledgers, cand: dict, valid: torch.Tensor, plain: bool = False):
+    """A migration round's arrivals into the local shards' ledgers (IN PLACE):
+    ``cand``'s and ``valid``'s one axis is ``len(ledgers)`` equal parts, part s
+    inserted (``insert_particles``) into ``ledgers[s]`` with its absorbed rows
+    reserved. Returns each shard's dropped count, an int64 tensor of one a
+    shard. On a GPU the ledgers must be adjacent slices of one ledger
+    (``join_slices``), and one pass of the insert kernel scans and writes every
+    shard's slice; on the CPU (or with ``plain``) a shard at a time."""
+    m = len(ledgers)
+    if valid.dim() != 1 or valid.shape[0] % m:
+        raise ValueError(f"insert_arrivals: {tuple(valid.shape)} candidates for {m} shards")
+    if ledgers[0].alive.is_cuda and not plain:
+        joined, _ = join_slices(ledgers)
+        return _insert_cuda(joined, cand, valid, joined.absorbed, m)
+    nc = valid.shape[0] // m
+    return torch.stack([
+        insert_particles(p, {k: v[s * nc:(s + 1) * nc] for k, v in cand.items()},
+                         valid[s * nc:(s + 1) * nc], reserved=p.absorbed, plain=plain)[1]
+        for s, p in enumerate(ledgers)])
 
 
 def insert_destinations(ledger: ParticleLedger, valid: torch.Tensor,
                         reserved: torch.Tensor | None = None) -> tuple:
     """``insert_particles``'s destination of each candidate (the ledger's capacity
-    for one not written) and the count of valid candidates dropped."""
+    for one not written) and the count of valid candidates dropped: the plain
+    version of the insert kernel's scans. The r-th valid candidate's rank comes
+    from a prefix sum of the valid flags, the r-th free slot from one of the free
+    flags (each free slot put at its rank), with no sort: the map of the JAX
+    package's stable free-first argsort."""
     cap = ledger.capacity
     vflat = valid.reshape(-1)
     rank = torch.cumsum(vflat.to(torch.int64), 0) - 1
     occupied = ledger.alive if reserved is None else ledger.alive | reserved
-    order = torch.argsort(occupied.to(torch.uint8), stable=True)  # free first
-    n_dead = cap - occupied.sum()
-    ok = vflat & (rank < n_dead)
+    free = ~occupied
+    free_rank = torch.cumsum(free.to(torch.int64), 0) - 1
+    n_free = free.sum()
+    order = torch.full((cap + 1,), cap, dtype=torch.int64, device=vflat.device)
+    slots = torch.arange(cap, dtype=torch.int64, device=vflat.device)
+    _put(order[:cap], torch.where(free, free_rank, cap), slots)  # the r-th free slot
+    ok = vflat & (rank < n_free)
     n_dropped = vflat.sum() - ok.sum()
-    dest = torch.where(ok, order[rank.clamp(0, cap - 1)], cap)  # cap -> dropped
+    dest = torch.where(ok, order[rank.clamp(0, cap)], cap)  # cap -> dropped
     return dest, n_dropped
 
 
-def write_columns(ledger: ParticleLedger, cand: dict, dest: torch.Tensor, shape,
-                  plain: bool = False) -> None:
-    """``insert_particles``'s writes (IN PLACE): each candidate column of ``cand``
-    (tensors of ``shape``) and the fills (``alive``; ``absorbed``, ``face`` and
-    ``leak`` unless ``cand`` has them) at ``dest``, the capacity dropped. On a
-    GPU one launch of the insert kernel, on the CPU (or with ``plain``) its plain
-    version."""
+def write_columns(ledger: ParticleLedger, cand: dict, dest: torch.Tensor) -> None:
+    """``insert_particles``'s writes, the plain version (IN PLACE): each candidate
+    column of ``cand`` and the fills (``alive``; ``absorbed``, ``face`` and
+    ``leak`` unless ``cand`` has them) at ``dest``, the capacity dropped."""
+    for col, val in _columns(ledger, cand):
+        _put(col, dest, val.reshape(-1) if isinstance(val, torch.Tensor) else val)
+
+
+def _columns(ledger: ParticleLedger, cand: dict) -> list:
+    """(ledger column, candidate tensor or fill value) pairs of an insert."""
     cols = [(getattr(ledger, name), val) for name, val in cand.items()]
     cols.append((ledger.alive, True))
     cols += [(getattr(ledger, name), fill) for name, fill in
              (("absorbed", False), ("face", 0), ("leak", 0)) if name not in cand]
-    if dest.is_cuda and not plain:
-        _put_cuda(cols, dest, shape)
-    elif dest.device.type == "cpu" or plain:
-        for col, val in cols:
-            _put(col, dest, val.reshape(-1) if isinstance(val, torch.Tensor) else val)
-    else:
-        raise ValueError(f"insert_particles: unsupported device {dest.device}")
+    return cols
 
 
 def _put(col: torch.Tensor, dest: torch.Tensor, val) -> None:
     """``col[dest] = val`` IN PLACE, the writes to index ``col.shape[0]`` dropped:
     the column is extended by one dump slot, written, and copied back. The plain
-    version of the insert kernel, a column at a time."""
+    version of the insert kernel's writes, a column at a time."""
     ext = torch.cat([col, col[:1]])
     if isinstance(val, torch.Tensor):
         ext.index_put_((dest,), val.to(col.dtype))
@@ -170,15 +202,35 @@ def _put(col: torch.Tensor, dest: torch.Tensor, val) -> None:
     col.copy_(ext[:-1])
 
 
-def _put_cuda(cols: list, dest: torch.Tensor, shape) -> None:
-    """Every ``_put`` of ``cols`` ((ledger column, candidate tensor of ``shape``
-    or a fill value) pairs) in one launch of the insert kernel on PyTorch's
-    current stream, without waiting for it. Raises unless the columns are
-    contiguous on ``dest``'s GPU."""
+# candidates or slots a tile of the insert kernel's scans (csrc/insert_kernel.cu,
+# kTile)
+INSERT_TILE = 2048
+
+
+def _insert_cuda(ledger: ParticleLedger, cand: dict, valid: torch.Tensor,
+                 reserved: torch.Tensor | None, m: int) -> torch.Tensor:
+    """One pass of the insert kernel on PyTorch's current stream, without waiting
+    for it: the ledger's ``m`` equal slices each take their part of the
+    candidates (``valid``'s flat axis in ``m`` equal parts). Returns the dropped
+    count of each part, ``m`` int64 on the device. Raises unless the ledger's
+    columns are contiguous on one GPU with the candidates."""
     from .ops import cuda_lib
 
-    dev = dest.device
-    rows, k = tuple(shape) if len(shape) == 2 else (1, dest.numel())
+    dev = ledger.alive.device
+    cols = _columns(ledger, cand)
+    shape = tuple(valid.shape)
+    rows, k = shape if len(shape) == 2 else (valid.numel(), 1)
+    vflat = valid.reshape(-1)
+    n = vflat.numel()
+    if ledger.capacity % m or n % m:
+        raise ValueError(f"insert kernel: {ledger.capacity} slots and {n} candidates in "
+                         f"{m} shards")
+    flags = [ledger.alive] + ([] if reserved is None else [reserved])
+    if (vflat.device != dev or vflat.dtype not in (torch.bool, torch.int32)
+            or any(t.device != dev or t.dtype != torch.bool or t.shape != (ledger.capacity,)
+                   or not t.is_contiguous() for t in flags)):
+        raise ValueError("insert kernel: bool alive and reserved columns and bool or int32 "
+                         "valid flags on one GPU")
     dst, src, strides, widths, fills, keep = [], [], [], [], [], []
     for col, val in cols:
         if col.device != dev or col.dim() != 1 or not col.is_contiguous():
@@ -191,21 +243,27 @@ def _put_cuda(cols: list, dest: torch.Tensor, shape) -> None:
                 raise ValueError("insert kernel: candidates must lie on the ledger's GPU")
             keep.append(v)
             src.append(v.data_ptr())
-            strides += list(v.stride())
+            strides += [st * v.element_size() for st in v.stride()]
             fills.append(0)
         else:
             src.append(None)
             strides += [0, 0]
             fills.append(int(val))
-    n = len(cols)
-    dest = dest.to(torch.int64).contiguous()
+    cap_l, nc = ledger.capacity // m, n // m
+    tiles = -(-cap_l // INSERT_TILE) + -(-nc // INSERT_TILE)
+    scratch = torch.empty(m * tiles + 2 * n + m, dtype=torch.int32, device=dev)
+    dropped = (torch.empty if nc else torch.zeros)(m, dtype=torch.int64, device=dev)
+    nk = len(cols)
     cuda_lib.library().call(
-        "jb_insert_launch", n, (ctypes.c_void_p * n)(*dst), (ctypes.c_void_p * n)(*src),
-        (ctypes.c_longlong * (2 * n))(*strides), (ctypes.c_int * n)(*widths),
-        (ctypes.c_ulonglong * n)(*fills), k, dest.data_ptr(), dest.numel(), cols[0][0].numel(),
-        cuda_lib.stream_handle(dev))
-    if dest.numel() > 0:
-        cuda_lib.LAUNCHES["ledger_insert"] += 1
+        "jb_insert_launch", nk, (ctypes.c_void_p * nk)(*dst), (ctypes.c_void_p * nk)(*src),
+        (ctypes.c_longlong * (2 * nk))(*strides), (ctypes.c_int * nk)(*widths),
+        (ctypes.c_ulonglong * nk)(*fills), k, ledger.alive.data_ptr(),
+        None if reserved is None else reserved.data_ptr(), vflat.data_ptr(),
+        vflat.stride(0) * vflat.element_size(), vflat.element_size(), m, cap_l, nc,
+        scratch.data_ptr(), dropped.data_ptr(), cuda_lib.stream_handle(dev))
+    if nc:
+        cuda_lib.LAUNCHES["ledger_insert"] += 3  # counts, lists, writes
+    return dropped
 
 
 def empty_ledger(capacity: int, dtype=torch.float32, device="cpu") -> ParticleLedger:

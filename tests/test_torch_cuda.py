@@ -1263,8 +1263,8 @@ def test_f64_kernel_bitwise_plain(gpu, route):
 ])
 def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
     """A float64 deck through run_file on the card: one float64 census launch and
-    one float64 table launch a step, one insert launch a run (the initial
-    radiation's births; the insert kernel copies bytes of either width) and no
+    one float64 table launch a step, one insert pass (three launches) a run (the
+    initial radiation's births; the insert kernel copies bytes of either width) and no
     other, float64 state, a bitwise rerun."""
     mods = {**mods, "jaybenne/num_particles": 20000, "parthenon/output0/file_type": "none",
             "jaybenne/precision": "f64"}
@@ -1273,7 +1273,7 @@ def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
                      modified_inputs=mods, quiet=True, nlim=3, device="cuda") for _ in range(2)]
     name = transport_kernel.launch_name(1, False, deck == "stepdiff_ddmc.in",
                                         dtype=torch.float64)
-    assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6, "ledger_insert": 2}
+    assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6, "ledger_insert": 6}
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.dtype == torch.float64 and sims[0].state.particles.x.dtype == torch.float64
     assert torch.equal(a, b)
@@ -1457,9 +1457,84 @@ def test_insert_kernel_matches_plain_on_path_shapes(gpu, tmp_path, path):
         lambda cand: key is None or key in cand, keep)
     cs.inserts_bitwise(calls, path)
     if key is None:  # the grid: candidates along a row, per-cell columns broadcast
-        _, cand, _, shape = calls[0]
+        shape = calls[0].valid.shape
         assert len(shape) == 2 and shape[1] > 1
-        assert any(0 in v.stride() for v in cand.values())
+        assert any(0 in v.stride() for v in calls[0].cand.values())
+    else:  # every local shard in one pass
+        assert all(c.m == 4 for c in calls)
+
+
+@pytest.mark.parametrize("fill", ["empty", "mixed", "full", "none_valid"])
+@pytest.mark.parametrize("wide", [False, True], ids=["f32", "f64"])
+def test_insert_one_pass_over_shards_matches_plain(gpu, fill, wide):
+    """The insert kernel's one pass over eight adjacent shard slices (a migration
+    round's arrivals: strided candidate views of one buffer of int32 words, the
+    valid flag its last word, the absorbed rows reserved) against its plain
+    version a shard at a time: every column and each shard's drop count bitwise,
+    three launches; slices with room, full slices and no valid candidate."""
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+    from jaybenne_tpu_torch.particles import insert_arrivals
+
+    m, cap_l, nc = 8, 5000, 3100  # the tiles of a slice and of a part end mid-tile
+    dt = torch.float64 if wide else torch.float32
+    g = torch.Generator(device=gpu).manual_seed(19 + wide)
+    p0 = empty_ledger(m * cap_l, dt, gpu)
+    share = {"empty": 0.0, "mixed": None, "full": 1.0, "none_valid": 0.5}[fill]
+    rows = torch.arange(m * cap_l, device=gpu) // cap_l
+    p0.alive.copy_(torch.rand(m * cap_l, generator=g, device=gpu)
+                   < (0.12 * rows if share is None else share))
+    p0.absorbed.copy_(torch.rand(m * cap_l, generator=g, device=gpu) < 0.2)
+    names = ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy", "block", "i", "j",
+             "k", "face", "leak")
+    width = sum(getattr(p0, k).element_size() // 4 for k in names)
+    width += 1 + (width + 1) % 2 * wide  # the valid word, the row even in float64
+    buf = torch.randint(-9, 9, (m * nc, width), generator=g, device=gpu, dtype=torch.int32)
+    valid = torch.rand(m * nc, generator=g, device=gpu) < (0.0 if fill == "none_valid" else 0.6)
+    buf[:, -1] = valid.to(torch.int32)
+    cand, c = {}, 0
+    for k in names:
+        w = getattr(p0, k).element_size() // 4
+        cand[k] = buf[:, c:c + w].view(getattr(p0, k).dtype)[:, 0]
+        c += w
+    a, b = p0.clone(), p0.clone()
+    before = cuda_lib.LAUNCHES["ledger_insert"]
+    da = insert_arrivals(split_ledger(a, m), cand, buf[:, -1])
+    assert cuda_lib.LAUNCHES["ledger_insert"] == before + 3
+    db = insert_arrivals(split_ledger(b, m), cand, buf[:, -1], plain=True)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), f.name
+    assert torch.equal(da, db)
+    if fill == "full":
+        assert int(da.sum()) == int(valid.sum())
+    if fill == "mixed":
+        assert int(da[0]) == 0 and int(da[-1]) > 0
+
+
+@pytest.mark.parametrize("lanes", ["small", "past_the_resident_lanes"])
+def test_k4s_round_spread_matches_plain(gpu, lanes):
+    """A K4s round (transport_2d_ddmc_smr@blocks over 8 shards) with its shards'
+    slot groups interleaved over the card's first wave (fewer blocks than it
+    holds, and more), with dead, finished and unowned slots among them, against
+    the plain round: every column bitwise, pending-leak codes included, the same
+    iterations and events per shard."""
+    from test_torch_schedule import one_call_round, shard_case
+
+    m = 600 if lanes == "small" else -(-4 * _resident_lanes(gpu) // 8)
+    p0, coefs, mesh, seeds, prm, dt, owns = shard_case("blocks", m, dev=gpu)
+    p0.alive[::7] = False
+    p0.tau[::5] = 1.0
+    p0.block[::11] = (p0.block[::11] + owns[0].n) % mesh.n_blocks
+    name = transport_kernel.launch_name(2, False, True, True, route="@blocks")
+    assert name in transport_kernel.SPREAD_ROUTES
+    before = cuda_lib.LAUNCHES[name]
+    k, q = p0.clone(), p0.clone()
+    it_k, ev_k = one_call_round(transport_kernel.transport, k, coefs, mesh, seeds, prm, dt, owns)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    it_q, ev_q = one_call_round(transport_kernel.transport_plain, q, coefs, mesh, seeds, prm,
+                                dt, owns)
+    _same_round(k, q, it_k, ev_k, it_q, ev_q)
+    assert bool((k.leak != 0).any())
 
 
 # ------------------------------------------------ the spatial step as CUDA graphs

@@ -263,6 +263,46 @@ def test_lane_events_and_warp_efficiency():
     assert transport_kernel.warp_efficiency(torch.full((64,), 5, dtype=torch.int32)) == 1.0
 
 
+def spread_slots(count, slice_, width, threads=transport_kernel.THREADS):
+    """The slot each thread of a K4s launch takes with its shards' groups
+    interleaved (csrc/transport_kernel.cuh, ``slot_of`` under kSpreadShards), -1
+    for none, by block: an array [blocks, threads], and the spread width used."""
+    groups = count * -(-slice_ // 32)
+    blocks = -(-groups * 32 // threads)
+    w = min(width, blocks)
+    b = np.arange(blocks)[:, None]
+    t = np.arange(threads)[None, :]
+    lane = t & 31
+    q = np.where(b < w, 32 * ((t >> 5) * w + b) + lane, threads * b + t)
+    grp = q >> 5
+    off = 32 * (grp // count) + lane
+    return np.where(off < slice_, (grp % count) * slice_ + off, -1), w
+
+
+@pytest.mark.parametrize("count, slice_, sms, resident", [
+    (8, 24288, 132, 4), (8, 600, 132, 4), (3, 1000, 2, 1), (1, 50, 132, 4), (6, 4096, 132, 3)])
+def test_k4s_spread_covers_every_slot_once(count, slice_, sms, resident):
+    """The K4s launch's interleaved schedule takes every slot of every shard's
+    slice once, with a launch of fewer blocks than its spread width too; the width
+    is prime to the shard count, so a first-wave block's warps come from several
+    shards; and on big_mesh_spatial's shape (8 slices of 24288 slots, 528
+    resident blocks) every slice's first 16000 slots, where its live lanes sit,
+    run in the first wave."""
+    width = transport_kernel.spread_width(sms, resident, count, slice_)
+    assert 0 < width <= sms * resident and np.gcd(width, count) == 1
+    slots, w = spread_slots(count, slice_, width)
+    assert w == width
+    taken = slots[slots >= 0]
+    assert np.array_equal(np.sort(taken), np.arange(count * slice_))
+    shard = np.where(slots >= 0, slots // slice_, -1)
+    if count > 1 and w > 1:
+        mixed = [len(set(row[row >= 0].tolist())) for row in shard[:w]]
+        assert min(m for m in mixed if m) >= min(2, count)
+    if slice_ == 24288:
+        first = slots[:w][slots[:w] >= 0]
+        assert set(range(16000)) <= set((first % slice_).tolist())
+
+
 def _hybrid(name, dev="cpu", n=1000, seed=3):
     deck, mods = FORESTS[name]
     cfg, mesh, prm = _config(deck, {**mods, "jaybenne/tau_ddmc": 5.0,
