@@ -3,7 +3,7 @@
 inputs; and, with ``--profile``, their device time a step by ``profile.py``.
 
     python3 census_bench.py --parent DIR [--variant DIR ...] [--repeats 7]
-        [--turns 2] [--profile] [--out FILE]
+        [--turns 2] [--profile] [--only ROUTE ...] [--out FILE]
 
 Run from the root of a checkout on a machine with one NVIDIA GPU. DIR is another
 checkout of the repository, for example the parent commit unpacked by ``git
@@ -45,6 +45,17 @@ more tree, timed in the same turns. Nothing here imports jax.
    ``--profile DECK ...`` names some), and reads the census kernel's device
    ms a step and its launches a step (the mean launch: a spatial round), the
    step's device total and the unprofiled steps' wall median.
+
+With ``--only census_table`` it reads the census table apart first, in the same
+turns, on the set-ups of TABLE_PATHS (each path's first step: the 64^3 DDMC and
+ep_bremss rows, big_mesh_spatial at 8 shards, stepdiff's pair table, stepdiff_ddmc
+in float32 and float64; ``--table-child``): per tree the set-up with the table
+kernel (the median of ``--repeats`` after a device sleep), with an empty kernel of
+the table's grid in its place (the floor of its launch), and with the kernel
+whose loads are replaced by their addresses (its index arithmetic and stores
+alone), the kernel's own duration on the device (torch.profiler), the share of
+its bytes bound of each, the instantiation's registers and runtime
+integer divisions in its SASS; on a single device the census call and its split.
 
 It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
 resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
@@ -147,6 +158,32 @@ F64_READ = ("transport_2d_smr_f64", "transport_1d_smr_f64@blocks", "transport_1d
 # the first round's leftovers and arrivals), and read apart by ``ddmc_reading``
 LATER_ROUNDS = ("transport_2d_ddmc_smr@blocks",)
 K4S_READ = ("transport_2d_ddmc_smr@blocks", "transport_2d_ddmc_smr@blocks, its second round")
+
+
+# ``--only census_table``: the census table read apart on the paths that launch it
+# (each path's first step; chip_smoke.py's decks and overrides): its name, deck,
+# overrides and whether it runs through the spatial decomposition (its set-up over
+# every shard's range)
+TABLE = "census_table"
+TABLE_PATHS = (("the 64^3 DDMC row", "DECK", "BIG_DDMC", False),
+               ("the 64^3 ep_bremss row", "DECK", "NG_BIG", False),
+               ("big_mesh_spatial at 8 shards", "DECK", "BIG_SPATIAL_8", True),
+               ("stepdiff (the gray pair)", "DECK", "GATE", False),
+               ("stepdiff_ddmc", "DDMC_DECK", "DDMC_GATE", False),
+               ("stepdiff_ddmc f64", "DDMC_DECK", "DDMC_GATE_F64", False))
+# a runtime integer division's SASS: each sequence converts its divisor once
+DIVISION = re.compile(r"\bI2F(\.U32)?\.RP\b")
+TABLE_KERNEL = re.compile(r"table_kernelILi(\d+)ELb([01])E(?:Li(\d+)E)?([fd])E")
+# a load of the table kernel replaced by a word made from its address, so that the
+# kernel keeps its index arithmetic and its stores and reads nothing
+NO_LOAD = """#include <cstdint>
+template <class T>
+__device__ __forceinline__ T jb_noload(const T* p) {
+  union { T v; unsigned w[sizeof(T) / 4]; } u;
+  for (int k = 0; k < (int)(sizeof(T) / 4); ++k) u.w[k] = (unsigned)(uintptr_t)p + k;
+  return u.v;
+}
+"""
 
 
 def sweep_name(name, k) -> str:
@@ -260,6 +297,242 @@ def record(path, only=None) -> None:
         for k in SWEEP[1:]:
             routes[sweep_name(name, k)] = (times_over(p, k, n), n, args)
     torch.save(routes, path)
+
+
+def record_tables(path) -> None:
+    """The census set-ups of TABLE_PATHS (``prepare``'s arguments) and, on a single
+    device, the census call's inputs, saved to ``path``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from jaybenne_tpu_torch.driver import run_file
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+
+    decks = {"BIG_SPATIAL_8": {**cs.BIG_MESH, **cs.SPATIAL, "jaybenne/n_devices": 8},
+             "DDMC_GATE_F64": {**cs.DDMC_GATE, **cs.PREC64}}
+    tables = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for name, deck, mods, spatial in TABLE_PATHS:
+            deck, mods = getattr(cs, deck), decks.get(mods) or getattr(cs, mods)
+            if spatial:
+                tables[name] = (cs.spatial_path(deck, mods, 1, name)[4], None)
+                continue
+            with cs.CensusRecorder(tk, 1) as rec:  # recorded: the eager step
+                run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=1,
+                         device="cuda", graph=False)
+            p, (coefs, mesh, seed, prm, dt) = rec.inputs
+            tables[name] = ((coefs, mesh, prm, dt, None), (p, (coefs, mesh, seed, prm, dt)))
+    torch.save(tables, path)
+
+
+def table_probes(pkg, tmp) -> dict:
+    """Built in ``tmp`` from the tree under ``pkg``: its table kernel's source as a
+    cubin (``-Xptxas -v``: registers; SASS), the same with every load replaced by
+    its address (NO_LOAD) as a library of its C entries, and this tree's probes
+    (``csrc/sass_probes.cu``: ``jb_empty_launch``), all compiled at once. Returns
+    the cubin's path and ptxas log, and the two libraries (ctypes)."""
+    import ctypes
+
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    src = os.path.join(pkg, "jaybenne_tpu_torch", "csrc", "table_kernel.cu")
+    with open(src) as f:
+        text = f.read()
+    noload = os.path.join(tmp, "table_noload.cu")
+    with open(noload, "w") as f:
+        f.write(NO_LOAD + text.replace("__ldg(", "jb_noload("))
+    own = os.path.join(ROOT, "jaybenne_tpu_torch", "csrc")
+    flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    jobs = {"cubin": (["-Xptxas", "-v", "-cubin"], src, "table.cubin"),
+            "noload": (["-shared"], noload, "libtable_noload.so"),
+            "probes": (["-shared", "-I", own], os.path.join(own, "sass_probes.cu"),
+                       "libprobes.so")}
+    procs = {k: subprocess.Popen([cuda_lib.nvcc(), *flags, *extra, "-o", os.path.join(tmp, out),
+                                  cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for k, (extra, cu, out) in jobs.items()}
+    logs = {k: proc.communicate(timeout=600)[0] for k, proc in procs.items()}
+    for k, proc in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"table probe {k}: nvcc failed:\n{logs[k][-3000:]}")
+    out = {"cubin": os.path.join(tmp, "table.cubin"), "log": logs["cubin"]}
+    for k in ("noload", "probes"):
+        out[k] = ctypes.CDLL(os.path.join(tmp, jobs[k][2]))
+    for name in ("jb_table_launch", "jb_table_launch_f64"):
+        fn = getattr(out["noload"], name)
+        fn.argtypes = list(cuda_lib._SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    out["probes"].jb_empty_launch.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out["probes"].jb_empty_launch.restype = ctypes.c_int
+    return out
+
+
+def table_instantiations(cubin, log) -> dict:
+    """Per table kernel instantiation, (kind, absorb, run or None, "f" or "d") ->
+    its registers (ptxas ``log``) and the runtime-division sequences in its SASS."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            regs[entry] = int(m.group(1))
+    out = {}
+    for fn, code in cs.sass_listing(cubin).items():
+        m = TABLE_KERNEL.search(fn)
+        if m:
+            key = (int(m.group(1)), m.group(2) == "1",
+                   int(m.group(3)) if m.group(3) else None, m.group(4))
+            out[key] = {"registers": regs.get(fn),
+                        "divisions": sum(1 for _, t in code if DIVISION.search(t))}
+    return out
+
+
+def table_child(inputs, pkg, repeats, out) -> None:
+    """``--only census_table`` in one process, for the package under ``pkg``: on each
+    saved set-up of TABLE_PATHS the census set-up (``_prepare`` on the card: the
+    table kernel) the median of ``repeats`` after a device sleep, the same with an
+    empty kernel of the table's grid in its place (the floor of its launch), and
+    with the kernel whose loads are replaced by their addresses (its index
+    arithmetic and stores alone); the table's bytes; the instantiation's registers
+    and runtime divisions; and on a single device the census call (median) and its
+    split (``chip_smoke.CallSplit``)."""
+    sys.path.insert(0, pkg)
+    import torch
+
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+
+    dev = torch.device("cuda", 0)
+    lib = cuda_lib.library()
+    cs = this_chip_smoke()
+    tables = torch.load(inputs, weights_only=False)
+
+    def timed(fn):
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(50_000_000)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(stop))
+        return sorted(times)
+
+    def device(fn, tmp):
+        """Sorted ms of the table kernel's launches on the device (torch.profiler's
+        kernel durations) over ``repeats`` calls of ``fn``."""
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize(dev)
+        trace = os.path.join(tmp, "table_trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        return sorted(float(e["dur"]) / 1e3 for e in events
+                      if e.get("cat") == "kernel" and "table_kernel" in e["name"])
+
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        probes = table_probes(pkg, tmp)
+        kinds = table_instantiations(probes["cubin"], probes["log"])
+        for name, (setup, census) in tables.items():
+            coefs, mesh, prm, dt, own = setup
+
+            def prepare():
+                return tk._prepare(coefs, mesh, prm, dt, own, True)
+
+            ready = prepare()
+            g, cell = ready.g, ready.tabs.cell
+            row = {"kernel": timed(prepare), "device": device(prepare, tmp)}
+            with cs.TableEntry(lib, cs.empty_table(tk, probes["probes"].jb_empty_launch)):
+                row["floor"] = timed(prepare)
+            with cs.TableEntry(lib, lambda n, *a: lib_check(n, getattr(probes["noload"], n)(*a))):
+                row["index_only"] = timed(prepare)
+            cset = list(coefs) if isinstance(coefs, (list, tuple)) else [coefs]
+            row["bytes"] = cs.table_bytes(tk, cset, g, cell)
+            row["rows"], row["width"] = list(cell.shape)
+            real = "d" if g.real == torch.float64 else "f"
+            row["instantiations"] = {str(k[2]): v for k, v in kinds.items()
+                                     if k[0] == tk._table_kind(g) and k[1] == g.absorb
+                                     and k[3] == real}
+            if hasattr(tk, "table_plan"):
+                row["run"] = tk.table_plan(mesh, g, [c.sigma_s.numel() for c in cset]).run
+            if census is not None:
+                p0, args = census
+                row["call"] = timed(lambda: tk.transport(p0.clone(), *args))
+                parts = []
+                with cs.CallSplit(tk, lib) as win:
+                    for _ in range(repeats):
+                        q = p0.clone()
+                        torch.cuda.synchronize(dev)
+                        torch.cuda._sleep(50_000_000)
+                        tk.transport(q, *args)
+                        parts.append(win.ms())
+                row["split"] = {k: statistics.median(d[k] for d in parts)
+                                for k in ("table", "counters", "launch", "gap")}
+            result[name] = row
+            print(f"  {os.path.basename(pkg.rstrip('/')) or pkg}: {name} table median "
+                  f"{statistics.median(row['kernel'])!r} ms", flush=True)
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def lib_check(name, err) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def table_lines(kids, trees, label) -> None:
+    """Prints ``--only census_table``'s reading, a line per path: for each tree the
+    medians of its turns (ms) of the set-up with the table kernel, with an empty
+    kernel of its grid, with the kernel reading nothing (index arithmetic and
+    stores), the kernel's own duration on the device (torch.profiler) and its
+    share of the bytes bound, the instantiation's registers and runtime divisions;
+    and on a single device the census call and its split."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    for name in kids[0]["tables"]:
+        row0 = kids[0]["tables"][name]
+        bound = row0["bytes"] / cs.PEAK_BYTES * 1e3
+        cells = []
+        for tree in trees:
+            runs = [kid["tables"][name] for kid in kids if kid["tree"] == label[tree]]
+            med = {k: statistics.median(statistics.median(r[k]) for r in runs)
+                   for k in ("kernel", "floor", "index_only", "device")}
+            turns = [statistics.median(r["kernel"]) for r in runs]
+            cells.append(f"{label[tree]}: kernel {med['kernel']!r} (turns {turns}), empty launch "
+                         f"of its grid {med['floor']!r}, loads replaced by their addresses "
+                         f"{med['index_only']!r}, bound share {bound / med['kernel']:.3f}; on the "
+                         f"device {med['device']!r}, bound share {bound / med['device']:.3f}; run "
+                         f"{runs[0].get('run', 1)}; registers and runtime divisions by run "
+                         f"{runs[0]['instantiations']}")
+        print(f"census_table on {name} ({row0['rows']} rows of {row0['width']}, "
+              f"{row0['bytes']} bytes, bound {bound!r} ms): " + " | ".join(cells), flush=True)
+        if "call" not in row0:
+            continue
+        cells = []
+        for tree in trees:
+            runs = [kid["tables"][name] for kid in kids if kid["tree"] == label[tree]]
+            call = statistics.median(statistics.median(r["call"]) for r in runs)
+            split = {k: statistics.median(r["split"][k] for r in runs)
+                     for k in ("table", "counters", "launch", "gap")}
+            cells.append(f"{label[tree]}: call {call!r} (turns "
+                         f"{[statistics.median(r['call']) for r in runs]}), cell table "
+                         f"{split['table']!r}, counters {split['counters']!r}, census launch "
+                         f"{split['launch']!r} (gap {split['gap']!r})")
+        print(f"  {name} census call and its split, medians over the turns (ms): "
+              + " | ".join(cells), flush=True)
 
 
 def digest(p) -> str:
@@ -650,10 +923,13 @@ def main(argv=None) -> int:
                     help=f"profile.py's reading of these decks, every deck if none is "
                     f"named: {', '.join(PROFILE_DECKS)}")
     ap.add_argument("--only", action="append", metavar="ROUTE",
-                    help="time this route (with its lane sweep) alone; may repeat")
+                    help="time this route (with its lane sweep) alone; may repeat; "
+                    f"{TABLE}: the census table read apart on TABLE_PATHS")
     ap.add_argument("--out", help="also write every number here, as JSON")
     ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--mix-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--table-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -661,6 +937,10 @@ def main(argv=None) -> int:
         return 0
     if args.mix_child:
         mix_child(args.mix_child[0], args.mix_child[1], args.repeats, args.mix_child[2])
+        return 0
+    if args.table_child:
+        table_child(args.table_child[0], args.table_child[1], args.repeats,
+                    args.table_child[2])
         return 0
     import torch
 
@@ -683,7 +963,27 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     order = [parent, *variants, ROOT, ROOT, *variants[::-1], parent] * args.turns
     summary = {"device": smi, "order": [label[t] for t in order], "children": [],
-               "profile": [], "common_path": {}, "resources": {}, "mix": {}}
+               "profile": [], "common_path": {}, "resources": {}, "mix": {}, "tables": []}
+    if args.only and TABLE in args.only:
+        with tempfile.TemporaryDirectory() as tmp:
+            inputs = os.path.join(tmp, "tables.pt")
+            record_tables(inputs)
+            for k, tree in enumerate(order):
+                out = os.path.join(tmp, f"table{k}.json")
+                print(f"turn {k}: {label[tree]} (census_table)", flush=True)
+                subprocess.run([sys.executable, os.path.abspath(__file__), "--repeats",
+                                str(args.repeats), "--table-child", inputs, tree, out],
+                               check=True, timeout=1800)
+                with open(out) as f:
+                    summary["tables"].append({"tables": json.load(f), "tree": label[tree]})
+        table_lines(summary["tables"], trees, label)
+        args.only = [r for r in args.only if r != TABLE]
+        if not args.only:
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(summary, f, indent=1)
+            print(smi)
+            return 0
     loop_routes = [r for r in cs.EVENT_LOOP_ROUTES if args.only is None or r in args.only]
     for tree in trees:
         csrc = os.path.join(tree, "jaybenne_tpu_torch", "csrc")

@@ -1210,14 +1210,35 @@ class CallSplit:
         return out
 
 
+def launch_floor(dev, blocks=1, threads=256) -> float:
+    """The floor of a launch window: the median ms of CENSUS_REPEATS empty kernels
+    of ``blocks`` blocks (``jb_empty_launch``), each between two CUDA events after a
+    device sleep."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    lib, times = cuda_lib.library(), []
+    for _ in range(CENSUS_REPEATS):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        lib.call("jb_empty_launch", blocks, 1, threads, cuda_lib.stream_handle(dev))
+        stop.record()
+        torch.cuda.synchronize(dev)
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
 def call_split_line(transport_kernel, dev, inputs, name) -> dict:
     """Prints the parts of a census call of the route ``name`` on a census's
     ``inputs`` ((ledger, args) of ``transport``), each the median of
     CENSUS_REPEATS calls on fresh copies after a device sleep (``CallSplit``): the
     cell table, the forest tables (the rest of the set-up), the counters (the
-    kernel with its counters less its launch), the census launch, and the gap
-    that an event recorded adds, taken off the two parts derived. Returns the
-    medians."""
+    kernel with its counters less its launch: the memset of the launch entry, none
+    where the call launches a table, whose launch zeroes them), the census launch,
+    and the gap that an event recorded adds, taken off the two parts derived; and
+    the floor of a launch window (``launch_floor``). Returns the medians."""
     from jaybenne_tpu_torch.ops import cuda_lib
 
     p0, args = inputs
@@ -1230,10 +1251,63 @@ def call_split_line(transport_kernel, dev, inputs, name) -> dict:
             transport_kernel.transport(p, *args)
             parts.append(win.ms())
     med = {k: statistics.median(d[k] for d in parts) for k in parts[0]}
+    med["floor"] = launch_floor(dev)
     print(f"{name} call split (medians of {CENSUS_REPEATS} calls, ms): cell table "
           f"{med['table']!r}, forest tables {med['forest']!r}, counters {med['counters']!r}, "
-          f"census launch {med['launch']!r} (gap an event adds {med['gap']!r})", flush=True)
+          f"census launch {med['launch']!r} (gap an event adds {med['gap']!r}); an empty "
+          f"launch's window {med['floor']!r}", flush=True)
     return med
+
+
+TABLE_ENTRIES = ("jb_table_launch", "jb_table_launch_f64")
+
+
+def table_grid(transport_kernel, args) -> tuple:
+    """(blocks along x, blocks along y, threads) of the launch that a call of the
+    census table's C entry with ``args`` makes, in a tree of this repository: its
+    plan's (``table_plan``: ``blocks`` and the ranges) where the tree has one, else
+    the one-row-a-thread kernel's (256 threads, a row a thread over the longest
+    range)."""
+    if hasattr(transport_kernel, "TABLE_THREADS"):
+        return args[10], args[4], transport_kernel.TABLE_THREADS
+    n, ranges = args[3], args[5]
+    most = max(ranges[2 * k] for k in range(n))
+    return max(-(-most // 256), 1), n, 256
+
+
+class TableEntry:
+    """While active, every call of the census table's C entry of ``lib`` (a tree's
+    ``cuda_lib.CudaLibrary``) goes to ``fn(name, *args)`` instead; its launches
+    are counted as before. ``empty_table`` makes one ``fn``."""
+
+    def __init__(self, lib, fn):
+        self.lib, self.fn = lib, fn
+
+    def __enter__(self):
+        call = self.lib.call
+        self.lib.call = lambda name, *a: (self.fn if name in TABLE_ENTRIES else call)(name, *a)
+        return self
+
+    def __exit__(self, *exc):
+        del self.lib.call
+
+
+def empty_table(transport_kernel, empty):
+    """A stand-in for the census table's C entry that launches ``empty`` (with
+    ``jb_empty_launch``'s arguments) on the grid the entry would launch
+    (``table_grid``) on its stream: the floor of the table's launch, in its place."""
+    def launch(name, *args):
+        err = empty(*table_grid(transport_kernel, args), args[-1])
+        if err != 0:
+            raise RuntimeError(f"empty launch in place of {name}: CUDA error {err}")
+    return launch
+
+
+def table_bytes(transport_kernel, cset, g, cell) -> int:
+    """The bytes a census table must move: every coefficient column its record
+    reads once, and the table written once."""
+    return (sum(getattr(c, k).numel() * getattr(c, k).element_size() for c in cset
+                for k in transport_kernel.table_columns(g)) + cell.numel() * cell.element_size())
 
 
 def table_check(transport_kernel, dev, coefs, mesh, prm, dt, own, what):
@@ -1242,7 +1316,10 @@ def table_check(transport_kernel, dev, coefs, mesh, prm, dt, own, what):
     (``_pair_table``) on the same coefficients: the tables bitwise; the kernel's
     time, the median of CENSUS_REPEATS set-ups after a device sleep, beside one
     plain set-up and its bound: every coefficient the record reads once and the
-    table written once, over the memory rate. Returns (ms, plain_ms, bound_ms)."""
+    table written once, over the memory rate; and the floor of its launch, the
+    set-up with an empty kernel of the table's grid in its place (``empty_table``).
+    Returns (ms, plain_ms, bound_ms, floor_ms)."""
+    from jaybenne_tpu_torch.ops import cuda_lib
 
     def timed(kernel, reps):
         times = []
@@ -1259,21 +1336,24 @@ def table_check(transport_kernel, dev, coefs, mesh, prm, dt, own, what):
         return sorted(times), census.tabs.cell, census.g
 
     times, cell, g = timed(True, CENSUS_REPEATS)
+    lib = cuda_lib.library()
+    with TableEntry(lib, empty_table(transport_kernel, lib._dll.jb_empty_launch)):
+        floor = timed(True, CENSUS_REPEATS)[0]
     plain_ms, plain, _ = timed(False, 1)
     if not torch.equal(cell.view(torch.int32), plain.view(torch.int32)):
         raise AssertionError(f"census table on {what}: the kernel's rows differ from the plain "
                              "version's")
     cset = list(coefs) if own is not None and not isinstance(
         own, transport_kernel.OwnedRange) else [coefs]
-    nbytes = (sum(getattr(c, k).numel() * getattr(c, k).element_size() for c in cset
-                  for k in transport_kernel.table_columns(g)) + cell.numel() * cell.element_size())
+    nbytes = table_bytes(transport_kernel, cset, g, cell)
     bound = nbytes / PEAK_BYTES * 1e3
     ms = statistics.median(times)
     print(f"census_table on {what} ({cell.shape[0]} rows of {cell.shape[1]} floats, "
           f"{len(cset)} coefficient sets): kernel {spread(times)}, plain {plain_ms[0]!r} ms, "
-          f"bound {bound!r} ms ({nbytes} bytes), kernel at {bound / ms:.3f} of it; bitwise the "
-          "plain version's", flush=True)
-    return ms, plain_ms[0], bound
+          f"bound {bound!r} ms ({nbytes} bytes), kernel at {bound / ms:.3f} of it; an empty "
+          f"launch of its grid in its place {spread(floor)}; bitwise the plain version's",
+          flush=True)
+    return ms, plain_ms[0], bound, statistics.median(floor)
 
 
 def fold_check(transport_kernel, inputs, what):

@@ -5,7 +5,8 @@
 // how many instructions the function compiles to: the probe's count less that of
 // the probe with the same loads and stores and a single FADD in its place
 // (chip_smoke.py counts them). The probes are compiled with the library's flags
-// and never launched; ``jb_census_words_launch`` at the end is launched. The
+// and never launched; ``jb_census_words_launch`` and ``jb_empty_launch`` at the
+// end are launched. The
 // ``_f64`` probes count the float64 census's functions the same way against a
 // baseline with one DADD: the double log, divide, exp, sqrt and cos, and the
 // double draw (two hash words made one 53-bit uniform, kernel_rng.cuh).
@@ -120,5 +121,20 @@ extern "C" int jb_census_words_launch(int seed, const void* n_events, void* out,
     census_words_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         (uint32_t)seed, (const int32_t*)n_events, (uint32_t*)out, n, words);
   }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// Nothing: the floor of a launch, timed where a kernel of the same grid would run
+// (chip_smoke.py's table_check and call split; census_bench.py --only
+// census_table).
+__global__ void empty_kernel() {}
+
+}  // namespace
+
+// An empty kernel on a grid of blocks_x x blocks_y blocks of threads threads.
+extern "C" int jb_empty_launch(int blocks_x, int blocks_y, int threads, void* stream) {
+  empty_kernel<<<dim3(blocks_x, blocks_y), threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -1977,7 +1977,9 @@ struct Occupancy {
 // wave that take the shards' slot groups interleaved, spread over them (the
 // slices equal and adjacent, else -4); ignored elsewhere. events: n_shards uint64
 // and iters: n_shards int32 (device), zeroed here on the stream before the launch
-// (one memset where iters follows events), so the caller need not fill them.
+// (one memset where iters follows events), so the caller need not fill them;
+// with zeroed nonzero the caller zeroed them on the stream already (the census
+// table's launch, csrc/table_kernel.cu) and no memset is queued.
 // Returns cudaGetLastError() after the launch, -1 for an unknown ndim, -2 for an
 // SMR launch without its tables, -3 for nongray without absorb, -4 for a shard
 // table the kernel does not take, -6 for a record neither in the table nor in
@@ -1987,7 +1989,8 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
                  const void* table, const void* const* cols, const void* block_table,
                  const void* levels, const void* lookup, int capacity, const int* igeom,
                  const Real* fgeom, int n_shards, const int* shards, const void* seeds,
-                 int spread, int grid, int width, void* events, void* iters, void* stream) {
+                 int spread, int grid, int width, void* events, void* iters, int zeroed,
+                 void* stream) {
   Ledger<Real> L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (Real*)ptrs[a];
@@ -2082,9 +2085,9 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
   const int n = last - first;
   auto st = (cudaStream_t)stream;
   constexpr size_t kEv = sizeof(unsigned long long), kIt = sizeof(int32_t);
-  if ((char*)iters == (char*)events + kEv * n_shards) {
+  if (zeroed == 0 && (char*)iters == (char*)events + kEv * n_shards) {
     cudaMemsetAsync(events, 0, (kEv + kIt) * n_shards, st);
-  } else {
+  } else if (zeroed == 0) {
     cudaMemsetAsync(events, 0, kEv * n_shards, st);
     cudaMemsetAsync(iters, 0, kIt * n_shards, st);
   }

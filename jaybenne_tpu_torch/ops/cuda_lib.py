@@ -50,9 +50,10 @@ _F, _D = ctypes.c_float, ctypes.c_double
 
 
 def _table(real):
-    # kind absorb, table, ranges, host arrays of their 8 column pointers and of
-    # their (cells, first row), nx ny nz, nrbx nrby, permute, real(1 / dx), c, stream
-    return (_I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, real, real, _P)
+    # kind absorb run, table, ranges, host arrays of their 8 column pointers, of
+    # their (cells, first row) and of the plan's 5 (d, mul, shift), nrbx nrby,
+    # blocks, real(1 / dx), c, the counters to zero and their 64-bit words, stream
+    return (_I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, real, real, _P, _I, _P)
 
 
 _TRANSPORT = (
@@ -67,7 +68,9 @@ _TRANSPORT = (
     _I,              # spread: a block's warps take slot groups spread over the launch
     _I,              # grid: at most this many blocks where the instantiation runs in rounds
     _I,              # width: the first wave's blocks that take the shards spread, or 0
-    _P, _P, _P,      # events iters stream
+    _P, _P,          # events iters
+    _I,              # zeroed: the counters were zeroed on the stream (no memset)
+    _P,              # stream
 )
 # every C entry; a float64 entry (precision = f64) ends in _f64
 _SIGNATURES = {
@@ -76,6 +79,8 @@ _SIGNATURES = {
     "jb_raw_bits_launch": (_I, _P, _P, _P, _P, _I, _P),
     "jb_draws_f64_launch": (_I, _P, _P, _P, _P, _I, _P),  # seed lane it tag out n stream
     "jb_census_words_launch": (_I, _P, _P, _I, _I, _P),  # seed n_events out n words stream
+    # blocks_x blocks_y threads stream: an empty kernel, the floor of a launch
+    "jb_empty_launch": (_I, _I, _I, _P),
     # ndim absorb ddmc smr nongray, out: resident blocks, whether it runs in rounds
     "jb_transport_occupancy": (_I, _I, _I, _I, _I, _P, _P),
     "jb_transport_occupancy_f64": (_I, _I, _I, _I, _I, _P, _P),

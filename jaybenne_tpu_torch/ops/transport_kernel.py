@@ -387,17 +387,17 @@ class _Tables:
     cols: tuple | None = None
 
 
-def _tables(cset, mesh, g: _Geom, kernel: bool) -> _Tables:
+def _tables(cset, mesh, g: _Geom, kernel: bool, zero=None) -> _Tables:
     """The tables of the coefficient sets ``cset`` (one per owned range, in range
-    order): the cell table by the CUDA kernel (``_table_cuda``) with ``kernel``,
-    else by its plain version (``_pair_table``); on a forest the mesh's
-    ``forest_tables``."""
+    order): the cell table by the CUDA kernel (``_table_cuda``, which zeroes
+    ``zero`` where given) with ``kernel``, else by its plain version
+    (``_pair_table``); on a forest the mesh's ``forest_tables``."""
     coefs = cset[0]
     cols = record_columns(cset, mesh, g) if kernel else None
     if cols is not None:
         cell = None
     elif kernel:
-        cell = _table_cuda(cset, mesh, g)
+        cell = _table_cuda(cset, mesh, g, zero)
     else:
         cell = _pair_table(coefs if len(cset) == 1 else _concat_coefs(cset), mesh, g)
     forest = (forest_tables(mesh, coefs.sigma_s.device, g.real) if g.smr
@@ -526,19 +526,81 @@ def table_columns(g: _Geom) -> set:
     return need | ({"px", "py", "pz"} if g.ddmc else set())
 
 
-def _table_cuda(cset, mesh, g: _Geom):
+# threads a block of the census table kernel (csrc/table_kernel.cu, kThreads); the
+# cells of one block's x line that a thread takes (RUN) where they are whole 16-byte
+# words of every column and a row is at most TABLE_RUN_BYTES: a wider row is faster
+# at one a thread (measured on an H100: PERF.md section 6)
+TABLE_THREADS = 128
+TABLE_RUN = 4
+TABLE_RUN_BYTES = 16
+
+
+def fast_divisor(d: int) -> tuple:
+    """``(d, mul, shift)`` with ``n // d == (n * mul) >> 32 >> shift`` for every ``0
+    <= n < 2**31`` (``mul`` 0 where ``d`` is 1: ``n >> 0``): the table kernel's
+    division by a multiply-high and a shift (csrc/table_kernel.cu, ``quo``), its
+    constants made as CUTLASS's FastDivmod makes them."""
+    if not 1 <= d < 2**31:
+        raise ValueError(f"census table: divisor {d} out of range")
+    if d == 1:
+        return (1, 0, 0)
+    log = (d - 1).bit_length()  # ceil(log2 d)
+    return (d, -(-(1 << (31 + log)) // d), log - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TablePlan:
+    """One launch of the census table kernel: ``run`` cells of a block's x line a
+    thread (TABLE_RUN, or 1), ``blocks`` blocks of TABLE_THREADS threads (grid.x)
+    over the longest range's runs, ``divisors`` the ``fast_divisor`` constants of
+    a line's runs (X / run), of the lines of a plane (Y), nx, ny and nz, and
+    ``nrbx``, ``nrby`` the root blocks along x and y of the rows' layout (1 and 1
+    where rows are in block cell order)."""
+
+    run: int
+    blocks: int
+    divisors: tuple
+    nrbx: int
+    nrby: int
+
+
+def table_plan(mesh, g: _Geom, cells, aligned: bool = True) -> TablePlan:
+    """The table kernel's plan for ranges of ``cells`` cells each on ``mesh``: a
+    range's rows are the cells (x, y, z) of global row-major order over its whole z
+    planes of blocks (uniform mesh of several blocks run collapsed, ``g.smr``
+    false), else of block cell order, which is the same layout with one root
+    block along x and y; a thread takes a run of TABLE_RUN cells where they are
+    whole 16-byte words of every column (nx a multiple of it and every column
+    ``aligned``) and a row of the record is at most TABLE_RUN_BYTES, else one."""
+    permute = mesh.n_blocks > 1 and not g.smr
+    _, nrby, nrbx = mesh.root_grid if permute else (1, 1, 1)
+    row = _TABLE_WIDTHS[_table_kind(g)] * (8 if g.real == torch.float64 else 4)
+    run = (TABLE_RUN if aligned and mesh.nx % TABLE_RUN == 0 and row <= TABLE_RUN_BYTES
+           else 1)
+    line, plane = nrbx * mesh.nx, nrby * mesh.ny
+    if max(cells) >= 2**31 or any(n % (line * plane) for n in cells):
+        raise ValueError(f"census table: ranges of {cells} cells, not whole planes of "
+                         f"{line} x {plane} cells under 2**31")
+    blocks = max(1, -(-max(cells) // (run * TABLE_THREADS)))
+    divisors = tuple(fast_divisor(d) for d in (line // run, plane, mesh.nx, mesh.ny, mesh.nz))
+    return TablePlan(run, blocks, divisors, nrbx, nrby)
+
+
+def _table_cuda(cset, mesh, g: _Geom, zero=None):
     """``_pair_table`` of the coefficient sets ``cset`` (one per owned range, the
     ranges' rows one after another) as one pass of a CUDA kernel
     (``csrc/table_kernel.cu``) on PyTorch's current stream, a launch for each
-    group of MAX_RANGES_PER_TABLE ranges: the permutation to global row-major
-    order as index arithmetic, the face columns read from the face arrays, the
-    same float32 operations, so the same bits. Raises unless every column that
-    the record reads is contiguous float32 on one GPU."""
+    group of MAX_RANGES_PER_TABLE ranges, in the shape of ``table_plan``: the
+    permutation to global row-major order as index arithmetic, the face columns
+    read from the face arrays, the same float operations, so the same bits. The
+    first launch zeroes ``zero`` (int64; the census's counters) where given.
+    Raises unless every column that the record reads is contiguous at the
+    census's precision on one GPU."""
     kind = _table_kind(g)
     need = table_columns(g)
     dev = cset[0].sigma_s.device
     cpb = mesh.ncells_per_block
-    rows, total = [], 0
+    rows, total, aligned = [], 0, True
     for c in cset:
         cells = c.sigma_s.numel()
         nb = cells // cpb
@@ -552,21 +614,25 @@ def _table_cuda(cset, mesh, g: _Geom):
                     or not t.is_contiguous() or t.numel() != want):
                 raise ValueError(f"census table kernel: {name} must be {want} contiguous "
                                  f"{g.real} values on one GPU")
+            # px is read a cell at a time; every other column in 16-byte words
+            aligned &= name == "px" or t.data_ptr() % 16 == 0
         rows.append((cells, total))
         total += cells
+    plan = table_plan(mesh, g, [n for n, _ in rows], aligned)
+    divisors = (ctypes.c_uint * 15)(*(v for d in plan.divisors for v in d))
     out = torch.empty((total, _TABLE_WIDTHS[kind]), dtype=g.real, device=dev)
-    nrbz, nrby, nrbx = mesh.root_grid
-    permute = int(mesh.n_blocks > 1 and not g.smr)
     for k0 in range(0, len(cset), MAX_RANGES_PER_TABLE):
         group = cset[k0:k0 + MAX_RANGES_PER_TABLE]
         ptrs = [getattr(c, name).data_ptr() if name in need else 0
                 for c in group for name in _TABLE_COLUMNS]
         ranges = [v for r in rows[k0:k0 + len(group)] for v in r]
+        z = zero if k0 == 0 else None
         cuda_lib.library().call(
-            "jb_table_launch" + _f64(g.real), kind, int(g.absorb), out.data_ptr(), len(group),
-            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ranges))(*ranges),
-            mesh.nx, mesh.ny, mesh.nz, nrbx, nrby, permute, float(g.inv_dx[0]), float(g.c),
-            cuda_lib.stream_handle(dev))
+            "jb_table_launch" + _f64(g.real), kind, int(g.absorb), plan.run, out.data_ptr(),
+            len(group), (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ranges))(*ranges), divisors, plan.nrbx, plan.nrby,
+            plan.blocks, float(g.inv_dx[0]), float(g.c), 0 if z is None else z.data_ptr(),
+            0 if z is None else z.numel(), cuda_lib.stream_handle(dev))
         cuda_lib.LAUNCHES["census_table" + _f64(g.real)] += 1
     return out
 
@@ -1175,15 +1241,24 @@ def _occupancy(ndim, absorb, ddmc, smr, nongray, dtype) -> tuple:
     return occupancy(ndim, absorb, ddmc, smr, nongray, dtype)
 
 
+def census_counters(n: int, device) -> torch.Tensor:
+    """The counters of a census call over ``n`` shards, uninitialised: the events
+    (int64) and, after them, the iteration maxima (int32, in the int64 words'
+    place). The table's launch zeroes them where the call launches a table
+    (``_run``), the census's launch entry everywhere else."""
+    return torch.empty(2 * n, dtype=torch.int64, device=device)
+
+
 def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None,
-                 seeds=None):
+                 seeds=None, counters=None, zeroed=False):
     """The census kernel on PyTorch's current stream (no synchronisation), one
     launch for every MAX_SHARDS_PER_LAUNCH shards; the ledger was checked by
     ``_check_cuda_ledger``. With ``fold`` a uniform mesh of several blocks, the
     kernel folds ``collapse_plain`` into its reads and ``expand_plain`` into its
     writes, on every slot, so the launches must cover the whole ledger. The
-    launch entry zeroes the events and iteration maxima of its shards on the
-    stream, so they need no fill before it. The kernel reads each shard's seed
+    counters (``census_counters``; ``counters``, or made here) need no fill: with
+    ``zeroed`` the table's launch zeroed them on the stream, else the launch
+    entry zeroes each group's before its launch. The kernel reads each shard's seed
     from device memory: ``seeds``, an int32 tensor of one per shard on the
     ledger's device (a CUDA graph's launch keeps its pointer, and a replay reads
     what was copied there since), or when None the shards' own, copied there
@@ -1200,9 +1275,8 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
     if fold is not None and (min(sh.slot_lo for sh in shards) != 0
                              or max(sh.slot_hi for sh in shards) != p.capacity):
         raise ValueError("transport kernel: a collapsed census covers the whole ledger")
-    # events (int64) and, after them, iters (int32): the launch entry zeroes each
-    # group's on the stream, so no PyTorch fill comes first
-    counters = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    if counters is None:
+        counters = census_counters(n, dev)
     events, iters = counters[:n], counters[n:].view(torch.int32)[:n]
     cols = (p.x, p.y, p.z, p.vx, p.vy, p.vz, p.tau, p.i, p.j, p.k, p.alive, p.absorbed,
             p.face, p.block, p.energy, p.leak)
@@ -1240,7 +1314,8 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
             p.capacity, (ctypes.c_int * len(ints))(*ints),
             (c_real * len(floats))(*map(float, floats)),
             len(group), (ctypes.c_int * len(rows))(*rows), seeds[k0:].data_ptr(), spread, grid,
-            width, events[k0:].data_ptr(), iters[k0:].data_ptr(), cuda_lib.stream_handle(dev),
+            width, events[k0:].data_ptr(), iters[k0:].data_ptr(), int(zeroed),
+            cuda_lib.stream_handle(dev),
         )
         if slots > 0:  # a group without slots launches nothing, its counters zeroed
             cuda_lib.LAUNCHES[name] += 1
@@ -1296,7 +1371,7 @@ def prepare(coefs, mesh, prm, dt, own=None) -> Census:
     return _prepare(coefs, mesh, prm, dt, own, first.sigma_s.device.type == "cuda")
 
 
-def _prepare(coefs, mesh, prm, dt, own, kernel, real=None) -> Census:
+def _prepare(coefs, mesh, prm, dt, own, kernel, real=None, zero=None) -> Census:
     multi = own is not None and not isinstance(own, OwnedRange)
     owns = tuple(own) if multi else (whole_mesh(mesh) if own is None else own,)
     cset = list(coefs) if multi else [coefs]
@@ -1315,7 +1390,7 @@ def _prepare(coefs, mesh, prm, dt, own, kernel, real=None) -> Census:
     g = _geometry(mesh, prm, dt, cset[0], smr, real)
     if own is not None:
         g = dataclasses.replace(g, route=owns[0].route)
-    return Census(g, _tables(cset, mesh, g, kernel), owns, tuple(rows))
+    return Census(g, _tables(cset, mesh, g, kernel, zero), owns, tuple(rows))
 
 
 def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
@@ -1333,8 +1408,18 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
         if own is not None:
             raise ValueError("transport: a prepared census carries its owned ranges")
         setup = coefs
+    elif census is _census_cuda:
+        # the census's counters, made first so that the table's launch zeroes them,
+        # and the shards' seeds copied first, so that the census launch follows the
+        # table's with nothing queued between them
+        kw["counters"] = census_counters(len(ledgers), p.x.device)
+        if seed_dev is None:
+            kw["seeds"] = torch.tensor(seeds, dtype=torch.int32, pin_memory=True).to(
+                p.x.device, non_blocking=True)
+        setup = _prepare(coefs, mesh, prm, dt, own, True, p.x.dtype, kw["counters"])
+        kw["zeroed"] = setup.tabs.cell is not None
     else:
-        setup = _prepare(coefs, mesh, prm, dt, own, census is _census_cuda, p.x.dtype)
+        setup = _prepare(coefs, mesh, prm, dt, own, False, p.x.dtype)
     if not (len(ledgers) == len(seeds) == len(setup.owns)):
         raise ValueError("transport: one ledger and one seed per owned range")
     if p.x.dtype != setup.g.real:

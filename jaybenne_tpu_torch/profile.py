@@ -18,7 +18,9 @@ under the spatial decomposition, the host's synchronisations with the device per
 step (the same steps once more under ``torch.cuda.set_sync_debug_mode``, each
 synchronising call counted: ``host_syncs``), the host and device milliseconds a
 step of each ``record_function`` span (the spatial step's head, rounds and their
-fixup, census and migration, exit reads and tail: ``spans_by_name``), and
+fixup, census and migration, exit reads and tail: ``spans_by_name``; the
+DDMC face probabilities, ``step.face_probs``) and the device work queued inside each
+span by name (``span_kernels``: in an eager step, a span's own work), and
 ``nvidia-smi``'s card name and power limit. The step runs as the driver runs it
 (CUDA graphs where it can: the first step eagerly, the second captured, so give
 ``--warm`` at least 2 to time replays), or eagerly with ``--eager``.
@@ -77,6 +79,24 @@ def spans_by_name(trace_path: str) -> tuple:
     return dict(host), dict(dev), dict(count)
 
 
+def span_kernels(trace_path: str) -> dict:
+    """Microseconds of device time by event name (kernels, copies, memsets) that
+    start inside each ``record_function`` span's device interval
+    (``gpu_user_annotation``), per span name: in an eager step, the device work
+    the span queued, without the gaps between it."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "gpu_user_annotation" and "dur" in e]
+    out = collections.defaultdict(collections.Counter)
+    for e in events:
+        if e.get("cat") in _DEVICE_CATS and "dur" in e:
+            for name, a, b in spans:
+                if a <= e["ts"] < b:
+                    out[name][e["name"]] += float(e["dur"])
+    return {name: dict(v) for name, v in out.items()}
+
+
 def host_syncs(sim, steps: int) -> int:
     """The host's synchronisations with the device in ``steps`` steps of ``sim``
     (``Simulation.run``): each call that ``torch.cuda.set_sync_debug_mode("warn")``
@@ -132,6 +152,7 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(trace)
         by_name = device_time_by_name(trace)
         span_host, span_dev, span_count = spans_by_name(trace)
+        in_spans = span_kernels(trace)
     n = args.steps
     if len(wall) != n:
         raise RuntimeError(f"profile: ran {len(wall)} timed steps of {n} (tlim reached?)")
@@ -144,6 +165,9 @@ def main(argv=None) -> int:
     for name in sorted(span_host):
         print(f"span {name}: host_ms_per_step {span_host[name] / n!r} device_ms_per_step "
               f"{span_dev.get(name, 0.0) / n!r} count_per_step {span_count[name] / n!r}")
+        inside = sorted(in_spans.get(name, {}).items(), key=lambda kv: -kv[1])
+        print(f"span {name}: its device work {sum(us for _, us in inside) / n / 1e3!r} ms per "
+              "step, by name: " + "; ".join(f"{us / n / 1e3!r} {k[:80]}" for k, us in inside))
     step_ms = statistics.median(wall) * 1e3
     print(f"step: {'CUDA graphs' if sim.graphed else 'eager'}"
           + (f", {getattr(sim.step_fn, 'step', sim.step_fn).rounds_per_batch} rounds a "

@@ -36,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from .config import InitialRadiation, RunConfig
 from .ops import fleck as fleck_ops
@@ -248,9 +249,11 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     def body(states, dt):
         fs = [with_fleck(st.fields, models, dt, dtype) for st in states]
         if jb.use_ddmc:
-            fs = [with_faces(f, fleck_ops.ddmc_face_probs(
-                mesh, total_sigma(f, models, dtype), jb.tau_ddmc, periodic, dtype))
-                for f in fs]
+            # a span of its own: profile.py reads its device time in an eager step
+            with record_function("step.face_probs"):
+                fs = [with_faces(f, fleck_ops.ddmc_face_probs(
+                    mesh, total_sigma(f, models, dtype), jb.tau_ddmc, periodic, dtype))
+                    for f in fs]
         ps = [st.particles for st in states]
 
         def stream(phase):

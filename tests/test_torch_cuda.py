@@ -840,14 +840,17 @@ def test_3d_ddmc_bitwise_over_several_waves(gpu, smr, absorb, case):
 
 
 @pytest.mark.parametrize("layout", ["one_block_1d", "uniform_1d", "uniform_3d", "forest_2d",
-                                    "z_ranges_2", "z_ranges_20", "block_ranges_2"])
+                                    "z_ranges_2", "z_ranges_20", "block_ranges_2",
+                                    "uniform_64"])
 @pytest.mark.parametrize("kind", ["pair", "pair_abs", "ddmc", "ddmc_abs", "nongray",
                                   "nongray_ddmc"])
 def test_census_table_kernel_matches_plain(gpu, kind, layout):
     """The table kernel (``csrc/table_kernel.cu``, through ``prepare`` on the card)
     against the rows computed cell by cell (tests/test_torch_table.py) and against
     its plain version ``_pair_table`` on the same tensors: bitwise, every record
-    kind on every layout, one launch a group of 16 ranges. Where the non-gray
+    kind on every layout (bench.py's 64^3 mesh in 8^3 blocks among them; runs of
+    four cells a thread where nx allows, of one where it does not: nx = 2), one
+    launch a group of 16 ranges. Where the non-gray
     record would be a verbatim copy (one range, one block or a forest), ``prepare``
     launches no table and the kernel reads the coefficient columns, which hold the
     same rows; the table kernel, called itself, still makes them."""
@@ -1073,8 +1076,9 @@ def _same_counts(it_k, ev_k, it_q, ev_q):
 
 
 def test_counters_over_back_to_back_calls(gpu):
-    """The census counters are zeroed by the launch entry on the stream, with no
-    PyTorch fill before it: ten calls on one stream and no synchronisation
+    """The census counters are zeroed on the stream, by the table's launch where the
+    call launches a table and else by the launch entry, with no PyTorch fill
+    before either: ten calls on one stream and no synchronisation
     between them (a gray and a non-gray forest, uniform non-gray and gray meshes, a
     ledger with no live lane), twice over with other seeds, each with the plain
     version's events and iteration maximum exactly and its ledger bitwise."""
@@ -1152,6 +1156,55 @@ def test_counters_over_back_to_back_rounds(gpu, route):
         _same_counts(*got, it_q, ev_q)
         _same_bits(k, q)
         assert int(ev_q.sum()) > 0
+
+
+def _memsets(fn):
+    """The names of the memsets that ``fn()`` queues on the card, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if "memset" in e.name.lower()]
+
+
+@pytest.mark.parametrize("case", ["table", "table_f64", "columns", "prepared"])
+def test_census_counters_from_garbage(gpu, monkeypatch, case):
+    """The census's counters made full of garbage (``census_counters``), so that
+    only a zeroing on the stream gives the right counts: where the call launches a
+    table (a uniform 3D mesh of several blocks, in float32 and float64) the table's
+    launch zeroes them and the call queues no memset; where it launches none (a
+    non-gray forest's record read from its columns) or takes a prepared census,
+    the launch entry's memset does (and the profiler sees it). Events and the
+    iteration maximum equal the plain version's, every column bitwise."""
+    cs = _chip_smoke()
+    if case == "columns":
+        dt, mesh, prm, p0, coefs = _nongray_setup(gpu, 2, False, True)
+    else:
+        dt, mesh, prm, p0, coefs = _grid_setup(gpu, 3)
+    if case == "table_f64":
+        p0, coefs, prm = (cs.ledger_as(p0, torch.float64), cs.coefs_as(coefs, torch.float64),
+                          cs.prm_as(prm, torch.float64))
+    garbage = []
+
+    def counters(n, device):
+        garbage.append(torch.full((2 * n,), -0x5A5A5A5A5A5A5A5B, dtype=torch.int64,
+                                  device=device))
+        return garbage[-1]
+
+    monkeypatch.setattr(transport_kernel, "census_counters", counters)
+    args = (coefs, mesh, 77, prm, dt)
+    if case == "prepared":
+        args = (transport_kernel.prepare(coefs, mesh, prm, dt), mesh, 77, prm, dt)
+    k = p0.clone()
+    seen = _memsets(lambda: transport_kernel.transport(k, *args))
+    assert len(garbage) == 1
+    assert (not seen) if case.startswith("table") else bool(seen), seen
+    it_k, ev_k = int(garbage[0][1:].view(torch.int32)[0]), int(garbage[0][0])
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, 77, prm, dt)
+    assert (it_k, ev_k) == (int(it_q), int(ev_q))
+    _same_bits(k, q)
+    assert int(ev_q) > 0
 
 
 # chip_smoke.py's phases 23 and 25: the ep_bremss overrides of
@@ -1279,13 +1332,22 @@ def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("layout", ["one_block_1d", "uniform_3d"])
+@pytest.mark.parametrize("layout", ["one_block_1d", "uniform_3d", "uniform_64",
+                                    "uniform_64_pair"])
 def test_f64_census_table_kernel_matches_plain(gpu, layout):
     """The float64 table pass bitwise its plain version (chip_smoke.table_check) on
-    the gray DDMC record of a uniform mesh."""
+    the gray DDMC record of a uniform mesh, and on bench.py's 64^3 mesh in 8^3
+    blocks (tests/test_torch_table.py's coefficients made float64) with the gray
+    DDMC record and the gray pair."""
     cs = _chip_smoke()
-    ndim = 1 if layout == "one_block_1d" else 3
-    dt, mesh, prm, _, coefs, _ = cs.hybrid_setup(gpu, ndim, True, True, 11, n=1024)
+    if layout.startswith("uniform_64"):
+        from test_torch_table import table_case
+
+        kind = "pair_abs" if layout.endswith("pair") else "ddmc_abs"
+        coefs, mesh, prm, dt, _, _ = table_case(kind, "uniform_64", dev=gpu)
+    else:
+        ndim = 1 if layout == "one_block_1d" else 3
+        dt, mesh, prm, _, coefs, _ = cs.hybrid_setup(gpu, ndim, True, True, 11, n=1024)
     before = cuda_lib.LAUNCHES["census_table_f64"]
     cs.table_check(transport_kernel, gpu, cs.coefs_as(coefs, torch.float64), mesh,
                    cs.prm_as(prm, torch.float64), dt, None, f"{layout} f64")

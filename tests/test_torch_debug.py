@@ -23,7 +23,7 @@ from jaybenne_tpu_torch import config as tcm
 from jaybenne_tpu_torch import driver as tdriver
 from jaybenne_tpu_torch.driver import Simulation
 from jaybenne_tpu_torch.mesh import build_mesh
-from jaybenne_tpu_torch.profile import device_time_by_name
+from jaybenne_tpu_torch.profile import device_time_by_name, span_kernels
 from jaybenne_tpu_torch.utils.debug import InvariantError, validate_state
 from jaybenne_tpu_torch.utils.deck import Deck as TDeck
 
@@ -179,6 +179,21 @@ def test_profile_dir_writes_a_readable_trace(tmp_path):
     assert json.loads(trace.read_text())["traceEvents"]
     assert device_time_by_name(str(trace)) == {}
     assert len(json.loads((tmp_path / "o" / "history.json").read_text())["cycles"]) == 1
+
+
+def test_span_kernels_reads_the_work_inside_each_span(tmp_path):
+    """``profile.span_kernels`` sums, by name, the device events that start inside
+    a span's device interval, and leaves out host events and device events outside
+    it."""
+    events = [{"cat": "gpu_user_annotation", "name": "step.face_probs", "ts": 10.0, "dur": 20.0},
+              {"cat": "kernel", "name": "cat", "ts": 11.0, "dur": 2.0},
+              {"cat": "kernel", "name": "cat", "ts": 20.0, "dur": 3.0},
+              {"cat": "gpu_memset", "name": "Memset", "ts": 25.0, "dur": 1.0},
+              {"cat": "kernel", "name": "census", "ts": 31.0, "dur": 5.0},
+              {"cat": "cpu_op", "name": "aten::cat", "ts": 12.0, "dur": 1.0}]
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": events}))
+    assert span_kernels(str(trace)) == {"step.face_probs": {"cat": 5.0, "Memset": 1.0}}
 
 
 _NO_H5PY = """

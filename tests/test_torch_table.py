@@ -7,9 +7,10 @@ computed cell by cell with numpy float32 arithmetic from the coefficients, each 
 the row the census reads for its cell (``_census_plain``'s ``cell_of``): for each
 record kind (the gray pair, gray DDMC, non-gray, non-gray DDMC, with and without
 absorption; on a uniform 1D mesh the DDMC record that carries the cell's leak
-rate, cdf and c cdf) on one block, a uniform mesh of several blocks (1D and 3D), a
-level-1 forest, two and twenty owned ranges of z planes and two block ranges of a
-forest. ``tests/test_torch_cuda.py`` holds the kernel to the same rows on the card.
+rate, cdf and c cdf) on one block, a uniform mesh of several blocks (1D, 3D and
+bench.py's 64^3 in 8^3 blocks), a level-1 forest, two and twenty owned ranges of z
+planes and two block ranges of a forest. ``tests/test_torch_cuda.py`` holds the
+kernel to the same rows on the card.
 Where the kernel reads the non-gray record straight from the coefficient columns,
 those columns are held to the same rows. The forest tables, kept per mesh, are held
 to the tables each census set-up built before, and the plain census on forests to
@@ -57,6 +58,11 @@ LAYOUTS = {
     "z_ranges_20": ("stepdiff.in", {**_UNIFORM_3D, "parthenon/mesh/nx3": 40},
                     ("z", [(2 * s, 2) for s in range(20)])),
     "block_ranges_2": ("stepdiff_smr_ddmc.in", _FOREST, ("blocks", [(0, 10), (10, 10)])),
+    # bench.py's big mesh: 64^3 cells in 8^3 blocks
+    "uniform_64": ("stepdiff.in", {"parthenon/mesh/nx1": 64, "parthenon/mesh/nx2": 64,
+                                   "parthenon/mesh/nx3": 64, "parthenon/meshblock/nx1": 8,
+                                   "parthenon/meshblock/nx2": 8, "parthenon/meshblock/nx3": 8},
+                   None),
 }
 
 
