@@ -57,6 +57,15 @@ alone), the kernel's own duration on the device (torch.profiler), the share of
 its bytes bound of each, the instantiation's registers and runtime
 integer divisions in its SASS; on a single device the census call and its split.
 
+With ``--only migrate`` it reads the spatial migration apart first, in this tree
+(its package's plain migrate, ``migrate(plain=True)``, is the parent's): on the
+recorded first round of each deck of MIGRATE_DECKS (big_mesh_spatial and the
+float64 stepdiff at 8 shards) the migration kernel bitwise its plain version (go
+false too) and ``chip_smoke.migration_reading``; then profile.py on those decks in
+the turns, as CUDA graphs, eagerly once for the parent and this tree (the spans of
+``spatial.round`` with their device work by kernel), and this tree at
+MIGRATE_BATCH rounds a batch.
+
 It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
 resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
 that built the tree's library), the instantiations whose resources differ from
@@ -545,10 +554,12 @@ def digest(p) -> str:
 
 MIX_ROUTES = ("transport_1d", "transport_2d_abs", "transport_3d_ddmc", "transport_3d_ddmc_smr",
               "transport_1d_ddmc", "transport_1d_abs_ddmc", "transport_3d_abs_ng",
-              "transport_1d_abs_ng", "transport_2d_abs_smr_ng", *F64_READ, *K4S_READ)
+              "transport_1d_abs_ng", "transport_2d_abs_smr_ng", "transport_2d_abs_smr_ng_f64",
+              *F64_READ, *K4S_READ)
 # the non-gray routes whose opacity's share of the event loop is read: the loop as
 # built, and with EPBremss returning at once (``chip_smoke.LOOP_PATHS``)
-NG_ROUTES = ("transport_3d_abs_ng", "transport_1d_abs_ng", "transport_2d_abs_smr_ng")
+NG_ROUTES = ("transport_3d_abs_ng", "transport_1d_abs_ng", "transport_2d_abs_smr_ng",
+             "transport_2d_abs_smr_ng_f64")
 NG_PATHS = ("scatter", "full", "no_opacity")
 
 
@@ -670,7 +681,7 @@ def ng_reading(cs, tk, dev, label, inputs, res, paths, mix, repeats) -> dict:
         raise AssertionError(f"{label} path mix: {mix['lane_events']} lane-events, census "
                              f"{events}")
     k_ms = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats))
-    blocks = tk.resident_blocks(prm.ndim, True, False, smr, True)
+    blocks = tk.resident_blocks(prm.ndim, True, False, smr, True, dtype=p.x.dtype)
     spreads = tk.spreads(p.capacity, torch.cuda.get_device_properties(dev).multi_processor_count,
                          blocks)
     other = statistics.median(kernel_alone(cs, tk, dev, p, args, repeats, not spreads))
@@ -876,15 +887,17 @@ def child(inputs, pkg, repeats, out) -> None:
         json.dump(result, f)
 
 
-def profile(tree, deck) -> dict:
+def profile(tree, deck, extra=()) -> dict:
     """Step 3 for one tree and deck: the census kernel's device ms a step, its
     launches a step (under the spatial decomposition one a round queued, so that
     the census ms over them is the mean round's), the device total a step and the
-    unprofiled steps' wall median, from ``python -m jaybenne_tpu_torch.profile``."""
+    unprofiled steps' wall median, from ``python -m jaybenne_tpu_torch.profile``
+    (with ``extra`` arguments: ``--eager``, ``--rounds-per-batch R``); and the
+    lines of its spans under ``spatial.round`` (``spans``)."""
     path, mods = PROFILE_DECKS[deck]
-    res = subprocess.run([sys.executable, "-m", "jaybenne_tpu_torch.profile", "-i", path,
-                          *PROFILE_ARGS, *mods], cwd=tree, capture_output=True, text=True,
-                         timeout=900)
+    res = subprocess.run([sys.executable, "-m", "jaybenne_tpu_torch.profile", "-i",
+                          os.path.join(ROOT, path), *PROFILE_ARGS, *extra, *mods], cwd=tree,
+                         capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"profile {deck} in {tree}:\n{res.stderr[-3000:]}")
     kernel = sum(float(m.group(1)) for m in re.finditer(
@@ -895,8 +908,51 @@ def profile(tree, deck) -> dict:
                                           res.stdout).group(1))
     steps = int(PROFILE_ARGS[PROFILE_ARGS.index("--steps") + 1])
     census = sum(v for k, v in launches.items() if k.startswith("transport_")) / steps
+    spans = [line for line in res.stdout.splitlines() if line.startswith("span spatial.round")]
     return {"census_ms_per_step": kernel, "census_launches_per_step": census,
-            "device_ms_per_step": float(m.group(1)), "step_wall_ms": float(m.group(2))}
+            "device_ms_per_step": float(m.group(1)), "step_wall_ms": float(m.group(2)),
+            "spans": spans}
+
+
+# ``--only migrate``: the spatial migration read apart on the recorded first round
+# of these decks of PROFILE_DECKS (``chip_smoke.migration_reading``), then their
+# steps by profile.py in the turns, as CUDA graphs and eagerly (its spans), and
+# this tree's at MIGRATE_BATCH rounds a batch beside ROUNDS_PER_BATCH's
+MIGRATE = "migrate"
+MIGRATE_DECKS = {"big_mesh_spatial_8": ("DECK", "BIG_SPATIAL_8"),
+                 "stepdiff_spatial_f64": ("DECK", "STEPDIFF_SPATIAL_F64")}
+MIGRATE_BATCH = 8
+
+
+def migrate_reading() -> dict:
+    """``--only migrate``'s reading of the recorded rounds, in this process with this
+    tree's package: the kernel's pack and round against the parent's PyTorch
+    migrate (``spatial.migrate(plain=True)``), a round with go false, the kept
+    clones and the unfinished sums; the parent's work by operation is in the
+    eager profile of the turns (the ``spatial.round`` spans' work by kernel)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from jaybenne_tpu_torch import driver
+
+    dev = torch.device("cuda", 0)
+    decks = {"BIG_SPATIAL_8": {**cs.BIG_MESH, **cs.SPATIAL, "jaybenne/n_devices": 8},
+             "STEPDIFF_SPATIAL_F64": {**cs.STEPDIFF_SPATIAL, **cs.PREC64}}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    out = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for deck, (path, mods) in MIGRATE_DECKS.items():
+            calls = cs.recorded_migrations(
+                lambda: driver.run_file(getattr(cs, path), outdir=outdir,
+                                        modified_inputs=decks[mods], quiet=True, nlim=1,
+                                        device="cuda", graph=False), 1)
+            print("migration kernel bitwise its plain version, "
+                  + cs.migrations_bitwise(calls, deck), flush=True)
+            out[deck] = cs.migration_reading(dev, calls[0], f"{deck}, its first round", smi)
+            torch.cuda.empty_cache()
+    return out
 
 
 def issue_share(kids, tree, name, summary, sms) -> float:
@@ -924,7 +980,8 @@ def main(argv=None) -> int:
                     f"named: {', '.join(PROFILE_DECKS)}")
     ap.add_argument("--only", action="append", metavar="ROUTE",
                     help="time this route (with its lane sweep) alone; may repeat; "
-                    f"{TABLE}: the census table read apart on TABLE_PATHS")
+                    f"{TABLE}: the census table read apart on TABLE_PATHS; {MIGRATE}: the "
+                    "spatial migration read apart on MIGRATE_DECKS")
     ap.add_argument("--out", help="also write every number here, as JSON")
     ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--mix-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
@@ -978,6 +1035,34 @@ def main(argv=None) -> int:
                     summary["tables"].append({"tables": json.load(f), "tree": label[tree]})
         table_lines(summary["tables"], trees, label)
         args.only = [r for r in args.only if r != TABLE]
+        if not args.only:
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(summary, f, indent=1)
+            print(smi)
+            return 0
+    if args.only and MIGRATE in args.only:
+        summary["migrate"] = migrate_reading()
+        runs = [(tree, (), label[tree]) for tree in order]
+        runs += [(ROOT, ("--rounds-per-batch", str(MIGRATE_BATCH)),
+                  f"this tree at {MIGRATE_BATCH} rounds a batch")] * (2 * args.turns)
+        eager_read = set()  # the parent and this tree eagerly too, once each (the spans)
+        for k, (tree, extra, who) in enumerate(runs):
+            read = not extra and who in ("parent", "this tree") and who not in eager_read
+            eager_read.add(who)
+            for deck in MIGRATE_DECKS:
+                for eager in ((), ("--eager",)) if read else ((),):
+                    print(f"profile {k}: {who}, {deck} {' '.join(eager + extra)}", flush=True)
+                    row = profile(tree, deck, eager + extra)
+                    summary["profile"].append({"tree": who, "deck": deck,
+                                               "eager": bool(eager), **row})
+                    print(f"profile {deck} {who}{' eager' if eager else ''}: device total "
+                          f"{row['device_ms_per_step']!r} ms a step, step wall median "
+                          f"{row['step_wall_ms']!r} ms, census {row['census_ms_per_step']!r} ms "
+                          f"a step in {row['census_launches_per_step']!r} launches", flush=True)
+                    for line in row["spans"] if eager else ():
+                        print(f"  {who} {deck}: {line}", flush=True)
+        args.only = [r for r in args.only if r != MIGRATE]
         if not args.only:
             if args.out:
                 with open(args.out, "w") as f:

@@ -182,7 +182,8 @@ Phases:
      658342636, sum(tally dV) equal to the live weight to 1e-5, every census
      complete, one census launch a round queued (the rounds of a batch, its
      no-op rounds too; launches a step printed; the steps after the first run as
-     CUDA graphs); migration
+     CUDA graphs) and at 8 shards one pass of the migration kernel (two
+     launches), at 1 none; migration
      rounds, migrated particles, step times and events/s printed; K3s timed on
      the first round (one launch over the 8 shards, with the fold: every column of
      the joined ledger bitwise the plain version's), with the slot order's warp
@@ -280,7 +281,13 @@ Phases:
      stepdiff's initial source, a grid with broadcast columns; the 8-shard
      spatial step's migration arrivals, every shard in one pass with
      ``reserved``, timed against the parent's destinations a shard at a time;
-     stepdiff's initial source at precision = f64); the
+     stepdiff's initial source at precision = f64); the migration kernel
+     (csrc/migrate_kernel.cu: each local shard's in-transit slots ranked by
+     destination by scans and packed into rows, every local shard in one pass,
+     two launches a round) bitwise its plain version on big_mesh_spatial's first
+     two rounds at 8 shards and on the float64 stepdiff's first, each again with
+     go false (``migration_check``), and its first rounds read apart against the
+     parent's PyTorch migrate (``migration_reading``); the
      8-shard big_mesh_spatial step, eager and replayed, under the same mode but
      for each batch's exit read (counted: one a batch) and the step's packed read;
      the host's synchronisations a step (``profile.host_syncs``) on stepdiff, the
@@ -338,7 +345,8 @@ F64 = torch.float64
 # whose grid is as many blocks as the card holds): the resident blocks of 256 a SM
 # each holds on an H100 with no spill bytes (phase 2 fails without them)
 F64_RESIDENT_FLOOR = {"transport_2d_smr_f64": 3, "transport_1d_smr_f64": 4,
-                      "transport_1d_f64": 4, "transport_1d_ddmc_f64": 4}
+                      "transport_1d_f64": 4, "transport_1d_ddmc_f64": 4,
+                      "transport_2d_abs_smr_ng_f64": 3}
 DECK = os.path.join(ROOT, "inputs", "stepdiff.in")
 GATE = {
     "parthenon/mesh/nx1": 128,
@@ -2909,6 +2917,7 @@ def spatial_path(deck, mods, steps, what, graph=True):
                            device="cuda", graph=graph)
             launches = dict(cuda_lib.LAUNCHES)
             note_table(what, launches)
+    MIGRATE_PATHS.append((f"phase {PHASE[0]}: {what}", launches.get("migrate_pack", 0)))
     sim.recorded_rounds = rec.rounds
     p = sim.state.particles
     if (any(h["dropped"] or h["unfinished"] for h in sim.history) or sim.state.overflow
@@ -3059,9 +3068,13 @@ def spatial_phases(transport_kernel, dev, cost, src, mix_lib) -> list:
     name_z = transport_kernel.launch_name(3, False, route="@z")
     for n in (1, 8):
         rounds = rounds_queued(big[n][0])
-        if big[n][1].get(name_z, 0) != rounds:
+        # the census, one launch a round queued; the migration kernel, two a round
+        # queued at 8 shards (none at 1: nothing can migrate)
+        if (big[n][1].get(name_z, 0) != rounds
+                or big[n][1].get("migrate_pack", 0) != (2 * rounds if n > 1 else 0)):
             raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}, {rounds} "
                                  "rounds queued")
+    MIGRATE_MAIN[0] = big[8][1]["migrate_pack"]
     k_z = round_kernel(transport_kernel, dev, big[8][2], name_z, cost)
     table_check(transport_kernel, dev, *big[8][4], "big_mesh_spatial's first step at 8 shards "
                 "(8 coefficient sets)")
@@ -3408,14 +3421,18 @@ F64_REDESIGNED = {
     "transport_1d_ddmc_f64": ("on the card's resident grid in rounds, each round's slots "
                               "spread over it, where the ledger takes at most two (kRounds)",
                               0.0543),
+    "transport_2d_abs_smr_ng_f64": ("on the card's resident grid in rounds, each round's "
+                                    "slots spread over it, where the ledger takes at most four "
+                                    "(kRounds, kRoundsMax)", 0.0598),
 }
 
 
 def only_f64(launches, what):
     """Raises unless a float64 run launched float64 kernels alone (the insert
-    kernel, ``ledger_insert``, copies the bytes of a column of either width)."""
-    other = [k for k, n in launches.items()
-             if n and k != "ledger_insert" and not k.split("@")[0].endswith("_f64")]
+    kernel, ``ledger_insert``, and the migration kernel, ``migrate_pack``, copy the
+    bytes of a column of either width)."""
+    other = [k for k, n in launches.items() if n and k not in ("ledger_insert", "migrate_pack")
+             and not k.split("@")[0].endswith("_f64")]
     if other:
         raise AssertionError(f"{what}: the float64 run launched {other}: {launches}")
 
@@ -3681,11 +3698,11 @@ def timed_ms(fn, dev, fresh=lambda: None, repeats=CENSUS_REPEATS) -> float:
     return statistics.median(times)
 
 
-def launch_split(fn, fresh, names, repeats=CENSUS_REPEATS) -> dict:
-    """The mean device ms a call of each kernel in ``names`` (substrings of the
-    kernels' names) takes in ``repeats`` calls of ``fn(fresh())``, read from a
-    ``torch.profiler`` trace."""
-    from jaybenne_tpu_torch.profile import device_time_by_name
+def traced_launches(fn, fresh, repeats) -> list:
+    """(name, device us) of each kernel, copy and memset in a ``torch.profiler``
+    trace of ``repeats`` calls of ``fn(fresh())``, ``fresh()``'s own work left
+    out."""
+    from jaybenne_tpu_torch.profile import _DEVICE_CATS
 
     args = [fresh() for _ in range(repeats)]
     torch.cuda.synchronize()
@@ -3697,9 +3714,26 @@ def launch_split(fn, fresh, names, repeats=CENSUS_REPEATS) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         trace = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
-        by_name = device_time_by_name(trace)
-    return {name: sum(us for k, us in by_name.items() if name in k) / 1e3 / repeats
-            for name in names}
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["dur"])) for e in events
+            if e.get("cat") in _DEVICE_CATS and "dur" in e]
+
+
+def launch_split(fn, fresh, names, repeats=CENSUS_REPEATS) -> dict:
+    """The mean device ms of one launch of each kernel in ``names`` (substrings of
+    the kernels' names, each launched once a call) over the launches of it that a
+    ``torch.profiler`` trace of ``repeats`` calls of ``fn(fresh())`` holds, and
+    under "traced" how many it holds of each (``repeats`` unless the trace lost
+    some)."""
+    events = traced_launches(fn, fresh, repeats)
+    out, traced = {}, {}
+    for name in names:
+        us = [d for k, d in events if name in k]
+        out[name] = sum(us) / 1e3 / max(len(us), 1)
+        traced[name] = len(us)
+    out["traced"] = traced
+    return out
 
 
 # the insert kernel's three launches (csrc/insert_kernel.cu), by kernel name
@@ -3940,6 +3974,265 @@ def insert_paths_check(dev, outdir, smi) -> None:
         torch.cuda.empty_cache()
 
 
+class RecordedMigration(typing.NamedTuple):
+    """One migration round as a run made it (``spatial.migrate``'s arguments): a
+    clone of the local shards' joined ledger before it, their offsets, the blocks a
+    shard, K, the shard count and a clone of the round's ``go`` flag (None: the
+    round of a batch that began with work)."""
+
+    ledger: object
+    offsets: list
+    bl: int
+    K: int
+    n: int
+    go: object
+
+
+def recorded_migrations(run, keep):
+    """The first ``keep`` rounds of ``spatial.migrate`` that ``run()`` makes, as
+    ``RecordedMigration``s; the rounds run as they would."""
+    from jaybenne_tpu_torch.parallel import spatial
+    from jaybenne_tpu_torch.particles import join_slices
+
+    calls, real = [], spatial.migrate
+
+    def recording(ledgers, offsets, bl, K, exchange, go=None, plain=False):
+        if len(calls) < keep:
+            calls.append(RecordedMigration(join_slices(ledgers)[0].clone(), list(offsets), bl,
+                                           K, exchange.n, None if go is None else go.clone()))
+        return real(ledgers, offsets, bl, K, exchange, go, plain)
+
+    spatial.migrate = recording
+    try:
+        run()
+    finally:
+        spatial.migrate = real
+    return calls
+
+
+# ``go`` of a replayed round: the recorded round's own
+RECORDED = "the recorded round's"
+
+
+def replay_migration(c: RecordedMigration, ledger, plain=False, go=RECORDED):
+    """A recorded round on ``ledger`` (a clone of its own), by the migration
+    kernel or by its plain version, through the in-process exchange and the
+    insert: returns (dropped, sent), one a local shard."""
+    from jaybenne_tpu_torch.parallel import exchange, sharding, spatial
+
+    m = len(c.offsets)
+    return spatial.migrate(sharding.split_ledger(ledger, m), c.offsets, c.bl, c.K,
+                           exchange.InProcess(c.n), c.go if go is RECORDED else go, plain)
+
+
+def pack_of(c: RecordedMigration, ledger, plain=False, go=RECORDED):
+    """A recorded round's sort and pack alone on ``ledger``: the kernel's
+    (``spatial._pack_cuda``) or the plain version's (``spatial.pack_plain``,
+    stacked as the in-process exchange stacks them) buffers, in the receivers'
+    layout [n, local shards, K, words], and sent counts."""
+    from jaybenne_tpu_torch.parallel import sharding, spatial
+
+    m, go = len(c.offsets), c.go if go is RECORDED else go
+    shards = sharding.split_ledger(ledger, m)
+    if plain:
+        bufs, sent = spatial.pack_plain(shards, c.offsets, c.bl, c.K, c.n, go)
+        return torch.stack(bufs, dim=1), sent
+    return spatial._pack_cuda(shards, c.offsets, c.bl, c.K, c.n, go)
+
+
+def migrations_bitwise(calls, what) -> str:
+    """Each recorded round (``recorded_migrations``), and each again with ``go``
+    false, by the kernel and by its plain version on clones of its ledger: raises
+    unless the ledgers after the pack and after the whole round, the sent and
+    dropped counts and every buffer row whose valid word is 1 are bitwise equal,
+    every other row's valid word is 0, and the kernel launched its two launches
+    once a round. Returns what was held, as text."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    if not calls:
+        raise AssertionError(f"migration on {what}: no round recorded")
+    seen = []
+    for c in calls:
+        for go in (RECORDED, torch.zeros((), dtype=torch.bool, device=c.ledger.alive.device)):
+            q, r = c.ledger.clone(), c.ledger.clone()
+            before = cuda_lib.LAUNCHES["migrate_pack"]
+            buf, sent = pack_of(c, q, go=go)
+            if cuda_lib.LAUNCHES["migrate_pack"] != before + 2:
+                raise AssertionError(f"migration on {what}: the kernel did not launch once")
+            want, plain_sent = pack_of(c, r, plain=True, go=go)
+            valid = want[..., -1] == 1
+            if (not torch.equal(sent, plain_sent) or not torch.equal(buf[..., -1] == 1, valid)
+                    or not bool((buf[..., -1][~valid] == 0).all())
+                    or not torch.equal(buf[valid], want[valid])):
+                raise AssertionError(f"migration on {what}: the buffers or sent counts differ "
+                                     f"({sent.tolist()} vs {plain_sent.tolist()})")
+            equal_ledgers(q, r, f"migration pack on {what} against the plain version")
+            q, r = c.ledger.clone(), c.ledger.clone()
+            drops = replay_migration(c, q, go=go)
+            plain_drops = replay_migration(c, r, plain=True, go=go)
+            equal_ledgers(q, r, f"migration round on {what} against the plain version")
+            if not all(torch.equal(a, b) for a, b in zip(drops, plain_drops)):
+                raise AssertionError(f"migration on {what}: counts {drops} vs {plain_drops}")
+            if go is RECORDED:
+                if int(sent.sum()) == 0:
+                    raise AssertionError(f"migration on {what}: nothing sent")
+                line = (f"{len(c.offsets)} shards of {c.n} in one pass, {c.ledger.capacity} "
+                        f"slots, K {c.K}, go {'None' if c.go is None else bool(c.go)}, "
+                        f"{int(sent.sum())} sent, {int(drops[0].sum())} dropped, "
+                        f"{c.ledger.x.dtype}; with go false nothing sent or changed")
+            if go is not RECORDED and (int(sent.sum()) or int(valid.sum())):
+                raise AssertionError(f"migration on {what}: a round with go false sent")
+        seen.append(line)
+    return f"{what}: " + "; ".join(seen)
+
+
+# the migration kernel's two launches (csrc/migrate_kernel.cu), by kernel name
+MIGRATE_LAUNCHES = ("migrate_count_kernel", "migrate_pack_kernel")
+
+
+def migration_bound(c: RecordedMigration, sent) -> float:
+    """The least ms of a round's sort and pack on the card (bytes / PEAK_BYTES):
+    every slot's alive flag and block read once, the sent slots' columns read,
+    their rows written and their alive flags cleared, and the valid word of each
+    other row of the [local shards, n, K] buffers."""
+    from jaybenne_tpu_torch.parallel import spatial
+
+    p = c.ledger
+    cols = sum(getattr(p, name).element_size() for name in spatial.MIGRATE_FIELDS)
+    rows = len(c.offsets) * c.n * c.K
+    row = 4 * spatial.row_words(p)
+    return (p.capacity * 5 + sent * (cols + row + 1) + (rows - sent) * 4) / PEAK_BYTES * 1e3
+
+
+def work_by_kernel(fn, fresh, top=8, repeats=CENSUS_REPEATS) -> dict:
+    """The mean device ms a call of ``fn(fresh())`` by kernel, copy and memset
+    (the function's own name, without namespaces, template or parameters), the
+    ``top`` largest."""
+    out = {}
+    for name, us in traced_launches(fn, fresh, repeats):
+        short = name.replace("(anonymous namespace)", "").replace("void ", "")
+        short = short.split("<")[0].split("(")[0].split("::")[-1].strip() or name
+        out[short] = out.get(short, 0.0) + us / 1e3 / repeats
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
+
+
+def device_ms(fn, fresh, repeats=CENSUS_REPEATS) -> float:
+    """The mean device ms a call of all the work of ``fn(fresh())`` (every kernel,
+    copy and memset a ``torch.profiler`` trace holds), ``fresh()``'s own work left
+    out."""
+    return sum(us for _, us in traced_launches(fn, fresh, repeats)) / 1e3 / repeats
+
+
+def migration_reading(dev, c: RecordedMigration, what, smi) -> dict:
+    """A recorded round read apart (``what``; printed): the kernel's sort and pack
+    (its two launches, device ms by launch with the launches the trace holds, and
+    the window between CUDA events after a device sleep) against its bound, the
+    kernel's whole round (the pack and the insert) and the parent's
+    (``spatial.migrate(plain=True)``), each timed alone, the parent's by kernel,
+    the same round with ``go`` false by both, and, for
+    comparison, the z route's ``kept`` clones of seven columns with their
+    ``torch.where`` and the round's ``unfinished`` sums. Returns the numbers."""
+    from jaybenne_tpu_torch.parallel import exchange, sharding, spatial
+
+    fresh = c.ledger.clone
+    falsy = torch.zeros((), dtype=torch.bool, device=dev)
+    buf, sent = pack_of(c, c.ledger.clone())
+    n_sent = int(sent.sum())
+    out = {
+        "pack_ms": timed_ms(lambda x: pack_of(c, x), dev, fresh),
+        "pack_plain_ms": timed_ms(lambda x: pack_of(c, x, plain=True), dev, fresh),
+        "pack_device_ms": launch_split(lambda x: pack_of(c, x), fresh, MIGRATE_LAUNCHES),
+        "round_ms": timed_ms(lambda x: replay_migration(c, x), dev, fresh),
+        "round_plain_ms": timed_ms(lambda x: replay_migration(c, x, plain=True), dev, fresh),
+        "round_device_ms": device_ms(lambda x: replay_migration(c, x), fresh),
+        "round_plain_device_ms": device_ms(lambda x: replay_migration(c, x, plain=True), fresh),
+        "round_plain_by_kernel": work_by_kernel(lambda x: replay_migration(c, x, plain=True),
+                                                fresh),
+        "go_false_ms": timed_ms(lambda x: replay_migration(c, x, go=falsy), dev, fresh),
+        "go_false_plain_ms": timed_ms(lambda x: replay_migration(c, x, plain=True, go=falsy),
+                                      dev, fresh),
+        "go_false_device_ms": device_ms(lambda x: replay_migration(c, x, go=falsy), fresh),
+        "go_false_plain_device_ms": device_ms(
+            lambda x: replay_migration(c, x, plain=True, go=falsy), fresh),
+        "bound_ms": migration_bound(c, n_sent), "sent": n_sent,
+    }
+    ps = sharding.split_ledger(c.ledger.clone(), len(c.offsets))
+    joined = c.ledger.clone()
+    go = torch.ones((), dtype=torch.bool, device=dev)
+
+    def kept_columns(_):
+        cols = (joined.x, joined.y, joined.z, joined.i, joined.j, joined.k, joined.block)
+        old = [(x, x.clone()) for x in cols]
+        for x, y in old:
+            torch.where(go, x, y, out=x)
+
+    def unfinished(_):
+        return exchange.InProcess(c.n).sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
+                                            for p in ps])[0]
+
+    out["kept_device_ms"] = device_ms(kept_columns, lambda: None)
+    out["unfinished_device_ms"] = device_ms(unfinished, lambda: None)
+    print(f"migration round, {what} ({len(c.offsets)} local shards of {c.n}, "
+          f"{c.ledger.capacity} slots, {int(c.ledger.alive.sum())} live, K {c.K}, "
+          f"{spatial.row_words(c.ledger)} words a row, {n_sent} sent; {smi}): the kernel's sort "
+          f"and pack {out['pack_ms']!r} ms (device ms by launch {out['pack_device_ms']}), "
+          f"bound {out['bound_ms']!r} ms (bytes), at {out['bound_ms'] / out['pack_ms']:.3f} of "
+          f"it; the plain pack {out['pack_plain_ms']!r} ms; the whole round (pack, insert) "
+          f"{out['round_ms']!r} ms ({out['round_device_ms']!r} on the device), the "
+          f"parent's {out['round_plain_ms']!r} ms ({out['round_plain_device_ms']!r}); with go "
+          f"false {out['go_false_ms']!r} ms ({out['go_false_device_ms']!r}), the parent's "
+          f"{out['go_false_plain_ms']!r} ms ({out['go_false_plain_device_ms']!r}); the "
+          f"parent's round by kernel {out['round_plain_by_kernel']} ms; for comparison the z "
+          f"route's kept clones {out['kept_device_ms']!r} ms, the unfinished sums "
+          f"{out['unfinished_device_ms']!r} ms on the device", flush=True)
+    return out
+
+
+def migration_check(dev, outdir, smi) -> dict:
+    """The migration kernel (csrc/migrate_kernel.cu) bitwise its plain version on
+    the recorded first rounds of the 8-shard spatial step (big_mesh_spatial; and a
+    later round of a batch, whose ``go`` is a device flag) and of the float64
+    stepdiff at 8 spatial shards, each again with ``go`` false; its first round
+    read apart (``migration_reading``). Returns the kernel's ``kernels`` entry,
+    the launches left to the caller."""
+    from jaybenne_tpu_torch import driver
+
+    def run(mods):
+        return lambda: driver.run_file(DECK, outdir=outdir, modified_inputs=mods, quiet=True,
+                                       nlim=1, device="cuda", graph=False)
+
+    big = recorded_migrations(run({**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}), 2)
+    f64 = recorded_migrations(run({**STEPDIFF_SPATIAL, **PREC64}), 1)
+    for what, calls in (("big_mesh_spatial at 8 shards", big),
+                        ("stepdiff at 8 spatial shards, f64", f64)):
+        print("migration kernel bitwise its plain version, " + migrations_bitwise(calls, what),
+              flush=True)
+    if big[1].go is None:
+        raise AssertionError("migration: the second round of a batch has no go flag")
+    r = migration_reading(dev, big[0], "big_mesh_spatial at 8 shards, its first round", smi)
+    migration_reading(dev, f64[0], "stepdiff at 8 spatial shards in float64, its first round",
+                      smi)
+    torch.cuda.empty_cache()
+    return {
+        "name": "migrate_pack (the spatial migration's sort and pack: each local shard's "
+                "in-transit slots ranked by destination by scans and packed into rows, every "
+                "local shard in one pass, two launches a round)",
+        "route": "cuda", "source": "jaybenne_tpu_torch/csrc/migrate_kernel.cu",
+        "replaces": "jaybenne_tpu/parallel/spatial.py:77-138 (migrate: XLA's stable argsort, "
+                    "searchsorted and scatters) with jaybenne_tpu/ops/pallas_grid.py:554-578 "
+                    "(_pack_cols' row gather), no Pallas kernel",
+        "max_abs_err": 0.0, "ms": r["pack_ms"], "plain_ms": r["pack_plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }
+
+
+# the migration kernel's launches in each counted spatial path's run (its counts
+# set to 0 just before it and read just after), for its entry of the kernels line
+MIGRATE_PATHS = []
+# the migration kernel's launches in phase 30's 8-shard big_mesh_spatial run
+MIGRATE_MAIN = [0]
+
+
 @contextlib.contextmanager
 def exit_reads_counted(spatial_mod):
     """While active, each spatial batch's exit read (``spatial._exit_read``) is
@@ -3963,9 +4256,9 @@ def exit_reads_counted(spatial_mod):
         spatial_mod._exit_read = real
 
 
-def graph_phase(dev, smi) -> dict:
-    """Phase 45: the step without the host. Returns the insert kernel's ``kernels``
-    entry (``insert_check``)."""
+def graph_phase(dev, smi) -> tuple:
+    """Phase 45: the step without the host. Returns the insert kernel's and the
+    migration kernel's ``kernels`` entries (``insert_check``, ``migration_check``)."""
     from jaybenne_tpu_torch import driver
     from jaybenne_tpu_torch import profile as profile_mod
     from jaybenne_tpu_torch.ops import cuda_lib
@@ -4053,6 +4346,7 @@ def graph_phase(dev, smi) -> dict:
             if what == "the 64^3 feedback row":
                 insert = insert_check(dev, graph, smi)
                 insert_paths_check(dev, outdir, smi)
+                migration = migration_check(dev, outdir, smi)
             del sims, eager, graph
             torch.cuda.empty_cache()
 
@@ -4115,7 +4409,7 @@ def graph_phase(dev, smi) -> dict:
                 line += (f"{name} median {statistics.median(ms)!r} range [{min(ms)!r}, "
                          f"{max(ms)!r}] over {len(ms)}; ")
         print(line, flush=True)
-    return insert
+    return insert, migration
 
 
 def main() -> int:
@@ -4609,7 +4903,10 @@ def main() -> int:
          ("the 64^3 feedback row (transport_3d_abs)", fb_in),
          ("stepdiff_smr (transport_2d_smr)", s2_in)))
 
-    insert_kernel = graph_phase(dev, smi)
+    insert_kernel, migrate_kernel = graph_phase(dev, smi)
+    migrate_kernel["launches"] = MIGRATE_MAIN[0]
+    migrate_kernel["launches_by_path"] = [[what, n] for what, n in MIGRATE_PATHS]
+    print(f"migrate_pack launches by path: {MIGRATE_PATHS}", flush=True)
     insert_kernel["launches"] = fb_launches.get("ledger_insert", 0)
     insert_kernel["launches_by_path"] = [["inf", inf_launches.get("ledger_insert", 0)],
                                          ["2D feedback", launches_2d.get("ledger_insert", 0)],
@@ -4679,7 +4976,7 @@ def main() -> int:
     # ``launches`` is phase 14's; beside it every counted path's
     table_kernel["launches_by_path"] = [[what, n] for what, n in TABLE_PATHS]
     print(f"census_table launches by path: {TABLE_PATHS}", flush=True)
-    kernels += [table_kernel, insert_kernel] + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels
+    kernels += [table_kernel, insert_kernel, migrate_kernel] + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -393,6 +393,26 @@
 // resident grid (1.28 and 1.40 times the kernel before it, its two list launches
 // aside; in a loop of rounds it spilled 24 bytes).
 //
+// The float64 non-gray census on a 2D forest (stepdiff_smr with ep_bremss,
+// transport_2d_abs_smr_ng_f64: 100005 live lanes of 221504 slots). Read first
+// (NVIDIA H100 80GB HBM3, 700.00 W; census_bench.py on the path's saved inputs):
+// 91 registers, a 40-byte stack, 2 resident blocks, so 866 blocks of 256 slots in
+// 3.28 waves, the live lanes in the first 391 of them; 2.16 events a live lane,
+// the longest 24, SIMT efficiency 0.26; the whole loop at the card's issue rate
+// 0.44 of the kernel alone (0.063 ms), its busiest SM running 1.45-1.52 times the
+// mean SM's lane-events; spread over the blocks of its several waves, 0.122 ms.
+// So it runs on the resident grid in rounds (``kRounds``, as the uniform 1D routes
+// do) where its ledger takes at most four (``kRoundsMax``): every live lane in the
+// first rounds, on every SM, and the later rounds, of dead slots, short. Built so,
+// the instantiation took 79 registers and 3 resident blocks (no other
+// instantiation's resources moved), its draws in place as before. Measured in
+// turns against the kernel before it (census_bench.py, two turns, the same
+// inputs, outputs bitwise): the census 0.0590 -> 0.0553 ms, the kernel alone
+// 0.0633 -> 0.0593. Built, measured and dropped: the lean lane (``kLean``) alone,
+// 80 registers and 3 blocks, 0.0615 ms against 0.0598 (the cell's geometry made
+// anew at each event costs more than the third block gains); the lean lane in
+// rounds, 72 registers, 0.0552 ms, no better than the rounds alone.
+//
 // Built without --use_fast_math and with --fmad=false, so that every operation
 // rounds as the plain PyTorch version's does. NDIM = 1 without absorption or DDMC
 // executes the same float operations as the first (1D-only) version of this
@@ -1078,13 +1098,21 @@ constexpr bool kLean = sizeof(Real) == 8 && NDIM < 3 && !ABSORB && SMR && !DDMC 
 // Whether an instantiation runs in rounds on the card's resident grid (measured,
 // see the note at the head of this file): the float64 census without absorption
 // on a uniform 1D mesh, gray or DDMC (stepdiff's and stepdiff_ddmc's at precision
-// = f64). Where the host asks for it (a ledger of at most two rounds:
+// = f64), and the float64 non-gray census on a 2D forest (stepdiff_smr's with
+// ep_bremss). Where the host asks for it (a ledger of at most kRoundsMax rounds:
 // ops/transport_kernel.py, launch_shape) the launch has at most as many blocks as
 // the card holds at once (``Launch``), and each round takes the next kThreads x
 // blocks slots, spread over the blocks, so that a ledger's live slots at one end
 // of it run on every SM; otherwise one thread takes one slot, as elsewhere.
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
-constexpr bool kRounds = sizeof(Real) == 8 && NDIM == 1 && !ABSORB && !SMR && !NONGRAY;
+constexpr bool kRounds = sizeof(Real) == 8 && ((NDIM == 1 && !ABSORB && !SMR && !NONGRAY) ||
+                                               (NDIM == 2 && SMR && !DDMC && NONGRAY));
+// The most rounds a ledger may take there: two on the uniform 1D mesh, whose
+// lanes run long histories (a ledger with live lanes in several rounds ran them a
+// round at a time), four on the non-gray forest, whose lanes run two events or so
+// and whose later rounds hold no live lane.
+template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
+constexpr int kRoundsMax = !kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> ? 0 : NONGRAY ? 4 : 2;
 
 // Whether an instantiation spreads a spatial round's shard slices over the card
 // where the host asks for it (``Shards::width``; the 2D SMR+DDMC block route,
@@ -1295,7 +1323,7 @@ __device__ __forceinline__ void imc_draws(uint32_t key, Real (&dr)[kDraws]) {
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 constexpr bool kDrawAhead =
     (SMR && !DDMC && !NONGRAY && !kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) ||
-    (kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> && !DDMC);
+    (kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> && !DDMC && !NONGRAY);
 template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY, class Real>
 constexpr bool kDrawAtTop =
     (!SMR || kLean<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>) && !DDMC && !NONGRAY &&
@@ -1939,7 +1967,7 @@ struct Occupancy {
   int err;
   template <int NDIM, bool ABSORB, bool DDMC, bool SMR, bool NONGRAY>
   void run() {
-    rounds = kRounds<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real> ? 1 : 0;
+    rounds = kRoundsMax<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>;
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, transport_kernel<NDIM, ABSORB, DDMC, SMR, NONGRAY, Real>, kThreads, 0);
   }
@@ -2103,7 +2131,8 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
 
 // Resident blocks of kThreads threads a SM of one instantiation at precision Real
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks, and into *rounds
-// 1 where it runs in rounds on the resident grid (kRounds), else 0. Returns the
+// the most rounds a ledger may take where it runs in rounds on the resident grid
+// (kRoundsMax: 2 or 4), else 0. Returns the
 // CUDA error, -1 for an unknown ndim, -3 for nongray without absorb.
 template <class Real>
 int occupancy_entry(int ndim, int absorb, int ddmc, int smr, int nongray, int* blocks,

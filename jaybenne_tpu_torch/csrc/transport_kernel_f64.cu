@@ -18,7 +18,8 @@
 // measured there): stepdiff_smr's census 3.14 -> 2.50 ms. On a uniform 1D mesh
 // (stepdiff, stepdiff_ddmc) the census runs on the card's resident grid in rounds,
 // so that its live lanes run on every SM (kRounds; measured there): stepdiff's
-// census 1.46 -> 1.18 ms.
+// census 1.46 -> 1.18 ms; so does the non-gray census on a 2D forest (stepdiff_smr
+// with ep_bremss), whose ledger takes up to four rounds: 0.0590 -> 0.0553 ms.
 #include "transport_kernel.cuh"
 
 extern "C" int jb_transport_launch_f64(int ndim, int absorb, int ddmc, int smr, int nongray,

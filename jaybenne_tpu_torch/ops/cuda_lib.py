@@ -90,6 +90,10 @@ _SIGNATURES = {
     # segments, slots and candidates a segment, scratch dropped stream
     "jb_insert_launch": (_I, _P, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _L, _L, _P,
                          _P, _P),
+    # the 15 columns, their reals' bytes, words a row, alive block go, local shards,
+    # shards, slots a shard, blocks a shard, the first shard's first block, K,
+    # buffer, scratch and its length, sent stream
+    "jb_migrate_launch": (_P, _I, _I, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _P, _L, _P, _P),
 }
 
 

@@ -139,13 +139,14 @@ def occupancy(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
               nongray: bool = False, dtype=torch.float32) -> tuple:
     """(blocks, rounds) of one kernel instantiation: the blocks that a SM of the
     current GPU holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    and whether it runs in rounds on the card's resident grid
-    (csrc/transport_kernel.cuh, kRounds)."""
+    and, where it runs in rounds on the card's resident grid, the most rounds a
+    ledger may take there (csrc/transport_kernel.cuh, kRounds, kRoundsMax), else
+    0."""
     blocks, rounds = ctypes.c_int(0), ctypes.c_int(0)
     cuda_lib.library().call("jb_transport_occupancy" + _f64(dtype), ndim, int(absorb),
                             int(ddmc), int(smr), int(nongray), ctypes.addressof(blocks),
                             ctypes.addressof(rounds))
-    return blocks.value, bool(rounds.value)
+    return blocks.value, rounds.value
 
 
 def resident_blocks(ndim: int, absorb: bool, ddmc: bool = False, smr: bool = False,
@@ -1206,21 +1207,22 @@ def spread_width(sms: int, resident: int, shards: int, slice_: int) -> int:
     return width
 
 
-def launch_shape(slots: int, sms: int, resident: int, rounds: bool) -> tuple:
+def launch_shape(slots: int, sms: int, resident: int, max_rounds: int) -> tuple:
     """(spread, grid) of a census launch over ``slots`` ledger slots on ``sms`` SMs
     that hold ``resident`` blocks each, as the C launch entry takes them. An
-    instantiation that runs in rounds (``rounds``, csrc/transport_kernel.cuh
-    kRounds) is launched on the card's resident grid where its slots take at most
-    two rounds: at most sms x resident blocks, one wave, each round the next
+    instantiation that runs in rounds (csrc/transport_kernel.cuh kRounds) is
+    launched on the card's resident grid where its slots take at most
+    ``max_rounds`` rounds (kRoundsMax; 0 for an instantiation that does not run
+    in rounds): at most sms x resident blocks, one wave, each round the next
     THREADS x blocks slots spread over them (grid is that bound; the kernel
     launches fewer blocks where the slots need fewer). A ledger keeps its live
     slots first and at least as many after them to grow into, so its live lanes
-    then run in the first round, on every SM. A longer ledger, and any other
+    then run in the first rounds, on every SM. A longer ledger, and any other
     instantiation, takes one thread a slot (grid 0) and spreads where its blocks
     fit on the card at once (``spreads``): in rounds, a ledger with live lanes in
     several rounds runs each round's share of them alone (measured, see the
     kernel's note)."""
-    if rounds and -(-slots // THREADS) <= 2 * sms * resident:
+    if max_rounds and -(-slots // THREADS) <= max_rounds * sms * resident:
         return 1, sms * resident
     return int(spreads(slots, sms, resident)), 0
 

@@ -47,6 +47,7 @@ left in another shard's ledger slice into a free slot of its owner's.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -73,10 +74,12 @@ MIGRATE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy",
 # graphs (``build_spatial_step_core``'s default on a GPU). Chosen on one H100
 # (big_mesh_spatial at 8 shards as CUDA graphs, 74-88 rounds a step,
 # ``profile.py --rounds-per-batch``): a host read costs the replays about 0.33 ms,
-# a round with nothing to do about 3.7 ms (its migration's sorts and sums run
-# whatever moves), and 4 rounds a batch gave the step of 2 with half the reads.
-# An eager step gains nothing from a batch but the read it saves, and pays each
-# no-op round in full: it runs one round a batch
+# and 4 rounds a batch gave the step of 2 with half the reads. A round with
+# nothing to do cost about 3.7 ms while its migration sorted every slot; with the
+# migration kernel that migration takes 0.04 ms, and 8 rounds a batch still gave
+# no shorter step than 4 (the no-op round's census launch, kept columns and
+# unfinished sums remain). An eager step gains nothing from a batch but the read
+# it saves, and pays each no-op round in full: it runs one round a batch
 ROUNDS_PER_BATCH = 4
 
 
@@ -179,49 +182,128 @@ def owned_range(mesh, prm, n: int, shard: int) -> transport_kernel.OwnedRange:
     return transport_kernel.OwnedRange("blocks", shard * bl, bl)
 
 
-def migrate(ledgers, offsets, bl, K, exchange, go=None):
-    """One round of all_to_all migration over the local shards' ledgers (IN
-    PLACE; JAX ``migrate``): the live particles whose block lies outside their
-    shard's [offset, offset + bl) are grouped by destination shard with a stable
-    sort, the first K for each destination packed into an [n, K] buffer and sent;
-    the rest stay in transit for the next round. Shard s receives, from each shard
-    j in j order, what j addressed to s, and inserts it into its free slots
-    without recycling this step's absorbed rows: on a GPU one pass of the insert
-    kernel over every local shard (``particles.insert_arrivals``). With ``go`` (a
-    0-dim bool tensor) false nothing is sent and nothing changes. Returns
-    (received particles dropped for want of a free slot, particles sent), one
-    int64 tensor each of one a local shard."""
-    n = exchange.n
+def row_words(ledger) -> int:
+    """The int32 words of a migration row of ``ledger``: each MIGRATE_FIELDS
+    column's (one for a 4-byte column, two for a float64 one), a zero pad word
+    where a float64 row would have an odd count (an even count holds the float64
+    values on 8-byte boundaries, so the receiver reads them in place), and the
+    valid word last."""
+    used = sum(getattr(ledger, name).element_size() // 4 for name in MIGRATE_FIELDS) + 1
+    return used + (used % 2 if ledger.x.element_size() == 8 else 0)
+
+
+def migration_map(p, offset, bl, n, K, go=None) -> tuple:
+    """The plain version's map of one shard's round (JAX ``migrate``'s): the live
+    particles whose block lies outside [offset, offset + bl) are grouped by
+    destination shard with a stable sort. Returns (src, sent): the source slot of
+    each of the [n K] buffer rows (the capacity for a row that no slot takes),
+    and the slots sent, the first K for each destination."""
+    cap, dev = p.capacity, p.x.device
+    in_transit = p.alive & ((p.block < offset) | (p.block >= offset + bl))
+    if go is not None:
+        in_transit = in_transit & go
+    dest = torch.where(in_transit, torch.clamp(p.block // bl, 0, n - 1), n).to(torch.int64)
+    order = torch.argsort(dest, stable=True)
+    sdest = dest[order]
+    first = torch.searchsorted(sdest, torch.arange(n + 1, device=dev))
+    rank = torch.arange(cap, device=dev) - first[sdest]
+    ok = (sdest < n) & (rank < K)
+    slot = torch.where(ok, sdest * K + rank, n * K)
+    src = torch.full((n * K + 1,), cap, dtype=torch.int64, device=dev)
+    src[slot] = order  # every ok slot distinct; the rest land on the dump slot
+    # ok scattered back through the permutation order: each slot once
+    sent = torch.zeros(cap, dtype=torch.bool, device=dev).scatter_(0, order, ok)
+    return src[: n * K], sent
+
+
+def pack_plain(ledgers, offsets, bl, K, n, go=None) -> tuple:
+    """The migration's sort and pack, the plain version (IN PLACE: the sent slots
+    leave ``alive``), a shard at a time (``migration_map``): each local shard's
+    [n, K, row_words] int32 buffer of rows, every column's words then the valid
+    word (a row that no slot takes all zeros), and its sent count. Returns
+    (buffers, sent), one int64 a local shard."""
     bufs, sent_counts = [], []
-    wide = ledgers[0].x.element_size() == 8
     for p, offset in zip(ledgers, offsets):
-        cap, dev = p.capacity, p.x.device
-        in_transit = p.alive & ((p.block < offset) | (p.block >= offset + bl))
-        if go is not None:
-            in_transit = in_transit & go
-        dest = torch.where(in_transit, torch.clamp(p.block // bl, 0, n - 1), n).to(torch.int64)
-        order = torch.argsort(dest, stable=True)
-        sdest = dest[order]
-        first = torch.searchsorted(sdest, torch.arange(n + 1, device=dev))
-        rank = torch.arange(cap, device=dev) - first[sdest]
-        ok = (sdest < n) & (rank < K)
-        slot = torch.where(ok, sdest * K + rank, n * K)
-        src = torch.full((n * K + 1,), cap, dtype=torch.int64, device=dev)
-        src[slot] = order  # every ok slot distinct; the rest land on the dump slot
-        src = src[: n * K]
+        src, sent = migration_map(p, offset, bl, n, K, go)
         cols = [_words(getattr(p, name)) for name in MIGRATE_FIELDS]
-        # a row of an even count of words holds its float64 values on 8-byte
-        # boundaries, so the receiver reads them in place
-        if wide and (sum(c.shape[1] for c in cols) + 1) % 2:
+        if row_words(p) > sum(c.shape[1] for c in cols) + 1:  # the pad word
             cols.append(torch.zeros_like(cols[-1][:, :1]))
         rows = torch.cat(cols + [torch.ones_like(cols[-1][:, :1])], dim=1)
         rows = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])  # the empty row
         bufs.append(rows[src].reshape(n, K, rows.shape[1]))
-        # ok scattered back through the permutation order: each slot once
-        sent = torch.zeros(cap, dtype=torch.bool, device=dev).scatter_(0, order, ok)
         p.alive.copy_(p.alive & ~sent)
         sent_counts.append(sent.sum(dtype=torch.int64))
-    recv = exchange.all_to_all(bufs)  # [local shards, n, K, words]
+    return bufs, torch.stack(sent_counts)
+
+
+# slots a tile of the migration kernel's scans (csrc/migrate_kernel.cu, kTile),
+# in rounds of MIGRATE_THREADS consecutive slots (kThreads)
+MIGRATE_TILE, MIGRATE_THREADS = 512, 256
+
+
+def _pack_cuda(ledgers, offsets, bl, K, n, go) -> tuple:
+    """One pass of the migration kernel (``csrc/migrate_kernel.cu``) over every
+    local shard's adjacent slice (``join_slices``) on PyTorch's current stream,
+    without waiting for it: ``pack_plain``'s buffers, in the receivers' layout
+    (one [n, m, K, row_words] tensor, local shard s's buffer at ``[:, s]``, as the
+    in-process exchange would stack them), every row that no slot takes with
+    valid word 0 and its other words unwritten, and the sent counts. Raises
+    unless the ledgers are adjacent slices on one GPU with their shards' offsets
+    ``offsets[0] + i bl``."""
+    from ..ops import cuda_lib
+
+    joined, _ = join_slices(ledgers)
+    m, dev = len(ledgers), joined.alive.device
+    if list(offsets) != [offsets[0] + i * bl for i in range(m)]:
+        raise ValueError(f"migration kernel: offsets {list(offsets)} are not {bl} blocks apart")
+    if go is not None and (go.device != dev or go.dtype != torch.bool or go.numel() != 1):
+        raise ValueError("migration kernel: go must be one bool on the ledger's GPU")
+    cols = [getattr(joined, name) for name in MIGRATE_FIELDS]
+    if any(c.device != dev or not c.is_contiguous() for c in cols + [joined.alive]):
+        raise ValueError("migration kernel: ledger columns must be contiguous on one GPU")
+    reals, ints = cols[:9], cols[9:]  # the kernel's row layout (kReals, kInts)
+    if (joined.alive.dtype != torch.bool or any(c.dtype != torch.int32 for c in ints)
+            or any(c.dtype != joined.x.dtype for c in reals)):
+        raise ValueError("migration kernel: a bool alive column, nine reals of one dtype "
+                         "and six int32 columns")
+    words = row_words(joined)
+    cap_l = joined.capacity // m
+    buf = torch.empty((n, m, K, words), dtype=torch.int32, device=dev)
+    scratch = torch.empty(m * -(-cap_l // MIGRATE_TILE) * n, dtype=torch.int32, device=dev)
+    sent = torch.empty(m, dtype=torch.int64, device=dev)
+    cuda_lib.library().call(
+        "jb_migrate_launch", (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols]),
+        joined.x.element_size(), words, joined.alive.data_ptr(), joined.block.data_ptr(),
+        None if go is None else go.data_ptr(), m, n, cap_l, bl, offsets[0], K,
+        buf.data_ptr(), scratch.data_ptr(), scratch.numel(), sent.data_ptr(),
+        cuda_lib.stream_handle(dev))
+    cuda_lib.LAUNCHES["migrate_pack"] += 2  # counts, ranks and rows
+    return buf, sent
+
+
+def migrate(ledgers, offsets, bl, K, exchange, go=None, plain=False):
+    """One round of all_to_all migration over the local shards' ledgers (IN
+    PLACE; JAX ``migrate``): the live particles whose block lies outside their
+    shard's [offset, offset + bl) are grouped by destination shard as a stable
+    sort groups them, the first K for each destination packed into an [n, K]
+    buffer and sent; the rest stay in transit for the next round. On a GPU one
+    pass of the migration kernel over every local shard (``_pack_cuda``, straight
+    into the in-process exchange's receivers' layout, so nothing is stacked), on
+    the CPU (or with ``plain``) its plain version (``pack_plain``). Shard s
+    receives, from each shard j in j order, what j addressed to s, and inserts it
+    into its free slots without recycling this step's absorbed rows: on a GPU one
+    pass of the insert kernel over every local shard
+    (``particles.insert_arrivals``). With ``go`` (a 0-dim bool tensor) false
+    nothing is sent and nothing changes. Returns (received particles dropped for
+    want of a free slot, particles sent), one int64 tensor each of one a local
+    shard."""
+    n = exchange.n
+    if ledgers[0].alive.is_cuda and not plain:
+        buf, sent = _pack_cuda(ledgers, offsets, bl, K, n, go)
+        recv = buf if isinstance(exchange, InProcess) else exchange.all_to_all(buf.unbind(1))
+    else:
+        bufs, sent = pack_plain(ledgers, offsets, bl, K, n, go)
+        recv = exchange.all_to_all(bufs)  # [local shards, n, K, words]
     recv = recv.reshape(-1, recv.shape[-1])
     cand, c = {}, 0
     for name in MIGRATE_FIELDS:
@@ -229,7 +311,7 @@ def migrate(ledgers, offsets, bl, K, exchange, go=None):
         w = dt.itemsize // 4
         cand[name] = recv[:, c:c + w].view(dt)[:, 0]
         c += w
-    return insert_arrivals(ledgers, cand, recv[:, -1]), torch.stack(sent_counts)
+    return insert_arrivals(ledgers, cand, recv[:, -1]), sent
 
 
 def _exit_read(unfinished: torch.Tensor) -> int:

@@ -692,8 +692,9 @@ def test_owned_range_blocks_kernel_matches_plain(gpu, shard):
 def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
     """The stepdiff slab through the spatial decomposition at 4 in-process shards
     on the card, 2 steps: every round queued (a batch's no-op rounds too) makes
-    one launch of the block-range route over all 4 shards, the tally holds the
-    live weights, and a rerun is bitwise identical."""
+    one launch of the block-range route over all 4 shards and one pass (two
+    launches) of the migration kernel, the tally holds the live weights, and a
+    rerun is bitwise identical."""
     mods = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
             "jaybenne/num_particles": 8000, "jaybenne/decomposition": "spatial",
             "jaybenne/n_devices": 4, "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "2.e-11",
@@ -701,7 +702,7 @@ def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
     name = transport_kernel.launch_name(1, False, False, True, route="@blocks")
     sims = []
     for _ in range(2):
-        before = cuda_lib.LAUNCHES[name]
+        before, before_pack = cuda_lib.LAUNCHES[name], cuda_lib.LAUNCHES["migrate_pack"]
         sims.append(run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
                              device="cuda"))
         sim = sims[-1]
@@ -709,6 +710,8 @@ def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
         rounds = sum(h["migration_rounds"] for h in sim.history)
         assert 0 < rounds <= core.rounds_run
         assert cuda_lib.LAUNCHES[name] == before + core.rounds_run  # one a round queued
+        # the migration kernel: its two launches a round queued
+        assert cuda_lib.LAUNCHES["migrate_pack"] == before_pack + 2 * core.rounds_run
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.is_cuda and torch.equal(a, b)
     sim = sims[0]
@@ -1370,10 +1373,10 @@ F32_MODES = ((False, False, False), (True, False, False), (False, True, False),
 def test_f64_register_budget_held(gpu, route):
     """Each float64 instantiation is resident: the redesigned routes
     (``chip_smoke.F64_RESIDENT_FLOOR``: transport_2d_smr_f64 and
-    transport_1d_smr_f64 for the register file, transport_1d_f64 and
-    transport_1d_ddmc_f64 on the resident grid) hold at least 3, 4, 4 and 4 blocks
-    of 256 a SM on an H100, with no spill bytes (ptxas's lines of the library's
-    build)."""
+    transport_1d_smr_f64 for the register file, transport_1d_f64,
+    transport_1d_ddmc_f64 and transport_2d_abs_smr_ng_f64 on the resident grid)
+    hold at least 3, 4, 4, 4 and 3 blocks of 256 a SM on an H100, with no spill
+    bytes (ptxas's lines of the library's build)."""
     cs = _chip_smoke()
     name = transport_kernel.launch_name(*route, dtype=torch.float64)
     floor = cs.F64_RESIDENT_FLOOR.get(name)
@@ -1655,3 +1658,141 @@ def test_spatial_graph_matches_eager(gpu, tmp_path, path):
     assert sum(h["migrated"] for h in graph.history) > 0
     if "suolson" in path:  # past the source's cutoff
         assert graph.t > graph.cfg.jaybenne.external_source_tmax + graph.cfg.jaybenne.dt
+
+
+# ---------------------------------------- the migration's sort and pack, by scans
+
+# local shards, shards, slots a shard, blocks a shard, the first shard's first
+# block, K, alive share, float64, go (tests/test_torch_migrate_scan.py's cases)
+_MIGRATE_CASES = {
+    "n8_several_tiles": (8, 8, 9000, 4, 0, 2000, 0.6, False, True),
+    "n8_overflow": (8, 8, 5000, 2, 0, 30, 0.8, False, True),
+    "n3": (3, 3, 2100, 2, 0, 400, 0.7, False, True),
+    "go_false": (8, 8, 5000, 2, 0, 300, 0.7, False, False),
+    "f64": (8, 8, 5000, 3, 0, 500, 0.6, True, True),
+    "f64_overflow": (8, 8, 3000, 3, 0, 10, 0.9, True, True),
+    "one_of_four": (1, 4, 7000, 5, 10, 200, 0.7, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MIGRATE_CASES))
+def test_migrate_kernel_matches_plain(gpu, case):
+    """The migration kernel's pass over every local shard (csrc/migrate_kernel.cu,
+    two launches) against its plain version's stable sort on random ledgers:
+    the ledger after it and the sent counts bitwise, every buffer row whose valid
+    word is 1 bitwise the plain row, every other row's valid word 0, in the
+    receivers' layout (as the in-process exchange stacks the plain buffers);
+    then the whole round through the in-process exchange and the insert, every
+    column and the dropped and sent counts bitwise."""
+    from jaybenne_tpu_torch.parallel import exchange, spatial
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    m, n, cap_l, bl, off0, K, share, wide, go = _MIGRATE_CASES[case]
+    rng = np.random.default_rng(sorted(_MIGRATE_CASES).index(case))
+    dt = torch.float64 if wide else torch.float32
+    cap = m * cap_l
+    p0 = empty_ledger(cap, dt, gpu)
+    for k in ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy"):
+        getattr(p0, k).copy_(torch.from_numpy(rng.standard_normal(cap)))
+    for k in ("i", "j", "k", "face", "leak"):
+        getattr(p0, k).copy_(torch.from_numpy(rng.integers(-3, 9, cap)))
+    shard = np.arange(cap) // cap_l
+    own = off0 + shard * bl + rng.integers(0, bl, cap)
+    p0.block.copy_(torch.from_numpy(np.where(rng.random(cap) < 0.5, own,
+                                             rng.integers(0, n * bl, cap))))
+    p0.alive.copy_(torch.from_numpy(rng.random(cap) < share))
+    p0.absorbed.copy_(torch.from_numpy(rng.random(cap) < 0.1))
+    offsets = [off0 + s * bl for s in range(m)]
+    flag = torch.tensor(go, device=gpu)
+    a, b = p0.clone(), p0.clone()
+    before = cuda_lib.LAUNCHES["migrate_pack"]
+    buf, sent = spatial._pack_cuda(split_ledger(a, m), offsets, bl, K, n, flag)
+    assert cuda_lib.LAUNCHES["migrate_pack"] == before + 2
+    want, plain_sent = spatial.pack_plain(split_ledger(b, m), offsets, bl, K, n, flag)
+    want = torch.stack(want, dim=1)
+    assert buf.shape == want.shape == (n, m, K, spatial.row_words(p0))
+    valid = want[..., -1] == 1
+    assert torch.equal(sent, plain_sent)
+    assert torch.equal(buf[..., -1] == 1, valid) and bool((buf[..., -1][~valid] == 0).all())
+    assert torch.equal(buf[valid], want[valid])
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    if go:
+        assert int(sent.sum()) > 0
+        if "overflow" in case:
+            assert int(sent.max()) == K * (n - 1)
+    else:
+        assert int(sent.sum()) == 0 and not bool(valid.any())
+    if m == n:  # every shard in this process: the in-process round, and the round
+        # through an exchange that takes each local shard's buffer, as Distributed does
+        class Senders(exchange.Exchange):
+            def all_to_all(self, xs):
+                return torch.stack(list(xs), dim=1)
+
+        senders = Senders()
+        senders.n = n
+        b = p0.clone()
+        db, sb = spatial.migrate(split_ledger(b, m), offsets, bl, K, exchange.InProcess(n), flag,
+                                 plain=True)
+        for ex in (exchange.InProcess(n), senders):
+            a = p0.clone()
+            da, sa = spatial.migrate(split_ledger(a, m), offsets, bl, K, ex, flag)
+            assert torch.equal(da, db) and torch.equal(sa, sb)
+            for f in dataclasses.fields(a):
+                x, y = getattr(a, f.name), getattr(b, f.name)
+                assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), f.name
+
+
+@pytest.mark.parametrize("path", ["stepdiff_8_shards", "f64"])
+def test_migrate_kernel_on_recorded_rounds(gpu, tmp_path, path):
+    """The migration kernel bitwise its plain version (chip_smoke.migrations_bitwise)
+    on the first two rounds of a step at 8 spatial shards as the eager step records
+    them (the second a later round of a batch, its go a device flag), each again
+    with go false: the ledgers, the sent and dropped counts and every valid row."""
+    cs = _chip_smoke()
+    mods = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
+            "jaybenne/decomposition": "spatial", "jaybenne/n_devices": 8,
+            "jaybenne/num_particles": 8000, "jaybenne/dt": "1.e-11",
+            "mcblock/scattering_constant_value": 200.0, "parthenon/output0/file_type": "none",
+            **({"jaybenne/precision": "f64"} if path == "f64" else {})}
+    calls = cs.recorded_migrations(
+        lambda: run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
+                         nlim=1, device="cuda", graph=False), 2)
+    assert len(calls) == 2 and calls[0].go is None and calls[1].go is not None
+    cs.migrations_bitwise(calls, path)
+
+
+@pytest.mark.parametrize("ledger", ["recorded", "flipped", "2x"])
+def test_nongray_f64_forest_route_bitwise(gpu, tmp_path, ledger):
+    """transport_2d_abs_smr_ng_f64 on its path's recorded census (stepdiff_smr with
+    ep_bremss in float64, chip_smoke.py phase 43's EPBremss step), which runs on
+    the card's resident grid in rounds (its live lanes in the first), on that
+    ledger in reverse slot order (live lanes in its last rounds) and on it twice
+    over (past four rounds: one thread a slot): after 8 iterations and after a
+    full census (chip_smoke.f64_vs_plain), and the whole census with its events
+    and iteration maximum, every column bitwise its float64 plain version's."""
+    cs = _chip_smoke()
+    with cs.CensusRecorder(transport_kernel, 1) as rec:
+        run_file(cs.SMR_DECK, outdir=str(tmp_path), modified_inputs={**cs.NG_SMR, **cs.PREC64},
+                 quiet=True, nlim=1, device="cuda", graph=False)
+    p0, (coefs, mesh, seed, prm, dt) = rec.inputs
+    name = transport_kernel.launch_name(2, True, False, True, True, dtype=torch.float64)
+    assert p0.x.dtype == torch.float64 and not coefs.is_gray and mesh.max_level > 0
+    if ledger == "flipped":
+        p0 = _flipped(p0)
+    if ledger == "2x":
+        import census_bench  # beside chip_smoke.py
+
+        p0 = census_bench.times_over(p0, 2)
+    blocks, rounds = transport_kernel.occupancy(2, True, False, True, True, torch.float64)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    grid = transport_kernel.launch_shape(p0.capacity, sms, blocks, rounds)[1]
+    assert rounds == 4 and (grid > 0) == (ledger != "2x"), (blocks, rounds, grid)
+    err, events, _ = cs.f64_vs_plain(transport_kernel, gpu, name, p0, coefs, mesh, prm, dt, seed)
+    before = cuda_lib.LAUNCHES[name]
+    k, it_k, ev_k = transport_kernel.transport(p0.clone(), coefs, mesh, seed, prm, dt)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    q, it_q, ev_q = transport_kernel.transport_plain(p0.clone(), coefs, mesh, seed, prm, dt)
+    _same_bits(k, q)
+    _same_counts(it_k, ev_k, it_q, ev_q)
+    assert err == 0.0 and events > 0 and int(ev_k) > 0

@@ -101,7 +101,22 @@ def test_a_rounds_launch_takes_the_resident_grid(slots, resident, rounds, want):
     spreads only where its blocks fit at once."""
     from jaybenne_tpu_torch.ops import transport_kernel as tk
 
-    assert tk.launch_shape(slots, 132, resident, rounds) == want
+    assert tk.launch_shape(slots, 132, resident, 2 if rounds else 0) == want
+
+
+@pytest.mark.parametrize("slots, resident, want", [
+    (221504, 3, (1, 396)),             # stepdiff_smr's ep_bremss census in float64
+    (4 * 396 * 256, 3, (1, 396)),      # four rounds
+    (4 * 396 * 256 + 1, 3, (0, 0)),    # five: one thread a slot, in order
+])
+def test_the_nongray_forest_takes_up_to_four_rounds(slots, resident, want):
+    """(spread, grid) of the float64 non-gray census on a 2D forest, which runs in
+    rounds on the resident grid where its slots take at most four
+    (csrc/transport_kernel.cuh kRoundsMax): its lanes run two events or so, so the
+    rounds past its live slots are short."""
+    from jaybenne_tpu_torch.ops import transport_kernel as tk
+
+    assert tk.launch_shape(slots, 132, resident, 4) == want
 
 
 def test_loop_body_reads_the_event_loop_inside_rounds():
