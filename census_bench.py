@@ -57,6 +57,16 @@ alone), the kernel's own duration on the device (torch.profiler), the share of
 its bytes bound of each, the instantiation's registers and runtime
 integer divisions in its SASS; on a single device the census call and its split.
 
+With ``--only tally`` and ``--only faces`` it reads the tally kernel
+(``csrc/tally_kernel.cu``) and the DDMC face kernel (``csrc/faces_kernel.cu``)
+apart first, in this tree: each bitwise its plain version on every call of
+``chip_smoke.py`` phase 46's paths (TALLY_PATHS, FACE_PATHS) and read apart on
+each path's first step (device ms by launch from torch.profiler with the
+launches its trace holds, the event window after a device sleep, the plain
+version's, the bytes bound); then profile.py on TALLY_FACES_DECKS in the turns,
+as CUDA graphs, and the 64^3 DDMC row eagerly once for the parent and this tree
+(every span, ``step.face_probs`` among them).
+
 With ``--only migrate`` it reads the spatial migration apart first, in this tree
 (its package's plain migrate, ``migrate(plain=True)``, is the parent's): on the
 recorded first round of each deck of MIGRATE_DECKS (big_mesh_spatial and the
@@ -138,6 +148,10 @@ PROFILE_DECKS = {
         "parthenon/meshblock/nx1=8", "parthenon/meshblock/nx2=8", "parthenon/meshblock/nx3=8",
         "jaybenne/num_particles=200000", "jaybenne/use_ddmc=true",
         "parthenon/output0/file_type=none"]),
+    # chip_smoke.py phase 5's stepdiff gate (128 cells, 100k particles)
+    "stepdiff": ("inputs/stepdiff.in", [
+        "parthenon/mesh/nx1=128", "parthenon/meshblock/nx1=128",
+        "jaybenne/num_particles=100000", "parthenon/output0/file_type=none"]),
     "stepdiff_3d": ("inputs/stepdiff_3d_smr_ddmc.in", [
         "jaybenne/num_particles=500000", "parthenon/output0/file_type=none"]),
     # chip_smoke.py phase 43's float64 stepdiff_smr and stepdiff at 8 spatial shards
@@ -908,10 +922,11 @@ def profile(tree, deck, extra=()) -> dict:
                                           res.stdout).group(1))
     steps = int(PROFILE_ARGS[PROFILE_ARGS.index("--steps") + 1])
     census = sum(v for k, v in launches.items() if k.startswith("transport_")) / steps
-    spans = [line for line in res.stdout.splitlines() if line.startswith("span spatial.round")]
+    spans = [line for line in res.stdout.splitlines() if line.startswith("span ")]
     return {"census_ms_per_step": kernel, "census_launches_per_step": census,
             "device_ms_per_step": float(m.group(1)), "step_wall_ms": float(m.group(2)),
-            "spans": spans}
+            "spans": [line for line in spans if line.startswith("span spatial.round")],
+            "all_spans": spans}
 
 
 # ``--only migrate``: the spatial migration read apart on the recorded first round
@@ -955,6 +970,30 @@ def migrate_reading() -> dict:
     return out
 
 
+# ``--only tally`` and ``--only faces``: the tally kernel and the DDMC face kernel
+# read apart on the paths' recorded calls (chip_smoke.py phase 46's
+# ``tally_faces_readings``, this tree), then the steps they change by profile.py in
+# the turns, as CUDA graphs, and eagerly once for the parent and this tree (the
+# 64^3 DDMC row's spans, ``step.face_probs`` among them)
+TALLY_FACES = ("tally", "faces")
+TALLY_FACES_DECKS = ("big_mesh_ddmc", "feedback_64", "stepdiff")
+
+
+def tally_faces_reading(which) -> dict:
+    """``--only tally`` / ``--only faces``: each kernel bitwise its plain version on
+    every path's recorded calls and read apart, in this process with this tree's
+    package (``chip_smoke.tally_faces_readings``)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    readings = cs.tally_faces_readings(torch.device("cuda", 0), smi, which)
+    return {f"{kind}: {what}": r for (kind, what), r in readings.items()}
+
+
 def issue_share(kids, tree, name, summary, sms) -> float:
     """The issue share of ``tree``'s census ``name``: its event loop's common-path
     SASS instructions times the census's events over the median of its turns'
@@ -981,7 +1020,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", action="append", metavar="ROUTE",
                     help="time this route (with its lane sweep) alone; may repeat; "
                     f"{TABLE}: the census table read apart on TABLE_PATHS; {MIGRATE}: the "
-                    "spatial migration read apart on MIGRATE_DECKS")
+                    "spatial migration read apart on MIGRATE_DECKS; tally, faces: the tally "
+                    "kernel, the DDMC face kernel read apart on chip_smoke.py's paths")
     ap.add_argument("--out", help="also write every number here, as JSON")
     ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--mix-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
@@ -1035,6 +1075,30 @@ def main(argv=None) -> int:
                     summary["tables"].append({"tables": json.load(f), "tree": label[tree]})
         table_lines(summary["tables"], trees, label)
         args.only = [r for r in args.only if r != TABLE]
+        if not args.only:
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(summary, f, indent=1)
+            print(smi)
+            return 0
+    if args.only and any(k in args.only for k in TALLY_FACES):
+        summary["tally_faces"] = tally_faces_reading([k for k in TALLY_FACES if k in args.only])
+        eager_read = set()  # the parent and this tree eagerly too, once each (the spans)
+        for k, tree in enumerate(order):
+            who = label[tree]
+            read = who in ("parent", "this tree") and who not in eager_read
+            eager_read.add(who)
+            for deck in TALLY_FACES_DECKS:
+                for eager in ((), ("--eager",)) if read and deck == "big_mesh_ddmc" else ((),):
+                    row = profile(tree, deck, eager)
+                    summary["profile"].append({"tree": who, "deck": deck,
+                                               "eager": bool(eager), **row})
+                    print(f"profile {k}: {deck} {who}{' eager' if eager else ''}: device total "
+                          f"{row['device_ms_per_step']!r} ms a step, step wall median "
+                          f"{row['step_wall_ms']!r} ms", flush=True)
+                    for line in row["all_spans"] if eager else ():
+                        print(f"  {who} {deck}: {line}", flush=True)
+        args.only = [r for r in args.only if r not in TALLY_FACES]
         if not args.only:
             if args.out:
                 with open(args.out, "w") as f:

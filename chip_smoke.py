@@ -294,7 +294,24 @@ Phases:
      64^3 feedback row, Su-Olson (0 a step, or the phase fails) and the 8-shard
      spatial row; the step wall times, eager against graph replays, of stepdiff,
      the 64^3 DDMC and feedback rows, stepdiff_smr, Su-Olson and the spatial
-     rows.
+     rows;
+ 46. the tally kernel (csrc/tally_kernel.cu: every local shard's slots in one
+     pass of three launches, the deposit and the tally together) bitwise its
+     plain version on every pass of a step's run (the initial radiation's and the
+     first step's) of stepdiff (128 cells, 201152 slots), the 64^3 feedback row
+     (deposit and tally), the 64^3 DDMC row, the float64 stepdiff, stepdiff_smr
+     at 8 particle shards and big_mesh_spatial's 8-shard tail; the DDMC face
+     kernel (csrc/faces_kernel.cu: every local shard's faces in one launch, from
+     a side map built once per mesh) bitwise its plain version on the 64^3 DDMC
+     row (3D, periodic y and z) and stepdiff_ddmc (1D), each in float32 and
+     float64, the native hybrid's and stepdiff_smr_ddmc's refined forests (the
+     latter in float64 too) and the 8-shard spatial head from the all-gathered
+     surfaces; each read apart on the path's first step (``kernel_reading``:
+     device ms by launch from torch.profiler, with how many launches the trace
+     holds; the event window after a device sleep; the plain version's; the
+     bytes bound); then profile.py on the 64^3 DDMC row as a graph and eagerly
+     (its spans), stepdiff and the 64^3 feedback row. Their ``kernels`` entries
+     take their launches from phase 14's run, with every counted path's beside.
 
 The recorded runs of phases 12-14, 16-21 and 23-25 and of ``census_bench.py``
 run the eager step (``graph=False``): a CUDA graph's replay calls no Python, so
@@ -3430,8 +3447,11 @@ F64_REDESIGNED = {
 def only_f64(launches, what):
     """Raises unless a float64 run launched float64 kernels alone (the insert
     kernel, ``ledger_insert``, and the migration kernel, ``migrate_pack``, copy the
-    bytes of a column of either width)."""
-    other = [k for k, n in launches.items() if n and k not in ("ledger_insert", "migrate_pack")
+    bytes of a column of either width; the tally kernel, ``tally``, and the face
+    kernel, ``ddmc_face_probs``, count either precision's launches under one
+    name)."""
+    either = ("ledger_insert", "migrate_pack", "tally", "ddmc_face_probs")
+    other = [k for k, n in launches.items() if n and k not in either
              and not k.split("@")[0].endswith("_f64")]
     if other:
         raise AssertionError(f"{what}: the float64 run launched {other}: {launches}")
@@ -4412,7 +4432,363 @@ def graph_phase(dev, smi) -> tuple:
     return insert, migration
 
 
+# the tally kernel's three launches and the face kernel's one (csrc/tally_kernel.cu,
+# csrc/faces_kernel.cu), by kernel name
+TALLY_LAUNCHES = ("tally_exponent_kernel", "tally_sum_kernel", "tally_cell_kernel")
+FACE_LAUNCHES = ("face_probs_kernel",)
+# phase 46: the paths whose tally calls (the initial radiation's and the first
+# step's) the tally kernel is held on bitwise; (what, deck, overrides)
+TALLY_PATHS = (
+    ("stepdiff", DECK, GATE),
+    ("the 64^3 feedback row", DECK, FEEDBACK),
+    ("the 64^3 DDMC row", DECK, BIG_DDMC),
+    ("stepdiff in float64", DECK, {**GATE, **PREC64}),
+    ("stepdiff_smr at 8 particle shards (phase 32's)", SMR_DECK, {**SMR_GATE, **EIGHT}),
+    ("big_mesh_spatial at 8 shards (its tail)", DECK,
+     {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}),
+)
+# the paths whose face probabilities the face kernel is held on bitwise
+FACE_PATHS = (
+    ("the 64^3 DDMC row (3D, periodic y and z)", DECK, BIG_DDMC),
+    ("the 64^3 DDMC row in float64", DECK, {**BIG_DDMC, **PREC64}),
+    ("stepdiff_ddmc (1D)", DDMC_DECK, DDMC_GATE),
+    ("stepdiff_ddmc in float64", DDMC_DECK, {**DDMC_GATE, **PREC64}),
+    ("the native hybrid's refined forest (phase 21's)", HYBRID_DECK, NATIVE_HYBRID),
+    ("stepdiff_smr_ddmc's refined forest", SMR_DDMC_DECK, SMR_GATE),
+    ("stepdiff_smr_ddmc's refined forest in float64", SMR_DDMC_DECK, {**SMR_GATE, **PREC64}),
+    ("the 8-shard spatial head (phase 33's SMR+DDMC deck), from the all-gathered surfaces",
+     SMR_DDMC_DECK, {**SMR_SPATIAL, **SPATIAL, "jaybenne/n_devices": 8}),
+)
+# the steps profile.py reads (device time by kernel; the 64^3 DDMC row eagerly too,
+# by span); (what, deck, overrides, eager)
+PROFILED_STEPS = (
+    ("the 64^3 DDMC row", DECK, BIG_DDMC, False),
+    ("the 64^3 DDMC row, eager (by span)", DECK, BIG_DDMC, True),
+    ("stepdiff", DECK, GATE, False),
+    ("the 64^3 feedback row", DECK, FEEDBACK, False),
+)
+
+
+class RecordedTally(typing.NamedTuple):
+    """One pass of the tally kernel as a run made it (``tally._tally_cuda``'s
+    arguments): copies of each shard's tally and energy_delta, a clone of the local
+    shards' joined ledger, the shard count and the rest as given."""
+
+    fields: list
+    ledger: object
+    m: int
+    mesh: object
+    deposit: bool
+    exchange: object
+    block_offsets: object
+
+
+def recorded_tallies(run) -> list:
+    """Every pass of the tally kernel that ``run()`` makes, as ``RecordedTally``s;
+    the run goes on as it would."""
+    from jaybenne_tpu_torch.ops import tally
+    from jaybenne_tpu_torch.particles import join_slices
+
+    calls, real = [], tally._tally_cuda
+
+    def recording(fields, particles, mesh, deposit, exchange=None, block_offsets=None):
+        calls.append(RecordedTally(
+            [dataclasses.replace(f, energy_tally=f.energy_tally.clone(),
+                                 energy_delta=f.energy_delta.clone()) for f in fields],
+            join_slices(particles)[0].clone(), len(particles), mesh, deposit, exchange,
+            None if block_offsets is None else list(block_offsets)))
+        return real(fields, particles, mesh, deposit, exchange, block_offsets)
+
+    tally._tally_cuda = recording
+    try:
+        run()
+    finally:
+        tally._tally_cuda = real
+    return calls
+
+
+def replay_tally(c: RecordedTally, plain=False) -> list:
+    """A recorded pass by the kernel, or by its plain version
+    (``tally.tallies(plain=True)``): each shard's fields."""
+    from jaybenne_tpu_torch.ops import tally
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    ps = split_ledger(c.ledger, c.m) if c.m > 1 else [c.ledger]
+    if plain:
+        return tally.tallies(c.fields, ps, c.mesh, c.deposit, c.exchange, c.block_offsets,
+                             plain=True)
+    return tally._tally_cuda(c.fields, ps, c.mesh, c.deposit, c.exchange, c.block_offsets)
+
+
+def tally_bound(c: RecordedTally) -> float:
+    """The least ms of a pass on the card (bytes / PEAK_BYTES): every slot's flags
+    read once (alive, and absorbed with the deposit), the weight, block and cell
+    of each slot that contributes (alive, or absorbed with the deposit, in its
+    shard's own blocks), and each shard's tally written (and its energy_delta read
+    and written with the deposit)."""
+    p = c.ledger
+    used = (p.alive | p.absorbed) if c.deposit else p.alive
+    if c.block_offsets is not None:
+        bl = c.fields[0].energy_tally.shape[0]
+        g = torch.arange(p.capacity, device=p.block.device) // (p.capacity // c.m)
+        local = p.block.long() - (c.block_offsets[0] + g * bl)
+        used = used & (local >= 0) & (local < bl)
+    flags = p.capacity * (2 if c.deposit else 1)
+    slots = int(used.sum()) * (p.weight.element_size() + 16)
+    t = c.fields[0].energy_tally
+    cells = c.m * t.numel() * t.element_size() * (3 if c.deposit else 1)
+    return (flags + slots + cells) / PEAK_BYTES * 1e3
+
+
+def tallies_bitwise(calls, what) -> str:
+    """Each recorded pass by the kernel and by its plain version: raises unless
+    every shard's tally and energy_delta are bitwise equal and the kernel's three
+    launches were counted. Returns what was held, as text."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    if not calls:
+        raise AssertionError(f"tally on {what}: no call recorded")
+    seen = []
+    for c in calls:
+        before = cuda_lib.LAUNCHES["tally"]
+        got = replay_tally(c)
+        if cuda_lib.LAUNCHES["tally"] != before + 3:
+            raise AssertionError(f"tally on {what}: the kernel did not launch its three")
+        want = replay_tally(c, plain=True)
+        for s, (k, w) in enumerate(zip(got, want)):
+            for name in ("energy_tally", "energy_delta"):
+                if not bitwise_equal(getattr(k, name), getattr(w, name)):
+                    raise AssertionError(f"tally on {what}: shard {s}'s {name} differs")
+        kind = ("spatial" if c.block_offsets is not None else
+                "particle" if c.exchange is not None else "one device")
+        seen.append(f"{c.m} shard(s) in one pass ({kind}), {c.ledger.capacity} slots, "
+                    f"{int(c.ledger.alive.sum())} alive, {int(c.ledger.absorbed.sum())} "
+                    f"absorbed, {c.fields[0].energy_tally.numel()} cells a shard, "
+                    f"{'deposit and tally' if c.deposit else 'tally'}, {c.ledger.weight.dtype}")
+    return f"{what}: " + "; ".join(seen)
+
+
+class RecordedFaces(typing.NamedTuple):
+    """One launch of the face kernel as a run made it (``fleck._faces_cuda``'s
+    arguments, sigma_t and the surfaces copied with their strides)."""
+
+    mesh: object
+    sigmas: list
+    surfs: object
+    offsets: list
+    tau: float
+    periodic: tuple
+    dtype: object
+
+
+def recorded_faces(run) -> list:
+    """Every launch of the face kernel that ``run()`` makes, as ``RecordedFaces``."""
+    from jaybenne_tpu_torch.ops import fleck
+
+    calls, real = [], fleck._faces_cuda
+
+    def recording(mesh, sigmas, surfs, offsets, tau, periodic, dtype):
+        calls.append(RecordedFaces(mesh, [kept(t) for t in sigmas],
+                                   None if surfs is None else [kept(g) for g in surfs],
+                                   list(offsets), tau, tuple(periodic), dtype))
+        return real(mesh, sigmas, surfs, offsets, tau, periodic, dtype)
+
+    fleck._faces_cuda = recording
+    try:
+        run()
+    finally:
+        fleck._faces_cuda = real
+    return calls
+
+
+def replay_faces(c: RecordedFaces, plain=False) -> list:
+    """A recorded launch by the kernel, or by its plain version
+    (``ddmc_face_probs`` or ``ddmc_face_probs_spatial``, a shard at a time)."""
+    from jaybenne_tpu_torch.ops import fleck
+
+    if plain and c.surfs is None:
+        return [fleck.ddmc_face_probs(c.mesh, c.sigmas[0], c.tau, c.periodic, c.dtype,
+                                      plain=True)]
+    if plain:
+        return fleck.ddmc_face_probs_shards(c.mesh, c.sigmas, c.surfs, c.offsets, c.tau,
+                                            c.periodic, c.dtype, plain=True)
+    return fleck._faces_cuda(c.mesh, c.sigmas, c.surfs, c.offsets, c.tau, c.periodic, c.dtype)
+
+
+def faces_bound(c: RecordedFaces) -> float:
+    """The least ms of a launch on the card (bytes / PEAK_BYTES): each shard's
+    sigma_t read once (one value where it is broadcast), the all-gathered surfaces
+    once, and each shard's faces of its active axes written."""
+    t = c.sigmas[0]
+    size = t.element_size()
+    sig = sum(1 if all(st == 0 for st in s.stride()) else s.numel() for s in c.sigmas)
+    surf = 0 if c.surfs is None else len({g.data_ptr() for g in c.surfs}) * c.surfs[0].numel()
+    Bl, nz, ny, nx = t.shape
+    faces = sum(n for a, n in enumerate((nz * ny * (nx + 1), nz * (ny + 1) * nx,
+                                         (nz + 1) * ny * nx)) if a < c.mesh.ndim)
+    return (sig + surf + len(c.sigmas) * Bl * faces) * size / PEAK_BYTES * 1e3
+
+
+def faces_bitwise(calls, what) -> str:
+    """Each recorded launch by the kernel and by its plain version: raises unless
+    every face array of every shard is bitwise equal and one launch was counted."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    if not calls:
+        raise AssertionError(f"faces on {what}: no call recorded")
+    seen = []
+    for c in calls:
+        before = cuda_lib.LAUNCHES["ddmc_face_probs"]
+        got = replay_faces(c)
+        if cuda_lib.LAUNCHES["ddmc_face_probs"] != before + 1:
+            raise AssertionError(f"faces on {what}: the kernel did not launch once")
+        want = replay_faces(c, plain=True)
+        for s, (ks, ws) in enumerate(zip(got, want)):
+            for a, (k, w) in enumerate(zip(ks, ws)):
+                if not bitwise_equal(k, w):
+                    raise AssertionError(f"faces on {what}: shard {s}'s axis {a} differs")
+        seen.append(f"{len(c.sigmas)} shard(s) in one launch, {c.mesh.n_blocks} blocks "
+                    f"(levels {sorted(set(c.mesh.block_level.tolist()))}), {c.mesh.ndim}D, "
+                    f"periodic {c.periodic}, {c.dtype}"
+                    + (", the surfaces all-gathered" if c.surfs is not None else ""))
+    return f"{what}: " + "; ".join(seen[:2]) + (f"; and {len(seen) - 2} more" if len(seen) > 2
+                                                 else "")
+
+
+def kernel_reading(dev, fn, plain_fn, names, bound, what, smi, traces=3) -> dict:
+    """A kernel read apart on a recorded call: device ms a call (torch.profiler:
+    the mean launch of each kernel in ``names`` over the launches the trace holds,
+    summed; a trace late in a long process can hold none of a kernel's launches,
+    so up to ``traces`` are taken, and where none holds every kernel the device ms
+    is None, not measured), its event window after a device sleep, the plain
+    version's in the same call, its bound."""
+    window = timed_ms(lambda _: fn(), dev)
+    plain_ms = timed_ms(lambda _: plain_fn(), dev)
+    for _ in range(traces):
+        split = launch_split(lambda _: fn(), lambda: None, names)
+        if all(split["traced"][n] for n in names):
+            break
+    device = sum(split[n] for n in names) if all(split["traced"][n] for n in names) else None
+    share = (f"the kernel at {bound / device:.3f} of it on the device" if device else
+             f"device ms not measured: {traces} traces held none of a launch")
+    print(f"{what} ({smi}): device ms a call {device!r} (by launch {split}), event window "
+          f"{window!r} ms, plain version {plain_ms!r} ms, bound {bound!r} ms (bytes), "
+          f"{share}", flush=True)
+    return {"device_ms": device, "ms": window, "plain_ms": plain_ms, "bound_ms": bound,
+            "split": split}
+
+
+def tally_faces_readings(dev, smi, which=("tally", "faces")) -> dict:
+    """The tally kernel (``"tally"``: on each path of TALLY_PATHS, every pass of a
+    step's run, the initial radiation's and the first step's) and the face kernel
+    (``"faces"``: every launch on each path of FACE_PATHS) bitwise their plain
+    versions, then each read apart (``kernel_reading``) on the path's first step.
+    Returns the readings by (kernel, path)."""
+    from jaybenne_tpu_torch import driver
+
+    calls = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        def run(deck, mods):
+            return lambda: driver.run_file(deck, outdir=outdir, modified_inputs=mods,
+                                           quiet=True, nlim=1, device="cuda", graph=False)
+
+        for what, deck, mods in TALLY_PATHS if "tally" in which else ():
+            got = recorded_tallies(run(deck, mods))
+            print("tally kernel bitwise its plain version, " + tallies_bitwise(got, what),
+                  flush=True)
+            calls[("tally", what)] = got[-1]  # the first step's
+            torch.cuda.empty_cache()
+        for what, deck, mods in FACE_PATHS if "faces" in which else ():
+            got = recorded_faces(run(deck, mods))
+            print("face kernel bitwise its plain version, " + faces_bitwise(got, what),
+                  flush=True)
+            calls[("faces", what)] = got[0]
+            torch.cuda.empty_cache()
+    readings = {}
+    for (kind, what), c in calls.items():
+        if kind == "tally":
+            readings[kind, what] = kernel_reading(
+                dev, lambda c=c: replay_tally(c), lambda c=c: replay_tally(c, plain=True),
+                TALLY_LAUNCHES, tally_bound(c), f"tally kernel on {what}'s first step", smi)
+        else:
+            readings[kind, what] = kernel_reading(
+                dev, lambda c=c: replay_faces(c), lambda c=c: replay_faces(c, plain=True),
+                FACE_LAUNCHES, faces_bound(c), f"face kernel on {what}", smi)
+    torch.cuda.empty_cache()
+    return readings
+
+
+def tally_faces_phase(dev, smi) -> tuple:
+    """Phase 46: the tally kernel and the face kernel bitwise their plain versions
+    on the paths' own inputs, each read apart (``tally_faces_readings``), and the
+    steps they change read by profile.py. Returns their ``kernels`` entries, the
+    launches left to the caller."""
+    from jaybenne_tpu_torch import profile as profile_mod
+
+    phase("46 the tally kernel and the DDMC face kernel: bitwise their plain versions on the "
+          "paths' own inputs, read apart; the steps by profile.py")
+    readings = tally_faces_readings(dev, smi)
+    for what, deck, mods, eager in PROFILED_STEPS:
+        print(f"profile.py, {what} ({smi}):", flush=True)
+        args = ["-i", deck, "--warm", "2", "--steps", "3"] + (["--eager"] if eager else [])
+        profile_mod.main(args + [f"{k}={v}" for k, v in mods.items()])
+    torch.cuda.empty_cache()
+    t = readings[("tally", "the 64^3 DDMC row")]
+    f = readings[("faces", "the 64^3 DDMC row (3D, periodic y and z)")]
+    tally_kernel = {
+        "name": "tally (the radiation-energy tally and the absorption deposit in fixed point, "
+                "bitwise in any order: every local shard's slots in one pass of three launches)",
+        "route": "cuda", "source": "jaybenne_tpu_torch/csrc/tally_kernel.cu",
+        "replaces": "jaybenne_tpu/ops/tally.py:34-67 (segment_sum in evaluate_radiation_energy "
+                    "and accumulate_absorption: XLA, no Pallas kernel)",
+        "max_abs_err": 0.0, "ms": t["ms"], "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+    }
+    face_kernel = {
+        "name": "ddmc_face_probs (the DDMC face probabilities of every local shard's blocks in "
+                "one launch, from a side map built once per mesh)",
+        "route": "cuda", "source": "jaybenne_tpu_torch/csrc/faces_kernel.cu",
+        "replaces": "jaybenne_tpu/ops/fleck.py:70-146 (ddmc_face_probs) and :203-283 "
+                    "(ddmc_face_probs_spatial): XLA, no Pallas kernel",
+        "max_abs_err": 0.0, "ms": f["ms"], "device_ms": f["device_ms"],
+        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+    }
+    return tally_kernel, face_kernel
+
+
+def gate_record(path, upto="--- phase: 46") -> tuple:
+    """The event counts and gate lines of a chip_smoke.py log, each with its phase,
+    up to the phase ``upto``: the numbers two trees must print digit for digit."""
+    events, gates, where = [], [], ""
+    with open(path) as f:
+        for line in f:
+            if line.startswith(upto):
+                break
+            if line.startswith("--- phase:"):
+                where = line.split(":")[1].split()[0]
+            events += [(where, int(m.group(1))) for m in re.finditer(r"\bevents:? (\d+)\b", line)]
+            if re.search(r"\(tol [0-9.e+-]+\)\s*$", line):
+                gates.append((where, line.strip()))
+    return events, gates
+
+
+def compare_logs(a, b) -> int:
+    """``python3 chip_smoke.py --compare LOG LOG``: 0 where two logs' event counts
+    and gate lines (``gate_record``) are equal, 1 where they differ."""
+    (ea, ga), (eb, gb) = gate_record(a), gate_record(b)
+    print(f"event counts {len(ea)} and {len(eb)}: {'equal' if ea == eb else 'differ'}; gate "
+          f"lines {len(ga)} and {len(gb)}: {'equal' if ga == gb else 'differ'}")
+    for x, y in [*zip(ea, eb), *zip(ga, gb)]:
+        if x != y:
+            print(f"  {x} | {y}")
+    return 0 if (ea, ga) == (eb, gb) else 1
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--compare"]:
+        return compare_logs(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
               file=sys.stderr)
@@ -4904,6 +5280,28 @@ def main() -> int:
          ("stepdiff_smr (transport_2d_smr)", s2_in)))
 
     insert_kernel, migrate_kernel = graph_phase(dev, smi)
+    tally_kernel, face_kernel = tally_faces_phase(dev, smi)
+    # the main path of both: phase 14's 64^3 DDMC run (the initial radiation's tally
+    # and ten steps'); beside it every path that phase 5-13 ran
+    tally_kernel["launches"] = big_launches.get("tally", 0)
+    face_kernel["launches"] = big_launches.get("ddmc_face_probs", 0)
+    if not tally_kernel["launches"] or not face_kernel["launches"]:
+        raise AssertionError(f"the 64^3 DDMC row: launches {big_launches}")
+    tally_kernel["launches_by_path"] = [
+        [what, n.get("tally", 0)] for what, n in (
+            ("stepdiff", launches), ("inf", inf_launches), ("2D feedback", launches_2d),
+            ("big_mesh_feedback", fb_launches), ("stepdiff_ddmc", dd_launches),
+            ("inf_stiff", stiff_launches), ("big_mesh DDMC", big_launches))]
+    face_kernel["launches_by_path"] = [
+        [what, n.get("ddmc_face_probs", 0)] for what, n in (
+            ("stepdiff_ddmc", dd_launches), ("inf_stiff", stiff_launches),
+            ("big_mesh DDMC", big_launches))]
+    for entry in (tally_kernel, face_kernel):
+        if any(n == 0 for _, n in entry["launches_by_path"]):
+            raise AssertionError(f"{entry['source']}: a path without a launch: "
+                                 f"{entry['launches_by_path']}")
+    print(f"tally launches by path: {tally_kernel['launches_by_path']}; ddmc_face_probs "
+          f"launches by path: {face_kernel['launches_by_path']}", flush=True)
     migrate_kernel["launches"] = MIGRATE_MAIN[0]
     migrate_kernel["launches_by_path"] = [[what, n] for what, n in MIGRATE_PATHS]
     print(f"migrate_pack launches by path: {MIGRATE_PATHS}", flush=True)
@@ -4976,7 +5374,8 @@ def main() -> int:
     # ``launches`` is phase 14's; beside it every counted path's
     table_kernel["launches_by_path"] = [[what, n] for what, n in TABLE_PATHS]
     print(f"census_table launches by path: {TABLE_PATHS}", flush=True)
-    kernels += [table_kernel, insert_kernel, migrate_kernel] + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels
+    kernels += ([table_kernel, insert_kernel, migrate_kernel, tally_kernel, face_kernel]
+                + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

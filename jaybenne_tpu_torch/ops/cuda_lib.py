@@ -94,6 +94,16 @@ _SIGNATURES = {
     # shards, slots a shard, blocks a shard, the first shard's first block, K,
     # buffer, scratch and its length, sent stream
     "jb_migrate_launch": (_P, _I, _I, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _P, _L, _P, _P),
+    # stages double, weight block k j i alive absorbed volume, blocks, slots, slots a
+    # slice, spatial off0 bl, nx ny nz, bins bits, emax acc, parts, host arrays of
+    # the parts' tally, energy_delta in and out pointers, stream
+    "jb_tally_launch": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I, _I,
+                        _I, _L, _I, _P, _P, _I, _P, _P, _P, _P),
+    # double, host arrays of the 3 axes' lower and upper side maps and faces a
+    # block, dx, surface index, S, ncell, blocks, bl, off0, tau thin, parts, host
+    # arrays of the parts' sigma_t, its step, surfaces and 3 outputs each, stream
+    "jb_faces_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P, _I, _P, _P,
+                        _P),
 }
 
 

@@ -28,14 +28,24 @@ positive contributions is off by at most n 2^-bits of itself
 (``conservation_rtol``). The JAX package's float64 ``segment_sum`` keeps 53 bits
 and adds in an order of its own. In float32 the contributions themselves carry 24
 bits, and the tally is exact to them.
+
+On a GPU the tally and the deposit are one pass of the tally kernel
+(``csrc/tally_kernel.cu``, three launches: the exponents, the sums, the cells)
+over every local shard's slots, both from one read of each slot
+(``tallies``): its atomics are an integer max and integer adds, so its bins are
+the plain version's bit for bit. On the CPU (or with ``plain``) the functions
+below run as written: the kernel's plain versions.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
 import torch
+
+from ..particles import join_slices
 
 _NO_EXP = -1100  # exponent of a zero: below every finite float64's
 
@@ -160,6 +170,16 @@ def _with_deposit(fields, dep):
     return dataclasses.replace(fields, energy_delta=ed + dep.reshape(ed.shape).to(ed.dtype))
 
 
+def _on_card(particles, plain) -> bool:
+    """Whether the ledger takes the tally kernel: on a GPU unless ``plain``; raises
+    on any other device that is not the CPU."""
+    if particles.alive.is_cuda and not plain:
+        return True
+    if particles.alive.device.type != "cpu" and not plain:
+        raise ValueError(f"tally: unsupported device {particles.alive.device}")
+    return False
+
+
 def evaluate_radiation_energy(fields, particles, mesh, block_offset=None):
     """Radiation energy density per cell from live particle weights."""
     contrib, cell = _tally_terms(fields, particles, mesh, block_offset)
@@ -191,6 +211,143 @@ def accumulate_absorption_sharded(fields, particles, mesh, exchange):
     sums = sharded_segment_sum([t[0] for t in terms], [t[1] for t in terms],
                                fields[0].energy_delta.numel(), exchange)
     return [_with_deposit(f, s) for f, s in zip(fields, sums)]
+
+
+def tallies(fields, particles, mesh, absorb, exchange=None, block_offsets=None, plain=False):
+    """The absorption deposit (with ``absorb``) and then the tally of the local
+    shards' ``fields`` from their ledgers ``particles``: one shard's own (no
+    ``exchange``, no ``block_offsets``); under the particle decomposition
+    (``exchange``) every shard's, reduced in the integer domain; under the spatial
+    decomposition (``block_offsets``, each shard's first block) each shard's own
+    particles into its own cells. Returns the fields of each shard.
+
+    On a GPU one pass of the tally kernel over every local shard's slots, the
+    deposit and the tally from one read of each slot (the ledgers adjacent slices
+    of one ledger, ``join_slices``); on the CPU (or with ``plain``)
+    ``accumulate_absorption`` and ``evaluate_radiation_energy`` (or their sharded
+    forms) a shard at a time."""
+    if _on_card(particles[0], plain):
+        return _tally_cuda(fields, particles, mesh, absorb, exchange, block_offsets)
+    if block_offsets is not None:
+        out = []
+        for f, p, off in zip(fields, particles, block_offsets):
+            if absorb:
+                f = accumulate_absorption(f, p, mesh, block_offset=off)
+            out.append(evaluate_radiation_energy(f, p, mesh, block_offset=off))
+        return out
+    if exchange is None:
+        f, p = fields[0], particles[0]
+        if absorb:
+            f = accumulate_absorption(f, p, mesh)
+        return [evaluate_radiation_energy(f, p, mesh)]
+    if absorb:
+        fields = accumulate_absorption_sharded(fields, particles, mesh, exchange)
+    return evaluate_radiation_energy_sharded(fields, particles, mesh, exchange)
+
+
+# the tally kernel's bins, by (device, kinds, bins): int32 exponents at _NO_EXP and
+# int64 sums at 0, left so by each call's cell launch
+_SCRATCH: dict = {}
+# output shards a cell launch of the tally kernel writes (csrc/tally_kernel.cu,
+# kMaxParts)
+TALLY_PARTS = 32
+
+
+def _scratch(device, kinds, bins) -> tuple:
+    """The kernel's (exponents, sums) of ``kinds`` x ``bins`` bins on ``device``,
+    made at the first call for them (on the eager first step of a run, before any
+    capture) and kept."""
+    key = (torch.device(device), kinds, bins)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        hit = _SCRATCH[key] = (
+            torch.full((kinds * bins,), _NO_EXP, dtype=torch.int32, device=device),
+            torch.zeros(kinds * bins, dtype=torch.int64, device=device))
+    return hit
+
+
+def _block_volumes(mesh) -> torch.Tensor:
+    """``mesh.block_volume``, made once per mesh and kept in ``mesh.derived``."""
+    hit = mesh.derived.get("block volume")
+    if hit is None:
+        hit = mesh.derived["block volume"] = mesh.block_volume.contiguous()
+    return hit
+
+
+def _tally_cuda(fields, particles, mesh, deposit, exchange=None, block_offsets=None) -> list:
+    """One pass of the tally kernel (``csrc/tally_kernel.cu``) on PyTorch's current
+    stream, without waiting for it: the deposit into ``energy_delta`` (with
+    ``deposit``) and the tally into ``energy_tally`` of every local shard's fields,
+    from the local shards' ledgers (adjacent slices of one ledger). Under a process
+    group whose shards are not all local (``exchange.n`` above the local count) the
+    exponents and then the sums are reduced over it between the launches, as
+    ``sharded_segment_sum`` reduces them. Returns each shard's fields. Raises unless
+    the ledger, the fields and the mesh's cell volumes are of one floating type on
+    one GPU."""
+    from . import cuda_lib
+
+    m = len(particles)
+    joined, bounds = join_slices(particles)
+    dev, dt = joined.weight.device, joined.weight.dtype
+    cap_l = particles[0].capacity
+    if any(hi - lo != cap_l for lo, hi in bounds) or cap_l < 1:
+        raise ValueError(f"tally kernel: shards of {[hi - lo for lo, hi in bounds]} slots")
+    vol = _block_volumes(mesh)
+    names = ("energy_tally", "energy_delta") if deposit else ("energy_tally",)
+    outs = [getattr(f, name) for f in fields for name in names]
+    cols = (joined.weight, joined.block, joined.i, joined.j, joined.k, joined.alive,
+            joined.absorbed)
+    if (dt not in (torch.float32, torch.float64) or vol.dtype != dt or vol.device != dev
+            or any(t.dtype != dt or t.device != dev or not t.is_contiguous() for t in outs)
+            or any(not t.is_contiguous() for t in cols) or len(fields) != m):
+        raise ValueError("tally kernel: the ledger, the fields and the mesh of one floating "
+                         "type on one GPU, contiguous, a field set a shard")
+    spatial = block_offsets is not None
+    cells = fields[0].energy_tally.numel()
+    if spatial:
+        bl = fields[0].energy_tally.shape[0]
+        if any(off != block_offsets[0] + g * bl for g, off in enumerate(block_offsets)):
+            raise ValueError(f"tally kernel: shards at blocks {list(block_offsets)}, {bl} a "
+                             "shard")
+        bins, bits, off0 = m * cells, _bits(cap_l), block_offsets[0]
+    else:
+        if cells != mesh.total_cells:
+            raise ValueError(f"tally kernel: {cells} cells of a field, {mesh.total_cells} in "
+                             "the mesh")
+        n = 1 if exchange is None else exchange.n
+        bins, bits, off0, bl = cells, _bits(cap_l * n), 0, 0
+    emax, acc = _scratch(dev, 1 + int(deposit), bins)
+    new_tally = [torch.empty_like(f.energy_tally) for f in fields]
+    new_delta = [torch.empty_like(f.energy_delta) for f in fields] if deposit else None
+    P = ctypes.c_void_p
+
+    def ptrs(ts):
+        return None if ts is None else (P * m)(*(t.data_ptr() for t in ts))
+
+    def launch(stages):
+        cuda_lib.library().call(
+            "jb_tally_launch", stages, int(dt == torch.float64), joined.weight.data_ptr(),
+            joined.block.data_ptr(), joined.k.data_ptr(), joined.j.data_ptr(),
+            joined.i.data_ptr(), joined.alive.data_ptr(),
+            joined.absorbed.data_ptr() if deposit else None, vol.data_ptr(), mesh.n_blocks,
+            joined.capacity, cap_l, int(spatial), off0, bl, mesh.nx, mesh.ny, mesh.nz, bins,
+            bits, emax.data_ptr(), acc.data_ptr(), m, ptrs(new_tally),
+            ptrs([f.energy_delta for f in fields] if deposit else None), ptrs(new_delta),
+            cuda_lib.stream_handle(dev))
+
+    if spatial or exchange is None or exchange.n == m:
+        launch(7)
+    else:  # the other ranks' slots: their exponents, then their sums
+        launch(1)
+        emax.copy_(exchange.max([emax])[0])
+        launch(2)
+        acc.copy_(exchange.sum([acc])[0])
+        launch(4)
+    cuda_lib.LAUNCHES["tally"] += 2 + -(-m // TALLY_PARTS)
+    if not deposit:
+        return [dataclasses.replace(f, energy_tally=t) for f, t in zip(fields, new_tally)]
+    return [dataclasses.replace(f, energy_tally=t, energy_delta=d)
+            for f, t, d in zip(fields, new_tally, new_delta)]
 
 
 def local_block_volume(mesh, block_offset, n_local):

@@ -447,9 +447,9 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
                 sig = [total_sigma(f, models, dtype) for f in fs]
                 surf = exchange.all_gather([fleck_ops.pack_boundary_surface(mesh, t)
                                             for t in sig])
-                fs = [with_faces(f, fleck_ops.ddmc_face_probs_spatial(
-                    mesh, t, g, off, jb.tau_ddmc, periodic, dtype))
-                    for f, t, g, off in zip(fs, sig, surf, offsets)]
+                faces = fleck_ops.ddmc_face_probs_shards(mesh, sig, surf, offsets, jb.tau_ddmc,
+                                                         periodic, dtype)
+                fs = [with_faces(f, q) for f, q in zip(fs, faces)]
             dropped = [torch.zeros((), dtype=torch.int64, device=dev) for _ in states]
             if not jb.do_emission:
                 fs = [dataclasses.replace(f, energy_delta=torch.zeros_like(f.energy_delta))
@@ -539,12 +539,10 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
     def tail(states, t: StepTensors, dt):
         with record_function("spatial.tail"):
             fs, ps = list(t.fs), [st.particles for st in states]
-            for i, off in enumerate(offsets):  # tallies and feedback: each cell on one shard
-                if prm.has_absorption:
-                    fs[i] = tally.accumulate_absorption(fs[i], ps[i], mesh, block_offset=off)
-                fs[i] = tally.evaluate_radiation_energy(fs[i], ps[i], mesh, block_offset=off)
-                if jb.do_feedback:
-                    fs[i] = tally.update_fluid(fs[i], mesh, block_offset=off)
+            # tallies and feedback: each cell on one shard
+            fs = tally.tallies(fs, ps, mesh, prm.has_absorption, block_offsets=offsets)
+            if jb.do_feedback:
+                fs = [tally.update_fluid(f, mesh, block_offset=off) for f, off in zip(fs, offsets)]
             for p in ps:
                 p.absorbed.zero_()
                 p.tau.zero_()
@@ -587,7 +585,7 @@ def make_spatial_init(mesh, cfg: RunConfig, exchange):
 
     def init(states):
         jb = cfg.jaybenne
-        out, drops = [], []
+        fs, ps, drops = [], [], []
         for st, s in zip(states, exchange.shards):
             f, p = st.fields, st.particles
             d = torch.zeros((), dtype=torch.int64, device=mesh.device)
@@ -598,10 +596,12 @@ def make_spatial_init(mesh, cfg: RunConfig, exchange):
                     f, p, mesh, gen, source_type="thermal", eos=cfg.mcblock.build_eos(),
                     sb=consts.sb, c=consts.c, num_particles=jb.num_particles, dtype=jb.dtype,
                     block_offset=s * bl)
-            out.append((tally.evaluate_radiation_energy(f, p, mesh, block_offset=s * bl), p))
+            fs.append(f)
+            ps.append(p)
             drops.append(d.to(torch.int64))
+        fs = tally.tallies(fs, ps, mesh, False, block_offsets=[s * bl for s in exchange.shards])
         dropped = exchange.sum(drops)[0]
         return [dataclasses.replace(st, fields=f, particles=p, overflow=st.overflow + dropped)
-                for st, (f, p) in zip(states, out)]
+                for st, f, p in zip(states, fs, ps)]
 
     return init

@@ -165,20 +165,6 @@ def _source(fs, ps, gens, mesh, exchange, **kw):
     return [o[0] for o in out], [o[2].to(torch.int64) for o in out]
 
 
-def _tallies(fs, ps, mesh, exchange, absorb):
-    """The absorption deposit (with ``absorb``) and the tally of each shard's
-    fields: from its own ledger, or under the particle decomposition from every
-    shard's, reduced in the integer domain."""
-    if exchange is None:
-        f, p = fs[0], ps[0]
-        if absorb:
-            f = tally.accumulate_absorption(f, p, mesh)
-        return [tally.evaluate_radiation_energy(f, p, mesh)]
-    if absorb:
-        fs = tally.accumulate_absorption_sharded(fs, ps, mesh, exchange)
-    return tally.evaluate_radiation_energy_sharded(fs, ps, mesh, exchange)
-
-
 def build_step_core(mesh, cfg: RunConfig, exchange=None):
     """The per-cycle step ``step(state, dt) -> (state, StepStats)``, or with
     ``exchange`` the particle decomposition's ``step(states, dt) -> (states,
@@ -285,7 +271,7 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
             events.append(ev)
             # survivors still short of end-of-step, before the tau reset below
             unfinished.append((p.alive & (p.tau < 1.0)).sum())
-        fs = _tallies(fs, ps, mesh, exchange, prm.has_absorption)
+        fs = tally.tallies(fs, ps, mesh, prm.has_absorption, exchange)
         if jb.do_feedback:
             fs = [tally.update_fluid(f, mesh) for f in fs]
         for p in ps:  # census survivors restart at tau = 0 next cycle
@@ -348,7 +334,7 @@ def initialize_radiation(state, mesh, cfg: RunConfig, exchange=None):
                             eos=cfg.mcblock.build_eos(), sb=consts.sb, c=consts.c,
                             num_particles=shard_share(jb.num_particles, n), dtype=jb.dtype)
         dropped = drops if single else exchange.sum(drops)
-    fs = _tallies(fs, ps, mesh, exchange, absorb=False)
+    fs = tally.tallies(fs, ps, mesh, False, exchange)
     new = [dataclasses.replace(st, fields=f, particles=p, overflow=st.overflow + d)
            for st, f, p, d in zip(states, fs, ps, dropped)]
     return new[0] if single else new

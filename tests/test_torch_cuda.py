@@ -1320,8 +1320,10 @@ def test_f64_kernel_bitwise_plain(gpu, route):
 def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
     """A float64 deck through run_file on the card: one float64 census launch and
     one float64 table launch a step, one insert pass (three launches) a run (the
-    initial radiation's births; the insert kernel copies bytes of either width) and no
-    other, float64 state, a bitwise rerun."""
+    initial radiation's births; the insert kernel copies bytes of either width), one
+    tally pass (three launches) a step and the initial radiation's, one face launch
+    a DDMC step (the tally and face kernels count either precision under one name)
+    and no other, float64 state, a bitwise rerun."""
     mods = {**mods, "jaybenne/num_particles": 20000, "parthenon/output0/file_type": "none",
             "jaybenne/precision": "f64"}
     cuda_lib.LAUNCHES.clear()
@@ -1329,7 +1331,9 @@ def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
                      modified_inputs=mods, quiet=True, nlim=3, device="cuda") for _ in range(2)]
     name = transport_kernel.launch_name(1, False, deck == "stepdiff_ddmc.in",
                                         dtype=torch.float64)
-    assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6, "ledger_insert": 6}
+    faces = {"ddmc_face_probs": 6} if deck == "stepdiff_ddmc.in" else {}
+    assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6, "ledger_insert": 6,
+                                       "tally": 24, **faces}
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.dtype == torch.float64 and sims[0].state.particles.x.dtype == torch.float64
     assert torch.equal(a, b)
@@ -1796,3 +1800,197 @@ def test_nongray_f64_forest_route_bitwise(gpu, tmp_path, ledger):
     _same_bits(k, q)
     _same_counts(it_k, ev_k, it_q, ev_q)
     assert err == 0.0 and events > 0 and int(ev_k) > 0
+
+
+# ------------------------------- the tally kernel and the face-probability kernel
+
+@dataclasses.dataclass
+class _TallyFields:
+    energy_tally: torch.Tensor
+    energy_delta: torch.Tensor
+
+
+# (deck, overrides) of each mesh (tests/test_torch_tally_kernel.py's and
+# tests/test_torch_face_map.py's), and bench.py's 64^3 mesh in 8^3 blocks
+_PERIODIC = {f"parthenon/mesh/{s}x{k}_bc": "periodic" for s in "io" for k in "123"}
+_PERIODIC_YZ = {f"parthenon/mesh/{s}x{k}_bc": "periodic" for s in "io" for k in "23"}
+_SMR_FOREST = {"parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16,
+               "parthenon/meshblock/nx1": 8, "parthenon/meshblock/nx2": 8}
+_BLOCKS_3D = {"parthenon/meshblock/nx1": 4, "parthenon/meshblock/nx2": 4,
+              "parthenon/meshblock/nx3": 4}
+_FACE_MESHES = {
+    "1d": ("stepdiff_ddmc.in", {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 8}),
+    "2d": ("stepdiff_smr_ddmc.in", {**_SMR_FOREST, "parthenon/mesh/refinement": "none"}),
+    "2d_periodic": ("stepdiff_smr_ddmc.in", {**_SMR_FOREST, **_PERIODIC,
+                                             "parthenon/mesh/refinement": "none"}),
+    "3d_periodic_yz": ("stepdiff.in", {"parthenon/mesh/nx1": 16, "parthenon/mesh/nx2": 8,
+                                       "parthenon/mesh/nx3": 8, **_BLOCKS_3D, **_PERIODIC_YZ}),
+    "refined_2d": ("stepdiff_smr_ddmc.in", _SMR_FOREST),
+    "refined_2d_periodic": ("stepdiff_smr_ddmc.in", {**_SMR_FOREST, **_PERIODIC}),
+    "refined_3d": ("stepdiff_3d_smr_ddmc.in", {"parthenon/mesh/nx1": 16,
+                                               "parthenon/mesh/nx2": 8,
+                                               "parthenon/mesh/nx3": 8, **_BLOCKS_3D}),
+    "big_64": ("stepdiff.in", {"parthenon/mesh/nx1": 64, "parthenon/mesh/nx2": 64,
+                               "parthenon/mesh/nx3": 64, "parthenon/meshblock/nx1": 8,
+                               "parthenon/meshblock/nx2": 8, "parthenon/meshblock/nx3": 8,
+                               **_PERIODIC_YZ}),
+    "tally_2d": ("stepdiff.in", {"parthenon/mesh/nx1": 16, "parthenon/mesh/nx2": 8,
+                                 "parthenon/meshblock/nx1": 4, "parthenon/meshblock/nx2": 4}),
+}
+
+
+def _mesh_of(name, dtype, dev):
+    deck, mods = _FACE_MESHES[name]
+    cfg = cm.from_deck(Deck.from_file(os.path.join(_ROOT, "inputs", deck)).update(dict(mods)))
+    return cfg, build_mesh(cfg.mesh, dtype=dtype, device=dev)
+
+
+def _tally_ledger(mesh, n, dtype, dev, seed):
+    """n slots on ``dev``: 60 % alive, a fifth of the dead absorbed, weights over four
+    orders of magnitude, in any block and cell."""
+    rng = np.random.default_rng(seed)
+    p = empty_ledger(n, dtype, dev)
+    p.alive.copy_(torch.from_numpy(rng.random(n) < 0.6))
+    p.absorbed.copy_(torch.from_numpy(rng.random(n) < 0.2).to(dev) & ~p.alive)
+    p.weight.copy_(torch.from_numpy(10.0 ** rng.uniform(-3, 1, n)))
+    p.block.copy_(torch.from_numpy(rng.integers(0, mesh.n_blocks, n)))
+    for name, size in (("i", mesh.nx), ("j", mesh.ny), ("k", mesh.nz)):
+        getattr(p, name).copy_(torch.from_numpy(rng.integers(0, size, n)))
+    return p
+
+
+# layout: (mesh, local shards, slots a shard, decomposition, deposit)
+_TALLY_CASES = {
+    "one_tally_only": ("tally_2d", 1, 5000, None, False),
+    "one": ("tally_2d", 1, 5000, None, True),
+    "particle4": ("tally_2d", 4, 3000, "particle", True),
+    "spatial4": ("tally_2d", 4, 3000, "spatial", True),
+    "spatial8_64cubed": ("big_64", 8, 25000, "spatial", True),
+    "one_64cubed": ("big_64", 1, 200000, None, True),
+    "hot_shared_2e20": ("tally_2d", 1, 1 << 20, None, True),  # 128 cells: shared bins
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(_TALLY_CASES))
+def test_tally_kernel_matches_plain(gpu, case, dtype):
+    """The tally kernel (csrc/tally_kernel.cu: the exponents, the sums, the cells;
+    every local shard in one pass, the deposit and the tally together) bitwise its
+    plain version (``tally.tallies(plain=True)``): one shard, four particle shards,
+    four and eight spatial shards, the 64^3 mesh (global atomics) and 2^20 slots in
+    128 cells (shared-memory bins); three launches counted; a second call bitwise
+    the first (its scratch reset by the cell launch)."""
+    from jaybenne_tpu_torch.ops import tally
+    from jaybenne_tpu_torch.parallel import exchange as ex_mod
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    name, m, cap_l, kind, deposit = _TALLY_CASES[case]
+    _, mesh = _mesh_of(name, dtype, gpu)
+    ledger = _tally_ledger(mesh, m * cap_l, dtype, gpu, seed=len(case))
+    ps = split_ledger(ledger, m) if m > 1 else [ledger]
+    bl = mesh.n_blocks // m if kind == "spatial" else mesh.n_blocks
+    g = torch.Generator(device=gpu).manual_seed(3)
+    fs = [_TallyFields(torch.rand((bl, mesh.nz, mesh.ny, mesh.nx), generator=g, device=gpu,
+                                  dtype=dtype),
+                       torch.rand((bl, mesh.nz, mesh.ny, mesh.nx), generator=g, device=gpu,
+                                  dtype=dtype) - 0.5) for _ in range(m)]
+    kw = dict(block_offsets=[s * bl for s in range(m)]) if kind == "spatial" else dict(
+        exchange=ex_mod.InProcess(m) if kind == "particle" else None)
+    cuda_lib.LAUNCHES.clear()
+    got = tally.tallies(fs, ps, mesh, deposit, **kw)
+    assert cuda_lib.LAUNCHES["tally"] == 3
+    again = tally.tallies(fs, ps, mesh, deposit, **kw)
+    want = tally.tallies(fs, ps, mesh, deposit, plain=True, **kw)
+    torch.cuda.synchronize()
+    for k, a, w in zip(got, again, want):
+        _same_bits(k, w)
+        _same_bits(a, w)
+    assert float(want[0].energy_tally.sum()) > 0.0
+
+
+@pytest.mark.parametrize("name, dtype", [
+    ("1d", torch.float32), ("2d", torch.float32), ("2d_periodic", torch.float32),
+    ("3d_periodic_yz", torch.float32), ("3d_periodic_yz", torch.float64),
+    ("refined_2d", torch.float32), ("refined_2d", torch.float64),
+    ("refined_2d_periodic", torch.float32), ("refined_3d", torch.float32),
+    ("big_64", torch.float32), ("big_64", torch.float64)])
+def test_face_kernel_matches_plain(gpu, name, dtype):
+    """The face kernel (csrc/faces_kernel.cu, one launch, from the side map)
+    bitwise ``ddmc_face_probs(plain=True)`` on uniform 1D, 2D and 3D forests,
+    periodic and not, and on refined ones, in float32 and float64; sigma_t one
+    value broadcast (a constant opacity) too."""
+    cfg, mesh = _mesh_of(name, dtype, gpu)
+    periodic = cfg.mesh.periodic_flags
+    g = torch.Generator(device=gpu).manual_seed(len(name))
+    dmin = float(mesh.block_dx[:, : mesh.ndim].min())
+    shape = (mesh.n_blocks, mesh.nz, mesh.ny, mesh.nx)
+    sig = (5.0 / dmin) * torch.exp(torch.rand(shape, generator=g, device=gpu, dtype=dtype)
+                                   * 3.5 - 2.0)
+    const = torch.tensor(6.0 / dmin, dtype=dtype, device=gpu).expand(shape)
+    for s in (sig, const):
+        cuda_lib.LAUNCHES.clear()
+        got = ddmc_face_probs(mesh, s, 5.0, periodic, dtype)
+        assert cuda_lib.LAUNCHES["ddmc_face_probs"] == 1
+        want = ddmc_face_probs(mesh, s, 5.0, periodic, dtype, plain=True)
+        torch.cuda.synchronize()
+        for a, (k, w) in enumerate(zip(got, want)):
+            bits = torch.int32 if dtype == torch.float32 else torch.int64
+            assert k.shape == w.shape and torch.equal(k.view(bits), w.view(bits)), (name, a)
+
+
+@pytest.mark.parametrize("name", ["2d", "refined_2d", "big_64"])
+@pytest.mark.parametrize("n", [2, 8])
+def test_face_kernel_spatial_matches_plain(gpu, name, n):
+    """Every local shard's faces in one launch from its sigma_t and the all-gathered
+    surfaces (``ddmc_face_probs_shards``) bitwise the plain version, a shard at a
+    time (``ddmc_face_probs_spatial``), padding blocks 0."""
+    from jaybenne_tpu_torch.ops import fleck
+    from jaybenne_tpu_torch.parallel import exchange as ex_mod
+    from jaybenne_tpu_torch.parallel.spatial import blocks_per_shard
+
+    cfg, mesh = _mesh_of(name, torch.float32, gpu)
+    periodic = cfg.mesh.periodic_flags
+    bl = blocks_per_shard(mesh, n)
+    g = torch.Generator(device=gpu).manual_seed(n)
+    dmin = float(mesh.block_dx[:, : mesh.ndim].min())
+    sig = (5.0 / dmin) * torch.exp(torch.rand((n * bl, mesh.nz, mesh.ny, mesh.nx), generator=g,
+                                              device=gpu) * 3.5 - 2.0)
+    sigmas = [sig[s * bl:(s + 1) * bl] for s in range(n)]
+    surfs = ex_mod.InProcess(n).all_gather([fleck.pack_boundary_surface(mesh, t)
+                                            for t in sigmas])
+    offsets = [s * bl for s in range(n)]
+    cuda_lib.LAUNCHES.clear()
+    got = fleck.ddmc_face_probs_shards(mesh, sigmas, surfs, offsets, 5.0, periodic,
+                                       torch.float32)
+    assert cuda_lib.LAUNCHES["ddmc_face_probs"] == 1
+    want = fleck.ddmc_face_probs_shards(mesh, sigmas, surfs, offsets, 5.0, periodic,
+                                        torch.float32, plain=True)
+    torch.cuda.synchronize()
+    for s, (ks, ws) in enumerate(zip(got, want)):
+        for a, (k, w) in enumerate(zip(ks, ws)):
+            assert torch.equal(k.view(torch.int32), w.view(torch.int32)), (s, a)
+
+
+def test_big_ddmc_graph_matches_eager_with_tally_and_faces(gpu, tmp_path):
+    """The 64^3 DDMC row (chip_smoke.BIG_DDMC) through run_file, eager and as a
+    CUDA graph (``GraphedStep``), 4 steps side by side: every state bitwise equal
+    after every step, replays among them, and each step's launches the tally
+    kernel's 3 and the face kernel's 1."""
+    cs = _chip_smoke()
+    sims = [run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=cs.BIG_DDMC, quiet=True,
+                     nlim=0, device="cuda", graph=gr) for gr in (False, True)]
+    eager, graph = sims
+    kinds = []
+    for _ in range(4):
+        before = graph.step_fn.captures
+        launches = []
+        for sim in sims:
+            cuda_lib.LAUNCHES.clear()
+            sim.run(nlim=1)
+            launches.append(dict(cuda_lib.LAUNCHES))
+        kinds.append("eager" if len(graph.history) == 1 else
+                     "capture" if graph.step_fn.captures > before else "replay")
+        assert launches[0] == launches[1]
+        assert launches[1]["tally"] == 3 and launches[1]["ddmc_face_probs"] == 1, launches
+        cs.same_states(eager, graph, "the 64^3 DDMC row")
+    assert "replay" in kinds, kinds
