@@ -67,6 +67,16 @@ version's, the bytes bound); then profile.py on TALLY_FACES_DECKS in the turns,
 as CUDA graphs, and the 64^3 DDMC row eagerly once for the parent and this tree
 (every span, ``step.face_probs`` among them).
 
+With ``--only round`` it reads the spatial round's gate and counts apart first,
+in this tree (``chip_smoke.counts_phase``: the census with go false bitwise no
+change on every spatial route's recorded rounds, the count kernel
+``csrc/count_kernel.cu`` bitwise its plain version on every path and read apart
+against its bound and the plain ops' device time); then profile.py on
+ROUND_DECKS (big_mesh_spatial and the float64 stepdiff at 8 shards, the 64^3
+DDMC row) in the turns, as CUDA graphs, with each trace's device operations a
+step and a round queued, and this tree at each of ROUND_BATCHES rounds a batch
+in turns on the spatial decks.
+
 With ``--only migrate`` it reads the spatial migration apart first, in this tree
 (its package's plain migrate, ``migrate(plain=True)``, is the parent's): on the
 recorded first round of each deck of MIGRATE_DECKS (big_mesh_spatial and the
@@ -901,17 +911,35 @@ def child(inputs, pkg, repeats, out) -> None:
         json.dump(result, f)
 
 
-def profile(tree, deck, extra=()) -> dict:
+def trace_ops(path, steps) -> dict:
+    """The device operations a step in a ``profile.py --trace`` Chrome trace of
+    ``steps`` steps: kernels, copies and memsets, and the count kernel's launches
+    (``csrc/count_kernel.cu``, ``round_counts``)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
+    kinds = {"kernels": "kernel", "copies": "gpu_memcpy", "memsets": "gpu_memset"}
+    out = {k: sum(e.get("cat") == c for e in events) / steps for k, c in kinds.items()}
+    out["round_counts"] = sum(e.get("cat") == "kernel" and "round_counts_kernel" in e["name"]
+                              for e in events) / steps
+    return out
+
+
+def profile(tree, deck, extra=(), ops=False) -> dict:
     """Step 3 for one tree and deck: the census kernel's device ms a step, its
     launches a step (under the spatial decomposition one a round queued, so that
     the census ms over them is the mean round's), the device total a step and the
     unprofiled steps' wall median, from ``python -m jaybenne_tpu_torch.profile``
     (with ``extra`` arguments: ``--eager``, ``--rounds-per-batch R``); and the
-    lines of its spans under ``spatial.round`` (``spans``)."""
+    lines of its spans under ``spatial.round`` (``spans``). With ``ops`` also the
+    device operations a step of its trace (``trace_ops``) and the rounds queued a
+    step (``rounds_queued``: the census launches a step on a spatial deck)."""
     path, mods = PROFILE_DECKS[deck]
+    tmp = tempfile.TemporaryDirectory()
+    trace = ("--trace", os.path.join(tmp.name, "trace.json")) if ops else ()
+    args = [*PROFILE_ARGS, *extra]  # a later --steps in ``extra`` overrides
     res = subprocess.run([sys.executable, "-m", "jaybenne_tpu_torch.profile", "-i",
-                          os.path.join(ROOT, path), *PROFILE_ARGS, *extra, *mods], cwd=tree,
-                         capture_output=True, text=True, timeout=900)
+                          os.path.join(ROOT, path), *args, *trace, *mods],
+                         cwd=tree, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"profile {deck} in {tree}:\n{res.stderr[-3000:]}")
     kernel = sum(float(m.group(1)) for m in re.finditer(
@@ -920,13 +948,17 @@ def profile(tree, deck, extra=()) -> dict:
                   res.stdout)
     launches = ast.literal_eval(re.search(r"launches in the profiled steps: (\{.*\})",
                                           res.stdout).group(1))
-    steps = int(PROFILE_ARGS[PROFILE_ARGS.index("--steps") + 1])
+    steps = int(args[len(args) - 1 - args[::-1].index("--steps") + 1])
     census = sum(v for k, v in launches.items() if k.startswith("transport_")) / steps
     spans = [line for line in res.stdout.splitlines() if line.startswith("span ")]
-    return {"census_ms_per_step": kernel, "census_launches_per_step": census,
-            "device_ms_per_step": float(m.group(1)), "step_wall_ms": float(m.group(2)),
-            "spans": [line for line in spans if line.startswith("span spatial.round")],
-            "all_spans": spans}
+    out = {"census_ms_per_step": kernel, "census_launches_per_step": census,
+           "device_ms_per_step": float(m.group(1)), "step_wall_ms": float(m.group(2)),
+           "spans": [line for line in spans if line.startswith("span spatial.round")],
+           "all_spans": spans}
+    if ops:
+        out["ops_per_step"] = trace_ops(trace[1], steps)
+    tmp.cleanup()
+    return out
 
 
 # ``--only migrate``: the spatial migration read apart on the recorded first round
@@ -994,6 +1026,59 @@ def tally_faces_reading(which) -> dict:
     return {f"{kind}: {what}": r for (kind, what), r in readings.items()}
 
 
+# ``--only round``: the spatial round's gate and counts read apart (chip_smoke.py
+# phase 47's ``counts_phase``, this tree), then the steps it changes by profile.py
+# in the turns, as CUDA graphs (the device operations a step from each trace), and
+# this tree at each of ROUND_BATCHES rounds a batch in turns on the spatial decks
+# (ROUNDS_PER_BATCH's choice)
+ROUND = "round"
+ROUND_DECKS = ("big_mesh_spatial_8", "stepdiff_spatial_f64", "big_mesh_ddmc")
+ROUND_BATCHES = (4, 8)
+ROUND_STEPS = ("--steps", "7")  # steps timed a profile (the decks end after 10)
+
+
+def round_reading() -> dict:
+    """``--only round``'s reading, in this process with this tree's package
+    (``chip_smoke.counts_phase``): the census gate on every spatial route's
+    recorded rounds, the count kernel bitwise its plain version on every path and
+    read apart. Returns its ``kernels`` entry."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    return cs.counts_phase(torch.device("cuda", 0), smi)
+
+
+def round_turns(order, label, turns) -> list:
+    """``--only round``'s profiles: each tree of ``order`` on ROUND_DECKS, then this
+    tree at ROUND_BATCHES rounds a batch (the first, the rest, the rest reversed,
+    the first, ``turns`` times) on the spatial ones; printed as they come."""
+    runs = [(tree, ROUND_STEPS, label[tree], ROUND_DECKS) for tree in order]
+    spatial = [d for d in ROUND_DECKS if "spatial" in d]
+    batches = list(ROUND_BATCHES) + list(ROUND_BATCHES)[::-1]
+    runs += [(ROOT, ROUND_STEPS + ("--rounds-per-batch", str(r)),
+              f"this tree at {r} rounds a batch", spatial) for r in batches] * turns
+    rows = []
+    for k, (tree, extra, who, decks) in enumerate(runs):
+        for deck in decks:
+            row = profile(tree, deck, extra, ops=True)
+            ops = row["ops_per_step"]
+            rounds = row["census_launches_per_step"] if "spatial" in deck else 0
+            per_round = (f"; a round queued {ops['kernels'] / rounds!r} kernels, "
+                         f"{ops['copies'] / rounds!r} copies, {ops['memsets'] / rounds!r} "
+                         f"memsets, {ops['round_counts'] / rounds!r} round_counts launches"
+                         if rounds else "")
+            print(f"profile {k}: {deck} {who}: device total {row['device_ms_per_step']!r} ms a "
+                  f"step, step wall median {row['step_wall_ms']!r} ms, census "
+                  f"{row['census_ms_per_step']!r} ms in {rounds or 'its'} launches; device "
+                  f"operations a step {ops}{per_round}", flush=True)
+            rows.append({"tree": who, "deck": deck, **row})
+    return rows
+
+
 def issue_share(kids, tree, name, summary, sms) -> float:
     """The issue share of ``tree``'s census ``name``: its event loop's common-path
     SASS instructions times the census's events over the median of its turns'
@@ -1021,7 +1106,8 @@ def main(argv=None) -> int:
                     help="time this route (with its lane sweep) alone; may repeat; "
                     f"{TABLE}: the census table read apart on TABLE_PATHS; {MIGRATE}: the "
                     "spatial migration read apart on MIGRATE_DECKS; tally, faces: the tally "
-                    "kernel, the DDMC face kernel read apart on chip_smoke.py's paths")
+                    f"kernel, the DDMC face kernel read apart on chip_smoke.py's paths; {ROUND}: "
+                    "the round's gate and count kernel, ROUND_DECKS in turns, ROUND_BATCHES")
     ap.add_argument("--out", help="also write every number here, as JSON")
     ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--mix-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
@@ -1099,6 +1185,16 @@ def main(argv=None) -> int:
                     for line in row["all_spans"] if eager else ():
                         print(f"  {who} {deck}: {line}", flush=True)
         args.only = [r for r in args.only if r not in TALLY_FACES]
+        if not args.only:
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(summary, f, indent=1)
+            print(smi)
+            return 0
+    if args.only and ROUND in args.only:
+        summary["round"] = round_reading()
+        summary["profile"] += round_turns(order, label, args.turns)
+        args.only = [r for r in args.only if r != ROUND]
         if not args.only:
             if args.out:
                 with open(args.out, "w") as f:

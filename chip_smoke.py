@@ -184,7 +184,8 @@ Phases:
      no-op rounds too; launches a step printed; the steps after the first run as
      CUDA graphs) and at 8 shards one pass of the migration kernel (two
      launches), at 1 none; migration
-     rounds, migrated particles, step times and events/s printed; K3s timed on
+     rounds, migrated particles, step times and events/s printed; one count
+     kernel launch a round queued and one a step's tail; K3s timed on
      the first round (one launch over the 8 shards, with the fold: every column of
      the joined ledger bitwise the plain version's), with the slot order's warp
      efficiency; the table kernel on the first step's eight coefficient sets;
@@ -287,7 +288,11 @@ Phases:
      two launches a round) bitwise its plain version on big_mesh_spatial's first
      two rounds at 8 shards and on the float64 stepdiff's first, each again with
      go false (``migration_check``), and its first rounds read apart against the
-     parent's PyTorch migrate (``migration_reading``); the
+     parent's PyTorch migrate (``migration_reading``), beside them the round's
+     bookkeeping on the device before the count kernel (the z route's kept
+     clones and their ``torch.where``, the gated counters, each shard's
+     unfinished sum) and after it (one ``round_counts`` launch), its device ms and
+     device operations a round (``round_bookkeeping``); the
      8-shard big_mesh_spatial step, eager and replayed, under the same mode but
      for each batch's exit read (counted: one a batch) and the step's packed read;
      the host's synchronisations a step (``profile.host_syncs``) on stepdiff, the
@@ -311,7 +316,23 @@ Phases:
      holds; the event window after a device sleep; the plain version's; the
      bytes bound); then profile.py on the 64^3 DDMC row as a graph and eagerly
      (its spans), stepdiff and the 64^3 feedback row. Their ``kernels`` entries
-     take their launches from phase 14's run, with every counted path's beside.
+     take their launches from phase 14's run, with every counted path's beside;
+ 47. the round's gate and counts: on the first two recorded rounds of each
+     spatial route (transport_3d@z on big_mesh_spatial, transport_1d_smr@blocks
+     and transport_1d_smr_f64@blocks on stepdiff, transport_2d_ddmc_smr@blocks on
+     phase 33's deck, each at 8 shards) the census kernel with go false leaves
+     every column bitwise as it was and counts nothing, and with go true is
+     bitwise the ungated launch (``census_gate_bitwise``); the count kernel
+     (csrc/count_kernel.cu: every local shard's live and unfinished counts in one
+     launch, a spatial round's counters folded in) bitwise its plain version on
+     the first rounds and every step's or tail's call of those four runs and of
+     stepdiff, the 64^3 DDMC and feedback rows and stepdiff_smr at 8 particle
+     shards (``counts_bitwise``), and read apart on big_mesh_spatial's and the
+     float64 stepdiff's first round and tail and the 64^3 DDMC row's step
+     (``kernel_reading``, the plain version's device ms beside it). Its
+     ``kernels`` entry takes its launches from phase 30's 8-shard run (one a round
+     queued and one a step's tail, which phase 30 checks), every counted path's
+     beside.
 
 The recorded runs of phases 12-14, 16-21 and 23-25 and of ``census_bench.py``
 run the eager step (``graph=False``): a CUDA graph's replay calls no Python, so
@@ -1404,15 +1425,17 @@ def local_memory(code) -> int:
 
 
 # (path, its launches of the census table kernel) of every counted path run
-# (``note_table``)
+# (``note_table``), and of the count kernel
 TABLE_PATHS = []
+COUNT_PATHS_RUN = []
 
 
 def note_table(what, launches) -> None:
-    """Keeps the census table kernel's ``launches`` in the counted run of the path
-    ``what`` (its counts set to 0 just before it and read just after), for its
-    entry of the ``kernels`` line."""
+    """Keeps the census table kernel's and the count kernel's ``launches`` in the
+    counted run of the path ``what`` (its counts set to 0 just before it and read
+    just after), for their entries of the ``kernels`` line."""
     TABLE_PATHS.append((f"phase {PHASE[0]}: {what}", launches.get("census_table", 0)))
+    COUNT_PATHS_RUN.append((f"phase {PHASE[0]}: {what}", launches.get("round_counts", 0)))
 
 
 def kernel_resources(build_log, transport_kernel) -> dict:
@@ -2848,7 +2871,8 @@ class RoundRecorder:
     meanwhile call it through the wrapper) and keeps a copy of the inputs of the
     first KEEP_ROUNDS rounds run eagerly (``rounds``; each one call over every
     shard's slice: the joined ledger, the shard count and the call's other
-    arguments; ``inputs`` the first); keeps the arguments of the first
+    arguments; ``inputs`` the first; ``gos`` each round's ``go`` flag, cloned, or
+    None for a round known to have work); keeps the arguments of the first
     census set-up (``prepare``: the shards' coefficient sets, mesh, prm, dt and
     owned ranges); and wraps ``subface_resample`` to count the pending leaks it
     resolves."""
@@ -2857,6 +2881,7 @@ class RoundRecorder:
 
     def __init__(self, transport_kernel):
         self.tk, self.rounds, self.resolved, self.setup = transport_kernel, [], 0, None
+        self.gos = []
         self.real, self.real_fix = transport_kernel.transport, transport_kernel.subface_resample
         self.real_prepare = transport_kernel.prepare
 
@@ -2878,7 +2903,7 @@ class RoundRecorder:
     def inputs(self):
         return self.rounds[0] if self.rounds else None
 
-    def _census(self, particles, *args):
+    def _census(self, particles, *args, go=None):
         if (len(self.rounds) < self.KEEP_ROUNDS and isinstance(particles, list)
                 and not torch.cuda.is_current_stream_capturing()):
             from jaybenne_tpu_torch.particles import join_slices
@@ -2888,7 +2913,8 @@ class RoundRecorder:
                 seeds = seeds.clone()
             self.rounds.append((join_slices(particles)[0].clone(), len(particles),
                                 (setup, mesh, seeds, *rest)))
-        return self.real(particles, *args)
+            self.gos.append(None if go is None else go.clone())
+        return self.real(particles, *args, go=go)
 
     def _fix(self, p, faces, mesh, c, gen, offset, n_local, go=None):
         if not torch.cuda.is_current_stream_capturing():  # a replay calls no Python
@@ -3086,12 +3112,18 @@ def spatial_phases(transport_kernel, dev, cost, src, mix_lib) -> list:
     for n in (1, 8):
         rounds = rounds_queued(big[n][0])
         # the census, one launch a round queued; the migration kernel, two a round
-        # queued at 8 shards (none at 1: nothing can migrate)
+        # queued at 8 shards (none at 1: nothing can migrate); the count kernel, one
+        # a round queued and one a step's tail
         if (big[n][1].get(name_z, 0) != rounds
-                or big[n][1].get("migrate_pack", 0) != (2 * rounds if n > 1 else 0)):
+                or big[n][1].get("migrate_pack", 0) != (2 * rounds if n > 1 else 0)
+                or big[n][1].get("round_counts", 0) != rounds + big[n][0].cycle):
             raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}, {rounds} "
                                  "rounds queued")
+        print(f"big_mesh_spatial at {n}: {big[n][1]['round_counts']} round_counts launches, "
+              f"one a round queued ({rounds}) and one a step's tail ({big[n][0].cycle})",
+              flush=True)
     MIGRATE_MAIN[0] = big[8][1]["migrate_pack"]
+    COUNTS_MAIN[0] = big[8][1]["round_counts"]
     k_z = round_kernel(transport_kernel, dev, big[8][2], name_z, cost)
     table_check(transport_kernel, dev, *big[8][4], "big_mesh_spatial's first step at 8 shards "
                 "(8 coefficient sets)")
@@ -3447,10 +3479,10 @@ F64_REDESIGNED = {
 def only_f64(launches, what):
     """Raises unless a float64 run launched float64 kernels alone (the insert
     kernel, ``ledger_insert``, and the migration kernel, ``migrate_pack``, copy the
-    bytes of a column of either width; the tally kernel, ``tally``, and the face
-    kernel, ``ddmc_face_probs``, count either precision's launches under one
-    name)."""
-    either = ("ledger_insert", "migrate_pack", "tally", "ddmc_face_probs")
+    bytes of a column of either width; the tally kernel, ``tally``, the face
+    kernel, ``ddmc_face_probs``, and the count kernel, ``round_counts``, count
+    either precision's launches under one name)."""
+    either = ("ledger_insert", "migrate_pack", "tally", "ddmc_face_probs", "round_counts")
     other = [k for k, n in launches.items() if n and k not in either
              and not k.split("@")[0].endswith("_f64")]
     if other:
@@ -4149,10 +4181,10 @@ def migration_reading(dev, c: RecordedMigration, what, smi) -> dict:
     the window between CUDA events after a device sleep) against its bound, the
     kernel's whole round (the pack and the insert) and the parent's
     (``spatial.migrate(plain=True)``), each timed alone, the parent's by kernel,
-    the same round with ``go`` false by both, and, for
-    comparison, the z route's ``kept`` clones of seven columns with their
-    ``torch.where`` and the round's ``unfinished`` sums. Returns the numbers."""
-    from jaybenne_tpu_torch.parallel import exchange, sharding, spatial
+    the same round with ``go`` false by both, and, for comparison, the round's
+    bookkeeping before and after the count kernel (``round_bookkeeping``). Returns
+    the numbers."""
+    from jaybenne_tpu_torch.parallel import sharding, spatial
 
     fresh = c.ledger.clone
     falsy = torch.zeros((), dtype=torch.bool, device=dev)
@@ -4177,21 +4209,7 @@ def migration_reading(dev, c: RecordedMigration, what, smi) -> dict:
         "bound_ms": migration_bound(c, n_sent), "sent": n_sent,
     }
     ps = sharding.split_ledger(c.ledger.clone(), len(c.offsets))
-    joined = c.ledger.clone()
-    go = torch.ones((), dtype=torch.bool, device=dev)
-
-    def kept_columns(_):
-        cols = (joined.x, joined.y, joined.z, joined.i, joined.j, joined.k, joined.block)
-        old = [(x, x.clone()) for x in cols]
-        for x, y in old:
-            torch.where(go, x, y, out=x)
-
-    def unfinished(_):
-        return exchange.InProcess(c.n).sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
-                                            for p in ps])[0]
-
-    out["kept_device_ms"] = device_ms(kept_columns, lambda: None)
-    out["unfinished_device_ms"] = device_ms(unfinished, lambda: None)
+    out.update(round_bookkeeping(dev, ps, c.n))
     print(f"migration round, {what} ({len(c.offsets)} local shards of {c.n}, "
           f"{c.ledger.capacity} slots, {int(c.ledger.alive.sum())} live, K {c.K}, "
           f"{spatial.row_words(c.ledger)} words a row, {n_sent} sent; {smi}): the kernel's sort "
@@ -4202,9 +4220,83 @@ def migration_reading(dev, c: RecordedMigration, what, smi) -> dict:
           f"parent's {out['round_plain_ms']!r} ms ({out['round_plain_device_ms']!r}); with go "
           f"false {out['go_false_ms']!r} ms ({out['go_false_device_ms']!r}), the parent's "
           f"{out['go_false_plain_ms']!r} ms ({out['go_false_plain_device_ms']!r}); the "
-          f"parent's round by kernel {out['round_plain_by_kernel']} ms; for comparison the z "
-          f"route's kept clones {out['kept_device_ms']!r} ms, the unfinished sums "
-          f"{out['unfinished_device_ms']!r} ms on the device", flush=True)
+          f"parent's round by kernel {out['round_plain_by_kernel']} ms; for comparison the "
+          f"round's bookkeeping on the device: the parent's (the z route's kept clones and "
+          f"their torch.where, the gated counters, the unfinished sums) "
+          f"{out['bookkeeping_before_device_ms']!r} ms in "
+          f"{out['bookkeeping_before_launches']!r} device operations a round, of it the kept "
+          f"clones {out['kept_device_ms']!r} and the unfinished sums "
+          f"{out['unfinished_device_ms']!r}; this tree's (one round_counts launch) "
+          f"{out['bookkeeping_after_device_ms']!r} ms in "
+          f"{out['bookkeeping_after_launches']!r}", flush=True)
+    return out
+
+
+def round_bookkeeping(dev, ps, n, max_iters=1000) -> dict:
+    """A spatial round's bookkeeping over the local shards' ledgers ``ps`` (adjacent
+    slices, ``n`` shards in this process) on the device (torch.profiler, the mean
+    of CENSUS_REPEATS calls): the parent's, the z route's kept clones of seven
+    columns put back by ``torch.where``, the census's counters gated by
+    ``torch.where``, the accumulators' adds, each shard's unfinished sum summed by
+    the in-process exchange and the round's count (its kept clones and unfinished
+    sums also alone); and this tree's, one launch of the count kernel
+    (``counts.round_counts``). Device ms and device operations a round of each."""
+    import types
+
+    from jaybenne_tpu_torch.ops import counts
+    from jaybenne_tpu_torch.parallel import exchange
+    from jaybenne_tpu_torch.particles import join_slices
+
+    m = len(ps)
+    joined = join_slices(ps)[0]
+    go = torch.ones((), dtype=torch.bool, device=dev)
+
+    def z(dtype=torch.int64):
+        return torch.zeros(m, dtype=dtype, device=dev)
+
+    it, ev, drop, sent = z(torch.int32), z(), z(), z()
+    acc = types.SimpleNamespace(iters=z(torch.int32), events=z(), hits=z(), dropped=z(),
+                                sent=z(), rounds=torch.zeros((), dtype=torch.int64, device=dev),
+                                unfinished=torch.zeros((), dtype=torch.int64, device=dev))
+
+    def kept_columns():
+        cols = (joined.x, joined.y, joined.z, joined.i, joined.j, joined.k, joined.block)
+        old = [(x, x.clone()) for x in cols]
+        for x, y in old:
+            torch.where(go, x, y, out=x)
+
+    def unfinished():
+        return exchange.InProcess(n).sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
+                                          for p in ps])[0]
+
+    def before(_):
+        kept_columns()
+        hit = it >= max_iters
+        i, e, hit = torch.where(go, it, 0), torch.where(go, ev, 0), hit & go
+        acc.iters.add_(i)
+        acc.events.add_(e)
+        acc.hits.add_(hit.to(torch.int64))
+        acc.dropped.add_(drop)
+        acc.sent.add_(sent)
+        acc.unfinished.copy_(unfinished())
+        acc.rounds.add_(go.to(torch.int64))
+
+    work = counts.scratch(m, dev)
+
+    def after(_):
+        counts.round_counts(ps, acc, it, ev, drop, sent, go, max_iters, work)
+
+    out = {}
+    for key, fn in (("bookkeeping_before", before), ("bookkeeping_after", after)):
+        for _ in range(3):  # a trace late in a long process can hold none of them
+            ops = traced_launches(fn, lambda: None, CENSUS_REPEATS)
+            if ops:
+                break
+        out[f"{key}_device_ms"] = (sum(us for _, us in ops) / 1e3 / CENSUS_REPEATS if ops
+                                   else None)
+        out[f"{key}_launches"] = len(ops) / CENSUS_REPEATS if ops else None
+    out["kept_device_ms"] = device_ms(lambda _: kept_columns(), lambda: None)
+    out["unfinished_device_ms"] = device_ms(lambda _: unfinished(), lambda: None)
     return out
 
 
@@ -4249,8 +4341,10 @@ def migration_check(dev, outdir, smi) -> dict:
 # the migration kernel's launches in each counted spatial path's run (its counts
 # set to 0 just before it and read just after), for its entry of the kernels line
 MIGRATE_PATHS = []
-# the migration kernel's launches in phase 30's 8-shard big_mesh_spatial run
+# the migration kernel's and the count kernel's launches in phase 30's 8-shard
+# big_mesh_spatial run
 MIGRATE_MAIN = [0]
+COUNTS_MAIN = [0]
 
 
 @contextlib.contextmanager
@@ -4756,6 +4850,261 @@ def tally_faces_phase(dev, smi) -> tuple:
         "library_ms": None,
     }
     return tally_kernel, face_kernel
+
+
+# the count kernel's launch (csrc/count_kernel.cu), by kernel name
+COUNT_LAUNCHES = ("round_counts_kernel",)
+# a spatial round's accumulators that the count kernel adds to (spatial.StepTensors)
+ACC_NAMES = ("iters", "events", "hits", "dropped", "sent", "rounds", "unfinished")
+# phase 47: the paths whose count kernel calls (a round's, kept up to COUNT_ROUNDS,
+# and every step's and tail's) are held against the plain version; on the spatial
+# ones (gate True) the census gate too, on the recorded rounds; (what, deck,
+# overrides, gate)
+COUNT_PATHS = (
+    ("big_mesh_spatial at 8 shards (transport_3d@z)", DECK,
+     {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}, True),
+    ("stepdiff at 8 spatial shards in float64 (transport_1d_smr_f64@blocks)", DECK,
+     {**STEPDIFF_SPATIAL, **PREC64}, True),
+    ("stepdiff at 8 spatial shards (transport_1d_smr@blocks)", DECK, STEPDIFF_SPATIAL, True),
+    ("phase 33's SMR+DDMC deck at 8 spatial shards (transport_2d_ddmc_smr@blocks)",
+     SMR_DDMC_DECK, {**SMR_SPATIAL, **SPATIAL, "jaybenne/n_devices": 8}, True),
+    ("stepdiff", DECK, GATE, False),
+    ("the 64^3 DDMC row", DECK, BIG_DDMC, False),
+    ("the 64^3 feedback row", DECK, FEEDBACK, False),
+    ("stepdiff_smr at 8 particle shards (phase 32's)", SMR_DECK, {**SMR_GATE, **EIGHT}, False),
+)
+COUNT_ROUNDS = 4
+
+
+class RecordedCounts(typing.NamedTuple):
+    """One call of the count kernel as a run made it (``counts.counts``, or with
+    ``acc`` ``counts.round_counts``): a clone of the local shards' joined ledger,
+    their number, and for a round clones of the step's accumulators before it
+    (``acc``, by ACC_NAMES) and of the round's counts and flag."""
+
+    ledger: object
+    m: int
+    acc: object = None
+    it: object = None
+    ev: object = None
+    drop: object = None
+    sent: object = None
+    go: object = None
+    max_iters: int = 0
+
+
+def recorded_counts(run, keep_rounds=COUNT_ROUNDS) -> list:
+    """The calls of the count kernel that ``run()`` makes, as ``RecordedCounts``:
+    every ``counts.counts`` call and the first ``keep_rounds`` rounds'
+    ``counts.round_counts``; the run goes on as it would."""
+    from jaybenne_tpu_torch.ops import counts
+    from jaybenne_tpu_torch.particles import join_slices
+
+    calls, real, real_round = [], counts.counts, counts.round_counts
+    rounds = [0]
+
+    def cloned(t):
+        return None if t is None else t.clone()
+
+    def counting(ledgers, work=None, plain=False):
+        calls.append(RecordedCounts(join_slices(ledgers)[0].clone(), len(ledgers)))
+        return real(ledgers, work, plain)
+
+    def rounding(ledgers, acc, it, ev, drop, sent, go, max_iters, work=None, plain=False):
+        if rounds[0] < keep_rounds:
+            calls.append(RecordedCounts(
+                join_slices(ledgers)[0].clone(), len(ledgers),
+                {k: getattr(acc, k).clone() for k in ACC_NAMES}, it.clone(), ev.clone(),
+                cloned(drop), cloned(sent), cloned(go), max_iters))
+        rounds[0] += 1
+        return real_round(ledgers, acc, it, ev, drop, sent, go, max_iters, work, plain)
+
+    counts.counts, counts.round_counts = counting, rounding
+    try:
+        run()
+    finally:
+        counts.counts, counts.round_counts = real, real_round
+    return calls
+
+
+def recorded_acc(c: RecordedCounts):
+    """A copy of a recorded round's accumulators before it, as the step's."""
+    import types
+
+    return types.SimpleNamespace(**{k: v.clone() for k, v in c.acc.items()})
+
+
+def replay_counts(c: RecordedCounts, plain=False, work=None, acc=None) -> tuple:
+    """A recorded call by the kernel (``work`` its scratch, None for a fresh one),
+    or by its plain version: the per-shard counts and totals (``counts``), or the
+    round's accumulators after it, by ACC_NAMES (added into ``acc``, by default
+    ``recorded_acc(c)``)."""
+    from jaybenne_tpu_torch.ops import counts
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    ps = split_ledger(c.ledger, c.m) if c.m > 1 else [c.ledger]
+    if c.acc is None:
+        return counts.counts(ps, work, plain=plain)
+    acc = recorded_acc(c) if acc is None else acc
+    counts.round_counts(ps, acc, c.it, c.ev, c.drop, c.sent, c.go, c.max_iters, work,
+                        plain=plain)
+    return tuple(getattr(acc, k) for k in ACC_NAMES)
+
+
+def counts_bound(c: RecordedCounts) -> float:
+    """The least ms of a call on the card (bytes / PEAK_BYTES): each slot's alive
+    flag and tau read once, each shard's counts and the totals written, and in a
+    round the round's counts and flag read and the accumulators read and
+    written."""
+    p = c.ledger
+    b = p.capacity * (1 + p.tau.element_size())
+    if c.acc is None:
+        return (b + 8 * (2 * c.m + 3)) / PEAK_BYTES * 1e3
+    ins = sum(t.numel() * t.element_size() for t in (c.it, c.ev, c.drop, c.sent, c.go)
+              if t is not None)
+    accs = sum(t.numel() * t.element_size() for t in c.acc.values())
+    return (b + ins + 2 * accs) / PEAK_BYTES * 1e3
+
+
+def counts_bitwise(calls, what) -> str:
+    """Each recorded call by the kernel and by its plain version: raises unless
+    every count, total and accumulator is bitwise equal and one launch was
+    counted. Returns what was held, as text."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+
+    if not calls:
+        raise AssertionError(f"counts on {what}: no call recorded")
+    rounds = [c for c in calls if c.acc is not None]
+    for c in calls:
+        before = cuda_lib.LAUNCHES["round_counts"]
+        got = replay_counts(c)
+        if cuda_lib.LAUNCHES["round_counts"] != before + 1:
+            raise AssertionError(f"counts on {what}: the kernel did not launch once")
+        want = replay_counts(c, plain=True)
+        for k, (a, b) in enumerate(zip(got, want)):
+            if not bitwise_equal(a, b):
+                raise AssertionError(f"counts on {what}: output {k} differs: {a.tolist()} vs "
+                                     f"{b.tolist()}")
+    last = calls[-1]
+    per, totals = replay_counts(last, plain=True) if last.acc is None else (None, None)
+    seen = (f"{len(calls) - len(rounds)} step or tail call(s) and the first {len(rounds)} "
+            f"round(s), {calls[0].m} shard(s) in one launch, {calls[0].ledger.capacity} slots, "
+            f"{calls[0].ledger.tau.dtype}")
+    if totals is not None:
+        seen += f"; the last call's live, max and unfinished {totals.tolist()}"
+    if rounds:
+        seen += (f"; the rounds' go {[None if c.go is None else bool(c.go) for c in rounds]}, "
+                 f"max_iters {rounds[0].max_iters}")
+    return f"{what}: " + seen
+
+
+def census_gate_bitwise(rounds, what) -> str:
+    """Each recorded round (``RoundRecorder.rounds``) by the census kernel with
+    ``go`` false: every column bitwise as it was and its iterations and events 0,
+    one launch counted; with ``go`` true bitwise the ungated call, columns and
+    counts. Returns what was held, as text."""
+    from jaybenne_tpu_torch.ops import cuda_lib, transport_kernel
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    if not rounds:
+        raise AssertionError(f"census gate on {what}: no round recorded")
+    names = []
+    for p0, n, args in rounds:
+        g = args[0].g
+        name = transport_kernel.launch_name(g.ndim, g.absorb, g.ddmc, g.smr, g.nongray,
+                                            g.route, g.real)
+        dev = p0.x.device
+        out = {}
+        for go in (None, False, True):
+            q = p0.clone()
+            before = cuda_lib.LAUNCHES[name]
+            flag = None if go is None else torch.tensor(go, device=dev)
+            _, it, ev = transport_kernel.transport(split_ledger(q, n), *args, go=flag)
+            if cuda_lib.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"census gate on {what}: {name} did not launch once")
+            out[go] = (q, it, ev)
+        q, it, ev = out[False]
+        same_columns(q, p0, f"census gate on {what}: {name} with go false")
+        if bool(it.any()) or bool(ev.any()):
+            raise AssertionError(f"census gate on {what}: go false counted {it.tolist()}, "
+                                 f"{ev.tolist()}")
+        same_columns(out[True][0], out[None][0], f"census gate on {what}: {name} with go true")
+        if not (torch.equal(out[True][1], out[None][1])
+                and torch.equal(out[True][2], out[None][2])):
+            raise AssertionError(f"census gate on {what}: go true counted other than ungated")
+        if not int(out[None][2].sum()):
+            raise AssertionError(f"census gate on {what}: the recorded round ran nothing")
+        names.append(f"{name} over {n} shards ({p0.capacity} slots, "
+                     f"{int((p0.alive & (p0.tau < 1.0)).sum())} unfinished)")
+    return f"{what}: " + "; ".join(names)
+
+
+def counts_phase(dev, smi) -> dict:
+    """Phase 47: the census gate bitwise on the recorded rounds of every spatial
+    route (``census_gate_bitwise``), the count kernel bitwise its plain version on
+    every path of COUNT_PATHS (``counts_bitwise``), and read apart
+    (``kernel_reading``, with the plain version's device ms from the trace) on
+    big_mesh_spatial's and the float64 stepdiff's first round and tail at 8 shards
+    and the 64^3 DDMC row's step. Returns the kernel's ``kernels`` entry, the
+    launches left to the caller."""
+    from jaybenne_tpu_torch import driver
+    from jaybenne_tpu_torch.ops import counts, transport_kernel
+
+    phase("47 the round's gate and counts: the census with go false changes nothing on every "
+          "spatial route's recorded rounds; the count kernel bitwise its plain version on "
+          "rounds, tails and steps, read apart")
+    calls = {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for what, deck, mods, gate in COUNT_PATHS:
+            def run(deck=deck, mods=mods):
+                driver.run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=1,
+                                device="cuda", graph=False)
+
+            with RoundRecorder(transport_kernel) as rec:
+                got = recorded_counts(run)
+            print("count kernel bitwise its plain version, " + counts_bitwise(got, what),
+                  flush=True)
+            if gate:
+                print("census gate held, " + census_gate_bitwise(rec.rounds, what), flush=True)
+            calls[what] = got
+            del rec
+            torch.cuda.empty_cache()
+    readings = {}
+    for what, which, pick in (
+            (COUNT_PATHS[0][0], "its first round", lambda cs: cs[0]),
+            (COUNT_PATHS[0][0], "its tail", lambda cs: cs[-1]),
+            (COUNT_PATHS[1][0], "its first round", lambda cs: cs[0]),
+            (COUNT_PATHS[1][0], "its tail", lambda cs: cs[-1]),
+            ("the 64^3 DDMC row", "its step", lambda cs: cs[-1])):
+        c = pick(calls[what])
+        # a scratch and accumulators of the reading's own, made once, so that a
+        # call's window holds the launch alone (a round's adds go on accumulating)
+        work = counts.scratch(c.m, dev)
+        acc, plain_acc = (None, None) if c.acc is None else (recorded_acc(c), recorded_acc(c))
+        r = kernel_reading(dev, lambda c=c, work=work, acc=acc: replay_counts(c, work=work,
+                                                                             acc=acc),
+                           lambda c=c, acc=plain_acc: replay_counts(c, plain=True, acc=acc),
+                           COUNT_LAUNCHES, counts_bound(c), f"count kernel on {what}, {which}",
+                           smi)
+        r["plain_device_ms"] = device_ms(
+            lambda _, c=c, acc=plain_acc: replay_counts(c, plain=True, acc=acc), lambda: None)
+        print(f"count kernel on {what}, {which}: the plain version's device ms "
+              f"{r['plain_device_ms']!r}", flush=True)
+        readings[what, which] = r
+    torch.cuda.empty_cache()
+    r = readings[COUNT_PATHS[0][0], "its first round"]
+    return {
+        "name": "round_counts (each local shard's live and unfinished counts over every local "
+                "shard's slots in one launch, with a spatial round's counters folded in)",
+        "route": "cuda", "source": "jaybenne_tpu_torch/csrc/count_kernel.cu",
+        "replaces": "jaybenne_tpu/parallel/spatial.py:480-488 (local_unfinished, its psum's "
+                    "local term and the round loop's carry adds) and jaybenne_tpu/step.py:280, "
+                    ":317 (unfinished, num_alive; jaybenne_tpu/particles.py:78-79): XLA, no "
+                    "Pallas kernel",
+        "max_abs_err": 0.0, "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "plain_device_ms": r["plain_device_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }
 
 
 def gate_record(path, upto="--- phase: 46") -> tuple:
@@ -5281,6 +5630,14 @@ def main() -> int:
 
     insert_kernel, migrate_kernel = graph_phase(dev, smi)
     tally_kernel, face_kernel = tally_faces_phase(dev, smi)
+    count_kernel = counts_phase(dev, smi)
+    # the main path: phase 30's 8-shard big_mesh_spatial run (one launch a round
+    # queued and one a step's tail); beside it every counted path's
+    count_kernel["launches"] = COUNTS_MAIN[0]
+    count_kernel["launches_by_path"] = [[what, n] for what, n in COUNT_PATHS_RUN]
+    if not COUNTS_MAIN[0] or any(n == 0 for _, n in COUNT_PATHS_RUN):
+        raise AssertionError(f"round_counts: a path without a launch: {COUNT_PATHS_RUN}")
+    print(f"round_counts launches by path: {COUNT_PATHS_RUN}", flush=True)
     # the main path of both: phase 14's 64^3 DDMC run (the initial radiation's tally
     # and ten steps'); beside it every path that phase 5-13 ran
     tally_kernel["launches"] = big_launches.get("tally", 0)
@@ -5374,7 +5731,8 @@ def main() -> int:
     # ``launches`` is phase 14's; beside it every counted path's
     table_kernel["launches_by_path"] = [[what, n] for what, n in TABLE_PATHS]
     print(f"census_table launches by path: {TABLE_PATHS}", flush=True)
-    kernels += ([table_kernel, insert_kernel, migrate_kernel, tally_kernel, face_kernel]
+    kernels += ([table_kernel, insert_kernel, migrate_kernel, tally_kernel, face_kernel,
+                 count_kernel]
                 + smr_kernels + nongray_kernels + spatial_kernels + f64_kernels)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -558,7 +558,10 @@ constexpr int kGeomFloats = 57;
 // in 3D without; a lane runs while its cell lies in it), and the first row of its
 // range in the cell table; its K2 seed of the round is seed[k], in device memory,
 // so that a CUDA graph's launch keeps the pointer and each replay reads the seed
-// copied there since. The launch scans the slots [first, first + n).
+// copied there since. The launch scans the slots [first, first + n). ``go``, in
+// device memory too, gates a spatial round: where it is not null and reads 0,
+// every thread returns before it reads or writes a slot (a round that begins
+// with nothing unfinished changes nothing, the fold's round trip included).
 constexpr int kMaxShards = 64;
 struct Shards {
   int count;
@@ -568,6 +571,7 @@ struct Shards {
   int own_lo[kMaxShards], own_hi[kMaxShards];
   int row[kMaxShards];
   const uint32_t* seed;  // device memory, one a shard
+  const uint8_t* go;     // device memory, one flag for the launch, or null
   // where the instantiation spreads its shards (``kSpreadShards``) and width > 0:
   // the first width blocks take 32-slot groups spread over them, later blocks 256
   // consecutive; group G of the launch is shard G % count's (G / count)-th group
@@ -1884,6 +1888,9 @@ __global__ void __launch_bounds__(kThreads)
     transport_kernel(Ledger<Real> L, const Real* __restrict__ table, Forest<Real> F, int n,
                      Geom<Real> g, Shards S, unsigned long long* __restrict__ events,
                      int32_t* __restrict__ iters) {
+  // one flag for the whole launch, so the exit is uniform over every block, before
+  // the first round of a launch in rounds or of interleaved shard groups
+  if (S.go != nullptr && *S.go == 0) return;
   __shared__ unsigned long long s_ev[kMaxShards];
   __shared__ int s_mx[kMaxShards];
   __shared__ Stage<Real> sm;
@@ -1995,7 +2002,10 @@ struct Occupancy {
 // shift[3] (host arrays). With fold the shards' slots must cover the ledger: every
 // slot is rewritten.
 // shards: n_shards rows of (slot_lo, slot_hi, own_lo, own_hi, first table row)
-// (host array); seeds: the shards' n_shards K2 seeds (int32, device). spread: nonzero for warp w of block b to take the 32 slots
+// (host array); seeds: the shards' n_shards K2 seeds (int32, device); go: null, or
+// one flag (a bool, device) that the kernel reads first: where it is 0 the launch
+// touches no slot, and the counters keep the zeros they were given. spread:
+// nonzero for warp w of block b to take the 32 slots
 // of group w x blocks + b instead of block b the 256 after 256 b, so that every
 // block holds slots from across the launch (of each round, where the instantiation
 // runs in rounds). grid: where the instantiation runs in rounds (kRounds), at most
@@ -2017,8 +2027,8 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
                  const void* table, const void* const* cols, const void* block_table,
                  const void* levels, const void* lookup, int capacity, const int* igeom,
                  const Real* fgeom, int n_shards, const int* shards, const void* seeds,
-                 int spread, int grid, int width, void* events, void* iters, int zeroed,
-                 void* stream) {
+                 const void* go, int spread, int grid, int width, void* events, void* iters,
+                 int zeroed, void* stream) {
   Ledger<Real> L;
   for (int a = 0; a < 3; ++a) {
     L.x[a] = (Real*)ptrs[a];
@@ -2103,6 +2113,7 @@ int launch_entry(int ndim, int absorb, int ddmc, int smr, int nongray, void* con
   S.first = first;
   S.spread = spread;
   S.seed = (const uint32_t*)seeds;
+  S.go = (const uint8_t*)go;
   S.width = width;
   S.slice = S.slot_hi[0] - S.slot_lo[0];
   if (width < 0) return -4;

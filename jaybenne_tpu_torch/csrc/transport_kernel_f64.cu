@@ -27,12 +27,13 @@ extern "C" int jb_transport_launch_f64(int ndim, int absorb, int ddmc, int smr, 
                                        const void* const* cols, const void* block_table,
                                        const void* levels, const void* lookup, int capacity,
                                        const int* igeom, const double* fgeom, int n_shards,
-                                       const int* shards, const void* seeds, int spread, int grid,
-                                       int width, void* events, void* iters, int zeroed,
-                                       void* stream) {
+                                       const int* shards, const void* seeds, const void* go,
+                                       int spread, int grid, int width, void* events, void* iters,
+                                       int zeroed, void* stream) {
   return launch_entry<double>(ndim, absorb, ddmc, smr, nongray, ptrs, table, cols,
                               block_table, levels, lookup, capacity, igeom, fgeom, n_shards,
-                              shards, seeds, spread, grid, width, events, iters, zeroed, stream);
+                              shards, seeds, go, spread, grid, width, events, iters, zeroed,
+                              stream);
 }
 
 extern "C" int jb_transport_occupancy_f64(int ndim, int absorb, int ddmc, int smr,

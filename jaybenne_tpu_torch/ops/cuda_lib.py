@@ -65,6 +65,7 @@ _TRANSPORT = (
     _P, _P,          # host int and real geometry arrays
     _I, _P,          # shards, host array of their (slot_lo slot_hi own_lo own_hi row)
     _P,              # the shards' int32 seeds (device)
+    _P,              # go: the round's flag (a bool, device), or null for an ungated launch
     _I,              # spread: a block's warps take slot groups spread over the launch
     _I,              # grid: at most this many blocks where the instantiation runs in rounds
     _I,              # width: the first wave's blocks that take the shards spread, or 0
@@ -102,6 +103,10 @@ _SIGNATURES = {
     # double, host arrays of the 3 axes' lower and upper side maps and faces a
     # block, dx, surface index, S, ncell, blocks, bl, off0, tau thin, parts, host
     # arrays of the parts' sigma_t, its step, surfaces and 3 outputs each, stream
+    # alive, tau, its bytes, local shards, slots a shard, scratch, per-shard counts,
+    # totals, host array of the round's 12 counter pointers (or null), max_iters,
+    # stream
+    "jb_counts_launch": (_P, _P, _I, _I, _L, _P, _P, _P, _P, _I, _P),
     "jb_faces_launch": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P, _I, _P, _P,
                         _P),
 }

@@ -909,7 +909,7 @@ def _face_column(g: _Geom) -> int:
 
 
 def _census_plain(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None,
-                  lane_events=None):
+                  lane_events=None, go=None):
     """All lanes advance one event per loop step (the JAX kernel's tile loop over
     the whole ledger) while their cell lies in their shard's owned range (of
     blocks with SMR, of global z cells in 3D without); ``shards`` are ``_Shard``
@@ -917,13 +917,28 @@ def _census_plain(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fol
     of several blocks: the ledger is collapsed to one block before
     (``collapse_plain``) and expanded after (``expand_plain``). Returns
     (iterations, events) as [len(shards)] tensors; ``lane_events``, an int32
-    tensor of the ledger's length, receives each slot's events."""
+    tensor of the ledger's length, receives each slot's events.
+
+    With ``go`` (a 0-dim bool tensor) false the call changes nothing and counts
+    nothing, as the kernel's launch that reads the flag first: the census runs,
+    and every column, the counts and ``lane_events`` are put back where the flag
+    is false, with no host read of the flag."""
+    kept = {}
+    if go is not None:
+        kept = {f.name: getattr(p, f.name).clone() for f in dataclasses.fields(p)}
+        if lane_events is not None:
+            kept["lane_events"] = lane_events.clone()
     if fold is not None:
         collapse_plain(p, fold)
-    out = _census_loop(p, tabs, g, shards, max_iters, lane_events)
+    iters, events = _census_loop(p, tabs, g, shards, max_iters, lane_events)
     if fold is not None:
         expand_plain(p, fold)
-    return out
+    if go is None:
+        return iters, events
+    for name, old in kept.items():
+        col = lane_events if name == "lane_events" else getattr(p, name)
+        torch.where(go, col, old, out=col)
+    return torch.where(go, iters, 0), torch.where(go, events, 0)
 
 
 def _census_loop(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, lane_events):
@@ -1252,7 +1267,7 @@ def census_counters(n: int, device) -> torch.Tensor:
 
 
 def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold=None,
-                 seeds=None, counters=None, zeroed=False):
+                 seeds=None, counters=None, zeroed=False, go=None):
     """The census kernel on PyTorch's current stream (no synchronisation), one
     launch for every MAX_SHARDS_PER_LAUNCH shards; the ledger was checked by
     ``_check_cuda_ledger``. With ``fold`` a uniform mesh of several blocks, the
@@ -1264,9 +1279,14 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
     from device memory: ``seeds``, an int32 tensor of one per shard on the
     ledger's device (a CUDA graph's launch keeps its pointer, and a replay reads
     what was copied there since), or when None the shards' own, copied there
-    from pinned memory without waiting."""
+    from pinned memory without waiting. ``go``, a 0-dim bool tensor on the
+    ledger's device or None, gates every launch: the kernel reads it before any
+    slot, and where it is false the call changes nothing and its counters read 0
+    (``_census_plain``'s meaning)."""
     dev = p.x.device
     n = len(shards)
+    if go is not None and (go.device != dev or go.dtype != torch.bool or go.numel() != 1):
+        raise ValueError("transport kernel: go must be one bool on the ledger's GPU")
     if seeds is None:
         seeds = torch.tensor([sh.seed for sh in shards], dtype=torch.int32,
                              pin_memory=True).to(dev, non_blocking=True)
@@ -1315,8 +1335,9 @@ def _census_cuda(p, tabs: _Tables, g: _Geom, shards: tuple, max_iters: int, fold
             *(0 if t is None else t.data_ptr() for t in smr),
             p.capacity, (ctypes.c_int * len(ints))(*ints),
             (c_real * len(floats))(*map(float, floats)),
-            len(group), (ctypes.c_int * len(rows))(*rows), seeds[k0:].data_ptr(), spread, grid,
-            width, events[k0:].data_ptr(), iters[k0:].data_ptr(), int(zeroed),
+            len(group), (ctypes.c_int * len(rows))(*rows), seeds[k0:].data_ptr(),
+            None if go is None else go.data_ptr(), spread, grid, width,
+            events[k0:].data_ptr(), iters[k0:].data_ptr(), int(zeroed),
             cuda_lib.stream_handle(dev),
         )
         if slots > 0:  # a group without slots launches nothing, its counters zeroed
@@ -1441,7 +1462,7 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
     return particles, iters[0], events[0]
 
 
-def transport(particles, coefs, mesh, seed, prm, dt, own=None):
+def transport(particles, coefs, mesh, seed, prm, dt, own=None, go=None):
     """Census transport of ``particles`` (updated in place) over one step ``dt``:
     the CUDA kernel for a ledger on a GPU, the plain version for one on the CPU.
     ``seed`` is the step's signed 32-bit K2 seed, or an int32 tensor of one seed
@@ -1455,21 +1476,24 @@ def transport(particles, coefs, mesh, seed, prm, dt, own=None):
     slot's index in its own shard's ledger. ``coefs`` may also be a ``Census``
     from ``prepare`` (``own`` None), reused across calls. Returns ``(particles,
     iterations, events)``, the last two per range ([n] tensors) with a sequence
-    of ledgers."""
+    of ledgers. ``go``, a 0-dim bool tensor on the ledger's device, gates a
+    spatial round: where it is false the call changes no slot and counts nothing
+    (the kernel reads it on the device; no host read)."""
     p = particles[0] if isinstance(particles, (list, tuple)) else particles
     dev = p.x.device.type
     if dev == "cuda":
-        return _run(_census_cuda, particles, coefs, mesh, seed, prm, dt, own)
+        return _run(_census_cuda, particles, coefs, mesh, seed, prm, dt, own, go=go)
     if dev == "cpu":
-        return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own)
+        return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own, go=go)
     raise ValueError(f"transport: unsupported device {p.x.device}")
 
 
-def transport_plain(particles, coefs, mesh, seed, prm, dt, own=None, lane_events=None):
+def transport_plain(particles, coefs, mesh, seed, prm, dt, own=None, lane_events=None,
+                    go=None):
     """The plain PyTorch version of ``transport`` on any device. ``lane_events``, an
     int32 tensor as long as the (joined) ledger, receives each slot's events."""
     return _run(_census_plain, particles, coefs, mesh, seed, prm, dt, own,
-                lane_events=lane_events)
+                lane_events=lane_events, go=go)
 
 
 def warp_efficiency(lane_events, width: int = 32) -> float:

@@ -54,6 +54,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import InitialRadiation, RunConfig
+from ..ops import counts
 from ..ops import fleck as fleck_ops
 from ..ops import rng, sourcing, tally
 from ..ops import transport as transport_ops
@@ -72,14 +73,16 @@ MIGRATE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy",
 
 # rounds a batch runs before its one host read where the step runs as CUDA
 # graphs (``build_spatial_step_core``'s default on a GPU). Chosen on one H100
-# (big_mesh_spatial at 8 shards as CUDA graphs, 74-88 rounds a step,
-# ``profile.py --rounds-per-batch``): a host read costs the replays about 0.33 ms,
-# and 4 rounds a batch gave the step of 2 with half the reads. A round with
-# nothing to do cost about 3.7 ms while its migration sorted every slot; with the
-# migration kernel that migration takes 0.04 ms, and 8 rounds a batch still gave
-# no shorter step than 4 (the no-op round's census launch, kept columns and
-# unfinished sums remain). An eager step gains nothing from a batch but the read
-# it saves, and pays each no-op round in full: it runs one round a batch
+# (NVIDIA H100 80GB HBM3, 700.00 W; ``census_bench.py --only round``: the step as
+# CUDA graphs by ``profile.py --rounds-per-batch``, 4 and 8 in turns, 4, 8, 8, 4
+# twice over, 7 profiled steps each). A round with nothing to do is now an
+# early-exit census launch, a migration and an insert that write nothing and one
+# count launch, yet 8 rounds a batch gave no shorter step than 4: the 8-shard
+# big_mesh_spatial step's wall medians 44.6-49.3 ms at 8 against 45.2-47.9 at 4
+# (device 39.65-39.78 ms against 39.61-39.80, 89.1 rounds queued a step against
+# 87.4), the float64 stepdiff's at 8 shards 33.2-35.7 against 31.8-33.9. An eager
+# step gains nothing from a batch but the read it saves, and pays each no-op
+# round in full: it runs one round a batch
 ROUNDS_PER_BATCH = 4
 
 
@@ -381,12 +384,12 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
     can_migrate = n > 1 and B > bl
     census = census_fn(cfg)
     shards = exchange.shards
+    # some shards run in other processes (a process group): the counts that the
+    # count kernel sums over the local shards are summed over the group too
+    remote = len(shards) != n
+    work = counts.scratch(len(shards), mesh.device)  # the count kernel's
     offsets = [s * bl for s in shards]
     owns = [owned_range(mesh, prm, n, s) for s in shards]
-    # a census over a uniform mesh of several blocks (the z route) gives every
-    # slot the collapse and expansion's round trip, which may move a bit of a
-    # slot that has not had one: a gated round puts those columns back
-    fold = owns[0].kind == "z" and B > 1
     # the plain census interleaves its rounds by an iteration budget (JAX
     # spatial.py:431-446); the round cap is scaled to keep the total backstop
     prm_round, max_rounds = prm, jb.max_migration_rounds
@@ -485,7 +488,13 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
 
     def one_round(ps, t: StepTensors, k, go, dt):
         """Round ``k`` of a batch; ``go`` None where it is known to have work, else
-        the device flag that it has."""
+        the device flag that it has. Each part reads the flag on the device and
+        changes nothing where it is false: the fixup, the census (its launch
+        touches no slot, the fold's round trip included, and its counters read 0)
+        and the migration; the round's counts (``counts.round_counts``: the
+        census's and the migration's counts added to the step's, the round counted
+        by its flag, the unfinished count written afresh) are one launch on a
+        GPU."""
         with record_function("spatial.round.fixup"):
             for i, (s, off) in enumerate(zip(shards, offsets)) if smr_ddmc else ():
                 f = t.fs[i]  # pending coarse-to-fine leaks, before the census
@@ -493,28 +502,16 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
                     ps[i], (f.ddmc_px, f.ddmc_py, f.ddmc_pz), mesh, prm.c, fixup[(s, k)], off,
                     bl, go=go)
         with record_function("spatial.round.census"):
-            kept = []
-            if fold and go is not None:  # over the local shards' ledgers joined
-                p = join_slices(ps)[0]
-                kept = [(c, c.clone()) for c in (p.x, p.y, p.z, p.i, p.j, p.k, p.block)]
-            _, it, ev = census(ps, t.setup, mesh, seeds["now"][k], prm_round, dt)
-            for c, old in kept:
-                torch.where(go, c, old, out=c)
-            hit = it >= prm.max_iters
-            if go is not None:
-                it, ev, hit = torch.where(go, it, 0), torch.where(go, ev, 0), hit & go
-            t.iters.add_(it)
-            t.events.add_(ev)
-            t.hits.add_(hit.to(torch.int64))
+            _, it, ev = census(ps, t.setup, mesh, seeds["now"][k], prm_round, dt, go=go)
         with record_function("spatial.round.migrate"):
+            drop = n_sent = None
             if can_migrate:
                 K = jb.migration_buffer_k or max(64, ps[0].capacity // (2 * n))
                 drop, n_sent = migrate(ps, offsets, bl, K, exchange, go=go)
-                t.dropped.add_(drop)
-                t.sent.add_(n_sent)
-            t.unfinished.copy_(exchange.sum([(p.alive & (p.tau < 1.0)).sum(dtype=torch.int64)
-                                             for p in ps])[0])
-            t.rounds.add_(1 if go is None else go.to(torch.int64))
+        with record_function("spatial.round.counts"):
+            counts.round_counts(ps, t, it, ev, drop, n_sent, go, prm.max_iters, work)
+            if remote:
+                t.unfinished.copy_(exchange.sum([t.unfinished])[0])
 
     def batch(states, t: StepTensors, nr, dt):
         """``nr`` rounds with no host read; the first begins with work (the host
@@ -546,18 +543,21 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
             for p in ps:
                 p.absorbed.zero_()
                 p.tau.zero_()
-            alive = [p.alive.sum(dtype=torch.int64) for p in ps]
+            _, totals = counts.counts(ps, work)  # the live counts' sum and max
+            n_alive, alive_max = totals[0], totals[1]
+            if remote:
+                n_alive, alive_max = exchange.sum([n_alive])[0], exchange.max([alive_max])[0]
             dropped = exchange.sum(list(t.dropped.unbind()))
             stats = StepStats.pack(
                 iterations=exchange.max(list(t.iters.unbind()))[0],
                 events=exchange.sum(list(t.events.unbind()))[0],
-                n_alive=exchange.sum(alive)[0],
+                n_alive=n_alive,
                 dropped=dropped[0],
                 cap_hits=exchange.sum(list(t.hits.unbind()))[0],
                 unfinished=t.unfinished,
                 migration_rounds=t.rounds,
                 migrated=exchange.sum(list(t.sent.unbind()))[0],
-                alive_max=exchange.max(alive)[0],
+                alive_max=alive_max,
             )
             new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt,
                                        cycle=st.cycle + 1, overflow=st.overflow + dropped[0])

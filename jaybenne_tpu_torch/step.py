@@ -39,6 +39,7 @@ import torch
 from torch.profiler import record_function
 
 from .config import InitialRadiation, RunConfig
+from .ops import counts
 from .ops import fleck as fleck_ops
 from .ops import rng, sourcing, tally
 from .ops import transport as transport_ops
@@ -201,6 +202,7 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     census = census_fn(cfg)
     models = (eos, opacity, scattering)
     dev = mesh.device
+    work = counts.scratch(len(shards), dev)  # the count kernel's
     phases = ((rng.PHASE_SOURCE,) if jb.do_emission else ()) + (
         (rng.PHASE_EXTERNAL,) if external else ())
     gens = {(ph, s): torch.Generator(device=dev) for ph in phases for s in shards}
@@ -262,36 +264,38 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
                                    source_type="external", num_particles=ext_num,
                                    external=external, window=window, **kw)
             dropped = [d + e for d, e in zip(dropped, ext_drop)]
-        iters, events, unfinished = [], [], []
+        iters, events = [], []
         for k, (f, p) in enumerate(zip(fs, ps)):
             coefs = transport_ops.precompute_coefs(
                 f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype)
             p, it, ev = census(p, coefs, mesh, seeds["now"][k], prm, dt)
             iters.append(it.to(torch.int64))
             events.append(ev)
-            # survivors still short of end-of-step, before the tau reset below
-            unfinished.append((p.alive & (p.tau < 1.0)).sum())
+        # the live counts and the survivors still short of end-of-step, every local
+        # shard's in one count: before the tau reset below (the tally changes
+        # neither alive nor tau)
+        _, totals = counts.counts(ps, work)
+        n_alive, alive_max, unfinished = totals[0], totals[1], totals[2]
         fs = tally.tallies(fs, ps, mesh, prm.has_absorption, exchange)
         if jb.do_feedback:
             fs = [tally.update_fluid(f, mesh) for f in fs]
         for p in ps:  # census survivors restart at tau = 0 next cycle
             p.absorbed.zero_()
             p.tau.zero_()
-        n_alive = [p.alive.sum(dtype=torch.int64) for p in ps]
-        alive_max = n_alive
-        unfinished = [u.to(torch.int64) for u in unfinished]
         if exchange is not None:
-            iters, alive_max = exchange.max(iters), exchange.max(n_alive)
-            events, n_alive, dropped, unfinished = (
-                exchange.sum(v) for v in (events, n_alive, dropped, unfinished))
+            iters = exchange.max(iters)
+            events, dropped = exchange.sum(events), exchange.sum(dropped)
+            if len(shards) != n:  # shards in other processes
+                n_alive, unfinished = (exchange.sum([v])[0] for v in (n_alive, unfinished))
+                alive_max = exchange.max([alive_max])[0]
         stats = StepStats.pack(
             iterations=iters[0],
             events=events[0],
-            n_alive=n_alive[0],
+            n_alive=n_alive,
             dropped=dropped[0],
             cap_hits=iters[0] >= prm.max_iters,
-            unfinished=unfinished[0],
-            alive_max=alive_max[0],
+            unfinished=unfinished,
+            alive_max=alive_max,
         )
         new = [dataclasses.replace(st, fields=f, particles=p, t=st.t + dt, cycle=st.cycle + 1,
                                    overflow=st.overflow + dropped[0])

@@ -9,6 +9,7 @@ where ``tests/conftest.py`` (which imports jax) cannot load:
 
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -1322,8 +1323,9 @@ def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
     one float64 table launch a step, one insert pass (three launches) a run (the
     initial radiation's births; the insert kernel copies bytes of either width), one
     tally pass (three launches) a step and the initial radiation's, one face launch
-    a DDMC step (the tally and face kernels count either precision under one name)
-    and no other, float64 state, a bitwise rerun."""
+    a DDMC step, one count launch a step (the tally, face and count kernels count
+    either precision under one name) and no other, float64 state, a bitwise
+    rerun."""
     mods = {**mods, "jaybenne/num_particles": 20000, "parthenon/output0/file_type": "none",
             "jaybenne/precision": "f64"}
     cuda_lib.LAUNCHES.clear()
@@ -1333,7 +1335,7 @@ def test_f64_path_runs_through_kernel(gpu, tmp_path, deck, mods):
                                         dtype=torch.float64)
     faces = {"ddmc_face_probs": 6} if deck == "stepdiff_ddmc.in" else {}
     assert dict(cuda_lib.LAUNCHES) == {name: 6, "census_table_f64": 6, "ledger_insert": 6,
-                                       "tally": 24, **faces}
+                                       "tally": 24, "round_counts": 6, **faces}
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.dtype == torch.float64 and sims[0].state.particles.x.dtype == torch.float64
     assert torch.equal(a, b)
@@ -1993,4 +1995,157 @@ def test_big_ddmc_graph_matches_eager_with_tally_and_faces(gpu, tmp_path):
         assert launches[0] == launches[1]
         assert launches[1]["tally"] == 3 and launches[1]["ddmc_face_probs"] == 1, launches
         cs.same_states(eager, graph, "the 64^3 DDMC row")
+    assert "replay" in kinds, kinds
+
+
+# ------------------------------------------- the round's gate and counts on the card
+
+# short spatial runs at 8 in-process shards, one of each census route a spatial
+# round takes: the z route (a uniform 3D IMC mesh, each shard a z plane of 2 x 2
+# blocks), the 2D SMR+DDMC forest (the block route with pending leaks) and the
+# float64 1D blocks
+_GATE_PATHS = {
+    "transport_3d@z": (STEPDIFF, {
+        "parthenon/mesh/nx1": 8, "parthenon/mesh/nx2": 8, "parthenon/mesh/nx3": 32,
+        "parthenon/mesh/ix2_bc": "periodic", "parthenon/mesh/ox2_bc": "periodic",
+        "parthenon/mesh/ix3_bc": "periodic", "parthenon/mesh/ox3_bc": "periodic",
+        "parthenon/meshblock/nx1": 4, "parthenon/meshblock/nx2": 4,
+        "parthenon/meshblock/nx3": 4, "jaybenne/num_particles": 20000,
+        "jaybenne/dt": "1.e-11", "mcblock/scattering_constant_value": 100}),
+    "transport_2d_ddmc_smr@blocks": (os.path.join(_ROOT, "inputs", "stepdiff_smr_ddmc.in"), {
+        "parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16, "parthenon/meshblock/nx1": 8,
+        "parthenon/meshblock/nx2": 8, "jaybenne/num_particles": 20000,
+        "jaybenne/dt": "1.e-11"}),
+    "transport_1d_smr_f64@blocks": (STEPDIFF, {
+        "parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
+        "jaybenne/num_particles": 8000, "jaybenne/dt": "1.e-11",
+        "mcblock/scattering_constant_value": 200.0, "jaybenne/precision": "f64"}),
+}
+
+
+def _spatial_8(mods):
+    return {**mods, "jaybenne/decomposition": "spatial", "jaybenne/n_devices": 8,
+            "parthenon/output0/file_type": "none"}
+
+
+@pytest.mark.parametrize("route", sorted(_GATE_PATHS))
+def test_census_gate_changes_nothing_on_recorded_rounds(gpu, tmp_path, route):
+    """The first two rounds of a step at 8 spatial shards as the eager step records
+    them (the second a later round of a batch), each by the census kernel with go
+    false: every column bitwise as it was and nothing counted, one launch counted;
+    with go true bitwise the ungated launch (chip_smoke.census_gate_bitwise); and
+    the count kernel bitwise its plain version on the run's rounds and tail."""
+    cs = _chip_smoke()
+    deck, mods = _GATE_PATHS[route]
+    with cs.RoundRecorder(transport_kernel) as rec:
+        calls = cs.recorded_counts(lambda: run_file(
+            deck, outdir=str(tmp_path), modified_inputs=_spatial_8(mods), quiet=True, nlim=1,
+            device="cuda", graph=False))
+    assert len(rec.rounds) == 2 and rec.gos[0] is None and rec.gos[1] is not None
+    held = cs.census_gate_bitwise(rec.rounds, route)
+    assert held.startswith(f"{route}: {route} over 8 shards"), held
+    assert calls[0].acc is not None and calls[-1].acc is None
+    cs.counts_bitwise(calls, route)
+
+
+# local shards, slots a shard, float64, the round's counters: None (a step's
+# counts), or (go, with the migration's)
+_COUNT_CASES = {
+    "one_shard": (1, 70000, False, None),
+    "one_shard_f64": (1, 70000, True, None),
+    "8_shards": (8, 9000, False, None),
+    "8_shards_round": (8, 9000, False, (None, True)),
+    "8_shards_round_go_false": (8, 9000, False, (False, True)),
+    "8_shards_round_f64": (8, 5000, True, (True, True)),
+    "3_shards_no_migration": (3, 2100, False, (True, False)),
+    "70_shards_small": (70, 100, False, (True, True)),
+    "empty_slices": (4, 0, False, (True, True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_COUNT_CASES))
+def test_round_counts_kernel_matches_plain(gpu, case):
+    """The count kernel (csrc/count_kernel.cu) against its plain version on random
+    ledgers: each shard's live and unfinished counts and their totals, or a round's
+    accumulators after it, bitwise; tau at 1 exactly and one ulp either side, dead
+    slots short of census, the last shard empty; twice in a row, so that the
+    scratch the first launch reset serves the second."""
+    from jaybenne_tpu_torch.ops import counts
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    m, cap_l, wide, round_ = _COUNT_CASES[case]
+    rng = np.random.default_rng(sorted(_COUNT_CASES).index(case))
+    dt = torch.float64 if wide else torch.float32
+    p = empty_ledger(m * cap_l, dt, gpu)
+    tau = torch.from_numpy(rng.uniform(0.0, 1.2, m * cap_l)).to(dt)
+    pick = torch.from_numpy(rng.integers(0, 10, m * cap_l))
+    one = torch.ones((), dtype=dt)
+    tau = torch.where(pick == 0, one, tau)
+    tau = torch.where(pick == 1, torch.nextafter(one, one * 0), tau)
+    tau = torch.where(pick == 2, torch.nextafter(one, one * 2), tau)
+    p.tau.copy_(tau)
+    p.alive.copy_(torch.from_numpy(rng.random(m * cap_l) < 0.6))
+    if m > 1:
+        p.alive[(m - 1) * cap_l:] = False
+    ps = split_ledger(p, m) if m > 1 else [p]
+    work = counts.scratch(m, gpu)
+    for _ in range(2):
+        if round_ is None:
+            before = cuda_lib.LAUNCHES["round_counts"]
+            got = counts.counts(ps, work)
+            assert cuda_lib.LAUNCHES["round_counts"] == before + 1
+            want = counts.counts(ps, plain=True)
+        else:
+            go, migrates = round_
+            flag = None if go is None else torch.tensor(go, device=gpu)
+
+            def ints(lo, hi, dtype=torch.int64):
+                return torch.from_numpy(rng.integers(lo, hi, m)).to(dtype).to(gpu)
+
+            it, ev = ints(0, 60, torch.int32), ints(0, 1 << 40)
+            drop, sent = (ints(0, 9), ints(0, 900)) if migrates else (None, None)
+            accs = []
+            for _plain in (False, True):
+                accs.append(types.SimpleNamespace(
+                    iters=ints(0, 99, torch.int32), events=ints(0, 99), hits=ints(0, 3),
+                    dropped=ints(0, 3), sent=ints(0, 3),
+                    rounds=torch.tensor(5, dtype=torch.int64, device=gpu),
+                    unfinished=torch.tensor(-1, dtype=torch.int64, device=gpu)))
+            for a in accs[1:]:
+                for k, v in vars(accs[0]).items():
+                    getattr(a, k).copy_(v)
+            counts.round_counts(ps, accs[0], it, ev, drop, sent, flag, 40, work)
+            counts.round_counts(ps, accs[1], it, ev, drop, sent, flag, 40, plain=True)
+            got, want = list(vars(accs[0]).values()), list(vars(accs[1]).values())
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (case, a, b)
+    assert not bool(work.any())
+
+
+def test_spatial_batch_of_8_shards_graph_matches_eager(gpu, tmp_path):
+    """The z route's deck of _GATE_PATHS at 8 in-process shards through run_file,
+    eager and as CUDA graphs (``GraphedSpatialStep``), 4 steps side by side: every
+    state bitwise equal after every step (chip_smoke.same_states), replays among
+    them, the same launches a step, and one round_counts launch a round queued and
+    one a step's tail."""
+    cs = _chip_smoke()
+    deck, mods = _GATE_PATHS["transport_3d@z"]
+    sims = [run_file(deck, outdir=str(tmp_path), modified_inputs=_spatial_8(mods), quiet=True,
+                     nlim=0, device="cuda", graph=g) for g in (False, True)]
+    eager, graph = sims
+    assert graph.graphed and not eager.graphed
+    kinds = []
+    for _ in range(4):
+        before = graph.step_fn.captures
+        queued = cs.rounds_queued(graph)
+        launches = []
+        for sim in sims:
+            cuda_lib.LAUNCHES.clear()
+            sim.run(nlim=1)
+            launches.append(dict(cuda_lib.LAUNCHES))
+        kinds.append("eager" if len(graph.history) == 1 else
+                     "capture" if graph.step_fn.captures > before else "replay")
+        assert launches[0] == launches[1], launches
+        assert launches[1]["round_counts"] == cs.rounds_queued(graph) - queued + 1, launches
+        cs.same_states(eager, graph, "transport_3d@z at 8 shards")
     assert "replay" in kinds, kinds

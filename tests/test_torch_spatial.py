@@ -704,11 +704,11 @@ def _per_shard_census(monkeypatch):
             built[id(setup)] = (coefs, own)
         return setup
 
-    def per_shard(ps, setup, mesh, seeds, prm, dt):
+    def per_shard(ps, setup, mesh, seeds, prm, dt, go=None):
         coefs, owns = built[id(setup)]
         its, evs = [], []
         for p, c, seed, own in zip(ps, coefs, seeds, owns):
-            _, it, ev = transport_kernel.transport(p, c, mesh, seed, prm, dt, own)
+            _, it, ev = transport_kernel.transport(p, c, mesh, seed, prm, dt, own, go=go)
             its.append(it)
             evs.append(ev)
         return ps, torch.stack(its), torch.stack(evs)
