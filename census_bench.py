@@ -77,6 +77,15 @@ DDMC row) in the turns, as CUDA graphs, with each trace's device operations a
 step and a round queued, and this tree at each of ROUND_BATCHES rounds a batch
 in turns on the spatial decks.
 
+With ``--only steps`` it runs profile.py in the turns on chip_smoke.py phase 32's
+8-device SMR rows (the particle decomposition's step: PARTICLE_DECKS) and on
+big_mesh_spatial and the float64 stepdiff at 8 spatial shards (HOST_DECKS), each
+as the tree runs it on the card (chip_smoke.py phase 48 reads this tree's spatial
+steps with and without a batch queued ahead of an exit read), and prints the
+device ms a step of the hand-written kernels and of the rest, the census launches
+a step, the step wall less the device time and the host ms a step of the spatial
+spans (``chip_smoke.HOST_SPANS``).
+
 With ``--only migrate`` it reads the spatial migration apart first, in this tree
 (its package's plain migrate, ``migrate(plain=True)``, is the parent's): on the
 recorded first round of each deck of MIGRATE_DECKS (big_mesh_spatial and the
@@ -128,6 +137,9 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# chip_smoke.py's SMR_GATE mesh at 8 particle shards (phase 32)
+SMR_8P = ["parthenon/mesh/nx1=64", "parthenon/mesh/nx2=32", "parthenon/meshblock/nx1=16",
+          "parthenon/meshblock/nx2=16", "jaybenne/n_devices=8", "parthenon/output0/file_type=none"]
 PROFILE_DECKS = {
     "stepdiff_smr": ("inputs/stepdiff_smr.in", [
         "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=32", "parthenon/meshblock/nx1=16",
@@ -173,6 +185,12 @@ PROFILE_DECKS = {
         "parthenon/mesh/nx1=128", "parthenon/meshblock/nx1=16", "jaybenne/num_particles=100000",
         "parthenon/output0/file_type=none", "jaybenne/decomposition=spatial",
         "jaybenne/n_devices=8", "jaybenne/capacity_factor=4", "jaybenne/precision=f64"]),
+    # chip_smoke.py phase 32's 8-device SMR rows (the particle decomposition)
+    "stepdiff_smr_8p": ("inputs/stepdiff_smr.in", SMR_8P),
+    "stepdiff_smr_ddmc_8p": ("inputs/stepdiff_smr_ddmc.in", SMR_8P),
+    "hybrid_8p": ("inputs/stepdiff_smr_hybrid.in",
+                  SMR_8P + ["jaybenne/tau_ddmc=10.0", "jaybenne/num_particles=100000"]),
+    "stepdiff_smr2_8p": ("inputs/stepdiff_smr2.in", SMR_8P),
 }
 
 
@@ -954,7 +972,9 @@ def profile(tree, deck, extra=(), ops=False) -> dict:
     out = {"census_ms_per_step": kernel, "census_launches_per_step": census,
            "device_ms_per_step": float(m.group(1)), "step_wall_ms": float(m.group(2)),
            "spans": [line for line in spans if line.startswith("span spatial.round")],
-           "all_spans": spans}
+           "all_spans": spans,
+           "device_lines": [line for line in res.stdout.splitlines()
+                            if line.startswith("device_ms_per_step ")]}
     if ops:
         out["ops_per_step"] = trace_ops(trace[1], steps)
     tmp.cleanup()
@@ -1079,6 +1099,51 @@ def round_turns(order, label, turns) -> list:
     return rows
 
 
+# ``--only steps``: the particle decomposition's step on chip_smoke.py phase 32's
+# rows and the spatial steps (the host between their batches) by profile.py in the
+# turns, as the trees run them on the card
+STEPS = "steps"
+PARTICLE_DECKS = ("stepdiff_smr_8p", "stepdiff_smr_ddmc_8p", "hybrid_8p", "stepdiff_smr2_8p")
+HOST_DECKS = ("big_mesh_spatial_8", "stepdiff_spatial_f64")
+
+
+def steps_turns(order, label) -> list:
+    """``--only steps``' profiles, printed as they come: each tree of ``order`` on
+    PARTICLE_DECKS and HOST_DECKS, with the device ms a step of the hand-written kernels
+    (``chip_smoke.HAND_KERNELS``) and of the rest, and the host ms a step of the
+    spatial spans (``chip_smoke.HOST_SPANS``; a parent without a span reads 0)."""
+    import chip_smoke as cs
+
+    rows = []
+    for k, tree in enumerate(order):
+        who = label[tree]
+        for deck in PARTICLE_DECKS + HOST_DECKS:
+            row = profile(tree, deck)
+            n = int(PROFILE_ARGS[PROFILE_ARGS.index("--steps") + 1])
+            by = {}
+            for line in row.pop("device_lines"):
+                ms, name = line.split(" ", 2)[1:]
+                by[name] = by.get(name, 0.0) + float(ms)
+            hand = sum(v for name, v in by.items() if cs.HAND_KERNELS.search(name))
+            spans = {}
+            for line in row["all_spans"]:
+                m = re.match(r"span (\S+): host_ms_per_step (\S+) .*count_per_step (\S+)", line)
+                if m:
+                    spans[m.group(1)] = (float(m.group(2)), float(m.group(3)))
+            gap = row["step_wall_ms"] - row["device_ms_per_step"]
+            print(f"profile {k}: {deck} {who}: device total "
+                  f"{row['device_ms_per_step']!r} ms a step (hand-written kernels "
+                  f"{hand!r}, the rest {row['device_ms_per_step'] - hand!r}; census "
+                  f"{row['census_ms_per_step']!r} in {row['census_launches_per_step']!r} "
+                  f"launches), step wall median {row['step_wall_ms']!r} ms, wall less "
+                  f"device {gap!r}; host spans a step (ms, count): "
+                  + ", ".join(f"{s} {spans.get(s, (0.0, 0.0))}" for s in cs.HOST_SPANS),
+                  flush=True)
+            rows.append({"tree": who, "deck": deck, "steps": n, "hand_ms": hand,
+                         "spans": spans, **row})
+    return rows
+
+
 def issue_share(kids, tree, name, summary, sms) -> float:
     """The issue share of ``tree``'s census ``name``: its event loop's common-path
     SASS instructions times the census's events over the median of its turns'
@@ -1195,6 +1260,15 @@ def main(argv=None) -> int:
         summary["round"] = round_reading()
         summary["profile"] += round_turns(order, label, args.turns)
         args.only = [r for r in args.only if r != ROUND]
+        if not args.only:
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(summary, f, indent=1)
+            print(smi)
+            return 0
+    if args.only and STEPS in args.only:
+        summary["profile"] += steps_turns(order, label)
+        args.only = [r for r in args.only if r != STEPS]
         if not args.only:
             if args.out:
                 with open(args.out, "w") as f:

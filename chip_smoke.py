@@ -194,9 +194,16 @@ Phases:
      capacity_factor 4; then the CI's row :66-71, 32 cells in 2-cell blocks, 16k
      particles): werr <= 0.05 each;
  32. the 8-device SMR rows of tst/launch_ci_runner.py (:33, :35, :37, :42) under
-     the particle decomposition, 10 steps each with a bitwise rerun and eight
-     launches a step: stepdiff_smr, stepdiff_smr_ddmc and the hybrid at
-     tau_ddmc = 10 werr <= 0.3, stepdiff_smr2 x-profile <= 0.1;
+     the particle decomposition, 10 steps each with one census launch a step over
+     the 8 shards' slices and a bitwise rerun as CUDA graph replays (with the
+     eager run's history): stepdiff_smr, stepdiff_smr_ddmc and the hybrid at
+     tau_ddmc = 10 werr <= 0.3, stepdiff_smr2 x-profile <= 0.1; each row's
+     recorded last census as one launch (device seeds, ``own`` None) bitwise the
+     plain call over the list and the launches shard by shard
+     (``particle_census_check``); then each row's replayed step by
+     ``profile.read_steps`` (``particle_step_line``: device ms a
+     step, the census kernel's, the other hand-written kernels' and the
+     replicas' plain PyTorch work, the step wall);
  33. spatial + SMR + DDMC at 8 shards (tests/test_spatial.py:546-586: 32x16 in
      8x8 blocks, 96k particles, 2 steps): the tally equal to the live weight,
      pending leaks resolved by their owners (counted) and none left, the
@@ -262,7 +269,8 @@ Phases:
  45. the step without the host: a CUDA graph's replay after manual_seed draws
      what the eager draw does (``CUDAGraph.register_generator_state``); each of
      ``GRAPH_PATHS`` (stepdiff, stepdiff_ddmc, the 64^3 DDMC and feedback rows,
-     stepdiff_smr, stepdiff with ep_bremss, stepdiff at precision = f64, a 2D
+     stepdiff_smr, stepdiff_smr at 8 particle shards (one graph over the shards'
+     states), stepdiff with ep_bremss, stepdiff at precision = f64, a 2D
      feedback path whose ledger grows mid-run, so that it is captured again,
      Su-Olson across tmax, and graphs of the spatial step's head, batches of
      rounds and tail: big_mesh_spatial at 8 and at 1 shard, phase 33's SMR+DDMC
@@ -332,7 +340,13 @@ Phases:
      (``kernel_reading``, the plain version's device ms beside it). Its
      ``kernels`` entry takes its launches from phase 30's 8-shard run (one a round
      queued and one a step's tail, which phase 30 checks), every counted path's
-     beside.
+     beside;
+ 48. the host between a spatial step's batches, by part (``host_gap_phase``): on
+     big_mesh_spatial and the float64 stepdiff at 8 shards as CUDA graphs, with
+     no batch queued ahead of an exit read and with one (the step's ``ahead``),
+     in turns, every run's migration rounds and events equal: the step wall less its
+     device time, the rounds queued a step, and the host ms a step of the exit
+     reads, the round prologues and the batch replays (their spans).
 
 The recorded runs of phases 12-14, 16-21 and 23-25 and of ``census_bench.py``
 run the eager step (``graph=False``): a CUDA graph's replay calls no Python, so
@@ -593,6 +607,27 @@ EIGHT = {"jaybenne/n_devices": 8}
 SMR_SPATIAL = {**SMR_SPATIAL_FOREST, "jaybenne/num_particles": 96000,
                "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "2.e-11"}
 SMR_SPATIAL_STEPS = 2
+# phase 32's rows (what, deck, overrides, launch: "s2" transport_2d_smr, "sd2"
+# transport_2d_ddmc_smr) and the steps of each that ``particle_step_line`` reads
+PARTICLE_ROWS = (
+    ("stepdiff_smr", SMR_DECK, {**SMR_GATE, **EIGHT}, "s2"),
+    ("stepdiff_smr_ddmc", SMR_DDMC_DECK, {**SMR_GATE, **EIGHT}, "sd2"),
+    ("the hybrid", HYBRID_DECK, {**HYBRID_GATE, **EIGHT}, "sd2"),
+    ("stepdiff_smr2", SMR2_DECK, {**SMR_GATE, **EIGHT}, "s2"),
+)
+PARTICLE_READ_STEPS = 3
+# the hand-written kernels, by the names a profiler trace gives their launches
+HAND_KERNELS = re.compile(r"\b(transport|table|round_counts|count|list|write|migrate_count|"
+                          r"migrate_pack|tally_exponent|tally_sum|tally_cell|face_probs)_kernel\b")
+# phase 48: the spatial steps whose host time between batches is read by part,
+# with no batch queued ahead of an exit read and with one (the step's ``ahead``)
+HOST_GAP_PATHS = (
+    ("big_mesh_spatial at 8 shards", DECK, {**BIG_MESH, **SPATIAL, "jaybenne/n_devices": 8}),
+    ("stepdiff at 8 spatial shards in float64", DECK,
+     {**STEPDIFF_SPATIAL, "jaybenne/precision": "f64"}),
+)
+HOST_GAP_STEPS = 3
+HOST_SPANS = ("spatial.exit_read", "spatial.round_prologue", "spatial.replay")
 SMR_SPATIAL_TOL = 0.10
 # phase 35: phase 25's path at seeds 1-4 against the JAX package's survivors at the
 # same seeds (jax_reference.py k4 --seed N)
@@ -613,6 +648,8 @@ GRAPH_PATHS = (
     ("the 64^3 DDMC row", DECK, BIG_DDMC, PATH_STEPS),
     ("the 64^3 feedback row", DECK, FEEDBACK, 5),
     ("stepdiff_smr", SMR_DECK, SMR_GATE, PATH_STEPS),
+    # the particle decomposition: one graph over the 8 shards' states
+    ("stepdiff_smr at 8 particle shards", SMR_DECK, {**SMR_GATE, **EIGHT}, PATH_STEPS),
     ("stepdiff with ep_bremss", DECK, {**NG_GATE, "parthenon/time/tlim": "3.e-12"}, 3),
     ("stepdiff at precision = f64", DECK, {**GATE, "jaybenne/precision": "f64"}, N_STEPS),
     # births outrun absorption (a thin opacity), so the ledger grows mid-run
@@ -640,8 +677,8 @@ GRAPH_PATHS = (
 )
 # the rows whose step wall times phase 45 prints, eager against graph
 GRAPH_TIMED = ("stepdiff", "the 64^3 DDMC row", "the 64^3 feedback row", "stepdiff_smr",
-               "Su-Olson across tmax", "big_mesh_spatial at 8 shards",
-               "big_mesh_spatial at 1 shard")
+               "stepdiff_smr at 8 particle shards", "Su-Olson across tmax",
+               "big_mesh_spatial at 8 shards", "big_mesh_spatial at 1 shard")
 # the 8-shard spatial step's host synchronisations before this port's step ran
 # without them (profile.py, one H100): a step, a migration round
 SPATIAL_SYNCS_BEFORE = (12254, 161)
@@ -2063,7 +2100,7 @@ def lane_split(sim) -> dict:
 
 
 def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_step=1,
-             energy_rtol=ENERGY_RTOL):
+             energy_rtol=ENERGY_RTOL, graph_rerun=False):
     """A deck through ``driver.run_file`` on the GPU for ``steps`` steps: the
     radiation energy before the first step; the run, with the launch counts set
     to 0 just before it and read just after, the eager step (``graph=False``) so
@@ -2074,7 +2111,8 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
     short of the iteration cap, nothing was dropped, sum(tally dV) was conserved
     to ``energy_rtol`` (a number, or a function of the run; unless not
     ``conserves_tally``: matter absorbs or emits)
-    and the rerun's tally and u are bitwise identical. Returns
+    and the rerun's tally and u are bitwise identical (with ``graph_rerun``, the
+    rerun must be CUDA graph replays with the eager run's history). Returns
     (sim, launches, (ledger, args) of the last census, the radiation energy before
     the first step)."""
     from jaybenne_tpu_torch.driver import run_file
@@ -2114,6 +2152,11 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
     if not (torch.equal(again.state.fields.energy_tally, tally)
             and torch.equal(again.state.fields.u, sim.state.fields.u)):
         raise AssertionError(f"{what}: a rerun with the same seed differs")
+    if graph_rerun and not (again.graphed and again.step_fn.captures >= 1
+                            and again.history == [dict(h, step_seconds=g["step_seconds"])
+                                                  for h, g in zip(sim.history, again.history)]):
+        raise AssertionError(f"{what}: the rerun is not CUDA graph replays of the eager steps "
+                             f"(graphed {again.graphed})")
     step_s = [h["step_seconds"] for h in sim.history]
     print(f"{what} {sim.mesh.n_blocks} blocks (levels "
           f"{sorted(set(sim.mesh.block_level.tolist()))}), {sim.mesh.total_cells} cells, "
@@ -2125,6 +2168,139 @@ def run_path(deck, mods, launch, steps=PATH_STEPS, conserves_tally=True, per_ste
           f"{sim.total_events / sum(step_s)!r} events/s; peak device memory {peak} bytes",
           flush=True)
     return sim, launches, rec.inputs, e0
+
+
+def particle_step_line(deck, mods, what, smi) -> dict:
+    """A phase 32 row as the driver runs it (the particle decomposition's step as a
+    CUDA graph over the shards' states: step 1 eager, step 2 captured), read by
+    ``profile.read_steps`` over PARTICLE_READ_STEPS replayed steps: the device ms
+    a step (the census kernel's, the other hand-written kernels', and the rest:
+    the replicas' plain PyTorch work, once a shard), the unprofiled step wall.
+    Raises unless each step replayed (no capture) with one census launch."""
+    from jaybenne_tpu_torch.driver import run_file
+    from jaybenne_tpu_torch.profile import read_steps
+
+    n = PARTICLE_READ_STEPS
+    with tempfile.TemporaryDirectory() as outdir:
+        sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=2,
+                       device="cuda")
+        captures = sim.step_fn.captures if sim.graphed else 0
+        r = read_steps(sim, n)
+    census = sum(v for k, v in r["launches"].items() if k.startswith("transport_"))
+    if not sim.graphed or captures != 1 or sim.step_fn.captures != 1 or census != n:
+        raise AssertionError(f"{what}: graphed {sim.graphed}, captures {captures} -> "
+                             f"{sim.step_fn.captures}, {census} census launches in {n} steps")
+    by = r["by_name"]
+    total = sum(by.values()) / n / 1e3
+    kernel = sum(us for k, us in by.items() if "transport_kernel" in k) / n / 1e3
+    hand = sum(us for k, us in by.items() if HAND_KERNELS.search(k)) / n / 1e3
+    wall = statistics.median(r["wall_s"]) * 1e3
+    out = {"device_ms": total, "census_ms": kernel, "hand_ms": hand, "plain_ms": total - hand,
+           "wall_ms": wall}
+    print(f"{what} ({smi}), CUDA graph replays, {n} steps: device {total!r} ms a step, of it "
+          f"the census kernel {kernel!r} ms in one launch, the other hand-written kernels "
+          f"{hand - kernel!r}, the plain PyTorch work (the replicas' Fleck factor, "
+          f"coefficients, sourcing, tally outputs and feedback, a shard at a time; copies and "
+          f"memsets) {total - hand!r}; step wall median {wall!r} ms (device idle share "
+          f"{1.0 - total / wall!r}); host synchronisations {r['syncs'] / n!r} a step",
+          flush=True)
+    return out
+
+
+def particle_census_check(transport_kernel, inputs, what) -> None:
+    """The particle decomposition's census on a phase 32 row's recorded inputs
+    (``run_path``: the shards' slices of one ledger, and the coefficients, mesh,
+    seeds, params and dt of its last step): the kernel's one launch over every
+    slice, with ``own`` None (each shard owns the whole mesh, every shard row
+    reads row 0 of the one table) and the seeds read from an int32 tensor on the
+    device as the step passes them, against its plain version over the same
+    list and against the kernel's calls shard by shard (the parent's eight
+    launches), each on a clone: every column identical, floats as bits, and the
+    same iterations and events per shard. The plain calls shard by shard are the
+    CPU tests' (``tests/test_torch_particle_launch.py``): eight plain censuses of
+    a row would take minutes here (the hybrid's plain census 28 s)."""
+    from jaybenne_tpu_torch.ops import cuda_lib
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+    from jaybenne_tpu_torch.particles import join_slices
+
+    slices, (coefs, mesh, seed, prm, dt) = inputs
+    n, (whole, _) = len(slices), join_slices(slices)
+
+    def fresh():
+        p = whole.clone()
+        return p, split_ledger(p, n)
+
+    (pk, k), (pq, q), (pr, r) = fresh(), fresh(), fresh()
+    before = sum(v for key, v in cuda_lib.LAUNCHES.items() if key.startswith("transport_"))
+    _, it_k, ev_k = transport_kernel.transport(
+        k, coefs, mesh, torch.tensor(seed, dtype=torch.int32, device=whole.x.device), prm, dt)
+    launched = sum(v for key, v in cuda_lib.LAUNCHES.items()
+                   if key.startswith("transport_")) - before
+    if launched != 1:
+        raise AssertionError(f"{what}: {launched} census launches over {n} slices, not one")
+    _, it_q, ev_q = transport_kernel.transport_plain(q, coefs, mesh, seed, prm, dt)
+    its, evs = [], []
+    for ledger, sd in zip(r, seed):
+        _, it, ev = transport_kernel.transport(ledger, coefs, mesh, sd, prm, dt)
+        its.append(int(it))
+        evs.append(int(ev))
+    same_columns(pk, pq, f"{what}: the one launch against the plain call over the list")
+    same_columns(pk, pr, f"{what}: the one launch against the launches shard by shard")
+    counts = [(it_k.tolist(), ev_k.tolist()), (it_q.tolist(), ev_q.tolist()), (its, evs)]
+    if counts[0] != counts[1] or counts[0] != counts[2]:
+        raise AssertionError(f"{what}: iterations and events (one launch, plain list, "
+                             f"launches by shard) {counts}")
+    print(f"{what}: the last step's census, one launch over the {n} shards' slices "
+          f"({whole.capacity} slots, {int(whole.alive.sum())} live before it; seeds read on "
+          f"the device, every shard row on row 0 of the one table), bitwise the plain call "
+          f"over the list and the launches shard by shard: every column, iterations "
+          f"{counts[0][0]}, events {counts[0][1]}", flush=True)
+
+
+def host_gap_phase(smi) -> None:
+    """Phase 48: the host between a spatial step's batches, by part, on
+    HOST_GAP_PATHS as CUDA graphs, with no batch queued ahead of an exit read and
+    with one (the step's ``ahead``), in turns (none, ahead, ahead, none), each by
+    ``profile.read_steps`` over HOST_GAP_STEPS steps after two (eager, captured):
+    the step's wall less its device time, and the host ms a step of the exit
+    reads' waits, the round prologues and the batch replays' launches (their
+    ``record_function`` spans in the profiled steps). Raises unless every run's
+    migration rounds and events are the same."""
+    from jaybenne_tpu_torch.driver import run_file
+    from jaybenne_tpu_torch.profile import read_steps
+
+    phase("48 the spatial host between batches, by part: no batch queued ahead of an exit "
+          "read against one, in turns, every step's rounds unchanged")
+    n = HOST_GAP_STEPS
+    for what, deck, mods in HOST_GAP_PATHS:
+        seen = None
+        for ahead in (False, True, True, False):
+            with tempfile.TemporaryDirectory() as outdir:
+                sim = run_file(deck, outdir=outdir, modified_inputs=mods, quiet=True, nlim=0,
+                               device="cuda")
+                core = spatial_core(sim)
+                core.ahead = ahead
+                sim.run(nlim=2)
+                q0 = core.rounds_run
+                r = read_steps(sim, n)
+                queued = (core.rounds_run - q0) / (3 * n)  # timed, profiled, counted
+            if seen is None:
+                seen = (r["rounds"], r["events"])
+            elif (r["rounds"], r["events"]) != seen:
+                raise AssertionError(f"{what}: rounds and events {r['rounds']}, {r['events']} "
+                                     f"with ahead {ahead}, {seen} before")
+            host, dev, count = r["spans"]
+            total = sum(r["by_name"].values()) / n / 1e3
+            wall = statistics.median(r["wall_s"]) * 1e3
+            parts = "; ".join(f"{s} {host.get(s, 0.0) / n!r} ms in {count.get(s, 0) / n!r}"
+                              for s in HOST_SPANS)
+            print(f"{what} ({smi}), {int(ahead)} batch(es) queued ahead of an exit read: "
+                  f"step wall median {wall!r} ms, device {total!r} ms a step, wall less device "
+                  f"{wall - total!r} ms; rounds {r['rounds']} ({queued!r} queued a step in "
+                  f"batches of {core.rounds_per_batch}); host ms a step in spans (profiled): "
+                  f"{parts}", flush=True)
+            del sim
+            torch.cuda.empty_cache()
 
 
 def gate(value, tol, what):
@@ -2165,9 +2341,11 @@ def path_kernel(transport_kernel, dev, sim, inputs, name, cost):
 class CensusRecorder:
     """While active, wraps ``transport_kernel.transport`` so that the steps built
     meanwhile call it through the wrapper, and keeps a copy of the inputs of its
-    ``keep``-th call (the ledger cloned before the census changes it; the seed as
-    a host int, where the step passes a view of its device seed buffer, which a
-    later step rewrites). A CUDA graph's replay calls no Python, and its capture
+    ``keep``-th call (the ledger, or the local shards' slices, cloned before the
+    census changes them; the seed as a host int, or a list of one a shard, where
+    the step passes its device seed buffer, which a later step rewrites; one
+    device's call, which passes a list of one ledger, as one ledger and its seed).
+    A CUDA graph's replay calls no Python, and its capture
     holds no values yet, so the recorded run must run the eager step
     (``run_file(..., graph=False)``): a call made while a graph is being captured
     raises."""
@@ -2190,8 +2368,16 @@ class CensusRecorder:
         if self.calls == self.keep:
             coefs, mesh, seed, *rest = args
             if isinstance(seed, torch.Tensor):
-                seed = int(seed.item())
-            self.inputs = (particles.clone(), (coefs, mesh, seed, *rest))
+                seed = seed.tolist()
+            ledgers = particles if isinstance(particles, (list, tuple)) else [particles]
+            if len(ledgers) == 1:  # one device: its ledger and its seed
+                kept, seed = ledgers[0].clone(), seed[0] if isinstance(seed, list) else seed
+            else:  # the local shards' slices
+                from jaybenne_tpu_torch.parallel.sharding import split_ledger
+                from jaybenne_tpu_torch.particles import join_slices
+
+                kept = split_ledger(join_slices(ledgers)[0].clone(), len(ledgers))
+            self.inputs = (kept, (coefs, mesh, seed, *rest))
         return self.real(particles, *args)
 
 
@@ -3138,17 +3324,29 @@ def spatial_phases(transport_kernel, dev, cost, src, mix_lib) -> list:
         gate(weighted_erf_error(sd), WERR_TOL, f"{what} werr")
 
     phase("32 the 8-device SMR rows, particle decomposition: stepdiff_smr, "
-          "stepdiff_smr_ddmc, the hybrid at tau_ddmc = 10, stepdiff_smr2; 10 steps each")
+          "stepdiff_smr_ddmc, the hybrid at tau_ddmc = 10, stepdiff_smr2; 10 steps each, "
+          "one census launch a step over the 8 shards' slices, reruns as CUDA graphs")
     name_s2 = transport_kernel.launch_name(2, False, False, True)
     name_sd2 = transport_kernel.launch_name(2, False, True, True)
-    s8 = run_path(SMR_DECK, {**SMR_GATE, **EIGHT}, name_s2, per_step=8)[0]
-    gate(weighted_erf_error(s8), SMR_TOL, "stepdiff_smr at 8 shards werr")
-    sd8 = run_path(SMR_DDMC_DECK, {**SMR_GATE, **EIGHT}, name_sd2, per_step=8)[0]
-    gate(weighted_erf_error(sd8), SMR_TOL, "stepdiff_smr_ddmc at 8 shards werr")
-    hy8 = run_path(HYBRID_DECK, {**HYBRID_GATE, **EIGHT}, name_sd2, per_step=8)[0]
-    gate(weighted_erf_error(hy8), SMR_TOL, "hybrid (tau_ddmc = 10) at 8 shards werr")
-    s28 = run_path(SMR2_DECK, {**SMR_GATE, **EIGHT}, name_s2, per_step=8)[0]
-    gate(profile_error(s28), PROFILE_TOL, "stepdiff_smr2 at 8 shards x-profile")
+    rows, recorded = {}, {}
+    for what, deck, mods, name in PARTICLE_ROWS:
+        rows[what], _, recorded[what], _ = run_path(deck, mods,
+                                                    name_sd2 if name == "sd2" else name_s2,
+                                                    per_step=1, graph_rerun=True)
+    gate(weighted_erf_error(rows["stepdiff_smr"]), SMR_TOL, "stepdiff_smr at 8 shards werr")
+    gate(weighted_erf_error(rows["stepdiff_smr_ddmc"]), SMR_TOL,
+         "stepdiff_smr_ddmc at 8 shards werr")
+    gate(weighted_erf_error(rows["the hybrid"]), SMR_TOL,
+         "hybrid (tau_ddmc = 10) at 8 shards werr")
+    gate(profile_error(rows["stepdiff_smr2"]), PROFILE_TOL, "stepdiff_smr2 at 8 shards x-profile")
+    del rows
+    for what, inputs in recorded.items():
+        particle_census_check(transport_kernel, inputs, f"{what} at 8 particle shards")
+    del recorded
+    torch.cuda.empty_cache()
+    smi = device_line()
+    for what, deck, mods, _ in PARTICLE_ROWS:
+        particle_step_line(deck, mods, f"{what} at 8 particle shards", smi)
 
     phase("33 spatial + SMR + DDMC at 8 shards: tests/test_spatial.py:546-586's deck, "
           "32x16 in 8x8 blocks, 96k particles, 2 steps")
@@ -4444,10 +4642,10 @@ def graph_phase(dev, smi) -> tuple:
             if graph.step_fn.captures != captures:
                 raise AssertionError(f"{what}: the last step captured, it did not replay")
             rounds = dict(zip(STAT_NAMES, stats.packed.tolist()))["migration_rounds"]
-            if graph.shards is not None and reads[0] != batches_of(graph, rounds):
+            if graph.spatial and reads[0] != batches_of(graph, rounds):
                 raise AssertionError(f"{what}: {reads[0]} exit reads for {rounds} rounds")
-            if graph.shards is None and reads[0]:
-                raise AssertionError(f"{what}: {reads[0]} exit reads in a single-device step")
+            if not graph.spatial and reads[0]:
+                raise AssertionError(f"{what}: {reads[0]} exit reads in a step with no rounds")
             ew = [h["step_seconds"] for h in eager.history[1:]]
             gw = [h["step_seconds"] for h, k in zip(graph.history, kinds) if k == "replay"]
             walls[what] = (ew, gw)
@@ -4456,7 +4654,7 @@ def graph_phase(dev, smi) -> tuple:
                   f"({launches[1]} in the last step); steps {kinds}, {graph.step_fn.captures} "
                   f"captures, capacities {caps}; a replay under set_sync_debug_mode('error') "
                   f"ran" + (f", {rounds} rounds in {reads[0]} batches, one exit read each"
-                            if graph.shards is not None else ""), flush=True)
+                            if graph.spatial else ""), flush=True)
             if what == "the 64^3 feedback row":
                 insert = insert_check(dev, graph, smi)
                 insert_paths_check(dev, outdir, smi)
@@ -5631,6 +5829,7 @@ def main() -> int:
     insert_kernel, migrate_kernel = graph_phase(dev, smi)
     tally_kernel, face_kernel = tally_faces_phase(dev, smi)
     count_kernel = counts_phase(dev, smi)
+    host_gap_phase(smi)
     # the main path: phase 30's 8-shard big_mesh_spatial run (one launch a round
     # queued and one a step's tail); beside it every counted path's
     count_kernel["launches"] = COUNTS_MAIN[0]

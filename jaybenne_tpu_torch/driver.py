@@ -29,11 +29,13 @@ writes its Chrome trace there.
 On a GPU a step that runs the kernel's census runs as CUDA graphs (``graph.py``):
 the first step eagerly, then captured and replayed. The single-device step (an
 external source's too: its window is copied to the device before each replay) is
-one graph; the spatial decomposition's step with the in-process exchange is a
-graph of its head, one of a batch of migration rounds and one of its tail, with
-one host read a batch. The CPU, ``use_pallas = off`` (the plain census reads its
-exit test), the particle decomposition and a ``torch.distributed`` spatial step
-run eagerly (``capturable``); ``Simulation(graph=False)`` asks for the eager step
+one graph, and so is the particle decomposition's step over the in-process
+exchange's shards (one census launch over every shard's slice); the spatial
+decomposition's step with the in-process exchange is a graph of its head, one of
+a batch of migration rounds and one of its tail, with one host read a batch, the
+next batch queued before it. The CPU, ``use_pallas = off`` (the plain census
+reads its exit test) and a ``torch.distributed`` step of either decomposition run
+eagerly (``capturable``); ``Simulation(graph=False)`` asks for the eager step
 anywhere. Either way the step queues its work without waiting for the device but
 for a spatial batch's exit read, and the driver waits once a step: it enqueues
 one copy of the step's packed counters (``StepStats``) into a pinned buffer,
@@ -138,6 +140,10 @@ class Simulation:
                 init = spatial.make_spatial_init(mesh, cfg, ex)
             else:
                 self.step_fn = sharding.make_sharded_step(mesh, cfg, ex)
+                self.graphed = (graph and self.device.type == "cuda"
+                                and self.step_fn.capturable)
+                if self.graphed:
+                    self.step_fn = GraphedStep(self.step_fn)
                 states = sharding.local_states(state, ex)
                 init = sharding.make_sharded_init(mesh, cfg, ex)
             self.shards = states if restart is not None else init(states)

@@ -2,11 +2,14 @@
 ``build_step_core``, ``jaybenne_tpu/step.py:94-96``, and of its spatial rounds'
 ``lax.while_loop``, ``jaybenne_tpu/parallel/spatial.py:454-499``).
 
-``GraphedStep`` wraps the step of ``step.build_step_core`` (one device, no
-exchange) on a GPU. Its first call runs the step eagerly: that builds the kernel
-library, the forest tables and every cached constant (``utils/device.py``), none
-of which a capture may do. Its second call captures the step's ``body`` into a
-``torch.cuda.CUDAGraph`` and replays it; later calls replay. Every call first
+``GraphedStep`` wraps the step of ``step.build_step_core`` on a GPU: the
+single-device step on one state, or the particle decomposition's over the list of
+the in-process exchange's local shards' states (one census launch over every
+shard's slice, ``step.py``). Its first call runs the step eagerly: that builds
+the kernel library, the forest tables and every cached constant
+(``utils/device.py``), none of which a capture may do. Its second call captures
+the step's ``body`` into a ``torch.cuda.CUDAGraph`` and replays it; later calls
+replay. Every call first
 runs the step's ``prologue`` on the host: it seeds the step's generators with
 ``manual_seed`` and copies the census kernel's seeds into the device tensor the
 captured launch reads, so a replay draws what the eager step draws. The
@@ -14,13 +17,17 @@ generators are registered with each graph, so that a replay takes their seed and
 offset as they stand.
 
 A graph holds the pointers of the tensors it read and wrote. The captured body
-ends by copying its fields and ``overflow`` into the state's own tensors, so the
-state keeps its tensors from replay to replay (the ledger is updated in place
-anyway). A graph is kept by the step's ``dt`` and the addresses and shapes of
-every tensor of the state: the last, shorter step, a ledger that
-``Simulation._ensure_headroom`` grew and a state restored from a snapshot each
-capture a graph of their own. A graph's ``StepStats`` are its own output tensor,
-rewritten by each replay: read them before the next step.
+ends by copying each shard's fields and ``overflow`` into that shard's own
+tensors, so the states keep their tensors from replay to replay (the ledger is
+updated in place anyway). Shards may share a field tensor (``local_states``
+gives every shard the one set of fields, and a step leaves the fields it does
+not write as they were): the shards' fields are replicated, so each copy into
+it writes the same values, after every read of the body. A graph is kept by the
+step's ``dt`` and the addresses and shapes of every tensor of every shard's
+state: the last, shorter step, a ledger that ``Simulation._ensure_headroom``
+grew and a state restored from a snapshot each capture a graph of their own. A
+graph's ``StepStats`` are its own output tensor, rewritten by each replay: read
+them before the next step.
 
 A replay launches no kernel from Python, so ``cuda_lib.LAUNCHES`` would not count
 it: the launches counted while a graph was captured are taken back out, and added
@@ -33,7 +40,10 @@ shards' states: a graph of its head, one of a batch of ``nr`` rounds for each
 batch length it meets, and one of its tail, kept together by the same key over
 every shard's tensors. The rounds stay a host loop of batches: each batch's
 round prologue (its fixup generators seeded, its census seeds copied to the
-device), a replay, and the batch's one host read, the summed unfinished count.
+device), a replay, and the batch's one host read, the summed unfinished count,
+made after the next batch was queued (the spatial step's ``ahead``): the prologue's
+copies and a registered generator's seed are stream-ordered behind the replay
+still queued, and each batch's count is copied to a pinned slot of its own.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ import collections
 import dataclasses
 
 import torch
+
+from torch.profiler import record_function
 
 from .ops import cuda_lib
 
@@ -65,7 +77,8 @@ class _Captured:
 
 
 class GraphedStep:
-    """``step(state, dt) -> (state, StepStats)``: the single-device ``step`` of
+    """``step(state, dt) -> (state, StepStats)``, or over a list of the local
+    shards' states ``step(states, dt) -> (states, StepStats)``: the ``step`` of
     ``build_step_core`` run eagerly once, then captured and replayed (see the
     module docstring). ``captures`` counts the graphs captured."""
 
@@ -75,28 +88,32 @@ class GraphedStep:
         self.warm = False
         self.captures = 0
 
-    def __call__(self, state, dt):
-        self.step.prologue([state], dt)
+    def __call__(self, states, dt):
+        single = not isinstance(states, (list, tuple))
+        states = [states] if single else list(states)
+        self.step.prologue(states, dt)
         if not self.warm:
-            new, stats = self.step.body([state], dt)
+            new, stats = self.step.body(states, dt)
             self.warm = True
-            return new[0], stats
-        key = _key([state], dt)
-        cap = self.graphs.get(key)
-        if cap is None:
-            cap = self._capture(state, dt)
-            self.graphs[key] = cap
-            while len(self.graphs) > MAX_GRAPHS:
-                self.graphs.popitem(last=False)
         else:
-            self.graphs.move_to_end(key)
-        stats = _replay(cap)
-        return dataclasses.replace(state, t=state.t + dt, cycle=state.cycle + 1), stats
+            key = _key(states, dt)
+            cap = self.graphs.get(key)
+            if cap is None:
+                cap = self._capture(states, dt)
+                self.graphs[key] = cap
+                while len(self.graphs) > MAX_GRAPHS:
+                    self.graphs.popitem(last=False)
+            else:
+                self.graphs.move_to_end(key)
+            stats = _replay(cap)
+            new = [dataclasses.replace(st, t=st.t + dt, cycle=st.cycle + 1) for st in states]
+        return (new[0] if single else new), stats
 
-    def _capture(self, state, dt) -> _Captured:
+    def _capture(self, states, dt) -> _Captured:
         def body():
-            new, stats = self.step.body([state], dt)
-            _copy_back(state, new[0])
+            new, stats = self.step.body(states, dt)
+            for st, nw in zip(states, new):
+                _copy_back(st, nw)
             return stats
 
         self.captures += 1
@@ -169,7 +186,8 @@ class GraphedSpatialStep:
         def run_batch(nr):
             if nr not in g.batches:
                 g.batches[nr] = self._capture(lambda: core.batch(states, t, nr, dt))
-            _replay(g.batches[nr])
+            with record_function("spatial.replay"):
+                _replay(g.batches[nr])
 
         core.run_rounds(states, t.unfinished, run_batch)
         if g.tail is None:

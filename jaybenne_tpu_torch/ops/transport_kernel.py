@@ -62,7 +62,10 @@ mesh as the range is the single-device census, draw for draw.
 One call can run every local shard of a round at once: with a sequence of ranges,
 the shards' ledgers (adjacent slices of one ledger), their coefficients and their
 seeds, one launch covers them all, each lane keyed by its slot's index in its own
-shard's slice. ``prepare`` builds a call's geometry and tables, so that a step
+shard's slice. The particle decomposition's step calls it so too, with no range:
+every shard owns the whole mesh, and every row of the shard table points at the
+one cell table (the fields are replicated, so the shards' coefficients are the
+same). ``prepare`` builds a call's geometry and tables, so that a step
 builds them once and every round reuses them. A forest's own tables (block table,
 levels, lookup grid) are built once per mesh (``forest_tables``); where the
 non-gray record would copy the coefficients verbatim, the kernel reads their
@@ -1394,7 +1397,9 @@ def prepare(coefs, mesh, prm, dt, own=None) -> Census:
     return _prepare(coefs, mesh, prm, dt, own, first.sigma_s.device.type == "cuda")
 
 
-def _prepare(coefs, mesh, prm, dt, own, kernel, real=None, zero=None) -> Census:
+def _prepare(coefs, mesh, prm, dt, own, kernel, real=None, zero=None, n=1) -> Census:
+    """``prepare``'s set-up; with ``own`` None for ``n`` shards, each of which owns
+    the whole mesh and reads the one table of ``coefs`` from its first row."""
     multi = own is not None and not isinstance(own, OwnedRange)
     owns = tuple(own) if multi else (whole_mesh(mesh) if own is None else own,)
     cset = list(coefs) if multi else [coefs]
@@ -1413,6 +1418,8 @@ def _prepare(coefs, mesh, prm, dt, own, kernel, real=None, zero=None) -> Census:
     g = _geometry(mesh, prm, dt, cset[0], smr, real)
     if own is not None:
         g = dataclasses.replace(g, route=owns[0].route)
+    elif n > 1:
+        owns, rows = owns * n, rows * n
     return Census(g, _tables(cset, mesh, g, kernel, zero), owns, tuple(rows))
 
 
@@ -1439,10 +1446,11 @@ def _run(census, particles, coefs, mesh, seed, prm, dt, own, **kw):
         if seed_dev is None:
             kw["seeds"] = torch.tensor(seeds, dtype=torch.int32, pin_memory=True).to(
                 p.x.device, non_blocking=True)
-        setup = _prepare(coefs, mesh, prm, dt, own, True, p.x.dtype, kw["counters"])
+        setup = _prepare(coefs, mesh, prm, dt, own, True, p.x.dtype, kw["counters"],
+                         len(ledgers))
         kw["zeroed"] = setup.tabs.cell is not None
     else:
-        setup = _prepare(coefs, mesh, prm, dt, own, False, p.x.dtype)
+        setup = _prepare(coefs, mesh, prm, dt, own, False, p.x.dtype, n=len(ledgers))
     if not (len(ledgers) == len(seeds) == len(setup.owns)):
         raise ValueError("transport: one ledger and one seed per owned range")
     if p.x.dtype != setup.g.real:
@@ -1473,7 +1481,11 @@ def transport(particles, coefs, mesh, seed, prm, dt, own=None, go=None):
     ``own`` a sequence of ranges, ``particles``, ``coefs`` and ``seed`` are
     sequences too, one per range: the local shards' ledgers, which must be
     adjacent slices of one ledger, and one launch runs them all; a lane is its
-    slot's index in its own shard's ledger. ``coefs`` may also be a ``Census``
+    slot's index in its own shard's ledger. With ``own`` None and a sequence of
+    ledgers (the particle decomposition's local shards, adjacent slices of one
+    ledger) and of seeds, every shard owns the whole mesh and reads the one
+    table of ``coefs``: one launch, bitwise the calls shard by shard where their
+    coefficients are the same. ``coefs`` may also be a ``Census``
     from ``prepare`` (``own`` None), reused across calls. Returns ``(particles,
     iterations, events)``, the last two per range ([n] tensors) with a sequence
     of ledgers. ``go``, a 0-dim bool tensor on the ledger's device, gates a

@@ -32,9 +32,14 @@ carries its pending-leak code, and the owner resamples it onto a fine face befor
 its next census (``transport_kernel.subface_resample``).
 
 The rounds run in batches (of ``ROUNDS_PER_BATCH`` where the step runs as CUDA
-graphs, else of one round), and a batch reads the device once, for its exit test: the summed count of live particles short of census. A
-round that begins with that count at 0 changes nothing, so the batches repeat
-the step of one round a batch. Every other counter stays on the device until the
+graphs, else of one round), and a batch reads the device once, for its exit
+test: the summed count of live particles short of census. A round that begins
+with that count at 0 changes nothing, so the batches repeat the step of one
+round a batch. On a GPU, where the step is capturable, the next batch is queued
+before the host waits for that read (``step.ahead``), each batch's count copied
+to a pinned slot of its own, so the card does not idle through it; the JAX
+package's ``lax.while_loop`` (``jaybenne_tpu/parallel/spatial.py:494``) has no
+host in the loop at all. Every other counter stays on the device until the
 step's ``StepStats``, which the driver reads in one copy. No shape depends on
 the data (the insert of the arrivals is the static one of ``particles.py``), so
 nothing else in a step waits for the device, and on a GPU the step's head, a
@@ -47,6 +52,7 @@ left in another shard's ledger slice into a free slot of its owner's.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 
@@ -317,10 +323,34 @@ def migrate(ledgers, offsets, bl, K, exchange, go=None, plain=False):
     return insert_arrivals(ledgers, cand, recv[:, -1]), sent
 
 
-def _exit_read(unfinished: torch.Tensor) -> int:
-    """A batch's one host read: the summed count of particles short of census."""
+class _CountRead:
+    """One batch's summed unfinished count on its way to the host, for a read made
+    after the next batch was queued: on a GPU copied into a pinned host slot of
+    its own behind the batch on the stream, an event recorded after the copy (the
+    graphs rewrite ``unfinished`` in place, so a later batch must not overwrite
+    what this read needs); on the CPU a copy."""
+
+    def __init__(self, unfinished: torch.Tensor):
+        self.event = None
+        if unfinished.is_cuda:
+            self.host = torch.empty((), dtype=unfinished.dtype, pin_memory=True)
+            self.host.copy_(unfinished, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = unfinished.clone()
+
+    def item(self) -> int:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.item()
+
+
+def _exit_read(count) -> int:
+    """A batch's one host read: the summed count of particles short of census (the
+    device tensor, or the batch's ``_CountRead``)."""
     with record_function("spatial.exit_read"):
-        return int(unfinished.item())
+        return int(count.item())
 
 
 @dataclasses.dataclass
@@ -353,8 +383,9 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
     rounds (``step.run_rounds``: before each batch ``step.round_prologue`` seeds
     the batch's fixup generators and copies its census seeds to the device, then
     ``step.batch(states, tensors, nr)`` queues ``nr`` rounds, then the batch's one
-    host read) and ``step.tail(states, tensors, dt)`` (tallies, feedback, the
-    counters). ``step.capturable`` says whether the head, a batch and the tail can
+    host read, made one batch behind the queue where ``step.ahead``) and
+    ``step.tail(states, tensors, dt)`` (tallies, feedback, the counters).
+    ``step.capturable`` says whether the head, a batch and the tail can
     each be captured in a CUDA graph (``graph.GraphedSpatialStep``): with the
     in-process exchange and the kernel's census.
 
@@ -364,8 +395,13 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
     the eager step that ``Simulation(graph=False)`` holds them against), else one.
     A round that begins with nothing unfinished changes nothing (its writes and
     counts are gated by a device flag), so any batch size gives the step of one
-    round a batch, bitwise. ``step.rounds_run`` counts the rounds queued, no-op
-    rounds too; ``step.rounds_per_batch`` is the batch."""
+    round a batch, bitwise, and so does a batch queued before the read of the one
+    before it: with ``step.ahead`` each is, where the read would wait on the card
+    (the step capturable, on a GPU; not on the CPU, which has nothing to overlap,
+    nor in a process group, whose rounds meet in collectives; a test may set
+    it). ``step.rounds_run``
+    counts the rounds queued, no-op rounds too; ``step.rounds_per_batch`` is the
+    batch."""
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -427,19 +463,25 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
                 rng.reseed(gens[(ph, s)], st.seed, st.cycle, ph, (s,))
 
     def round_prologue(states, r0, nr):
-        for k in range(nr) if smr_ddmc else ():
-            for st, s in zip(states, shards):
-                rng.reseed(fixup[(s, k)], st.seed, st.cycle, rng.PHASE_FIXUP, (s, r0 + k))
-        now = [[rng.kernel_seed(st.seed, st.cycle, s, r0 + k) for st, s in zip(states, shards)]
-               for k in range(nr)]
-        if dev.type == "cuda":
+        """Rounds r0 .. r0 + nr - 1's fixup generators seeded and census seeds set.
+        On a GPU the seeds' copy is queued on the stream, behind any batch still
+        queued that reads the buffer (the caching host allocator keeps its pinned
+        source until the copy has run); a registered generator's replay takes its
+        seed on the stream too."""
+        with record_function("spatial.round_prologue"):
+            for k in range(nr) if smr_ddmc else ():
+                for st, s in zip(states, shards):
+                    rng.reseed(fixup[(s, k)], st.seed, st.cycle, rng.PHASE_FIXUP, (s, r0 + k))
+            now = [[rng.kernel_seed(st.seed, st.cycle, s, r0 + k) for st, s in zip(states, shards)]
+                   for k in range(nr)]
+            if dev.type != "cuda":
+                seeds["now"] = now
+                return
             if seeds["buf"] is None:
                 seeds["buf"] = torch.empty((R, len(shards)), dtype=torch.int32, device=dev)
                 seeds["now"] = list(seeds["buf"].unbind())
             seeds["buf"][:nr].copy_(torch.tensor(now, dtype=torch.int32, pin_memory=True),
                                     non_blocking=True)
-        else:
-            seeds["now"] = now
 
     def head(states, dt) -> StepTensors:
         with record_function("spatial.head"):
@@ -483,8 +525,10 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
                 return torch.zeros(shape, dtype=dtype, device=dev)
 
             m = len(states)
+            # ``unfinished`` starts at 1, so that the first round's gate opens
             return StepTensors(fs, setup, zeros(m, torch.int32), zeros(m), zeros(m),
-                               torch.stack(dropped), zeros(m), zeros(()), zeros(()))
+                               torch.stack(dropped), zeros(m), zeros(()),
+                               torch.ones((), dtype=torch.int64, device=dev))
 
     def one_round(ps, t: StepTensors, k, go, dt):
         """Round ``k`` of a batch; ``go`` None where it is known to have work, else
@@ -514,24 +558,30 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
                 t.unfinished.copy_(exchange.sum([t.unfinished])[0])
 
     def batch(states, t: StepTensors, nr, dt):
-        """``nr`` rounds with no host read; the first begins with work (the host
-        read the count before it), each later one is gated by its own count."""
+        """``nr`` rounds with no host read, each gated by the unfinished count
+        before it (the head's 1 for a step's first round), so that a batch may be
+        queued before the read of the one before it."""
         ps = [st.particles for st in states]
         for k in range(nr):
             with record_function("spatial.round"):
-                one_round(ps, t, k, None if k == 0 else t.unfinished > 0, dt)
+                one_round(ps, t, k, t.unfinished > 0, dt)
 
     def run_rounds(states, unfinished, run_batch):
-        """The step's batches, each ``run_batch(nr)`` after its round prologue and
-        followed by its one host read of ``unfinished``."""
-        done, left = 0, 1
-        while done < max_rounds and left > 0:
-            nr = min(R, max_rounds - done)
-            round_prologue(states, done, nr)
-            run_batch(nr)
-            left = _exit_read(unfinished)
-            done += nr
-            step.rounds_run += nr
+        """The step's batches, each ``run_batch(nr)`` after its round prologue, and
+        one host read of ``unfinished`` a batch, until a read of 0 or
+        ``max_rounds`` rounds queued; with ``step.ahead`` the reads run one batch
+        behind the queue, each of its own copy of the count (``_CountRead``)."""
+        done, reads = 0, collections.deque()
+        while True:
+            while done < max_rounds and len(reads) <= step.ahead:
+                nr = min(R, max_rounds - done)
+                round_prologue(states, done, nr)
+                run_batch(nr)
+                reads.append(_CountRead(unfinished) if step.ahead else unfinished)
+                done += nr
+                step.rounds_run += nr
+            if not reads or _exit_read(reads.popleft()) == 0:
+                return
 
     def tail(states, t: StepTensors, dt):
         with record_function("spatial.tail"):
@@ -575,6 +625,7 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
     step.generators = lambda: list(gens.values()) + list(fixup.values())
     step.capturable = capturable
     step.rounds_run, step.rounds_per_batch = 0, R
+    step.ahead = capturable and dev.type == "cuda"
     return step
 
 

@@ -25,8 +25,9 @@ span by name (``span_kernels``: in an eager step, a span's own work), and
 (CUDA graphs where it can: the first step eagerly, the second captured, so give
 ``--warm`` at least 2 to time replays), or eagerly with ``--eager``.
 ``--rounds-per-batch`` sets the spatial step's rounds a batch (by default
-``spatial.ROUNDS_PER_BATCH`` as CUDA graphs, one eagerly). ``--trace`` also writes
-the Chrome trace. Needs a GPU.
+``spatial.ROUNDS_PER_BATCH`` as CUDA graphs, one eagerly). ``read_steps`` is the
+reading, for a ``Simulation`` built elsewhere.
+``--trace`` also writes the Chrome trace. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -100,7 +101,23 @@ def span_kernels(trace_path: str) -> dict:
 def host_syncs(sim, steps: int) -> int:
     """The host's synchronisations with the device in ``steps`` steps of ``sim``
     (``Simulation.run``): each call that ``torch.cuda.set_sync_debug_mode("warn")``
-    reports, the driver's one synchronisation a step among them."""
+    reports, the driver's one synchronisation a step among them, and each spatial
+    batch's exit read (``spatial._exit_read``, counted as one whether it reads the
+    device tensor or waits on the event of its pinned copy, which the mode does
+    not see)."""
+    from .parallel import spatial
+
+    reads, real = [0], spatial._exit_read
+
+    def counted(count):
+        reads[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(count)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    spatial._exit_read = counted
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -108,7 +125,46 @@ def host_syncs(sim, steps: int) -> int:
             sim.run(nlim=steps)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+        spatial._exit_read = real
+    return sum("synchroniz" in str(w.message) for w in caught) + reads[0]
+
+
+def read_steps(sim, steps: int, trace=None) -> dict:
+    """``steps`` steps of ``sim`` (``Simulation``, on a GPU) timed on the host clock,
+    the same steps again from a snapshot under ``torch.profiler``, and once more
+    counting the host's synchronisations; ``sim``'s state ends where the timed
+    steps left it (its history holds the reruns too). Returns the unprofiled
+    steps' walls (s), events and migration rounds, the profiled steps' launches
+    (``cuda_lib.LAUNCHES``), device
+    microseconds by name (``device_time_by_name``), spans (``spans_by_name``:
+    host ms, device ms, count) and their device work (``span_kernels``), and the
+    synchronisations. ``trace``: write the Chrome trace there too."""
+    n0 = len(sim.history)
+    snapshot = sim.snapshot()
+    sim.run(nlim=steps)
+    hist = sim.history[n0:]
+    out = {"wall_s": [h["step_seconds"] for h in hist], "events": [h["events"] for h in hist],
+           "rounds": [h["migration_rounds"] for h in hist]}
+    if len(hist) != steps:
+        raise RuntimeError(f"profile: ran {len(hist)} timed steps of {steps} (tlim reached?)")
+    sim.restore(snapshot)
+    n1 = len(sim.history)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    with torch.profiler.profile(activities=acts) as prof:
+        sim.run(nlim=steps)
+    out["launches"] = dict(collections.Counter(cuda_lib.LAUNCHES) - before)
+    if [h["events"] for h in sim.history[n1:]] != out["events"]:
+        raise RuntimeError("profile: the profiled steps differ from the timed ones")
+    sim.restore(snapshot)
+    out["syncs"] = host_syncs(sim, steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        out["by_name"] = device_time_by_name(path)
+        out["spans"] = spans_by_name(path)
+        out["in_spans"] = span_kernels(path)
+    return out
 
 
 def main(argv=None) -> int:
@@ -131,31 +187,11 @@ def main(argv=None) -> int:
         sim = Simulation(cfg, outdir=outdir, quiet=True, device="cuda", graph=not args.eager,
                          rounds_per_batch=args.rounds_per_batch)
         sim.run(nlim=args.warm)
-        n0 = len(sim.history)
-        snapshot = sim.snapshot()
-        sim.run(nlim=args.steps)
-        wall = [h["step_seconds"] for h in sim.history[n0:]]
-        events = [h["events"] for h in sim.history[n0:]]
-        rounds = [h["migration_rounds"] for h in sim.history[n0:]]
-        sim.restore(snapshot)
-        n1 = len(sim.history)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        before = collections.Counter(cuda_lib.LAUNCHES)
-        with torch.profiler.profile(activities=acts) as prof:
-            sim.run(nlim=args.steps)
-        launches = dict(collections.Counter(cuda_lib.LAUNCHES) - before)
-        if [h["events"] for h in sim.history[n1:]] != events:
-            raise RuntimeError("profile: the profiled steps differ from the timed ones")
-        sim.restore(snapshot)
-        syncs = host_syncs(sim, args.steps)
-        trace = args.trace or os.path.join(outdir, "trace.json")
-        prof.export_chrome_trace(trace)
-        by_name = device_time_by_name(trace)
-        span_host, span_dev, span_count = spans_by_name(trace)
-        in_spans = span_kernels(trace)
+        r = read_steps(sim, args.steps, args.trace)
+    wall, rounds, launches, syncs = r["wall_s"], r["rounds"], r["launches"], r["syncs"]
+    by_name, in_spans = r["by_name"], r["in_spans"]
+    span_host, span_dev, span_count = r["spans"]
     n = args.steps
-    if len(wall) != n:
-        raise RuntimeError(f"profile: ran {len(wall)} timed steps of {n} (tlim reached?)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
@@ -169,9 +205,11 @@ def main(argv=None) -> int:
         print(f"span {name}: its device work {sum(us for _, us in inside) / n / 1e3!r} ms per "
               "step, by name: " + "; ".join(f"{us / n / 1e3!r} {k[:80]}" for k, us in inside))
     step_ms = statistics.median(wall) * 1e3
+    core = getattr(sim.step_fn, "step", sim.step_fn)
     print(f"step: {'CUDA graphs' if sim.graphed else 'eager'}"
-          + (f", {getattr(sim.step_fn, 'step', sim.step_fn).rounds_per_batch} rounds a "
-             "batch" if sim.spatial else ""))
+          + (f", {core.rounds_per_batch} rounds a batch"
+             + (", the next queued before a batch's exit read" if core.ahead else "")
+             if sim.spatial else ""))
     print(f"launches in the profiled steps: {launches}")
     print(f"migration rounds per step: {rounds}; host synchronisations per step: "
           f"{syncs / n!r}")

@@ -13,15 +13,20 @@ of the ledger and a replica of the fields. Each shard sources its share of the
 births, with the per-cell birth counts summed over the shards before the weights
 are set, transports its own particles with no communication, and the tallies are
 reduced over the shards in the integer domain, so they are bitwise those of the
-concatenated ledger. The spatial decomposition's step is
+concatenated ledger. The replicated fields give every shard the same
+coefficients, so one census call runs every local shard's slice in one launch on
+one table, each lane keyed by its slot in its own shard's slice: bitwise the
+calls shard by shard. The spatial decomposition's step is
 ``parallel/spatial.py``.
 
 A step waits for the device nowhere: every shape is fixed by the configuration
 (the static-shape insert of ``particles.py``), every counter stays a device
 tensor (``StepStats``, packed for the driver's one read a step; ``overflow``),
 and each constant it needs is made once (``utils/device.py``). So the body of the
-single-device step can be captured into a CUDA graph and replayed
-(``graph.py``), as the JAX package jits it (``jaybenne_tpu/step.py:94-96``).
+single-device step, and the particle decomposition's over the in-process
+shards, can be captured into a CUDA graph and replayed (``graph.py``), as the
+JAX package jits them (``jaybenne_tpu/step.py:94-96``,
+``jaybenne_tpu/parallel/sharding.py:92-118``).
 
 Census selection mirrors the JAX package's ``_pallas_ok``, by configuration and
 never by failure: ``use_pallas = auto`` or ``on`` runs
@@ -44,6 +49,7 @@ from .ops import fleck as fleck_ops
 from .ops import rng, sourcing, tally
 from .ops import transport as transport_ops
 from .ops import transport_kernel
+from .parallel.exchange import InProcess
 from .utils.device import as_device
 
 
@@ -180,8 +186,10 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     for it. A CUDA graph (``graph.py``) captures the body once and replays it
     after the prologue. ``step.generators()`` are the generators the body draws
     from: one per (phase, shard), kept across steps. ``step.capturable`` says
-    whether the body makes no host read, and so can be captured: on one device,
-    with the kernel's census (the plain census reads its exit test)."""
+    whether the body makes no host read, and so can be captured: with the
+    kernel's census (the plain census reads its exit test), on one device or
+    over the in-process exchange's shards (a ``torch.distributed`` group's
+    collectives are not captured)."""
     eos = cfg.mcblock.build_eos()
     opacity = cfg.mcblock.build_opacity()
     scattering = cfg.mcblock.build_scattering()
@@ -206,8 +214,9 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     phases = ((rng.PHASE_SOURCE,) if jb.do_emission else ()) + (
         (rng.PHASE_EXTERNAL,) if external else ())
     gens = {(ph, s): torch.Generator(device=dev) for ph in phases for s in shards}
-    # the census kernel's seed of each shard: on a GPU a one-element view of an
-    # int32 device tensor that each prologue rewrites; on the CPU a host int
+    # the census kernel's seed of each shard: on a GPU the int32 device tensor
+    # ``buf`` of one seed a shard, which each prologue rewrites; on the CPU the list
+    # ``now`` of host ints
     seeds = {"buf": None, "now": None}
     # the external source's window (``sourcing.ExternalSource.window``), which
     # each prologue writes from the host clock: a tensor of the run's dtype
@@ -228,7 +237,6 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
         if dev.type == "cuda":
             if seeds["buf"] is None:
                 seeds["buf"] = torch.empty(len(now), dtype=torch.int32, device=dev)
-                seeds["now"] = [seeds["buf"][k:k + 1] for k in range(len(now))]
             seeds["buf"].copy_(torch.tensor(now, dtype=torch.int32, pin_memory=True),
                                non_blocking=True)
         else:
@@ -264,13 +272,13 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
                                    source_type="external", num_particles=ext_num,
                                    external=external, window=window, **kw)
             dropped = [d + e for d, e in zip(dropped, ext_drop)]
-        iters, events = [], []
-        for k, (f, p) in enumerate(zip(fs, ps)):
-            coefs = transport_ops.precompute_coefs(
-                f, mesh, eos, opacity, scattering, jb.use_ddmc, dtype)
-            p, it, ev = census(p, coefs, mesh, seeds["now"][k], prm, dt)
-            iters.append(it.to(torch.int64))
-            events.append(ev)
+        # the shards' fields are replicated, so their coefficients are the same:
+        # one set, and one census call over every local shard's slice
+        coefs = transport_ops.precompute_coefs(
+            fs[0], mesh, eos, opacity, scattering, jb.use_ddmc, dtype)
+        _, it, ev = census(ps, coefs, mesh, seeds["buf"] if dev.type == "cuda" else seeds["now"],
+                           prm, dt)
+        iters, events = list(it.to(torch.int64).unbind()), list(ev.unbind())
         # the live counts and the survivors still short of end-of-step, every local
         # shard's in one count: before the tau reset below (the tally changes
         # neither alive nor tau)
@@ -312,7 +320,8 @@ def build_step_core(mesh, cfg: RunConfig, exchange=None):
     step.prologue = prologue
     step.body = body
     step.generators = lambda: list(gens.values())
-    step.capturable = exchange is None and census is transport_kernel.transport
+    step.capturable = (census is transport_kernel.transport
+                       and (exchange is None or isinstance(exchange, InProcess)))
     return step
 
 

@@ -1237,7 +1237,8 @@ def test_nongray_path_census_bitwise(gpu, tmp_path, deck):
     real = transport_kernel.transport
 
     def keep(p, *args):
-        recorded.append((p.clone(), args))
+        (one,) = p  # one device: the step passes a list of one ledger
+        recorded.append((one.clone(), args))
         return real(p, *args)
 
     transport_kernel.transport = keep
@@ -1753,8 +1754,9 @@ def test_migrate_kernel_matches_plain(gpu, case):
 def test_migrate_kernel_on_recorded_rounds(gpu, tmp_path, path):
     """The migration kernel bitwise its plain version (chip_smoke.migrations_bitwise)
     on the first two rounds of a step at 8 spatial shards as the eager step records
-    them (the second a later round of a batch, its go a device flag), each again
-    with go false: the ledgers, the sent and dropped counts and every valid row."""
+    them (the second a later round of a batch; each round's go a device flag, the
+    first's open, as the head starts the unfinished count at 1), each again with
+    go false: the ledgers, the sent and dropped counts and every valid row."""
     cs = _chip_smoke()
     mods = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
             "jaybenne/decomposition": "spatial", "jaybenne/n_devices": 8,
@@ -1764,7 +1766,7 @@ def test_migrate_kernel_on_recorded_rounds(gpu, tmp_path, path):
     calls = cs.recorded_migrations(
         lambda: run_file(STEPDIFF, outdir=str(tmp_path), modified_inputs=mods, quiet=True,
                          nlim=1, device="cuda", graph=False), 2)
-    assert len(calls) == 2 and calls[0].go is None and calls[1].go is not None
+    assert len(calls) == 2 and all(c.go is not None for c in calls) and bool(calls[0].go)
     cs.migrations_bitwise(calls, path)
 
 
@@ -2031,8 +2033,9 @@ def _spatial_8(mods):
 @pytest.mark.parametrize("route", sorted(_GATE_PATHS))
 def test_census_gate_changes_nothing_on_recorded_rounds(gpu, tmp_path, route):
     """The first two rounds of a step at 8 spatial shards as the eager step records
-    them (the second a later round of a batch), each by the census kernel with go
-    false: every column bitwise as it was and nothing counted, one launch counted;
+    them (the second a later round of a batch; each gated by a device flag, the
+    first's open, as the head starts the unfinished count at 1), each by the
+    census kernel with go false: every column bitwise as it was and nothing counted, one launch counted;
     with go true bitwise the ungated launch (chip_smoke.census_gate_bitwise); and
     the count kernel bitwise its plain version on the run's rounds and tail."""
     cs = _chip_smoke()
@@ -2041,7 +2044,7 @@ def test_census_gate_changes_nothing_on_recorded_rounds(gpu, tmp_path, route):
         calls = cs.recorded_counts(lambda: run_file(
             deck, outdir=str(tmp_path), modified_inputs=_spatial_8(mods), quiet=True, nlim=1,
             device="cuda", graph=False))
-    assert len(rec.rounds) == 2 and rec.gos[0] is None and rec.gos[1] is not None
+    assert len(rec.rounds) == 2 and all(g is not None for g in rec.gos) and bool(rec.gos[0])
     held = cs.census_gate_bitwise(rec.rounds, route)
     assert held.startswith(f"{route}: {route} over 8 shards"), held
     assert calls[0].acc is not None and calls[-1].acc is None
@@ -2149,3 +2152,128 @@ def test_spatial_batch_of_8_shards_graph_matches_eager(gpu, tmp_path):
         assert launches[1]["round_counts"] == cs.rounds_queued(graph) - queued + 1, launches
         cs.same_states(eager, graph, "transport_3d@z at 8 shards")
     assert "replay" in kinds, kinds
+
+
+# ------------------------- the particle decomposition's step: one census launch
+
+@pytest.mark.parametrize("name, precision", [("1d_blocks", "f32"), ("2d_smr", "f32"),
+                                             ("smr_ddmc", "f32"), ("2d_smr", "f64")])
+def test_particle_census_one_launch_matches_plain(gpu, name, precision):
+    """The initial radiation of tests/test_torch_particle_launch.py's deck ``name``
+    at 8 particle shards: one census call over the 8 shards' slices is one launch
+    of the kernel, bitwise the plain one-call census and the plain calls shard by
+    shard (every column, each shard's iterations and events)."""
+    from test_torch_particle_launch import assert_same, one_call, particle_case, per_shard_calls
+
+    p0, coefs, mesh, seeds, prm, dt = particle_case(name, 8, precision, device=gpu,
+                                                    particles=40000)
+    launch = transport_kernel.launch_name(mesh.ndim, prm.has_absorption, prm.use_ddmc,
+                                          mesh.max_level > 0, dtype=p0.x.dtype)
+    k, q, r = p0.clone(), p0.clone(), p0.clone()
+    before = cuda_lib.LAUNCHES[launch]
+    it_k, ev_k = one_call(transport_kernel.transport, k, coefs, mesh, seeds, prm, dt)
+    assert cuda_lib.LAUNCHES[launch] == before + 1
+    it_q, ev_q = one_call(transport_kernel.transport_plain, q, coefs, mesh, seeds, prm, dt)
+    it_r, ev_r = per_shard_calls(transport_kernel.transport_plain, r, coefs, mesh, seeds, prm,
+                                 dt)
+    assert_same(k, q, it_k, ev_k, it_q, ev_q, (name, precision, "kernel vs plain"))
+    assert_same(q, r, it_q, ev_q, it_r, ev_r, (name, precision, "one call vs per shard"))
+    assert bool((ev_k > 0).all())
+
+
+# stepdiff_smr and stepdiff_smr_ddmc at 8 particle shards, at the CI's mesh, with
+# births that outrun absorption so that the ledger grows after the capture
+_PARTICLE_GRAPH_PATHS = {
+    name: (os.path.join(_ROOT, "inputs", deck), {
+        "parthenon/mesh/nx1": 64, "parthenon/mesh/nx2": 32, "parthenon/meshblock/nx1": 16,
+        "parthenon/meshblock/nx2": 16, "jaybenne/num_particles": 20000,
+        "jaybenne/n_devices": 8, "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "1.e-10",
+        "jaybenne/do_emission": "true", "mcblock/opacity_model": "constant",
+        "mcblock/opacity_constant_value": 1e-3, "jaybenne/capacity_factor": 1,
+        "parthenon/output0/file_type": "none"})
+    for name, deck in (("stepdiff_smr", "stepdiff_smr.in"),
+                       ("stepdiff_smr_ddmc", "stepdiff_smr_ddmc.in"))}
+
+
+@pytest.mark.parametrize("path", sorted(_PARTICLE_GRAPH_PATHS))
+def test_particle_graph_matches_eager(gpu, tmp_path, path):
+    """The particle decomposition at 8 in-process shards through run_file, eager
+    and as a CUDA graph (``GraphedStep`` over the shards' states) side by side,
+    7 steps: every shard's fields, the ledger, the counters and overflow bitwise
+    equal after every step, one census launch a step in both, replays among the
+    steps, and a capture again after the ledger grew."""
+    cs = _chip_smoke()
+    deck, mods = _PARTICLE_GRAPH_PATHS[path]
+    sims = [run_file(deck, outdir=str(tmp_path), modified_inputs=mods, quiet=True, nlim=0,
+                     device="cuda", graph=g) for g in (False, True)]
+    eager, graph = sims
+    assert not eager.graphed and graph.graphed and len(graph.shards) == 8
+    kinds, caps = [], []
+    for _ in range(7):
+        before = graph.step_fn.captures
+        launches = []
+        for sim in sims:
+            cuda_lib.LAUNCHES.clear()
+            sim.run(nlim=1)
+            launches.append(dict(cuda_lib.LAUNCHES))
+        kinds.append("eager" if len(graph.history) == 1 else
+                     "capture" if graph.step_fn.captures > before else "replay")
+        caps.append(graph.state.particles.capacity)
+        assert launches[0] == launches[1], (path, graph.cycle, launches)
+        assert sum(v for k, v in launches[1].items() if k.startswith("transport_")) == 1
+        cs.same_states(eager, graph, path)
+        for a, b in zip(eager.shards, graph.shards):
+            for f in dataclasses.fields(a.fields):
+                assert torch.equal(getattr(a.fields, f.name), getattr(b.fields, f.name)), f.name
+    grown = [k for k in range(2, 7) if caps[k] != caps[k - 1]]
+    assert grown and all(kinds[k] == "capture" for k in grown), (kinds, caps)
+    assert "replay" in kinds, kinds
+
+
+# the spatial step one batch ahead of its exit read against the loop that reads
+# each batch first: the z route's deck of _GATE_PATHS (big_mesh_spatial's deck at
+# a reduced size) and phase 33's SMR+DDMC deck, at 8 in-process shards
+_AHEAD_PATHS = {
+    "big_mesh_spatial_reduced": _GATE_PATHS["transport_3d@z"],
+    "phase_33": (os.path.join(_ROOT, "inputs", "stepdiff_smr_ddmc.in"), {
+        "parthenon/mesh/nx1": 32, "parthenon/mesh/nx2": 16, "parthenon/meshblock/nx1": 8,
+        "parthenon/meshblock/nx2": 8, "jaybenne/num_particles": 96000,
+        "jaybenne/dt": "1.e-11"}),
+}
+
+
+@pytest.mark.parametrize("path", sorted(_AHEAD_PATHS))
+def test_spatial_batches_ahead_match_the_loop(gpu, tmp_path, path):
+    """Two runs of the spatial step as CUDA graphs at 8 shards, 4 steps: one with
+    the next batch queued before each exit read (the step's ``ahead``, the default
+    on the card), one reading each batch before it queues the next: every
+    state bitwise equal after every step, the same migration rounds and the same
+    exit reads, the run ahead queuing at most one more batch a step."""
+    from jaybenne_tpu_torch.parallel import spatial
+
+    cs = _chip_smoke()
+    deck, mods = _AHEAD_PATHS[path]
+    sims = [run_file(deck, outdir=str(tmp_path), modified_inputs=_spatial_8(mods), quiet=True,
+                     nlim=0, device="cuda") for _ in range(2)]
+    ahead, loop = sims
+    assert cs.spatial_core(ahead).ahead is True
+    cs.spatial_core(loop).ahead = False
+    reads = []
+    real = spatial._exit_read
+    spatial._exit_read = lambda count: reads.append(type(count).__name__) or real(count)
+    try:
+        for _ in range(4):
+            queued = []
+            for sim in (loop, ahead):
+                k, q = len(reads), cs.rounds_queued(sim)
+                sim.run(nlim=1)
+                queued.append((cs.rounds_queued(sim) - q, reads[k:]))
+            cs.same_states(loop, ahead, path)
+            (q_loop, r_loop), (q_ahead, r_ahead) = queued
+            rounds = loop.history[-1]["migration_rounds"]
+            assert len(r_loop) == len(r_ahead) == cs.batches_of(loop, rounds), (r_loop, r_ahead)
+            assert set(r_loop) == {"Tensor"} and set(r_ahead) == {"_CountRead"}
+            assert q_loop <= q_ahead <= q_loop + cs.spatial_core(loop).rounds_per_batch
+    finally:
+        spatial._exit_read = real
+    assert ahead.graphed and loop.graphed and sum(h["migrated"] for h in ahead.history) > 0

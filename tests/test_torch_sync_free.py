@@ -147,6 +147,14 @@ SINGLE = {
                                "mcblock/scattering_constant_value": 50}),
     "1d_ddmc": (STEPDIFF_DDMC, {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 32,
                                 "jaybenne/num_particles": 2000}),
+    # the particle decomposition at 2 in-process shards: one census call over both
+    # shards' slices, the births' counts and the tallies summed over the shards
+    "particle": (STEPDIFF, {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 8,
+                            "jaybenne/num_particles": 2000, "jaybenne/do_emission": "true",
+                            "mcblock/opacity_model": "constant",
+                            "mcblock/opacity_constant_value": 3.0,
+                            "mcblock/scattering_constant_value": 50,
+                            "jaybenne/n_devices": 2}),
 }
 
 
@@ -156,14 +164,16 @@ def test_single_device_step_reads_nothing(name):
     deck, mods = SINGLE[name]
     with tempfile.TemporaryDirectory() as tmp:
         sim = _sim(deck, mods, tmp)
-        before = sim._state.particles.alive.clone()
+        before = sim.state.particles.alive.clone()
         with host_reads():
-            state, stats = sim.step_fn(sim._state, sim.cfg.jaybenne.dt)
+            out, stats = sim.step_fn(sim._state if sim.shards is None else sim.shards,
+                                     sim.cfg.jaybenne.dt)
         counts = stats.values(stats.packed.clone())
         assert counts["events"] > 0 and counts["n_alive"] > 0
-        assert state.cycle == 1 and state.overflow.dim() == 0
-        if name == "2d_feedback":  # births went in
-            assert bool((state.particles.alive & ~before).any())
+        states = [out] if sim.shards is None else out
+        assert all(st.cycle == 1 and st.overflow.dim() == 0 for st in states)
+        if name in ("2d_feedback", "particle"):  # births went in
+            assert bool((sim.state.particles.alive & ~before).any())
 
 
 @pytest.mark.parametrize("rounds_per_batch", [1, 3, 8])
