@@ -86,14 +86,25 @@ device ms a step of the hand-written kernels and of the rest, the census launche
 a step, the step wall less the device time and the host ms a step of the spatial
 spans (``chip_smoke.HOST_SPANS``).
 
-With ``--only migrate`` it reads the spatial migration apart first, in this tree
-(its package's plain migrate, ``migrate(plain=True)``, is the parent's): on the
-recorded first round of each deck of MIGRATE_DECKS (big_mesh_spatial and the
-float64 stepdiff at 8 shards) the migration kernel bitwise its plain version (go
-false too) and ``chip_smoke.migration_reading``; then profile.py on those decks in
-the turns, as CUDA graphs, eagerly once for the parent and this tree (the spans of
-``spatial.round`` with their device work by kernel), and this tree at
-MIGRATE_BATCH rounds a batch.
+With ``--only migrate`` it reads the spatial migration apart first, in this tree:
+on the recorded first round of each deck of MIGRATE_DECKS (big_mesh_spatial and
+the float64 stepdiff at 8 shards) the migration kernel bitwise its plain version
+(go false too) and ``chip_smoke.migration_reading`` (against the plain migrate,
+``migrate(plain=True)``), and on one rank's round (MIGRATE_RANK: one local shard
+of 8, its slice made from big_mesh_spatial's round, thousands of tiles) the pack
+bitwise its plain version; then each tree's migration kernel on those rounds in
+the turns (``--migrate-child``: the pack's window and device ms by launch, the
+round with the insert, the round with go false; every tree's outputs equal);
+then profile.py on those decks in the turns, as CUDA graphs, eagerly once for
+the parent and this tree (the spans of ``spatial.round`` with their device work
+by kernel), and this tree at MIGRATE_BATCH rounds a batch.
+``--only migrate_kernel`` does all of it but the profile.py turns.
+
+With ``--only counts_apart`` it reads the count kernel (``csrc/count_kernel.cu``)
+apart on big_mesh_spatial's first round at 8 shards and the 64^3 DDMC step, in
+this tree: the kernel, an empty kernel of its grid and its slot pass alone
+(COUNTS_CUT), each by device ms and window; the last block's ticket and epilogue
+are the kernel less its slot pass.
 
 It prints the card's name and power limit; for each tree the nvcc ``-Xptxas -v``
 resources of the routes whose event loop ``chip_smoke.py`` reads (from the child
@@ -982,21 +993,78 @@ def profile(tree, deck, extra=(), ops=False) -> dict:
 
 
 # ``--only migrate``: the spatial migration read apart on the recorded first round
-# of these decks of PROFILE_DECKS (``chip_smoke.migration_reading``), then their
+# of these decks of PROFILE_DECKS (``chip_smoke.migration_reading``, this tree) and
+# on a rank's round made from big_mesh_spatial's (MIGRATE_RANK), the trees'
+# migration kernels on those rounds in the turns (``migrate_child``), then their
 # steps by profile.py in the turns, as CUDA graphs and eagerly (its spans), and
 # this tree's at MIGRATE_BATCH rounds a batch beside ROUNDS_PER_BATCH's
-MIGRATE = "migrate"
+MIGRATE, MIGRATE_KERNEL = "migrate", "migrate_kernel"  # the latter: no profile.py turns
 MIGRATE_DECKS = {"big_mesh_spatial_8": ("DECK", "BIG_SPATIAL_8"),
                  "stepdiff_spatial_f64": ("DECK", "STEPDIFF_SPATIAL_F64")}
 MIGRATE_BATCH = 8
+# one rank of a multi-GPU spatial run (one local shard of n): the middle local
+# shard's slice of this deck's first round, this many times over, K as many
+# times (the step's own K, a slice over 2 n); its slice has ten thousand tiles,
+# where a kernel whose blocks sum their slice's tile counts grows with the square
+# of the tiles
+MIGRATE_RANK = ("big_mesh_spatial_8", 128)
 
 
-def migrate_reading() -> dict:
+def rank_ledger(p, m, times):
+    """The middle of the ``m`` slices of the ledger ``p``, ``times`` over."""
+    from jaybenne_tpu_torch.parallel import sharding
+    from jaybenne_tpu_torch.particles import ParticleLedger
+
+    one = sharding.split_ledger(p, m)[m // 2]
+    return ParticleLedger(**{f.name: getattr(one, f.name).repeat(times)
+                             for f in dataclasses.fields(one)})
+
+
+def rank_round(c, times):
+    """A ``chip_smoke.RecordedMigration`` of one rank: the middle local shard's
+    slice of the recorded round ``c``, ``times`` over (``rank_ledger``), with
+    ``times`` K."""
+    import chip_smoke as cs
+
+    m = len(c.offsets)
+    return cs.RecordedMigration(rank_ledger(c.ledger, m, times), [c.offsets[m // 2]], c.bl,
+                                c.K * times, c.n, c.go)
+
+
+def rank_bitwise(c, what) -> str:
+    """The kernel's pack bitwise its plain version's on a rank's round ``c`` (its
+    ledger after it, its sent count, its flags and every row they mark), and
+    again with go false (nothing sent); a rank alone has no in-process round.
+    Returns what was held, as text."""
+    import torch
+
+    import chip_smoke as cs
+
+    for go in (cs.RECORDED, torch.zeros((), dtype=torch.bool, device=c.ledger.alive.device)):
+        q, r = c.ledger.clone(), c.ledger.clone()
+        buf, flags, sent = cs.pack_of(c, q, go=go)
+        want, valid, plain_sent = cs.pack_of(c, r, plain=True, go=go)
+        if (not torch.equal(sent, plain_sent) or not torch.equal(flags, valid)
+                or not torch.equal(buf[valid], want[valid])):
+            raise AssertionError(f"migration on {what}: the buffers, flags or sent counts "
+                                 f"differ ({sent.tolist()} vs {plain_sent.tolist()})")
+        cs.equal_ledgers(q, r, f"migration pack on {what} against the plain version")
+        if go is cs.RECORDED:
+            line = (f"{what}: 1 shard of {c.n}, {c.ledger.capacity} slots, K {c.K}, "
+                    f"{int(sent.sum())} sent")
+        elif int(sent.sum()) or int(valid.sum()):
+            raise AssertionError(f"migration on {what}: a round with go false sent")
+    return line + "; with go false nothing sent or changed"
+
+
+def migrate_reading() -> tuple:
     """``--only migrate``'s reading of the recorded rounds, in this process with this
-    tree's package: the kernel's pack and round against the parent's PyTorch
-    migrate (``spatial.migrate(plain=True)``), a round with go false, the kept
-    clones and the unfinished sums; the parent's work by operation is in the
-    eager profile of the turns (the ``spatial.round`` spans' work by kernel)."""
+    tree's package: the kernel bitwise its plain version (go false too), and its
+    pack and round against the plain migrate (``spatial.migrate(plain=True)``), a
+    round with go false, the kept clones and the unfinished sums; on the rank's
+    round (MIGRATE_RANK) the pack bitwise its plain version (go false too) and its
+    bounds. Returns the readings and the rounds as plain tensors
+    (``migrate_child``'s input; ``rank``: the pack alone)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -1008,7 +1076,14 @@ def migrate_reading() -> dict:
              "STEPDIFF_SPATIAL_F64": {**cs.STEPDIFF_SPATIAL, **cs.PREC64}}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    out = {}
+    out, rounds = {}, {}
+
+    def saved(c, bound_ms):
+        return {"cols": {f.name: getattr(c.ledger, f.name).cpu()
+                         for f in dataclasses.fields(c.ledger)},
+                "offsets": c.offsets, "bl": c.bl, "K": c.K, "n": c.n,
+                "go": None if c.go is None else bool(c.go), "bound_ms": bound_ms}
+
     with tempfile.TemporaryDirectory() as outdir:
         for deck, (path, mods) in MIGRATE_DECKS.items():
             calls = cs.recorded_migrations(
@@ -1018,6 +1093,235 @@ def migrate_reading() -> dict:
             print("migration kernel bitwise its plain version, "
                   + cs.migrations_bitwise(calls, deck), flush=True)
             out[deck] = cs.migration_reading(dev, calls[0], f"{deck}, its first round", smi)
+            rounds[deck] = saved(calls[0], out[deck]["bound_ms"])
+            if deck == MIGRATE_RANK[0]:
+                rc = rank_round(calls[0], MIGRATE_RANK[1])
+                rank = f"a rank of {deck} x{MIGRATE_RANK[1]}"
+                print("migration kernel bitwise its plain version, " + rank_bitwise(rc, rank),
+                      flush=True)
+                sent = int(cs.pack_of(rc, rc.ledger.clone())[-1].sum())
+                out[rank] = {"bound_ms": cs.migration_bound(rc, sent),
+                             "sector_bound_ms": cs.migration_sector_bound(rc, sent),
+                             "sent": sent, "slots": rc.ledger.capacity, "K": rc.K}
+                print(f"migration on {rank}: {sent} sent of {rc.ledger.capacity} slots; bound "
+                      f"{out[rank]['bound_ms']!r} ms in bytes, "
+                      f"{out[rank]['sector_bound_ms']!r} in sectors; {smi}", flush=True)
+                # the rank's round made again in each child from its deck's
+                rounds[rank] = {"rank_of": deck, "times": MIGRATE_RANK[1],
+                                "offsets": rc.offsets, "bl": rc.bl, "K": rc.K, "n": rc.n,
+                                "go": None if rc.go is None else bool(rc.go),
+                                "bound_ms": out[rank]["bound_ms"]}
+                del rc
+            del calls
+            torch.cuda.empty_cache()
+    return out, rounds
+
+
+def migrate_child(inputs, pkg, repeats, out) -> None:
+    """``--only migrate``'s turn in one process, for the package under ``pkg``: on
+    each saved round (``migrate_reading``) the migration kernel's pack (the median
+    window of ``repeats`` between CUDA events after a device sleep; device ms by
+    launch from torch.profiler, with the launches the trace holds), and, on every
+    round but a rank's, the whole round through the in-process exchange and the
+    insert (window, device ms and device ms by kernel) and the round with go false
+    (window, device ms); the sent counts and a digest of the ledger after the
+    round (a rank's: after the pack), which every tree must share."""
+    import inspect
+
+    sys.path.insert(0, pkg)
+    import torch
+
+    from jaybenne_tpu_torch.parallel import exchange, sharding, spatial
+    from jaybenne_tpu_torch.particles import ParticleLedger
+
+    dev = torch.device("cuda", 0)
+    cs = this_chip_smoke()
+    takes_work = "work" in inspect.signature(spatial.migrate).parameters
+    result = {}
+    saved = torch.load(inputs, weights_only=False)
+    for deck, r in saved.items():
+        rank = "rank_of" in r
+        if rank:
+            base = saved[r["rank_of"]]
+            led = rank_ledger(ParticleLedger(**{k: v.to(dev) for k, v in base["cols"].items()}),
+                              len(base["offsets"]), r["times"])
+        else:
+            led = ParticleLedger(**{k: v.to(dev) for k, v in r["cols"].items()})
+        m, n, K, bl, offsets = len(r["offsets"]), r["n"], r["K"], r["bl"], r["offsets"]
+        go = None if r["go"] is None else torch.tensor(r["go"], device=dev)
+        falsy = torch.zeros((), dtype=torch.bool, device=dev)
+        kw = {"work": spatial.MigrateScratch().reserve(m, led.capacity // m, n, dev)
+              } if takes_work else {}
+
+        def pack(x, go=go):
+            return spatial._pack_cuda(sharding.split_ledger(x, m), offsets, bl, K, n, go,
+                                      **kw)[-1]
+
+        def rnd(x, go=go):
+            return spatial.migrate(sharding.split_ledger(x, m), offsets, bl, K,
+                                   exchange.InProcess(n), go, **kw)
+
+        def by_launch(fn):
+            ops = cs.traced_launches(fn, led.clone, repeats)
+            kinds = {}
+            for name, us in ops:
+                if "migrate" in name:
+                    short = name.replace("(anonymous namespace)", "").replace("void ", "")
+                    short = short.split("<")[0].split("(")[0].split("::")[-1].strip()
+                    kinds.setdefault(short, []).append(us / 1e3)
+            return {k: [sum(v) / len(v), len(v)] for k, v in kinds.items()}
+
+        q = led.clone()
+        sent = pack(q)
+        row = {"sent": sent.tolist(), "bound_ms": r["bound_ms"],
+               "pack_ms": cs.timed_ms(pack, dev, led.clone, repeats),
+               "pack_device_ms": by_launch(pack)}
+        if not rank:
+            q = led.clone()
+            drop, rsent = rnd(q)
+            row.update(round_sent=rsent.tolist(), dropped=drop.tolist(),
+                       round_ms=cs.timed_ms(rnd, dev, led.clone, repeats),
+                       round_device_ms=cs.device_ms(rnd, led.clone, repeats),
+                       round_by_kernel=cs.work_by_kernel(rnd, led.clone, repeats=repeats),
+                       go_false_ms=cs.timed_ms(lambda x: rnd(x, falsy), dev, led.clone,
+                                               repeats),
+                       go_false_device_ms=cs.device_ms(lambda x: rnd(x, falsy), led.clone,
+                                                       repeats))
+        row["digest"] = digest(q)
+        result[deck] = row
+        print(f"  {os.path.basename(pkg.rstrip('/')) or pkg}: {deck} pack {row['pack_ms']!r} "
+              f"ms, round {row.get('round_ms')!r} ms", flush=True)
+        del led, q
+        torch.cuda.empty_cache()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def migrate_turns(order, label, rounds, repeats) -> list:
+    """``--only migrate``'s kernel turns: each tree of ``order`` in a child
+    (``migrate_child``) on the saved ``rounds``; raises unless every tree's sent
+    and dropped counts and ledger digests agree. Prints a line a tree and deck,
+    and returns the children's readings."""
+    import torch
+
+    kids = []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "rounds.pt")
+        torch.save(rounds, inputs)
+        for k, tree in enumerate(order):
+            out = os.path.join(tmp, f"migrate{k}.json")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--repeats", str(repeats),
+                            "--migrate-child", inputs, tree, out], check=True, timeout=1800)
+            with open(out) as f:
+                kids.append({"tree": label[tree], "decks": json.load(f)})
+    for deck in rounds:
+        seen = {json.dumps([kid["decks"][deck].get(k) for k in ("sent", "round_sent", "dropped",
+                                                                 "digest")]) for kid in kids}
+        if len(seen) != 1:
+            raise AssertionError(f"migration on {deck}: the trees' outputs differ: {seen}")
+        for k, kid in enumerate(kids):
+            r = kid["decks"][deck]
+            more = (f"; the round (pack, insert) {r['round_ms']!r} ms, {r['round_device_ms']!r} "
+                    f"on the device, by kernel {r['round_by_kernel']}; with go false "
+                    f"{r['go_false_ms']!r} ms, {r['go_false_device_ms']!r} on the device"
+                    if "round_ms" in r else "")
+            print(f"migration turn {k}: {kid['tree']}, {deck}: the pack {r['pack_ms']!r} ms "
+                  f"(window), by launch {r['pack_device_ms']} (ms, launches traced), bound "
+                  f"{r['bound_ms']!r}{more}; {r['sent']} sent", flush=True)
+    return kids
+
+
+# ``--only counts_apart``: the count kernel (csrc/count_kernel.cu, round_counts)
+# read apart on big_mesh_spatial's first round at 8 shards and the 64^3 DDMC step:
+# the kernel, an empty kernel of its grid, and its slot pass alone (the kernel cut
+# before its ticket: the loads, the warp sums and the shard sums' atomics), so
+# that the last block's ticket and epilogue are the kernel less its slot pass
+COUNTS_APART = "counts_apart"
+COUNTS_CUT = ("    __threadfence();  // the sums land before the ticket\n"
+              "    s_last = atomicAdd(scratch + 2 * m, 1ULL) == gridDim.x - 1;\n",
+              "    s_last = false;\n")
+
+
+def counts_apart(repeats) -> dict:
+    """``--only counts_apart`` in this process with this tree's package: on each
+    recorded call, the count kernel's device ms (torch.profiler, the launches the
+    trace holds) and window between CUDA events after a device sleep, the same of
+    an empty kernel of its grid (``jb_empty_launch``) and of its slot pass alone
+    (COUNTS_CUT built by nvcc in its C entry's place, with a scratch of its own)."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from jaybenne_tpu_torch import driver
+    from jaybenne_tpu_torch.ops import counts, cuda_lib
+
+    dev = torch.device("cuda", 0)
+    lib = cuda_lib.library()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    paths = {what: (deck, mods) for what, deck, mods, _ in cs.COUNT_PATHS}
+    picks = (("big_mesh_spatial at 8 shards (transport_3d@z)", "its first round", 0),
+             ("the 64^3 DDMC row", "its step", -1))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(cuda_lib.SRC_DIR / "count_kernel.cu") as f:
+            text = f.read()
+        if text.count(COUNTS_CUT[0]) != 1:
+            raise RuntimeError("count kernel: the slot pass's cut is not in its source")
+        src, so = os.path.join(tmp, "count_cut.cu"), os.path.join(tmp, "libcount_cut.so")
+        with open(src, "w") as f:
+            f.write(text.replace(*COUNTS_CUT))
+        flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        subprocess.run([cuda_lib.nvcc(), *flags, "-shared", "-o", so, src], check=True,
+                       capture_output=True, timeout=600)
+        cut = ctypes.CDLL(so).jb_counts_launch
+        cut.argtypes = list(cuda_lib._SIGNATURES["jb_counts_launch"])
+        cut.restype = ctypes.c_int
+        for what, which, k in picks:
+            deck, mods = paths[what]
+            c = cs.recorded_counts(lambda: driver.run_file(
+                deck, outdir=tmp, modified_inputs=mods, quiet=True, nlim=1, device="cuda",
+                graph=False))[k]
+            cap_l = c.ledger.capacity // c.m
+            blocks = c.m * max(1, -(-cap_l // 2048))  # count_kernel.cu's kTile
+            work, cut_work = counts.scratch(c.m, dev), counts.scratch(c.m, dev)
+            acc = None if c.acc is None else cs.recorded_acc(c)
+
+            def full(_):
+                cs.replay_counts(c, work=work, acc=acc)
+
+            def empty(_):
+                lib.call("jb_empty_launch", blocks, 1, 256, cuda_lib.stream_handle(dev))
+
+            def slot_pass(_):
+                real = lib.call
+                lib.call = lambda name, *a: (lib_check(name, cut(*a))
+                                             if name == "jb_counts_launch" else real(name, *a))
+                try:
+                    cs.replay_counts(c, work=cut_work, acc=acc)
+                finally:
+                    del lib.call
+
+            row = {"blocks": blocks, "slots": c.ledger.capacity}
+            for part, fn, name in (("kernel", full, "round_counts_kernel"),
+                                   ("empty", empty, "empty_kernel"),
+                                   ("slot_pass", slot_pass, "round_counts_kernel")):
+                us = [d for kname, d in cs.traced_launches(fn, lambda: None, repeats)
+                      if name in kname]
+                row[part] = {"ms": cs.timed_ms(fn, dev, repeats=repeats),
+                             "device_ms": sum(us) / 1e3 / max(len(us), 1), "traced": len(us)}
+            row["ticket_and_epilogue_device_ms"] = (row["kernel"]["device_ms"]
+                                                    - row["slot_pass"]["device_ms"])
+            out[f"{what}, {which}"] = row
+            print(f"count kernel read apart on {what}, {which} ({smi}; {c.m} shard(s), "
+                  f"{c.ledger.capacity} slots, {blocks} blocks of 256): the kernel "
+                  f"{row['kernel']}, "
+                  f"an empty kernel of its grid {row['empty']}, its slot pass alone "
+                  f"{row['slot_pass']} (ms: window; device, launches traced); the ticket and "
+                  f"epilogue {row['ticket_and_epilogue_device_ms']!r} ms on the device",
+                  flush=True)
             torch.cuda.empty_cache()
     return out
 
@@ -1172,12 +1476,16 @@ def main(argv=None) -> int:
                     f"{TABLE}: the census table read apart on TABLE_PATHS; {MIGRATE}: the "
                     "spatial migration read apart on MIGRATE_DECKS; tally, faces: the tally "
                     f"kernel, the DDMC face kernel read apart on chip_smoke.py's paths; {ROUND}: "
-                    "the round's gate and count kernel, ROUND_DECKS in turns, ROUND_BATCHES")
+                    "the round's gate and count kernel, ROUND_DECKS in turns, ROUND_BATCHES; "
+                    f"{COUNTS_APART}: the count kernel read apart (empty grid, slot pass); "
+                    f"{MIGRATE_KERNEL}: {MIGRATE}'s readings without its profile.py turns")
     ap.add_argument("--out", help="also write every number here, as JSON")
     ap.add_argument("--child", nargs=3, metavar=("INPUTS", "PKG", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--mix-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--table-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--migrate-child", nargs=3, metavar=("INPUTS", "PKG", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -1189,6 +1497,9 @@ def main(argv=None) -> int:
     if args.table_child:
         table_child(args.table_child[0], args.table_child[1], args.repeats,
                     args.table_child[2])
+        return 0
+    if args.migrate_child:
+        migrate_child(*args.migrate_child[:2], args.repeats, args.migrate_child[2])
         return 0
     import torch
 
@@ -1275,11 +1586,21 @@ def main(argv=None) -> int:
                     json.dump(summary, f, indent=1)
             print(smi)
             return 0
-    if args.only and MIGRATE in args.only:
-        summary["migrate"] = migrate_reading()
-        runs = [(tree, (), label[tree]) for tree in order]
+    if args.only and COUNTS_APART in args.only:
+        summary["counts_apart"] = counts_apart(args.repeats)
+        args.only = [r for r in args.only if r != COUNTS_APART]
+        if not args.only:
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(summary, f, indent=1)
+            print(smi)
+            return 0
+    if args.only and (MIGRATE in args.only or MIGRATE_KERNEL in args.only):
+        summary["migrate"], rounds = migrate_reading()
+        summary["migrate_turns"] = migrate_turns(order, label, rounds, args.repeats)
+        runs = [(tree, (), label[tree]) for tree in order] if MIGRATE in args.only else []
         runs += [(ROOT, ("--rounds-per-batch", str(MIGRATE_BATCH)),
-                  f"this tree at {MIGRATE_BATCH} rounds a batch")] * (2 * args.turns)
+                  f"this tree at {MIGRATE_BATCH} rounds a batch")] * (2 * args.turns * bool(runs))
         eager_read = set()  # the parent and this tree eagerly too, once each (the spans)
         for k, (tree, extra, who) in enumerate(runs):
             read = not extra and who in ("parent", "this tree") and who not in eager_read
@@ -1296,7 +1617,7 @@ def main(argv=None) -> int:
                           f"a step in {row['census_launches_per_step']!r} launches", flush=True)
                     for line in row["spans"] if eager else ():
                         print(f"  {who} {deck}: {line}", flush=True)
-        args.only = [r for r in args.only if r != MIGRATE]
+        args.only = [r for r in args.only if r not in (MIGRATE, MIGRATE_KERNEL)]
         if not args.only:
             if args.out:
                 with open(args.out, "w") as f:

@@ -292,8 +292,9 @@ Phases:
      ``reserved``, timed against the parent's destinations a shard at a time;
      stepdiff's initial source at precision = f64); the migration kernel
      (csrc/migrate_kernel.cu: each local shard's in-transit slots ranked by
-     destination by scans and packed into rows, every local shard in one pass,
-     two launches a round) bitwise its plain version on big_mesh_spatial's first
+     destination by a single-pass scan with a decoupled look-back and packed into
+     rows, the valid flags apart, every local shard in one launch a round) bitwise
+     its plain version (rows, flags, sent, alive) on big_mesh_spatial's first
      two rounds at 8 shards and on the float64 stepdiff's first, each again with
      go false (``migration_check``), and its first rounds read apart against the
      parent's PyTorch migrate (``migration_reading``), beside them the round's
@@ -617,8 +618,9 @@ PARTICLE_ROWS = (
 )
 PARTICLE_READ_STEPS = 3
 # the hand-written kernels, by the names a profiler trace gives their launches
-HAND_KERNELS = re.compile(r"\b(transport|table|round_counts|count|list|write|migrate_count|"
-                          r"migrate_pack|tally_exponent|tally_sum|tally_cell|face_probs)_kernel\b")
+HAND_KERNELS = re.compile(r"\b(transport|table|round_counts|count|list|write|migrate|"
+                          r"migrate_count|migrate_pack|tally_exponent|tally_sum|tally_cell|"
+                          r"face_probs)_kernel\b")
 # phase 48: the spatial steps whose host time between batches is read by part,
 # with no batch queued ahead of an exit read and with one (the step's ``ahead``)
 HOST_GAP_PATHS = (
@@ -3297,11 +3299,11 @@ def spatial_phases(transport_kernel, dev, cost, src, mix_lib) -> list:
     name_z = transport_kernel.launch_name(3, False, route="@z")
     for n in (1, 8):
         rounds = rounds_queued(big[n][0])
-        # the census, one launch a round queued; the migration kernel, two a round
+        # the census, one launch a round queued; the migration kernel, one a round
         # queued at 8 shards (none at 1: nothing can migrate); the count kernel, one
         # a round queued and one a step's tail
         if (big[n][1].get(name_z, 0) != rounds
-                or big[n][1].get("migrate_pack", 0) != (2 * rounds if n > 1 else 0)
+                or big[n][1].get("migrate_pack", 0) != (rounds if n > 1 else 0)
                 or big[n][1].get("round_counts", 0) != rounds + big[n][0].cycle):
             raise AssertionError(f"big_mesh_spatial at {n}: launches {big[n][1]}, {rounds} "
                                  "rounds queued")
@@ -4246,11 +4248,11 @@ def recorded_migrations(run, keep):
 
     calls, real = [], spatial.migrate
 
-    def recording(ledgers, offsets, bl, K, exchange, go=None, plain=False):
+    def recording(ledgers, offsets, bl, K, exchange, go=None, plain=False, work=None):
         if len(calls) < keep:
             calls.append(RecordedMigration(join_slices(ledgers)[0].clone(), list(offsets), bl,
                                            K, exchange.n, None if go is None else go.clone()))
-        return real(ledgers, offsets, bl, K, exchange, go, plain)
+        return real(ledgers, offsets, bl, K, exchange, go, plain, work)
 
     spatial.migrate = recording
     try:
@@ -4264,39 +4266,44 @@ def recorded_migrations(run, keep):
 RECORDED = "the recorded round's"
 
 
-def replay_migration(c: RecordedMigration, ledger, plain=False, go=RECORDED):
+def replay_migration(c: RecordedMigration, ledger, plain=False, go=RECORDED, work=None):
     """A recorded round on ``ledger`` (a clone of its own), by the migration
-    kernel or by its plain version, through the in-process exchange and the
-    insert: returns (dropped, sent), one a local shard."""
+    kernel (with the scratch ``work``, None: a fresh one) or by its plain
+    version, through the in-process exchange and the insert: returns (dropped,
+    sent), one a local shard."""
     from jaybenne_tpu_torch.parallel import exchange, sharding, spatial
 
     m = len(c.offsets)
     return spatial.migrate(sharding.split_ledger(ledger, m), c.offsets, c.bl, c.K,
-                           exchange.InProcess(c.n), c.go if go is RECORDED else go, plain)
+                           exchange.InProcess(c.n), c.go if go is RECORDED else go, plain,
+                           work)
 
 
-def pack_of(c: RecordedMigration, ledger, plain=False, go=RECORDED):
+def pack_of(c: RecordedMigration, ledger, plain=False, go=RECORDED, work=None):
     """A recorded round's sort and pack alone on ``ledger``: the kernel's
-    (``spatial._pack_cuda``) or the plain version's (``spatial.pack_plain``,
-    stacked as the in-process exchange stacks them) buffers, in the receivers'
-    layout [n, local shards, K, words], and sent counts."""
+    (``spatial._pack_cuda``, with the scratch ``work``, None: a fresh one) or the
+    plain version's (``spatial.pack_plain``, stacked as the in-process exchange
+    stacks them) buffers, in the receivers' layout [n, local shards, K, words],
+    their valid flags ([n, local shards, K]; the plain buffers' valid column) and
+    sent counts."""
     from jaybenne_tpu_torch.parallel import sharding, spatial
 
     m, go = len(c.offsets), c.go if go is RECORDED else go
     shards = sharding.split_ledger(ledger, m)
     if plain:
         bufs, sent = spatial.pack_plain(shards, c.offsets, c.bl, c.K, c.n, go)
-        return torch.stack(bufs, dim=1), sent
-    return spatial._pack_cuda(shards, c.offsets, c.bl, c.K, c.n, go)
+        buf = torch.stack(bufs, dim=1)
+        return buf, buf[..., -1] == 1, sent
+    return spatial._pack_cuda(shards, c.offsets, c.bl, c.K, c.n, go, work)
 
 
 def migrations_bitwise(calls, what) -> str:
     """Each recorded round (``recorded_migrations``), and each again with ``go``
     false, by the kernel and by its plain version on clones of its ledger: raises
     unless the ledgers after the pack and after the whole round, the sent and
-    dropped counts and every buffer row whose valid word is 1 are bitwise equal,
-    every other row's valid word is 0, and the kernel launched its two launches
-    once a round. Returns what was held, as text."""
+    dropped counts, the flags and the plain buffers' valid column, and every
+    buffer row whose flag is set are bitwise equal, and the kernel launched once
+    a round. Returns what was held, as text."""
     from jaybenne_tpu_torch.ops import cuda_lib
 
     if not calls:
@@ -4306,16 +4313,14 @@ def migrations_bitwise(calls, what) -> str:
         for go in (RECORDED, torch.zeros((), dtype=torch.bool, device=c.ledger.alive.device)):
             q, r = c.ledger.clone(), c.ledger.clone()
             before = cuda_lib.LAUNCHES["migrate_pack"]
-            buf, sent = pack_of(c, q, go=go)
-            if cuda_lib.LAUNCHES["migrate_pack"] != before + 2:
+            buf, flags, sent = pack_of(c, q, go=go)
+            if cuda_lib.LAUNCHES["migrate_pack"] != before + 1:
                 raise AssertionError(f"migration on {what}: the kernel did not launch once")
-            want, plain_sent = pack_of(c, r, plain=True, go=go)
-            valid = want[..., -1] == 1
-            if (not torch.equal(sent, plain_sent) or not torch.equal(buf[..., -1] == 1, valid)
-                    or not bool((buf[..., -1][~valid] == 0).all())
+            want, valid, plain_sent = pack_of(c, r, plain=True, go=go)
+            if (not torch.equal(sent, plain_sent) or not torch.equal(flags, valid)
                     or not torch.equal(buf[valid], want[valid])):
-                raise AssertionError(f"migration on {what}: the buffers or sent counts differ "
-                                     f"({sent.tolist()} vs {plain_sent.tolist()})")
+                raise AssertionError(f"migration on {what}: the buffers, flags or sent counts "
+                                     f"differ ({sent.tolist()} vs {plain_sent.tolist()})")
             equal_ledgers(q, r, f"migration pack on {what} against the plain version")
             q, r = c.ledger.clone(), c.ledger.clone()
             drops = replay_migration(c, q, go=go)
@@ -4336,22 +4341,36 @@ def migrations_bitwise(calls, what) -> str:
     return f"{what}: " + "; ".join(seen)
 
 
-# the migration kernel's two launches (csrc/migrate_kernel.cu), by kernel name
-MIGRATE_LAUNCHES = ("migrate_count_kernel", "migrate_pack_kernel")
+# the migration kernel's launch (csrc/migrate_kernel.cu), by kernel name
+MIGRATE_LAUNCHES = ("migrate_kernel",)
 
 
 def migration_bound(c: RecordedMigration, sent) -> float:
     """The least ms of a round's sort and pack on the card (bytes / PEAK_BYTES):
     every slot's alive flag and block read once, the sent slots' columns read,
-    their rows written and their alive flags cleared, and the valid word of each
-    other row of the [local shards, n, K] buffers."""
+    their rows written and their alive flags cleared, and a byte of flags for
+    each row of the [n, local shards, K] buffers."""
     from jaybenne_tpu_torch.parallel import spatial
 
     p = c.ledger
     cols = sum(getattr(p, name).element_size() for name in spatial.MIGRATE_FIELDS)
     rows = len(c.offsets) * c.n * c.K
     row = 4 * spatial.row_words(p)
-    return (p.capacity * 5 + sent * (cols + row + 1) + (rows - sent) * 4) / PEAK_BYTES * 1e3
+    return (p.capacity * 5 + sent * (cols + row + 1) + rows) / PEAK_BYTES * 1e3
+
+
+def migration_sector_bound(c: RecordedMigration, sent) -> float:
+    """``migration_bound`` with the sent slots' column reads and alive clears
+    counted in 32-byte sectors (each of a sent slot's 15 columns in a sector of
+    its own, and its alive byte too: the slots leaving a tile are scattered), the
+    least the card could take for the reads a round's scattered slots make."""
+    from jaybenne_tpu_torch.parallel import spatial
+
+    p = c.ledger
+    rows = len(c.offsets) * c.n * c.K
+    row = 4 * spatial.row_words(p)
+    scattered = 32 * (len(spatial.MIGRATE_FIELDS) + 1)
+    return (p.capacity * 5 + sent * (scattered + row) + rows) / PEAK_BYTES * 1e3
 
 
 def work_by_kernel(fn, fresh, top=8, repeats=CENSUS_REPEATS) -> dict:
@@ -4375,56 +4394,80 @@ def device_ms(fn, fresh, repeats=CENSUS_REPEATS) -> float:
 
 def migration_reading(dev, c: RecordedMigration, what, smi) -> dict:
     """A recorded round read apart (``what``; printed): the kernel's sort and pack
-    (its two launches, device ms by launch with the launches the trace holds, and
-    the window between CUDA events after a device sleep) against its bound, the
-    kernel's whole round (the pack and the insert) and the parent's
-    (``spatial.migrate(plain=True)``), each timed alone, the parent's by kernel,
-    the same round with ``go`` false by both, and, for comparison, the round's
-    bookkeeping before and after the count kernel (``round_bookkeeping``). Returns
-    the numbers."""
+    (its one launch, device ms by launch with the launches the trace holds, and
+    the window between CUDA events after a device sleep) against its bound in
+    bytes and in sectors, the kernel's whole round (the pack and the insert, by
+    kernel) and the plain version's (``spatial.migrate(plain=True)``), each timed
+    alone, the plain round by kernel, the same round with ``go`` false by both,
+    and, for comparison, the round's bookkeeping before and after the count
+    kernel (``round_bookkeeping``). The kernel's calls share one scratch, as a
+    step's rounds do. Returns the numbers."""
     from jaybenne_tpu_torch.parallel import sharding, spatial
 
     fresh = c.ledger.clone
     falsy = torch.zeros((), dtype=torch.bool, device=dev)
-    buf, sent = pack_of(c, c.ledger.clone())
+    m = len(c.offsets)
+    work = spatial.MigrateScratch().reserve(m, c.ledger.capacity // m, c.n, dev)
+    _, _, sent = pack_of(c, c.ledger.clone(), work=work)
     n_sent = int(sent.sum())
+
+    def pack(x, go=RECORDED):
+        return pack_of(c, x, go=go, work=work)
+
+    def rnd(x, go=RECORDED):
+        return replay_migration(c, x, go=go, work=work)
+
+    def by_launch(fn, traces=3):
+        """launch_split, again where a trace late in a long process held none."""
+        for _ in range(traces):
+            split = launch_split(fn, fresh, MIGRATE_LAUNCHES)
+            if all(split["traced"].values()):
+                break
+        return split
+
     out = {
-        "pack_ms": timed_ms(lambda x: pack_of(c, x), dev, fresh),
+        "pack_ms": timed_ms(pack, dev, fresh),
         "pack_plain_ms": timed_ms(lambda x: pack_of(c, x, plain=True), dev, fresh),
-        "pack_device_ms": launch_split(lambda x: pack_of(c, x), fresh, MIGRATE_LAUNCHES),
-        "round_ms": timed_ms(lambda x: replay_migration(c, x), dev, fresh),
+        "pack_device_ms": by_launch(pack),
+        "pack_go_false_device_ms": by_launch(lambda x: pack(x, falsy)),
+        "round_ms": timed_ms(rnd, dev, fresh),
         "round_plain_ms": timed_ms(lambda x: replay_migration(c, x, plain=True), dev, fresh),
-        "round_device_ms": device_ms(lambda x: replay_migration(c, x), fresh),
+        "round_device_ms": device_ms(rnd, fresh),
+        "round_by_kernel": work_by_kernel(rnd, fresh),
         "round_plain_device_ms": device_ms(lambda x: replay_migration(c, x, plain=True), fresh),
         "round_plain_by_kernel": work_by_kernel(lambda x: replay_migration(c, x, plain=True),
                                                 fresh),
-        "go_false_ms": timed_ms(lambda x: replay_migration(c, x, go=falsy), dev, fresh),
+        "go_false_ms": timed_ms(lambda x: rnd(x, falsy), dev, fresh),
         "go_false_plain_ms": timed_ms(lambda x: replay_migration(c, x, plain=True, go=falsy),
                                       dev, fresh),
-        "go_false_device_ms": device_ms(lambda x: replay_migration(c, x, go=falsy), fresh),
+        "go_false_device_ms": device_ms(lambda x: rnd(x, falsy), fresh),
         "go_false_plain_device_ms": device_ms(
             lambda x: replay_migration(c, x, plain=True, go=falsy), fresh),
-        "bound_ms": migration_bound(c, n_sent), "sent": n_sent,
+        "bound_ms": migration_bound(c, n_sent),
+        "sector_bound_ms": migration_sector_bound(c, n_sent), "sent": n_sent,
     }
-    ps = sharding.split_ledger(c.ledger.clone(), len(c.offsets))
+    ps = sharding.split_ledger(c.ledger.clone(), m)
     out.update(round_bookkeeping(dev, ps, c.n))
-    print(f"migration round, {what} ({len(c.offsets)} local shards of {c.n}, "
+    print(f"migration round, {what} ({m} local shards of {c.n}, "
           f"{c.ledger.capacity} slots, {int(c.ledger.alive.sum())} live, K {c.K}, "
           f"{spatial.row_words(c.ledger)} words a row, {n_sent} sent; {smi}): the kernel's sort "
-          f"and pack {out['pack_ms']!r} ms (device ms by launch {out['pack_device_ms']}), "
-          f"bound {out['bound_ms']!r} ms (bytes), at {out['bound_ms'] / out['pack_ms']:.3f} of "
-          f"it; the plain pack {out['pack_plain_ms']!r} ms; the whole round (pack, insert) "
-          f"{out['round_ms']!r} ms ({out['round_device_ms']!r} on the device), the "
-          f"parent's {out['round_plain_ms']!r} ms ({out['round_plain_device_ms']!r}); with go "
-          f"false {out['go_false_ms']!r} ms ({out['go_false_device_ms']!r}), the parent's "
-          f"{out['go_false_plain_ms']!r} ms ({out['go_false_plain_device_ms']!r}); the "
-          f"parent's round by kernel {out['round_plain_by_kernel']} ms; for comparison the "
-          f"round's bookkeeping on the device: the parent's (the z route's kept clones and "
-          f"their torch.where, the gated counters, the unfinished sums) "
+          f"and pack {out['pack_ms']!r} ms (device ms by launch {out['pack_device_ms']}; with "
+          f"go false {out['pack_go_false_device_ms']}), bound {out['bound_ms']!r} ms (bytes, a "
+          f"byte a flag), at {out['bound_ms'] / out['pack_ms']:.3f} of it; "
+          f"{out['sector_bound_ms']!r} ms with the sent slots' column reads in 32-byte "
+          f"sectors; the plain pack {out['pack_plain_ms']!r} ms; the whole round (pack, "
+          f"insert) {out['round_ms']!r} ms ({out['round_device_ms']!r} on the device, by kernel "
+          f"{out['round_by_kernel']}), the plain version's {out['round_plain_ms']!r} ms "
+          f"({out['round_plain_device_ms']!r}); with go false {out['go_false_ms']!r} ms "
+          f"({out['go_false_device_ms']!r}), the plain version's {out['go_false_plain_ms']!r} ms "
+          f"({out['go_false_plain_device_ms']!r}); the plain round by kernel "
+          f"{out['round_plain_by_kernel']} ms; for comparison the "
+          f"round's bookkeeping on the device: before the count kernel (the z route's kept "
+          f"clones and their torch.where, the gated counters, the unfinished sums) "
           f"{out['bookkeeping_before_device_ms']!r} ms in "
           f"{out['bookkeeping_before_launches']!r} device operations a round, of it the kept "
           f"clones {out['kept_device_ms']!r} and the unfinished sums "
-          f"{out['unfinished_device_ms']!r}; this tree's (one round_counts launch) "
+          f"{out['unfinished_device_ms']!r}; with it (one round_counts launch) "
           f"{out['bookkeeping_after_device_ms']!r} ms in "
           f"{out['bookkeeping_after_launches']!r}", flush=True)
     return out
@@ -4525,14 +4568,18 @@ def migration_check(dev, outdir, smi) -> dict:
     torch.cuda.empty_cache()
     return {
         "name": "migrate_pack (the spatial migration's sort and pack: each local shard's "
-                "in-transit slots ranked by destination by scans and packed into rows, every "
-                "local shard in one pass, two launches a round)",
+                "in-transit slots ranked by destination by a single-pass scan with a decoupled "
+                "look-back and packed into rows, the valid flags apart, every local shard in "
+                "one launch a round)",
         "route": "cuda", "source": "jaybenne_tpu_torch/csrc/migrate_kernel.cu",
         "replaces": "jaybenne_tpu/parallel/spatial.py:77-138 (migrate: XLA's stable argsort, "
                     "searchsorted and scatters) with jaybenne_tpu/ops/pallas_grid.py:554-578 "
                     "(_pack_cols' row gather), no Pallas kernel",
-        "max_abs_err": 0.0, "ms": r["pack_ms"], "plain_ms": r["pack_plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "max_abs_err": 0.0, "ms": r["pack_ms"],
+        "device_ms": (r["pack_device_ms"][MIGRATE_LAUNCHES[0]]
+                      if r["pack_device_ms"]["traced"][MIGRATE_LAUNCHES[0]] else None),
+        "plain_ms": r["pack_plain_ms"], "bound_ms": r["bound_ms"],
+        "sector_bound_ms": r["sector_bound_ms"], "bound_by": "bytes", "library_ms": None,
     }
 
 

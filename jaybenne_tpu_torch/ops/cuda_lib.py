@@ -93,8 +93,9 @@ _SIGNATURES = {
                          _P, _P),
     # the 15 columns, their reals' bytes, words a row, alive block go, local shards,
     # shards, slots a shard, blocks a shard, the first shard's first block, K,
-    # buffer, scratch and its length, sent stream
-    "jb_migrate_launch": (_P, _I, _I, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _P, _L, _P, _P),
+    # buffer, flags, scratch and its length, sent stream
+    "jb_migrate_launch": (_P, _I, _I, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _P, _P, _L, _P,
+                          _P),
     # stages double, weight block k j i alive absorbed volume, blocks, slots, slots a
     # slice, spatial off0 bl, nx ny nz, bins bits, emax acc, parts, host arrays of
     # the parts' tally, energy_delta in and out pointers, stream

@@ -247,17 +247,44 @@ def pack_plain(ledgers, offsets, bl, K, n, go=None) -> tuple:
 
 # slots a tile of the migration kernel's scans (csrc/migrate_kernel.cu, kTile),
 # in rounds of MIGRATE_THREADS consecutive slots (kThreads)
-MIGRATE_TILE, MIGRATE_THREADS = 512, 256
+MIGRATE_TILE, MIGRATE_THREADS = 1024, 256
 
 
-def _pack_cuda(ledgers, offsets, bl, K, n, go) -> tuple:
-    """One pass of the migration kernel (``csrc/migrate_kernel.cu``) over every
+def migrate_scratch_len(m: int, cap_l: int, n: int) -> int:
+    """The migration kernel's scratch for ``m`` local shards of ``cap_l`` slots and
+    ``n`` shards, in int64 words: its ticket and a status word a tile and
+    destination."""
+    return 1 + m * -(-cap_l // MIGRATE_TILE) * n
+
+
+class MigrateScratch:
+    """The migration kernel's scratch of a step: zeroed when it is made, and left
+    ready by every launch (csrc/migrate_kernel.cu: the ticket moves to the next
+    epoch, which tags the status words), so a replay queues no memset. ``reserve``
+    makes a larger one where the ledger grew, outside any capture (the step's
+    prologue); the ones before it are kept, so that a graph captured on one keeps
+    its memory. Launches that share one must be ordered on one stream."""
+
+    def __init__(self):
+        self.tensors = []
+
+    def reserve(self, m: int, cap_l: int, n: int, device) -> torch.Tensor:
+        need = migrate_scratch_len(m, cap_l, n)
+        if not self.tensors or self.tensors[-1].numel() < need:
+            self.tensors.append(torch.zeros(need, dtype=torch.int64, device=device))
+        return self.tensors[-1]
+
+
+def _pack_cuda(ledgers, offsets, bl, K, n, go, work=None) -> tuple:
+    """One launch of the migration kernel (``csrc/migrate_kernel.cu``) over every
     local shard's adjacent slice (``join_slices``) on PyTorch's current stream,
     without waiting for it: ``pack_plain``'s buffers, in the receivers' layout
     (one [n, m, K, row_words] tensor, local shard s's buffer at ``[:, s]``, as the
-    in-process exchange would stack them), every row that no slot takes with
-    valid word 0 and its other words unwritten, and the sent counts. Raises
-    unless the ledgers are adjacent slices on one GPU with their shards' offsets
+    in-process exchange would stack them), every row that no slot takes left
+    unwritten; their valid flags apart, one bool a row in the same layout ([n, m,
+    K], the buffers' valid column); and the sent counts. ``work`` is the kernel's
+    scratch (``MigrateScratch.reserve``; None: a fresh one). Raises unless the
+    ledgers are adjacent slices on one GPU with their shards' offsets
     ``offsets[0] + i bl``."""
     from ..ops import cuda_lib
 
@@ -277,50 +304,62 @@ def _pack_cuda(ledgers, offsets, bl, K, n, go) -> tuple:
                          "and six int32 columns")
     words = row_words(joined)
     cap_l = joined.capacity // m
+    if work is None:
+        work = MigrateScratch().reserve(m, cap_l, n, dev)
+    if (work.dtype != torch.int64 or work.device != dev or not work.is_contiguous()
+            or work.numel() < migrate_scratch_len(m, cap_l, n)):
+        raise ValueError(f"migration kernel: a scratch of {migrate_scratch_len(m, cap_l, n)} "
+                         f"int64 on {dev} expected")
     buf = torch.empty((n, m, K, words), dtype=torch.int32, device=dev)
-    scratch = torch.empty(m * -(-cap_l // MIGRATE_TILE) * n, dtype=torch.int32, device=dev)
+    flags = torch.empty((n, m, K), dtype=torch.bool, device=dev)
     sent = torch.empty(m, dtype=torch.int64, device=dev)
     cuda_lib.library().call(
         "jb_migrate_launch", (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols]),
         joined.x.element_size(), words, joined.alive.data_ptr(), joined.block.data_ptr(),
         None if go is None else go.data_ptr(), m, n, cap_l, bl, offsets[0], K,
-        buf.data_ptr(), scratch.data_ptr(), scratch.numel(), sent.data_ptr(),
+        buf.data_ptr(), flags.data_ptr(), work.data_ptr(), work.numel(), sent.data_ptr(),
         cuda_lib.stream_handle(dev))
-    cuda_lib.LAUNCHES["migrate_pack"] += 2  # counts, ranks and rows
-    return buf, sent
+    cuda_lib.LAUNCHES["migrate_pack"] += 1
+    return buf, flags, sent
 
 
-def migrate(ledgers, offsets, bl, K, exchange, go=None, plain=False):
+def migrate(ledgers, offsets, bl, K, exchange, go=None, plain=False, work=None):
     """One round of all_to_all migration over the local shards' ledgers (IN
     PLACE; JAX ``migrate``): the live particles whose block lies outside their
     shard's [offset, offset + bl) are grouped by destination shard as a stable
     sort groups them, the first K for each destination packed into an [n, K]
     buffer and sent; the rest stay in transit for the next round. On a GPU one
-    pass of the migration kernel over every local shard (``_pack_cuda``, straight
-    into the in-process exchange's receivers' layout, so nothing is stacked), on
-    the CPU (or with ``plain``) its plain version (``pack_plain``). Shard s
-    receives, from each shard j in j order, what j addressed to s, and inserts it
-    into its free slots without recycling this step's absorbed rows: on a GPU one
-    pass of the insert kernel over every local shard
-    (``particles.insert_arrivals``). With ``go`` (a 0-dim bool tensor) false
-    nothing is sent and nothing changes. Returns (received particles dropped for
-    want of a free slot, particles sent), one int64 tensor each of one a local
-    shard."""
+    launch of the migration kernel over every local shard (``_pack_cuda`` with
+    its scratch ``work``, straight into the in-process exchange's receivers'
+    layout, so nothing is stacked; the rows' valid flags apart, sent beside them
+    through any other exchange), on the CPU (or with ``plain``) its plain version
+    (``pack_plain``, the rows' valid column as the flags). Shard s receives, from
+    each shard j in j order, what j addressed to s, and inserts it into its free
+    slots without recycling this step's absorbed rows: on a GPU one pass of the
+    insert kernel over every local shard (``particles.insert_arrivals``). With
+    ``go`` (a 0-dim bool tensor) false nothing is sent and nothing changes.
+    Returns (received particles dropped for want of a free slot, particles sent),
+    one int64 tensor each of one a local shard."""
     n = exchange.n
     if ledgers[0].alive.is_cuda and not plain:
-        buf, sent = _pack_cuda(ledgers, offsets, bl, K, n, go)
-        recv = buf if isinstance(exchange, InProcess) else exchange.all_to_all(buf.unbind(1))
+        buf, flags, sent = _pack_cuda(ledgers, offsets, bl, K, n, go, work)
+        if isinstance(exchange, InProcess):
+            recv, valid = buf, flags
+        else:  # the flags as bytes, which every backend sends
+            recv = exchange.all_to_all(buf.unbind(1))
+            valid = exchange.all_to_all(flags.view(torch.uint8).unbind(1)).view(torch.bool)
     else:
         bufs, sent = pack_plain(ledgers, offsets, bl, K, n, go)
-        recv = exchange.all_to_all(bufs)  # [local shards, n, K, words]
+        recv, valid = exchange.all_to_all(bufs), None  # [local shards, n, K, words]
     recv = recv.reshape(-1, recv.shape[-1])
+    valid = recv[:, -1] if valid is None else valid.reshape(-1)
     cand, c = {}, 0
     for name in MIGRATE_FIELDS:
         dt = getattr(ledgers[0], name).dtype
         w = dt.itemsize // 4
         cand[name] = recv[:, c:c + w].view(dt)[:, 0]
         c += w
-    return insert_arrivals(ledgers, cand, recv[:, -1]), sent
+    return insert_arrivals(ledgers, cand, valid), sent
 
 
 class _CountRead:
@@ -424,6 +463,7 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
     # count kernel sums over the local shards are summed over the group too
     remote = len(shards) != n
     work = counts.scratch(len(shards), mesh.device)  # the count kernel's
+    moves = MigrateScratch()  # the migration kernel's, sized by the prologue
     offsets = [s * bl for s in shards]
     owns = [owned_range(mesh, prm, n, s) for s in shards]
     # the plain census interleaves its rounds by an iteration budget (JAX
@@ -455,6 +495,8 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
     seeds = {"buf": None, "now": None}
 
     def prologue(states, dt):
+        if can_migrate and dev.type == "cuda":
+            moves.reserve(len(states), states[0].particles.capacity, n, dev)
         if external:
             window.copy_(torch.tensor(external.window(states[0].t, dt), dtype=dtype,
                                       pin_memory=dev.type == "cuda"), non_blocking=True)
@@ -551,7 +593,8 @@ def build_spatial_step_core(mesh, cfg: RunConfig, exchange, rounds_per_batch=Non
             drop = n_sent = None
             if can_migrate:
                 K = jb.migration_buffer_k or max(64, ps[0].capacity // (2 * n))
-                drop, n_sent = migrate(ps, offsets, bl, K, exchange, go=go)
+                drop, n_sent = migrate(ps, offsets, bl, K, exchange, go=go,
+                                       work=moves.tensors[-1] if moves.tensors else None)
         with record_function("spatial.round.counts"):
             counts.round_counts(ps, t, it, ev, drop, n_sent, go, prm.max_iters, work)
             if remote:

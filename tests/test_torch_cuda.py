@@ -693,9 +693,9 @@ def test_owned_range_blocks_kernel_matches_plain(gpu, shard):
 def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
     """The stepdiff slab through the spatial decomposition at 4 in-process shards
     on the card, 2 steps: every round queued (a batch's no-op rounds too) makes
-    one launch of the block-range route over all 4 shards and one pass (two
-    launches) of the migration kernel, the tally holds the live weights, and a
-    rerun is bitwise identical."""
+    one launch of the block-range route over all 4 shards and one launch of the
+    migration kernel, the tally holds the live weights, and a rerun is bitwise
+    identical."""
     mods = {"parthenon/mesh/nx1": 32, "parthenon/meshblock/nx1": 4,
             "jaybenne/num_particles": 8000, "jaybenne/decomposition": "spatial",
             "jaybenne/n_devices": 4, "jaybenne/dt": "1.e-11", "parthenon/time/tlim": "2.e-11",
@@ -711,8 +711,8 @@ def test_spatial_path_runs_through_owned_range_kernel(gpu, tmp_path):
         rounds = sum(h["migration_rounds"] for h in sim.history)
         assert 0 < rounds <= core.rounds_run
         assert cuda_lib.LAUNCHES[name] == before + core.rounds_run  # one a round queued
-        # the migration kernel: its two launches a round queued
-        assert cuda_lib.LAUNCHES["migrate_pack"] == before_pack + 2 * core.rounds_run
+        # the migration kernel: its one launch a round queued
+        assert cuda_lib.LAUNCHES["migrate_pack"] == before_pack + core.rounds_run
     a, b = (s.state.fields.energy_tally for s in sims)
     assert a.is_cuda and torch.equal(a, b)
     sim = sims[0]
@@ -1679,26 +1679,18 @@ _MIGRATE_CASES = {
     "f64": (8, 8, 5000, 3, 0, 500, 0.6, True, True),
     "f64_overflow": (8, 8, 3000, 3, 0, 10, 0.9, True, True),
     "one_of_four": (1, 4, 7000, 5, 10, 200, 0.7, False, True),
+    # slices of 64 tiles and more: the look-back crosses many windows of 32
+    "n2_many_tiles": (2, 2, 70000, 3, 0, 18000, 0.5, False, True),
+    "n8_many_tiles_f64": (8, 8, 66000, 2, 0, 3000, 0.6, True, True),
 }
 
 
-@pytest.mark.parametrize("case", sorted(_MIGRATE_CASES))
-def test_migrate_kernel_matches_plain(gpu, case):
-    """The migration kernel's pass over every local shard (csrc/migrate_kernel.cu,
-    two launches) against its plain version's stable sort on random ledgers:
-    the ledger after it and the sent counts bitwise, every buffer row whose valid
-    word is 1 bitwise the plain row, every other row's valid word 0, in the
-    receivers' layout (as the in-process exchange stacks the plain buffers);
-    then the whole round through the in-process exchange and the insert, every
-    column and the dropped and sent counts bitwise."""
-    from jaybenne_tpu_torch.parallel import exchange, spatial
-    from jaybenne_tpu_torch.parallel.sharding import split_ledger
-
+def _migrate_ledger(gpu, case, rng):
+    """A random joined ledger of ``_MIGRATE_CASES[case]``'s shape on the card:
+    half of the live slots in their own shard's blocks, the rest anywhere."""
     m, n, cap_l, bl, off0, K, share, wide, go = _MIGRATE_CASES[case]
-    rng = np.random.default_rng(sorted(_MIGRATE_CASES).index(case))
-    dt = torch.float64 if wide else torch.float32
     cap = m * cap_l
-    p0 = empty_ledger(cap, dt, gpu)
+    p0 = empty_ledger(cap, torch.float64 if wide else torch.float32, gpu)
     for k in ("x", "y", "z", "vx", "vy", "vz", "tau", "weight", "energy"):
         getattr(p0, k).copy_(torch.from_numpy(rng.standard_normal(cap)))
     for k in ("i", "j", "k", "face", "leak"):
@@ -1709,19 +1701,45 @@ def test_migrate_kernel_matches_plain(gpu, case):
                                              rng.integers(0, n * bl, cap))))
     p0.alive.copy_(torch.from_numpy(rng.random(cap) < share))
     p0.absorbed.copy_(torch.from_numpy(rng.random(cap) < 0.1))
+    return p0
+
+
+def _pack_bitwise(buf, flags, sent, want, plain_sent):
+    """The kernel's pack against the plain version's (``pack_plain``'s buffers
+    stacked in the receivers' layout): the sent counts equal, the flags its valid
+    column, and every row whose flag is set bitwise the plain row."""
+    valid = want[..., -1] == 1
+    assert buf.shape == want.shape and flags.shape == valid.shape and flags.dtype == torch.bool
+    assert torch.equal(sent, plain_sent)
+    assert torch.equal(flags, valid)
+    assert torch.equal(buf[valid], want[valid])
+    return valid
+
+
+@pytest.mark.parametrize("case", sorted(_MIGRATE_CASES))
+def test_migrate_kernel_matches_plain(gpu, case):
+    """The migration kernel's one launch over every local shard
+    (csrc/migrate_kernel.cu) against its plain version's stable sort on random
+    ledgers: the ledger after it and the sent counts bitwise, the flags the plain
+    buffers' valid column, every row whose flag is set bitwise the plain row, in
+    the receivers' layout (as the in-process exchange stacks the plain buffers);
+    then the whole round through the in-process exchange and the insert, every
+    column and the dropped and sent counts bitwise."""
+    from jaybenne_tpu_torch.parallel import exchange, spatial
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    m, n, cap_l, bl, off0, K, share, wide, go = _MIGRATE_CASES[case]
+    p0 = _migrate_ledger(gpu, case, np.random.default_rng(sorted(_MIGRATE_CASES).index(case)))
     offsets = [off0 + s * bl for s in range(m)]
     flag = torch.tensor(go, device=gpu)
     a, b = p0.clone(), p0.clone()
     before = cuda_lib.LAUNCHES["migrate_pack"]
-    buf, sent = spatial._pack_cuda(split_ledger(a, m), offsets, bl, K, n, flag)
-    assert cuda_lib.LAUNCHES["migrate_pack"] == before + 2
+    buf, flags, sent = spatial._pack_cuda(split_ledger(a, m), offsets, bl, K, n, flag)
+    assert cuda_lib.LAUNCHES["migrate_pack"] == before + 1
     want, plain_sent = spatial.pack_plain(split_ledger(b, m), offsets, bl, K, n, flag)
     want = torch.stack(want, dim=1)
-    assert buf.shape == want.shape == (n, m, K, spatial.row_words(p0))
-    valid = want[..., -1] == 1
-    assert torch.equal(sent, plain_sent)
-    assert torch.equal(buf[..., -1] == 1, valid) and bool((buf[..., -1][~valid] == 0).all())
-    assert torch.equal(buf[valid], want[valid])
+    assert buf.shape == (n, m, K, spatial.row_words(p0))
+    valid = _pack_bitwise(buf, flags, sent, want, plain_sent)
     for f in dataclasses.fields(a):
         assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
     if go:
@@ -1748,6 +1766,60 @@ def test_migrate_kernel_matches_plain(gpu, case):
             for f in dataclasses.fields(a):
                 x, y = getattr(a, f.name), getattr(b, f.name)
                 assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), f.name
+
+
+def test_migrate_kernel_graph_replays(gpu):
+    """The migration kernel's launch captured in a CUDA graph with the scratch of
+    a step (``MigrateScratch``, made before the capture) and replayed on fresh
+    ledgers copied into the captured one: twice with go true, each bitwise the
+    plain pack (sent, flags, rows, the ledger after it), with an eager launch on
+    the same scratch between them; then once with go false, which changes no
+    column and sets no flag. The status words and the ticket are left ready by
+    every launch, and no memset is queued."""
+    from jaybenne_tpu_torch.parallel import spatial
+    from jaybenne_tpu_torch.parallel.sharding import split_ledger
+
+    case = "n8_several_tiles"
+    m, n, cap_l, bl, off0, K = _MIGRATE_CASES[case][:6]
+    offsets = [off0 + s * bl for s in range(m)]
+    rng = np.random.default_rng(31)
+    led = _migrate_ledger(gpu, case, rng)
+    go = torch.ones((), dtype=torch.bool, device=gpu)
+    work = spatial.MigrateScratch().reserve(m, cap_l, n, gpu)
+
+    def pack():
+        return spatial._pack_cuda(split_ledger(led, m), offsets, bl, K, n, go, work)
+
+    pack()  # builds the library, warms the launch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        buf, flags, sent = pack()
+    for k, (flag, eager) in enumerate(((True, True), (True, False), (False, False))):
+        fresh = _migrate_ledger(gpu, case, rng)
+        for f in dataclasses.fields(led):
+            getattr(led, f.name).copy_(getattr(fresh, f.name))
+        go.fill_(flag)
+        graph.replay()
+        torch.cuda.synchronize()
+        plain = fresh.clone()
+        want, plain_sent = spatial.pack_plain(split_ledger(plain, m), offsets, bl, K, n, go)
+        valid = _pack_bitwise(buf, flags, sent, torch.stack(want, dim=1), plain_sent)
+        for f in dataclasses.fields(led):
+            assert torch.equal(getattr(led, f.name), getattr(plain, f.name)), (k, f.name)
+        if flag:
+            assert int(sent.sum()) > 0
+        else:
+            assert int(sent.sum()) == 0 and not bool(valid.any())
+            for f in dataclasses.fields(led):
+                assert torch.equal(getattr(led, f.name), getattr(fresh, f.name)), f.name
+        if eager:  # the same scratch between two replays
+            other = _migrate_ledger(gpu, case, rng)
+            q, r = other.clone(), other.clone()
+            got = spatial._pack_cuda(split_ledger(q, m), offsets, bl, K, n, go, work)
+            want2, sent2 = spatial.pack_plain(split_ledger(r, m), offsets, bl, K, n, go)
+            _pack_bitwise(*got, torch.stack(want2, dim=1), sent2)
+            assert torch.equal(q.alive, r.alive)
 
 
 @pytest.mark.parametrize("path", ["stepdiff_8_shards", "f64"])

@@ -1,15 +1,19 @@
 """The spatial migration's sort and pack by scans on the CPU: a mirror in PyTorch
-of the migration kernel's tile plan (``csrc/migrate_kernel.cu``: a tile's
-in-transit slots counted by destination, the counts of the earlier tiles of its
-slice added, and each slot ranked in rounds of consecutive slots by its warp's
-lanes of the same destination and the lower warps' counts) against the plain
-version's stable sort (``spatial.migration_map``, ``pack_plain``): the same
-destinations, ranks, rows, sent slots and counts, over 2, 3 and 8 shards, with K
-overflowing, ``go`` false, float64 columns (the pad word), empty shards and
-slices of several tiles; and the port's plain ``migrate`` against the JAX
-package's (``jaybenne_tpu/parallel/spatial.py::migrate`` under ``shard_map`` on
-the host's CPU devices) on the same ledgers: every column bitwise, the counts
-equal."""
+of the migration kernel's one-launch plan (``csrc/migrate_kernel.cu``: a tile's
+in-transit slots counted by destination a round's warp at a time, those counts
+scanned into each warp's offset in the tile, the tile's prefix from a decoupled
+look-back over the tiles before it in its slice, each slot ranked by its tile's
+prefix, its warp's offset and its place among its warp's lanes of the same
+destination, and the slice's last tile writing the flags) against the plain
+version's stable sort (``spatial.migration_map``, ``pack_plain``): the look-back's
+prefixes the exclusive scan of the tile counts whatever the predecessors had
+published, the same destinations, ranks, rows, sent slots and counts, and the
+flags ``pack_plain``'s valid column, over 2, 3 and 8 shards, with K overflowing,
+``go`` false, float64 columns (the pad word), empty shards and slices of several
+and of 64 or more tiles; the insert fed the flags apart as fed the rows' valid
+column; and the port's plain ``migrate`` against the JAX package's
+(``jaybenne_tpu/parallel/spatial.py::migrate`` under ``shard_map`` on the host's
+CPU devices) on the same ledgers: every column bitwise, the counts equal."""
 
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from jaybenne_tpu import particles as jparticles
 from jaybenne_tpu.parallel import spatial as jspatial
 from jaybenne_tpu_torch.parallel import exchange, spatial
 from jaybenne_tpu_torch.parallel.sharding import split_ledger
-from jaybenne_tpu_torch.particles import ParticleLedger
+from jaybenne_tpu_torch.particles import ParticleLedger, insert_arrivals
 
 THREADS = spatial.MIGRATE_THREADS
 ITEMS = spatial.MIGRATE_TILE // THREADS
@@ -57,14 +61,55 @@ def _torch(cols):
     return ParticleLedger(**{k: torch.from_numpy(v.copy()) for k, v in cols.items()})
 
 
-def mirror_plan(joined, m, n, cap_l, bl, off0, K, go=True):
-    """The migration kernel's plan, thread by thread (vectorised): the count
-    launch's per-tile counts by destination, then the pack launch's ranks, each
-    the counts of the earlier tiles of its slice, of the earlier rounds of its
-    tile, of the lower warps in its round and of the lower lanes of its warp with
-    its destination. Returns (dest, rank) of every slot (dest n where it is not in
-    transit), each slice's in-transit totals by destination and its sent count,
-    and the pack launch's tiles' shares of the empty rows' valid words."""
+def look_back(agg, rng, ready=0.5):
+    """The tiles' exclusive prefixes by the kernel's look-back over ``agg`` ([m
+    local shards, lt tiles, n destinations]: each tile's count): the tiles in
+    ticket order (a slice's in order), each walking back over the tiles before it
+    in its slice 32 at a time (lane l reads the tile l before the window's top),
+    each word an inclusive prefix where that tile had published one when read (a
+    slice's first tile always; another with chance ``ready``, drawn from ``rng``
+    for each tile and destination), else the tile's aggregate; a window adds its
+    words up to and including its nearest prefix and ends the walk there, or all
+    32 and moves on. Each tile's inclusive prefix is its walk's sum plus its
+    count, as the kernel publishes it."""
+    a = agg.numpy()
+    m, lt, n = a.shape
+    excl, incl = np.zeros_like(a), np.zeros_like(a)
+    for s in range(m):
+        incl[s, 0] = a[s, 0]
+        for j in range(1, lt):
+            prefix = rng.random((j, n)) < ready
+            prefix[0] = True
+            word = np.where(prefix, incl[s, :j], a[s, :j])
+            total = np.zeros(n, dtype=a.dtype)
+            done = np.zeros(n, dtype=bool)
+            for top in range(j - 1, -1, -32):
+                pred = top - np.arange(32)
+                live = pred >= 0
+                p = np.where(live[:, None], prefix[np.maximum(pred, 0)], True)  # [32, n]
+                w = np.where(live[:, None], word[np.maximum(pred, 0)], 0)
+                first = np.where(p.any(0), p.argmax(0), 32)
+                take = np.arange(32)[:, None] <= first[None, :]
+                total += np.where(done, 0, (w * take).sum(0))
+                done |= p.any(0)
+                if done.all():
+                    break
+            excl[s, j], incl[s, j] = total, total + a[s, j]
+    return torch.from_numpy(excl)
+
+
+def mirror_plan(joined, m, n, cap_l, bl, off0, K, go=True, rng=None):
+    """The migration kernel's plan, thread by thread (vectorised): each round's
+    warp's count by destination (__match_any_sync's leaders), scanned over the
+    tile's rounds and warps into each warp's offset and the tile's count, the
+    tile's prefix from the look-back (``look_back``), each slot's rank its tile's
+    prefix, its warp's offset and its place among its warp's lanes with its
+    destination; the slice's last tile's inclusive prefix its counts. Returns
+    (dest, rank) of every slot (dest n where it is not in transit), each tile's
+    count and prefix ([m, lt, n]), each slice's counts by destination and its sent
+    count, and the flags in the receivers' layout [n, m, K] (1 below min(count,
+    K))."""
+    rng = np.random.default_rng(0) if rng is None else rng
     lt = max(1, -(-cap_l // (ITEMS * THREADS)))
     alive = joined.alive.view(m, cap_l)
     block = joined.block.view(m, cap_l).long()
@@ -75,47 +120,37 @@ def mirror_plan(joined, m, n, cap_l, bl, off0, K, go=True):
     pad[:, :cap_l] = dest
     # slot e of tile j is round e // THREADS, warp (e % THREADS) // 32, lane e % 32
     onehot = torch.nn.functional.one_hot(pad.view(m, lt, ITEMS, WARPS, 32), n + 1)[..., :n]
-    counts = onehot.sum(dim=(2, 3, 4))  # the count launch: [m, lt, n]
-    before_tile = counts.cumsum(1) - counts
-    tot = counts.sum(1)
-    warp = onehot.sum(4)  # a round's slots of each warp by destination
-    per_round = warp.sum(3)
-    before_round = per_round.cumsum(2) - per_round
-    lower_warps = warp.cumsum(3) - warp
+    warps = onehot.sum(4).reshape(m, lt, ITEMS * WARPS, n)  # each round's warp's counts
+    offsets = (warps.cumsum(2) - warps).view(m, lt, ITEMS, WARPS, 1, n)
+    agg = warps.sum(2)  # the tile's count by destination
+    excl = look_back(agg, rng)
     lower_lanes = onehot.cumsum(4) - onehot  # popc(match_any & lanes below)
-    ranks = (before_tile[:, :, None, None, None] + before_round[:, :, :, None, None]
-             + lower_warps[..., None, :] + lower_lanes)
+    ranks = excl[:, :, None, None, None, :] + offsets + lower_lanes
     rank = ranks.gather(-1, pad.clamp(max=n - 1).view(m, lt, ITEMS, WARPS, 32, 1))
     rank = rank.view(m, -1)[:, :cap_l]
-    sent = torch.minimum(tot, torch.tensor(K)).sum(1)
-    rows = n * K
-    chunk = -(-rows // lt)
-    shares = [(j * chunk, min(rows, (j + 1) * chunk)) for j in range(lt)]
-    return dest, rank, tot, sent, shares
+    tot = excl[:, -1] + agg[:, -1]
+    lim = torch.minimum(tot, torch.tensor(K))
+    flags = (torch.arange(K) < lim[..., None]).permute(1, 0, 2)
+    return dest, rank, agg, excl, tot, lim.sum(1), flags
 
 
 def mirror_rows(joined, m, n, cap_l, K, dest, rank, words):
-    """The rows the pack launch writes, from the plan (``mirror_plan``): each
-    in-transit slot of rank below K puts its columns' int32 words (a float64
-    column's low word first), a zero pad and the valid word 1 into row rank of
-    its destination's buffer; every other row's valid word is 0 (its other words
-    here 0). Returns the [m, n, K, words] buffers and the slots sent."""
-    buf = torch.zeros((m, n, K, words), dtype=torch.int32)
-    sent = torch.zeros(m * cap_l, dtype=torch.bool)
-    for s in range(m):
-        for e in range(cap_l):
-            d, r = int(dest[s, e]), int(rank[s, e])
-            if d == n or r >= K:
-                continue
-            q, w = s * cap_l + e, 0
-            for name in spatial.MIGRATE_FIELDS:
-                col = getattr(joined, name)
-                for word in col[q:q + 1].view(torch.int32).tolist():
-                    buf[s, d, r, w] = word
-                    w += 1
-            buf[s, d, r, words - 1] = 1
-            sent[q] = True
-    return buf, sent
+    """The rows the kernel writes, from the plan (``mirror_plan``): each in-transit
+    slot of rank below K puts its columns' int32 words (a float64 column's low
+    word first), a zero pad and the valid word 1 into row rank of its
+    destination's buffer, in the receivers' layout [n, m, K, words]; every other
+    row is 0 here (the kernel leaves it unwritten). Returns the buffers and the
+    slots sent."""
+    ok = (dest < n) & (rank < K)
+    s, e = torch.nonzero(ok, as_tuple=True)
+    q = s * cap_l + e
+    cols = [spatial._words(getattr(joined, name))[q] for name in spatial.MIGRATE_FIELDS]
+    used = sum(c.shape[1] for c in cols)
+    cols += [torch.zeros((q.numel(), words - used - 1), dtype=torch.int32),
+             torch.ones((q.numel(), 1), dtype=torch.int32)]
+    buf = torch.zeros((n, m, K, words), dtype=torch.int32)
+    buf[dest[ok], s, rank[ok]] = torch.cat(cols, dim=1)
+    return buf, ok.flatten()
 
 
 CASES = {  # m local shards, n shards, slots a shard, blocks a shard, the first
@@ -131,20 +166,26 @@ CASES = {  # m local shards, n shards, slots a shard, blocks a shard, the first
     "all_empty": (2, 2, 300, 2, 0, 64, 0.0, (), False, True),
     # one process's shard of a group (backend (a)): shard 2 of 4
     "one_of_four": (1, 4, 3000, 5, 10, 200, 0.7, (), False, True),
+    # slices of 64 tiles and more: the look-back crosses many windows of 32
+    "n2_many_tiles": (2, 2, 66000, 3, 0, 18000, 0.5, (), False, True),
+    "four_of_eight_many_tiles_overflow": (4, 8, 66000, 2, 0, 1500, 0.6, (), False, True),
+    "f64_many_tiles": (3, 3, 66000, 2, 0, 12000, 0.4, (1,), True, True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_plan_is_the_stable_sort(case):
-    """The mirror of the kernel's plan gives every slot the destination and rank
-    of the plain version's stable sort, the same sent slots and counts, and
-    ``pack_plain``'s rows; its tiles' shares of the empty rows cover each row
-    once."""
+    """The mirror of the kernel's plan gives every tile the exclusive scan of the
+    tile counts as its prefix, every slot the destination and rank of the plain
+    version's stable sort, the same sent slots and counts, ``pack_plain``'s rows,
+    and flags equal to ``pack_plain``'s valid column."""
     m, n, cap_l, bl, off0, K, share, empty, wide, go = CASES[case]
     rng = np.random.default_rng(sorted(CASES).index(case))
     dtype = np.float64 if wide else np.float32
     joined = _torch(_ledger(m, n, cap_l, bl, off0, share, dtype, rng, empty))
-    dest, rank, tot, sent, shares = mirror_plan(joined, m, n, cap_l, bl, off0, K, go)
+    dest, rank, agg, excl, tot, sent, flags = mirror_plan(joined, m, n, cap_l, bl, off0, K,
+                                                          go, rng)
+    assert torch.equal(excl, agg.cumsum(1) - agg)
     flag = torch.tensor(go)
     for s, p in enumerate(split_ledger(joined, m)):
         src, plain_sent = spatial.migration_map(p, off0 + s * bl, bl, n, K, flag)
@@ -154,25 +195,67 @@ def test_kernel_plan_is_the_stable_sort(case):
         assert torch.equal(src, want)
         assert torch.equal(plain_sent, ok)
         assert int(sent[s]) == int(ok.sum())
-    covered = torch.zeros(n * K, dtype=torch.int64)
-    for a, b in shares:
-        covered[a:b] += 1
-    assert bool((covered == 1).all())
     words = spatial.row_words(joined)
     assert words == (26 if wide else 16)
     want_buf, want_sent = mirror_rows(joined, m, n, cap_l, K, dest, rank, words)
     q = joined.clone()
     bufs, plain_counts = spatial.pack_plain(split_ledger(q, m), [off0 + s * bl for s in range(m)],
                                             bl, K, n, flag)
-    assert torch.equal(torch.stack(bufs), want_buf)
+    got = torch.stack(bufs, dim=1)  # the receivers' layout
+    assert torch.equal(got, want_buf)
+    assert torch.equal(got[..., -1] == 1, flags) and bool((got[..., -1] <= 1).all())
     assert torch.equal(plain_counts, sent)
     assert torch.equal(q.alive, joined.alive & ~want_sent)
     if not go or case == "all_empty":
-        assert int(sent.sum()) == 0 and bool((torch.stack(bufs) == 0).all())
+        assert int(sent.sum()) == 0 and bool((got == 0).all()) and not bool(flags.any())
     if "overflow" in case:
         assert bool((tot > K).any())
+    if "many_tiles" in case:
+        assert agg.shape[1] >= 64
     if empty:
         assert all(int(sent[s]) == 0 for s in empty)
+
+
+@pytest.mark.parametrize("ready", [0.0, 0.05, 0.5, 1.0])
+def test_look_back_is_the_exclusive_scan(ready):
+    """The look-back (``look_back``) gives each tile the exclusive scan of its
+    slice's tile counts whatever its predecessors had published when it read them:
+    none but the slice's first tile a prefix (walks across several windows of
+    32), few, half, or every one."""
+    rng = np.random.default_rng(int(ready * 100))
+    agg = torch.from_numpy(rng.integers(0, 40, (3, 150, 5)))
+    assert torch.equal(look_back(agg, rng, ready), agg.cumsum(1) - agg)
+
+
+@pytest.mark.parametrize("wide,K", [(False, 300), (True, 40)], ids=["f32", "f64_overflow"])
+def test_insert_takes_the_flags_apart(wide, K):
+    """``insert_arrivals`` fed the flags apart (one bool a row, as the kernel
+    writes them) gives every ledger column and each shard's dropped count bitwise
+    as fed the rows' valid column (``pack_plain``'s), with ledgers full enough
+    that some arrivals are dropped."""
+    m = n = 3
+    cap_l, bl = 2500, 2
+    rng = np.random.default_rng(7 + wide)
+    cols = _ledger(m, n, cap_l, bl, 0, 0.97, np.float64 if wide else np.float32, rng)
+    base = _torch(cols)  # packed from a clone: the senders' slots stay taken
+    bufs, _ = spatial.pack_plain(split_ledger(base.clone(), m), [s * bl for s in range(m)], bl,
+                                 K, n)
+    recv = exchange.InProcess(n).all_to_all(bufs)
+    flags = (recv[..., -1] == 1).contiguous()
+    recv = recv.reshape(-1, recv.shape[-1])
+    cand, c = {}, 0
+    for name in spatial.MIGRATE_FIELDS:
+        dt = getattr(base, name).dtype
+        cand[name] = recv[:, c:c + dt.itemsize // 4].view(dt)[:, 0]
+        c += dt.itemsize // 4
+    a, b = base.clone(), base.clone()
+    drop_a = insert_arrivals(split_ledger(a, m), cand, recv[:, -1])
+    drop_b = insert_arrivals(split_ledger(b, m), cand, flags.reshape(-1))
+    assert int(flags.sum()) > 0 and int(drop_a.sum()) > 0
+    assert torch.equal(drop_a, drop_b)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8)), f.name
 
 
 def _jax(fn, wide):
@@ -250,8 +333,9 @@ def test_go_false_round_changes_nothing():
 
 def test_tile_plan_is_the_kernels():
     """MIGRATE_TILE and MIGRATE_THREADS, which size the kernel's scratch and drive
-    the mirror above, are csrc/migrate_kernel.cu's kTile and kThreads (the C entry
-    also refuses a scratch of another size)."""
+    the mirror above, are csrc/migrate_kernel.cu's kTile and kThreads, and the
+    scratch is its ticket and a status word a tile and destination (the C entry
+    refuses a smaller one)."""
     import pathlib
     import re
 
@@ -260,4 +344,13 @@ def test_tile_plan_is_the_kernels():
     assert int(consts["kThreads"]) == spatial.MIGRATE_THREADS
     assert int(consts["kThreads"]) * int(consts["kItems"]) == spatial.MIGRATE_TILE
     assert "constexpr int kTile = kThreads * kItems;" in src
-    assert "scratch_len != m * ((cap_l + kTile - 1) / kTile) * n" in src
+    assert "const long long lt = (cap_l + kTile - 1) / kTile;" in src
+    assert "scratch_len < 1 + m * lt * n)" in src
+    tile = spatial.MIGRATE_TILE
+    assert spatial.migrate_scratch_len(8, 81 * tile - 5, 8) == 1 + 8 * 81 * 8
+    scratch = spatial.MigrateScratch()
+    first = scratch.reserve(2, tile + 1, 2, "cpu")
+    assert first.numel() == 1 + 2 * 2 * 2 and not bool(first.any())
+    assert scratch.reserve(2, 2 * tile, 2, "cpu") is first  # large enough: kept
+    grown = scratch.reserve(2, 2 * tile + 1, 2, "cpu")
+    assert grown.numel() == 1 + 2 * 3 * 2 and scratch.tensors == [first, grown]
